@@ -1,0 +1,107 @@
+"""Command-line interface of the port: the `run` and `spearman` subcommands
+of chromosome3d_tpu.cli with the flags the ported slice supports.
+
+  python -m chromosome3d_tpu_torch run -i <IF matrix> -o <outdir> [-k K] [-a ALPHA]
+      [-m MODELS] [--fast | --turbo] [--no-violation-reports]
+  python -m chromosome3d_tpu_torch spearman <matrix> <pdb-or-dir> [range]
+
+`run` computes on the first CUDA device when one is present (the kernels
+build at first use) and on the CPU, with the kernels' plain twins, otherwise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+
+def _make_config(args):
+    from chromosome3d_tpu_torch.config import (
+        AnnealConfig,
+        PipelineConfig,
+        RestraintConfig,
+        fast_anneal,
+        turbo_anneal,
+    )
+
+    anneal = AnnealConfig()
+    if args.turbo:
+        anneal = turbo_anneal(anneal)
+    if args.fast:
+        anneal = fast_anneal(anneal)
+    return PipelineConfig(
+        model_count=args.model_count,
+        restraints=RestraintConfig(kscaling=args.kscaling, alpha=args.alpha),
+        anneal=anneal,
+        emit_violation_reports=not args.no_violation_reports,
+    )
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="chromosome3d_tpu_torch",
+        description="3D chromosome reconstruction from Hi-C IF matrices "
+                    "(PyTorch / CUDA port)",
+    )
+    sub = parser.add_subparsers(dest="command")
+
+    run = sub.add_parser("run", help="reconstruct one chromosome")
+    run.add_argument("-i", "-if", "--input", required=True,
+                     help="IF matrix: dense text")
+    run.add_argument("-o", "--output", required=True, help="output directory")
+    run.add_argument("-k", "--kscaling", type=float, default=11.0,
+                     help="distance scaling K (default 11)")
+    run.add_argument("-a", "--alpha", type=float, default=0.5,
+                     help="IF exponent alpha (default 0.5; published models used 1.1)")
+    run.add_argument("-m", "--model-count", type=int, default=20,
+                     help="models to build (default 20; top 5 kept by NOE energy)")
+    run.add_argument("--fast", action="store_true",
+                     help="reduced annealing schedule for smoke runs")
+    run.add_argument("--turbo", action="store_true",
+                     help="production speed preset: ~10x fewer steps")
+    run.add_argument("--no-violation-reports", action="store_true",
+                     help="skip the per-model violation report files")
+
+    sp = sub.add_parser("spearman", help="score models vs an IF matrix")
+    sp.add_argument("matrix", help="IF matrix file")
+    sp.add_argument("pdb", help="PDB file or directory of PDBs")
+    sp.add_argument("range", nargs="?", type=int, default=3,
+                    help="|i-j| short-range cutoff (default 3)")
+
+    args = parser.parse_args(argv)
+    if args.command is None:
+        parser.print_help()
+        return 2
+
+    if args.command == "run":
+        from chromosome3d_tpu_torch.pipeline import run_pipeline
+
+        summary = run_pipeline(args.input, args.output, _make_config(args))
+        print(json.dumps(summary))
+        return 0
+
+    if args.command == "spearman":
+        from chromosome3d_tpu.metrics import spearman_if_model
+        from chromosome3d_tpu_torch.io import load_if_matrix, load_pdb_dir, read_ca_pdb
+
+        matrix = load_if_matrix(args.matrix)
+        paths = [args.pdb] if os.path.isfile(args.pdb) else load_pdb_dir(args.pdb)
+        scores = {}
+        for path in paths:
+            coords = read_ca_pdb(path)
+            if args.range >= len(coords):
+                print("Spearman Correlation coefficient = -")
+                return 0
+            scores[path] = spearman_if_model(matrix, coords, args.range)
+        print("SRCC\tPDB")
+        for path in sorted(scores, key=lambda p: -scores[p]):
+            print(f"{scores[path]:.3f}\t{path}")
+        return 0
+
+    return 2
+
+
+if __name__ == "__main__":
+    sys.exit(main())

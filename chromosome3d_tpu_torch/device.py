@@ -1,0 +1,35 @@
+"""Device resolution and the port's numeric settings.
+
+float32 matrix products run in full float32: the JAX reference runs them at
+full precision on the CPU, and mds_init's subspace iteration (`b @ v`,
+solver/init.py) loses the embedding's small eigen-gaps in TF32. PyTorch's
+default already keeps `matmul.allow_tf32` off, but `cudnn.allow_tf32` is on
+by default, so both are stated here, once, when the package is imported.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """The device a run computes on.
+
+    None picks the first CUDA device when one is present and the CPU
+    otherwise (the CPU runs every kernel's plain PyTorch twin). An explicit
+    CUDA device that is absent raises — nothing falls back silently."""
+    if device is None:
+        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {dev} was asked for but torch.cuda.is_available() is False"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device type {dev.type!r} (cuda or cpu)")
+    return dev

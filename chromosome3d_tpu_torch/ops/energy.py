@@ -1,0 +1,231 @@
+"""The distance-geometry energy model in plain PyTorch — the port's twin of
+chromosome3d_tpu/ops/energy.py and the semantic reference its kernels are
+held against.
+
+Terms (identical to the JAX package):
+
+  * NOE restraints — soft-square flat-bottom well on every restrained pair,
+    viol = relu(d - hi) + relu(lo - d), with linear tails beyond noe_rswitch;
+    each unordered pair is stored twice, so the sum carries 1/2.
+  * chain bonds    — harmonic |x_{i+1} - x_i| ~ bond_length (+ the optional
+    angle term, which the port's kernels refuse; see solver.anneal).
+  * vdw repel      — relu(vdw_radius - d)^2 on nonbonded pairs (|i-j| >= 2).
+
+Padding beads are masked through `bead_mask`. The containers are frozen
+dataclasses: restraint tensors live on the compute device; the per-step
+weights are host scalars (rounded to float32, as the JAX package holds them)
+because the kernels take them by value.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+_EPS = 1e-12
+
+
+def f32(x) -> float:
+    """A Python float holding exactly the float32 value of x — the rounding
+    the JAX package applies to every scalar it keeps."""
+    return float(np.float32(x))
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseRestraints:
+    """Four-tensor restraint form: well bounds, existence mask, weights."""
+
+    lo: torch.Tensor      # (L, L) float32
+    hi: torch.Tensor      # (L, L) float32
+    mask: torch.Tensor    # (L, L) float32
+    weight: torch.Tensor  # (L, L) float32
+
+
+@dataclasses.dataclass(frozen=True)
+class ExactRestraints:
+    """Two-tensor form for exact restraints (lo == hi == target): the target
+    and the folded weight w = mask * weight. The lo/hi/mask/weight views make
+    it a drop-in for every DenseRestraints consumer (as in the JAX package)."""
+
+    target: torch.Tensor  # (L, L) float32
+    w: torch.Tensor       # (L, L) float32
+
+    @property
+    def lo(self):
+        return self.target
+
+    @property
+    def hi(self):
+        return self.target
+
+    @property
+    def mask(self):
+        return (self.w > 0).to(self.w.dtype)
+
+    @property
+    def weight(self):
+        return self.w
+
+
+@dataclasses.dataclass(frozen=True)
+class EnergyWeights:
+    """Per-step energy weights (the anneal schedule changes vdw and
+    vdw_radius). Host scalars holding float32 values (see f32)."""
+
+    noe: float
+    bond: float
+    bond_length: float
+    vdw: float
+    vdw_radius: float     # repel_scale * bead radius (effective)
+    noe_rswitch: float = 1e9
+    angle: float = 0.0
+
+
+def auto_weight_exponent(L: int) -> float:
+    """Length-adaptive stress exponent p*(L) = clip(100 / L^0.85, 0.5, 2.5)
+    (chromosome3d_tpu.ops.energy.auto_weight_exponent)."""
+    return float(np.clip(100.0 / (L ** 0.85), 0.5, 2.5))
+
+
+def _restraint_weights(target, mask_np, weighting: str, weight_exponent):
+    """Per-restraint weights as float32 host numpy, zero where mask is
+    false: "relative" = 1/target^p normalised to mean 1 over the restraint
+    set, "absolute" = 1. Host float64 code, bit-identical to the JAX
+    package's."""
+    if weight_exponent is None:
+        weight_exponent = auto_weight_exponent(target.shape[0])
+    if weighting == "relative":
+        w = np.where(mask_np, 1.0 / np.maximum(target, 1.0) ** weight_exponent, 0.0)
+        denom = w[mask_np].mean() if mask_np.any() else 1.0
+        return (w / max(denom, 1e-30)).astype(np.float32)
+    elif weighting == "absolute":
+        return mask_np.astype(np.float32)
+    raise ValueError(f"unknown weighting {weighting!r}")
+
+
+def _to_device(arrays, device):
+    """Copies of host arrays as tensors on `device`."""
+    return tuple(torch.tensor(np.asarray(a), device=device) for a in arrays)
+
+
+def exact_restraints_from_numpy(
+    r, weighting: str = "relative", weight_exponent: Optional[float] = None,
+    as_numpy: bool = False, device="cpu",
+) -> ExactRestraints:
+    """chromosome3d_tpu.restraints.Restraints -> the two-tensor exact form on
+    `device` (or holding host numpy arrays with as_numpy=True). The caller
+    must have proven exactness (pipeline.auto_exact)."""
+    target = np.asarray(r.target, dtype=np.float64)
+    mask_np = np.asarray(r.mask)
+    weight = _restraint_weights(target, mask_np, weighting, weight_exponent)
+    host = (np.where(mask_np, target, 0.0).astype(np.float32), weight)
+    return ExactRestraints(*(host if as_numpy else _to_device(host, device)))
+
+
+def dense_restraints_from_numpy(
+    r, weighting: str = "relative", weight_exponent: Optional[float] = None,
+    as_numpy: bool = False, device="cpu",
+) -> DenseRestraints:
+    """chromosome3d_tpu.restraints.Restraints -> the four-tensor form on
+    `device` (or holding host numpy arrays with as_numpy=True, the form the
+    host-side assessment reads)."""
+    target = np.asarray(r.target, dtype=np.float64)
+    mask_np = np.asarray(r.mask)
+    weight = _restraint_weights(target, mask_np, weighting, weight_exponent)
+    host = (
+        (target - np.asarray(r.negdev)).astype(np.float32),
+        (target + np.asarray(r.posdev)).astype(np.float32),
+        mask_np.astype(np.float32),
+        weight,
+    )
+    return DenseRestraints(*(host if as_numpy else _to_device(host, device)))
+
+
+def from_jax_numpy(restraints=None, weights=None, state=None, device="cpu"):
+    """The parameter converter: the JAX package's solver inputs -> the
+    port's, on `device`, so both packages compute on identical values.
+
+    restraints: a chromosome3d_tpu DenseRestraints or ExactRestraints (any
+      arrays np.asarray accepts); weights: its EnergyWeights; state: a tuple
+      of (B, 3, L) arrays (xT, muT, nuT — the fused step's layout) or any
+      other float arrays. Returns (restraints, weights, state), None where
+      an input was not given."""
+    out_r = out_w = out_s = None
+    if restraints is not None:
+        if hasattr(restraints, "target"):
+            out_r = ExactRestraints(*_to_device(
+                (np.asarray(restraints.target, np.float32),
+                 np.asarray(restraints.w, np.float32)), device))
+        else:
+            out_r = DenseRestraints(*_to_device(
+                tuple(np.asarray(getattr(restraints, k), np.float32)
+                      for k in ("lo", "hi", "mask", "weight")), device))
+    if weights is not None:
+        out_w = EnergyWeights(**{
+            f.name: f32(np.asarray(getattr(weights, f.name)))
+            for f in dataclasses.fields(EnergyWeights)
+        })
+    if state is not None:
+        out_s = _to_device(tuple(np.asarray(a, np.float32) for a in state), device)
+    return out_r, out_w, out_s
+
+
+def _angle_energy(bond_vec, bond_d, bond_valid, weights) -> torch.Tensor:
+    """Worm-like-chain bending term angle * sum(1 - cos phi) over consecutive
+    bond-vector pairs; (..., L-1, 3) bond vectors -> (...,)."""
+    cosphi = (bond_vec[..., :-1, :] * bond_vec[..., 1:, :]).sum(-1) / (
+        bond_d[..., :-1] * bond_d[..., 1:]
+    )
+    tri_valid = bond_valid[:-1] * bond_valid[1:]
+    return weights.angle * (tri_valid * (1.0 - cosphi)).sum(-1)
+
+
+def energy_terms(
+    coords: torch.Tensor,
+    restraints,
+    weights: EnergyWeights,
+    bead_mask: Optional[torch.Tensor] = None,
+) -> Dict[str, torch.Tensor]:
+    """All energy terms: coords (L, 3) -> scalars, or (B, L, 3) -> (B,)
+    each. bead_mask (L,) is 1.0 for real beads, 0.0 for padding."""
+    x = coords[None] if coords.dim() == 2 else coords
+    L = x.shape[1]
+    if bead_mask is None:
+        bead_mask = torch.ones(L, dtype=x.dtype, device=x.device)
+    pair_valid = bead_mask[:, None] * bead_mask[None, :]
+
+    diff = x[:, :, None, :] - x[:, None, :, :]
+    d = torch.sqrt((diff * diff).sum(-1) + _EPS)              # (B, L, L)
+
+    viol = torch.clamp_min(d - restraints.hi, 0.0) + torch.clamp_min(
+        restraints.lo - d, 0.0
+    )
+    noe_mask = restraints.mask * pair_valid
+    s = weights.noe_rswitch
+    well = torch.where(viol <= s, viol * viol, s * s + 2.0 * s * (viol - s))
+    e_noe = 0.5 * weights.noe * (noe_mask * restraints.weight * well).sum((-2, -1))
+
+    bond_vec = x[:, 1:] - x[:, :-1]
+    bond_d = torch.sqrt((bond_vec * bond_vec).sum(-1) + _EPS)
+    bond_valid = bead_mask[1:] * bead_mask[:-1]
+    bdev = bond_d - weights.bond_length
+    e_bond = weights.bond * (bond_valid * bdev * bdev).sum(-1)
+    e_bond = e_bond + _angle_energy(bond_vec, bond_d, bond_valid, weights)
+
+    idx = torch.arange(L, device=x.device)
+    nonbonded = ((idx[:, None] - idx[None, :]).abs() >= 2).to(x.dtype)
+    overlap = torch.clamp_min(weights.vdw_radius - d, 0.0)
+    e_vdw = 0.5 * weights.vdw * (nonbonded * pair_valid * overlap * overlap).sum((-2, -1))
+
+    terms = {"noe": e_noe, "bon": e_bond, "vdw": e_vdw,
+             "overall": e_noe + e_bond + e_vdw}
+    if coords.dim() == 2:
+        terms = {k: v[0] for k, v in terms.items()}
+    return terms
+
+
+def energy(coords, restraints, weights: EnergyWeights, bead_mask=None) -> torch.Tensor:
+    return energy_terms(coords, restraints, weights, bead_mask)["overall"]

@@ -1,0 +1,156 @@
+"""Kernel B2: exact-restraint pair energy + gradient (csrc/exact_pair.cu),
+its plain PyTorch twin, and the batched value-and-grad built on it.
+
+Replaces chromosome3d_tpu/ops/pallas_energy.py `_kernel_exact` (entry
+`_pairwise_energy_grad_batched(..., exact=True)`) and
+`pallas_energy_and_grad_batched`. The solver calls it once per solve, for
+the enantiomer pick. No autograd is involved: the kernel returns the exact
+gradient and the solver consumes it directly.
+
+`exact_pair_energy_grad` runs the plain twin for CPU tensors and the CUDA
+kernel for CUDA tensors; each path counts its calls in a plain integer on
+the function (`exact_pair_energy_grad.launches`,
+`exact_pair_energy_grad_plain.calls`), so a run can show which one it took.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from chromosome3d_tpu_torch.ops import _build
+from chromosome3d_tpu_torch.ops.energy import _EPS, EnergyWeights, ExactRestraints
+
+
+def exact_pair_tiles(restraints):
+    """(target, folded weight) for the exact kernels: aliases of the stored
+    tensors for ExactRestraints, one fold (lo, mask * weight) otherwise."""
+    if isinstance(restraints, ExactRestraints):
+        return restraints.target, restraints.w
+    return restraints.lo, restraints.mask * restraints.weight
+
+
+def check_inputs(specs) -> torch.device:
+    """The wrappers' contract for {name: (tensor, expected shape)}: float32,
+    contiguous, one device, exact shapes. Returns the common device."""
+    dev = next(iter(specs.values()))[0].device
+    for name, (x, shape) in specs.items():
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name}: float32 required, got {x.dtype}")
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, expected {dev}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {shape}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def exact_pair_energy_grad_plain(
+    coords: torch.Tensor, target: torch.Tensor, w: torch.Tensor,
+    weights: EnergyWeights, bead_mask: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of B2, the `_kernel_exact` math for (B, L, 3) coords:
+    returns (pair energies (B,), pair gradients (B, L, 3)). The gradient is
+    summed as sum_j c_ij (x_i - x_j), like the kernel (see exact_pair.cu)."""
+    exact_pair_energy_grad_plain.calls += 1
+    x = coords
+    L = x.shape[1]
+    diffs = [x[:, :, c, None] - x[:, None, :, c] for c in range(3)]
+    d2 = torch.zeros(x.shape[0], L, L, dtype=x.dtype, device=x.device)
+    for diff in diffs:
+        d2 = d2 + diff * diff
+    rinv = torch.rsqrt(d2 + _EPS)
+    d = (d2 + _EPS) * rinv
+    pair_valid = bead_mask[:, None] * bead_mask[None, :]
+    wv = w * pair_valid
+    dev = d - target
+    e_noe = 0.5 * weights.noe * (wv * dev * dev).sum(-1)
+    c_noe = weights.noe * wv * (2.0 * dev)
+    idx = torch.arange(L, device=x.device)
+    nonbonded = ((idx[:, None] - idx[None, :]).abs() >= 2).to(x.dtype) * pair_valid
+    overlap = torch.clamp_min(weights.vdw_radius - d, 0.0)
+    e_vdw = 0.5 * weights.vdw * (nonbonded * overlap * overlap).sum(-1)
+    c = (c_noe - 2.0 * weights.vdw * nonbonded * overlap) * rinv
+    g = torch.stack([(c * diff).sum(-1) for diff in diffs], dim=-1)
+    return (e_noe + e_vdw).sum(-1), g
+
+
+exact_pair_energy_grad_plain.calls = 0
+
+
+def exact_pair_energy_grad(
+    coords: torch.Tensor, target: torch.Tensor, w: torch.Tensor,
+    weights: EnergyWeights, bead_mask: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B2 for a batch sharing one restraint set: coords (B, L, 3), target and
+    folded weight w (L, L), bead_mask (L,), all float32 and contiguous.
+    Returns (pair energies (B,), pair gradients (B, L, 3)). CPU tensors run
+    the plain twin; CUDA tensors launch csrc/exact_pair.cu."""
+    if coords.dim() != 3:
+        raise ValueError(f"coords must be (B, L, 3), got {tuple(coords.shape)}")
+    B, L = coords.shape[0], coords.shape[1]
+    dev = check_inputs({
+        "coords": (coords, (B, L, 3)), "target": (target, (L, L)),
+        "w": (w, (L, L)), "bead_mask": (bead_mask, (L,)),
+    })
+    if B == 0 or L == 0:
+        raise ValueError(f"empty batch: B={B}, L={L}")
+    if dev.type == "cpu":
+        return exact_pair_energy_grad_plain(coords, target, w, weights, bead_mask)
+    lib = _build.load_library()
+    e_rows = torch.empty((B, L), dtype=torch.float32, device=dev)
+    g = torch.empty_like(coords)
+    with torch.cuda.device(dev):
+        err = lib.c3d_exact_pair(
+            coords.data_ptr(), target.data_ptr(), w.data_ptr(),
+            bead_mask.data_ptr(), e_rows.data_ptr(), g.data_ptr(), B, L,
+            weights.noe, weights.vdw, weights.vdw_radius,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(err, "c3d_exact_pair")
+    exact_pair_energy_grad.launches += 1
+    return e_rows.sum(1), g
+
+
+exact_pair_energy_grad.launches = 0
+
+
+def bond_energy_grad(coords: torch.Tensor, weights: EnergyWeights,
+                     bead_mask: torch.Tensor):
+    """Chain-bond energies (B,) and their exact gradient (B, L, 3) — the
+    JAX package's `_bond_energy` and its autodiff gradient, written out."""
+    if weights.angle != 0.0:
+        raise NotImplementedError(
+            "angle_weight != 0 is not ported (ROADMAP A11: the angle term "
+            "rides the unfused route)"
+        )
+    bond_vec = coords[:, 1:] - coords[:, :-1]
+    bond_d = torch.sqrt((bond_vec * bond_vec).sum(-1) + _EPS)
+    bond_valid = bead_mask[1:] * bead_mask[:-1]
+    bdev = bond_d - weights.bond_length
+    e = weights.bond * (bond_valid * bdev * bdev).sum(-1)
+    f = (2.0 * weights.bond * bond_valid * bdev / bond_d)[..., None] * bond_vec
+    # dE/dx_i = f_{i-1} (x_i is bond i-1's far end) - f_i (bond i's base)
+    g = F.pad(f, (0, 0, 1, 0)) - F.pad(f, (0, 0, 0, 1))
+    return e, g
+
+
+def pair_energy_and_grad_batched(
+    coords: torch.Tensor, restraints, weights: EnergyWeights,
+    bead_mask: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Value and gradient for a shared-restraint batch (exact restraints):
+    the B2 pair kernel plus the chain bond. Counterpart of the JAX package's
+    `pallas_energy_and_grad_batched(..., exact=True)`. Returns
+    (energies (B,), gradients (B, L, 3))."""
+    target, w = exact_pair_tiles(restraints)
+    e_pair, g_pair = exact_pair_energy_grad(
+        coords, target.contiguous(), w.contiguous(), weights, bead_mask
+    )
+    e_bond, g_bond = bond_energy_grad(coords, weights, bead_mask)
+    return e_pair + e_bond, g_pair + g_bond

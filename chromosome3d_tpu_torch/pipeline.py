@@ -1,0 +1,347 @@
+"""End-to-end per-chromosome pipeline — the port of
+chromosome3d_tpu.pipeline.run_pipeline's reference-scale branch.
+
+  text IF matrix -> IF2dist -> dist2rr -> carr2tbl   (host, text artifacts)
+  -> solve_ensemble_impl on the device              (kernels B1 + B2)
+  -> assess + rank + PDB emission                    (host)
+
+Artifacts match the JAX package byte for byte given the same coordinates
+and energies: `$ID.fasta`, `$ID.dist`, `$ID.rr`, `contact.tbl`,
+`${ID}_model1..k.pdb`, `${ID}_rankNN_aXX.pdb`, `spearman.txt`,
+`contact_violation.txt`, `model_info.log`, `trajectory.npz` and
+`summary.json`. The sentinel files `iam.running` / `iam.failed` keep the
+reference's failure protocol (chromosome3D.pl:261-284).
+
+Not ported yet, and refused with NotImplementedError: inputs past the
+largest length bucket (ROADMAP A10), .npy/.cool/.mcool/.hic/.matrix inputs
+and --ice (A10/A11), the alpha ensemble (A11), and profiling.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import time
+from dataclasses import replace as dataclasses_replace
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from chromosome3d_tpu.metrics import clash_count
+from chromosome3d_tpu.utils.logging import banner, get_logger
+from chromosome3d_tpu_torch.assess import (
+    FULL_REPORT_MAX,
+    append_model_info,
+    assess_ensemble,
+    coverage_string,
+    rank_by_energy,
+    rank_by_spearman,
+    restraint_spec_strings,
+    write_violation_report,
+)
+from chromosome3d_tpu_torch.config import PipelineConfig
+from chromosome3d_tpu_torch.device import resolve_device
+from chromosome3d_tpu_torch.io import load_if_matrix, write_ca_pdb, write_dist_matrix
+from chromosome3d_tpu_torch.ops.energy import (
+    auto_weight_exponent,
+    dense_restraints_from_numpy,
+    exact_restraints_from_numpy,
+)
+from chromosome3d_tpu_torch.restraints import (
+    dist_to_restraints,
+    if_to_dist,
+    write_contact_tbl,
+    write_rr,
+)
+from chromosome3d_tpu_torch.solver.anneal import solve_ensemble_impl
+
+log = get_logger(__name__)
+
+_ALT_FORMATS = (".npy", ".cool", ".mcool", ".hic", ".matrix")
+
+
+def auto_exact(cfg: PipelineConfig, restraints) -> PipelineConfig:
+    """Enable the exact-restraint algebra when provable from the data: every
+    deviation zero (matrix-derived restraints always are) and the
+    pure-quadratic well active."""
+    an = cfg.anneal
+    if (
+        not an.exact_restraints
+        and an.noe_rswitch >= 1e8
+        and not np.asarray(restraints.negdev).any()
+        and not np.asarray(restraints.posdev).any()
+    ):
+        return cfg.replace(anneal=dataclasses_replace(an, exact_restraints=True))
+    return cfg
+
+
+def _exact_provable(cfg: PipelineConfig) -> bool:
+    return cfg.anneal.exact_restraints and cfg.anneal.noe_rswitch >= 1e8
+
+
+def _bucket_pad(L: int, cfg: PipelineConfig):
+    """Padded length + (L_pad,) bead mask (None when unpadded): the
+    smallest length bucket that holds L."""
+    L_pad = L
+    if cfg.bucket_single_runs:
+        fit = [b for b in cfg.length_buckets if b >= L]
+        if not fit:
+            raise NotImplementedError(
+                f"L={L} is past the largest length bucket "
+                f"{max(cfg.length_buckets)}; the at-scale route is not ported "
+                "(ROADMAP A10)"
+            )
+        L_pad = min(fit)
+    bead_mask = None
+    if L_pad != L:
+        bead_mask = np.zeros(L_pad, dtype=np.float32)
+        bead_mask[:L] = 1.0
+    return L_pad, bead_mask
+
+
+def _padded_dense(restraints, rc, L_pad: int, exact: bool, device):
+    """Solver restraint tensors padded to L_pad on `device`. The weight
+    exponent and the mean-1 normalisation come from the true length
+    (padding is masked), so the padded solve equals the exact-L one."""
+    p = rc.weight_exponent
+    if p is None:
+        p = auto_weight_exponent(restraints.length)
+    builder = exact_restraints_from_numpy if exact else dense_restraints_from_numpy
+    return builder(restraints.padded(L_pad), rc.weighting, p, device=device)
+
+
+def run_pipeline(
+    file_if: str,
+    dir_out: str,
+    cfg: Optional[PipelineConfig] = None,
+    device=None,
+) -> Dict:
+    """Run one chromosome end to end on `device` (None: the first CUDA
+    device if present, else the CPU). Returns the summary dict, which is
+    also written to summary.json with per-phase seconds."""
+    cfg = cfg or PipelineConfig()
+    dev = resolve_device(device)
+    t_start = time.time()
+    phases: Dict = {}
+    _t_ph = [t_start]
+
+    def _mark(name: str) -> None:
+        now = time.time()
+        phases[name] = phases.get(name, 0.0) + (now - _t_ph[0])
+        _t_ph[0] = now
+
+    if not os.path.isfile(file_if):
+        raise FileNotFoundError(f"Input IF file {file_if} does not exist!")
+    base = os.path.basename(file_if)
+    ident, ext = os.path.splitext(base)
+    if ext in _ALT_FORMATS:
+        raise NotImplementedError(
+            f"{ext} input is not ported (ROADMAP A10/A11); give a dense text matrix"
+        )
+    if cfg.alpha_ensemble:
+        raise NotImplementedError("the alpha ensemble is not ported (ROADMAP A11)")
+    os.makedirs(dir_out, exist_ok=True)
+    for name in os.listdir(dir_out):   # the reference wipes the outdir (:56)
+        p = os.path.join(dir_out, name)
+        if os.path.isfile(p):
+            os.remove(p)
+    if ext != ".txt":
+        ident = base  # unknown extension: keep the full name as the id
+    local_if = os.path.join(dir_out, f"{ident}.txt")
+    if os.path.abspath(file_if) != os.path.abspath(local_if):
+        shutil.copy(file_if, local_if)
+
+    rc = cfg.restraints
+    banner(log, f"Input      : {file_if}")
+    banner(log, f"Output Dir : {dir_out}")
+    banner(log, f"Scaling(K) : {rc.kscaling}")
+    banner(log, f"Alpha      : {rc.alpha}")
+    banner(
+        log,
+        f"Conversion : D = {rc.kscaling} * mean(IF^{rc.alpha}) / IF^{rc.alpha}",
+    )
+
+    # ---- L3: restraint generation + text artifacts ----
+    if_matrix = load_if_matrix(local_if)
+    _mark("load_s")
+    L = if_matrix.shape[0]
+    banner(log, f"L          : {L}")
+    L_pad, bead_mask = _bucket_pad(L, cfg)
+    with open(os.path.join(dir_out, f"{ident}.fasta"), "w") as f:
+        f.write(f">{ident}\n{'M' * L}\n")
+    dist = if_to_dist(if_matrix, rc)
+    write_dist_matrix(os.path.join(dir_out, f"{ident}.dist"), dist)
+    write_rr(os.path.join(dir_out, f"{ident}.rr"), dist, rc)
+    n_tbl = write_contact_tbl(
+        os.path.join(dir_out, "contact.tbl"),
+        os.path.join(dir_out, f"{ident}.rr"),
+        rc,
+    )
+    banner(log, f"Restraints : {n_tbl} lines in tbl file")
+    restraints = dist_to_restraints(dist, rc)
+    if restraints.count != n_tbl:
+        # the reference leaves an `assess.failed` sentinel before confessing
+        # (chromosome3D.pl:785-787)
+        msg = (
+            f"restraint-count mismatch: tensors {restraints.count} "
+            f"vs tbl {n_tbl}"
+        )
+        with open(os.path.join(dir_out, "assess.failed"), "w") as f:
+            f.write(msg + "\n")
+        raise AssertionError(msg)
+    banner(log, f"Coverage   : {coverage_string(restraints)}")
+    cfg = auto_exact(cfg, restraints)
+    # assessment-only tensors stay host numpy (assess is host-side)
+    dense = dense_restraints_from_numpy(
+        restraints, rc.weighting, rc.weight_exponent, as_numpy=True
+    )
+    _mark("host_prep_s")
+
+    # ---- L2/L1: solve (sentinel-file failure protocol, ref :261-284) ----
+    running = os.path.join(dir_out, "iam.running")
+    with open(running, "w") as f:
+        f.write("solving\n")
+    try:
+        banner(log, f"(B) Build {cfg.model_count} models on {dev}..")
+        if L_pad != L:
+            banner(log, f"Bucket     : solving padded to L={L_pad}")
+        solve_r = _padded_dense(
+            restraints, rc, L_pad, _exact_provable(cfg), dev
+        )
+        bm = None if bead_mask is None else torch.from_numpy(bead_mask).to(dev)
+        result = solve_ensemble_impl(
+            solve_r, cfg.anneal, cfg.model_count, bm,
+            generator=torch.Generator().manual_seed(cfg.seed),
+        )
+        coords = result.coords.cpu().numpy()[:, :L, :]   # synchronises
+        energies = {k: v.cpu().numpy() for k, v in result.energies.items()}
+        _mark("solve_s")
+        np.savez_compressed(
+            os.path.join(dir_out, "trajectory.npz"),
+            energy_history=result.history.cpu().numpy(),
+        )
+        alphas = [rc.alpha] * cfg.model_count
+    except Exception:
+        os.replace(running, os.path.join(dir_out, "iam.failed"))
+        raise
+    os.remove(running)
+
+    # ---- L0: assess, rank, emit ----
+    _mark("alpha_ensemble_s")
+    banner(log, "(C) Assess models..")
+    summary = emit_artifacts(
+        dir_out, ident, coords, energies, if_matrix, restraints, dense, cfg,
+        alphas=alphas,
+    )
+    _mark("assess_emit_s")
+    summary.update(
+        {
+            "restraints": int(n_tbl),
+            "wall_seconds": time.time() - t_start,
+            "phases": phases,
+        }
+    )
+    with open(os.path.join(dir_out, "summary.json"), "w") as f:
+        json.dump(summary, f, indent=1)
+    banner(log, f"Finished in {summary['wall_seconds']:.1f}s "
+                f"best Spearman(IF,1/d)={summary['best_spearman_if_inv_d']:.4f}")
+    return summary
+
+
+def emit_artifacts(
+    dir_out: str,
+    ident: str,
+    coords: np.ndarray,
+    energies: Dict[str, np.ndarray],
+    if_matrix: np.ndarray,
+    restraints,
+    dense,
+    cfg: PipelineConfig,
+    alphas=None,
+) -> Dict:
+    """The L0 assessment + artifact emission (host numpy, byte-identical to
+    chromosome3d_tpu.pipeline.emit_artifacts): satisfaction stats,
+    NOE-energy top-k model PDBs (ref :822-828), Spearman-ranked rankNN PDBs,
+    spearman.txt, model_info.log, and one violation report per model.
+    Returns the summary dict."""
+    rc = cfg.restraints
+    L = if_matrix.shape[0]
+    n_base = min(cfg.model_count, len(coords))
+    if alphas is None:
+        alphas = [rc.alpha] * len(coords)
+
+    stats = assess_ensemble(coords, dense, cfg)
+    sp_order, sp_scores = rank_by_spearman(if_matrix, coords, cfg.spearman_range)
+    e_order = rank_by_energy(energies["noe"][:n_base], cfg.top_k)
+
+    info_log = os.path.join(dir_out, "model_info.log")
+    banner(log, f"NOE_SATISFIED(+-{cfg.dist_relax}A)  SUM_OF_DEVIATIONS>=0.2  MODEL")
+    for i in range(len(coords)):
+        banner(
+            log,
+            f"{stats['satisfied'][i]}/{stats['total'][i]}"
+            f"              {stats['sum_dev'][i]:.2f}"
+            f"              model{i} (noe={energies['noe'][i]:.2f},"
+            f" spearman={sp_scores[i]:.4f})",
+        )
+
+    # NOE-energy top-k -> ${ID}_model1..5.pdb (ref :822-828)
+    for rank, idx in enumerate(e_order, start=1):
+        path = os.path.join(dir_out, f"{ident}_model{rank}.pdb")
+        remarks = {k: float(energies[k][idx]) for k in ("overall", "vdw", "bon", "noe")}
+        write_ca_pdb(path, coords[idx], remarks=remarks)
+        append_model_info(info_log, path, remarks)
+
+    # Spearman-ranked full set -> ${ID}_rankNN_aXX.pdb (the published naming)
+    atag = f"a{rc.alpha}".replace(".", "")
+    for rank, idx in enumerate(sp_order, start=1):
+        path = os.path.join(dir_out, f"{ident}_rank{rank:02d}_{atag}.pdb")
+        remarks = {k: float(energies[k][idx]) for k in ("overall", "vdw", "bon", "noe")}
+        remarks["spearman_if_inv_d"] = float(sp_scores[idx])
+        remarks["alpha"] = float(alphas[idx])
+        write_ca_pdb(path, coords[idx], remarks=remarks)
+
+    with open(os.path.join(dir_out, "spearman.txt"), "w") as f:
+        f.write("SRCC\tPDB\n")
+        for rank, idx in enumerate(sp_order, start=1):
+            f.write(f"{sp_scores[idx]:.3f}\t{ident}_rank{rank:02d}_{atag}.pdb\n")
+
+    # violation reports for EVERY model, appended into one file in
+    # descending-NOE-energy order (the reference's assess_dgsa loop,
+    # chromosome3D.pl:804-810, 478-484)
+    viol_path = os.path.join(dir_out, "contact_violation.txt")
+    idx_to_rank = {int(idx): rank for rank, idx in enumerate(sp_order, start=1)}
+    best = int(e_order[0])
+    summary = {
+        "id": ident,
+        "L": int(L),
+        "models": int(len(coords)),
+        "best_noe_energy": float(energies["noe"][best]),
+        "best_spearman_if_inv_d": float(sp_scores[sp_order[0]]),
+        "satisfied": int(stats["satisfied"][best]),
+        "total": int(stats["total"][best]),
+        "clashes_under_3A": clash_count(coords[best], 3.0),
+    }
+    if not cfg.emit_violation_reports:
+        return summary
+    specs = (
+        restraint_spec_strings(restraints)
+        if restraints.count <= FULL_REPORT_MAX
+        else None
+    )
+    for n, idx in enumerate(np.argsort(-energies["noe"], kind="stable")):
+        idx = int(idx)
+        s, t = write_violation_report(
+            viol_path,
+            coords[idx],
+            restraints,
+            cfg,
+            pdb_name=f"{ident}_rank{idx_to_rank[idx]:02d}_{atag}.pdb",
+            append=n > 0,
+            specs=specs,
+        )
+        if idx == best:
+            summary["satisfied"], summary["total"] = s, t
+    return summary

@@ -1,0 +1,291 @@
+"""The annealing solver on the fused route — the port of
+chromosome3d_tpu/solver/anneal.py `solve_ensemble_impl`.
+
+One Python loop over the precomputed hot -> cool -> final schedule; every
+step is one launch of kernel B1 (ops.fused_step) for the whole ensemble. The
+enantiomer trial runs both mirror images through the hot phase, picks the
+lower-energy member of each pair under the end-of-hot weights with kernel B2
+(ops.pair_energy), and only the winners continue, with their Adam moments
+and the step count carried over (so the bias corrections and the noise
+stream stay aligned with the schedule).
+
+Routes: the port runs the JAX package's frozen-default dispatch with no
+dispatch table — the fused step wherever `fused_step_feasible` holds, and
+the pick's whole-matrix pair kernel below L = 1024. Everything else raises
+NotImplementedError naming its ROADMAP item; nothing falls back silently.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from chromosome3d_tpu_torch.config import AnnealConfig
+from chromosome3d_tpu_torch.ops.energy import EnergyWeights, energy_terms, f32
+from chromosome3d_tpu_torch.ops.fused_step import (
+    fused_step_batched,
+    fused_step_feasible,
+    fused_step_tiles,
+)
+from chromosome3d_tpu_torch.ops.pair_energy import pair_energy_and_grad_batched
+from chromosome3d_tpu_torch.solver.init import mds_init, random_init, spiral_init
+
+# the JAX package's frozen default (pallas_energy.py:1290-1291): below this
+# length the pick uses the whole-matrix pair kernel (B2); at and past it the
+# triangular kernel (B3), which is not ported yet
+_PICK_ROW_KERNEL_MAX_L = 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class Schedule:
+    """Per-step hyperparameters as (T,) float32 host arrays."""
+
+    lr: np.ndarray
+    sigma: np.ndarray         # Langevin noise stddev (A)
+    vdw_weight: np.ndarray
+    repel_scale: np.ndarray
+
+
+@dataclasses.dataclass(frozen=True)
+class AnnealResult:
+    coords: torch.Tensor                 # (n, L, 3), centred
+    energies: Dict[str, torch.Tensor]    # each (n,), final canonical weights
+    history: torch.Tensor                # (n, T) total energy per step
+    pick: Optional[torch.Tensor] = None  # (n,) winners' indices in the 2n hot batch
+
+
+def build_schedule(cfg: AnnealConfig) -> Schedule:
+    """The hot -> cool -> final schedule; the same arrays as the JAX
+    package's build_schedule (float64 host math, stored float32)."""
+    hot_T = np.full(cfg.hot_steps, cfg.hot_temperature)
+    hot_lr = np.full(cfg.hot_steps, cfg.hot_lr)
+    hot_vdw = np.full(cfg.hot_steps, cfg.vdw_weight_start)
+    hot_rep = np.full(cfg.hot_steps, cfg.repel_start)
+
+    cycles = np.arange(cfg.cool_cycles)
+    frac = cycles / max(cfg.cool_cycles - 1, 1)
+    cyc_T = np.maximum(
+        cfg.hot_temperature - (cycles + 1) * cfg.cool_temperature_step, 0.0
+    )
+    cyc_vdw = cfg.vdw_weight_start * (
+        (cfg.vdw_weight_final / cfg.vdw_weight_start) ** frac
+    )
+    cyc_rep = cfg.repel_start + (cfg.repel_end - cfg.repel_start) * frac
+    reps = cfg.cool_steps_per_cycle
+    cool_T = np.repeat(cyc_T, reps)
+    cool_vdw = np.repeat(cyc_vdw, reps)
+    cool_rep = np.repeat(cyc_rep, reps)
+    cool_lr = np.full(cfg.cool_steps, cfg.cool_lr)
+
+    fsteps = np.arange(cfg.final_steps)
+    final_lr = cfg.final_lr * 0.5 * (
+        1.0 + np.cos(np.pi * fsteps / max(cfg.final_steps - 1, 1))
+    )
+    final_T = np.zeros(cfg.final_steps)
+    final_vdw = np.full(cfg.final_steps, cfg.vdw_weight_final)
+    final_rep = np.full(cfg.final_steps, cfg.repel_end)
+
+    temp = np.concatenate([hot_T, cool_T, final_T])
+    sigma = cfg.noise_scale * np.sqrt(temp / cfg.hot_temperature)
+
+    def f32a(parts):
+        return np.concatenate(parts).astype(np.float32)
+
+    return Schedule(
+        lr=f32a([hot_lr, cool_lr, final_lr]),
+        sigma=sigma.astype(np.float32),
+        vdw_weight=f32a([hot_vdw, cool_vdw, final_vdw]),
+        repel_scale=f32a([hot_rep, cool_rep, final_rep]),
+    )
+
+
+def _final_weights(cfg: AnnealConfig) -> EnergyWeights:
+    """Canonical end-of-protocol weights used for the ranking energies."""
+    return EnergyWeights(
+        noe=f32(cfg.noe_weight),
+        bond=f32(cfg.bond_weight),
+        bond_length=f32(cfg.bond_length),
+        vdw=f32(cfg.vdw_weight_final),
+        vdw_radius=f32(cfg.repel_end * cfg.vdw_radius),
+        noe_rswitch=f32(cfg.noe_rswitch),
+        angle=f32(cfg.angle_weight),
+    )
+
+
+def _clip_per_bead(g: torch.Tensor, clip: Optional[float]) -> torch.Tensor:
+    """Scale each bead's gradient 3-vector (last axis) to at most `clip`
+    norm; identity when clip is None."""
+    if clip is None:
+        return g
+    norm = torch.sqrt(torch.sum(g * g, dim=-1, keepdim=True) + 1e-12)
+    return g * torch.clamp_max(clip / norm, 1.0)
+
+
+def _bias_corrections(T: int):
+    """Adam's 1/(1 - b^t) columns for t = 1..T, computed in float32 like the
+    JAX package's schedule columns."""
+    t = torch.arange(1, T + 1, dtype=torch.float32)
+    bc1 = 1.0 / (1.0 - torch.pow(torch.tensor(0.9, dtype=torch.float32), t))
+    bc2 = 1.0 / (1.0 - torch.pow(torch.tensor(0.999, dtype=torch.float32), t))
+    return bc1.tolist(), bc2.tolist()
+
+
+def _refuse_unported(cfg: AnnealConfig, L: int, or_groups) -> None:
+    """The routes and options the port cannot run yet, each named."""
+    if or_groups is not None:
+        raise NotImplementedError("or-group restraints are not ported (ROADMAP A9)")
+    if not (cfg.exact_restraints and cfg.noe_rswitch >= 1e8):
+        raise NotImplementedError(
+            "general (windowed / soft-square) restraints need kernel B5 and "
+            "the semi-general route, not ported (ROADMAP A9)"
+        )
+    if not cfg.fuse_update:
+        raise NotImplementedError(
+            "fuse_update=False selects the unfused route, not ported "
+            "(ROADMAP A8)"
+        )
+    if cfg.angle_weight != 0.0:
+        raise NotImplementedError(
+            "angle_weight != 0 rides the unfused route, not ported (ROADMAP A11)"
+        )
+    if cfg.pair_bf16:
+        raise NotImplementedError(
+            "pair_bf16 tiles are not ported (ROADMAP: port-side pair_bf16)"
+        )
+    if cfg.gram_d2:
+        raise NotImplementedError("gram_d2 is not ported (ROADMAP: do not port)")
+    if not fused_step_feasible(L):
+        raise NotImplementedError(
+            f"L={L} is past the fused step's reach; the semi route "
+            "(kernels B3 + B4) is not ported (ROADMAP A8)"
+        )
+    if cfg.enantiomer and L >= _PICK_ROW_KERNEL_MAX_L:
+        raise NotImplementedError(
+            f"the enantiomer pick at L={L} >= {_PICK_ROW_KERNEL_MAX_L} uses the "
+            "triangular kernel B3, not ported (ROADMAP A8)"
+        )
+
+
+def solve_ensemble_impl(
+    restraints,
+    cfg: AnnealConfig,
+    n_models: int,
+    bead_mask: Optional[torch.Tensor] = None,
+    x0: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    or_groups=None,
+    xs: Optional[torch.Tensor] = None,
+    noise_seed: Optional[int] = None,
+) -> AnnealResult:
+    """Build n_models structures on the restraints' device: one batched
+    loop over all restarts (+ enantiomer pairs).
+
+    generator: the CPU torch.Generator for the random draws (per-restart
+      jitter, the noise-stream seed, a random init); a fresh one seeded 0
+      when None.
+    xs: an explicit (n_eff, L, 3) start ensemble, used as given (no init,
+      no mirror signs, no jitter); noise_seed: an explicit int32 seed for
+      the Langevin noise stream. Together they let a caller replay the
+      values another implementation drew.
+    """
+    target = restraints.lo
+    dev = target.device
+    L = target.shape[0]
+    _refuse_unported(cfg, L, or_groups)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    if bead_mask is None:
+        bead_mask = torch.ones(L, dtype=torch.float32, device=dev)
+    bead_mask = bead_mask.to(device=dev, dtype=torch.float32).contiguous()
+    n_eff = n_models * 2 if cfg.enantiomer else n_models
+
+    if xs is None:
+        if x0 is None:
+            init = cfg.init
+            if init == "auto":
+                init = "mds" if L < 2048 else "landmark"
+            if init == "mds":
+                if cfg.embed_two_sided:
+                    raise NotImplementedError(
+                        "embed_two_sided is not ported (ROADMAP A9)"
+                    )
+                x0 = mds_init(restraints, bond_length=cfg.bond_length,
+                              unknown_fill=cfg.mds_unknown_fill,
+                              bead_mask=bead_mask)
+            elif init == "spiral":
+                x0 = spiral_init(L, bond_length=cfg.bond_length, device=dev)
+            elif init == "random":
+                x0 = random_init(generator, L, device=dev)
+            else:
+                raise NotImplementedError(
+                    f"init={init!r} is not ported (ROADMAP A10: landmark init)"
+                )
+        x0 = x0.to(device=dev, dtype=torch.float32) * bead_mask[:, None]
+        if cfg.enantiomer:
+            # pairs (direct, mirrored): flip the x axis of the shared embedding
+            signs = torch.tensor([1.0, -1.0], device=dev).repeat(n_models)
+        else:
+            signs = torch.ones(n_eff, device=dev)
+        flip = torch.stack([signs, torch.ones_like(signs), torch.ones_like(signs)], -1)
+        jitter = torch.randn((n_eff, L, 3), generator=generator).to(dev)
+        xs = x0[None] * flip[:, None, :] + cfg.init_noise * jitter * bead_mask[None, :, None]
+    xs = xs.to(device=dev, dtype=torch.float32)
+    if xs.shape != (n_eff, L, 3):
+        raise ValueError(f"xs: shape {tuple(xs.shape)}, expected {(n_eff, L, 3)}")
+    if noise_seed is None:
+        noise_seed = int(torch.randint(0, 2**31 - 1, (), generator=generator))
+
+    sched = build_schedule(cfg)
+    base = _final_weights(cfg)
+    T = len(sched.lr)
+    bc1s, bc2s = _bias_corrections(T)
+    lrs, sigmas = sched.lr.tolist(), sched.sigma.tolist()
+
+    # float32 products, as the JAX package's `repel * cfg.vdw_radius`
+    step_weights = [
+        dataclasses.replace(base, vdw=float(vdw),
+                            vdw_radius=f32(repel * np.float32(cfg.vdw_radius)))
+        for vdw, repel in zip(sched.vdw_weight, sched.repel_scale)
+    ]
+    clip = cfg.gradient_clip
+    tiles = fused_step_tiles(restraints, bead_mask, base.noe)
+    xT = xs.transpose(1, 2).contiguous()
+    muT = torch.zeros_like(xT)
+    nuT = torch.zeros_like(xT)
+    history = torch.empty((T, n_eff), dtype=torch.float32, device=dev)
+
+    def run(k0: int, k1: int, xT, muT, nuT, hist):
+        for k in range(k0, k1):
+            hist[k], xT, muT, nuT = fused_step_batched(
+                xT, muT, nuT, tiles, step_weights[k], bead_mask, lrs[k],
+                sigmas[k], bc1s[k], bc2s[k], noise_seed, k, clip,
+            )
+        return xT, muT, nuT
+
+    pick = None
+    if cfg.enantiomer:
+        hot = cfg.hot_steps
+        xT, muT, nuT = run(0, hot, xT, muT, nuT, history)
+        # handedness per pair by energy under the end-of-hot weights
+        coords = xT.transpose(1, 2).contiguous()
+        e_hot, _ = pair_energy_and_grad_batched(
+            coords, restraints, step_weights[hot - 1], bead_mask
+        )
+        choice = torch.argmin(e_hot.reshape(n_models, 2), dim=1)
+        pick = torch.arange(n_models, device=dev) * 2 + choice
+        xT, muT, nuT = xT[pick], muT[pick], nuT[pick]
+        history = history[:, pick].contiguous()
+        xT, muT, nuT = run(hot, T, xT, muT, nuT, history)
+    else:
+        xT, muT, nuT = run(0, T, xT, muT, nuT, history)
+    coords = xT.transpose(1, 2).contiguous()
+
+    terms = energy_terms(coords, restraints, base, bead_mask)
+    # centroid to origin, padding excluded
+    nvalid = bead_mask.sum()
+    centroid = (coords * bead_mask[None, :, None]).sum(dim=1, keepdim=True) / nvalid
+    coords = (coords - centroid) * bead_mask[None, :, None]
+    return AnnealResult(coords=coords, energies=terms, history=history.T, pick=pick)

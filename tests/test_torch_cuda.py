@@ -1,0 +1,88 @@
+"""The port's CUDA kernels vs their plain PyTorch twins, on the card.
+
+Marked `cuda`: these skip on a machine without an NVIDIA GPU (the kernels
+are CUDA C++ with no CPU mode; the twins are held against the JAX package in
+the other test_torch_* files). Run them on the card with
+`python -m pytest tests/test_torch_cuda.py -q`. Tolerances are
+test_pallas_energy.py's (float32 reassociation); the noise is bitwise.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from chromosome3d_tpu.config import RestraintConfig
+from chromosome3d_tpu.restraints import build_restraints
+from chromosome3d_tpu_torch.ops.energy import EnergyWeights, exact_restraints_from_numpy
+from chromosome3d_tpu_torch.ops.fused_step import (
+    clt4_noise,
+    fused_step_batched,
+    fused_step_plain,
+    fused_step_tiles,
+)
+from chromosome3d_tpu_torch.ops.pair_energy import (
+    exact_pair_energy_grad,
+    exact_pair_energy_grad_plain,
+)
+
+pytestmark = pytest.mark.cuda
+
+WEIGHTS = EnergyWeights(noe=10.0, bond=10.0, bond_length=3.8, vdw=4.0,
+                        vdw_radius=float(np.float32(3.06)))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("requires an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+def _case(device, L=200, n_real=181, B=5, seed=0):
+    rng = np.random.RandomState(seed)
+    base = rng.gamma(2.0, 50.0, size=(n_real, n_real))
+    m = (base + base.T) / 2
+    np.fill_diagonal(m, 5000.0)
+    r = build_restraints(m, RestraintConfig(alpha=0.5)).padded(L)
+    ex = exact_restraints_from_numpy(r, device=device)
+    bead = np.zeros(L, np.float32)
+    bead[:n_real] = 1.0
+    x = rng.randn(B, 3, L).astype(np.float32) * 10 * bead
+    mu = rng.normal(0, 0.1, x.shape).astype(np.float32) * bead
+    nu = np.abs(rng.normal(0, 0.01, x.shape)).astype(np.float32) * bead
+    to = lambda a: torch.tensor(a, device=device)
+    return ex, to(bead), to(x), to(mu), to(nu)
+
+
+@pytest.mark.parametrize("clip", [None, 0.5])
+def test_cuda_fused_step_matches_plain(cuda_device, clip):
+    ex, bm, x, mu, nu = _case(cuda_device)
+    tiles = fused_step_tiles(ex, bm, WEIGHTS.noe)
+    args = (0.05, 0.7, 2.3, 101.0, 12345, 6, clip)
+    got = [a.cpu().numpy() for a in fused_step_batched(x, mu, nu, tiles, WEIGHTS, bm, *args)]
+    ref = [a.cpu().numpy() for a in fused_step_plain(x, mu, nu, tiles, WEIGHTS, bm, *args)]
+    np.testing.assert_allclose(got[0], ref[0], rtol=2e-5)
+    np.testing.assert_allclose(got[2], ref[2], rtol=5e-4, atol=1e-5)
+    np.testing.assert_allclose(got[3], ref[3], rtol=5e-4, atol=1e-8)
+    np.testing.assert_allclose(got[1], ref[1], rtol=5e-4, atol=5e-4)
+    for a in got[1:]:
+        np.testing.assert_array_equal(a[:, :, 181:], 0.0)
+
+
+def test_cuda_fused_step_noise_bitwise(cuda_device):
+    ex, bm, x, _, _ = _case(cuda_device)
+    tiles = fused_step_tiles(ex, bm, WEIGHTS.noe)
+    z = torch.zeros_like(x)
+    _, xn, _, _ = fused_step_batched(z, z, z, tiles, WEIGHTS, torch.ones_like(bm),
+                                     0.0, 1.0, 1.0, 1.0, 2**31 - 2, 2759, None)
+    ref = clt4_noise(2**31 - 2, 2759, x.shape[0], x.shape[2], "cpu").numpy()
+    assert np.array_equal(xn.cpu().numpy().view(np.uint32), ref.view(np.uint32))
+
+
+def test_cuda_pair_kernel_matches_plain(cuda_device):
+    ex, bm, x, _, _ = _case(cuda_device, B=4)
+    coords = x.transpose(1, 2).contiguous()
+    e, g = exact_pair_energy_grad(coords, ex.target, ex.w, WEIGHTS, bm)
+    e_r, g_r = exact_pair_energy_grad_plain(coords, ex.target, ex.w, WEIGHTS, bm)
+    np.testing.assert_allclose(e.cpu().numpy(), e_r.cpu().numpy(), rtol=2e-5)
+    np.testing.assert_allclose(g.cpu().numpy(), g_r.cpu().numpy(), rtol=2e-4, atol=2e-4)

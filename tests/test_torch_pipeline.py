@@ -1,0 +1,135 @@
+"""The port's pipeline, artifacts and CLI, on the CPU.
+
+The artifact writers are host numpy in both packages: given the same
+coordinates and energies they must write the same bytes. The CLI runs end
+to end on the 16-bead fixture (padded to the 512 bucket), once in process
+and once in a subprocess where importing jax fails.
+"""
+
+import glob
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from chromosome3d_tpu import cli as jax_cli
+from chromosome3d_tpu import pipeline as jax_pipeline
+from chromosome3d_tpu.config import PipelineConfig
+from chromosome3d_tpu.io.matrix import write_if_matrix
+from chromosome3d_tpu.ops.energy import dense_restraints_from_numpy
+from chromosome3d_tpu.restraints import build_restraints
+from chromosome3d_tpu_torch import cli as port_cli
+from chromosome3d_tpu_torch import pipeline as port_pipeline
+from chromosome3d_tpu_torch.device import resolve_device
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ARTIFACTS = ("{id}.fasta", "{id}.dist", "{id}.rr", "contact.tbl",
+             "contact_violation.txt", "model_info.log", "spearman.txt",
+             "summary.json", "trajectory.npz", "{id}_model1.pdb",
+             "{id}_rank01_a05.pdb")
+
+
+def _assert_artifact_set(out, ident, n_models):
+    for name in ARTIFACTS:
+        assert os.path.isfile(os.path.join(out, name.format(id=ident))), name
+    assert len(glob.glob(os.path.join(out, f"{ident}_rank*_a05.pdb"))) == n_models
+    assert not os.path.exists(os.path.join(out, "iam.running"))
+    assert not os.path.exists(os.path.join(out, "iam.failed"))
+    with open(os.path.join(out, "summary.json")) as f:
+        summary = json.load(f)
+    assert summary["models"] == n_models and summary["L"] == 16
+    assert set(summary["phases"]) == {
+        "load_s", "host_prep_s", "solve_s", "alpha_ensemble_s", "assess_emit_s"}
+    hist = np.load(os.path.join(out, "trajectory.npz"))["energy_history"]
+    assert hist.shape[0] == n_models and np.isfinite(hist).all()
+    return summary
+
+
+@pytest.mark.parametrize("reports", [True, False])
+def test_emit_artifacts_byte_identical(tmp_path, tiny_matrix, reports):
+    cfg = PipelineConfig(model_count=3, emit_violation_reports=reports)
+    r = build_restraints(tiny_matrix, cfg.restraints)
+    dense = dense_restraints_from_numpy(r, as_numpy=True)
+    rng = np.random.RandomState(0)
+    coords = rng.randn(3, 16, 3) * 8
+    energies = {k: rng.rand(3) * 100 for k in ("noe", "bon", "vdw", "overall")}
+    outs = []
+    # one output path for both (model_info.log records the PDB paths)
+    out = tmp_path / "out"
+    for name, mod in (("jax", jax_pipeline), ("port", port_pipeline)):
+        out.mkdir()
+        outs.append(mod.emit_artifacts(str(out), "chrX", coords, energies,
+                                       tiny_matrix, r, dense, cfg))
+        out.rename(tmp_path / name)
+    assert outs[0] == outs[1]
+    names = sorted(os.listdir(tmp_path / "jax"))
+    assert names == sorted(os.listdir(tmp_path / "port"))
+    assert ("contact_violation.txt" in names) == reports
+    for name in names:
+        a = (tmp_path / "jax" / name).read_bytes()
+        assert a == (tmp_path / "port" / name).read_bytes(), name
+
+
+def test_cli_run_full_artifact_set(tmp_path, tiny_matrix, capsys):
+    path = str(tmp_path / "chrT_matrix.txt")
+    write_if_matrix(path, tiny_matrix)
+    out = str(tmp_path / "out")
+    assert port_cli.main(["run", "-i", path, "-o", out, "-m", "2", "--fast"]) == 0
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    summary = _assert_artifact_set(out, "chrT_matrix", 2)
+    assert printed["best_noe_energy"] == summary["best_noe_energy"]
+    # the spearman subcommand scores the emitted models as the JAX CLI does
+    assert port_cli.main(["spearman", path, out]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0] == "SRCC\tPDB" and len(lines) == 1 + 2 + 2   # model + rank PDBs
+    assert jax_cli.main(["spearman", path, out]) == 0
+    assert capsys.readouterr().out.strip().splitlines() == lines
+
+
+def test_cli_run_without_jax(tmp_path, tiny_matrix):
+    """The port never imports jax: block it and run the CLI smoke."""
+    path = str(tmp_path / "chrT_matrix.txt")
+    write_if_matrix(path, tiny_matrix)
+    out = str(tmp_path / "out")
+    code = (
+        "import sys; sys.modules['jax'] = None\n"
+        "import chromosome3d_tpu_torch\n"
+        "from chromosome3d_tpu_torch.cli import main\n"
+        f"rc = main(['run', '-i', {path!r}, '-o', {out!r}, '-m', '2', '--turbo', '--fast'])\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules if sys.modules[m] is not None)\n"
+        "sys.exit(rc)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=str(tmp_path),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    _assert_artifact_set(out, "chrT_matrix", 2)
+
+
+def test_run_pipeline_refuses_unported_inputs(tmp_path, tiny_matrix):
+    npy = str(tmp_path / "m.npy")
+    np.save(npy, tiny_matrix)
+    with pytest.raises(NotImplementedError):
+        port_pipeline.run_pipeline(npy, str(tmp_path / "a"))
+    txt = str(tmp_path / "m.txt")
+    write_if_matrix(txt, tiny_matrix)
+    with pytest.raises(NotImplementedError):   # past the largest bucket
+        port_pipeline.run_pipeline(txt, str(tmp_path / "b"),
+                                   PipelineConfig(length_buckets=(8,)))
+    with pytest.raises(NotImplementedError):
+        port_pipeline.run_pipeline(txt, str(tmp_path / "c"),
+                                   PipelineConfig(alpha_ensemble=(0.7,)))
+
+
+def test_resolve_device_never_falls_back(monkeypatch):
+    """Without a card, the default is the CPU, and asking for CUDA raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert resolve_device(None) == torch.device("cpu")
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError):
+        port_pipeline.run_pipeline("unused.txt", "unused", device="cuda")
