@@ -2,21 +2,35 @@
 
     python3 chip_smoke.py        # from the repository root, one card
 
-Phases (each prints one line; any failure raises, so the exit code is not 0):
+Phases (each prints one line or a few; any failure raises, so the exit
+code is not 0):
   1. device  — requires torch.cuda.is_available(); prints the card's name,
                compute capability and `nvidia-smi` name/power-limit line.
   2. build   — builds the kernels from chromosome3d_tpu_torch/csrc/*.cu.
-  3. kernels — each kernel against its plain PyTorch twin at the main path's
-               shapes (B = 20 and 10 structures, L = 456 padded to 512, f32
-               tiles from a ground-truth matrix), B1's noise bitwise, B1's
-               padded beads, and the time of each (median wall ms of 25
-               calls, and device ms from a torch.profiler trace).
+  3. kernels — each kernel against its plain PyTorch twin at the shapes of
+               the path that runs it, and the time of each (median wall ms
+               of up to 25 calls, and device ms from a torch.profiler trace):
+               B1 and B2 at the reference-scale path's shapes (B = 20 and 10
+               structures, L = 456 padded to 512), B1's noise bitwise and
+               its padded beads; B3 and B4 at the at-scale path's (B = 20
+               and 10, L = 4985 padded to 5120, tiles from the on-card
+               restraint prep) and at two small ragged shapes with a bead
+               mask (odd and even tile counts), B3's bits equal over two
+               calls, B4's noise bitwise equal to the counter hash and to
+               B1's, and the prep's k / 10 correctly rounded on the card.
   4. main path — resets the launch counters, runs the port's CLI in process
                (`run -i <matrix> -o <out> -m 10`, the default 2,760-step
                schedule), checks that B1 launched once per step, B2 once (the
-               enantiomer pick) and no plain twin ran, checks the artifact
-               set, and scores the rank-01 model against the true structure
-               with the ground-truth gates.
+               enantiomer pick) and no other kernel or plain twin ran, checks
+               the artifact set, and scores the rank-01 model against the
+               true structure with the ground-truth gates.
+  5. at-scale path — writes a ground-truth chromosome shaped like hg19 chr1
+               at 50 kb (4,985 beads) as a float32 .npy, resets the counters,
+               runs `run -i <.npy> -o <out> -m 10 --no-violation-reports` in
+               process, and checks that B3 launched once per step plus once
+               (the pick), B4 once per step, no other kernel or plain twin
+               ran, the restraint prep ran on the card, no O(L^2) text
+               artifact was written, and the ground-truth gates hold.
 Then one JSON line with the kernels' numbers and, last, the result line
 `{"ok": true, "device": {...}}`.
 """
@@ -39,6 +53,8 @@ import numpy as np
 import torch
 
 L_TRUE, L_PAD, N_MODELS, SEED = 456, 512, 10, 7
+# hg19 chr1 at 50 kb; quantum_bucket(4985, 512) pads it to 5120
+L_BIG, L_BIG_PAD = 4985, 5120
 GATES = {"rmsd_over_rg": 0.15, "spearman_d": 0.98, "drmsd_rel": 0.08}
 
 
@@ -135,19 +151,27 @@ def slice_inputs(dev):
     r = build_restraints(M, RestraintConfig()).padded(L_PAD)
     ex = exact_restraints_from_numpy(r, "relative", auto_weight_exponent(L_TRUE),
                                      device=dev)
-    bead = np.zeros(L_PAD, np.float32)
-    bead[:L_TRUE] = 1.0
+    return (X, M, ex, *ensemble_near(X, L_PAD, dev),
+            _final_weights(AnnealConfig()))
+
+
+def ensemble_near(X, L_pad, dev):
+    """A 2 x models ensemble of mirror pairs 2 A around the true structure
+    X, padded to L_pad, with random Adam moments: (bead mask, xT, mu, nu)
+    on the card, state in the (B, 3, L) layout."""
+    L = len(X)
+    bead = np.zeros(L_pad, np.float32)
+    bead[:L] = 1.0
     rng = np.random.RandomState(0)
-    xp = np.zeros((L_PAD, 3))
-    xp[:L_TRUE] = X - X.mean(0)
+    xp = np.zeros((L_pad, 3))
+    xp[:L] = X - X.mean(0)
     xs = np.stack([xp * (1.0 if b % 2 == 0 else -1.0) for b in range(2 * N_MODELS)])
     xs = (xs + rng.randn(*xs.shape) * 2.0) * bead[None, :, None]
     xT = np.ascontiguousarray(np.swapaxes(xs, 1, 2)).astype(np.float32)
     mu = (rng.normal(0, 0.1, xT.shape) * bead).astype(np.float32)
     nu = (np.abs(rng.normal(0, 0.01, xT.shape)) * bead).astype(np.float32)
-    weights = _final_weights(AnnealConfig())
     to = lambda a: torch.tensor(a, device=dev)
-    return X, M, ex, to(bead), to(xT), to(mu), to(nu), weights
+    return to(bead), to(xT), to(mu), to(nu)
 
 
 def phase_kernels(dev):
@@ -157,6 +181,7 @@ def phase_kernels(dev):
         fused_step_plain,
         fused_step_tiles,
     )
+    from chromosome3d_tpu_torch.ops.fused_update import fused_update_batched
     from chromosome3d_tpu_torch.ops.pair_energy import (
         exact_pair_energy_grad,
         exact_pair_energy_grad_plain,
@@ -185,8 +210,13 @@ def phase_kernels(dev):
     want = clt4_noise(2**31 - 2, 2759, 2 * N_MODELS, L_PAD, "cpu").numpy()
     check(np.array_equal(xn.cpu().numpy().view(np.uint32), want.view(np.uint32)),
           "B1 noise differs from the counter hash bitwise")
+    _, xn4, _, _ = fused_update_batched(z, z, z, z, w, ones, 0.0, 1.0, 1.0, 1.0,
+                                        2**31 - 2, 2759, None)
+    check(np.array_equal(xn4.cpu().numpy().view(np.uint32), want.view(np.uint32)),
+          "B4 noise differs from B1's bitwise")
     print(f"[kernels] B1 fused_step == plain at B=20 and B=10, L={L_PAD} "
-          f"(x' max abs err {b1_err:.3g}); noise bitwise equal; padded beads 0")
+          f"(x' max abs err {b1_err:.3g}); noise bitwise equal (B4's too); "
+          "padded beads 0")
 
     coords = xT.transpose(1, 2).contiguous()
     e, g = exact_pair_energy_grad(coords, ex.target, ex.w, w, bm)
@@ -213,16 +243,180 @@ def phase_kernels(dev):
                   "B2": (b2_err, wall["B2"], wall["B2 plain"])}
 
 
-def phase_main_path(X, M, card):
+def ragged_case(dev, L, n_real, B, seed):
+    """A small B3 case: exact restraints from a random IF matrix, beads past
+    n_real padded, L not a whole number of 64-bead tiles."""
+    from chromosome3d_tpu_torch.config import RestraintConfig
+    from chromosome3d_tpu_torch.ops.energy import exact_restraints_from_numpy
+    from chromosome3d_tpu_torch.restraints import build_restraints
+
+    rng = np.random.RandomState(seed)
+    base = rng.gamma(2.0, 50.0, size=(n_real, n_real))
+    m = (base + base.T) / 2
+    np.fill_diagonal(m, 5000.0)
+    ex = exact_restraints_from_numpy(build_restraints(m, RestraintConfig()).padded(L),
+                                     device=dev)
+    bead = np.zeros(L, np.float32)
+    bead[:n_real] = 1.0
+    x = rng.randn(B, 3, L).astype(np.float32) * 10 * bead
+    return ex, torch.tensor(bead, device=dev), torch.tensor(x, device=dev)
+
+
+def check_b3(name, ex, bm, xT, w, n_real):
+    """B3 against its twin: equal bits over two calls, energies rtol 3e-5,
+    gradients rtol 2e-4 with an absolute 2e-4 + 1e-6 x max |g| (the kernel
+    and the twin sum ~L float32 terms per bead in other orders, so a bead
+    whose gradient cancels keeps the rounding of its largest terms), padded
+    beads 0. Returns (max abs gradient error, B3's gradient)."""
+    from chromosome3d_tpu_torch.ops.tri_energy import tri_energy_grad, tri_energy_grad_plain
+
+    e, g = tri_energy_grad(xT, ex.target, ex.w, w, bm)
+    e2, g2 = tri_energy_grad(xT, ex.target, ex.w, w, bm)
+    e_r, g_r = tri_energy_grad_plain(xT, ex.target, ex.w, w, bm)
+    torch.cuda.synchronize()
+    check(torch.equal(e, e2) and torch.equal(g, g2), f"B3 {name}: two calls differ")
+    close(f"B3 e {name}", e, e_r, 3e-5)
+    err = close(f"B3 g {name}", g, g_r, 2e-4, 2e-4 + 1e-6 * float(g_r.abs().max()))
+    check(bool((g[:, :, n_real:] == 0).all()), f"B3 {name}: padded beads not 0")
+    return err, g
+
+
+def at_scale_inputs(dev):
+    """The at-scale path's inputs: the ground-truth chromosome, its IF
+    matrix (float32, as the .npy holds it), the tiles the on-card restraint
+    prep builds from it at L = 5120, and an ensemble near the truth."""
+    from chromosome3d_tpu_torch.config import RestraintConfig
+    from chromosome3d_tpu_torch.ops.device_prep import exact_tiles_from_if_device
+    from chromosome3d_tpu_torch.ops.energy import auto_weight_exponent
+    from chromosome3d_tpu_torch.truth import confined_walk, if_from_structure
+
+    X = confined_walk(L_BIG, seed=SEED)
+    M = if_from_structure(X, alpha=0.5, noise_sigma=0.1, seed=SEED).astype(np.float32)
+    rc = RestraintConfig(kscaling=11.0, alpha=0.5)      # the CLI's defaults
+    ex = exact_tiles_from_if_device(M, L_BIG_PAD, rc, rc.weighting,
+                                    auto_weight_exponent(L_BIG), device=dev)
+    return X, M, ex, *ensemble_near(X, L_BIG_PAD, dev)
+
+
+def phase_kernels_at_scale(dev):
     from chromosome3d_tpu_torch.config import AnnealConfig
-    from chromosome3d_tpu_torch import cli
-    from chromosome3d_tpu_torch.io import read_ca_pdb, write_if_matrix
+    from chromosome3d_tpu_torch.ops.device_prep import div10
+    from chromosome3d_tpu_torch.ops.fused_step import clt4_noise
+    from chromosome3d_tpu_torch.ops.fused_update import (
+        fused_update_batched,
+        fused_update_plain,
+    )
+    from chromosome3d_tpu_torch.ops.tri_energy import tri_energy_grad, tri_energy_grad_plain
+    from chromosome3d_tpu_torch.solver.anneal import _final_weights
+
+    w = _final_weights(AnnealConfig())
+    for L, n_real, B in ((300, 290, 20), (200, 181, 1)):   # T = 5 and T = 4
+        ex, bm, x = ragged_case(dev, L, n_real, B, seed=L)
+        err, _ = check_b3(f"(B={B}, L={L})", ex, bm, x, w, n_real)
+        print(f"[kernels] B3 exact_tri == plain at B={B}, L={L} (T={-(-L // 64)}, "
+              f"{L - n_real} padded beads; g max abs err {err:.3g}); bits equal over two calls")
+
+    X, M, ex, bm, xT, mu, nu = at_scale_inputs(dev)
+    b3_err, g = check_b3(f"(B=20, L={L_BIG_PAD})", ex, bm, xT, w, L_BIG)
+    print(f"[kernels] B3 exact_tri == plain at B=20, L={L_BIG}->{L_BIG_PAD} "
+          f"(g max abs err {b3_err:.3g}, max |g| {float(g.abs().max()):.4g}); "
+          "bits equal over two calls")
+
+    args = (0.05, 0.6, 2.3, 101.0, 12345, 6, None)
+    b4_err = 0.0
+    for B in (2 * N_MODELS, N_MODELS):
+        st = tuple(a[:B].contiguous() for a in (xT, g, mu, nu))
+        got = fused_update_batched(*st, w, bm, *args)
+        ref = fused_update_plain(*st, w, bm, *args)
+        torch.cuda.synchronize()
+        close(f"B4 e (B={B})", got[0], ref[0], 2e-5)
+        close(f"B4 mu' (B={B})", got[2], ref[2], 5e-4, 1e-5)
+        close(f"B4 nu' (B={B})", got[3], ref[3], 5e-4, 1e-8)
+        b4_err = max(b4_err, close(f"B4 x' (B={B})", got[1], ref[1], 5e-4, 5e-4))
+        for name, a in zip(("x'", "mu'", "nu'"), got[1:]):
+            check(bool((a[:, :, L_BIG:] == 0).all()), f"B4 padded beads of {name} not 0")
+    z = torch.zeros_like(xT)
+    _, xn, _, _ = fused_update_batched(z, z, z, z, w, torch.ones_like(bm), 0.0, 1.0,
+                                       1.0, 1.0, 2**31 - 2, 2759, None)
+    want = clt4_noise(2**31 - 2, 2759, 2 * N_MODELS, L_BIG_PAD, "cpu").numpy()
+    check(np.array_equal(xn.cpu().numpy().view(np.uint32), want.view(np.uint32)),
+          "B4 noise differs from the counter hash bitwise")
+    k = np.arange(0, 2_000_001, dtype=np.float32)
+    q = div10(torch.tensor(k, device=dev)).cpu().numpy()
+    check(np.array_equal(q.view(np.uint32),
+                         (k.astype(np.float64) / 10.0).astype(np.float32).view(np.uint32)),
+          "the restraint prep's k / 10 is not correctly rounded on the card")
+    print(f"[kernels] B4 fused_update == plain at B=20 and B=10, L={L_BIG_PAD} "
+          f"(x' max abs err {b4_err:.3g}); noise bitwise equal; padded beads 0; "
+          "prep k / 10 correctly rounded for k <= 2e6")
+
+    calls = {
+        "B3": lambda: tri_energy_grad(xT, ex.target, ex.w, w, bm),
+        "B3 plain": lambda: tri_energy_grad_plain(xT, ex.target, ex.w, w, bm),
+        "B4": lambda: fused_update_batched(xT, g, mu, nu, w, bm, *args),
+        "B4 plain": lambda: fused_update_plain(xT, g, mu, nu, w, bm, *args),
+    }
+    n = {k: (5 if k == "B3 plain" else 25) for k in calls}
+    wall = {k: median_ms(fn, n[k], warmup=1) for k, fn in calls.items()}
+    on_dev = {k: device_ms(fn, n[k]) for k, fn in calls.items()}
+    print(f"[kernels] at B=20, L={L_BIG_PAD}, ms per call as median wall with a "
+          "sync around each of 25 (5 for B3 plain) | device time from torch.profiler: "
+          + "; ".join(f"{k} {wall[k]:.4f} | {on_dev[k]:.4f}" for k in calls))
+    return X, M, {"B3": (b3_err, wall["B3"], wall["B3 plain"]),
+                  "B4": (b4_err, wall["B4"], wall["B4 plain"])}
+
+
+def kernel_counters():
+    """Every kernel wrapper and plain twin with its counter attribute."""
     from chromosome3d_tpu_torch.ops.fused_step import fused_step_batched, fused_step_plain
+    from chromosome3d_tpu_torch.ops.fused_update import fused_update_batched, fused_update_plain
     from chromosome3d_tpu_torch.ops.pair_energy import (
         exact_pair_energy_grad,
         exact_pair_energy_grad_plain,
     )
+    from chromosome3d_tpu_torch.ops.tri_energy import tri_energy_grad, tri_energy_grad_plain
+
+    kernels = {"B1": fused_step_batched, "B2": exact_pair_energy_grad,
+               "B3": tri_energy_grad, "B4": fused_update_batched}
+    twins = (fused_step_plain, exact_pair_energy_grad_plain, tri_energy_grad_plain,
+             fused_update_plain)
+    return kernels, twins
+
+
+def reset_counters():
+    kernels, twins = kernel_counters()
+    for fn in kernels.values():
+        fn.launches = 0
+    for fn in twins:
+        fn.calls = 0
+
+
+def read_counters():
+    """(launches per kernel, plain-twin calls in all)."""
+    kernels, twins = kernel_counters()
+    return ({k: fn.launches for k, fn in kernels.items()},
+            sum(fn.calls for fn in twins))
+
+
+def check_gates(pdb, X):
+    """Score a rank-01 PDB against the true structure with the gates."""
+    from chromosome3d_tpu_torch.io import read_ca_pdb
     from chromosome3d_tpu_torch.truth import reconstruction_metrics
+
+    rec = read_ca_pdb(pdb)
+    check(rec.shape == X.shape and np.isfinite(rec).all(), f"{pdb} malformed")
+    met = reconstruction_metrics(rec, X)
+    check(met["rmsd_over_rg"] < GATES["rmsd_over_rg"]
+          and met["spearman_d"] > GATES["spearman_d"]
+          and met["drmsd_rel"] < GATES["drmsd_rel"],
+          f"ground-truth gates missed: {met}")
+    return met
+
+
+def phase_main_path(X, M, card):
+    from chromosome3d_tpu_torch.config import AnnealConfig
+    from chromosome3d_tpu_torch import cli
+    from chromosome3d_tpu_torch.io import write_if_matrix
 
     steps = AnnealConfig().total_steps
     logging.getLogger("chromosome3d_tpu_torch.pipeline").setLevel(logging.WARNING)
@@ -230,18 +424,16 @@ def phase_main_path(X, M, card):
         path = os.path.join(tmp, "chrT_456_matrix.txt")
         write_if_matrix(path, M)
         out = os.path.join(tmp, "out")
-        for fn in (fused_step_batched, exact_pair_energy_grad):
-            fn.launches = 0
-        for fn in (fused_step_plain, exact_pair_energy_grad_plain):
-            fn.calls = 0
+        reset_counters()
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             rc = cli.main(["run", "-i", path, "-o", out, "-m", str(N_MODELS)])
-        launches = {"B1": fused_step_batched.launches, "B2": exact_pair_energy_grad.launches}
-        plain = fused_step_plain.calls + exact_pair_energy_grad_plain.calls
+        launches, plain = read_counters()
         check(rc == 0, f"cli run returned {rc}")
         check(launches["B1"] == steps, f"B1 launched {launches['B1']} times, want {steps}")
         check(launches["B2"] == 1, f"B2 launched {launches['B2']} times, want 1")
+        check(launches["B3"] == launches["B4"] == 0,
+              f"B3/B4 launched {launches['B3']}/{launches['B4']} times, want 0")
         check(plain == 0, f"plain twins ran {plain} times on the main path")
         summary = json.loads(buf.getvalue().strip().splitlines()[-1])
         ident = "chrT_456_matrix"
@@ -251,16 +443,10 @@ def phase_main_path(X, M, card):
             check(os.path.isfile(os.path.join(out, name)), f"artifact {name} missing")
         ranked = sorted(glob.glob(os.path.join(out, f"{ident}_rank*_a05.pdb")))
         check(len(ranked) == N_MODELS, f"{len(ranked)} rank PDBs, want {N_MODELS}")
-        rec = read_ca_pdb(ranked[0])
-        check(rec.shape == (L_TRUE, 3) and np.isfinite(rec).all(), "rank01 PDB malformed")
-        met = reconstruction_metrics(rec, X)
-        check(met["rmsd_over_rg"] < GATES["rmsd_over_rg"]
-              and met["spearman_d"] > GATES["spearman_d"]
-              and met["drmsd_rel"] < GATES["drmsd_rel"],
-              f"ground-truth gates missed: {met}")
+        met = check_gates(ranked[0], X)
     solve_s = summary["phases"]["solve_s"]
     print(f"[main path] run -m {N_MODELS}, L={L_TRUE}->{L_PAD}: B1 {launches['B1']} "
-          f"launches, B2 {launches['B2']}, plain 0; rank01 rmsd/Rg "
+          f"launches, B2 {launches['B2']}, B3 0, B4 0, plain 0; rank01 rmsd/Rg "
           f"{met['rmsd_over_rg']:.4f}, spearman_d {met['spearman_d']:.5f}, "
           f"dRMSD_rel {met['drmsd_rel']:.4f}; best Spearman(IF,1/d) "
           f"{summary['best_spearman_if_inv_d']:.4f}")
@@ -270,23 +456,94 @@ def phase_main_path(X, M, card):
     return launches
 
 
+def phase_at_scale_path(X, M, card):
+    from chromosome3d_tpu_torch import cli
+    from chromosome3d_tpu_torch.config import AnnealConfig
+    from chromosome3d_tpu_torch.ops import device_prep
+
+    steps = AnnealConfig().total_steps
+    prep_devices = []
+    real_prep = device_prep.exact_tiles_from_if_device
+
+    def spy(*args, **kwargs):
+        tiles = real_prep(*args, **kwargs)
+        prep_devices.append(tiles.target.device.type)
+        return tiles
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ident = f"chrT_{L_BIG}"
+        path = os.path.join(tmp, f"{ident}.npy")
+        np.save(path, M)
+        out = os.path.join(tmp, "out")
+        device_prep.exact_tiles_from_if_device = spy
+        reset_counters()
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["run", "-i", path, "-o", out, "-m", str(N_MODELS),
+                               "--no-violation-reports"])
+        finally:
+            device_prep.exact_tiles_from_if_device = real_prep
+        launches, plain = read_counters()
+        check(rc == 0, f"cli run returned {rc}")
+        check(launches["B3"] == steps + 1,
+              f"B3 launched {launches['B3']} times, want {steps + 1}")
+        check(launches["B4"] == steps, f"B4 launched {launches['B4']} times, want {steps}")
+        check(launches["B1"] == launches["B2"] == 0,
+              f"B1/B2 launched {launches['B1']}/{launches['B2']} times, want 0")
+        check(plain == 0, f"plain twins ran {plain} times on the at-scale path")
+        check(prep_devices == ["cuda", "cuda"],
+              f"restraint prep ran on {prep_devices}, want the card twice "
+              "(solve tiles, assessment view)")
+        summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+        for name in (f"{ident}.dist", f"{ident}.rr", "contact.tbl", f"{ident}.txt",
+                     "contact_violation.txt"):
+            check(not os.path.exists(os.path.join(out, name)), f"{name} was written")
+        for name in ("model_info.log", "spearman.txt", "summary.json", "trajectory.npz",
+                     f"{ident}_model1.pdb", f"{ident}.fasta"):
+            check(os.path.isfile(os.path.join(out, name)), f"artifact {name} missing")
+        ranked = sorted(glob.glob(os.path.join(out, f"{ident}_rank*_a05.pdb")))
+        check(len(ranked) == N_MODELS, f"{len(ranked)} rank PDBs, want {N_MODELS}")
+        met = check_gates(ranked[0], X)
+    solve_s = summary["phases"]["solve_s"]
+    print(f"[at-scale path] run -i .npy -m {N_MODELS}, L={L_BIG}->{L_BIG_PAD}: "
+          f"B3 {launches['B3']} launches, B4 {launches['B4']}, B1 0, B2 0, plain 0; "
+          f"restraint prep on the card x2; no .dist/.rr/contact.tbl; {summary['restraints']} "
+          f"restraints; rank01 rmsd/Rg {met['rmsd_over_rg']:.4f}, spearman_d "
+          f"{met['spearman_d']:.5f}, dRMSD_rel {met['drmsd_rel']:.4f}; best "
+          f"Spearman(IF,1/d) {summary['best_spearman_if_inv_d']:.4f}")
+    print(f"[at-scale path] solve_s {solve_s} (synchronised; landmark init "
+          f"included), {steps / solve_s} ensemble steps/s, wall "
+          f"{summary['wall_seconds']} s, phases {json.dumps(summary['phases'])} on {card}")
+    return launches
+
+
 def main() -> int:
     name, card = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
     X, M, measured = phase_kernels(dev)
+    Xb, Mb, measured_big = phase_kernels_at_scale(dev)
+    measured.update(measured_big)
+    torch.cuda.empty_cache()
     launches = phase_main_path(X, M, card)
+    launches_big = phase_at_scale_path(Xb, Mb, card)
     kernels = []
-    for key, kname, src, replaces in (
+    for key, kname, src, replaces, path_launches in (
         ("B1", "fused_step", "chromosome3d_tpu_torch/csrc/fused_step.cu",
-         "chromosome3d_tpu/ops/pallas_energy.py:330"),
+         "chromosome3d_tpu/ops/pallas_energy.py:330", launches),
         ("B2", "exact_pair", "chromosome3d_tpu_torch/csrc/exact_pair.cu",
-         "chromosome3d_tpu/ops/pallas_energy.py:195"),
+         "chromosome3d_tpu/ops/pallas_energy.py:195", launches),
+        ("B3", "exact_tri", "chromosome3d_tpu_torch/csrc/exact_tri.cu",
+         "chromosome3d_tpu/ops/pallas_energy.py:899", launches_big),
+        ("B4", "fused_update", "chromosome3d_tpu_torch/csrc/fused_update.cu",
+         "chromosome3d_tpu/ops/pallas_energy.py:486", launches_big),
     ):
         err, ms, plain_ms = measured[key]
         kernels.append({"name": kname, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[key],
+                        "replaces": replaces, "launches": path_launches[key],
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+    print(card)   # nvidia-smi --query-gpu=name,power.limit, again beside the numbers
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -7,13 +7,20 @@ never `jax`. It reuses the JAX package's jax-free host layer by import
 (`config`, `io.matrix`, `io.pdb`, `restraints`, `metrics`, `truth`,
 `utils.logging`), so the restraint text artifacts stay byte-identical.
 
-Layer map of the ported slice (the `run` main path at reference scale):
+Layer map of the ported slices (the `run` path at reference scale and, on
+one GPU, beyond the length buckets):
 
-  L4  pipeline / cli       run_pipeline's reference-scale branch, `run`/`spearman`
-  L2  solver.anneal        the fused-route annealer (hot, pick, cool, final)
-      solver.init          classical-MDS start (min-plus bounds smoothing)
+  L4  pipeline / cli       run_pipeline (bucket and beyond-bucket branches),
+                           `run`/`spearman`
+  L3  ops.device_prep      beyond-bucket restraint prep on the device
+  L2  solver.anneal        the annealer: fused route (B1) and semi route
+                           (B3 + B4), hot phase, enantiomer pick, cool, final
+      solver.init          classical-MDS start; landmark-MDS start (L >= 2048)
   L1  ops.fused_step       kernel B1: one whole annealing step (csrc/fused_step.cu)
       ops.pair_energy      kernel B2: exact pair energy + gradient (csrc/exact_pair.cu)
+      ops.tri_energy       kernel B3: B2 on each unordered tile pair once
+                           (csrc/exact_tri.cu), and the route rule
+      ops.fused_update     kernel B4: B1's update half (csrc/fused_update.cu)
       ops.energy           plain-torch energy terms and restraint containers
   L0  assess               host-side assessment and report artifacts
 

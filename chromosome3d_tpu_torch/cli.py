@@ -1,12 +1,14 @@
 """Command-line interface of the port: the `run` and `spearman` subcommands
 of chromosome3d_tpu.cli with the flags the ported slice supports.
 
-  python -m chromosome3d_tpu_torch run -i <IF matrix> -o <outdir> [-k K] [-a ALPHA]
+  python -m chromosome3d_tpu_torch run -i <IF matrix (.txt or .npy)> -o <outdir> [-k K] [-a ALPHA]
       [-m MODELS] [--fast | --turbo] [--no-violation-reports]
   python -m chromosome3d_tpu_torch spearman <matrix> <pdb-or-dir> [range]
 
 `run` computes on the first CUDA device when one is present (the kernels
 build at first use) and on the CPU, with the kernels' plain twins, otherwise.
+The JAX CLI's other subcommands are refused with NotImplementedError naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -15,6 +17,13 @@ import argparse
 import json
 import os
 import sys
+
+# the JAX CLI's subcommands that are not ported yet, with their ROADMAP item
+_UNPORTED = {
+    "genome": "A7", "solve": "A9", "serve": "A11", "submit": "A11",
+    "assess": "A11", "render": "A11", "coinit": "A11", "similarity": "A11",
+    "calibrate": "A11",
+}
 
 
 def _make_config(args):
@@ -49,7 +58,8 @@ def main(argv=None) -> int:
 
     run = sub.add_parser("run", help="reconstruct one chromosome")
     run.add_argument("-i", "-if", "--input", required=True,
-                     help="IF matrix: dense text")
+                     help="IF matrix: dense text, or a float .npy (the "
+                          "at-scale format, loaded as a memmap)")
     run.add_argument("-o", "--output", required=True, help="output directory")
     run.add_argument("-k", "--kscaling", type=float, default=11.0,
                      help="distance scaling K (default 11)")
@@ -69,8 +79,16 @@ def main(argv=None) -> int:
     sp.add_argument("pdb", help="PDB file or directory of PDBs")
     sp.add_argument("range", nargs="?", type=int, default=3,
                     help="|i-j| short-range cutoff (default 3)")
+    for name, item in _UNPORTED.items():
+        sub.add_parser(name, help=f"not ported (ROADMAP {item})")
 
-    args = parser.parse_args(argv)
+    args, extra = parser.parse_known_args(argv)
+    if args.command in _UNPORTED:
+        raise NotImplementedError(
+            f"`{args.command}` is not ported (ROADMAP {_UNPORTED[args.command]})"
+        )
+    if extra:
+        parser.error(f"unrecognized arguments: {' '.join(extra)}")
     if args.command is None:
         parser.print_help()
         return 2

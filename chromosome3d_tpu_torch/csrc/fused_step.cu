@@ -37,52 +37,22 @@
 // x', mu' and nu' go to separate buffers and the caller swaps them each
 // step — never in place.
 //
-// Noise: bitwise equal to _t_layout_noise. Element index row * 3 + coord,
-// base = seed + step * 0x9E3779B9 + b * 0x7FEB352D (uint32 wraparound), four
-// murmur3-finalised uniforms (h >> 8) * 2^-24 summed in the Pallas order,
-// minus 2, times float32(sqrt(3)). Each uniform is an exact float, so a
-// contracted multiply-add cannot change the bits.
+// The per-bead half (bond, clip, Adam, noise, move) and the noise's bit
+// contract live in step_common.cuh, shared with kernel B4.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "step_common.cuh"
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr float kEps = 1e-12f;
+using c3d::kEps;
+using c3d::StepParams;
 
-struct StepParams {
-  float vdw, vdw_radius, lr, sigma, b1, b2, eps_adam, bc1, bc2;
-  float bond_w, bond_len, clip;
-  uint32_t seed, step;
-};
+constexpr int kWarpsPerBlock = 8;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
-}
-
-__device__ __forceinline__ uint32_t mix32(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
-}
-
-__device__ __forceinline__ float uniform24(uint32_t h) {
-  return (float)(int)(mix32(h) >> 8) * (1.0f / 16777216.0f);
-}
-
-__device__ __forceinline__ float clt4_noise(uint32_t elem, uint32_t base) {
-  const uint32_t k = elem ^ base;
-  float s = uniform24(k ^ 0x68E31DA4u);
-  s = s + uniform24(k ^ 0xB5297A4Du);
-  s = s + uniform24(k ^ 0x1B56C4E9u);
-  s = s + uniform24(k ^ 0x7C15BD3Fu);
-  return (s - 2.0f) * 1.7320508075688772f;
 }
 
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
@@ -136,48 +106,8 @@ fused_step_kernel(const float* __restrict__ xT,   // (B, 3, L)
 
   // ---- the row's bead: bond, clip, Adam, noise, move ----
   float gr[3] = {gx, gy, gz};
-  const float bmi = bm[i];
-  float fwd[3] = {0.f, 0.f, 0.f}, fwd_prev[3] = {0.f, 0.f, 0.f};
-  float e_bond = 0.f;
-  if (i + 1 < L) {  // bond i -> i+1, owned by bead i
-    float dn[3];
-    for (int c = 0; c < 3; ++c) dn[c] = xb[c * L + i + 1] - a[c];
-    const float db = sqrtf(dn[0] * dn[0] + dn[1] * dn[1] + dn[2] * dn[2] + kEps);
-    const float v_next = bmi * bm[i + 1];
-    const float bdev = db - p.bond_len;
-    const float f = 2.0f * p.bond_w * v_next * bdev / db;
-    for (int c = 0; c < 3; ++c) fwd[c] = f * dn[c];
-    e_bond = p.bond_w * v_next * bdev * bdev;
-  }
-  if (i > 0) {  // bond i-1 -> i: bead i is its "+1" end
-    float dn[3];
-    for (int c = 0; c < 3; ++c) dn[c] = a[c] - xb[c * L + i - 1];
-    const float db = sqrtf(dn[0] * dn[0] + dn[1] * dn[1] + dn[2] * dn[2] + kEps);
-    const float v_prev = bm[i - 1] * bmi;
-    const float bdev = db - p.bond_len;
-    const float f = 2.0f * p.bond_w * v_prev * bdev / db;
-    for (int c = 0; c < 3; ++c) fwd_prev[c] = f * dn[c];
-  }
-  for (int c = 0; c < 3; ++c) gr[c] = gr[c] + (fwd_prev[c] - fwd[c]);
-
-  if (p.clip > 0.f) {
-    const float gnorm = sqrtf(gr[0] * gr[0] + gr[1] * gr[1] + gr[2] * gr[2] + 1e-12f);
-    const float scale = fminf(1.0f, p.clip / gnorm);
-    for (int c = 0; c < 3; ++c) gr[c] = gr[c] * scale;
-  }
-
-  const uint32_t base = p.seed + p.step * 0x9E3779B9u + (uint32_t)b * 0x7FEB352Du;
-  const size_t off = (size_t)b * 3 * L + i;
-  for (int c = 0; c < 3; ++c) {
-    const size_t k = off + (size_t)c * L;
-    const float mu = p.b1 * muT[k] + (1.0f - p.b1) * gr[c];
-    const float nu = p.b2 * nuT[k] + (1.0f - p.b2) * gr[c] * gr[c];
-    const float upd = (mu * p.bc1) / (sqrtf(nu * p.bc2) + p.eps_adam);
-    const float noise = clt4_noise((uint32_t)(i * 3 + c), base);
-    xTo[k] = a[c] + (-p.lr * upd + p.sigma * noise) * bmi;
-    muTo[k] = mu;
-    nuTo[k] = nu;
-  }
+  const float e_bond =
+      c3d::update_bead(xb, bm, muT, nuT, xTo, muTo, nuTo, L, i, b, gr, p);
   e_rows[(size_t)b * L + i] = e + e_bond;
 }
 

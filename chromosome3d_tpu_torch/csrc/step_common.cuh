@@ -1,0 +1,109 @@
+// The per-bead half of an annealing step, shared by kernel B1
+// (fused_step.cu) and kernel B4 (fused_update.cu): chain bond, per-bead
+// gradient clip, Adam with the bias corrections passed in, CLT-4 Langevin
+// noise and the coordinate move. One source for both kernels, so B4's noise
+// and update are B1's by construction (the JAX package shares
+// `_t_layout_bond` and `_t_layout_noise` between its two kernels the same
+// way, pallas_energy.py:264-327).
+//
+// Noise: bitwise equal to _t_layout_noise. Element index row * 3 + coord,
+// base = seed + step * 0x9E3779B9 + b * 0x7FEB352D (uint32 wraparound), four
+// murmur3-finalised uniforms (h >> 8) * 2^-24 summed in the Pallas order,
+// minus 2, times float32(sqrt(3)). Each uniform is an exact float, so a
+// contracted multiply-add cannot change the bits.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace c3d {
+
+constexpr float kEps = 1e-12f;
+
+struct StepParams {
+  float vdw, vdw_radius, lr, sigma, b1, b2, eps_adam, bc1, bc2;
+  float bond_w, bond_len, clip;
+  uint32_t seed, step;
+};
+
+__device__ __forceinline__ uint32_t mix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 16;
+  return h;
+}
+
+__device__ __forceinline__ float uniform24(uint32_t h) {
+  return (float)(int)(mix32(h) >> 8) * (1.0f / 16777216.0f);
+}
+
+__device__ __forceinline__ float clt4_noise(uint32_t elem, uint32_t base) {
+  const uint32_t k = elem ^ base;
+  float s = uniform24(k ^ 0x68E31DA4u);
+  s = s + uniform24(k ^ 0xB5297A4Du);
+  s = s + uniform24(k ^ 0x1B56C4E9u);
+  s = s + uniform24(k ^ 0x7C15BD3Fu);
+  return (s - 2.0f) * 1.7320508075688772f;
+}
+
+// Bead i of structure b, given its pair gradient gr: adds the chain-bond
+// gradient (bond i -> i+1 belongs to bead i; dE/dx_i = fwd_{i-1} - fwd_i,
+// both read from the OLD x), clips, runs Adam and the noisy move, writes
+// x', mu', nu' for the bead into the separate output buffers, and returns
+// the bead's bond energy. xb is structure b's (3, L) slice of the old x.
+__device__ __forceinline__ float update_bead(
+    const float* __restrict__ xb, const float* __restrict__ bm,
+    const float* __restrict__ muT, const float* __restrict__ nuT,
+    float* __restrict__ xTo, float* __restrict__ muTo,
+    float* __restrict__ nuTo, int L, int i, int b, float gr[3],
+    const StepParams& p) {
+  const float a[3] = {xb[i], xb[L + i], xb[2 * L + i]};
+  const float bmi = bm[i];
+  float fwd[3] = {0.f, 0.f, 0.f}, fwd_prev[3] = {0.f, 0.f, 0.f};
+  float e_bond = 0.f;
+  if (i + 1 < L) {  // bond i -> i+1, owned by bead i
+    float dn[3];
+    for (int c = 0; c < 3; ++c) dn[c] = xb[c * L + i + 1] - a[c];
+    const float db = sqrtf(dn[0] * dn[0] + dn[1] * dn[1] + dn[2] * dn[2] + kEps);
+    const float v_next = bmi * bm[i + 1];
+    const float bdev = db - p.bond_len;
+    const float f = 2.0f * p.bond_w * v_next * bdev / db;
+    for (int c = 0; c < 3; ++c) fwd[c] = f * dn[c];
+    e_bond = p.bond_w * v_next * bdev * bdev;
+  }
+  if (i > 0) {  // bond i-1 -> i: bead i is its "+1" end
+    float dn[3];
+    for (int c = 0; c < 3; ++c) dn[c] = a[c] - xb[c * L + i - 1];
+    const float db = sqrtf(dn[0] * dn[0] + dn[1] * dn[1] + dn[2] * dn[2] + kEps);
+    const float v_prev = bm[i - 1] * bmi;
+    const float bdev = db - p.bond_len;
+    const float f = 2.0f * p.bond_w * v_prev * bdev / db;
+    for (int c = 0; c < 3; ++c) fwd_prev[c] = f * dn[c];
+  }
+  for (int c = 0; c < 3; ++c) gr[c] = gr[c] + (fwd_prev[c] - fwd[c]);
+
+  if (p.clip > 0.f) {
+    const float gnorm = sqrtf(gr[0] * gr[0] + gr[1] * gr[1] + gr[2] * gr[2] + 1e-12f);
+    const float scale = fminf(1.0f, p.clip / gnorm);
+    for (int c = 0; c < 3; ++c) gr[c] = gr[c] * scale;
+  }
+
+  const uint32_t base = p.seed + p.step * 0x9E3779B9u + (uint32_t)b * 0x7FEB352Du;
+  const size_t off = (size_t)b * 3 * L + i;
+  for (int c = 0; c < 3; ++c) {
+    const size_t k = off + (size_t)c * L;
+    const float mu = p.b1 * muT[k] + (1.0f - p.b1) * gr[c];
+    const float nu = p.b2 * nuT[k] + (1.0f - p.b2) * gr[c] * gr[c];
+    const float upd = (mu * p.bc1) / (sqrtf(nu * p.bc2) + p.eps_adam);
+    const float noise = clt4_noise((uint32_t)(i * 3 + c), base);
+    xTo[k] = a[c] + (-p.lr * upd + p.sigma * noise) * bmi;
+    muTo[k] = mu;
+    nuTo[k] = nu;
+  }
+  return e_bond;
+}
+
+}  // namespace c3d

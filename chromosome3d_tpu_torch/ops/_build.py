@@ -1,12 +1,14 @@
 """Build and load the port's CUDA kernels.
 
 Every `csrc/*.cu` of this package is compiled, at first use, by nvcc for
-Hopper (`sm_90a`) into one shared library with a plain C interface, which
+Hopper (`sm_90a`) — one nvcc per source, all started together — and the
+objects are linked into one shared library with a plain C interface, which
 is loaded with ctypes. No PyTorch header is included, so the build takes
 seconds (torch.utils.cpp_extension.load, which compiles against PyTorch's
 headers, takes minutes). The library lands in `chromosome3d_tpu_torch/_build/`
-under a name keyed by a hash of the sources and flags, so an edited source
-rebuilds and an unchanged one loads the cached file.
+under a name keyed by a hash of the sources, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited source or header rebuilds and an
+unchanged tree loads the cached file.
 
 Each C entry point launches on the stream it is given and returns
 cudaGetLastError(); `check` raises when that is not 0 (a refused launch
@@ -29,7 +31,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -40,6 +42,17 @@ _F = ctypes.c_float
 SIGNATURES = {
     # x, t, w, bead_mask, e_rows, g, B, L, noe, vdw, vdw_radius, stream
     "c3d_exact_pair": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P),
+    # xT, t, w, bead_mask, part, e_part, gT, e, B, L, T, tile, noe, vdw,
+    # vdw_radius, stream
+    "c3d_exact_tri": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P,
+    ),
+    # xT, gT, muT, nuT, bead_mask, e_rows, xTo, muTo, nuTo, B, L, lr, sigma,
+    # b1, b2, eps, bc1, bc2, bond_w, bond_len, clip, seed, step, stream
+    "c3d_fused_update": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+        _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _P,
+    ),
     # xT, muT, nuT, t, w, nb, bead_mask, e_rows, xTo, muTo, nuTo, B, L,
     # vdw, vdw_radius, lr, sigma, b1, b2, eps, bc1, bc2, bond_w, bond_len,
     # clip, seed, step, stream
@@ -72,12 +85,25 @@ def _sources():
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libc3d_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds) -> None:
+    """Start every command at once and wait for all; raise with the first
+    failure's output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (out, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}\n{err}"
+            )
 
 
 @functools.cache
@@ -86,20 +112,14 @@ def load_library() -> ctypes.CDLL:
     so = library_path()
     if not so.is_file():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                    f"{proc.stdout}\n{proc.stderr}"
-                )
+        nvcc = _nvcc()
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+            objs = [os.path.join(work, f"{src.stem}.o") for src in _sources()]
+            _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                      for src, obj in zip(_sources(), objs)])
+            tmp = os.path.join(work, so.name)
+            _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
             os.replace(tmp, so)   # atomic: a concurrent loader sees all or nothing
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

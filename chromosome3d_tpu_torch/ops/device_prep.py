@@ -1,0 +1,166 @@
+"""Restraint prep on the device for beyond-bucket runs — the port of
+chromosome3d_tpu/ops/device_prep.py's one-shot route.
+
+Past the largest length bucket the host route's float64 passes over (L, L)
+arrays (if_to_dist -> dist_to_restraints -> the tensor builders) cost
+minutes, while the same per-element work is milliseconds on the card. So
+the at-scale `run` pads the IF matrix once on the host, uploads it, and
+builds the two-tensor ExactRestraints form on the device: IF^alpha, the
+global mean, d = K * mean / IF^alpha, the %.1f quantisation of the .dist
+file, the separation and validity masks, and the stress weights. Plain
+PyTorch ops (not kernels; the JAX package's are jitted XLA programs).
+
+Against the host route the targets are bitwise equal except where f32 and
+f64 arithmetic land on opposite sides of a .x5 quantisation midpoint; the
+weights agree to float32 resolution. The strip-streamed route, which the
+JAX package takes when the one-shot prep would not fit in device memory,
+is not ported (ROADMAP A10): `exact_tiles_from_if_device` raises there.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from chromosome3d_tpu_torch.ops.energy import ExactRestraints, f32
+
+# share of the device's memory the one-shot prep may take: the solve's
+# tiles and working set need the rest
+_PREP_MEMORY_SHARE = 0.25
+# live (L_pad, L_pad) float32 planes of the eager one-shot body at its peak
+# (the upload, IF^alpha, d, round(10 d), the quotient and the masks), an
+# estimate from the code
+_PREP_LIVE_PLANES = 8
+
+
+def pad_f32(a, L_pad: int) -> np.ndarray:
+    """Zero-pad a square matrix to (L_pad, L_pad) float32 in one host pass;
+    a float32 matrix already of that size passes through uncopied."""
+    a = np.asarray(a)
+    if a.ndim != 2 or a.shape[0] != a.shape[1]:
+        raise ValueError(f"pad_f32 needs a square matrix, got {a.shape}")
+    L = a.shape[0]
+    if L == L_pad and a.dtype == np.float32:
+        return np.ascontiguousarray(a)
+    out = np.zeros((L_pad, L_pad), np.float32)
+    out[:L, :L] = a
+    return out
+
+
+def _unnorm_weights(t: torch.Tensor, p: float, weighting: str):
+    """(unnormalised weights, restraint mask): the mask is t > 0 (quantised
+    targets are >= 0.1 wherever a restraint exists, exactly 0 elsewhere)."""
+    m = (t > 0.0).to(torch.float32)
+    if weighting == "relative":
+        return m * torch.pow(torch.clamp_min(t, 1.0), -f32(p)), m
+    if weighting == "absolute":
+        return m, m
+    raise ValueError(f"unknown weighting {weighting!r}")
+
+
+def _weights_from_target(t: torch.Tensor, p: float, weighting: str) -> torch.Tensor:
+    """The device mirror of ops.energy._restraint_weights for exact
+    restraints: "relative" = 1/max(t, 1)^p normalised to mean 1 over the
+    restraint set, "absolute" = the mask."""
+    w, m = _unnorm_weights(t, p, weighting)
+    if weighting == "relative":
+        denom = torch.sum(w, dtype=torch.float32) / torch.clamp_min(
+            torch.sum(m, dtype=torch.float32), 1.0)
+        return w / torch.clamp_min(denom, 1e-30)
+    return w
+
+
+def div10(k: torch.Tensor) -> torch.Tensor:
+    """k / 10, correctly rounded in float32, as the host route's
+    f32(round(10 d) / 10 in float64) is for every k = round(10 d) <= 2e6.
+
+    The JAX package writes k * f32(0.1) + k * (0.1 - f32(0.1)); that gives
+    the correctly rounded quotient only as one fused multiply-add (XLA
+    contracts it): as two separately rounded products, which is what eager
+    torch computes, it is one ulp off for 399,999 of the 2,000,001 k. An
+    IEEE division is correctly rounded by definition. The divisor is a 0-d
+    tensor on k's device, not a Python number, because ATen's CUDA kernel
+    turns division by a host scalar into a multiply by its reciprocal."""
+    return k / torch.tensor(10.0, dtype=torch.float32, device=k.device)
+
+
+def _strip_target(strip: torch.Tensor, r0: int, n_true: int, alpha: float,
+                  kscaling: float, mean: torch.Tensor, separation: int):
+    """The quantised exact targets of rows [r0, r0 + S) of the padded
+    matrix, zero where no restraint: d = K * mean / IF^alpha
+    (IF2dist_new, chromosome3D.pl:110-162), then the %.1f .dist
+    quantisation (round half to even, as np.round) in float32."""
+    S, L_pad = strip.shape
+    dev = strip.device
+    x = torch.pow(strip, f32(alpha))
+    d = torch.where(x > 0.0, (f32(kscaling) * mean) / torch.clamp_min(x, 1e-30),
+                    torch.zeros_like(x))
+    q = div10(torch.round(d * 10.0))
+    i = r0 + torch.arange(S, device=dev)[:, None]
+    j = torch.arange(L_pad, device=dev)[None, :]
+    mask = (
+        ((i - j).abs() >= separation)
+        & (i != j)     # the host route drops the diagonal explicitly
+        #                (dist_to_restraints), whatever the separation
+        & (q > 0.0)
+        & (i < n_true)
+        & (j < n_true)
+    )
+    return torch.where(mask, q, torch.zeros_like(q))
+
+
+def _tiles_from_if_body(if_padded: torch.Tensor, n_true: int, alpha: float,
+                        kscaling: float, p: float, separation: int,
+                        weighting: str) -> ExactRestraints:
+    """One chromosome's restraint prep on if_padded's device. The mean of
+    IF^alpha runs over all n_true^2 cells of the true matrix; padding cells
+    are 0 and 0^alpha == 0, so the padded sum is the true sum. n_true^2 is
+    formed in float32, as the JAX program forms it."""
+    n = torch.tensor(float(n_true), dtype=torch.float32, device=if_padded.device)
+    mean = torch.sum(torch.pow(if_padded, f32(alpha)), dtype=torch.float32) / (n * n)
+    t = _strip_target(if_padded, 0, n_true, alpha, kscaling, mean, separation)
+    return ExactRestraints(target=t, w=_weights_from_target(t, p, weighting))
+
+
+def prep_peak_bytes(L_pad: int) -> int:
+    """Estimated device peak of the one-shot prep at this padded size."""
+    return _PREP_LIVE_PLANES * 4 * L_pad * L_pad
+
+
+def _memory_bytes(device: torch.device) -> int:
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+
+
+def should_stream_prep(L_pad: int, device) -> bool:
+    """Whether the one-shot prep would take more than a quarter of the
+    device's memory (the card's, read from torch; the host's for the CPU)."""
+    return prep_peak_bytes(L_pad) > _PREP_MEMORY_SHARE * _memory_bytes(torch.device(device))
+
+
+def exact_tiles_from_if_device(if_matrix, L_pad: int, rc, weighting: str,
+                               weight_exponent: float, n_true=None,
+                               device="cpu") -> ExactRestraints:
+    """The whole restraint prep on `device`: an (L, L) IF matrix (or one
+    already padded by pad_f32, with its true length n_true) -> the
+    ExactRestraints form at (L_pad, L_pad), padding rows and columns zero.
+    Mirrors if_to_dist + quantize_dist + dist_to_restraints + the relative
+    or absolute weighting for the pipeline's own (always exact) restraints.
+    One host pass (the pad) and one upload."""
+    device = torch.device(device)
+    if should_stream_prep(L_pad, device):
+        raise NotImplementedError(
+            f"the one-shot restraint prep at L_pad={L_pad} would take more "
+            "than a quarter of device memory; the strip-streamed prep is not "
+            "ported (ROADMAP A10)"
+        )
+    n = int(if_matrix.shape[0] if n_true is None else n_true)
+    # torch needs a writable array: only a read-only one (a .npy memmap
+    # already at L_pad) is copied
+    m = np.require(pad_f32(if_matrix, L_pad), requirements=["C", "W"])
+    return _tiles_from_if_body(torch.from_numpy(m).to(device), n, rc.alpha,
+                               rc.kscaling, weight_exponent, int(rc.separation),
+                               weighting)

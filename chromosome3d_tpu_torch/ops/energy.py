@@ -63,7 +63,10 @@ class ExactRestraints:
 
     @property
     def mask(self):
-        return (self.w > 0).to(self.w.dtype)
+        m = self.w > 0
+        if isinstance(m, torch.Tensor):
+            return m.to(self.w.dtype)
+        return m.astype(self.w.dtype)   # the host numpy assessment view
 
     @property
     def weight(self):

@@ -47,7 +47,7 @@ def fused_step_feasible(L: int) -> bool:
     pallas_energy.py:90-114): the fused step serves lengths whose
     128-padded size admits a 128-multiple row tile under its budget —
     Lp <= 2048. The port keeps the rule so both packages route the same
-    lengths the same way; past it the semi route (B3 + B4) is not ported."""
+    lengths the same way; past it the semi route (kernels B3 + B4) runs."""
     Lp = -(-max(L, 8) // 128) * 128
     return any(
         t <= Lp and Lp % t == 0 and 14.5 * t * Lp * 4 <= 15.5e6
@@ -140,6 +140,24 @@ def fused_step_plain(
     c = wtu - (2.0 * weights.vdw) * nv
     gT = torch.stack([(c * diff).sum(-1) for diff in diffs], dim=1)
 
+    e_bond, x_new, mu, nu = update_plain(
+        xT, gT, muT, nuT, weights, bead_mask, lr, sigma, bc1, bc2, seed, step,
+        clip, b1, b2, eps_adam,
+    )
+    return (e_pair + e_bond).sum(-1), x_new, mu, nu
+
+
+fused_step_plain.calls = 0
+
+
+def update_plain(xT, gT, muT, nuT, weights: EnergyWeights, bead_mask,
+                 lr, sigma, bc1, bc2, seed, step, clip: Optional[float],
+                 b1: float = 0.9, b2: float = 0.999, eps_adam: float = 1e-8):
+    """The update half of a step given the pair gradient gT (the
+    `_kernel_fused_update` math): chain bond, per-bead clip, Adam, CLT-4
+    noise and the move. Returns (bond energy rows (B, L), xT', muT', nuT').
+    B1's twin runs it after its pair terms, and B4's twin is it."""
+    B, _, L = xT.shape
     e_bond, g_bond = _bond_T(xT, bead_mask, weights.bond, weights.bond_length)
     gT = gT + g_bond
     if clip is not None and clip > 0.0:
@@ -153,10 +171,7 @@ def fused_step_plain(
     upd = (mu * f32(bc1)) / (torch.sqrt(nu * f32(bc2)) + f32(eps_adam))
     noise = clt4_noise(seed, step, B, L, xT.device)
     x_new = xT + (-f32(lr) * upd + f32(sigma) * noise) * bead_mask
-    return (e_pair + e_bond).sum(-1), x_new, mu, nu
-
-
-fused_step_plain.calls = 0
+    return e_bond, x_new, mu, nu
 
 
 def fused_step_batched(

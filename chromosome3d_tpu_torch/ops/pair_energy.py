@@ -3,7 +3,8 @@ its plain PyTorch twin, and the batched value-and-grad built on it.
 
 Replaces chromosome3d_tpu/ops/pallas_energy.py `_kernel_exact` (entry
 `_pairwise_energy_grad_batched(..., exact=True)`) and
-`pallas_energy_and_grad_batched`. The solver calls it once per solve, for
+`pallas_energy_and_grad_batched`, which routes to B3 (ops.tri_energy) at
+L >= 1024 as the JAX package does. The solver calls it once per solve, for
 the enantiomer pick. No autograd is involved: the kernel returns the exact
 gradient and the solver consumes it directly.
 
@@ -50,34 +51,45 @@ def check_inputs(specs) -> torch.device:
     return dev
 
 
-def exact_pair_energy_grad_plain(
+def exact_rows_plain(
     coords: torch.Tensor, target: torch.Tensor, w: torch.Tensor,
-    weights: EnergyWeights, bead_mask: torch.Tensor,
+    weights: EnergyWeights, bead_mask: torch.Tensor, r0: int, r1: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain twin of B2, the `_kernel_exact` math for (B, L, 3) coords:
-    returns (pair energies (B,), pair gradients (B, L, 3)). The gradient is
-    summed as sum_j c_ij (x_i - x_j), like the kernel (see exact_pair.cu)."""
-    exact_pair_energy_grad_plain.calls += 1
+    """The `_kernel_exact` math for rows [r0, r1) of the pair matrix of
+    (B, L, 3) coords: returns (the rows' pair energies summed (B,), their
+    gradients (B, r1 - r0, 3)). The gradient is summed as
+    sum_j c_ij (x_i - x_j), like the kernels (see exact_pair.cu)."""
     x = coords
     L = x.shape[1]
-    diffs = [x[:, :, c, None] - x[:, None, :, c] for c in range(3)]
-    d2 = torch.zeros(x.shape[0], L, L, dtype=x.dtype, device=x.device)
+    diffs = [x[:, r0:r1, c, None] - x[:, None, :, c] for c in range(3)]
+    d2 = torch.zeros(x.shape[0], r1 - r0, L, dtype=x.dtype, device=x.device)
     for diff in diffs:
         d2 = d2 + diff * diff
     rinv = torch.rsqrt(d2 + _EPS)
     d = (d2 + _EPS) * rinv
-    pair_valid = bead_mask[:, None] * bead_mask[None, :]
-    wv = w * pair_valid
-    dev = d - target
+    pair_valid = bead_mask[r0:r1, None] * bead_mask[None, :]
+    wv = w[r0:r1] * pair_valid
+    dev = d - target[r0:r1]
     e_noe = 0.5 * weights.noe * (wv * dev * dev).sum(-1)
     c_noe = weights.noe * wv * (2.0 * dev)
     idx = torch.arange(L, device=x.device)
-    nonbonded = ((idx[:, None] - idx[None, :]).abs() >= 2).to(x.dtype) * pair_valid
+    nonbonded = ((idx[r0:r1, None] - idx[None, :]).abs() >= 2).to(x.dtype) * pair_valid
     overlap = torch.clamp_min(weights.vdw_radius - d, 0.0)
     e_vdw = 0.5 * weights.vdw * (nonbonded * overlap * overlap).sum(-1)
     c = (c_noe - 2.0 * weights.vdw * nonbonded * overlap) * rinv
     g = torch.stack([(c * diff).sum(-1) for diff in diffs], dim=-1)
     return (e_noe + e_vdw).sum(-1), g
+
+
+def exact_pair_energy_grad_plain(
+    coords: torch.Tensor, target: torch.Tensor, w: torch.Tensor,
+    weights: EnergyWeights, bead_mask: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of B2, the `_kernel_exact` math for (B, L, 3) coords:
+    returns (pair energies (B,), pair gradients (B, L, 3))."""
+    exact_pair_energy_grad_plain.calls += 1
+    return exact_rows_plain(coords, target, w, weights, bead_mask, 0,
+                            coords.shape[1])
 
 
 exact_pair_energy_grad_plain.calls = 0
@@ -145,12 +157,24 @@ def pair_energy_and_grad_batched(
     bead_mask: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Value and gradient for a shared-restraint batch (exact restraints):
-    the B2 pair kernel plus the chain bond. Counterpart of the JAX package's
-    `pallas_energy_and_grad_batched(..., exact=True)`. Returns
-    (energies (B,), gradients (B, L, 3))."""
+    a pair kernel plus the chain bond. Counterpart of the JAX package's
+    `pallas_energy_and_grad_batched(..., exact=True)`, with its dispatch
+    (`_pairwise_energy_grad_batched`): the triangular kernel B3 where
+    `tri_energy.use_triangular(L, for_unfused=True)` holds, the whole-matrix
+    kernel B2 otherwise. Returns (energies (B,), gradients (B, L, 3))."""
+    # imported here: tri_energy builds on this module
+    from chromosome3d_tpu_torch.ops import tri_energy
+
+    B, L = coords.shape[0], coords.shape[1]
     target, w = exact_pair_tiles(restraints)
-    e_pair, g_pair = exact_pair_energy_grad(
-        coords, target.contiguous(), w.contiguous(), weights, bead_mask
-    )
+    target, w = target.contiguous(), w.contiguous()
+    if tri_energy.use_triangular(L, for_unfused=True):
+        e_pair, gT = tri_energy.tri_energy_grad(
+            coords.transpose(1, 2).contiguous(), target, w, weights, bead_mask
+        )
+        g_pair = gT.transpose(1, 2)
+    else:
+        e_pair, g_pair = exact_pair_energy_grad(coords, target, w, weights,
+                                                bead_mask)
     e_bond, g_bond = bond_energy_grad(coords, weights, bead_mask)
     return e_pair + e_bond, g_pair + g_bond

@@ -1,20 +1,27 @@
 """End-to-end per-chromosome pipeline — the port of
-chromosome3d_tpu.pipeline.run_pipeline's reference-scale branch.
+chromosome3d_tpu.pipeline.run_pipeline on one device.
 
-  text IF matrix -> IF2dist -> dist2rr -> carr2tbl   (host, text artifacts)
-  -> solve_ensemble_impl on the device              (kernels B1 + B2)
-  -> assess + rank + PDB emission                    (host)
+Reference scale (L within a length bucket):
+  IF matrix -> IF2dist -> dist2rr -> carr2tbl   (host, text artifacts)
+  -> solve_ensemble_impl on the device          (fused route: kernels B1 + B2)
+  -> assess + rank + PDB emission               (host)
+Beyond the largest bucket (exact restraints, the default):
+  IF matrix (.npy or text) -> padded once on the host -> restraint prep on
+  the device (ops.device_prep), the O(L^2) text artifacts suppressed
+  -> solve_ensemble_impl (semi route: kernels B3 + B4, landmark init)
+  -> the assessment view rebuilt on the device and downloaded -> host assess.
 
 Artifacts match the JAX package byte for byte given the same coordinates
-and energies: `$ID.fasta`, `$ID.dist`, `$ID.rr`, `contact.tbl`,
-`${ID}_model1..k.pdb`, `${ID}_rankNN_aXX.pdb`, `spearman.txt`,
+and energies: `$ID.fasta`, `$ID.dist`, `$ID.rr`, `contact.tbl` (reference
+scale), `${ID}_model1..k.pdb`, `${ID}_rankNN_aXX.pdb`, `spearman.txt`,
 `contact_violation.txt`, `model_info.log`, `trajectory.npz` and
 `summary.json`. The sentinel files `iam.running` / `iam.failed` keep the
 reference's failure protocol (chromosome3D.pl:261-284).
 
-Not ported yet, and refused with NotImplementedError: inputs past the
-largest length bucket (ROADMAP A10), .npy/.cool/.mcool/.hic/.matrix inputs
-and --ice (A10/A11), the alpha ensemble (A11), and profiling.
+Not ported yet, and refused with NotImplementedError: padded lengths of
+8192 and more and the streamed prep (ROADMAP A10), the row-sharded solve
+over several cards (A12), .cool/.mcool/.hic/.matrix inputs and --ice and
+the alpha ensemble (A11), and profiling.
 """
 
 from __future__ import annotations
@@ -44,7 +51,9 @@ from chromosome3d_tpu_torch.assess import (
 from chromosome3d_tpu_torch.config import PipelineConfig
 from chromosome3d_tpu_torch.device import resolve_device
 from chromosome3d_tpu_torch.io import load_if_matrix, write_ca_pdb, write_dist_matrix
+from chromosome3d_tpu_torch.ops import device_prep
 from chromosome3d_tpu_torch.ops.energy import (
+    ExactRestraints,
     auto_weight_exponent,
     dense_restraints_from_numpy,
     exact_restraints_from_numpy,
@@ -52,14 +61,15 @@ from chromosome3d_tpu_torch.ops.energy import (
 from chromosome3d_tpu_torch.restraints import (
     dist_to_restraints,
     if_to_dist,
+    restraints_from_exact_target,
     write_contact_tbl,
     write_rr,
 )
-from chromosome3d_tpu_torch.solver.anneal import solve_ensemble_impl
+from chromosome3d_tpu_torch.solver.anneal import CHUNKED_TERMS_MIN_L, solve_ensemble_impl
 
 log = get_logger(__name__)
 
-_ALT_FORMATS = (".npy", ".cool", ".mcool", ".hic", ".matrix")
+_ALT_FORMATS = (".cool", ".mcool", ".hic", ".matrix")
 
 
 def auto_exact(cfg: PipelineConfig, restraints) -> PipelineConfig:
@@ -77,23 +87,39 @@ def auto_exact(cfg: PipelineConfig, restraints) -> PipelineConfig:
     return cfg
 
 
+def auto_exact_matrix(cfg: PipelineConfig) -> PipelineConfig:
+    """auto_exact for matrix-derived restraints, decidable without the data:
+    they are exact by construction (dist2rr emits lo == hi), so only the
+    pure-quadratic well needs checking. Lets the at-scale route enable the
+    exact algebra before any restraint tensor exists."""
+    an = cfg.anneal
+    if not an.exact_restraints and an.noe_rswitch >= 1e8:
+        return cfg.replace(anneal=dataclasses_replace(an, exact_restraints=True))
+    return cfg
+
+
 def _exact_provable(cfg: PipelineConfig) -> bool:
     return cfg.anneal.exact_restraints and cfg.anneal.noe_rswitch >= 1e8
 
 
+def quantum_bucket(L: int, quantum: int) -> int:
+    """Round L up to a multiple of quantum: the at-scale bucket rule
+    (chromosome3d_tpu.pipeline.quantum_bucket on one device)."""
+    q = max(quantum, 1)
+    return -(-L // q) * q
+
+
 def _bucket_pad(L: int, cfg: PipelineConfig):
     """Padded length + (L_pad,) bead mask (None when unpadded): the
-    smallest length bucket that holds L."""
+    smallest length bucket that holds L; past every bucket a shard_quantum
+    multiple (exact L with shard_large off, or with bucketing off)."""
     L_pad = L
     if cfg.bucket_single_runs:
         fit = [b for b in cfg.length_buckets if b >= L]
-        if not fit:
-            raise NotImplementedError(
-                f"L={L} is past the largest length bucket "
-                f"{max(cfg.length_buckets)}; the at-scale route is not ported "
-                "(ROADMAP A10)"
-            )
-        L_pad = min(fit)
+        if fit:
+            L_pad = min(fit)
+        elif cfg.shard_large:
+            L_pad = quantum_bucket(L, cfg.shard_quantum)
     bead_mask = None
     if L_pad != L:
         bead_mask = np.zeros(L_pad, dtype=np.float32)
@@ -101,15 +127,37 @@ def _bucket_pad(L: int, cfg: PipelineConfig):
     return L_pad, bead_mask
 
 
+def _weight_exponent(rc, L: int) -> float:
+    return auto_weight_exponent(L) if rc.weight_exponent is None else rc.weight_exponent
+
+
 def _padded_dense(restraints, rc, L_pad: int, exact: bool, device):
     """Solver restraint tensors padded to L_pad on `device`. The weight
     exponent and the mean-1 normalisation come from the true length
     (padding is masked), so the padded solve equals the exact-L one."""
-    p = rc.weight_exponent
-    if p is None:
-        p = auto_weight_exponent(restraints.length)
     builder = exact_restraints_from_numpy if exact else dense_restraints_from_numpy
-    return builder(restraints.padded(L_pad), rc.weighting, p, device=device)
+    return builder(restraints.padded(L_pad), rc.weighting,
+                   _weight_exponent(rc, restraints.length), device=device)
+
+
+def _use_sharded(L: int, cfg: PipelineConfig, dev: torch.device) -> bool:
+    """The JAX package row-shards a beyond-bucket solve over every device
+    when there is more than one (chromosome3d_tpu.pipeline._use_sharded)."""
+    return (cfg.shard_large and L > max(cfg.length_buckets)
+            and dev.type == "cuda" and torch.cuda.device_count() > 1)
+
+
+def _assessment_view_from_if(if_padded, rc, L_pad: int, n_true: int, device):
+    """The host assessment view of the at-scale route: the device prep run
+    again and its (L, L) corner downloaded — (Restraints view, exact-form
+    numpy view) — instead of the float64 host prep passes."""
+    tiles = device_prep.exact_tiles_from_if_device(
+        if_padded, L_pad, rc, rc.weighting, _weight_exponent(rc, n_true),
+        n_true=n_true, device=device,
+    )
+    target = tiles.target[:n_true, :n_true].cpu().numpy()
+    w = tiles.w[:n_true, :n_true].cpu().numpy()
+    return restraints_from_exact_target(target), ExactRestraints(target=target, w=w)
 
 
 def run_pipeline(
@@ -138,7 +186,8 @@ def run_pipeline(
     ident, ext = os.path.splitext(base)
     if ext in _ALT_FORMATS:
         raise NotImplementedError(
-            f"{ext} input is not ported (ROADMAP A10/A11); give a dense text matrix"
+            f"{ext} input is not ported (ROADMAP A11); give a dense text "
+            "matrix or a .npy"
         )
     if cfg.alpha_ensemble:
         raise NotImplementedError("the alpha ensemble is not ported (ROADMAP A11)")
@@ -147,10 +196,14 @@ def run_pipeline(
         p = os.path.join(dir_out, name)
         if os.path.isfile(p):
             os.remove(p)
-    if ext != ".txt":
+    if ext not in (".txt", ".npy"):
         ident = base  # unknown extension: keep the full name as the id
     local_if = os.path.join(dir_out, f"{ident}.txt")
-    if os.path.abspath(file_if) != os.path.abspath(local_if):
+    if ext == ".npy":
+        # the at-scale binary input loads as a read-only memmap: no text
+        # copy (a matrix this format exists for is gigabytes)
+        local_if = os.fspath(file_if)
+    elif os.path.abspath(file_if) != os.path.abspath(local_if):
         shutil.copy(file_if, local_if)
 
     rc = cfg.restraints
@@ -169,34 +222,59 @@ def run_pipeline(
     L = if_matrix.shape[0]
     banner(log, f"L          : {L}")
     L_pad, bead_mask = _bucket_pad(L, cfg)
+    if L_pad >= CHUNKED_TERMS_MIN_L:
+        raise NotImplementedError(
+            f"L={L} pads to {L_pad} >= {CHUNKED_TERMS_MIN_L}: the row-chunked "
+            "final energy terms and the streamed prep are not ported (ROADMAP A10)"
+        )
+    # beyond every bucket matrix-derived exact restraints take the device
+    # route end to end: no O(L^2) float64 host pass and no O(L^2) text
+    # artifact (a .dist file there is gigabytes of text)
+    device_route = L > max(cfg.length_buckets) and _exact_provable(
+        auto_exact_matrix(cfg)
+    )
     with open(os.path.join(dir_out, f"{ident}.fasta"), "w") as f:
         f.write(f">{ident}\n{'M' * L}\n")
-    dist = if_to_dist(if_matrix, rc)
-    write_dist_matrix(os.path.join(dir_out, f"{ident}.dist"), dist)
-    write_rr(os.path.join(dir_out, f"{ident}.rr"), dist, rc)
-    n_tbl = write_contact_tbl(
-        os.path.join(dir_out, "contact.tbl"),
-        os.path.join(dir_out, f"{ident}.rr"),
-        rc,
-    )
-    banner(log, f"Restraints : {n_tbl} lines in tbl file")
-    restraints = dist_to_restraints(dist, rc)
-    if restraints.count != n_tbl:
-        # the reference leaves an `assess.failed` sentinel before confessing
-        # (chromosome3D.pl:785-787)
-        msg = (
-            f"restraint-count mismatch: tensors {restraints.count} "
-            f"vs tbl {n_tbl}"
+    restraints = dense = n_tbl = if_dev = None
+    if device_route:
+        if _use_sharded(L, cfg, dev):
+            raise NotImplementedError(
+                f"{torch.cuda.device_count()} GPUs: the beyond-bucket solve is "
+                "row-sharded over every device, not ported (ROADMAP A12); "
+                "expose one GPU (CUDA_VISIBLE_DEVICES)"
+            )
+        cfg = auto_exact_matrix(cfg)
+        banner(log, "Artifacts  : beyond-bucket L — restraint prep on device, "
+                    "O(L^2) text artifacts suppressed")
+        # pad once; the solve prep and the assessment view both read it
+        if_dev = device_prep.pad_f32(if_matrix, L_pad)
+    else:
+        dist = if_to_dist(if_matrix, rc)
+        write_dist_matrix(os.path.join(dir_out, f"{ident}.dist"), dist)
+        write_rr(os.path.join(dir_out, f"{ident}.rr"), dist, rc)
+        n_tbl = write_contact_tbl(
+            os.path.join(dir_out, "contact.tbl"),
+            os.path.join(dir_out, f"{ident}.rr"),
+            rc,
         )
-        with open(os.path.join(dir_out, "assess.failed"), "w") as f:
-            f.write(msg + "\n")
-        raise AssertionError(msg)
-    banner(log, f"Coverage   : {coverage_string(restraints)}")
-    cfg = auto_exact(cfg, restraints)
-    # assessment-only tensors stay host numpy (assess is host-side)
-    dense = dense_restraints_from_numpy(
-        restraints, rc.weighting, rc.weight_exponent, as_numpy=True
-    )
+        banner(log, f"Restraints : {n_tbl} lines in tbl file")
+        restraints = dist_to_restraints(dist, rc)
+        if restraints.count != n_tbl:
+            # the reference leaves an `assess.failed` sentinel before
+            # confessing (chromosome3D.pl:785-787)
+            msg = (
+                f"restraint-count mismatch: tensors {restraints.count} "
+                f"vs tbl {n_tbl}"
+            )
+            with open(os.path.join(dir_out, "assess.failed"), "w") as f:
+                f.write(msg + "\n")
+            raise AssertionError(msg)
+        banner(log, f"Coverage   : {coverage_string(restraints)}")
+        cfg = auto_exact(cfg, restraints)
+        # assessment-only tensors stay host numpy (assess is host-side)
+        dense = dense_restraints_from_numpy(
+            restraints, rc.weighting, rc.weight_exponent, as_numpy=True
+        )
     _mark("host_prep_s")
 
     # ---- L2/L1: solve (sentinel-file failure protocol, ref :261-284) ----
@@ -207,9 +285,18 @@ def run_pipeline(
         banner(log, f"(B) Build {cfg.model_count} models on {dev}..")
         if L_pad != L:
             banner(log, f"Bucket     : solving padded to L={L_pad}")
-        solve_r = _padded_dense(
-            restraints, rc, L_pad, _exact_provable(cfg), dev
-        )
+        if device_route:
+            solve_r = device_prep.exact_tiles_from_if_device(
+                if_dev, L_pad, rc, rc.weighting, _weight_exponent(rc, L),
+                n_true=L, device=dev,
+            )
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            _mark("device_prep_s")
+        else:
+            solve_r = _padded_dense(
+                restraints, rc, L_pad, _exact_provable(cfg), dev
+            )
         bm = None if bead_mask is None else torch.from_numpy(bead_mask).to(dev)
         result = solve_ensemble_impl(
             solve_r, cfg.anneal, cfg.model_count, bm,
@@ -231,6 +318,10 @@ def run_pipeline(
     # ---- L0: assess, rank, emit ----
     _mark("alpha_ensemble_s")
     banner(log, "(C) Assess models..")
+    if device_route:
+        restraints, dense = _assessment_view_from_if(if_dev, rc, L_pad, L, dev)
+        n_tbl = restraints.count
+        _mark("assess_view_s")
     summary = emit_artifacts(
         dir_out, ident, coords, energies, if_matrix, restraints, dense, cfg,
         alphas=alphas,

@@ -8,9 +8,10 @@ from chromosome3d_tpu.restraints import (
     build_restraints,
     dist_to_restraints,
     if_to_dist,
+    restraints_from_exact_target,
     write_contact_tbl,
     write_rr,
 )
 
 __all__ = ["Restraints", "build_restraints", "dist_to_restraints", "if_to_dist",
-           "write_contact_tbl", "write_rr"]
+           "restraints_from_exact_target", "write_contact_tbl", "write_rr"]

@@ -1,17 +1,20 @@
-"""The annealing solver on the fused route — the port of
+"""The annealing solver on the fused and semi routes — the port of
 chromosome3d_tpu/solver/anneal.py `solve_ensemble_impl`.
 
-One Python loop over the precomputed hot -> cool -> final schedule; every
-step is one launch of kernel B1 (ops.fused_step) for the whole ensemble. The
-enantiomer trial runs both mirror images through the hot phase, picks the
-lower-energy member of each pair under the end-of-hot weights with kernel B2
-(ops.pair_energy), and only the winners continue, with their Adam moments
-and the step count carried over (so the bias corrections and the noise
-stream stay aligned with the schedule).
+One Python loop over the precomputed hot -> cool -> final schedule. On the
+fused route every step is one launch of kernel B1 (ops.fused_step) for the
+whole ensemble; on the semi route, past the fused step's reach, it is
+kernel B3 (ops.tri_energy, the pair terms) then kernel B4 (ops.fused_update,
+bond, clip, Adam, noise and move). The enantiomer trial runs both mirror
+images through the hot phase, picks the lower-energy member of each pair
+under the end-of-hot weights (ops.pair_energy: B2, or B3 at L >= 1024),
+and only the winners continue, with their Adam moments and the step count
+carried over (so the bias corrections and the noise stream stay aligned
+with the schedule).
 
 Routes: the port runs the JAX package's frozen-default dispatch with no
-dispatch table — the fused step wherever `fused_step_feasible` holds, and
-the pick's whole-matrix pair kernel below L = 1024. Everything else raises
+dispatch table (`tri_energy.use_triangular`, `fused_step_feasible`), so both
+packages route every L the same way. Everything else raises
 NotImplementedError naming its ROADMAP item; nothing falls back silently.
 """
 
@@ -24,19 +27,28 @@ import numpy as np
 import torch
 
 from chromosome3d_tpu_torch.config import AnnealConfig
+from chromosome3d_tpu_torch.ops import tri_energy
 from chromosome3d_tpu_torch.ops.energy import EnergyWeights, energy_terms, f32
 from chromosome3d_tpu_torch.ops.fused_step import (
     fused_step_batched,
     fused_step_feasible,
     fused_step_tiles,
 )
-from chromosome3d_tpu_torch.ops.pair_energy import pair_energy_and_grad_batched
-from chromosome3d_tpu_torch.solver.init import mds_init, random_init, spiral_init
+from chromosome3d_tpu_torch.ops.fused_update import fused_update_batched
+from chromosome3d_tpu_torch.ops.pair_energy import (
+    exact_pair_tiles,
+    pair_energy_and_grad_batched,
+)
+from chromosome3d_tpu_torch.solver.init import (
+    landmark_init,
+    mds_init,
+    random_init,
+    spiral_init,
+)
 
-# the JAX package's frozen default (pallas_energy.py:1290-1291): below this
-# length the pick uses the whole-matrix pair kernel (B2); at and past it the
-# triangular kernel (B3), which is not ported yet
-_PICK_ROW_KERNEL_MAX_L = 1024
+# at and past this (padded) L the JAX package evaluates the final energy
+# terms row-chunked (`energy_terms_chunked`, anneal.py:585), not ported
+CHUNKED_TERMS_MIN_L = 8192
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,7 +157,7 @@ def _refuse_unported(cfg: AnnealConfig, L: int, or_groups) -> None:
     if not cfg.fuse_update:
         raise NotImplementedError(
             "fuse_update=False selects the unfused route, not ported "
-            "(ROADMAP A8)"
+            "(ROADMAP A11)"
         )
     if cfg.angle_weight != 0.0:
         raise NotImplementedError(
@@ -157,15 +169,10 @@ def _refuse_unported(cfg: AnnealConfig, L: int, or_groups) -> None:
         )
     if cfg.gram_d2:
         raise NotImplementedError("gram_d2 is not ported (ROADMAP: do not port)")
-    if not fused_step_feasible(L):
+    if L >= CHUNKED_TERMS_MIN_L:
         raise NotImplementedError(
-            f"L={L} is past the fused step's reach; the semi route "
-            "(kernels B3 + B4) is not ported (ROADMAP A8)"
-        )
-    if cfg.enantiomer and L >= _PICK_ROW_KERNEL_MAX_L:
-        raise NotImplementedError(
-            f"the enantiomer pick at L={L} >= {_PICK_ROW_KERNEL_MAX_L} uses the "
-            "triangular kernel B3, not ported (ROADMAP A8)"
+            f"L={L} >= {CHUNKED_TERMS_MIN_L} needs the row-chunked final "
+            "energy terms (energy_terms_chunked), not ported (ROADMAP A10)"
         )
 
 
@@ -207,22 +214,23 @@ def solve_ensemble_impl(
             init = cfg.init
             if init == "auto":
                 init = "mds" if L < 2048 else "landmark"
+            if cfg.embed_two_sided and init in ("mds", "landmark"):
+                raise NotImplementedError(
+                    "embed_two_sided is not ported (ROADMAP A9)"
+                )
             if init == "mds":
-                if cfg.embed_two_sided:
-                    raise NotImplementedError(
-                        "embed_two_sided is not ported (ROADMAP A9)"
-                    )
                 x0 = mds_init(restraints, bond_length=cfg.bond_length,
                               unknown_fill=cfg.mds_unknown_fill,
                               bead_mask=bead_mask)
+            elif init == "landmark":
+                x0 = landmark_init(restraints, bond_length=cfg.bond_length,
+                                   k=cfg.landmark_count,
+                                   n_iters=cfg.landmark_iters,
+                                   bead_mask=bead_mask)
             elif init == "spiral":
                 x0 = spiral_init(L, bond_length=cfg.bond_length, device=dev)
-            elif init == "random":
-                x0 = random_init(generator, L, device=dev)
             else:
-                raise NotImplementedError(
-                    f"init={init!r} is not ported (ROADMAP A10: landmark init)"
-                )
+                x0 = random_init(generator, L, device=dev)
         x0 = x0.to(device=dev, dtype=torch.float32) * bead_mask[:, None]
         if cfg.enantiomer:
             # pairs (direct, mirrored): flip the x axis of the shared embedding
@@ -251,18 +259,37 @@ def solve_ensemble_impl(
         for vdw, repel in zip(sched.vdw_weight, sched.repel_scale)
     ]
     clip = cfg.gradient_clip
-    tiles = fused_step_tiles(restraints, bead_mask, base.noe)
     xT = xs.transpose(1, 2).contiguous()
     muT = torch.zeros_like(xT)
     nuT = torch.zeros_like(xT)
     history = torch.empty((T, n_eff), dtype=torch.float32, device=dev)
 
-    def run(k0: int, k1: int, xT, muT, nuT, hist):
-        for k in range(k0, k1):
-            hist[k], xT, muT, nuT = fused_step_batched(
+    if fused_step_feasible(L) and not tri_energy.use_triangular(L):
+        # the fused route: the whole step in kernel B1
+        tiles = fused_step_tiles(restraints, bead_mask, base.noe)
+
+        def step(k, xT, muT, nuT):
+            return fused_step_batched(
                 xT, muT, nuT, tiles, step_weights[k], bead_mask, lrs[k],
                 sigmas[k], bc1s[k], bc2s[k], noise_seed, k, clip,
             )
+    else:
+        # the semi route: pair terms in kernel B3, the update in kernel B4
+        target, w = (a.contiguous() for a in exact_pair_tiles(restraints))
+
+        def step(k, xT, muT, nuT):
+            e_pair, gT = tri_energy.tri_energy_grad(
+                xT, target, w, step_weights[k], bead_mask
+            )
+            e_bond, xT, muT, nuT = fused_update_batched(
+                xT, gT, muT, nuT, step_weights[k], bead_mask, lrs[k],
+                sigmas[k], bc1s[k], bc2s[k], noise_seed, k, clip,
+            )
+            return e_pair + e_bond, xT, muT, nuT
+
+    def run(k0: int, k1: int, xT, muT, nuT, hist):
+        for k in range(k0, k1):
+            hist[k], xT, muT, nuT = step(k, xT, muT, nuT)
         return xT, muT, nuT
 
     pick = None

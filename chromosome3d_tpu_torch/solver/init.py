@@ -1,14 +1,17 @@
 """Starting coordinates — the port of chromosome3d_tpu/solver/init.py's
-reference-scale part: classical MDS of the shortest-path-completed bounds
-(`mds_init`), plus the spiral and random starts.
+one-sided part: classical MDS of the shortest-path-completed bounds
+(`mds_init`), landmark MDS for L >= 2048 (`landmark_init`), plus the spiral
+and random starts.
 
 mmdg's metric-matrix embedding is classical MDS: smooth the restraint bounds
 with all-pairs shortest paths (min-plus squarings), double-centre the
 squared distances and embed on the top-3 eigenpairs (subspace iteration and
-a 3 x 3 Rayleigh-Ritz). Plain PyTorch on the solve's device; matrix
-products run in full float32 (the package disables TF32, device.py). The
-landmark init and the two-sided bounds smoothing are not ported yet
-(ROADMAP A9, A10).
+a 3 x 3 Rayleigh-Ritz). Landmark MDS needs only the k x L landmark-to-all
+distances (Bellman-Ford sweeps over row strips of the edge matrix) and
+triangulates the rest with one (L, k) @ (k, 3) product. Plain PyTorch on
+the solve's device; matrix products run in full float32 (the package
+disables TF32, device.py). The two-sided bounds smoothing is not ported yet
+(ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from chromosome3d_tpu_torch.ops.energy import ExactRestraints
 
 _BIG = 1e6
 
@@ -128,6 +133,139 @@ def mds_init(
     top_vals, top_vecs = _top3_eig(b)
     top_vals = torch.clamp_min(top_vals, 0.0)
     return (top_vecs * torch.sqrt(top_vals)[None, :]).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Landmark MDS: the at-scale init (O(k L^2) work, O(k L) extra memory)
+# ---------------------------------------------------------------------------
+
+
+def landmark_indices(L: int, k: int, n_real, device="cpu") -> torch.Tensor:
+    """k evenly spaced real bead indices (n_real: a count or a 0-d float32
+    tensor); float32 arithmetic and truncation, as the JAX package's."""
+    frac = torch.arange(k, dtype=torch.float32, device=device) / max(k - 1, 1)
+    return torch.clamp((frac * (n_real - 1)).to(torch.int64), 0, L - 1)
+
+
+def chain_metric_rows(lidx: torch.Tensor, L: int, bond_length: float) -> torch.Tensor:
+    """Chain-walk upper bound |l - j| * bond_length for the landmark rows —
+    an exact upper bound on the graph distance, so relaxation only ever
+    tightens it."""
+    j = torch.arange(L, dtype=torch.float32, device=lidx.device)
+    return (lidx[:, None].to(torch.float32) - j[None, :]).abs() * bond_length
+
+
+def relax_landmarks_block(delta: torch.Tensor, w_block: torch.Tensor,
+                          row_start: int, chunk: int = 8) -> torch.Tensor:
+    """One Bellman-Ford sweep restricted to one row strip:
+    cand[l, j] = min over the strip's rows m of delta[l, m] + w[m, j].
+    Returns (k, L); the caller min-reduces over strips. Chunked over
+    landmarks to bound the (chunk, Lb, L) temporary."""
+    Lb = w_block.shape[0]
+    d_cols = delta[:, row_start:row_start + Lb]                 # (k, Lb)
+    return torch.cat([
+        (d_cols[c0:c0 + chunk, :, None] + w_block[None]).amin(dim=1)
+        for c0 in range(0, delta.shape[0], chunk)
+    ])
+
+
+def landmark_triangulate(delta: torch.Tensor, lidx: torch.Tensor) -> torch.Tensor:
+    """Landmark-MDS triangulation: classical MDS on the k x k landmark
+    submatrix, then every bead embeds as
+        x_j = -1/2 diag(1/sqrt(lambda)) V^T (delta_j^2 - rowmean(Dk^2)).
+    Degenerate eigendirections are dropped, not divided by (the JAX
+    package's rule: 1/sqrt(lambda ~ 0) would amplify eigenvector noise).
+    Returns (L, 3)."""
+    k = delta.shape[0]
+    dk = delta[:, lidx]                                          # (k, k)
+    dk = 0.5 * (dk + dk.T)
+    dk2 = dk * dk
+    jk = torch.eye(k, dtype=dk2.dtype, device=dk2.device) - 1.0 / k
+    b = -0.5 * (jk @ dk2 @ jk)
+    lam, v = _top3_eig(b)
+    lam = torch.clamp_min(lam, 0.0)
+    good = lam > 1e-6 * torch.clamp_min(lam[0], 1e-12)
+    inv = torch.where(good, 1.0 / torch.sqrt(torch.clamp_min(lam, 1e-30)),
+                      torch.zeros_like(lam))
+    mu = dk2.mean(dim=1)                                         # (k,)
+    proj = v * inv[None, :]                                      # (k, 3)
+    return -0.5 * ((delta * delta - mu[:, None]).T @ proj)       # (L, 3)
+
+
+def _pick_init_row_block(L: int, cap: int = 4096) -> int:
+    """Strip height for the row-blocked relaxation (full L when small). It
+    need not divide L: the last strip is clamped to start at L - Lb, and
+    min-relaxation is idempotent, so the overlap recomputes identical
+    candidates."""
+    return min(L, cap)
+
+
+def _restraint_rows(restraints, r0: int, Lb: int):
+    """(lo, hi, mask) float32 row strips sliced from the stored tiles; the
+    exact form's mask is built from the sliced w strip only."""
+    if isinstance(restraints, ExactRestraints):
+        t = restraints.target[r0:r0 + Lb].to(torch.float32)
+        return t, t, (restraints.w[r0:r0 + Lb] > 0).to(torch.float32)
+    return (
+        restraints.lo[r0:r0 + Lb].to(torch.float32),
+        restraints.hi[r0:r0 + Lb].to(torch.float32),
+        (restraints.mask[r0:r0 + Lb] > 0).to(torch.float32),
+    )
+
+
+def landmark_targets(restraints, bond_length: float = 3.8, k: int = 64,
+                     n_iters: int = 4, bead_mask: Optional[torch.Tensor] = None):
+    """The (k, L) landmark embed-target rows and the landmark indices
+    (one-sided: the midpoint-target graph). The relaxation runs over row
+    strips of at most 4096 rows, each edge strip rebuilt from the restraint
+    tiles, so no (L, L) edge matrix is ever held; min and plus over float32
+    are exact and order-free, so the result is bit-equal to a whole-matrix
+    sweep."""
+    L = restraints.lo.shape[0]
+    dev = restraints.lo.device
+    k = min(k, L)
+    n_real = bead_mask.sum() if bead_mask is not None else L
+    lidx = landmark_indices(L, k, n_real, device=dev)
+    Lb = _pick_init_row_block(L)
+    cols = torch.arange(L, device=dev)
+
+    def edge_rows(r0: int) -> torch.Tensor:
+        """(Lb, L) edge strip: restraint target where a restraint exists,
+        bond_length between consecutive real beads, _BIG otherwise, zero
+        diagonal (the graph smooth_bounds starts from)."""
+        lo_b, hi_b, mask_b = _restraint_rows(restraints, r0, Lb)
+        target = 0.5 * (lo_b + hi_b)
+        w_rows = torch.where(mask_b > 0, target, torch.full_like(target, _BIG))
+        rows = r0 + torch.arange(Lb, device=dev)
+        adjacent = (rows[:, None] - cols[None, :]).abs() == 1
+        if bead_mask is not None:
+            adjacent = adjacent & ((bead_mask[r0:r0 + Lb, None] * bead_mask[None, :]) > 0)
+        w_rows = torch.where(adjacent, torch.clamp_max(w_rows, bond_length), w_rows)
+        return torch.where(rows[:, None] == cols[None, :], torch.zeros_like(w_rows),
+                           w_rows)
+
+    delta = chain_metric_rows(lidx, L, bond_length)
+    # the last strip starts at L - Lb: its overlap with the previous strip
+    # recomputes identical candidates
+    r0s = [min(r0, L - Lb) for r0 in range(0, L, Lb)]
+    for _ in range(n_iters):
+        cand = torch.full_like(delta, _BIG)
+        for r0 in r0s:
+            cand = torch.minimum(cand, relax_landmarks_block(delta, edge_rows(r0), r0))
+        delta = torch.minimum(delta, cand)
+    return delta, lidx
+
+
+def landmark_init(restraints, bond_length: float = 3.8, k: int = 64,
+                  n_iters: int = 4, bead_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Landmark-MDS embedding -> (L, 3) float32 on the restraints' device,
+    padding rows zero; the init for L >= 2048, where classical MDS's
+    O(L^3 log L) smoothing would dominate the solve."""
+    delta, lidx = landmark_targets(restraints, bond_length, k, n_iters, bead_mask)
+    x = landmark_triangulate(delta, lidx)
+    if bead_mask is not None:
+        x = x * bead_mask[:, None]
+    return x.to(torch.float32)
 
 
 def random_init(generator: torch.Generator, L: int, scale: float = 30.0,

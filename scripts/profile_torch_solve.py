@@ -1,0 +1,92 @@
+"""Profile the PyTorch port's ensemble solve on an NVIDIA GPU.
+
+    python3 scripts/profile_torch_solve.py [--length 4985] [--models 10]
+
+Builds a ground-truth chromosome (`confined_walk(length, seed=7)`, IF noise
+0.1), its exact restraints with the on-card prep padded to the length's
+bucket (a length bucket, or a 512-multiple past them), then times the prep,
+the init (landmark MDS from L = 2048, classical MDS below), two warm solves
+with a CUDA synchronise, and one more solve under torch.profiler. Prints the
+solve's wall seconds, its device seconds, the card's busy share, the device
+time of the top kernels, and the card's `nvidia-smi` name and power limit.
+The default is chip_smoke.py's at-scale shape (L = 4985 -> 5120, 10 models,
+the default 2,760-step schedule).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+from chromosome3d_tpu_torch.config import AnnealConfig, PipelineConfig, RestraintConfig  # noqa: E402
+from chromosome3d_tpu_torch.ops.device_prep import exact_tiles_from_if_device  # noqa: E402
+from chromosome3d_tpu_torch.ops.energy import auto_weight_exponent  # noqa: E402
+from chromosome3d_tpu_torch.pipeline import _bucket_pad  # noqa: E402
+from chromosome3d_tpu_torch.solver.anneal import solve_ensemble_impl  # noqa: E402
+from chromosome3d_tpu_torch.solver.init import landmark_init, mds_init  # noqa: E402
+from chromosome3d_tpu_torch.truth import confined_walk, if_from_structure  # noqa: E402
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--length", type=int, default=4985)
+    ap.add_argument("--models", type=int, default=10)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_solve: needs an NVIDIA GPU")
+    dev = torch.device("cuda", 0)
+    L = args.length
+    L_pad, _ = _bucket_pad(L, PipelineConfig())
+    X = confined_walk(L, seed=7)
+    M = if_from_structure(X, alpha=0.5, noise_sigma=0.1, seed=7).astype(np.float32)
+    rc = RestraintConfig(kscaling=11.0, alpha=0.5)
+    ex, prep_s = timed(lambda: exact_tiles_from_if_device(
+        M, L_pad, rc, rc.weighting, auto_weight_exponent(L), device=dev))
+    bm = torch.zeros(L_pad, device=dev)
+    bm[:L] = 1.0
+    cfg = AnnealConfig(exact_restraints=True)
+    init = landmark_init if L_pad >= 2048 else mds_init
+    init_s = [timed(lambda: init(ex, bond_length=cfg.bond_length, bead_mask=bm))[1]
+              for _ in range(2)]
+    solve_s = [timed(lambda: solve_ensemble_impl(
+        ex, cfg, args.models, bm, generator=torch.Generator().manual_seed(i)))[1]
+        for i in range(2)]
+    print(f"L={L}->{L_pad}, {args.models} models, {cfg.total_steps} steps: prep "
+          f"{prep_s:.4f} s (first call); {init.__name__} {init_s[0]:.4f} s cold, "
+          f"{init_s[1]:.4f} s warm; warm solves {solve_s[0]:.4f} s, {solve_s[1]:.4f} s")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = timed(lambda: solve_ensemble_impl(
+            ex, cfg, args.models, bm, generator=torch.Generator().manual_seed(9)))
+    rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+    total = sum(r[1] for r in rows)
+    print(f"profiled solve: wall {wall:.4f} s, device {total / 1e6:.4f} s, "
+          f"busy share {total / 1e6 / wall:.4f}")
+    for key, us, n in rows[:15]:
+        print(f"  {us / 1e3:10.3f} ms {100 * us / total:6.2f}% x{n:6d}  {key[:90]}")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

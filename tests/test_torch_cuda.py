@@ -3,8 +3,11 @@
 Marked `cuda`: these skip on a machine without an NVIDIA GPU (the kernels
 are CUDA C++ with no CPU mode; the twins are held against the JAX package in
 the other test_torch_* files). Run them on the card with
-`python -m pytest tests/test_torch_cuda.py -q`. Tolerances are
+`python -m pytest tests/test_torch_cuda.py --noconftest -q`. Tolerances are
 test_pallas_energy.py's (float32 reassociation); the noise is bitwise.
+B3's gradients add an absolute term of 1e-6 x max |g|: the kernel and its
+twin sum ~L float32 terms per bead in different orders, so where a bead's
+gradient cancels to near zero the rounding of its largest terms is left.
 """
 
 import numpy as np
@@ -20,10 +23,13 @@ from chromosome3d_tpu_torch.ops.fused_step import (
     fused_step_plain,
     fused_step_tiles,
 )
+from chromosome3d_tpu_torch.ops.device_prep import div10
+from chromosome3d_tpu_torch.ops.fused_update import fused_update_batched, fused_update_plain
 from chromosome3d_tpu_torch.ops.pair_energy import (
     exact_pair_energy_grad,
     exact_pair_energy_grad_plain,
 )
+from chromosome3d_tpu_torch.ops.tri_energy import tri_energy_grad, tri_energy_grad_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -86,3 +92,58 @@ def test_cuda_pair_kernel_matches_plain(cuda_device):
     e_r, g_r = exact_pair_energy_grad_plain(coords, ex.target, ex.w, WEIGHTS, bm)
     np.testing.assert_allclose(e.cpu().numpy(), e_r.cpu().numpy(), rtol=2e-5)
     np.testing.assert_allclose(g.cpu().numpy(), g_r.cpu().numpy(), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("L,n_real,B", [
+    (200, 181, 1),    # T = 4 (even: the last shell's twin drops), ragged, masked
+    (300, 290, 20),   # T = 5 (odd), ragged, masked
+    (256, 256, 20),   # T = 4, whole tiles, no padding
+    (333, 300, 1),    # T = 6, ragged, masked
+])
+def test_cuda_tri_kernel_matches_plain(cuda_device, L, n_real, B):
+    ex, bm, x, _, _ = _case(cuda_device, L=L, n_real=n_real, B=B)
+    e, g = tri_energy_grad(x, ex.target, ex.w, WEIGHTS, bm)
+    e2, g2 = tri_energy_grad(x, ex.target, ex.w, WEIGHTS, bm)
+    assert torch.equal(e, e2) and torch.equal(g, g2)        # no atomics: same bits
+    e_r, g_r = tri_energy_grad_plain(x, ex.target, ex.w, WEIGHTS, bm)
+    g_r = g_r.cpu().numpy()
+    np.testing.assert_allclose(e.cpu().numpy(), e_r.cpu().numpy(), rtol=3e-5)
+    np.testing.assert_allclose(g.cpu().numpy(), g_r, rtol=2e-4,
+                               atol=2e-4 + 1e-6 * np.abs(g_r).max())
+    np.testing.assert_array_equal(g[:, :, n_real:].cpu().numpy(), 0.0)
+
+
+@pytest.mark.parametrize("clip", [None, 0.5])
+def test_cuda_fused_update_matches_plain(cuda_device, clip):
+    ex, bm, x, mu, nu = _case(cuda_device)
+    _, g = exact_pair_energy_grad_plain(x.transpose(1, 2).contiguous(), ex.target,
+                                        ex.w, WEIGHTS, bm)
+    g = g.transpose(1, 2).contiguous()
+    args = (0.05, 0.7, 2.3, 101.0, 12345, 6, clip)
+    got = [a.cpu().numpy() for a in fused_update_batched(x, g, mu, nu, WEIGHTS, bm, *args)]
+    ref = [a.cpu().numpy() for a in fused_update_plain(x, g, mu, nu, WEIGHTS, bm, *args)]
+    np.testing.assert_allclose(got[0], ref[0], rtol=2e-5)
+    np.testing.assert_allclose(got[2], ref[2], rtol=5e-4, atol=1e-5)
+    np.testing.assert_allclose(got[3], ref[3], rtol=5e-4, atol=1e-8)
+    np.testing.assert_allclose(got[1], ref[1], rtol=5e-4, atol=5e-4)
+    for a in got[1:]:
+        np.testing.assert_array_equal(a[:, :, 181:], 0.0)
+
+
+def test_cuda_fused_update_noise_bitwise(cuda_device):
+    _, bm, x, _, _ = _case(cuda_device)
+    z = torch.zeros_like(x)
+    _, xn, _, _ = fused_update_batched(z, z, z, z, WEIGHTS, torch.ones_like(bm),
+                                       0.0, 1.0, 1.0, 1.0, 2**31 - 2, 2759, None)
+    ref = clt4_noise(2**31 - 2, 2759, x.shape[0], x.shape[2], "cpu").numpy()
+    assert np.array_equal(xn.cpu().numpy().view(np.uint32), ref.view(np.uint32))
+
+
+def test_cuda_div10_correctly_rounded(cuda_device):
+    """The device prep's k / 10 on the card: the correctly rounded float32
+    quotient for every k it can meet (ATen must not turn it into a multiply
+    by a reciprocal)."""
+    k = np.arange(0, 2_000_001, dtype=np.float32)
+    want = (k.astype(np.float64) / 10.0).astype(np.float32)
+    got = div10(torch.from_numpy(k).to(cuda_device)).cpu().numpy()
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))

@@ -110,19 +110,36 @@ def test_cli_run_without_jax(tmp_path, tiny_matrix):
     _assert_artifact_set(out, "chrT_matrix", 2)
 
 
-def test_run_pipeline_refuses_unported_inputs(tmp_path, tiny_matrix):
-    npy = str(tmp_path / "m.npy")
-    np.save(npy, tiny_matrix)
+def test_run_pipeline_refuses_unported_inputs(tmp_path, tiny_matrix, monkeypatch):
+    cool = str(tmp_path / "m.cool")
+    with open(cool, "wb") as f:
+        f.write(b"not read")
     with pytest.raises(NotImplementedError):
-        port_pipeline.run_pipeline(npy, str(tmp_path / "a"))
+        port_pipeline.run_pipeline(cool, str(tmp_path / "a"))
     txt = str(tmp_path / "m.txt")
     write_if_matrix(txt, tiny_matrix)
-    with pytest.raises(NotImplementedError):   # past the largest bucket
-        port_pipeline.run_pipeline(txt, str(tmp_path / "b"),
-                                   PipelineConfig(length_buckets=(8,)))
+
+    def boom(*a, **k):
+        raise AssertionError("an (L_pad, L_pad) array was allocated")
+
+    # L = 16 pads to 8192 (chunked final terms, ROADMAP A10): refused before
+    # any (L_pad, L_pad) allocation
+    monkeypatch.setattr(port_pipeline.device_prep, "pad_f32", boom)
+    monkeypatch.setattr(port_pipeline, "_padded_dense", boom)
+    with pytest.raises(NotImplementedError):
+        port_pipeline.run_pipeline(
+            txt, str(tmp_path / "b"),
+            PipelineConfig(length_buckets=(8,), shard_quantum=8192))
     with pytest.raises(NotImplementedError):
         port_pipeline.run_pipeline(txt, str(tmp_path / "c"),
                                    PipelineConfig(alpha_ensemble=(0.7,)))
+
+
+@pytest.mark.parametrize("command,item", [("genome", "A7"), ("solve", "A9"),
+                                          ("serve", "A11")])
+def test_cli_refuses_unported_subcommands(command, item):
+    with pytest.raises(NotImplementedError, match=item):
+        port_cli.main([command, "-i", "in", "-o", "out"])
 
 
 def test_resolve_device_never_falls_back(monkeypatch):

@@ -123,7 +123,7 @@ def test_solve_refuses_unported_routes(case):
     bm = torch.from_numpy(bead)
     for bad in (dict(exact_restraints=False), dict(fuse_update=False),
                 dict(angle_weight=0.1), dict(pair_bf16=True), dict(gram_d2=True),
-                dict(init="landmark")):
+                dict(init="landmark", embed_two_sided=True)):
         with pytest.raises(NotImplementedError):
             port_anneal.solve_ensemble_impl(
                 r_t, dataclasses.replace(cfg, **bad), N_MODELS, bm
