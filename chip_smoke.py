@@ -17,7 +17,11 @@ code is not 0):
                restraint prep) and at two small ragged shapes with a bead
                mask (odd and even tile counts), B3's bits equal over two
                calls, B4's noise bitwise equal to the counter hash and to
-               B1's, and the prep's k / 10 correctly rounded on the card.
+               B1's, and the prep's k / 10 correctly rounded on the card;
+               B5 at the `solve` paths' shapes (B = 20; L = 512 on shape A's
+               tensors, L = 5120 on shape B's) and at a small ragged shape
+               with a bead mask, noe_rswitch = 1 (the linear tails) and a
+               contradictory pair (lo > hi), B5's bits equal over two calls.
   4. main path — resets the launch counters, runs the port's CLI in process
                (`run -i <matrix> -o <out> -m 10`, the default 2,760-step
                schedule), checks that B1 launched once per step, B2 once (the
@@ -31,6 +35,18 @@ code is not 0):
                (the pick), B4 once per step, no other kernel or plain twin
                ran, the restraint prep ran on the card, no O(L^2) text
                artifact was written, and the ground-truth gates hold.
+  6-8. solve paths — `solve -r <file> -o <out> -m 10` in process on three
+               restraint files with real deviation windows (+-5-15 % around
+               noisy true distances, confidences 0.5-1): A, every pair of the
+               456-bead truth as `.rr` (-> 512, two-sided MDS); B, the
+               4,985-bead truth's pairs with |i - j| <= 32 plus 400,000
+               long-range pairs as `.rr` (-> 5120, two-sided landmark); C,
+               shape A as a CNS `.tbl` plus 200 `or`-group rows. Each checks
+               that B5 launched once per step plus once (the pick), B4 once
+               per step, B1, B2, B3 and every plain twin never, that the
+               two-sided init ran (and in C the or-group term every step and
+               at the pick), that the violation report was written, and the
+               ground-truth gates on the rank-01 (lowest NOE energy) model.
 Then one JSON line with the kernels' numbers and, last, the result line
 `{"ok": true, "device": {...}}`.
 """
@@ -56,6 +72,9 @@ L_TRUE, L_PAD, N_MODELS, SEED = 456, 512, 10, 7
 # hg19 chr1 at 50 kb; quantum_bucket(4985, 512) pads it to 5120
 L_BIG, L_BIG_PAD = 4985, 5120
 GATES = {"rmsd_over_rg": 0.15, "spearman_d": 0.98, "drmsd_rel": 0.08}
+# the `solve` paths' restraint files: shape B's short-range band and its
+# long-range pairs, shape C's or-group rows
+B_BAND, B_LONG, C_GROUPS = 32, 400_000, 200
 
 
 def fail(msg: str) -> None:
@@ -374,12 +393,17 @@ def kernel_counters():
         exact_pair_energy_grad,
         exact_pair_energy_grad_plain,
     )
+    from chromosome3d_tpu_torch.ops.general_pair import (
+        general_pair_energy_grad,
+        general_pair_energy_grad_plain,
+    )
     from chromosome3d_tpu_torch.ops.tri_energy import tri_energy_grad, tri_energy_grad_plain
 
     kernels = {"B1": fused_step_batched, "B2": exact_pair_energy_grad,
-               "B3": tri_energy_grad, "B4": fused_update_batched}
+               "B3": tri_energy_grad, "B4": fused_update_batched,
+               "B5": general_pair_energy_grad}
     twins = (fused_step_plain, exact_pair_energy_grad_plain, tri_energy_grad_plain,
-             fused_update_plain)
+             fused_update_plain, general_pair_energy_grad_plain)
     return kernels, twins
 
 
@@ -432,8 +456,9 @@ def phase_main_path(X, M, card):
         check(rc == 0, f"cli run returned {rc}")
         check(launches["B1"] == steps, f"B1 launched {launches['B1']} times, want {steps}")
         check(launches["B2"] == 1, f"B2 launched {launches['B2']} times, want 1")
-        check(launches["B3"] == launches["B4"] == 0,
-              f"B3/B4 launched {launches['B3']}/{launches['B4']} times, want 0")
+        check(launches["B3"] == launches["B4"] == launches["B5"] == 0,
+              f"B3/B4/B5 launched {launches['B3']}/{launches['B4']}/{launches['B5']} "
+              "times, want 0")
         check(plain == 0, f"plain twins ran {plain} times on the main path")
         summary = json.loads(buf.getvalue().strip().splitlines()[-1])
         ident = "chrT_456_matrix"
@@ -489,8 +514,9 @@ def phase_at_scale_path(X, M, card):
         check(launches["B3"] == steps + 1,
               f"B3 launched {launches['B3']} times, want {steps + 1}")
         check(launches["B4"] == steps, f"B4 launched {launches['B4']} times, want {steps}")
-        check(launches["B1"] == launches["B2"] == 0,
-              f"B1/B2 launched {launches['B1']}/{launches['B2']} times, want 0")
+        check(launches["B1"] == launches["B2"] == launches["B5"] == 0,
+              f"B1/B2/B5 launched {launches['B1']}/{launches['B2']}/{launches['B5']} "
+              "times, want 0")
         check(plain == 0, f"plain twins ran {plain} times on the at-scale path")
         check(prep_devices == ["cuda", "cuda"],
               f"restraint prep ran on {prep_devices}, want the card twice "
@@ -518,6 +544,209 @@ def phase_at_scale_path(X, M, card):
     return launches
 
 
+def write_windowed_rr(path, X, ii, jj, rng):
+    """`.rr` rows `i j lo hi conf` for the pairs (ii, jj) of the truth X:
+    centres |X_i - X_j| exp(0.05 z), windows +-omega with omega uniform in
+    [0.05, 0.15], confidences uniform in [0.5, 1] (drawn in that order)."""
+    n = len(ii)
+    d = np.linalg.norm(X[ii] - X[jj], axis=1) * np.exp(0.05 * rng.standard_normal(n))
+    om = rng.uniform(0.05, 0.15, n)
+    conf = rng.uniform(0.5, 1.0, n)
+    rows = zip((ii + 1).tolist(), (jj + 1).tolist(), (d * (1 - om)).tolist(),
+               (d * (1 + om)).tolist(), conf.tolist())
+    with open(path, "w") as f:
+        f.write("".join("%d %d %.2f %.2f %.3f\n" % r for r in rows))
+    return n
+
+
+def make_solve_inputs(tmp):
+    """The `solve` paths' restraint files (shapes A, B and C) and truths."""
+    from chromosome3d_tpu_torch.config import RestraintConfig
+    from chromosome3d_tpu_torch.restraints import write_contact_tbl
+    from chromosome3d_tpu_torch.truth import confined_walk
+
+    XA = confined_walk(L_TRUE, seed=SEED)
+    ii, jj = np.triu_indices(L_TRUE, 1)
+    path_a = os.path.join(tmp, f"ext_{L_TRUE}.rr")
+    n_a = write_windowed_rr(path_a, XA, ii, jj, np.random.default_rng(SEED))
+
+    XB = confined_walk(L_BIG, seed=SEED)
+    rng = np.random.default_rng(SEED)
+    near = [(np.arange(L_BIG - k), np.arange(k, L_BIG)) for k in range(1, B_BAND + 1)]
+    keys = np.empty(0, np.int64)
+    while len(keys) < B_LONG:
+        a, b = rng.integers(0, L_BIG, (2, B_LONG))
+        lo_, hi_ = np.minimum(a, b), np.maximum(a, b)
+        keep = hi_ - lo_ > B_BAND
+        keys = np.unique(np.concatenate([keys, lo_[keep] * L_BIG + hi_[keep]]))
+    keys = rng.permutation(keys)[:B_LONG]
+    ii = np.concatenate([i for i, _ in near] + [keys // L_BIG])
+    jj = np.concatenate([j for _, j in near] + [keys % L_BIG])
+    order = np.lexsort((jj, ii))
+    path_b = os.path.join(tmp, f"ext_{L_BIG}.rr")
+    n_b = write_windowed_rr(path_b, XB, ii[order], jj[order], rng)
+
+    path_c = os.path.join(tmp, f"ext_{L_TRUE}_groups.tbl")
+    write_contact_tbl(path_c, path_a, RestraintConfig())
+    rng = np.random.default_rng(SEED)
+    with open(path_c, "a") as f:
+        for _ in range(C_GROUPS):
+            i, j1, j2 = rng.choice(L_TRUE, 3, replace=False)
+            dmin = min(np.linalg.norm(XA[i] - XA[j1]), np.linalg.norm(XA[i] - XA[j2]))
+            dev = rng.uniform(0.05, 0.15) * dmin
+            f.write(f"assign (resid {i + 1} and name ca) ((resid {j1 + 1} and name ca) "
+                    f"or (resid {j2 + 1} and name ca)) {dmin:.2f} {dev:.2f} {dev:.2f}\n")
+    print(f"[inputs] A {n_a} .rr rows (L={L_TRUE}); B {n_b} .rr rows (L={L_BIG}, "
+          f"{os.path.getsize(path_b)} bytes); C {n_a} + {C_GROUPS} or-group .tbl rows")
+    return {"A": (path_a, XA), "B": (path_b, XB), "C": (path_c, XA)}
+
+
+def solve_tiles(path, L_pad, dev):
+    """B5's tiles as the `solve` path builds them from an `.rr` file."""
+    from chromosome3d_tpu_torch import pipeline
+    from chromosome3d_tpu_torch.config import RestraintConfig
+    from chromosome3d_tpu_torch.ops.general_pair import general_pair_tiles
+    from chromosome3d_tpu_torch.restraints import read_rr
+
+    rc = RestraintConfig()
+    r, conf = read_rr(path, None, rc)
+    dense = pipeline._fold_conf(pipeline._padded_dense(r, rc, L_pad, False, dev), conf)
+    return general_pair_tiles(dense)
+
+
+def check_b5(name, xT, tiles, w, bm, n_real):
+    """B5 against its twin: equal bits over two calls, energies rtol 1e-5,
+    gradients rtol 2e-4 with an absolute 2e-4 + 1e-6 x max |g| (as for B3),
+    padded beads 0. Returns the max abs gradient error."""
+    from chromosome3d_tpu_torch.ops.general_pair import (
+        general_pair_energy_grad,
+        general_pair_energy_grad_plain,
+    )
+
+    e, g = general_pair_energy_grad(xT, *tiles, w, bm)
+    e2, g2 = general_pair_energy_grad(xT, *tiles, w, bm)
+    e_r, g_r = general_pair_energy_grad_plain(xT, *tiles, w, bm)
+    torch.cuda.synchronize()
+    check(torch.equal(e, e2) and torch.equal(g, g2), f"B5 {name}: two calls differ")
+    close(f"B5 e {name}", e, e_r, 1e-5)
+    err = close(f"B5 g {name}", g, g_r, 2e-4, 2e-4 + 1e-6 * float(g_r.abs().max()))
+    check(bool((g[:, :, n_real:] == 0).all()), f"B5 {name}: padded beads not 0")
+    return err
+
+
+def phase_kernels_general(dev, inputs):
+    import dataclasses
+
+    from chromosome3d_tpu_torch.config import AnnealConfig
+    from chromosome3d_tpu_torch.ops.general_pair import (
+        general_pair_energy_grad,
+        general_pair_energy_grad_plain,
+    )
+    from chromosome3d_tpu_torch.solver.anneal import _final_weights
+
+    w = _final_weights(AnnealConfig())
+    ex, bm, x = ragged_case(dev, 300, 290, 3, seed=3)
+    lo, hi = (ex.target * 0.8).contiguous(), (ex.target * 1.2).contiguous()
+    lo[0, 3] = lo[3, 0] = hi[0, 3] + 5.0
+    err = check_b5("(B=3, L=300, rswitch 1)", x, (lo, hi, ex.w),
+                   dataclasses.replace(w, noe_rswitch=1.0), bm, 290)
+    print(f"[kernels] B5 general_pair == plain at B=3, L=300 (10 padded beads, "
+          f"noe_rswitch 1, a pair with lo > hi; g max abs err {err:.3g}); bits equal "
+          "over two calls")
+    measured, line = {}, []
+    for shape, L, L_pad in (("A", L_TRUE, L_PAD), ("B", L_BIG, L_BIG_PAD)):
+        path, X = inputs[shape]
+        tiles = solve_tiles(path, L_pad, dev)
+        bm, xT, _, _ = ensemble_near(X, L_pad, dev)
+        err = check_b5(f"(B=20, L={L_pad})", xT, tiles, w, bm, L)
+        print(f"[kernels] B5 general_pair == plain at B=20, L={L}->{L_pad} on shape "
+              f"{shape}'s tiles (g max abs err {err:.3g}); bits equal over two calls")
+        calls = {"B5": lambda: general_pair_energy_grad(xT, *tiles, w, bm),
+                 "B5 plain": lambda: general_pair_energy_grad_plain(xT, *tiles, w, bm)}
+        n = {"B5": 25, "B5 plain": 25 if L_pad == L_PAD else 5}
+        wall = {k: median_ms(fn, n[k], warmup=1) for k, fn in calls.items()}
+        on_dev = {k: device_ms(fn, n[k]) for k, fn in calls.items()}
+        line.append(f"L={L_pad}: " + "; ".join(
+            f"{k} {wall[k]:.4f} | {on_dev[k]:.4f}" for k in calls))
+        measured[shape] = (err, wall["B5"], wall["B5 plain"])
+        del tiles, xT
+        torch.cuda.empty_cache()
+    print("[kernels] B5 at B=20, ms per call as median wall with a sync around each "
+          "of 25 (5 for the plain twin at L=5120) | device time from torch.profiler: "
+          + " / ".join(line))
+    return measured
+
+
+def phase_solve_path(shape, inputs, init, card):
+    """`solve -r <file> -o <out> -m 10` in process, with its checks."""
+    from chromosome3d_tpu_torch import cli
+    from chromosome3d_tpu_torch.config import AnnealConfig
+    from chromosome3d_tpu_torch.solver import anneal
+
+    steps = AnnealConfig().total_steps
+    path, X = inputs[shape]
+    ident = os.path.basename(path).rsplit(".", 1)[0]
+    inits, og_calls = [], [0]
+    real = {"mds_init": anneal.mds_init, "landmark_init": anneal.landmark_init,
+            "or_group_energy_grad": anneal.or_group_energy_grad}
+
+    def init_spy(name):
+        def spy(*args, **kwargs):
+            inits.append((name, kwargs.get("two_sided")))
+            return real[name](*args, **kwargs)
+        return spy
+
+    def og_spy(*args, **kwargs):
+        og_calls[0] += 1
+        return real["or_group_energy_grad"](*args, **kwargs)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "out")
+        anneal.mds_init = init_spy("mds_init")
+        anneal.landmark_init = init_spy("landmark_init")
+        anneal.or_group_energy_grad = og_spy
+        reset_counters()
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["solve", "-r", path, "-o", out, "-m", str(N_MODELS)])
+        finally:
+            for name, fn in real.items():
+                setattr(anneal, name, fn)
+        launches, plain = read_counters()
+        check(rc == 0, f"cli solve returned {rc}")
+        check(launches["B5"] == steps + 1,
+              f"B5 launched {launches['B5']} times, want {steps + 1}")
+        check(launches["B4"] == steps, f"B4 launched {launches['B4']} times, want {steps}")
+        check(launches["B1"] == launches["B2"] == launches["B3"] == 0,
+              f"B1/B2/B3 launched {launches['B1']}/{launches['B2']}/{launches['B3']} "
+              "times, want 0")
+        check(plain == 0, f"plain twins ran {plain} times on solve path {shape}")
+        check(inits == [(init, True)], f"init calls {inits}, want [({init!r}, True)]")
+        groups = C_GROUPS if shape == "C" else 0
+        want_og = steps + 1 if groups else 0
+        check(og_calls[0] == want_og,
+              f"the or-group term ran {og_calls[0]} times, want {want_og}")
+        summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+        check(summary["or_groups"] == groups, f"{summary['or_groups']} or-groups")
+        for name in (f"{ident}_violation.txt", "model_info.log", "summary.json",
+                     f"{ident}_model1.pdb"):
+            check(os.path.isfile(os.path.join(out, name)), f"artifact {name} missing")
+        met = check_gates(os.path.join(out, f"{ident}_model1.pdb"), X)
+    solve_s = summary["phases"]["solve_s"]
+    print(f"[solve {shape}] solve -r {os.path.basename(path)} -m {N_MODELS}, "
+          f"L={summary['L']}->{summary['L_solved']}: B5 {launches['B5']} launches, "
+          f"B4 {launches['B4']}, B1 0, B2 0, B3 0, plain 0; two-sided {init}; "
+          f"or-group term {og_calls[0]} times ({groups} rows); {summary['restraints']} "
+          f"restraints, {summary['satisfied']}/{summary['total']} satisfied; rank01 "
+          f"rmsd/Rg {met['rmsd_over_rg']:.4f}, spearman_d {met['spearman_d']:.5f}, "
+          f"dRMSD_rel {met['drmsd_rel']:.4f}")
+    print(f"[solve {shape}] solve_s {solve_s} (synchronised; two-sided init "
+          f"included), {steps / solve_s} ensemble steps/s, wall "
+          f"{summary['wall_seconds']} s, phases {json.dumps(summary['phases'])} on {card}")
+    return launches
+
+
 def main() -> int:
     name, card = phase_device()
     dev = torch.device("cuda", 0)
@@ -525,9 +754,18 @@ def main() -> int:
     X, M, measured = phase_kernels(dev)
     Xb, Mb, measured_big = phase_kernels_at_scale(dev)
     measured.update(measured_big)
-    torch.cuda.empty_cache()
-    launches = phase_main_path(X, M, card)
-    launches_big = phase_at_scale_path(Xb, Mb, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = make_solve_inputs(tmp)
+        measured_b5 = phase_kernels_general(dev, inputs)
+        measured["B5"] = measured_b5["A"]
+        torch.cuda.empty_cache()
+        launches = phase_main_path(X, M, card)
+        launches_big = phase_at_scale_path(Xb, Mb, card)
+        torch.cuda.empty_cache()
+        launches_solve = phase_solve_path("A", inputs, "mds_init", card)
+        phase_solve_path("B", inputs, "landmark_init", card)
+        torch.cuda.empty_cache()
+        phase_solve_path("C", inputs, "mds_init", card)
     kernels = []
     for key, kname, src, replaces, path_launches in (
         ("B1", "fused_step", "chromosome3d_tpu_torch/csrc/fused_step.cu",
@@ -538,6 +776,8 @@ def main() -> int:
          "chromosome3d_tpu/ops/pallas_energy.py:899", launches_big),
         ("B4", "fused_update", "chromosome3d_tpu_torch/csrc/fused_update.cu",
          "chromosome3d_tpu/ops/pallas_energy.py:486", launches_big),
+        ("B5", "general_pair", "chromosome3d_tpu_torch/csrc/general_pair.cu",
+         "chromosome3d_tpu/ops/pallas_energy.py:117", launches_solve),
     ):
         err, ms, plain_ms = measured[key]
         kernels.append({"name": kname, "route": "cuda", "source": src,

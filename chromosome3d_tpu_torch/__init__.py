@@ -8,20 +8,27 @@ never `jax`. It reuses the JAX package's jax-free host layer by import
 `utils.logging`), so the restraint text artifacts stay byte-identical.
 
 Layer map of the ported slices (the `run` path at reference scale and, on
-one GPU, beyond the length buckets):
+one GPU, beyond the length buckets; the `solve` path from a restraint file):
 
   L4  pipeline / cli       run_pipeline (bucket and beyond-bucket branches),
-                           `run`/`spearman`
+                           run_restraints_pipeline; `run`/`solve`/`spearman`
   L3  ops.device_prep      beyond-bucket restraint prep on the device
-  L2  solver.anneal        the annealer: fused route (B1) and semi route
-                           (B3 + B4), hot phase, enantiomer pick, cool, final
-      solver.init          classical-MDS start; landmark-MDS start (L >= 2048)
+      restraints           `.rr` / `.tbl` readers (jax-free)
+  L2  solver.anneal        the annealer: fused route (B1), semi route
+                           (B3 + B4), semi-general route (B5 + B4), the
+                           or-group term, hot phase, enantiomer pick, cool,
+                           final
+      solver.init          classical-MDS start; landmark-MDS start (L >= 2048);
+                           both one- or two-sided
   L1  ops.fused_step       kernel B1: one whole annealing step (csrc/fused_step.cu)
       ops.pair_energy      kernel B2: exact pair energy + gradient (csrc/exact_pair.cu)
       ops.tri_energy       kernel B3: B2 on each unordered tile pair once
                            (csrc/exact_tri.cu), and the route rule
       ops.fused_update     kernel B4: B1's update half (csrc/fused_update.cu)
-      ops.energy           plain-torch energy terms and restraint containers
+      ops.general_pair     kernel B5: the general (windowed) pair energy +
+                           gradient (csrc/general_pair.cu)
+      ops.energy           plain-torch energy terms, or-groups and restraint
+                           containers
   L0  assess               host-side assessment and report artifacts
 
 Every kernel has a plain PyTorch twin in its module; a wrapper runs the twin

@@ -1,7 +1,8 @@
 """Model assessment, ranking and report artifacts — the port's twin of the
-subset of chromosome3d_tpu/assess.py that the pipeline's artifact emission
+subset of chromosome3d_tpu/assess.py that the pipelines' artifact emission
 uses (assess_ensemble, the NOE-energy and Spearman rankings, the
-contact_violation.txt writer, model_info.log, the coverage string).
+contact_violation.txt writer, model_info.log, the coverage string, and for
+external `.tbl` files the row parser and the per-row violation report).
 
 Host-side numpy, copied from the JAX package so that the artifact bytes
 stay equal: the JAX module cannot be imported without jax (it names
@@ -280,6 +281,75 @@ def write_violation_report(
     return satisfied, total
 
 
+def write_tbl_violation_report(
+    path: str | os.PathLike,
+    coords: np.ndarray,
+    tbl_path: str | os.PathLike,
+    cfg: PipelineConfig,
+    pdb_name: str = "model",
+    rows=None,
+) -> Tuple[int, int]:
+    """Violation report for an ARBITRARY external tbl, one report row per
+    TBL ROW — the reference's count_satisfied_tbl_rows iterates the file
+    (:447-485), so duplicate rows, reversed (j, i) rows, and `or`-group
+    rows (minimum distance over alternatives, :487-554) all count
+    individually. Violated rows first across the WHOLE file, like the
+    dense writer. Returns (satisfied, total).
+
+    The matrix pipeline's own contact.tbl is unique-upper-triangle by
+    construction, so the vectorized dense write_violation_report stays its
+    fast path; this writer backs the restraints-file pipeline. rows:
+    pre-parsed parse_tbl_rows output (avoids re-reading the file)."""
+    coords = np.asarray(coords, dtype=np.float64)
+    if rows is None:
+        rows = parse_tbl_rows(tbl_path)
+    pd_ = tbl_row_distances(coords, rows)
+    dt = np.asarray([r[2] for r in rows], np.float64)
+    neg = np.asarray([r[3] for r in rows], np.float64)
+    pos = np.asarray([r[4] for r in rows], np.float64)
+    lo = dt - neg
+    hi = dt + pos
+    under_hi = pd_ < hi + cfg.dist_relax
+    under_lo = pd_ < lo - cfg.dist_relax
+    flag = np.where(under_hi & ~under_lo, 0, 1)
+    satisfied = int(under_hi.sum()) - int(under_lo.sum())
+    total = len(rows)
+    dev = np.where(under_lo, -(lo - pd_), np.where(under_hi, 0.0, pd_ - hi))
+    order = np.argsort(-flag, kind="stable")   # violated rows first (stable)
+    truncated = total > FULL_REPORT_MAX
+    if truncated:
+        # same at-scale policy as the dense writer: violated rows only plus
+        # a summary line (formatting >500k spec strings would dominate)
+        order = order[: int(flag.sum())]
+
+    def sel(g):
+        if len(g) == 1:
+            r, a = g[0]
+            return f"(resid {r:3d} and name {a})"
+        return (
+            "("
+            + " or ".join(f"(resid {r:3d} and name {a})" for r, a in g)
+            + ")"
+        )
+
+    lines = []
+    for k in order.tolist():
+        g1, g2 = rows[k][0], rows[k][1]
+        token = "assign45" if len(g1) == 1 and len(g2) == 1 else "assign"
+        spec = f"{token} {sel(g1)} {sel(g2)} {dt[k]:.2f} {neg[k]:.2f} {pos[k]:.2f}"
+        lines.append(f"{flag[k]:3d}\t{dev[k]:.2f}\t{pd_[k]:.2f} # {spec}\n")
+    with open(path, "w") as f:
+        f.write(f"#NOE violation check; {pdb_name} against {os.path.basename(str(tbl_path))}\n")
+        f.write("#violation-flag, deviation, actual-measurement, Input-NOE-restraint\n")
+        if truncated:
+            f.write(
+                f"#beyond-reference scale: {total} tbl rows, listing the "
+                f"{len(lines)} violated rows only "
+                f"({satisfied}/{total} satisfied)\n"
+            )
+        f.writelines(lines)
+    return satisfied, total
+
 
 def append_model_info(
     path: str | os.PathLike, pdb_path: str, remarks: Dict[str, float]
@@ -291,7 +361,6 @@ def append_model_info(
         for term, value in remarks.items():
             f.write(f"REMARK {term} = {value:.4f}\n")
         f.write("\n")
-
 
 
 def coverage_string(r: Restraints) -> str:
@@ -313,3 +382,124 @@ def coverage_string(r: Restraints) -> str:
     n = int(np.triu(r.mask, k=1).sum())
     return f"{cov} [{n} restraints touching {touched} residues]"
 
+
+def parse_tbl_rows(path: str | os.PathLike):
+    """Parse a CNS NOE tbl into [(group_i, group_j, d, negdev, posdev)] where
+    each group is a list of (resid, atom_name) — including the `or`-group
+    layouts the reference's assessor tolerates (ssnoe_tbl_min_pdb_dist,
+    chromosome3D.pl:487-554):
+
+        assign (resid I and name A) (resid J and name B) d neg pos
+        assign ((resid I and name A) or (resid I and name C)) (...) d neg pos
+    """
+    import re as _re
+
+    rows = []
+    with open(path, "r") as f:
+        for line in f:
+            line = line.strip()
+            if not line.startswith("assign"):
+                continue
+            if "(" not in line:
+                # paren-less layout (`assign45 resid I and name ca resid J
+                # and name ca d nd pd`) — CNS tolerates it and the old
+                # fixed-index parser accepted it; the group scanner below
+                # would swallow the second selection, so handle it here.
+                # The numeric tail is taken ONLY from text after the second
+                # selection (resid numbers must not leak into d/neg/pos).
+                sels = list(_re.finditer(
+                    r"resid\s+(\d+)(?:\s+and\s+name\s+(\S+))?", line
+                ))
+                if len(sels) >= 2:
+                    tail_text = line[sels[1].end():]
+                    tailm = _re.findall(
+                        r"[-+]?\d*\.?\d+(?:[eE][-+]?\d+)?", tail_text
+                    )
+                    if len(tailm) >= 3:
+                        g1 = [(int(sels[0].group(1)),
+                               (sels[0].group(2) or "ca").lower())]
+                        g2 = [(int(sels[1].group(1)),
+                               (sels[1].group(2) or "ca").lower())]
+                        d, nd, pd = (float(v) for v in tailm[:3])
+                        rows.append((g1, g2, d, nd, pd))
+                continue
+            c = line.replace("(", " ( ").replace(")", " ) ").split()
+            groups: List[List[Tuple[int, str]]] = []
+            current: List[Tuple[int, str]] = []
+            i = 0
+            depth = 0
+            tail: List[float] = []
+            while i < len(c):
+                tok = c[i]
+                if tok == "(":
+                    depth += 1
+                elif tok == ")":
+                    depth -= 1
+                    if depth == 0:
+                        groups.append(current)
+                        current = []
+                elif tok == "resid":
+                    resid = int(c[i + 1])
+                    # find the matching "name X" within this atom selection
+                    j = i + 2
+                    aname = "ca"
+                    while j < len(c) and c[j] not in (")", "or"):
+                        if c[j] == "name":
+                            aname = c[j + 1].lower()
+                        j += 1
+                    current.append((resid, aname))
+                    i = j - 1
+                elif depth == 0 and tok not in ("assign", "assign45", "or"):
+                    try:
+                        tail.append(float(tok))
+                    except ValueError:
+                        pass
+                i += 1
+            if len(groups) >= 2 and len(tail) >= 3:
+                rows.append((groups[0], groups[1], tail[0], tail[1], tail[2]))
+    return rows
+
+
+def min_group_distance(coords: np.ndarray, g1, g2) -> float:
+    """Minimum distance over the atom-group cross product (ref :487-554).
+    For CA-bead models every atom name resolves to the residue's bead."""
+    best = np.inf
+    for r1, _ in g1:
+        for r2, _ in g2:
+            d = float(np.linalg.norm(coords[r1 - 1] - coords[r2 - 1]))
+            best = min(best, d)
+    return best
+
+
+def tbl_row_distances(coords: np.ndarray, rows) -> np.ndarray:
+    """Per-tbl-row model distance: ONE vectorized gather covers all
+    single-pair rows (the overwhelming majority of any real file); only
+    or-group rows take the Python cross-product loop. Measured on this
+    machine at R = 10^6 synthetic single-pair rows: ~0.6 s vs ~3.6 s for
+    the per-row min_group_distance loop it replaced (~6x; the residual
+    cost is the unavoidable per-row categorization scan -- the numpy math
+    itself is ~0.05 s)."""
+    coords = np.asarray(coords, dtype=np.float64)
+    pd_ = np.empty(len(rows), np.float64)
+    # flat-list comprehensions + per-list np.asarray: measured 3x faster
+    # than building one (k, i, j)-tuple list (np.asarray on a list of
+    # tuples is itself the bottleneck at 10^6 rows)
+    is_single = [len(r[0]) == 1 and len(r[1]) == 1 for r in rows]
+    if all(is_single):
+        si = np.asarray([r[0][0][0] for r in rows], dtype=np.int64)
+        sj = np.asarray([r[1][0][0] for r in rows], dtype=np.int64)
+        diff = coords[si - 1] - coords[sj - 1]
+        pd_[:] = np.sqrt((diff * diff).sum(-1))
+        return pd_
+    sidx = np.asarray(
+        [k for k, s in enumerate(is_single) if s], dtype=np.int64
+    )
+    for k, s in enumerate(is_single):
+        if not s:
+            pd_[k] = min_group_distance(coords, rows[k][0], rows[k][1])
+    if len(sidx):
+        si = np.asarray([rows[k][0][0][0] for k in sidx], dtype=np.int64)
+        sj = np.asarray([rows[k][1][0][0] for k in sidx], dtype=np.int64)
+        diff = coords[si - 1] - coords[sj - 1]
+        pd_[sidx] = np.sqrt((diff * diff).sum(-1))
+    return pd_

@@ -1,13 +1,18 @@
-"""Command-line interface of the port: the `run` and `spearman` subcommands
-of chromosome3d_tpu.cli with the flags the ported slice supports.
+"""Command-line interface of the port: the `run`, `solve` and `spearman`
+subcommands of chromosome3d_tpu.cli with the flags the ported slices
+support.
 
   python -m chromosome3d_tpu_torch run -i <IF matrix (.txt or .npy)> -o <outdir> [-k K] [-a ALPHA]
       [-m MODELS] [--fast | --turbo] [--no-violation-reports]
+  python -m chromosome3d_tpu_torch solve -r <restraints (.rr or .tbl)> -o <outdir> [-L L]
+      [-m MODELS] [--fast | --turbo]
   python -m chromosome3d_tpu_torch spearman <matrix> <pdb-or-dir> [range]
 
-`run` computes on the first CUDA device when one is present (the kernels
-build at first use) and on the CPU, with the kernels' plain twins, otherwise.
-The JAX CLI's other subcommands are refused with NotImplementedError naming
+`run` and `solve` compute on the first CUDA device when one is present (the
+kernels build at first use) and on the CPU, with the kernels' plain twins,
+otherwise. `solve` takes an external restraint set: CONFOLD-style `.rr`
+rows `i j lo hi conf` or a CNS NOE `.tbl`, `or`-group rows included. The
+JAX CLI's other subcommands are refused with NotImplementedError naming
 their ROADMAP item.
 """
 
@@ -20,10 +25,25 @@ import sys
 
 # the JAX CLI's subcommands that are not ported yet, with their ROADMAP item
 _UNPORTED = {
-    "genome": "A7", "solve": "A9", "serve": "A11", "submit": "A11",
+    "genome": "A7", "serve": "A11", "submit": "A11",
     "assess": "A11", "render": "A11", "coinit": "A11", "similarity": "A11",
     "calibrate": "A11",
 }
+
+
+def _add_common(p: argparse.ArgumentParser) -> None:
+    p.add_argument("-k", "--kscaling", type=float, default=11.0,
+                   help="distance scaling K (default 11)")
+    p.add_argument("-a", "--alpha", type=float, default=0.5,
+                   help="IF exponent alpha (default 0.5; published models used 1.1)")
+    p.add_argument("-m", "--model-count", type=int, default=20,
+                   help="models to build (default 20; top 5 kept by NOE energy)")
+    p.add_argument("--fast", action="store_true",
+                   help="reduced annealing schedule for smoke runs")
+    p.add_argument("--turbo", action="store_true",
+                   help="production speed preset: ~10x fewer steps")
+    p.add_argument("--no-violation-reports", action="store_true",
+                   help="skip the per-model violation report files")
 
 
 def _make_config(args):
@@ -61,18 +81,16 @@ def main(argv=None) -> int:
                      help="IF matrix: dense text, or a float .npy (the "
                           "at-scale format, loaded as a memmap)")
     run.add_argument("-o", "--output", required=True, help="output directory")
-    run.add_argument("-k", "--kscaling", type=float, default=11.0,
-                     help="distance scaling K (default 11)")
-    run.add_argument("-a", "--alpha", type=float, default=0.5,
-                     help="IF exponent alpha (default 0.5; published models used 1.1)")
-    run.add_argument("-m", "--model-count", type=int, default=20,
-                     help="models to build (default 20; top 5 kept by NOE energy)")
-    run.add_argument("--fast", action="store_true",
-                     help="reduced annealing schedule for smoke runs")
-    run.add_argument("--turbo", action="store_true",
-                     help="production speed preset: ~10x fewer steps")
-    run.add_argument("--no-violation-reports", action="store_true",
-                     help="skip the per-model violation report files")
+    _add_common(run)
+
+    slv = sub.add_parser("solve", help="solve directly from a restraint file "
+                                       "(.rr or CNS .tbl), no IF matrix required")
+    slv.add_argument("-r", "--restraints", required=True,
+                     help=".rr (i j lo hi conf) or CNS .tbl file")
+    slv.add_argument("-o", "--output", required=True, help="output directory")
+    slv.add_argument("-L", "--length", type=int, default=None,
+                     help="bead count (default: largest residue index)")
+    _add_common(slv)
 
     sp = sub.add_parser("spearman", help="score models vs an IF matrix")
     sp.add_argument("matrix", help="IF matrix file")
@@ -97,6 +115,14 @@ def main(argv=None) -> int:
         from chromosome3d_tpu_torch.pipeline import run_pipeline
 
         summary = run_pipeline(args.input, args.output, _make_config(args))
+        print(json.dumps(summary))
+        return 0
+
+    if args.command == "solve":
+        from chromosome3d_tpu_torch.pipeline import run_restraints_pipeline
+
+        summary = run_restraints_pipeline(args.restraints, args.output,
+                                          _make_config(args), L=args.length)
         print(json.dumps(summary))
         return 0
 

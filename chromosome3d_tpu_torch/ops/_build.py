@@ -42,6 +42,9 @@ _F = ctypes.c_float
 SIGNATURES = {
     # x, t, w, bead_mask, e_rows, g, B, L, noe, vdw, vdw_radius, stream
     "c3d_exact_pair": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P),
+    # xT, lo, hi, w, bead_mask, e_rows, gT, B, L, noe, vdw, vdw_radius,
+    # rswitch, stream
+    "c3d_general_pair": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P),
     # xT, t, w, bead_mask, part, e_part, gT, e, B, L, T, tile, noe, vdw,
     # vdw_radius, stream
     "c3d_exact_tri": (

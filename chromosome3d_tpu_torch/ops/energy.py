@@ -10,6 +10,9 @@ Terms (identical to the JAX package):
   * chain bonds    — harmonic |x_{i+1} - x_i| ~ bond_length (+ the optional
     angle term, which the port's kernels refuse; see solver.anneal).
   * vdw repel      — relu(vdw_radius - d)^2 on nonbonded pairs (|i-j| >= 2).
+  * or-groups      — the same well on the MINIMUM distance over each
+    ambiguous restraint's alternative pairs (external `.tbl` rows with
+    `or`), counted once per row; joins the noe term.
 
 Padding beads are masked through `bead_mask`. The containers are frozen
 dataclasses: restraint tensors live on the compute device; the per-step
@@ -87,6 +90,68 @@ class EnergyWeights:
     angle: float = 0.0
 
 
+@dataclasses.dataclass(frozen=True)
+class OrGroupRestraints:
+    """Ambiguous (`or`-group) restraints on the device: each of the R rows
+    wells the minimum distance over up to G alternative (i, j) bead pairs
+    (the flattened cross product of the row's two atom groups)."""
+
+    idx_i: torch.Tensor   # (R, G) int64 bead index of each alternative
+    idx_j: torch.Tensor   # (R, G) int64
+    member: torch.Tensor  # (R, G) float32, 1.0 for real alternatives
+    lo: torch.Tensor      # (R,) float32 lower well bound
+    hi: torch.Tensor      # (R,) float32 upper well bound
+    weight: torch.Tensor  # (R,) float32 per-row weight (0 = padding row)
+
+
+def dense_or_groups_from_numpy(og, device="cpu") -> OrGroupRestraints:
+    """restraints.OrGroups (host numpy) -> OrGroupRestraints on `device`."""
+    def t(a, dtype):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    return OrGroupRestraints(
+        idx_i=t(og.idx_i, torch.int64), idx_j=t(og.idx_j, torch.int64),
+        member=t(og.member, torch.float32), lo=t(og.lo, torch.float32),
+        hi=t(og.hi, torch.float32), weight=t(og.weight, torch.float32),
+    )
+
+
+def or_group_energy(
+    coords: torch.Tensor, og: OrGroupRestraints, weights: EnergyWeights,
+    bead_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """NOE energy of the or-group rows: coords (..., L, 3) -> (...). The
+    soft-square well on each row's minimum distance, counted once per row.
+    Invalid alternatives are pushed to +inf so they never win the min; an
+    all-invalid row contributes 0 through row_ok. `amin` spreads the
+    gradient evenly over tied alternatives, as the JAX package's `jnp.min`
+    does (`min(dim)` would send all of it to one index)."""
+    diff = coords[..., og.idx_i, :] - coords[..., og.idx_j, :]   # (..., R, G, 3)
+    d = torch.sqrt((diff * diff).sum(-1) + _EPS)
+    valid = og.member
+    if bead_mask is not None:
+        valid = valid * bead_mask[og.idx_i] * bead_mask[og.idx_j]
+    dmin = torch.amin(torch.where(valid > 0.0, d, torch.full_like(d, float("inf"))),
+                      dim=-1)
+    dmin = torch.where(torch.isfinite(dmin), dmin, torch.zeros_like(dmin))
+    row_ok = (valid.amax(dim=-1) > 0.0).to(coords.dtype)
+    viol = torch.clamp_min(dmin - og.hi, 0.0) + torch.clamp_min(og.lo - dmin, 0.0)
+    s = weights.noe_rswitch
+    well = torch.where(viol <= s, viol * viol, s * s + 2.0 * s * (viol - s))
+    return weights.noe * (og.weight * row_ok * well).sum(-1)
+
+
+def or_group_energy_grad(coords, og: OrGroupRestraints, weights: EnergyWeights,
+                         bead_mask: Optional[torch.Tensor] = None):
+    """(energies (B,), gradients (B, L, 3)) of or_group_energy for (B, L, 3)
+    coords, the gradient by autograd (O(R * G) gathers, no kernel)."""
+    with torch.enable_grad():
+        x = coords.detach().requires_grad_(True)
+        e = or_group_energy(x, og, weights, bead_mask)
+        (g,) = torch.autograd.grad(e.sum(), x)
+    return e.detach(), g
+
+
 def auto_weight_exponent(L: int) -> float:
     """Length-adaptive stress exponent p*(L) = clip(100 / L^0.85, 0.5, 2.5)
     (chromosome3d_tpu.ops.energy.auto_weight_exponent)."""
@@ -151,14 +216,16 @@ def from_jax_numpy(restraints=None, weights=None, state=None, device="cpu"):
     """The parameter converter: the JAX package's solver inputs -> the
     port's, on `device`, so both packages compute on identical values.
 
-    restraints: a chromosome3d_tpu DenseRestraints or ExactRestraints (any
-      arrays np.asarray accepts); weights: its EnergyWeights; state: a tuple
-      of (B, 3, L) arrays (xT, muT, nuT — the fused step's layout) or any
-      other float arrays. Returns (restraints, weights, state), None where
-      an input was not given."""
+    restraints: a chromosome3d_tpu DenseRestraints, ExactRestraints or
+      OrGroupRestraints (any arrays np.asarray accepts); weights: its
+      EnergyWeights; state: a tuple of (B, 3, L) arrays (xT, muT, nuT — the
+      fused step's layout) or any other float arrays. Returns (restraints,
+      weights, state), None where an input was not given."""
     out_r = out_w = out_s = None
     if restraints is not None:
-        if hasattr(restraints, "target"):
+        if hasattr(restraints, "idx_i"):
+            out_r = dense_or_groups_from_numpy(restraints, device)
+        elif hasattr(restraints, "target"):
             out_r = ExactRestraints(*_to_device(
                 (np.asarray(restraints.target, np.float32),
                  np.asarray(restraints.w, np.float32)), device))
@@ -191,9 +258,11 @@ def energy_terms(
     restraints,
     weights: EnergyWeights,
     bead_mask: Optional[torch.Tensor] = None,
+    or_groups: Optional["OrGroupRestraints"] = None,
 ) -> Dict[str, torch.Tensor]:
     """All energy terms: coords (L, 3) -> scalars, or (B, L, 3) -> (B,)
-    each. bead_mask (L,) is 1.0 for real beads, 0.0 for padding."""
+    each. bead_mask (L,) is 1.0 for real beads, 0.0 for padding;
+    or_groups' well joins the noe term."""
     x = coords[None] if coords.dim() == 2 else coords
     L = x.shape[1]
     if bead_mask is None:
@@ -210,6 +279,8 @@ def energy_terms(
     s = weights.noe_rswitch
     well = torch.where(viol <= s, viol * viol, s * s + 2.0 * s * (viol - s))
     e_noe = 0.5 * weights.noe * (noe_mask * restraints.weight * well).sum((-2, -1))
+    if or_groups is not None:
+        e_noe = e_noe + or_group_energy(x, or_groups, weights, bead_mask)
 
     bond_vec = x[:, 1:] - x[:, :-1]
     bond_d = torch.sqrt((bond_vec * bond_vec).sum(-1) + _EPS)

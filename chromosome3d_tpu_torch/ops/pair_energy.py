@@ -3,9 +3,10 @@ its plain PyTorch twin, and the batched value-and-grad built on it.
 
 Replaces chromosome3d_tpu/ops/pallas_energy.py `_kernel_exact` (entry
 `_pairwise_energy_grad_batched(..., exact=True)`) and
-`pallas_energy_and_grad_batched`, which routes to B3 (ops.tri_energy) at
-L >= 1024 as the JAX package does. The solver calls it once per solve, for
-the enantiomer pick. No autograd is involved: the kernel returns the exact
+`pallas_energy_and_grad_batched`, which routes exact restraints to B3
+(ops.tri_energy) at L >= 1024 and general ones to B5 (ops.general_pair) as
+the JAX package does. The solver calls it once per solve, for the
+enantiomer pick. No autograd is involved: the kernel returns the exact
 gradient and the solver consumes it directly.
 
 `exact_pair_energy_grad` runs the plain twin for CPU tensors and the CUDA
@@ -154,26 +155,34 @@ def bond_energy_grad(coords: torch.Tensor, weights: EnergyWeights,
 
 def pair_energy_and_grad_batched(
     coords: torch.Tensor, restraints, weights: EnergyWeights,
-    bead_mask: torch.Tensor,
+    bead_mask: torch.Tensor, exact: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Value and gradient for a shared-restraint batch (exact restraints):
-    a pair kernel plus the chain bond. Counterpart of the JAX package's
-    `pallas_energy_and_grad_batched(..., exact=True)`, with its dispatch
-    (`_pairwise_energy_grad_batched`): the triangular kernel B3 where
-    `tri_energy.use_triangular(L, for_unfused=True)` holds, the whole-matrix
-    kernel B2 otherwise. Returns (energies (B,), gradients (B, L, 3))."""
-    # imported here: tri_energy builds on this module
-    from chromosome3d_tpu_torch.ops import tri_energy
+    """Value and gradient for a shared-restraint batch: a pair kernel plus
+    the chain bond. Counterpart of the JAX package's
+    `pallas_energy_and_grad_batched(..., exact=exact)` with its dispatch
+    (`_pairwise_energy_grad_batched`): exact restraints take the triangular
+    kernel B3 where `tri_energy.use_triangular(L, for_unfused=True)` holds
+    and the whole-matrix kernel B2 otherwise; general restraints take B5
+    (there is no triangular variant of the general well); exact=True reads
+    lo as the target. Returns (energies (B,), gradients (B, L, 3))."""
+    # imported here: both build on this module
+    from chromosome3d_tpu_torch.ops import general_pair, tri_energy
 
-    B, L = coords.shape[0], coords.shape[1]
-    target, w = exact_pair_tiles(restraints)
-    target, w = target.contiguous(), w.contiguous()
-    if tri_energy.use_triangular(L, for_unfused=True):
+    L = coords.shape[1]
+    if not exact:
+        e_pair, gT = general_pair.general_pair_energy_grad(
+            coords.transpose(1, 2).contiguous(),
+            *general_pair.general_pair_tiles(restraints), weights, bead_mask,
+        )
+        g_pair = gT.transpose(1, 2)
+    elif tri_energy.use_triangular(L, for_unfused=True):
+        target, w = (a.contiguous() for a in exact_pair_tiles(restraints))
         e_pair, gT = tri_energy.tri_energy_grad(
             coords.transpose(1, 2).contiguous(), target, w, weights, bead_mask
         )
         g_pair = gT.transpose(1, 2)
     else:
+        target, w = (a.contiguous() for a in exact_pair_tiles(restraints))
         e_pair, g_pair = exact_pair_energy_grad(coords, target, w, weights,
                                                 bead_mask)
     e_bond, g_bond = bond_energy_grad(coords, weights, bead_mask)

@@ -1,5 +1,5 @@
-"""End-to-end per-chromosome pipeline — the port of
-chromosome3d_tpu.pipeline.run_pipeline on one device.
+"""End-to-end pipelines — the port of chromosome3d_tpu.pipeline's
+run_pipeline and run_restraints_pipeline on one device.
 
 Reference scale (L within a length bucket):
   IF matrix -> IF2dist -> dist2rr -> carr2tbl   (host, text artifacts)
@@ -10,6 +10,12 @@ Beyond the largest bucket (exact restraints, the default):
   the device (ops.device_prep), the O(L^2) text artifacts suppressed
   -> solve_ensemble_impl (semi route: kernels B3 + B4, landmark init)
   -> the assessment view rebuilt on the device and downloaded -> host assess.
+From a restraint file (`solve`: a CONFOLD-style `.rr` or a CNS `.tbl` with
+`or`-group rows), at any bucket or past them:
+  read the rows (host) -> padded dense tensors built on the host and
+  uploaded, `.rr` confidences folded into the weights -> solve_ensemble_impl (windowed
+  restraints: two-sided init, semi route with kernels B5 + B4; exact ones:
+  the exact routes) -> NOE-energy ranking, PDBs, the violation report.
 
 Artifacts match the JAX package byte for byte given the same coordinates
 and energies: `$ID.fasta`, `$ID.dist`, `$ID.rr`, `contact.tbl` (reference
@@ -43,9 +49,11 @@ from chromosome3d_tpu_torch.assess import (
     append_model_info,
     assess_ensemble,
     coverage_string,
+    parse_tbl_rows,
     rank_by_energy,
     rank_by_spearman,
     restraint_spec_strings,
+    write_tbl_violation_report,
     write_violation_report,
 )
 from chromosome3d_tpu_torch.config import PipelineConfig
@@ -55,12 +63,15 @@ from chromosome3d_tpu_torch.ops import device_prep
 from chromosome3d_tpu_torch.ops.energy import (
     ExactRestraints,
     auto_weight_exponent,
+    dense_or_groups_from_numpy,
     dense_restraints_from_numpy,
     exact_restraints_from_numpy,
 )
 from chromosome3d_tpu_torch.restraints import (
     dist_to_restraints,
     if_to_dist,
+    read_contact_tbl_full,
+    read_rr,
     restraints_from_exact_target,
     write_contact_tbl,
     write_rr,
@@ -140,11 +151,34 @@ def _padded_dense(restraints, rc, L_pad: int, exact: bool, device):
                    _weight_exponent(rc, restraints.length), device=device)
 
 
+def _fold_conf(dense, conf):
+    """Multiply per-pair `.rr` confidences into the stress weights, after
+    the mean-1 normalisation, on the true (L, L) block only (padding
+    already carries weight 0)."""
+    if conf is None:
+        return dense
+    attr = "w" if isinstance(dense, ExactRestraints) else "weight"
+    wt = getattr(dense, attr).clone()
+    n = conf.shape[0]
+    wt[:n, :n] *= torch.from_numpy(np.asarray(conf, np.float32)).to(wt.device)
+    return dataclasses_replace(dense, **{attr: wt})
+
+
 def _use_sharded(L: int, cfg: PipelineConfig, dev: torch.device) -> bool:
     """The JAX package row-shards a beyond-bucket solve over every device
     when there is more than one (chromosome3d_tpu.pipeline._use_sharded)."""
     return (cfg.shard_large and L > max(cfg.length_buckets)
             and dev.type == "cuda" and torch.cuda.device_count() > 1)
+
+
+def _refuse_sharded(L: int, cfg: PipelineConfig, dev: torch.device) -> None:
+    """Raise where the JAX package would row-shard the solve (not ported)."""
+    if _use_sharded(L, cfg, dev):
+        raise NotImplementedError(
+            f"{torch.cuda.device_count()} GPUs: the beyond-bucket solve is "
+            "row-sharded over every device, not ported (ROADMAP A12); "
+            "expose one GPU (CUDA_VISIBLE_DEVICES)"
+        )
 
 
 def _assessment_view_from_if(if_padded, rc, L_pad: int, n_true: int, device):
@@ -237,12 +271,7 @@ def run_pipeline(
         f.write(f">{ident}\n{'M' * L}\n")
     restraints = dense = n_tbl = if_dev = None
     if device_route:
-        if _use_sharded(L, cfg, dev):
-            raise NotImplementedError(
-                f"{torch.cuda.device_count()} GPUs: the beyond-bucket solve is "
-                "row-sharded over every device, not ported (ROADMAP A12); "
-                "expose one GPU (CUDA_VISIBLE_DEVICES)"
-            )
+        _refuse_sharded(L, cfg, dev)
         cfg = auto_exact_matrix(cfg)
         banner(log, "Artifacts  : beyond-bucket L — restraint prep on device, "
                     "O(L^2) text artifacts suppressed")
@@ -435,4 +464,125 @@ def emit_artifacts(
         )
         if idx == best:
             summary["satisfied"], summary["total"] = s, t
+    return summary
+
+
+def run_restraints_pipeline(
+    restraints_file: str,
+    dir_out: str,
+    cfg: Optional[PipelineConfig] = None,
+    L: Optional[int] = None,
+    max_L: Optional[int] = None,
+    device=None,
+) -> Dict:
+    """Solve directly from a restraint file — a CONFOLD-style `.rr` (`i j lo
+    hi conf` rows) or a CNS `.tbl` (`or`-group rows included) — with no IF
+    matrix, on `device` (None: the first CUDA device if present, else the
+    CPU). Models rank by NOE energy only (Spearman needs a matrix). Writes
+    the top-k `${ID}_model<k>.pdb`, model_info.log, `${ID}_violation.txt`
+    for the best model and summary.json (the JAX package's fields plus
+    per-phase seconds); returns the summary.
+
+    max_L: reject (ValueError) a file whose explicit or inferred length
+    exceeds it, before any (L, L) tensor is allocated."""
+    cfg = cfg or PipelineConfig()
+    dev = resolve_device(device)
+    t_start = time.time()
+    phases: Dict = {}
+    _t_ph = [t_start]
+
+    def _mark(name: str) -> None:
+        now = time.time()
+        phases[name] = phases.get(name, 0.0) + (now - _t_ph[0])
+        _t_ph[0] = now
+
+    os.makedirs(dir_out, exist_ok=True)
+    ident = os.path.basename(restraints_file).rsplit(".", 1)[0]
+    rc = cfg.restraints
+
+    or_groups_np = tbl_rows = conf = None
+    if restraints_file.endswith(".tbl"):
+        tbl_rows = parse_tbl_rows(restraints_file)   # parsed once, shared
+        if max_L is not None:
+            L_eff = L if L is not None else max(
+                (r for g1, g2, *_ in tbl_rows for r, _ in (*g1, *g2)), default=0)
+            if L_eff > max_L:
+                raise ValueError(f"{restraints_file}: L={L_eff} exceeds the cap {max_L}")
+        restraints, or_groups_np = read_contact_tbl_full(restraints_file, L,
+                                                         rows=tbl_rows)
+    else:
+        restraints, conf = read_rr(restraints_file, L, rc, max_L=max_L)
+    n_groups = 0 if or_groups_np is None else or_groups_np.count
+    banner(log, f"Restraints : {restraints.count} from {restraints_file} "
+                f"(L={restraints.length}"
+                + (f", +{n_groups} or-groups)" if n_groups else ")"))
+    cfg = auto_exact(cfg, restraints)
+    if not cfg.anneal.embed_two_sided and (
+        np.asarray(restraints.negdev).any() or np.asarray(restraints.posdev).any()
+    ):
+        # real deviation windows: the embed respects both bounds (a midpoint
+        # completion can push a restrained pair below its lower bound)
+        cfg = cfg.replace(
+            anneal=dataclasses_replace(cfg.anneal, embed_two_sided=True))
+    Lr = restraints.length
+    _refuse_sharded(Lr, cfg, dev)
+    L_pad, bead_mask = _bucket_pad(Lr, cfg)
+    if L_pad >= CHUNKED_TERMS_MIN_L:
+        raise NotImplementedError(
+            f"L={Lr} pads to {L_pad} >= {CHUNKED_TERMS_MIN_L}: the row-chunked "
+            "final energy terms are not ported (ROADMAP A10)"
+        )
+    _mark("host_prep_s")
+
+    banner(log, f"(B) Build {cfg.model_count} models on {dev}..")
+    dense = _fold_conf(_padded_dense(restraints, rc, L_pad, _exact_provable(cfg), dev),
+                       conf)
+    bm = None if bead_mask is None else torch.from_numpy(bead_mask).to(dev)
+    og = None if or_groups_np is None else dense_or_groups_from_numpy(or_groups_np, dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    _mark("tensor_prep_s")
+    result = solve_ensemble_impl(
+        dense, cfg.anneal, cfg.model_count, bm, or_groups=og,
+        generator=torch.Generator().manual_seed(cfg.seed),
+    )
+    coords = result.coords.cpu().numpy()[:, :Lr, :]   # synchronises
+    energies = {k: v.cpu().numpy() for k, v in result.energies.items()}
+    _mark("solve_s")
+
+    e_order = rank_by_energy(energies["noe"], cfg.top_k)
+    info_log = os.path.join(dir_out, "model_info.log")
+    for rank, idx in enumerate(e_order, start=1):
+        path = os.path.join(dir_out, f"{ident}_model{rank}.pdb")
+        remarks = {k: float(energies[k][idx]) for k in ("overall", "vdw", "bon", "noe")}
+        write_ca_pdb(path, coords[idx], remarks=remarks)
+        append_model_info(info_log, path, remarks)
+    best = int(e_order[0])
+    report = os.path.join(dir_out, f"{ident}_violation.txt")
+    if tbl_rows is not None:
+        # an external tbl is assessed per tbl row (duplicates, reversed rows
+        # and or-groups each count)
+        satisfied, total = write_tbl_violation_report(
+            report, coords[best], restraints_file, cfg,
+            pdb_name=f"{ident}_model1.pdb", rows=tbl_rows)
+    else:
+        satisfied, total = write_violation_report(
+            report, coords[best], restraints, cfg, pdb_name=f"{ident}_model1.pdb",
+            tbl_name=os.path.basename(restraints_file))
+    _mark("assess_emit_s")
+    summary = {
+        "id": ident,
+        "L": int(Lr),
+        "L_solved": int(L_pad),
+        "restraints": int(restraints.count),
+        "or_groups": int(n_groups),
+        "models": int(cfg.model_count),
+        "best_noe_energy": float(energies["noe"][best]),
+        "satisfied": int(satisfied),
+        "total": int(total),
+        "wall_seconds": time.time() - t_start,
+        "phases": phases,
+    }
+    with open(os.path.join(dir_out, "summary.json"), "w") as f:
+        json.dump(summary, f, indent=1)
     return summary

@@ -3,19 +3,23 @@ chromosome3d_tpu/solver/anneal.py `solve_ensemble_impl`.
 
 One Python loop over the precomputed hot -> cool -> final schedule. On the
 fused route every step is one launch of kernel B1 (ops.fused_step) for the
-whole ensemble; on the semi route, past the fused step's reach, it is
-kernel B3 (ops.tri_energy, the pair terms) then kernel B4 (ops.fused_update,
-bond, clip, Adam, noise and move). The enantiomer trial runs both mirror
-images through the hot phase, picks the lower-energy member of each pair
-under the end-of-hot weights (ops.pair_energy: B2, or B3 at L >= 1024),
+whole ensemble. On the semi routes the pair terms come from one kernel and
+the update from kernel B4 (ops.fused_update: bond, clip, Adam, noise and
+move): kernel B3 (ops.tri_energy) for exact restraints past the fused
+step's reach or with or-groups, kernel B5 (ops.general_pair) for general
+(windowed / soft-square) restraints. Or-group rows add their group-min
+term (ops.energy.or_group_energy) to the pair gradient before B4. The
+enantiomer trial runs both mirror images through the hot phase, picks the
+lower-energy member of each pair under the end-of-hot weights
+(ops.pair_energy: B2, B3 at L >= 1024, or B5, plus the or-group term),
 and only the winners continue, with their Adam moments and the step count
 carried over (so the bias corrections and the noise stream stay aligned
 with the schedule).
 
 Routes: the port runs the JAX package's frozen-default dispatch with no
 dispatch table (`tri_energy.use_triangular`, `fused_step_feasible`), so both
-packages route every L the same way. Everything else raises
-NotImplementedError naming its ROADMAP item; nothing falls back silently.
+packages route every L the same way. The options still unported raise
+NotImplementedError naming their ROADMAP item; nothing falls back silently.
 """
 
 from __future__ import annotations
@@ -28,13 +32,22 @@ import torch
 
 from chromosome3d_tpu_torch.config import AnnealConfig
 from chromosome3d_tpu_torch.ops import tri_energy
-from chromosome3d_tpu_torch.ops.energy import EnergyWeights, energy_terms, f32
+from chromosome3d_tpu_torch.ops.energy import (
+    EnergyWeights,
+    energy_terms,
+    f32,
+    or_group_energy_grad,
+)
 from chromosome3d_tpu_torch.ops.fused_step import (
     fused_step_batched,
     fused_step_feasible,
     fused_step_tiles,
 )
 from chromosome3d_tpu_torch.ops.fused_update import fused_update_batched
+from chromosome3d_tpu_torch.ops.general_pair import (
+    general_pair_energy_grad,
+    general_pair_tiles,
+)
 from chromosome3d_tpu_torch.ops.pair_energy import (
     exact_pair_tiles,
     pair_energy_and_grad_batched,
@@ -145,15 +158,8 @@ def _bias_corrections(T: int):
     return bc1.tolist(), bc2.tolist()
 
 
-def _refuse_unported(cfg: AnnealConfig, L: int, or_groups) -> None:
+def _refuse_unported(cfg: AnnealConfig, L: int) -> None:
     """The routes and options the port cannot run yet, each named."""
-    if or_groups is not None:
-        raise NotImplementedError("or-group restraints are not ported (ROADMAP A9)")
-    if not (cfg.exact_restraints and cfg.noe_rswitch >= 1e8):
-        raise NotImplementedError(
-            "general (windowed / soft-square) restraints need kernel B5 and "
-            "the semi-general route, not ported (ROADMAP A9)"
-        )
     if not cfg.fuse_update:
         raise NotImplementedError(
             "fuse_update=False selects the unfused route, not ported "
@@ -190,6 +196,10 @@ def solve_ensemble_impl(
     """Build n_models structures on the restraints' device: one batched
     loop over all restarts (+ enantiomer pairs).
 
+    or_groups: optional ops.energy.OrGroupRestraints; their group-min well
+      joins the energy every step, the pick and the final terms, and keeps
+      the solve off the fused route (B1 updates inside the kernel, before
+      an outside gradient could join).
     generator: the CPU torch.Generator for the random draws (per-restart
       jitter, the noise-stream seed, a random init); a fresh one seeded 0
       when None.
@@ -201,7 +211,8 @@ def solve_ensemble_impl(
     target = restraints.lo
     dev = target.device
     L = target.shape[0]
-    _refuse_unported(cfg, L, or_groups)
+    _refuse_unported(cfg, L)
+    exact = cfg.exact_restraints and cfg.noe_rswitch >= 1e8
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     if bead_mask is None:
@@ -214,19 +225,17 @@ def solve_ensemble_impl(
             init = cfg.init
             if init == "auto":
                 init = "mds" if L < 2048 else "landmark"
-            if cfg.embed_two_sided and init in ("mds", "landmark"):
-                raise NotImplementedError(
-                    "embed_two_sided is not ported (ROADMAP A9)"
-                )
             if init == "mds":
                 x0 = mds_init(restraints, bond_length=cfg.bond_length,
                               unknown_fill=cfg.mds_unknown_fill,
-                              bead_mask=bead_mask)
+                              bead_mask=bead_mask,
+                              two_sided=cfg.embed_two_sided)
             elif init == "landmark":
                 x0 = landmark_init(restraints, bond_length=cfg.bond_length,
                                    k=cfg.landmark_count,
                                    n_iters=cfg.landmark_iters,
-                                   bead_mask=bead_mask)
+                                   bead_mask=bead_mask,
+                                   two_sided=cfg.embed_two_sided)
             elif init == "spiral":
                 x0 = spiral_init(L, bond_length=cfg.bond_length, device=dev)
             else:
@@ -264,7 +273,8 @@ def solve_ensemble_impl(
     nuT = torch.zeros_like(xT)
     history = torch.empty((T, n_eff), dtype=torch.float32, device=dev)
 
-    if fused_step_feasible(L) and not tri_energy.use_triangular(L):
+    if (exact and or_groups is None and fused_step_feasible(L)
+            and not tri_energy.use_triangular(L)):
         # the fused route: the whole step in kernel B1
         tiles = fused_step_tiles(restraints, bead_mask, base.noe)
 
@@ -274,15 +284,26 @@ def solve_ensemble_impl(
                 sigmas[k], bc1s[k], bc2s[k], noise_seed, k, clip,
             )
     else:
-        # the semi route: pair terms in kernel B3, the update in kernel B4
-        target, w = (a.contiguous() for a in exact_pair_tiles(restraints))
+        # the semi routes: pair terms in kernel B3 (exact) or B5 (general),
+        # the or-group term added, the update in kernel B4; the tiles are
+        # folded once, outside the loop
+        if exact:
+            tiles = tuple(a.contiguous() for a in exact_pair_tiles(restraints))
+            pair_grad = tri_energy.tri_energy_grad
+        else:
+            tiles = general_pair_tiles(restraints)
+            pair_grad = general_pair_energy_grad
 
         def step(k, xT, muT, nuT):
-            e_pair, gT = tri_energy.tri_energy_grad(
-                xT, target, w, step_weights[k], bead_mask
-            )
+            e_pair, gT = pair_grad(xT, *tiles, step_weights[k], bead_mask)
+            if or_groups is not None:
+                e_og, g_og = or_group_energy_grad(
+                    xT.transpose(1, 2), or_groups, step_weights[k], bead_mask
+                )
+                e_pair = e_pair + e_og
+                gT = gT + g_og.transpose(1, 2)
             e_bond, xT, muT, nuT = fused_update_batched(
-                xT, gT, muT, nuT, step_weights[k], bead_mask, lrs[k],
+                xT, gT.contiguous(), muT, nuT, step_weights[k], bead_mask, lrs[k],
                 sigmas[k], bc1s[k], bc2s[k], noise_seed, k, clip,
             )
             return e_pair + e_bond, xT, muT, nuT
@@ -299,8 +320,11 @@ def solve_ensemble_impl(
         # handedness per pair by energy under the end-of-hot weights
         coords = xT.transpose(1, 2).contiguous()
         e_hot, _ = pair_energy_and_grad_batched(
-            coords, restraints, step_weights[hot - 1], bead_mask
+            coords, restraints, step_weights[hot - 1], bead_mask, exact
         )
+        if or_groups is not None:
+            e_hot = e_hot + or_group_energy_grad(
+                coords, or_groups, step_weights[hot - 1], bead_mask)[0]
         choice = torch.argmin(e_hot.reshape(n_models, 2), dim=1)
         pick = torch.arange(n_models, device=dev) * 2 + choice
         xT, muT, nuT = xT[pick], muT[pick], nuT[pick]
@@ -310,7 +334,7 @@ def solve_ensemble_impl(
         xT, muT, nuT = run(0, T, xT, muT, nuT, history)
     coords = xT.transpose(1, 2).contiguous()
 
-    terms = energy_terms(coords, restraints, base, bead_mask)
+    terms = energy_terms(coords, restraints, base, bead_mask, or_groups)
     # centroid to origin, padding excluded
     nvalid = bead_mask.sum()
     centroid = (coords * bead_mask[None, :, None]).sum(dim=1, keepdim=True) / nvalid

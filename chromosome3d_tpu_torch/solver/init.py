@@ -1,7 +1,7 @@
-"""Starting coordinates — the port of chromosome3d_tpu/solver/init.py's
-one-sided part: classical MDS of the shortest-path-completed bounds
-(`mds_init`), landmark MDS for L >= 2048 (`landmark_init`), plus the spiral
-and random starts.
+"""Starting coordinates — the port of chromosome3d_tpu/solver/init.py:
+classical MDS of the shortest-path-completed bounds (`mds_init`), landmark
+MDS for L >= 2048 (`landmark_init`), both one-sided or two-sided, plus the
+spiral and random starts.
 
 mmdg's metric-matrix embedding is classical MDS: smooth the restraint bounds
 with all-pairs shortest paths (min-plus squarings), double-centre the
@@ -10,8 +10,11 @@ a 3 x 3 Rayleigh-Ritz). Landmark MDS needs only the k x L landmark-to-all
 distances (Bellman-Ford sweeps over row strips of the edge matrix) and
 triangulates the rest with one (L, k) @ (k, 3) product. Plain PyTorch on
 the solve's device; matrix products run in full float32 (the package
-disables TF32, device.py). The two-sided bounds smoothing is not ported yet
-(ROADMAP A9).
+disables TF32, device.py). Restraint files with real deviation windows
+(lo < hi) embed two-sided (`two_sided=True`, AnnealConfig.embed_two_sided):
+upper bounds relax by shortest paths through hi, lower bounds rise by the
+inverse triangle inequality, and restrained pairs embed at the midpoint of
+their smoothed window (mmdg's bounds-matrix smoothing).
 """
 
 from __future__ import annotations
@@ -77,6 +80,55 @@ def smooth_bounds(
     return w
 
 
+def _maxminus_sweep(lo: torch.Tensor, up: torch.Tensor, chunk: int = 64) -> torch.Tensor:
+    """One inverse-triangle sweep out[i, j] = max(lo[i, j], max_k lo[i, k] -
+    up[k, j]): the lower-bound propagation of bounds-matrix smoothing,
+    blocked over k like _minplus_square."""
+    L = lo.shape[0]
+    out = lo
+    for k0 in range(0, L, chunk):
+        cand = (lo[:, k0:k0 + chunk, None] - up[None, k0:k0 + chunk, :]).amax(dim=1)
+        out = torch.maximum(out, cand)
+    return out
+
+
+def smooth_bounds_two_sided(
+    restraints, bond_length: float, n_iters: Optional[int] = None,
+    lower_iters: int = 2, bead_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Bounds-matrix smoothing for restraints with deviation windows: upper
+    bounds hi tightened by all-pairs shortest paths, lower bounds lo raised
+    by lo_ij >= max_k max(lo_ik - hi_kj, lo_kj - hi_ik); restrained pairs
+    then embed at the window midpoint clipped into [lo, hi], unrestrained
+    ones at the shortest-path upper. Equal to smooth_bounds when lo == hi
+    everywhere. Returns the (L, L) embed target matrix."""
+    L = restraints.lo.shape[0]
+    dev = restraints.lo.device
+    idx = torch.arange(L, device=dev)
+    eye = idx[:, None] == idx[None, :]
+    adjacent = (idx[:, None] - idx[None, :]).abs() == 1
+    if bead_mask is not None:
+        adjacent = adjacent & ((bead_mask[:, None] * bead_mask[None, :]) > 0)
+    mask = restraints.mask > 0
+    zeros = torch.zeros_like(restraints.lo)
+
+    up = torch.where(mask, restraints.hi, torch.full_like(restraints.hi, _BIG))
+    up = torch.where(adjacent, torch.clamp_max(up, bond_length), up)
+    up = torch.where(eye, zeros, up)
+    if n_iters is None:
+        n_iters = max(1, int(np.ceil(np.log2(max(L, 2)))))
+    for _ in range(n_iters):
+        up = _minplus_square(up)
+
+    lo = torch.where(mask & ~eye, restraints.lo, zeros)
+    for _ in range(lower_iters):
+        cand = _maxminus_sweep(lo, up)
+        lo = torch.where(eye, zeros, torch.maximum(lo, torch.maximum(cand, cand.T)))
+    lo = torch.minimum(lo, up)   # a contradictory pair collapses to its upper
+    mid = torch.minimum(torch.maximum(0.5 * (lo + up), lo), up)
+    return torch.where(mask, mid, up)
+
+
 def _orthonormalize(v: torch.Tensor) -> torch.Tensor:
     """Modified Gram-Schmidt on the 3 columns of (L, 3)."""
     q0 = v[:, 0] / (torch.linalg.norm(v[:, 0]) + 1e-12)
@@ -110,14 +162,19 @@ def _top3_eig(b: torch.Tensor, iters: int = 60):
 
 def mds_init(
     restraints, bond_length: float = 3.8, unknown_fill: str = "shortest_path",
-    bead_mask: Optional[torch.Tensor] = None,
+    bead_mask: Optional[torch.Tensor] = None, two_sided: bool = False,
 ) -> torch.Tensor:
     """Classical MDS embedding of the smoothed bounds -> (L, 3) float32 on
     the restraints' device. bead_mask restricts the double-centring to real
-    beads; padding rows come out zero. Chirality is arbitrary, which is why
-    the annealer keeps the enantiomer trial."""
-    d = smooth_bounds(restraints, bond_length, unknown_fill=unknown_fill,
-                      bead_mask=bead_mask)
+    beads; padding rows come out zero. two_sided: the bounds-matrix
+    smoothing (smooth_bounds_two_sided) instead of the one-sided one.
+    Chirality is arbitrary, which is why the annealer keeps the enantiomer
+    trial."""
+    if two_sided:
+        d = smooth_bounds_two_sided(restraints, bond_length, bead_mask=bead_mask)
+    else:
+        d = smooth_bounds(restraints, bond_length, unknown_fill=unknown_fill,
+                          bead_mask=bead_mask)
     L = d.shape[0]
     d2 = d * d
     if bead_mask is None:
@@ -169,6 +226,30 @@ def relax_landmarks_block(delta: torch.Tensor, w_block: torch.Tensor,
     ])
 
 
+def relax_landmarks_lower_block(delta: torch.Tensor, lo_block: torch.Tensor,
+                                row_start: int, chunk: int = 8) -> torch.Tensor:
+    """One inverse-triangle lower-bound sweep on the landmark rows,
+    restricted to one row strip: cand[l, j] = max over the strip's rows m
+    of lo[m, j] - delta[l, m] (d_lj >= d_mj - d_lm >= lo_mj - up_lm).
+    Returns (k, L); the caller max-reduces over strips."""
+    Lb = lo_block.shape[0]
+    d_cols = delta[:, row_start:row_start + Lb]                 # (k, Lb)
+    return torch.cat([
+        (lo_block[None] - d_cols[c0:c0 + chunk, :, None]).amax(dim=1)
+        for c0 in range(0, delta.shape[0], chunk)
+    ])
+
+
+def clip_landmark_targets(delta: torch.Tensor, lo_land: torch.Tensor,
+                          mask_land: torch.Tensor) -> torch.Tensor:
+    """Two-sided embed targets for the landmark rows: restrained pairs at
+    the midpoint of their smoothed [lo, up] window, unrestrained ones at the
+    shortest-path upper (smooth_bounds_two_sided's rule on k rows)."""
+    lo_land = torch.minimum(lo_land, delta)    # contradictions collapse upward
+    mid = torch.minimum(torch.maximum(0.5 * (lo_land + delta), lo_land), delta)
+    return torch.where(mask_land > 0, mid, delta)
+
+
 def landmark_triangulate(delta: torch.Tensor, lidx: torch.Tensor) -> torch.Tensor:
     """Landmark-MDS triangulation: classical MDS on the k x k landmark
     submatrix, then every bead embeds as
@@ -214,13 +295,19 @@ def _restraint_rows(restraints, r0: int, Lb: int):
 
 
 def landmark_targets(restraints, bond_length: float = 3.8, k: int = 64,
-                     n_iters: int = 4, bead_mask: Optional[torch.Tensor] = None):
-    """The (k, L) landmark embed-target rows and the landmark indices
-    (one-sided: the midpoint-target graph). The relaxation runs over row
-    strips of at most 4096 rows, each edge strip rebuilt from the restraint
-    tiles, so no (L, L) edge matrix is ever held; min and plus over float32
-    are exact and order-free, so the result is bit-equal to a whole-matrix
-    sweep."""
+                     n_iters: int = 4, bead_mask: Optional[torch.Tensor] = None,
+                     two_sided: bool = False, lower_iters: int = 1):
+    """The (k, L) landmark embed-target rows and the landmark indices. The
+    relaxation runs over row strips of at most 4096 rows, each edge strip
+    rebuilt from the restraint tiles, so no (L, L) edge matrix is ever held;
+    min and max over float32 are exact and order-free, so the result is
+    bit-equal to a whole-matrix sweep.
+
+    one-sided: the midpoint-target graph. two_sided: the upper relaxation
+    runs through the hi edges (a midpoint path is no upper bound when
+    windows are wide), the landmark rows' lower bounds rise by the
+    inverse-triangle sweep over the same strips, and restrained pairs embed
+    at the midpoint of their smoothed window (clip_landmark_targets)."""
     L = restraints.lo.shape[0]
     dev = restraints.lo.device
     k = min(k, L)
@@ -230,11 +317,11 @@ def landmark_targets(restraints, bond_length: float = 3.8, k: int = 64,
     cols = torch.arange(L, device=dev)
 
     def edge_rows(r0: int) -> torch.Tensor:
-        """(Lb, L) edge strip: restraint target where a restraint exists,
-        bond_length between consecutive real beads, _BIG otherwise, zero
-        diagonal (the graph smooth_bounds starts from)."""
+        """(Lb, L) edge strip: hi (two-sided) or the midpoint target where a
+        restraint exists, bond_length between consecutive real beads, _BIG
+        otherwise, zero diagonal (the graph smooth_bounds starts from)."""
         lo_b, hi_b, mask_b = _restraint_rows(restraints, r0, Lb)
-        target = 0.5 * (lo_b + hi_b)
+        target = hi_b if two_sided else 0.5 * (lo_b + hi_b)
         w_rows = torch.where(mask_b > 0, target, torch.full_like(target, _BIG))
         rows = r0 + torch.arange(Lb, device=dev)
         adjacent = (rows[:, None] - cols[None, :]).abs() == 1
@@ -253,15 +340,44 @@ def landmark_targets(restraints, bond_length: float = 3.8, k: int = 64,
         for r0 in r0s:
             cand = torch.minimum(cand, relax_landmarks_block(delta, edge_rows(r0), r0))
         delta = torch.minimum(delta, cand)
-    return delta, lidx
+    if not two_sided:
+        return delta, lidx
+
+    def lo_rows(r0: int) -> torch.Tensor:
+        lo_b, _, mask_b = _restraint_rows(restraints, r0, Lb)
+        if bead_mask is not None:
+            mask_b = mask_b * (bead_mask[r0:r0 + Lb, None] * bead_mask[None, :])
+        return torch.where(mask_b > 0, lo_b, torch.zeros_like(lo_b))
+
+    # the direct bounds on the k landmark rows: gathers, no (L, L) tensor
+    if isinstance(restraints, ExactRestraints):
+        lo_direct = restraints.target[lidx].to(delta.dtype)
+        mask_land = (restraints.w[lidx] > 0).to(delta.dtype)
+    else:
+        lo_direct = restraints.lo[lidx].to(delta.dtype)
+        mask_land = restraints.mask[lidx].to(delta.dtype)
+    if bead_mask is not None:
+        mask_land = mask_land * (bead_mask[lidx][:, None] * bead_mask[None, :])
+    lo_land = torch.where(mask_land > 0, lo_direct, torch.zeros_like(lo_direct))
+    # one sweep is the fixed point: the sweep reads the lo matrix, which
+    # never updates (only the k landmark rows are tracked)
+    for _ in range(lower_iters):
+        cand = torch.full_like(delta, -_BIG)
+        for r0 in r0s:
+            cand = torch.maximum(cand, relax_landmarks_lower_block(delta, lo_rows(r0), r0))
+        lo_land = torch.maximum(lo_land, cand)
+    return clip_landmark_targets(delta, lo_land, mask_land), lidx
 
 
 def landmark_init(restraints, bond_length: float = 3.8, k: int = 64,
-                  n_iters: int = 4, bead_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  n_iters: int = 4, bead_mask: Optional[torch.Tensor] = None,
+                  two_sided: bool = False) -> torch.Tensor:
     """Landmark-MDS embedding -> (L, 3) float32 on the restraints' device,
     padding rows zero; the init for L >= 2048, where classical MDS's
-    O(L^3 log L) smoothing would dominate the solve."""
-    delta, lidx = landmark_targets(restraints, bond_length, k, n_iters, bead_mask)
+    O(L^3 log L) smoothing would dominate the solve. two_sided: see
+    landmark_targets."""
+    delta, lidx = landmark_targets(restraints, bond_length, k, n_iters, bead_mask,
+                                   two_sided)
     x = landmark_triangulate(delta, lidx)
     if bead_mask is not None:
         x = x * bead_mask[:, None]

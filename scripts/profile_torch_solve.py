@@ -1,21 +1,25 @@
 """Profile the PyTorch port's ensemble solve on an NVIDIA GPU.
 
     python3 scripts/profile_torch_solve.py [--length 4985] [--models 10]
+    python3 scripts/profile_torch_solve.py --restraints <file.rr|file.tbl> [--models 10]
 
 Builds a ground-truth chromosome (`confined_walk(length, seed=7)`, IF noise
 0.1), its exact restraints with the on-card prep padded to the length's
-bucket (a length bucket, or a 512-multiple past them), then times the prep,
-the init (landmark MDS from L = 2048, classical MDS below), two warm solves
-with a CUDA synchronise, and one more solve under torch.profiler. Prints the
-solve's wall seconds, its device seconds, the card's busy share, the device
-time of the top kernels, and the card's `nvidia-smi` name and power limit.
-The default is chip_smoke.py's at-scale shape (L = 4985 -> 5120, 10 models,
-the default 2,760-step schedule).
+bucket (a length bucket, or a 512-multiple past them) — or, with
+--restraints, the tensors `solve` builds from a restraint file (windows,
+confidences, or-groups, the two-sided init when the file has windows) —
+then times the prep, the init (landmark MDS from L = 2048, classical MDS
+below), two warm solves with a CUDA synchronise, and one more solve under
+torch.profiler. Prints the solve's wall seconds, its device seconds, the
+card's busy share, the device time of the top kernels, and the card's
+`nvidia-smi` name and power limit. The default is chip_smoke.py's at-scale
+shape (L = 4985 -> 5120, 10 models, the default 2,760-step schedule).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import subprocess
 import sys
@@ -27,10 +31,15 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
+from chromosome3d_tpu_torch import pipeline  # noqa: E402
 from chromosome3d_tpu_torch.config import AnnealConfig, PipelineConfig, RestraintConfig  # noqa: E402
 from chromosome3d_tpu_torch.ops.device_prep import exact_tiles_from_if_device  # noqa: E402
-from chromosome3d_tpu_torch.ops.energy import auto_weight_exponent  # noqa: E402
+from chromosome3d_tpu_torch.ops.energy import (  # noqa: E402
+    auto_weight_exponent,
+    dense_or_groups_from_numpy,
+)
 from chromosome3d_tpu_torch.pipeline import _bucket_pad  # noqa: E402
+from chromosome3d_tpu_torch.restraints import read_contact_tbl_full, read_rr  # noqa: E402
 from chromosome3d_tpu_torch.solver.anneal import solve_ensemble_impl  # noqa: E402
 from chromosome3d_tpu_torch.solver.init import landmark_init, mds_init  # noqa: E402
 from chromosome3d_tpu_torch.truth import confined_walk, if_from_structure  # noqa: E402
@@ -44,36 +53,67 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
+def file_inputs(path, dev):
+    """The restraint tensors, config and or-groups `solve` builds from a
+    restraint file: (L, L_pad, restraints, AnnealConfig, or_groups)."""
+    cfg = PipelineConfig()
+    og = conf = None
+    if path.endswith(".tbl"):
+        r, og_np = read_contact_tbl_full(path)
+        og = None if og_np is None else dense_or_groups_from_numpy(og_np, dev)
+    else:
+        r, conf = read_rr(path, None, cfg.restraints)
+    cfg = pipeline.auto_exact(cfg, r)
+    an = cfg.anneal
+    if r.negdev.any() or r.posdev.any():
+        an = dataclasses.replace(an, embed_two_sided=True)
+    L_pad, _ = _bucket_pad(r.length, cfg)
+    dense = pipeline._fold_conf(pipeline._padded_dense(
+        r, cfg.restraints, L_pad, pipeline._exact_provable(cfg), dev), conf)
+    return r.length, L_pad, dense, an, og
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--length", type=int, default=4985)
     ap.add_argument("--models", type=int, default=10)
+    ap.add_argument("--restraints", default=None,
+                    help="profile `solve` on this .rr or .tbl file instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_solve: needs an NVIDIA GPU")
     dev = torch.device("cuda", 0)
-    L = args.length
-    L_pad, _ = _bucket_pad(L, PipelineConfig())
-    X = confined_walk(L, seed=7)
-    M = if_from_structure(X, alpha=0.5, noise_sigma=0.1, seed=7).astype(np.float32)
-    rc = RestraintConfig(kscaling=11.0, alpha=0.5)
-    ex, prep_s = timed(lambda: exact_tiles_from_if_device(
-        M, L_pad, rc, rc.weighting, auto_weight_exponent(L), device=dev))
+    og = None
+    if args.restraints:
+        (L, L_pad, ex, cfg, og), prep_s = timed(lambda: file_inputs(args.restraints, dev))
+    else:
+        L = args.length
+        L_pad, _ = _bucket_pad(L, PipelineConfig())
+        X = confined_walk(L, seed=7)
+        M = if_from_structure(X, alpha=0.5, noise_sigma=0.1, seed=7).astype(np.float32)
+        rc = RestraintConfig(kscaling=11.0, alpha=0.5)
+        ex, prep_s = timed(lambda: exact_tiles_from_if_device(
+            M, L_pad, rc, rc.weighting, auto_weight_exponent(L), device=dev))
+        cfg = AnnealConfig(exact_restraints=True)
     bm = torch.zeros(L_pad, device=dev)
     bm[:L] = 1.0
-    cfg = AnnealConfig(exact_restraints=True)
     init = landmark_init if L_pad >= 2048 else mds_init
-    init_s = [timed(lambda: init(ex, bond_length=cfg.bond_length, bead_mask=bm))[1]
+    init_s = [timed(lambda: init(ex, bond_length=cfg.bond_length, bead_mask=bm,
+                                 two_sided=cfg.embed_two_sided))[1]
               for _ in range(2)]
     solve_s = [timed(lambda: solve_ensemble_impl(
-        ex, cfg, args.models, bm, generator=torch.Generator().manual_seed(i)))[1]
+        ex, cfg, args.models, bm, generator=torch.Generator().manual_seed(i),
+        or_groups=og))[1]
         for i in range(2)]
-    print(f"L={L}->{L_pad}, {args.models} models, {cfg.total_steps} steps: prep "
+    print(f"L={L}->{L_pad}, {args.models} models, {cfg.total_steps} steps, "
+          f"two-sided {cfg.embed_two_sided}, exact {cfg.exact_restraints}, or-groups "
+          f"{0 if og is None else og.lo.shape[0]}: prep "
           f"{prep_s:.4f} s (first call); {init.__name__} {init_s[0]:.4f} s cold, "
           f"{init_s[1]:.4f} s warm; warm solves {solve_s[0]:.4f} s, {solve_s[1]:.4f} s")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall = timed(lambda: solve_ensemble_impl(
-            ex, cfg, args.models, bm, generator=torch.Generator().manual_seed(9)))
+            ex, cfg, args.models, bm, generator=torch.Generator().manual_seed(9),
+            or_groups=og))
     rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and e.self_device_time_total > 0), key=lambda r: -r[1])

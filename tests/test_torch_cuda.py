@@ -5,10 +5,13 @@ are CUDA C++ with no CPU mode; the twins are held against the JAX package in
 the other test_torch_* files). Run them on the card with
 `python -m pytest tests/test_torch_cuda.py --noconftest -q`. Tolerances are
 test_pallas_energy.py's (float32 reassociation); the noise is bitwise.
-B3's gradients add an absolute term of 1e-6 x max |g|: the kernel and its
-twin sum ~L float32 terms per bead in different orders, so where a bead's
-gradient cancels to near zero the rounding of its largest terms is left.
+B3's and B5's gradients add an absolute term of 1e-6 x max |g|: the kernel
+and its twin sum ~L float32 terms per bead in different orders, so where a
+bead's gradient cancels to near zero the rounding of its largest terms is
+left.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -25,6 +28,10 @@ from chromosome3d_tpu_torch.ops.fused_step import (
 )
 from chromosome3d_tpu_torch.ops.device_prep import div10
 from chromosome3d_tpu_torch.ops.fused_update import fused_update_batched, fused_update_plain
+from chromosome3d_tpu_torch.ops.general_pair import (
+    general_pair_energy_grad,
+    general_pair_energy_grad_plain,
+)
 from chromosome3d_tpu_torch.ops.pair_energy import (
     exact_pair_energy_grad,
     exact_pair_energy_grad_plain,
@@ -108,6 +115,28 @@ def test_cuda_tri_kernel_matches_plain(cuda_device, L, n_real, B):
     e_r, g_r = tri_energy_grad_plain(x, ex.target, ex.w, WEIGHTS, bm)
     g_r = g_r.cpu().numpy()
     np.testing.assert_allclose(e.cpu().numpy(), e_r.cpu().numpy(), rtol=3e-5)
+    np.testing.assert_allclose(g.cpu().numpy(), g_r, rtol=2e-4,
+                               atol=2e-4 + 1e-6 * np.abs(g_r).max())
+    np.testing.assert_array_equal(g[:, :, n_real:].cpu().numpy(), 0.0)
+
+
+@pytest.mark.parametrize("L,n_real,B,rswitch", [
+    (200, 181, 3, 1.0),      # ragged, masked, linear tails
+    (333, 300, 20, 1e9),     # ragged, masked, pure quadratic
+    (64, 64, 1, 1.0),        # one structure, no padding
+])
+def test_cuda_general_pair_matches_plain(cuda_device, L, n_real, B, rswitch):
+    ex, bm, x, _, _ = _case(cuda_device, L=L, n_real=n_real, B=B)
+    lo = (ex.target * 0.8).contiguous()
+    hi = (ex.target * 1.2).contiguous()
+    lo[0, 3] = lo[3, 0] = hi[0, 3] + 5.0          # a contradictory pair
+    w = dataclasses.replace(WEIGHTS, noe_rswitch=rswitch)
+    e, g = general_pair_energy_grad(x, lo, hi, ex.w, w, bm)
+    e2, g2 = general_pair_energy_grad(x, lo, hi, ex.w, w, bm)
+    assert torch.equal(e, e2) and torch.equal(g, g2)        # no atomics: same bits
+    e_r, g_r = general_pair_energy_grad_plain(x, lo, hi, ex.w, w, bm)
+    g_r = g_r.cpu().numpy()
+    np.testing.assert_allclose(e.cpu().numpy(), e_r.cpu().numpy(), rtol=1e-5)
     np.testing.assert_allclose(g.cpu().numpy(), g_r, rtol=2e-4,
                                atol=2e-4 + 1e-6 * np.abs(g_r).max())
     np.testing.assert_array_equal(g[:, :, n_real:].cpu().numpy(), 0.0)

@@ -21,7 +21,7 @@ from chromosome3d_tpu import pipeline as jax_pipeline
 from chromosome3d_tpu.config import PipelineConfig
 from chromosome3d_tpu.io.matrix import write_if_matrix
 from chromosome3d_tpu.ops.energy import dense_restraints_from_numpy
-from chromosome3d_tpu.restraints import build_restraints
+from chromosome3d_tpu.restraints import build_restraints, if_to_dist, write_rr
 from chromosome3d_tpu_torch import cli as port_cli
 from chromosome3d_tpu_torch import pipeline as port_pipeline
 from chromosome3d_tpu_torch.device import resolve_device
@@ -135,11 +135,24 @@ def test_run_pipeline_refuses_unported_inputs(tmp_path, tiny_matrix, monkeypatch
                                    PipelineConfig(alpha_ensemble=(0.7,)))
 
 
-@pytest.mark.parametrize("command,item", [("genome", "A7"), ("solve", "A9"),
-                                          ("serve", "A11")])
+@pytest.mark.parametrize("command,item", [("genome", "A7"), ("serve", "A11")])
 def test_cli_refuses_unported_subcommands(command, item):
     with pytest.raises(NotImplementedError, match=item):
         port_cli.main([command, "-i", "in", "-o", "out"])
+
+
+def test_cli_solve_runs(tmp_path, tiny_matrix, capsys):
+    """`solve` (once refused as unported) runs on a restraint file: the
+    matrix pipeline's own `.rr` of the 16-bead fixture, exact restraints."""
+    rc = PipelineConfig().restraints
+    rr = str(tmp_path / "chrT_matrix.rr")
+    write_rr(rr, if_to_dist(tiny_matrix, rc), rc)
+    solved = str(tmp_path / "solved")
+    assert port_cli.main(["solve", "-r", rr, "-o", solved, "-m", "2", "--fast"]) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["L"] == 16 and summary["models"] == 2 and summary["or_groups"] == 0
+    for name in ("chrT_matrix_model1.pdb", "chrT_matrix_violation.txt", "summary.json"):
+        assert os.path.isfile(os.path.join(solved, name)), name
 
 
 def test_resolve_device_never_falls_back(monkeypatch):

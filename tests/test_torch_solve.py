@@ -27,6 +27,8 @@ from chromosome3d_tpu.solver.init import mds_init as jax_mds_init
 from chromosome3d_tpu.truth import confined_walk, if_from_structure
 from chromosome3d_tpu_torch.ops.energy import energy, from_jax_numpy
 from chromosome3d_tpu_torch.ops.fused_step import fused_step_batched, fused_step_plain
+from chromosome3d_tpu_torch.ops.fused_update import fused_update_plain
+from chromosome3d_tpu_torch.ops.general_pair import general_pair_energy_grad_plain
 from chromosome3d_tpu_torch.ops.pair_energy import (
     exact_pair_energy_grad,
     exact_pair_energy_grad_plain,
@@ -121,10 +123,27 @@ def test_solve_with_noise_matches_jax_fused(case):
 def test_solve_refuses_unported_routes(case):
     _, r_t, bead, _, cfg = case
     bm = torch.from_numpy(bead)
-    for bad in (dict(exact_restraints=False), dict(fuse_update=False),
-                dict(angle_weight=0.1), dict(pair_bf16=True), dict(gram_d2=True),
-                dict(init="landmark", embed_two_sided=True)):
+    for bad in (dict(fuse_update=False), dict(angle_weight=0.1),
+                dict(pair_bf16=True), dict(gram_d2=True)):
         with pytest.raises(NotImplementedError):
             port_anneal.solve_ensemble_impl(
                 r_t, dataclasses.replace(cfg, **bad), N_MODELS, bm
             )
+
+
+@pytest.mark.parametrize("init", ["mds", "landmark"])
+def test_solve_runs_general_and_two_sided(case, init):
+    """General restraints and the two-sided init (once refused as
+    unported) run: B5 every step and for the pick, B4 every step."""
+    _, r_t, bead, _, cfg = case
+    cfg = dataclasses.replace(cfg, exact_restraints=False, embed_two_sided=True,
+                              init=init, landmark_count=16)
+    before = (general_pair_energy_grad_plain.calls, fused_update_plain.calls,
+              fused_step_plain.calls)
+    got = port_anneal.solve_ensemble_impl(r_t, cfg, N_MODELS, torch.from_numpy(bead))
+    steps = cfg.total_steps
+    assert (general_pair_energy_grad_plain.calls - before[0],
+            fused_update_plain.calls - before[1],
+            fused_step_plain.calls - before[2]) == (steps + 1, steps, 0)
+    assert torch.isfinite(got.coords).all() and torch.isfinite(got.energies["overall"]).all()
+    np.testing.assert_array_equal(got.coords.numpy()[:, N_REAL:], 0.0)
