@@ -21,7 +21,15 @@ code is not 0):
                B5 at the `solve` paths' shapes (B = 20; L = 512 on shape A's
                tensors, L = 5120 on shape B's) and at a small ragged shape
                with a bead mask, noe_rswitch = 1 (the linear tails) and a
-               contradictory pair (lo > hi), B5's bits equal over two calls.
+               contradictory pair (lo > hi), B5's bits equal over two calls;
+               the row-sharded kernels: B5' on 4 row blocks of shape B's
+               L = 5120 tiles and B2' on 2 row blocks of the L = 512 tiles,
+               their gradient rows equal in bits to B5's and B2's and each
+               block against its twin; B6 on 4 strips of the L = 5120 tiles
+               and on two small ragged shapes (odd and even tile counts),
+               each strip against its twin, the strips' sum against B3's
+               twin, one strip of Lb = L equal in bits to B3, bits equal over
+               two calls.
   4. main path — resets the launch counters, runs the port's CLI in process
                (`run -i <matrix> -o <out> -m 10`, the default 2,760-step
                schedule), checks that B1 launched once per step, B2 once (the
@@ -47,8 +55,21 @@ code is not 0):
                two-sided init ran (and in C the or-group term every step and
                at the pick), that the violation report was written, and the
                ground-truth gates on the rank-01 (lowest NOE energy) model.
-Then one JSON line with the kernels' numbers and, last, the result line
-`{"ok": true, "device": {...}}`.
+  9-11. sharded paths — device.shard_devices lists cuda:0 four (or two)
+               times, so the row-sharded programs run their strips, offsets
+               and rank-order collectives on the one card: (9) phase 5's `run`
+               over 4 shards (B6 on every shard every step and at the pick,
+               B4 once a step, the strips prepped on the card); (10) `solve`
+               shape B over 4 shards (B5' likewise, the two-sided landmark
+               start from the sharded rows); (11) solve_ensemble_sharded
+               over 2 shards on phase 4's tensors cut into strips by the
+               pipeline's helper (B2', the sharded landmark start). Each
+               checks the launch counts, every other kernel and twin 0, and
+               the ground-truth gates.
+Then one JSON line with the kernels' numbers (each with its launches on its
+path, its bound from the H100's FP32 and HBM peaks, and library_ms null:
+no single PyTorch call computes a kernel's function) and, last, the result
+line `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -259,7 +280,7 @@ def phase_kernels(dev):
           "sync around each of 25 | device time from torch.profiler: "
           + "; ".join(f"{k} {wall[k]:.4f} | {on_dev[k]:.4f}" for k in calls))
     return X, M, {"B1": (b1_err, wall["B1"], wall["B1 plain"]),
-                  "B2": (b2_err, wall["B2"], wall["B2 plain"])}
+                  "B2": (b2_err, wall["B2"], wall["B2 plain"])}, (ex, bm, xT, w)
 
 
 def ragged_case(dev, L, n_real, B, seed):
@@ -382,28 +403,34 @@ def phase_kernels_at_scale(dev):
           "sync around each of 25 (5 for B3 plain) | device time from torch.profiler: "
           + "; ".join(f"{k} {wall[k]:.4f} | {on_dev[k]:.4f}" for k in calls))
     return X, M, {"B3": (b3_err, wall["B3"], wall["B3 plain"]),
-                  "B4": (b4_err, wall["B4"], wall["B4 plain"])}
+                  "B4": (b4_err, wall["B4"], wall["B4 plain"])}, (ex, bm, xT, w)
 
 
 def kernel_counters():
     """Every kernel wrapper and plain twin with its counter attribute."""
-    from chromosome3d_tpu_torch.ops.fused_step import fused_step_batched, fused_step_plain
-    from chromosome3d_tpu_torch.ops.fused_update import fused_update_batched, fused_update_plain
-    from chromosome3d_tpu_torch.ops.pair_energy import (
-        exact_pair_energy_grad,
-        exact_pair_energy_grad_plain,
+    from chromosome3d_tpu_torch.ops import (
+        fused_step,
+        fused_update,
+        general_pair,
+        pair_energy,
+        strip_tri,
+        tri_energy,
     )
-    from chromosome3d_tpu_torch.ops.general_pair import (
-        general_pair_energy_grad,
-        general_pair_energy_grad_plain,
-    )
-    from chromosome3d_tpu_torch.ops.tri_energy import tri_energy_grad, tri_energy_grad_plain
 
-    kernels = {"B1": fused_step_batched, "B2": exact_pair_energy_grad,
-               "B3": tri_energy_grad, "B4": fused_update_batched,
-               "B5": general_pair_energy_grad}
-    twins = (fused_step_plain, exact_pair_energy_grad_plain, tri_energy_grad_plain,
-             fused_update_plain, general_pair_energy_grad_plain)
+    kernels = {"B1": fused_step.fused_step_batched,
+               "B2": pair_energy.exact_pair_energy_grad,
+               "B3": tri_energy.tri_energy_grad,
+               "B4": fused_update.fused_update_batched,
+               "B5": general_pair.general_pair_energy_grad,
+               "B6": strip_tri.strip_tri_energy_grad,
+               "B5'": general_pair.general_row_block_energy_grad,
+               "B2'": pair_energy.exact_row_block_energy_grad}
+    twins = (fused_step.fused_step_plain, pair_energy.exact_pair_energy_grad_plain,
+             tri_energy.tri_energy_grad_plain, fused_update.fused_update_plain,
+             general_pair.general_pair_energy_grad_plain,
+             strip_tri.strip_tri_energy_grad_plain,
+             general_pair.general_row_block_energy_grad_plain,
+             pair_energy.exact_row_block_energy_grad_plain)
     return kernels, twins
 
 
@@ -420,6 +447,15 @@ def read_counters():
     kernels, twins = kernel_counters()
     return ({k: fn.launches for k, fn in kernels.items()},
             sum(fn.calls for fn in twins))
+
+
+def check_launches(where, launches, plain, want):
+    """Each kernel launched exactly want[k] times (0 when not named), and no
+    plain twin ran."""
+    for k, n in launches.items():
+        check(n == want.get(k, 0),
+              f"{where}: {k} launched {n} times, want {want.get(k, 0)}")
+    check(plain == 0, f"{where}: plain twins ran {plain} times")
 
 
 def check_gates(pdb, X):
@@ -454,12 +490,7 @@ def phase_main_path(X, M, card):
             rc = cli.main(["run", "-i", path, "-o", out, "-m", str(N_MODELS)])
         launches, plain = read_counters()
         check(rc == 0, f"cli run returned {rc}")
-        check(launches["B1"] == steps, f"B1 launched {launches['B1']} times, want {steps}")
-        check(launches["B2"] == 1, f"B2 launched {launches['B2']} times, want 1")
-        check(launches["B3"] == launches["B4"] == launches["B5"] == 0,
-              f"B3/B4/B5 launched {launches['B3']}/{launches['B4']}/{launches['B5']} "
-              "times, want 0")
-        check(plain == 0, f"plain twins ran {plain} times on the main path")
+        check_launches("main path", launches, plain, {"B1": steps, "B2": 1})
         summary = json.loads(buf.getvalue().strip().splitlines()[-1])
         ident = "chrT_456_matrix"
         for name in (f"{ident}.dist", f"{ident}.rr", "contact.tbl", "contact_violation.txt",
@@ -481,18 +512,39 @@ def phase_main_path(X, M, card):
     return launches
 
 
-def phase_at_scale_path(X, M, card):
+@contextlib.contextmanager
+def shard_devices_on_card(shards):
+    """With shards > 1, device.shard_devices lists cuda:0 that many times, so
+    the pipeline row-shards over copies of the one card."""
+    from chromosome3d_tpu_torch import device
+
+    real = device.shard_devices
+    if shards > 1:
+        device.shard_devices = lambda: [torch.device("cuda", 0)] * shards
+    try:
+        yield
+    finally:
+        device.shard_devices = real
+
+
+def phase_at_scale_path(X, M, card, shards=1):
+    """`run` on the 4,985-bead .npy: on one device (B3 + B4), or row-sharded
+    over `shards` copies of the card (B6 on every shard + B4)."""
     from chromosome3d_tpu_torch import cli
     from chromosome3d_tpu_torch.config import AnnealConfig
     from chromosome3d_tpu_torch.ops import device_prep
 
     steps = AnnealConfig().total_steps
-    prep_devices = []
+    tag = "at-scale path" if shards == 1 else f"sharded run x{shards}"
+    want = ({"B3": steps + 1, "B4": steps} if shards == 1
+            else {"B6": shards * (steps + 1), "B4": steps})
+    preps = []
     real_prep = device_prep.exact_tiles_from_if_device
 
     def spy(*args, **kwargs):
         tiles = real_prep(*args, **kwargs)
-        prep_devices.append(tiles.target.device.type)
+        parts = tiles if isinstance(tiles, list) else [tiles]
+        preps.append((len(parts), {t.target.device.type for t in parts}))
         return tiles
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -504,23 +556,17 @@ def phase_at_scale_path(X, M, card):
         reset_counters()
         buf = io.StringIO()
         try:
-            with contextlib.redirect_stdout(buf):
+            with contextlib.redirect_stdout(buf), shard_devices_on_card(shards):
                 rc = cli.main(["run", "-i", path, "-o", out, "-m", str(N_MODELS),
                                "--no-violation-reports"])
         finally:
             device_prep.exact_tiles_from_if_device = real_prep
         launches, plain = read_counters()
         check(rc == 0, f"cli run returned {rc}")
-        check(launches["B3"] == steps + 1,
-              f"B3 launched {launches['B3']} times, want {steps + 1}")
-        check(launches["B4"] == steps, f"B4 launched {launches['B4']} times, want {steps}")
-        check(launches["B1"] == launches["B2"] == launches["B5"] == 0,
-              f"B1/B2/B5 launched {launches['B1']}/{launches['B2']}/{launches['B5']} "
-              "times, want 0")
-        check(plain == 0, f"plain twins ran {plain} times on the at-scale path")
-        check(prep_devices == ["cuda", "cuda"],
-              f"restraint prep ran on {prep_devices}, want the card twice "
-              "(solve tiles, assessment view)")
+        check_launches(tag, launches, plain, want)
+        check(preps == [(shards, {"cuda"}), (1, {"cuda"})],
+              f"restraint prep ran as {preps}, want {shards} strip(s) on the card for "
+              "the solve, then the whole assessment view on the card")
         summary = json.loads(buf.getvalue().strip().splitlines()[-1])
         for name in (f"{ident}.dist", f"{ident}.rr", "contact.tbl", f"{ident}.txt",
                      "contact_violation.txt"):
@@ -532,13 +578,14 @@ def phase_at_scale_path(X, M, card):
         check(len(ranked) == N_MODELS, f"{len(ranked)} rank PDBs, want {N_MODELS}")
         met = check_gates(ranked[0], X)
     solve_s = summary["phases"]["solve_s"]
-    print(f"[at-scale path] run -i .npy -m {N_MODELS}, L={L_BIG}->{L_BIG_PAD}: "
-          f"B3 {launches['B3']} launches, B4 {launches['B4']}, B1 0, B2 0, plain 0; "
-          f"restraint prep on the card x2; no .dist/.rr/contact.tbl; {summary['restraints']} "
-          f"restraints; rank01 rmsd/Rg {met['rmsd_over_rg']:.4f}, spearman_d "
-          f"{met['spearman_d']:.5f}, dRMSD_rel {met['drmsd_rel']:.4f}; best "
+    print(f"[{tag}] run -i .npy -m {N_MODELS}, L={L_BIG}->{L_BIG_PAD}: "
+          + ", ".join(f"{k} {launches[k]} launches" for k in want)
+          + f", every other kernel 0, plain 0; restraint prep on the card "
+          f"({shards} strip(s), then the assessment view); no .dist/.rr/contact.tbl; "
+          f"{summary['restraints']} restraints; rank01 rmsd/Rg {met['rmsd_over_rg']:.4f}, "
+          f"spearman_d {met['spearman_d']:.5f}, dRMSD_rel {met['drmsd_rel']:.4f}; best "
           f"Spearman(IF,1/d) {summary['best_spearman_if_inv_d']:.4f}")
-    print(f"[at-scale path] solve_s {solve_s} (synchronised; landmark init "
+    print(f"[{tag}] solve_s {solve_s} (synchronised; landmark init "
           f"included), {steps / solve_s} ensemble steps/s, wall "
           f"{summary['wall_seconds']} s, phases {json.dumps(summary['phases'])} on {card}")
     return launches
@@ -677,54 +724,61 @@ def phase_kernels_general(dev, inputs):
     return measured
 
 
-def phase_solve_path(shape, inputs, init, card):
-    """`solve -r <file> -o <out> -m 10` in process, with its checks."""
+def phase_solve_path(shape, inputs, init, card, shards=1):
+    """`solve -r <file> -o <out> -m 10` in process, with its checks; with
+    shards > 1 row-sharded over copies of the card (B5' on every shard)."""
     from chromosome3d_tpu_torch import cli
     from chromosome3d_tpu_torch.config import AnnealConfig
-    from chromosome3d_tpu_torch.solver import anneal
+    from chromosome3d_tpu_torch.solver import anneal, sharded
 
     steps = AnnealConfig().total_steps
     path, X = inputs[shape]
     ident = os.path.basename(path).rsplit(".", 1)[0]
+    tag = f"solve {shape}" + ("" if shards == 1 else f" x{shards}")
+    want = ({"B5": steps + 1, "B4": steps} if shards == 1
+            else {"B5'": shards * (steps + 1), "B4": steps})
     inits, og_calls = [], [0]
-    real = {"mds_init": anneal.mds_init, "landmark_init": anneal.landmark_init,
-            "or_group_energy_grad": anneal.or_group_energy_grad}
+    real = {(anneal, "mds_init"): anneal.mds_init,
+            (anneal, "landmark_init"): anneal.landmark_init,
+            (sharded, "sharded_landmark_init"): sharded.sharded_landmark_init,
+            (anneal, "or_group_energy_grad"): anneal.or_group_energy_grad,
+            (sharded, "or_group_energy_grad"): sharded.or_group_energy_grad}
 
-    def init_spy(name):
+    def init_spy(key):
         def spy(*args, **kwargs):
-            inits.append((name, kwargs.get("two_sided")))
-            return real[name](*args, **kwargs)
+            two_sided = (args[3].embed_two_sided if key[1] == "sharded_landmark_init"
+                         else kwargs.get("two_sided"))
+            inits.append((key[1], two_sided))
+            return real[key](*args, **kwargs)
         return spy
 
-    def og_spy(*args, **kwargs):
-        og_calls[0] += 1
-        return real["or_group_energy_grad"](*args, **kwargs)
+    def og_spy(key):
+        def spy(*args, **kwargs):
+            og_calls[0] += 1
+            return real[key](*args, **kwargs)
+        return spy
 
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "out")
-        anneal.mds_init = init_spy("mds_init")
-        anneal.landmark_init = init_spy("landmark_init")
-        anneal.or_group_energy_grad = og_spy
+        for key in real:
+            setattr(key[0], key[1], og_spy(key) if key[1] == "or_group_energy_grad"
+                    else init_spy(key))
         reset_counters()
         buf = io.StringIO()
         try:
-            with contextlib.redirect_stdout(buf):
+            with contextlib.redirect_stdout(buf), shard_devices_on_card(shards):
                 rc = cli.main(["solve", "-r", path, "-o", out, "-m", str(N_MODELS)])
         finally:
-            for name, fn in real.items():
-                setattr(anneal, name, fn)
+            for key, fn in real.items():
+                setattr(key[0], key[1], fn)
         launches, plain = read_counters()
         check(rc == 0, f"cli solve returned {rc}")
-        check(launches["B5"] == steps + 1,
-              f"B5 launched {launches['B5']} times, want {steps + 1}")
-        check(launches["B4"] == steps, f"B4 launched {launches['B4']} times, want {steps}")
-        check(launches["B1"] == launches["B2"] == launches["B3"] == 0,
-              f"B1/B2/B3 launched {launches['B1']}/{launches['B2']}/{launches['B3']} "
-              "times, want 0")
-        check(plain == 0, f"plain twins ran {plain} times on solve path {shape}")
+        check_launches(tag, launches, plain, want)
         check(inits == [(init, True)], f"init calls {inits}, want [({init!r}, True)]")
         groups = C_GROUPS if shape == "C" else 0
-        want_og = steps + 1 if groups else 0
+        # the term runs every step and once more at the pick (sharded: the
+        # pick's energy-only term is not a gradient call)
+        want_og = (steps + (1 if shards == 1 else 0)) if groups else 0
         check(og_calls[0] == want_og,
               f"the or-group term ran {og_calls[0]} times, want {want_og}")
         summary = json.loads(buf.getvalue().strip().splitlines()[-1])
@@ -734,30 +788,295 @@ def phase_solve_path(shape, inputs, init, card):
             check(os.path.isfile(os.path.join(out, name)), f"artifact {name} missing")
         met = check_gates(os.path.join(out, f"{ident}_model1.pdb"), X)
     solve_s = summary["phases"]["solve_s"]
-    print(f"[solve {shape}] solve -r {os.path.basename(path)} -m {N_MODELS}, "
-          f"L={summary['L']}->{summary['L_solved']}: B5 {launches['B5']} launches, "
-          f"B4 {launches['B4']}, B1 0, B2 0, B3 0, plain 0; two-sided {init}; "
+    print(f"[{tag}] solve -r {os.path.basename(path)} -m {N_MODELS}, "
+          f"L={summary['L']}->{summary['L_solved']}: "
+          + ", ".join(f"{k} {launches[k]} launches" for k in want)
+          + f", every other kernel 0, plain 0; two-sided {init}; "
           f"or-group term {og_calls[0]} times ({groups} rows); {summary['restraints']} "
           f"restraints, {summary['satisfied']}/{summary['total']} satisfied; rank01 "
           f"rmsd/Rg {met['rmsd_over_rg']:.4f}, spearman_d {met['spearman_d']:.5f}, "
           f"dRMSD_rel {met['drmsd_rel']:.4f}")
-    print(f"[solve {shape}] solve_s {solve_s} (synchronised; two-sided init "
+    print(f"[{tag}] solve_s {solve_s} (synchronised; two-sided init "
           f"included), {steps / solve_s} ensemble steps/s, wall "
           f"{summary['wall_seconds']} s, phases {json.dumps(summary['phases'])} on {card}")
     return launches
+
+
+def check_b6(name, ex, bm, xT, w, n_strips, n_real):
+    """B6 over n_strips row strips: each strip against its twin (at the
+    kernel's tile) and equal in bits over two calls; the strips' sums
+    against B3's twin with check_b3's tolerances; padded beads 0. Returns
+    (max abs gradient error of a strip, summed energies, summed gradient)."""
+    from chromosome3d_tpu_torch.ops.strip_tri import (
+        strip_tile,
+        strip_tri_energy_grad,
+        strip_tri_energy_grad_plain,
+    )
+    from chromosome3d_tpu_torch.ops.tri_energy import tri_energy_grad_plain
+
+    L = xT.shape[2]
+    Lb = L // n_strips
+    err, es, gs = 0.0, [], []
+    for r in range(n_strips):
+        t, wt = ex.target[r * Lb:(r + 1) * Lb], ex.w[r * Lb:(r + 1) * Lb]
+        e, g = strip_tri_energy_grad(xT, t, wt, w, bm, r * Lb)
+        e2, g2 = strip_tri_energy_grad(xT, t, wt, w, bm, r * Lb)
+        e_r, g_r = strip_tri_energy_grad_plain(xT, t, wt, w, bm, r * Lb, strip_tile(Lb))
+        torch.cuda.synchronize()
+        check(torch.equal(e, e2) and torch.equal(g, g2), f"B6 {name} strip {r}: two calls differ")
+        close(f"B6 e {name} strip {r}", e, e_r, 3e-5)
+        err = max(err, close(f"B6 g {name} strip {r}", g, g_r, 2e-4,
+                             2e-4 + 1e-6 * float(g_r.abs().max())))
+        es.append(e)
+        gs.append(g)
+    e_sum, g_sum = sum(es[1:], es[0]), sum(gs[1:], gs[0])   # rank order
+    e_b3, g_b3 = tri_energy_grad_plain(xT, ex.target, ex.w, w, bm)
+    close(f"B6 e {name} summed vs B3 plain", e_sum, e_b3, 3e-5)
+    close(f"B6 g {name} summed vs B3 plain", g_sum, g_b3, 2e-4,
+          2e-4 + 1e-6 * float(g_b3.abs().max()))
+    check(bool((g_sum[:, :, n_real:] == 0).all()), f"B6 {name}: padded beads not 0")
+    return err, e_sum, g_sum
+
+
+def phase_kernels_sharded(dev, small, big, inputs):
+    """The row-sharded kernels against their whole-matrix counterparts and
+    their twins: B5' (4 row blocks of shape B's L = 5120 tiles) and B2'
+    (2 row blocks of the L = 512 path's tiles) equal in bits to B5's and
+    B2's rows; B6 (4 strips of the at-scale tiles, and two small ragged
+    cases) summed against B3's twin, one strip of Lb = L equal in bits to
+    B3. Returns {kernel: (max abs err, wall ms, twin wall ms)}."""
+    from chromosome3d_tpu_torch.ops.general_pair import (
+        general_pair_energy_grad,
+        general_row_block_energy_grad,
+        general_row_block_energy_grad_plain,
+    )
+    from chromosome3d_tpu_torch.ops.pair_energy import (
+        exact_pair_energy_grad,
+        exact_pair_energy_grad_plain,
+        exact_row_block_energy_grad,
+        exact_row_block_energy_grad_plain,
+    )
+    from chromosome3d_tpu_torch.ops.strip_tri import (
+        strip_tile,
+        strip_tri_energy_grad,
+        strip_tri_energy_grad_plain,
+    )
+    from chromosome3d_tpu_torch.ops.tri_energy import tri_energy_grad
+
+    measured, line = {}, []
+
+    def timed(key, calls, n_plain):
+        n = {k: (n_plain if k.endswith("plain") else 25) for k in calls}
+        wall = {k: median_ms(fn, n[k], warmup=1) for k, fn in calls.items()}
+        on_dev = {k: device_ms(fn, n[k]) for k, fn in calls.items()}
+        line.append("; ".join(f"{k} {wall[k]:.4f} | {on_dev[k]:.4f}" for k in calls))
+        return wall[key], wall[f"{key} plain"]
+
+    # B5': shape B's tiles at L = 5120 in 4 row blocks
+    path, X = inputs["B"]
+    tiles = solve_tiles(path, L_BIG_PAD, dev)
+    bm, xT, _, _ = ensemble_near(X, L_BIG_PAD, dev)
+    _, _, _, w = small
+    e_full, g_full = general_pair_energy_grad(xT, *tiles, w, bm)
+    Lb = L_BIG_PAD // 4
+    err, es = 0.0, []
+    for r in range(4):
+        strips = [a[r * Lb:(r + 1) * Lb] for a in tiles]
+        e, g = general_row_block_energy_grad(xT, *strips, w, bm, r * Lb)
+        e2, g2 = general_row_block_energy_grad(xT, *strips, w, bm, r * Lb)
+        e_r, g_r = general_row_block_energy_grad_plain(xT, *strips, w, bm, r * Lb)
+        torch.cuda.synchronize()
+        check(torch.equal(g, g_full[:, :, r * Lb:(r + 1) * Lb]),
+              f"B5' block {r}: gradient rows differ in bits from B5's")
+        check(torch.equal(e, e2) and torch.equal(g, g2), f"B5' block {r}: two calls differ")
+        close(f"B5' e block {r}", e, e_r, 1e-5)
+        err = max(err, close(f"B5' g block {r}", g, g_r, 2e-4,
+                             2e-4 + 1e-6 * float(g_r.abs().max())))
+        es.append(e)
+    close("B5' energies summed over blocks vs B5", sum(es[1:], es[0]), e_full, 1e-6)
+    print(f"[kernels] B5' general_row_block at B=20, L={L_BIG_PAD} in 4 blocks of {Lb} "
+          f"on shape B's tiles: gradient rows equal in bits to B5's, energies summed "
+          f"within 1e-6 of B5's; == plain per block (g max abs err {err:.3g}); bits "
+          "equal over two calls")
+    strips = [a[Lb:2 * Lb] for a in tiles]
+    measured["B5'"] = (err, *timed("B5'", {
+        "B5'": lambda: general_row_block_energy_grad(xT, *strips, w, bm, Lb),
+        "B5' plain": lambda: general_row_block_energy_grad_plain(xT, *strips, w, bm, Lb),
+    }, 5))
+    del tiles, strips, xT, g_full
+    torch.cuda.empty_cache()
+
+    # B2': the L = 512 path's tiles in 2 row blocks
+    ex, bm, xT, w = small
+    coords = xT.transpose(1, 2).contiguous()
+    e_full, g_full = exact_pair_energy_grad(coords, ex.target, ex.w, w, bm)
+    Lb = L_PAD // 2
+    err, es = 0.0, []
+    for r in range(2):
+        t, wt = ex.target[r * Lb:(r + 1) * Lb], ex.w[r * Lb:(r + 1) * Lb]
+        e, g = exact_row_block_energy_grad(xT, t, wt, w, bm, r * Lb)
+        e_r, g_r = exact_row_block_energy_grad_plain(xT, t, wt, w, bm, r * Lb)
+        torch.cuda.synchronize()
+        check(torch.equal(g, g_full[:, r * Lb:(r + 1) * Lb].transpose(1, 2)),
+              f"B2' block {r}: gradient rows differ in bits from B2's")
+        close(f"B2' e block {r}", e, e_r, 2e-5)
+        err = max(err, close(f"B2' g block {r}", g, g_r, 2e-4, 2e-4))
+        es.append(e)
+    close("B2' energies summed over blocks vs B2", sum(es[1:], es[0]), e_full, 1e-6)
+    print(f"[kernels] B2' exact_row_block at B=20, L={L_PAD} in 2 blocks of {Lb}: "
+          f"gradient rows equal in bits to B2's, energies summed within 1e-6 of B2's; "
+          f"== plain per block (g max abs err {err:.3g})")
+    t, wt = ex.target[Lb:], ex.w[Lb:]
+    measured["B2'"] = (err, *timed("B2'", {
+        "B2'": lambda: exact_row_block_energy_grad(xT, t, wt, w, bm, Lb),
+        "B2' plain": lambda: exact_row_block_energy_grad_plain(xT, t, wt, w, bm, Lb),
+    }, 25))
+
+    # B6: two small ragged cases (odd and even tile counts), then the
+    # at-scale tiles in 4 strips, and one strip of Lb = L against B3
+    for L, n_real, B, n_strips in ((320, 300, 20, 5), (384, 371, 3, 3)):
+        exr, bmr, xr = ragged_case(dev, L, n_real, B, seed=L)
+        e6, _, _ = check_b6(f"(B={B}, L={L})", exr, bmr, xr, w, n_strips, n_real)
+        print(f"[kernels] B6 exact_tri_strip at B={B}, L={L} in {n_strips} strips of "
+              f"{L // n_strips} (Tg={L // 64}, {L - n_real} padded beads; g max abs err "
+              f"{e6:.3g}): each strip == plain, summed == B3 plain; bits equal over two calls")
+    ex, bm, xT, w = big
+    err, e_sum, g_sum = check_b6(f"(B=20, L={L_BIG_PAD})", ex, bm, xT, w, 4, L_BIG)
+    e3, g3 = tri_energy_grad(xT, ex.target, ex.w, w, bm)
+    e1, g1 = strip_tri_energy_grad(xT, ex.target, ex.w, w, bm, 0)
+    torch.cuda.synchronize()
+    check(torch.equal(e1, e3) and torch.equal(g1, g3),
+          "B6 with one strip of Lb = L differs in bits from B3")
+    print(f"[kernels] B6 exact_tri_strip at B=20, L={L_BIG}->{L_BIG_PAD} in 4 strips of "
+          f"{L_BIG_PAD // 4} (g max abs err {err:.3g} per strip; summed vs B3 kernel: "
+          f"e max abs {float((e_sum - e3).abs().max()):.4g}, g max abs "
+          f"{float((g_sum - g3).abs().max()):.4g}); one strip of Lb = L equal in bits "
+          "to B3; bits equal over two calls")
+    Lb = L_BIG_PAD // 4
+    t, wt = ex.target[Lb:2 * Lb], ex.w[Lb:2 * Lb]
+    measured["B6"] = (err, *timed("B6", {
+        "B6": lambda: strip_tri_energy_grad(xT, t, wt, w, bm, Lb),
+        "B6 plain": lambda: strip_tri_energy_grad_plain(xT, t, wt, w, bm, Lb,
+                                                        strip_tile(Lb)),
+    }, 5))
+    print("[kernels] B5' at B=20, L=5120, one block of 1280 / B2' at B=20, L=512, one "
+          "block of 256 / B6 at B=20, L=5120, one strip of 1280; ms per call as median "
+          "wall with a sync around each of 25 (5 for the B5' and B6 twins) | device "
+          "time from torch.profiler: " + " / ".join(line))
+    return measured
+
+
+def phase_sharded_library(dev, X, M, card, shards=2):
+    """solve_ensemble_sharded (the library entry) over `shards` copies of
+    the card on the L = 512 path's exact restraints, cut into strips by the
+    pipeline's own helper: B2' on every shard (strip_tri_feasible(512, 2)
+    is False), B4, the sharded landmark init; gates on the best model by
+    Spearman(IF, 1/d)."""
+    import dataclasses
+
+    from chromosome3d_tpu_torch import pipeline
+    from chromosome3d_tpu_torch.assess import rank_by_spearman
+    from chromosome3d_tpu_torch.config import PipelineConfig
+    from chromosome3d_tpu_torch.parallel.shards import ShardGroup
+    from chromosome3d_tpu_torch.solver import sharded
+    from chromosome3d_tpu_torch.truth import reconstruction_metrics
+
+    _, _, ex, bm, _, _, _, _ = slice_inputs(dev)
+    cfg = PipelineConfig(model_count=N_MODELS)
+    an = dataclasses.replace(cfg.anneal, exact_restraints=True)   # auto_exact's choice
+    steps = an.total_steps
+    group = ShardGroup([dev] * shards)
+    strips = pipeline.restraint_strips(group, ex)
+    inits = []
+    real_init = sharded.sharded_landmark_init
+
+    def spy(*args, **kwargs):
+        inits.append(args[3].embed_two_sided)
+        return real_init(*args, **kwargs)
+
+    sharded.sharded_landmark_init = spy
+    reset_counters()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sharded.solve_ensemble_sharded(
+            group, strips, an, N_MODELS, bm,
+            generator=torch.Generator().manual_seed(cfg.seed))
+        coords = res.coords.cpu().numpy()[:, :L_TRUE]
+        solve_s = time.perf_counter() - t0
+    finally:
+        sharded.sharded_landmark_init = real_init
+    launches, plain = read_counters()
+    KEY_B2R = "B2'"
+    tag = f"sharded library x{shards}"
+    check_launches(tag, launches, plain, {"B2'": shards * (steps + 1), "B4": steps})
+    check(inits == [False], f"sharded landmark init calls {inits}, want one, one-sided")
+    check(coords.shape == (N_MODELS, L_TRUE, 3) and np.isfinite(coords).all(),
+          "malformed coordinates")
+    check(all(bool(torch.isfinite(v).all()) for v in res.energies.values()),
+          "non-finite energies")
+    order, scores = rank_by_spearman(M, coords, 3)
+    met = reconstruction_metrics(coords[order[0]], X)
+    check(met["rmsd_over_rg"] < GATES["rmsd_over_rg"]
+          and met["spearman_d"] > GATES["spearman_d"]
+          and met["drmsd_rel"] < GATES["drmsd_rel"],
+          f"ground-truth gates missed: {met}")
+    print(f"[{tag}] solve_ensemble_sharded -m {N_MODELS}, L={L_TRUE}->{L_PAD} in "
+          f"{shards} strips: B2' {launches[KEY_B2R]} launches, B4 "
+          f"{launches['B4']}, every other kernel 0, plain 0; sharded landmark init; rank01 "
+          f"rmsd/Rg {met['rmsd_over_rg']:.4f}, spearman_d {met['spearman_d']:.5f}, "
+          f"dRMSD_rel {met['drmsd_rel']:.4f}; best Spearman(IF,1/d) {scores[order[0]]:.4f}")
+    print(f"[{tag}] solve {solve_s} s (synchronised; sharded landmark init included), "
+          f"{steps / solve_s} ensemble steps/s on {card}")
+    return launches
+
+
+# FP32 operations per pair evaluation, counted from each kernel's inner loop
+# (an FMA counts 2, rsqrt 1; the row-sharded kernels run the same loops):
+# B1 32 per ordered pair (fused_step.cu) plus ~100 per bead for the update
+# (step_common.cuh); B2/B2' 35 per ordered pair (exact_pair.cu); B3/B6 36 per
+# unordered pair (tri_pair.cuh); B5/B5' 44 per ordered pair
+# (general_pair.cu); B4 ~100 per bead (step_common.cuh).
+PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12   # H100 SXM data sheet, at 700 W
+
+
+def work(key, B, L, Lb=None):
+    """(FP32 operations, bytes each input read once and each output written
+    once) of one call at these shapes."""
+    f, st = 4, 3 * B * L        # float32 bytes; one (B, 3, L) state array
+    Lb = L if Lb is None else Lb
+    return {
+        "B1": (32 * B * L * L + 100 * B * L, f * (3 * L * L + 6 * st + B * L + L)),
+        "B2": (35 * B * L * L, f * (2 * L * L + 2 * st + B + L)),
+        "B3": (36 * B * L * L // 2, f * (2 * L * L + 2 * st + B + L)),
+        "B4": (100 * B * L, f * (7 * st + B + L)),
+        "B5": (44 * B * L * L, f * (3 * L * L + 2 * st + B + L)),
+        "B6": (36 * B * Lb * L // 2, f * (2 * Lb * L + 2 * st + B + L)),
+        "B5'": (44 * B * Lb * L, f * (3 * Lb * L + st + 3 * B * Lb + B + L)),
+        "B2'": (35 * B * Lb * L, f * (2 * Lb * L + st + 3 * B * Lb + B + L)),
+    }[key]
+
+
+def bound(key, B, L, Lb=None):
+    """(least ms the card could take, "operations" or "bytes")."""
+    ops, nbytes = work(key, B, L, Lb)
+    t_ops, t_bytes = 1e3 * ops / PEAK_FP32, 1e3 * nbytes / PEAK_BYTES
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def main() -> int:
     name, card = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
-    X, M, measured = phase_kernels(dev)
-    Xb, Mb, measured_big = phase_kernels_at_scale(dev)
+    X, M, measured, small = phase_kernels(dev)
+    Xb, Mb, measured_big, big = phase_kernels_at_scale(dev)
     measured.update(measured_big)
     with tempfile.TemporaryDirectory() as tmp:
         inputs = make_solve_inputs(tmp)
         measured_b5 = phase_kernels_general(dev, inputs)
         measured["B5"] = measured_b5["A"]
+        measured.update(phase_kernels_sharded(dev, small, big, inputs))
+        del small, big
         torch.cuda.empty_cache()
         launches = phase_main_path(X, M, card)
         launches_big = phase_at_scale_path(Xb, Mb, card)
@@ -766,23 +1085,44 @@ def main() -> int:
         phase_solve_path("B", inputs, "landmark_init", card)
         torch.cuda.empty_cache()
         phase_solve_path("C", inputs, "mds_init", card)
+        torch.cuda.empty_cache()
+        launches_sh_run = phase_at_scale_path(Xb, Mb, card, shards=4)
+        torch.cuda.empty_cache()
+        launches_sh_solve = phase_solve_path("B", inputs, "sharded_landmark_init", card,
+                                             shards=4)
+        torch.cuda.empty_cache()
+        launches_sh_lib = phase_sharded_library(dev, X, M, card)
+    B = 2 * N_MODELS
     kernels = []
-    for key, kname, src, replaces, path_launches in (
+    for key, kname, src, replaces, path_launches, shape in (
         ("B1", "fused_step", "chromosome3d_tpu_torch/csrc/fused_step.cu",
-         "chromosome3d_tpu/ops/pallas_energy.py:330", launches),
+         "chromosome3d_tpu/ops/pallas_energy.py:330", launches, (B, L_PAD)),
         ("B2", "exact_pair", "chromosome3d_tpu_torch/csrc/exact_pair.cu",
-         "chromosome3d_tpu/ops/pallas_energy.py:195", launches),
+         "chromosome3d_tpu/ops/pallas_energy.py:195", launches, (B, L_PAD)),
         ("B3", "exact_tri", "chromosome3d_tpu_torch/csrc/exact_tri.cu",
-         "chromosome3d_tpu/ops/pallas_energy.py:899", launches_big),
+         "chromosome3d_tpu/ops/pallas_energy.py:899", launches_big, (B, L_BIG_PAD)),
         ("B4", "fused_update", "chromosome3d_tpu_torch/csrc/fused_update.cu",
-         "chromosome3d_tpu/ops/pallas_energy.py:486", launches_big),
+         "chromosome3d_tpu/ops/pallas_energy.py:486", launches_big, (B, L_BIG_PAD)),
         ("B5", "general_pair", "chromosome3d_tpu_torch/csrc/general_pair.cu",
-         "chromosome3d_tpu/ops/pallas_energy.py:117", launches_solve),
+         "chromosome3d_tpu/ops/pallas_energy.py:117", launches_solve, (B, L_PAD)),
+        ("B6", "exact_tri_strip", "chromosome3d_tpu_torch/csrc/exact_tri_strip.cu",
+         "chromosome3d_tpu/ops/pallas_energy.py:1438", launches_sh_run,
+         (B, L_BIG_PAD, L_BIG_PAD // 4)),
+        ("B5'", "general_row_block", "chromosome3d_tpu_torch/csrc/general_pair.cu",
+         "chromosome3d_tpu/ops/pallas_energy.py:117", launches_sh_solve,
+         (B, L_BIG_PAD, L_BIG_PAD // 4)),
+        ("B2'", "exact_row_block", "chromosome3d_tpu_torch/csrc/exact_pair.cu",
+         "chromosome3d_tpu/ops/pallas_energy.py:195", launches_sh_lib,
+         (B, L_PAD, L_PAD // 2)),
     ):
         err, ms, plain_ms = measured[key]
+        bound_ms, bound_by = bound(key, *shape)
+        # no single PyTorch call computes a restraint well, the vdw repel and
+        # their gradient (or B4's bond + Adam + noise + move) in one
         kernels.append({"name": kname, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": path_launches[key],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     print(card)   # nvidia-smi --query-gpu=name,power.limit, again beside the numbers
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,30 +3,41 @@
 The JAX package (`chromosome3d_tpu`) stays the reference this package is held
 against; module names mirror it (`chromosome3d_tpu/ops/energy.py` ->
 `chromosome3d_tpu_torch/ops/energy.py`, ...). The port imports `torch` and
-never `jax`. It reuses the JAX package's jax-free host layer by import
-(`config`, `io.matrix`, `io.pdb`, `restraints`, `metrics`, `truth`,
-`utils.logging`), so the restraint text artifacts stay byte-identical.
+never `jax`, and nothing of the JAX package: it keeps its own copies of the
+host layer (`config`, `io.matrix`, `io.pdb`, `restraints`, `metrics`,
+`truth`, `utils.logging`), which the tests hold byte-equal to the originals.
 
-Layer map of the ported slices (the `run` path at reference scale and, on
-one GPU, beyond the length buckets; the `solve` path from a restraint file):
+Layer map of the ported slices (the `run` path at reference scale and
+beyond the length buckets, on one GPU or row-sharded over several; the
+`solve` path from a restraint file):
 
-  L4  pipeline / cli       run_pipeline (bucket and beyond-bucket branches),
-                           run_restraints_pipeline; `run`/`solve`/`spearman`
-  L3  ops.device_prep      beyond-bucket restraint prep on the device
-      restraints           `.rr` / `.tbl` readers (jax-free)
+  L4  pipeline / cli       run_pipeline (bucket, beyond-bucket and sharded
+                           branches), run_restraints_pipeline;
+                           `run`/`solve`/`spearman`
+  L3  ops.device_prep      beyond-bucket restraint prep on the device (one
+                           shot, or one row strip per shard)
+      restraints, io       `.rr` / `.tbl` readers, the text artifacts
   L2  solver.anneal        the annealer: fused route (B1), semi route
                            (B3 + B4), semi-general route (B5 + B4), the
                            or-group term, hot phase, enantiomer pick, cool,
                            final
+      solver.sharded       the row-sharded annealer over a parallel.shards
+                           ShardGroup (B6, B5' or B2' per shard + B4 once),
+                           landmark start from the sharded rows
       solver.init          classical-MDS start; landmark-MDS start (L >= 2048);
                            both one- or two-sided
+      parallel             shards (the device list and its rank-order
+                           collectives), sharded_energy (the final terms)
   L1  ops.fused_step       kernel B1: one whole annealing step (csrc/fused_step.cu)
-      ops.pair_energy      kernel B2: exact pair energy + gradient (csrc/exact_pair.cu)
+      ops.pair_energy      kernel B2: exact pair energy + gradient
+                           (csrc/exact_pair.cu); B2' on a row block
       ops.tri_energy       kernel B3: B2 on each unordered tile pair once
                            (csrc/exact_tri.cu), and the route rule
       ops.fused_update     kernel B4: B1's update half (csrc/fused_update.cu)
       ops.general_pair     kernel B5: the general (windowed) pair energy +
-                           gradient (csrc/general_pair.cu)
+                           gradient (csrc/general_pair.cu); B5' on a row block
+      ops.strip_tri        kernel B6: B3 on one shard's row strip
+                           (csrc/exact_tri_strip.cu), and the sharded routing
       ops.energy           plain-torch energy terms, or-groups and restraint
                            containers
   L0  assess               host-side assessment and report artifacts

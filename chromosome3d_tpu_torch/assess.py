@@ -19,7 +19,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from chromosome3d_tpu_torch.config import PipelineConfig
-from chromosome3d_tpu.metrics import ROW_CHUNK, d2_row_strip, spearman_if_inv_d
+from chromosome3d_tpu_torch.metrics import ROW_CHUNK, d2_row_strip, spearman_if_inv_d
 from chromosome3d_tpu_torch.restraints import Restraints
 
 

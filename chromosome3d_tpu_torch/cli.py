@@ -10,7 +10,9 @@ support.
 
 `run` and `solve` compute on the first CUDA device when one is present (the
 kernels build at first use) and on the CPU, with the kernels' plain twins,
-otherwise. `solve` takes an external restraint set: CONFOLD-style `.rr`
+otherwise. Past the largest length bucket with more than one CUDA device
+visible they row-shard the solve over all of them by themselves
+(pipeline._use_sharded). `solve` takes an external restraint set: CONFOLD-style `.rr`
 rows `i j lo hi conf` or a CNS NOE `.tbl`, `or`-group rows included. The
 JAX CLI's other subcommands are refused with NotImplementedError naming
 their ROADMAP item.
@@ -127,7 +129,7 @@ def main(argv=None) -> int:
         return 0
 
     if args.command == "spearman":
-        from chromosome3d_tpu.metrics import spearman_if_model
+        from chromosome3d_tpu_torch.metrics import spearman_if_model
         from chromosome3d_tpu_torch.io import load_if_matrix, load_pdb_dir, read_ca_pdb
 
         matrix = load_if_matrix(args.matrix)

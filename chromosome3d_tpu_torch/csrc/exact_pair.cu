@@ -2,9 +2,14 @@
 // structures sharing one restraint set.
 //
 // Replaces: chromosome3d_tpu/ops/pallas_energy.py `_kernel_exact`, reached
-// through `_pairwise_energy_grad_batched(..., exact=True)`. On the port's
-// main path it runs once per solve: the enantiomer pick
+// through `_pairwise_energy_grad_batched(..., exact=True)` (B2: all L rows)
+// and through `pallas_row_block_energy_grad_batched(..., exact=True)` (B2':
+// the Lb rows [row0, row0 + Lb) of one shard of the row-sharded solve, from
+// (Lb, L) strips of the tiles; one body, so B2' rows are bitwise B2's). On
+// the port's `run` path B2 runs once per solve: the enantiomer pick
 // (chromosome3d_tpu/solver/anneal.py:564), B = 2 x models, L = the bucket.
+// B2' runs every step and at the pick of a sharded exact solve where the
+// strip-triangular kernel B6 does not pay (L = 512 over 2 shards).
 //
 // Math, in d-space as the Pallas kernel does it (the pick compares these
 // energies with an argmin, so B1's rsqrt-space algebra is not borrowed):
@@ -48,22 +53,23 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 exact_pair_kernel(const float* __restrict__ x,     // (B, L, 3)
-                  const float* __restrict__ t,     // (L, L) targets
-                  const float* __restrict__ w,     // (L, L) folded weights
+                  const float* __restrict__ t,     // (Lb, L) targets, rows row0..
+                  const float* __restrict__ w,     // (Lb, L) folded weights
                   const float* __restrict__ bm,    // (L,) bead mask
-                  float* __restrict__ e_rows,      // (B, L) out
-                  float* __restrict__ g,           // (B, L, 3) out
-                  int L, float noe, float vdw, float r0) {
+                  float* __restrict__ e_rows,      // (B, Lb) out
+                  float* __restrict__ g,           // (B, Lb, 3) out
+                  int L, int row0, int Lb, float noe, float vdw, float r0) {
   const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int il = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const int b = blockIdx.y;
-  if (i >= L) return;  // uniform per warp: the shuffles below stay full-warp
+  if (il >= Lb) return;  // uniform per warp: the shuffles below stay full-warp
+  const int i = row0 + il;
 
   const float* xb = x + (size_t)b * L * 3;
   const float ax = xb[3 * i], ay = xb[3 * i + 1], az = xb[3 * i + 2];
   const float bmi = bm[i];
-  const float* trow = t + (size_t)i * L;
-  const float* wrow = w + (size_t)i * L;
+  const float* trow = t + (size_t)il * L;
+  const float* wrow = w + (size_t)il * L;
 
   float e_noe = 0.f, e_vdw = 0.f, gx = 0.f, gy = 0.f, gz = 0.f;
   for (int j = lane; j < L; j += 32) {
@@ -90,7 +96,7 @@ exact_pair_kernel(const float* __restrict__ x,     // (B, L, 3)
   gy = warp_sum(gy);
   gz = warp_sum(gz);
   if (lane == 0) {
-    const size_t r = (size_t)b * L + i;
+    const size_t r = (size_t)b * Lb + il;
     e_rows[r] = 0.5f * noe * e_noe + 0.5f * vdw * e_vdw;
     g[3 * r] = gx;
     g[3 * r + 1] = gy;
@@ -100,13 +106,15 @@ exact_pair_kernel(const float* __restrict__ x,     // (B, L, 3)
 
 }  // namespace
 
+// B2 is row0 = 0, Lb = L; B2' a shard's rows [row0, row0 + Lb).
 extern "C" int c3d_exact_pair(const float* x, const float* t, const float* w,
                               const float* bm, float* e_rows, float* g, int B,
-                              int L, float noe, float vdw, float vdw_radius,
-                              void* stream) {
-  const dim3 grid((L + kWarpsPerBlock - 1) / kWarpsPerBlock, B);
+                              int L, int row0, int Lb, float noe, float vdw,
+                              float vdw_radius, void* stream) {
+  if (row0 < 0 || Lb <= 0 || row0 + Lb > L) return (int)cudaErrorInvalidValue;
+  const dim3 grid((Lb + kWarpsPerBlock - 1) / kWarpsPerBlock, B);
   exact_pair_kernel<<<grid, kWarpsPerBlock * 32, 0, (cudaStream_t)stream>>>(
-      x, t, w, bm, e_rows, g, L, noe, vdw, vdw_radius);
+      x, t, w, bm, e_rows, g, L, row0, Lb, noe, vdw, vdw_radius);
   return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,113 @@
+// Kernel B6: the exact-restraint pair energy and gradient of one shard's
+// row strip with each unordered (TM, TM) tile pair of the whole matrix
+// computed once across the shards, for a batch of structures sharing one
+// restraint set.
+//
+// Replaces: chromosome3d_tpu/ops/pallas_energy.py `_kernel_exact_tri_strip`
+// (entry `pallas_strip_tri_energy_grad_batched`) and the gradient assembly
+// `assemble_strip_tri_grad`. On the row-sharded `run` path (exact
+// restraints past the largest bucket over several shards) it runs once per
+// shard every annealing step, before kernel B4, and once per shard for the
+// enantiomer pick: at L = 5120 over 4 shards, Lb = 1280 rows, B = 20 then
+// 10 structures.
+//
+// Pairing and math: the tile-pair body in tri_pair.cuh, shared with B3. The
+// strip's row tiles are global tiles row0t .. row0t + Tl - 1; the round-robin
+// column tile, the even-Tg dead twin and the |i - j| >= 2 vdw predicate all
+// use global indices, so the union over the shards is B3's set of blocks.
+// The body writes row partials at the strip's rows and column partials in
+// the compact layout (slot i of shell s holds global column tile
+// (row0t + i + s) mod Tg, as the Pallas kernel lays them out).
+//
+// Assembly (second kernel): the shard's (B, 3, L) gradient, which the
+// solver sums over the shards. For bead l: the row partials of shells
+// 0 .. S-1 if l lies in the strip, then for each shell s the compact column
+// slot i = (tile(l) - row0t - s) mod Tg if i < Tl — B3's slot order, so a
+// strip with Lb = L gives B3's bits. Energies: B3's fixed-order block sum.
+// No float atomics.
+//
+// What bounds it on an H100: as B3, ~35 FP32 operations and one MUFU rsqrt
+// per unordered pair, now B x Lb x L / 2 pairs per shard (65.5M at B = 20,
+// L = 5120, Lb = 1280): compute, not the (Lb, L) tiles (52 MB, read once).
+// The tile is the port's own: 64, or the largest of 32, 16 and 8 that
+// divides Lb (the JAX package's strip tile is sized for VMEM and may be
+// larger; the routing rule is kept, the tile is not).
+
+#include <cuda_runtime.h>
+
+#include "tri_pair.cuh"
+
+namespace {
+
+using c3d_tri::kThreads;
+using c3d_tri::TriParams;
+
+__global__ void __launch_bounds__(kThreads)
+strip_assemble_kernel(const float* __restrict__ part,    // (B, 2S, 3, Lb)
+                      const float* __restrict__ e_part,  // (B, nblk)
+                      float* __restrict__ gT,            // (B, 3, L) out
+                      float* __restrict__ e,             // (B,) out
+                      int L, int Lb, int tile, int Tl, int Tg, int S, int row0t,
+                      int nblk) {
+  const int b = blockIdx.y;
+  const int idx = blockIdx.x * kThreads + threadIdx.x;
+  if (idx < 3 * L) {
+    const int c = idx / L, l = idx - c * L;
+    const size_t slot = (size_t)3 * Lb;
+    const float* pb = part + (size_t)b * 2 * S * slot + (size_t)c * Lb;
+    float g = 0.f;
+    const int lr = l - row0t * tile;
+    if (lr >= 0 && lr < Lb) {
+      for (int s = 0; s < S; ++s) g += pb[s * slot + lr];
+    }
+    const int tl = l / tile, off = l - tl * tile;
+    for (int s = 0; s < S; ++s) {
+      const int i = ((tl - row0t - s) % Tg + Tg) % Tg;
+      if (i < Tl) g += pb[(S + s) * slot + (size_t)i * tile + off];
+    }
+    gT[((size_t)b * 3 + c) * L + l] = g;
+  }
+  if (blockIdx.x != 0) return;
+  c3d_tri::block_energy_sum(e_part + (size_t)b * nblk, nblk, e + b);
+}
+
+template <int TM>
+cudaError_t launch_pairs(const float* xT, const float* t, const float* w,
+                         const float* bm, float* part, float* e_part,
+                         const TriParams& q, cudaStream_t st) {
+  c3d_tri::tri_pair_kernel<TM><<<q.Tl * q.S, kThreads, 0, st>>>(xT, t, w, bm, part,
+                                                                 e_part, q);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// t, w: the strip's (Lb, L) rows, global rows row0 .. row0 + Lb - 1; tile
+// divides Lb and row0 and L; part: (B, 2 S, 3, Lb) and e_part: (B, Tl S)
+// scratch allocated by the caller, Tl = Lb / tile, Tg = L / tile,
+// S = Tg / 2 + 1.
+extern "C" int c3d_exact_tri_strip(const float* xT, const float* t, const float* w,
+                                   const float* bm, float* part, float* e_part,
+                                   float* gT, float* e, int B, int L, int row0,
+                                   int Lb, int tile, float noe, float vdw,
+                                   float vdw_radius, void* stream) {
+  if (tile <= 0 || Lb <= 0 || Lb % tile || L % tile || row0 % tile || row0 < 0 ||
+      row0 + Lb > L)
+    return (int)cudaErrorInvalidValue;
+  const int Tl = Lb / tile, Tg = L / tile, S = Tg / 2 + 1;
+  const TriParams q{B, L, Tl, Tg, S, row0 / tile, Lb, 1, noe, vdw, vdw_radius};
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err;
+  switch (tile) {
+    case 64: err = launch_pairs<64>(xT, t, w, bm, part, e_part, q, st); break;
+    case 32: err = launch_pairs<32>(xT, t, w, bm, part, e_part, q, st); break;
+    case 16: err = launch_pairs<16>(xT, t, w, bm, part, e_part, q, st); break;
+    case 8: err = launch_pairs<8>(xT, t, w, bm, part, e_part, q, st); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((3 * L + kThreads - 1) / kThreads, B);
+  strip_assemble_kernel<<<grid, kThreads, 0, st>>>(part, e_part, gT, e, L, Lb, tile,
+                                                   Tl, Tg, S, row0 / tile, Tl * S);
+  return (int)cudaGetLastError();
+}

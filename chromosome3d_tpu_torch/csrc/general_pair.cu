@@ -3,10 +3,15 @@
 // vdw repel) for a batch of structures sharing one restraint set.
 //
 // Replaces: chromosome3d_tpu/ops/pallas_energy.py `_kernel`, reached through
-// `_pairwise_energy_grad_batched(..., exact=False)`. On the port's `solve`
-// path for windowed restraint files it runs every annealing step (before
-// kernel B4) and once for the enantiomer pick (B = 2 x models, then models;
-// L = the bucket, or the shard-quantum length past the buckets).
+// `_pairwise_energy_grad_batched(..., exact=False)` (B5: all L rows) and
+// through `pallas_row_block_energy_grad_batched(..., exact=False)` (B5': the
+// Lb rows [row_start, row_start + Lb) of one shard of the row-sharded solve,
+// from (Lb, L) strips of the tiles). One body serves both: a row's sums do
+// not depend on which rows share the launch, so B5' rows are bitwise B5's.
+// On the port's `solve` path for windowed restraint files it runs every
+// annealing step (before kernel B4) and once for the enantiomer pick (B = 2 x
+// models, then models; L = the bucket, or the shard-quantum length past the
+// buckets; sharded: once per shard each time).
 //
 // Math, in d-space as the Pallas kernel does it:
 //   s = |x_i - x_j|^2 + eps, rinv = rsqrt(s), d = s * rinv
@@ -30,7 +35,7 @@
 // structures (batch fastest); a grid of (rows, B) would stream the tiles B
 // times (6.3 GB a hot step). Design: one block per bead row i stages row i
 // of lo, hi and w and the bead mask in shared memory (80 KB at L = 5120,
-// dynamic), then every warp sweeps a fixed strided slice of the columns for
+// dynamic; row i of a shard's strip), then every warp sweeps a fixed strided slice of the columns for
 // each of the B structures in turn: lanes take neighbouring columns, so the
 // xT reads of (B, 3, L) are coalesced, and every warp gets the same share of
 // every structure. Each warp reduces its sums with shuffles and leaves them
@@ -54,13 +59,14 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 __global__ void __launch_bounds__(kWarps * 32)
 general_pair_kernel(const float* __restrict__ xT,   // (B, 3, L)
-                    const float* __restrict__ lo,   // (L, L)
-                    const float* __restrict__ hi,   // (L, L)
-                    const float* __restrict__ w,    // (L, L) mask * weight
+                    const float* __restrict__ lo,   // (Lb, L) rows row0..
+                    const float* __restrict__ hi,   // (Lb, L)
+                    const float* __restrict__ w,    // (Lb, L) mask * weight
                     const float* __restrict__ bm,   // (L,) bead mask
-                    float* __restrict__ e_rows,     // (B, L) out
-                    float* __restrict__ gT,         // (B, 3, L) out
-                    int B, int L, float noe, float vdw, float r0, float rs) {
+                    float* __restrict__ e_rows,     // (B, Lb) out
+                    float* __restrict__ gT,         // (B, 3, Lb) out
+                    int B, int L, int row0, int Lb, float noe, float vdw,
+                    float r0, float rs) {
   extern __shared__ float smem[];
   float* s_lo = smem;
   float* s_hi = s_lo + L;
@@ -68,10 +74,11 @@ general_pair_kernel(const float* __restrict__ xT,   // (B, 3, L)
   float* s_bm = s_w + L;
   float* s_part = s_bm + L;   // (B, kWarps, 5) per-warp sums
 
-  const int i = blockIdx.x;
+  const int il = blockIdx.x;        // the strip's row
+  const int i = row0 + il;          // the same row of the pair matrix
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const size_t row = (size_t)i * L;
+  const size_t row = (size_t)il * L;
   for (int j = threadIdx.x; j < L; j += blockDim.x) {
     s_lo[j] = lo[row + j];
     s_hi[j] = hi[row + j];
@@ -136,27 +143,31 @@ general_pair_kernel(const float* __restrict__ xT,   // (B, 3, L)
       gy += p[5 * k + 3];
       gz += p[5 * k + 4];
     }
-    e_rows[(size_t)b * L + i] = 0.5f * noe * e_noe + 0.5f * vdw * e_vdw;
-    float* gb = gT + (size_t)b * 3 * L;
-    gb[i] = gx;
-    gb[L + i] = gy;
-    gb[2 * L + i] = gz;
+    e_rows[(size_t)b * Lb + il] = 0.5f * noe * e_noe + 0.5f * vdw * e_vdw;
+    float* gb = gT + (size_t)b * 3 * Lb;
+    gb[il] = gx;
+    gb[Lb + il] = gy;
+    gb[2 * Lb + il] = gz;
   }
 }
 
 }  // namespace
 
+// B5 is row0 = 0, Lb = L; B5' a shard's rows [row0, row0 + Lb).
 extern "C" int c3d_general_pair(const float* xT, const float* lo, const float* hi,
                                 const float* w, const float* bm, float* e_rows,
-                                float* gT, int B, int L, float noe, float vdw,
-                                float vdw_radius, float rswitch, void* stream) {
+                                float* gT, int B, int L, int row0, int Lb,
+                                float noe, float vdw, float vdw_radius,
+                                float rswitch, void* stream) {
+  if (row0 < 0 || Lb <= 0 || row0 + Lb > L) return (int)cudaErrorInvalidValue;
   // four staged rows and the per-warp partial sums; past the card's 227 KB
   // a block can opt into, the attribute call fails and the wrapper raises
   const size_t smem = (4 * (size_t)L + 5 * (size_t)kWarps * B) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       general_pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  general_pair_kernel<<<L, kWarps * 32, smem, (cudaStream_t)stream>>>(
-      xT, lo, hi, w, bm, e_rows, gT, B, L, noe, vdw, vdw_radius, rswitch);
+  general_pair_kernel<<<Lb, kWarps * 32, smem, (cudaStream_t)stream>>>(
+      xT, lo, hi, w, bm, e_rows, gT, B, L, row0, Lb, noe, vdw, vdw_radius,
+      rswitch);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,4 @@
-"""Device resolution and the port's numeric settings.
+"""Device resolution, the shard devices, and the port's numeric settings.
 
 float32 matrix products run in full float32: the JAX reference runs them at
 full precision on the CPU, and mds_init's subspace iteration (`b @ v`,
@@ -9,7 +9,7 @@ by default, so both are stated here, once, when the package is imported.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import List, Optional, Union
 
 import torch
 
@@ -33,3 +33,12 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device type {dev.type!r} (cuda or cpu)")
     return dev
+
+
+def shard_devices() -> List[torch.device]:
+    """The devices a row-sharded solve spreads over: every visible CUDA
+    device (none without CUDA). The pipeline shards when this lists more
+    than one. A list may name one device several times, which runs the
+    sharded program's strips, offsets and collectives on one card; the
+    tests and chip_smoke.py replace this function to do so."""
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]

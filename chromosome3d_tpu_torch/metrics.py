@@ -1,0 +1,151 @@
+"""Model-quality metrics — the port's copy of chromosome3d_tpu/metrics.py's
+host functions: Spearman rank correlation of IF against model distances
+(spearman_IF_pdb.pl:15-76), Kabsch RMSD, and the clash count.
+
+All math here is host-side numpy/scipy: scoring is O(L^2 log L) scalar work
+on finished models. The strip helpers (ROW_CHUNK, d2_row_strip) are the
+at-scale building block shared with assess.py.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+# beyond this many qualifying ORDERED pairs the statistic is estimated on a
+# fixed-seed uniform pair subsample of this size (the reference's 663-bead
+# cap tops out ~440k ordered pairs, always exact; a 4M-pair estimate of a
+# rank correlation has standard error ~1/sqrt(4M) ~ 0.0005)
+SPEARMAN_MAX_PAIRS = 4_000_000
+
+
+def spearman_if_model(
+    if_matrix: np.ndarray, coords: np.ndarray, rng: int = 3
+) -> float:
+    """The spearman_IF_pdb.pl statistic: Spearman(IF_ij, d_ij) over all
+    ordered pairs with |i-j| >= rng (spearman_IF_pdb.pl:42-70).
+    Negative values are good (high IF <-> short distance).
+
+    Beyond SPEARMAN_MAX_PAIRS qualifying pairs (L ~ 2000+) the statistic is
+    computed on a deterministic uniform subsample of that many pairs."""
+    from scipy import stats as sps
+
+    coords = np.asarray(coords, dtype=np.float64)
+    L = coords.shape[0]
+    if rng >= L:
+        raise ValueError("range >= model length (ref prints '-' and exits)")
+    # ordered pairs with |i-j| >= rng
+    n_pairs = L * L - (L + sum(2 * (L - k) for k in range(1, rng)))
+    if n_pairs > SPEARMAN_MAX_PAIRS:
+        rs = np.random.RandomState(20260818)
+        m = SPEARMAN_MAX_PAIRS
+        i = rs.randint(0, L, size=2 * m)
+        j = rs.randint(0, L, size=2 * m)
+        keep = np.abs(i - j) >= rng
+        i, j = i[keep][:m], j[keep][:m]
+        dv = np.sqrt(((coords[i] - coords[j]) ** 2).sum(-1))
+        dv = np.round(dv, 3)
+        # index before converting: a whole-matrix float64 copy of an
+        # at-scale input (possibly a read-only f32 .npy memmap) is tens of
+        # GB on exactly the path this sampled branch exists for
+        iv = np.asarray(if_matrix[i, j], dtype=np.float64)
+        ra = sps.rankdata(iv)
+        rb = sps.rankdata(dv)
+    else:
+        ifm = np.asarray(if_matrix, dtype=np.float64)
+        idx = np.arange(L)
+        mask = np.abs(idx[:, None] - idx[None, :]) >= rng
+        d = np.linalg.norm(coords[:, None] - coords[None, :], axis=-1)
+        # the reference quantizes model distances to %.3f before ranking (:46)
+        d = np.round(d, 3)
+        ra = sps.rankdata(ifm[:L, :L][mask])
+        rb = sps.rankdata(d[mask])
+    ra -= ra.mean()
+    rb -= rb.mean()
+    denom = np.sqrt((ra * ra).sum() * (rb * rb).sum())
+    return float((ra * rb).sum() / denom) if denom > 0 else 0.0
+
+
+def spearman_if_inv_d(if_matrix: np.ndarray, coords: np.ndarray, rng: int = 3) -> float:
+    """The headline quality metric Spearman(IF, 1/d). Equals
+    -spearman_if_model because 1/d reverses the rank order of d."""
+    return -spearman_if_model(if_matrix, coords, rng)
+
+
+def kabsch_rmsd(
+    a: np.ndarray,
+    b: np.ndarray,
+    allow_mirror: bool = True,
+    allow_scale: bool = False,
+) -> float:
+    """RMSD of a onto b after optimal superposition.
+
+    allow_mirror: chromosome reconstructions have arbitrary chirality (the
+    distance-only energy is mirror-symmetric), so cross-model comparison
+    must try both hands.
+    allow_scale: optional uniform scaling (Procrustes).
+    """
+    a = np.asarray(a, dtype=np.float64)
+    b = np.asarray(b, dtype=np.float64)
+    n = min(len(a), len(b))
+    a, b = a[:n], b[:n]
+
+    def one(a):
+        ac = a - a.mean(0)
+        bc = b - b.mean(0)
+        h = ac.T @ bc
+        u, s, vt = np.linalg.svd(h)
+        d = np.sign(np.linalg.det(u @ vt))
+        corr = np.diag([1.0, 1.0, d])
+        r = u @ corr @ vt
+        if allow_scale:
+            num = (s * np.diag(corr)).sum()
+            den = (ac * ac).sum()
+            scale = num / den if den > 0 else 1.0
+        else:
+            scale = 1.0
+        diff = scale * (ac @ r) - bc
+        return float(np.sqrt((diff * diff).sum() / n))
+
+    r1 = one(a)
+    if not allow_mirror:
+        return r1
+    return min(r1, one(a * np.array([-1.0, 1.0, 1.0])))
+
+
+_CLASH_CHUNK_MIN_L = 4096
+ROW_CHUNK = 512
+
+
+def d2_row_strip(coords: np.ndarray, r0: int, r1: int) -> np.ndarray:
+    """Rows [r0, r1) of the squared pairwise-distance matrix as a float64
+    (r1-r0, L) strip, accumulated per axis: never materializes an (L, L, 3)
+    diff tensor. coords must already be float64 — callers cast once, not
+    per strip."""
+    a = coords[r0:r1]
+    d2 = np.zeros((r1 - r0, len(coords)))
+    for ax in range(3):
+        dc = a[:, ax][:, None] - coords[:, ax][None, :]
+        d2 += dc * dc
+    return d2
+
+
+def clash_count(coords: np.ndarray, threshold: float) -> int:
+    """Number of bead pairs closer than threshold (ref clash_count :693-714).
+    Row-chunked beyond L = 4096: the full (L, L, 3) diff tensor is multi-GB
+    on the at-scale path (exact count either way)."""
+    coords = np.asarray(coords)
+    L = len(coords)
+    if L <= _CLASH_CHUNK_MIN_L:
+        d = np.linalg.norm(coords[:, None] - coords[None, :], axis=-1)
+        iu = np.triu_indices(L, k=1)
+        return int((d[iu] <= threshold).sum())
+    coords = coords.astype(np.float64)
+    count = 0
+    cols = np.arange(L)
+    t2 = float(threshold) ** 2
+    for r0 in range(0, L, ROW_CHUNK):
+        r1 = min(r0 + ROW_CHUNK, L)
+        d2 = d2_row_strip(coords, r0, r1)
+        triu = cols[None, :] > np.arange(r0, r1)[:, None]
+        count += int(((d2 <= t2) & triu).sum())
+    return count

@@ -143,13 +143,23 @@ def should_stream_prep(L_pad: int, device) -> bool:
 
 def exact_tiles_from_if_device(if_matrix, L_pad: int, rc, weighting: str,
                                weight_exponent: float, n_true=None,
-                               device="cpu") -> ExactRestraints:
+                               device="cpu", group=None):
     """The whole restraint prep on `device`: an (L, L) IF matrix (or one
     already padded by pad_f32, with its true length n_true) -> the
     ExactRestraints form at (L_pad, L_pad), padding rows and columns zero.
     Mirrors if_to_dist + quantize_dist + dist_to_restraints + the relative
     or absolute weighting for the pipeline's own (always exact) restraints.
-    One host pass (the pad) and one upload."""
+    One host pass (the pad) and one upload.
+
+    group: a parallel.shards.ShardGroup; then each rank's (Lb, L_pad) row
+    strip is uploaded to and built on its own device, and a list of
+    ExactRestraints strips comes back, rank order (the JAX package's
+    row-sharded prep). The mean of IF^alpha and the mean-1 weight
+    normalisation stay global: each rank's partial sums are combined on the
+    lead in rank order."""
+    if group is not None:
+        return _strips_from_if(if_matrix, L_pad, rc, weighting, weight_exponent,
+                               n_true, group)
     device = torch.device(device)
     if should_stream_prep(L_pad, device):
         raise NotImplementedError(
@@ -164,3 +174,36 @@ def exact_tiles_from_if_device(if_matrix, L_pad: int, rc, weighting: str,
     return _tiles_from_if_body(torch.from_numpy(m).to(device), n, rc.alpha,
                                rc.kscaling, weight_exponent, int(rc.separation),
                                weighting)
+
+
+def _strips_from_if(if_matrix, L_pad: int, rc, weighting: str, p: float, n_true,
+                    group):
+    """exact_tiles_from_if_device's row-sharded form (see there)."""
+    if should_stream_prep(L_pad, group.lead):
+        raise NotImplementedError(
+            f"the restraint prep at L_pad={L_pad} would take more than a quarter "
+            "of device memory; the strip-streamed prep is not ported (ROADMAP A10)"
+        )
+    n = int(if_matrix.shape[0] if n_true is None else n_true)
+    m = pad_f32(if_matrix, L_pad)
+    Lb = group.rows(L_pad)
+    if_strips = [
+        torch.from_numpy(np.require(m[r * Lb:(r + 1) * Lb], requirements=["C", "W"]))
+        .to(d) for r, d in enumerate(group.devices)
+    ]
+    nf = torch.tensor(float(n), dtype=torch.float32, device=group.lead)
+    mean = group.psum([torch.sum(torch.pow(a, f32(rc.alpha)), dtype=torch.float32)
+                       for a in if_strips]) / (nf * nf)
+    targets = [
+        _strip_target(a, r * Lb, n, rc.alpha, rc.kscaling, mean_r, int(rc.separation))
+        for r, (a, mean_r) in enumerate(zip(if_strips, group.broadcast(mean)))
+    ]
+    del if_strips
+    unnorm = [_unnorm_weights(t, p, weighting) for t in targets]
+    ws = [w for w, _ in unnorm]
+    if weighting == "relative":
+        denom = group.psum([torch.sum(w, dtype=torch.float32) for w, _ in unnorm]) / (
+            torch.clamp_min(group.psum([torch.sum(mk, dtype=torch.float32)
+                                        for _, mk in unnorm]), 1.0))
+        ws = [w / torch.clamp_min(dr, 1e-30) for w, dr in zip(ws, group.broadcast(denom))]
+    return [ExactRestraints(target=t, w=w) for t, w in zip(targets, ws)]

@@ -9,9 +9,16 @@ vdw repel, the 1/2 ordered-pair energy convention. It reads and writes the
 transposes; the tiles (lo, hi, w = mask * weight) are folded once per solve
 (`general_pair_tiles`).
 
-`general_pair_energy_grad` runs the plain twin for CPU tensors and the CUDA
-kernel for CUDA tensors, counting each in a plain integer on the function
-(`general_pair_energy_grad.launches`, `general_pair_energy_grad_plain.calls`).
+Kernel B5' is the same body on one shard's rows of the row-sharded solve
+(`general_row_block_energy_grad`): it replaces `_kernel` reached through
+`pallas_row_block_energy_grad_batched(..., exact=False)`, reads (Lb, L)
+strips of the tiles and writes the strip's gradient rows.
+
+Each wrapper runs its plain twin for CPU tensors and the CUDA kernel for
+CUDA tensors, counting each in a plain integer on the function
+(`general_pair_energy_grad.launches`, `general_pair_energy_grad_plain.calls`,
+`general_row_block_energy_grad.launches`,
+`general_row_block_energy_grad_plain.calls`).
 """
 
 from __future__ import annotations
@@ -25,6 +32,18 @@ from chromosome3d_tpu_torch.ops.energy import _EPS, EnergyWeights
 from chromosome3d_tpu_torch.ops.pair_energy import check_inputs
 
 _PLAIN_CHUNK_ELEMS = 1 << 24    # the twin's (B, rows, L) temporaries per chunk
+_SMEM_MAX = 232_448             # bytes of shared memory a block can opt into
+_WARPS = 16                     # kWarps in general_pair.cu
+
+
+def _check_smem(B: int, L: int) -> None:
+    """The kernel stages four L-float rows and 5 x 16 partial sums per
+    structure in shared memory; refuse a shape past the card's limit."""
+    need = 4 * (4 * L + 5 * _WARPS * B)
+    if need > _SMEM_MAX:
+        raise ValueError(
+            f"general_pair.cu needs {need} bytes of shared memory at B={B}, "
+            f"L={L}; a block can have at most {_SMEM_MAX}")
 
 
 def general_pair_tiles(restraints):
@@ -37,13 +56,16 @@ def general_pair_tiles(restraints):
 def general_rows_plain(
     coords: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, w: torch.Tensor,
     weights: EnergyWeights, bead_mask: torch.Tensor, r0: int, r1: int,
+    row_start: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The `_kernel` math for rows [r0, r1) of the pair matrix of (B, L, 3)
     coords: returns (the rows' pair energies summed (B,), their gradients
-    (B, r1 - r0, 3)). The gradient is summed as sum_j c_ij (x_i - x_j), like
-    the kernel (see general_pair.cu)."""
+    (B, r1 - r0, 3)). lo, hi and w hold the matrix's rows from row_start on
+    (the whole matrix, or one shard's strip). The gradient is summed as
+    sum_j c_ij (x_i - x_j), like the kernel (see general_pair.cu)."""
     x = coords
     L = x.shape[1]
+    lo, hi, w = (a[r0 - row_start:r1 - row_start] for a in (lo, hi, w))
     diffs = [x[:, r0:r1, c, None] - x[:, None, :, c] for c in range(3)]
     d2 = torch.zeros(x.shape[0], r1 - r0, L, dtype=x.dtype, device=x.device)
     for diff in diffs:
@@ -51,9 +73,9 @@ def general_rows_plain(
     rinv = torch.rsqrt(d2 + _EPS)
     d = (d2 + _EPS) * rinv
     pair_valid = bead_mask[r0:r1, None] * bead_mask[None, :]
-    wv = w[r0:r1] * pair_valid
-    over = torch.clamp_min(d - hi[r0:r1], 0.0)
-    under = torch.clamp_min(lo[r0:r1] - d, 0.0)
+    wv = w * pair_valid
+    over = torch.clamp_min(d - hi, 0.0)
+    under = torch.clamp_min(lo - d, 0.0)
     viol = over + under
     rs = weights.noe_rswitch
     quad = viol <= rs
@@ -71,25 +93,33 @@ def general_rows_plain(
     return (e_noe + e_vdw).sum(-1), g
 
 
+def _rows_chunked(xT, lo, hi, w, weights, bead_mask, row_start):
+    """general_rows_plain over every row the (Lb, L) tiles hold, in chunks
+    so the temporaries stay near 64 MiB each at L = 5120. Returns (energies
+    (B,), gradient rows (B, 3, Lb))."""
+    B, _, L = xT.shape
+    Lb = lo.shape[0]
+    coords = xT.transpose(1, 2)
+    rows = max(1, _PLAIN_CHUNK_ELEMS // (B * L))
+    e = torch.zeros(B, dtype=xT.dtype, device=xT.device)
+    gT = torch.empty((B, 3, Lb), dtype=xT.dtype, device=xT.device)
+    for r0 in range(0, Lb, rows):
+        r1 = min(r0 + rows, Lb)
+        e_c, g_c = general_rows_plain(coords, lo, hi, w, weights, bead_mask,
+                                      row_start + r0, row_start + r1, row_start)
+        e = e + e_c
+        gT[:, :, r0:r1] = g_c.transpose(1, 2)
+    return e, gT
+
+
 def general_pair_energy_grad_plain(
     xT: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, w: torch.Tensor,
     weights: EnergyWeights, bead_mask: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain twin of B5: the `_kernel` math over the whole pair matrix, in
-    row chunks so the temporaries stay near 64 MiB each at L = 5120.
-    Returns (pair energies (B,), gradients (B, 3, L))."""
+    row chunks. Returns (pair energies (B,), gradients (B, 3, L))."""
     general_pair_energy_grad_plain.calls += 1
-    B, _, L = xT.shape
-    coords = xT.transpose(1, 2)
-    rows = max(1, _PLAIN_CHUNK_ELEMS // (B * L))
-    e = torch.zeros(B, dtype=xT.dtype, device=xT.device)
-    gT = torch.empty_like(xT)
-    for r0 in range(0, L, rows):
-        r1 = min(r0 + rows, L)
-        e_c, g_c = general_rows_plain(coords, lo, hi, w, weights, bead_mask, r0, r1)
-        e = e + e_c
-        gT[:, :, r0:r1] = g_c.transpose(1, 2)
-    return e, gT
+    return _rows_chunked(xT, lo, hi, w, weights, bead_mask, 0)
 
 
 general_pair_energy_grad_plain.calls = 0
@@ -116,13 +146,14 @@ def general_pair_energy_grad(
         raise ValueError(f"empty batch: B={B}, L={L}")
     if dev.type == "cpu":
         return general_pair_energy_grad_plain(xT, lo, hi, w, weights, bead_mask)
+    _check_smem(B, L)
     lib = _build.load_library()
     e_rows = torch.empty((B, L), dtype=torch.float32, device=dev)
     gT = torch.empty_like(xT)
     with torch.cuda.device(dev):
         err = lib.c3d_general_pair(
             xT.data_ptr(), lo.data_ptr(), hi.data_ptr(), w.data_ptr(),
-            bead_mask.data_ptr(), e_rows.data_ptr(), gT.data_ptr(), B, L,
+            bead_mask.data_ptr(), e_rows.data_ptr(), gT.data_ptr(), B, L, 0, L,
             weights.noe, weights.vdw, weights.vdw_radius, weights.noe_rswitch,
             torch.cuda.current_stream(dev).cuda_stream,
         )
@@ -132,3 +163,60 @@ def general_pair_energy_grad(
 
 
 general_pair_energy_grad.launches = 0
+
+
+def general_row_block_energy_grad_plain(
+    xT: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, w: torch.Tensor,
+    weights: EnergyWeights, bead_mask: torch.Tensor, row_start: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of B5': the `_kernel` math for the rows [row_start,
+    row_start + Lb) that the (Lb, L) strips lo, hi and w hold, in row chunks.
+    Returns (the strip's pair energies (B,), its gradient rows (B, 3, Lb))."""
+    general_row_block_energy_grad_plain.calls += 1
+    return _rows_chunked(xT, lo, hi, w, weights, bead_mask, row_start)
+
+
+general_row_block_energy_grad_plain.calls = 0
+
+
+def general_row_block_energy_grad(
+    xT: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, w: torch.Tensor,
+    weights: EnergyWeights, bead_mask: torch.Tensor, row_start: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B5' for one shard: xT (B, 3, L) the whole ensemble, lo, hi and the
+    folded weight w the (Lb, L) strips of rows [row_start, row_start + Lb),
+    bead_mask (L,), all float32 and contiguous on the shard's device.
+    Returns (the strip's pair energies (B,), its gradient rows (B, 3, Lb)).
+    CPU tensors run the plain twin; CUDA tensors launch
+    csrc/general_pair.cu with the row offset."""
+    if xT.dim() != 3 or lo.dim() != 2:
+        raise ValueError(f"xT (B, 3, L) and (Lb, L) strips required, got "
+                         f"{tuple(xT.shape)} and {tuple(lo.shape)}")
+    B, L = xT.shape[0], xT.shape[2]
+    Lb = lo.shape[0]
+    dev = check_inputs({
+        "xT": (xT, (B, 3, L)), "lo": (lo, (Lb, L)), "hi": (hi, (Lb, L)),
+        "w": (w, (Lb, L)), "bead_mask": (bead_mask, (L,)),
+    })
+    if B == 0 or Lb == 0 or not 0 <= row_start <= L - Lb:
+        raise ValueError(f"bad strip: B={B}, rows [{row_start}, {row_start + Lb}) of {L}")
+    if dev.type == "cpu":
+        return general_row_block_energy_grad_plain(xT, lo, hi, w, weights, bead_mask,
+                                                   row_start)
+    _check_smem(B, L)
+    lib = _build.load_library()
+    e_rows = torch.empty((B, Lb), dtype=torch.float32, device=dev)
+    gT = torch.empty((B, 3, Lb), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.c3d_general_pair(
+            xT.data_ptr(), lo.data_ptr(), hi.data_ptr(), w.data_ptr(),
+            bead_mask.data_ptr(), e_rows.data_ptr(), gT.data_ptr(), B, L,
+            row_start, Lb, weights.noe, weights.vdw, weights.vdw_radius,
+            weights.noe_rswitch, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(err, "c3d_general_pair")
+    general_row_block_energy_grad.launches += 1
+    return e_rows.sum(1), gT
+
+
+general_row_block_energy_grad.launches = 0

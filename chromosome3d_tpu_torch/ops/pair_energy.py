@@ -9,10 +9,16 @@ the JAX package does. The solver calls it once per solve, for the
 enantiomer pick. No autograd is involved: the kernel returns the exact
 gradient and the solver consumes it directly.
 
-`exact_pair_energy_grad` runs the plain twin for CPU tensors and the CUDA
-kernel for CUDA tensors; each path counts its calls in a plain integer on
-the function (`exact_pair_energy_grad.launches`,
-`exact_pair_energy_grad_plain.calls`), so a run can show which one it took.
+Kernel B2' is the same body on one shard's rows of the row-sharded solve
+(`exact_row_block_energy_grad`): it replaces `_kernel_exact` reached through
+`pallas_row_block_energy_grad_batched(..., exact=True)`.
+
+Each wrapper runs its plain twin for CPU tensors and the CUDA kernel for
+CUDA tensors; each path counts its calls in a plain integer on the function
+(`exact_pair_energy_grad.launches`, `exact_pair_energy_grad_plain.calls`,
+`exact_row_block_energy_grad.launches`,
+`exact_row_block_energy_grad_plain.calls`), so a run can show which one it
+took.
 """
 
 from __future__ import annotations
@@ -55,13 +61,16 @@ def check_inputs(specs) -> torch.device:
 def exact_rows_plain(
     coords: torch.Tensor, target: torch.Tensor, w: torch.Tensor,
     weights: EnergyWeights, bead_mask: torch.Tensor, r0: int, r1: int,
+    row_start: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The `_kernel_exact` math for rows [r0, r1) of the pair matrix of
     (B, L, 3) coords: returns (the rows' pair energies summed (B,), their
-    gradients (B, r1 - r0, 3)). The gradient is summed as
-    sum_j c_ij (x_i - x_j), like the kernels (see exact_pair.cu)."""
+    gradients (B, r1 - r0, 3)). target and w hold the matrix's rows from
+    row_start on (the whole matrix, or one shard's strip). The gradient is
+    summed as sum_j c_ij (x_i - x_j), like the kernels (see exact_pair.cu)."""
     x = coords
     L = x.shape[1]
+    target, w = target[r0 - row_start:r1 - row_start], w[r0 - row_start:r1 - row_start]
     diffs = [x[:, r0:r1, c, None] - x[:, None, :, c] for c in range(3)]
     d2 = torch.zeros(x.shape[0], r1 - r0, L, dtype=x.dtype, device=x.device)
     for diff in diffs:
@@ -69,8 +78,8 @@ def exact_rows_plain(
     rinv = torch.rsqrt(d2 + _EPS)
     d = (d2 + _EPS) * rinv
     pair_valid = bead_mask[r0:r1, None] * bead_mask[None, :]
-    wv = w[r0:r1] * pair_valid
-    dev = d - target[r0:r1]
+    wv = w * pair_valid
+    dev = d - target
     e_noe = 0.5 * weights.noe * (wv * dev * dev).sum(-1)
     c_noe = weights.noe * wv * (2.0 * dev)
     idx = torch.arange(L, device=x.device)
@@ -121,7 +130,7 @@ def exact_pair_energy_grad(
     with torch.cuda.device(dev):
         err = lib.c3d_exact_pair(
             coords.data_ptr(), target.data_ptr(), w.data_ptr(),
-            bead_mask.data_ptr(), e_rows.data_ptr(), g.data_ptr(), B, L,
+            bead_mask.data_ptr(), e_rows.data_ptr(), g.data_ptr(), B, L, 0, L,
             weights.noe, weights.vdw, weights.vdw_radius,
             torch.cuda.current_stream(dev).cuda_stream,
         )
@@ -131,6 +140,68 @@ def exact_pair_energy_grad(
 
 
 exact_pair_energy_grad.launches = 0
+
+
+def exact_row_block_energy_grad_plain(
+    xT: torch.Tensor, target: torch.Tensor, w: torch.Tensor,
+    weights: EnergyWeights, bead_mask: torch.Tensor, row_start: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of B2': the `_kernel_exact` math for the rows
+    [row_start, row_start + Lb) that the (Lb, L) strips hold. Returns (the
+    strip's pair energies (B,), its gradient rows (B, 3, Lb))."""
+    exact_row_block_energy_grad_plain.calls += 1
+    Lb = target.shape[0]
+    e, g = exact_rows_plain(xT.transpose(1, 2), target, w, weights, bead_mask,
+                            row_start, row_start + Lb, row_start)
+    return e, g.transpose(1, 2).contiguous()
+
+
+exact_row_block_energy_grad_plain.calls = 0
+
+
+def exact_row_block_energy_grad(
+    xT: torch.Tensor, target: torch.Tensor, w: torch.Tensor,
+    weights: EnergyWeights, bead_mask: torch.Tensor, row_start: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B2' for one shard: xT (B, 3, L) the whole ensemble, target and folded
+    weight w the (Lb, L) strips of rows [row_start, row_start + Lb),
+    bead_mask (L,), all float32 and contiguous on the shard's device.
+    Returns (the strip's pair energies (B,), its gradient rows (B, 3, Lb)),
+    the layout kernel B4 reads. CUDA tensors launch csrc/exact_pair.cu with
+    the row offset on the (B, L, 3) coordinates and transpose the (B, Lb, 3)
+    rows it writes (both small next to the strips); CPU tensors run the
+    plain twin."""
+    if xT.dim() != 3 or target.dim() != 2:
+        raise ValueError(f"xT (B, 3, L) and (Lb, L) strips required, got "
+                         f"{tuple(xT.shape)} and {tuple(target.shape)}")
+    B, L = xT.shape[0], xT.shape[2]
+    Lb = target.shape[0]
+    dev = check_inputs({
+        "xT": (xT, (B, 3, L)), "target": (target, (Lb, L)), "w": (w, (Lb, L)),
+        "bead_mask": (bead_mask, (L,)),
+    })
+    if B == 0 or Lb == 0 or not 0 <= row_start <= L - Lb:
+        raise ValueError(f"bad strip: B={B}, rows [{row_start}, {row_start + Lb}) of {L}")
+    if dev.type == "cpu":
+        return exact_row_block_energy_grad_plain(xT, target, w, weights, bead_mask,
+                                                 row_start)
+    lib = _build.load_library()
+    coords = xT.transpose(1, 2).contiguous()
+    e_rows = torch.empty((B, Lb), dtype=torch.float32, device=dev)
+    g = torch.empty((B, Lb, 3), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.c3d_exact_pair(
+            coords.data_ptr(), target.data_ptr(), w.data_ptr(),
+            bead_mask.data_ptr(), e_rows.data_ptr(), g.data_ptr(), B, L,
+            row_start, Lb, weights.noe, weights.vdw, weights.vdw_radius,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(err, "c3d_exact_pair")
+    exact_row_block_energy_grad.launches += 1
+    return e_rows.sum(1), g.transpose(1, 2).contiguous()
+
+
+exact_row_block_energy_grad.launches = 0
 
 
 def bond_energy_grad(coords: torch.Tensor, weights: EnergyWeights,

@@ -1,5 +1,5 @@
 """End-to-end pipelines — the port of chromosome3d_tpu.pipeline's
-run_pipeline and run_restraints_pipeline on one device.
+run_pipeline and run_restraints_pipeline.
 
 Reference scale (L within a length bucket):
   IF matrix -> IF2dist -> dist2rr -> carr2tbl   (host, text artifacts)
@@ -16,6 +16,13 @@ From a restraint file (`solve`: a CONFOLD-style `.rr` or a CNS `.tbl` with
   uploaded, `.rr` confidences folded into the weights -> solve_ensemble_impl (windowed
   restraints: two-sided init, semi route with kernels B5 + B4; exact ones:
   the exact routes) -> NOE-energy ranking, PDBs, the violation report.
+Past the largest bucket with more than one shard device
+(device.shard_devices), both pipelines row-shard the solve, as the JAX
+package does over more than one device: the length pads to a multiple of
+lcm(shard_quantum, shards), the restraints are cut into row strips (the
+at-scale `run` builds them on each shard's device) and
+solver.sharded.solve_ensemble_sharded runs them (kernels B6, B5' or B2',
+and B4).
 
 Artifacts match the JAX package byte for byte given the same coordinates
 and energies: `$ID.fasta`, `$ID.dist`, `$ID.rr`, `contact.tbl` (reference
@@ -25,14 +32,14 @@ scale), `${ID}_model1..k.pdb`, `${ID}_rankNN_aXX.pdb`, `spearman.txt`,
 reference's failure protocol (chromosome3D.pl:261-284).
 
 Not ported yet, and refused with NotImplementedError: padded lengths of
-8192 and more and the streamed prep (ROADMAP A10), the row-sharded solve
-over several cards (A12), .cool/.mcool/.hic/.matrix inputs and --ice and
-the alpha ensemble (A11), and profiling.
+8192 and more and the streamed prep (ROADMAP A10), .cool/.mcool/.hic/.matrix
+inputs and --ice and the alpha ensemble (A11), and profiling.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import time
@@ -42,8 +49,6 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from chromosome3d_tpu.metrics import clash_count
-from chromosome3d_tpu.utils.logging import banner, get_logger
 from chromosome3d_tpu_torch.assess import (
     FULL_REPORT_MAX,
     append_model_info,
@@ -57,8 +62,10 @@ from chromosome3d_tpu_torch.assess import (
     write_violation_report,
 )
 from chromosome3d_tpu_torch.config import PipelineConfig
+from chromosome3d_tpu_torch import device as device_mod
 from chromosome3d_tpu_torch.device import resolve_device
 from chromosome3d_tpu_torch.io import load_if_matrix, write_ca_pdb, write_dist_matrix
+from chromosome3d_tpu_torch.metrics import clash_count
 from chromosome3d_tpu_torch.ops import device_prep
 from chromosome3d_tpu_torch.ops.energy import (
     ExactRestraints,
@@ -76,7 +83,10 @@ from chromosome3d_tpu_torch.restraints import (
     write_contact_tbl,
     write_rr,
 )
+from chromosome3d_tpu_torch.parallel.shards import ShardGroup
 from chromosome3d_tpu_torch.solver.anneal import CHUNKED_TERMS_MIN_L, solve_ensemble_impl
+from chromosome3d_tpu_torch.solver.sharded import restraint_strips, solve_ensemble_sharded
+from chromosome3d_tpu_torch.utils.logging import banner, get_logger
 
 log = get_logger(__name__)
 
@@ -113,11 +123,13 @@ def _exact_provable(cfg: PipelineConfig) -> bool:
     return cfg.anneal.exact_restraints and cfg.anneal.noe_rswitch >= 1e8
 
 
-def quantum_bucket(L: int, quantum: int) -> int:
-    """Round L up to a multiple of quantum: the at-scale bucket rule
-    (chromosome3d_tpu.pipeline.quantum_bucket on one device)."""
+def quantum_bucket(L: int, quantum: int, multiple: int = 1) -> int:
+    """Round L up to a multiple of lcm(quantum, multiple): the at-scale
+    bucket rule (chromosome3d_tpu.pipeline.quantum_bucket); multiple is the
+    shard count of a row-sharded solve and 1 otherwise."""
     q = max(quantum, 1)
-    return -(-L // q) * q
+    unit = q * multiple // math.gcd(q, multiple)
+    return -(-L // unit) * unit
 
 
 def _bucket_pad(L: int, cfg: PipelineConfig):
@@ -164,21 +176,58 @@ def _fold_conf(dense, conf):
     return dataclasses_replace(dense, **{attr: wt})
 
 
-def _use_sharded(L: int, cfg: PipelineConfig, dev: torch.device) -> bool:
-    """The JAX package row-shards a beyond-bucket solve over every device
-    when there is more than one (chromosome3d_tpu.pipeline._use_sharded)."""
+def _use_sharded(L: int, cfg: PipelineConfig) -> bool:
+    """Row-shard the solve when L exceeds every length bucket and there is
+    more than one shard device (chromosome3d_tpu.pipeline._use_sharded)."""
     return (cfg.shard_large and L > max(cfg.length_buckets)
-            and dev.type == "cuda" and torch.cuda.device_count() > 1)
+            and len(device_mod.shard_devices()) > 1)
 
 
-def _refuse_sharded(L: int, cfg: PipelineConfig, dev: torch.device) -> None:
-    """Raise where the JAX package would row-shard the solve (not ported)."""
-    if _use_sharded(L, cfg, dev):
-        raise NotImplementedError(
-            f"{torch.cuda.device_count()} GPUs: the beyond-bucket solve is "
-            "row-sharded over every device, not ported (ROADMAP A12); "
-            "expose one GPU (CUDA_VISIBLE_DEVICES)"
-        )
+def _shard_pad(L: int, cfg: PipelineConfig, group: ShardGroup):
+    """The row-sharded solve's padded length and (L_pad,) bead mask: a
+    multiple of lcm(shard_quantum, shards), as the JAX _sharded_solve pads."""
+    L_pad = quantum_bucket(L, cfg.shard_quantum, multiple=group.n)
+    bead_mask = np.zeros(L_pad, dtype=np.float32)
+    bead_mask[:L] = 1.0
+    return L_pad, bead_mask
+
+
+def _solve_layout(L: int, cfg: PipelineConfig, dev: torch.device):
+    """(shard group or None, the solve's lead device, L_pad, bead mask or
+    None): the row-sharded layout over device.shard_devices() where
+    _use_sharded holds (its lead device replaces `dev`), else the bucket
+    padding on `dev`."""
+    if _use_sharded(L, cfg):
+        group = ShardGroup(device_mod.shard_devices())
+        return (group, group.lead, *_shard_pad(L, cfg, group))
+    return (None, dev, *_bucket_pad(L, cfg))
+
+
+def _solve_banner(cfg: PipelineConfig, L: int, L_pad: int, dev, group) -> None:
+    banner(log, f"(B) Build {cfg.model_count} models on {dev}..")
+    if group is not None:
+        banner(log, f"Scale      : L={L} beyond the largest bucket; row-sharded "
+                    f"solve over {group.n} devices, padded to L={L_pad}")
+    elif L_pad != L:
+        banner(log, f"Bucket     : solving padded to L={L_pad}")
+
+
+def _synchronize(devices) -> None:
+    for d in set(devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def _solve(group, restraints, cfg: PipelineConfig, bead_mask, dev, og=None):
+    """The ensemble solve: solve_ensemble_sharded over the group's strips,
+    or solve_ensemble_impl on `dev`; draws from a generator seeded cfg.seed."""
+    bm = None if bead_mask is None else torch.from_numpy(bead_mask).to(dev)
+    gen = torch.Generator().manual_seed(cfg.seed)
+    if group is not None:
+        return solve_ensemble_sharded(group, restraints, cfg.anneal, cfg.model_count,
+                                      bm, or_groups=og, generator=gen)
+    return solve_ensemble_impl(restraints, cfg.anneal, cfg.model_count, bm,
+                               or_groups=og, generator=gen)
 
 
 def _assessment_view_from_if(if_padded, rc, L_pad: int, n_true: int, device):
@@ -255,7 +304,7 @@ def run_pipeline(
     _mark("load_s")
     L = if_matrix.shape[0]
     banner(log, f"L          : {L}")
-    L_pad, bead_mask = _bucket_pad(L, cfg)
+    group, dev, L_pad, bead_mask = _solve_layout(L, cfg, dev)
     if L_pad >= CHUNKED_TERMS_MIN_L:
         raise NotImplementedError(
             f"L={L} pads to {L_pad} >= {CHUNKED_TERMS_MIN_L}: the row-chunked "
@@ -271,7 +320,6 @@ def run_pipeline(
         f.write(f">{ident}\n{'M' * L}\n")
     restraints = dense = n_tbl = if_dev = None
     if device_route:
-        _refuse_sharded(L, cfg, dev)
         cfg = auto_exact_matrix(cfg)
         banner(log, "Artifacts  : beyond-bucket L — restraint prep on device, "
                     "O(L^2) text artifacts suppressed")
@@ -311,26 +359,21 @@ def run_pipeline(
     with open(running, "w") as f:
         f.write("solving\n")
     try:
-        banner(log, f"(B) Build {cfg.model_count} models on {dev}..")
-        if L_pad != L:
-            banner(log, f"Bucket     : solving padded to L={L_pad}")
+        _solve_banner(cfg, L, L_pad, dev, group)
         if device_route:
             solve_r = device_prep.exact_tiles_from_if_device(
                 if_dev, L_pad, rc, rc.weighting, _weight_exponent(rc, L),
-                n_true=L, device=dev,
+                n_true=L, device=dev, group=group,
             )
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+            _synchronize(group.devices if group else [dev])
             _mark("device_prep_s")
         else:
             solve_r = _padded_dense(
                 restraints, rc, L_pad, _exact_provable(cfg), dev
             )
-        bm = None if bead_mask is None else torch.from_numpy(bead_mask).to(dev)
-        result = solve_ensemble_impl(
-            solve_r, cfg.anneal, cfg.model_count, bm,
-            generator=torch.Generator().manual_seed(cfg.seed),
-        )
+            if group is not None:
+                solve_r = restraint_strips(group, solve_r)
+        result = _solve(group, solve_r, cfg, bead_mask, dev)
         coords = result.coords.cpu().numpy()[:, :L, :]   # synchronises
         energies = {k: v.cpu().numpy() for k, v in result.energies.items()}
         _mark("solve_s")
@@ -525,8 +568,7 @@ def run_restraints_pipeline(
         cfg = cfg.replace(
             anneal=dataclasses_replace(cfg.anneal, embed_two_sided=True))
     Lr = restraints.length
-    _refuse_sharded(Lr, cfg, dev)
-    L_pad, bead_mask = _bucket_pad(Lr, cfg)
+    group, dev, L_pad, bead_mask = _solve_layout(Lr, cfg, dev)
     if L_pad >= CHUNKED_TERMS_MIN_L:
         raise NotImplementedError(
             f"L={Lr} pads to {L_pad} >= {CHUNKED_TERMS_MIN_L}: the row-chunked "
@@ -534,18 +576,15 @@ def run_restraints_pipeline(
         )
     _mark("host_prep_s")
 
-    banner(log, f"(B) Build {cfg.model_count} models on {dev}..")
+    _solve_banner(cfg, Lr, L_pad, dev, group)
     dense = _fold_conf(_padded_dense(restraints, rc, L_pad, _exact_provable(cfg), dev),
                        conf)
-    bm = None if bead_mask is None else torch.from_numpy(bead_mask).to(dev)
+    if group is not None:
+        dense = restraint_strips(group, dense)
     og = None if or_groups_np is None else dense_or_groups_from_numpy(or_groups_np, dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    _synchronize(group.devices if group else [dev])
     _mark("tensor_prep_s")
-    result = solve_ensemble_impl(
-        dense, cfg.anneal, cfg.model_count, bm, or_groups=og,
-        generator=torch.Generator().manual_seed(cfg.seed),
-    )
+    result = _solve(group, dense, cfg, bead_mask, dev, og)
     coords = result.coords.cpu().numpy()[:, :Lr, :]   # synchronises
     energies = {k: v.cpu().numpy() for k, v in result.energies.items()}
     _mark("solve_s")

@@ -1,0 +1,306 @@
+"""The row-sharded (sequence-parallel) ensemble solve — the port of
+chromosome3d_tpu/solver/sharded.py `solve_ensemble_sharded` (its 1-D
+`_ensemble_shard_fn` body on the fused-update route).
+
+The (L, L) restraint tensors are cut into row strips, one per rank of a
+parallel.shards.ShardGroup; coordinates, Adam moments and the noise seed
+are replicated. Per annealing step every rank runs its pair kernel on its
+strip: B6 (ops.strip_tri) for exact restraints where the strip-triangular
+pairing pays, else B2' (exact) or B5' (windowed) on its row block
+(ops.pair_energy / ops.general_pair). The energy partials are summed on the
+lead device in rank order, the gradient is summed (B6) or its row blocks
+gathered (B5', B2'), the or-group term is added on the lead, and kernel B4
+runs once, on the lead, before the new coordinates are copied to the other
+ranks. The JAX package runs the update on every device instead; the
+replicas are bitwise identical there, so one update is the same result.
+
+Around the steps, as in the JAX package: the landmark init from the sharded
+rows (always landmark, whatever cfg.init; edges from the folded weight
+w > 0), the mirror pairs and jitter, the hot phase, the enantiomer pick
+(pair energy + bond + or-group term), cool and final on the winners, the
+final canonical-weight terms through the plain row-block energy
+(parallel.sharded_energy) and the centroid to the origin.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from chromosome3d_tpu_torch.config import AnnealConfig
+from chromosome3d_tpu_torch.ops import strip_tri
+from chromosome3d_tpu_torch.ops.energy import (
+    DenseRestraints,
+    ExactRestraints,
+    f32,
+    or_group_energy,
+    or_group_energy_grad,
+)
+from chromosome3d_tpu_torch.ops.fused_update import fused_update_batched
+from chromosome3d_tpu_torch.ops.general_pair import general_row_block_energy_grad
+from chromosome3d_tpu_torch.ops.pair_energy import (
+    bond_energy_grad,
+    exact_pair_tiles,
+    exact_row_block_energy_grad,
+)
+from chromosome3d_tpu_torch.parallel.sharded_energy import row_block_energy_grad
+from chromosome3d_tpu_torch.parallel.shards import ShardGroup
+from chromosome3d_tpu_torch.solver.anneal import (
+    AnnealResult,
+    _bias_corrections,
+    _final_weights,
+    _refuse_unported,
+    build_schedule,
+)
+from chromosome3d_tpu_torch.solver.init import (
+    chain_metric_rows,
+    clip_landmark_targets,
+    landmark_indices,
+    landmark_triangulate,
+    relax_landmarks_block,
+    relax_landmarks_lower_block,
+)
+
+_BIG = 1e6
+
+
+def restraint_strips(group: ShardGroup, restraints) -> List:
+    """Cut whole (L, L) restraints (ExactRestraints or DenseRestraints) into
+    the group's row strips, each on its rank's device, same container type."""
+    if isinstance(restraints, ExactRestraints):
+        return [ExactRestraints(target=t, w=w) for t, w in
+                zip(group.strips(restraints.target), group.strips(restraints.w))]
+    parts = [group.strips(getattr(restraints, k)) for k in ("lo", "hi", "mask", "weight")]
+    return [DenseRestraints(*p) for p in zip(*parts)]
+
+
+@dataclasses.dataclass(frozen=True)
+class _Tiles:
+    """One rank's strip tiles: lo (the target for exact restraints), hi and
+    the folded weight w, each (Lb, L) on the rank's device."""
+
+    lo: torch.Tensor
+    hi: torch.Tensor
+    w: torch.Tensor
+    row_start: int
+
+
+def _tiles(group: ShardGroup, strips: Sequence, L: int) -> List[_Tiles]:
+    out = []
+    for r, s in enumerate(strips):
+        lo, w = exact_pair_tiles(s)
+        out.append(_Tiles(lo.float().contiguous(), s.hi.float().contiguous(),
+                          w.float().contiguous(), group.row_start(r, L)))
+    return out
+
+
+def sharded_landmark_init(group: ShardGroup, strips: Sequence, bead_mask: torch.Tensor,
+                          cfg: AnnealConfig) -> torch.Tensor:
+    """The landmark-MDS start from the row strips (JAX sharded.py:306-361):
+    Bellman-Ford sweeps over each rank's edge rows, min-reduced over the
+    ranks; two-sided (cfg.embed_two_sided), the upper sweeps run through hi
+    and the landmark rows' lower bounds rise by one inverse-triangle sweep,
+    max-reduced, before the restrained targets are clipped into their
+    windows. Edges come from the folded weight (w > 0). Returns (L, 3) on
+    the lead device, padding rows zero."""
+    lead = group.lead
+    L = strips[0].lo.shape[1]
+    tiles = _tiles(group, strips, L)
+    Lb = tiles[0].lo.shape[0]
+    beads = group.broadcast(bead_mask)
+    k = min(cfg.landmark_count, L)
+    lidx = landmark_indices(L, k, bead_mask.sum(), device=lead)
+    delta = chain_metric_rows(lidx, L, cfg.bond_length)
+
+    pair_real, edges = [], []
+    for t, bead in zip(tiles, beads):
+        dev = t.lo.device
+        rows = t.row_start + torch.arange(Lb, device=dev)[:, None]
+        cols = torch.arange(L, device=dev)[None, :]
+        real = (bead[t.row_start:t.row_start + Lb, None] * bead[None, :]) > 0
+        target = t.hi if cfg.embed_two_sided else 0.5 * (t.lo + t.hi)
+        e = torch.where(t.w > 0, target, torch.full_like(target, _BIG))
+        e = torch.where(((rows - cols).abs() == 1) & real,
+                        torch.clamp_max(e, cfg.bond_length), e)
+        edges.append(torch.where(rows == cols, torch.zeros_like(e), e))
+        pair_real.append(real)
+    for _ in range(cfg.landmark_iters):
+        cand = group.pmin([relax_landmarks_block(d, e, t.row_start)
+                           for d, e, t in zip(group.broadcast(delta), edges, tiles)])
+        delta = torch.minimum(delta, cand)
+    del edges
+    if cfg.embed_two_sided:
+        lo_land, mask_land, cand = [], [], []
+        for d, li, t, real in zip(group.broadcast(delta), group.broadcast(lidx), tiles,
+                                  pair_real):
+            mask_rows = (t.w > 0).to(d.dtype) * real.to(d.dtype)
+            lo_rows = torch.where(mask_rows > 0, t.lo.to(d.dtype), torch.zeros_like(t.lo))
+            lrel = li - t.row_start
+            own = ((lrel >= 0) & (lrel < Lb))[:, None]
+            lsafe = torch.clamp(lrel, 0, Lb - 1)
+            lo_land.append(torch.where(own, lo_rows[lsafe], torch.full_like(d, -_BIG)))
+            mask_land.append(torch.where(own, mask_rows[lsafe], torch.full_like(d, -_BIG)))
+            cand.append(relax_landmarks_lower_block(d, lo_rows, t.row_start))
+        delta = clip_landmark_targets(
+            delta, torch.maximum(group.pmax(lo_land), group.pmax(cand)),
+            group.pmax(mask_land))
+    return landmark_triangulate(delta, lidx).to(torch.float32) * bead_mask[:, None]
+
+
+def _route(cfg: AnnealConfig, L: int, n: int) -> str:
+    """The JAX package's fused sharded route (sharded.py:266-296): "strip"
+    (B6) for exact restraints where strip_tri_feasible holds, else "rows"
+    (B2' or B5') where row_block_feasible holds. The unfused sharded route
+    those gates fall back to is refused."""
+    Lb = L // n
+    exact = cfg.exact_restraints and cfg.noe_rswitch >= 1e8
+    if Lb % 8 == 0:
+        if exact and strip_tri.strip_tri_feasible(L, n):
+            return "strip"
+        if strip_tri.row_block_feasible(L, n, exact):
+            return "rows"
+    raise NotImplementedError(
+        f"L={L} over {n} shards (Lb={Lb}) takes the unfused sharded route, "
+        "not ported (ROADMAP A11)"
+    )
+
+
+def solve_ensemble_sharded(
+    group: ShardGroup,
+    strips: Sequence,
+    cfg: AnnealConfig,
+    n_models: int,
+    bead_mask: Optional[torch.Tensor] = None,
+    or_groups=None,
+    xs: Optional[torch.Tensor] = None,
+    noise_seed: Optional[int] = None,
+    generator: Optional[torch.Generator] = None,
+) -> AnnealResult:
+    """Build n_models structures with the (L, L) work row-sharded over the
+    group: strips[r] is rank r's (Lb, L) ExactRestraints or DenseRestraints
+    strip on its device (restraint_strips cuts whole tensors), L = n Lb.
+    bead_mask (L,), or_groups (ops.energy.OrGroupRestraints) and the result
+    live on the lead device.
+
+    generator: the CPU torch.Generator for the jitter and the noise seed (a
+    fresh one seeded 0 when None). xs: an explicit (n_eff, L, 3) start
+    ensemble, used as given (no init, no mirror signs, no jitter);
+    noise_seed: an explicit int32 noise-stream seed. Together they replay
+    the values another implementation drew."""
+    if len(strips) != group.n:
+        raise ValueError(f"{len(strips)} strips for {group.n} shards")
+    lead = group.lead
+    L = strips[0].lo.shape[1]
+    group.rows(L)
+    _refuse_unported(cfg, L)
+    route = _route(cfg, L, group.n)
+    exact = cfg.exact_restraints and cfg.noe_rswitch >= 1e8
+    tiles = _tiles(group, strips, L)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    if bead_mask is None:
+        bead_mask = torch.ones(L, dtype=torch.float32, device=lead)
+    bead_mask = bead_mask.to(device=lead, dtype=torch.float32).contiguous()
+    beads = group.broadcast(bead_mask)
+    n_eff = n_models * 2 if cfg.enantiomer else n_models
+
+    if xs is None:
+        x0 = sharded_landmark_init(group, strips, bead_mask, cfg)
+        if cfg.enantiomer:
+            signs = torch.tensor([1.0, -1.0], device=lead).repeat(n_models)
+        else:
+            signs = torch.ones(n_eff, device=lead)
+        flip = torch.stack([signs, torch.ones_like(signs), torch.ones_like(signs)], -1)
+        jitter = torch.randn((n_eff, L, 3), generator=generator).to(lead)
+        xs = x0[None] * flip[:, None, :] + cfg.init_noise * jitter * bead_mask[None, :, None]
+    xs = xs.to(device=lead, dtype=torch.float32)
+    if xs.shape != (n_eff, L, 3):
+        raise ValueError(f"xs: shape {tuple(xs.shape)}, expected {(n_eff, L, 3)}")
+    if noise_seed is None:
+        noise_seed = int(torch.randint(0, 2**31 - 1, (), generator=generator))
+
+    sched = build_schedule(cfg)
+    base = _final_weights(cfg)
+    T = len(sched.lr)
+    bc1s, bc2s = _bias_corrections(T)
+    lrs, sigmas = sched.lr.tolist(), sched.sigma.tolist()
+    step_weights = [
+        dataclasses.replace(base, vdw=float(vdw),
+                            vdw_radius=f32(repel * np.float32(cfg.vdw_radius)))
+        for vdw, repel in zip(sched.vdw_weight, sched.repel_scale)
+    ]
+
+    def pair_T(xT, weights):
+        """(pair energies (B,), pair gradient (B, 3, L)) on the lead."""
+        xTs = group.broadcast(xT)
+        if route == "strip":
+            parts = [strip_tri.strip_tri_energy_grad(x, t.lo, t.w, weights, b, t.row_start)
+                     for x, t, b in zip(xTs, tiles, beads)]
+            return group.psum([e for e, _ in parts]), group.psum([g for _, g in parts])
+        if exact:
+            parts = [exact_row_block_energy_grad(x, t.lo, t.w, weights, b, t.row_start)
+                     for x, t, b in zip(xTs, tiles, beads)]
+        else:
+            parts = [general_row_block_energy_grad(x, t.lo, t.hi, t.w, weights, b,
+                                                   t.row_start)
+                     for x, t, b in zip(xTs, tiles, beads)]
+        return group.psum([e for e, _ in parts]), group.all_gather([g for _, g in parts], 2)
+
+    clip = cfg.gradient_clip
+
+    def step(k, xT, muT, nuT):
+        e_pair, gT = pair_T(xT, step_weights[k])
+        if or_groups is not None:
+            e_og, g_og = or_group_energy_grad(xT.transpose(1, 2), or_groups,
+                                              step_weights[k], bead_mask)
+            e_pair = e_pair + e_og
+            gT = gT + g_og.transpose(1, 2)
+        e_bond, xT, muT, nuT = fused_update_batched(
+            xT, gT.contiguous(), muT, nuT, step_weights[k], bead_mask, lrs[k],
+            sigmas[k], bc1s[k], bc2s[k], noise_seed, k, clip,
+        )
+        return e_pair + e_bond, xT, muT, nuT
+
+    def run(k0, k1, xT, muT, nuT, hist):
+        for k in range(k0, k1):
+            hist[k], xT, muT, nuT = step(k, xT, muT, nuT)
+        return xT, muT, nuT
+
+    xT = xs.transpose(1, 2).contiguous()
+    muT = torch.zeros_like(xT)
+    nuT = torch.zeros_like(xT)
+    history = torch.empty((T, n_eff), dtype=torch.float32, device=lead)
+    pick = None
+    if cfg.enantiomer:
+        hot = cfg.hot_steps
+        xT, muT, nuT = run(0, hot, xT, muT, nuT, history)
+        w_hot = step_weights[hot - 1]
+        coords = xT.transpose(1, 2).contiguous()
+        e_hot = pair_T(xT, w_hot)[0] + bond_energy_grad(coords, base, bead_mask)[0]
+        if or_groups is not None:
+            e_hot = e_hot + or_group_energy(coords, or_groups, w_hot, bead_mask)
+        choice = torch.argmin(e_hot.reshape(n_models, 2), dim=1)
+        pick = torch.arange(n_models, device=lead) * 2 + choice
+        xT, muT, nuT = xT[pick], muT[pick], nuT[pick]
+        history = history[:, pick].contiguous()
+        xT, muT, nuT = run(hot, T, xT, muT, nuT, history)
+    else:
+        xT, muT, nuT = run(0, T, xT, muT, nuT, history)
+    coords = xT.transpose(1, 2).contiguous()
+
+    # final canonical-weight terms: the plain row-block energy on every rank
+    parts = [row_block_energy_grad(c, t.lo, t.hi, t.w, b, t.row_start, base)
+             for c, t, b in zip(group.broadcast(coords), tiles, beads)]
+    e_noe = group.psum([p[0] for p in parts])
+    e_vdw = group.psum([p[1] for p in parts])
+    if or_groups is not None:
+        e_noe = e_noe + or_group_energy(coords, or_groups, base, bead_mask)
+    e_bond = bond_energy_grad(coords, base, bead_mask)[0]
+    terms = {"noe": e_noe, "bon": e_bond, "vdw": e_vdw, "overall": e_noe + e_vdw + e_bond}
+    nvalid = torch.clamp_min(bead_mask.sum(), 1.0)
+    centroid = (coords * bead_mask[None, :, None]).sum(dim=1, keepdim=True) / nvalid
+    coords = (coords - centroid) * bead_mask[None, :, None]
+    return AnnealResult(coords=coords, energies=terms, history=history.T, pick=pick)

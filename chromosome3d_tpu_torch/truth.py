@@ -1,7 +1,141 @@
-"""Ground-truth scoring: the JAX package's host-side (numpy) structure
-generator, IF synthesis and reconstruction metrics (chromosome3d_tpu.truth),
-re-exported for the port's callers."""
+"""Ground-truth scoring — the port's copy of chromosome3d_tpu/truth.py's
+host functions: a known 3D structure (a confined persistent random walk),
+the IF matrix the pipeline's conversion implies for it
+(d = K * mean(IF^alpha) / IF^alpha, chromosome3D.pl:110-162, inverted:
+IF = (1/d)^(1/alpha)), and the reconstruction metrics against the truth.
+Host numpy, seed-deterministic.
+"""
 
-from chromosome3d_tpu.truth import confined_walk, if_from_structure, reconstruction_metrics
+from __future__ import annotations
 
-__all__ = ["confined_walk", "if_from_structure", "reconstruction_metrics"]
+from typing import Dict
+
+import numpy as np
+
+from chromosome3d_tpu_torch.metrics import kabsch_rmsd
+
+
+def confined_walk(
+    L: int,
+    seed: int = 0,
+    bond: float = 3.8,
+    radius_factor: float = 0.75,
+    persistence: float = 0.7,
+) -> np.ndarray:
+    """A confined persistent random walk: (L, 3) float64 coordinates.
+
+    bond: step length (the solver's default bond_length, so reconstructions
+    are commensurate without rescaling).
+    radius_factor: confinement sphere radius = radius_factor * bond *
+    L**(1/3) — constant bead density across L.
+    persistence: direction memory in [0, 1); 0 = pure random walk.
+    """
+    rs = np.random.RandomState(seed)
+    R = radius_factor * bond * L ** (1.0 / 3.0)
+    x = np.zeros((L, 3))
+    d = _unit(rs.randn(3))
+    for i in range(1, L):
+        d = _unit(persistence * d + (1.0 - persistence) * _unit(rs.randn(3)))
+        nxt = x[i - 1] + bond * d
+        r = np.linalg.norm(nxt)
+        if r > R:
+            # reflect the direction off the (spherical) wall and retake
+            # the step; the rare double-violation clamps to the boundary
+            n = nxt / r
+            d = _unit(d - 2.0 * float(d @ n) * n)
+            nxt = x[i - 1] + bond * d
+            r = np.linalg.norm(nxt)
+            if r > R:
+                nxt *= R / r
+        x[i] = nxt
+    return x - x.mean(axis=0)
+
+
+def _unit(v: np.ndarray) -> np.ndarray:
+    n = np.linalg.norm(v)
+    return v / n if n > 0 else np.array([1.0, 0.0, 0.0])
+
+
+def radius_of_gyration(coords: np.ndarray) -> float:
+    c = np.asarray(coords, dtype=np.float64)
+    c = c - c.mean(axis=0)
+    return float(np.sqrt((c * c).sum(axis=1).mean()))
+
+
+def if_from_structure(
+    coords: np.ndarray,
+    alpha: float = 0.5,
+    noise_sigma: float = 0.0,
+    seed: int = 0,
+) -> np.ndarray:
+    """(L, L) float64 IF matrix from true coordinates.
+
+    IF_ij = (1/d_ij)^(1/alpha) * exp(noise_sigma * g_ij) with g symmetric
+    standard normal — under the pipeline's conversion this recovers d_hat
+    proportional to d_true * exp(-alpha * noise_sigma * g). The diagonal
+    uses a bond-scale floor (huge IF, like real matrices).
+    """
+    c = np.asarray(coords, dtype=np.float64)
+    L = c.shape[0]
+    d = np.linalg.norm(c[:, None] - c[None, :], axis=-1)
+    floor = 0.5 * 3.8
+    np.fill_diagonal(d, floor)
+    d = np.maximum(d, floor)
+    m = (1.0 / d) ** (1.0 / alpha)
+    if noise_sigma > 0.0:
+        rs = np.random.RandomState(seed + 1)
+        g = rs.standard_normal((L, L))
+        g = np.triu(g, 1)
+        g = g + g.T                      # symmetric, zero diagonal
+        m = m * np.exp(noise_sigma * g)
+    return m
+
+
+def reconstruction_metrics(
+    rec: np.ndarray,
+    true: np.ndarray,
+    n_pairs: int = 2_000_000,
+    seed: int = 0,
+) -> Dict[str, float]:
+    """Score a reconstruction against the TRUE structure. Returns:
+
+      rmsd_over_rg : Kabsch superposition RMSD (mirror resolved, and
+                     scale-optimal, since the IF->distance map fixes scale
+                     only up to K*mean), divided by the truth's radius of
+                     gyration. 0 = exact.
+      spearman_d   : Spearman between reconstructed and true pair
+                     distances (subsampled beyond n_pairs unordered pairs,
+                     fixed seed). 1 = perfect rank recovery.
+      drmsd_rel    : scale-optimal dRMSD over the same pairs, divided by
+                     the mean true distance.
+    """
+    from scipy import stats as sps
+
+    a = np.asarray(rec, dtype=np.float64)
+    b = np.asarray(true, dtype=np.float64)
+    n = min(len(a), len(b))
+    a, b = a[:n], b[:n]
+
+    rmsd = kabsch_rmsd(a, b, allow_mirror=True, allow_scale=True)
+    rg = radius_of_gyration(b)
+
+    total = n * (n - 1) // 2
+    if total > n_pairs:
+        rs = np.random.RandomState(seed + 20260820)
+        i = rs.randint(0, n, size=int(2.2 * n_pairs))
+        j = rs.randint(0, n, size=int(2.2 * n_pairs))
+        keep = i < j
+        i, j = i[keep][:n_pairs], j[keep][:n_pairs]
+    else:
+        i, j = np.triu_indices(n, k=1)
+    da = np.sqrt(((a[i] - a[j]) ** 2).sum(-1))
+    db = np.sqrt(((b[i] - b[j]) ** 2).sum(-1))
+    rho = float(sps.spearmanr(da, db).statistic)
+    s = float((da * db).sum() / max((da * da).sum(), 1e-30))
+    drmsd_rel = float(np.sqrt(((s * da - db) ** 2).mean()) / db.mean())
+    return {
+        "rmsd_over_rg": float(rmsd / rg),
+        "spearman_d": rho,
+        "drmsd_rel": drmsd_rel,
+        "n_pairs": int(len(i)),
+    }

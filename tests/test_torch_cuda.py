@@ -31,10 +31,19 @@ from chromosome3d_tpu_torch.ops.fused_update import fused_update_batched, fused_
 from chromosome3d_tpu_torch.ops.general_pair import (
     general_pair_energy_grad,
     general_pair_energy_grad_plain,
+    general_row_block_energy_grad,
+    general_row_block_energy_grad_plain,
 )
 from chromosome3d_tpu_torch.ops.pair_energy import (
     exact_pair_energy_grad,
     exact_pair_energy_grad_plain,
+    exact_row_block_energy_grad,
+    exact_row_block_energy_grad_plain,
+)
+from chromosome3d_tpu_torch.ops.strip_tri import (
+    strip_tile,
+    strip_tri_energy_grad,
+    strip_tri_energy_grad_plain,
 )
 from chromosome3d_tpu_torch.ops.tri_energy import tri_energy_grad, tri_energy_grad_plain
 
@@ -140,6 +149,70 @@ def test_cuda_general_pair_matches_plain(cuda_device, L, n_real, B, rswitch):
     np.testing.assert_allclose(g.cpu().numpy(), g_r, rtol=2e-4,
                                atol=2e-4 + 1e-6 * np.abs(g_r).max())
     np.testing.assert_array_equal(g[:, :, n_real:].cpu().numpy(), 0.0)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_cuda_row_blocks_are_whole_matrix_rows(cuda_device, n):
+    """B5' and B2' on n row blocks: each block's gradient rows are B5's and
+    B2's bit for bit (one body), and each block matches its twin."""
+    ex, bm, x, _, _ = _case(cuda_device, L=256, n_real=240, B=5)
+    lo = (ex.target * 0.8).contiguous()
+    hi = (ex.target * 1.2).contiguous()
+    coords = x.transpose(1, 2).contiguous()
+    _, g5 = general_pair_energy_grad(x, lo, hi, ex.w, WEIGHTS, bm)
+    _, g2 = exact_pair_energy_grad(coords, ex.target, ex.w, WEIGHTS, bm)
+    Lb = 256 // n
+    for r in range(n):
+        rows = slice(r * Lb, (r + 1) * Lb)
+        strips = (lo[rows], hi[rows], ex.w[rows])
+        e, g = general_row_block_energy_grad(x, *strips, WEIGHTS, bm, r * Lb)
+        assert torch.equal(g, g5[:, :, rows])
+        e_r, g_r = general_row_block_energy_grad_plain(x, *strips, WEIGHTS, bm, r * Lb)
+        np.testing.assert_allclose(e.cpu().numpy(), e_r.cpu().numpy(), rtol=1e-5)
+        np.testing.assert_allclose(g.cpu().numpy(), g_r.cpu().numpy(), rtol=2e-4,
+                                   atol=2e-4 + 1e-6 * float(g_r.abs().max()))
+        e, g = exact_row_block_energy_grad(x, ex.target[rows], ex.w[rows], WEIGHTS, bm, r * Lb)
+        assert torch.equal(g, g2[:, rows].transpose(1, 2))
+        e_r, g_r = exact_row_block_energy_grad_plain(x, ex.target[rows], ex.w[rows],
+                                                     WEIGHTS, bm, r * Lb)
+        np.testing.assert_allclose(e.cpu().numpy(), e_r.cpu().numpy(), rtol=2e-5)
+        np.testing.assert_allclose(g.cpu().numpy(), g_r.cpu().numpy(), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("L,n_real,B,n", [
+    (320, 300, 5, 5),    # Tg = 5 (odd), tile 64
+    (384, 371, 3, 3),    # Tg = 6 (even: the last shell's twin drops)
+    (96, 90, 3, 3),      # tile 32
+    (80, 75, 2, 5),      # tile 16
+    (96, 90, 3, 4),      # tile 8 (Lb = 24)
+])
+def test_cuda_strip_tri_matches_plain_and_b3(cuda_device, L, n_real, B, n):
+    """B6 on n strips: each strip against its twin at the kernel's tile and
+    equal over two calls, the strips' sums against B3's twin; where the tile
+    is 64, one strip of Lb = L is B3 bit for bit."""
+    ex, bm, x, _, _ = _case(cuda_device, L=L, n_real=n_real, B=B)
+    Lb = L // n
+    es, gs = [], []
+    for r in range(n):
+        t, wt = ex.target[r * Lb:(r + 1) * Lb], ex.w[r * Lb:(r + 1) * Lb]
+        e, g = strip_tri_energy_grad(x, t, wt, WEIGHTS, bm, r * Lb)
+        e2, g2 = strip_tri_energy_grad(x, t, wt, WEIGHTS, bm, r * Lb)
+        assert torch.equal(e, e2) and torch.equal(g, g2)
+        e_r, g_r = strip_tri_energy_grad_plain(x, t, wt, WEIGHTS, bm, r * Lb, strip_tile(Lb))
+        np.testing.assert_allclose(e.cpu().numpy(), e_r.cpu().numpy(), rtol=3e-5)
+        np.testing.assert_allclose(g.cpu().numpy(), g_r.cpu().numpy(), rtol=2e-4,
+                                   atol=2e-4 + 1e-6 * float(g_r.abs().max()))
+        es.append(e)
+        gs.append(g)
+    e_b3, g_b3 = tri_energy_grad_plain(x, ex.target, ex.w, WEIGHTS, bm)
+    np.testing.assert_allclose(sum(es).cpu().numpy(), e_b3.cpu().numpy(), rtol=3e-5)
+    np.testing.assert_allclose(sum(gs).cpu().numpy(), g_b3.cpu().numpy(), rtol=2e-4,
+                               atol=2e-4 + 1e-6 * float(g_b3.abs().max()))
+    np.testing.assert_array_equal(sum(gs)[:, :, n_real:].cpu().numpy(), 0.0)
+    if L % 64 == 0:
+        e1, g1 = strip_tri_energy_grad(x, ex.target, ex.w, WEIGHTS, bm, 0)
+        e3, g3 = tri_energy_grad(x, ex.target, ex.w, WEIGHTS, bm)
+        assert torch.equal(e1, e3) and torch.equal(g1, g3)
 
 
 @pytest.mark.parametrize("clip", [None, 0.5])

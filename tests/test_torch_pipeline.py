@@ -3,7 +3,7 @@
 The artifact writers are host numpy in both packages: given the same
 coordinates and energies they must write the same bytes. The CLI runs end
 to end on the 16-bead fixture (padded to the 512 bucket), once in process
-and once in a subprocess where importing jax fails.
+and once in a subprocess where importing jax or the JAX package fails.
 """
 
 import glob
@@ -91,19 +91,22 @@ def test_cli_run_full_artifact_set(tmp_path, tiny_matrix, capsys):
 
 
 def test_cli_run_without_jax(tmp_path, tiny_matrix):
-    """The port never imports jax: block it and run the CLI smoke."""
+    """The port never imports jax or the JAX package: block both and run the
+    CLI smoke."""
     path = str(tmp_path / "chrT_matrix.txt")
     write_if_matrix(path, tiny_matrix)
     out = str(tmp_path / "out")
     code = (
-        "import sys; sys.modules['jax'] = None\n"
+        "import sys; sys.modules['jax'] = sys.modules['chromosome3d_tpu'] = None\n"
         "import chromosome3d_tpu_torch\n"
         "from chromosome3d_tpu_torch.cli import main\n"
         f"rc = main(['run', '-i', {path!r}, '-o', {out!r}, '-m', '2', '--turbo', '--fast'])\n"
-        "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules if sys.modules[m] is not None)\n"
+        "assert not any(m.split('.')[0] in ('jax', 'chromosome3d_tpu') for m in sys.modules if sys.modules[m] is not None)\n"
         "sys.exit(rc)\n"
     )
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # one torch thread: more spin on the run's small ops and slow the
+    # tests running beside it
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=str(tmp_path),
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]

@@ -7,7 +7,8 @@ structures. The port's own solves then run end to end at small shapes on
 the kernels' plain twins: a windowed `.rr` takes the two-sided init and the
 semi-general route (B5 + B4), an exact one the fused route (B1), and the
 CLI runs `solve` on a `.tbl` with or-groups in a subprocess where importing
-jax fails.
+jax or the JAX package fails. Past the buckets with two shard devices the
+`solve` runs the row-sharded route.
 """
 
 import json
@@ -23,6 +24,7 @@ from chromosome3d_tpu import pipeline as jax_pipeline
 from chromosome3d_tpu.config import AnnealConfig, PipelineConfig, RestraintConfig, fast_anneal
 from chromosome3d_tpu.restraints import write_contact_tbl
 from chromosome3d_tpu.truth import confined_walk
+from chromosome3d_tpu_torch import device as device_mod
 from chromosome3d_tpu_torch import pipeline as port_pipeline
 from chromosome3d_tpu_torch.ops.fused_step import fused_step_plain
 from chromosome3d_tpu_torch.ops.fused_update import fused_update_plain
@@ -186,27 +188,35 @@ def test_solve_refuses_before_allocating(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="A10"):
         port_pipeline.run_restraints_pipeline(
             rr, str(tmp_path / "b"), PipelineConfig(length_buckets=(8,), shard_quantum=8192))
-    # several cards past the buckets: the row-sharded solve (A12)
-    monkeypatch.setattr(port_pipeline, "_use_sharded", lambda L, cfg, dev: True)
-    with pytest.raises(NotImplementedError, match="A12"):
-        port_pipeline.run_restraints_pipeline(rr, str(tmp_path / "c"))
+    # several shard devices past the buckets: the row-sharded solve runs
+    # (padded to lcm(shard_quantum, shards)), no longer refused
+    monkeypatch.undo()
+    monkeypatch.setattr(device_mod, "shard_devices", lambda: [torch.device("cpu")] * 2)
+    cfg = PipelineConfig(model_count=2, length_buckets=(8,), shard_quantum=8,
+                         anneal=fast_anneal(AnnealConfig(), 0.1))
+    summary = port_pipeline.run_restraints_pipeline(rr, str(tmp_path / "c"), cfg)
+    assert summary["L"] == N and summary["L_solved"] == 32
+    assert np.isfinite(summary["best_noe_energy"])
 
 
 def test_cli_solve_tbl_without_jax(tmp_path):
-    """`solve` on a `.tbl` with or-groups through the CLI, jax blocked."""
+    """`solve` on a `.tbl` with or-groups through the CLI, jax and the JAX
+    package blocked."""
     rr = str(tmp_path / "g.rr")
     X = write_rr(rr)
     tbl = str(tmp_path / "g.tbl")
     write_tbl(tbl, rr, X)
     out = str(tmp_path / "out")
     code = (
-        "import sys; sys.modules['jax'] = None\n"
+        "import sys; sys.modules['jax'] = sys.modules['chromosome3d_tpu'] = None\n"
         "from chromosome3d_tpu_torch.cli import main\n"
         f"rc = main(['solve', '-r', {tbl!r}, '-o', {out!r}, '-m', '2', '--fast'])\n"
-        "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules if sys.modules[m] is not None)\n"
+        "assert not any(m.split('.')[0] in ('jax', 'chromosome3d_tpu') for m in sys.modules if sys.modules[m] is not None)\n"
         "sys.exit(rc)\n"
     )
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # one torch thread: more spin on the run's small ops and slow the
+    # tests running beside it
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=str(tmp_path),
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
