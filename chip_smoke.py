@@ -14,19 +14,23 @@ code is not 0):
                structures, L = 456 padded to 512), B1's noise bitwise and
                its padded beads; B3 and B4 at the at-scale path's (B = 20
                and 10, L = 4985 padded to 5120, tiles from the on-card
-               restraint prep) and at two small ragged shapes with a bead
-               mask (odd and even tile counts), B3's bits equal over two
+               restraint prep) and at small ragged shapes with a bead mask
+               (odd and even tile counts, and B = 25 structures in slices
+               of 9, 9 and 7), B3's bits equal over two
                calls, B4's noise bitwise equal to the counter hash and to
                B1's, and the prep's k / 10 correctly rounded on the card;
                B5 at the `solve` paths' shapes (B = 20; L = 512 on shape A's
                tensors, L = 5120 on shape B's) and at a small ragged shape
                with a bead mask, noe_rswitch = 1 (the linear tails) and a
-               contradictory pair (lo > hi), B5's bits equal over two calls;
+               contradictory pair (lo > hi), and at the edges of its plan
+               (one column past a 128-column chunk with B = 1; B = 25 in
+               two launches; several chunks a block, as lengths past 5120
+               take), B5's bits equal over two calls;
                the row-sharded kernels: B5' on 4 row blocks of shape B's
                L = 5120 tiles and B2' on 2 row blocks of the L = 512 tiles,
                their gradient rows equal in bits to B5's and B2's and each
                block against its twin; B6 on 4 strips of the L = 5120 tiles
-               and on two small ragged shapes (odd and even tile counts),
+               and on small ragged shapes (odd and even tile counts, B = 23),
                each strip against its twin, the strips' sum against B3's
                twin, one strip of Lb = L equal in bits to B3, bits equal over
                two calls.
@@ -67,7 +71,8 @@ code is not 0):
                checks the launch counts, every other kernel and twin 0, and
                the ground-truth gates.
 Then one JSON line with the kernels' numbers (each with its launches on its
-path, its bound from the H100's FP32 and HBM peaks, and library_ms null:
+path, its wall and device ms and its twin's, its bound from the H100's FP32
+and HBM peaks, and library_ms null:
 no single PyTorch call computes a kernel's function) and, last, the result
 line `{"ok": true, "device": {...}}`.
 """
@@ -147,6 +152,13 @@ def device_ms(fn, n: int = 25) -> float:
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     check(total_us > 0, "the profiler saw no device time")
     return total_us / 1e3 / n
+
+
+def timing(err, key, wall, on_dev):
+    """One kernel's numbers for the `kernels` line: its max abs error against
+    its twin, and the wall and device ms of the kernel and of the twin."""
+    return {"max_abs_err": err, "ms": wall[key], "plain_ms": wall[f"{key} plain"],
+            "device_ms": on_dev[key], "plain_device_ms": on_dev[f"{key} plain"]}
 
 
 def phase_device():
@@ -279,8 +291,8 @@ def phase_kernels(dev):
     print(f"[kernels] at B=20, L={L_PAD}, ms per call as median wall with a "
           "sync around each of 25 | device time from torch.profiler: "
           + "; ".join(f"{k} {wall[k]:.4f} | {on_dev[k]:.4f}" for k in calls))
-    return X, M, {"B1": (b1_err, wall["B1"], wall["B1 plain"]),
-                  "B2": (b2_err, wall["B2"], wall["B2 plain"])}, (ex, bm, xT, w)
+    return X, M, {"B1": timing(b1_err, "B1", wall, on_dev),
+                  "B2": timing(b2_err, "B2", wall, on_dev)}, (ex, bm, xT, w)
 
 
 def ragged_case(dev, L, n_real, B, seed):
@@ -350,7 +362,8 @@ def phase_kernels_at_scale(dev):
     from chromosome3d_tpu_torch.solver.anneal import _final_weights
 
     w = _final_weights(AnnealConfig())
-    for L, n_real, B in ((300, 290, 20), (200, 181, 1)):   # T = 5 and T = 4
+    # T = 5 and T = 4; B = 25 goes through a block in slices of 9, 9 and 7
+    for L, n_real, B in ((300, 290, 20), (200, 181, 1), (300, 290, 25)):
         ex, bm, x = ragged_case(dev, L, n_real, B, seed=L)
         err, _ = check_b3(f"(B={B}, L={L})", ex, bm, x, w, n_real)
         print(f"[kernels] B3 exact_tri == plain at B={B}, L={L} (T={-(-L // 64)}, "
@@ -402,8 +415,8 @@ def phase_kernels_at_scale(dev):
     print(f"[kernels] at B=20, L={L_BIG_PAD}, ms per call as median wall with a "
           "sync around each of 25 (5 for B3 plain) | device time from torch.profiler: "
           + "; ".join(f"{k} {wall[k]:.4f} | {on_dev[k]:.4f}" for k in calls))
-    return X, M, {"B3": (b3_err, wall["B3"], wall["B3 plain"]),
-                  "B4": (b4_err, wall["B4"], wall["B4 plain"])}, (ex, bm, xT, w)
+    return X, M, {"B3": timing(b3_err, "B3", wall, on_dev),
+                  "B4": timing(b4_err, "B4", wall, on_dev)}, (ex, bm, xT, w)
 
 
 def kernel_counters():
@@ -685,6 +698,7 @@ def phase_kernels_general(dev, inputs):
     import dataclasses
 
     from chromosome3d_tpu_torch.config import AnnealConfig
+    from chromosome3d_tpu_torch.ops import general_pair
     from chromosome3d_tpu_torch.ops.general_pair import (
         general_pair_energy_grad,
         general_pair_energy_grad_plain,
@@ -700,6 +714,23 @@ def phase_kernels_general(dev, inputs):
     print(f"[kernels] B5 general_pair == plain at B=3, L=300 (10 padded beads, "
           f"noe_rswitch 1, a pair with lo > hi; g max abs err {err:.3g}); bits equal "
           "over two calls")
+    # the plan's edges: one column past a 128-column chunk with B = 1; more
+    # structures than one launch takes (25 = 13 + 12); several chunks a block
+    # (the plan of a length past 5120, forced here at L = 700)
+    for L, n_real, B, splits in ((129, 129, 1, None), (300, 290, 25, None), (700, 690, 3, 2)):
+        ex, bm, x = ragged_case(dev, L, n_real, B, seed=L + B)
+        tiles = ((ex.target * 0.8).contiguous(), (ex.target * 1.2).contiguous(), ex.w)
+        real_splits = general_pair._SPLITS_MAX
+        if splits:
+            general_pair._SPLITS_MAX = splits
+        try:
+            plan = general_pair.general_pair_plan(B, L, L)
+            err = check_b5(f"(B={B}, L={L})", x, tiles, w, bm, n_real)
+        finally:
+            general_pair._SPLITS_MAX = real_splits
+        print(f"[kernels] B5 general_pair == plain at B={B}, L={L} ({plan['nsplit']} "
+              f"column splits of {plan['cps']} chunk(s), {plan['launches']} launch(es) of "
+              f"{plan['bslice']} structures; g max abs err {err:.3g}); bits equal over two calls")
     measured, line = {}, []
     for shape, L, L_pad in (("A", L_TRUE, L_PAD), ("B", L_BIG, L_BIG_PAD)):
         path, X = inputs[shape]
@@ -715,7 +746,7 @@ def phase_kernels_general(dev, inputs):
         on_dev = {k: device_ms(fn, n[k]) for k, fn in calls.items()}
         line.append(f"L={L_pad}: " + "; ".join(
             f"{k} {wall[k]:.4f} | {on_dev[k]:.4f}" for k in calls))
-        measured[shape] = (err, wall["B5"], wall["B5 plain"])
+        measured[shape] = timing(err, "B5", wall, on_dev)
         del tiles, xT
         torch.cuda.empty_cache()
     print("[kernels] B5 at B=20, ms per call as median wall with a sync around each "
@@ -865,12 +896,12 @@ def phase_kernels_sharded(dev, small, big, inputs):
 
     measured, line = {}, []
 
-    def timed(key, calls, n_plain):
+    def timed(key, err, calls, n_plain):
         n = {k: (n_plain if k.endswith("plain") else 25) for k in calls}
         wall = {k: median_ms(fn, n[k], warmup=1) for k, fn in calls.items()}
         on_dev = {k: device_ms(fn, n[k]) for k, fn in calls.items()}
         line.append("; ".join(f"{k} {wall[k]:.4f} | {on_dev[k]:.4f}" for k in calls))
-        return wall[key], wall[f"{key} plain"]
+        return timing(err, key, wall, on_dev)
 
     # B5': shape B's tiles at L = 5120 in 4 row blocks
     path, X = inputs["B"]
@@ -899,10 +930,10 @@ def phase_kernels_sharded(dev, small, big, inputs):
           f"within 1e-6 of B5's; == plain per block (g max abs err {err:.3g}); bits "
           "equal over two calls")
     strips = [a[Lb:2 * Lb] for a in tiles]
-    measured["B5'"] = (err, *timed("B5'", {
+    measured["B5'"] = timed("B5'", err, {
         "B5'": lambda: general_row_block_energy_grad(xT, *strips, w, bm, Lb),
         "B5' plain": lambda: general_row_block_energy_grad_plain(xT, *strips, w, bm, Lb),
-    }, 5))
+    }, 5)
     del tiles, strips, xT, g_full
     torch.cuda.empty_cache()
 
@@ -927,14 +958,14 @@ def phase_kernels_sharded(dev, small, big, inputs):
           f"gradient rows equal in bits to B2's, energies summed within 1e-6 of B2's; "
           f"== plain per block (g max abs err {err:.3g})")
     t, wt = ex.target[Lb:], ex.w[Lb:]
-    measured["B2'"] = (err, *timed("B2'", {
+    measured["B2'"] = timed("B2'", err, {
         "B2'": lambda: exact_row_block_energy_grad(xT, t, wt, w, bm, Lb),
         "B2' plain": lambda: exact_row_block_energy_grad_plain(xT, t, wt, w, bm, Lb),
-    }, 25))
+    }, 25)
 
     # B6: two small ragged cases (odd and even tile counts), then the
     # at-scale tiles in 4 strips, and one strip of Lb = L against B3
-    for L, n_real, B, n_strips in ((320, 300, 20, 5), (384, 371, 3, 3)):
+    for L, n_real, B, n_strips in ((320, 300, 20, 5), (384, 371, 3, 3), (320, 300, 23, 5)):
         exr, bmr, xr = ragged_case(dev, L, n_real, B, seed=L)
         e6, _, _ = check_b6(f"(B={B}, L={L})", exr, bmr, xr, w, n_strips, n_real)
         print(f"[kernels] B6 exact_tri_strip at B={B}, L={L} in {n_strips} strips of "
@@ -954,11 +985,11 @@ def phase_kernels_sharded(dev, small, big, inputs):
           "to B3; bits equal over two calls")
     Lb = L_BIG_PAD // 4
     t, wt = ex.target[Lb:2 * Lb], ex.w[Lb:2 * Lb]
-    measured["B6"] = (err, *timed("B6", {
+    measured["B6"] = timed("B6", err, {
         "B6": lambda: strip_tri_energy_grad(xT, t, wt, w, bm, Lb),
         "B6 plain": lambda: strip_tri_energy_grad_plain(xT, t, wt, w, bm, Lb,
                                                         strip_tile(Lb)),
-    }, 5))
+    }, 5)
     print("[kernels] B5' at B=20, L=5120, one block of 1280 / B2' at B=20, L=512, one "
           "block of 256 / B6 at B=20, L=5120, one strip of 1280; ms per call as median "
           "wall with a sync around each of 25 (5 for the B5' and B6 twins) | device "
@@ -1115,14 +1146,13 @@ def main() -> int:
          "chromosome3d_tpu/ops/pallas_energy.py:195", launches_sh_lib,
          (B, L_PAD, L_PAD // 2)),
     ):
-        err, ms, plain_ms = measured[key]
         bound_ms, bound_by = bound(key, *shape)
         # no single PyTorch call computes a restraint well, the vdw repel and
         # their gradient (or B4's bond + Adam + noise + move) in one
         kernels.append({"name": kname, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": path_launches[key],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+                        **measured[key], "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": None})
     print(card)   # nvidia-smi --query-gpu=name,power.limit, again beside the numbers
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

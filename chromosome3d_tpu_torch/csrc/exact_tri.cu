@@ -11,16 +11,17 @@
 // Pairing and math: the tile-pair body in tri_pair.cuh, shared with the
 // strip kernel B6 (exact_tri_strip.cu), here over all T row tiles.
 //
-// What bounds it on an H100: ~36 FP32 operations and one MUFU rsqrt per
-// unordered pair, B x L^2 / 2 pairs a call: at B = 20, L = 5120 that is
-// 262M pairs, ~9 GFLOP — compute, not memory (the two (L, L) tiles are
-// 210 MB, read once a call). Design: one 256-thread block per tile pair
-// (i, s) with a 4 x 4 register patch of the tiles reused for all B
-// structures (tri_pair.cuh); partials in a (B, 2S, 3, Lp) buffer — row
-// partials of shell s at slot s, column partials at slot S + s at their
-// column tile — that a second kernel sums per bead in slot order. No float
-// atomics: the same inputs give the same bits, so a solve with a fixed
-// seed is reproducible.
+// What bounds it on an H100: instruction issue on the FP32 pipes — ~22
+// arithmetic instructions and one MUFU rsqrt per unordered pair, B x L^2 / 2
+// pairs a call (262M at B = 20, L = 5120); the two (L, L) tiles (210 MB,
+// read once a call) move in a fifth of that time. Design: one 256-thread
+// block per tile pair (i, s) with a 4 x 4 register patch of the tiles reused
+// for all B structures, coordinates staged in shared memory and no barrier
+// or global load in the loop over structures (tri_pair.cuh); partials in a
+// (B, 2S, 3, Lp) buffer — row partials of shell s at slot s, column partials
+// at slot S + s at their column tile — that a second kernel sums per bead in
+// slot order. No float atomics: the same inputs give the same bits, so a
+// solve with a fixed seed is reproducible.
 
 #include <cuda_runtime.h>
 
@@ -28,7 +29,7 @@
 
 namespace {
 
-using c3d_tri::kThreads;
+using c3d::kThreads;
 using c3d_tri::TriParams;
 
 constexpr int kTM = 64;         // tile edge
@@ -51,25 +52,25 @@ tri_reduce_kernel(const float* __restrict__ part,    // (B, 2S, 3, Lp)
     gT[((size_t)b * 3 + c) * L + l] = g;
   }
   if (blockIdx.x != 0) return;
-  c3d_tri::block_energy_sum(e_part + (size_t)b * nblk, nblk, e + b);
+  c3d::block_sum(e_part + (size_t)b * nblk, nblk, 1.0f, e + b);
 }
 
 }  // namespace
 
 // part: (B, 2 S, 3, T tile) scratch and e_part: (B, T S) scratch, both
-// allocated by the caller; T = ceil(L / tile), S = T / 2 + 1.
+// allocated by the caller; T = ceil(L / tile), S = T / 2 + 1; the structures
+// go through a block bslice at a time.
 extern "C" int c3d_exact_tri(const float* xT, const float* t, const float* w,
                              const float* bm, float* part, float* e_part,
                              float* gT, float* e, int B, int L, int T,
-                             int tile, float noe, float vdw, float vdw_radius,
-                             void* stream) {
-  if (tile != kTM || T != (L + kTM - 1) / kTM) return (int)cudaErrorInvalidValue;
+                             int tile, int bslice, float noe, float vdw,
+                             float vdw_radius, void* stream) {
+  if (tile != kTM || T != (L + kTM - 1) / kTM || bslice <= 0 || B <= 0)
+    return (int)cudaErrorInvalidValue;
   const int S = T / 2 + 1;
-  const TriParams q{B, L, T, T, S, 0, T * kTM, 0, noe, vdw, vdw_radius};
+  const TriParams q{B, L, T, T, S, 0, T * kTM, 0, bslice, noe, vdw, vdw_radius};
   cudaStream_t st = (cudaStream_t)stream;
-  c3d_tri::tri_pair_kernel<kTM><<<T * S, kThreads, 0, st>>>(xT, t, w, bm, part,
-                                                             e_part, q);
-  const cudaError_t err = cudaGetLastError();
+  const cudaError_t err = c3d_tri::launch_pairs<kTM>(xT, t, w, bm, part, e_part, q, st);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((3 * L + kThreads - 1) / kThreads, B);
   tri_reduce_kernel<<<grid, kThreads, 0, st>>>(part, e_part, gT, e, L, T * kTM,

@@ -26,9 +26,10 @@
 // strip with Lb = L gives B3's bits. Energies: B3's fixed-order block sum.
 // No float atomics.
 //
-// What bounds it on an H100: as B3, ~35 FP32 operations and one MUFU rsqrt
-// per unordered pair, now B x Lb x L / 2 pairs per shard (65.5M at B = 20,
-// L = 5120, Lb = 1280): compute, not the (Lb, L) tiles (52 MB, read once).
+// What bounds it on an H100: as B3, instruction issue at ~22 arithmetic
+// instructions and one MUFU rsqrt per unordered pair, now B x Lb x L / 2
+// pairs per shard (65.5M at B = 20, L = 5120, Lb = 1280), not the (Lb, L)
+// tiles (52 MB, read once); the body's design is tri_pair.cuh's.
 // The tile is the port's own: 64, or the largest of 32, 16 and 8 that
 // divides Lb (the JAX package's strip tile is sized for VMEM and may be
 // larger; the routing rule is kept, the tile is not).
@@ -39,7 +40,7 @@
 
 namespace {
 
-using c3d_tri::kThreads;
+using c3d::kThreads;
 using c3d_tri::TriParams;
 
 __global__ void __launch_bounds__(kThreads)
@@ -60,24 +61,20 @@ strip_assemble_kernel(const float* __restrict__ part,    // (B, 2S, 3, Lb)
     if (lr >= 0 && lr < Lb) {
       for (int s = 0; s < S; ++s) g += pb[s * slot + lr];
     }
+    // i falls by one a shell (mod Tg); a shell whose row tile lies outside
+    // the strip adds 0, so the loads do not wait on a branch
     const int tl = l / tile, off = l - tl * tile;
+    int i = ((tl - row0t) % Tg + Tg) % Tg;
+    const float* pc = pb + S * slot + off;
+#pragma unroll 8
     for (int s = 0; s < S; ++s) {
-      const int i = ((tl - row0t - s) % Tg + Tg) % Tg;
-      if (i < Tl) g += pb[(S + s) * slot + (size_t)i * tile + off];
+      g += i < Tl ? pc[s * slot + (size_t)i * tile] : 0.f;
+      i = i == 0 ? Tg - 1 : i - 1;
     }
     gT[((size_t)b * 3 + c) * L + l] = g;
   }
   if (blockIdx.x != 0) return;
-  c3d_tri::block_energy_sum(e_part + (size_t)b * nblk, nblk, e + b);
-}
-
-template <int TM>
-cudaError_t launch_pairs(const float* xT, const float* t, const float* w,
-                         const float* bm, float* part, float* e_part,
-                         const TriParams& q, cudaStream_t st) {
-  c3d_tri::tri_pair_kernel<TM><<<q.Tl * q.S, kThreads, 0, st>>>(xT, t, w, bm, part,
-                                                                 e_part, q);
-  return cudaGetLastError();
+  c3d::block_sum(e_part + (size_t)b * nblk, nblk, 1.0f, e + b);
 }
 
 }  // namespace
@@ -85,24 +82,24 @@ cudaError_t launch_pairs(const float* xT, const float* t, const float* w,
 // t, w: the strip's (Lb, L) rows, global rows row0 .. row0 + Lb - 1; tile
 // divides Lb and row0 and L; part: (B, 2 S, 3, Lb) and e_part: (B, Tl S)
 // scratch allocated by the caller, Tl = Lb / tile, Tg = L / tile,
-// S = Tg / 2 + 1.
+// S = Tg / 2 + 1; the structures go through a block bslice at a time.
 extern "C" int c3d_exact_tri_strip(const float* xT, const float* t, const float* w,
                                    const float* bm, float* part, float* e_part,
                                    float* gT, float* e, int B, int L, int row0,
-                                   int Lb, int tile, float noe, float vdw,
-                                   float vdw_radius, void* stream) {
+                                   int Lb, int tile, int bslice, float noe,
+                                   float vdw, float vdw_radius, void* stream) {
   if (tile <= 0 || Lb <= 0 || Lb % tile || L % tile || row0 % tile || row0 < 0 ||
-      row0 + Lb > L)
+      row0 + Lb > L || bslice <= 0 || B <= 0)
     return (int)cudaErrorInvalidValue;
   const int Tl = Lb / tile, Tg = L / tile, S = Tg / 2 + 1;
-  const TriParams q{B, L, Tl, Tg, S, row0 / tile, Lb, 1, noe, vdw, vdw_radius};
+  const TriParams q{B, L, Tl, Tg, S, row0 / tile, Lb, 1, bslice, noe, vdw, vdw_radius};
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   switch (tile) {
-    case 64: err = launch_pairs<64>(xT, t, w, bm, part, e_part, q, st); break;
-    case 32: err = launch_pairs<32>(xT, t, w, bm, part, e_part, q, st); break;
-    case 16: err = launch_pairs<16>(xT, t, w, bm, part, e_part, q, st); break;
-    case 8: err = launch_pairs<8>(xT, t, w, bm, part, e_part, q, st); break;
+    case 64: err = c3d_tri::launch_pairs<64>(xT, t, w, bm, part, e_part, q, st); break;
+    case 32: err = c3d_tri::launch_pairs<32>(xT, t, w, bm, part, e_part, q, st); break;
+    case 16: err = c3d_tri::launch_pairs<16>(xT, t, w, bm, part, e_part, q, st); break;
+    case 8: err = c3d_tri::launch_pairs<8>(xT, t, w, bm, part, e_part, q, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;

@@ -21,153 +21,272 @@
 //   well = quad ? viol^2 : rs^2 + 2 rs (viol - rs)
 //   dwell = quad ? 2 viol : 2 rs
 //   sgn = over > 0 ? 1 : (under > 0 ? -1 : 0)
-//   e_i = 1/2 noe sum_j wv well + 1/2 vdw sum_j nb overlap^2
+//   e = 1/2 noe sum_ij wv well + 1/2 vdw sum_ij nb overlap^2
 //   c_ij = (noe wv dwell sgn - 2 vdw nb overlap) * rinv
 //   g_i = sum_j c_ij (x_i - x_j)
 // The Pallas kernel forms g_i as x_i sum_j c_ij - (c @ X)_i; that cancels
 // large float32 terms (ROADMAP §C), so the differences already in registers
-// are summed instead, as B1-B3 do.
+// are summed instead, as B1-B3 do. The same finding rules the tensor cores
+// out here (the only matrix form of the gradient is that product, and d^2
+// from a Gram product loses ~1e-3 near contact): this is an FP32 CUDA-core
+// kernel with one MUFU rsqrt per pair.
 //
-// What bounds it on an H100: ~40 FP32 operations and one MUFU rsqrt per
-// ordered pair (B x L^2 pairs a call: 524M at B = 20, L = 5120), and three
-// (L, L) float32 tiles lo, hi, w (315 MB at L = 5120, six times the 50 MB
-// L2). The Pallas grid reads each tile row from HBM once per call for all B
-// structures (batch fastest); a grid of (rows, B) would stream the tiles B
-// times (6.3 GB a hot step). Design: one block per bead row i stages row i
-// of lo, hi and w and the bead mask in shared memory (80 KB at L = 5120,
-// dynamic; row i of a shard's strip), then every warp sweeps a fixed strided slice of the columns for
-// each of the B structures in turn: lanes take neighbouring columns, so the
-// xT reads of (B, 3, L) are coalesced, and every warp gets the same share of
-// every structure. Each warp reduces its sums with shuffles and leaves them
-// in shared memory; one thread per structure then adds the warps' partials
-// in warp order. No atomics: equal inputs give equal bits. The (B, 3, L)
-// layout in and out lets the step feed kernel B4 with no transposes.
-// wgmma / TMA tiling is later work.
+// What bounds it on an H100: instruction issue. B x Lb x L ordered pairs a
+// call (524M at B = 20, L = 5120) at ~31 arithmetic instructions each, of
+// which few fuse to FMAs, against 132 SMs x 128 lanes; the three (Lb, L)
+// tiles (315 MB at L = 5120) move in a seventh of that time if they are
+// read once per call. So the design spends as few instructions per pair
+// beside the arithmetic as it can:
+//  * a block of 8 warps takes 32 rows x one 128-column chunk (or a few
+//    chunks in turn); a thread holds a 4 x 4 patch of lo, hi, 2 noe w pv and
+//    2 vdw nb in registers (rows warp * 4 + a, columns lane + 32 k: every
+//    tile load is one coalesced 128-byte line a warp), read from global
+//    memory once and reused for all B structures;
+//  * the chunk's coordinates of all B structures, and the block's rows', are
+//    staged in shared memory by cp.async, the next chunk's while this one is
+//    computed: the loop over structures reads 24 floats of shared memory for
+//    16 pairs and touches no global memory;
+//  * a warp owns its 4 rows over the whole chunk, so the only sum across
+//    threads is over the warp's lanes: the 12 gradient sums and the energy
+//    go through one multi-value butterfly (warp_fold.cuh, 15 shuffles) into
+//    a warp-private shared-memory slot per structure, chunk after chunk;
+//  * the grid is (row groups, column splits), enough blocks for every SM at
+//    Lb = 1280 as at 5120; each block writes its rows' partial gradient for
+//    its split and one energy per structure, and a second kernel adds the
+//    splits in order. The split depends on L alone, so a row sees the same
+//    columns in the same order whichever rows share the launch.
+// No atomics: equal inputs give equal bits. Shared memory grows with the
+// structures of a launch (the wrapper's batch slice, general_pair.py), not
+// with L. The (B, 3, L) layout in and (B, 3, Lb) out feeds kernel B4 with no
+// transposes.
 
 #include <cuda_runtime.h>
 
+#include "warp_fold.cuh"
+
 namespace {
 
-constexpr int kWarps = 16;
+using c3d::kThreads;
+using c3d::kWarps;
+
+constexpr int kR = 4;                  // rows a warp (and a thread's patch)
+constexpr int kC = 4;                  // columns a thread's patch
+constexpr int kChunk = 32 * kC;        // columns a chunk
+constexpr int kRowsBlock = kWarps * kR;
+constexpr int kVals = 3 * kR + 1;      // a thread's sums per structure
 constexpr float kEps = 1e-12f;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+struct GeneralParams {
+  int B, L, row0, Lb;     // structures of this launch, length, the strip
+  int cps, nsplit;        // chunks a split, splits
+  float two_noe, two_vdw, r0, rs;
+};
+
+// floats of shared memory a block needs for B structures
+__host__ __device__ constexpr int smem_floats(int B) {
+  return B * (2 * 3 * kChunk + 3 * kRowsBlock + kWarps * kVals);
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kThreads, 2)
 general_pair_kernel(const float* __restrict__ xT,   // (B, 3, L)
                     const float* __restrict__ lo,   // (Lb, L) rows row0..
                     const float* __restrict__ hi,   // (Lb, L)
                     const float* __restrict__ w,    // (Lb, L) mask * weight
                     const float* __restrict__ bm,   // (L,) bead mask
-                    float* __restrict__ e_rows,     // (B, Lb) out
-                    float* __restrict__ gT,         // (B, 3, Lb) out
-                    int B, int L, int row0, int Lb, float noe, float vdw,
-                    float r0, float rs) {
+                    float* __restrict__ part,       // (B, nsplit, 3, Lb) out
+                    float* __restrict__ e_part,     // (B, row groups * nsplit) out
+                    GeneralParams q) {
   extern __shared__ float smem[];
-  float* s_lo = smem;
-  float* s_hi = s_lo + L;
-  float* s_w = s_hi + L;
-  float* s_bm = s_w + L;
-  float* s_part = s_bm + L;   // (B, kWarps, 5) per-warp sums
+  const int B = q.B, L = q.L, Lb = q.Lb;
+  float* s_cols = smem;                          // [2][B][3][kChunk]
+  float* s_rows = s_cols + 2 * B * 3 * kChunk;   // [B][3][kRowsBlock]
+  float* s_slot = s_rows + B * 3 * kRowsBlock;   // [kWarps][B][kVals]
 
-  const int il = blockIdx.x;        // the strip's row
-  const int i = row0 + il;          // the same row of the pair matrix
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const size_t row = (size_t)il * L;
-  for (int j = threadIdx.x; j < L; j += blockDim.x) {
-    s_lo[j] = lo[row + j];
-    s_hi[j] = hi[row + j];
-    s_w[j] = w[row + j];
-    s_bm[j] = bm[j];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rg = blockIdx.x, sp = blockIdx.y;
+  const int il0 = rg * kRowsBlock;               // the block's first strip row
+  const int col_begin = sp * q.cps * kChunk;
+  const int nchunk = min(q.cps, (L - col_begin + kChunk - 1) / kChunk);
+
+  auto stage_cols = [&](int buf, int col0) {
+    float* dst = s_cols + buf * B * 3 * kChunk;
+    for (int idx = tid; idx < B * 3 * kChunk; idx += kThreads) {
+      const int col = col0 + (idx % kChunk);
+      const bool in = col < L;
+      c3d::copy_async(dst + idx, xT + (size_t)(idx / kChunk) * L + (in ? col : 0), in);
+    }
+  };
+  for (int idx = tid; idx < B * 3 * kRowsBlock; idx += kThreads) {
+    const int il = il0 + (idx % kRowsBlock);
+    const bool in = il < Lb;
+    c3d::copy_async(s_rows + idx,
+                    xT + (size_t)(idx / kRowsBlock) * L + (in ? q.row0 + il : 0), in);
+  }
+  stage_cols(0, col_begin);
+  c3d::copy_async_commit();
+  for (int idx = tid; idx < kWarps * B * kVals; idx += kThreads) s_slot[idx] = 0.f;
+
+  int which;
+  bool owner;
+  c3d::fold_all_id<16, kVals>(lane, which, owner);
+  float* my_slot = s_slot + (size_t)warp * B * kVals + which;
+
+  const float rs = q.rs, two_rs = 2.f * q.rs, neg_rs_sq = -q.rs * q.rs, r0 = q.r0;
+  for (int ch = 0; ch < nchunk; ++ch) {
+    const int col0 = col_begin + ch * kChunk;
+    // this thread's pairs: strip rows il0 + warp kR + a, columns col0 + lane
+    // + 32 k; rows past the strip and columns past L hold nothing
+    float plo[kR][kC], phi[kR][kC], pwn[kR][kC], pvn[kR][kC];
+#pragma unroll
+    for (int a = 0; a < kR; ++a) {
+      const int il = il0 + warp * kR + a;
+      const int i = q.row0 + il;
+      const float bmi = il < Lb ? bm[i] : 0.f;
+#pragma unroll
+      for (int k = 0; k < kC; ++k) {
+        const int j = col0 + lane + 32 * k;
+        const bool in = il < Lb && j < L;
+        const size_t idx = (size_t)il * L + j;
+        const float pv = in ? bmi * bm[j] : 0.f;
+        plo[a][k] = in ? lo[idx] : 0.f;
+        phi[a][k] = in ? hi[idx] : 0.f;
+        pwn[a][k] = in ? q.two_noe * (w[idx] * pv) : 0.f;
+        pvn[a][k] = (abs(i - j) >= 2) ? q.two_vdw * pv : 0.f;
+      }
+    }
+    // this chunk's coordinates have landed, and every warp is done with the
+    // other buffer: the next chunk's may land there
+    c3d::copy_async_wait<0>();
+    __syncthreads();
+    if (ch + 1 < nchunk) {
+      stage_cols((ch + 1) & 1, col0 + kChunk);
+      c3d::copy_async_commit();
+    }
+    const float* cols = s_cols + (ch & 1) * B * 3 * kChunk + lane;
+    const float* rows = s_rows + warp * kR;
+
+    for (int b = 0; b < B; ++b) {
+      float ar[kR][3], xc[kC][3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+#pragma unroll
+        for (int a = 0; a < kR; ++a) ar[a][c] = rows[(b * 3 + c) * kRowsBlock + a];
+#pragma unroll
+        for (int k = 0; k < kC; ++k) xc[k][c] = cols[(b * 3 + c) * kChunk + 32 * k];
+      }
+      float v[kVals];
+#pragma unroll
+      for (int n = 0; n < kVals; ++n) v[n] = 0.f;
+#pragma unroll
+      for (int a = 0; a < kR; ++a) {
+#pragma unroll
+        for (int k = 0; k < kC; ++k) {
+          // every product and sum is spelled out (fmaf or a never-fused
+          // intrinsic): the compiler's own choice of which a * b + c to
+          // fuse differs between the unrolled pairs, and a row's bits must
+          // not depend on its slot a
+          const float dx = ar[a][0] - xc[k][0];
+          const float dy = ar[a][1] - xc[k][1];
+          const float dz = ar[a][2] - xc[k][2];
+          const float s = fmaf(dz, dz, fmaf(dy, dy, fmaf(dx, dx, kEps)));
+          const float rinv = c3d::rsqrt_fast(s);
+          const float d = __fmul_rn(s, rinv);
+          const float over = fmaxf(__fsub_rn(d, phi[a][k]), 0.f);
+          const float under = fmaxf(__fsub_rn(plo[a][k], d), 0.f);
+          const float viol = __fadd_rn(over, under);
+          const float well =
+              viol <= rs ? __fmul_rn(viol, viol) : fmaf(two_rs, viol, neg_rs_sq);
+          // 1/2 dwell sgn: +-min(viol, rs), + where d is past hi
+          const float m = fminf(viol, rs);
+          const float sm = over > 0.f ? m : -m;
+          const float ov = fmaxf(__fsub_rn(r0, d), 0.f);
+          const float t = __fmul_rn(pvn[a][k], ov);
+          v[3 * kR] = fmaf(t, ov, fmaf(pwn[a][k], well, v[3 * kR]));
+          const float cf = __fmul_rn(fmaf(pwn[a][k], sm, -t), rinv);
+          v[3 * a] = fmaf(cf, dx, v[3 * a]);
+          v[3 * a + 1] = fmaf(cf, dy, v[3 * a + 1]);
+          v[3 * a + 2] = fmaf(cf, dz, v[3 * a + 2]);
+        }
+      }
+      c3d::fold_all<16>(v, lane);
+      if (owner) my_slot[b * kVals] += v[0];
+    }
   }
   __syncthreads();
 
-  const float bmi = s_bm[i];
-  const float two_rs = 2.f * rs;
-  const float rs_sq = rs * rs;
-  for (int b = 0; b < B; ++b) {
-    const float* xb = xT + (size_t)b * 3 * L;
-    const float ax = xb[i], ay = xb[L + i], az = xb[2 * L + i];
-    float e_noe = 0.f, e_vdw = 0.f, gx = 0.f, gy = 0.f, gz = 0.f;
-    for (int j = warp * 32 + lane; j < L; j += kWarps * 32) {
-      const float dx = ax - xb[j], dy = ay - xb[L + j], dz = az - xb[2 * L + j];
-      const float s = dx * dx + dy * dy + dz * dz + kEps;
-      const float rinv = rsqrtf(s);
-      const float d = s * rinv;
-      const float pv = bmi * s_bm[j];
-      const float wv = s_w[j] * pv;
-      const float over = fmaxf(d - s_hi[j], 0.f);
-      const float under = fmaxf(s_lo[j] - d, 0.f);
-      const float viol = over + under;
-      const bool quad = viol <= rs;
-      const float well = quad ? viol * viol : rs_sq + two_rs * (viol - rs);
-      const float dwell = quad ? 2.f * viol : two_rs;
-      const float sgn = over > 0.f ? 1.f : (under > 0.f ? -1.f : 0.f);
-      e_noe += wv * well;
-      const float nb = (abs(i - j) >= 2) ? pv : 0.f;
-      const float ov = fmaxf(r0 - d, 0.f);
-      e_vdw += nb * ov * ov;
-      const float c = (noe * wv * dwell * sgn - 2.f * vdw * nb * ov) * rinv;
-      gx += c * dx;
-      gy += c * dy;
-      gz += c * dz;
-    }
-    e_noe = warp_sum(e_noe);
-    e_vdw = warp_sum(e_vdw);
-    gx = warp_sum(gx);
-    gy = warp_sum(gy);
-    gz = warp_sum(gz);
-    if (lane == 0) {
-      float* p = s_part + ((size_t)b * kWarps + warp) * 5;
-      p[0] = e_noe;
-      p[1] = e_vdw;
-      p[2] = gx;
-      p[3] = gy;
-      p[4] = gz;
-    }
+  // the block's rows of this split, value a * 3 + c of warp r / kR
+  for (int idx = tid; idx < B * 3 * kRowsBlock; idx += kThreads) {
+    const int r = idx % kRowsBlock, bc = idx / kRowsBlock;
+    const int b = bc / 3, c = bc - 3 * b;
+    if (il0 + r < Lb)
+      part[(((size_t)b * q.nsplit + sp) * 3 + c) * Lb + il0 + r] =
+          s_slot[((r / kR) * B + b) * kVals + 3 * (r % kR) + c];
   }
-  __syncthreads();
+  // the block's energy: the warps in order (scaled by the second kernel)
+  for (int b = tid; b < B; b += kThreads) {
+    float e = 0.f;
+    for (int wi = 0; wi < kWarps; ++wi) e += s_slot[(wi * B + b) * kVals + 3 * kR];
+    e_part[(size_t)b * gridDim.x * gridDim.y + sp * gridDim.x + rg] = e;
+  }
+}
 
-  for (int b = threadIdx.x; b < B; b += blockDim.x) {
-    const float* p = s_part + (size_t)b * kWarps * 5;
-    float e_noe = 0.f, e_vdw = 0.f, gx = 0.f, gy = 0.f, gz = 0.f;
-    for (int k = 0; k < kWarps; ++k) {
-      e_noe += p[5 * k];
-      e_vdw += p[5 * k + 1];
-      gx += p[5 * k + 2];
-      gy += p[5 * k + 3];
-      gz += p[5 * k + 4];
-    }
-    e_rows[(size_t)b * Lb + il] = 0.5f * noe * e_noe + 0.5f * vdw * e_vdw;
-    float* gb = gT + (size_t)b * 3 * Lb;
-    gb[il] = gx;
-    gb[Lb + il] = gy;
-    gb[2 * Lb + il] = gz;
+// gT[b, c, il] = the splits' partials in split order; e[b] = 1/4 of the
+// blocks' energies (the patches carry 2 noe and 2 vdw), in a fixed order.
+__global__ void __launch_bounds__(kThreads)
+general_reduce_kernel(const float* __restrict__ part,    // (B, nsplit, 3, Lb)
+                      const float* __restrict__ e_part,  // (B, nblk)
+                      float* __restrict__ gT,            // (B, 3, Lb) out
+                      float* __restrict__ e,             // (B,) out
+                      int Lb, int nsplit, int nblk) {
+  const int b = blockIdx.y;
+  const int idx = blockIdx.x * kThreads + threadIdx.x;
+  if (idx < 3 * Lb) {
+    const float* pp = part + (size_t)b * nsplit * 3 * Lb + idx;
+    float g = 0.f;
+    for (int s = 0; s < nsplit; ++s) g += pp[(size_t)s * 3 * Lb];
+    gT[(size_t)b * 3 * Lb + idx] = g;
   }
+  if (blockIdx.x != 0) return;
+  c3d::block_sum(e_part + (size_t)b * nblk, nblk, 0.25f, e + b);
 }
 
 }  // namespace
 
-// B5 is row0 = 0, Lb = L; B5' a shard's rows [row0, row0 + Lb).
+// B5 is row0 = 0, Lb = L; B5' a shard's rows [row0, row0 + Lb). part:
+// (B, nsplit, 3, Lb) and e_part: (B, ceil(Lb / 32) nsplit) scratch allocated
+// by the caller, nsplit = ceil(ceil(L / 128) / cps); the structures go
+// through the pair kernel bslice at a time.
 extern "C" int c3d_general_pair(const float* xT, const float* lo, const float* hi,
-                                const float* w, const float* bm, float* e_rows,
-                                float* gT, int B, int L, int row0, int Lb,
-                                float noe, float vdw, float vdw_radius,
-                                float rswitch, void* stream) {
-  if (row0 < 0 || Lb <= 0 || row0 + Lb > L) return (int)cudaErrorInvalidValue;
-  // four staged rows and the per-warp partial sums; past the card's 227 KB
-  // a block can opt into, the attribute call fails and the wrapper raises
-  const size_t smem = (4 * (size_t)L + 5 * (size_t)kWarps * B) * sizeof(float);
+                                const float* w, const float* bm, float* part,
+                                float* e_part, float* e, float* gT, int B, int L,
+                                int row0, int Lb, int cps, int bslice, float noe,
+                                float vdw, float vdw_radius, float rswitch,
+                                void* stream) {
+  if (row0 < 0 || Lb <= 0 || row0 + Lb > L || cps <= 0 || bslice <= 0 || B <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int nchunks = (L + kChunk - 1) / kChunk;
+  const int nsplit = (nchunks + cps - 1) / cps;
+  const int groups = (Lb + kRowsBlock - 1) / kRowsBlock;
+  const int nblk = groups * nsplit;
+  cudaStream_t st = (cudaStream_t)stream;
+  // past the 227 KB a block can opt into, the attribute call fails and the
+  // wrapper raises
+  const size_t smem = (size_t)smem_floats(min(bslice, B)) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       general_pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  general_pair_kernel<<<Lb, kWarps * 32, smem, (cudaStream_t)stream>>>(
-      xT, lo, hi, w, bm, e_rows, gT, B, L, row0, Lb, noe, vdw, vdw_radius,
-      rswitch);
+  for (int b0 = 0; b0 < B; b0 += bslice) {
+    const int Bl = min(bslice, B - b0);
+    const GeneralParams q{Bl, L, row0, Lb, cps, nsplit,
+                          2.f * noe, 2.f * vdw, vdw_radius, rswitch};
+    general_pair_kernel<<<dim3(groups, nsplit), kThreads,
+                          (size_t)smem_floats(Bl) * sizeof(float), st>>>(
+        xT + (size_t)b0 * 3 * L, lo, hi, w, bm,
+        part + (size_t)b0 * nsplit * 3 * Lb, e_part + (size_t)b0 * nblk, q);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((3 * Lb + kThreads - 1) / kThreads, B);
+  general_reduce_kernel<<<grid, kThreads, 0, st>>>(part, e_part, gT, e, Lb, nsplit, nblk);
   return (int)cudaGetLastError();
 }

@@ -18,29 +18,49 @@
 // with i and j global bead indices. The Pallas kernels form the row gradient
 // as x_i sum_j c_ij - (c @ X)_i and the column gradient as x_j sum_i c_ij -
 // (X^T c)_j, which cancel two large float32 terms (ROADMAP §C); here each
-// pair's force is summed over the differences already in registers.
+// pair's force is summed over the differences already in registers. That
+// also rules the tensor cores out (those products are the only matrix form
+// of the gradient, and d^2 from a Gram product loses ~1e-3 near contact):
+// an FP32 CUDA-core body with one MUFU rsqrt per pair.
 //
-// One block of 256 threads (16 x 16) per (tile, shell); each thread keeps a
-// kPer x kPer patch of t, w and the masks in registers, loaded from HBM
-// once, and reuses it for all B structures. Per structure the row sums
-// reduce over the 16 threads of a half-warp by shuffles and the column sums
-// over the block through shared memory, in a fixed order. Partials go to a
-// (B, 2S, 3, W) buffer: row partials of shell s at slot s, position of the
-// row in the strip; column partials at slot S + s, at the column tile's
-// position (B3, W = Tg TM) or at the row tile's own position (B6, the
-// compact layout of the Pallas strip kernel, W = Lb). Energies go to
-// e_part[b, s Tl + i]. No float atomics: the same inputs give the same bits.
-// TM = 8 leaves all but an 8 x 8 corner of the threads idle; it only serves
-// strips whose height 64, 32 and 16 do not divide.
+// What bounds it on an H100: instruction issue, ~22 arithmetic instructions
+// per unordered pair against 132 SMs x 128 lanes; the (Tl TM, L) tiles are
+// read once a call and move in a fraction of that time. What the design does
+// about the rest of a pair's cost:
+//  * one block of 256 threads (16 x 16) per (tile, shell); a thread keeps a
+//    kPer x kPer patch of t, 2 noe w pv and 2 vdw nb in registers (rows
+//    kPer ty + a, columns tx + 16 k), loaded from global memory once and reused
+//    for all B structures;
+//  * the structures go through in slices of BS: the row and column tiles'
+//    coordinates of a slice are staged in shared memory by cp.async, the
+//    next slice's while this one is computed, so the loop over structures
+//    reads no global memory;
+//  * inside that loop nothing crosses a warp: a warp owns its 2 x kPer rows
+//    over all TM columns, so the row sums (and the energy) finish in a
+//    multi-value butterfly over each half-warp (warp_fold.cuh: 13 values in
+//    11 shuffles) and land in shared memory; the column sums fold once over
+//    the two half-warps and land in a per-warp slot of every structure of
+//    the slice. No barrier in the loop; one after it, then every thread adds
+//    the 8 warps' column slots in warp order and writes the slice's row and
+//    column partials with coalesced stores.
+// Partials go to a (B, 2S, 3, W) buffer: row partials of shell s at slot s,
+// position of the row in the strip; column partials at slot S + s, at the
+// column tile's position (B3, W = Tg TM) or at the row tile's own position
+// (B6, the compact layout of the Pallas strip kernel, W = Lb). Energies go
+// to e_part[b, s Tl + i]. No float atomics: the same inputs give the same
+// bits. TM = 8 leaves all but an 8 x 8 corner of the threads idle; it only
+// serves strips whose height 64, 32 and 16 do not divide.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include "warp_fold.cuh"
+
 namespace c3d_tri {
 
-constexpr int kThreads = 256;   // 16 x 16 threads
-constexpr int kWarps = kThreads / 32;
+using c3d::kThreads;
+using c3d::kWarps;
 constexpr float kEps = 1e-12f;
 
 struct TriParams {
@@ -49,22 +69,24 @@ struct TriParams {
   int row0t;        // the strip's first global row tile (0 for B3)
   int W;            // width of one partial slot
   int compact;      // column partials at the row tile's position (B6)
+  int BS;           // structures a slice
   float noe, vdw, r0;
 };
+
+// floats of shared memory a block needs for slices of BS structures: two
+// buffers of row and column coordinates, the warps' column slots, and the
+// row sums followed by the half-warps' energies
+__host__ __device__ constexpr int smem_floats(int TM, int BS) {
+  return BS * (2 * 2 * 3 * TM + kWarps * 3 * (TM >= 16 ? TM : 16) + 3 * TM + 2 * kWarps);
+}
 
 // internal linkage: each source that includes this header gets its own
 // kernel instantiations, so two objects in one library never register the
 // same kernel twice
 namespace {
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
 template <int TM>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 tri_pair_kernel(const float* __restrict__ xT,   // (B, 3, L)
                 const float* __restrict__ t,    // (Tl TM, L) target rows of the strip
                 const float* __restrict__ w,    // (Tl TM, L) folded weights
@@ -73,27 +95,61 @@ tri_pair_kernel(const float* __restrict__ xT,   // (B, 3, L)
                 float* __restrict__ e_part,     // (B, Tl S) out
                 TriParams q) {
   constexpr int kPer = TM >= 16 ? TM / 16 : 1;
-  __shared__ float col_sm[kWarps][3][TM];
-  __shared__ float e_sm[kWarps];
-  const int Tl = q.Tl, Tg = q.Tg, S = q.S, L = q.L, W = q.W;
+  constexpr int NC = 3 * kPer;        // a thread's column sums per structure
+  constexpr int NR = 3 * kPer + 1;    // its row sums and its energy
+  constexpr int HC = NC / 2;
+  constexpr int kColSlot = NC * 16;   // one warp's column sums of one structure
+  constexpr int kRowSlot = 3 * TM + 2 * kWarps;   // row sums, then energies
+  extern __shared__ float smem[];
+  const int BS = q.BS;
+  float* s_x = smem;                            // [2][BS][2][3][TM] rows, columns
+  float* s_col = s_x + 2 * BS * 6 * TM;         // [BS][kWarps][NC][16]
+  float* s_row = s_col + BS * kWarps * kColSlot;   // [BS][3 TM rows + 2 kWarps energies]
+
+  const int Tl = q.Tl, Tg = q.Tg, S = q.S, L = q.L, W = q.W, B = q.B;
   const int blk = blockIdx.x;
   const int ti = blk % Tl, sh = blk / Tl;
   const int ig = q.row0t + ti;
   const int tj = (ig + sh) % Tg;
   const bool live = !((Tg % 2 == 0) && sh == S - 1 && ig >= Tg / 2);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int lane = tid & 31, warp = tid >> 5;
   const int lrow0 = ti * TM;                 // the tile's rows in the strip
   const int row0 = ig * TM, col0 = tj * TM;  // global
   const bool active = TM >= 16 || (tx < TM && ty < TM);
+  // for the passes over a tile's TM beads: this thread's bead, and which of
+  // the 256 / TM structures in flight it takes
+  constexpr int kGroups = kThreads / TM;
+  const int tp = tid % TM, grp = tid / TM;
 
-  // this thread's pairs: rows row0 + ty + 16 a, columns col0 + tx + 16 k;
+  // slice sl's coordinates: rows of the row tile, then of the column tile;
+  // beads past L are zero
+  auto stage = [&](int sl) {
+    float* dst = s_x + (sl & 1) * BS * 6 * TM;
+    const int nb = min(BS, B - sl * BS);
+    for (int bl = grp; bl < nb; bl += kGroups) {
+#pragma unroll
+      for (int sc = 0; sc < 6; ++sc) {            // side * 3 + component
+        const int bead = (sc >= 3 ? col0 : row0) + tp;
+        const bool in = bead < L;
+        c3d::copy_async(dst + (bl * 6 + sc) * TM + tp,
+                        xT + ((size_t)(sl * BS + bl) * 3 + sc % 3) * L + (in ? bead : 0),
+                        in);
+      }
+    }
+    c3d::copy_async_commit();
+  };
+  stage(0);
+
+  // this thread's pairs: rows row0 + kPer ty + a, columns col0 + tx + 16 k;
   // beads past L are zero (no restraint, no vdw)
   float tt[kPer][kPer], ww[kPer][kPer], nn[kPer][kPer];
+  const float two_noe = 2.0f * q.noe, two_vdw = 2.0f * q.vdw, r0 = q.r0;
 #pragma unroll
   for (int a = 0; a < kPer; ++a) {
-    const int r = row0 + ty + 16 * a;
-    const int rl = lrow0 + ty + 16 * a;
+    const int r = row0 + kPer * ty + a;
+    const int rl = lrow0 + kPer * ty + a;
     const float bmr = active && r < L ? bm[r] : 0.f;
 #pragma unroll
     for (int k = 0; k < kPer; ++k) {
@@ -102,129 +158,136 @@ tri_pair_kernel(const float* __restrict__ xT,   // (B, 3, L)
       const float pv = in ? bmr * bm[c] : 0.f;
       const size_t idx = (size_t)rl * L + c;
       tt[a][k] = in ? t[idx] : 0.f;
-      ww[a][k] = in ? w[idx] * pv : 0.f;
-      nn[a][k] = (abs(r - c) >= 2) ? pv : 0.f;
+      ww[a][k] = in ? two_noe * (w[idx] * pv) : 0.f;
+      nn[a][k] = (abs(r - c) >= 2) ? two_vdw * pv : 0.f;
     }
   }
-  const float half_noe = 0.5f * q.noe, half_vdw = 0.5f * q.vdw;
-  const float two_noe = 2.0f * q.noe, two_vdw = 2.0f * q.vdw;
-  const float e_scale = live ? (sh == 0 ? 1.0f : 2.0f) : 0.0f;
-  const size_t slot = (size_t)3 * W;
-  const int col_out0 = q.compact ? lrow0 : col0;
+  // where this lane's one value of the row fold goes: value a * 3 + c is a
+  // row sum, value NR - 1 the half-warp's energy
+  int which;
+  bool owner;
+  c3d::fold_all_id<8, NR>(lane, which, owner);
+  const bool is_e = which == NR - 1;
+  const int row_p = kPer * ty + which / 3;
+  owner = owner && (is_e || row_p < TM);
+  float* row_dst = s_row + (is_e ? 3 * TM + warp * 2 + (lane >> 4)
+                                 : (which % 3) * TM + (row_p < TM ? row_p : 0));
+  // the column fold keeps values up HC + i of columns tx (up = lane >= 16)
+  const bool up = lane & 16;
+  float* col_dst = s_col + warp * kColSlot + (up ? HC : 0) * 16 + tx;
 
-  for (int b = 0; b < q.B; ++b) {
-    const float* xb = xT + (size_t)b * 3 * L;
-    float ar[kPer][3], xc[kPer][3];
-#pragma unroll
-    for (int a = 0; a < kPer; ++a) {
-      const int r = row0 + ty + 16 * a;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) ar[a][c] = r < L ? xb[c * L + r] : 0.f;
-    }
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      const int col = col0 + tx + 16 * k;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) xc[k][c] = col < L ? xb[c * L + col] : 0.f;
-    }
-    float e = 0.f, gr[kPer][3], gc[kPer][3];
-#pragma unroll
-    for (int a = 0; a < kPer; ++a)
-#pragma unroll
-      for (int c = 0; c < 3; ++c) gr[a][c] = gc[a][c] = 0.f;
+  const int nsl = (B + BS - 1) / BS;
+  for (int sl = 0; sl < nsl; ++sl) {
+    const int nb = min(BS, B - sl * BS);
+    // this slice's coordinates have landed; every thread is done with the
+    // other buffer and with the last slice's sums
+    c3d::copy_async_wait<0>();
+    __syncthreads();
+    if (sl + 1 < nsl) stage(sl + 1);
+    const float* xs = s_x + (sl & 1) * BS * 6 * TM;
+
     if (live) {
+      for (int bl = 0; bl < nb; ++bl) {
+        const float* xr = xs + bl * 6 * TM + kPer * ty;
+        const float* xk = xs + bl * 6 * TM + 3 * TM + tx;
+        float ar[kPer][3], xc[kPer][3];
 #pragma unroll
-      for (int a = 0; a < kPer; ++a) {
+        for (int c = 0; c < 3; ++c) {
 #pragma unroll
-        for (int k = 0; k < kPer; ++k) {
-          const float dx = ar[a][0] - xc[k][0];
-          const float dy = ar[a][1] - xc[k][1];
-          const float dz = ar[a][2] - xc[k][2];
-          float s = kEps + dx * dx;
-          s = s + dy * dy;
-          s = s + dz * dz;
-          const float rinv = rsqrtf(s);
-          const float u = 1.0f - tt[a][k] * rinv;
-          const float wu = ww[a][k] * u;
-          const float v = fmaxf(q.r0 * rinv - 1.0f, 0.f);
-          const float nv = nn[a][k] * v;
-          e += s * (half_noe * (wu * u) + half_vdw * (nv * v));
-          const float cf = two_noe * wu - two_vdw * nv;
-          const float fx = cf * dx, fy = cf * dy, fz = cf * dz;
-          gr[a][0] += fx;
-          gr[a][1] += fy;
-          gr[a][2] += fz;
-          gc[k][0] -= fx;
-          gc[k][1] -= fy;
-          gc[k][2] -= fz;
+          for (int a = 0; a < kPer; ++a)
+            ar[a][c] = (TM >= 16 || ty < TM) ? xr[c * TM + a] : 0.f;
+#pragma unroll
+          for (int k = 0; k < kPer; ++k)
+            xc[k][c] = (TM >= 16 || tx < TM) ? xk[c * TM + 16 * k] : 0.f;
         }
-      }
-    }
-
-    // energy: warp sums, then the warps in order (thread 0, below)
-    e = warp_sum(e);
-    if (lane == 0) e_sm[warp] = e;
-
-    // rows: the 16 threads of a half-warp share rows (xor 1..8 stays inside)
-    float* prow = part + ((size_t)b * 2 * S + sh) * slot + lrow0 + ty;
+        float gr[NR], gc[NC];
 #pragma unroll
-    for (int a = 0; a < kPer; ++a) {
+        for (int n = 0; n < NR; ++n) gr[n] = 0.f;
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        float v = gr[a][c];
-        v += __shfl_xor_sync(0xffffffffu, v, 1);
-        v += __shfl_xor_sync(0xffffffffu, v, 2);
-        v += __shfl_xor_sync(0xffffffffu, v, 4);
-        v += __shfl_xor_sync(0xffffffffu, v, 8);
-        if (tx == 0 && (TM >= 16 || ty < TM)) prow[c * W + 16 * a] = v;
-      }
-    }
-
-    // columns: the two half-warps, then the warps through shared memory
+        for (int n = 0; n < NC; ++n) gc[n] = 0.f;
 #pragma unroll
-    for (int k = 0; k < kPer; ++k) {
+        for (int a = 0; a < kPer; ++a) {
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float v = gc[k][c] + __shfl_xor_sync(0xffffffffu, gc[k][c], 16);
-        if (lane < 16 && (TM >= 16 || tx < TM)) col_sm[warp][c][tx + 16 * k] = v;
+          for (int k = 0; k < kPer; ++k) {
+            // every product and sum spelled out (fmaf or a never-fused
+            // intrinsic), so the compiler fuses the same way in every pair
+            const float dx = ar[a][0] - xc[k][0];
+            const float dy = ar[a][1] - xc[k][1];
+            const float dz = ar[a][2] - xc[k][2];
+            const float s = fmaf(dz, dz, fmaf(dy, dy, fmaf(dx, dx, kEps)));
+            const float rinv = c3d::rsqrt_fast(s);
+            const float u = fmaf(-tt[a][k], rinv, 1.0f);
+            const float wu = __fmul_rn(ww[a][k], u);
+            const float v = fmaxf(fmaf(r0, rinv, -1.0f), 0.f);
+            const float nv = __fmul_rn(nn[a][k], v);
+            gr[NR - 1] = fmaf(s, fmaf(nv, v, __fmul_rn(wu, u)), gr[NR - 1]);
+            const float cf = __fsub_rn(wu, nv);
+            gr[3 * a] = fmaf(cf, dx, gr[3 * a]);
+            gr[3 * a + 1] = fmaf(cf, dy, gr[3 * a + 1]);
+            gr[3 * a + 2] = fmaf(cf, dz, gr[3 * a + 2]);
+            gc[3 * k] = fmaf(-cf, dx, gc[3 * k]);
+            gc[3 * k + 1] = fmaf(-cf, dy, gc[3 * k + 1]);
+            gc[3 * k + 2] = fmaf(-cf, dz, gc[3 * k + 2]);
+          }
+        }
+        // rows and energy: over the 16 threads of a half-warp
+        c3d::fold_all<8>(gr, lane);
+        if (owner) row_dst[bl * kRowSlot] = gr[0];
+        // columns: over the two half-warps; the warps meet after the loop
+        c3d::fold<NC, 16>(gc, up);
+        float* cd = col_dst + bl * kWarps * kColSlot;
+#pragma unroll
+        for (int i = 0; i < HC; ++i) cd[i * 16] = gc[i];
+        if ((NC & 1) && !up) s_col[(bl * kWarps + warp) * kColSlot + (NC - 1) * 16 + tx] = gc[HC];
       }
     }
     __syncthreads();
-    if (threadIdx.x < 3 * TM) {
-      const int c = threadIdx.x / TM, col = threadIdx.x % TM;
-      float v = 0.f;
+
+    // the slice's partials: rows as they are, columns summed over the warps
+    // in order (value k * 3 + c of column tx + 16 k); a dead twin writes 0
+    const size_t slot = (size_t)3 * W;
+    const int col_out0 = q.compact ? lrow0 : col0;
+    for (int bl = grp; bl < nb; bl += kGroups) {
+      const size_t b = (size_t)sl * BS + bl;
 #pragma unroll
-      for (int wi = 0; wi < kWarps; ++wi) v += col_sm[wi][c][col];
-      // the diagonal shell's rows already hold both ends of its pairs
-      part[((size_t)b * 2 * S + S + sh) * slot + (size_t)c * W + col_out0 + col] =
-          sh == 0 ? 0.f : v;
+      for (int c = 0; c < 3; ++c) {
+        float gcol = 0.f, grow = 0.f;
+        if (live) {
+          grow = s_row[bl * kRowSlot + c * TM + tp];
+          const float* cs =
+              s_col + bl * kWarps * kColSlot + ((tp / 16) * 3 + c) * 16 + (tp % 16);
+#pragma unroll
+          for (int wi = 0; wi < kWarps; ++wi) gcol += cs[wi * kColSlot];
+        }
+        part[(b * 2 * S + sh) * slot + (size_t)c * W + lrow0 + tp] = grow;
+        // the diagonal shell's rows already hold both ends of its pairs
+        part[(b * 2 * S + S + sh) * slot + (size_t)c * W + col_out0 + tp] =
+            sh == 0 ? 0.f : gcol;
+      }
     }
-    if (threadIdx.x == 0) {
+    // the patches carry 2 noe and 2 vdw: e = 1/4 s (ww u^2 + nn v^2)
+    const float e_scale = live ? (sh == 0 ? 0.25f : 0.5f) : 0.0f;
+    for (int bl = tid; bl < nb; bl += kThreads) {
       float et = 0.f;
-#pragma unroll
-      for (int wi = 0; wi < kWarps; ++wi) et += e_sm[wi];
-      e_part[(size_t)b * Tl * S + blk] = e_scale * et;
+      if (live)
+        for (int h = 0; h < 2 * kWarps; ++h) et += s_row[bl * kRowSlot + 3 * TM + h];
+      e_part[((size_t)sl * BS + bl) * Tl * S + blk] = e_scale * et;
     }
-    __syncthreads();  // col_sm and e_sm are reused by the next structure
   }
 }
 
-// e = the sum of one structure's nblk block energies in a fixed order:
-// thread k adds blocks k, k + 256, ..., then the warps, then thread 0 adds
-// the warps in order. Called by every thread of a 256-thread block.
-__device__ __forceinline__ void block_energy_sum(const float* __restrict__ ep,
-                                                 int nblk, float* __restrict__ out) {
-  __shared__ float e_sm[kWarps];
-  float v = 0.f;
-  for (int k = threadIdx.x; k < nblk; k += kThreads) v += ep[k];
-  v = warp_sum(v);
-  if ((threadIdx.x & 31) == 0) e_sm[threadIdx.x >> 5] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float et = 0.f;
-    for (int wi = 0; wi < kWarps; ++wi) et += e_sm[wi];
-    *out = et;
-  }
+// the pair kernel for one tile edge, with the shared memory it asks for
+template <int TM>
+cudaError_t launch_pairs(const float* xT, const float* t, const float* w,
+                         const float* bm, float* part, float* e_part,
+                         const TriParams& q, cudaStream_t st) {
+  const int smem = smem_floats(TM, q.BS) * (int)sizeof(float);
+  // past the 227 KB a block can opt into, the attribute call fails
+  cudaError_t err = cudaFuncSetAttribute(
+      tri_pair_kernel<TM>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  tri_pair_kernel<TM><<<q.Tl * q.S, kThreads, smem, st>>>(xT, t, w, bm, part, e_part, q);
+  return cudaGetLastError();
 }
 
 }  // namespace

@@ -34,6 +34,8 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC",
 )
 
+SMEM_MAX = 232_448   # bytes of shared memory a block can opt into on sm_90
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -43,20 +45,21 @@ SIGNATURES = {
     # x, t, w, bead_mask, e_rows, g, B, L, row0, Lb, noe, vdw, vdw_radius,
     # stream
     "c3d_exact_pair": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P),
-    # xT, lo, hi, w, bead_mask, e_rows, gT, B, L, row0, Lb, noe, vdw,
-    # vdw_radius, rswitch, stream
+    # xT, lo, hi, w, bead_mask, part, e_part, e, gT, B, L, row0, Lb, cps,
+    # bslice, noe, vdw, vdw_radius, rswitch, stream
     "c3d_general_pair": (
-        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+        _F, _F, _F, _F, _P,
     ),
-    # xT, t, w, bead_mask, part, e_part, gT, e, B, L, T, tile, noe, vdw,
-    # vdw_radius, stream
-    "c3d_exact_tri": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P,
-    ),
-    # xT, t, w, bead_mask, part, e_part, gT, e, B, L, row0, Lb, tile, noe,
+    # xT, t, w, bead_mask, part, e_part, gT, e, B, L, T, tile, bslice, noe,
     # vdw, vdw_radius, stream
-    "c3d_exact_tri_strip": (
+    "c3d_exact_tri": (
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P,
+    ),
+    # xT, t, w, bead_mask, part, e_part, gT, e, B, L, row0, Lb, tile, bslice,
+    # noe, vdw, vdw_radius, stream
+    "c3d_exact_tri_strip": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P,
     ),
     # xT, gT, muT, nuT, bead_mask, e_rows, xTo, muTo, nuTo, B, L, lr, sigma,
     # b1, b2, eps, bc1, bc2, bond_w, bond_len, clip, seed, step, stream

@@ -32,18 +32,50 @@ from chromosome3d_tpu_torch.ops.energy import _EPS, EnergyWeights
 from chromosome3d_tpu_torch.ops.pair_energy import check_inputs
 
 _PLAIN_CHUNK_ELEMS = 1 << 24    # the twin's (B, rows, L) temporaries per chunk
-_SMEM_MAX = 232_448             # bytes of shared memory a block can opt into
-_WARPS = 16                     # kWarps in general_pair.cu
+# general_pair.cu's block: 8 warps of 4 rows each, 128-column chunks, 13 sums
+# per warp and structure
+_THREADS, _WARPS, _ROWS_BLOCK, _CHUNK, _VALS = 256, 8, 32, 128, 13
+_BATCH_MAX = 24                 # structures a launch: two blocks fit an SM
+_SPLITS_MAX = 40                # column splits: one chunk each up to L = 5120
 
 
-def _check_smem(B: int, L: int) -> None:
-    """The kernel stages four L-float rows and 5 x 16 partial sums per
-    structure in shared memory; refuse a shape past the card's limit."""
-    need = 4 * (4 * L + 5 * _WARPS * B)
-    if need > _SMEM_MAX:
+def general_pair_plan(B: int, L: int, Lb: int) -> dict:
+    """What the wrapper decides on the host for B structures and the Lb rows
+    of an (Lb, L) strip (B5: Lb = L): a grid of (row groups of 32 rows,
+    column splits of `cps` 128-column chunks), the structures in launches of
+    `bslice`, the shared memory of a block and the scratch shapes. The
+    column split is a function of L alone, so a row meets the same columns
+    in the same order in B5 and in B5'; the shared memory does not grow
+    with L. Raises ValueError past the card's shared memory."""
+    nchunks = -(-L // _CHUNK)
+    cps = -(-nchunks // _SPLITS_MAX)
+    nsplit = -(-nchunks // cps)
+    groups = -(-Lb // _ROWS_BLOCK)
+    launches = -(-B // _BATCH_MAX)
+    bslice = -(-B // launches)
+    smem = 4 * bslice * (2 * 3 * _CHUNK + 3 * _ROWS_BLOCK + _WARPS * _VALS)
+    if smem > _build.SMEM_MAX:
         raise ValueError(
-            f"general_pair.cu needs {need} bytes of shared memory at B={B}, "
-            f"L={L}; a block can have at most {_SMEM_MAX}")
+            f"general_pair.cu needs {smem} bytes of shared memory at B={B}; "
+            f"a block can have at most {_build.SMEM_MAX}")
+    return {
+        "threads": _THREADS, "rows_block": _ROWS_BLOCK, "chunk": _CHUNK,
+        "cps": cps, "nsplit": nsplit, "row_groups": groups,
+        "blocks": groups * nsplit, "bslice": bslice, "launches": launches,
+        "smem_bytes": smem, "part_shape": (B, nsplit, 3, Lb),
+        "e_part_shape": (B, groups * nsplit),
+    }
+
+
+def plan_rows(plan: dict, group: int, Lb: int) -> range:
+    """The strip rows block row `group` of the grid computes."""
+    return range(group * plan["rows_block"], min(Lb, (group + 1) * plan["rows_block"]))
+
+
+def plan_cols(plan: dict, split: int, L: int) -> range:
+    """The columns block column `split` of the grid sweeps, in order."""
+    width = plan["cps"] * plan["chunk"]
+    return range(split * width, min(L, (split + 1) * width))
 
 
 def general_pair_tiles(restraints):
@@ -125,6 +157,29 @@ def general_pair_energy_grad_plain(
 general_pair_energy_grad_plain.calls = 0
 
 
+def _launch(xT, lo, hi, w, weights, bead_mask, row_start, dev):
+    """csrc/general_pair.cu on the rows the (Lb, L) tiles hold: (energies
+    (B,), gradient rows (B, 3, Lb))."""
+    B, L = xT.shape[0], xT.shape[2]
+    Lb = lo.shape[0]
+    plan = general_pair_plan(B, L, Lb)
+    lib = _build.load_library()
+    part = torch.empty(plan["part_shape"], dtype=torch.float32, device=dev)
+    e_part = torch.empty(plan["e_part_shape"], dtype=torch.float32, device=dev)
+    e = torch.empty((B,), dtype=torch.float32, device=dev)
+    gT = torch.empty((B, 3, Lb), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.c3d_general_pair(
+            xT.data_ptr(), lo.data_ptr(), hi.data_ptr(), w.data_ptr(),
+            bead_mask.data_ptr(), part.data_ptr(), e_part.data_ptr(), e.data_ptr(),
+            gT.data_ptr(), B, L, row_start, Lb, plan["cps"], plan["bslice"],
+            weights.noe, weights.vdw, weights.vdw_radius, weights.noe_rswitch,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(err, "c3d_general_pair")
+    return e, gT
+
+
 def general_pair_energy_grad(
     xT: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, w: torch.Tensor,
     weights: EnergyWeights, bead_mask: torch.Tensor,
@@ -146,20 +201,9 @@ def general_pair_energy_grad(
         raise ValueError(f"empty batch: B={B}, L={L}")
     if dev.type == "cpu":
         return general_pair_energy_grad_plain(xT, lo, hi, w, weights, bead_mask)
-    _check_smem(B, L)
-    lib = _build.load_library()
-    e_rows = torch.empty((B, L), dtype=torch.float32, device=dev)
-    gT = torch.empty_like(xT)
-    with torch.cuda.device(dev):
-        err = lib.c3d_general_pair(
-            xT.data_ptr(), lo.data_ptr(), hi.data_ptr(), w.data_ptr(),
-            bead_mask.data_ptr(), e_rows.data_ptr(), gT.data_ptr(), B, L, 0, L,
-            weights.noe, weights.vdw, weights.vdw_radius, weights.noe_rswitch,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(err, "c3d_general_pair")
+    e, gT = _launch(xT, lo, hi, w, weights, bead_mask, 0, dev)
     general_pair_energy_grad.launches += 1
-    return e_rows.sum(1), gT
+    return e, gT
 
 
 general_pair_energy_grad.launches = 0
@@ -203,20 +247,9 @@ def general_row_block_energy_grad(
     if dev.type == "cpu":
         return general_row_block_energy_grad_plain(xT, lo, hi, w, weights, bead_mask,
                                                    row_start)
-    _check_smem(B, L)
-    lib = _build.load_library()
-    e_rows = torch.empty((B, Lb), dtype=torch.float32, device=dev)
-    gT = torch.empty((B, 3, Lb), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.c3d_general_pair(
-            xT.data_ptr(), lo.data_ptr(), hi.data_ptr(), w.data_ptr(),
-            bead_mask.data_ptr(), e_rows.data_ptr(), gT.data_ptr(), B, L,
-            row_start, Lb, weights.noe, weights.vdw, weights.vdw_radius,
-            weights.noe_rswitch, torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(err, "c3d_general_pair")
+    e, gT = _launch(xT, lo, hi, w, weights, bead_mask, row_start, dev)
     general_row_block_energy_grad.launches += 1
-    return e_rows.sum(1), gT
+    return e, gT
 
 
 general_row_block_energy_grad.launches = 0

@@ -26,6 +26,7 @@ import torch
 from chromosome3d_tpu_torch.ops import _build
 from chromosome3d_tpu_torch.ops.energy import _EPS, EnergyWeights
 from chromosome3d_tpu_torch.ops.pair_energy import check_inputs
+from chromosome3d_tpu_torch.ops.tri_energy import tri_plan
 
 _STRIP_TILES = (64, 32, 16, 8)   # the instantiations in exact_tri_strip.cu
 
@@ -82,6 +83,22 @@ def strip_tile(Lb: int) -> Optional[int]:
         if Lb % t == 0:
             return t
     return None
+
+
+def strip_plan(B: int, L: int, Lb: int, row_start: int) -> dict:
+    """B6's host plan for the Lb rows from row_start of length L:
+    `tri_plan` at the strip's tile in the compact layout, plus the strip's
+    first global row tile `row0t`. Raises ValueError where no tile of
+    _STRIP_TILES divides Lb, row_start and L."""
+    tile = strip_tile(Lb)
+    if B <= 0 or tile is None or row_start % tile or L % tile or not (
+            0 <= row_start <= L - Lb):
+        raise ValueError(
+            f"strip-tri needs a tile of {_STRIP_TILES} dividing Lb, row_start "
+            f"and L: B={B}, rows [{row_start}, {row_start + Lb}) of {L}")
+    plan = tri_plan(B, L, Lb, tile, compact=True)
+    plan["row0t"] = row_start // tile
+    return plan
 
 
 def strip_tri_energy_grad_plain(
@@ -162,27 +179,21 @@ def strip_tri_energy_grad(
         "xT": (xT, (B, 3, L)), "target": (target, (Lb, L)), "w": (w, (Lb, L)),
         "bead_mask": (bead_mask, (L,)),
     })
-    tile = strip_tile(Lb)
-    if B == 0 or tile is None or row_start % tile or L % tile or not (
-            0 <= row_start <= L - Lb):
-        raise ValueError(
-            f"strip-tri needs a tile of {_STRIP_TILES} dividing Lb, row_start "
-            f"and L: B={B}, rows [{row_start}, {row_start + Lb}) of {L}")
+    plan = strip_plan(B, L, Lb, row_start)
+    tile = plan["tile"]
     if dev.type == "cpu":
         return strip_tri_energy_grad_plain(xT, target, w, weights, bead_mask,
                                            row_start, tile)
-    Tl, Tg = Lb // tile, L // tile
-    S = Tg // 2 + 1
     lib = _build.load_library()
-    part = torch.empty((B, 2 * S, 3, Lb), dtype=torch.float32, device=dev)
-    e_part = torch.empty((B, Tl * S), dtype=torch.float32, device=dev)
+    part = torch.empty(plan["part_shape"], dtype=torch.float32, device=dev)
+    e_part = torch.empty(plan["e_part_shape"], dtype=torch.float32, device=dev)
     gT = torch.empty_like(xT)
     e = torch.empty((B,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.c3d_exact_tri_strip(
             xT.data_ptr(), target.data_ptr(), w.data_ptr(), bead_mask.data_ptr(),
             part.data_ptr(), e_part.data_ptr(), gT.data_ptr(), e.data_ptr(),
-            B, L, row_start, Lb, tile, weights.noe, weights.vdw,
+            B, L, row_start, Lb, tile, plan["bslice"], weights.noe, weights.vdw,
             weights.vdw_radius, torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, "c3d_exact_tri_strip")

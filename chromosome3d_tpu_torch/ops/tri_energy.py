@@ -17,7 +17,7 @@ for CUDA tensors, counting each in a plain integer on the function
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 
@@ -28,6 +28,48 @@ from chromosome3d_tpu_torch.ops.pair_energy import check_inputs, exact_rows_plai
 
 TILE = 64                       # the kernel's tile edge (kTM in exact_tri.cu)
 _PLAIN_CHUNK_ELEMS = 1 << 24    # the twin's (B, rows, L) temporaries per chunk
+_THREADS, _WARPS = 256, 8       # tri_pair.cuh's block
+_SLICE_MAX = 10                 # structures a slice: two blocks fit an SM
+
+
+def tri_plan(B: int, L: int, Lb: int, tile: int, compact: bool = False) -> dict:
+    """What the wrappers of the tile-pair body (csrc/tri_pair.cuh) decide on
+    the host for B structures and a strip of Lb rows of length L (B3: Lb =
+    L, ragged L allowed; B6: `compact`, tile divides Lb and L): one block
+    per (row tile, shell), the structures through a block in slices of
+    `bslice`, the block's shared memory and the scratch shapes. Raises
+    ValueError past the card's shared memory."""
+    Tg = -(-L // tile)
+    Tl = -(-Lb // tile)
+    S = Tg // 2 + 1
+    bslice = -(-B // -(-B // _SLICE_MAX))
+    smem = 4 * bslice * (2 * 2 * 3 * tile + _WARPS * 3 * max(tile, 16) + 3 * tile
+                         + 2 * _WARPS)
+    if smem > _build.SMEM_MAX:
+        raise ValueError(
+            f"tri_pair.cuh needs {smem} bytes of shared memory at tile {tile}; "
+            f"a block can have at most {_build.SMEM_MAX}")
+    width = Lb if compact else Tg * tile
+    return {
+        "threads": _THREADS, "tile": tile, "Tl": Tl, "Tg": Tg, "S": S,
+        "blocks": Tl * S, "bslice": bslice, "smem_bytes": smem,
+        "part_shape": (B, 2 * S, 3, width), "e_part_shape": (B, Tl * S),
+    }
+
+
+def tile_pairs(Tl: int, Tg: int, row0t: int = 0) -> List[Tuple[int, int, int, bool]]:
+    """The body's blocks for a strip of Tl row tiles from global tile row0t:
+    (row tile, column tile, shell, live) in grid order. A block that is not
+    live is the even-Tg last shell's second meeting of a pair and adds
+    nothing."""
+    S = Tg // 2 + 1
+    out = []
+    for blk in range(Tl * S):
+        ti, sh = blk % Tl, blk // Tl
+        ig = row0t + ti
+        live = not (Tg % 2 == 0 and sh == S - 1 and ig >= Tg // 2)
+        out.append((ig, (ig + sh) % Tg, sh, live))
+    return out
 
 
 def use_triangular(L: int, for_unfused: bool = False) -> bool:
@@ -90,18 +132,18 @@ def tri_energy_grad(
         raise ValueError(f"empty batch: B={B}, L={L}")
     if dev.type == "cpu":
         return tri_energy_grad_plain(xT, target, w, weights, bead_mask)
-    T = -(-L // TILE)
-    S = T // 2 + 1
+    plan = tri_plan(B, L, L, TILE)
     lib = _build.load_library()
-    part = torch.empty((B, 2 * S, 3, T * TILE), dtype=torch.float32, device=dev)
-    e_part = torch.empty((B, T * S), dtype=torch.float32, device=dev)
+    part = torch.empty(plan["part_shape"], dtype=torch.float32, device=dev)
+    e_part = torch.empty(plan["e_part_shape"], dtype=torch.float32, device=dev)
     gT = torch.empty_like(xT)
     e = torch.empty((B,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.c3d_exact_tri(
             xT.data_ptr(), target.data_ptr(), w.data_ptr(), bead_mask.data_ptr(),
             part.data_ptr(), e_part.data_ptr(), gT.data_ptr(), e.data_ptr(),
-            B, L, T, TILE, weights.noe, weights.vdw, weights.vdw_radius,
+            B, L, plan["Tg"], TILE, plan["bslice"], weights.noe, weights.vdw,
+            weights.vdw_radius,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, "c3d_exact_tri")

@@ -2,6 +2,7 @@
 
     python3 scripts/profile_torch_solve.py [--length 4985] [--models 10]
     python3 scripts/profile_torch_solve.py --restraints <file.rr|file.tbl> [--models 10]
+    python3 scripts/profile_torch_solve.py --shards 4 [...]   # the row-sharded solver
 
 Builds a ground-truth chromosome (`confined_walk(length, seed=7)`, IF noise
 0.1), its exact restraints with the on-card prep padded to the length's
@@ -13,7 +14,10 @@ below), two warm solves with a CUDA synchronise, and one more solve under
 torch.profiler. Prints the solve's wall seconds, its device seconds, the
 card's busy share, the device time of the top kernels, and the card's
 `nvidia-smi` name and power limit. The default is chip_smoke.py's at-scale
-shape (L = 4985 -> 5120, 10 models, the default 2,760-step schedule).
+shape (L = 4985 -> 5120, 10 models, the default 2,760-step schedule). With
+--shards N the same tensors are cut into N row strips on N copies of the
+card and go through `solve_ensemble_sharded` (its own landmark start), so
+the one card's busy share on the sharded route can be read.
 """
 
 from __future__ import annotations
@@ -40,6 +44,8 @@ from chromosome3d_tpu_torch.ops.energy import (  # noqa: E402
 )
 from chromosome3d_tpu_torch.pipeline import _bucket_pad  # noqa: E402
 from chromosome3d_tpu_torch.restraints import read_contact_tbl_full, read_rr  # noqa: E402
+from chromosome3d_tpu_torch.parallel.shards import ShardGroup  # noqa: E402
+from chromosome3d_tpu_torch.solver import sharded  # noqa: E402
 from chromosome3d_tpu_torch.solver.anneal import solve_ensemble_impl  # noqa: E402
 from chromosome3d_tpu_torch.solver.init import landmark_init, mds_init  # noqa: E402
 from chromosome3d_tpu_torch.truth import confined_walk, if_from_structure  # noqa: E402
@@ -79,6 +85,8 @@ def main() -> int:
     ap.add_argument("--models", type=int, default=10)
     ap.add_argument("--restraints", default=None,
                     help="profile `solve` on this .rr or .tbl file instead")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="row-shard the solve over this many copies of the card")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_solve: needs an NVIDIA GPU")
@@ -101,19 +109,27 @@ def main() -> int:
     init_s = [timed(lambda: init(ex, bond_length=cfg.bond_length, bead_mask=bm,
                                  two_sided=cfg.embed_two_sided))[1]
               for _ in range(2)]
-    solve_s = [timed(lambda: solve_ensemble_impl(
-        ex, cfg, args.models, bm, generator=torch.Generator().manual_seed(i),
-        or_groups=og))[1]
-        for i in range(2)]
+    if args.shards > 1:
+        group = ShardGroup([dev] * args.shards)
+        strips = sharded.restraint_strips(group, ex)
+
+        def solve(seed):
+            return sharded.solve_ensemble_sharded(
+                group, strips, cfg, args.models, bm, or_groups=og,
+                generator=torch.Generator().manual_seed(seed))
+    else:
+        def solve(seed):
+            return solve_ensemble_impl(
+                ex, cfg, args.models, bm, generator=torch.Generator().manual_seed(seed),
+                or_groups=og)
+    solve_s = [timed(lambda: solve(i))[1] for i in range(2)]
     print(f"L={L}->{L_pad}, {args.models} models, {cfg.total_steps} steps, "
           f"two-sided {cfg.embed_two_sided}, exact {cfg.exact_restraints}, or-groups "
-          f"{0 if og is None else og.lo.shape[0]}: prep "
+          f"{0 if og is None else og.lo.shape[0]}, {args.shards} shard(s): prep "
           f"{prep_s:.4f} s (first call); {init.__name__} {init_s[0]:.4f} s cold, "
           f"{init_s[1]:.4f} s warm; warm solves {solve_s[0]:.4f} s, {solve_s[1]:.4f} s")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall = timed(lambda: solve_ensemble_impl(
-            ex, cfg, args.models, bm, generator=torch.Generator().manual_seed(9),
-            or_groups=og))
+        _, wall = timed(lambda: solve(9))
     rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and e.self_device_time_total > 0), key=lambda r: -r[1])

@@ -28,6 +28,7 @@ from chromosome3d_tpu_torch.ops.fused_step import (
 )
 from chromosome3d_tpu_torch.ops.device_prep import div10
 from chromosome3d_tpu_torch.ops.fused_update import fused_update_batched, fused_update_plain
+from chromosome3d_tpu_torch.ops import general_pair
 from chromosome3d_tpu_torch.ops.general_pair import (
     general_pair_energy_grad,
     general_pair_energy_grad_plain,
@@ -115,6 +116,8 @@ def test_cuda_pair_kernel_matches_plain(cuda_device):
     (300, 290, 20),   # T = 5 (odd), ragged, masked
     (256, 256, 20),   # T = 4, whole tiles, no padding
     (333, 300, 1),    # T = 6, ragged, masked
+    (300, 290, 25),   # three slices of structures, the last one short
+    (192, 180, 11),   # T = 3 (the fewest B3 takes), two slices
 ])
 def test_cuda_tri_kernel_matches_plain(cuda_device, L, n_real, B):
     ex, bm, x, _, _ = _case(cuda_device, L=L, n_real=n_real, B=B)
@@ -133,8 +136,16 @@ def test_cuda_tri_kernel_matches_plain(cuda_device, L, n_real, B):
     (200, 181, 3, 1.0),      # ragged, masked, linear tails
     (333, 300, 20, 1e9),     # ragged, masked, pure quadratic
     (64, 64, 1, 1.0),        # one structure, no padding
+    (129, 129, 2, 1.0),      # one column past a 128-column chunk
+    (300, 290, 25, 1e9),     # more structures than one launch takes
+    (700, 690, 3, 1.0),      # chunk_loop: several chunks a block (see below)
 ])
-def test_cuda_general_pair_matches_plain(cuda_device, L, n_real, B, rswitch):
+def test_cuda_general_pair_matches_plain(cuda_device, monkeypatch, L, n_real, B, rswitch):
+    if L == 700:
+        # two column splits of three chunks each: the kernel's loop over
+        # chunks, which lengths past 5120 take
+        monkeypatch.setattr(general_pair, "_SPLITS_MAX", 2)
+        assert general_pair.general_pair_plan(B, L, L)["cps"] == 3
     ex, bm, x, _, _ = _case(cuda_device, L=L, n_real=n_real, B=B)
     lo = (ex.target * 0.8).contiguous()
     hi = (ex.target * 1.2).contiguous()
@@ -151,20 +162,25 @@ def test_cuda_general_pair_matches_plain(cuda_device, L, n_real, B, rswitch):
     np.testing.assert_array_equal(g[:, :, n_real:].cpu().numpy(), 0.0)
 
 
-@pytest.mark.parametrize("n", [2, 4])
-def test_cuda_row_blocks_are_whole_matrix_rows(cuda_device, n):
+@pytest.mark.parametrize("L,n", [
+    (256, 2),
+    (256, 4),
+    (240, 5),     # blocks of 48 rows: not whole 32-row groups, offsets 48 r
+    (130, 2),     # blocks of 65 rows, one column past a chunk
+])
+def test_cuda_row_blocks_are_whole_matrix_rows(cuda_device, L, n):
     """B5' and B2' on n row blocks: each block's gradient rows are B5's and
     B2's bit for bit (one body), and each block matches its twin."""
-    ex, bm, x, _, _ = _case(cuda_device, L=256, n_real=240, B=5)
+    ex, bm, x, _, _ = _case(cuda_device, L=L, n_real=L - 16, B=5)
     lo = (ex.target * 0.8).contiguous()
     hi = (ex.target * 1.2).contiguous()
     coords = x.transpose(1, 2).contiguous()
     _, g5 = general_pair_energy_grad(x, lo, hi, ex.w, WEIGHTS, bm)
     _, g2 = exact_pair_energy_grad(coords, ex.target, ex.w, WEIGHTS, bm)
-    Lb = 256 // n
+    Lb = L // n
     for r in range(n):
         rows = slice(r * Lb, (r + 1) * Lb)
-        strips = (lo[rows], hi[rows], ex.w[rows])
+        strips = tuple(a[rows].contiguous() for a in (lo, hi, ex.w))
         e, g = general_row_block_energy_grad(x, *strips, WEIGHTS, bm, r * Lb)
         assert torch.equal(g, g5[:, :, rows])
         e_r, g_r = general_row_block_energy_grad_plain(x, *strips, WEIGHTS, bm, r * Lb)
@@ -185,6 +201,8 @@ def test_cuda_row_blocks_are_whole_matrix_rows(cuda_device, n):
     (96, 90, 3, 3),      # tile 32
     (80, 75, 2, 5),      # tile 16
     (96, 90, 3, 4),      # tile 8 (Lb = 24)
+    (320, 300, 23, 5),   # three slices of structures, the last one short
+    (96, 90, 11, 3),     # tile 32, two slices
 ])
 def test_cuda_strip_tri_matches_plain_and_b3(cuda_device, L, n_real, B, n):
     """B6 on n strips: each strip against its twin at the kernel's tile and
@@ -213,6 +231,28 @@ def test_cuda_strip_tri_matches_plain_and_b3(cuda_device, L, n_real, B, n):
         e1, g1 = strip_tri_energy_grad(x, ex.target, ex.w, WEIGHTS, bm, 0)
         e3, g3 = tri_energy_grad(x, ex.target, ex.w, WEIGHTS, bm)
         assert torch.equal(e1, e3) and torch.equal(g1, g3)
+
+
+@pytest.mark.parametrize("body", ["general", "general rows", "tri", "strip"])
+def test_cuda_pair_bodies_equal_bits_over_two_calls(cuda_device, body):
+    """No atomics in either pair body: equal inputs give equal bits, at a
+    shape with several row groups, column splits, shells and slices."""
+    ex, bm, x, _, _ = _case(cuda_device, L=1024, n_real=1000, B=20, seed=3)
+    lo, hi = (ex.target * 0.8).contiguous(), (ex.target * 1.2).contiguous()
+    rows = slice(256, 512)
+    call = {
+        "general": lambda: general_pair_energy_grad(x, lo, hi, ex.w, WEIGHTS, bm),
+        "general rows": lambda: general_row_block_energy_grad(
+            x, lo[rows], hi[rows], ex.w[rows], WEIGHTS, bm, 256),
+        "tri": lambda: tri_energy_grad(x, ex.target, ex.w, WEIGHTS, bm),
+        "strip": lambda: strip_tri_energy_grad(x, ex.target[rows], ex.w[rows],
+                                               WEIGHTS, bm, 256),
+    }[body]
+    e, g = call()
+    for _ in range(3):
+        e2, g2 = call()
+        assert torch.equal(e, e2) and torch.equal(g, g2)
+    assert bool(torch.isfinite(e).all()) and bool(torch.isfinite(g).all())
 
 
 @pytest.mark.parametrize("clip", [None, 0.5])
