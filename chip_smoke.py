@@ -12,7 +12,13 @@ code is not 0):
                of up to 25 calls, and device ms from a torch.profiler trace):
                B1 and B2 at the reference-scale path's shapes (B = 20 and 10
                structures, L = 456 padded to 512), B1's noise bitwise and
-               its padded beads; B3 and B4 at the at-scale path's (B = 20
+               its padded beads, through its single-step face and through
+               the multi-step entry: 8 steps of the default schedule across
+               the hot/cool boundary against the loop of twins (also at
+               L = 768 and at a streamed-mode shape past it), bits equal over
+               two launches and equal to 8 chained one-step launches, the
+               noise of two consecutive steps bitwise, and the time per step
+               of a 256-step launch; B3 and B4 at the at-scale path's (B = 20
                and 10, L = 4985 padded to 5120, tiles from the on-card
                restraint prep) and at small ragged shapes with a bead mask
                (odd and even tile counts, and B = 25 structures in slices
@@ -36,8 +42,9 @@ code is not 0):
                two calls.
   4. main path — resets the launch counters, runs the port's CLI in process
                (`run -i <matrix> -o <out> -m 10`, the default 2,760-step
-               schedule), checks that B1 launched once per step, B2 once (the
-               enantiomer pick) and no other kernel or plain twin ran, checks
+               schedule), checks that B1 launched twice (the hot phase, then
+               the rest) for 2,760 steps in all, B2 once (the enantiomer
+               pick) and no other kernel or plain twin ran, checks
                the artifact set, and scores the rank-01 model against the
                true structure with the ground-truth gates.
   5. at-scale path — writes a ground-truth chromosome shaped like hg19 chr1
@@ -71,8 +78,9 @@ code is not 0):
                checks the launch counts, every other kernel and twin 0, and
                the ground-truth gates.
 Then one JSON line with the kernels' numbers (each with its launches on its
-path, its wall and device ms and its twin's, its bound from the H100's FP32
-and HBM peaks, and library_ms null:
+path, its wall and device ms and its twin's — for B1 per step of a 256-step
+launch, with the steps it ran on the main path — its bound from the H100's
+FP32 and HBM peaks, and library_ms null:
 no single PyTorch call computes a kernel's function) and, last, the result
 line `{"ok": true, "device": {...}}`.
 """
@@ -226,13 +234,76 @@ def ensemble_near(X, L_pad, dev):
     return to(bead), to(xT), to(mu), to(nu)
 
 
-def phase_kernels(dev):
+# B1's multi-step checks: steps of the default schedule across the hot ->
+# cool boundary (step 300), and the launch that is timed
+STEPS_CHECK, STEPS_TIMED = (296, 304), (300, 556)
+# over 8 steps an element of mu' or nu' that nearly cancels keeps the rounding
+# of the bead's large ones: their absolute tolerance adds STEPS_ATOL x max |ref|
+# (measured: mu' max abs err 0.0137-0.0312 against max |mu'| 4.4e4-2.5e5,
+# under 3.2e-7 x max; the other tensors stay inside the one step's tolerances)
+STEPS_ATOL = 1e-6
+
+
+def check_b1_steps(name, tiles, table, bm, state, n_real, plan_mode):
+    """The multi-step kernel over STEPS_CHECK against the loop of single-step
+    twins: e rtol 2e-5 and x' 5e-4 + 5e-4 as for one step (measured over 8
+    steps: x' uses under 1% of it), mu' 5e-4 + 1e-5 and nu' 5e-4 + 1e-8 with
+    STEPS_ATOL x max |ref| added to the absolute part; bits equal over two
+    launches and equal to chained one-step launches; padded beads 0. Returns
+    x's max abs error."""
     from chromosome3d_tpu_torch.ops.fused_step import (
+        fused_steps_batched,
+        fused_steps_plain,
+        fused_steps_plan,
+    )
+
+    B, _, L = state[0].shape
+    plan = fused_steps_plan(L, B, torch.cuda.get_device_properties(0).multi_processor_count)
+    check(plan["mode"] == plan_mode, f"B1 {name}: plan mode {plan['mode']}, want {plan_mode}")
+    k0, k1 = STEPS_CHECK
+    got = fused_steps_batched(*state, tiles, table, k0, k1, bm)
+    again = fused_steps_batched(*state, tiles, table, k0, k1, bm)
+    st, hist = state, []
+    for k in range(k0, k1):
+        h, *st = fused_steps_batched(*st, tiles, table, k, k + 1, bm)
+        hist.append(h[0])
+    ref = fused_steps_plain(*state, tiles, table, k0, k1, bm)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)), f"B1 {name}: two launches differ")
+    check(all(torch.equal(a, b) for a, b in zip(got, (torch.stack(hist), *st))),
+          f"B1 {name}: {k1 - k0} steps in one launch differ from chained one-step launches")
+    close(f"B1 steps e {name}", got[0], ref[0], 2e-5)
+    scale = [float(r.abs().max()) for r in ref]
+    close(f"B1 steps mu' {name}", got[2], ref[2], 5e-4, 1e-5 + STEPS_ATOL * scale[2])
+    close(f"B1 steps nu' {name}", got[3], ref[3], 5e-4, 1e-8 + STEPS_ATOL * scale[3])
+    err = close(f"B1 steps x' {name}", got[1], ref[1], 5e-4, 5e-4)
+    worst = [float(((g - r).abs() / (a + 5e-4 * r.abs())).max())
+             for g, r, a in zip(got[1:], ref[1:], (5e-4, 1e-5, 1e-8))]
+    print(f"[kernels] B1 steps {name}: worst element over the one step's tolerance: x' "
+          f"{worst[0]:.3g}, mu' {worst[1]:.3g} (max |mu'| {scale[2]:.4g}), nu' {worst[2]:.3g} "
+          f"(max |nu'| {scale[3]:.4g}); max abs err mu' "
+          f"{float((got[2] - ref[2]).abs().max()):.3g}, nu' "
+          f"{float((got[3] - ref[3]).abs().max()):.3g}")
+    for what, a in zip(("x'", "mu'", "nu'"), got[1:]):
+        check(bool((a[:, :, n_real:] == 0).all()), f"B1 {name}: padded beads of {what} not 0")
+    print(f"[kernels] B1 fused_steps == loop of twins over steps {k0}..{k1 - 1} at {name} "
+          f"({plan['mode']}, {plan['blocks']} blocks, {plan['rpw']} row(s) a warp, "
+          f"{plan['sg']} structures a block; x' max abs err {err:.3g}); bits equal over two "
+          "launches and to chained one-step launches; padded beads 0")
+    return err
+
+
+def phase_kernels(dev):
+    from chromosome3d_tpu_torch.config import AnnealConfig
+    from chromosome3d_tpu_torch.ops.fused_step import (
+        ScheduleTable,
         clt4_noise,
         fused_step_batched,
         fused_step_plain,
         fused_step_tiles,
+        fused_steps_batched,
     )
+    from chromosome3d_tpu_torch.solver.anneal import schedule_table
     from chromosome3d_tpu_torch.ops.fused_update import fused_update_batched
     from chromosome3d_tpu_torch.ops.pair_energy import (
         exact_pair_energy_grad,
@@ -266,9 +337,33 @@ def phase_kernels(dev):
                                         2**31 - 2, 2759, None)
     check(np.array_equal(xn4.cpu().numpy().view(np.uint32), want.view(np.uint32)),
           "B4 noise differs from B1's bitwise")
-    print(f"[kernels] B1 fused_step == plain at B=20 and B=10, L={L_PAD} "
+    print(f"[kernels] B1 fused_step (one-step face) == plain at B=20 and B=10, L={L_PAD} "
           f"(x' max abs err {b1_err:.3g}); noise bitwise equal (B4's too); "
           "padded beads 0")
+
+    # the multi-step entry, on rows of the default schedule
+    table = schedule_table(AnnealConfig(), seed=12345)
+    for B in (2 * N_MODELS, N_MODELS):
+        st = (xT[:B].contiguous(), mu[:B].contiguous(), nu[:B].contiguous())
+        b1_err = max(b1_err, check_b1_steps(f"B={B}, L={L_PAD}", tiles, table, bm, st,
+                                            L_TRUE, "resident"))
+    for L, n_real, B, mode in ((768, 700, 2 * N_MODELS, "resident"),
+                               (776, 770, 3, "streamed")):
+        ex_r, bm_r, x_r = ragged_case(dev, L, n_real, B, seed=L)
+        check_b1_steps(f"B={B}, L={L}", fused_step_tiles(ex_r, bm_r, w.noe), table, bm_r,
+                       (x_r, torch.zeros_like(x_r), torch.zeros_like(x_r)), n_real, mode)
+    # lr = 0, sigma = 1 from zero state, two steps in one launch: x is
+    # noise(k) + noise(k + 1), exactly
+    seed, k = 2**31 - 2, 2758
+    rows = np.tile(np.array([[0.0, 1.0, w.vdw, w.vdw_radius, 1.0, 1.0]], np.float32), (2, 1))
+    noisy = ScheduleTable(rows=rows, base=w, clip=None, seed=seed, first=k)
+    _, xn2, _, _ = fused_steps_batched(z, z, z, tiles, noisy, k, k + 2, ones)
+    want2 = (clt4_noise(seed, k, 2 * N_MODELS, L_PAD, "cpu")
+             + clt4_noise(seed, k + 1, 2 * N_MODELS, L_PAD, "cpu")).numpy()
+    check(np.array_equal(xn2.cpu().numpy().view(np.uint32), want2.view(np.uint32)),
+          "B1 noise over two steps of one launch differs from the counter hash bitwise")
+    print("[kernels] B1 fused_steps: the noise of two consecutive steps in one launch "
+          "bitwise equal to the counter hash")
 
     coords = xT.transpose(1, 2).contiguous()
     e, g = exact_pair_energy_grad(coords, ex.target, ex.w, w, bm)
@@ -280,8 +375,20 @@ def phase_kernels(dev):
           f"(g max abs err {b2_err:.3g})")
 
     st = (xT, mu, nu)
+    # B1 per step: one launch of STEPS_TIMED's 256 steps (its clones of the
+    # state and its history sum included) over 256
+    n_timed = STEPS_TIMED[1] - STEPS_TIMED[0]
+    per_step = {}
+    for B in (2 * N_MODELS, N_MODELS):
+        stB = tuple(a[:B].contiguous() for a in st)
+        launch = lambda: fused_steps_batched(*stB, tiles, table, *STEPS_TIMED, bm)
+        per_step[B] = (median_ms(launch, 7, warmup=2) / n_timed, device_ms(launch, 5) / n_timed)
+    print(f"[kernels] B1 fused_steps at L={L_PAD}, ms per step of one {n_timed}-step launch "
+          "(median wall of 7 with a sync | device time from torch.profiler, over "
+          f"{n_timed}): " + "; ".join(f"B={B} {v[0]:.5f} | {v[1]:.5f}"
+                                      for B, v in per_step.items()))
     calls = {
-        "B1": lambda: fused_step_batched(*st, tiles, w, bm, *args),
+        "B1 one step": lambda: fused_step_batched(*st, tiles, w, bm, *args),
         "B1 plain": lambda: fused_step_plain(*st, tiles, w, bm, *args),
         "B2": lambda: exact_pair_energy_grad(coords, ex.target, ex.w, w, bm),
         "B2 plain": lambda: exact_pair_energy_grad_plain(coords, ex.target, ex.w, w, bm),
@@ -291,8 +398,12 @@ def phase_kernels(dev):
     print(f"[kernels] at B=20, L={L_PAD}, ms per call as median wall with a "
           "sync around each of 25 | device time from torch.profiler: "
           + "; ".join(f"{k} {wall[k]:.4f} | {on_dev[k]:.4f}" for k in calls))
-    return X, M, {"B1": timing(b1_err, "B1", wall, on_dev),
-                  "B2": timing(b2_err, "B2", wall, on_dev)}, (ex, bm, xT, w)
+    b1 = {"max_abs_err": b1_err, "ms": per_step[2 * N_MODELS][0],
+          "plain_ms": wall["B1 plain"], "device_ms": per_step[2 * N_MODELS][1],
+          "plain_device_ms": on_dev["B1 plain"],
+          "ms_b10": per_step[N_MODELS][0], "device_ms_b10": per_step[N_MODELS][1],
+          "one_step_ms": wall["B1 one step"], "one_step_device_ms": on_dev["B1 one step"]}
+    return X, M, {"B1": b1, "B2": timing(b2_err, "B2", wall, on_dev)}, (ex, bm, xT, w)
 
 
 def ragged_case(dev, L, n_real, B, seed):
@@ -430,7 +541,7 @@ def kernel_counters():
         tri_energy,
     )
 
-    kernels = {"B1": fused_step.fused_step_batched,
+    kernels = {"B1": fused_step.fused_steps_batched,
                "B2": pair_energy.exact_pair_energy_grad,
                "B3": tri_energy.tri_energy_grad,
                "B4": fused_update.fused_update_batched,
@@ -451,6 +562,7 @@ def reset_counters():
     kernels, twins = kernel_counters()
     for fn in kernels.values():
         fn.launches = 0
+    kernels["B1"].steps = 0
     for fn in twins:
         fn.calls = 0
 
@@ -503,7 +615,9 @@ def phase_main_path(X, M, card):
             rc = cli.main(["run", "-i", path, "-o", out, "-m", str(N_MODELS)])
         launches, plain = read_counters()
         check(rc == 0, f"cli run returned {rc}")
-        check_launches("main path", launches, plain, {"B1": steps, "B2": 1})
+        check_launches("main path", launches, plain, {"B1": 2, "B2": 1})
+        b1_steps = kernel_counters()[0]["B1"].steps
+        check(b1_steps == steps, f"main path: B1 ran {b1_steps} steps, want {steps}")
         summary = json.loads(buf.getvalue().strip().splitlines()[-1])
         ident = "chrT_456_matrix"
         for name in (f"{ident}.dist", f"{ident}.rr", "contact.tbl", "contact_violation.txt",
@@ -515,14 +629,15 @@ def phase_main_path(X, M, card):
         met = check_gates(ranked[0], X)
     solve_s = summary["phases"]["solve_s"]
     print(f"[main path] run -m {N_MODELS}, L={L_TRUE}->{L_PAD}: B1 {launches['B1']} "
-          f"launches, B2 {launches['B2']}, B3 0, B4 0, plain 0; rank01 rmsd/Rg "
+          f"launches for {b1_steps} steps, B2 {launches['B2']}, B3 0, B4 0, plain 0; "
+          f"rank01 rmsd/Rg "
           f"{met['rmsd_over_rg']:.4f}, spearman_d {met['spearman_d']:.5f}, "
           f"dRMSD_rel {met['drmsd_rel']:.4f}; best Spearman(IF,1/d) "
           f"{summary['best_spearman_if_inv_d']:.4f}")
     print(f"[main path] solve {solve_s} s (synchronised; the first solve of the "
           f"process, MDS init included), {steps / solve_s} ensemble steps/s, "
           f"wall {summary['wall_seconds']} s on {card}")
-    return launches
+    return launches, b1_steps
 
 
 @contextlib.contextmanager
@@ -1064,20 +1179,27 @@ def phase_sharded_library(dev, X, M, card, shards=2):
 
 # FP32 operations per pair evaluation, counted from each kernel's inner loop
 # (an FMA counts 2, rsqrt 1; the row-sharded kernels run the same loops):
-# B1 32 per ordered pair (fused_step.cu) plus ~100 per bead for the update
+# B1 32 per ordered pair (fused_steps.cu) plus ~100 per bead for the update
 # (step_common.cuh); B2/B2' 35 per ordered pair (exact_pair.cu); B3/B6 36 per
 # unordered pair (tri_pair.cuh); B5/B5' 44 per ordered pair
 # (general_pair.cu); B4 ~100 per bead (step_common.cuh).
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12   # H100 SXM data sheet, at 700 W
 
 
+B1_STEPS_A_LAUNCH = 1380     # the main path: 2,760 steps in 2 launches
+
+
 def work(key, B, L, Lb=None):
     """(FP32 operations, bytes each input read once and each output written
-    once) of one call at these shapes."""
+    once) of one call at these shapes; for B1 of one step of a launch of
+    B1_STEPS_A_LAUNCH: x read and x' written, the table's row and the B
+    energies every step, the three tiles, mu, nu (in and out) and the bead
+    mask once a launch."""
     f, st = 4, 3 * B * L        # float32 bytes; one (B, 3, L) state array
     Lb = L if Lb is None else Lb
     return {
-        "B1": (32 * B * L * L + 100 * B * L, f * (3 * L * L + 6 * st + B * L + L)),
+        "B1": (32 * B * L * L + 100 * B * L,
+               f * (2 * st + 6 + B) + f * (3 * L * L + 4 * st + L) // B1_STEPS_A_LAUNCH),
         "B2": (35 * B * L * L, f * (2 * L * L + 2 * st + B + L)),
         "B3": (36 * B * L * L // 2, f * (2 * L * L + 2 * st + B + L)),
         "B4": (100 * B * L, f * (7 * st + B + L)),
@@ -1109,7 +1231,7 @@ def main() -> int:
         measured.update(phase_kernels_sharded(dev, small, big, inputs))
         del small, big
         torch.cuda.empty_cache()
-        launches = phase_main_path(X, M, card)
+        launches, b1_steps = phase_main_path(X, M, card)
         launches_big = phase_at_scale_path(Xb, Mb, card)
         torch.cuda.empty_cache()
         launches_solve = phase_solve_path("A", inputs, "mds_init", card)
@@ -1126,7 +1248,7 @@ def main() -> int:
     B = 2 * N_MODELS
     kernels = []
     for key, kname, src, replaces, path_launches, shape in (
-        ("B1", "fused_step", "chromosome3d_tpu_torch/csrc/fused_step.cu",
+        ("B1", "fused_steps", "chromosome3d_tpu_torch/csrc/fused_steps.cu",
          "chromosome3d_tpu/ops/pallas_energy.py:330", launches, (B, L_PAD)),
         ("B2", "exact_pair", "chromosome3d_tpu_torch/csrc/exact_pair.cu",
          "chromosome3d_tpu/ops/pallas_energy.py:195", launches, (B, L_PAD)),
@@ -1153,6 +1275,8 @@ def main() -> int:
                         "replaces": replaces, "launches": path_launches[key],
                         **measured[key], "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": None})
+        if key == "B1":   # ms, device_ms and bound_ms are per step of a launch
+            kernels[-1]["steps"] = b1_steps
     print(card)   # nvidia-smi --query-gpu=name,power.limit, again beside the numbers
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,6 +4,7 @@ support.
 
   python -m chromosome3d_tpu_torch run -i <IF matrix (.txt or .npy)> -o <outdir> [-k K] [-a ALPHA]
       [-m MODELS] [--fast | --turbo] [--no-violation-reports]
+      [--no-shard-large] [--shard-quantum Q]
   python -m chromosome3d_tpu_torch solve -r <restraints (.rr or .tbl)> -o <outdir> [-L L]
       [-m MODELS] [--fast | --turbo]
   python -m chromosome3d_tpu_torch spearman <matrix> <pdb-or-dir> [range]
@@ -12,10 +13,13 @@ support.
 kernels build at first use) and on the CPU, with the kernels' plain twins,
 otherwise. Past the largest length bucket with more than one CUDA device
 visible they row-shard the solve over all of them by themselves
-(pipeline._use_sharded). `solve` takes an external restraint set: CONFOLD-style `.rr`
+(pipeline._use_sharded; `--no-shard-large` turns that off, `--shard-quantum`
+sets the padding unit past the buckets). `solve` takes an external restraint set: CONFOLD-style `.rr`
 rows `i j lo hi conf` or a CNS NOE `.tbl`, `or`-group rows included. The
-JAX CLI's other subcommands are refused with NotImplementedError naming
-their ROADMAP item.
+JAX CLI's other subcommands, and its flags that are not ported yet
+(`--alpha-ensemble`, `--profile`, `--chrom`, `--resolution`, `--bed`,
+`--ice`, `--norm`), are refused with NotImplementedError naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -31,6 +35,35 @@ _UNPORTED = {
     "assess": "A11", "render": "A11", "coinit": "A11", "similarity": "A11",
     "calibrate": "A11",
 }
+# the JAX CLI's flags that are registered and refused when given, as
+# (flag, argparse keywords): every subcommand's, then `run`'s own
+_UNPORTED_COMMON = (
+    ("--alpha-ensemble", dict(default="")),
+)
+_UNPORTED_RUN = (
+    ("--profile", dict(default=None, metavar="DIR")),
+    ("--chrom", dict(default=None)),
+    ("--resolution", dict(type=int, default=None)),
+    ("--bed", dict(default=None)),
+    ("--ice", dict(action="store_true")),
+    ("--norm", dict(default="NONE")),
+)
+_UNPORTED_ITEM = "A11"
+
+
+def _add_unported(p: argparse.ArgumentParser, flags) -> None:
+    for flag, kwargs in flags:
+        p.add_argument(flag, help=f"not ported (ROADMAP {_UNPORTED_ITEM})", **kwargs)
+
+
+def _refuse_unported_flags(args, parser: argparse.ArgumentParser) -> None:
+    """Raise for a registered-but-unported flag that was given a value."""
+    for flag, _ in _UNPORTED_COMMON + _UNPORTED_RUN:
+        dest = flag.lstrip("-").replace("-", "_")
+        if hasattr(args, dest) and getattr(args, dest) != parser.get_default(dest):
+            raise NotImplementedError(
+                f"`{flag}` is not ported (ROADMAP {_UNPORTED_ITEM})"
+            )
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -46,6 +79,13 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    help="production speed preset: ~10x fewer steps")
     p.add_argument("--no-violation-reports", action="store_true",
                    help="skip the per-model violation report files")
+    p.add_argument("--no-shard-large", action="store_true",
+                   help="do not row-shard inputs beyond the largest length "
+                        "bucket over the visible devices: solve them at their "
+                        "exact length on one device")
+    p.add_argument("--shard-quantum", type=int, default=512,
+                   help="padding unit for beyond-the-bucket lengths (default 512)")
+    _add_unported(p, _UNPORTED_COMMON)
 
 
 def _make_config(args):
@@ -67,6 +107,8 @@ def _make_config(args):
         restraints=RestraintConfig(kscaling=args.kscaling, alpha=args.alpha),
         anneal=anneal,
         emit_violation_reports=not args.no_violation_reports,
+        shard_large=not args.no_shard_large,
+        shard_quantum=args.shard_quantum,
     )
 
 
@@ -83,6 +125,7 @@ def main(argv=None) -> int:
                      help="IF matrix: dense text, or a float .npy (the "
                           "at-scale format, loaded as a memmap)")
     run.add_argument("-o", "--output", required=True, help="output directory")
+    _add_unported(run, _UNPORTED_RUN)
     _add_common(run)
 
     slv = sub.add_parser("solve", help="solve directly from a restraint file "
@@ -112,6 +155,7 @@ def main(argv=None) -> int:
     if args.command is None:
         parser.print_help()
         return 2
+    _refuse_unported_flags(args, sub.choices[args.command])
 
     if args.command == "run":
         from chromosome3d_tpu_torch.pipeline import run_pipeline

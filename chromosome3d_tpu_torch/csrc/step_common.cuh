@@ -1,10 +1,12 @@
 // The per-bead half of an annealing step, shared by kernel B1
-// (fused_step.cu) and kernel B4 (fused_update.cu): chain bond, per-bead
+// (fused_steps.cu) and kernel B4 (fused_update.cu): chain bond, per-bead
 // gradient clip, Adam with the bias corrections passed in, CLT-4 Langevin
 // noise and the coordinate move. One source for both kernels, so B4's noise
 // and update are B1's by construction (the JAX package shares
 // `_t_layout_bond` and `_t_layout_noise` between its two kernels the same
-// way, pallas_energy.py:264-327).
+// way, pallas_energy.py:264-327). The pieces (`bond_forward`, `clip_scale`,
+// `adam_move`) are what B1 spreads over its lanes, one (bead, coordinate)
+// each; `update_bead` is their composition for one thread per bead (B4).
 //
 // Noise: bitwise equal to _t_layout_noise. Element index row * 3 + coord,
 // base = seed + step * 0x9E3779B9 + b * 0x7FEB352D (uint32 wraparound), four
@@ -21,11 +23,16 @@ namespace c3d {
 
 constexpr float kEps = 1e-12f;
 
+// One step's scalars: the per-step view of the schedule. B4 gets it by
+// value from its caller; B1 fills it from row k of the schedule table
+// (columns lr, sigma, vdw, vdw_radius, bc1, bc2) and the solve's constants.
 struct StepParams {
   float vdw, vdw_radius, lr, sigma, b1, b2, eps_adam, bc1, bc2;
   float bond_w, bond_len, clip;
   uint32_t seed, step;
 };
+
+constexpr int kTableCols = 6;   // lr, sigma, vdw, vdw_radius, bc1, bc2
 
 __device__ __forceinline__ uint32_t mix32(uint32_t h) {
   h ^= h >> 16;
@@ -49,6 +56,45 @@ __device__ __forceinline__ float clt4_noise(uint32_t elem, uint32_t base) {
   return (s - 2.0f) * 1.7320508075688772f;
 }
 
+__device__ __forceinline__ uint32_t noise_base(const StepParams& p, int b) {
+  return p.seed + p.step * 0x9E3779B9u + (uint32_t)b * 0x7FEB352Du;
+}
+
+// The bond from bead `a` to its chain successor `nx` (both from the OLD x),
+// valid = bead_a * bead_nx: fwd = dE/d(nx) (so dE/da = -fwd); returns the
+// bond's energy, which belongs to bead `a`.
+__device__ __forceinline__ float bond_forward(const float a[3], const float nx[3],
+                                              float valid, const StepParams& p,
+                                              float fwd[3]) {
+  float dn[3];
+  for (int c = 0; c < 3; ++c) dn[c] = nx[c] - a[c];
+  const float db = sqrtf(dn[0] * dn[0] + dn[1] * dn[1] + dn[2] * dn[2] + kEps);
+  const float bdev = db - p.bond_len;
+  const float f = 2.0f * p.bond_w * valid * bdev / db;
+  for (int c = 0; c < 3; ++c) fwd[c] = f * dn[c];
+  return p.bond_w * valid * bdev * bdev;
+}
+
+// The factor that brings a bead's gradient to at most p.clip in norm (1
+// when the clip is off, p.clip <= 0).
+__device__ __forceinline__ float clip_scale(const float gr[3], const StepParams& p) {
+  if (!(p.clip > 0.f)) return 1.0f;
+  const float gnorm = sqrtf(gr[0] * gr[0] + gr[1] * gr[1] + gr[2] * gr[2] + 1e-12f);
+  return fminf(1.0f, p.clip / gnorm);
+}
+
+// Adam and the noisy move of one coordinate (element index elem = bead * 3
+// + coord) with gradient g: updates mu and nu in place, returns x'.
+__device__ __forceinline__ float adam_move(float a, float g, float& mu, float& nu,
+                                           float bmi, uint32_t elem, uint32_t base,
+                                           const StepParams& p) {
+  mu = p.b1 * mu + (1.0f - p.b1) * g;
+  nu = p.b2 * nu + (1.0f - p.b2) * g * g;
+  const float upd = (mu * p.bc1) / (sqrtf(nu * p.bc2) + p.eps_adam);
+  const float noise = clt4_noise(elem, base);
+  return a + (-p.lr * upd + p.sigma * noise) * bmi;
+}
+
 // Bead i of structure b, given its pair gradient gr: adds the chain-bond
 // gradient (bond i -> i+1 belongs to bead i; dE/dx_i = fwd_{i-1} - fwd_i,
 // both read from the OLD x), clips, runs Adam and the noisy move, writes
@@ -65,41 +111,24 @@ __device__ __forceinline__ float update_bead(
   float fwd[3] = {0.f, 0.f, 0.f}, fwd_prev[3] = {0.f, 0.f, 0.f};
   float e_bond = 0.f;
   if (i + 1 < L) {  // bond i -> i+1, owned by bead i
-    float dn[3];
-    for (int c = 0; c < 3; ++c) dn[c] = xb[c * L + i + 1] - a[c];
-    const float db = sqrtf(dn[0] * dn[0] + dn[1] * dn[1] + dn[2] * dn[2] + kEps);
-    const float v_next = bmi * bm[i + 1];
-    const float bdev = db - p.bond_len;
-    const float f = 2.0f * p.bond_w * v_next * bdev / db;
-    for (int c = 0; c < 3; ++c) fwd[c] = f * dn[c];
-    e_bond = p.bond_w * v_next * bdev * bdev;
+    const float nx[3] = {xb[i + 1], xb[L + i + 1], xb[2 * L + i + 1]};
+    e_bond = bond_forward(a, nx, bmi * bm[i + 1], p, fwd);
   }
   if (i > 0) {  // bond i-1 -> i: bead i is its "+1" end
-    float dn[3];
-    for (int c = 0; c < 3; ++c) dn[c] = a[c] - xb[c * L + i - 1];
-    const float db = sqrtf(dn[0] * dn[0] + dn[1] * dn[1] + dn[2] * dn[2] + kEps);
-    const float v_prev = bm[i - 1] * bmi;
-    const float bdev = db - p.bond_len;
-    const float f = 2.0f * p.bond_w * v_prev * bdev / db;
-    for (int c = 0; c < 3; ++c) fwd_prev[c] = f * dn[c];
+    const float pv[3] = {xb[i - 1], xb[L + i - 1], xb[2 * L + i - 1]};
+    bond_forward(pv, a, bm[i - 1] * bmi, p, fwd_prev);
   }
   for (int c = 0; c < 3; ++c) gr[c] = gr[c] + (fwd_prev[c] - fwd[c]);
-
-  if (p.clip > 0.f) {
-    const float gnorm = sqrtf(gr[0] * gr[0] + gr[1] * gr[1] + gr[2] * gr[2] + 1e-12f);
-    const float scale = fminf(1.0f, p.clip / gnorm);
+  const float scale = clip_scale(gr, p);
+  if (p.clip > 0.f)
     for (int c = 0; c < 3; ++c) gr[c] = gr[c] * scale;
-  }
 
-  const uint32_t base = p.seed + p.step * 0x9E3779B9u + (uint32_t)b * 0x7FEB352Du;
+  const uint32_t base = noise_base(p, b);
   const size_t off = (size_t)b * 3 * L + i;
   for (int c = 0; c < 3; ++c) {
     const size_t k = off + (size_t)c * L;
-    const float mu = p.b1 * muT[k] + (1.0f - p.b1) * gr[c];
-    const float nu = p.b2 * nuT[k] + (1.0f - p.b2) * gr[c] * gr[c];
-    const float upd = (mu * p.bc1) / (sqrtf(nu * p.bc2) + p.eps_adam);
-    const float noise = clt4_noise((uint32_t)(i * 3 + c), base);
-    xTo[k] = a[c] + (-p.lr * upd + p.sigma * noise) * bmi;
+    float mu = muT[k], nu = nuT[k];
+    xTo[k] = adam_move(a[c], gr[c], mu, nu, bmi, (uint32_t)(i * 3 + c), base, p);
     muTo[k] = mu;
     nuTo[k] = nu;
   }

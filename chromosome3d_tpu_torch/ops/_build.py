@@ -67,13 +67,16 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
         _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _P,
     ),
-    # xT, muT, nuT, t, w, nb, bead_mask, e_rows, xTo, muTo, nuTo, B, L,
-    # vdw, vdw_radius, lr, sigma, b1, b2, eps, bc1, bc2, bond_w, bond_len,
-    # clip, seed, step, stream
-    "c3d_fused_step": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-        _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _P,
+    # xA, xB, mu, nu, t, w, nb, bead_mask, table row k0, part, B, L, k0, k1,
+    # cpl, rpw, resident, nsg, nrgb, nrg, sg, sp, lx, smem_bytes, b1, b2, eps,
+    # bond_w, bond_len, clip, seed, stream
+    "c3d_fused_steps": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        _F, _F, _F, _F, _F, _F, _I, _P,
     ),
+    # cpl, rpw, resident, smem_bytes -> co-resident blocks (< 0: -CUDA error)
+    "c3d_fused_steps_slots": (_I, _I, _I, _I),
 }
 
 

@@ -141,6 +141,25 @@ def should_stream_prep(L_pad: int, device) -> bool:
     return prep_peak_bytes(L_pad) > _PREP_MEMORY_SHARE * _memory_bytes(torch.device(device))
 
 
+def strip_prep_peak_bytes(L_pad: int, devices) -> dict:
+    """Estimated device peak of the row-sharded prep, per distinct device of
+    the shard list: each rank builds one (L_pad / n, L_pad) strip with the
+    one-shot prep's live planes, and a device listed k times holds k."""
+    per_strip = _PREP_LIVE_PLANES * 4 * (L_pad // len(devices)) * L_pad
+    peak = {}
+    for d in devices:
+        d = torch.device(d)
+        peak[d] = peak.get(d, 0) + per_strip
+    return peak
+
+
+def should_stream_strip_prep(L_pad: int, devices) -> bool:
+    """Whether some device's strips would take more than a quarter of its
+    memory in the row-sharded prep."""
+    return any(nbytes > _PREP_MEMORY_SHARE * _memory_bytes(d)
+               for d, nbytes in strip_prep_peak_bytes(L_pad, devices).items())
+
+
 def exact_tiles_from_if_device(if_matrix, L_pad: int, rc, weighting: str,
                                weight_exponent: float, n_true=None,
                                device="cpu", group=None):
@@ -179,10 +198,11 @@ def exact_tiles_from_if_device(if_matrix, L_pad: int, rc, weighting: str,
 def _strips_from_if(if_matrix, L_pad: int, rc, weighting: str, p: float, n_true,
                     group):
     """exact_tiles_from_if_device's row-sharded form (see there)."""
-    if should_stream_prep(L_pad, group.lead):
+    if should_stream_strip_prep(L_pad, group.devices):
         raise NotImplementedError(
-            f"the restraint prep at L_pad={L_pad} would take more than a quarter "
-            "of device memory; the strip-streamed prep is not ported (ROADMAP A10)"
+            f"the restraint prep at L_pad={L_pad} over {group.n} strips would take "
+            "more than a quarter of a device's memory; the strip-streamed prep is "
+            "not ported (ROADMAP A10)"
         )
     n = int(if_matrix.shape[0] if n_true is None else n_true)
     m = pad_f32(if_matrix, L_pad)

@@ -1,26 +1,32 @@
-"""Kernel B1: one whole annealing step (csrc/fused_step.cu) and its plain
-PyTorch twin.
+"""Kernel B1: the fused annealing step, a whole phase of the schedule in
+one launch (csrc/fused_steps.cu), and its plain PyTorch twins.
 
 Replaces chromosome3d_tpu/ops/pallas_energy.py `_kernel_fused_step` (entry
 `pallas_fused_step_batched`, tiles from `fused_step_tiles`, helpers
-`_t_layout_bond` and `_t_layout_noise`). Same contract and the same
+`_t_layout_bond` and `_t_layout_noise`) as the JAX solver runs it, inside a
+compiled scan over the schedule's rows. Same contract and the same
 (B, 3, L) state layout at the public face: pair energy and gradient in the
 exact-restraint rsqrt-space algebra, chain bond, per-bead clip, Adam with
-the bias corrections passed in, CLT-4 murmur3 Langevin noise (bitwise the
-JAX package's) and x' = x + (-lr * upd + sigma * noise) * bead.
+the bias corrections of the schedule, CLT-4 murmur3 Langevin noise (bitwise
+the JAX package's) and x' = x + (-lr * upd + sigma * noise) * bead.
 
 Unlike the Pallas entry, nothing is padded to a 128-multiple: the kernel
 masks the ragged edge itself. Padded beads (bead_mask 0) with zero state
 stay exactly zero in x, mu and nu.
 
-`fused_step_batched` runs the plain twin for CPU tensors and the CUDA kernel
-for CUDA tensors, counting each in a plain integer on the function
-(`fused_step_batched.launches`, `fused_step_plain.calls`).
+`fused_steps_batched` runs steps k0 <= k < k1 of a `ScheduleTable`: the plain
+twin `fused_steps_plain` (a loop over `fused_step_plain`) for CPU tensors,
+one launch of the persistent kernel for CUDA tensors, laid out by
+`fused_steps_plan`. `fused_step_batched` is its single-step face with the
+step's scalars passed in. Each counts in plain integers on the function
+(`fused_steps_batched.launches` and `.steps`, `fused_step_batched.launches`,
+`fused_step_plain.calls`).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -174,17 +180,155 @@ def update_plain(xT, gT, muT, nuT, weights: EnergyWeights, bead_mask,
     return e_bond, x_new, mu, nu
 
 
-def fused_step_batched(
+TABLE_COLS = ("lr", "sigma", "vdw", "vdw_radius", "bc1", "bc2")
+
+
+@dataclasses.dataclass(frozen=True)
+class ScheduleTable:
+    """A solve's schedule as the kernel reads it (the JAX solver's `srows`):
+    one float32 row of TABLE_COLS per step, and what stays fixed — the
+    weights whose vdw and vdw_radius the rows replace, the clip, Adam's
+    constants and the noise stream's seed. Row r is step `first + r`."""
+
+    rows: np.ndarray                 # (T, 6) float32, on the host
+    base: EnergyWeights
+    clip: Optional[float]
+    seed: int
+    first: int = 0
+    b1: float = 0.9
+    b2: float = 0.999
+    eps_adam: float = 1e-8
+    _on_device: Dict = dataclasses.field(default_factory=dict, compare=False,
+                                         repr=False)
+
+    def __post_init__(self):
+        rows = self.rows
+        if rows.dtype != np.float32 or rows.ndim != 2 or rows.shape[1] != len(TABLE_COLS):
+            raise ValueError(f"rows must be (T, {len(TABLE_COLS)}) float32, got "
+                             f"{rows.dtype} {rows.shape}")
+
+    def check_range(self, k0: int, k1: int) -> None:
+        if not self.first <= k0 < k1 <= self.first + len(self.rows):
+            raise ValueError(f"steps [{k0}, {k1}) outside the table's "
+                             f"[{self.first}, {self.first + len(self.rows)})")
+
+    def scalars(self, k: int):
+        """Step k as the single-step functions take it: (weights, lr, sigma,
+        bc1, bc2), Python floats holding the row's float32 values."""
+        lr, sigma, vdw, radius, bc1, bc2 = self.rows[k - self.first].tolist()
+        return (dataclasses.replace(self.base, vdw=vdw, vdw_radius=radius),
+                lr, sigma, bc1, bc2)
+
+    def weights(self, k: int) -> EnergyWeights:
+        return self.scalars(k)[0]
+
+    def device_rows(self, device) -> torch.Tensor:
+        """The rows on `device`, uploaded once."""
+        key = str(torch.device(device))
+        if key not in self._on_device:
+            self._on_device[key] = torch.from_numpy(self.rows).to(device).contiguous()
+        return self._on_device[key]
+
+
+def one_step_table(weights: EnergyWeights, lr, sigma, bc1, bc2, seed: int, step: int,
+                   clip: Optional[float], b1: float = 0.9, b2: float = 0.999,
+                   eps_adam: float = 1e-8) -> ScheduleTable:
+    """The one-row table of a step whose scalars are passed in."""
+    rows = np.array([[lr, sigma, weights.vdw, weights.vdw_radius, bc1, bc2]], np.float32)
+    return ScheduleTable(rows=rows, base=weights, clip=clip, seed=int(seed),
+                         first=int(step), b1=b1, b2=b2, eps_adam=eps_adam)
+
+
+_THREADS, _WARPS = 256, 8     # csrc/warp_fold.cuh kThreads, kWarps
+_RESIDENT_CPL = (16, 24)      # columns a lane of the compiled resident variants
+_STREAMED = (8, 2)            # (columns a lane, rows a warp) of the streamed variant
+_WORK_REGS = 100              # registers a thread beside its tile registers
+
+
+def fused_steps_plan(L: int, B: int, n_sm: int = 132, smem_max: int = _build.SMEM_MAX,
+                     regs: int = 65536) -> dict:
+    """How the persistent kernel lays L bead rows and B structures out on a
+    card of n_sm SMs (one 256-thread block an SM, smem_max bytes of shared
+    memory a block, regs registers an SM). A block owns rows = 8 x rpw bead
+    rows (a row group) for sg structures; the grid is nsg structure groups x
+    nrgb blocks, never more than n_sm, because the steps meet at a grid
+    barrier and every block must be resident.
+
+    mode "resident" (L <= 768 and no more row groups than SMs): the tile
+    values of a block's rows stay in registers for the whole launch, 3 x cpl
+    x rpw a thread (cpl columns a lane, 32 cpl >= L), and mu, nu in shared
+    memory; of the rows-a-warp choices the one with the least work a warp
+    (rpw x sg) wins, ties to the larger. mode "streamed": the tile registers
+    are reloaded per 256-column chunk, and a block walks ceil(nrg / nrgb) row
+    groups. A block stages sp <= sg structures' x at a time (lx float4
+    columns each, lx the chunk multiple >= L), as many as shared memory
+    holds, in equal passes. Raises when not even one structure fits."""
+    if L < 1 or B < 1:
+        raise ValueError(f"empty batch: B={B}, L={L}")
+
+    def layout(cpl, rpw, resident):
+        rows = _WARPS * rpw
+        nrg = -(-L // rows)
+        nrgb = nrg if resident else min(nrg, n_sm)
+        nsg = max(1, min(B, n_sm // nrgb))
+        sg = -(-B // nsg)
+        nsg = -(-B // sg)
+        lx = -(-L // (32 * cpl)) * 32 * cpl
+        per = 16 * lx + _WARPS * rpw * 16          # staged x + the warps' row sums
+        fixed = rows * sg * 24 if resident else 0  # mu, nu of the block's rows
+        sp = min(sg, (smem_max - fixed) // per)
+        if sp < 1:
+            return None
+        sp = -(-sg // -(-sg // sp))                # equal passes
+        return {"mode": "resident" if resident else "streamed", "cpl": cpl, "rpw": rpw,
+                "rows": rows, "nrg": nrg, "nrgb": nrgb, "nsg": nsg, "blocks": nsg * nrgb,
+                "sg": sg, "sp": sp, "lx": lx, "threads": _THREADS,
+                "smem_bytes": sp * per + fixed}
+
+    cands = []
+    cpl = next((c for c in _RESIDENT_CPL if 32 * c >= L), None)
+    if cpl is not None:
+        for rpw in (2, 1):
+            if (_THREADS * (3 * cpl * rpw + _WORK_REGS) <= regs
+                    and -(-L // (_WARPS * rpw)) <= n_sm):
+                plan = layout(cpl, rpw, True)
+                if plan is not None:
+                    cands.append(plan)
+    if cands:
+        return min(cands, key=lambda p: (p["rpw"] * p["sg"], -p["rpw"]))
+    plan = layout(*_STREAMED, False)
+    if plan is None:
+        raise ValueError(
+            f"fused_steps_plan: one structure's x at L={L} does not fit {smem_max} "
+            "bytes of shared memory")
+    return plan
+
+
+def fused_steps_plain(xT, muT, nuT, tiles, table: ScheduleTable, k0: int, k1: int,
+                      bead_mask):
+    """Plain twin of the multi-step kernel: steps k0 <= k < k1 of the table
+    through fused_step_plain -> (history (k1 - k0, B), xT', muT', nuT')."""
+    table.check_range(k0, k1)
+    hist = []
+    for k in range(k0, k1):
+        weights, lr, sigma, bc1, bc2 = table.scalars(k)
+        e, xT, muT, nuT = fused_step_plain(
+            xT, muT, nuT, tiles, weights, bead_mask, lr, sigma, bc1, bc2,
+            table.seed, k, table.clip, table.b1, table.b2, table.eps_adam)
+        hist.append(e)
+    return torch.stack(hist), xT, muT, nuT
+
+
+def fused_steps_batched(
     xT: torch.Tensor, muT: torch.Tensor, nuT: torch.Tensor, tiles,
-    weights: EnergyWeights, bead_mask: torch.Tensor,
-    lr, sigma, bc1, bc2, seed: int, step: int, clip: Optional[float],
-    b1: float = 0.9, b2: float = 0.999, eps_adam: float = 1e-8,
+    table: ScheduleTable, k0: int, k1: int, bead_mask: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One annealing step for a shared-restraint batch -> (energies (B,),
-    xT', muT', nuT'), state (B, 3, L) float32. tiles = fused_step_tiles(...);
-    clip None or <= 0 disables the clip. CPU tensors run the plain twin;
-    CUDA tensors launch csrc/fused_step.cu into freshly allocated outputs
-    (the kernel reads the whole old x, so it never writes in place)."""
+    """Steps k0 <= k < k1 of the schedule for a shared-restraint batch ->
+    (history (k1 - k0, B), xT', muT', nuT'), state (B, 3, L) float32; the
+    noise of step k is structure b's stream at the global step k. tiles =
+    fused_step_tiles(...). CPU tensors run the plain twin; CUDA tensors make
+    one cooperative launch of csrc/fused_steps.cu on copies of the state (the
+    inputs are left as they are), or raise with the CUDA error."""
     if xT.dim() != 3:
         raise ValueError(f"xT must be (B, 3, L), got {tuple(xT.shape)}")
     B, L = xT.shape[0], xT.shape[2]
@@ -196,28 +340,56 @@ def fused_step_batched(
     })
     if B == 0 or L == 0:
         raise ValueError(f"empty batch: B={B}, L={L}")
+    table.check_range(k0, k1)
     if dev.type == "cpu":
-        return fused_step_plain(xT, muT, nuT, tiles, weights, bead_mask, lr,
-                                sigma, bc1, bc2, seed, step, clip, b1, b2,
-                                eps_adam)
+        return fused_steps_plain(xT, muT, nuT, tiles, table, k0, k1, bead_mask)
     lib = _build.load_library()
-    e_rows = torch.empty((B, L), dtype=torch.float32, device=dev)
-    x_new, mu_new, nu_new = (torch.empty_like(xT) for _ in range(3))
+    n = k1 - k0
+    plan = fused_steps_plan(
+        L, B, torch.cuda.get_device_properties(dev).multi_processor_count)
+    rows = table.device_rows(dev)[k0 - table.first:k1 - table.first]
+    x_a, mu, nu = xT.clone(), muT.clone(), nuT.clone()
+    x_b = torch.empty_like(xT)
+    part = torch.empty((n, B, plan["nrg"]), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = lib.c3d_fused_step(
-            xT.data_ptr(), muT.data_ptr(), nuT.data_ptr(), t.data_ptr(),
-            w.data_ptr(), nb.data_ptr(), bead_mask.data_ptr(),
-            e_rows.data_ptr(), x_new.data_ptr(), mu_new.data_ptr(),
-            nu_new.data_ptr(), B, L,
-            weights.vdw, weights.vdw_radius, lr, sigma, b1, b2, eps_adam,
-            bc1, bc2, weights.bond, weights.bond_length,
-            -1.0 if clip is None else clip,
-            _c_int32(seed), _c_int32(step),
+        err = lib.c3d_fused_steps(
+            x_a.data_ptr(), x_b.data_ptr(), mu.data_ptr(), nu.data_ptr(),
+            t.data_ptr(), w.data_ptr(), nb.data_ptr(), bead_mask.data_ptr(),
+            rows.data_ptr(), part.data_ptr(), B, L, k0, k1,
+            plan["cpl"], plan["rpw"], int(plan["mode"] == "resident"),
+            plan["nsg"], plan["nrgb"], plan["nrg"], plan["sg"], plan["sp"], plan["lx"],
+            plan["smem_bytes"], table.b1, table.b2, table.eps_adam,
+            table.base.bond, table.base.bond_length,
+            -1.0 if table.clip is None else table.clip, _c_int32(table.seed),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _build.check(err, "c3d_fused_step")
-    fused_step_batched.launches += 1
-    return e_rows.sum(1), x_new, mu_new, nu_new
+    _build.check(err, "c3d_fused_steps")
+    fused_steps_batched.launches += 1
+    fused_steps_batched.steps += n
+    # step k0 reads x_a and writes x_b, the next one back
+    return part.sum(2), (x_b if n % 2 else x_a), mu, nu
+
+
+fused_steps_batched.launches = 0
+fused_steps_batched.steps = 0
+
+
+def fused_step_batched(
+    xT: torch.Tensor, muT: torch.Tensor, nuT: torch.Tensor, tiles,
+    weights: EnergyWeights, bead_mask: torch.Tensor,
+    lr, sigma, bc1, bc2, seed: int, step: int, clip: Optional[float],
+    b1: float = 0.9, b2: float = 0.999, eps_adam: float = 1e-8,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One annealing step with its scalars passed in -> (energies (B,), xT',
+    muT', nuT'): fused_steps_batched over a one-row table. clip None or <= 0
+    disables the clip."""
+    table = one_step_table(weights, lr, sigma, bc1, bc2, seed, step, clip, b1, b2,
+                           eps_adam)
+    hist, xT, muT, nuT = fused_steps_batched(xT, muT, nuT, tiles, table, step, step + 1,
+                                             bead_mask)
+    if hist.device.type != "cpu":
+        fused_step_batched.launches += 1
+    return hist[0], xT, muT, nuT
 
 
 fused_step_batched.launches = 0

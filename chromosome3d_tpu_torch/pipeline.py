@@ -305,10 +305,12 @@ def run_pipeline(
     L = if_matrix.shape[0]
     banner(log, f"L          : {L}")
     group, dev, L_pad, bead_mask = _solve_layout(L, cfg, dev)
-    if L_pad >= CHUNKED_TERMS_MIN_L:
+    if group is None and L_pad >= CHUNKED_TERMS_MIN_L:
+        # the row-sharded solve has its own column-chunked final terms
         raise NotImplementedError(
-            f"L={L} pads to {L_pad} >= {CHUNKED_TERMS_MIN_L}: the row-chunked "
-            "final energy terms and the streamed prep are not ported (ROADMAP A10)"
+            f"L={L} pads to {L_pad} >= {CHUNKED_TERMS_MIN_L} on one device: the "
+            "row-chunked final energy terms and the streamed prep are not ported "
+            "(ROADMAP A10)"
         )
     # beyond every bucket matrix-derived exact restraints take the device
     # route end to end: no O(L^2) float64 host pass and no O(L^2) text
@@ -569,10 +571,10 @@ def run_restraints_pipeline(
             anneal=dataclasses_replace(cfg.anneal, embed_two_sided=True))
     Lr = restraints.length
     group, dev, L_pad, bead_mask = _solve_layout(Lr, cfg, dev)
-    if L_pad >= CHUNKED_TERMS_MIN_L:
+    if group is None and L_pad >= CHUNKED_TERMS_MIN_L:
         raise NotImplementedError(
-            f"L={Lr} pads to {L_pad} >= {CHUNKED_TERMS_MIN_L}: the row-chunked "
-            "final energy terms are not ported (ROADMAP A10)"
+            f"L={Lr} pads to {L_pad} >= {CHUNKED_TERMS_MIN_L} on one device: the "
+            "row-chunked final energy terms are not ported (ROADMAP A10)"
         )
     _mark("host_prep_s")
 

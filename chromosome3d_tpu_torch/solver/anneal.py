@@ -1,9 +1,12 @@
 """The annealing solver on the fused and semi routes — the port of
 chromosome3d_tpu/solver/anneal.py `solve_ensemble_impl`.
 
-One Python loop over the precomputed hot -> cool -> final schedule. On the
-fused route every step is one launch of kernel B1 (ops.fused_step) for the
-whole ensemble. On the semi routes the pair terms come from one kernel and
+The precomputed hot -> cool -> final schedule is one table of per-step rows
+(`schedule_table`, the JAX solver's `srows`). On the fused route kernel B1
+(ops.fused_step) walks the table's rows itself: on a CUDA device one launch
+runs a whole phase (the hot steps, then the rest), on the CPU a Python loop
+steps its plain twin. The semi routes are a Python loop over the same rows:
+the pair terms come from one kernel and
 the update from kernel B4 (ops.fused_update: bond, clip, Adam, noise and
 move): kernel B3 (ops.tri_energy) for exact restraints past the fused
 step's reach or with or-groups, kernel B5 (ops.general_pair) for general
@@ -39,9 +42,12 @@ from chromosome3d_tpu_torch.ops.energy import (
     or_group_energy_grad,
 )
 from chromosome3d_tpu_torch.ops.fused_step import (
+    TABLE_COLS,
+    ScheduleTable,
     fused_step_batched,
     fused_step_feasible,
     fused_step_tiles,
+    fused_steps_batched,
 )
 from chromosome3d_tpu_torch.ops.fused_update import fused_update_batched
 from chromosome3d_tpu_torch.ops.general_pair import (
@@ -158,7 +164,26 @@ def _bias_corrections(T: int):
     return bc1.tolist(), bc2.tolist()
 
 
-def _refuse_unported(cfg: AnnealConfig, L: int) -> None:
+def schedule_table(cfg: AnnealConfig, seed: int) -> ScheduleTable:
+    """The whole schedule as one (T, 6) float32 table of TABLE_COLS, one row
+    a step, with the solve's constants: what kernel B1 reads on the card and
+    what the Python loops pass a step. The values are the JAX package's:
+    `build_schedule`'s columns, the float32 product repel * vdw_radius, and
+    Adam's bias corrections in float32."""
+    sched = build_schedule(cfg)
+    bc1, bc2 = _bias_corrections(len(sched.lr))
+    cols = {
+        "lr": sched.lr, "sigma": sched.sigma, "vdw": sched.vdw_weight,
+        "vdw_radius": sched.repel_scale * np.float32(cfg.vdw_radius),
+        "bc1": np.asarray(bc1, np.float32), "bc2": np.asarray(bc2, np.float32),
+    }
+    rows = np.ascontiguousarray(
+        np.stack([cols[name] for name in TABLE_COLS], axis=1), dtype=np.float32)
+    return ScheduleTable(rows=rows, base=_final_weights(cfg), clip=cfg.gradient_clip,
+                         seed=int(seed))
+
+
+def _refuse_unported(cfg: AnnealConfig) -> None:
     """The routes and options the port cannot run yet, each named."""
     if not cfg.fuse_update:
         raise NotImplementedError(
@@ -175,6 +200,12 @@ def _refuse_unported(cfg: AnnealConfig, L: int) -> None:
         )
     if cfg.gram_d2:
         raise NotImplementedError("gram_d2 is not ported (ROADMAP: do not port)")
+
+
+def _refuse_unchunked_terms(L: int) -> None:
+    """The one-device solve evaluates its final energy terms whole-matrix;
+    the row-sharded solve has its own column-chunked terms and no such
+    limit."""
     if L >= CHUNKED_TERMS_MIN_L:
         raise NotImplementedError(
             f"L={L} >= {CHUNKED_TERMS_MIN_L} needs the row-chunked final "
@@ -211,7 +242,8 @@ def solve_ensemble_impl(
     target = restraints.lo
     dev = target.device
     L = target.shape[0]
-    _refuse_unported(cfg, L)
+    _refuse_unported(cfg)
+    _refuse_unchunked_terms(L)
     exact = cfg.exact_restraints and cfg.noe_rswitch >= 1e8
     if generator is None:
         generator = torch.Generator().manual_seed(0)
@@ -255,60 +287,59 @@ def solve_ensemble_impl(
     if noise_seed is None:
         noise_seed = int(torch.randint(0, 2**31 - 1, (), generator=generator))
 
-    sched = build_schedule(cfg)
-    base = _final_weights(cfg)
-    T = len(sched.lr)
-    bc1s, bc2s = _bias_corrections(T)
-    lrs, sigmas = sched.lr.tolist(), sched.sigma.tolist()
-
-    # float32 products, as the JAX package's `repel * cfg.vdw_radius`
-    step_weights = [
-        dataclasses.replace(base, vdw=float(vdw),
-                            vdw_radius=f32(repel * np.float32(cfg.vdw_radius)))
-        for vdw, repel in zip(sched.vdw_weight, sched.repel_scale)
-    ]
+    table = schedule_table(cfg, noise_seed)
+    base = table.base
+    T = len(table.rows)
     clip = cfg.gradient_clip
     xT = xs.transpose(1, 2).contiguous()
     muT = torch.zeros_like(xT)
     nuT = torch.zeros_like(xT)
     history = torch.empty((T, n_eff), dtype=torch.float32, device=dev)
 
-    if (exact and or_groups is None and fused_step_feasible(L)
-            and not tri_energy.use_triangular(L)):
+    fused = (exact and or_groups is None and fused_step_feasible(L)
+             and not tri_energy.use_triangular(L))
+    if fused:
         # the fused route: the whole step in kernel B1
         tiles = fused_step_tiles(restraints, bead_mask, base.noe)
 
         def step(k, xT, muT, nuT):
+            weights, lr, sigma, bc1, bc2 = table.scalars(k)
             return fused_step_batched(
-                xT, muT, nuT, tiles, step_weights[k], bead_mask, lrs[k],
-                sigmas[k], bc1s[k], bc2s[k], noise_seed, k, clip,
+                xT, muT, nuT, tiles, weights, bead_mask, lr, sigma, bc1, bc2,
+                noise_seed, k, clip,
             )
     else:
         # the semi routes: pair terms in kernel B3 (exact) or B5 (general),
         # the or-group term added, the update in kernel B4; the tiles are
         # folded once, outside the loop
         if exact:
-            tiles = tuple(a.contiguous() for a in exact_pair_tiles(restraints))
+            pair_tiles = tuple(a.contiguous() for a in exact_pair_tiles(restraints))
             pair_grad = tri_energy.tri_energy_grad
         else:
-            tiles = general_pair_tiles(restraints)
+            pair_tiles = general_pair_tiles(restraints)
             pair_grad = general_pair_energy_grad
 
         def step(k, xT, muT, nuT):
-            e_pair, gT = pair_grad(xT, *tiles, step_weights[k], bead_mask)
+            weights, lr, sigma, bc1, bc2 = table.scalars(k)
+            e_pair, gT = pair_grad(xT, *pair_tiles, weights, bead_mask)
             if or_groups is not None:
                 e_og, g_og = or_group_energy_grad(
-                    xT.transpose(1, 2), or_groups, step_weights[k], bead_mask
+                    xT.transpose(1, 2), or_groups, weights, bead_mask
                 )
                 e_pair = e_pair + e_og
                 gT = gT + g_og.transpose(1, 2)
             e_bond, xT, muT, nuT = fused_update_batched(
-                xT, gT.contiguous(), muT, nuT, step_weights[k], bead_mask, lrs[k],
-                sigmas[k], bc1s[k], bc2s[k], noise_seed, k, clip,
+                xT, gT.contiguous(), muT, nuT, weights, bead_mask, lr, sigma,
+                bc1, bc2, noise_seed, k, clip,
             )
             return e_pair + e_bond, xT, muT, nuT
 
     def run(k0: int, k1: int, xT, muT, nuT, hist):
+        if fused and dev.type == "cuda":
+            # one launch for the phase: the kernel walks the table's rows
+            hist[k0:k1], xT, muT, nuT = fused_steps_batched(
+                xT, muT, nuT, tiles, table, k0, k1, bead_mask)
+            return xT, muT, nuT
         for k in range(k0, k1):
             hist[k], xT, muT, nuT = step(k, xT, muT, nuT)
         return xT, muT, nuT
@@ -319,12 +350,12 @@ def solve_ensemble_impl(
         xT, muT, nuT = run(0, hot, xT, muT, nuT, history)
         # handedness per pair by energy under the end-of-hot weights
         coords = xT.transpose(1, 2).contiguous()
+        w_hot = table.weights(hot - 1)
         e_hot, _ = pair_energy_and_grad_batched(
-            coords, restraints, step_weights[hot - 1], bead_mask, exact
+            coords, restraints, w_hot, bead_mask, exact
         )
         if or_groups is not None:
-            e_hot = e_hot + or_group_energy_grad(
-                coords, or_groups, step_weights[hot - 1], bead_mask)[0]
+            e_hot = e_hot + or_group_energy_grad(coords, or_groups, w_hot, bead_mask)[0]
         choice = torch.argmin(e_hot.reshape(n_models, 2), dim=1)
         pick = torch.arange(n_models, device=dev) * 2 + choice
         xT, muT, nuT = xT[pick], muT[pick], nuT[pick]

@@ -195,7 +195,7 @@ def solve_ensemble_sharded(
     lead = group.lead
     L = strips[0].lo.shape[1]
     group.rows(L)
-    _refuse_unported(cfg, L)
+    _refuse_unported(cfg)
     route = _route(cfg, L, group.n)
     exact = cfg.exact_restraints and cfg.noe_rswitch >= 1e8
     tiles = _tiles(group, strips, L)

@@ -17,7 +17,9 @@ registers allocated per warp in units of 256, 233,472 bytes of shared
 memory with 1,024 reserved per block, 64 warps, 32 blocks) for the launch
 shapes given with --launch (NAME is a substring of the kernel's name);
 without one, the at-scale shapes of the two pair bodies are taken from the
-wrappers' plan functions at B = 20, L = 5120.
+wrappers' plan functions at B = 20, L = 5120, and the multi-step kernel's
+variants get the shared memory of the reference-scale launches (L = 512:
+B = 20 then 10) and of L = 768 and a streamed L = 2048 at B = 20.
 
 --clock prints `nvidia-smi --query-gpu=clocks.sm,power.draw` while the
 general pair kernel runs back to back at B = 20, L = 5120: the SM clock
@@ -128,14 +130,23 @@ def resident_blocks(regs: int, threads: int, smem: int) -> int:
 
 
 def default_launches():
-    """The two pair bodies at the at-scale shapes, from the wrappers' plans."""
+    """The two pair bodies at the at-scale shapes and the multi-step kernel's
+    variants at the shapes that select them, from the wrappers' plans."""
+    from chromosome3d_tpu_torch.ops.fused_step import fused_steps_plan
     from chromosome3d_tpu_torch.ops.general_pair import general_pair_plan
     from chromosome3d_tpu_torch.ops.tri_energy import tri_plan
 
     g = general_pair_plan(20, 5120, 5120)
     t = tri_plan(20, 5120, 5120, 64)
-    return {"general_pair_kernel": (g["threads"], g["smem_bytes"]),
-            "tri_pair_kernelILi64": (t["threads"], t["smem_bytes"])}   # <64>, mangled
+    out = {"general_pair_kernel": (g["threads"], g["smem_bytes"]),
+           "tri_pair_kernelILi64": (t["threads"], t["smem_bytes"])}   # <64>, mangled
+    for L, B in ((512, 20), (512, 10), (768, 20), (2048, 20)):
+        p = fused_steps_plan(L, B)
+        # fused_steps_kernel<cpl, rpw, resident>, mangled
+        key = (f"fused_steps_kernelILi{p['cpl']}ELi{p['rpw']}"
+               f"ELb{int(p['mode'] == 'resident')}E")
+        out[key] = (p["threads"], p["smem_bytes"])
+    return out
 
 
 def clock_under_load():

@@ -17,7 +17,10 @@ card's busy share, the device time of the top kernels, and the card's
 shape (L = 4985 -> 5120, 10 models, the default 2,760-step schedule). With
 --shards N the same tensors are cut into N row strips on N copies of the
 card and go through `solve_ensemble_sharded` (its own landmark start), so
-the one card's busy share on the sharded route can be read.
+the one card's busy share on the sharded route can be read. With --phases
+(one device) one more warm solve is split, with a CUDA synchronise at every
+boundary, into the init, the hot loop, the pick, the cool and final loop,
+the final energy terms and the rest.
 """
 
 from __future__ import annotations
@@ -79,6 +82,45 @@ def file_inputs(path, dev):
     return r.length, L_pad, dense, an, og
 
 
+def solve_phases(solve):
+    """Seconds of one solve by phase: the solver's init, pick and final-terms
+    calls are wrapped with a synchronise on both sides; the hot loop is what
+    lies between the init and the pick, the cool (and final) loop between
+    the pick and the terms."""
+    from chromosome3d_tpu_torch.solver import anneal
+
+    marks = []
+    names = ("mds_init", "landmark_init", "pair_energy_and_grad_batched", "energy_terms")
+    real = {n: getattr(anneal, n) for n in names}
+
+    def wrap(name):
+        def fn(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real[name](*args, **kwargs)
+            torch.cuda.synchronize()
+            marks.append((name, t0, time.perf_counter()))
+            return out
+        return fn
+
+    for n in names:
+        setattr(anneal, n, wrap(n))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solve(3)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    finally:
+        for n, fn in real.items():
+            setattr(anneal, n, fn)
+    if [m[0] for m in marks][1:] != ["pair_energy_and_grad_batched", "energy_terms"]:
+        raise SystemExit(f"--phases: unexpected calls {[m[0] for m in marks]}")
+    (_, i0, i1), (_, p0, p1), (_, e0, e1) = marks
+    return {"before_init": i0 - t0, "init": i1 - i0, "hot_loop": p0 - i1, "pick": p1 - p0,
+            "cool_loop": e0 - p1, "final_terms": e1 - e0, "rest": t1 - e1, "total": t1 - t0}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--length", type=int, default=4985)
@@ -87,6 +129,8 @@ def main() -> int:
                     help="profile `solve` on this .rr or .tbl file instead")
     ap.add_argument("--shards", type=int, default=1,
                     help="row-shard the solve over this many copies of the card")
+    ap.add_argument("--phases", action="store_true",
+                    help="split one more warm solve into its phases (one device)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_solve: needs an NVIDIA GPU")
@@ -128,6 +172,11 @@ def main() -> int:
           f"{0 if og is None else og.lo.shape[0]}, {args.shards} shard(s): prep "
           f"{prep_s:.4f} s (first call); {init.__name__} {init_s[0]:.4f} s cold, "
           f"{init_s[1]:.4f} s warm; warm solves {solve_s[0]:.4f} s, {solve_s[1]:.4f} s")
+    if args.phases and args.shards == 1:
+        for _ in range(2):
+            ph = solve_phases(solve)
+            print("solve by phase (s, synchronised at every boundary): "
+                  + ", ".join(f"{k} {v:.5f}" for k, v in ph.items()))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall = timed(lambda: solve(9))
     rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
@@ -138,6 +187,11 @@ def main() -> int:
           f"busy share {total / 1e6 / wall:.4f}")
     for key, us, n in rows[:15]:
         print(f"  {us / 1e3:10.3f} ms {100 * us / total:6.2f}% x{n:6d}  {key[:90]}")
+    # kernel B1 is one launch a phase: its rows above are fused_steps_kernel<columns a
+    # lane, rows a warp, resident>, the hot phase's and the rest's
+    from chromosome3d_tpu_torch.ops.fused_step import fused_steps_batched
+    print(f"B1 (fused_steps_kernel) since the start: {fused_steps_batched.launches} "
+          f"launches, {fused_steps_batched.steps} steps")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip())

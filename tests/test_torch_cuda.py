@@ -19,13 +19,24 @@ import torch
 
 from chromosome3d_tpu.config import RestraintConfig
 from chromosome3d_tpu.restraints import build_restraints
-from chromosome3d_tpu_torch.ops.energy import EnergyWeights, exact_restraints_from_numpy
+from chromosome3d_tpu_torch.ops.energy import (
+    EnergyWeights,
+    ExactRestraints,
+    exact_restraints_from_numpy,
+)
+from chromosome3d_tpu_torch.config import AnnealConfig
+from chromosome3d_tpu_torch.ops import _build
 from chromosome3d_tpu_torch.ops.fused_step import (
+    ScheduleTable,
     clt4_noise,
     fused_step_batched,
     fused_step_plain,
     fused_step_tiles,
+    fused_steps_batched,
+    fused_steps_plain,
+    fused_steps_plan,
 )
+from chromosome3d_tpu_torch.solver.anneal import schedule_table
 from chromosome3d_tpu_torch.ops.device_prep import div10
 from chromosome3d_tpu_torch.ops.fused_update import fused_update_batched, fused_update_plain
 from chromosome3d_tpu_torch.ops import general_pair
@@ -100,6 +111,78 @@ def test_cuda_fused_step_noise_bitwise(cuda_device):
                                      0.0, 1.0, 1.0, 1.0, 2**31 - 2, 2759, None)
     ref = clt4_noise(2**31 - 2, 2759, x.shape[0], x.shape[2], "cpu").numpy()
     assert np.array_equal(xn.cpu().numpy().view(np.uint32), ref.view(np.uint32))
+
+
+# the default schedule's rows around the hot -> cool boundary (step 300)
+STEPS_K0, STEPS_K1 = 296, 304
+
+
+@pytest.mark.parametrize("L,n_real,B,mode", [
+    (200, 181, 5, "resident"),     # ragged rows, most of a lane's columns past L
+    (512, 456, 20, "resident"),    # the hot phase's shape: 2 rows a warp
+    (512, 456, 10, "resident"),    # the cool phase's: 1 row a warp
+    (768, 700, 20, "resident"),    # 24 columns a lane
+    (768, 700, 48, "resident"),    # two passes of 12 structures a block
+    (776, 770, 3, "streamed"),     # just past the resident edge, ragged chunk
+    (2100, 2050, 2, "streamed"),   # 132 row groups, one a block
+    (2300, 2290, 2, "streamed"),   # more row groups than SMs: blocks walk them
+])
+def test_cuda_fused_steps_matches_plain(cuda_device, L, n_real, B, mode):
+    """The multi-step kernel over 8 steps across the hot/cool boundary against
+    the loop of single-step twins; equal bits over two launches; the same
+    bits as 8 chained one-step launches; padded beads 0. Tolerances: the one
+    step's for e (2e-5) and x' (5e-4 + 5e-4; measured over these 8 steps: x'
+    max abs err 2e-6 to 6e-6, e 1e-7 relative); mu' 5e-4 + 1e-5 and nu' 5e-4 +
+    1e-8 with 1e-6 x max |ref| added to the absolute part (an element that
+    nearly cancels keeps the rounding of the bead's large ones, as for B3's
+    gradient: measured under 3.2e-7 x max |mu'|)."""
+    ex, bm, x, mu, nu = _case(cuda_device, L=L, n_real=n_real, B=B, seed=L + B)
+    plan = fused_steps_plan(L, B, torch.cuda.get_device_properties(cuda_device)
+                            .multi_processor_count)
+    assert plan["mode"] == mode
+    assert plan["blocks"] <= _build.load_library().c3d_fused_steps_slots(
+        plan["cpl"], plan["rpw"], int(mode == "resident"), plan["smem_bytes"])
+    tiles = fused_step_tiles(ex, bm, WEIGHTS.noe)
+    table = schedule_table(AnnealConfig(), seed=12345)
+    got = fused_steps_batched(x, mu, nu, tiles, table, STEPS_K0, STEPS_K1, bm)
+    again = fused_steps_batched(x, mu, nu, tiles, table, STEPS_K0, STEPS_K1, bm)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    st, hist = (x, mu, nu), []
+    for k in range(STEPS_K0, STEPS_K1):
+        h, *st = fused_steps_batched(*st, tiles, table, k, k + 1, bm)
+        hist.append(h[0])
+    for a, b in zip(got, (torch.stack(hist), *st)):
+        assert torch.equal(a, b)
+    ref = fused_steps_plain(x, mu, nu, tiles, table, STEPS_K0, STEPS_K1, bm)
+    got, ref = [a.cpu().numpy() for a in got], [a.cpu().numpy() for a in ref]
+    errs = [float(np.abs(g - r).max()) for g, r in zip(got, ref)]
+    print(f"fused_steps L={L} B={B} {plan['mode']} blocks={plan['blocks']}: max abs err "
+          f"hist {errs[0]:.3g} (max |e| {np.abs(ref[0]).max():.3g}), x {errs[1]:.3g}, "
+          f"mu {errs[2]:.3g}, nu {errs[3]:.3g}")
+    np.testing.assert_allclose(got[0], ref[0], rtol=2e-5)
+    np.testing.assert_allclose(got[2], ref[2], rtol=5e-4,
+                               atol=1e-5 + 1e-6 * np.abs(ref[2]).max())
+    np.testing.assert_allclose(got[3], ref[3], rtol=5e-4,
+                               atol=1e-8 + 1e-6 * np.abs(ref[3]).max())
+    np.testing.assert_allclose(got[1], ref[1], rtol=5e-4, atol=5e-4)
+    for a in got[1:]:
+        np.testing.assert_array_equal(a[:, :, n_real:], 0.0)
+
+
+@pytest.mark.parametrize("L,B", [(200, 5), (512, 20), (776, 3)])
+def test_cuda_fused_steps_noise_bitwise(cuda_device, L, B):
+    """lr = 0, sigma = 1 from zero state: x after steps k, k + 1 is
+    noise(k) + noise(k + 1) of the counter hash, bit for bit."""
+    ex, bm, x, _, _ = _case(cuda_device, L=L, n_real=L - 10, B=B)
+    tiles = fused_step_tiles(ex, bm, WEIGHTS.noe)
+    rows = np.tile(np.array([[0.0, 1.0, 4.0, 3.06, 1.0, 1.0]], np.float32), (2, 1))
+    seed, k = 2**31 - 2, 2758
+    table = ScheduleTable(rows=rows, base=WEIGHTS, clip=None, seed=seed, first=k)
+    z = torch.zeros_like(x)
+    _, xn, _, _ = fused_steps_batched(z, z, z, tiles, table, k, k + 2, torch.ones_like(bm))
+    want = (clt4_noise(seed, k, B, L, "cpu") + clt4_noise(seed, k + 1, B, L, "cpu")).numpy()
+    assert np.array_equal(xn.cpu().numpy().view(np.uint32), want.view(np.uint32))
 
 
 def test_cuda_pair_kernel_matches_plain(cuda_device):
@@ -279,6 +362,46 @@ def test_cuda_fused_update_noise_bitwise(cuda_device):
                                        0.0, 1.0, 1.0, 1.0, 2**31 - 2, 2759, None)
     ref = clt4_noise(2**31 - 2, 2759, x.shape[0], x.shape[2], "cpu").numpy()
     assert np.array_equal(xn.cpu().numpy().view(np.uint32), ref.view(np.uint32))
+
+
+def test_cuda_sharded_solve_at_8192(cuda_device):
+    """solve_ensemble_sharded at L_pad = 8192 on the card listed 4 times: past
+    the one-device solver's limit (its whole-matrix final terms), which the
+    sharded solve's column-chunked terms do not have. A short schedule, one
+    model pair; the strip kernel (B6, or B2' where the strip pairing does
+    not pay) on every strip every step and at the pick."""
+    from chromosome3d_tpu_torch.parallel.shards import ShardGroup
+    from chromosome3d_tpu_torch.solver import anneal, sharded
+
+    L, n_real, shards = 8192, 8000, 4
+    assert L >= anneal.CHUNKED_TERMS_MIN_L
+    g = torch.Generator().manual_seed(0)
+    walk = torch.cumsum(torch.randn(n_real, 3, generator=g) * 2.2, 0).to(cuda_device)
+    d = torch.cdist(walk, walk)
+    target = torch.zeros(L, L, device=cuda_device)
+    target[:n_real, :n_real] = torch.where(d < 60.0, d, torch.zeros_like(d))
+    target.fill_diagonal_(0.0)
+    w = (target > 0).float()
+    ex = ExactRestraints(target=target, w=w / w.mean())
+    bm = torch.zeros(L, device=cuda_device)
+    bm[:n_real] = 1.0
+    cfg = dataclasses.replace(AnnealConfig(), exact_restraints=True, hot_steps=4,
+                              cool_cycles=1, cool_steps_per_cycle=3, final_steps=3,
+                              landmark_count=64)
+    group = ShardGroup([cuda_device] * shards)
+    strips = sharded.restraint_strips(group, ex)
+    with pytest.raises(NotImplementedError, match="A10"):
+        anneal.solve_ensemble_impl(ex, cfg, 1, bm)
+    count = lambda: strip_tri_energy_grad.launches + exact_row_block_energy_grad.launches
+    before = count()
+    res = sharded.solve_ensemble_sharded(group, strips, cfg, 1, bm,
+                                         generator=torch.Generator().manual_seed(1))
+    torch.cuda.synchronize()
+    assert count() - before == shards * (cfg.total_steps + 1)
+    assert res.coords.shape == (1, L, 3) and bool(torch.isfinite(res.coords).all())
+    assert all(bool(torch.isfinite(v).all()) for v in res.energies.values())
+    assert res.history.shape == (1, cfg.total_steps)
+    assert bool((res.coords[:, n_real:] == 0).all())
 
 
 def test_cuda_div10_correctly_rounded(cuda_device):

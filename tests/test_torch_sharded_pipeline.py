@@ -12,6 +12,7 @@ row-sharded device prep against the one-shot prep, and the artifact set
 and summary fields.
 """
 
+import dataclasses
 import json
 import os
 
@@ -170,3 +171,47 @@ def test_solve_sharded(tmp_path, monkeypatch, exact, n, twin):
         assert os.path.isfile(tmp_path / "out" / name), name
     with open(tmp_path / "out" / "summary.json") as f:
         assert json.load(f)["best_noe_energy"] == summary["best_noe_energy"]
+
+
+def test_sharded_pipelines_pass_the_chunked_terms_gate(tmp_path, monkeypatch):
+    """`run` past the one-device limit of the whole-matrix final terms: one
+    device refuses by name, a shard group solves (the threshold patched down
+    so that L = 800 -> 1024 is past it)."""
+    monkeypatch.setattr(pipeline, "CHUNKED_TERMS_MIN_L", 1024)
+    X = confined_walk(800, seed=7)
+    npy = str(tmp_path / "chrT_800.npy")
+    np.save(npy, if_from_structure(X, 0.5, 0.1, 7).astype(np.float32))
+    cfg = PipelineConfig(model_count=1, emit_violation_reports=False,
+                         anneal=dataclasses.replace(
+                             AnnealConfig(), hot_steps=2, cool_cycles=1,
+                             cool_steps_per_cycle=1, final_steps=1))
+    _shards(monkeypatch, 1)
+    with pytest.raises(NotImplementedError, match="A10"):
+        pipeline.run_pipeline(npy, str(tmp_path / "one"), cfg)
+    _shards(monkeypatch, 2)
+    summary = pipeline.run_pipeline(npy, str(tmp_path / "two"), cfg)
+    assert summary["L"] == 800 and np.isfinite(summary["best_spearman_if_inv_d"])
+
+
+def test_sharded_prep_gates_on_strip_bytes_per_device(monkeypatch):
+    """The sharded prep's memory gate: each rank holds one (L_pad / n, L_pad)
+    strip, a device listed k times k of them; the whole matrix on the lead
+    is not the measure."""
+    cpu, meta = torch.device("cpu"), torch.device("meta")
+    whole = device_prep.prep_peak_bytes(64)
+    assert device_prep.strip_prep_peak_bytes(64, [cpu] * 4) == {cpu: whole}
+    assert device_prep.strip_prep_peak_bytes(64, [cpu, meta, cpu, meta]) == {
+        cpu: whole // 2, meta: whole // 2}
+    assert device_prep.strip_prep_peak_bytes(64, [cpu, meta]) == {
+        cpu: whole // 2, meta: whole // 2}
+    # memory for just under the whole matrix at a quarter share: one device
+    # listed twice must stream, two distinct devices need not
+    monkeypatch.setattr(device_prep, "_memory_bytes", lambda dev: 4 * whole - 1)
+    assert device_prep.should_stream_prep(64, cpu)
+    assert device_prep.should_stream_strip_prep(64, [cpu, cpu])
+    assert not device_prep.should_stream_strip_prep(64, [cpu, meta])
+    m = if_from_structure(confined_walk(60, seed=3), 0.5, 0.1, 3).astype(np.float32)
+    rc = RestraintConfig()
+    with pytest.raises(NotImplementedError, match="A10"):
+        device_prep.exact_tiles_from_if_device(m, 64, rc, rc.weighting, 1.0,
+                                               group=ShardGroup([cpu, cpu]))

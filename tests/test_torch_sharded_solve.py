@@ -36,6 +36,7 @@ from chromosome3d_tpu_torch.ops.fused_update import fused_update_plain
 from chromosome3d_tpu_torch.ops.general_pair import general_row_block_energy_grad_plain
 from chromosome3d_tpu_torch.ops.pair_energy import exact_row_block_energy_grad_plain
 from chromosome3d_tpu_torch.parallel.shards import ShardGroup
+from chromosome3d_tpu_torch.solver import anneal as port_anneal
 from chromosome3d_tpu_torch.solver import init as port_init
 from chromosome3d_tpu_torch.solver import sharded as port_sharded
 
@@ -198,3 +199,27 @@ def test_sharded_refusals():
             g12, port_sharded.restraint_strips(g12, r_t), _cfg(True), N_MODELS)
     with pytest.raises(ValueError):
         port_sharded.solve_ensemble_sharded(g12, strips, _cfg(True), N_MODELS)
+
+
+@pytest.mark.parametrize("exact,n", [(True, 4), (False, 2)])
+def test_sharded_solve_has_no_chunked_terms_limit(monkeypatch, exact, n):
+    """The 8192 limit of the one-device solve (its whole-matrix final terms)
+    does not apply to the sharded solve, whose final terms are column-chunked
+    row blocks: with the threshold patched down to 32 the one-device solve
+    refuses L = 64 by name and the sharded solve runs it."""
+    monkeypatch.setattr(port_anneal, "CHUNKED_TERMS_MIN_L", 32)
+    _, dense, bead = _case(60, 64, window=not exact)
+    r_t, _, _ = from_jax_numpy(dense)
+    cfg = dataclasses.replace(_cfg(exact, two_sided=not exact),
+                              hot_steps=3, cool_cycles=1, cool_steps_per_cycle=2,
+                              final_steps=2)
+    bm = torch.from_numpy(bead)
+    with pytest.raises(NotImplementedError, match="A10"):
+        port_anneal.solve_ensemble_impl(r_t, cfg, N_MODELS, bm)
+    group = ShardGroup(["cpu"] * n)
+    got = port_sharded.solve_ensemble_sharded(
+        group, port_sharded.restraint_strips(group, r_t), cfg, N_MODELS, bm)
+    assert got.coords.shape == (N_MODELS, 64, 3)
+    assert torch.isfinite(got.coords).all()
+    assert all(torch.isfinite(v).all() for v in got.energies.values())
+    assert got.history.shape == (N_MODELS, cfg.total_steps)
