@@ -36,31 +36,34 @@ _UNPORTED = {
     "calibrate": "A11",
 }
 # the JAX CLI's flags that are registered and refused when given, as
-# (flag, argparse keywords): every subcommand's, then `run`'s own
+# (flag, argparse keywords): every subcommand's, then `run`'s own. Each
+# defaults to None, so that any value given, the JAX CLI's default too, is
+# told from the flag's absence.
 _UNPORTED_COMMON = (
-    ("--alpha-ensemble", dict(default="")),
+    ("--alpha-ensemble", dict()),
 )
 _UNPORTED_RUN = (
-    ("--profile", dict(default=None, metavar="DIR")),
-    ("--chrom", dict(default=None)),
-    ("--resolution", dict(type=int, default=None)),
-    ("--bed", dict(default=None)),
+    ("--profile", dict(metavar="DIR")),
+    ("--chrom", dict()),
+    ("--resolution", dict(type=int)),
+    ("--bed", dict()),
     ("--ice", dict(action="store_true")),
-    ("--norm", dict(default="NONE")),
+    ("--norm", dict()),
 )
 _UNPORTED_ITEM = "A11"
 
 
 def _add_unported(p: argparse.ArgumentParser, flags) -> None:
     for flag, kwargs in flags:
-        p.add_argument(flag, help=f"not ported (ROADMAP {_UNPORTED_ITEM})", **kwargs)
+        p.add_argument(flag, default=None,
+                       help=f"not ported (ROADMAP {_UNPORTED_ITEM})", **kwargs)
 
 
-def _refuse_unported_flags(args, parser: argparse.ArgumentParser) -> None:
-    """Raise for a registered-but-unported flag that was given a value."""
+def _refuse_unported_flags(args) -> None:
+    """Raise for a registered-but-unported flag that was given."""
     for flag, _ in _UNPORTED_COMMON + _UNPORTED_RUN:
         dest = flag.lstrip("-").replace("-", "_")
-        if hasattr(args, dest) and getattr(args, dest) != parser.get_default(dest):
+        if getattr(args, dest, None) is not None:
             raise NotImplementedError(
                 f"`{flag}` is not ported (ROADMAP {_UNPORTED_ITEM})"
             )
@@ -155,7 +158,7 @@ def main(argv=None) -> int:
     if args.command is None:
         parser.print_help()
         return 2
-    _refuse_unported_flags(args, sub.choices[args.command])
+    _refuse_unported_flags(args)
 
     if args.command == "run":
         from chromosome3d_tpu_torch.pipeline import run_pipeline

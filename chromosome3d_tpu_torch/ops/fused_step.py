@@ -19,7 +19,7 @@ twin `fused_steps_plain` (a loop over `fused_step_plain`) for CPU tensors,
 one launch of the persistent kernel for CUDA tensors, laid out by
 `fused_steps_plan`. `fused_step_batched` is its single-step face with the
 step's scalars passed in. Each counts in plain integers on the function
-(`fused_steps_batched.launches` and `.steps`, `fused_step_batched.launches`,
+(`fused_steps_batched.launches` and `.steps`, at the launch, and
 `fused_step_plain.calls`).
 """
 
@@ -240,7 +240,11 @@ def one_step_table(weights: EnergyWeights, lr, sigma, bc1, bc2, seed: int, step:
 
 
 _THREADS, _WARPS = 256, 8     # csrc/warp_fold.cuh kThreads, kWarps
-_RESIDENT_CPL = (16, 24)      # columns a lane of the compiled resident variants
+# columns a lane of the compiled resident variants; 24 serves 512 < L <= 768,
+# where resident takes 9-21% less a step than streamed (NVIDIA H100 80GB HBM3,
+# 700.00 W, scripts/fused_steps_probe_torch.py --modes: at L = 768 0.0268
+# against 0.0305 ms a step at B = 20, 0.0147 against 0.0185 at B = 10)
+_RESIDENT_CPL = (16, 24)
 _STREAMED = (8, 2)            # (columns a lane, rows a warp) of the streamed variant
 _WORK_REGS = 100              # registers a thread beside its tile registers
 
@@ -387,9 +391,4 @@ def fused_step_batched(
                            eps_adam)
     hist, xT, muT, nuT = fused_steps_batched(xT, muT, nuT, tiles, table, step, step + 1,
                                              bead_mask)
-    if hist.device.type != "cpu":
-        fused_step_batched.launches += 1
     return hist[0], xT, muT, nuT
-
-
-fused_step_batched.launches = 0

@@ -3,10 +3,11 @@ chromosome3d_tpu/solver/anneal.py `solve_ensemble_impl`.
 
 The precomputed hot -> cool -> final schedule is one table of per-step rows
 (`schedule_table`, the JAX solver's `srows`). On the fused route kernel B1
-(ops.fused_step) walks the table's rows itself: on a CUDA device one launch
-runs a whole phase (the hot steps, then the rest), on the CPU a Python loop
-steps its plain twin. The semi routes are a Python loop over the same rows:
-the pair terms come from one kernel and
+(ops.fused_step) walks the table's rows itself: one call of
+`fused_steps_batched` runs a whole phase (the hot steps, then the rest), as
+one launch on a CUDA device and through the plain twin's loop on the CPU.
+The semi routes are a Python loop over the same rows, their scalars read
+from the table once before the loop: the pair terms come from one kernel and
 the update from kernel B4 (ops.fused_update: bond, clip, Adam, noise and
 move): kernel B3 (ops.tri_energy) for exact restraints past the fused
 step's reach or with or-groups, kernel B5 (ops.general_pair) for general
@@ -44,7 +45,6 @@ from chromosome3d_tpu_torch.ops.energy import (
 from chromosome3d_tpu_torch.ops.fused_step import (
     TABLE_COLS,
     ScheduleTable,
-    fused_step_batched,
     fused_step_feasible,
     fused_step_tiles,
     fused_steps_batched,
@@ -299,15 +299,14 @@ def solve_ensemble_impl(
     fused = (exact and or_groups is None and fused_step_feasible(L)
              and not tri_energy.use_triangular(L))
     if fused:
-        # the fused route: the whole step in kernel B1
+        # the fused route: a phase of the schedule is one call of kernel B1,
+        # which walks the table's rows itself
         tiles = fused_step_tiles(restraints, bead_mask, base.noe)
 
-        def step(k, xT, muT, nuT):
-            weights, lr, sigma, bc1, bc2 = table.scalars(k)
-            return fused_step_batched(
-                xT, muT, nuT, tiles, weights, bead_mask, lr, sigma, bc1, bc2,
-                noise_seed, k, clip,
-            )
+        def run(k0: int, k1: int, xT, muT, nuT, hist):
+            hist[k0:k1], xT, muT, nuT = fused_steps_batched(
+                xT, muT, nuT, tiles, table, k0, k1, bead_mask)
+            return xT, muT, nuT
     else:
         # the semi routes: pair terms in kernel B3 (exact) or B5 (general),
         # the or-group term added, the update in kernel B4; the tiles are
@@ -319,8 +318,10 @@ def solve_ensemble_impl(
             pair_tiles = general_pair_tiles(restraints)
             pair_grad = general_pair_energy_grad
 
+        scal = [table.scalars(k) for k in range(T)]
+
         def step(k, xT, muT, nuT):
-            weights, lr, sigma, bc1, bc2 = table.scalars(k)
+            weights, lr, sigma, bc1, bc2 = scal[k]
             e_pair, gT = pair_grad(xT, *pair_tiles, weights, bead_mask)
             if or_groups is not None:
                 e_og, g_og = or_group_energy_grad(
@@ -334,15 +335,10 @@ def solve_ensemble_impl(
             )
             return e_pair + e_bond, xT, muT, nuT
 
-    def run(k0: int, k1: int, xT, muT, nuT, hist):
-        if fused and dev.type == "cuda":
-            # one launch for the phase: the kernel walks the table's rows
-            hist[k0:k1], xT, muT, nuT = fused_steps_batched(
-                xT, muT, nuT, tiles, table, k0, k1, bead_mask)
+        def run(k0: int, k1: int, xT, muT, nuT, hist):
+            for k in range(k0, k1):
+                hist[k], xT, muT, nuT = step(k, xT, muT, nuT)
             return xT, muT, nuT
-        for k in range(k0, k1):
-            hist[k], xT, muT, nuT = step(k, xT, muT, nuT)
-        return xT, muT, nuT
 
     pick = None
     if cfg.enantiomer:

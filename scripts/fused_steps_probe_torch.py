@@ -32,6 +32,12 @@ card's `nvidia-smi` name and power limit:
    block, energies, grid barrier) over a 256-step launch; printed per step
    as the mean and the largest over the blocks, in us at the SM clock that
    nvidia-smi reports under the launch.
+5. With --modes: the multi-step entry at the lengths past 512 that the
+   24-column resident variants serve (L = 640 and 768; B = 20 and 10), once
+   under the plan as it stands and once with those variants taken out of the
+   plan, so that the streamed variant runs: device ms per step of one
+   256-step launch, and whether the two modes give equal bits (they need
+   not: a lane's columns, and so the order of its sums, differ).
 """
 
 from __future__ import annotations
@@ -265,6 +271,41 @@ def time_multi_step() -> None:
               f"launch {one:.5f} ms (CUDA events, least of 5)")
 
 
+def time_modes() -> None:
+    """Resident (24 columns a lane) against streamed at 512 < L <= 768."""
+    from chromosome3d_tpu_torch.config import AnnealConfig
+    from chromosome3d_tpu_torch.ops import fused_step
+    from chromosome3d_tpu_torch.solver.anneal import schedule_table
+
+    table = schedule_table(AnnealConfig(), seed=12345)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    compiled = fused_step._RESIDENT_CPL
+    for L, n_real in ((640, 600), (768, 700)):
+        for B in (20, 10):
+            tiles, _, bm, x, mu, nu = step_inputs(B, L, n_real)
+            run = lambda: fused_step.fused_steps_batched(x, mu, nu, tiles, table, 300, 556,
+                                                         bm)
+            ms, out = {}, {}
+            for mode, cpls in (("resident", compiled), ("streamed", compiled[:1])):
+                fused_step._RESIDENT_CPL = cpls
+                try:
+                    plan = fused_step.fused_steps_plan(L, B, n_sm)
+                    if plan["mode"] != mode:
+                        raise RuntimeError(f"L={L}, B={B}: plan is {plan['mode']}, "
+                                           f"wanted {mode}")
+                    out[mode] = run()
+                    ms[mode] = (event_ms(run) / 256, plan)
+                finally:
+                    fused_step._RESIDENT_CPL = compiled
+            same = all(torch.equal(a, b) for a, b in zip(out["resident"], out["streamed"]))
+            print(f"[B1 modes] B={B}, L={L}: ms a step of one 256-step launch (CUDA events, "
+                  "least of 5): " + "; ".join(
+                      f"{mode} {t:.5f} ({p['blocks']} blocks, {p['cpl']} columns a lane, "
+                      f"{p['rpw']} row(s) a warp, {p['sg']} structures a block)"
+                      for mode, (t, p) in ms.items())
+                  + f"; the two modes' bits equal: {same}")
+
+
 PARTS = ("staging (with the block's barriers)", "sweep and fold", "update",
          "waiting for the block's warps", "energies", "grid barrier")
 
@@ -322,15 +363,22 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=2000)
     ap.add_argument("--parts", action="store_true",
                     help="also time the parts of a step inside the multi-step kernel")
+    ap.add_argument("--modes", action="store_true",
+                    help="also time resident against streamed at L = 640 and 768")
+    ap.add_argument("--only-modes", action="store_true",
+                    help="time the modes and nothing else")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("fused_steps_probe_torch: needs an NVIDIA GPU")
     print(card())
-    probe_barriers(args.blocks, args.steps)
-    time_single_step()
-    time_multi_step()
-    if args.parts:
-        time_parts()
+    if not args.only_modes:
+        probe_barriers(args.blocks, args.steps)
+        time_single_step()
+        time_multi_step()
+        if args.parts:
+            time_parts()
+    if args.modes or args.only_modes:
+        time_modes()
     print(card())
     return 0
 

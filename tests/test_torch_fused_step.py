@@ -23,6 +23,7 @@ from chromosome3d_tpu_torch.ops.fused_step import (
     fused_step_batched,
     fused_step_plain,
     fused_step_tiles,
+    fused_steps_batched,
 )
 
 
@@ -111,10 +112,10 @@ def test_fused_step_wrapper_contract():
     r_t, w_t, (xT, muT, nuT) = from_jax_numpy(dense, w, state)
     bm = torch.from_numpy(bead)
     tiles = fused_step_tiles(r_t, bm, w_t.noe)
-    calls, launches = fused_step_plain.calls, fused_step_batched.launches
+    calls, launches = fused_step_plain.calls, fused_steps_batched.launches
     fused_step_batched(xT, muT, nuT, tiles, w_t, bm, 0.1, 0.0, 1.0, 1.0, 0, 0, None)
     assert fused_step_plain.calls == calls + 1
-    assert fused_step_batched.launches == launches
+    assert fused_steps_batched.launches == launches
     with pytest.raises(TypeError):
         fused_step_batched(xT.double(), muT, nuT, tiles, w_t, bm,
                            0.1, 0.0, 1.0, 1.0, 0, 0, None)

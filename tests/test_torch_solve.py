@@ -26,7 +26,7 @@ from chromosome3d_tpu.solver import anneal as jax_anneal
 from chromosome3d_tpu.solver.init import mds_init as jax_mds_init
 from chromosome3d_tpu.truth import confined_walk, if_from_structure
 from chromosome3d_tpu_torch.ops.energy import energy, from_jax_numpy
-from chromosome3d_tpu_torch.ops.fused_step import fused_step_batched, fused_step_plain
+from chromosome3d_tpu_torch.ops.fused_step import fused_step_plain, fused_steps_batched
 from chromosome3d_tpu_torch.ops.fused_update import fused_update_plain
 from chromosome3d_tpu_torch.ops.general_pair import general_pair_energy_grad_plain
 from chromosome3d_tpu_torch.ops.pair_energy import (
@@ -93,7 +93,7 @@ def test_solve_with_noise_matches_jax_fused(case):
     key, skey = jax.random.split(key)
     seed = int(jax.random.randint(skey, (), 0, jnp.int32(2**31 - 1)))
 
-    counts = (fused_step_plain.calls, fused_step_batched.launches,
+    counts = (fused_step_plain.calls, fused_steps_batched.launches,
               exact_pair_energy_grad_plain.calls, exact_pair_energy_grad.launches)
     got = port_anneal.solve_ensemble_impl(
         r_t, cfg, N_MODELS, torch.from_numpy(bead),
@@ -103,7 +103,7 @@ def test_solve_with_noise_matches_jax_fused(case):
     # on the CPU every step took B1's plain twin, and the pick B2's, once
     assert fused_step_plain.calls - counts[0] == cfg.total_steps
     assert exact_pair_energy_grad_plain.calls - counts[2] == 1
-    assert (fused_step_batched.launches, exact_pair_energy_grad.launches) == (
+    assert (fused_steps_batched.launches, exact_pair_energy_grad.launches) == (
         counts[1], counts[3])
 
     # the pick: the JAX history's first entry is the winner's step-0 energy,
