@@ -24,7 +24,12 @@ code is not 0):
                (odd and even tile counts, and B = 25 structures in slices
                of 9, 9 and 7), B3's bits equal over two
                calls, B4's noise bitwise equal to the counter hash and to
-               B1's, and the prep's k / 10 correctly rounded on the card;
+               B1's, B4 also at L = 512 (B = 20) and through the table entry
+               the semi routes call: 8 launches chained on one device step
+               counter equal 8 one-step launches bit for bit, the counter
+               advanced, the history rows e_pair + the twin's bond energies,
+               bits equal over two runs; the prep's k / 10 correctly
+               rounded on the card;
                B5 at the `solve` paths' shapes (B = 20; L = 512 on shape A's
                tensors, L = 5120 on shape B's) and at a small ragged shape
                with a bead mask, noe_rswitch = 1 (the linear tails) and a
@@ -46,7 +51,9 @@ code is not 0):
                the rest) for 2,760 steps in all, B2 once (the enantiomer
                pick) and no other kernel or plain twin ran, checks
                the artifact set, and scores the rank-01 model against the
-               true structure with the ground-truth gates.
+               true structure with the ground-truth gates. The solve call
+               is timed here (synchronised): summary.json rounds its
+               phases to 0.01 s.
   5. at-scale path — writes a ground-truth chromosome shaped like hg19 chr1
                at 50 kb (4,985 beads) as a float32 .npy, resets the counters,
                runs `run -i <.npy> -o <out> -m 10 --no-violation-reports` in
@@ -304,7 +311,12 @@ def phase_kernels(dev):
         fused_steps_batched,
     )
     from chromosome3d_tpu_torch.solver.anneal import schedule_table
-    from chromosome3d_tpu_torch.ops.fused_update import fused_update_batched
+    from chromosome3d_tpu_torch.ops.fused_update import (
+        fused_update_batched,
+        fused_update_plain,
+        fused_update_table,
+        step_counter,
+    )
     from chromosome3d_tpu_torch.ops.pair_energy import (
         exact_pair_energy_grad,
         exact_pair_energy_grad_plain,
@@ -374,6 +386,20 @@ def phase_kernels(dev):
     print(f"[kernels] B2 exact_pair == plain at B=20, L={L_PAD} "
           f"(g max abs err {b2_err:.3g})")
 
+    # B4 at the `solve` A / C paths' shape, on B2's gradient
+    gT = g.transpose(1, 2).contiguous()
+    got = fused_update_batched(xT, gT, mu, nu, w, bm, *args)
+    ref = fused_update_plain(xT, gT, mu, nu, w, bm, *args)
+    torch.cuda.synchronize()
+    close(f"B4 e (B=20, L={L_PAD})", got[0], ref[0], 2e-5)
+    close(f"B4 mu' (B=20, L={L_PAD})", got[2], ref[2], 5e-4, 1e-5)
+    close(f"B4 nu' (B=20, L={L_PAD})", got[3], ref[3], 5e-4, 1e-8)
+    b4_err = close(f"B4 x' (B=20, L={L_PAD})", got[1], ref[1], 5e-4, 5e-4)
+    for name, a in zip(("x'", "mu'", "nu'"), got[1:]):
+        check(bool((a[:, :, L_TRUE:] == 0).all()), f"B4 padded beads of {name} not 0 at L={L_PAD}")
+    print(f"[kernels] B4 fused_update == plain at B=20, L={L_PAD} (x' max abs err "
+          f"{b4_err:.3g}); padded beads 0")
+
     st = (xT, mu, nu)
     # B1 per step: one launch of STEPS_TIMED's 256 steps (its clones of the
     # state and its history sum included) over 256
@@ -387,11 +413,15 @@ def phase_kernels(dev):
           "(median wall of 7 with a sync | device time from torch.profiler, over "
           f"{n_timed}): " + "; ".join(f"B={B} {v[0]:.5f} | {v[1]:.5f}"
                                       for B, v in per_step.items()))
+    counter = step_counter(0, dev)
+    hist = torch.empty((len(table.rows), 2 * N_MODELS), device=dev)
+    e0 = torch.zeros(2 * N_MODELS, device=dev)
     calls = {
         "B1 one step": lambda: fused_step_batched(*st, tiles, w, bm, *args),
         "B1 plain": lambda: fused_step_plain(*st, tiles, w, bm, *args),
         "B2": lambda: exact_pair_energy_grad(coords, ex.target, ex.w, w, bm),
         "B2 plain": lambda: exact_pair_energy_grad_plain(coords, ex.target, ex.w, w, bm),
+        "B4": lambda: fused_update_table(xT, gT, mu, nu, e0, bm, table, counter, hist),
     }
     wall = {k: median_ms(fn) for k, fn in calls.items()}
     on_dev = {k: device_ms(fn) for k, fn in calls.items()}
@@ -403,7 +433,11 @@ def phase_kernels(dev):
           "plain_device_ms": on_dev["B1 plain"],
           "ms_b10": per_step[N_MODELS][0], "device_ms_b10": per_step[N_MODELS][1],
           "one_step_ms": wall["B1 one step"], "one_step_device_ms": on_dev["B1 one step"]}
-    return X, M, {"B1": b1, "B2": timing(b2_err, "B2", wall, on_dev)}, (ex, bm, xT, w)
+    # B4 at L = 512 joins B4's entry, beside its bound at that shape
+    b4_512 = {"ms_512": wall["B4"], "device_ms_512": on_dev["B4"],
+              "bound_ms_512": bound("B4", 2 * N_MODELS, L_PAD)[0]}
+    return (X, M, {"B1": b1, "B2": timing(b2_err, "B2", wall, on_dev), "B4@512": b4_512},
+            (ex, bm, xT, w))
 
 
 def ragged_case(dev, L, n_real, B, seed):
@@ -468,9 +502,11 @@ def phase_kernels_at_scale(dev):
     from chromosome3d_tpu_torch.ops.fused_update import (
         fused_update_batched,
         fused_update_plain,
+        fused_update_table,
+        step_counter,
     )
     from chromosome3d_tpu_torch.ops.tri_energy import tri_energy_grad, tri_energy_grad_plain
-    from chromosome3d_tpu_torch.solver.anneal import _final_weights
+    from chromosome3d_tpu_torch.solver.anneal import _final_weights, schedule_table
 
     w = _final_weights(AnnealConfig())
     # T = 5 and T = 4; B = 25 goes through a block in slices of 9, 9 and 7
@@ -514,10 +550,58 @@ def phase_kernels_at_scale(dev):
           f"(x' max abs err {b4_err:.3g}); noise bitwise equal; padded beads 0; "
           "prep k / 10 correctly rounded for k <= 2e6")
 
+    # the table entry the semi routes call: STEPS_CHECK's 8 steps chained on
+    # one device counter
+    table = schedule_table(AnnealConfig(), seed=12345)
+    B = 2 * N_MODELS
+    e_pair = torch.linspace(-1e3, 1e3, B, device=dev)
+    k0, k1 = STEPS_CHECK
+
+    def chain():
+        counter = step_counter(k0, dev)
+        hist = torch.full((len(table.rows), B), float("nan"), device=dev)
+        st, spare = (xT, mu, nu), [None, None]
+        for n in range(k1 - k0):
+            st = fused_update_table(st[0], g, *st[1:], e_pair, bm, table, counter, hist,
+                                    out=spare[n % 2])
+            spare[n % 2] = st
+        return counter, hist, st
+
+    counter, hist, st = chain()
+    _, hist2, st2 = chain()
+    alone, plain = (xT, mu, nu), (xT, mu, nu)
+    hist_err = 0.0
+    for k in range(k0, k1):
+        _, lr, sigma, bc1, bc2 = table.scalars(k)
+        step_args = (w, bm, lr, sigma, bc1, bc2, table.seed, k, table.clip)
+        e1, *alone = fused_update_batched(alone[0], g, *alone[1:], *step_args)
+        e_r, *plain = fused_update_plain(plain[0], g, *plain[1:], *step_args)
+        check(torch.equal(hist[k], e_pair + e1),
+              f"B4 table step {k}: history row differs from e_pair + the one-step face's")
+        hist_err = max(hist_err, close(f"B4 table hist row {k}", hist[k], e_pair + e_r, 2e-5))
+    torch.cuda.synchronize()
+    check(int(counter.item()) == k1, f"B4 table: counter {int(counter.item())}, want {k1}")
+    check(torch.equal(hist[k0:k1], hist2[k0:k1]) and all(
+        torch.equal(a, b) for a, b in zip(st, st2)), "B4 table: two runs differ")
+    check(bool(torch.isnan(hist[:k0]).all() and torch.isnan(hist[k1:]).all()),
+          "B4 table: a history row outside the steps was written")
+    check(all(torch.equal(a, b) for a, b in zip(st, alone)),
+          f"B4 table: {k1 - k0} chained launches differ from one-step launches")
+    b4_err = max(b4_err, close("B4 table x' vs twins", st[0], plain[0], 5e-4, 5e-4))
+    for name, a in zip(("x'", "mu'", "nu'"), st):
+        check(bool((a[:, :, L_BIG:] == 0).all()), f"B4 table: padded beads of {name} not 0")
+    print(f"[kernels] B4 fused_update_table: {k1 - k0} launches from a device counter at "
+          f"{k0} == {k1 - k0} one-step launches bit for bit, counter {k1} after, history "
+          f"rows == e_pair + the twin's bond energies (max abs err {hist_err:.3g}), bits "
+          "equal over two runs, padded beads 0")
+
+    # timed as the semi routes call it: consecutive rows from one counter
+    counter = step_counter(0, dev)
+    hist = torch.empty((len(table.rows), B), device=dev)
     calls = {
         "B3": lambda: tri_energy_grad(xT, ex.target, ex.w, w, bm),
         "B3 plain": lambda: tri_energy_grad_plain(xT, ex.target, ex.w, w, bm),
-        "B4": lambda: fused_update_batched(xT, g, mu, nu, w, bm, *args),
+        "B4": lambda: fused_update_table(xT, g, mu, nu, e_pair, bm, table, counter, hist),
         "B4 plain": lambda: fused_update_plain(xT, g, mu, nu, w, bm, *args),
     }
     n = {k: (5 if k == "B3 plain" else 25) for k in calls}
@@ -526,8 +610,16 @@ def phase_kernels_at_scale(dev):
     print(f"[kernels] at B=20, L={L_BIG_PAD}, ms per call as median wall with a "
           "sync around each of 25 (5 for B3 plain) | device time from torch.profiler: "
           + "; ".join(f"{k} {wall[k]:.4f} | {on_dev[k]:.4f}" for k in calls))
+    # B4 at B = 10, the rest of the schedule after the pick
+    st10 = [a[:N_MODELS].contiguous() for a in (xT, g, mu, nu)]
+    hist10 = torch.empty((len(table.rows), N_MODELS), device=dev)
+    counter.fill_(0)
+    b4_b10 = device_ms(lambda: fused_update_table(*st10, e_pair[:N_MODELS].contiguous(), bm,
+                                                  table, counter, hist10))
+    print(f"[kernels] B4 at B=10, L={L_BIG_PAD}: device {b4_b10:.4f} ms a call")
     return X, M, {"B3": timing(b3_err, "B3", wall, on_dev),
-                  "B4": timing(b4_err, "B4", wall, on_dev)}, (ex, bm, xT, w)
+                  "B4": {**timing(b4_err, "B4", wall, on_dev), "device_ms_b10": b4_b10}}, \
+        (ex, bm, xT, w)
 
 
 def kernel_counters():
@@ -544,7 +636,7 @@ def kernel_counters():
     kernels = {"B1": fused_step.fused_steps_batched,
                "B2": pair_energy.exact_pair_energy_grad,
                "B3": tri_energy.tri_energy_grad,
-               "B4": fused_update.fused_update_batched,
+               "B4": fused_update.fused_update_table,
                "B5": general_pair.general_pair_energy_grad,
                "B6": strip_tri.strip_tri_energy_grad,
                "B5'": general_pair.general_row_block_energy_grad,
@@ -598,6 +690,29 @@ def check_gates(pdb, X):
     return met
 
 
+@contextlib.contextmanager
+def timed_solve(seconds):
+    """Time each call of the pipeline's solve, synchronised, into `seconds`:
+    summary.json rounds its phases to 0.01 s, coarse for a warm solve."""
+    from chromosome3d_tpu_torch import pipeline
+
+    real = pipeline._solve
+
+    def spy(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    pipeline._solve = spy
+    try:
+        yield
+    finally:
+        pipeline._solve = real
+
+
 def phase_main_path(X, M, card):
     from chromosome3d_tpu_torch.config import AnnealConfig
     from chromosome3d_tpu_torch import cli
@@ -610,8 +725,8 @@ def phase_main_path(X, M, card):
         write_if_matrix(path, M)
         out = os.path.join(tmp, "out")
         reset_counters()
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
+        buf, solve_t = io.StringIO(), []
+        with contextlib.redirect_stdout(buf), timed_solve(solve_t):
             rc = cli.main(["run", "-i", path, "-o", out, "-m", str(N_MODELS)])
         launches, plain = read_counters()
         check(rc == 0, f"cli run returned {rc}")
@@ -627,15 +742,16 @@ def phase_main_path(X, M, card):
         ranked = sorted(glob.glob(os.path.join(out, f"{ident}_rank*_a05.pdb")))
         check(len(ranked) == N_MODELS, f"{len(ranked)} rank PDBs, want {N_MODELS}")
         met = check_gates(ranked[0], X)
-    solve_s = summary["phases"]["solve_s"]
+    solve_s = solve_t[0]
     print(f"[main path] run -m {N_MODELS}, L={L_TRUE}->{L_PAD}: B1 {launches['B1']} "
           f"launches for {b1_steps} steps, B2 {launches['B2']}, B3 0, B4 0, plain 0; "
           f"rank01 rmsd/Rg "
           f"{met['rmsd_over_rg']:.4f}, spearman_d {met['spearman_d']:.5f}, "
           f"dRMSD_rel {met['drmsd_rel']:.4f}; best Spearman(IF,1/d) "
           f"{summary['best_spearman_if_inv_d']:.4f}")
-    print(f"[main path] solve {solve_s} s (synchronised; the first solve of the "
-          f"process, MDS init included), {steps / solve_s} ensemble steps/s, "
+    print(f"[main path] solve {solve_s} s (the solve call timed here, synchronised; "
+          f"the first solve of the process, MDS init included; summary.json solve_s "
+          f"{summary['phases']['solve_s']}), {steps / solve_s} ensemble steps/s, "
           f"wall {summary['wall_seconds']} s on {card}")
     return launches, b1_steps
 
@@ -682,9 +798,10 @@ def phase_at_scale_path(X, M, card, shards=1):
         out = os.path.join(tmp, "out")
         device_prep.exact_tiles_from_if_device = spy
         reset_counters()
-        buf = io.StringIO()
+        buf, solve_t = io.StringIO(), []
         try:
-            with contextlib.redirect_stdout(buf), shard_devices_on_card(shards):
+            with contextlib.redirect_stdout(buf), shard_devices_on_card(shards), \
+                    timed_solve(solve_t):
                 rc = cli.main(["run", "-i", path, "-o", out, "-m", str(N_MODELS),
                                "--no-violation-reports"])
         finally:
@@ -705,7 +822,7 @@ def phase_at_scale_path(X, M, card, shards=1):
         ranked = sorted(glob.glob(os.path.join(out, f"{ident}_rank*_a05.pdb")))
         check(len(ranked) == N_MODELS, f"{len(ranked)} rank PDBs, want {N_MODELS}")
         met = check_gates(ranked[0], X)
-    solve_s = summary["phases"]["solve_s"]
+    solve_s = solve_t[0]
     print(f"[{tag}] run -i .npy -m {N_MODELS}, L={L_BIG}->{L_BIG_PAD}: "
           + ", ".join(f"{k} {launches[k]} launches" for k in want)
           + f", every other kernel 0, plain 0; restraint prep on the card "
@@ -713,8 +830,8 @@ def phase_at_scale_path(X, M, card, shards=1):
           f"{summary['restraints']} restraints; rank01 rmsd/Rg {met['rmsd_over_rg']:.4f}, "
           f"spearman_d {met['spearman_d']:.5f}, dRMSD_rel {met['drmsd_rel']:.4f}; best "
           f"Spearman(IF,1/d) {summary['best_spearman_if_inv_d']:.4f}")
-    print(f"[{tag}] solve_s {solve_s} (synchronised; landmark init "
-          f"included), {steps / solve_s} ensemble steps/s, wall "
+    print(f"[{tag}] solve {solve_s} s (the solve call timed here, synchronised; landmark "
+          f"init included), {steps / solve_s} ensemble steps/s, wall "
           f"{summary['wall_seconds']} s, phases {json.dumps(summary['phases'])} on {card}")
     return launches
 
@@ -1077,6 +1194,9 @@ def phase_kernels_sharded(dev, small, big, inputs):
         "B2'": lambda: exact_row_block_energy_grad(xT, t, wt, w, bm, Lb),
         "B2' plain": lambda: exact_row_block_energy_grad_plain(xT, t, wt, w, bm, Lb),
     }, 25)
+    x10 = xT[:N_MODELS].contiguous()   # the rest of the schedule after the pick
+    measured["B2'"]["device_ms_b10"] = device_ms(
+        lambda: exact_row_block_energy_grad(x10, t, wt, w, bm, Lb))
 
     # B6: two small ragged cases (odd and even tile counts), then the
     # at-scale tiles in 4 strips, and one strip of Lb = L against B3
@@ -1194,7 +1314,9 @@ def work(key, B, L, Lb=None):
     once) of one call at these shapes; for B1 of one step of a launch of
     B1_STEPS_A_LAUNCH: x read and x' written, the table's row and the B
     energies every step, the three tiles, mu, nu (in and out) and the bead
-    mask once a launch."""
+    mask once a launch; for B4 x, g, mu, nu, the bead mask, the pair
+    energies, the table's row and the counter in, x', mu', nu', the history
+    row and the counter out."""
     f, st = 4, 3 * B * L        # float32 bytes; one (B, 3, L) state array
     Lb = L if Lb is None else Lb
     return {
@@ -1202,7 +1324,7 @@ def work(key, B, L, Lb=None):
                f * (2 * st + 6 + B) + f * (3 * L * L + 4 * st + L) // B1_STEPS_A_LAUNCH),
         "B2": (35 * B * L * L, f * (2 * L * L + 2 * st + B + L)),
         "B3": (36 * B * L * L // 2, f * (2 * L * L + 2 * st + B + L)),
-        "B4": (100 * B * L, f * (7 * st + B + L)),
+        "B4": (100 * B * L, f * (7 * st + 2 * B + L + 8)),
         "B5": (44 * B * L * L, f * (3 * L * L + 2 * st + B + L)),
         "B6": (36 * B * Lb * L // 2, f * (2 * Lb * L + 2 * st + B + L)),
         "B5'": (44 * B * Lb * L, f * (3 * Lb * L + st + 3 * B * Lb + B + L)),
@@ -1224,6 +1346,7 @@ def main() -> int:
     X, M, measured, small = phase_kernels(dev)
     Xb, Mb, measured_big, big = phase_kernels_at_scale(dev)
     measured.update(measured_big)
+    measured["B4"].update(measured.pop("B4@512"))
     with tempfile.TemporaryDirectory() as tmp:
         inputs = make_solve_inputs(tmp)
         measured_b5 = phase_kernels_general(dev, inputs)

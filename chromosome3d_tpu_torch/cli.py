@@ -4,18 +4,19 @@ support.
 
   python -m chromosome3d_tpu_torch run -i <IF matrix (.txt or .npy)> -o <outdir> [-k K] [-a ALPHA]
       [-m MODELS] [--fast | --turbo] [--no-violation-reports]
-      [--no-shard-large] [--shard-quantum Q]
+      [--no-shard-large] [--shard-quantum Q] [--device {cuda,cpu}]
   python -m chromosome3d_tpu_torch solve -r <restraints (.rr or .tbl)> -o <outdir> [-L L]
-      [-m MODELS] [--fast | --turbo]
+      [-m MODELS] [--fast | --turbo] [--device {cuda,cpu}]
   python -m chromosome3d_tpu_torch spearman <matrix> <pdb-or-dir> [range]
 
-`run` and `solve` compute on the first CUDA device when one is present (the
-kernels build at first use) and on the CPU, with the kernels' plain twins,
-otherwise. Past the largest length bucket with more than one CUDA device
-visible they row-shard the solve over all of them by themselves
-(pipeline._use_sharded; `--no-shard-large` turns that off, `--shard-quantum`
-sets the padding unit past the buckets). `solve` takes an external restraint set: CONFOLD-style `.rr`
-rows `i j lo hi conf` or a CNS NOE `.tbl`, `or`-group rows included. The
+`run` and `solve` compute on the first CUDA device (the kernels build at
+first use) and fail when there is none; `--device cpu` runs them on the
+CPU, with the kernels' plain twins, and is the only way onto the CPU. Past
+the largest length bucket with more than one CUDA device visible they
+row-shard the solve over all of them by themselves (pipeline._use_sharded;
+`--no-shard-large` turns that off, `--shard-quantum` sets the padding unit
+past the buckets). `solve` takes an external restraint set: CONFOLD-style
+`.rr` rows `i j lo hi conf` or a CNS NOE `.tbl`, `or`-group rows included. The
 JAX CLI's other subcommands, and its flags that are not ported yet
 (`--alpha-ensemble`, `--profile`, `--chrom`, `--resolution`, `--bed`,
 `--ice`, `--norm`), are refused with NotImplementedError naming their
@@ -88,6 +89,9 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                         "exact length on one device")
     p.add_argument("--shard-quantum", type=int, default=512,
                    help="padding unit for beyond-the-bucket lengths (default 512)")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="where to compute (default cuda, which fails without a "
+                        "CUDA device; cpu runs the kernels' plain twins)")
     _add_unported(p, _UNPORTED_COMMON)
 
 
@@ -163,7 +167,8 @@ def main(argv=None) -> int:
     if args.command == "run":
         from chromosome3d_tpu_torch.pipeline import run_pipeline
 
-        summary = run_pipeline(args.input, args.output, _make_config(args))
+        summary = run_pipeline(args.input, args.output, _make_config(args),
+                               device=args.device)
         print(json.dumps(summary))
         return 0
 
@@ -171,7 +176,8 @@ def main(argv=None) -> int:
         from chromosome3d_tpu_torch.pipeline import run_restraints_pipeline
 
         summary = run_restraints_pipeline(args.restraints, args.output,
-                                          _make_config(args), L=args.length)
+                                          _make_config(args), L=args.length,
+                                          device=args.device)
         print(json.dumps(summary))
         return 0
 

@@ -6,115 +6,225 @@
 // and through `pallas_row_block_energy_grad_batched(..., exact=True)` (B2':
 // the Lb rows [row0, row0 + Lb) of one shard of the row-sharded solve, from
 // (Lb, L) strips of the tiles; one body, so B2' rows are bitwise B2's). On
-// the port's `run` path B2 runs once per solve: the enantiomer pick
-// (chromosome3d_tpu/solver/anneal.py:564), B = 2 x models, L = the bucket.
-// B2' runs every step and at the pick of a sharded exact solve where the
-// strip-triangular kernel B6 does not pay (L = 512 over 2 shards).
+// the port's `run` path B2 runs once per solve, for the enantiomer pick
+// (B = 20, L = 512); B2' runs on every shard every step of a sharded exact
+// solve where the strip-triangular kernel B6 does not pay (Lb = 256 of
+// L = 512 over 2 shards, B = 20 then 10).
 //
 // Math, in d-space as the Pallas kernel does it (the pick compares these
 // energies with an argmin, so B1's rsqrt-space algebra is not borrowed):
 //   s = |x_i - x_j|^2 + eps, rinv = rsqrt(s), d = s * rinv
 //   pv = bead_i * bead_j, nb = (|i - j| >= 2) * pv
 //   dev = d - t_ij, overlap = max(r0 - d, 0)
-//   e_i = 1/2 noe sum_j w_ij pv dev^2 + 1/2 vdw sum_j nb overlap^2
+//   e = 1/2 noe sum_ij w_ij pv dev^2 + 1/2 vdw sum_ij nb overlap^2
 //   c_ij = (2 noe w_ij pv dev - 2 vdw nb overlap) * rinv
 //   g_i = sum_j c_ij (x_i - x_j)
 // The Pallas kernel forms g_i as x_i sum_j c_ij - (c @ X)_i on the MXU; here
 // the differences are already in registers, and summing c (x_i - x_j)
-// avoids the float32 cancellation between those two large terms (at L = 512
-// with coordinates of tens of A they are ~1e4 apart from a result of ~10).
-// Each unordered pair is seen from both rows (the 1/2 ordered-pair
-// convention), so every row owns its gradient and no atomics are needed.
+// avoids the float32 cancellation between those two large terms (ROADMAP
+// §C). Each unordered pair is seen from both rows (the 1/2 ordered-pair
+// convention), so every row owns its gradient.
 //
-// What bounds it on an H100: ~30 FP32 operations and one MUFU rsqrt per
-// pair, and two (L, L) float32 tiles (target, weight) read once per
-// structure. At the pick's shape (B = 20, L = 512) that is 5.2M pairs
-// (~0.16 GFLOP) and 2 MiB of tiles, far below what the card streams in the
-// launch overhead of one call; torch.profiler measured 13.6 us a launch
-// (NVIDIA H100 80GB HBM3, 700.00 W). Design: one warp per bead row, grid
-// (row blocks, B).
-// Lanes stride the columns, so each tile row is read coalesced; the 20
-// structures re-read the same 2 MiB of tiles, which stay in the 50 MB L2.
-// The row's sums live in registers and are reduced with warp shuffles.
-// Reusing a tile row across structures inside one block is later work.
+// What bounds it on an H100: at the shapes it runs, latency, and how much
+// of the card it fills. B x Lb x L pairs (5.2M at the pick, 1.3-2.6M a shard
+// step) at ~23 instructions each are 1-4 us of issue on 132 SMs; the (Lb,
+// L) tiles are 0.5-1 MiB, in L2, but read once per structure they would be
+// 10-40 MB of L2 traffic. The design:
+//  * a warp owns one row over all L columns, so a row's gradient never
+//    leaves its warp: a block of 8 warps takes 8 rows for a slice of sg
+//    structures, grid (row groups, structure groups), which at those shapes
+//    is 256-320 blocks, up to three an SM (80 registers a thread);
+//  * a lane holds its columns' t, 2 noe w pv and 2 vdw nb of the row (16
+//    of each a 512-column chunk) in registers, loaded once and reused for
+//    every structure of the slice, so the tiles are read once per slice;
+//  * the chunk's coordinates of the slice and its bead mask are staged in
+//    shared memory by cp.async, issued before the tile loads, so both are
+//    in flight together; the loop over structures touches no global memory;
+//  * per structure the lane's 3 gradient sums and its energy go through
+//    one multi-value butterfly (warp_fold.cuh, 6 shuffles); the lanes that
+//    own them add them into the warp's slot, chunk after chunk, and write
+//    the (B, 3, Lb) gradient rows at the end;
+//  * each block writes its rows' energy per structure, and the last block
+//    to arrive (a ticket: one atomic counter) adds them in a fixed order
+//    into e (B,). The grid is one wave (ops/pair_energy.py
+//    `exact_pair_plan`): a block holds its slot until its ticket returns,
+//    so a second wave would wait for the first one's tickets.
+// A row's columns are chunked by L alone and summed in the same order
+// whichever rows share the launch, and every product and sum is spelled as
+// fmaf or a never-fused intrinsic, so B2' rows are B2's bits. No float
+// atomics: equal inputs give equal bits.
 
 #include <cuda_runtime.h>
 
+#include "warp_fold.cuh"
+
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+using c3d::kThreads;
+using c3d::kWarps;
+
+constexpr int kChunk = 512;            // columns staged at a time
+constexpr int kCpl = kChunk / 32;      // a lane's columns of a chunk
+constexpr int kVals = 4;               // a lane's sums per structure
 constexpr float kEps = 1e-12f;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+struct ExactParams {
+  int B, L, row0, Lb;     // structures, length, the strip
+  int sg;                 // structures a block
+  float two_noe, two_vdw, r0;
+};
+
+// floats of shared memory a block needs for sg structures: the chunk's
+// coordinates and bead mask, the rows' coordinates, the warps' slots
+__host__ __device__ constexpr int smem_floats(int sg) {
+  return sg * 3 * kChunk + kChunk + sg * 3 * kWarps + kWarps * sg * kVals;
 }
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-exact_pair_kernel(const float* __restrict__ x,     // (B, L, 3)
-                  const float* __restrict__ t,     // (Lb, L) targets, rows row0..
-                  const float* __restrict__ w,     // (Lb, L) folded weights
-                  const float* __restrict__ bm,    // (L,) bead mask
-                  float* __restrict__ e_rows,      // (B, Lb) out
-                  float* __restrict__ g,           // (B, Lb, 3) out
-                  int L, int row0, int Lb, float noe, float vdw, float r0) {
-  const int lane = threadIdx.x & 31;
-  const int il = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int b = blockIdx.y;
-  if (il >= Lb) return;  // uniform per warp: the shuffles below stay full-warp
-  const int i = row0 + il;
+__global__ void __launch_bounds__(kThreads)
+exact_pair_kernel(const float* __restrict__ xT,   // (B, 3, L)
+                  const float* __restrict__ t,    // (Lb, L) targets, rows row0..
+                  const float* __restrict__ w,    // (Lb, L) folded weights
+                  const float* __restrict__ bm,   // (L,) bead mask
+                  float* __restrict__ gT,         // (B, 3, Lb) out
+                  float* __restrict__ e,          // (B,) out
+                  float* __restrict__ e_part,     // (B, row groups) scratch
+                  int* __restrict__ ticket,       // 0 between launches
+                  ExactParams q) {
+  extern __shared__ float smem[];
+  __shared__ int s_last;
+  const int L = q.L, Lb = q.Lb, sg = q.sg;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rg = blockIdx.x, b0 = blockIdx.y * sg, nb = min(sg, q.B - b0);
+  const int il0 = rg * kWarps, il = il0 + warp, i = q.row0 + il;   // the warp's row
+  const bool row_in = il < Lb;
+  float* s_x = smem;                          // [sg][3][kChunk]
+  float* s_bm = s_x + sg * 3 * kChunk;        // [kChunk]
+  float* s_rows = s_bm + kChunk;              // [sg][3][kWarps]
+  float* s_slot = s_rows + sg * 3 * kWarps;   // [kWarps][sg][kVals]
+  const float* xb = xT + (size_t)b0 * 3 * L;
 
-  const float* xb = x + (size_t)b * L * 3;
-  const float ax = xb[3 * i], ay = xb[3 * i + 1], az = xb[3 * i + 2];
-  const float bmi = bm[i];
-  const float* trow = t + (size_t)il * L;
-  const float* wrow = w + (size_t)il * L;
+  for (int idx = tid; idx < nb * 3 * kWarps; idx += kThreads) {
+    const int r = il0 + idx % kWarps;
+    const bool in = r < Lb;
+    c3d::copy_async(s_rows + idx, xb + (size_t)(idx / kWarps) * L + (in ? q.row0 + r : 0), in);
+  }
+  for (int idx = tid; idx < kWarps * sg * kVals; idx += kThreads) s_slot[idx] = 0.f;
+  int which;
+  bool owner;
+  c3d::fold_all_id<16, kVals>(lane, which, owner);
+  float* my_slot = s_slot + (size_t)warp * sg * kVals + which;
+  const float bmi = row_in ? __ldg(bm + i) : 0.f;
+  const float r0 = q.r0;
 
-  float e_noe = 0.f, e_vdw = 0.f, gx = 0.f, gy = 0.f, gz = 0.f;
-  for (int j = lane; j < L; j += 32) {
-    const float xj = xb[3 * j], yj = xb[3 * j + 1], zj = xb[3 * j + 2];
-    const float dx = ax - xj, dy = ay - yj, dz = az - zj;
-    const float s = dx * dx + dy * dy + dz * dz + kEps;
-    const float rinv = rsqrtf(s);
-    const float d = s * rinv;
-    const float pv = bmi * bm[j];
-    const float wv = wrow[j] * pv;
-    const float dev = d - trow[j];
-    e_noe += wv * dev * dev;
-    const float nb = (abs(i - j) >= 2) ? pv : 0.f;
-    const float ov = fmaxf(r0 - d, 0.f);
-    e_vdw += nb * ov * ov;
-    const float c = (noe * wv * (2.f * dev) - 2.f * vdw * nb * ov) * rinv;
-    gx += c * dx;
-    gy += c * dy;
-    gz += c * dz;
+  for (int c0 = 0; c0 < L; c0 += kChunk) {
+    if (c0 > 0) __syncthreads();   // every warp is done with the last chunk
+    // the chunk's coordinates and bead mask, in flight with the tile loads
+    for (int idx = tid; idx < (3 * nb + 1) * kChunk; idx += kThreads) {
+      const int r = idx / kChunk, col = c0 + (idx - r * kChunk);
+      const bool in = col < L;
+      const float* src = r < 3 * nb ? xb + (size_t)r * L : bm;
+      float* dst = r < 3 * nb ? s_x + idx : s_bm + (idx - r * kChunk);
+      c3d::copy_async(dst, src + (in ? col : 0), in);
+    }
+    c3d::copy_async_commit();
+    // this lane's pairs: row i, columns c0 + lane + 32 m; a row past the
+    // strip or a column past L holds nothing (bead 0)
+    float pt[kCpl], pw[kCpl];
+#pragma unroll
+    for (int m = 0; m < kCpl; ++m) {
+      const int j = c0 + lane + 32 * m;
+      const bool in = row_in && j < L;
+      const size_t idx = (size_t)il * L + j;
+      pt[m] = in ? __ldg(t + idx) : 0.f;
+      pw[m] = in ? __ldg(w + idx) : 0.f;
+    }
+    c3d::copy_async_wait<0>();
+    __syncthreads();
+    float pvn[kCpl];
+#pragma unroll
+    for (int m = 0; m < kCpl; ++m) {
+      const int j = c0 + lane + 32 * m;
+      const float pv = __fmul_rn(bmi, s_bm[lane + 32 * m]);
+      pw[m] = __fmul_rn(q.two_noe, __fmul_rn(pw[m], pv));     // 2 noe w pv
+      pvn[m] = (abs(i - j) >= 2) ? __fmul_rn(q.two_vdw, pv) : 0.f;
+    }
+
+    for (int b = 0; b < nb; ++b) {
+      const float* xs = s_x + (size_t)b * 3 * kChunk + lane;
+      const float* xr = s_rows + (size_t)b * 3 * kWarps + warp;
+      const float ax = xr[0], ay = xr[kWarps], az = xr[2 * kWarps];
+      float v[kVals] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int m = 0; m < kCpl; ++m) {
+        // every product and sum is spelled out (fmaf or a never-fused
+        // intrinsic), so a row's bits do not depend on the rows beside it
+        const float dx = __fsub_rn(ax, xs[32 * m]);
+        const float dy = __fsub_rn(ay, xs[kChunk + 32 * m]);
+        const float dz = __fsub_rn(az, xs[2 * kChunk + 32 * m]);
+        const float s = fmaf(dz, dz, fmaf(dy, dy, fmaf(dx, dx, kEps)));
+        const float rinv = c3d::rsqrt_fast(s);
+        const float d = __fmul_rn(s, rinv);
+        const float dev = __fsub_rn(d, pt[m]);
+        const float ov = fmaxf(__fsub_rn(r0, d), 0.f);
+        const float qn = __fmul_rn(pw[m], dev);    // 2 noe w pv dev
+        const float qv = __fmul_rn(pvn[m], ov);    // 2 vdw nb ov
+        v[3] = fmaf(qv, ov, fmaf(qn, dev, v[3]));
+        const float cf = __fmul_rn(__fsub_rn(qn, qv), rinv);
+        v[0] = fmaf(cf, dx, v[0]);
+        v[1] = fmaf(cf, dy, v[1]);
+        v[2] = fmaf(cf, dz, v[2]);
+      }
+      c3d::fold_all<16>(v, lane);
+      if (owner) my_slot[b * kVals] += v[0];
+    }
   }
-  e_noe = warp_sum(e_noe);
-  e_vdw = warp_sum(e_vdw);
-  gx = warp_sum(gx);
-  gy = warp_sum(gy);
-  gz = warp_sum(gz);
-  if (lane == 0) {
-    const size_t r = (size_t)b * Lb + il;
-    e_rows[r] = 0.5f * noe * e_noe + 0.5f * vdw * e_vdw;
-    g[3 * r] = gx;
-    g[3 * r + 1] = gy;
-    g[3 * r + 2] = gz;
+  __syncthreads();
+
+  // the block's energy of each structure, rows in order, then its ticket;
+  // the warps' gradient rows go out while the ticket is in flight (the
+  // fence waits for the energies alone)
+  if (tid < nb) {
+    float en = 0.f;
+    for (int wq = 0; wq < kWarps; ++wq) en += s_slot[(wq * sg + tid) * kVals + 3];
+    e_part[(size_t)(b0 + tid) * gridDim.x + rg] = en;
+    __threadfence();
   }
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(ticket, 1) == (int)(gridDim.x * gridDim.y) - 1;
+  if (owner && which < 3 && row_in)
+    for (int b = 0; b < nb; ++b)
+      gT[((size_t)(b0 + b) * 3 + which) * Lb + il] = my_slot[b * kVals];
+  __syncthreads();
+  if (!s_last) return;
+
+  // the last block: each structure's row groups in a fixed order (the
+  // slots carry 2 noe and 2 vdw: e = 1/4 of the sum)
+  c3d::last_block_row_sums(e_part, q.B, gridDim.x, s_x, sg * 3 * kChunk,
+                           [&](int b, float v) { e[b] = 0.25f * v; });
+  if (tid == 0) *ticket = 0;
 }
 
 }  // namespace
 
-// B2 is row0 = 0, Lb = L; B2' a shard's rows [row0, row0 + Lb).
-extern "C" int c3d_exact_pair(const float* x, const float* t, const float* w,
-                              const float* bm, float* e_rows, float* g, int B,
-                              int L, int row0, int Lb, float noe, float vdw,
-                              float vdw_radius, void* stream) {
-  if (row0 < 0 || Lb <= 0 || row0 + Lb > L) return (int)cudaErrorInvalidValue;
-  const dim3 grid((Lb + kWarpsPerBlock - 1) / kWarpsPerBlock, B);
-  exact_pair_kernel<<<grid, kWarpsPerBlock * 32, 0, (cudaStream_t)stream>>>(
-      x, t, w, bm, e_rows, g, L, row0, Lb, noe, vdw, vdw_radius);
+// B2 is row0 = 0, Lb = L; B2' a shard's rows [row0, row0 + Lb). The grid is
+// (ceil(Lb / 8), ceil(B / sg)); e_part: (B, ceil(Lb / 8)) scratch; ticket:
+// one int that is 0 (each launch leaves it 0 again).
+extern "C" int c3d_exact_pair(const float* xT, const float* t, const float* w,
+                              const float* bm, float* gT, float* e, float* e_part,
+                              int* ticket, int B, int L, int row0, int Lb, int sg,
+                              float noe, float vdw, float vdw_radius, void* stream) {
+  if (row0 < 0 || Lb <= 0 || row0 + Lb > L || sg <= 0 || B <= 0)
+    return (int)cudaErrorInvalidValue;
+  const ExactParams q{B, L, row0, Lb, sg, 2.f * noe, 2.f * vdw, vdw_radius};
+  const size_t smem = (size_t)smem_floats(sg) * sizeof(float);
+  // past the 227 KB a block can opt into, the attribute call fails and the
+  // wrapper raises
+  cudaError_t err = cudaFuncSetAttribute(
+      exact_pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((Lb + kWarps - 1) / kWarps, (B + sg - 1) / sg);
+  exact_pair_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      xT, t, w, bm, gT, e, e_part, ticket, q);
   return (int)cudaGetLastError();
 }
 

@@ -5,8 +5,8 @@
 // and update are B1's by construction (the JAX package shares
 // `_t_layout_bond` and `_t_layout_noise` between its two kernels the same
 // way, pallas_energy.py:264-327). The pieces (`bond_forward`, `clip_scale`,
-// `adam_move`) are what B1 spreads over its lanes, one (bead, coordinate)
-// each; `update_bead` is their composition for one thread per bead (B4).
+// `adam_move`) are what both kernels spread over their lanes, one (bead,
+// structure, coordinate) each, composed the same way.
 //
 // Noise: bitwise equal to _t_layout_noise. Element index row * 3 + coord,
 // base = seed + step * 0x9E3779B9 + b * 0x7FEB352D (uint32 wraparound), four
@@ -23,9 +23,9 @@ namespace c3d {
 
 constexpr float kEps = 1e-12f;
 
-// One step's scalars: the per-step view of the schedule. B4 gets it by
-// value from its caller; B1 fills it from row k of the schedule table
-// (columns lr, sigma, vdw, vdw_radius, bc1, bc2) and the solve's constants.
+// One step's scalars: the per-step view of the schedule. B1 and B4 fill it
+// from row k of the schedule table (columns lr, sigma, vdw, vdw_radius, bc1,
+// bc2) and the solve's constants.
 struct StepParams {
   float vdw, vdw_radius, lr, sigma, b1, b2, eps_adam, bc1, bc2;
   float bond_w, bond_len, clip;
@@ -93,46 +93,6 @@ __device__ __forceinline__ float adam_move(float a, float g, float& mu, float& n
   const float upd = (mu * p.bc1) / (sqrtf(nu * p.bc2) + p.eps_adam);
   const float noise = clt4_noise(elem, base);
   return a + (-p.lr * upd + p.sigma * noise) * bmi;
-}
-
-// Bead i of structure b, given its pair gradient gr: adds the chain-bond
-// gradient (bond i -> i+1 belongs to bead i; dE/dx_i = fwd_{i-1} - fwd_i,
-// both read from the OLD x), clips, runs Adam and the noisy move, writes
-// x', mu', nu' for the bead into the separate output buffers, and returns
-// the bead's bond energy. xb is structure b's (3, L) slice of the old x.
-__device__ __forceinline__ float update_bead(
-    const float* __restrict__ xb, const float* __restrict__ bm,
-    const float* __restrict__ muT, const float* __restrict__ nuT,
-    float* __restrict__ xTo, float* __restrict__ muTo,
-    float* __restrict__ nuTo, int L, int i, int b, float gr[3],
-    const StepParams& p) {
-  const float a[3] = {xb[i], xb[L + i], xb[2 * L + i]};
-  const float bmi = bm[i];
-  float fwd[3] = {0.f, 0.f, 0.f}, fwd_prev[3] = {0.f, 0.f, 0.f};
-  float e_bond = 0.f;
-  if (i + 1 < L) {  // bond i -> i+1, owned by bead i
-    const float nx[3] = {xb[i + 1], xb[L + i + 1], xb[2 * L + i + 1]};
-    e_bond = bond_forward(a, nx, bmi * bm[i + 1], p, fwd);
-  }
-  if (i > 0) {  // bond i-1 -> i: bead i is its "+1" end
-    const float pv[3] = {xb[i - 1], xb[L + i - 1], xb[2 * L + i - 1]};
-    bond_forward(pv, a, bm[i - 1] * bmi, p, fwd_prev);
-  }
-  for (int c = 0; c < 3; ++c) gr[c] = gr[c] + (fwd_prev[c] - fwd[c]);
-  const float scale = clip_scale(gr, p);
-  if (p.clip > 0.f)
-    for (int c = 0; c < 3; ++c) gr[c] = gr[c] * scale;
-
-  const uint32_t base = noise_base(p, b);
-  const size_t off = (size_t)b * 3 * L + i;
-  for (int c = 0; c < 3; ++c) {
-    const size_t k = off + (size_t)c * L;
-    float mu = muT[k], nu = nuT[k];
-    xTo[k] = adam_move(a[c], gr[c], mu, nu, bmi, (uint32_t)(i * 3 + c), base, p);
-    muTo[k] = mu;
-    nuTo[k] = nu;
-  }
-  return e_bond;
 }
 
 }  // namespace c3d

@@ -20,15 +20,15 @@ torch.backends.cudnn.allow_tf32 = False
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
     """The device a run computes on.
 
-    None picks the first CUDA device when one is present and the CPU
-    otherwise (the CPU runs every kernel's plain PyTorch twin). An explicit
-    CUDA device that is absent raises — nothing falls back silently."""
-    if device is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    dev = torch.device(device)
+    None is the first CUDA device. A CUDA device, asked for or by default,
+    raises RuntimeError when torch.cuda.is_available() is False: the CPU,
+    where every kernel runs its plain PyTorch twin, is used only when asked
+    for ("cpu"), so nothing falls back to it silently."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            f"device {dev} was asked for but torch.cuda.is_available() is False"
+            f"device {dev} (the default without device=\"cpu\") needs CUDA, but "
+            "torch.cuda.is_available() is False"
         )
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device type {dev.type!r} (cuda or cpu)")

@@ -42,9 +42,11 @@ _F = ctypes.c_float
 
 # argument types of every C entry point, in declaration order
 SIGNATURES = {
-    # x, t, w, bead_mask, e_rows, g, B, L, row0, Lb, noe, vdw, vdw_radius,
-    # stream
-    "c3d_exact_pair": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P),
+    # xT, t, w, bead_mask, gT, e, e_part, ticket, B, L, row0, Lb, sg, noe,
+    # vdw, vdw_radius, stream
+    "c3d_exact_pair": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P,
+    ),
     # xT, lo, hi, w, bead_mask, part, e_part, e, gT, B, L, row0, Lb, cps,
     # bslice, noe, vdw, vdw_radius, rswitch, stream
     "c3d_general_pair": (
@@ -61,11 +63,12 @@ SIGNATURES = {
     "c3d_exact_tri_strip": (
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P,
     ),
-    # xT, gT, muT, nuT, bead_mask, e_rows, xTo, muTo, nuTo, B, L, lr, sigma,
-    # b1, b2, eps, bc1, bc2, bond_w, bond_len, clip, seed, step, stream
+    # xT, gT, muT, nuT, bead_mask, e_pair, table, step, hist, part, ticket,
+    # xTo, muTo, nuTo, B, L, first, hist_stride, b1, b2, eps, bond_w,
+    # bond_len, clip, seed, stream
     "c3d_fused_update": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-        _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+        _F, _F, _F, _F, _F, _F, _I, _P,
     ),
     # xA, xB, mu, nu, t, w, nb, bead_mask, table row k0, part, B, L, k0, k1,
     # cpl, rpw, resident, nsg, nrgb, nrg, sg, sp, lx, smem_bytes, b1, b2, eps,
@@ -145,6 +148,26 @@ def load_library() -> ctypes.CDLL:
     lib.c3d_error_string.argtypes = [ctypes.c_int]
     lib.c3d_error_string.restype = ctypes.c_char_p
     return lib
+
+
+_WORKSPACE = {}
+
+
+def workspace(device, name: str, n: int, dtype=None):
+    """At least n elements (int32 by default) of scratch on `device` for
+    kernel `name`, made zero once and then kept, so a launch allocates
+    nothing. A kernel that counts its arriving blocks in such counters (the
+    last to arrive does the launch's final sums) sets them back to 0 before
+    it ends. A longer request replaces the buffer with fresh zeros. One
+    stream a device uses them, so launches never overlap."""
+    import torch
+
+    dtype = torch.int32 if dtype is None else dtype
+    key = (str(torch.device(device)), name)
+    buf = _WORKSPACE.get(key)
+    if buf is None or buf.numel() < n or buf.dtype != dtype:
+        buf = _WORKSPACE[key] = torch.zeros(max(n, 64), dtype=dtype, device=device)
+    return buf
 
 
 def check(err: int, name: str) -> None:

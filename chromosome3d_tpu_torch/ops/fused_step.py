@@ -185,7 +185,7 @@ TABLE_COLS = ("lr", "sigma", "vdw", "vdw_radius", "bc1", "bc2")
 
 @dataclasses.dataclass(frozen=True)
 class ScheduleTable:
-    """A solve's schedule as the kernel reads it (the JAX solver's `srows`):
+    """A solve's schedule as kernels B1 and B4 read it (the JAX solver's `srows`):
     one float32 row of TABLE_COLS per step, and what stays fixed — the
     weights whose vdw and vdw_radius the rows replace, the clip, Adam's
     constants and the noise stream's seed. Row r is step `first + r`."""

@@ -2,16 +2,23 @@
 and its plain PyTorch twin.
 
 Replaces chromosome3d_tpu/ops/pallas_energy.py `_kernel_fused_update`
-(entry `pallas_fused_update_batched`). Given the pair gradient another
-kernel made (B3 on the semi route), one launch adds the chain bond, clips
-each bead's gradient, runs Adam with the bias corrections passed in, draws
-the CLT-4 murmur3 Langevin noise (bitwise the JAX package's and B1's) and
-moves x' = x + (-lr * upd + sigma * noise) * bead. State is (B, 3, L)
-float32 at the public face, as in the JAX package; nothing is padded.
+(entry `pallas_fused_update_batched`). Given the pair gradient and the pair
+energies another kernel made, one launch adds the chain bond, clips each
+bead's gradient, runs Adam with the schedule's bias corrections, draws the
+CLT-4 murmur3 Langevin noise (bitwise the JAX package's and B1's) and moves
+x' = x + (-lr * upd + sigma * noise) * bead. State is (B, 3, L) float32 at
+the public face, as in the JAX package; nothing is padded.
 
-`fused_update_batched` runs the plain twin for CPU tensors and the CUDA
-kernel for CUDA tensors, counting each in a plain integer on the function
-(`fused_update_batched.launches`, `fused_update_plain.calls`).
+`fused_update_table` is the entry the semi routes call every step: the step
+k is read from a device counter (`step_counter`), the step's scalars from
+row k of a `ScheduleTable` (the rows kernel B1 reads), and the launch writes
+the history row hist[k - table.first] = e_pair + the bond energies and
+advances the counter, so a loop of steps passes nothing from the host but
+the buffers. `fused_update_batched` is its one-step face with the scalars
+passed in (a one-row table). The CUDA kernel runs for CUDA tensors and the
+plain twin (`fused_update_plain`) for CPU tensors; each counts in a plain
+integer on the function (`fused_update_table.launches`,
+`fused_update_plain.calls`).
 """
 
 from __future__ import annotations
@@ -22,8 +29,15 @@ import torch
 
 from chromosome3d_tpu_torch.ops import _build
 from chromosome3d_tpu_torch.ops.energy import EnergyWeights
-from chromosome3d_tpu_torch.ops.fused_step import _c_int32, update_plain
+from chromosome3d_tpu_torch.ops.fused_step import (
+    ScheduleTable,
+    _c_int32,
+    one_step_table,
+    update_plain,
+)
 from chromosome3d_tpu_torch.ops.pair_energy import check_inputs
+
+_BEADS_BLOCK = 256   # csrc/fused_update.cu: one bead a thread
 
 
 def fused_update_plain(
@@ -32,7 +46,8 @@ def fused_update_plain(
     b1: float = 0.9, b2: float = 0.999, eps_adam: float = 1e-8,
 ):
     """Plain twin of B4: fused_step's update half (`_bond_T`, the clip,
-    Adam and `clt4_noise`) on the given pair gradient."""
+    Adam and `clt4_noise`) on the given pair gradient. Returns (bond
+    energies (B,), xT', muT', nuT')."""
     fused_update_plain.calls += 1
     e_bond, x_new, mu, nu = update_plain(
         xT, gT, muT, nuT, weights, bead_mask, lr, sigma, bc1, bc2, seed, step,
@@ -44,47 +59,102 @@ def fused_update_plain(
 fused_update_plain.calls = 0
 
 
+def step_counter(k: int, device) -> torch.Tensor:
+    """The step counter the table entry reads and advances: one int32 on
+    `device`, holding k. Set it again with `counter.fill_(k)`."""
+    return torch.full((1,), int(k), dtype=torch.int32, device=device)
+
+
+def fused_update_table(
+    xT: torch.Tensor, gT: torch.Tensor, muT: torch.Tensor, nuT: torch.Tensor,
+    e_pair: torch.Tensor, bead_mask: torch.Tensor, table: ScheduleTable,
+    counter: torch.Tensor, hist: torch.Tensor, out=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The update of step k = counter for a batch -> (xT', muT', nuT').
+
+    xT, the pair gradient gT and the moments are (B, 3, L) float32, e_pair
+    the (B,) pair energies (the or-group term included where there is one),
+    counter an int32 (1,) tensor on the same device (`step_counter`), and
+    hist a (rows, B) float32 history whose row k - table.first receives
+    e_pair + the bond energies; the counter then holds k + 1. The step's
+    lr, sigma, bc1 and bc2 are row k of the table, which must hold it; the
+    noise is structure b's stream at step k. CPU tensors run the plain twin;
+    CUDA tensors launch csrc/fused_update.cu into `out` = (xT', muT', nuT')
+    buffers when given (a loop passes the step before last's, so a phase
+    allocates two sets) or into new ones. Each bead reads its neighbours'
+    old x, so an output is never an input."""
+    if xT.dim() != 3:
+        raise ValueError(f"xT must be (B, 3, L), got {tuple(xT.shape)}")
+    B, L = xT.shape[0], xT.shape[2]
+    specs = {
+        "xT": (xT, (B, 3, L)), "gT": (gT, (B, 3, L)), "muT": (muT, (B, 3, L)),
+        "nuT": (nuT, (B, 3, L)), "e_pair": (e_pair, (B,)),
+        "bead_mask": (bead_mask, (L,)),
+    }
+    if out is not None:
+        specs.update({f"out[{n}]": (a, (B, 3, L)) for n, a in enumerate(out)})
+    dev = check_inputs(specs)
+    if B == 0 or L == 0:
+        raise ValueError(f"empty batch: B={B}, L={L}")
+    if (hist.dtype != torch.float32 or hist.dim() != 2 or hist.shape[1] != B
+            or hist.stride(1) != 1 or hist.device != dev):
+        raise ValueError(f"hist must be (rows, {B}) float32 rows on {dev}, got "
+                         f"{hist.dtype} {tuple(hist.shape)} on {hist.device}")
+    if counter.dtype != torch.int32 or counter.shape != (1,) or counter.device != dev:
+        raise ValueError(f"counter must be one int32 on {dev}, got {counter.dtype} "
+                         f"{tuple(counter.shape)} on {counter.device}")
+    if dev.type == "cpu":
+        k = int(counter[0])
+        table.check_range(k, k + 1)
+        weights, lr, sigma, bc1, bc2 = table.scalars(k)
+        e_bond, x_new, mu, nu = fused_update_plain(
+            xT, gT, muT, nuT, weights, bead_mask, lr, sigma, bc1, bc2, table.seed, k,
+            table.clip, table.b1, table.b2, table.eps_adam)
+        hist[k - table.first] = e_pair + e_bond
+        counter += 1
+        return x_new, mu, nu
+    if out is not None and any(a.data_ptr() == b.data_ptr()
+                               for a in out for b in (xT, gT, muT, nuT)):
+        raise ValueError("an output buffer is also an input")
+    lib = _build.load_library()
+    x_new, mu_new, nu_new = out if out is not None else (torch.empty_like(xT)
+                                                         for _ in range(3))
+    nblk = -(-L // _BEADS_BLOCK)
+    part = _build.workspace(dev, "fused_update part", B * nblk, torch.float32)
+    ticket = _build.workspace(dev, "fused_update ticket", 1)
+    rows = table.device_rows(dev)
+    with torch.cuda.device(dev):
+        err = lib.c3d_fused_update(
+            xT.data_ptr(), gT.data_ptr(), muT.data_ptr(), nuT.data_ptr(),
+            bead_mask.data_ptr(), e_pair.data_ptr(), rows.data_ptr(),
+            counter.data_ptr(), hist.data_ptr(), part.data_ptr(), ticket.data_ptr(),
+            x_new.data_ptr(), mu_new.data_ptr(), nu_new.data_ptr(), B, L, table.first,
+            hist.stride(0), table.b1, table.b2, table.eps_adam, table.base.bond,
+            table.base.bond_length, -1.0 if table.clip is None else table.clip,
+            _c_int32(table.seed), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(err, "c3d_fused_update")
+    fused_update_table.launches += 1
+    return x_new, mu_new, nu_new
+
+
+fused_update_table.launches = 0
+
+
 def fused_update_batched(
     xT: torch.Tensor, gT: torch.Tensor, muT: torch.Tensor, nuT: torch.Tensor,
     weights: EnergyWeights, bead_mask: torch.Tensor,
     lr, sigma, bc1, bc2, seed: int, step: int, clip: Optional[float],
     b1: float = 0.9, b2: float = 0.999, eps_adam: float = 1e-8,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One annealing update for a batch -> (bond energies (B,), xT', muT',
-    nuT'); xT, the pair gradient gT and the moments are (B, 3, L) float32.
-    clip None or <= 0 disables the clip. CPU tensors run the plain twin;
-    CUDA tensors launch csrc/fused_update.cu into freshly allocated outputs
-    (each bead reads its neighbours' old x, so never in place)."""
-    if xT.dim() != 3:
-        raise ValueError(f"xT must be (B, 3, L), got {tuple(xT.shape)}")
-    B, L = xT.shape[0], xT.shape[2]
-    dev = check_inputs({
-        "xT": (xT, (B, 3, L)), "gT": (gT, (B, 3, L)), "muT": (muT, (B, 3, L)),
-        "nuT": (nuT, (B, 3, L)), "bead_mask": (bead_mask, (L,)),
-    })
-    if B == 0 or L == 0:
-        raise ValueError(f"empty batch: B={B}, L={L}")
-    if dev.type == "cpu":
-        return fused_update_plain(xT, gT, muT, nuT, weights, bead_mask, lr,
-                                  sigma, bc1, bc2, seed, step, clip, b1, b2,
-                                  eps_adam)
-    lib = _build.load_library()
-    e_rows = torch.empty((B, L), dtype=torch.float32, device=dev)
-    x_new, mu_new, nu_new = (torch.empty_like(xT) for _ in range(3))
-    with torch.cuda.device(dev):
-        err = lib.c3d_fused_update(
-            xT.data_ptr(), gT.data_ptr(), muT.data_ptr(), nuT.data_ptr(),
-            bead_mask.data_ptr(), e_rows.data_ptr(), x_new.data_ptr(),
-            mu_new.data_ptr(), nu_new.data_ptr(), B, L,
-            lr, sigma, b1, b2, eps_adam, bc1, bc2,
-            weights.bond, weights.bond_length,
-            -1.0 if clip is None else clip,
-            _c_int32(seed), _c_int32(step),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(err, "c3d_fused_update")
-    fused_update_batched.launches += 1
-    return e_rows.sum(1), x_new, mu_new, nu_new
-
-
-fused_update_batched.launches = 0
+    """One annealing update with its scalars passed in -> (bond energies
+    (B,), xT', muT', nuT'): fused_update_table over a one-row table with no
+    pair energy. clip None or <= 0 disables the clip."""
+    B = xT.shape[0]
+    table = one_step_table(weights, lr, sigma, bc1, bc2, seed, step, clip, b1, b2,
+                           eps_adam)
+    hist = torch.empty((1, B), dtype=torch.float32, device=xT.device)
+    x_new, mu, nu = fused_update_table(
+        xT, gT, muT, nuT, torch.zeros(B, dtype=torch.float32, device=xT.device),
+        bead_mask, table, step_counter(step, xT.device), hist)
+    return hist[0], x_new, mu, nu

@@ -105,6 +105,71 @@ def exact_pair_energy_grad_plain(
 exact_pair_energy_grad_plain.calls = 0
 
 
+# csrc/exact_pair.cu's block: 8 warps of one row each, 512-column chunks, 4
+# sums per lane and structure
+_THREADS, _ROWS_BLOCK, _CHUNK, _VALS = 256, 8, 512, 4
+_SLICE_MAX = 8       # structures a block
+# blocks an SM holds: 80 registers a thread (nvcc -Xptxas -v, NVIDIA H100
+# 80GB HBM3; scripts/kernel_resources_torch.py) leave room for 3 of 256
+_BLOCKS_SM = 3
+
+
+def exact_pair_plan(B: int, L: int, Lb: int, n_sm: int = 132) -> dict:
+    """What the wrapper decides on the host for B structures and the Lb rows
+    of an (Lb, L) strip (B2: Lb = L) on a card of n_sm SMs: a grid of (row
+    groups of 8 rows, one a warp, structure groups of `sg`). A row's columns
+    are all its warp's, in `cps` chunks of 512 (one split), so a row meets
+    the same columns in the same order in B2 and in B2'. The slice sg is
+    the one that gives the busiest SM the least work, ceil(blocks / n_sm) x
+    sg, among the grids of one wave (a block holds its slot until its
+    ticket returns, so a second wave would wait for the first one's
+    tickets) that give every SM a block; ties go to the smaller slice.
+    Each block reads its rows' tiles once for its sg structures."""
+    if B < 1 or Lb < 1 or L < Lb:
+        raise ValueError(f"empty or bad strip: B={B}, Lb={Lb}, L={L}")
+    groups = -(-Lb // _ROWS_BLOCK)
+
+    def busiest(sg):
+        blocks = groups * -(-B // sg)
+        return (blocks > _BLOCKS_SM * n_sm, blocks < n_sm, -(-blocks // n_sm) * sg, sg)
+
+    sg = min(range(1, min(B, _SLICE_MAX) + 1), key=busiest)
+    nsg = -(-B // sg)
+    smem = 4 * (sg * 3 * _CHUNK + _CHUNK + sg * 3 * _ROWS_BLOCK + _ROWS_BLOCK * sg * _VALS)
+    return {
+        "threads": _THREADS, "rows_block": _ROWS_BLOCK, "chunk": _CHUNK,
+        "cps": -(-L // _CHUNK), "row_groups": groups, "sg": sg, "nsg": nsg,
+        "blocks": groups * nsg, "smem_bytes": smem, "e_part_shape": (B, groups),
+    }
+
+
+def plan_structures(plan: dict, group: int, B: int) -> range:
+    """The structures block `group` of the grid's third axis computes."""
+    return range(group * plan["sg"], min(B, (group + 1) * plan["sg"]))
+
+
+def _launch_exact(xT, target, w, weights, bead_mask, row_start, dev):
+    """csrc/exact_pair.cu on the rows the (Lb, L) tiles hold: (energies
+    (B,), gradient rows (B, 3, Lb)), one launch."""
+    B, L = xT.shape[0], xT.shape[2]
+    Lb = target.shape[0]
+    plan = exact_pair_plan(B, L, Lb, torch.cuda.get_device_properties(dev).multi_processor_count)
+    lib = _build.load_library()
+    e = torch.empty((B,), dtype=torch.float32, device=dev)
+    gT = torch.empty((B, 3, Lb), dtype=torch.float32, device=dev)
+    e_part = _build.workspace(dev, "exact_pair e_part", B * plan["row_groups"], torch.float32)
+    ticket = _build.workspace(dev, "exact_pair ticket", 1)
+    with torch.cuda.device(dev):
+        err = lib.c3d_exact_pair(
+            xT.data_ptr(), target.data_ptr(), w.data_ptr(), bead_mask.data_ptr(),
+            gT.data_ptr(), e.data_ptr(), e_part.data_ptr(), ticket.data_ptr(), B, L,
+            row_start, Lb, plan["sg"], weights.noe, weights.vdw,
+            weights.vdw_radius, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(err, "c3d_exact_pair")
+    return e, gT
+
+
 def exact_pair_energy_grad(
     coords: torch.Tensor, target: torch.Tensor, w: torch.Tensor,
     weights: EnergyWeights, bead_mask: torch.Tensor,
@@ -112,7 +177,9 @@ def exact_pair_energy_grad(
     """B2 for a batch sharing one restraint set: coords (B, L, 3), target and
     folded weight w (L, L), bead_mask (L,), all float32 and contiguous.
     Returns (pair energies (B,), pair gradients (B, L, 3)). CPU tensors run
-    the plain twin; CUDA tensors launch csrc/exact_pair.cu."""
+    the plain twin; CUDA tensors launch csrc/exact_pair.cu on the (B, 3, L)
+    layout (the pick's one call a solve transposes in, and returns the
+    gradient as a (B, L, 3) view)."""
     if coords.dim() != 3:
         raise ValueError(f"coords must be (B, L, 3), got {tuple(coords.shape)}")
     B, L = coords.shape[0], coords.shape[1]
@@ -124,19 +191,10 @@ def exact_pair_energy_grad(
         raise ValueError(f"empty batch: B={B}, L={L}")
     if dev.type == "cpu":
         return exact_pair_energy_grad_plain(coords, target, w, weights, bead_mask)
-    lib = _build.load_library()
-    e_rows = torch.empty((B, L), dtype=torch.float32, device=dev)
-    g = torch.empty_like(coords)
-    with torch.cuda.device(dev):
-        err = lib.c3d_exact_pair(
-            coords.data_ptr(), target.data_ptr(), w.data_ptr(),
-            bead_mask.data_ptr(), e_rows.data_ptr(), g.data_ptr(), B, L, 0, L,
-            weights.noe, weights.vdw, weights.vdw_radius,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(err, "c3d_exact_pair")
+    e, gT = _launch_exact(coords.transpose(1, 2).contiguous(), target, w, weights,
+                          bead_mask, 0, dev)
     exact_pair_energy_grad.launches += 1
-    return e_rows.sum(1), g
+    return e, gT.transpose(1, 2)
 
 
 exact_pair_energy_grad.launches = 0
@@ -167,10 +225,9 @@ def exact_row_block_energy_grad(
     weight w the (Lb, L) strips of rows [row_start, row_start + Lb),
     bead_mask (L,), all float32 and contiguous on the shard's device.
     Returns (the strip's pair energies (B,), its gradient rows (B, 3, Lb)),
-    the layout kernel B4 reads. CUDA tensors launch csrc/exact_pair.cu with
-    the row offset on the (B, L, 3) coordinates and transpose the (B, Lb, 3)
-    rows it writes (both small next to the strips); CPU tensors run the
-    plain twin."""
+    the layout kernel B4 reads. CUDA tensors make one launch of
+    csrc/exact_pair.cu, which reads xT and writes both outputs itself; CPU
+    tensors run the plain twin."""
     if xT.dim() != 3 or target.dim() != 2:
         raise ValueError(f"xT (B, 3, L) and (Lb, L) strips required, got "
                          f"{tuple(xT.shape)} and {tuple(target.shape)}")
@@ -185,20 +242,9 @@ def exact_row_block_energy_grad(
     if dev.type == "cpu":
         return exact_row_block_energy_grad_plain(xT, target, w, weights, bead_mask,
                                                  row_start)
-    lib = _build.load_library()
-    coords = xT.transpose(1, 2).contiguous()
-    e_rows = torch.empty((B, Lb), dtype=torch.float32, device=dev)
-    g = torch.empty((B, Lb, 3), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.c3d_exact_pair(
-            coords.data_ptr(), target.data_ptr(), w.data_ptr(),
-            bead_mask.data_ptr(), e_rows.data_ptr(), g.data_ptr(), B, L,
-            row_start, Lb, weights.noe, weights.vdw, weights.vdw_radius,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(err, "c3d_exact_pair")
+    e, gT = _launch_exact(xT, target, w, weights, bead_mask, row_start, dev)
     exact_row_block_energy_grad.launches += 1
-    return e_rows.sum(1), g.transpose(1, 2).contiguous()
+    return e, gT
 
 
 exact_row_block_energy_grad.launches = 0

@@ -248,10 +248,14 @@ def run_pipeline(
     dir_out: str,
     cfg: Optional[PipelineConfig] = None,
     device=None,
+    wipe: bool = True,
 ) -> Dict:
-    """Run one chromosome end to end on `device` (None: the first CUDA
-    device if present, else the CPU). Returns the summary dict, which is
-    also written to summary.json with per-phase seconds."""
+    """Run one chromosome end to end on `device` (device.resolve_device:
+    None is the first CUDA device, and raises without one; "cpu" runs the
+    kernels' plain twins). Returns the summary dict, which is also written
+    to summary.json with per-phase seconds rounded to 0.01 s, as the JAX
+    package's. wipe: remove the files already in dir_out first (the
+    reference's outdir wipe, chromosome3D.pl:56)."""
     cfg = cfg or PipelineConfig()
     dev = resolve_device(device)
     t_start = time.time()
@@ -260,7 +264,7 @@ def run_pipeline(
 
     def _mark(name: str) -> None:
         now = time.time()
-        phases[name] = phases.get(name, 0.0) + (now - _t_ph[0])
+        phases[name] = round(phases.get(name, 0.0) + (now - _t_ph[0]), 2)
         _t_ph[0] = now
 
     if not os.path.isfile(file_if):
@@ -275,10 +279,11 @@ def run_pipeline(
     if cfg.alpha_ensemble:
         raise NotImplementedError("the alpha ensemble is not ported (ROADMAP A11)")
     os.makedirs(dir_out, exist_ok=True)
-    for name in os.listdir(dir_out):   # the reference wipes the outdir (:56)
-        p = os.path.join(dir_out, name)
-        if os.path.isfile(p):
-            os.remove(p)
+    if wipe:
+        for name in os.listdir(dir_out):
+            p = os.path.join(dir_out, name)
+            if os.path.isfile(p):
+                os.remove(p)
     if ext not in (".txt", ".npy"):
         ident = base  # unknown extension: keep the full name as the id
     local_if = os.path.join(dir_out, f"{ident}.txt")
@@ -522,10 +527,11 @@ def run_restraints_pipeline(
 ) -> Dict:
     """Solve directly from a restraint file — a CONFOLD-style `.rr` (`i j lo
     hi conf` rows) or a CNS `.tbl` (`or`-group rows included) — with no IF
-    matrix, on `device` (None: the first CUDA device if present, else the
-    CPU). Models rank by NOE energy only (Spearman needs a matrix). Writes
-    the top-k `${ID}_model<k>.pdb`, model_info.log, `${ID}_violation.txt`
-    for the best model and summary.json (the JAX package's fields plus
+    matrix, on `device` (device.resolve_device: None is the first CUDA
+    device, and raises without one; "cpu" runs the kernels' plain twins).
+    Models rank by NOE energy only (Spearman needs a matrix). Writes the
+    top-k `${ID}_model<k>.pdb`, model_info.log, `${ID}_violation.txt` for
+    the best model and summary.json (the JAX package's fields plus
     per-phase seconds); returns the summary.
 
     max_L: reject (ValueError) a file whose explicit or inferred length

@@ -6,10 +6,11 @@ The precomputed hot -> cool -> final schedule is one table of per-step rows
 (ops.fused_step) walks the table's rows itself: one call of
 `fused_steps_batched` runs a whole phase (the hot steps, then the rest), as
 one launch on a CUDA device and through the plain twin's loop on the CPU.
-The semi routes are a Python loop over the same rows, their scalars read
-from the table once before the loop: the pair terms come from one kernel and
-the update from kernel B4 (ops.fused_update: bond, clip, Adam, noise and
-move): kernel B3 (ops.tri_energy) for exact restraints past the fused
+The semi routes are a Python loop over the same rows: the pair terms come
+from one kernel, with the weights of the table's row, and the update from
+kernel B4 (ops.fused_update: bond, clip, Adam, noise and move), which reads
+its step from a device counter set once a phase, its scalars from the
+table's rows on the device, and writes the step's history row itself: kernel B3 (ops.tri_energy) for exact restraints past the fused
 step's reach or with or-groups, kernel B5 (ops.general_pair) for general
 (windowed / soft-square) restraints. Or-group rows add their group-min
 term (ops.energy.or_group_energy) to the pair gradient before B4. The
@@ -49,7 +50,7 @@ from chromosome3d_tpu_torch.ops.fused_step import (
     fused_step_tiles,
     fused_steps_batched,
 )
-from chromosome3d_tpu_torch.ops.fused_update import fused_update_batched
+from chromosome3d_tpu_torch.ops.fused_update import fused_update_table, step_counter
 from chromosome3d_tpu_torch.ops.general_pair import (
     general_pair_energy_grad,
     general_pair_tiles,
@@ -166,8 +167,8 @@ def _bias_corrections(T: int):
 
 def schedule_table(cfg: AnnealConfig, seed: int) -> ScheduleTable:
     """The whole schedule as one (T, 6) float32 table of TABLE_COLS, one row
-    a step, with the solve's constants: what kernel B1 reads on the card and
-    what the Python loops pass a step. The values are the JAX package's:
+    a step, with the solve's constants: what kernels B1 and B4 read on the
+    card, and where the semi routes' loop takes the pair kernels' weights. The values are the JAX package's:
     `build_schedule`'s columns, the float32 product repel * vdw_radius, and
     Adam's bias corrections in float32."""
     sched = build_schedule(cfg)
@@ -290,7 +291,6 @@ def solve_ensemble_impl(
     table = schedule_table(cfg, noise_seed)
     base = table.base
     T = len(table.rows)
-    clip = cfg.gradient_clip
     xT = xs.transpose(1, 2).contiguous()
     muT = torch.zeros_like(xT)
     nuT = torch.zeros_like(xT)
@@ -318,26 +318,27 @@ def solve_ensemble_impl(
             pair_tiles = general_pair_tiles(restraints)
             pair_grad = general_pair_energy_grad
 
-        scal = [table.scalars(k) for k in range(T)]
-
-        def step(k, xT, muT, nuT):
-            weights, lr, sigma, bc1, bc2 = scal[k]
-            e_pair, gT = pair_grad(xT, *pair_tiles, weights, bead_mask)
-            if or_groups is not None:
-                e_og, g_og = or_group_energy_grad(
-                    xT.transpose(1, 2), or_groups, weights, bead_mask
-                )
-                e_pair = e_pair + e_og
-                gT = gT + g_og.transpose(1, 2)
-            e_bond, xT, muT, nuT = fused_update_batched(
-                xT, gT.contiguous(), muT, nuT, weights, bead_mask, lr, sigma,
-                bc1, bc2, noise_seed, k, clip,
-            )
-            return e_pair + e_bond, xT, muT, nuT
+        # the pair kernels take their weights from the host's copy of the
+        # table; kernel B4 reads its step from a device counter, its scalars
+        # from the table's device rows, and writes the history row itself
+        weights_k = [table.weights(k) for k in range(T)]
+        counter = step_counter(0, dev)
 
         def run(k0: int, k1: int, xT, muT, nuT, hist):
-            for k in range(k0, k1):
-                hist[k], xT, muT, nuT = step(k, xT, muT, nuT)
+            counter.fill_(k0)
+            spare = [None, None]   # B4's outputs of the step before last
+            for n, k in enumerate(range(k0, k1)):
+                e_pair, gT = pair_grad(xT, *pair_tiles, weights_k[k], bead_mask)
+                if or_groups is not None:
+                    e_og, g_og = or_group_energy_grad(
+                        xT.transpose(1, 2), or_groups, weights_k[k], bead_mask
+                    )
+                    e_pair = e_pair + e_og
+                    gT = gT + g_og.transpose(1, 2)
+                xT, muT, nuT = fused_update_table(
+                    xT, gT.contiguous(), muT, nuT, e_pair, bead_mask, table, counter,
+                    hist, out=spare[n % 2])
+                spare[n % 2] = (xT, muT, nuT)
             return xT, muT, nuT
 
     pick = None

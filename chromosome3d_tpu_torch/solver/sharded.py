@@ -27,7 +27,6 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional, Sequence
 
-import numpy as np
 import torch
 
 from chromosome3d_tpu_torch.config import AnnealConfig
@@ -35,11 +34,10 @@ from chromosome3d_tpu_torch.ops import strip_tri
 from chromosome3d_tpu_torch.ops.energy import (
     DenseRestraints,
     ExactRestraints,
-    f32,
     or_group_energy,
     or_group_energy_grad,
 )
-from chromosome3d_tpu_torch.ops.fused_update import fused_update_batched
+from chromosome3d_tpu_torch.ops.fused_update import fused_update_table, step_counter
 from chromosome3d_tpu_torch.ops.general_pair import general_row_block_energy_grad
 from chromosome3d_tpu_torch.ops.pair_energy import (
     bond_energy_grad,
@@ -50,10 +48,8 @@ from chromosome3d_tpu_torch.parallel.sharded_energy import row_block_energy_grad
 from chromosome3d_tpu_torch.parallel.shards import ShardGroup
 from chromosome3d_tpu_torch.solver.anneal import (
     AnnealResult,
-    _bias_corrections,
-    _final_weights,
     _refuse_unported,
-    build_schedule,
+    schedule_table,
 )
 from chromosome3d_tpu_torch.solver.init import (
     chain_metric_rows,
@@ -222,16 +218,10 @@ def solve_ensemble_sharded(
     if noise_seed is None:
         noise_seed = int(torch.randint(0, 2**31 - 1, (), generator=generator))
 
-    sched = build_schedule(cfg)
-    base = _final_weights(cfg)
-    T = len(sched.lr)
-    bc1s, bc2s = _bias_corrections(T)
-    lrs, sigmas = sched.lr.tolist(), sched.sigma.tolist()
-    step_weights = [
-        dataclasses.replace(base, vdw=float(vdw),
-                            vdw_radius=f32(repel * np.float32(cfg.vdw_radius)))
-        for vdw, repel in zip(sched.vdw_weight, sched.repel_scale)
-    ]
+    table = schedule_table(cfg, noise_seed)
+    base = table.base
+    T = len(table.rows)
+    step_weights = [table.weights(k) for k in range(T)]
 
     def pair_T(xT, weights):
         """(pair energies (B,), pair gradient (B, 3, L)) on the lead."""
@@ -249,24 +239,24 @@ def solve_ensemble_sharded(
                      for x, t, b in zip(xTs, tiles, beads)]
         return group.psum([e for e, _ in parts]), group.all_gather([g for _, g in parts], 2)
 
-    clip = cfg.gradient_clip
-
-    def step(k, xT, muT, nuT):
-        e_pair, gT = pair_T(xT, step_weights[k])
-        if or_groups is not None:
-            e_og, g_og = or_group_energy_grad(xT.transpose(1, 2), or_groups,
-                                              step_weights[k], bead_mask)
-            e_pair = e_pair + e_og
-            gT = gT + g_og.transpose(1, 2)
-        e_bond, xT, muT, nuT = fused_update_batched(
-            xT, gT.contiguous(), muT, nuT, step_weights[k], bead_mask, lrs[k],
-            sigmas[k], bc1s[k], bc2s[k], noise_seed, k, clip,
-        )
-        return e_pair + e_bond, xT, muT, nuT
+    # kernel B4 reads its step from a device counter on the lead, its
+    # scalars from the table's rows there, and writes the history row itself
+    counter = step_counter(0, lead)
 
     def run(k0, k1, xT, muT, nuT, hist):
-        for k in range(k0, k1):
-            hist[k], xT, muT, nuT = step(k, xT, muT, nuT)
+        counter.fill_(k0)
+        spare = [None, None]   # B4's outputs of the step before last
+        for n, k in enumerate(range(k0, k1)):
+            e_pair, gT = pair_T(xT, step_weights[k])
+            if or_groups is not None:
+                e_og, g_og = or_group_energy_grad(xT.transpose(1, 2), or_groups,
+                                                  step_weights[k], bead_mask)
+                e_pair = e_pair + e_og
+                gT = gT + g_og.transpose(1, 2)
+            xT, muT, nuT = fused_update_table(
+                xT, gT.contiguous(), muT, nuT, e_pair, bead_mask, table, counter, hist,
+                out=spare[n % 2])
+            spare[n % 2] = (xT, muT, nuT)
         return xT, muT, nuT
 
     xT = xs.transpose(1, 2).contiguous()

@@ -1,5 +1,6 @@
-"""The port's CLI flags: the shard switches it shares with the JAX CLI, and
-the JAX CLI's flags that are registered but not ported — each refused with a
+"""The port's CLI flags: the shard switches it shares with the JAX CLI,
+`--device` (the card by default, the CPU only when asked for), and the JAX
+CLI's flags that are registered but not ported — each refused with a
 NotImplementedError naming its ROADMAP item, never by argparse."""
 
 import pytest
@@ -11,19 +12,25 @@ RUN = ["run", "-i", "matrix.txt", "-o", "out"]
 SOLVE = ["solve", "-r", "pairs.rr", "-o", "out"]
 
 
-def _parse(argv, monkeypatch, module=cli):
-    """The PipelineConfig the CLI builds for argv, the pipelines not run."""
+def _call(argv, monkeypatch, module=cli):
+    """(the PipelineConfig, the keyword arguments) the CLI hands its
+    pipeline for argv, the pipelines not run."""
     seen = {}
 
     def fake(path, out, cfg, **kwargs):
-        seen["cfg"] = cfg
+        seen["cfg"], seen["kwargs"] = cfg, kwargs
         return {}
 
     package = module.__name__.rsplit(".", 1)[0]
     for name in ("run_pipeline", "run_restraints_pipeline"):
         monkeypatch.setattr(f"{package}.pipeline.{name}", fake)
     assert module.main(argv) == 0
-    return seen["cfg"]
+    return seen["cfg"], seen["kwargs"]
+
+
+def _parse(argv, monkeypatch, module=cli):
+    """The PipelineConfig the CLI builds for argv, the pipelines not run."""
+    return _call(argv, monkeypatch, module)[0]
 
 
 @pytest.mark.parametrize("base", [RUN, SOLVE], ids=["run", "solve"])
@@ -41,6 +48,17 @@ def test_cli_shard_flags_reach_the_config(monkeypatch, capsys, base, flags, shar
     assert (cfg.shard_large, cfg.shard_quantum) == (shard_large, quantum)
     ref = _parse(base + flags, monkeypatch, jax_cli)
     assert (ref.shard_large, ref.shard_quantum) == (shard_large, quantum)
+    capsys.readouterr()
+
+
+@pytest.mark.parametrize("base", [RUN, SOLVE], ids=["run", "solve"])
+@pytest.mark.parametrize("flags,device", [([], "cuda"), (["--device", "cpu"], "cpu"),
+                                          (["--device", "cuda"], "cuda")])
+def test_cli_device_reaches_the_pipeline(monkeypatch, capsys, base, flags, device):
+    """`--device` reaches run_pipeline and run_restraints_pipeline; without
+    it they get "cuda", which raises where there is no card."""
+    _, kwargs = _call(base + flags, monkeypatch)
+    assert kwargs["device"] == device
     capsys.readouterr()
 
 
@@ -62,9 +80,11 @@ def test_cli_refuses_unported_flags_by_name(argv, flag):
         cli.main(argv)
 
 
-@pytest.mark.parametrize("argv", [RUN + ["--no-such-flag"], SOLVE + ["--ice"]])
+@pytest.mark.parametrize("argv", [RUN + ["--no-such-flag"], SOLVE + ["--ice"],
+                                  RUN + ["--device", "gpu"]])
 def test_cli_unknown_flags_still_die_in_argparse(argv, capsys):
     """A flag no CLI has — or one the JAX CLI has on another subcommand."""
     with pytest.raises(SystemExit):
         cli.main(argv)
-    assert "unrecognized arguments" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "unrecognized arguments" in err or "invalid choice" in err

@@ -38,7 +38,12 @@ from chromosome3d_tpu_torch.ops.fused_step import (
 )
 from chromosome3d_tpu_torch.solver.anneal import schedule_table
 from chromosome3d_tpu_torch.ops.device_prep import div10
-from chromosome3d_tpu_torch.ops.fused_update import fused_update_batched, fused_update_plain
+from chromosome3d_tpu_torch.ops.fused_update import (
+    fused_update_batched,
+    fused_update_plain,
+    fused_update_table,
+    step_counter,
+)
 from chromosome3d_tpu_torch.ops import general_pair
 from chromosome3d_tpu_torch.ops.general_pair import (
     general_pair_energy_grad,
@@ -49,6 +54,7 @@ from chromosome3d_tpu_torch.ops.general_pair import (
 from chromosome3d_tpu_torch.ops.pair_energy import (
     exact_pair_energy_grad,
     exact_pair_energy_grad_plain,
+    exact_pair_plan,
     exact_row_block_energy_grad,
     exact_row_block_energy_grad_plain,
 )
@@ -362,6 +368,80 @@ def test_cuda_fused_update_noise_bitwise(cuda_device):
                                        0.0, 1.0, 1.0, 1.0, 2**31 - 2, 2759, None)
     ref = clt4_noise(2**31 - 2, 2759, x.shape[0], x.shape[2], "cpu").numpy()
     assert np.array_equal(xn.cpu().numpy().view(np.uint32), ref.view(np.uint32))
+
+
+@pytest.mark.parametrize("L,n_real,B", [(200, 181, 5), (517, 500, 20)])
+def test_cuda_fused_update_table_chained(cuda_device, L, n_real, B):
+    """Eight table launches from a counter at 296 (across the hot -> cool
+    boundary) equal eight one-step launches with the rows' scalars, bit for
+    bit; the counter reads 304; each history row is e_pair + the twin's
+    bond energies; equal bits over two runs; padded beads 0."""
+    ex, bm, x, mu, nu = _case(cuda_device, L=L, n_real=n_real, B=B, seed=L)
+    _, g = exact_pair_energy_grad_plain(x.transpose(1, 2).contiguous(), ex.target,
+                                        ex.w, WEIGHTS, bm)
+    g = g.transpose(1, 2).contiguous()
+    table = ScheduleTable(rows=schedule_table(AnnealConfig(), seed=0).rows, base=WEIGHTS,
+                          clip=0.5, seed=12345)
+    e_pair = torch.linspace(-1e3, 1e3, B, device=cuda_device)
+
+    def chain():
+        counter = step_counter(STEPS_K0, cuda_device)
+        hist = torch.full((len(table.rows), B), float("nan"), device=cuda_device)
+        st, spare = (x, mu, nu), [None, None]
+        for n in range(STEPS_K1 - STEPS_K0):
+            st = fused_update_table(st[0], g, *st[1:], e_pair, bm, table, counter, hist,
+                                    out=spare[n % 2])
+            spare[n % 2] = st
+        return counter, hist, st
+
+    counter, hist, st = chain()
+    _, hist2, st2 = chain()
+    assert int(counter.item()) == STEPS_K1
+    assert torch.equal(hist[STEPS_K0:STEPS_K1], hist2[STEPS_K0:STEPS_K1])
+    assert all(torch.equal(a, b) for a, b in zip(st, st2))
+    assert bool(torch.isnan(hist[:STEPS_K0]).all() and torch.isnan(hist[STEPS_K1:]).all())
+    alone, plain = (x, mu, nu), (x, mu, nu)
+    for k in range(STEPS_K0, STEPS_K1):
+        _, lr, sigma, bc1, bc2 = table.scalars(k)
+        args = (WEIGHTS, bm, lr, sigma, bc1, bc2, 12345, k, 0.5)
+        _, *alone = fused_update_batched(alone[0], g, *alone[1:], *args)
+        e_r, *plain = fused_update_plain(plain[0], g, *plain[1:], *args)
+        np.testing.assert_allclose(hist[k].cpu().numpy(), (e_pair + e_r).cpu().numpy(),
+                                   rtol=2e-5)
+    assert all(torch.equal(a, b) for a, b in zip(st, alone))
+    np.testing.assert_allclose(st[0].cpu().numpy(), plain[0].cpu().numpy(), rtol=5e-4,
+                               atol=5e-4)
+    for a in st:
+        np.testing.assert_array_equal(a[:, :, n_real:].cpu().numpy(), 0.0)
+
+
+@pytest.mark.parametrize("L,n_real,B,Lb", [
+    (512, 480, 20, 512),    # the pick's shape: 64 row groups, 4 slices of 5
+    (512, 480, 10, 256),    # a shard step's after the pick: a structure a block
+    (1100, 1090, 30, 1100),  # three 512-column chunks a row, past one wave
+])
+def test_cuda_exact_pair_plan_shapes(cuda_device, L, n_real, B, Lb):
+    """B2 / B2' at the plan's shapes: against the twin (B3's and B5's
+    absolute term: these random coordinates give gradients of ~1e5, and an
+    element that cancels keeps the rounding of its largest terms), equal
+    bits over two calls, and the strip's rows equal in bits to the whole
+    matrix's."""
+    plan = exact_pair_plan(B, L, Lb)
+    assert plan["nsg"] > 1
+    ex, bm, x, _, _ = _case(cuda_device, L=L, n_real=n_real, B=B, seed=L + B)
+    row0 = L - Lb
+    t, wt = ex.target[row0:].contiguous(), ex.w[row0:].contiguous()
+    e, g = exact_row_block_energy_grad(x, t, wt, WEIGHTS, bm, row0)
+    e2, g2 = exact_row_block_energy_grad(x, t, wt, WEIGHTS, bm, row0)
+    assert torch.equal(e, e2) and torch.equal(g, g2)
+    e_r, g_r = exact_row_block_energy_grad_plain(x, t, wt, WEIGHTS, bm, row0)
+    np.testing.assert_allclose(e.cpu().numpy(), e_r.cpu().numpy(), rtol=2e-5)
+    np.testing.assert_allclose(g.cpu().numpy(), g_r.cpu().numpy(), rtol=2e-4,
+                               atol=2e-4 + 1e-6 * float(g_r.abs().max()))
+    _, g_full = exact_pair_energy_grad(x.transpose(1, 2).contiguous(), ex.target, ex.w,
+                                       WEIGHTS, bm)
+    assert torch.equal(g, g_full[:, row0:].transpose(1, 2))
+    np.testing.assert_array_equal(g[:, :, n_real - row0:].cpu().numpy(), 0.0)
 
 
 def test_cuda_sharded_solve_at_8192(cuda_device):

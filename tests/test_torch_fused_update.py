@@ -1,9 +1,11 @@
 """Kernel B4 (the fused update) of the PyTorch port vs the JAX package's
 `pallas_fused_update_batched` in interpret mode, on the CPU.
 
-On the CPU the port's wrapper runs the kernel's plain twin; the CUDA kernel
+On the CPU the port's wrappers run the kernel's plain twin; the CUDA kernel
 is compared with that twin on the card (test_torch_cuda.py and
-chip_smoke.py). Tolerances are test_pallas_energy.py's for the update
+chip_smoke.py). The table entry (the step from a counter, the scalars from a
+schedule table's row, the history row written) is held to the JAX update
+with that row's scalars, and bit for bit to the one-step face. Tolerances are test_pallas_energy.py's for the update
 (:462-465) and for the semi step against the fused step (:483-487); the
 Langevin noise is a counter hash, so it must agree bitwise.
 """
@@ -14,11 +16,23 @@ import pytest
 import torch
 
 from chromosome3d_tpu.ops.pallas_energy import pallas_fused_update_batched
+from chromosome3d_tpu_torch.config import AnnealConfig
 from chromosome3d_tpu_torch.ops.energy import from_jax_numpy
-from chromosome3d_tpu_torch.ops.fused_step import clt4_noise, fused_step_batched, fused_step_tiles
-from chromosome3d_tpu_torch.ops.fused_update import fused_update_batched, fused_update_plain
+from chromosome3d_tpu_torch.ops.fused_step import (
+    ScheduleTable,
+    clt4_noise,
+    fused_step_batched,
+    fused_step_tiles,
+)
+from chromosome3d_tpu_torch.ops.fused_update import (
+    fused_update_batched,
+    fused_update_plain,
+    fused_update_table,
+    step_counter,
+)
 from chromosome3d_tpu_torch.ops.pair_energy import exact_pair_tiles
 from chromosome3d_tpu_torch.ops.tri_energy import tri_energy_grad
+from chromosome3d_tpu_torch.solver.anneal import schedule_table
 from tests.test_torch_fused_step import make_case
 
 
@@ -103,12 +117,93 @@ def test_fused_update_wrapper_contract():
     _, w, bead, state = make_case(24)
     _, w_t, (xT, muT, nuT) = from_jax_numpy(weights=w, state=state)
     g, bm = torch.zeros_like(xT), torch.from_numpy(bead)
-    calls, launches = fused_update_plain.calls, fused_update_batched.launches
+    calls, launches = fused_update_plain.calls, fused_update_table.launches
     fused_update_batched(xT, g, muT, nuT, w_t, bm, 0.1, 0.0, 1.0, 1.0, 0, 0, None)
     assert fused_update_plain.calls == calls + 1
-    assert fused_update_batched.launches == launches
+    assert fused_update_table.launches == launches
     with pytest.raises(TypeError):
         fused_update_batched(xT, g.double(), muT, nuT, w_t, bm, 0.1, 0.0, 1.0, 1.0, 0, 0, None)
     with pytest.raises(ValueError):
         fused_update_batched(xT, g[:, :, :-1], muT, nuT, w_t, bm, 0.1, 0.0, 1.0, 1.0,
                              0, 0, None)
+
+
+@pytest.mark.parametrize("k,clip", [(0, None), (299, 0.5), (300, None), (2759, 0.5)])
+def test_fused_update_table_matches_pallas(k, clip):
+    """The table entry at step k of the default schedule (hot, the last hot
+    step, the first cool one, the last): the JAX update with row k's
+    scalars; the counter advanced to k + 1; history row k = e_pair + the
+    bond energies and no other row touched; bits equal to the one-step
+    face; padded beads 0."""
+    _, w, bead, state = make_case(40, n_real=34)
+    (g,) = _grad(state, seed=k)
+    g = g * bead
+    xT, muT, nuT = state
+    _, w_t, (xT_t, g_t, muT_t, nuT_t) = from_jax_numpy(weights=w, state=(xT, g, muT, nuT))
+    table = ScheduleTable(rows=schedule_table(AnnealConfig(), seed=0).rows, base=w_t,
+                          clip=clip, seed=12345)
+    _, lr, sigma, bc1, bc2 = table.scalars(k)
+    e_r, x_r, mu_r, nu_r = (np.asarray(a) for a in pallas_fused_update_batched(
+        jnp.asarray(xT), jnp.asarray(g), jnp.asarray(muT), jnp.asarray(nuT), w,
+        jnp.asarray(bead), lr, sigma, bc1, bc2, 12345, k, -1.0 if clip is None else clip,
+        interpret=True))
+    bm = torch.from_numpy(bead)
+    e_pair = torch.from_numpy(np.random.RandomState(k).normal(0, 1e3, 3).astype(np.float32))
+    hist = torch.full((len(table.rows), 3), float("nan"))
+    counter = step_counter(k, "cpu")
+    x, mu, nu = fused_update_table(xT_t, g_t, muT_t, nuT_t, e_pair, bm, table, counter, hist)
+    assert int(counter[0]) == k + 1
+    np.testing.assert_allclose(hist[k].numpy(), e_pair.numpy() + e_r, rtol=2e-5)
+    assert torch.isnan(torch.cat([hist[:k], hist[k + 1:]])).all()
+    np.testing.assert_allclose(mu.numpy(), mu_r, rtol=5e-4, atol=1e-5)
+    np.testing.assert_allclose(nu.numpy(), nu_r, rtol=5e-4, atol=1e-8)
+    np.testing.assert_allclose(x.numpy(), x_r, rtol=5e-4, atol=5e-4)
+    e1, *one = fused_update_batched(xT_t, g_t, muT_t, nuT_t, w_t, bm, lr, sigma, bc1, bc2,
+                                    12345, k, clip)
+    assert all(torch.equal(a, b) for a, b in zip((x, mu, nu), one))
+    assert torch.equal(hist[k], e_pair + e1)
+    for a in (x, mu, nu):
+        assert (a[:, :, 34:] == 0).all()
+
+
+def test_fused_update_table_chained_steps():
+    """Eight table launches from one counter equal eight one-step launches
+    with the rows' scalars passed in, bit for bit, and fill rows k0..k0+7."""
+    _, w, bead, state = make_case(24, n_real=22)
+    _, w_t, st = from_jax_numpy(weights=w, state=state)
+    bm = torch.from_numpy(bead)
+    table = ScheduleTable(rows=schedule_table(AnnealConfig(), seed=0).rows, base=w_t,
+                          clip=None, seed=99)
+    k0, g = 296, 0.01 * st[0]
+    counter, hist = step_counter(k0, "cpu"), torch.zeros(len(table.rows), 3)
+    chained, alone = st, st
+    for k in range(k0, k0 + 8):
+        chained = fused_update_table(*chained[:1], g, *chained[1:], torch.zeros(3), bm,
+                                     table, counter, hist)
+        _, lr, sigma, bc1, bc2 = table.scalars(k)
+        e, *alone = fused_update_batched(alone[0], g, *alone[1:], w_t, bm, lr, sigma, bc1,
+                                         bc2, 99, k, None)
+        assert torch.equal(hist[k], e)
+    assert int(counter[0]) == k0 + 8
+    assert all(torch.equal(a, b) for a, b in zip(chained, alone))
+
+
+def test_fused_update_table_contract():
+    """The counter, the history and the output buffers are checked; a step
+    outside the table raises."""
+    _, w, bead, state = make_case(24)
+    _, w_t, (xT, muT, nuT) = from_jax_numpy(weights=w, state=state)
+    g, bm, e0 = torch.zeros_like(xT), torch.from_numpy(bead), torch.zeros(3)
+    table = ScheduleTable(rows=schedule_table(AnnealConfig(), seed=0).rows, base=w_t,
+                          clip=None, seed=1)
+    hist = torch.zeros(len(table.rows), 3)
+    args = (xT, g, muT, nuT, e0, bm, table)
+    with pytest.raises(ValueError):       # int64 counter
+        fused_update_table(*args, torch.zeros(1, dtype=torch.int64), hist)
+    with pytest.raises(ValueError):       # history of another batch
+        fused_update_table(*args, step_counter(0, "cpu"), torch.zeros(10, 4))
+    with pytest.raises(ValueError):       # an output buffer of another shape
+        fused_update_table(*args, step_counter(0, "cpu"), hist,
+                           out=(xT[:, :, :-1], muT, nuT))
+    with pytest.raises(ValueError):       # past the table's last row
+        fused_update_table(*args, step_counter(len(table.rows), "cpu"), hist)

@@ -28,6 +28,7 @@ from chromosome3d_tpu_torch.ops.pair_energy import (
     exact_pair_energy_grad,
     exact_pair_energy_grad_plain,
     exact_pair_tiles,
+    exact_row_block_energy_grad,
     pair_energy_and_grad_batched,
 )
 
@@ -68,6 +69,27 @@ def test_pair_plain_matches_pallas(L, n_real, form):
     np.testing.assert_allclose(e.numpy(), np.asarray(e_r), rtol=2e-5)
     np.testing.assert_allclose(g.numpy(), np.asarray(g_r), rtol=2e-4, atol=2e-4)
     np.testing.assert_array_equal(g.numpy()[:, n_real:], 0.0)
+
+
+@pytest.mark.parametrize("L,n_real", [(40, 33), (130, 117), (64, 64)])
+def test_pair_layout_face_matches_pallas(L, n_real):
+    """The exact body's (B, 3, L) face — the whole matrix as one strip,
+    (B, 3, L) in, (B, 3, L) gradient rows and (B,) energies out, as the
+    kernel writes them — against `_kernel_exact` in interpret mode."""
+    restraints, w, bead, xb = make_case(L, n_real, "exact", seed=2)
+    e_r, g_r = _pairwise_energy_grad_batched(
+        jnp.asarray(xb), restraints, w, jnp.asarray(bead),
+        interpret=True, exact=True, no_tri=True,
+    )
+    r_t, w_t, (x_t,) = from_jax_numpy(restraints, w, (xb,))
+    target, wf = (a.contiguous() for a in exact_pair_tiles(r_t))
+    e, gT = exact_row_block_energy_grad(x_t.transpose(1, 2).contiguous(), target, wf, w_t,
+                                        torch.from_numpy(bead), 0)
+    assert e.shape == (3,) and gT.shape == (3, 3, L)
+    np.testing.assert_allclose(e.numpy(), np.asarray(e_r), rtol=2e-5)
+    np.testing.assert_allclose(gT.transpose(1, 2).numpy(), np.asarray(g_r), rtol=2e-4,
+                               atol=2e-4)
+    np.testing.assert_array_equal(gT.numpy()[:, :, n_real:], 0.0)
 
 
 @pytest.mark.parametrize("L", [40, 130])

@@ -24,6 +24,7 @@ from chromosome3d_tpu.ops.energy import dense_restraints_from_numpy
 from chromosome3d_tpu.restraints import build_restraints, if_to_dist, write_rr
 from chromosome3d_tpu_torch import cli as port_cli
 from chromosome3d_tpu_torch import pipeline as port_pipeline
+from chromosome3d_tpu_torch.config import PipelineConfig as PortPipelineConfig, fast_anneal
 from chromosome3d_tpu_torch.device import resolve_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -44,6 +45,8 @@ def _assert_artifact_set(out, ident, n_models):
     assert summary["models"] == n_models and summary["L"] == 16
     assert set(summary["phases"]) == {
         "load_s", "host_prep_s", "solve_s", "alpha_ensemble_s", "assess_emit_s"}
+    # rounded to 0.01 s, as the JAX package's (chromosome3d_tpu/pipeline.py)
+    assert all(v == round(v, 2) for v in summary["phases"].values())
     hist = np.load(os.path.join(out, "trajectory.npz"))["energy_history"]
     assert hist.shape[0] == n_models and np.isfinite(hist).all()
     return summary
@@ -78,7 +81,8 @@ def test_cli_run_full_artifact_set(tmp_path, tiny_matrix, capsys):
     path = str(tmp_path / "chrT_matrix.txt")
     write_if_matrix(path, tiny_matrix)
     out = str(tmp_path / "out")
-    assert port_cli.main(["run", "-i", path, "-o", out, "-m", "2", "--fast"]) == 0
+    assert port_cli.main(["run", "-i", path, "-o", out, "-m", "2", "--fast",
+                          "--device", "cpu"]) == 0
     printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     summary = _assert_artifact_set(out, "chrT_matrix", 2)
     assert printed["best_noe_energy"] == summary["best_noe_energy"]
@@ -100,7 +104,8 @@ def test_cli_run_without_jax(tmp_path, tiny_matrix):
         "import sys; sys.modules['jax'] = sys.modules['chromosome3d_tpu'] = None\n"
         "import chromosome3d_tpu_torch\n"
         "from chromosome3d_tpu_torch.cli import main\n"
-        f"rc = main(['run', '-i', {path!r}, '-o', {out!r}, '-m', '2', '--turbo', '--fast'])\n"
+        f"rc = main(['run', '-i', {path!r}, '-o', {out!r}, '-m', '2', '--turbo', '--fast',"
+        " '--device', 'cpu'])\n"
         "assert not any(m.split('.')[0] in ('jax', 'chromosome3d_tpu') for m in sys.modules if sys.modules[m] is not None)\n"
         "sys.exit(rc)\n"
     )
@@ -118,7 +123,7 @@ def test_run_pipeline_refuses_unported_inputs(tmp_path, tiny_matrix, monkeypatch
     with open(cool, "wb") as f:
         f.write(b"not read")
     with pytest.raises(NotImplementedError):
-        port_pipeline.run_pipeline(cool, str(tmp_path / "a"))
+        port_pipeline.run_pipeline(cool, str(tmp_path / "a"), device="cpu")
     txt = str(tmp_path / "m.txt")
     write_if_matrix(txt, tiny_matrix)
 
@@ -132,10 +137,10 @@ def test_run_pipeline_refuses_unported_inputs(tmp_path, tiny_matrix, monkeypatch
     with pytest.raises(NotImplementedError):
         port_pipeline.run_pipeline(
             txt, str(tmp_path / "b"),
-            PipelineConfig(length_buckets=(8,), shard_quantum=8192))
+            PipelineConfig(length_buckets=(8,), shard_quantum=8192), device="cpu")
     with pytest.raises(NotImplementedError):
         port_pipeline.run_pipeline(txt, str(tmp_path / "c"),
-                                   PipelineConfig(alpha_ensemble=(0.7,)))
+                                   PipelineConfig(alpha_ensemble=(0.7,)), device="cpu")
 
 
 @pytest.mark.parametrize("command,item", [("genome", "A7"), ("serve", "A11")])
@@ -151,18 +156,42 @@ def test_cli_solve_runs(tmp_path, tiny_matrix, capsys):
     rr = str(tmp_path / "chrT_matrix.rr")
     write_rr(rr, if_to_dist(tiny_matrix, rc), rc)
     solved = str(tmp_path / "solved")
-    assert port_cli.main(["solve", "-r", rr, "-o", solved, "-m", "2", "--fast"]) == 0
+    assert port_cli.main(["solve", "-r", rr, "-o", solved, "-m", "2", "--fast",
+                          "--device", "cpu"]) == 0
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert summary["L"] == 16 and summary["models"] == 2 and summary["or_groups"] == 0
     for name in ("chrT_matrix_model1.pdb", "chrT_matrix_violation.txt", "summary.json"):
         assert os.path.isfile(os.path.join(solved, name)), name
 
 
-def test_resolve_device_never_falls_back(monkeypatch):
-    """Without a card, the default is the CPU, and asking for CUDA raises."""
+def test_resolve_device_never_falls_back(monkeypatch, tmp_path):
+    """Without a card the default (CUDA) raises, as CUDA asked for does, in
+    resolve_device and in both pipelines before they touch anything; the
+    CPU is used only when asked for."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert resolve_device(None) == torch.device("cpu")
-    with pytest.raises(RuntimeError):
-        resolve_device("cuda")
-    with pytest.raises(RuntimeError):
-        port_pipeline.run_pipeline("unused.txt", "unused", device="cuda")
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            resolve_device(device)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            port_pipeline.run_pipeline("unused.txt", str(tmp_path / "a"), device=device)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            port_pipeline.run_restraints_pipeline("unused.rr", str(tmp_path / "b"),
+                                                  device=device)
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert not (tmp_path / "a").exists() and not (tmp_path / "b").exists()
+
+
+@pytest.mark.parametrize("wipe", [True, False])
+def test_run_pipeline_wipe(tmp_path, tiny_matrix, wipe):
+    """run_pipeline(..., wipe=False) keeps the files already in the output
+    directory, as the JAX package's does; the default wipes them."""
+    path = str(tmp_path / "chrT_matrix.txt")
+    write_if_matrix(path, tiny_matrix)
+    out = tmp_path / "out"
+    out.mkdir()
+    (out / "kept.txt").write_text("from an earlier run\n")
+    cfg = PortPipelineConfig(model_count=2, emit_violation_reports=False)
+    cfg = cfg.replace(anneal=fast_anneal(cfg.anneal, 0.05))
+    summary = port_pipeline.run_pipeline(path, str(out), cfg, device="cpu", wipe=wipe)
+    assert (out / "kept.txt").exists() == (not wipe)
+    assert all(v == round(v, 2) for v in summary["phases"].values())

@@ -56,7 +56,7 @@ def test_at_scale_npy_run_matches_jax(tmp_path, npy, monkeypatch):
     counts = (tri_energy.tri_energy_grad_plain.calls, fused_update_plain.calls,
               fused_step_plain.calls, exact_pair_energy_grad_plain.calls)
     out = str(tmp_path / "port")
-    got = port_pipeline.run_pipeline(npy, out, cfg)
+    got = port_pipeline.run_pipeline(npy, out, cfg, device="cpu")
     steps = cfg.anneal.total_steps
     assert (tri_energy.tri_energy_grad_plain.calls - counts[0],
             fused_update_plain.calls - counts[1],
@@ -87,7 +87,7 @@ def test_at_scale_npy_run_without_jax(tmp_path, npy):
         "tri_energy.use_triangular = lambda L, for_unfused=False: True\n"
         "cfg = PipelineConfig(model_count=2, restraints=RestraintConfig(alpha=0.5), "
         "anneal=fast_anneal(AnnealConfig(), 0.05), length_buckets=(32,), shard_quantum=32)\n"
-        f"s = run_pipeline({npy!r}, {out!r}, cfg)\n"
+        f"s = run_pipeline({npy!r}, {out!r}, cfg, device='cpu')\n"
         "assert not any(m.split('.')[0] in ('jax', 'chromosome3d_tpu') "
         "for m in sys.modules if sys.modules[m] is not None)\n"
         "print(json.dumps(s))\n"

@@ -100,7 +100,8 @@ def test_solve_matches_jax_given_same_coords(tmp_path, monkeypatch, kind):
     summaries = {}
     for name, mod in (("jax", jax_pipeline), ("port", port_pipeline)):
         out.mkdir()
-        summaries[name] = mod.run_restraints_pipeline(path, str(out), cfg)
+        kw = {"device": "cpu"} if mod is port_pipeline else {}
+        summaries[name] = mod.run_restraints_pipeline(path, str(out), cfg, **kw)
         out.rename(tmp_path / name)
     phases = summaries["port"].pop("phases")
     assert set(phases) == {"host_prep_s", "tensor_prep_s", "solve_s", "assess_emit_s"}
@@ -153,7 +154,8 @@ def test_windowed_rr_runs_two_sided_semi_general(tmp_path, monkeypatch):
     monkeypatch.setattr(port_anneal, "mds_init", spy)
     cfg = _small_cfg()
     before = _counts()
-    summary = port_pipeline.run_restraints_pipeline(rr, str(tmp_path / "o"), cfg)
+    summary = port_pipeline.run_restraints_pipeline(rr, str(tmp_path / "o"), cfg,
+                                                    device="cpu")
     steps = cfg.anneal.total_steps
     assert tuple(a - b for a, b in zip(_counts(), before)) == (steps + 1, steps, 0, 0)
     assert seen == [True]
@@ -167,7 +169,8 @@ def test_exact_rr_takes_the_fused_route(tmp_path):
     write_rr(rr, exact=True)
     cfg = _small_cfg()
     before = _counts()
-    summary = port_pipeline.run_restraints_pipeline(rr, str(tmp_path / "o"), cfg)
+    summary = port_pipeline.run_restraints_pipeline(rr, str(tmp_path / "o"), cfg,
+                                                    device="cpu")
     steps = cfg.anneal.total_steps
     # B1 every step, B2 for the pick; no B5, no B4
     assert tuple(a - b for a, b in zip(_counts(), before)) == (0, 0, steps, 1)
@@ -178,7 +181,8 @@ def test_solve_refuses_before_allocating(tmp_path, monkeypatch):
     rr = str(tmp_path / "w.rr")
     write_rr(rr)
     with pytest.raises(ValueError, match="exceeds the cap"):
-        port_pipeline.run_restraints_pipeline(rr, str(tmp_path / "a"), max_L=20)
+        port_pipeline.run_restraints_pipeline(rr, str(tmp_path / "a"), max_L=20,
+                                              device="cpu")
 
     def boom(*a, **k):
         raise AssertionError("the solve tensors were built")
@@ -187,14 +191,16 @@ def test_solve_refuses_before_allocating(tmp_path, monkeypatch):
     # past 8192 (chunked final terms, ROADMAP A10)
     with pytest.raises(NotImplementedError, match="A10"):
         port_pipeline.run_restraints_pipeline(
-            rr, str(tmp_path / "b"), PipelineConfig(length_buckets=(8,), shard_quantum=8192))
+            rr, str(tmp_path / "b"), PipelineConfig(length_buckets=(8,), shard_quantum=8192),
+            device="cpu")
     # several shard devices past the buckets: the row-sharded solve runs
     # (padded to lcm(shard_quantum, shards)), no longer refused
     monkeypatch.undo()
     monkeypatch.setattr(device_mod, "shard_devices", lambda: [torch.device("cpu")] * 2)
     cfg = PipelineConfig(model_count=2, length_buckets=(8,), shard_quantum=8,
                          anneal=fast_anneal(AnnealConfig(), 0.1))
-    summary = port_pipeline.run_restraints_pipeline(rr, str(tmp_path / "c"), cfg)
+    summary = port_pipeline.run_restraints_pipeline(rr, str(tmp_path / "c"), cfg,
+                                                    device="cpu")
     assert summary["L"] == N and summary["L_solved"] == 32
     assert np.isfinite(summary["best_noe_energy"])
 
@@ -210,7 +216,8 @@ def test_cli_solve_tbl_without_jax(tmp_path):
     code = (
         "import sys; sys.modules['jax'] = sys.modules['chromosome3d_tpu'] = None\n"
         "from chromosome3d_tpu_torch.cli import main\n"
-        f"rc = main(['solve', '-r', {tbl!r}, '-o', {out!r}, '-m', '2', '--fast'])\n"
+        f"rc = main(['solve', '-r', {tbl!r}, '-o', {out!r}, '-m', '2', '--fast',"
+        " '--device', 'cpu'])\n"
         "assert not any(m.split('.')[0] in ('jax', 'chromosome3d_tpu') for m in sys.modules if sys.modules[m] is not None)\n"
         "sys.exit(rc)\n"
     )

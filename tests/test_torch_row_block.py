@@ -115,6 +115,31 @@ def test_exact_row_block_plain_matches_pallas(L, n_real, n_blocks):
                                    rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("r0", [0, 32])
+def test_exact_row_block_face_at_offsets(r0):
+    """B2' as the sharded step calls it, at offsets 0 and L / 2 (the two
+    shards of L = 64): (B, 3, L) in, (B, 3, Lb) and (B,) out, against
+    `pallas_row_block_energy_grad_batched(exact=True)` in interpret mode."""
+    L, Lb = 64, 32
+    dense, w, bead, xb = make_case(L, 60, 1e9, seed=3)
+    t = dense.lo * dense.mask
+    wf = dense.mask * dense.weight
+    _, w_t, (x_t,) = from_jax_numpy(None, w, (xb,))
+    ts, ws = _strip(t, r0, Lb), _strip(wf, r0, Lb)
+    e_r, g_r = pallas_row_block_energy_grad_batched(
+        jnp.asarray(xb), jnp.asarray(ts), jnp.asarray(ts), jnp.asarray(ws),
+        jnp.asarray(bead), jnp.asarray(bead[r0:r0 + Lb]), r0, w,
+        interpret=True, exact=True,
+    )
+    e, gT = exact_row_block_energy_grad(x_t.transpose(1, 2).contiguous(),
+                                        torch.from_numpy(ts), torch.from_numpy(ws), w_t,
+                                        torch.from_numpy(bead), r0)
+    assert e.shape == (xb.shape[0],) and gT.shape == (xb.shape[0], 3, Lb)
+    np.testing.assert_allclose(e.numpy(), np.asarray(e_r), rtol=2e-5)
+    np.testing.assert_allclose(gT.transpose(1, 2).numpy(), np.asarray(g_r),
+                               rtol=2e-4, atol=2e-4)
+
+
 @pytest.mark.parametrize("exact", [False, True])
 def test_row_blocks_tile_the_whole_matrix(exact):
     """The blocks' energies sum to the whole-matrix twin's and their rows

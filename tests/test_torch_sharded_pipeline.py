@@ -107,7 +107,7 @@ def test_run_sharded_over_two_shards(tmp_path, monkeypatch):
     cfg = PipelineConfig(model_count=2, anneal=fast_anneal(AnnealConfig(), 0.04),
                          emit_violation_reports=False)
     before = _calls()
-    summary = pipeline.run_pipeline(npy, str(tmp_path / "out"), cfg)
+    summary = pipeline.run_pipeline(npy, str(tmp_path / "out"), cfg, device="cpu")
     calls = {k: v - before[k] for k, v in _calls().items()}
     steps = cfg.anneal.total_steps
     assert calls == {"B6": 2 * (steps + 1), "B5'": 0, "B2'": 0, "B4": steps,
@@ -155,7 +155,7 @@ def test_solve_sharded(tmp_path, monkeypatch, exact, n, twin):
     cfg = PipelineConfig(model_count=2, anneal=fast_anneal(AnnealConfig(), 0.1),
                          length_buckets=(16,), shard_quantum=16)
     before = _calls()
-    summary = pipeline.run_restraints_pipeline(rr, str(tmp_path / "out"), cfg)
+    summary = pipeline.run_restraints_pipeline(rr, str(tmp_path / "out"), cfg, device="cpu")
     calls = {k: v - before[k] for k, v in _calls().items()}
     steps = cfg.anneal.total_steps
     want = {k: 0 for k in TWINS}
@@ -187,9 +187,9 @@ def test_sharded_pipelines_pass_the_chunked_terms_gate(tmp_path, monkeypatch):
                              cool_steps_per_cycle=1, final_steps=1))
     _shards(monkeypatch, 1)
     with pytest.raises(NotImplementedError, match="A10"):
-        pipeline.run_pipeline(npy, str(tmp_path / "one"), cfg)
+        pipeline.run_pipeline(npy, str(tmp_path / "one"), cfg, device="cpu")
     _shards(monkeypatch, 2)
-    summary = pipeline.run_pipeline(npy, str(tmp_path / "two"), cfg)
+    summary = pipeline.run_pipeline(npy, str(tmp_path / "two"), cfg, device="cpu")
     assert summary["L"] == 800 and np.isfinite(summary["best_spearman_if_inv_d"])
 
 
