@@ -25,34 +25,23 @@
 // §C). Each unordered pair is seen from both rows (the 1/2 ordered-pair
 // convention), so every row owns its gradient.
 //
-// What bounds it on an H100: at the shapes it runs, latency, and how much
-// of the card it fills. B x Lb x L pairs (5.2M at the pick, 1.3-2.6M a shard
-// step) at ~23 instructions each are 1-4 us of issue on 132 SMs; the (Lb,
-// L) tiles are 0.5-1 MiB, in L2, but read once per structure they would be
-// 10-40 MB of L2 traffic. The design:
-//  * a warp owns one row over all L columns, so a row's gradient never
-//    leaves its warp: a block of 8 warps takes 8 rows for a slice of sg
-//    structures, grid (row groups, structure groups), which at those shapes
-//    is 256-320 blocks, up to three an SM (80 registers a thread);
-//  * a lane holds its columns' t, 2 noe w pv and 2 vdw nb of the row (16
-//    of each a 512-column chunk) in registers, loaded once and reused for
-//    every structure of the slice, so the tiles are read once per slice;
-//  * the chunk's coordinates of the slice and its bead mask are staged in
-//    shared memory by cp.async, issued before the tile loads, so both are
-//    in flight together; the loop over structures touches no global memory;
-//  * per structure the lane's 3 gradient sums and its energy go through
-//    one multi-value butterfly (warp_fold.cuh, 6 shuffles); the lanes that
-//    own them add them into the warp's slot, chunk after chunk, and write
-//    the (B, 3, Lb) gradient rows at the end;
-//  * each block writes its rows' energy per structure, and the last block
-//    to arrive (a ticket: one atomic counter) adds them in a fixed order
-//    into e (B,). The grid is one wave (ops/pair_energy.py
-//    `exact_pair_plan`): a block holds its slot until its ticket returns,
-//    so a second wave would wait for the first one's tickets.
-// A row's columns are chunked by L alone and summed in the same order
-// whichever rows share the launch, and every product and sum is spelled as
-// fmaf or a never-fused intrinsic, so B2' rows are B2's bits. No float
-// atomics: equal inputs give equal bits.
+// What bounds it on an H100: at the shapes it runs, latency. B x Lb x L
+// pairs (5.2M at the pick, 1.3-2.6M a shard step) at ~30 instructions each
+// are 1-5 us of issue on 132 SMs, and the (Lb, L) tiles (0.5-1 MiB) stay in
+// L2 for every structure. Design: a warp owns one row of one structure and
+// its lanes stride the L columns, so every load (three rows of xT, the bead
+// mask, t and w) is coalesced and a row's gradient never leaves its warp;
+// grid (ceil(Lb / 8), B), 640-1,280 blocks of 8 warps. A row's 4 sums go
+// through one multi-value butterfly (warp_fold.cuh); the lanes that own the
+// gradient write the (B, 3, Lb) rows. Each block writes its 8 rows' energy,
+// and the last block to arrive (a ticket: one atomic counter) adds every
+// structure's block sums in a fixed order into e (B,). (A body that kept a
+// lane's tiles in registers for a slice of structures and staged the
+// coordinates by cp.async was slower at all three shapes:
+// scripts/variant_probe_torch.py, PERF.md §6.) A row's columns are summed in
+// the same order whatever rows share the launch, and every product and sum
+// is spelled as fmaf or a never-fused intrinsic, so B2' rows are B2's bits.
+// No float atomics: equal inputs give equal bits.
 
 #include <cuda_runtime.h>
 
@@ -63,21 +52,34 @@ namespace {
 using c3d::kThreads;
 using c3d::kWarps;
 
-constexpr int kChunk = 512;            // columns staged at a time
-constexpr int kCpl = kChunk / 32;      // a lane's columns of a chunk
-constexpr int kVals = 4;               // a lane's sums per structure
+constexpr int kVals = 4;          // a row's sums: the gradient's 3, the energy
+constexpr int kStageMax = 2048;   // block energies the last block stages
 constexpr float kEps = 1e-12f;
 
-struct ExactParams {
-  int B, L, row0, Lb;     // structures, length, the strip
-  int sg;                 // structures a block
-  float two_noe, two_vdw, r0;
-};
-
-// floats of shared memory a block needs for sg structures: the chunk's
-// coordinates and bead mask, the rows' coordinates, the warps' slots
-__host__ __device__ constexpr int smem_floats(int sg) {
-  return sg * 3 * kChunk + kChunk + sg * 3 * kWarps + kWarps * sg * kVals;
+// The last block of the launch (the one that drew the last ticket): out(b,
+// sum) for every b < B, sum adding p[b n .. b n + n) in a fixed order —
+// lane-strided sums, then a butterfly over the warp — one warp a row. The
+// values are staged in `stage` (stage_max floats of shared memory) when
+// they fit, so every load is issued before the first sum. They were
+// written by other blocks of this launch: read through L2. Called by every
+// thread of the block.
+template <typename Out>
+__device__ __forceinline__ void last_block_row_sums(const float* __restrict__ p, int B,
+                                                    int n, float* stage, int stage_max,
+                                                    Out out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool staged = B * n <= stage_max;
+  if (staged)
+    for (int m = threadIdx.x; m < B * n; m += kThreads) stage[m] = __ldcg(p + m);
+  __syncthreads();
+  for (int b = warp; b < B; b += kWarps) {
+    float v = 0.f;
+    for (int m = lane; m < n; m += 32)
+      v += staged ? stage[(size_t)b * n + m] : __ldcg(p + (size_t)b * n + m);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+    if (lane == 0) out(b, v);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -89,142 +91,85 @@ exact_pair_kernel(const float* __restrict__ xT,   // (B, 3, L)
                   float* __restrict__ e,          // (B,) out
                   float* __restrict__ e_part,     // (B, row groups) scratch
                   int* __restrict__ ticket,       // 0 between launches
-                  ExactParams q) {
-  extern __shared__ float smem[];
+                  int B, int L, int row0, int Lb, float two_noe, float two_vdw,
+                  float r0) {
+  __shared__ float s_e[kWarps];
+  __shared__ float s_stage[kStageMax];
   __shared__ int s_last;
-  const int L = q.L, Lb = q.Lb, sg = q.sg;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rg = blockIdx.x, b0 = blockIdx.y * sg, nb = min(sg, q.B - b0);
-  const int il0 = rg * kWarps, il = il0 + warp, i = q.row0 + il;   // the warp's row
+  const int rg = blockIdx.x, b = blockIdx.y;
+  const int il = rg * kWarps + warp, i = row0 + il;   // the warp's row
   const bool row_in = il < Lb;
-  float* s_x = smem;                          // [sg][3][kChunk]
-  float* s_bm = s_x + sg * 3 * kChunk;        // [kChunk]
-  float* s_rows = s_bm + kChunk;              // [sg][3][kWarps]
-  float* s_slot = s_rows + sg * 3 * kWarps;   // [kWarps][sg][kVals]
-  const float* xb = xT + (size_t)b0 * 3 * L;
-
-  for (int idx = tid; idx < nb * 3 * kWarps; idx += kThreads) {
-    const int r = il0 + idx % kWarps;
-    const bool in = r < Lb;
-    c3d::copy_async(s_rows + idx, xb + (size_t)(idx / kWarps) * L + (in ? q.row0 + r : 0), in);
+  const float* xb = xT + (size_t)b * 3 * L;
+  float v[kVals] = {0.f, 0.f, 0.f, 0.f};
+  if (row_in) {
+    const float ax = __ldg(xb + i), ay = __ldg(xb + L + i), az = __ldg(xb + 2 * L + i);
+    const float bmi = __ldg(bm + i);
+    const float* trow = t + (size_t)il * L;
+    const float* wrow = w + (size_t)il * L;
+    for (int j = lane; j < L; j += 32) {
+      // every product and sum is spelled out (fmaf or a never-fused
+      // intrinsic), so a row's bits do not depend on the rows beside it
+      const float pv = __fmul_rn(bmi, __ldg(bm + j));
+      const float pw = __fmul_rn(two_noe, __fmul_rn(__ldg(wrow + j), pv));  // 2 noe w pv
+      const float pvn = (abs(i - j) >= 2) ? __fmul_rn(two_vdw, pv) : 0.f;   // 2 vdw nb
+      const float dx = __fsub_rn(ax, __ldg(xb + j));
+      const float dy = __fsub_rn(ay, __ldg(xb + L + j));
+      const float dz = __fsub_rn(az, __ldg(xb + 2 * L + j));
+      const float s = fmaf(dz, dz, fmaf(dy, dy, fmaf(dx, dx, kEps)));
+      const float rinv = c3d::rsqrt_fast(s);
+      const float d = __fmul_rn(s, rinv);
+      const float dev = __fsub_rn(d, __ldg(trow + j));
+      const float ov = fmaxf(__fsub_rn(r0, d), 0.f);
+      const float qn = __fmul_rn(pw, dev);    // 2 noe w pv dev
+      const float qv = __fmul_rn(pvn, ov);    // 2 vdw nb ov
+      v[3] = fmaf(qv, ov, fmaf(qn, dev, v[3]));
+      const float cf = __fmul_rn(__fsub_rn(qn, qv), rinv);
+      v[0] = fmaf(cf, dx, v[0]);
+      v[1] = fmaf(cf, dy, v[1]);
+      v[2] = fmaf(cf, dz, v[2]);
+    }
   }
-  for (int idx = tid; idx < kWarps * sg * kVals; idx += kThreads) s_slot[idx] = 0.f;
   int which;
   bool owner;
   c3d::fold_all_id<16, kVals>(lane, which, owner);
-  float* my_slot = s_slot + (size_t)warp * sg * kVals + which;
-  const float bmi = row_in ? __ldg(bm + i) : 0.f;
-  const float r0 = q.r0;
-
-  for (int c0 = 0; c0 < L; c0 += kChunk) {
-    if (c0 > 0) __syncthreads();   // every warp is done with the last chunk
-    // the chunk's coordinates and bead mask, in flight with the tile loads
-    for (int idx = tid; idx < (3 * nb + 1) * kChunk; idx += kThreads) {
-      const int r = idx / kChunk, col = c0 + (idx - r * kChunk);
-      const bool in = col < L;
-      const float* src = r < 3 * nb ? xb + (size_t)r * L : bm;
-      float* dst = r < 3 * nb ? s_x + idx : s_bm + (idx - r * kChunk);
-      c3d::copy_async(dst, src + (in ? col : 0), in);
-    }
-    c3d::copy_async_commit();
-    // this lane's pairs: row i, columns c0 + lane + 32 m; a row past the
-    // strip or a column past L holds nothing (bead 0)
-    float pt[kCpl], pw[kCpl];
-#pragma unroll
-    for (int m = 0; m < kCpl; ++m) {
-      const int j = c0 + lane + 32 * m;
-      const bool in = row_in && j < L;
-      const size_t idx = (size_t)il * L + j;
-      pt[m] = in ? __ldg(t + idx) : 0.f;
-      pw[m] = in ? __ldg(w + idx) : 0.f;
-    }
-    c3d::copy_async_wait<0>();
-    __syncthreads();
-    float pvn[kCpl];
-#pragma unroll
-    for (int m = 0; m < kCpl; ++m) {
-      const int j = c0 + lane + 32 * m;
-      const float pv = __fmul_rn(bmi, s_bm[lane + 32 * m]);
-      pw[m] = __fmul_rn(q.two_noe, __fmul_rn(pw[m], pv));     // 2 noe w pv
-      pvn[m] = (abs(i - j) >= 2) ? __fmul_rn(q.two_vdw, pv) : 0.f;
-    }
-
-    for (int b = 0; b < nb; ++b) {
-      const float* xs = s_x + (size_t)b * 3 * kChunk + lane;
-      const float* xr = s_rows + (size_t)b * 3 * kWarps + warp;
-      const float ax = xr[0], ay = xr[kWarps], az = xr[2 * kWarps];
-      float v[kVals] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int m = 0; m < kCpl; ++m) {
-        // every product and sum is spelled out (fmaf or a never-fused
-        // intrinsic), so a row's bits do not depend on the rows beside it
-        const float dx = __fsub_rn(ax, xs[32 * m]);
-        const float dy = __fsub_rn(ay, xs[kChunk + 32 * m]);
-        const float dz = __fsub_rn(az, xs[2 * kChunk + 32 * m]);
-        const float s = fmaf(dz, dz, fmaf(dy, dy, fmaf(dx, dx, kEps)));
-        const float rinv = c3d::rsqrt_fast(s);
-        const float d = __fmul_rn(s, rinv);
-        const float dev = __fsub_rn(d, pt[m]);
-        const float ov = fmaxf(__fsub_rn(r0, d), 0.f);
-        const float qn = __fmul_rn(pw[m], dev);    // 2 noe w pv dev
-        const float qv = __fmul_rn(pvn[m], ov);    // 2 vdw nb ov
-        v[3] = fmaf(qv, ov, fmaf(qn, dev, v[3]));
-        const float cf = __fmul_rn(__fsub_rn(qn, qv), rinv);
-        v[0] = fmaf(cf, dx, v[0]);
-        v[1] = fmaf(cf, dy, v[1]);
-        v[2] = fmaf(cf, dz, v[2]);
-      }
-      c3d::fold_all<16>(v, lane);
-      if (owner) my_slot[b * kVals] += v[0];
-    }
-  }
+  c3d::fold_all<16>(v, lane);
+  if (owner && which == 3) s_e[warp] = v[0];   // 0 for a row past the strip
+  if (owner && which < 3 && row_in) gT[((size_t)b * 3 + which) * Lb + il] = v[0];
   __syncthreads();
 
-  // the block's energy of each structure, rows in order, then its ticket;
-  // the warps' gradient rows go out while the ticket is in flight (the
-  // fence waits for the energies alone)
-  if (tid < nb) {
+  // the block's energy, its rows in order, then its ticket
+  if (tid == 0) {
     float en = 0.f;
-    for (int wq = 0; wq < kWarps; ++wq) en += s_slot[(wq * sg + tid) * kVals + 3];
-    e_part[(size_t)(b0 + tid) * gridDim.x + rg] = en;
+    for (int wq = 0; wq < kWarps; ++wq) en += s_e[wq];
+    e_part[(size_t)b * gridDim.x + rg] = en;
     __threadfence();
+    s_last = atomicAdd(ticket, 1) == (int)(gridDim.x * gridDim.y) - 1;
   }
-  __syncthreads();
-  if (tid == 0) s_last = atomicAdd(ticket, 1) == (int)(gridDim.x * gridDim.y) - 1;
-  if (owner && which < 3 && row_in)
-    for (int b = 0; b < nb; ++b)
-      gT[((size_t)(b0 + b) * 3 + which) * Lb + il] = my_slot[b * kVals];
   __syncthreads();
   if (!s_last) return;
 
-  // the last block: each structure's row groups in a fixed order (the
-  // slots carry 2 noe and 2 vdw: e = 1/4 of the sum)
-  c3d::last_block_row_sums(e_part, q.B, gridDim.x, s_x, sg * 3 * kChunk,
-                           [&](int b, float v) { e[b] = 0.25f * v; });
+  // the last block: each structure's row groups in a fixed order (the sums
+  // carry 2 noe and 2 vdw: e = 1/4 of them)
+  last_block_row_sums(e_part, B, gridDim.x, s_stage, kStageMax,
+                           [&](int bb, float val) { e[bb] = 0.25f * val; });
   if (tid == 0) *ticket = 0;
 }
 
 }  // namespace
 
 // B2 is row0 = 0, Lb = L; B2' a shard's rows [row0, row0 + Lb). The grid is
-// (ceil(Lb / 8), ceil(B / sg)); e_part: (B, ceil(Lb / 8)) scratch; ticket:
-// one int that is 0 (each launch leaves it 0 again).
+// (ceil(Lb / 8), B); e_part: (B, ceil(Lb / 8)) scratch; ticket: one int that
+// is 0 (each launch leaves it 0 again).
 extern "C" int c3d_exact_pair(const float* xT, const float* t, const float* w,
                               const float* bm, float* gT, float* e, float* e_part,
-                              int* ticket, int B, int L, int row0, int Lb, int sg,
-                              float noe, float vdw, float vdw_radius, void* stream) {
-  if (row0 < 0 || Lb <= 0 || row0 + Lb > L || sg <= 0 || B <= 0)
-    return (int)cudaErrorInvalidValue;
-  const ExactParams q{B, L, row0, Lb, sg, 2.f * noe, 2.f * vdw, vdw_radius};
-  const size_t smem = (size_t)smem_floats(sg) * sizeof(float);
-  // past the 227 KB a block can opt into, the attribute call fails and the
-  // wrapper raises
-  cudaError_t err = cudaFuncSetAttribute(
-      exact_pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Lb + kWarps - 1) / kWarps, (B + sg - 1) / sg);
-  exact_pair_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      xT, t, w, bm, gT, e, e_part, ticket, q);
+                              int* ticket, int B, int L, int row0, int Lb, float noe,
+                              float vdw, float vdw_radius, void* stream) {
+  if (row0 < 0 || Lb <= 0 || row0 + Lb > L || B <= 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid((Lb + kWarps - 1) / kWarps, B);
+  exact_pair_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      xT, t, w, bm, gT, e, e_part, ticket, B, L, row0, Lb, 2.f * noe, 2.f * vdw,
+      vdw_radius);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,6 @@
 // Multi-value butterfly sums, asynchronous copies and the fixed-order block
-// sums shared by the pair bodies (general_pair.cu, tri_pair.cuh,
-// exact_pair.cu) and kernel B4 (fused_update.cu).
+// sum shared by the pair bodies (general_pair.cu, tri_pair.cuh,
+// exact_pair.cu) and kernel B1 (fused_steps.cu).
 //
 // A thread that holds N partial sums to be added over the lanes of a warp
 // would spend N x 5 shuffles on N separate butterflies. `fold` instead halves
@@ -148,32 +148,6 @@ __device__ __forceinline__ void block_sum(const float* __restrict__ p, int n,
     float t = 0.f;
     for (int wi = 0; wi < kWarps; ++wi) t += sums[wi];
     *out = scale * t;
-  }
-}
-
-// The last block of a launch (the one that drew the last ticket): out(b,
-// sum) for every b < B, sum adding p[b n .. b n + n) in a fixed order —
-// lane-strided sums, then a butterfly over the warp — one warp a row. The
-// values are staged in `stage` (stage_max floats of shared memory) when
-// they fit, so every load is issued before the first sum. They were
-// written by other blocks of this launch: read through L2. Called by every
-// thread of a 256-thread block.
-template <typename Out>
-__device__ __forceinline__ void last_block_row_sums(const float* __restrict__ p, int B,
-                                                    int n, float* stage, int stage_max,
-                                                    Out out) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const bool staged = B * n <= stage_max;
-  if (staged)
-    for (int m = threadIdx.x; m < B * n; m += kThreads) stage[m] = __ldcg(p + m);
-  __syncthreads();
-  for (int b = warp; b < B; b += kWarps) {
-    float v = 0.f;
-    for (int m = lane; m < n; m += 32)
-      v += staged ? stage[(size_t)b * n + m] : __ldcg(p + (size_t)b * n + m);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-    if (lane == 0) out(b, v);
   }
 }
 

@@ -42,10 +42,10 @@ _F = ctypes.c_float
 
 # argument types of every C entry point, in declaration order
 SIGNATURES = {
-    # xT, t, w, bead_mask, gT, e, e_part, ticket, B, L, row0, Lb, sg, noe,
-    # vdw, vdw_radius, stream
+    # xT, t, w, bead_mask, gT, e, e_part, ticket, B, L, row0, Lb, noe, vdw,
+    # vdw_radius, stream
     "c3d_exact_pair": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P,
     ),
     # xT, lo, hi, w, bead_mask, part, e_part, e, gT, B, L, row0, Lb, cps,
     # bslice, noe, vdw, vdw_radius, rswitch, stream
@@ -63,11 +63,11 @@ SIGNATURES = {
     "c3d_exact_tri_strip": (
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P,
     ),
-    # xT, gT, muT, nuT, bead_mask, e_pair, table, step, hist, part, ticket,
-    # xTo, muTo, nuTo, B, L, first, hist_stride, b1, b2, eps, bond_w,
+    # xT, gT, muT, nuT, bead_mask, e_pair, table, step, hist, ticket, xTo,
+    # muTo, nuTo, B, L, first, rows, hist_stride, b1, b2, eps, bond_w,
     # bond_len, clip, seed, stream
     "c3d_fused_update": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
         _F, _F, _F, _F, _F, _F, _I, _P,
     ),
     # xA, xB, mu, nu, t, w, nb, bead_mask, table row k0, part, B, L, k0, k1,

@@ -37,9 +37,6 @@ from chromosome3d_tpu_torch.ops.fused_step import (
 )
 from chromosome3d_tpu_torch.ops.pair_energy import check_inputs
 
-_BEADS_BLOCK = 256   # csrc/fused_update.cu: one bead a thread
-
-
 def fused_update_plain(
     xT, gT, muT, nuT, weights: EnergyWeights, bead_mask,
     lr, sigma, bc1, bc2, seed, step, clip: Optional[float],
@@ -77,8 +74,9 @@ def fused_update_table(
     counter an int32 (1,) tensor on the same device (`step_counter`), and
     hist a (rows, B) float32 history whose row k - table.first receives
     e_pair + the bond energies; the counter then holds k + 1. The step's
-    lr, sigma, bc1 and bc2 are row k of the table, which must hold it; the
-    noise is structure b's stream at step k. CPU tensors run the plain twin;
+    lr, sigma, bc1 and bc2 are row k of the table, which must hold it (a k
+    outside it raises on the CPU and stops the kernel, a trap that ends the
+    CUDA context, on the card); the noise is structure b's stream at step k. CPU tensors run the plain twin;
     CUDA tensors launch csrc/fused_update.cu into `out` = (xT', muT', nuT')
     buffers when given (a loop passes the step before last's, so a phase
     allocates two sets) or into new ones. Each bead reads its neighbours'
@@ -119,16 +117,14 @@ def fused_update_table(
     lib = _build.load_library()
     x_new, mu_new, nu_new = out if out is not None else (torch.empty_like(xT)
                                                          for _ in range(3))
-    nblk = -(-L // _BEADS_BLOCK)
-    part = _build.workspace(dev, "fused_update part", B * nblk, torch.float32)
     ticket = _build.workspace(dev, "fused_update ticket", 1)
     rows = table.device_rows(dev)
     with torch.cuda.device(dev):
         err = lib.c3d_fused_update(
             xT.data_ptr(), gT.data_ptr(), muT.data_ptr(), nuT.data_ptr(),
             bead_mask.data_ptr(), e_pair.data_ptr(), rows.data_ptr(),
-            counter.data_ptr(), hist.data_ptr(), part.data_ptr(), ticket.data_ptr(),
-            x_new.data_ptr(), mu_new.data_ptr(), nu_new.data_ptr(), B, L, table.first,
+            counter.data_ptr(), hist.data_ptr(), ticket.data_ptr(), x_new.data_ptr(),
+            mu_new.data_ptr(), nu_new.data_ptr(), B, L, table.first, len(table.rows),
             hist.stride(0), table.b1, table.b2, table.eps_adam, table.base.bond,
             table.base.bond_length, -1.0 if table.clip is None else table.clip,
             _c_int32(table.seed), torch.cuda.current_stream(dev).cuda_stream,

@@ -105,47 +105,22 @@ def exact_pair_energy_grad_plain(
 exact_pair_energy_grad_plain.calls = 0
 
 
-# csrc/exact_pair.cu's block: 8 warps of one row each, 512-column chunks, 4
-# sums per lane and structure
-_THREADS, _ROWS_BLOCK, _CHUNK, _VALS = 256, 8, 512, 4
-_SLICE_MAX = 8       # structures a block
-# blocks an SM holds: 80 registers a thread (nvcc -Xptxas -v, NVIDIA H100
-# 80GB HBM3; scripts/kernel_resources_torch.py) leave room for 3 of 256
-_BLOCKS_SM = 3
+_ROWS_BLOCK = 8       # csrc/exact_pair.cu: a warp a row, 8 rows a block
+_STAGE_MAX = 2048    # block energies its last block stages in shared memory
 
 
-def exact_pair_plan(B: int, L: int, Lb: int, n_sm: int = 132) -> dict:
-    """What the wrapper decides on the host for B structures and the Lb rows
-    of an (Lb, L) strip (B2: Lb = L) on a card of n_sm SMs: a grid of (row
-    groups of 8 rows, one a warp, structure groups of `sg`). A row's columns
-    are all its warp's, in `cps` chunks of 512 (one split), so a row meets
-    the same columns in the same order in B2 and in B2'. The slice sg is
-    the one that gives the busiest SM the least work, ceil(blocks / n_sm) x
-    sg, among the grids of one wave (a block holds its slot until its
-    ticket returns, so a second wave would wait for the first one's
-    tickets) that give every SM a block; ties go to the smaller slice.
-    Each block reads its rows' tiles once for its sg structures."""
+def exact_pair_plan(B: int, L: int, Lb: int) -> dict:
+    """csrc/exact_pair.cu's grid for B structures and the Lb rows of an (Lb,
+    L) strip (B2: Lb = L): (row groups of 8 rows, one a warp, B structures).
+    A warp's lanes stride all L columns of its row, so a row meets its
+    columns in the same order in B2 and in B2'. The last block sums the
+    (B, row groups) block energies, staged in shared memory when they fit
+    (read through L2 otherwise)."""
     if B < 1 or Lb < 1 or L < Lb:
         raise ValueError(f"empty or bad strip: B={B}, Lb={Lb}, L={L}")
     groups = -(-Lb // _ROWS_BLOCK)
-
-    def busiest(sg):
-        blocks = groups * -(-B // sg)
-        return (blocks > _BLOCKS_SM * n_sm, blocks < n_sm, -(-blocks // n_sm) * sg, sg)
-
-    sg = min(range(1, min(B, _SLICE_MAX) + 1), key=busiest)
-    nsg = -(-B // sg)
-    smem = 4 * (sg * 3 * _CHUNK + _CHUNK + sg * 3 * _ROWS_BLOCK + _ROWS_BLOCK * sg * _VALS)
-    return {
-        "threads": _THREADS, "rows_block": _ROWS_BLOCK, "chunk": _CHUNK,
-        "cps": -(-L // _CHUNK), "row_groups": groups, "sg": sg, "nsg": nsg,
-        "blocks": groups * nsg, "smem_bytes": smem, "e_part_shape": (B, groups),
-    }
-
-
-def plan_structures(plan: dict, group: int, B: int) -> range:
-    """The structures block `group` of the grid's third axis computes."""
-    return range(group * plan["sg"], min(B, (group + 1) * plan["sg"]))
+    return {"rows_block": _ROWS_BLOCK, "row_groups": groups, "blocks": groups * B,
+            "e_part_shape": (B, groups), "staged": B * groups <= _STAGE_MAX}
 
 
 def _launch_exact(xT, target, w, weights, bead_mask, row_start, dev):
@@ -153,18 +128,18 @@ def _launch_exact(xT, target, w, weights, bead_mask, row_start, dev):
     (B,), gradient rows (B, 3, Lb)), one launch."""
     B, L = xT.shape[0], xT.shape[2]
     Lb = target.shape[0]
-    plan = exact_pair_plan(B, L, Lb, torch.cuda.get_device_properties(dev).multi_processor_count)
     lib = _build.load_library()
     e = torch.empty((B,), dtype=torch.float32, device=dev)
     gT = torch.empty((B, 3, Lb), dtype=torch.float32, device=dev)
-    e_part = _build.workspace(dev, "exact_pair e_part", B * plan["row_groups"], torch.float32)
+    n_part = B * exact_pair_plan(B, L, Lb)["row_groups"]
+    e_part = _build.workspace(dev, "exact_pair e_part", n_part, torch.float32)
     ticket = _build.workspace(dev, "exact_pair ticket", 1)
     with torch.cuda.device(dev):
         err = lib.c3d_exact_pair(
             xT.data_ptr(), target.data_ptr(), w.data_ptr(), bead_mask.data_ptr(),
             gT.data_ptr(), e.data_ptr(), e_part.data_ptr(), ticket.data_ptr(), B, L,
-            row_start, Lb, plan["sg"], weights.noe, weights.vdw,
-            weights.vdw_radius, torch.cuda.current_stream(dev).cuda_stream,
+            row_start, Lb, weights.noe, weights.vdw, weights.vdw_radius,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, "c3d_exact_pair")
     return e, gT

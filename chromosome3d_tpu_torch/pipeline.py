@@ -248,13 +248,12 @@ def run_pipeline(
     dir_out: str,
     cfg: Optional[PipelineConfig] = None,
     device=None,
-    wipe: bool = True,
 ) -> Dict:
     """Run one chromosome end to end on `device` (device.resolve_device:
     None is the first CUDA device, and raises without one; "cpu" runs the
     kernels' plain twins). Returns the summary dict, which is also written
     to summary.json with per-phase seconds rounded to 0.01 s, as the JAX
-    package's. wipe: remove the files already in dir_out first (the
+    package's. The files already in dir_out are removed first (the
     reference's outdir wipe, chromosome3D.pl:56)."""
     cfg = cfg or PipelineConfig()
     dev = resolve_device(device)
@@ -279,11 +278,10 @@ def run_pipeline(
     if cfg.alpha_ensemble:
         raise NotImplementedError("the alpha ensemble is not ported (ROADMAP A11)")
     os.makedirs(dir_out, exist_ok=True)
-    if wipe:
-        for name in os.listdir(dir_out):
-            p = os.path.join(dir_out, name)
-            if os.path.isfile(p):
-                os.remove(p)
+    for name in os.listdir(dir_out):
+        p = os.path.join(dir_out, name)
+        if os.path.isfile(p):
+            os.remove(p)
     if ext not in (".txt", ".npy"):
         ident = base  # unknown extension: keep the full name as the id
     local_if = os.path.join(dir_out, f"{ident}.txt")

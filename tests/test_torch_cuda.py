@@ -12,6 +12,10 @@ left.
 """
 
 import dataclasses
+import os
+import subprocess
+import sys
+import textwrap
 
 import numpy as np
 import pytest
@@ -415,10 +419,50 @@ def test_cuda_fused_update_table_chained(cuda_device, L, n_real, B):
         np.testing.assert_array_equal(a[:, :, n_real:].cpu().numpy(), 0.0)
 
 
+# one table launch of kernel B4 from a counter at K, in a child process: a
+# trap ends its CUDA context, which the synchronize reports
+_B4_TRAP_CHILD = textwrap.dedent("""
+    import sys
+    import torch
+    from chromosome3d_tpu_torch.ops.energy import EnergyWeights
+    from chromosome3d_tpu_torch.ops.fused_step import one_step_table
+    from chromosome3d_tpu_torch.ops.fused_update import fused_update_table, step_counter
+
+    dev = torch.device("cuda")
+    B, L, K = 2, 64, int(sys.argv[1])
+    x = torch.randn(B, 3, L, device=dev)
+    z = torch.zeros_like(x)
+    w = EnergyWeights(noe=1.0, bond=10.0, bond_length=3.8, vdw=0.0, vdw_radius=3.0)
+    table = one_step_table(w, 0.1, 0.0, 1.0, 1.0, 7, 10, None)   # the row of step 10
+    hist = torch.zeros((1, B), device=dev)
+    fused_update_table(x, z, z, z, torch.zeros(B, device=dev), torch.ones(L, device=dev),
+                       table, step_counter(K, dev), hist)
+    try:
+        torch.cuda.synchronize()
+    except RuntimeError as exc:
+        print("stopped:", exc)
+        sys.exit(3)
+    print("ran: hist", hist.tolist())
+""")
+
+
+@pytest.mark.parametrize("k", [9, 10, 11])
+def test_cuda_fused_update_table_traps_outside_the_table(cuda_device, k):
+    """A counter outside the table's rows stops kernel B4 (a trap) before it
+    reads past the table or writes past the history, as the CPU twin raises
+    on it (test_torch_fused_update.py::test_fused_update_table_contract); the
+    table's own step runs. The trap ends the CUDA context of its process, so
+    each launch runs in a child process."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", _B4_TRAP_CHILD, str(k)], cwd=root,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == (0 if k == 10 else 3), r.stdout + r.stderr
+
+
 @pytest.mark.parametrize("L,n_real,B,Lb", [
-    (512, 480, 20, 512),    # the pick's shape: 64 row groups, 4 slices of 5
-    (512, 480, 10, 256),    # a shard step's after the pick: a structure a block
-    (1100, 1090, 30, 1100),  # three 512-column chunks a row, past one wave
+    (512, 480, 20, 512),    # the pick's shape: 1,280 blocks
+    (512, 480, 10, 256),    # a shard step's after the pick
+    (1100, 1090, 30, 1100),  # block energies past the last block's stage
 ])
 def test_cuda_exact_pair_plan_shapes(cuda_device, L, n_real, B, Lb):
     """B2 / B2' at the plan's shapes: against the twin (B3's and B5's
@@ -427,7 +471,7 @@ def test_cuda_exact_pair_plan_shapes(cuda_device, L, n_real, B, Lb):
     bits over two calls, and the strip's rows equal in bits to the whole
     matrix's."""
     plan = exact_pair_plan(B, L, Lb)
-    assert plan["nsg"] > 1
+    assert plan["staged"] == (L <= 512)
     ex, bm, x, _, _ = _case(cuda_device, L=L, n_real=n_real, B=B, seed=L + B)
     row0 = L - Lb
     t, wt = ex.target[row0:].contiguous(), ex.w[row0:].contiguous()

@@ -6,7 +6,7 @@ slices, shared memory and scratch shapes are pure functions
 `strip_plan`) that these tests hold to the kernels' contracts on the CPU: the shared memory fits a
 block on an H100 and does not grow with L, every row and column is covered
 exactly once, the column split is the same for a strip as for the whole
-matrix (so B5' and B2' rows can be B5's and B2's bits), every unordered
+matrix (so B5' rows can be B5's bits; B2's warps own whole rows), every unordered
 tile pair is met exactly once across strips, and both at-scale shapes — and
 the exact body's three shapes (the pick at L = 512, a shard's 256 rows at
 B = 20 and 10) — fill the card's 132 SMs.
@@ -20,7 +20,7 @@ from chromosome3d_tpu_torch.ops.general_pair import (
     plan_cols,
     plan_rows,
 )
-from chromosome3d_tpu_torch.ops.pair_energy import exact_pair_plan, plan_structures
+from chromosome3d_tpu_torch.ops.pair_energy import exact_pair_plan
 from chromosome3d_tpu_torch.ops.strip_tri import strip_plan, strip_tile
 from chromosome3d_tpu_torch.ops.tri_energy import TILE, tile_pairs, tri_plan
 
@@ -175,42 +175,33 @@ def test_strip_plan_refuses_misaligned_strips(row_start):
 @pytest.mark.parametrize("L", LENGTHS)
 @pytest.mark.parametrize("B", BATCHES + (25, 60))
 def test_exact_plan_covers_every_row_column_and_structure_once(B, L, strips):
+    """A block a (row group, structure); a warp's lanes stride all L columns
+    of its row (lane l takes l, l + 32, ...), whatever the strip."""
     Lb = max(1, L // strips)
     plan = exact_pair_plan(B, L, Lb)
     rows = [i for g in range(plan["row_groups"]) for i in plan_rows(plan, g, Lb)]
-    cols = list(plan_cols(plan, 0, L))     # one split: a warp owns its row
-    structs = [b for z in range(plan["nsg"]) for b in plan_structures(plan, z, B)]
+    cols = sorted(j for lane in range(32) for j in range(lane, L, 32))
     assert rows == list(range(Lb))
-    assert cols == list(range(L))          # once each, in ascending order
-    assert structs == list(range(B))
-    assert all(len(plan_structures(plan, z, B)) > 0 for z in range(plan["nsg"]))
-    assert plan["blocks"] == plan["row_groups"] * plan["nsg"]
+    assert cols == list(range(L))
+    assert plan["blocks"] == plan["row_groups"] * B
     assert plan["e_part_shape"] == (B, plan["row_groups"])
-
-
-@pytest.mark.parametrize("strips", (2, 4, 5))
-@pytest.mark.parametrize("L", LENGTHS)
-@pytest.mark.parametrize("B", BATCHES)
-def test_exact_plan_splits_columns_by_length_alone(B, L, strips):
-    """B2' must sum a row's columns in B2's order: same splits, same chunks,
-    whatever the strip and the structures."""
-    whole = exact_pair_plan(B, L, L)
-    for strip in (exact_pair_plan(B, L, L // strips), exact_pair_plan(1, L, L // strips)):
-        for key in ("cps", "chunk"):
-            assert whole[key] == strip[key]
 
 
 @pytest.mark.parametrize("L", LENGTHS)
 @pytest.mark.parametrize("B", BATCHES + (25, 60, 1000))
 def test_exact_plan_shared_memory_fits(B, L):
+    """The last block stages the block energies in its 8 KB of static shared
+    memory when they fit, and reads them through L2 otherwise; at the
+    paths' shapes they fit."""
     plan = exact_pair_plan(B, L, L)
-    assert 1 <= plan["sg"] <= 8
-    assert 0 < plan["smem_bytes"] <= _build.SMEM_MAX
-    assert 2 * (plan["smem_bytes"] + 1024) <= 233_472   # two blocks an SM
+    assert plan["staged"] == (B * plan["row_groups"] <= 2048)
+    assert 4 * 2048 <= _build.SMEM_MAX
+    if B <= 20 and L <= 512:
+        assert plan["staged"]
 
 
 @pytest.mark.parametrize("B,L,Lb", [(20, 512, 512), (20, 512, 256), (10, 512, 256)])
 def test_exact_plan_fills_the_card(B, L, Lb):
     """The pick's shape and a shard step's (before and after the pick)."""
-    plan = exact_pair_plan(B, L, Lb, n_sm=SMS)
+    plan = exact_pair_plan(B, L, Lb)
     assert plan["blocks"] >= SMS

@@ -181,17 +181,17 @@ def test_resolve_device_never_falls_back(monkeypatch, tmp_path):
     assert not (tmp_path / "a").exists() and not (tmp_path / "b").exists()
 
 
-@pytest.mark.parametrize("wipe", [True, False])
-def test_run_pipeline_wipe(tmp_path, tiny_matrix, wipe):
-    """run_pipeline(..., wipe=False) keeps the files already in the output
-    directory, as the JAX package's does; the default wipes them."""
+def test_run_pipeline_wipe(tmp_path, tiny_matrix):
+    """run_pipeline removes the files already in the output directory (the
+    reference's outdir wipe) and rounds its phase seconds to 0.01 s, as the
+    JAX package's does."""
     path = str(tmp_path / "chrT_matrix.txt")
     write_if_matrix(path, tiny_matrix)
     out = tmp_path / "out"
     out.mkdir()
-    (out / "kept.txt").write_text("from an earlier run\n")
+    (out / "stale.txt").write_text("from an earlier run\n")
     cfg = PortPipelineConfig(model_count=2, emit_violation_reports=False)
     cfg = cfg.replace(anneal=fast_anneal(cfg.anneal, 0.05))
-    summary = port_pipeline.run_pipeline(path, str(out), cfg, device="cpu", wipe=wipe)
-    assert (out / "kept.txt").exists() == (not wipe)
+    summary = port_pipeline.run_pipeline(path, str(out), cfg, device="cpu")
+    assert not (out / "stale.txt").exists()
     assert all(v == round(v, 2) for v in summary["phases"].values())
