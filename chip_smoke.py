@@ -9,7 +9,8 @@ code is not 0):
   2. build   — builds the kernels from chromosome3d_tpu_torch/csrc/*.cu.
   3. kernels — each kernel against its plain PyTorch twin at the shapes of
                the path that runs it, and the time of each (median wall ms
-               of up to 25 calls, and device ms from a torch.profiler trace):
+               of up to 25 calls, and device ms from a torch.profiler trace,
+               or from CUDA events where the trace holds no kernel):
                B1 and B2 at the reference-scale path's shapes (B = 20 and 10
                structures, L = 456 padded to 512), B1's noise bitwise and
                its padded beads, through its single-step face and through
@@ -155,18 +156,48 @@ def device_ms(fn, n: int = 25) -> float:
     """Device milliseconds per call: the time of the kernels a call runs,
     from a torch.profiler trace of n calls (the wall time above also holds
     the host side of each call). Only the kernel rows count: an aten op's
-    row repeats the time of the kernels it launched."""
+    row repeats the time of the kernels it launched. Where two traces hold
+    no kernel (CUPTI does not trace on every machine), the n calls are
+    timed with CUDA events instead (`event_ms`)."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
+    for _ in range(2):
         torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    check(total_us > 0, "the profiler saw no device time")
-    return total_us / 1e3 / n
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total_us > 0:
+            return total_us / 1e3 / n
+    ms = event_ms(fn, n)
+    print(f"[timing] the profiler saw no device time; {ms:.5f} ms a call from CUDA events")
+    return ms
+
+
+# ~25 ms of SM clock: longer than the host takes to queue the calls event_ms times
+QUEUE_CYCLES = 50_000_000
+
+
+def event_ms(fn, n: int = 25) -> float:
+    """Device milliseconds per call from CUDA events around n calls queued
+    behind a spinning kernel, so that the host's launch gaps fall inside the
+    spin and not between the events. A call that waits on the host (a copy
+    from pageable memory) drains the queue, and its host time then counts:
+    for such a call this is an upper bound."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(QUEUE_CYCLES)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / n
+    check(ms > 0, "CUDA events timed no device work")
+    return ms
 
 
 def timing(err, key, wall, on_dev):
