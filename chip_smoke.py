@@ -45,7 +45,15 @@ code is not 0):
                and on small ragged shapes (odd and even tile counts, B = 23),
                each strip against its twin, the strips' sum against B3's
                twin, one strip of Lb = L equal in bits to B3, bits equal over
-               two calls.
+               two calls;
+               B1 and B2 with the chromosome axis at the genome bucket's
+               shape (the 45 inputs of phase 4b stacked as the genome runner
+               stacks them, L = 512, 20 structures near each truth): one
+               launch against the twins, and each chromosome bit for bit
+               against a launch of its own (B1 in the same plan mode, over
+               8 steps: history, x', mu', nu'); their times beside their
+               bounds (B1 per step of a 256-step launch at B = 20 and 10 a
+               chromosome).
   4. main path — resets the launch counters, runs the port's CLI in process
                (`run -i <matrix> -o <out> -m 10`, the default 2,760-step
                schedule), checks that B1 launched twice (the hot phase, then
@@ -55,6 +63,19 @@ code is not 0):
                true structure with the ground-truth gates. The solve call
                is timed here (synchronised): summary.json rounds its
                phases to 0.01 s.
+  4b. genome path — writes the 45 inputs of the reference's test.sh genome
+               (VALIDATION.md's lengths 35..455; confined_walk(L, seed=k) ->
+               IF with noise 0.1), resets the counters, runs `genome -i <dir>
+               -o <out> -m 10` in process (the default schedule), checks that
+               B1 launched twice for the one 512 bucket (2,760 steps) and B2
+               once, no other kernel or twin; every chromosome's artifacts,
+               checkpoint and summary.json with its phases; the ground-truth
+               gates on every chromosome's rank-01 model, each printed; a
+               chromosome that misses a gate is solved again through `run`,
+               and only a miss of the same gates there (a fault of the
+               method at that length) lets the phase pass. Prints the
+               bucket's solve time (timed here, synchronised), its mds_init
+               loop and the ensemble and chromosome steps/s.
   5. at-scale path — writes a ground-truth chromosome shaped like hg19 chr1
                at 50 kb (4,985 beads) as a float32 .npy, resets the counters,
                runs `run -i <.npy> -o <out> -m 10 --no-violation-reports` in
@@ -89,13 +110,15 @@ Then one JSON line with the kernels' numbers (each with its launches on its
 path, its wall and device ms and its twin's — for B1 per step of a 256-step
 launch, with the steps it ran on the main path — its bound from the H100's
 FP32 and HBM peaks, and library_ms null:
-no single PyTorch call computes a kernel's function) and, last, the result
-line `{"ok": true, "device": {...}}`.
+no single PyTorch call computes a kernel's function; B1 and B2 also at the
+genome bucket's shape, with their launches on the genome path) and, last,
+the result line `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import glob
 import io
 import json
@@ -453,6 +476,7 @@ def phase_kernels(dev):
         "B2": lambda: exact_pair_energy_grad(coords, ex.target, ex.w, w, bm),
         "B2 plain": lambda: exact_pair_energy_grad_plain(coords, ex.target, ex.w, w, bm),
         "B4": lambda: fused_update_table(xT, gT, mu, nu, e0, bm, table, counter, hist),
+        "B4 plain": lambda: fused_update_plain(xT, gT, mu, nu, w, bm, *args),
     }
     wall = {k: median_ms(fn) for k, fn in calls.items()}
     on_dev = {k: device_ms(fn) for k, fn in calls.items()}
@@ -466,6 +490,7 @@ def phase_kernels(dev):
           "one_step_ms": wall["B1 one step"], "one_step_device_ms": on_dev["B1 one step"]}
     # B4 at L = 512 joins B4's entry, beside its bound at that shape
     b4_512 = {"ms_512": wall["B4"], "device_ms_512": on_dev["B4"],
+              "plain_ms_512": wall["B4 plain"], "plain_device_ms_512": on_dev["B4 plain"],
               "bound_ms_512": bound("B4", 2 * N_MODELS, L_PAD)[0]}
     return (X, M, {"B1": b1, "B2": timing(b2_err, "B2", wall, on_dev), "B4@512": b4_512},
             (ex, bm, xT, w))
@@ -708,26 +733,31 @@ def check_launches(where, launches, plain, want):
 
 def check_gates(pdb, X):
     """Score a rank-01 PDB against the true structure with the gates."""
+    met = score(pdb, X)
+    check(not gate_misses(met), f"ground-truth gates missed: {met}")
+    return met
+
+
+def gate_misses(met):
+    """The ground-truth gates a model's metrics miss."""
+    return [k for k, v in GATES.items()
+            if not (met[k] > v if k == "spearman_d" else met[k] < v)]
+
+
+def score(pdb, X):
+    """A model's ground-truth metrics against the true structure X."""
     from chromosome3d_tpu_torch.io import read_ca_pdb
     from chromosome3d_tpu_torch.truth import reconstruction_metrics
 
     rec = read_ca_pdb(pdb)
     check(rec.shape == X.shape and np.isfinite(rec).all(), f"{pdb} malformed")
-    met = reconstruction_metrics(rec, X)
-    check(met["rmsd_over_rg"] < GATES["rmsd_over_rg"]
-          and met["spearman_d"] > GATES["spearman_d"]
-          and met["drmsd_rel"] < GATES["drmsd_rel"],
-          f"ground-truth gates missed: {met}")
-    return met
+    return reconstruction_metrics(rec, X)
 
 
 @contextlib.contextmanager
-def timed_solve(seconds):
-    """Time each call of the pipeline's solve, synchronised, into `seconds`:
-    summary.json rounds its phases to 0.01 s, coarse for a warm solve."""
-    from chromosome3d_tpu_torch import pipeline
-
-    real = pipeline._solve
+def timed_calls(module, name, seconds):
+    """Time each call of module.name, synchronised, into `seconds`."""
+    real = getattr(module, name)
 
     def spy(*args, **kwargs):
         torch.cuda.synchronize()
@@ -737,11 +767,19 @@ def timed_solve(seconds):
         seconds.append(time.perf_counter() - t0)
         return out
 
-    pipeline._solve = spy
+    setattr(module, name, spy)
     try:
         yield
     finally:
-        pipeline._solve = real
+        setattr(module, name, real)
+
+
+def timed_solve(seconds):
+    """Time each call of the pipeline's solve, synchronised, into `seconds`:
+    summary.json rounds its phases to 0.01 s, coarse for a warm solve."""
+    from chromosome3d_tpu_torch import pipeline
+
+    return timed_calls(pipeline, "_solve", seconds)
 
 
 def phase_main_path(X, M, card):
@@ -1328,6 +1366,259 @@ def phase_sharded_library(dev, X, M, card, shards=2):
     return launches
 
 
+
+# the 45 inputs of the reference's test.sh genome, name -> beads
+# (VALIDATION.md; chr2_500kb is not shipped): all pad to the 512 bucket
+GENOME = (
+    ("chr1_1mb", 229), ("chr1_500kb", 455), ("chr2_1mb", 241), ("chr3_1mb", 195),
+    ("chr3_500kb", 390), ("chr4_1mb", 189), ("chr4_500kb", 377), ("chr5_1mb", 177),
+    ("chr5_500kb", 354), ("chr6_1mb", 169), ("chr6_500kb", 337), ("chr7_1mb", 157),
+    ("chr7_500kb", 312), ("chr8_1mb", 144), ("chr8_500kb", 287), ("chr9_1mb", 121),
+    ("chr9_500kb", 235), ("chr10_1mb", 133), ("chr10_500kb", 266), ("chr11_1mb", 132),
+    ("chr11_500kb", 264), ("chr12_1mb", 131), ("chr12_500kb", 262), ("chr13_1mb", 96),
+    ("chr13_500kb", 192), ("chr14_1mb", 88), ("chr14_500kb", 176), ("chr15_1mb", 82),
+    ("chr15_500kb", 165), ("chr16_1mb", 80), ("chr16_500kb", 159), ("chr17_1mb", 79),
+    ("chr17_500kb", 157), ("chr18_1mb", 76), ("chr18_500kb", 150), ("chr19_1mb", 57),
+    ("chr19_500kb", 113), ("chr20_1mb", 60), ("chr20_500kb", 120), ("chr21_1mb", 37),
+    ("chr21_500kb", 73), ("chr22_1mb", 35), ("chr22_500kb", 70), ("chr23_1mb", 153),
+    ("chr23_500kb", 305),
+)
+C_GENOME = len(GENOME)
+
+
+def write_genome_inputs(directory):
+    """One `chr*_matrix.txt` a genome input, confined_walk(L, seed=k) -> IF
+    with noise 0.1 (the main path's recipe); returns {name: the truth}."""
+    from chromosome3d_tpu_torch.io import write_if_matrix
+    from chromosome3d_tpu_torch.truth import confined_walk, if_from_structure
+
+    os.makedirs(directory, exist_ok=True)
+    truths = {}
+    for k, (name, L) in enumerate(GENOME):
+        X = confined_walk(L, seed=k)
+        write_if_matrix(os.path.join(directory, f"{name}_matrix.txt"),
+                        if_from_structure(X, alpha=0.5, noise_sigma=0.1, seed=k))
+        truths[name] = X
+    return truths
+
+
+def genome_bucket_inputs(dev, directory):
+    """The genome bucket as the port's runner stacks it (its restraints,
+    the (C, L) bead masks), with B1's tiles for each chromosome, an ensemble
+    of 2 x models structures near each chromosome's truth (its mirror pairs;
+    chromosome-major), random Adam moments and a noise seed a chromosome."""
+    from chromosome3d_tpu_torch.config import PipelineConfig
+    from chromosome3d_tpu_torch.ops.fused_step import fused_step_tiles
+    from chromosome3d_tpu_torch.parallel import genome
+    from chromosome3d_tpu_torch.solver.anneal import _chromosome, _final_weights
+    from chromosome3d_tpu_torch.truth import confined_walk
+
+    cfg = PipelineConfig(model_count=N_MODELS)
+    batched, masks, _, _ = genome._stack_bucket(genome.discover_jobs(directory), L_PAD, cfg)
+    ex = type(batched)(*(torch.tensor(getattr(batched, f.name), device=dev)
+                         for f in dataclasses.fields(batched)))
+    bms = torch.tensor(masks, device=dev)
+    w = _final_weights(cfg.anneal)
+    tiles = tuple(torch.stack(a) for a in zip(*(
+        fused_step_tiles(_chromosome(ex, c), bms[c], w.noe) for c in range(C_GENOME))))
+    names = [j.name for j in genome.discover_jobs(directory)]
+    seeds_of = {name: k for k, (name, _) in enumerate(GENOME)}
+    state = [ensemble_near(confined_walk(int(masks[c].sum()), seed=seeds_of[n]), L_PAD, dev)[1:]
+             for c, n in enumerate(names)]
+    state = tuple(torch.cat([s[i] for s in state]) for i in range(3))
+    seeds = torch.tensor([(12345 + 7919 * c) % (2**31 - 1) for c in range(C_GENOME)],
+                         dtype=torch.int32, device=dev)
+    return ex, bms, tiles, state, seeds, w
+
+
+def phase_kernels_genome(dev, directory, card):
+    """Kernels B1 and B2 with the chromosome axis at the genome bucket's
+    shape (45 chromosomes padded to L = 512, 20 structures each): one launch
+    against the twins and against 45 launches of one chromosome each (B1 in
+    the same plan mode), bit for bit; then their times beside their bounds."""
+    from chromosome3d_tpu_torch.config import AnnealConfig
+    from chromosome3d_tpu_torch.ops.fused_step import (
+        fused_steps_batched,
+        fused_steps_plain,
+        fused_steps_plan,
+    )
+    from chromosome3d_tpu_torch.ops.pair_energy import (
+        exact_pair_energy_grad,
+        exact_pair_energy_grad_plain,
+    )
+    from chromosome3d_tpu_torch.solver.anneal import schedule_table
+
+    ex, bms, tiles, state, seeds, w = genome_bucket_inputs(dev, directory)
+    B, C = 2 * N_MODELS, C_GENOME
+    plan = fused_steps_plan(L_PAD, B, torch.cuda.get_device_properties(0).multi_processor_count,
+                            C=C)
+    table = schedule_table(AnnealConfig(), seed=0)
+    k0, k1 = STEPS_CHECK
+    got = fused_steps_batched(*state, tiles, table, k0, k1, bms, seeds=seeds)
+    ref = fused_steps_plain(*state, tiles, table, k0, k1, bms, seeds.tolist())
+    torch.cuda.synchronize()
+    close("B1 genome e", got[0], ref[0], 2e-5)
+    scale = [float(r.abs().max()) for r in ref]
+    close("B1 genome mu'", got[2], ref[2], 5e-4, 1e-5 + STEPS_ATOL * scale[2])
+    close("B1 genome nu'", got[3], ref[3], 5e-4, 1e-8 + STEPS_ATOL * scale[3])
+    b1_err = close("B1 genome x'", got[1], ref[1], 5e-4, 5e-4)
+    for c in range(C):
+        sl = slice(c * B, (c + 1) * B)
+        lone = fused_steps_batched(*(a[sl].contiguous() for a in state),
+                                   tuple(a[c] for a in tiles), table, k0, k1, bms[c],
+                                   seeds=seeds[c:c + 1], mode=plan["mode"])
+        for what, a, b in zip(("history", "x'", "mu'", "nu'"),
+                              (got[0][:, sl], *(g[sl] for g in got[1:])), lone):
+            check(torch.equal(a, b), f"B1 genome: chromosome {c}'s {what} differs from a "
+                  f"launch of its own ({plan['mode']})")
+    print(f"[kernels] B1 fused_steps with the chromosome axis, {C} chromosomes x B={B}, "
+          f"L={L_PAD}, steps {k0}..{k1 - 1} in one launch ({plan['mode']}, {plan['blocks']} "
+          f"blocks: {plan['nsgb']} x {plan['nrgb']}, a structure group a chromosome): == twin "
+          f"(x' max abs err {b1_err:.3g}), each chromosome bitwise a launch of its own in "
+          "the same mode (history, x', mu', nu')")
+
+    coords = state[0].transpose(1, 2).contiguous()
+    e, g = exact_pair_energy_grad(coords, ex.target, ex.w, w, bms)
+    e_r, g_r = exact_pair_energy_grad_plain(coords, ex.target, ex.w, w, bms)
+    torch.cuda.synchronize()
+    close("B2 genome e", e, e_r, 2e-5)
+    b2_err = close("B2 genome g", g, g_r, 2e-4, 2e-4 + 1e-6 * float(g_r.abs().max()))
+    for c in range(C):
+        sl = slice(c * B, (c + 1) * B)
+        e_c, g_c = exact_pair_energy_grad(coords[sl].contiguous(), ex.target[c], ex.w[c], w,
+                                          bms[c])
+        check(torch.equal(e_c, e[sl]) and torch.equal(g_c, g[sl]),
+              f"B2 genome: chromosome {c} differs from a launch of its own")
+    print(f"[kernels] B2 exact_pair with the chromosome axis, {C} chromosomes x B={B}, "
+          f"L={L_PAD}, one launch: == twin (g max abs err {b2_err:.3g}; rtol 2e-4, atol "
+          "2e-4 + 1e-6 x max |g|), each chromosome bitwise a launch of its own")
+
+    # times: B1 per step of one 256-step launch at the hot (B = 20) and the
+    # cool (B = 10) shape, B2 per call, each twin per call. A launch here
+    # runs ~0.1 s: its device time comes from CUDA events (a trace of three
+    # once held two of the three kernels)
+    n_timed = STEPS_TIMED[1] - STEPS_TIMED[0]
+    per_step = {}
+    for b in (B, N_MODELS):
+        st = tuple(torch.cat([a[c * B:c * B + b] for c in range(C)]) for a in state)
+        launch = lambda: fused_steps_batched(*st, tiles, table, *STEPS_TIMED, bms, seeds=seeds)
+        per_step[b] = (median_ms(launch, 3, warmup=1) / n_timed,
+                       event_ms(launch, 3) / n_timed)
+    calls = {
+        "B1 plain": (lambda: fused_steps_plain(*state, tiles, table, 300, 301, bms,
+                                               seeds.tolist()), 3),
+        "B2": (lambda: exact_pair_energy_grad(coords, ex.target, ex.w, w, bms), 25),
+        "B2 plain": (lambda: exact_pair_energy_grad_plain(coords, ex.target, ex.w, w, bms), 3),
+    }
+    wall = {k: median_ms(fn, n, warmup=1) for k, (fn, n) in calls.items()}
+    on_dev = {k: device_ms(fn, n) for k, (fn, n) in calls.items()}
+    bounds = {"B1": bound("B1", B, L_PAD, C=C), "B1 b10": bound("B1", N_MODELS, L_PAD, C=C),
+              "B2": bound("B2", B, L_PAD, C=C)}
+    print(f"[kernels] genome shape, {C} chromosomes at L={L_PAD}, ms as median wall with a "
+          "sync | device time (B1: CUDA events; else torch.profiler): B1 per step of a "
+          "256-step launch B=20 "
+          f"{per_step[B][0]:.5f} | {per_step[B][1]:.5f} (bound {bounds['B1'][0]:.5f}), B=10 "
+          f"{per_step[N_MODELS][0]:.5f} | {per_step[N_MODELS][1]:.5f} (bound "
+          f"{bounds['B1 b10'][0]:.5f}); B1 twin a step {wall['B1 plain']:.4f} | "
+          f"{on_dev['B1 plain']:.4f}; B2 {wall['B2']:.4f} | {on_dev['B2']:.4f} (bound "
+          f"{bounds['B2'][0]:.5f}); B2 twin {wall['B2 plain']:.4f} | {on_dev['B2 plain']:.4f}; "
+          f"on {card}")
+    return {
+        "B1": {"max_abs_err": b1_err, "ms": per_step[B][0], "plain_ms": wall["B1 plain"],
+               "device_ms": per_step[B][1], "plain_device_ms": on_dev["B1 plain"],
+               "ms_b10": per_step[N_MODELS][0], "device_ms_b10": per_step[N_MODELS][1],
+               "bound_ms_b10": bounds["B1 b10"][0], "plan": plan["mode"]},
+        "B2": {"max_abs_err": b2_err, "ms": wall["B2"], "plain_ms": wall["B2 plain"],
+               "device_ms": on_dev["B2"], "plain_device_ms": on_dev["B2 plain"]},
+    }
+
+
+def phase_genome(directory, truths, card):
+    """The whole-genome run: `genome -i <45 inputs> -o <out> -m 10` through
+    the CLI in process (the default 2,760-step schedule): B1 launched twice
+    for the bucket and B2 once, no other kernel or twin; every chromosome's
+    artifacts, its checkpoint and summary.json; the ground-truth gates on
+    every chromosome's rank-01 model. A chromosome that misses a gate is
+    solved again through `run`: if that misses the same gates, it is a fault
+    of the method at that length (printed so), else the phase fails."""
+    from chromosome3d_tpu_torch import cli
+    from chromosome3d_tpu_torch.config import AnnealConfig
+    from chromosome3d_tpu_torch.parallel import genome
+    from chromosome3d_tpu_torch.solver import anneal
+
+    steps = AnnealConfig().total_steps
+    for name in ("chromosome3d_tpu_torch.pipeline", "chromosome3d_tpu_torch.parallel.genome"):
+        logging.getLogger(name).setLevel(logging.WARNING)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "out")
+        reset_counters()
+        buf, solve_t, init_t = io.StringIO(), [], []
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf), timed_calls(genome, "solve_bucket", solve_t), \
+                timed_calls(anneal, "mds_init", init_t):
+            rc = cli.main(["genome", "-i", directory, "-o", out, "-m", str(N_MODELS)])
+        wall = time.perf_counter() - t0
+        launches, plain = read_counters()
+        check(rc == 0, f"cli genome returned {rc}")
+        check_launches("genome", launches, plain, {"B1": 2, "B2": 1})
+        b1_steps = kernel_counters()[0]["B1"].steps
+        check(b1_steps == steps, f"genome: B1 ran {b1_steps} steps, want {steps}")
+        check(len(solve_t) == 1 and len(init_t) == C_GENOME,
+              f"genome: {len(solve_t)} bucket solves, {len(init_t)} mds_init calls")
+        summary = json.load(open(os.path.join(out, "summary.json")))
+        check(sorted(summary) == ["chromosomes", "phases", "wall_seconds"]
+              and sorted(summary["phases"]) == [f"L{L_PAD}"]
+              and sorted(summary["chromosomes"]) == sorted(truths),
+              f"genome summary.json: {sorted(summary)}, {sorted(summary['phases'])}")
+        ph = summary["phases"][f"L{L_PAD}"]
+        check(sorted(ph) == ["alpha_s", "chromosomes", "emit_s", "load_s",
+                             "solve_and_views_s"], f"genome phases: {sorted(ph)}")
+        met, faults = {}, []
+        for name, L in GENOME:
+            d = os.path.join(out, name)
+            for f in ("model_info.log", "spearman.txt", "contact_violation.txt",
+                      f"{name}_model1.pdb"):
+                check(os.path.isfile(os.path.join(d, f)), f"genome: {name}/{f} missing")
+            for f in (f"{name}.npz", f"{name}.json"):
+                check(os.path.isfile(os.path.join(out, "checkpoint", f)),
+                      f"genome: checkpoint/{f} missing")
+            ranked = sorted(glob.glob(os.path.join(d, f"{name}_rank*_a05.pdb")))
+            check(len(ranked) == N_MODELS, f"genome: {name}: {len(ranked)} rank PDBs")
+            s = summary["chromosomes"][name]
+            check(s["bucket"] == L_PAD and s["L"] == L and s["models"] == N_MODELS,
+                  f"genome: {name}'s summary {s}")
+            met[name] = score(ranked[0], truths[name])
+            missed = gate_misses(met[name])
+            print(f"[genome] {name} L={L}: rank01 rmsd/Rg {met[name]['rmsd_over_rg']:.4f}, "
+                  f"spearman_d {met[name]['spearman_d']:.5f}, dRMSD_rel "
+                  f"{met[name]['drmsd_rel']:.4f}; best Spearman(IF,1/d) "
+                  f"{s['best_spearman_if_inv_d']:.4f}" + (f"; MISSED {missed}" if missed else ""))
+            if missed:
+                lone_out = os.path.join(tmp, f"run_{name}")
+                with contextlib.redirect_stdout(io.StringIO()):
+                    rc = cli.main(["run", "-i", os.path.join(directory, f"{name}_matrix.txt"),
+                                   "-o", lone_out, "-m", str(N_MODELS)])
+                check(rc == 0, f"cli run on {name} returned {rc}")
+                lone = score(sorted(glob.glob(os.path.join(
+                    lone_out, f"{name}_matrix_rank*_a05.pdb")))[0], truths[name])
+                check(set(missed) <= set(gate_misses(lone)),
+                      f"genome: {name} missed {missed} ({met[name]}), the run path only "
+                      f"{gate_misses(lone)} ({lone})")
+                faults.append(name)
+                print(f"[genome] {name} L={L}: the run path misses the same gates ({lone}): "
+                      "a fault of the method at this length, not of the genome run")
+    solve_s, init_s = solve_t[0], sum(init_t)
+    print(f"[genome] genome -i <{C_GENOME} inputs> -m {N_MODELS}: one bucket L={L_PAD}, B1 "
+          f"{launches['B1']} launches for {b1_steps} steps, B2 {launches['B2']}, every other "
+          f"kernel 0, plain 0; gates met by {C_GENOME - len(faults)} of {C_GENOME}"
+          + (f" (faults of the method: {faults})" if faults else ""))
+    print(f"[genome] bucket solve {solve_s} s (solve_bucket timed here, synchronised: upload, "
+          f"{C_GENOME} mds_init {init_s} s, B1 x2, B2, final terms), {steps / solve_s} "
+          f"ensemble steps/s, {C_GENOME * steps / solve_s} chromosome-steps/s; wall {wall} s "
+          f"(summary.json {summary['wall_seconds']}), phases {json.dumps(ph)} on {card}")
+    return launches, b1_steps
+
+
 # FP32 operations per pair evaluation, counted from each kernel's inner loop
 # (an FMA counts 2, rsqrt 1; the row-sharded kernels run the same loops):
 # B1 32 per ordered pair (fused_steps.cu) plus ~100 per bead for the update
@@ -1340,20 +1631,22 @@ PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12   # H100 SXM data sheet, at 700 W
 B1_STEPS_A_LAUNCH = 1380     # the main path: 2,760 steps in 2 launches
 
 
-def work(key, B, L, Lb=None):
+def work(key, B, L, Lb=None, C=1):
     """(FP32 operations, bytes each input read once and each output written
-    once) of one call at these shapes; for B1 of one step of a launch of
-    B1_STEPS_A_LAUNCH: x read and x' written, the table's row and the B
-    energies every step, the three tiles, mu, nu (in and out) and the bead
-    mask once a launch; for B4 x, g, mu, nu, the bead mask, the pair
-    energies, the table's row and the counter in, x', mu', nu', the history
-    row and the counter out."""
-    f, st = 4, 3 * B * L        # float32 bytes; one (B, 3, L) state array
+    once) of one call at these shapes, C chromosomes of B structures each
+    (B1 and B2; a tile set and a bead mask a chromosome); for B1 of one step
+    of a launch of B1_STEPS_A_LAUNCH: x read and x' written, the table's row
+    and the energies every step, the three tiles, mu, nu (in and out), the
+    bead masks and the seeds once a launch; for B4 x, g, mu, nu, the bead
+    mask, the pair energies, the table's row and the counter in, x', mu',
+    nu', the history row and the counter out."""
+    f, st = 4, 3 * C * B * L    # float32 bytes; one (C x B, 3, L) state array
     Lb = L if Lb is None else Lb
     return {
-        "B1": (32 * B * L * L + 100 * B * L,
-               f * (2 * st + 6 + B) + f * (3 * L * L + 4 * st + L) // B1_STEPS_A_LAUNCH),
-        "B2": (35 * B * L * L, f * (2 * L * L + 2 * st + B + L)),
+        "B1": (32 * C * B * L * L + 100 * C * B * L,
+               f * (2 * st + 6 + C * B)
+               + f * (C * (3 * L * L + L + 1) + 4 * st) // B1_STEPS_A_LAUNCH),
+        "B2": (35 * C * B * L * L, f * (C * (2 * L * L + L) + 2 * st + C * B)),
         "B3": (36 * B * L * L // 2, f * (2 * L * L + 2 * st + B + L)),
         "B4": (100 * B * L, f * (7 * st + 2 * B + L + 8)),
         "B5": (44 * B * L * L, f * (3 * L * L + 2 * st + B + L)),
@@ -1363,9 +1656,9 @@ def work(key, B, L, Lb=None):
     }[key]
 
 
-def bound(key, B, L, Lb=None):
+def bound(key, B, L, Lb=None, C=1):
     """(least ms the card could take, "operations" or "bytes")."""
-    ops, nbytes = work(key, B, L, Lb)
+    ops, nbytes = work(key, B, L, Lb, C)
     t_ops, t_bytes = 1e3 * ops / PEAK_FP32, 1e3 * nbytes / PEAK_BYTES
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -1384,8 +1677,13 @@ def main() -> int:
         measured["B5"] = measured_b5["A"]
         measured.update(phase_kernels_sharded(dev, small, big, inputs))
         del small, big
+        genome_dir = os.path.join(tmp, "genome")
+        truths = write_genome_inputs(genome_dir)
+        measured_genome = phase_kernels_genome(dev, genome_dir, card)
         torch.cuda.empty_cache()
         launches, b1_steps = phase_main_path(X, M, card)
+        launches_genome, b1_steps_genome = phase_genome(genome_dir, truths, card)
+        torch.cuda.empty_cache()
         launches_big = phase_at_scale_path(Xb, Mb, card)
         torch.cuda.empty_cache()
         launches_solve = phase_solve_path("A", inputs, "mds_init", card)
@@ -1431,6 +1729,21 @@ def main() -> int:
                         "library_ms": None})
         if key == "B1":   # ms, device_ms and bound_ms are per step of a launch
             kernels[-1]["steps"] = b1_steps
+    # B1 and B2 with the chromosome axis at the genome bucket's shape, their
+    # launches those of the genome path
+    for key, kname, src, replaces in (
+        ("B1", "fused_steps_genome", "chromosome3d_tpu_torch/csrc/fused_steps.cu",
+         "chromosome3d_tpu/ops/pallas_energy.py:330"),
+        ("B2", "exact_pair_genome", "chromosome3d_tpu_torch/csrc/exact_pair.cu",
+         "chromosome3d_tpu/ops/pallas_energy.py:195"),
+    ):
+        bound_ms, bound_by = bound(key, B, L_PAD, C=C_GENOME)
+        kernels.append({"name": kname, "route": "cuda", "source": src, "replaces": replaces,
+                        "launches": launches_genome[key], **measured_genome[key],
+                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                        "chromosomes": C_GENOME})
+        if key == "B1":
+            kernels[-1]["steps"] = b1_steps_genome
     print(card)   # nvidia-smi --query-gpu=name,power.limit, again beside the numbers
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

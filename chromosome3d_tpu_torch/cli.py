@@ -1,17 +1,22 @@
-"""Command-line interface of the port: the `run`, `solve` and `spearman`
-subcommands of chromosome3d_tpu.cli with the flags the ported slices
-support.
+"""Command-line interface of the port: the `run`, `solve`, `genome` and
+`spearman` subcommands of chromosome3d_tpu.cli with the flags the ported
+slices support.
 
   python -m chromosome3d_tpu_torch run -i <IF matrix (.txt or .npy)> -o <outdir> [-k K] [-a ALPHA]
       [-m MODELS] [--fast | --turbo] [--no-violation-reports]
       [--no-shard-large] [--shard-quantum Q] [--device {cuda,cpu}]
   python -m chromosome3d_tpu_torch solve -r <restraints (.rr or .tbl)> -o <outdir> [-L L]
       [-m MODELS] [--fast | --turbo] [--device {cuda,cpu}]
+  python -m chromosome3d_tpu_torch genome -i <dir of chr*_matrix.txt> -o <outdir>
+      [--filter SUBSTRING] [--resume] [-m MODELS] [--fast | --turbo] [--device {cuda,cpu}]
   python -m chromosome3d_tpu_torch spearman <matrix> <pdb-or-dir> [range]
 
-`run` and `solve` compute on the first CUDA device (the kernels build at
-first use) and fail when there is none; `--device cpu` runs them on the
-CPU, with the kernels' plain twins, and is the only way onto the CPU. Past
+`run`, `solve` and `genome` compute on the first CUDA device (the kernels
+build at first use) and fail when there is none; `--device cpu` runs them
+on the CPU, with the kernels' plain twins, and is the only way onto the
+CPU. `genome` solves every `chr*_<res>_matrix.txt` of a directory (those
+whose name holds `--filter`), one length bucket at a time (parallel.genome);
+`--resume` skips the chromosomes already in `<outdir>/checkpoint`. Past
 the largest length bucket with more than one CUDA device visible they
 row-shard the solve over all of them by themselves (pipeline._use_sharded;
 `--no-shard-large` turns that off, `--shard-quantum` sets the padding unit
@@ -32,7 +37,7 @@ import sys
 
 # the JAX CLI's subcommands that are not ported yet, with their ROADMAP item
 _UNPORTED = {
-    "genome": "A7", "serve": "A11", "submit": "A11",
+    "serve": "A11", "submit": "A11",
     "assess": "A11", "render": "A11", "coinit": "A11", "similarity": "A11",
     "calibrate": "A11",
 }
@@ -144,6 +149,17 @@ def main(argv=None) -> int:
                      help="bead count (default: largest residue index)")
     _add_common(slv)
 
+    gen = sub.add_parser("genome", help="whole-genome run, a launch a length bucket "
+                                        "(replaces test.sh)")
+    gen.add_argument("-i", "--input-dir", required=True,
+                     help="directory of chr*_matrix.txt")
+    gen.add_argument("-o", "--output-dir", required=True)
+    gen.add_argument("--filter", default="",
+                     help="substring filter on job names, e.g. 500kb")
+    gen.add_argument("--resume", action="store_true",
+                     help="skip chromosomes already in <output>/checkpoint")
+    _add_common(gen)
+
     sp = sub.add_parser("spearman", help="score models vs an IF matrix")
     sp.add_argument("matrix", help="IF matrix file")
     sp.add_argument("pdb", help="PDB file or directory of PDBs")
@@ -179,6 +195,17 @@ def main(argv=None) -> int:
                                           _make_config(args), L=args.length,
                                           device=args.device)
         print(json.dumps(summary))
+        return 0
+
+    if args.command == "genome":
+        from chromosome3d_tpu_torch.parallel.genome import discover_jobs, run_genome
+
+        jobs = discover_jobs(args.input_dir)
+        if args.filter:
+            jobs = [j for j in jobs if args.filter in j.name]
+        summaries = run_genome(args.input_dir, args.output_dir, _make_config(args),
+                               jobs=jobs, resume=args.resume, device=args.device)
+        print(json.dumps(summaries, indent=1))
         return 0
 
     if args.command == "spearman":

@@ -1,5 +1,7 @@
 // Kernel B2: exact-restraint pair energy and gradient for a batch of
-// structures sharing one restraint set.
+// structures sharing one restraint set, or for the chromosomes of a genome
+// bucket, each with its own (structure b reads chromosome b / n_per's tiles
+// and bead mask).
 //
 // Replaces: chromosome3d_tpu/ops/pallas_energy.py `_kernel_exact`, reached
 // through `_pairwise_energy_grad_batched(..., exact=True)` (B2: all L rows)
@@ -40,7 +42,12 @@
 // coordinates by cp.async was slower at all three shapes:
 // scripts/variant_probe_torch.py, PERF.md §6.) A row's columns are summed in
 // the same order whatever rows share the launch, and every product and sum
-// is spelled as fmaf or a never-fused intrinsic, so B2' rows are B2's bits.
+// is spelled as fmaf or a never-fused intrinsic, so B2' rows are B2's bits,
+// and a genome bucket's chromosome c (structure b reads the tiles and bead
+// mask of chromosome b / n_per) has the bits of a launch of its own. At the
+// bucket's shape (45 chromosomes x 20 structures, L = 512; 28,800 blocks)
+// the pick is one launch of 0.623 ms against a bound of 0.123 (45 lone
+// launches: 45 x 0.018; NVIDIA H100 80GB HBM3, 700.00 W, chip_smoke.py).
 // No float atomics: equal inputs give equal bits.
 
 #include <cuda_runtime.h>
@@ -84,15 +91,15 @@ __device__ __forceinline__ void last_block_row_sums(const float* __restrict__ p,
 
 __global__ void __launch_bounds__(kThreads)
 exact_pair_kernel(const float* __restrict__ xT,   // (B, 3, L)
-                  const float* __restrict__ t,    // (Lb, L) targets, rows row0..
-                  const float* __restrict__ w,    // (Lb, L) folded weights
-                  const float* __restrict__ bm,   // (L,) bead mask
+                  const float* __restrict__ t,    // (C, Lb, L) targets, rows row0..
+                  const float* __restrict__ w,    // (C, Lb, L) folded weights
+                  const float* __restrict__ bm,   // (C, L) bead masks
                   float* __restrict__ gT,         // (B, 3, Lb) out
                   float* __restrict__ e,          // (B,) out
                   float* __restrict__ e_part,     // (B, row groups) scratch
                   int* __restrict__ ticket,       // 0 between launches
-                  int B, int L, int row0, int Lb, float two_noe, float two_vdw,
-                  float r0) {
+                  int B, int L, int row0, int Lb, int n_per, float two_noe,
+                  float two_vdw, float r0) {
   __shared__ float s_e[kWarps];
   __shared__ float s_stage[kStageMax];
   __shared__ int s_last;
@@ -101,6 +108,11 @@ exact_pair_kernel(const float* __restrict__ xT,   // (B, 3, L)
   const int il = rg * kWarps + warp, i = row0 + il;   // the warp's row
   const bool row_in = il < Lb;
   const float* xb = xT + (size_t)b * 3 * L;
+  // structure b belongs to chromosome b / n_per: its tiles and bead mask
+  const int c = b / n_per;
+  t += (size_t)c * Lb * L;
+  w += (size_t)c * Lb * L;
+  bm += (size_t)c * L;
   float v[kVals] = {0.f, 0.f, 0.f, 0.f};
   if (row_in) {
     const float ax = __ldg(xb + i), ay = __ldg(xb + L + i), az = __ldg(xb + 2 * L + i);
@@ -158,18 +170,21 @@ exact_pair_kernel(const float* __restrict__ xT,   // (B, 3, L)
 
 }  // namespace
 
-// B2 is row0 = 0, Lb = L; B2' a shard's rows [row0, row0 + Lb). The grid is
-// (ceil(Lb / 8), B); e_part: (B, ceil(Lb / 8)) scratch; ticket: one int that
-// is 0 (each launch leaves it 0 again).
+// B2 is row0 = 0, Lb = L; B2' a shard's rows [row0, row0 + Lb). B = C x
+// n_per structures, chromosome-major, over C tile sets (C, Lb, L) and bead
+// masks (C, L); C = 1 (n_per = B) is a batch sharing one restraint set. The
+// grid is (ceil(Lb / 8), B); e_part: (B, ceil(Lb / 8)) scratch; ticket: one
+// int that is 0 (each launch leaves it 0 again).
 extern "C" int c3d_exact_pair(const float* xT, const float* t, const float* w,
                               const float* bm, float* gT, float* e, float* e_part,
-                              int* ticket, int B, int L, int row0, int Lb, float noe,
-                              float vdw, float vdw_radius, void* stream) {
-  if (row0 < 0 || Lb <= 0 || row0 + Lb > L || B <= 0) return (int)cudaErrorInvalidValue;
+                              int* ticket, int B, int L, int row0, int Lb, int n_per,
+                              float noe, float vdw, float vdw_radius, void* stream) {
+  if (row0 < 0 || Lb <= 0 || row0 + Lb > L || B <= 0 || n_per < 1 || B % n_per != 0)
+    return (int)cudaErrorInvalidValue;
   const dim3 grid((Lb + kWarps - 1) / kWarps, B);
   exact_pair_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      xT, t, w, bm, gT, e, e_part, ticket, B, L, row0, Lb, 2.f * noe, 2.f * vdw,
-      vdw_radius);
+      xT, t, w, bm, gT, e, e_part, ticket, B, L, row0, Lb, n_per, 2.f * noe,
+      2.f * vdw, vdw_radius);
   return (int)cudaGetLastError();
 }
 

@@ -2,8 +2,9 @@
 // steps k0 <= k < k1, pair energy and gradient, chain bond, per-bead
 // gradient clip, Adam with the bias corrections of the schedule table,
 // CLT-4 Langevin noise and the coordinate update, for a batch of structures
-// sharing one restraint set, with every step's per-structure energy written
-// out.
+// sharing one restraint set, or for the C chromosomes of a genome bucket
+// (C x n_per structures, each chromosome with its own tiles, bead mask and
+// noise seed), with every step's per-structure energy written out.
 //
 // Replaces: chromosome3d_tpu/ops/pallas_energy.py `_kernel_fused_step`
 // (entry `pallas_fused_step_batched`, helpers `_t_layout_bond` and
@@ -12,7 +13,12 @@
 // the scan is the kernel's own loop: the step's scalars come from row k of a
 // device table, the step index is the loop variable, and the history is an
 // output. On the port's main path it runs twice a solve (the hot phase with
-// B = 2 x models, then the rest with B = models; L = the length bucket).
+// B = 2 x models, then the rest with B = models; L = the length bucket). On
+// the genome path it runs twice a bucket: the JAX runner's vmap of the solve
+// over the bucket's chromosomes (pallas_energy.py:331-336: tiles and seed per
+// lane) is the chromosome axis here, chromosome c's noise its own stream
+// under seeds[c] with its structures numbered from 0, so its bits are a
+// launch of its own in the same plan mode.
 //
 // Pair terms use the exact-restraint algebra in rsqrt space:
 //   s = |x_i - x_j|^2 + eps, rinv = rsqrt(s)
@@ -56,6 +62,16 @@
 //    memory once a launch, not once a structure a step. Streamed mode (longer
 //    L, or more row groups than SMs): the same loop reloads the tile
 //    registers per 256-column chunk and walks several row groups a block.
+//  - Chromosomes: a structure group never holds two chromosomes' structures,
+//    so one tile set serves a block's group. Resident mode needs a block for
+//    every row group of every chromosome (C x nrg <= SMs: C <= 4 at L = 512);
+//    past that the launch streams and a block walks structure groups too
+//    (the genome bucket, 45 x 32 row groups: 128 blocks, 16 along the groups
+//    x 8 along the row groups, a group a whole chromosome). There the tiles,
+//    45 x 3 MiB, are re-read every step and do not fit L2. Measured at 45
+//    chromosomes, L = 512: 0.473 ms a step at 20 structures each, 0.267 at 10
+//    (4.2 and 4.7 x the FP32 bound; 45 x a lone resident launch's step,
+//    0.43 and 0.34; NVIDIA H100 80GB HBM3, 700.00 W, chip_smoke.py).
 //  - x is double-buffered in global memory. Each step a block stages its
 //    structures' old x into shared memory as float4 (one LDS.128 per column
 //    serves RPW pairs), sweeps the pairs, folds the row sums with the
@@ -70,9 +86,12 @@
 //    hand-written counter barrier, NVIDIA H100 80GB HBM3, 700.00 W,
 //    scripts/fused_steps_probe_torch.py); x is read with ld.cg (L2), since a
 //    buffer is rewritten every other step.
-//  - Energies: each block adds its rows' energies per structure in a fixed
-//    order into part[k, b, row group]; the wrapper sums the row groups. No
-//    float atomics: two launches from one state give equal bits.
+//  - Energies: each block adds its rows' energies per structure, 8 rows at
+//    a time in a fixed order, into part[k, b, 8-row group]; after the last
+//    step (one more grid barrier) the grid sums each structure's groups in
+//    order into hist[k, b]. The partials do not depend on RPW or the grid,
+//    so a chromosome's history is its own launch's. No float atomics: two
+//    launches from one state give equal bits.
 //
 // The per-bead half (bond, clip, Adam, noise, move) and the noise's bit
 // contract live in step_common.cuh, shared with kernel B4.
@@ -96,22 +115,41 @@ struct StepsArgs {
   float* xB;
   float* mu;            // (B, 3, L) in and out
   float* nu;
-  const float* t;       // (L, L) targets
-  const float* w;       // (L, L) 2 noe w pv
-  const float* nb;      // (L, L) vdw predicate
-  const float* bm;      // (L,) bead mask
+  const float* t;       // (C, L, L) targets, one tile set a chromosome
+  const float* w;       // (C, L, L) 2 noe w pv
+  const float* nb;      // (C, L, L) vdw predicate
+  const float* bm;      // (C, L) bead masks
+  const int* seeds;     // (C,) noise seeds, or null: `seed` for every chromosome
   const float* table;   // row of step k0; kTableCols floats a row
-  float* part;          // (k1 - k0, B, nrg) energy partials
+  float* part;          // (k1 - k0, B, nrg x RPW) energy partials of 8 rows each
+  float* hist;          // (k1 - k0, B) energies out
   int B, L, k0, k1;
-  int nsg;              // structure groups
-  int nrgb;             // blocks a structure group (grid = nsg x nrgb)
+  int n_per;            // structures a chromosome: B = C x n_per, chromosome-major
+  int nsgc;             // structure groups a chromosome
+  int nsg;              // structure groups in all (C x nsgc)
+  int nsgb;             // blocks along the groups (grid = nsgb x nrgb); a block
+                        // walks groups sgb, sgb + nsgb, ... (resident: nsgb = nsg)
+  int nrgb;             // blocks along the row groups
   int nrg;              // row groups of 8 x RPW rows
-  int sg;               // structures a block
+  int sg;               // structures a group
   int sp;               // structures a pass (staged together)
   int lx;               // staged columns a structure (a multiple of 32 x CPL)
   float b1, b2, eps_adam, bond_w, bond_len, clip;
   uint32_t seed;
 };
+
+// Structure group sgi: chromosome c's structures [b0, b1). A group never
+// holds two chromosomes' structures, so a block's tile rows (in registers in
+// the resident mode) serve all of it.
+struct Group {
+  int c, b0, b1;
+};
+
+__device__ __forceinline__ Group group_of(const StepsArgs& a, int sgi) {
+  const int c = sgi / a.nsgc;
+  const int b0 = c * a.n_per + (sgi % a.nsgc) * a.sg;
+  return {c, b0, min(b0 + a.sg, (c + 1) * a.n_per)};
+}
 
 // np structures' old x, (np, 3, L) contiguous in global memory, into the
 // float4 staging area. The loads of a batch of 15 rows (5 structures) x JU
@@ -170,18 +208,20 @@ __device__ __forceinline__ float pick3(int c, float x, float y, float z) {
   return c == 0 ? x : (c == 1 ? y : z);
 }
 
-// rows i0 .. i0 + RPW - 1 at columns c0 + lane + 32 m; 0 past the edge
+// chromosome c's rows i0 .. i0 + RPW - 1 at columns c0 + lane + 32 m; 0
+// past the edge
 template <int CPL, int RPW>
-__device__ __forceinline__ void load_tiles(const StepsArgs& a, int i0, int c0, int lane,
-                                           float (&t)[RPW][CPL], float (&w)[RPW][CPL],
-                                           float (&nb)[RPW][CPL]) {
+__device__ __forceinline__ void load_tiles(const StepsArgs& a, int c, int i0, int c0,
+                                           int lane, float (&t)[RPW][CPL],
+                                           float (&w)[RPW][CPL], float (&nb)[RPW][CPL]) {
+  const size_t base = (size_t)c * a.L * a.L;
 #pragma unroll
   for (int rr = 0; rr < RPW; ++rr) {
 #pragma unroll
     for (int m = 0; m < CPL; ++m) {
       const int i = i0 + rr, j = c0 + lane + 32 * m;
       const bool ok = i < a.L && j < a.L;
-      const size_t idx = ok ? (size_t)i * a.L + j : 0;
+      const size_t idx = base + (ok ? (size_t)i * a.L + j : 0);
       t[rr][m] = ok ? __ldg(a.t + idx) : 0.f;
       w[rr][m] = ok ? __ldg(a.w + idx) : 0.f;
       nb[rr][m] = ok ? __ldg(a.nb + idx) : 0.f;
@@ -202,9 +242,11 @@ __global__ void __launch_bounds__(kThreads, 1) fused_steps_kernel(const StepsArg
   float* sums = reinterpret_cast<float*>(xs + (size_t)a.sp * a.lx);
   float* wsum = sums + warp * RPW * a.sp * 4;              // this warp's [RPW][np][4]
   float* mom = sums + kWarps * RPW * a.sp * 4;             // resident: [R][nsb][3][2]
-  const int sgi = blockIdx.x % a.nsg, rgb = blockIdx.x / a.nsg;
-  const int b0 = sgi * a.sg, b1 = min(a.B, b0 + a.sg);
-  const int nsb = max(b1 - b0, 0);
+  const int sgb = blockIdx.x % a.nsgb, rgb = blockIdx.x / a.nsgb;
+  // the resident mode's one group (its tiles in registers, mu and nu in
+  // shared memory); the streamed mode walks groups sgb, sgb + nsgb, ...
+  const Group g0 = group_of(a, sgb);
+  const int nsb = max(g0.b1 - g0.b0, 0);
 
   // columns past L stay 0 for the whole launch (their tile values are 0)
   for (int q = tid; q < a.sp * a.lx; q += kThreads) xs[q] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -215,10 +257,10 @@ __global__ void __launch_bounds__(kThreads, 1) fused_steps_kernel(const StepsArg
 
   float t[RPW][CPL], w[RPW][CPL], nb[RPW][CPL];
   if (RESIDENT) {
-    load_tiles<CPL, RPW>(a, rgb * R + warp * RPW, 0, lane, t, w, nb);
+    load_tiles<CPL, RPW>(a, g0.c, rgb * R + warp * RPW, 0, lane, t, w, nb);
     for (int q = tid; q < R * nsb * 3; q += kThreads) {
       const int c = q % 3, s = (q / 3) % nsb, i = rgb * R + q / (3 * nsb);
-      const size_t g = ((size_t)(b0 + s) * 3 + c) * L + i;
+      const size_t g = ((size_t)(g0.b0 + s) * 3 + c) * L + i;
       mom[2 * q] = i < L ? a.mu[g] : 0.f;
       mom[2 * q + 1] = i < L ? a.nu[g] : 0.f;
     }
@@ -249,139 +291,152 @@ __global__ void __launch_bounds__(kThreads, 1) fused_steps_kernel(const StepsArg
     p.bond_w = a.bond_w;
     p.bond_len = a.bond_len;
     p.clip = a.clip;
-    p.seed = a.seed;
     p.step = (uint32_t)k;
     const float half_vdw = 0.5f * p.vdw, neg_two_vdw = -2.0f * p.vdw, r0 = p.vdw_radius;
     const float* xin = (kk & 1) ? a.xB : a.xA;
     float* xout = (kk & 1) ? a.xA : a.xB;
 
-    for (int p0 = b0; p0 < b1; p0 += a.sp) {
-      const int np = min(a.sp, b1 - p0);
-      __syncthreads();   // the last pass's readers of xs and sums are done
-      stage_x<JU>(xin + (size_t)p0 * 3 * L, xs, np, L, a.lx, tid);
-      __syncthreads();
-      C3D_TICK(0)   // staged
-
-      for (int rg = rgb; rg < a.nrg; rg += a.nrgb) {
-        const int i0 = rg * R + warp * RPW;
-        for (int q = lane; q < RPW * np * 4; q += 32) wsum[q] = 0.f;
-        __syncwarp();
-
-        // ---- pair sweep: lanes stride the columns, tiles in registers ----
-        for (int c0 = 0; c0 < L; c0 += CHUNK) {
-          if (!RESIDENT) load_tiles<CPL, RPW>(a, i0, c0, lane, t, w, nb);
-          // structure s's row sums, this lane's columns
-          auto pairs = [&](int s, float (&v)[NV]) {
-            const float4* xb = xs + (size_t)s * a.lx;
-            float4 xi[RPW];
-#pragma unroll
-            for (int rr = 0; rr < RPW; ++rr) xi[rr] = xb[min(i0 + rr, L - 1)];
-#pragma unroll
-            for (int q = 0; q < NV; ++q) v[q] = 0.f;
-#pragma unroll
-            for (int m = 0; m < CPL; ++m) {
-              const float4 xj = xb[c0 + lane + 32 * m];
-#pragma unroll
-              for (int rr = 0; rr < RPW; ++rr) {
-                const float dx = __fsub_rn(xi[rr].x, xj.x);
-                const float dy = __fsub_rn(xi[rr].y, xj.y);
-                const float dz = __fsub_rn(xi[rr].z, xj.z);
-                const float s2 = fmaf(dz, dz, fmaf(dy, dy, fmaf(dx, dx, kEps)));
-                const float rinv = c3d::rsqrt_fast(s2);
-                const float u = fmaf(-t[rr][m], rinv, 1.0f);
-                const float wtu = __fmul_rn(w[rr][m], u);
-                const float vv = fmaxf(fmaf(r0, rinv, -1.0f), 0.f);
-                const float nv = __fmul_rn(nb[rr][m], vv);
-                const float ee = fmaf(0.25f, __fmul_rn(wtu, u),
-                                      __fmul_rn(half_vdw, __fmul_rn(nv, vv)));
-                v[4 * rr] = fmaf(s2, ee, v[4 * rr]);
-                const float cf = fmaf(neg_two_vdw, nv, wtu);
-                v[4 * rr + 1] = fmaf(cf, dx, v[4 * rr + 1]);
-                v[4 * rr + 2] = fmaf(cf, dy, v[4 * rr + 2]);
-                v[4 * rr + 3] = fmaf(cf, dz, v[4 * rr + 3]);
-              }
-            }
-          };
-          // folds them over the lanes into the warp's sums
-          auto fold_out = [&](int s, float (&v)[NV]) {
-            c3d::fold_all<16>(v, lane);
-            if (owner) wsum[((which >> 2) * np + s) * 4 + (which & 3)] += v[0];
-          };
-          // the fold of structure s - 1, a chain of shuffles, shares one
-          // block of straight-line code with the pairs of structure s
-          float vp[NV];
-          pairs(0, vp);
-          for (int s = 1; s < np; ++s) {
-            float v[NV];
-            pairs(s, v);
-            fold_out(s - 1, vp);
-#pragma unroll
-            for (int q = 0; q < NV; ++q) vp[q] = v[q];
-          }
-          fold_out(np - 1, vp);
-        }
-        __syncwarp();
-        C3D_TICK(1)   // swept and folded
-
-        // ---- update: one (row, structure, coordinate) a lane ----
-        for (int job = lane; job < RPW * np * 3; job += 32) {
-          const int c = job % 3, rs = job / 3;
-          const int rr = (RPW > 1 && rs >= np) ? 1 : 0, s = rs - rr * np;   // RPW <= 2
-          const int i = i0 + rr;
-          if (i >= L) continue;
-          const float4* xb = xs + (size_t)s * a.lx;
-          const float4 a4 = xb[i];
-          const float av[3] = {a4.x, a4.y, a4.z};
-          const float bmi = __ldg(a.bm + i);
-          float fwd[3] = {0.f, 0.f, 0.f}, fwd_prev[3] = {0.f, 0.f, 0.f};
-          float e_bond = 0.f;
-          if (i + 1 < L) {   // bond i -> i+1, owned by bead i
-            const float4 n4 = xb[i + 1];
-            const float nx[3] = {n4.x, n4.y, n4.z};
-            e_bond = c3d::bond_forward(av, nx, bmi * __ldg(a.bm + i + 1), p, fwd);
-          }
-          if (i > 0) {       // bond i-1 -> i: bead i is its "+1" end
-            const float4 p4 = xb[i - 1];
-            const float pv[3] = {p4.x, p4.y, p4.z};
-            c3d::bond_forward(pv, av, __ldg(a.bm + i - 1) * bmi, p, fwd_prev);
-          }
-          float* sm = wsum + (rr * np + s) * 4;
-          float gr[3];
-#pragma unroll
-          for (int cc = 0; cc < 3; ++cc) gr[cc] = sm[1 + cc] + (fwd_prev[cc] - fwd[cc]);
-          const float scale = c3d::clip_scale(gr, p);
-          float g = pick3(c, gr[0], gr[1], gr[2]);
-          if (p.clip > 0.f) g = g * scale;
-          const int bg = p0 + s;
-          const size_t gidx = ((size_t)bg * 3 + c) * L + i;
-          float* mm = mom + 2 * (((warp * RPW + rr) * nsb + (bg - b0)) * 3 + c);
-          float mu = RESIDENT ? mm[0] : a.mu[gidx];
-          float nu = RESIDENT ? mm[1] : a.nu[gidx];
-          xout[gidx] = c3d::adam_move(pick3(c, av[0], av[1], av[2]), g, mu, nu, bmi,
-                                      (uint32_t)(i * 3 + c), c3d::noise_base(p, bg), p);
-          if (RESIDENT) {
-            mm[0] = mu;
-            mm[1] = nu;
-          } else {
-            a.mu[gidx] = mu;
-            a.nu[gidx] = nu;
-          }
-          if (c == 0) sm[0] = sm[0] + e_bond;
-        }
-        C3D_TICK(2)   // updated
+    // the groups this block walks (resident: its one, known at compile time,
+    // so the loop adds no live registers to the variants that hold tiles)
+    const int ngb = RESIDENT ? 1 : (a.nsg - sgb + a.nsgb - 1) / a.nsgb;
+    for (int gi = 0; gi < ngb; ++gi) {
+      const Group grp = RESIDENT ? g0 : group_of(a, sgb + gi * a.nsgb);
+      for (int p0 = grp.b0; p0 < grp.b1; p0 += a.sp) {
+        const int np = min(a.sp, grp.b1 - p0);
+        __syncthreads();   // the last pass's readers of xs and sums are done
+        stage_x<JU>(xin + (size_t)p0 * 3 * L, xs, np, L, a.lx, tid);
         __syncthreads();
-        C3D_TICK(3)   // the block's other warps are done
+        C3D_TICK(0)   // staged
 
-        // ---- this row group's energy per structure, rows in order ----
-        if (tid < np) {
-          float e = 0.f;
-          for (int wq = 0; wq < kWarps; ++wq)
-            for (int rr = 0; rr < RPW; ++rr)
-              e += sums[wq * RPW * a.sp * 4 + (rr * np + tid) * 4];
-          a.part[((size_t)kk * a.B + p0 + tid) * a.nrg + rg] = e;
+        for (int rg = rgb; rg < a.nrg; rg += a.nrgb) {
+          const int i0 = rg * R + warp * RPW;
+          for (int q = lane; q < RPW * np * 4; q += 32) wsum[q] = 0.f;
+          __syncwarp();
+
+          // ---- pair sweep: lanes stride the columns, tiles in registers ----
+          for (int c0 = 0; c0 < L; c0 += CHUNK) {
+            if (!RESIDENT) load_tiles<CPL, RPW>(a, grp.c, i0, c0, lane, t, w, nb);
+            // structure s's row sums, this lane's columns
+            auto pairs = [&](int s, float (&v)[NV]) {
+              const float4* xb = xs + (size_t)s * a.lx;
+              float4 xi[RPW];
+#pragma unroll
+              for (int rr = 0; rr < RPW; ++rr) xi[rr] = xb[min(i0 + rr, L - 1)];
+#pragma unroll
+              for (int q = 0; q < NV; ++q) v[q] = 0.f;
+#pragma unroll
+              for (int m = 0; m < CPL; ++m) {
+                const float4 xj = xb[c0 + lane + 32 * m];
+#pragma unroll
+                for (int rr = 0; rr < RPW; ++rr) {
+                  const float dx = __fsub_rn(xi[rr].x, xj.x);
+                  const float dy = __fsub_rn(xi[rr].y, xj.y);
+                  const float dz = __fsub_rn(xi[rr].z, xj.z);
+                  const float s2 = fmaf(dz, dz, fmaf(dy, dy, fmaf(dx, dx, kEps)));
+                  const float rinv = c3d::rsqrt_fast(s2);
+                  const float u = fmaf(-t[rr][m], rinv, 1.0f);
+                  const float wtu = __fmul_rn(w[rr][m], u);
+                  const float vv = fmaxf(fmaf(r0, rinv, -1.0f), 0.f);
+                  const float nv = __fmul_rn(nb[rr][m], vv);
+                  const float ee = fmaf(0.25f, __fmul_rn(wtu, u),
+                                        __fmul_rn(half_vdw, __fmul_rn(nv, vv)));
+                  v[4 * rr] = fmaf(s2, ee, v[4 * rr]);
+                  const float cf = fmaf(neg_two_vdw, nv, wtu);
+                  v[4 * rr + 1] = fmaf(cf, dx, v[4 * rr + 1]);
+                  v[4 * rr + 2] = fmaf(cf, dy, v[4 * rr + 2]);
+                  v[4 * rr + 3] = fmaf(cf, dz, v[4 * rr + 3]);
+                }
+              }
+            };
+            // folds them over the lanes into the warp's sums
+            auto fold_out = [&](int s, float (&v)[NV]) {
+              c3d::fold_all<16>(v, lane);
+              if (owner) wsum[((which >> 2) * np + s) * 4 + (which & 3)] += v[0];
+            };
+            // the fold of structure s - 1, a chain of shuffles, shares one
+            // block of straight-line code with the pairs of structure s
+            float vp[NV];
+            pairs(0, vp);
+            for (int s = 1; s < np; ++s) {
+              float v[NV];
+              pairs(s, v);
+              fold_out(s - 1, vp);
+#pragma unroll
+              for (int q = 0; q < NV; ++q) vp[q] = v[q];
+            }
+            fold_out(np - 1, vp);
+          }
+          __syncwarp();
+          C3D_TICK(1)   // swept and folded
+
+          // ---- update: one (row, structure, coordinate) a lane ----
+          for (int job = lane; job < RPW * np * 3; job += 32) {
+            const int c = job % 3, rs = job / 3;
+            const int rr = (RPW > 1 && rs >= np) ? 1 : 0, s = rs - rr * np;   // RPW <= 2
+            const int i = i0 + rr;
+            if (i >= L) continue;
+            const float4* xb = xs + (size_t)s * a.lx;
+            const float4 a4 = xb[i];
+            const float av[3] = {a4.x, a4.y, a4.z};
+            const float* bm = a.bm + (size_t)grp.c * L;   // the chromosome's mask
+            const float bmi = __ldg(bm + i);
+            float fwd[3] = {0.f, 0.f, 0.f}, fwd_prev[3] = {0.f, 0.f, 0.f};
+            float e_bond = 0.f;
+            if (i + 1 < L) {   // bond i -> i+1, owned by bead i
+              const float4 n4 = xb[i + 1];
+              const float nx[3] = {n4.x, n4.y, n4.z};
+              e_bond = c3d::bond_forward(av, nx, bmi * __ldg(bm + i + 1), p, fwd);
+            }
+            if (i > 0) {       // bond i-1 -> i: bead i is its "+1" end
+              const float4 p4 = xb[i - 1];
+              const float pv[3] = {p4.x, p4.y, p4.z};
+              c3d::bond_forward(pv, av, __ldg(bm + i - 1) * bmi, p, fwd_prev);
+            }
+            float* sm = wsum + (rr * np + s) * 4;
+            float gr[3];
+#pragma unroll
+            for (int cc = 0; cc < 3; ++cc) gr[cc] = sm[1 + cc] + (fwd_prev[cc] - fwd[cc]);
+            const float scale = c3d::clip_scale(gr, p);
+            float g = pick3(c, gr[0], gr[1], gr[2]);
+            if (p.clip > 0.f) g = g * scale;
+            const int bg = p0 + s;
+            const size_t gidx = ((size_t)bg * 3 + c) * L + i;
+            float* mm = mom + 2 * (((warp * RPW + rr) * nsb + (bg - grp.b0)) * 3 + c);
+            float mu = RESIDENT ? mm[0] : a.mu[gidx];
+            float nu = RESIDENT ? mm[1] : a.nu[gidx];
+            // the chromosome's noise stream, its structures numbered from 0
+            // as in a launch of its own
+            p.seed = a.seeds ? (uint32_t)__ldg(a.seeds + grp.c) : a.seed;
+            xout[gidx] = c3d::adam_move(pick3(c, av[0], av[1], av[2]), g, mu, nu, bmi,
+                                        (uint32_t)(i * 3 + c),
+                                        c3d::noise_base(p, bg - grp.c * a.n_per), p);
+            if (RESIDENT) {
+              mm[0] = mu;
+              mm[1] = nu;
+            } else {
+              a.mu[gidx] = mu;
+              a.nu[gidx] = nu;
+            }
+            if (c == 0) sm[0] = sm[0] + e_bond;
+          }
+          C3D_TICK(2)   // updated
+          __syncthreads();
+          C3D_TICK(3)   // the block's other warps are done
+
+          // ---- each 8 rows' energy per structure, rows in order: the
+          // partials do not depend on RPW (warps 4h .. 4h + 3 own rows
+          // 8h .. 8h + 7 when RPW = 2) ----
+          if (tid < RPW * np) {
+            const int s = tid % np, h = tid / np;
+            float e = 0.f;
+            for (int wq = h * (kWarps / RPW); wq < (h + 1) * (kWarps / RPW); ++wq)
+              for (int rr = 0; rr < RPW; ++rr)
+                e += sums[wq * RPW * a.sp * 4 + (rr * np + s) * 4];
+            a.part[((size_t)kk * a.B + p0 + s) * (a.nrg * RPW) + rg * RPW + h] = e;
+          }
+          if (rg + a.nrgb < a.nrg) __syncthreads();   // before the next group zeroes sums
+          C3D_TICK(4)   // energies out
         }
-        if (rg + a.nrgb < a.nrg) __syncthreads();   // before the next group zeroes sums
-        C3D_TICK(4)   // energies out
       }
     }
     if (k + 1 < a.k1) {
@@ -403,11 +458,23 @@ __global__ void __launch_bounds__(kThreads, 1) fused_steps_kernel(const StepsArg
     for (int q = tid; q < R * nsb * 3; q += kThreads) {
       const int c = q % 3, s = (q / 3) % nsb, i = rgb * R + q / (3 * nsb);
       if (i < L) {
-        const size_t g = ((size_t)(b0 + s) * 3 + c) * L + i;
+        const size_t g = ((size_t)(g0.b0 + s) * 3 + c) * L + i;
         a.mu[g] = mom[2 * q];
         a.nu[g] = mom[2 * q + 1];
       }
     }
+  }
+
+  // every step's energy per structure: its 8-row partials in order (past L
+  // they are 0), whatever blocks wrote them, so a structure's history does
+  // not depend on the grid, RPW or the chromosomes beside it
+  grid.sync();
+  const int nk = (a.k1 - a.k0) * a.B, ne = a.nrg * RPW;
+  for (int q = blockIdx.x * kThreads + tid; q < nk; q += gridDim.x * kThreads) {
+    const float* pq = a.part + (size_t)q * ne;
+    float e = 0.f;
+    for (int r = 0; r < ne; ++r) e += __ldcg(pq + r);
+    a.hist[q] = e;
   }
 }
 
@@ -429,10 +496,11 @@ int occupancy(size_t smem, int* slots) {
 
 template <int CPL, int RPW, bool RESIDENT>
 int launch(const StepsArgs& a, size_t smem, cudaStream_t stream) {
-  const int blocks = a.nsg * a.nrgb;
-  if (a.lx % (32 * CPL) != 0 || a.lx < a.L || a.nsg * a.sg < a.B || a.sp < 1 ||
-      a.nrg * kWarps * RPW < a.L || a.nrgb > a.nrg ||
-      (RESIDENT && (a.nrgb != a.nrg || a.L > 32 * CPL)))
+  const int blocks = a.nsgb * a.nrgb;
+  if (a.lx % (32 * CPL) != 0 || a.lx < a.L || a.n_per < 1 || a.B % a.n_per != 0 ||
+      a.nsgc * a.sg < a.n_per || a.nsg != (a.B / a.n_per) * a.nsgc || a.nsgb < 1 ||
+      a.nsgb > a.nsg || a.sp < 1 || a.nrg * kWarps * RPW < a.L || a.nrgb > a.nrg ||
+      (RESIDENT && (a.nrgb != a.nrg || a.nsgb != a.nsg || a.L > 32 * CPL)))
     return (int)cudaErrorInvalidValue;
   int slots = 0;
   const int rc = occupancy<CPL, RPW, RESIDENT>(smem, &slots);
@@ -452,17 +520,24 @@ int launch(const StepsArgs& a, size_t smem, cudaStream_t stream) {
 
 }  // namespace
 
+// B = C x n_per structures, chromosome-major; t, w, nb (C, L, L), bm (C, L),
+// seeds (C,) or null (then `seed` serves every chromosome); C = 1 is a
+// batch sharing one restraint set. part: (k1 - k0, B, nrg x rpw) scratch;
+// hist: (k1 - k0, B) out.
 extern "C" int c3d_fused_steps(float* xA, float* xB, float* mu, float* nu, const float* t,
                                const float* w, const float* nb, const float* bm,
-                               const float* table, float* part, int B,
-                               int L, int k0, int k1, int cpl, int rpw, int resident,
-                               int nsg, int nrgb, int nrg, int sg, int sp, int lx,
+                               const int* seeds, const float* table, float* part,
+                               float* hist, int B, int L, int k0, int k1, int n_per,
+                               int cpl, int rpw, int resident, int nsgc, int nsgb,
+                               int nrgb, int nrg, int sg, int sp, int lx,
                                int smem_bytes, float b1, float b2, float eps_adam,
                                float bond_w, float bond_len, float clip, int seed,
                                void* stream) {
-  const StepsArgs a{xA, xB, mu, nu, t, w, nb, bm, table, part,
-                    B, L, k0, k1, nsg, nrgb, nrg, sg, sp, lx,
-                    b1, b2, eps_adam, bond_w, bond_len, clip, (uint32_t)seed};
+  if (n_per < 1 || B % n_per != 0) return (int)cudaErrorInvalidValue;
+  const StepsArgs a{xA, xB, mu, nu, t, w, nb, bm, seeds, table, part, hist,
+                    B, L, k0, k1, n_per, nsgc, (B / n_per) * nsgc, nsgb, nrgb, nrg,
+                    sg, sp, lx, b1, b2, eps_adam, bond_w, bond_len, clip,
+                    (uint32_t)seed};
 #define X(CPL, RPW, RES)                                     \
   if (cpl == CPL && rpw == RPW && (resident != 0) == RES)    \
     return launch<CPL, RPW, RES>(a, (size_t)smem_bytes, (cudaStream_t)stream);

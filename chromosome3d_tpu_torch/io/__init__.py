@@ -2,10 +2,15 @@
 writers (chromosome3d_tpu/io/matrix.py, chromosome3d_tpu/io/pdb.py), which
 keep the text artifacts byte-equal between the two packages."""
 
-from chromosome3d_tpu_torch.io.matrix import load_if_matrix, write_dist_matrix, write_if_matrix
+from chromosome3d_tpu_torch.io.matrix import (
+    load_if_matrix,
+    matrix_length,
+    write_dist_matrix,
+    write_if_matrix,
+)
 from chromosome3d_tpu_torch.io.pdb import load_pdb_dir, read_ca_pdb, reduce_model, write_ca_pdb
 
 __all__ = [
-    "load_if_matrix", "write_dist_matrix", "write_if_matrix",
+    "load_if_matrix", "matrix_length", "write_dist_matrix", "write_if_matrix",
     "load_pdb_dir", "read_ca_pdb", "reduce_model", "write_ca_pdb",
 ]

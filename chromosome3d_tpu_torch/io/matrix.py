@@ -15,6 +15,27 @@ from typing import Optional
 import numpy as np
 
 
+def matrix_length(path: str | os.PathLike) -> int:
+    """L = number of whitespace-separated fields of the first row
+    (ref: calc_len_IF, chromosome3D.pl:164-179). For binary .npy inputs
+    (the at-scale format): the stored shape."""
+    if os.fspath(path).endswith(".npy"):
+        m = np.load(os.fspath(path), mmap_mode="r")
+        if m.ndim != 2:
+            raise ValueError(f"{path}: matrix is {m.shape}, expected square")
+        return int(m.shape[1])
+    with open(path, "r") as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                # blank/CRLF-only lines: the same tolerance as
+                # load_if_matrix, which skips them — a pre-check must
+                # never reject a file the loader accepts
+                continue
+            return len(line.split())
+    raise ValueError(f"{path}: empty matrix file")
+
+
 def load_if_matrix(path: str | os.PathLike, dtype=np.float64) -> np.ndarray:
     """Load an L x L dense IF matrix.
 

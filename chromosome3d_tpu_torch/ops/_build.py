@@ -42,10 +42,10 @@ _F = ctypes.c_float
 
 # argument types of every C entry point, in declaration order
 SIGNATURES = {
-    # xT, t, w, bead_mask, gT, e, e_part, ticket, B, L, row0, Lb, noe, vdw,
-    # vdw_radius, stream
+    # xT, t, w, bead_mask, gT, e, e_part, ticket, B, L, row0, Lb, n_per, noe,
+    # vdw, vdw_radius, stream
     "c3d_exact_pair": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P,
     ),
     # xT, lo, hi, w, bead_mask, part, e_part, e, gT, B, L, row0, Lb, cps,
     # bslice, noe, vdw, vdw_radius, rswitch, stream
@@ -70,12 +70,12 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
         _F, _F, _F, _F, _F, _F, _I, _P,
     ),
-    # xA, xB, mu, nu, t, w, nb, bead_mask, table row k0, part, B, L, k0, k1,
-    # cpl, rpw, resident, nsg, nrgb, nrg, sg, sp, lx, smem_bytes, b1, b2, eps,
-    # bond_w, bond_len, clip, seed, stream
+    # xA, xB, mu, nu, t, w, nb, bead_mask, seeds, table row k0, part, hist,
+    # B, L, k0, k1, n_per, cpl, rpw, resident, nsgc, nsgb, nrgb, nrg, sg, sp,
+    # lx, smem_bytes, b1, b2, eps, bond_w, bond_len, clip, seed, stream
     "c3d_fused_steps": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
         _F, _F, _F, _F, _F, _F, _I, _P,
     ),
     # cpl, rpw, resident, smem_bytes -> co-resident blocks (< 0: -CUDA error)

@@ -17,7 +17,10 @@ stay exactly zero in x, mu and nu.
 `fused_steps_batched` runs steps k0 <= k < k1 of a `ScheduleTable`: the plain
 twin `fused_steps_plain` (a loop over `fused_step_plain`) for CPU tensors,
 one launch of the persistent kernel for CUDA tensors, laid out by
-`fused_steps_plan`. `fused_step_batched` is its single-step face with the
+`fused_steps_plan`. Given (C, L, L) tiles, (C, L) bead masks and C seeds it
+runs the C chromosomes of a genome bucket in that one launch (the JAX
+genome runner's vmap over its bucket, whose kernel takes tiles, mask and
+seed per lane). `fused_step_batched` is its single-step face with the
 step's scalars passed in. Each counts in plain integers on the function
 (`fused_steps_batched.launches` and `.steps`, at the launch, and
 `fused_step_plain.calls`).
@@ -247,36 +250,71 @@ _THREADS, _WARPS = 256, 8     # csrc/warp_fold.cuh kThreads, kWarps
 _RESIDENT_CPL = (16, 24)
 _STREAMED = (8, 2)            # (columns a lane, rows a warp) of the streamed variant
 _WORK_REGS = 100              # registers a thread beside its tile registers
+# staging one structure's x costs a block about what sweeping 8 rows of its
+# pairs does (B1's parts at B = 10, L = 512: 1.8 us staging 3 structures
+# against 3.3 us sweeping 16 rows of them; PERF.md section 6)
+_STAGE_ROWS = 8
+
+
+def _streamed_split(C: int, B: int, nrg: int, rows: int, n_sm: int) -> int:
+    """Blocks along the row groups of a streamed launch over C > 1
+    chromosomes, each chromosome's B structures one structure group (a
+    pass then stages enough structures to keep the fold's overlap and the
+    update's 32 lanes as busy as a lone launch's): the least work for the
+    busiest block, which walks ceil(C / nsgb) groups and ceil(nrg / nrgb)
+    row groups of each, staging each group's x once; ties go to fewer
+    blocks."""
+    def key(nrgb):
+        nsgb = min(C, n_sm // nrgb)
+        return (-(-C // nsgb) * B * (-(-nrg // nrgb) * rows + _STAGE_ROWS), nsgb * nrgb)
+    return min(range(1, min(nrg, n_sm) + 1), key=key)
 
 
 def fused_steps_plan(L: int, B: int, n_sm: int = 132, smem_max: int = _build.SMEM_MAX,
-                     regs: int = 65536) -> dict:
-    """How the persistent kernel lays L bead rows and B structures out on a
-    card of n_sm SMs (one 256-thread block an SM, smem_max bytes of shared
-    memory a block, regs registers an SM). A block owns rows = 8 x rpw bead
-    rows (a row group) for sg structures; the grid is nsg structure groups x
-    nrgb blocks, never more than n_sm, because the steps meet at a grid
-    barrier and every block must be resident.
+                     regs: int = 65536, C: int = 1, mode: Optional[str] = None) -> dict:
+    """How the persistent kernel lays out L bead rows and C chromosomes of B
+    structures each on a card of n_sm SMs (one 256-thread block an SM,
+    smem_max bytes of shared memory a block, regs registers an SM). A block
+    owns rows = 8 x rpw bead rows (a row group) of the structures of a
+    structure group: sg structures of one chromosome, never two, nsgc
+    groups a chromosome, nsg = C x nsgc in all. The grid is nsgb x nrgb
+    blocks, never more than n_sm, because the steps meet at a grid barrier
+    and every block must be resident; a block walks row groups rgb, rgb +
+    nrgb, ... of structure groups sgb, sgb + nsgb, ...
 
-    mode "resident" (L <= 768 and no more row groups than SMs): the tile
-    values of a block's rows stay in registers for the whole launch, 3 x cpl
-    x rpw a thread (cpl columns a lane, 32 cpl >= L), and mu, nu in shared
-    memory; of the rows-a-warp choices the one with the least work a warp
-    (rpw x sg) wins, ties to the larger. mode "streamed": the tile registers
-    are reloaded per 256-column chunk, and a block walks ceil(nrg / nrgb) row
-    groups. A block stages sp <= sg structures' x at a time (lx float4
-    columns each, lx the chunk multiple >= L), as many as shared memory
-    holds, in equal passes. Raises when not even one structure fits."""
-    if L < 1 or B < 1:
-        raise ValueError(f"empty batch: B={B}, L={L}")
+    mode "resident" (L <= 768, a block for every row group of every
+    chromosome): the tile values of a block's rows stay in registers for the
+    whole launch, 3 x cpl x rpw a thread (cpl columns a lane, 32 cpl >= L),
+    and mu, nu in shared memory; each block has one structure group (nsgb =
+    nsg); of the rows-a-warp choices the one with the least work a warp (rpw
+    x sg) wins, ties to the larger. mode "streamed": the tile registers are
+    reloaded per 256-column chunk; for C = 1 every SM takes a row group
+    (nrgb = min(nrg, n_sm)) and the rest go to structure groups, for C > 1
+    a structure group is a whole chromosome and `_streamed_split` balances
+    the busiest block. A block stages sp <= sg
+    structures' x at a time (lx float4 columns each, lx the chunk multiple
+    >= L), as many as shared memory holds, in equal passes. `mode` forces
+    one of the two (a resident plan that cannot be made raises). Raises when
+    not even one structure fits."""
+    if L < 1 or B < 1 or C < 1:
+        raise ValueError(f"empty batch: C={C}, B={B}, L={L}")
+    if mode not in (None, "resident", "streamed"):
+        raise ValueError(f"unknown mode {mode!r}")
 
     def layout(cpl, rpw, resident):
         rows = _WARPS * rpw
         nrg = -(-L // rows)
-        nrgb = nrg if resident else min(nrg, n_sm)
-        nsg = max(1, min(B, n_sm // nrgb))
-        sg = -(-B // nsg)
-        nsg = -(-B // sg)
+        if resident:
+            nrgb, nsgc = nrg, max(1, min(B, n_sm // (C * nrg)))
+        elif C == 1:
+            nrgb = min(nrg, n_sm)
+            nsgc = max(1, min(B, n_sm // nrgb))
+        else:
+            nrgb, nsgc = _streamed_split(C, B, nrg, rows, n_sm), 1
+        sg = -(-B // nsgc)
+        nsgc = -(-B // sg)
+        nsg = C * nsgc
+        nsgb = nsg if resident else min(nsg, n_sm // nrgb)
         lx = -(-L // (32 * cpl)) * 32 * cpl
         per = 16 * lx + _WARPS * rpw * 16          # staged x + the warps' row sums
         fixed = rows * sg * 24 if resident else 0  # mu, nu of the block's rows
@@ -285,21 +323,24 @@ def fused_steps_plan(L: int, B: int, n_sm: int = 132, smem_max: int = _build.SME
             return None
         sp = -(-sg // -(-sg // sp))                # equal passes
         return {"mode": "resident" if resident else "streamed", "cpl": cpl, "rpw": rpw,
-                "rows": rows, "nrg": nrg, "nrgb": nrgb, "nsg": nsg, "blocks": nsg * nrgb,
-                "sg": sg, "sp": sp, "lx": lx, "threads": _THREADS,
-                "smem_bytes": sp * per + fixed}
+                "rows": rows, "nrg": nrg, "nrgb": nrgb, "C": C, "nsgc": nsgc,
+                "nsg": nsg, "nsgb": nsgb, "blocks": nsgb * nrgb, "sg": sg, "sp": sp,
+                "lx": lx, "threads": _THREADS, "smem_bytes": sp * per + fixed}
 
     cands = []
     cpl = next((c for c in _RESIDENT_CPL if 32 * c >= L), None)
-    if cpl is not None:
+    if cpl is not None and mode != "streamed":
         for rpw in (2, 1):
             if (_THREADS * (3 * cpl * rpw + _WORK_REGS) <= regs
-                    and -(-L // (_WARPS * rpw)) <= n_sm):
+                    and C * -(-L // (_WARPS * rpw)) <= n_sm):
                 plan = layout(cpl, rpw, True)
                 if plan is not None:
                     cands.append(plan)
     if cands:
         return min(cands, key=lambda p: (p["rpw"] * p["sg"], -p["rpw"]))
+    if mode == "resident":
+        raise ValueError(f"fused_steps_plan: no resident layout for C={C}, B={B}, L={L} "
+                         f"on {n_sm} SMs")
     plan = layout(*_STREAMED, False)
     if plan is None:
         raise ValueError(
@@ -308,17 +349,40 @@ def fused_steps_plan(L: int, B: int, n_sm: int = 132, smem_max: int = _build.SME
     return plan
 
 
+def _chromosome_args(t: torch.Tensor, B: int):
+    """(C, structures a chromosome) of B structures on tiles given as (L, L)
+    (C = 1) or (C, L, L)."""
+    C = 1 if t.dim() == 2 else t.shape[0]
+    if B % C:
+        raise ValueError(f"{B} structures do not divide over {C} chromosomes")
+    return C, B // C
+
+
 def fused_steps_plain(xT, muT, nuT, tiles, table: ScheduleTable, k0: int, k1: int,
-                      bead_mask):
+                      bead_mask, seeds=None):
     """Plain twin of the multi-step kernel: steps k0 <= k < k1 of the table
-    through fused_step_plain -> (history (k1 - k0, B), xT', muT', nuT')."""
+    through fused_step_plain -> (history (k1 - k0, B), xT', muT', nuT').
+    Tiles (C, L, L) and bead_mask (C, L) run each chromosome's B / C
+    structures alone, with its seed seeds[c] (table.seed when None), and
+    stack the results in chromosome order."""
     table.check_range(k0, k1)
+    t = tiles[0]
+    if t.dim() == 3:
+        C, n = _chromosome_args(t, xT.shape[0])
+        seeds = [table.seed] * C if seeds is None else [int(v) for v in seeds]
+        outs = [fused_steps_plain(
+            xT[c * n:(c + 1) * n], muT[c * n:(c + 1) * n], nuT[c * n:(c + 1) * n],
+            tuple(a[c] for a in tiles), table, k0, k1, bead_mask[c], [seeds[c]])
+            for c in range(C)]
+        return (torch.cat([o[0] for o in outs], 1),
+                *(torch.cat([o[i] for o in outs]) for i in (1, 2, 3)))
+    seed = table.seed if seeds is None else int(list(seeds)[0])
     hist = []
     for k in range(k0, k1):
         weights, lr, sigma, bc1, bc2 = table.scalars(k)
         e, xT, muT, nuT = fused_step_plain(
             xT, muT, nuT, tiles, weights, bead_mask, lr, sigma, bc1, bc2,
-            table.seed, k, table.clip, table.b1, table.b2, table.eps_adam)
+            seed, k, table.clip, table.b1, table.b2, table.eps_adam)
         hist.append(e)
     return torch.stack(hist), xT, muT, nuT
 
@@ -326,42 +390,59 @@ def fused_steps_plain(xT, muT, nuT, tiles, table: ScheduleTable, k0: int, k1: in
 def fused_steps_batched(
     xT: torch.Tensor, muT: torch.Tensor, nuT: torch.Tensor, tiles,
     table: ScheduleTable, k0: int, k1: int, bead_mask: torch.Tensor,
+    seeds: Optional[torch.Tensor] = None, mode: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Steps k0 <= k < k1 of the schedule for a shared-restraint batch ->
-    (history (k1 - k0, B), xT', muT', nuT'), state (B, 3, L) float32; the
-    noise of step k is structure b's stream at the global step k. tiles =
-    fused_step_tiles(...). CPU tensors run the plain twin; CUDA tensors make
+    """Steps k0 <= k < k1 of the schedule -> (history (k1 - k0, B), xT',
+    muT', nuT'), state (B, 3, L) float32; the noise of step k is structure
+    b's stream at the global step k. tiles = fused_step_tiles(...): (L, L)
+    each with bead_mask (L,) for a batch sharing one restraint set, or (C,
+    L, L) each with bead_mask (C, L) for C chromosomes of B / C structures,
+    chromosome-major, with seeds (C,) int32 on the state's device (None:
+    table.seed for all); chromosome c's outputs are bitwise those of a
+    launch of its own in the same plan mode (`mode` forces one, see
+    fused_steps_plan). CPU tensors run the plain twin; CUDA tensors make
     one cooperative launch of csrc/fused_steps.cu on copies of the state (the
     inputs are left as they are), or raise with the CUDA error."""
     if xT.dim() != 3:
         raise ValueError(f"xT must be (B, 3, L), got {tuple(xT.shape)}")
     B, L = xT.shape[0], xT.shape[2]
     t, w, nb = tiles
-    dev = check_inputs({
+    C, n = _chromosome_args(t, B)
+    lead = () if t.dim() == 2 else (C,)
+    specs = {
         "xT": (xT, (B, 3, L)), "muT": (muT, (B, 3, L)), "nuT": (nuT, (B, 3, L)),
-        "t": (t, (L, L)), "w": (w, (L, L)), "nb": (nb, (L, L)),
-        "bead_mask": (bead_mask, (L,)),
-    })
+        "t": (t, (*lead, L, L)), "w": (w, (*lead, L, L)), "nb": (nb, (*lead, L, L)),
+        "bead_mask": (bead_mask, (*lead, L)),
+    }
+    dev = check_inputs(specs)
     if B == 0 or L == 0:
         raise ValueError(f"empty batch: B={B}, L={L}")
+    if seeds is not None and (seeds.dtype != torch.int32 or tuple(seeds.shape) != (C,)
+                              or seeds.device != dev):
+        raise ValueError(f"seeds must be ({C},) int32 on {dev}, got {seeds.dtype} "
+                         f"{tuple(seeds.shape)} on {seeds.device}")
     table.check_range(k0, k1)
     if dev.type == "cpu":
-        return fused_steps_plain(xT, muT, nuT, tiles, table, k0, k1, bead_mask)
+        return fused_steps_plain(xT, muT, nuT, tiles, table, k0, k1, bead_mask,
+                                 None if seeds is None else seeds.tolist())
     lib = _build.load_library()
-    n = k1 - k0
+    nk = k1 - k0
     plan = fused_steps_plan(
-        L, B, torch.cuda.get_device_properties(dev).multi_processor_count)
+        L, n, torch.cuda.get_device_properties(dev).multi_processor_count, C=C,
+        mode=mode)
     rows = table.device_rows(dev)[k0 - table.first:k1 - table.first]
     x_a, mu, nu = xT.clone(), muT.clone(), nuT.clone()
     x_b = torch.empty_like(xT)
-    part = torch.empty((n, B, plan["nrg"]), dtype=torch.float32, device=dev)
+    part = torch.empty((nk, B, plan["nrg"] * plan["rpw"]), dtype=torch.float32, device=dev)
+    hist = torch.empty((nk, B), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.c3d_fused_steps(
             x_a.data_ptr(), x_b.data_ptr(), mu.data_ptr(), nu.data_ptr(),
             t.data_ptr(), w.data_ptr(), nb.data_ptr(), bead_mask.data_ptr(),
-            rows.data_ptr(), part.data_ptr(), B, L, k0, k1,
-            plan["cpl"], plan["rpw"], int(plan["mode"] == "resident"),
-            plan["nsg"], plan["nrgb"], plan["nrg"], plan["sg"], plan["sp"], plan["lx"],
+            None if seeds is None else seeds.data_ptr(), rows.data_ptr(),
+            part.data_ptr(), hist.data_ptr(), B, L, k0, k1, n,
+            plan["cpl"], plan["rpw"], int(plan["mode"] == "resident"), plan["nsgc"],
+            plan["nsgb"], plan["nrgb"], plan["nrg"], plan["sg"], plan["sp"], plan["lx"],
             plan["smem_bytes"], table.b1, table.b2, table.eps_adam,
             table.base.bond, table.base.bond_length,
             -1.0 if table.clip is None else table.clip, _c_int32(table.seed),
@@ -369,9 +450,9 @@ def fused_steps_batched(
         )
     _build.check(err, "c3d_fused_steps")
     fused_steps_batched.launches += 1
-    fused_steps_batched.steps += n
+    fused_steps_batched.steps += nk
     # step k0 reads x_a and writes x_b, the next one back
-    return part.sum(2), (x_b if n % 2 else x_a), mu, nu
+    return hist, (x_b if nk % 2 else x_a), mu, nu
 
 
 fused_steps_batched.launches = 0

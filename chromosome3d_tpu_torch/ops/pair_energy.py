@@ -6,7 +6,8 @@ Replaces chromosome3d_tpu/ops/pallas_energy.py `_kernel_exact` (entry
 `pallas_energy_and_grad_batched`, which routes exact restraints to B3
 (ops.tri_energy) at L >= 1024 and general ones to B5 (ops.general_pair) as
 the JAX package does. The solver calls it once per solve, for the
-enantiomer pick. No autograd is involved: the kernel returns the exact
+enantiomer pick, and once for a whole genome bucket (C chromosomes' tiles
+stacked, structure b reading chromosome b / (B / C)'s). No autograd is involved: the kernel returns the exact
 gradient and the solver consumes it directly.
 
 Kernel B2' is the same body on one shard's rows of the row-sharded solve
@@ -96,10 +97,17 @@ def exact_pair_energy_grad_plain(
     weights: EnergyWeights, bead_mask: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain twin of B2, the `_kernel_exact` math for (B, L, 3) coords:
-    returns (pair energies (B,), pair gradients (B, L, 3))."""
+    returns (pair energies (B,), pair gradients (B, L, 3)). With (C, L, L)
+    tiles and (C, L) bead masks each chromosome's B / C structures are
+    evaluated alone, in chromosome order."""
     exact_pair_energy_grad_plain.calls += 1
-    return exact_rows_plain(coords, target, w, weights, bead_mask, 0,
-                            coords.shape[1])
+    L = coords.shape[1]
+    if target.dim() == 2:
+        return exact_rows_plain(coords, target, w, weights, bead_mask, 0, L)
+    n = coords.shape[0] // target.shape[0]
+    outs = [exact_rows_plain(coords[c * n:(c + 1) * n], target[c], w[c], weights,
+                             bead_mask[c], 0, L) for c in range(target.shape[0])]
+    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
 
 
 exact_pair_energy_grad_plain.calls = 0
@@ -124,10 +132,12 @@ def exact_pair_plan(B: int, L: int, Lb: int) -> dict:
 
 
 def _launch_exact(xT, target, w, weights, bead_mask, row_start, dev):
-    """csrc/exact_pair.cu on the rows the (Lb, L) tiles hold: (energies
-    (B,), gradient rows (B, 3, Lb)), one launch."""
+    """csrc/exact_pair.cu on the rows the (Lb, L) tiles hold, or on C
+    chromosomes' (C, Lb, L) tiles and (C, L) bead masks: (energies (B,),
+    gradient rows (B, 3, Lb)), one launch."""
     B, L = xT.shape[0], xT.shape[2]
-    Lb = target.shape[0]
+    Lb = target.shape[-2]
+    n_per = B // (target.shape[0] if target.dim() == 3 else 1)
     lib = _build.load_library()
     e = torch.empty((B,), dtype=torch.float32, device=dev)
     gT = torch.empty((B, 3, Lb), dtype=torch.float32, device=dev)
@@ -138,7 +148,7 @@ def _launch_exact(xT, target, w, weights, bead_mask, row_start, dev):
         err = lib.c3d_exact_pair(
             xT.data_ptr(), target.data_ptr(), w.data_ptr(), bead_mask.data_ptr(),
             gT.data_ptr(), e.data_ptr(), e_part.data_ptr(), ticket.data_ptr(), B, L,
-            row_start, Lb, weights.noe, weights.vdw, weights.vdw_radius,
+            row_start, Lb, n_per, weights.noe, weights.vdw, weights.vdw_radius,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, "c3d_exact_pair")
@@ -150,7 +160,10 @@ def exact_pair_energy_grad(
     weights: EnergyWeights, bead_mask: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B2 for a batch sharing one restraint set: coords (B, L, 3), target and
-    folded weight w (L, L), bead_mask (L,), all float32 and contiguous.
+    folded weight w (L, L), bead_mask (L,), all float32 and contiguous; or
+    for C chromosomes of B / C structures each, chromosome-major, with
+    target and w (C, L, L) and bead_mask (C, L) — a genome bucket's pick in
+    one launch, each chromosome's rows bitwise those of a launch of its own.
     Returns (pair energies (B,), pair gradients (B, L, 3)). CPU tensors run
     the plain twin; CUDA tensors launch csrc/exact_pair.cu on the (B, 3, L)
     layout (the pick's one call a solve transposes in, and returns the
@@ -158,9 +171,12 @@ def exact_pair_energy_grad(
     if coords.dim() != 3:
         raise ValueError(f"coords must be (B, L, 3), got {tuple(coords.shape)}")
     B, L = coords.shape[0], coords.shape[1]
+    lead = () if target.dim() == 2 else (target.shape[0],)
+    if lead and B % lead[0]:
+        raise ValueError(f"{B} structures do not divide over {lead[0]} chromosomes")
     dev = check_inputs({
-        "coords": (coords, (B, L, 3)), "target": (target, (L, L)),
-        "w": (w, (L, L)), "bead_mask": (bead_mask, (L,)),
+        "coords": (coords, (B, L, 3)), "target": (target, (*lead, L, L)),
+        "w": (w, (*lead, L, L)), "bead_mask": (bead_mask, (*lead, L)),
     })
     if B == 0 or L == 0:
         raise ValueError(f"empty batch: B={B}, L={L}")
@@ -228,7 +244,8 @@ exact_row_block_energy_grad.launches = 0
 def bond_energy_grad(coords: torch.Tensor, weights: EnergyWeights,
                      bead_mask: torch.Tensor):
     """Chain-bond energies (B,) and their exact gradient (B, L, 3) — the
-    JAX package's `_bond_energy` and its autodiff gradient, written out."""
+    JAX package's `_bond_energy` and its autodiff gradient, written out.
+    bead_mask (L,) serves every structure; (B, L) gives each its own."""
     if weights.angle != 0.0:
         raise NotImplementedError(
             "angle_weight != 0 is not ported (ROADMAP A11: the angle term "
@@ -236,7 +253,7 @@ def bond_energy_grad(coords: torch.Tensor, weights: EnergyWeights,
         )
     bond_vec = coords[:, 1:] - coords[:, :-1]
     bond_d = torch.sqrt((bond_vec * bond_vec).sum(-1) + _EPS)
-    bond_valid = bead_mask[1:] * bead_mask[:-1]
+    bond_valid = bead_mask[..., 1:] * bead_mask[..., :-1]
     bdev = bond_d - weights.bond_length
     e = weights.bond * (bond_valid * bdev * bdev).sum(-1)
     f = (2.0 * weights.bond * bond_valid * bdev / bond_d)[..., None] * bond_vec
@@ -256,11 +273,26 @@ def pair_energy_and_grad_batched(
     kernel B3 where `tri_energy.use_triangular(L, for_unfused=True)` holds
     and the whole-matrix kernel B2 otherwise; general restraints take B5
     (there is no triangular variant of the general well); exact=True reads
-    lo as the target. Returns (energies (B,), gradients (B, L, 3))."""
+    lo as the target. Restraints of (C, L, L) tensors with bead_mask (C, L)
+    hold C chromosomes of B / C structures each, chromosome-major: B2 takes
+    them in one launch (exact restraints below the triangular kernel's
+    lengths, a genome bucket's pick; other routes raise). Returns (energies
+    (B,), gradients (B, L, 3))."""
     # imported here: both build on this module
     from chromosome3d_tpu_torch.ops import general_pair, tri_energy
 
     L = coords.shape[1]
+    if bead_mask.dim() == 2:
+        if not exact or tri_energy.use_triangular(L, for_unfused=True):
+            raise NotImplementedError(
+                "a chromosome axis is ported for kernel B2 only (exact restraints, "
+                f"L < 1024), not for exact={exact} at L={L}")
+        target, w = (a.contiguous() for a in exact_pair_tiles(restraints))
+        e_pair, g_pair = exact_pair_energy_grad(coords, target, w, weights, bead_mask)
+        n = coords.shape[0] // bead_mask.shape[0]
+        e_bond, g_bond = bond_energy_grad(
+            coords, weights, bead_mask.repeat_interleave(n, dim=0))
+        return e_pair + e_bond, g_pair + g_bond
     if not exact:
         e_pair, gT = general_pair.general_pair_energy_grad(
             coords.transpose(1, 2).contiguous(),

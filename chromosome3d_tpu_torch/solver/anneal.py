@@ -1,5 +1,8 @@
 """The annealing solver on the fused and semi routes — the port of
-chromosome3d_tpu/solver/anneal.py `solve_ensemble_impl`.
+chromosome3d_tpu/solver/anneal.py `solve_ensemble_impl`, and of the JAX
+genome runner's vmap of it over the chromosomes of a length bucket
+(`solve_bucket_impl`; `solve_ensemble_impl` is its one-chromosome case, one
+copy of the phases in `_solve_stack`).
 
 The precomputed hot -> cool -> final schedule is one table of per-step rows
 (`schedule_table`, the JAX solver's `srows`). On the fused route kernel B1
@@ -46,6 +49,7 @@ from chromosome3d_tpu_torch.ops.energy import (
 from chromosome3d_tpu_torch.ops.fused_step import (
     TABLE_COLS,
     ScheduleTable,
+    _c_int32,
     fused_step_feasible,
     fused_step_tiles,
     fused_steps_batched,
@@ -214,45 +218,24 @@ def _refuse_unchunked_terms(L: int) -> None:
         )
 
 
-def solve_ensemble_impl(
-    restraints,
-    cfg: AnnealConfig,
-    n_models: int,
-    bead_mask: Optional[torch.Tensor] = None,
-    x0: Optional[torch.Tensor] = None,
-    generator: Optional[torch.Generator] = None,
-    or_groups=None,
-    xs: Optional[torch.Tensor] = None,
-    noise_seed: Optional[int] = None,
-) -> AnnealResult:
-    """Build n_models structures on the restraints' device: one batched
-    loop over all restarts (+ enantiomer pairs).
+def chromosome_generator(base_seed: int, c: int) -> torch.Generator:
+    """The generator chromosome c of a genome bucket draws from (its start
+    ensemble's jitter, then its noise seed): a CPU torch.Generator seeded
+    with the first word of numpy's SeedSequence([base_seed, c]), masked to
+    63 bits. It stands in for the JAX runner's one key a chromosome,
+    jax.random.split(PRNGKey(base_seed), C)[c] (parallel/genome.py)."""
+    word = int(np.random.SeedSequence([int(base_seed), int(c)]).generate_state(
+        1, np.uint64)[0])
+    return torch.Generator().manual_seed(word & (2**63 - 1))
 
-    or_groups: optional ops.energy.OrGroupRestraints; their group-min well
-      joins the energy every step, the pick and the final terms, and keeps
-      the solve off the fused route (B1 updates inside the kernel, before
-      an outside gradient could join).
-    generator: the CPU torch.Generator for the random draws (per-restart
-      jitter, the noise-stream seed, a random init); a fresh one seeded 0
-      when None.
-    xs: an explicit (n_eff, L, 3) start ensemble, used as given (no init,
-      no mirror signs, no jitter); noise_seed: an explicit int32 seed for
-      the Langevin noise stream. Together they let a caller replay the
-      values another implementation drew.
-    """
-    target = restraints.lo
-    dev = target.device
-    L = target.shape[0]
-    _refuse_unported(cfg)
-    _refuse_unchunked_terms(L)
-    exact = cfg.exact_restraints and cfg.noe_rswitch >= 1e8
-    if generator is None:
-        generator = torch.Generator().manual_seed(0)
-    if bead_mask is None:
-        bead_mask = torch.ones(L, dtype=torch.float32, device=dev)
-    bead_mask = bead_mask.to(device=dev, dtype=torch.float32).contiguous()
+
+def _draws(restraints, cfg: AnnealConfig, n_models: int, bead_mask: torch.Tensor,
+           x0, generator: torch.Generator, xs, noise_seed):
+    """One chromosome's start ensemble (n_eff, L, 3) and noise seed: the
+    values given, or drawn — the init (x0 when given), its mirror pairs and
+    the jitter, then the seed, in that order from `generator`."""
+    dev, L = bead_mask.device, bead_mask.shape[0]
     n_eff = n_models * 2 if cfg.enantiomer else n_models
-
     if xs is None:
         if x0 is None:
             init = cfg.init
@@ -287,36 +270,74 @@ def solve_ensemble_impl(
         raise ValueError(f"xs: shape {tuple(xs.shape)}, expected {(n_eff, L, 3)}")
     if noise_seed is None:
         noise_seed = int(torch.randint(0, 2**31 - 1, (), generator=generator))
+    return xs, int(noise_seed)
 
-    table = schedule_table(cfg, noise_seed)
+
+def _chromosome(restraints, c: int):
+    """Chromosome c's (L, L) views of restraints stacked as (C, L, L)."""
+    return type(restraints)(*(getattr(restraints, f.name)[c]
+                              for f in dataclasses.fields(restraints)))
+
+
+def _fused_route(cfg: AnnealConfig, L: int, or_groups) -> bool:
+    """Kernel B1's route: exact restraints, no or-groups, a length the fused
+    step serves and the triangular kernel does not."""
+    exact = cfg.exact_restraints and cfg.noe_rswitch >= 1e8
+    return (exact and or_groups is None and fused_step_feasible(L)
+            and not tri_energy.use_triangular(L))
+
+
+def _solve_stack(rs, stacked, cfg: AnnealConfig, n_models: int, bead_masks: torch.Tensor,
+                 xs: torch.Tensor, noise_seeds, or_groups=None) -> AnnealResult:
+    """The phases of the solve (hot -> pick -> cool -> final terms ->
+    centroid) for C chromosomes at once: rs their (L, L) restraints,
+    `stacked` the same as (C, L, L) tensors (None when C = 1), bead_masks
+    (C, L), xs (C, n_eff, L, 3), noise_seeds C ints. The state is one batch
+    of C x n_eff structures, chromosome-major. C > 1 runs the fused route
+    only (kernels B1 and B2 have the chromosome axis); the final terms and
+    the centroid are taken chromosome by chromosome, so each chromosome's
+    numbers are those of a solve of its own. Returns an AnnealResult whose
+    arrays carry a leading C axis."""
+    C, n_eff, L = xs.shape[0], xs.shape[1], xs.shape[2]
+    dev = xs.device
+    exact = cfg.exact_restraints and cfg.noe_rswitch >= 1e8
+    fused = _fused_route(cfg, L, or_groups)
+    if C > 1 and not fused:
+        raise NotImplementedError("a stack of chromosomes runs on kernel B1's route only")
+
+    table = schedule_table(cfg, noise_seeds[0])
     base = table.base
     T = len(table.rows)
-    xT = xs.transpose(1, 2).contiguous()
+    xT = xs.reshape(C * n_eff, L, 3).transpose(1, 2).contiguous()
     muT = torch.zeros_like(xT)
     nuT = torch.zeros_like(xT)
-    history = torch.empty((T, n_eff), dtype=torch.float32, device=dev)
+    history = torch.empty((T, C * n_eff), dtype=torch.float32, device=dev)
+    # the pick's restraints and masks: one chromosome's, or the stack's
+    pick_r, pick_bm = (rs[0], bead_masks[0]) if C == 1 else (stacked, bead_masks)
 
-    fused = (exact and or_groups is None and fused_step_feasible(L)
-             and not tri_energy.use_triangular(L))
     if fused:
         # the fused route: a phase of the schedule is one call of kernel B1,
-        # which walks the table's rows itself
-        tiles = fused_step_tiles(restraints, bead_mask, base.noe)
+        # which walks the table's rows itself, every chromosome in one launch
+        tiles = [fused_step_tiles(r, bm, base.noe) for r, bm in zip(rs, bead_masks)]
+        tiles = tuple(a[0][None] if C == 1 else torch.stack(a) for a in zip(*tiles))
+        seeds = None if C == 1 else torch.tensor(
+            [_c_int32(v) for v in noise_seeds], dtype=torch.int32, device=dev)
 
         def run(k0: int, k1: int, xT, muT, nuT, hist):
             hist[k0:k1], xT, muT, nuT = fused_steps_batched(
-                xT, muT, nuT, tiles, table, k0, k1, bead_mask)
+                xT, muT, nuT, tiles, table, k0, k1, bead_masks, seeds=seeds)
             return xT, muT, nuT
     else:
         # the semi routes: pair terms in kernel B3 (exact) or B5 (general),
         # the or-group term added, the update in kernel B4; the tiles are
         # folded once, outside the loop
         if exact:
-            pair_tiles = tuple(a.contiguous() for a in exact_pair_tiles(restraints))
+            pair_tiles = tuple(a.contiguous() for a in exact_pair_tiles(rs[0]))
             pair_grad = tri_energy.tri_energy_grad
         else:
-            pair_tiles = general_pair_tiles(restraints)
+            pair_tiles = general_pair_tiles(rs[0])
             pair_grad = general_pair_energy_grad
+        bead_mask = bead_masks[0]
 
         # the pair kernels take their weights from the host's copy of the
         # table; kernel B4 reads its step from a device counter, its scalars
@@ -345,26 +366,127 @@ def solve_ensemble_impl(
     if cfg.enantiomer:
         hot = cfg.hot_steps
         xT, muT, nuT = run(0, hot, xT, muT, nuT, history)
-        # handedness per pair by energy under the end-of-hot weights
+        # handedness per mirror pair of each chromosome, by energy under the
+        # end-of-hot weights (one B2 launch for the whole stack)
         coords = xT.transpose(1, 2).contiguous()
         w_hot = table.weights(hot - 1)
-        e_hot, _ = pair_energy_and_grad_batched(
-            coords, restraints, w_hot, bead_mask, exact
-        )
+        e_hot, _ = pair_energy_and_grad_batched(coords, pick_r, w_hot, pick_bm, exact)
         if or_groups is not None:
-            e_hot = e_hot + or_group_energy_grad(coords, or_groups, w_hot, bead_mask)[0]
-        choice = torch.argmin(e_hot.reshape(n_models, 2), dim=1)
-        pick = torch.arange(n_models, device=dev) * 2 + choice
-        xT, muT, nuT = xT[pick], muT[pick], nuT[pick]
-        history = history[:, pick].contiguous()
+            e_hot = e_hot + or_group_energy_grad(coords, or_groups, w_hot, pick_bm)[0]
+        choice = torch.argmin(e_hot.reshape(C, n_models, 2), dim=2)
+        pick = torch.arange(n_models, device=dev) * 2 + choice          # (C, n)
+        rows = (pick + n_eff * torch.arange(C, device=dev)[:, None]).reshape(-1)
+        xT, muT, nuT = xT[rows], muT[rows], nuT[rows]
+        history = history[:, rows].contiguous()
         xT, muT, nuT = run(hot, T, xT, muT, nuT, history)
     else:
         xT, muT, nuT = run(0, T, xT, muT, nuT, history)
-    coords = xT.transpose(1, 2).contiguous()
+    n = xT.shape[0] // C
+    coords = xT.transpose(1, 2).reshape(C, n, L, 3)
 
-    terms = energy_terms(coords, restraints, base, bead_mask, or_groups)
-    # centroid to origin, padding excluded
-    nvalid = bead_mask.sum()
-    centroid = (coords * bead_mask[None, :, None]).sum(dim=1, keepdim=True) / nvalid
-    coords = (coords - centroid) * bead_mask[None, :, None]
-    return AnnealResult(coords=coords, energies=terms, history=history.T, pick=pick)
+    out_coords, terms = [], []
+    for c in range(C):
+        x = coords[c].contiguous()
+        bm = bead_masks[c]
+        terms.append(energy_terms(x, rs[c], base, bm, or_groups))
+        # centroid to origin, padding excluded
+        centroid = (x * bm[None, :, None]).sum(dim=1, keepdim=True) / bm.sum()
+        out_coords.append((x - centroid) * bm[None, :, None])
+    return AnnealResult(
+        coords=torch.stack(out_coords),
+        energies={k: torch.stack([t[k] for t in terms]) for k in terms[0]},
+        history=history.T.reshape(C, n, T), pick=pick)
+
+
+def solve_ensemble_impl(
+    restraints,
+    cfg: AnnealConfig,
+    n_models: int,
+    bead_mask: Optional[torch.Tensor] = None,
+    x0: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    or_groups=None,
+    xs: Optional[torch.Tensor] = None,
+    noise_seed: Optional[int] = None,
+) -> AnnealResult:
+    """Build n_models structures on the restraints' device: one batched
+    loop over all restarts (+ enantiomer pairs); the one-chromosome case of
+    solve_bucket_impl.
+
+    or_groups: optional ops.energy.OrGroupRestraints; their group-min well
+      joins the energy every step, the pick and the final terms, and keeps
+      the solve off the fused route (B1 updates inside the kernel, before
+      an outside gradient could join).
+    generator: the CPU torch.Generator for the random draws (per-restart
+      jitter, the noise-stream seed, a random init); a fresh one seeded 0
+      when None.
+    xs: an explicit (n_eff, L, 3) start ensemble, used as given (no init,
+      no mirror signs, no jitter); noise_seed: an explicit int32 seed for
+      the Langevin noise stream. Together they let a caller replay the
+      values another implementation drew.
+    """
+    dev = restraints.lo.device
+    L = restraints.lo.shape[0]
+    _refuse_unported(cfg)
+    _refuse_unchunked_terms(L)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    if bead_mask is None:
+        bead_mask = torch.ones(L, dtype=torch.float32, device=dev)
+    bead_mask = bead_mask.to(device=dev, dtype=torch.float32).contiguous()
+    xs, noise_seed = _draws(restraints, cfg, n_models, bead_mask, x0, generator, xs,
+                            noise_seed)
+    res = _solve_stack([restraints], None, cfg, n_models, bead_mask[None], xs[None],
+                       [noise_seed], or_groups)
+    return AnnealResult(coords=res.coords[0], energies={k: v[0] for k, v in res.energies.items()},
+                        history=res.history[0],
+                        pick=None if res.pick is None else res.pick[0])
+
+
+def solve_bucket_impl(
+    restraints,
+    cfg: AnnealConfig,
+    n_models: int,
+    bead_masks: torch.Tensor,
+    base_seed: int = 0,
+    xs: Optional[torch.Tensor] = None,
+    noise_seeds=None,
+) -> AnnealResult:
+    """Solve the C chromosomes of a genome bucket together: restraints with
+    (C, L, L) tensors (each chromosome's padded to the bucket's L),
+    bead_masks (C, L) -> an AnnealResult with a leading C axis: coords (C,
+    n_models, L, 3), energies (C, n_models) each, history (C, n_models, T),
+    pick (C, n_models). Each chromosome's start is its own mds_init (a loop
+    over the chromosomes: a batched eigendecomposition may flip an
+    eigenvector's sign), then the draws of chromosome_generator(base_seed,
+    c); xs (C, n_eff, L, 3) and noise_seeds (C,) replay given values
+    instead, as solve_ensemble_impl's xs= and noise_seed= do. On kernel B1's
+    route the C x n_eff structures run as one batch (B1 twice, B2 once for
+    the whole bucket); chromosome c's results are those of
+    solve_ensemble_impl on its own restraints with the same draws. Off that
+    route (restraints that are not exact) the chromosomes are solved one
+    after another."""
+    target = restraints.lo
+    dev = target.device
+    C, L = target.shape[0], target.shape[-1]
+    _refuse_unported(cfg)
+    _refuse_unchunked_terms(L)
+    bead_masks = bead_masks.to(device=dev, dtype=torch.float32).contiguous()
+    if tuple(bead_masks.shape) != (C, L):
+        raise ValueError(f"bead_masks: shape {tuple(bead_masks.shape)}, expected {(C, L)}")
+    rs = [_chromosome(restraints, c) for c in range(C)]
+    draws = [_draws(rs[c], cfg, n_models, bead_masks[c], None,
+                    chromosome_generator(base_seed, c),
+                    None if xs is None else xs[c],
+                    None if noise_seeds is None else int(noise_seeds[c]))
+             for c in range(C)]
+    if not _fused_route(cfg, L, None):
+        res = [_solve_stack([rs[c]], None, cfg, n_models, bead_masks[c][None],
+                            draws[c][0][None], [draws[c][1]]) for c in range(C)]
+        return AnnealResult(
+            coords=torch.cat([r.coords for r in res]),
+            energies={k: torch.cat([r.energies[k] for r in res]) for k in res[0].energies},
+            history=torch.cat([r.history for r in res]),
+            pick=None if res[0].pick is None else torch.cat([r.pick for r in res]))
+    return _solve_stack(rs, restraints, cfg, n_models, bead_masks,
+                        torch.stack([d[0] for d in draws]), [d[1] for d in draws])

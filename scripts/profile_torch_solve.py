@@ -3,6 +3,7 @@
     python3 scripts/profile_torch_solve.py [--length 4985] [--models 10]
     python3 scripts/profile_torch_solve.py --restraints <file.rr|file.tbl> [--models 10]
     python3 scripts/profile_torch_solve.py --shards 4 [...]   # the row-sharded solver
+    python3 scripts/profile_torch_solve.py --genome [--models 10]   # a genome bucket
 
 Builds a ground-truth chromosome (`confined_walk(length, seed=7)`, IF noise
 0.1), its exact restraints with the on-card prep padded to the length's
@@ -20,7 +21,11 @@ card and go through `solve_ensemble_sharded` (its own landmark start), so
 the one card's busy share on the sharded route can be read. With --phases
 (one device) one more warm solve is split, with a CUDA synchronise at every
 boundary, into the init, the hot loop, the pick, the cool and final loop,
-the final energy terms and the rest.
+the final energy terms and the rest. With --genome the solve is the genome
+runner's bucket solve (`parallel.genome.solve_bucket`) on chip_smoke.py's
+45 inputs (the reference genome's lengths 35..455, one 512 bucket): the
+mds_init loop over the chromosomes is timed on its own, then two warm
+bucket solves and a profiled one.
 """
 
 from __future__ import annotations
@@ -121,6 +126,66 @@ def solve_phases(solve):
             "cool_loop": e0 - p1, "final_terms": e1 - e0, "rest": t1 - e1, "total": t1 - t0}
 
 
+def report(prof, wall):
+    """The profiled solve's device seconds, busy share and top kernels, B1's
+    launches so far and the card's name and power limit."""
+    rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+    total = sum(r[1] for r in rows)
+    print(f"profiled solve: wall {wall:.4f} s, device {total / 1e6:.4f} s, "
+          f"busy share {total / 1e6 / wall:.4f}")
+    for key, us, n in rows[:15]:
+        print(f"  {us / 1e3:10.3f} ms {100 * us / total:6.2f}% x{n:6d}  {key[:90]}")
+    # kernel B1 is one launch a phase: its rows above are fused_steps_kernel<columns a
+    # lane, rows a warp, resident>, the hot phase's and the rest's
+    from chromosome3d_tpu_torch.ops.fused_step import fused_steps_batched
+    print(f"B1 (fused_steps_kernel) since the start: {fused_steps_batched.launches} "
+          f"launches, {fused_steps_batched.steps} steps")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip())
+
+
+def profile_genome(models: int, dev) -> int:
+    """The genome bucket solve on chip_smoke.py's 45 inputs."""
+    import tempfile
+
+    from chip_smoke import write_genome_inputs
+    from chromosome3d_tpu_torch.parallel import genome
+    from chromosome3d_tpu_torch.solver.anneal import _chromosome
+
+    cfg = PipelineConfig(model_count=models)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_genome_inputs(tmp)
+        buckets = genome.bucket_jobs(genome.discover_jobs(tmp), cfg.length_buckets)
+        (L_pad, jobs), = buckets.items()
+        t0 = time.perf_counter()
+        batched, masks, _, raw = genome._stack_bucket(jobs, L_pad, cfg)
+        load_s = time.perf_counter() - t0
+    cfg = pipeline.auto_exact(cfg, raw[0])
+    an = cfg.anneal
+    ex = type(batched)(*(torch.tensor(getattr(batched, f.name), device=dev)
+                         for f in dataclasses.fields(batched)))
+    bms = torch.tensor(masks, device=dev)
+    init_s = [timed(lambda: [mds_init(_chromosome(ex, c), bond_length=an.bond_length,
+                                      bead_mask=bms[c]) for c in range(len(jobs))])[1]
+              for _ in range(2)]
+
+    def solve(seed):
+        return genome.solve_bucket(batched, masks, cfg, base_seed=seed, device=dev)
+
+    solve_s = [timed(lambda: solve(i))[1] for i in range(2)]
+    print(f"genome bucket L={L_pad}: {len(jobs)} chromosomes, {models} models, "
+          f"{an.total_steps} steps: host stacking {load_s:.4f} s; the mds_init loop "
+          f"{init_s[0]:.4f} s cold, {init_s[1]:.4f} s warm; warm bucket solves (upload "
+          f"included) {solve_s[0]:.4f} s, {solve_s[1]:.4f} s")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = timed(lambda: solve(9))
+    report(prof, wall)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--length", type=int, default=4985)
@@ -131,10 +196,14 @@ def main() -> int:
                     help="row-shard the solve over this many copies of the card")
     ap.add_argument("--phases", action="store_true",
                     help="split one more warm solve into its phases (one device)")
+    ap.add_argument("--genome", action="store_true",
+                    help="profile the genome bucket solve on chip_smoke.py's 45 inputs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_solve: needs an NVIDIA GPU")
     dev = torch.device("cuda", 0)
+    if args.genome:
+        return profile_genome(args.models, dev)
     og = None
     if args.restraints:
         (L, L_pad, ex, cfg, og), prep_s = timed(lambda: file_inputs(args.restraints, dev))
@@ -179,22 +248,7 @@ def main() -> int:
                   + ", ".join(f"{k} {v:.5f}" for k, v in ph.items()))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall = timed(lambda: solve(9))
-    rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.self_device_time_total > 0), key=lambda r: -r[1])
-    total = sum(r[1] for r in rows)
-    print(f"profiled solve: wall {wall:.4f} s, device {total / 1e6:.4f} s, "
-          f"busy share {total / 1e6 / wall:.4f}")
-    for key, us, n in rows[:15]:
-        print(f"  {us / 1e3:10.3f} ms {100 * us / total:6.2f}% x{n:6d}  {key[:90]}")
-    # kernel B1 is one launch a phase: its rows above are fused_steps_kernel<columns a
-    # lane, rows a warp, resident>, the hot phase's and the rest's
-    from chromosome3d_tpu_torch.ops.fused_step import fused_steps_batched
-    print(f"B1 (fused_steps_kernel) since the start: {fused_steps_batched.launches} "
-          f"launches, {fused_steps_batched.steps} steps")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60).stdout.strip())
+    report(prof, wall)
     return 0
 
 

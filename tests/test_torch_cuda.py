@@ -536,3 +536,79 @@ def test_cuda_div10_correctly_rounded(cuda_device):
     want = (k.astype(np.float64) / 10.0).astype(np.float32)
     got = div10(torch.from_numpy(k).to(cuda_device)).cpu().numpy()
     assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def _chromosomes(device, C, L, B):
+    """C chromosomes padded to L, each with its own restraints, bead count
+    and seed: (tiles (C, L, L) x 3, exact tiles (C, L, L) x 2, bead masks
+    (C, L), state (C x B, 3, L) x 3, seeds (C,) int32)."""
+    cases = [_case(device, L=L, n_real=L - 7 * (c % 5) - 3, B=B, seed=100 + c)
+             for c in range(C)]
+    tiles = [fused_step_tiles(ex, bm, WEIGHTS.noe) for ex, bm, *_ in cases]
+    seeds = torch.tensor([(12345 + 7919 * c) % (2**31 - 1) for c in range(C)],
+                         dtype=torch.int32, device=device)
+    return (tuple(torch.stack(a) for a in zip(*tiles)),
+            (torch.stack([c[0].target for c in cases]), torch.stack([c[0].w for c in cases])),
+            torch.stack([c[1] for c in cases]),
+            tuple(torch.cat([c[i] for c in cases]) for i in (2, 3, 4)), seeds)
+
+
+@pytest.mark.parametrize("C,L,B,mode", [
+    (3, 200, 5, "resident"),     # three chromosomes' row groups on their own blocks
+    (2, 512, 20, "resident"),    # a two-chromosome bucket at the hot phase's shape
+    (5, 512, 10, "streamed"),    # more row groups than SMs: streamed, groups walked
+    (45, 512, 20, "streamed"),   # the genome bucket's hot phase
+])
+def test_cuda_fused_steps_chromosome_axis(cuda_device, C, L, B, mode):
+    """One launch over C chromosomes equals, bit for bit, C launches of one
+    chromosome each in the same plan mode (history, x', mu', nu'), and the
+    loop of twins within the one step's tolerances (mu' and nu' with the
+    8-step absolute term of test_cuda_fused_steps_matches_plain)."""
+    tiles, _, bms, state, seeds = _chromosomes(cuda_device, C, L, B)
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = fused_steps_plan(L, B, n_sm, C=C)
+    assert plan["mode"] == mode and plan["blocks"] <= n_sm
+    table = schedule_table(AnnealConfig(), seed=1)
+    launches = fused_steps_batched.launches
+    got = fused_steps_batched(*state, tiles, table, STEPS_K0, STEPS_K1, bms, seeds=seeds)
+    assert fused_steps_batched.launches == launches + 1
+    for c in range(C):
+        sl = slice(c * B, (c + 1) * B)
+        lone = fused_steps_batched(
+            *(a[sl].contiguous() for a in state), tuple(a[c] for a in tiles), table,
+            STEPS_K0, STEPS_K1, bms[c], seeds=seeds[c:c + 1], mode=mode)
+        for name, a, b in zip(("hist", "x'", "mu'", "nu'"), (got[0][:, sl], *(
+                g[sl] for g in got[1:])), lone):
+            assert torch.equal(a, b), f"chromosome {c}: {name} differs from its own launch"
+    ref = fused_steps_plain(*state, tiles, table, STEPS_K0, STEPS_K1, bms, seeds.tolist())
+    got, ref = [a.cpu().numpy() for a in got], [a.cpu().numpy() for a in ref]
+    np.testing.assert_allclose(got[0], ref[0], rtol=2e-5)
+    np.testing.assert_allclose(got[2], ref[2], rtol=5e-4,
+                               atol=1e-5 + 1e-6 * np.abs(ref[2]).max())
+    np.testing.assert_allclose(got[3], ref[3], rtol=5e-4,
+                               atol=1e-8 + 1e-6 * np.abs(ref[3]).max())
+    np.testing.assert_allclose(got[1], ref[1], rtol=5e-4, atol=5e-4)
+
+
+@pytest.mark.parametrize("C,L,B", [(3, 200, 5), (45, 512, 20)])
+def test_cuda_exact_pair_chromosome_axis(cuda_device, C, L, B):
+    """B2 over C chromosomes in one launch equals C launches of one
+    chromosome each, bit for bit, and its twin within tolerance: g with
+    1e-6 x max |g| added to the absolute part, as for B3 and B5 (these random
+    coordinates give gradients to 5e4, and where a bead's gradient cancels
+    the rounding of its largest terms is left: measured 1.2e-3 at L = 512)."""
+    _, (target, w), bms, (xT, _, _), _ = _chromosomes(cuda_device, C, L, B)
+    coords = xT.transpose(1, 2).contiguous()
+    launches = exact_pair_energy_grad.launches
+    e, g = exact_pair_energy_grad(coords, target, w, WEIGHTS, bms)
+    assert exact_pair_energy_grad.launches == launches + 1
+    for c in range(C):
+        sl = slice(c * B, (c + 1) * B)
+        e_c, g_c = exact_pair_energy_grad(coords[sl].contiguous(), target[c], w[c],
+                                          WEIGHTS, bms[c])
+        assert torch.equal(e_c, e[sl]) and torch.equal(g_c, g[sl]), f"chromosome {c}"
+    e_r, g_r = exact_pair_energy_grad_plain(coords, target, w, WEIGHTS, bms)
+    np.testing.assert_allclose(e.cpu().numpy(), e_r.cpu().numpy(), rtol=2e-5)
+    g_r = g_r.cpu().numpy()
+    np.testing.assert_allclose(g.cpu().numpy(), g_r, rtol=2e-4,
+                               atol=2e-4 + 1e-6 * np.abs(g_r).max())

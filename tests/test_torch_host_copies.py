@@ -98,6 +98,24 @@ def test_matrix_io_bytes_and_arrays(tmp_path):
     assert (tmp_path / "p.dist").read_bytes() == (tmp_path / "j.dist").read_bytes()
 
 
+def test_matrix_length_matches_jax(tmp_path):
+    """`matrix_length` (the genome runner's bucketing pre-check): the first
+    row's field count past blank and CRLF lines, a .npy's stored shape, and
+    the same refusals."""
+    m = _matrix(11)
+    raw = "\r\n".join("  " + " ".join(f"{v:.4f}" for v in row) + " " for row in m)
+    (tmp_path / "q.txt").write_text("\r\n\n" + raw + "\r\n")
+    np.save(tmp_path / "m.npy", m.astype(np.float32))
+    np.save(tmp_path / "v.npy", np.zeros(5, np.float32))
+    (tmp_path / "e.txt").write_text("\n\r\n")
+    for path in (tmp_path / "q.txt", tmp_path / "m.npy"):
+        assert port_matrix.matrix_length(path) == jax_matrix.matrix_length(path) == 11
+    for path in (tmp_path / "v.npy", tmp_path / "e.txt"):
+        for mod in (port_matrix, jax_matrix):
+            with pytest.raises(ValueError):
+                mod.matrix_length(path)
+
+
 @pytest.mark.parametrize("bad", ["ragged", "negative", "nan"])
 def test_matrix_loader_rejects_like_jax(tmp_path, bad):
     m = _matrix(6, zeros=False)
@@ -261,6 +279,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     port's scripts: no import of jax or chromosome3d_tpu (or their
     submodules), at any depth of the code."""
     bad = []
+    walked = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for module in ("utils/checkpoint.py", "parallel/genome.py", "solver/anneal.py"):
+        assert os.path.join("chromosome3d_tpu_torch", module) in walked
     for path in _port_sources():
         tree = ast.parse(open(path).read(), path)
         for node in ast.walk(tree):

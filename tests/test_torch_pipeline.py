@@ -143,7 +143,7 @@ def test_run_pipeline_refuses_unported_inputs(tmp_path, tiny_matrix, monkeypatch
                                    PipelineConfig(alpha_ensemble=(0.7,)), device="cpu")
 
 
-@pytest.mark.parametrize("command,item", [("genome", "A7"), ("serve", "A11")])
+@pytest.mark.parametrize("command,item", [("coinit", "A11"), ("serve", "A11")])
 def test_cli_refuses_unported_subcommands(command, item):
     with pytest.raises(NotImplementedError, match=item):
         port_cli.main([command, "-i", "in", "-o", "out"])
