@@ -51,7 +51,8 @@ code is not 0):
                stacks them, L = 512, 20 structures near each truth): one
                launch against the twins, and each chromosome bit for bit
                against a launch of its own (B1 in the same plan mode, over
-               8 steps: history, x', mu', nu'); their times beside their
+               8 steps: history, x', mu', nu'; at B = 20 and at the cool
+               phase's B = 10 a chromosome); their times beside their
                bounds (B1 per step of a 256-step launch at B = 20 and 10 a
                chromosome).
   4. main path — resets the launch counters, runs the port's CLI in process
@@ -75,7 +76,8 @@ code is not 0):
                and only a miss of the same gates there (a fault of the
                method at that length) lets the phase pass. Prints the
                bucket's solve time (timed here, synchronised), its mds_init
-               loop and the ensemble and chromosome steps/s.
+               loop (rerun on its own after the run, on the same arguments)
+               and the ensemble and chromosome steps/s.
   5. at-scale path — writes a ground-truth chromosome shaped like hg19 chr1
                at 50 kb (4,985 beads) as a float32 .npy, resets the counters,
                runs `run -i <.npy> -o <out> -m 10 --no-violation-reports` in
@@ -328,7 +330,7 @@ def check_b1_steps(name, tiles, table, bm, state, n_real, plan_mode):
     for k in range(k0, k1):
         h, *st = fused_steps_batched(*st, tiles, table, k, k + 1, bm)
         hist.append(h[0])
-    ref = fused_steps_plain(*state, tiles, table, k0, k1, bm)
+    ref = fused_steps_plain(*state, tiles, table, k0, k1, bm, [table.seed])
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(got, again)), f"B1 {name}: two launches differ")
     check(all(torch.equal(a, b) for a, b in zip(got, (torch.stack(hist), *st))),
@@ -766,6 +768,23 @@ def timed_calls(module, name, seconds):
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         return out
+
+    setattr(module, name, spy)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+@contextlib.contextmanager
+def recorded_calls(module, name, calls):
+    """Record each call of module.name as (args, kwargs) into `calls`,
+    adding no synchronisation to the run."""
+    real = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
 
     setattr(module, name, spy)
     try:
@@ -1433,7 +1452,8 @@ def genome_bucket_inputs(dev, directory):
 
 def phase_kernels_genome(dev, directory, card):
     """Kernels B1 and B2 with the chromosome axis at the genome bucket's
-    shape (45 chromosomes padded to L = 512, 20 structures each): one launch
+    shapes (45 chromosomes padded to L = 512; B1 at the hot phase's 20
+    structures a chromosome and the cool phase's 10, B2 at 20): one launch
     against the twins and against 45 launches of one chromosome each (B1 in
     the same plan mode), bit for bit; then their times beside their bounds."""
     from chromosome3d_tpu_torch.config import AnnealConfig
@@ -1450,32 +1470,40 @@ def phase_kernels_genome(dev, directory, card):
 
     ex, bms, tiles, state, seeds, w = genome_bucket_inputs(dev, directory)
     B, C = 2 * N_MODELS, C_GENOME
-    plan = fused_steps_plan(L_PAD, B, torch.cuda.get_device_properties(0).multi_processor_count,
-                            C=C)
     table = schedule_table(AnnealConfig(), seed=0)
     k0, k1 = STEPS_CHECK
-    got = fused_steps_batched(*state, tiles, table, k0, k1, bms, seeds=seeds)
-    ref = fused_steps_plain(*state, tiles, table, k0, k1, bms, seeds.tolist())
-    torch.cuda.synchronize()
-    close("B1 genome e", got[0], ref[0], 2e-5)
-    scale = [float(r.abs().max()) for r in ref]
-    close("B1 genome mu'", got[2], ref[2], 5e-4, 1e-5 + STEPS_ATOL * scale[2])
-    close("B1 genome nu'", got[3], ref[3], 5e-4, 1e-8 + STEPS_ATOL * scale[3])
-    b1_err = close("B1 genome x'", got[1], ref[1], 5e-4, 5e-4)
-    for c in range(C):
-        sl = slice(c * B, (c + 1) * B)
-        lone = fused_steps_batched(*(a[sl].contiguous() for a in state),
-                                   tuple(a[c] for a in tiles), table, k0, k1, bms[c],
-                                   seeds=seeds[c:c + 1], mode=plan["mode"])
-        for what, a, b in zip(("history", "x'", "mu'", "nu'"),
-                              (got[0][:, sl], *(g[sl] for g in got[1:])), lone):
-            check(torch.equal(a, b), f"B1 genome: chromosome {c}'s {what} differs from a "
-                  f"launch of its own ({plan['mode']})")
-    print(f"[kernels] B1 fused_steps with the chromosome axis, {C} chromosomes x B={B}, "
-          f"L={L_PAD}, steps {k0}..{k1 - 1} in one launch ({plan['mode']}, {plan['blocks']} "
-          f"blocks: {plan['nsgb']} x {plan['nrgb']}, a structure group a chromosome): == twin "
-          f"(x' max abs err {b1_err:.3g}), each chromosome bitwise a launch of its own in "
-          "the same mode (history, x', mu', nu')")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    # each chromosome's first b structures, as the cool phase keeps one of
+    # each mirror pair (and as the timing below slices the state)
+    sliced = lambda b: tuple(torch.cat([a[c * B:c * B + b] for c in range(C)]) for a in state)
+    plans, b1_err = {}, 0.0
+    for b in (B, N_MODELS):
+        st = sliced(b)
+        plan = plans[b] = fused_steps_plan(L_PAD, b, n_sm, C=C)
+        got = fused_steps_batched(*st, tiles, table, k0, k1, bms, seeds=seeds)
+        ref = fused_steps_plain(*st, tiles, table, k0, k1, bms, seeds.tolist())
+        torch.cuda.synchronize()
+        close(f"B1 genome B={b} e", got[0], ref[0], 2e-5)
+        scale = [float(r.abs().max()) for r in ref]
+        close(f"B1 genome B={b} mu'", got[2], ref[2], 5e-4, 1e-5 + STEPS_ATOL * scale[2])
+        close(f"B1 genome B={b} nu'", got[3], ref[3], 5e-4, 1e-8 + STEPS_ATOL * scale[3])
+        err = close(f"B1 genome B={b} x'", got[1], ref[1], 5e-4, 5e-4)
+        b1_err = max(b1_err, err)
+        for c in range(C):
+            sl = slice(c * b, (c + 1) * b)
+            lone = fused_steps_batched(*(a[sl].contiguous() for a in st),
+                                       tuple(a[c] for a in tiles), table, k0, k1, bms[c],
+                                       seeds=seeds[c:c + 1], mode=plan["mode"])
+            for what, x, y in zip(("history", "x'", "mu'", "nu'"),
+                                  (got[0][:, sl], *(g[sl] for g in got[1:])), lone):
+                check(torch.equal(x, y), f"B1 genome B={b}: chromosome {c}'s {what} differs "
+                      f"from a launch of its own ({plan['mode']})")
+        print(f"[kernels] B1 fused_steps with the chromosome axis, {C} chromosomes x B={b}, "
+              f"L={L_PAD}, steps {k0}..{k1 - 1} in one launch ({plan['mode']}, "
+              f"{plan['blocks']} blocks: {plan['nsgb']} x {plan['nrgb']}, groups of "
+              f"{plan['sg']} structures, a group a chromosome): == twin (x' max abs err "
+              f"{err:.3g}), each chromosome bitwise a launch of its own in the same mode "
+              "(history, x', mu', nu')")
 
     coords = state[0].transpose(1, 2).contiguous()
     e, g = exact_pair_energy_grad(coords, ex.target, ex.w, w, bms)
@@ -1500,7 +1528,7 @@ def phase_kernels_genome(dev, directory, card):
     n_timed = STEPS_TIMED[1] - STEPS_TIMED[0]
     per_step = {}
     for b in (B, N_MODELS):
-        st = tuple(torch.cat([a[c * B:c * B + b] for c in range(C)]) for a in state)
+        st = sliced(b)
         launch = lambda: fused_steps_batched(*st, tiles, table, *STEPS_TIMED, bms, seeds=seeds)
         per_step[b] = (median_ms(launch, 3, warmup=1) / n_timed,
                        event_ms(launch, 3) / n_timed)
@@ -1527,7 +1555,8 @@ def phase_kernels_genome(dev, directory, card):
         "B1": {"max_abs_err": b1_err, "ms": per_step[B][0], "plain_ms": wall["B1 plain"],
                "device_ms": per_step[B][1], "plain_device_ms": on_dev["B1 plain"],
                "ms_b10": per_step[N_MODELS][0], "device_ms_b10": per_step[N_MODELS][1],
-               "bound_ms_b10": bounds["B1 b10"][0], "plan": plan["mode"]},
+               "bound_ms_b10": bounds["B1 b10"][0], "plan": plans[B]["mode"],
+               "plan_b10": plans[N_MODELS]["mode"]},
         "B2": {"max_abs_err": b2_err, "ms": wall["B2"], "plain_ms": wall["B2 plain"],
                "device_ms": on_dev["B2"], "plain_device_ms": on_dev["B2 plain"]},
     }
@@ -1552,10 +1581,10 @@ def phase_genome(directory, truths, card):
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "out")
         reset_counters()
-        buf, solve_t, init_t = io.StringIO(), [], []
+        buf, solve_t, init_calls = io.StringIO(), [], []
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf), timed_calls(genome, "solve_bucket", solve_t), \
-                timed_calls(anneal, "mds_init", init_t):
+                recorded_calls(anneal, "mds_init", init_calls):
             rc = cli.main(["genome", "-i", directory, "-o", out, "-m", str(N_MODELS)])
         wall = time.perf_counter() - t0
         launches, plain = read_counters()
@@ -1563,8 +1592,8 @@ def phase_genome(directory, truths, card):
         check_launches("genome", launches, plain, {"B1": 2, "B2": 1})
         b1_steps = kernel_counters()[0]["B1"].steps
         check(b1_steps == steps, f"genome: B1 ran {b1_steps} steps, want {steps}")
-        check(len(solve_t) == 1 and len(init_t) == C_GENOME,
-              f"genome: {len(solve_t)} bucket solves, {len(init_t)} mds_init calls")
+        check(len(solve_t) == 1 and len(init_calls) == C_GENOME,
+              f"genome: {len(solve_t)} bucket solves, {len(init_calls)} mds_init calls")
         summary = json.load(open(os.path.join(out, "summary.json")))
         check(sorted(summary) == ["chromosomes", "phases", "wall_seconds"]
               and sorted(summary["phases"]) == [f"L{L_PAD}"]
@@ -1607,13 +1636,21 @@ def phase_genome(directory, truths, card):
                 faults.append(name)
                 print(f"[genome] {name} L={L}: the run path misses the same gates ({lone}): "
                       "a fault of the method at this length, not of the genome run")
-    solve_s, init_s = solve_t[0], sum(init_t)
+    # the bucket's mds_init loop again, on the run's own arguments, timed on
+    # its own: a sync around each call inside the run would add to solve_s
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for args, kwargs in init_calls:
+        anneal.mds_init(*args, **kwargs)
+    torch.cuda.synchronize()
+    solve_s, init_s = solve_t[0], time.perf_counter() - t0
     print(f"[genome] genome -i <{C_GENOME} inputs> -m {N_MODELS}: one bucket L={L_PAD}, B1 "
           f"{launches['B1']} launches for {b1_steps} steps, B2 {launches['B2']}, every other "
           f"kernel 0, plain 0; gates met by {C_GENOME - len(faults)} of {C_GENOME}"
           + (f" (faults of the method: {faults})" if faults else ""))
     print(f"[genome] bucket solve {solve_s} s (solve_bucket timed here, synchronised: upload, "
-          f"{C_GENOME} mds_init {init_s} s, B1 x2, B2, final terms), {steps / solve_s} "
+          f"{C_GENOME} mds_init, B1 x2, B2, final terms; the mds_init loop alone, rerun "
+          f"after on the same arguments: {init_s} s), {steps / solve_s} "
           f"ensemble steps/s, {C_GENOME * steps / solve_s} chromosome-steps/s; wall {wall} s "
           f"(summary.json {summary['wall_seconds']}), phases {json.dumps(ph)} on {card}")
     return launches, b1_steps

@@ -119,7 +119,7 @@ struct StepsArgs {
   const float* w;       // (C, L, L) 2 noe w pv
   const float* nb;      // (C, L, L) vdw predicate
   const float* bm;      // (C, L) bead masks
-  const int* seeds;     // (C,) noise seeds, or null: `seed` for every chromosome
+  const int* seeds;     // (C,) noise seeds, one a chromosome
   const float* table;   // row of step k0; kTableCols floats a row
   float* part;          // (k1 - k0, B, nrg x RPW) energy partials of 8 rows each
   float* hist;          // (k1 - k0, B) energies out
@@ -135,7 +135,6 @@ struct StepsArgs {
   int sp;               // structures a pass (staged together)
   int lx;               // staged columns a structure (a multiple of 32 x CPL)
   float b1, b2, eps_adam, bond_w, bond_len, clip;
-  uint32_t seed;
 };
 
 // Structure group sgi: chromosome c's structures [b0, b1). A group never
@@ -406,7 +405,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_steps_kernel(const StepsArg
             float nu = RESIDENT ? mm[1] : a.nu[gidx];
             // the chromosome's noise stream, its structures numbered from 0
             // as in a launch of its own
-            p.seed = a.seeds ? (uint32_t)__ldg(a.seeds + grp.c) : a.seed;
+            p.seed = (uint32_t)__ldg(a.seeds + grp.c);
             xout[gidx] = c3d::adam_move(pick3(c, av[0], av[1], av[2]), g, mu, nu, bmi,
                                         (uint32_t)(i * 3 + c),
                                         c3d::noise_base(p, bg - grp.c * a.n_per), p);
@@ -521,8 +520,7 @@ int launch(const StepsArgs& a, size_t smem, cudaStream_t stream) {
 }  // namespace
 
 // B = C x n_per structures, chromosome-major; t, w, nb (C, L, L), bm (C, L),
-// seeds (C,) or null (then `seed` serves every chromosome); C = 1 is a
-// batch sharing one restraint set. part: (k1 - k0, B, nrg x rpw) scratch;
+// seeds (C,); C = 1 is a batch sharing one restraint set. part: (k1 - k0, B, nrg x rpw) scratch;
 // hist: (k1 - k0, B) out.
 extern "C" int c3d_fused_steps(float* xA, float* xB, float* mu, float* nu, const float* t,
                                const float* w, const float* nb, const float* bm,
@@ -531,13 +529,11 @@ extern "C" int c3d_fused_steps(float* xA, float* xB, float* mu, float* nu, const
                                int cpl, int rpw, int resident, int nsgc, int nsgb,
                                int nrgb, int nrg, int sg, int sp, int lx,
                                int smem_bytes, float b1, float b2, float eps_adam,
-                               float bond_w, float bond_len, float clip, int seed,
-                               void* stream) {
+                               float bond_w, float bond_len, float clip, void* stream) {
   if (n_per < 1 || B % n_per != 0) return (int)cudaErrorInvalidValue;
   const StepsArgs a{xA, xB, mu, nu, t, w, nb, bm, seeds, table, part, hist,
                     B, L, k0, k1, n_per, nsgc, (B / n_per) * nsgc, nsgb, nrgb, nrg,
-                    sg, sp, lx, b1, b2, eps_adam, bond_w, bond_len, clip,
-                    (uint32_t)seed};
+                    sg, sp, lx, b1, b2, eps_adam, bond_w, bond_len, clip};
 #define X(CPL, RPW, RES)                                     \
   if (cpl == CPL && rpw == RPW && (resident != 0) == RES)    \
     return launch<CPL, RPW, RES>(a, (size_t)smem_bytes, (cudaStream_t)stream);

@@ -72,11 +72,11 @@ SIGNATURES = {
     ),
     # xA, xB, mu, nu, t, w, nb, bead_mask, seeds, table row k0, part, hist,
     # B, L, k0, k1, n_per, cpl, rpw, resident, nsgc, nsgb, nrgb, nrg, sg, sp,
-    # lx, smem_bytes, b1, b2, eps, bond_w, bond_len, clip, seed, stream
+    # lx, smem_bytes, b1, b2, eps, bond_w, bond_len, clip, stream
     "c3d_fused_steps": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-        _F, _F, _F, _F, _F, _F, _I, _P,
+        _F, _F, _F, _F, _F, _F, _P,
     ),
     # cpl, rpw, resident, smem_bytes -> co-resident blocks (< 0: -CUDA error)
     "c3d_fused_steps_slots": (_I, _I, _I, _I),

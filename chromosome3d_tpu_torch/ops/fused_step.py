@@ -359,32 +359,34 @@ def _chromosome_args(t: torch.Tensor, B: int):
 
 
 def fused_steps_plain(xT, muT, nuT, tiles, table: ScheduleTable, k0: int, k1: int,
-                      bead_mask, seeds=None):
+                      bead_mask, seeds):
     """Plain twin of the multi-step kernel: steps k0 <= k < k1 of the table
     through fused_step_plain -> (history (k1 - k0, B), xT', muT', nuT').
-    Tiles (C, L, L) and bead_mask (C, L) run each chromosome's B / C
-    structures alone, with its seed seeds[c] (table.seed when None), and
-    stack the results in chromosome order."""
+    seeds: C ints, one noise seed a chromosome. Tiles (L, L) and bead_mask
+    (L,) are one chromosome (C = 1); tiles (C, L, L) and bead_mask (C, L) run
+    each chromosome's B / C structures alone under its seed and stack the
+    results in chromosome order."""
     table.check_range(k0, k1)
-    t = tiles[0]
-    if t.dim() == 3:
-        C, n = _chromosome_args(t, xT.shape[0])
-        seeds = [table.seed] * C if seeds is None else [int(v) for v in seeds]
-        outs = [fused_steps_plain(
-            xT[c * n:(c + 1) * n], muT[c * n:(c + 1) * n], nuT[c * n:(c + 1) * n],
-            tuple(a[c] for a in tiles), table, k0, k1, bead_mask[c], [seeds[c]])
-            for c in range(C)]
-        return (torch.cat([o[0] for o in outs], 1),
-                *(torch.cat([o[i] for o in outs]) for i in (1, 2, 3)))
-    seed = table.seed if seeds is None else int(list(seeds)[0])
-    hist = []
-    for k in range(k0, k1):
-        weights, lr, sigma, bc1, bc2 = table.scalars(k)
-        e, xT, muT, nuT = fused_step_plain(
-            xT, muT, nuT, tiles, weights, bead_mask, lr, sigma, bc1, bc2,
-            seed, k, table.clip, table.b1, table.b2, table.eps_adam)
-        hist.append(e)
-    return torch.stack(hist), xT, muT, nuT
+    seeds = [int(v) for v in seeds]
+    if tiles[0].dim() == 2:
+        tiles, bead_mask = tuple(a[None] for a in tiles), bead_mask[None]
+    C, n = _chromosome_args(tiles[0], xT.shape[0])
+    if len(seeds) != C:
+        raise ValueError(f"{len(seeds)} seeds for {C} chromosomes")
+    outs = []
+    for c in range(C):
+        sl = slice(c * n, (c + 1) * n)
+        x, mu, nu = xT[sl], muT[sl], nuT[sl]
+        hist = []
+        for k in range(k0, k1):
+            weights, lr, sigma, bc1, bc2 = table.scalars(k)
+            e, x, mu, nu = fused_step_plain(
+                x, mu, nu, tuple(a[c] for a in tiles), weights, bead_mask[c], lr, sigma,
+                bc1, bc2, seeds[c], k, table.clip, table.b1, table.b2, table.eps_adam)
+            hist.append(e)
+        outs.append((torch.stack(hist), x, mu, nu))
+    return (torch.cat([o[0] for o in outs], 1),
+            *(torch.cat([o[i] for o in outs]) for i in (1, 2, 3)))
 
 
 def fused_steps_batched(
@@ -398,8 +400,8 @@ def fused_steps_batched(
     each with bead_mask (L,) for a batch sharing one restraint set, or (C,
     L, L) each with bead_mask (C, L) for C chromosomes of B / C structures,
     chromosome-major, with seeds (C,) int32 on the state's device (None:
-    table.seed for all); chromosome c's outputs are bitwise those of a
-    launch of its own in the same plan mode (`mode` forces one, see
+    [table.seed], for C = 1 only); chromosome c's outputs are bitwise those
+    of a launch of its own in the same plan mode (`mode` forces one, see
     fused_steps_plan). CPU tensors run the plain twin; CUDA tensors make
     one cooperative launch of csrc/fused_steps.cu on copies of the state (the
     inputs are left as they are), or raise with the CUDA error."""
@@ -417,14 +419,17 @@ def fused_steps_batched(
     dev = check_inputs(specs)
     if B == 0 or L == 0:
         raise ValueError(f"empty batch: B={B}, L={L}")
-    if seeds is not None and (seeds.dtype != torch.int32 or tuple(seeds.shape) != (C,)
-                              or seeds.device != dev):
+    if seeds is None:
+        if C != 1:
+            raise ValueError(f"seeds must be given for {C} chromosomes")
+        seeds = torch.tensor([_c_int32(table.seed)], dtype=torch.int32, device=dev)
+    if seeds.dtype != torch.int32 or tuple(seeds.shape) != (C,) or seeds.device != dev:
         raise ValueError(f"seeds must be ({C},) int32 on {dev}, got {seeds.dtype} "
                          f"{tuple(seeds.shape)} on {seeds.device}")
     table.check_range(k0, k1)
     if dev.type == "cpu":
         return fused_steps_plain(xT, muT, nuT, tiles, table, k0, k1, bead_mask,
-                                 None if seeds is None else seeds.tolist())
+                                 seeds.tolist())
     lib = _build.load_library()
     nk = k1 - k0
     plan = fused_steps_plan(
@@ -439,13 +444,13 @@ def fused_steps_batched(
         err = lib.c3d_fused_steps(
             x_a.data_ptr(), x_b.data_ptr(), mu.data_ptr(), nu.data_ptr(),
             t.data_ptr(), w.data_ptr(), nb.data_ptr(), bead_mask.data_ptr(),
-            None if seeds is None else seeds.data_ptr(), rows.data_ptr(),
+            seeds.data_ptr(), rows.data_ptr(),
             part.data_ptr(), hist.data_ptr(), B, L, k0, k1, n,
             plan["cpl"], plan["rpw"], int(plan["mode"] == "resident"), plan["nsgc"],
             plan["nsgb"], plan["nrgb"], plan["nrg"], plan["sg"], plan["sp"], plan["lx"],
             plan["smem_bytes"], table.b1, table.b2, table.eps_adam,
             table.base.bond, table.base.bond_length,
-            -1.0 if table.clip is None else table.clip, _c_int32(table.seed),
+            -1.0 if table.clip is None else table.clip,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, "c3d_fused_steps")

@@ -274,25 +274,13 @@ def pair_energy_and_grad_batched(
     and the whole-matrix kernel B2 otherwise; general restraints take B5
     (there is no triangular variant of the general well); exact=True reads
     lo as the target. Restraints of (C, L, L) tensors with bead_mask (C, L)
-    hold C chromosomes of B / C structures each, chromosome-major: B2 takes
-    them in one launch (exact restraints below the triangular kernel's
-    lengths, a genome bucket's pick; other routes raise). Returns (energies
-    (B,), gradients (B, L, 3))."""
+    hold C chromosomes of B / C structures each, chromosome-major (a genome
+    bucket's pick); only B2 has that axis. Returns (energies (B,), gradients
+    (B, L, 3))."""
     # imported here: both build on this module
     from chromosome3d_tpu_torch.ops import general_pair, tri_energy
 
     L = coords.shape[1]
-    if bead_mask.dim() == 2:
-        if not exact or tri_energy.use_triangular(L, for_unfused=True):
-            raise NotImplementedError(
-                "a chromosome axis is ported for kernel B2 only (exact restraints, "
-                f"L < 1024), not for exact={exact} at L={L}")
-        target, w = (a.contiguous() for a in exact_pair_tiles(restraints))
-        e_pair, g_pair = exact_pair_energy_grad(coords, target, w, weights, bead_mask)
-        n = coords.shape[0] // bead_mask.shape[0]
-        e_bond, g_bond = bond_energy_grad(
-            coords, weights, bead_mask.repeat_interleave(n, dim=0))
-        return e_pair + e_bond, g_pair + g_bond
     if not exact:
         e_pair, gT = general_pair.general_pair_energy_grad(
             coords.transpose(1, 2).contiguous(),
@@ -309,5 +297,7 @@ def pair_energy_and_grad_batched(
         target, w = (a.contiguous() for a in exact_pair_tiles(restraints))
         e_pair, g_pair = exact_pair_energy_grad(coords, target, w, weights,
                                                 bead_mask)
+    if bead_mask.dim() == 2:   # each structure its chromosome's mask
+        bead_mask = bead_mask.repeat_interleave(coords.shape[0] // bead_mask.shape[0], 0)
     e_bond, g_bond = bond_energy_grad(coords, weights, bead_mask)
     return e_pair + e_bond, g_pair + g_bond

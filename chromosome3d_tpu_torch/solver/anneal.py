@@ -302,8 +302,10 @@ def _solve_stack(rs, stacked, cfg: AnnealConfig, n_models: int, bead_masks: torc
     dev = xs.device
     exact = cfg.exact_restraints and cfg.noe_rswitch >= 1e8
     fused = _fused_route(cfg, L, or_groups)
-    if C > 1 and not fused:
-        raise NotImplementedError("a stack of chromosomes runs on kernel B1's route only")
+    if C > 1 and (not fused or tri_energy.use_triangular(L, for_unfused=True)):
+        raise NotImplementedError(
+            "a stack of chromosomes runs on kernels B1 and B2 only (exact restraints, "
+            f"fused step, L < 1024), not at L={L}")
 
     table = schedule_table(cfg, noise_seeds[0])
     base = table.base
@@ -320,8 +322,8 @@ def _solve_stack(rs, stacked, cfg: AnnealConfig, n_models: int, bead_masks: torc
         # which walks the table's rows itself, every chromosome in one launch
         tiles = [fused_step_tiles(r, bm, base.noe) for r, bm in zip(rs, bead_masks)]
         tiles = tuple(a[0][None] if C == 1 else torch.stack(a) for a in zip(*tiles))
-        seeds = None if C == 1 else torch.tensor(
-            [_c_int32(v) for v in noise_seeds], dtype=torch.int32, device=dev)
+        seeds = torch.tensor([_c_int32(v) for v in noise_seeds], dtype=torch.int32,
+                             device=dev)
 
         def run(k0: int, k1: int, xT, muT, nuT, hist):
             hist[k0:k1], xT, muT, nuT = fused_steps_batched(

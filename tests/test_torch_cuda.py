@@ -164,7 +164,8 @@ def test_cuda_fused_steps_matches_plain(cuda_device, L, n_real, B, mode):
         hist.append(h[0])
     for a, b in zip(got, (torch.stack(hist), *st)):
         assert torch.equal(a, b)
-    ref = fused_steps_plain(x, mu, nu, tiles, table, STEPS_K0, STEPS_K1, bm)
+    ref = fused_steps_plain(x, mu, nu, tiles, table, STEPS_K0, STEPS_K1, bm,
+                            [table.seed])
     got, ref = [a.cpu().numpy() for a in got], [a.cpu().numpy() for a in ref]
     errs = [float(np.abs(g - r).max()) for g, r in zip(got, ref)]
     print(f"fused_steps L={L} B={B} {plan['mode']} blocks={plan['blocks']}: max abs err "

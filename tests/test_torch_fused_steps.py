@@ -202,14 +202,15 @@ def test_fused_steps_plain_is_the_loop(L, n_real, B):
         return torch.stack(hist), st
 
     calls = fused_step_plain.calls
-    h1, x1, mu1, nu1 = fused_steps_plain(*state, tiles, table, hot - 3, hot, bm)
+    h1, x1, mu1, nu1 = fused_steps_plain(*state, tiles, table, hot - 3, hot, bm,
+                                         [table.seed])
     assert fused_step_plain.calls == calls + 3
     h1_ref, st_ref = loop(hot - 3, hot, list(state))
     assert torch.equal(h1, h1_ref) and h1.shape == (3, B)
     for a, b in zip((x1, mu1, nu1), st_ref):
         assert torch.equal(a, b)
     h2, x2, mu2, nu2 = fused_steps_plain(x1[pick], mu1[pick], nu1[pick], tiles, table,
-                                         hot, hot + 4, bm)
+                                         hot, hot + 4, bm, [table.seed])
     h2_ref, st2_ref = loop(hot, hot + 4, [a[pick] for a in st_ref])
     assert torch.equal(h2, h2_ref) and h2.shape == (4, B // 2)
     for a, b in zip((x2, mu2, nu2), st2_ref):
@@ -274,7 +275,7 @@ def test_fused_steps_plain_matches_jax_scan(L, n_real, B, clip):
     cfg = dataclasses.replace(fast_anneal(AnnealConfig(), 0.1), gradient_clip=clip)
     table = port_anneal.schedule_table(cfg, seed=2**31 - 5)
     k0, k1 = cfg.hot_steps - 3, cfg.hot_steps + 3          # across the boundary
-    hist, x, mu, nu = fused_steps_plain(*state, tiles, table, k0, k1, bm)
+    hist, x, mu, nu = fused_steps_plain(*state, tiles, table, k0, k1, bm, [table.seed])
     hist_r, (x_r, mu_r, nu_r) = _jax_scan(
         dense, w, bead, [a.numpy() for a in state], table.rows[k0:k1], table.seed, k0, clip)
     np.testing.assert_allclose(hist.numpy(), hist_r, rtol=2e-5)
@@ -295,7 +296,7 @@ def test_fused_steps_noise_bitwise_over_two_steps(k0):
     _, w_t, _ = from_jax_numpy(dense, w, ())
     table = ScheduleTable(rows=rows, base=w_t, clip=None, seed=seed, first=k0)
     z = torch.zeros_like(state[0])
-    _, x, _, _ = fused_steps_plain(z, z, z, tiles, table, k0, k0 + 2, bm)
+    _, x, _, _ = fused_steps_plain(z, z, z, tiles, table, k0, k0 + 2, bm, [table.seed])
     _, (x_r, _, _) = _jax_scan(dense, w, bead, [z.numpy()] * 3, rows, seed, k0, None)
     want = clt4_noise(seed, k0, 3, 40, "cpu") + clt4_noise(seed, k0 + 1, 3, 40, "cpu")
     assert np.array_equal(_bits(x.numpy()), _bits(x_r))

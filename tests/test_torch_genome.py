@@ -44,6 +44,7 @@ from chromosome3d_tpu_torch.ops.fused_step import (
     fused_step_plain,
     fused_step_tiles,
     fused_steps_batched,
+    fused_steps_plain,
     fused_steps_plan,
     one_step_table,
 )
@@ -248,6 +249,10 @@ def test_chromosome_axis_wrappers_check_shapes(genome_dir):
         fused_steps_batched(*st, tiles, table, 0, 1, bm[0])
     with pytest.raises(ValueError, match="seeds"):
         fused_steps_batched(*st, tiles, table, 0, 1, bm, seeds=torch.zeros(C + 1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="seeds must be given"):
+        fused_steps_batched(*st, tiles, table, 0, 1, bm)
+    with pytest.raises(ValueError, match="seeds for"):
+        fused_steps_plain(*st, tiles, table, 0, 1, bm, [0] * (C + 1))
     coords = torch.from_numpy(x.reshape(C * B, L, 3))
     with pytest.raises(ValueError, match="do not divide"):
         exact_pair_energy_grad(coords[:-1], r_t.target, r_t.w, w_t, bm)
