@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py        # from the repository root, one card
 
-Phases (each prints one line or a few; any failure raises, so the exit
-code is not 0):
+Phases (each prints one line or a few, then its wall seconds as a
+`[seconds]` line; any failure raises, so the exit code is not 0):
   1. device  — requires torch.cuda.is_available(); prints the card's name,
                compute capability and `nvidia-smi` name/power-limit line.
   2. build   — builds the kernels from chromosome3d_tpu_torch/csrc/*.cu.
@@ -108,12 +108,36 @@ code is not 0):
                pipeline's helper (B2', the sharded landmark start). Each
                checks the launch counts, every other kernel and twin 0, and
                the ground-truth gates.
+  12-16. past L_pad = 8192 on one card — an 8,000-bead truth, its IF built
+               in row strips on the card (truth.if_from_structure_strips,
+               noise 0.1) and shape B's `.rr` of it (|i - j| <= 32 plus
+               400,000 long-range rows): (12) B3 on the on-card prep's tiles
+               and B5 on the `.rr`'s at L_pad = 8192, B = 20, each against
+               its twin over the whole matrix, timed; (13) phase 5's `run` at
+               8,000 -> 8192 (B3 x2761, B4 x2760, the row-chunked final terms
+               once, the prep on the card, the gates); (14) phase 7's `solve`
+               at 8,000 -> 8192 (B5 x2761, B4 x2760, two-sided landmark, the
+               chunked terms once, the gates); (15) the streamed prep and
+               assessment view against the one-shot ones at L_pad = 8192 in
+               1,024-row strips (an integer band matrix at alpha 1: absolute
+               weights and every target bit for bit, relative weights within
+               rtol 3e-6); (16) the first multiple of 512 whose one-shot prep
+               takes more than a quarter of the card (26,112 on an H100 80GB),
+               L_true = L_pad - 112: truth by strips, the prep streaming by
+               itself (a spy, no patched threshold), solve_ensemble_impl
+               (landmark init, B3 x2761, B4 x2760, the chunked terms), the
+               device peak beside pipeline.solve_peak_bytes, B3 and B4 there
+               against their twins (B3's over the whole matrix), the streamed
+               assessment view, and the gates from reconstruction_metrics'
+               sampled pairs (no host assess_ensemble at this size).
 Then one JSON line with the kernels' numbers (each with its launches on its
 path, its wall and device ms and its twin's — for B1 per step of a 256-step
 launch, with the steps it ran on the main path — its bound from the H100's
 FP32 and HBM peaks, and library_ms null:
 no single PyTorch call computes a kernel's function; B1 and B2 also at the
-genome bucket's shape, with their launches on the genome path) and, last,
+genome bucket's shape, with their launches on the genome path; B3 and B5
+at L_pad = 8192 and B3 and B4 at the streamed length, with the launches of
+phases 13, 14 and 16) and, last,
 the result line `{"ok": true, "device": {...}}`.
 """
 
@@ -223,6 +247,17 @@ def event_ms(fn, n: int = 25) -> float:
     ms = start.elapsed_time(end) / n
     check(ms > 0, "CUDA events timed no device work")
     return ms
+
+
+def long_kernel_ms(fn, n, key, on_dev):
+    """For a kernel of a millisecond or more: its device ms from CUDA events
+    around n queued calls (accurate at that length), put in place of the
+    profiler's in on_dev, whose traces were seen to drop part of such
+    kernels' time (B3 at L = 26112: 6.98 against 9.83 ms). Returns the
+    profiler's number."""
+    traced = on_dev[key]
+    on_dev[key] = event_ms(fn, n)
+    return traced
 
 
 def timing(err, key, wall, on_dev):
@@ -845,31 +880,57 @@ def phase_main_path(X, M, card):
 
 
 @contextlib.contextmanager
+def one_device_too_small():
+    """The pipeline reads every device's memory as 0 bytes, so a one-device
+    solve does not fit and a run past the buckets row-shards over the shard
+    devices (pipeline._use_sharded)."""
+    from chromosome3d_tpu_torch import pipeline
+
+    real = pipeline._memory_bytes
+    pipeline._memory_bytes = lambda dev: 0
+    try:
+        yield
+    finally:
+        pipeline._memory_bytes = real
+
+
+@contextlib.contextmanager
 def shard_devices_on_card(shards):
-    """With shards > 1, device.shard_devices lists cuda:0 that many times, so
-    the pipeline row-shards over copies of the one card."""
+    """With shards > 1, device.shard_devices lists cuda:0 that many times and
+    the one-device solve is made not to fit, so the pipeline row-shards over
+    copies of the one card."""
     from chromosome3d_tpu_torch import device
 
     real = device.shard_devices
     if shards > 1:
         device.shard_devices = lambda: [torch.device("cuda", 0)] * shards
     try:
-        yield
+        with one_device_too_small() if shards > 1 else contextlib.nullcontext():
+            yield
     finally:
         device.shard_devices = real
 
 
 def phase_at_scale_path(X, M, card, shards=1):
-    """`run` on the 4,985-bead .npy: on one device (B3 + B4), or row-sharded
-    over `shards` copies of the card (B6 on every shard + B4)."""
-    from chromosome3d_tpu_torch import cli
+    """`run` on a ground-truth .npy past the buckets (the 4,985-bead one, or
+    8,000 beads past CHUNKED_TERMS_MIN_L): on one device (B3 + B4, the
+    final terms row-chunked from L_pad = 8192), or row-sharded over `shards`
+    copies of the card (B6 on every shard + B4)."""
+    from chromosome3d_tpu_torch import cli, pipeline
     from chromosome3d_tpu_torch.config import AnnealConfig
     from chromosome3d_tpu_torch.ops import device_prep
+    from chromosome3d_tpu_torch.solver import anneal
 
     steps = AnnealConfig().total_steps
+    L = len(X)
+    L_pad = pipeline.quantum_bucket(L, 512, shards)
     tag = "at-scale path" if shards == 1 else f"sharded run x{shards}"
+    if L_pad != L_BIG_PAD:
+        tag = f"{tag} L={L_pad}"
     want = ({"B3": steps + 1, "B4": steps} if shards == 1
             else {"B6": shards * (steps + 1), "B4": steps})
+    want_chunked = int(shards == 1 and L_pad >= anneal.CHUNKED_TERMS_MIN_L)
+    chunked = []
     preps = []
     real_prep = device_prep.exact_tiles_from_if_device
 
@@ -880,7 +941,7 @@ def phase_at_scale_path(X, M, card, shards=1):
         return tiles
 
     with tempfile.TemporaryDirectory() as tmp:
-        ident = f"chrT_{L_BIG}"
+        ident = f"chrT_{L}"
         path = os.path.join(tmp, f"{ident}.npy")
         np.save(path, M)
         out = os.path.join(tmp, "out")
@@ -889,7 +950,8 @@ def phase_at_scale_path(X, M, card, shards=1):
         buf, solve_t = io.StringIO(), []
         try:
             with contextlib.redirect_stdout(buf), shard_devices_on_card(shards), \
-                    timed_solve(solve_t):
+                    timed_solve(solve_t), recorded_calls(anneal, "energy_terms_chunked",
+                                                         chunked):
                 rc = cli.main(["run", "-i", path, "-o", out, "-m", str(N_MODELS),
                                "--no-violation-reports"])
         finally:
@@ -897,6 +959,9 @@ def phase_at_scale_path(X, M, card, shards=1):
         launches, plain = read_counters()
         check(rc == 0, f"cli run returned {rc}")
         check_launches(tag, launches, plain, want)
+        check(len(chunked) == want_chunked,
+              f"{tag}: the row-chunked final terms ran {len(chunked)} times, "
+              f"want {want_chunked}")
         check(preps == [(shards, {"cuda"}), (1, {"cuda"})],
               f"restraint prep ran as {preps}, want {shards} strip(s) on the card for "
               "the solve, then the whole assessment view on the card")
@@ -911,9 +976,10 @@ def phase_at_scale_path(X, M, card, shards=1):
         check(len(ranked) == N_MODELS, f"{len(ranked)} rank PDBs, want {N_MODELS}")
         met = check_gates(ranked[0], X)
     solve_s = solve_t[0]
-    print(f"[{tag}] run -i .npy -m {N_MODELS}, L={L_BIG}->{L_BIG_PAD}: "
+    print(f"[{tag}] run -i .npy -m {N_MODELS}, L={L}->{L_pad}: "
           + ", ".join(f"{k} {launches[k]} launches" for k in want)
-          + f", every other kernel 0, plain 0; restraint prep on the card "
+          + f", every other kernel 0, plain 0; row-chunked final terms {len(chunked)} "
+          f"call(s); restraint prep on the card "
           f"({shards} strip(s), then the assessment view); no .dist/.rr/contact.tbl; "
           f"{summary['restraints']} restraints; rank01 rmsd/Rg {met['rmsd_over_rg']:.4f}, "
           f"spearman_d {met['spearman_d']:.5f}, dRMSD_rel {met['drmsd_rel']:.4f}; best "
@@ -939,6 +1005,26 @@ def write_windowed_rr(path, X, ii, jj, rng):
     return n
 
 
+def write_band_rr(path, X):
+    """Shape B's `.rr` for the truth X: every pair with |i - j| <= B_BAND
+    plus B_LONG distinct long-range pairs, windowed (write_windowed_rr),
+    sorted by (i, j). Returns the row count."""
+    L = len(X)
+    rng = np.random.default_rng(SEED)
+    near = [(np.arange(L - k), np.arange(k, L)) for k in range(1, B_BAND + 1)]
+    keys = np.empty(0, np.int64)
+    while len(keys) < B_LONG:
+        a, b = rng.integers(0, L, (2, B_LONG))
+        lo_, hi_ = np.minimum(a, b), np.maximum(a, b)
+        keep = hi_ - lo_ > B_BAND
+        keys = np.unique(np.concatenate([keys, lo_[keep] * L + hi_[keep]]))
+    keys = rng.permutation(keys)[:B_LONG]
+    ii = np.concatenate([i for i, _ in near] + [keys // L])
+    jj = np.concatenate([j for _, j in near] + [keys % L])
+    order = np.lexsort((jj, ii))
+    return write_windowed_rr(path, X, ii[order], jj[order], rng)
+
+
 def make_solve_inputs(tmp):
     """The `solve` paths' restraint files (shapes A, B and C) and truths."""
     from chromosome3d_tpu_torch.config import RestraintConfig
@@ -951,20 +1037,8 @@ def make_solve_inputs(tmp):
     n_a = write_windowed_rr(path_a, XA, ii, jj, np.random.default_rng(SEED))
 
     XB = confined_walk(L_BIG, seed=SEED)
-    rng = np.random.default_rng(SEED)
-    near = [(np.arange(L_BIG - k), np.arange(k, L_BIG)) for k in range(1, B_BAND + 1)]
-    keys = np.empty(0, np.int64)
-    while len(keys) < B_LONG:
-        a, b = rng.integers(0, L_BIG, (2, B_LONG))
-        lo_, hi_ = np.minimum(a, b), np.maximum(a, b)
-        keep = hi_ - lo_ > B_BAND
-        keys = np.unique(np.concatenate([keys, lo_[keep] * L_BIG + hi_[keep]]))
-    keys = rng.permutation(keys)[:B_LONG]
-    ii = np.concatenate([i for i, _ in near] + [keys // L_BIG])
-    jj = np.concatenate([j for _, j in near] + [keys % L_BIG])
-    order = np.lexsort((jj, ii))
     path_b = os.path.join(tmp, f"ext_{L_BIG}.rr")
-    n_b = write_windowed_rr(path_b, XB, ii[order], jj[order], rng)
+    n_b = write_band_rr(path_b, XB)
 
     path_c = os.path.join(tmp, f"ext_{L_TRUE}_groups.tbl")
     write_contact_tbl(path_c, path_a, RestraintConfig())
@@ -1115,9 +1189,10 @@ def phase_solve_path(shape, inputs, init, card, shards=1):
             setattr(key[0], key[1], og_spy(key) if key[1] == "or_group_energy_grad"
                     else init_spy(key))
         reset_counters()
-        buf = io.StringIO()
+        buf, chunked = io.StringIO(), []
         try:
-            with contextlib.redirect_stdout(buf), shard_devices_on_card(shards):
+            with contextlib.redirect_stdout(buf), shard_devices_on_card(shards), \
+                    recorded_calls(anneal, "energy_terms_chunked", chunked):
                 rc = cli.main(["solve", "-r", path, "-o", out, "-m", str(N_MODELS)])
         finally:
             for key, fn in real.items():
@@ -1134,6 +1209,11 @@ def phase_solve_path(shape, inputs, init, card, shards=1):
               f"the or-group term ran {og_calls[0]} times, want {want_og}")
         summary = json.loads(buf.getvalue().strip().splitlines()[-1])
         check(summary["or_groups"] == groups, f"{summary['or_groups']} or-groups")
+        want_chunked = int(shards == 1
+                           and summary["L_solved"] >= anneal.CHUNKED_TERMS_MIN_L)
+        check(len(chunked) == want_chunked,
+              f"{tag}: the row-chunked final terms ran {len(chunked)} times, "
+              f"want {want_chunked}")
         for name in (f"{ident}_violation.txt", "model_info.log", "summary.json",
                      f"{ident}_model1.pdb"):
             check(os.path.isfile(os.path.join(out, name)), f"artifact {name} missing")
@@ -1142,7 +1222,8 @@ def phase_solve_path(shape, inputs, init, card, shards=1):
     print(f"[{tag}] solve -r {os.path.basename(path)} -m {N_MODELS}, "
           f"L={summary['L']}->{summary['L_solved']}: "
           + ", ".join(f"{k} {launches[k]} launches" for k in want)
-          + f", every other kernel 0, plain 0; two-sided {init}; "
+          + f", every other kernel 0, plain 0; two-sided {init}; row-chunked final "
+          f"terms {len(chunked)} call(s); "
           f"or-group term {og_calls[0]} times ({groups} rows); {summary['restraints']} "
           f"restraints, {summary['satisfied']}/{summary['total']} satisfied; rank01 "
           f"rmsd/Rg {met['rmsd_over_rg']:.4f}, spearman_d {met['spearman_d']:.5f}, "
@@ -1656,6 +1737,300 @@ def phase_genome(directory, truths, card):
     return launches, b1_steps
 
 
+# past CHUNKED_TERMS_MIN_L: an 8,000-bead truth padded to 8192
+L_8K, L_8K_PAD = 8000, 8192
+# the streamed phase's padding: L_true = L_pad - 112, a ragged bead mask
+STREAM_PAD_BEADS = 112
+
+
+def inputs_8k(dev, tmp):
+    """The 8,000-bead truth, its IF matrix with noise 0.1 built in strips on
+    the card (float32, as the .npy holds it), and shape B's `.rr` of it."""
+    from chromosome3d_tpu_torch.truth import confined_walk, if_from_structure_strips
+
+    X = confined_walk(L_8K, seed=SEED)
+    t0 = time.perf_counter()
+    M = if_from_structure_strips(X, alpha=0.5, noise_sigma=0.1, seed=SEED, device=dev)
+    strips_s = time.perf_counter() - t0
+    check(M.shape == (L_8K, L_8K) and M.dtype == np.float32 and np.isfinite(M).all(),
+          "malformed strip IF matrix")
+    path = os.path.join(tmp, f"ext_{L_8K}.rr")
+    n = write_band_rr(path, X)
+    print(f"[inputs] L={L_8K}: IF by strips on the card in {strips_s:.3f} s; shape B "
+          f"{n} .rr rows ({os.path.getsize(path)} bytes)")
+    return X, M, path
+
+
+def phase_kernels_8k(dev, X, M, rr_path):
+    """B3 on the tiles `run` builds from the 8,000-bead IF at L_pad = 8192,
+    B5 on the tiles `solve` builds from its shape-B `.rr`, each at B = 20
+    against its twin over the whole matrix (check_b3, check_b5), timed."""
+    from chromosome3d_tpu_torch.config import AnnealConfig, RestraintConfig
+    from chromosome3d_tpu_torch.ops.device_prep import exact_tiles_from_if_device
+    from chromosome3d_tpu_torch.ops.energy import auto_weight_exponent
+    from chromosome3d_tpu_torch.ops.general_pair import (
+        general_pair_energy_grad,
+        general_pair_energy_grad_plain,
+    )
+    from chromosome3d_tpu_torch.ops.tri_energy import tri_energy_grad, tri_energy_grad_plain
+    from chromosome3d_tpu_torch.solver.anneal import _final_weights
+
+    w = _final_weights(AnnealConfig())
+    rc = RestraintConfig(kscaling=11.0, alpha=0.5)      # the CLI's defaults
+    ex = exact_tiles_from_if_device(M, L_8K_PAD, rc, rc.weighting,
+                                    auto_weight_exponent(L_8K), device=dev)
+    bm, xT, _, _ = ensemble_near(X, L_8K_PAD, dev)
+    b3_err, g = check_b3(f"(B=20, L={L_8K_PAD})", ex, bm, xT, w, L_8K)
+    calls = {"B3": lambda: tri_energy_grad(xT, ex.target, ex.w, w, bm),
+             "B3 plain": lambda: tri_energy_grad_plain(xT, ex.target, ex.w, w, bm)}
+    n = {"B3": 25, "B3 plain": 3}
+    wall = {k: median_ms(fn, n[k], warmup=1) for k, fn in calls.items()}
+    on_dev = {k: device_ms(fn, n[k]) for k, fn in calls.items()}
+    traced = long_kernel_ms(calls["B3"], n["B3"], "B3", on_dev)
+    print(f"[kernels] B3 exact_tri == plain at B=20, L={L_8K}->{L_8K_PAD} on the on-card "
+          f"prep's tiles (twin over all rows; g max abs err {b3_err:.3g}, max |g| "
+          f"{float(g.abs().max()):.4g}); bits equal over two calls; ms a call, median "
+          f"wall of 25 (3 for the twin) | device (B3 by CUDA events, the twin by "
+          "torch.profiler): " + "; ".join(f"{k} {wall[k]:.4f} | {on_dev[k]:.4f}" for k in calls)
+          + f"; B3 by torch.profiler {traced:.4f}")
+    out = {"B3@8192": timing(b3_err, "B3", wall, on_dev)}
+    del ex, calls, g
+    torch.cuda.empty_cache()
+
+    tiles = solve_tiles(rr_path, L_8K_PAD, dev)
+    b5_err = check_b5(f"(B=20, L={L_8K_PAD})", xT, tiles, w, bm, L_8K)
+    calls = {"B5": lambda: general_pair_energy_grad(xT, *tiles, w, bm),
+             "B5 plain": lambda: general_pair_energy_grad_plain(xT, *tiles, w, bm)}
+    n = {"B5": 25, "B5 plain": 3}
+    wall = {k: median_ms(fn, n[k], warmup=1) for k, fn in calls.items()}
+    on_dev = {k: device_ms(fn, n[k]) for k, fn in calls.items()}
+    traced = long_kernel_ms(calls["B5"], n["B5"], "B5", on_dev)
+    print(f"[kernels] B5 general_pair == plain at B=20, L={L_8K}->{L_8K_PAD} on shape B's "
+          f"tiles of the {L_8K}-bead truth (twin over all rows; g max abs err "
+          f"{b5_err:.3g}); bits equal over two calls; ms a call, median wall of 25 (3 "
+          "for the twin) | device (B5 by CUDA events, the twin by torch.profiler): "
+          + "; ".join(f"{k} {wall[k]:.4f} | {on_dev[k]:.4f}" for k in calls)
+          + f"; B5 by torch.profiler {traced:.4f}")
+    out["B5@8192"] = timing(b5_err, "B5", wall, on_dev)
+    del tiles, calls
+    torch.cuda.empty_cache()
+    return out
+
+
+def band_integer_matrix(n, half_width=150, seed=11):
+    """An (n, n) IF matrix of small integers on the band |i - j| <= half_width
+    (64 on the diagonal, one zero pair, 0 off the band): with alpha = 1 every
+    partial sum of IF^alpha is an integer under 2^24, exact in float32 in
+    any order, so the streamed and the one-shot means are equal bit for bit
+    on the card too."""
+    rng = np.random.RandomState(seed)
+    i, j = np.indices((n, n), dtype=np.int32)
+    base = rng.randint(1, 9, size=(n, n)).astype(np.float32)
+    m = np.where(np.abs(i - j) <= half_width, np.maximum(base, base.T), 0.0)
+    np.fill_diagonal(m, 64.0)
+    m[2, 30] = m[30, 2] = 0.0
+    check(float(m.sum(dtype=np.float64)) < 2**24, "band matrix sum is not exact in float32")
+    return m.astype(np.float32)
+
+
+def phase_streamed_vs_one_shot(dev):
+    """The streamed prep and assessment view against the one-shot ones on the
+    card at L_pad = 8192, strip_rows = 1024 (8,092 true beads): absolute
+    weighting on an integer matrix at alpha 1 bit for bit, relative weights
+    within rtol 3e-6, atol 1e-8 (tests/test_device_prep.py:369), and the
+    streamed view equal to the downloaded one-shot view."""
+    from chromosome3d_tpu_torch.config import RestraintConfig
+    from chromosome3d_tpu_torch.ops import device_prep
+    from chromosome3d_tpu_torch.ops.energy import auto_weight_exponent
+
+    n, L_pad, S = L_8K_PAD - 100, L_8K_PAD, 1024
+    m = band_integer_matrix(n)
+    rc = RestraintConfig(alpha=1.0)
+    p = auto_weight_exponent(n)
+    check(not device_prep.should_stream_prep(L_pad, dev),
+          f"L_pad={L_pad} streams on this card: no one-shot route to compare with")
+    for weighting in ("absolute", "relative"):
+        one = device_prep.exact_tiles_from_if_device(m, L_pad, rc, weighting, p, device=dev)
+        st = device_prep.exact_tiles_from_if_streamed(m, L_pad, rc, weighting, p,
+                                                      strip_rows=S, device=dev)
+        check(torch.equal(st.target, one.target),
+              f"streamed targets differ from the one-shot ({weighting})")
+        if weighting == "absolute":
+            check(torch.equal(st.w, one.w), "streamed absolute weights differ")
+            w_err = 0.0
+        else:
+            w_err = close("streamed relative weights", st.w, one.w, 3e-6, 1e-8)
+        t_one = one.target[:n, :n].cpu().numpy()
+        w_one = one.w[:n, :n].cpu().numpy()
+        del one, st
+        t_v, w_v = device_prep.assessment_view_from_if_streamed(
+            m, L_pad, rc, weighting, p, strip_rows=S, device=dev)
+        check(np.array_equal(t_v, t_one), f"streamed view targets differ ({weighting})")
+        if weighting == "absolute":
+            check(np.array_equal(w_v, w_one), "streamed view absolute weights differ")
+        else:
+            close("streamed view relative weights", torch.from_numpy(w_v),
+                  torch.from_numpy(w_one), 3e-6, 1e-8)
+        print(f"[streamed prep] {weighting}: L={n}->{L_pad}, {S}-row strips on the card: "
+              "targets bit-equal to the one-shot prep, weights "
+              + ("bit-equal" if weighting == "absolute"
+                 else f"within rtol 3e-6 (max abs err {w_err:.3g})")
+              + f"; the streamed view equals the downloaded one-shot view "
+              f"({int((t_v > 0).sum())} restraints)")
+        torch.cuda.empty_cache()
+
+
+def phase_streamed(dev, card):
+    """The one-device `run` route at the first padded length whose one-shot
+    prep would take more than a quarter of this card (26,112 on an H100
+    80GB): truth by strips on the card, exact_tiles_from_if_device taking
+    the streamed route by itself, solve_ensemble_impl (landmark init, B3 +
+    B4, row-chunked final terms), then B3 and B4 against their twins on the
+    solve's tiles, then the streamed assessment view. The gates from
+    reconstruction_metrics on the lowest-NOE-energy model (sampled pairs);
+    the host assess_ensemble is not run at this size."""
+    from chromosome3d_tpu_torch import pipeline
+    from chromosome3d_tpu_torch.config import AnnealConfig, PipelineConfig, RestraintConfig
+    from chromosome3d_tpu_torch.ops import device_prep
+    from chromosome3d_tpu_torch.ops.energy import auto_weight_exponent
+    from chromosome3d_tpu_torch.ops.fused_update import fused_update_plain, fused_update_table, step_counter
+    from chromosome3d_tpu_torch.ops.tri_energy import tri_energy_grad, tri_energy_grad_plain
+    from chromosome3d_tpu_torch.solver import anneal
+    from chromosome3d_tpu_torch.solver.anneal import _final_weights, schedule_table
+    from chromosome3d_tpu_torch.truth import (
+        confined_walk,
+        if_from_structure_strips,
+        reconstruction_metrics,
+    )
+
+    L_pad = next(Lp for Lp in range(512, 1 << 20, 512)
+                 if device_prep.should_stream_prep(Lp, dev))
+    L = L_pad - STREAM_PAD_BEADS
+    mem = torch.cuda.get_device_properties(dev).total_memory
+    X = confined_walk(L, seed=SEED)
+    t0 = time.perf_counter()
+    M = if_from_structure_strips(X, alpha=0.5, noise_sigma=0.1, seed=SEED, device=dev)
+    strips_s = time.perf_counter() - t0
+    check(np.isfinite(M).all(), "malformed strip IF matrix")
+    # the run's own configuration: exact restraints on the matrix route
+    cfg = pipeline.auto_exact_matrix(PipelineConfig(model_count=N_MODELS))
+    rc = RestraintConfig(kscaling=11.0, alpha=0.5)
+    p = auto_weight_exponent(L)
+    steps = cfg.anneal.total_steps
+    streamed = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    with recorded_calls(device_prep, "exact_tiles_from_if_streamed", streamed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tiles = device_prep.exact_tiles_from_if_device(
+            device_prep.pad_f32(M, L_pad), L_pad, rc, rc.weighting, p, n_true=L, device=dev)
+        torch.cuda.synchronize()
+        prep_s = time.perf_counter() - t0
+    check(len(streamed) == 1, f"the prep at L_pad={L_pad} took the streamed route "
+          f"{len(streamed)} times, want once, by itself")
+    S = device_prep._pick_strip_rows(L_pad)
+    n_restraints = int((tiles.w > 0).sum())
+    bm = torch.zeros(L_pad, device=dev)
+    bm[:L] = 1.0
+    inits, chunked = [], []
+    reset_counters()
+    with recorded_calls(anneal, "landmark_init", inits), \
+            recorded_calls(anneal, "energy_terms_chunked", chunked):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = anneal.solve_ensemble_impl(tiles, cfg.anneal, N_MODELS, bm,
+                                         generator=torch.Generator().manual_seed(cfg.seed))
+        coords = res.coords.cpu().numpy()[:, :L]       # synchronises
+        solve_s = time.perf_counter() - t0
+    launches, plain = read_counters()
+    peak = torch.cuda.max_memory_allocated(dev)
+    est = pipeline.solve_peak_bytes(L_pad, 2 * N_MODELS, exact=True)
+    tag = f"streamed path L={L_pad}"
+    check_launches(tag, launches, plain, {"B3": steps + 1, "B4": steps})
+    check(len(inits) == 1 and len(chunked) == 1,
+          f"{tag}: landmark init {len(inits)}, chunked final terms {len(chunked)} calls, "
+          "want one each")
+    check(coords.shape == (N_MODELS, L, 3) and np.isfinite(coords).all(),
+          "malformed coordinates")
+    energies = {k: v.cpu().numpy() for k, v in res.energies.items()}
+    check(all(np.isfinite(v).all() for v in energies.values()), "non-finite energies")
+    best = int(np.argmin(energies["noe"]))
+    met = reconstruction_metrics(coords[best], X)
+    check(not gate_misses(met), f"{tag}: ground-truth gates missed: {met}")
+    print(f"[{tag}] L={L}->{L_pad} (first multiple of 512 whose one-shot prep passes a "
+          f"quarter of the card's {mem} bytes): IF by strips on the card {strips_s:.3f} s; "
+          f"prep streamed by itself in {S}-row strips {prep_s:.3f} s ({n_restraints} "
+          f"restraints); solve_ensemble_impl -m {N_MODELS}: B3 {launches['B3']}, B4 "
+          f"{launches['B4']} launches, every other kernel 0, plain 0; landmark init; "
+          f"row-chunked final terms {len(chunked)} call")
+    print(f"[{tag}] solve {solve_s} s (synchronised; landmark init included), "
+          f"{steps / solve_s} ensemble steps/s; device peak {peak} bytes "
+          f"(torch.cuda.max_memory_allocated, prep and solve) against solve_peak_bytes "
+          f"{est} ({peak / est:.3f} of it) on {card}")
+    print(f"[{tag}] lowest-NOE model: rmsd/Rg {met['rmsd_over_rg']:.4f}, spearman_d "
+          f"{met['spearman_d']:.5f}, dRMSD_rel {met['drmsd_rel']:.4f} over "
+          f"{met['n_pairs']} sampled pairs (truth.reconstruction_metrics); the host "
+          f"assess_ensemble over {n_restraints} restraints x {N_MODELS} models is not run "
+          "at this size")
+
+    # B3 and B4 at this shape, on the solve's tiles and an ensemble near the truth
+    w = _final_weights(AnnealConfig())
+    bmn, xT, mu, nu = ensemble_near(X, L_pad, dev)
+    b3_err, g = check_b3(f"(B=20, L={L_pad})", tiles, bmn, xT, w, L)
+    table = schedule_table(AnnealConfig(), seed=12345)
+    counter = step_counter(0, dev)
+    hist = torch.empty((len(table.rows), xT.shape[0]), device=dev)
+    e_pair = torch.linspace(-1e3, 1e3, xT.shape[0], device=dev)
+    args = (0.05, 0.6, 2.3, 101.0, 12345, 0, None)
+    lr, sigma, bc1, bc2 = table.scalars(0)[1:]
+    got = fused_update_table(xT, g, mu, nu, e_pair, bmn, table, counter, hist)
+    ref = fused_update_plain(xT, g, mu, nu, w, bmn, lr, sigma, bc1, bc2, table.seed, 0,
+                             table.clip)
+    torch.cuda.synchronize()
+    close(f"B4 history row (L={L_pad})", hist[0], e_pair + ref[0], 2e-5)
+    close(f"B4 mu' (L={L_pad})", got[1], ref[2], 5e-4, 1e-5)
+    close(f"B4 nu' (L={L_pad})", got[2], ref[3], 5e-4, 1e-8)
+    b4_err = close(f"B4 x' (L={L_pad})", got[0], ref[1], 5e-4, 5e-4)
+    for name, a in zip(("x'", "mu'", "nu'"), got):
+        check(bool((a[:, :, L:] == 0).all()), f"B4 padded beads of {name} not 0 at {L_pad}")
+    counter.fill_(0)
+    calls = {
+        "B3": lambda: tri_energy_grad(xT, tiles.target, tiles.w, w, bmn),
+        "B3 plain": lambda: tri_energy_grad_plain(xT, tiles.target, tiles.w, w, bmn),
+        "B4": lambda: fused_update_table(xT, g, mu, nu, e_pair, bmn, table, counter, hist),
+        "B4 plain": lambda: fused_update_plain(xT, g, mu, nu, w, bmn, *args),
+    }
+    n = {"B3": 10, "B3 plain": 2, "B4": 25, "B4 plain": 25}
+    wall = {k: median_ms(fn, n[k], warmup=1) for k, fn in calls.items()}
+    on_dev = {k: device_ms(fn, n[k]) for k, fn in calls.items()}
+    traced = long_kernel_ms(calls["B3"], n["B3"], "B3", on_dev)
+    print(f"[kernels] B3 exact_tri == plain at B=20, L={L}->{L_pad} on the streamed "
+          f"prep's tiles (twin over all rows; g max abs err {b3_err:.3g}, max |g| "
+          f"{float(g.abs().max()):.4g}); bits equal over two calls; B4 fused_update_table "
+          f"== plain at B=20, L={L_pad} (x' max abs err {b4_err:.3g}), padded beads 0; ms "
+          f"a call, median wall of {n['B3']} for B3, {n['B3 plain']} for its twin, 25 for "
+          "B4 | device (B3 by CUDA events, the others by torch.profiler): "
+          + "; ".join(f"{k} {wall[k]:.4f} | {on_dev[k]:.4f}" for k in calls)
+          + f"; B3 by torch.profiler {traced:.4f}")
+    measured = {"B3@stream": timing(b3_err, "B3", wall, on_dev),
+                "B4@stream": timing(b4_err, "B4", wall, on_dev)}
+    del tiles, calls, g, xT, mu, nu, got, ref
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    t_v, w_v = device_prep.assessment_view_from_if_streamed(
+        M, L_pad, rc, rc.weighting, p, n_true=L, device=dev)
+    view_s = time.perf_counter() - t0
+    check(t_v.shape == w_v.shape == (L, L) and np.isfinite(w_v).all(),
+          "malformed streamed assessment view")
+    n_view = int((t_v > 0).sum())
+    check(n_view == n_restraints,
+          f"streamed view holds {n_view} restraints, the solve's tiles {n_restraints}")
+    print(f"[{tag}] streamed assessment view {view_s:.3f} s ({L}x{L} float32 target and "
+          f"weights on the host, {n_view} restraints, as the solve's tiles)")
+    return launches, measured, L_pad
+
+
 # FP32 operations per pair evaluation, counted from each kernel's inner loop
 # (an FMA counts 2, rsqrt 1; the row-sharded kernels run the same loops):
 # B1 32 per ordered pair (fused_steps.cu) plus ~100 per bead for the update
@@ -1700,40 +2075,62 @@ def bound(key, B, L, Lb=None, C=1):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def timed_phase(name, fn, *args, **kwargs):
+    """Run one phase, print its wall seconds, and return what it returns."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.empty_cache()
+    print(f"[seconds] {name} {time.perf_counter() - t0:.3f}", flush=True)
+    return out
+
+
 def main() -> int:
     name, card = phase_device()
     dev = torch.device("cuda", 0)
-    phase_build()
-    X, M, measured, small = phase_kernels(dev)
-    Xb, Mb, measured_big, big = phase_kernels_at_scale(dev)
+    timed_phase("build", phase_build)
+    X, M, measured, small = timed_phase("kernels", phase_kernels, dev)
+    Xb, Mb, measured_big, big = timed_phase("kernels at scale", phase_kernels_at_scale, dev)
     measured.update(measured_big)
     measured["B4"].update(measured.pop("B4@512"))
     with tempfile.TemporaryDirectory() as tmp:
-        inputs = make_solve_inputs(tmp)
-        measured_b5 = phase_kernels_general(dev, inputs)
+        inputs = timed_phase("solve inputs", make_solve_inputs, tmp)
+        measured_b5 = timed_phase("kernels general", phase_kernels_general, dev, inputs)
         measured["B5"] = measured_b5["A"]
-        measured.update(phase_kernels_sharded(dev, small, big, inputs))
+        measured.update(timed_phase("kernels sharded", phase_kernels_sharded, dev, small,
+                                    big, inputs))
         del small, big
         genome_dir = os.path.join(tmp, "genome")
-        truths = write_genome_inputs(genome_dir)
-        measured_genome = phase_kernels_genome(dev, genome_dir, card)
-        torch.cuda.empty_cache()
-        launches, b1_steps = phase_main_path(X, M, card)
-        launches_genome, b1_steps_genome = phase_genome(genome_dir, truths, card)
-        torch.cuda.empty_cache()
-        launches_big = phase_at_scale_path(Xb, Mb, card)
-        torch.cuda.empty_cache()
-        launches_solve = phase_solve_path("A", inputs, "mds_init", card)
-        phase_solve_path("B", inputs, "landmark_init", card)
-        torch.cuda.empty_cache()
-        phase_solve_path("C", inputs, "mds_init", card)
-        torch.cuda.empty_cache()
-        launches_sh_run = phase_at_scale_path(Xb, Mb, card, shards=4)
-        torch.cuda.empty_cache()
-        launches_sh_solve = phase_solve_path("B", inputs, "sharded_landmark_init", card,
-                                             shards=4)
-        torch.cuda.empty_cache()
-        launches_sh_lib = phase_sharded_library(dev, X, M, card)
+        truths = timed_phase("genome inputs", write_genome_inputs, genome_dir)
+        measured_genome = timed_phase("kernels genome", phase_kernels_genome, dev,
+                                      genome_dir, card)
+        launches, b1_steps = timed_phase("main path", phase_main_path, X, M, card)
+        launches_genome, b1_steps_genome = timed_phase("genome", phase_genome, genome_dir,
+                                                       truths, card)
+        launches_big = timed_phase("at-scale path", phase_at_scale_path, Xb, Mb, card)
+        launches_solve = timed_phase("solve A", phase_solve_path, "A", inputs, "mds_init",
+                                     card)
+        timed_phase("solve B", phase_solve_path, "B", inputs, "landmark_init", card)
+        timed_phase("solve C", phase_solve_path, "C", inputs, "mds_init", card)
+        launches_sh_run = timed_phase("sharded run x4", phase_at_scale_path, Xb, Mb, card,
+                                      shards=4)
+        launches_sh_solve = timed_phase("sharded solve B x4", phase_solve_path, "B", inputs,
+                                        "sharded_landmark_init", card, shards=4)
+        launches_sh_lib = timed_phase("sharded library x2", phase_sharded_library, dev, X,
+                                      M, card)
+        # past L_pad = 8192 on one card: kernels at the new shapes, `run`,
+        # `solve`, the streamed prep against the one-shot, the streamed route
+        X8, M8, rr8 = timed_phase(f"inputs L={L_8K}", inputs_8k, dev, tmp)
+        measured.update(timed_phase(f"kernels L={L_8K_PAD}", phase_kernels_8k, dev, X8, M8,
+                                    rr8))
+        inputs["B8"] = (rr8, X8)
+        launches_8k = timed_phase(f"run L={L_8K_PAD}", phase_at_scale_path, X8, M8, card)
+        del M8
+        launches_b8 = timed_phase(f"solve B L={L_8K_PAD}", phase_solve_path, "B8", inputs,
+                                  "landmark_init", card)
+        timed_phase("streamed prep vs one-shot", phase_streamed_vs_one_shot, dev)
+        launches_st, measured_st, L_st = timed_phase("streamed route", phase_streamed, dev,
+                                                     card)
+        measured.update(measured_st)
     B = 2 * N_MODELS
     kernels = []
     for key, kname, src, replaces, path_launches, shape in (
@@ -1766,6 +2163,24 @@ def main() -> int:
                         "library_ms": None})
         if key == "B1":   # ms, device_ms and bound_ms are per step of a launch
             kernels[-1]["steps"] = b1_steps
+    # B3, B4 and B5 past L_pad = 8192, their launches those of the path at
+    # that length
+    for key, kname, src, replaces, path_launches, L_key in (
+        ("B3", f"exact_tri_{L_8K_PAD}", "chromosome3d_tpu_torch/csrc/exact_tri.cu",
+         "chromosome3d_tpu/ops/pallas_energy.py:899", launches_8k, L_8K_PAD),
+        ("B5", f"general_pair_{L_8K_PAD}", "chromosome3d_tpu_torch/csrc/general_pair.cu",
+         "chromosome3d_tpu/ops/pallas_energy.py:117", launches_b8, L_8K_PAD),
+        ("B3", f"exact_tri_{L_st}", "chromosome3d_tpu_torch/csrc/exact_tri.cu",
+         "chromosome3d_tpu/ops/pallas_energy.py:899", launches_st, L_st),
+        ("B4", f"fused_update_{L_st}", "chromosome3d_tpu_torch/csrc/fused_update.cu",
+         "chromosome3d_tpu/ops/pallas_energy.py:486", launches_st, L_st),
+    ):
+        bound_ms, bound_by = bound(key, B, L_key)
+        mkey = f"{key}@{L_key}" if L_key == L_8K_PAD else f"{key}@stream"
+        kernels.append({"name": kname, "route": "cuda", "source": src, "replaces": replaces,
+                        "launches": path_launches[key], **measured[mkey],
+                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                        "L_pad": L_key})
     # B1 and B2 with the chromosome axis at the genome bucket's shape, their
     # launches those of the genome path
     for key, kname, src, replaces in (

@@ -12,10 +12,15 @@ beyond the length buckets, on one GPU or row-sharded over several; the
 `solve` path from a restraint file):
 
   L4  pipeline / cli       run_pipeline (bucket, beyond-bucket and sharded
-                           branches), run_restraints_pipeline;
-                           `run`/`solve`/`spearman`
+                           branches), run_restraints_pipeline, the
+                           one-device memory estimate solve_peak_bytes;
+                           `run`/`solve`/`genome`/`spearman`
   L3  ops.device_prep      beyond-bucket restraint prep on the device (one
-                           shot, or one row strip per shard)
+                           shot, streamed in row strips past a quarter of
+                           the device, or one row strip per shard), and
+                           the assessment view
+      truth                ground-truth structures, their IF matrix (in row
+                           strips on the device at scale) and metrics
       restraints, io       `.rr` / `.tbl` readers, the text artifacts
   L2  solver.anneal        the annealer: fused route (B1), semi route
                            (B3 + B4), semi-general route (B5 + B4), the
@@ -38,8 +43,9 @@ beyond the length buckets, on one GPU or row-sharded over several; the
                            gradient (csrc/general_pair.cu); B5' on a row block
       ops.strip_tri        kernel B6: B3 on one shard's row strip
                            (csrc/exact_tri_strip.cu), and the sharded routing
-      ops.energy           plain-torch energy terms, or-groups and restraint
-                           containers
+      ops.energy           plain-torch energy terms (whole-matrix, or in
+                           row blocks past L = 8192), or-groups and
+                           restraint containers
   L0  assess               host-side assessment and report artifacts
 
 Every kernel has a plain PyTorch twin in its module; a wrapper runs the twin

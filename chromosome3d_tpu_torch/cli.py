@@ -18,7 +18,8 @@ CPU. `genome` solves every `chr*_<res>_matrix.txt` of a directory (those
 whose name holds `--filter`), one length bucket at a time (parallel.genome);
 `--resume` skips the chromosomes already in `<outdir>/checkpoint`. Past
 the largest length bucket with more than one CUDA device visible they
-row-shard the solve over all of them by themselves (pipeline._use_sharded;
+row-shard the solve over all of them by themselves where it would not fit
+one (pipeline._use_sharded;
 `--no-shard-large` turns that off, `--shard-quantum` sets the padding unit
 past the buckets). `solve` takes an external restraint set: CONFOLD-style
 `.rr` rows `i j lo hi conf` or a CNS NOE `.tbl`, `or`-group rows included. The

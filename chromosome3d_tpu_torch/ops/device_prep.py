@@ -12,9 +12,16 @@ PyTorch ops (not kernels; the JAX package's are jitted XLA programs).
 
 Against the host route the targets are bitwise equal except where f32 and
 f64 arithmetic land on opposite sides of a .x5 quantisation midpoint; the
-weights agree to float32 resolution. The strip-streamed route, which the
-JAX package takes when the one-shot prep would not fit in device memory,
-is not ported (ROADMAP A10): `exact_tiles_from_if_device` raises there.
+weights agree to float32 resolution.
+
+Where the one-shot prep would take more than a quarter of the device's
+memory, `exact_tiles_from_if_device` streams instead, as the JAX package
+does past its budget: the host matrix crosses in row strips, each strip's
+targets and unnormalised weights are written into preallocated tiles, and
+the two global reductions (the IF^alpha mean and the relative-weighting
+normaliser) add per-strip float32 partial sums on the host in float64. The
+device then holds the tiles and one strip. The assessment view streams the
+same way, each strip's final values downloaded into a host (n, n) pair.
 """
 
 from __future__ import annotations
@@ -181,36 +188,153 @@ def exact_tiles_from_if_device(if_matrix, L_pad: int, rc, weighting: str,
                                n_true, group)
     device = torch.device(device)
     if should_stream_prep(L_pad, device):
-        raise NotImplementedError(
-            f"the one-shot restraint prep at L_pad={L_pad} would take more "
-            "than a quarter of device memory; the strip-streamed prep is not "
-            "ported (ROADMAP A10)"
-        )
+        return exact_tiles_from_if_streamed(if_matrix, L_pad, rc, weighting,
+                                            weight_exponent, n_true=n_true,
+                                            device=device)
     n = int(if_matrix.shape[0] if n_true is None else n_true)
-    # torch needs a writable array: only a read-only one (a .npy memmap
-    # already at L_pad) is copied
-    m = np.require(pad_f32(if_matrix, L_pad), requirements=["C", "W"])
-    return _tiles_from_if_body(torch.from_numpy(m).to(device), n, rc.alpha,
-                               rc.kscaling, weight_exponent, int(rc.separation),
-                               weighting)
+    return _tiles_from_if_body(_upload(pad_f32(if_matrix, L_pad), device), n,
+                               rc.alpha, rc.kscaling, weight_exponent,
+                               int(rc.separation), weighting)
+
+
+def _upload(a: np.ndarray, device) -> torch.Tensor:
+    """A host array on `device`. torch needs a writable array: only a
+    read-only one (a .npy memmap, or a strip of one) is copied on the host."""
+    return torch.from_numpy(np.require(a, requirements=["C", "W"])).to(device)
+
+
+def _pick_strip_rows(L_pad: int, cap: int = 4096) -> int:
+    """Largest divisor of L_pad <= cap: the streamed route's strip height
+    (the JAX package's rule; ~4096 rows keep a strip's temporaries near a
+    few hundred MB at the lengths that stream)."""
+    for s in range(min(cap, L_pad), 0, -1):
+        if L_pad % s == 0:
+            return s
+    return L_pad
+
+
+class _StripSweeps:
+    """The streamed route's strips of a padded host IF matrix: rows
+    [r0, r0 + S) up to the true length n (rows past it are zero padding),
+    each uploaded alone, and the global IF^alpha mean of sweep 1."""
+
+    def __init__(self, if_matrix, L_pad: int, rc, n_true, strip_rows, device):
+        self.m = pad_f32(if_matrix, L_pad)
+        self.n = int(if_matrix.shape[0] if n_true is None else n_true)
+        self.S = int(strip_rows or _pick_strip_rows(L_pad))
+        if L_pad % self.S:
+            raise ValueError(f"strip_rows {self.S} must divide L_pad {L_pad}")
+        self.rc, self.device = rc, torch.device(device)
+        self.mean = _streamed_mean(self.m, self.n, self.S, rc.alpha, self.device)
+
+    def targets(self, p: float, weighting: str):
+        """Each strip as (r0, targets, unnormalised weights, mask) on the
+        device, the one-shot route's per-element math."""
+        rc = self.rc
+        for r0 in range(0, self.n, self.S):
+            t = _strip_target(_upload(self.m[r0:r0 + self.S], self.device), r0, self.n,
+                              rc.alpha, rc.kscaling, self.mean, int(rc.separation))
+            yield (r0, t, *_unnorm_weights(t, p, weighting))
+
+
+def _streamed_mean(m: np.ndarray, n: int, S: int, alpha: float,
+                   device) -> torch.Tensor:
+    """Sweep 1: the global mean of IF^alpha from per-strip float32 sums,
+    added on the host in float64 (strips up to the true length only: rows
+    past n are zero padding), then one float32 division of the rounded total
+    by n^2 formed in float32 — the one-shot route's arithmetic, so the two
+    means agree bit for bit whenever the sum is exact in float32."""
+    total = 0.0
+    for r0 in range(0, n, S):
+        strip = _upload(m[r0:r0 + S], device)
+        total += float(torch.sum(torch.pow(strip, f32(alpha)), dtype=torch.float32))
+    nf = np.float32(n)
+    mean = np.float32(np.float64(total)) / (nf * nf)
+    return torch.tensor(mean, dtype=torch.float32, device=device)
+
+
+def _normaliser(sums) -> float:
+    """The relative weights' mean over the restraint set, from the float64
+    host totals [sum w, sum mask] of the strips' float32 partial sums."""
+    return max(sums[0] / max(sums[1], 1.0), 0.0)
+
+
+def _partials(w: torch.Tensor, mask: torch.Tensor) -> list:
+    return [float(torch.sum(w, dtype=torch.float32)),
+            float(torch.sum(mask, dtype=torch.float32))]
+
+
+def exact_tiles_from_if_streamed(if_matrix, L_pad: int, rc, weighting: str,
+                                 weight_exponent: float, n_true=None,
+                                 strip_rows=None, device="cpu") -> ExactRestraints:
+    """exact_tiles_from_if_device with the IF matrix streamed in row strips
+    of strip_rows (a divisor of L_pad; _pick_strip_rows when None): the
+    device holds the (L_pad, L_pad) tiles and one (S, L_pad) strip's
+    temporaries. Three sweeps: the IF^alpha mean, each strip's targets and
+    unnormalised weights written in place into the tiles with their
+    [sum w, sum mask] partials, and (relative weighting) the tiles' weights
+    scaled by the global normaliser. The targets and, for absolute
+    weighting, the weights equal the one-shot route's bit for bit given the
+    same mean; relative weights differ by the normaliser's summation order
+    and a multiply by its float32 reciprocal in place of the division."""
+    sweeps = _StripSweeps(if_matrix, L_pad, rc, n_true, strip_rows, device)
+    t_acc = torch.zeros((L_pad, L_pad), dtype=torch.float32, device=sweeps.device)
+    w_acc = torch.zeros_like(t_acc)
+    sums = np.zeros(2, np.float64)
+    for r0, t, w, mask in sweeps.targets(weight_exponent, weighting):
+        sums += _partials(w, mask)
+        t_acc[r0:r0 + sweeps.S] = t
+        w_acc[r0:r0 + sweeps.S] = w
+    if weighting == "relative":
+        w_acc.mul_(float(np.float32(1.0) / np.float32(max(_normaliser(sums), 1e-30))))
+    return ExactRestraints(target=t_acc, w=w_acc)
+
+
+def assessment_view_from_if_streamed(if_matrix, L_pad: int, rc, weighting: str,
+                                     weight_exponent: float, n_true=None,
+                                     strip_rows=None, device="cpu"):
+    """The host float32 assessment view (target, weights) at the true
+    length (n, n), streamed: past the one-shot limit the view's tiles would
+    not fit beside what the device holds, so each strip's final values are
+    computed and downloaded at once. Three sweeps: the IF^alpha mean, the
+    normaliser's partials (relative weighting), the final strips — with the
+    weight division on the device, the one-shot route's last op."""
+    sweeps = _StripSweeps(if_matrix, L_pad, rc, n_true, strip_rows, device)
+    n = sweeps.n
+    denom = 1.0      # x / 1 == x exactly
+    if weighting == "relative":
+        sums = np.zeros(2, np.float64)
+        for _, _, w, mask in sweeps.targets(weight_exponent, weighting):
+            sums += _partials(w, mask)
+        denom = _normaliser(sums)
+    # a 0-d tensor on the device: a division by a host scalar becomes a
+    # multiply by its reciprocal in ATen's CUDA kernel (see div10)
+    denom = torch.tensor(max(f32(denom), 1e-30), dtype=torch.float32,
+                         device=sweeps.device)
+    t_np = np.empty((n, n), np.float32)
+    w_np = np.empty((n, n), np.float32)
+    for r0, t, w, _ in sweeps.targets(weight_exponent, weighting):
+        rows = min(sweeps.S, n - r0)
+        t_np[r0:r0 + rows] = t[:rows, :n].cpu().numpy()
+        w_np[r0:r0 + rows] = (w / denom)[:rows, :n].cpu().numpy()
+    return t_np, w_np
 
 
 def _strips_from_if(if_matrix, L_pad: int, rc, weighting: str, p: float, n_true,
                     group):
     """exact_tiles_from_if_device's row-sharded form (see there)."""
     if should_stream_strip_prep(L_pad, group.devices):
+        # as in the JAX package, which streams only the one-device prep
         raise NotImplementedError(
             f"the restraint prep at L_pad={L_pad} over {group.n} strips would take "
-            "more than a quarter of a device's memory; the strip-streamed prep is "
-            "not ported (ROADMAP A10)"
+            "more than a quarter of a device's memory, and the row-sharded prep "
+            "has no streamed form (the JAX package streams only the one-device "
+            "prep)"
         )
     n = int(if_matrix.shape[0] if n_true is None else n_true)
     m = pad_f32(if_matrix, L_pad)
     Lb = group.rows(L_pad)
-    if_strips = [
-        torch.from_numpy(np.require(m[r * Lb:(r + 1) * Lb], requirements=["C", "W"]))
-        .to(d) for r, d in enumerate(group.devices)
-    ]
+    if_strips = [_upload(m[r * Lb:(r + 1) * Lb], d) for r, d in enumerate(group.devices)]
     nf = torch.tensor(float(n), dtype=torch.float32, device=group.lead)
     mean = group.psum([torch.sum(torch.pow(a, f32(rc.alpha)), dtype=torch.float32)
                        for a in if_strips]) / (nf * nf)

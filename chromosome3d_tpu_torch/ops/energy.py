@@ -253,6 +253,17 @@ def _angle_energy(bond_vec, bond_d, bond_valid, weights) -> torch.Tensor:
     return weights.angle * (tri_valid * (1.0 - cosphi)).sum(-1)
 
 
+def _bond_energy(x: torch.Tensor, bead_mask: torch.Tensor,
+                 weights: EnergyWeights) -> torch.Tensor:
+    """Chain bonds (+ the angle term) of (B, L, 3) coords -> (B,)."""
+    bond_vec = x[:, 1:] - x[:, :-1]
+    bond_d = torch.sqrt((bond_vec * bond_vec).sum(-1) + _EPS)
+    bond_valid = bead_mask[1:] * bead_mask[:-1]
+    bdev = bond_d - weights.bond_length
+    e_bond = weights.bond * (bond_valid * bdev * bdev).sum(-1)
+    return e_bond + _angle_energy(bond_vec, bond_d, bond_valid, weights)
+
+
 def energy_terms(
     coords: torch.Tensor,
     restraints,
@@ -282,17 +293,89 @@ def energy_terms(
     if or_groups is not None:
         e_noe = e_noe + or_group_energy(x, or_groups, weights, bead_mask)
 
-    bond_vec = x[:, 1:] - x[:, :-1]
-    bond_d = torch.sqrt((bond_vec * bond_vec).sum(-1) + _EPS)
-    bond_valid = bead_mask[1:] * bead_mask[:-1]
-    bdev = bond_d - weights.bond_length
-    e_bond = weights.bond * (bond_valid * bdev * bdev).sum(-1)
-    e_bond = e_bond + _angle_energy(bond_vec, bond_d, bond_valid, weights)
+    e_bond = _bond_energy(x, bead_mask, weights)
 
     idx = torch.arange(L, device=x.device)
     nonbonded = ((idx[:, None] - idx[None, :]).abs() >= 2).to(x.dtype)
     overlap = torch.clamp_min(weights.vdw_radius - d, 0.0)
     e_vdw = 0.5 * weights.vdw * (nonbonded * pair_valid * overlap * overlap).sum((-2, -1))
+
+    terms = {"noe": e_noe, "bon": e_bond, "vdw": e_vdw,
+             "overall": e_noe + e_bond + e_vdw}
+    if coords.dim() == 2:
+        terms = {k: v[0] for k, v in terms.items()}
+    return terms
+
+
+def _pick_row_chunk(L: int, cap: int = 512) -> int:
+    """Largest divisor of L that is <= cap (the JAX package's rule, so both
+    packages cut the same row blocks; a prime L past cap gets blocks of one
+    row)."""
+    if L <= cap:
+        return L
+    for c in range(cap, 0, -1):
+        if L % c == 0:
+            return c
+    return L
+
+
+def energy_terms_chunked(
+    coords: torch.Tensor,
+    restraints,
+    weights: EnergyWeights,
+    bead_mask: Optional[torch.Tensor] = None,
+    or_groups: Optional["OrGroupRestraints"] = None,
+    row_chunk: int = 512,
+) -> Dict[str, torch.Tensor]:
+    """energy_terms with (B, row_chunk, L) temporaries: the pair terms run
+    over row blocks of at most row_chunk rows (a divisor of L), the squared
+    distances accumulated coordinate by coordinate, so no (L, L) or
+    (B, L, L) tensor is ever formed — the final canonical terms of a solve
+    past L = 8192, where the whole-matrix form takes gigabytes a structure.
+    Both restraint forms: the exact one reads its pre-folded w (its .mask
+    view would build an (L, L) transient), the windowed one lo/hi and
+    mask * weight per block. Values agree with energy_terms to float
+    reassociation (the JAX package's `energy_terms_chunked`)."""
+    x = coords[None] if coords.dim() == 2 else coords
+    B, L = x.shape[0], x.shape[1]
+    if bead_mask is None:
+        bead_mask = torch.ones(L, dtype=x.dtype, device=x.device)
+    Lb = _pick_row_chunk(L, row_chunk)
+    s = weights.noe_rswitch
+    exact_form = isinstance(restraints, ExactRestraints)
+    cols = torch.arange(L, device=x.device)
+    e_noe = torch.zeros(B, dtype=x.dtype, device=x.device)
+    e_vdw = torch.zeros(B, dtype=x.dtype, device=x.device)
+    for r0 in range(0, L, Lb):
+        r1 = r0 + Lb
+        if exact_form:
+            lo_b = hi_b = restraints.target[r0:r1]
+            wm_b = restraints.w[r0:r1]
+        else:
+            lo_b, hi_b = restraints.lo[r0:r1], restraints.hi[r0:r1]
+            wm_b = restraints.mask[r0:r1] * restraints.weight[r0:r1]
+        d2 = torch.full((B, Lb, L), _EPS, dtype=x.dtype, device=x.device)
+        for c in range(3):
+            dc = x[:, r0:r1, c, None] - x[:, None, :, c]
+            d2 += dc * dc
+        del dc
+        d = torch.sqrt(d2)
+        del d2
+        pair_valid = bead_mask[r0:r1, None] * bead_mask[None, :]
+        viol = torch.clamp_min(d - hi_b, 0.0) + torch.clamp_min(lo_b - d, 0.0)
+        well = torch.where(viol <= s, viol * viol, s * s + 2.0 * s * (viol - s))
+        del viol
+        e_noe = e_noe + 0.5 * weights.noe * ((wm_b * pair_valid) * well).sum((-2, -1))
+        del well
+        rows = torch.arange(r0, r1, device=x.device)
+        nonbonded = ((rows[:, None] - cols[None, :]).abs() >= 2).to(x.dtype)
+        overlap = torch.clamp_min(weights.vdw_radius - d, 0.0)
+        e_vdw = e_vdw + 0.5 * weights.vdw * (
+            (nonbonded * pair_valid) * overlap * overlap).sum((-2, -1))
+    if or_groups is not None:
+        e_noe = e_noe + or_group_energy(x, or_groups, weights, bead_mask)
+
+    e_bond = _bond_energy(x, bead_mask, weights)
 
     terms = {"noe": e_noe, "bon": e_bond, "vdw": e_vdw,
              "overall": e_noe + e_bond + e_vdw}

@@ -115,7 +115,9 @@ def tri_energy_grad(
     weights: EnergyWeights, bead_mask: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B3 for a batch sharing one restraint set: xT (B, 3, L), target and
-    folded weight w (L, L), bead_mask (L,), all float32 and contiguous.
+    folded weight w (L, L), symmetric (as every restraint set of both
+    packages is: the kernel takes each unordered pair's target and weight
+    from its row tile), bead_mask (L,), all float32 and contiguous.
     Returns (pair energies (B,), pair gradients (B, 3, L)). CPU tensors run
     the plain twin; CUDA tensors launch csrc/exact_tri.cu, whose row and
     column partials land in a (B, 2S, 3, T * TILE) scratch buffer that a

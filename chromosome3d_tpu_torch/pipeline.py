@@ -7,9 +7,16 @@ Reference scale (L within a length bucket):
   -> assess + rank + PDB emission               (host)
 Beyond the largest bucket (exact restraints, the default):
   IF matrix (.npy or text) -> padded once on the host -> restraint prep on
-  the device (ops.device_prep), the O(L^2) text artifacts suppressed
-  -> solve_ensemble_impl (semi route: kernels B3 + B4, landmark init)
-  -> the assessment view rebuilt on the device and downloaded -> host assess.
+  the device (ops.device_prep: one shot, or streamed in row strips where
+  the one-shot prep would take more than a quarter of the device), the
+  O(L^2) text artifacts suppressed
+  -> solve_ensemble_impl (semi route: kernels B3 + B4, landmark init; the
+  final terms row-chunked from L_pad = 8192)
+  -> the assessment view rebuilt on the device and downloaded (streamed
+  strip by strip past the same limit) -> host assess.
+One device solves every padded length its memory holds: `solve_peak_bytes`
+estimates the solve's device peak, and a run whose estimate exceeds the
+device is refused before any device work.
 From a restraint file (`solve`: a CONFOLD-style `.rr` or a CNS `.tbl` with
 `or`-group rows), at any bucket or past them:
   read the rows (host) -> padded dense tensors built on the host and
@@ -17,8 +24,9 @@ From a restraint file (`solve`: a CONFOLD-style `.rr` or a CNS `.tbl` with
   restraints: two-sided init, semi route with kernels B5 + B4; exact ones:
   the exact routes) -> NOE-energy ranking, PDBs, the violation report.
 Past the largest bucket with more than one shard device
-(device.shard_devices), both pipelines row-shard the solve, as the JAX
-package does over more than one device: the length pads to a multiple of
+(device.shard_devices), both pipelines row-shard the solve where the
+one-device solve would not fit (solve_peak_bytes against the device's
+memory): the length pads to a multiple of
 lcm(shard_quantum, shards), the restraints are cut into row strips (the
 at-scale `run` builds them on each shard's device) and
 solver.sharded.solve_ensemble_sharded runs them (kernels B6, B5' or B2',
@@ -31,9 +39,8 @@ scale), `${ID}_model1..k.pdb`, `${ID}_rankNN_aXX.pdb`, `spearman.txt`,
 `summary.json`. The sentinel files `iam.running` / `iam.failed` keep the
 reference's failure protocol (chromosome3D.pl:261-284).
 
-Not ported yet, and refused with NotImplementedError: padded lengths of
-8192 and more and the streamed prep (ROADMAP A10), .cool/.mcool/.hic/.matrix
-inputs and --ice and the alpha ensemble (A11), and profiling.
+Not ported yet, and refused with NotImplementedError: .cool/.mcool/.hic/
+.matrix inputs and --ice and the alpha ensemble (A11), and profiling.
 """
 
 from __future__ import annotations
@@ -66,9 +73,11 @@ from chromosome3d_tpu_torch import device as device_mod
 from chromosome3d_tpu_torch.device import resolve_device
 from chromosome3d_tpu_torch.io import load_if_matrix, write_ca_pdb, write_dist_matrix
 from chromosome3d_tpu_torch.metrics import clash_count
-from chromosome3d_tpu_torch.ops import device_prep
+from chromosome3d_tpu_torch.ops import device_prep, general_pair, tri_energy
+from chromosome3d_tpu_torch.ops.device_prep import _memory_bytes
 from chromosome3d_tpu_torch.ops.energy import (
     ExactRestraints,
+    _pick_row_chunk,
     auto_weight_exponent,
     dense_or_groups_from_numpy,
     dense_restraints_from_numpy,
@@ -84,7 +93,8 @@ from chromosome3d_tpu_torch.restraints import (
     write_rr,
 )
 from chromosome3d_tpu_torch.parallel.shards import ShardGroup
-from chromosome3d_tpu_torch.solver.anneal import CHUNKED_TERMS_MIN_L, solve_ensemble_impl
+from chromosome3d_tpu_torch.solver import anneal
+from chromosome3d_tpu_torch.solver.anneal import solve_ensemble_impl
 from chromosome3d_tpu_torch.solver.sharded import restraint_strips, solve_ensemble_sharded
 from chromosome3d_tpu_torch.utils.logging import banner, get_logger
 
@@ -176,11 +186,91 @@ def _fold_conf(dense, conf):
     return dataclasses_replace(dense, **{attr: wt})
 
 
-def _use_sharded(L: int, cfg: PipelineConfig) -> bool:
-    """Row-shard the solve when L exceeds every length bucket and there is
-    more than one shard device (chromosome3d_tpu.pipeline._use_sharded)."""
-    return (cfg.shard_large and L > max(cfg.length_buckets)
-            and len(device_mod.shard_devices()) > 1)
+# live float32 temporaries of the final terms, estimates from the code:
+# (B, row chunk, L) ones of energy_terms_chunked, (B, L, L) ones of the
+# whole-matrix energy_terms (its (B, L, L, 3) difference counts 3)
+_CHUNKED_TERMS_LIVE = 6
+_DENSE_TERMS_LIVE = 8
+# (B, 3, L) float32 arrays of the annealing loop: x, mu, nu, B4's spare
+# outputs, the pair gradient, the or-group gradient
+_STATE_ARRAYS = 10
+# the start: landmark MDS's (8, 4096, L) sweep candidates and ~6 (4096, L)
+# edge-strip temporaries, in (4096, L) strips; classical MDS's (L, L) planes
+_LANDMARK_STRIPS = 14
+_MDS_PLANES = 10
+
+
+def solve_peak_bytes(L_pad: int, B: int, exact: bool = True) -> int:
+    """Estimated device peak of a one-device solve of B structures (the hot
+    phase's, 2 x models with enantiomer pairs) at L_pad: the restraint tiles
+    (exact: target and w; windowed: lo, hi, mask, weight and the kernel's
+    folded w, twice at the pick) plus the largest of the phases they live
+    through: the start (landmark MDS's (8, 4096, L) sweep and its edge
+    strips past L = 2048, classical MDS's (L, L) planes below), the loop
+    (the pair kernel's scratch — B3's (B, 2S, 3, T * 64) partials, B5's
+    (B, splits, 3, L), B1's tiles — and the Adam state) and the final terms
+    (row-chunked from anneal.CHUNKED_TERMS_MIN_L, whole-matrix below)."""
+    f, plane = 4, 4 * L_pad * L_pad
+    tiles = (2 if exact else 6) * plane
+    if not exact:
+        plan = general_pair.general_pair_plan(B, L_pad, L_pad)
+        scratch = f * (math.prod(plan["part_shape"]) + math.prod(plan["e_part_shape"]))
+    elif tri_energy.use_triangular(L_pad, for_unfused=True):
+        plan = tri_energy.tri_plan(B, L_pad, L_pad, tri_energy.TILE)
+        scratch = f * (math.prod(plan["part_shape"]) + math.prod(plan["e_part_shape"]))
+    else:
+        scratch = 3 * plane          # B1's tiles
+    loop = scratch + f * _STATE_ARRAYS * 3 * B * L_pad
+    if L_pad >= 2048:
+        init = f * _LANDMARK_STRIPS * min(4096, L_pad) * L_pad
+    else:
+        init = _MDS_PLANES * plane
+    if L_pad >= anneal.CHUNKED_TERMS_MIN_L:
+        terms = f * _CHUNKED_TERMS_LIVE * B * _pick_row_chunk(L_pad) * L_pad
+    else:
+        terms = _DENSE_TERMS_LIVE * B * plane
+    return tiles + max(init, loop, terms)
+
+
+def _solve_structures(cfg: PipelineConfig) -> int:
+    return cfg.model_count * (2 if cfg.anneal.enantiomer else 1)
+
+
+def _one_device_shortfall(L_pad: int, cfg: PipelineConfig, exact: bool, dev):
+    """(bytes the one-device solve lacks on `dev` (<= 0 when it fits), the
+    estimate, the device's memory)."""
+    need = solve_peak_bytes(L_pad, _solve_structures(cfg), exact)
+    have = _memory_bytes(torch.device(dev))
+    return need - have, need, have
+
+
+def _refuse_past_memory(L_pad: int, cfg: PipelineConfig, exact: bool, dev) -> None:
+    """Raise RuntimeError before any device work where the one-device solve
+    would not fit `dev`."""
+    short, need, have = _one_device_shortfall(L_pad, cfg, exact, dev)
+    if short > 0:
+        raise RuntimeError(
+            f"a one-device solve of {_solve_structures(cfg)} structures at L_pad="
+            f"{L_pad} needs about {need / 1e9:.2f} GB (solve_peak_bytes), "
+            f"{short / 1e9:.2f} GB more than the {have / 1e9:.2f} GB of {dev}: "
+            "run it on the row-sharded route, over more than one device "
+            "(device.shard_devices)")
+
+
+def _use_sharded(L: int, cfg: PipelineConfig, dev=None, exact: bool = True) -> bool:
+    """Row-shard the solve when L exceeds every length bucket, there is
+    more than one shard device, and the one-device solve at the bucket
+    padding would not fit `dev` (the first shard device when None):
+    solve_peak_bytes against its memory. The JAX package shards whenever
+    it has more than one device; on the card, a solve that fits one device
+    is faster there."""
+    if not (cfg.shard_large and L > max(cfg.length_buckets)):
+        return False
+    devices = device_mod.shard_devices()
+    if len(devices) < 2:
+        return False
+    L_pad, _ = _bucket_pad(L, cfg)
+    return _one_device_shortfall(L_pad, cfg, exact, devices[0] if dev is None else dev)[0] > 0
 
 
 def _shard_pad(L: int, cfg: PipelineConfig, group: ShardGroup):
@@ -192,15 +282,18 @@ def _shard_pad(L: int, cfg: PipelineConfig, group: ShardGroup):
     return L_pad, bead_mask
 
 
-def _solve_layout(L: int, cfg: PipelineConfig, dev: torch.device):
+def _solve_layout(L: int, cfg: PipelineConfig, dev: torch.device, exact: bool):
     """(shard group or None, the solve's lead device, L_pad, bead mask or
     None): the row-sharded layout over device.shard_devices() where
     _use_sharded holds (its lead device replaces `dev`), else the bucket
-    padding on `dev`."""
-    if _use_sharded(L, cfg):
+    padding on `dev`, refused (RuntimeError) where that solve would not
+    fit."""
+    if _use_sharded(L, cfg, dev, exact):
         group = ShardGroup(device_mod.shard_devices())
         return (group, group.lead, *_shard_pad(L, cfg, group))
-    return (None, dev, *_bucket_pad(L, cfg))
+    L_pad, bead_mask = _bucket_pad(L, cfg)
+    _refuse_past_memory(L_pad, cfg, exact, dev)
+    return None, dev, L_pad, bead_mask
 
 
 def _solve_banner(cfg: PipelineConfig, L: int, L_pad: int, dev, group) -> None:
@@ -233,13 +326,18 @@ def _solve(group, restraints, cfg: PipelineConfig, bead_mask, dev, og=None):
 def _assessment_view_from_if(if_padded, rc, L_pad: int, n_true: int, device):
     """The host assessment view of the at-scale route: the device prep run
     again and its (L, L) corner downloaded — (Restraints view, exact-form
-    numpy view) — instead of the float64 host prep passes."""
-    tiles = device_prep.exact_tiles_from_if_device(
-        if_padded, L_pad, rc, rc.weighting, _weight_exponent(rc, n_true),
-        n_true=n_true, device=device,
-    )
-    target = tiles.target[:n_true, :n_true].cpu().numpy()
-    w = tiles.w[:n_true, :n_true].cpu().numpy()
+    numpy view) — instead of the float64 host prep passes; streamed strip
+    by strip where the one-shot prep would take more than a quarter of the
+    device (the JAX package streams past its budget the same way)."""
+    p = _weight_exponent(rc, n_true)
+    if device_prep.should_stream_prep(L_pad, device):
+        target, w = device_prep.assessment_view_from_if_streamed(
+            if_padded, L_pad, rc, rc.weighting, p, n_true=n_true, device=device)
+    else:
+        tiles = device_prep.exact_tiles_from_if_device(
+            if_padded, L_pad, rc, rc.weighting, p, n_true=n_true, device=device)
+        target = tiles.target[:n_true, :n_true].cpu().numpy()
+        w = tiles.w[:n_true, :n_true].cpu().numpy()
     return restraints_from_exact_target(target), ExactRestraints(target=target, w=w)
 
 
@@ -248,13 +346,16 @@ def run_pipeline(
     dir_out: str,
     cfg: Optional[PipelineConfig] = None,
     device=None,
+    wipe: bool = True,
 ) -> Dict:
     """Run one chromosome end to end on `device` (device.resolve_device:
     None is the first CUDA device, and raises without one; "cpu" runs the
     kernels' plain twins). Returns the summary dict, which is also written
     to summary.json with per-phase seconds rounded to 0.01 s, as the JAX
-    package's. The files already in dir_out are removed first (the
-    reference's outdir wipe, chromosome3D.pl:56)."""
+    package's. With wipe (the default) the files already in dir_out are
+    removed first (the reference's outdir wipe, chromosome3D.pl:56);
+    wipe=False keeps them, as the JAX package's run_pipeline(wipe=False)
+    does for a caller that writes into dir_out beside the run."""
     cfg = cfg or PipelineConfig()
     dev = resolve_device(device)
     t_start = time.time()
@@ -278,10 +379,11 @@ def run_pipeline(
     if cfg.alpha_ensemble:
         raise NotImplementedError("the alpha ensemble is not ported (ROADMAP A11)")
     os.makedirs(dir_out, exist_ok=True)
-    for name in os.listdir(dir_out):
-        p = os.path.join(dir_out, name)
-        if os.path.isfile(p):
-            os.remove(p)
+    if wipe:
+        for name in os.listdir(dir_out):
+            p = os.path.join(dir_out, name)
+            if os.path.isfile(p):
+                os.remove(p)
     if ext not in (".txt", ".npy"):
         ident = base  # unknown extension: keep the full name as the id
     local_if = os.path.join(dir_out, f"{ident}.txt")
@@ -307,14 +409,9 @@ def run_pipeline(
     _mark("load_s")
     L = if_matrix.shape[0]
     banner(log, f"L          : {L}")
-    group, dev, L_pad, bead_mask = _solve_layout(L, cfg, dev)
-    if group is None and L_pad >= CHUNKED_TERMS_MIN_L:
-        # the row-sharded solve has its own column-chunked final terms
-        raise NotImplementedError(
-            f"L={L} pads to {L_pad} >= {CHUNKED_TERMS_MIN_L} on one device: the "
-            "row-chunked final energy terms and the streamed prep are not ported "
-            "(ROADMAP A10)"
-        )
+    # matrix-derived restraints are exact wherever the well is pure-quadratic
+    group, dev, L_pad, bead_mask = _solve_layout(L, cfg, dev,
+                                                 _exact_provable(auto_exact_matrix(cfg)))
     # beyond every bucket matrix-derived exact restraints take the device
     # route end to end: no O(L^2) float64 host pass and no O(L^2) text
     # artifact (a .dist file there is gigabytes of text)
@@ -379,6 +476,7 @@ def run_pipeline(
             if group is not None:
                 solve_r = restraint_strips(group, solve_r)
         result = _solve(group, solve_r, cfg, bead_mask, dev)
+        del solve_r    # the tiles go before the assessment view is built
         coords = result.coords.cpu().numpy()[:, :L, :]   # synchronises
         energies = {k: v.cpu().numpy() for k, v in result.energies.items()}
         _mark("solve_s")
@@ -574,12 +672,7 @@ def run_restraints_pipeline(
         cfg = cfg.replace(
             anneal=dataclasses_replace(cfg.anneal, embed_two_sided=True))
     Lr = restraints.length
-    group, dev, L_pad, bead_mask = _solve_layout(Lr, cfg, dev)
-    if group is None and L_pad >= CHUNKED_TERMS_MIN_L:
-        raise NotImplementedError(
-            f"L={Lr} pads to {L_pad} >= {CHUNKED_TERMS_MIN_L} on one device: the "
-            "row-chunked final energy terms are not ported (ROADMAP A10)"
-        )
+    group, dev, L_pad, bead_mask = _solve_layout(Lr, cfg, dev, _exact_provable(cfg))
     _mark("host_prep_s")
 
     _solve_banner(cfg, Lr, L_pad, dev, group)

@@ -22,7 +22,10 @@ lower-energy member of each pair under the end-of-hot weights
 (ops.pair_energy: B2, B3 at L >= 1024, or B5, plus the or-group term),
 and only the winners continue, with their Adam moments and the step count
 carried over (so the bias corrections and the noise stream stay aligned
-with the schedule).
+with the schedule). The final canonical terms are whole-matrix below
+CHUNKED_TERMS_MIN_L and in row blocks from it (ops.energy
+`energy_terms_chunked`), so one device solves every padded length its
+memory holds.
 
 Routes: the port runs the JAX package's frozen-default dispatch with no
 dispatch table (`tri_energy.use_triangular`, `fused_step_feasible`), so both
@@ -43,6 +46,7 @@ from chromosome3d_tpu_torch.ops import tri_energy
 from chromosome3d_tpu_torch.ops.energy import (
     EnergyWeights,
     energy_terms,
+    energy_terms_chunked,
     f32,
     or_group_energy_grad,
 )
@@ -70,8 +74,10 @@ from chromosome3d_tpu_torch.solver.init import (
     spiral_init,
 )
 
-# at and past this (padded) L the JAX package evaluates the final energy
-# terms row-chunked (`energy_terms_chunked`, anneal.py:585), not ported
+# at and past this (padded) L the final energy terms are evaluated in row
+# blocks (energy_terms_chunked), as the JAX package's are (anneal.py:585);
+# below it the whole-matrix form keeps the JAX summation of the reference
+# scale
 CHUNKED_TERMS_MIN_L = 8192
 
 
@@ -205,17 +211,6 @@ def _refuse_unported(cfg: AnnealConfig) -> None:
         )
     if cfg.gram_d2:
         raise NotImplementedError("gram_d2 is not ported (ROADMAP: do not port)")
-
-
-def _refuse_unchunked_terms(L: int) -> None:
-    """The one-device solve evaluates its final energy terms whole-matrix;
-    the row-sharded solve has its own column-chunked terms and no such
-    limit."""
-    if L >= CHUNKED_TERMS_MIN_L:
-        raise NotImplementedError(
-            f"L={L} >= {CHUNKED_TERMS_MIN_L} needs the row-chunked final "
-            "energy terms (energy_terms_chunked), not ported (ROADMAP A10)"
-        )
 
 
 def chromosome_generator(base_seed: int, c: int) -> torch.Generator:
@@ -387,10 +382,11 @@ def _solve_stack(rs, stacked, cfg: AnnealConfig, n_models: int, bead_masks: torc
     coords = xT.transpose(1, 2).reshape(C, n, L, 3)
 
     out_coords, terms = [], []
+    term_fn = energy_terms_chunked if L >= CHUNKED_TERMS_MIN_L else energy_terms
     for c in range(C):
         x = coords[c].contiguous()
         bm = bead_masks[c]
-        terms.append(energy_terms(x, rs[c], base, bm, or_groups))
+        terms.append(term_fn(x, rs[c], base, bm, or_groups))
         # centroid to origin, padding excluded
         centroid = (x * bm[None, :, None]).sum(dim=1, keepdim=True) / bm.sum()
         out_coords.append((x - centroid) * bm[None, :, None])
@@ -430,7 +426,6 @@ def solve_ensemble_impl(
     dev = restraints.lo.device
     L = restraints.lo.shape[0]
     _refuse_unported(cfg)
-    _refuse_unchunked_terms(L)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     if bead_mask is None:
@@ -472,7 +467,6 @@ def solve_bucket_impl(
     dev = target.device
     C, L = target.shape[0], target.shape[-1]
     _refuse_unported(cfg)
-    _refuse_unchunked_terms(L)
     bead_masks = bead_masks.to(device=dev, dtype=torch.float32).contiguous()
     if tuple(bead_masks.shape) != (C, L):
         raise ValueError(f"bead_masks: shape {tuple(bead_masks.shape)}, expected {(C, L)}")

@@ -3,15 +3,18 @@ host functions: a known 3D structure (a confined persistent random walk),
 the IF matrix the pipeline's conversion implies for it
 (d = K * mean(IF^alpha) / IF^alpha, chromosome3D.pl:110-162, inverted:
 IF = (1/d)^(1/alpha)), and the reconstruction metrics against the truth.
-Host numpy, seed-deterministic.
+Host numpy, seed-deterministic; at scale the IF matrix is built in row
+strips on the device (if_from_structure_strips), as the JAX package's.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
+import torch
 
+from chromosome3d_tpu_torch.device import resolve_device
 from chromosome3d_tpu_torch.metrics import kabsch_rmsd
 
 
@@ -89,6 +92,87 @@ def if_from_structure(
         g = g + g.T                      # symmetric, zero diagonal
         m = m * np.exp(noise_sigma * g)
     return m
+
+
+def if_from_structure_strips(
+    coords: np.ndarray,
+    alpha: float = 0.5,
+    noise_sigma: float = 0.0,
+    seed: int = 0,
+    strip: int = 2048,
+    out: Optional[np.ndarray] = None,
+    device=None,
+) -> np.ndarray:
+    """if_from_structure for at-scale L, on `device` (device.resolve_device:
+    None is the first CUDA device): the (L, 3) truth is uploaded once, then
+    (strip, L) float32 rows are computed on the device and downloaded, so
+    the host runs no O(L^2) pass and the device holds one strip. out: an
+    optional preallocated or memmapped (L, L) float32 array to fill.
+
+    The noise is a symmetric counter hash (_hash_normal of (min(i, j),
+    max(i, j), seed + 1)), so a value depends on its position only and the
+    strips are independent: the JAX package's words bit for bit."""
+    dev = resolve_device(device)
+    c = torch.tensor(np.asarray(coords, dtype=np.float32), device=dev)
+    L = c.shape[0]
+    S = min(strip, L)
+    floor = float(np.float32(0.5 * 3.8))
+    inv_alpha = float(np.float32(1.0 / alpha))
+    j = torch.arange(L, device=dev)[None, :]
+    if out is None:
+        out = np.empty((L, L), dtype=np.float32)
+    for r0 in range(0, L, S):
+        n = min(S, L - r0)
+        rows = c[r0:r0 + n]
+        d2 = torch.zeros((n, L), dtype=torch.float32, device=dev)
+        for k in range(3):
+            dk = rows[:, k, None] - c[None, :, k]
+            d2 += dk * dk
+        m = torch.pow(1.0 / torch.clamp_min(torch.sqrt(d2), floor), inv_alpha)
+        if noise_sigma > 0.0:
+            i = torch.arange(r0, r0 + n, device=dev)[:, None]
+            g = _hash_normal(torch.minimum(i, j), torch.maximum(i, j), seed + 1)
+            g = torch.where(i == j, torch.zeros_like(g), g)
+            m = m * torch.exp(float(np.float32(noise_sigma)) * g)
+        out[r0:r0 + n] = m.cpu().numpy()
+    return out
+
+
+_MASK32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, k: int) -> torch.Tensor:
+    """x * k mod 2^32 for int64 x in [0, 2^32) and a constant k < 2^32, in
+    two 16-bit halves of k so that no product leaves int64."""
+    lo = x * (k & 0xFFFF)
+    hi = ((x * (k >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _MASK32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    x = _mul32(x ^ (x >> 16), 0x7FEB352D)
+    x = _mul32(x ^ (x >> 15), 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def _hash_words(lo: torch.Tensor, hi: torch.Tensor, seed: int):
+    """The two uint32 words of the counter hash at (lo, hi), held in int64:
+    the JAX package's xorshift-multiply mix of lo * 2654435761 + hi * 40503
+    + seed * 2246822519 (mod 2^32), and of the same base ^ 0x9E3779B9."""
+    base = (_mul32(lo, 2654435761) + _mul32(hi, 40503)
+            + (int(seed) * 2246822519 & _MASK32)) & _MASK32
+    return _mix32(base), _mix32(base ^ 0x9E3779B9)
+
+
+def _hash_normal(lo: torch.Tensor, hi: torch.Tensor, seed: int) -> torch.Tensor:
+    """A symmetric deterministic standard normal from integer coordinates
+    (int64 tensors of values < 2^32): the two hash words as uniforms in
+    (0, 1] and [0, 1), then Box-Muller, in float32."""
+    u1, u2 = _hash_words(lo, hi, seed)
+    f1 = (u1.to(torch.float32) + 1.0) * float(2.0 ** -32)
+    f2 = u2.to(torch.float32) * float(2.0 ** -32)
+    return torch.sqrt(-2.0 * torch.log(f1)) * torch.cos(
+        float(np.float32(2.0 * np.pi)) * f2)
 
 
 def reconstruction_metrics(

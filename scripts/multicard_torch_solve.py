@@ -20,7 +20,6 @@ Ends with every card's `nvidia-smi` name and power limit.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import os
 import subprocess
@@ -97,8 +96,10 @@ def main() -> int:
         inputs = chip_smoke.make_solve_inputs(tmp)
         for label, devs in ((f"{args.shards} cards", cards),
                             (f"{args.shards} copies of cuda:0", copies)):
-            # the chip_smoke phases shard over whatever device.shard_devices lists
-            chip_smoke.shard_devices_on_card = lambda shards: contextlib.nullcontext()
+            # the chip_smoke phases shard over whatever device.shard_devices
+            # lists, the one-device solve made not to fit (L = 5120 fits one
+            # card, where the pipeline would keep it)
+            chip_smoke.shard_devices_on_card = lambda shards: chip_smoke.one_device_too_small()
             device.shard_devices = lambda devs=devs: list(devs)
             try:
                 direct_solves(ShardGroup(devs), M, label, card)

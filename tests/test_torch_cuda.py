@@ -67,7 +67,12 @@ from chromosome3d_tpu_torch.ops.strip_tri import (
     strip_tri_energy_grad,
     strip_tri_energy_grad_plain,
 )
-from chromosome3d_tpu_torch.ops.tri_energy import tri_energy_grad, tri_energy_grad_plain
+from chromosome3d_tpu_torch.ops.tri_energy import (
+    TILE,
+    tri_energy_grad,
+    tri_energy_grad_plain,
+    tri_plan,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -490,11 +495,11 @@ def test_cuda_exact_pair_plan_shapes(cuda_device, L, n_real, B, Lb):
 
 
 def test_cuda_sharded_solve_at_8192(cuda_device):
-    """solve_ensemble_sharded at L_pad = 8192 on the card listed 4 times: past
-    the one-device solver's limit (its whole-matrix final terms), which the
-    sharded solve's column-chunked terms do not have. A short schedule, one
-    model pair; the strip kernel (B6, or B2' where the strip pairing does
-    not pay) on every strip every step and at the pick."""
+    """solve_ensemble_sharded at L_pad = 8192 on the card listed 4 times, and
+    the one-device solve at the same length (past CHUNKED_TERMS_MIN_L: its
+    final terms row-chunked; B3 every step and at the pick, B4 every step).
+    A short schedule, one model pair; the strip kernel (B6, or B2' where the
+    strip pairing does not pay) on every strip every step and at the pick."""
     from chromosome3d_tpu_torch.parallel.shards import ShardGroup
     from chromosome3d_tpu_torch.solver import anneal, sharded
 
@@ -515,8 +520,14 @@ def test_cuda_sharded_solve_at_8192(cuda_device):
                               landmark_count=64)
     group = ShardGroup([cuda_device] * shards)
     strips = sharded.restraint_strips(group, ex)
-    with pytest.raises(NotImplementedError, match="A10"):
-        anneal.solve_ensemble_impl(ex, cfg, 1, bm)
+    b3, b4 = tri_energy_grad.launches, fused_update_table.launches
+    one = anneal.solve_ensemble_impl(ex, cfg, 1, bm)
+    torch.cuda.synchronize()
+    assert (tri_energy_grad.launches - b3, fused_update_table.launches - b4) == (
+        cfg.total_steps + 1, cfg.total_steps)
+    assert one.coords.shape == (1, L, 3) and bool(torch.isfinite(one.coords).all())
+    assert all(bool(torch.isfinite(v).all()) for v in one.energies.values())
+    assert bool((one.coords[:, n_real:] == 0).all())
     count = lambda: strip_tri_energy_grad.launches + exact_row_block_energy_grad.launches
     before = count()
     res = sharded.solve_ensemble_sharded(group, strips, cfg, 1, bm,
@@ -613,3 +624,74 @@ def test_cuda_exact_pair_chromosome_axis(cuda_device, C, L, B):
     g_r = g_r.cpu().numpy()
     np.testing.assert_allclose(g.cpu().numpy(), g_r, rtol=2e-4,
                                atol=2e-4 + 1e-6 * np.abs(g_r).max())
+
+
+def _walk_tiles(device, L, n_real, B, seed=3):
+    """Exact tiles of a random walk of n_real beads padded to L, built on
+    the card (every pair nearer than 60 A restrained, weights of mean 1),
+    and B structures 2 A around the walk: (target, w, bead mask, xT). The
+    target is made exactly symmetric, as every restraint set of both
+    packages is: torch.cdist's matrix-product form is not, and B3 takes each
+    unordered pair's target from its row tile."""
+    g = torch.Generator().manual_seed(seed)
+    walk = torch.cumsum(torch.randn(n_real, 3, generator=g) * 2.2, 0)
+    x = walk[None] + torch.randn(B, n_real, 3, generator=g) * 2.0
+    walk = walk.to(device)
+    target = torch.zeros(L, L, device=device)
+    target[:n_real, :n_real] = torch.cdist(walk, walk)
+    target = torch.maximum(target, target.T)
+    target.masked_fill_(target >= 60.0, 0.0)
+    target.fill_diagonal_(0.0)
+    w = (target > 0).float()
+    w /= w.mean()
+    bm = torch.zeros(L, device=device)
+    bm[:n_real] = 1.0
+    xT = torch.zeros(B, 3, L)
+    xT[:, :, :n_real] = x.transpose(1, 2)
+    return target, w, bm, xT.to(device)
+
+
+def _check_pair_kernel(fn, twin, args, n_real, rtol_e):
+    """A pair kernel against its twin over the whole matrix: equal bits over
+    two calls, the energies within rtol_e, the gradient within rtol 2e-4 and
+    an absolute 2e-4 + 1e-6 x max |g| (chip_smoke.py's check_b3), padded
+    beads 0."""
+    e, g = fn(*args)
+    e2, g2 = fn(*args)
+    assert torch.equal(e, e2) and torch.equal(g, g2)        # no atomics: same bits
+    e_r, g_r = twin(*args)
+    g_r = g_r.cpu().numpy()
+    np.testing.assert_allclose(e.cpu().numpy(), e_r.cpu().numpy(), rtol=rtol_e)
+    np.testing.assert_allclose(g.cpu().numpy(), g_r, rtol=2e-4,
+                               atol=2e-4 + 1e-6 * np.abs(g_r).max())
+    np.testing.assert_array_equal(g[:, :, n_real:].cpu().numpy(), 0.0)
+
+
+@pytest.mark.parametrize("kernel", ["B3", "B5"])
+def test_cuda_pair_kernels_at_8192(cuda_device, kernel):
+    """B3 and B5 at L_pad = 8192 (8,000 beads), B = 20, the one-device
+    solve's shape past CHUNKED_TERMS_MIN_L, against their twins over the
+    whole matrix; B3's 2.5 GB of tile-pair partials are 64-bit indexed."""
+    L, n_real = 8192, 8000
+    target, w, bm, xT = _walk_tiles(cuda_device, L, n_real, 20)
+    if kernel == "B3":
+        _check_pair_kernel(tri_energy_grad, tri_energy_grad_plain,
+                           (xT, target, w, WEIGHTS, bm), n_real, 3e-5)
+    else:
+        lo, hi = (target * 0.9).contiguous(), (target * 1.1).contiguous()
+        _check_pair_kernel(general_pair_energy_grad, general_pair_energy_grad_plain,
+                           (xT, lo, hi, w, dataclasses.replace(WEIGHTS, noe_rswitch=1.0),
+                            bm), n_real, 1e-5)
+
+
+def test_cuda_tri_kernel_at_the_49152_bound(cuda_device):
+    """B3 at L_pad = 49152, B = 20 (the largest length the JAX package's
+    notes record on one device): the tile-pair partials hold 2.27e9 floats,
+    past 2^31, so every offset must be 64-bit. Against the twin over the
+    whole matrix."""
+    L, n_real = 49152, 49000
+    target, w, bm, xT = _walk_tiles(cuda_device, L, n_real, 20)
+    plan = tri_plan(20, L, L, TILE)
+    assert np.prod(plan["part_shape"]) > 2**31
+    _check_pair_kernel(tri_energy_grad, tri_energy_grad_plain,
+                       (xT, target, w, WEIGHTS, bm), n_real, 3e-5)

@@ -103,12 +103,16 @@ def test_pad_f32_and_true_length():
 
 
 def test_streamed_prep_is_refused(monkeypatch):
-    """Past the one-shot budget the JAX package streams the prep in strips;
-    the port refuses and names the ROADMAP item."""
+    """Past the one-shot budget the prep streams in strips, as the JAX
+    package's does (once refused here): the same targets bit for bit, the
+    relative weights to the normaliser's summation order."""
     assert not device_prep.should_stream_prep(5120, "cpu")
+    one = device_prep.exact_tiles_from_if_device(_matrix(60), 64, RestraintConfig(),
+                                                 "relative", 1.0)
     monkeypatch.setattr(device_prep, "_memory_bytes",
                         lambda dev: 4 * device_prep.prep_peak_bytes(64) - 1)
     assert device_prep.should_stream_prep(64, "cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        device_prep.exact_tiles_from_if_device(_matrix(60), 64, RestraintConfig(),
-                                               "relative", 1.0)
+    st = device_prep.exact_tiles_from_if_device(_matrix(60), 64, RestraintConfig(),
+                                                "relative", 1.0)
+    assert torch.equal(st.target, one.target)
+    np.testing.assert_allclose(st.w.numpy(), one.w.numpy(), rtol=3e-6, atol=1e-8)

@@ -130,14 +130,19 @@ def test_run_pipeline_refuses_unported_inputs(tmp_path, tiny_matrix, monkeypatch
     def boom(*a, **k):
         raise AssertionError("an (L_pad, L_pad) array was allocated")
 
-    # L = 16 pads to 8192 (chunked final terms, ROADMAP A10): refused before
-    # any (L_pad, L_pad) allocation
+    # L = 16 pads to 8192: no longer refused as unported (the run goes on
+    # to its first (L_pad, L_pad) array, here the fake above); refused, with
+    # the row-sharded route named, before any such allocation where the
+    # one-device estimate exceeds the device
     monkeypatch.setattr(port_pipeline.device_prep, "pad_f32", boom)
     monkeypatch.setattr(port_pipeline, "_padded_dense", boom)
-    with pytest.raises(NotImplementedError):
-        port_pipeline.run_pipeline(
-            txt, str(tmp_path / "b"),
-            PipelineConfig(length_buckets=(8,), shard_quantum=8192), device="cpu")
+    big = PipelineConfig(length_buckets=(8,), shard_quantum=8192)
+    with pytest.raises(AssertionError, match="allocated"):
+        port_pipeline.run_pipeline(txt, str(tmp_path / "b"), big, device="cpu")
+    need = port_pipeline.solve_peak_bytes(8192, 2 * big.model_count, exact=True)
+    monkeypatch.setattr(port_pipeline, "_memory_bytes", lambda dev: need - 1)
+    with pytest.raises(RuntimeError, match="row-sharded route"):
+        port_pipeline.run_pipeline(txt, str(tmp_path / "b"), big, device="cpu")
     with pytest.raises(NotImplementedError):
         port_pipeline.run_pipeline(txt, str(tmp_path / "c"),
                                    PipelineConfig(alpha_ensemble=(0.7,)), device="cpu")
@@ -184,7 +189,8 @@ def test_resolve_device_never_falls_back(monkeypatch, tmp_path):
 def test_run_pipeline_wipe(tmp_path, tiny_matrix):
     """run_pipeline removes the files already in the output directory (the
     reference's outdir wipe) and rounds its phase seconds to 0.01 s, as the
-    JAX package's does."""
+    JAX package's does; with wipe=False it keeps them, as the JAX package's
+    run_pipeline(wipe=False) does, and writes its artifacts beside them."""
     path = str(tmp_path / "chrT_matrix.txt")
     write_if_matrix(path, tiny_matrix)
     out = tmp_path / "out"
@@ -195,3 +201,8 @@ def test_run_pipeline_wipe(tmp_path, tiny_matrix):
     summary = port_pipeline.run_pipeline(path, str(out), cfg, device="cpu")
     assert not (out / "stale.txt").exists()
     assert all(v == round(v, 2) for v in summary["phases"].values())
+    (out / "stale.txt").write_text("from an earlier run\n")
+    kept = port_pipeline.run_pipeline(path, str(out), cfg, device="cpu", wipe=False)
+    assert (out / "stale.txt").read_text() == "from an earlier run\n"
+    assert (out / "chrT_matrix_model1.pdb").is_file() and (out / "summary.json").is_file()
+    assert kept["models"] == 2

@@ -188,15 +188,22 @@ def test_solve_refuses_before_allocating(tmp_path, monkeypatch):
         raise AssertionError("the solve tensors were built")
 
     monkeypatch.setattr(port_pipeline, "_padded_dense", boom)
-    # past 8192 (chunked final terms, ROADMAP A10)
-    with pytest.raises(NotImplementedError, match="A10"):
-        port_pipeline.run_restraints_pipeline(
-            rr, str(tmp_path / "b"), PipelineConfig(length_buckets=(8,), shard_quantum=8192),
-            device="cpu")
-    # several shard devices past the buckets: the row-sharded solve runs
-    # (padded to lcm(shard_quantum, shards)), no longer refused
+    # padded to 8192 on one device: no longer refused as unported (the run
+    # goes on to build its tensors, here the fake above), but refused, with
+    # the row-sharded route named, where its estimate exceeds the device
+    big = PipelineConfig(length_buckets=(8,), shard_quantum=8192)
+    with pytest.raises(AssertionError, match="the solve tensors were built"):
+        port_pipeline.run_restraints_pipeline(rr, str(tmp_path / "b"), big, device="cpu")
+    need = port_pipeline.solve_peak_bytes(8192, 2 * big.model_count, exact=False)
+    monkeypatch.setattr(port_pipeline, "_memory_bytes", lambda dev: need - 1)
+    with pytest.raises(RuntimeError, match="row-sharded route"):
+        port_pipeline.run_restraints_pipeline(rr, str(tmp_path / "b"), big, device="cpu")
+    # several shard devices past the buckets, and a one-device solve that
+    # does not fit: the row-sharded solve runs (padded to lcm(shard_quantum,
+    # shards))
     monkeypatch.undo()
     monkeypatch.setattr(device_mod, "shard_devices", lambda: [torch.device("cpu")] * 2)
+    monkeypatch.setattr(port_pipeline, "_memory_bytes", lambda dev: 0)
     cfg = PipelineConfig(model_count=2, length_buckets=(8,), shard_quantum=8,
                          anneal=fast_anneal(AnnealConfig(), 0.1))
     summary = port_pipeline.run_restraints_pipeline(rr, str(tmp_path / "c"), cfg,

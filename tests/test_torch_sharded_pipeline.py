@@ -26,7 +26,7 @@ from chromosome3d_tpu_torch.config import AnnealConfig, PipelineConfig, Restrain
 from chromosome3d_tpu_torch.ops import device_prep, fused_update, general_pair, pair_energy
 from chromosome3d_tpu_torch.ops import strip_tri, tri_energy
 from chromosome3d_tpu_torch.parallel.shards import ShardGroup
-from chromosome3d_tpu_torch.solver import sharded
+from chromosome3d_tpu_torch.solver import anneal, sharded
 from chromosome3d_tpu_torch.truth import confined_walk, if_from_structure
 
 TWINS = {
@@ -55,7 +55,12 @@ def _calls():
 
 
 def _shards(monkeypatch, n):
+    """n shard devices, all the CPU; with n > 1 the pipeline's reading of a
+    device's memory is patched to 0, so that a one-device solve does not
+    fit and the pipeline shards."""
     monkeypatch.setattr(device_mod, "shard_devices", lambda: [torch.device("cpu")] * n)
+    if n > 1:
+        monkeypatch.setattr(pipeline, "_memory_bytes", lambda dev: 0)
 
 
 def test_use_sharded_needs_shard_devices(monkeypatch):
@@ -173,11 +178,38 @@ def test_solve_sharded(tmp_path, monkeypatch, exact, n, twin):
         assert json.load(f)["best_noe_energy"] == summary["best_noe_energy"]
 
 
+def test_use_sharded_keeps_a_fitting_length_on_one_device(monkeypatch):
+    """Past the buckets with two shard devices the pipeline shards only where
+    the one-device solve's estimate exceeds the device: an 800-bead solve
+    fits the host's memory and stays on one device; with the memory read as
+    one byte short of its estimate it shards."""
+    cfg = PipelineConfig()
+    monkeypatch.setattr(device_mod, "shard_devices", lambda: [torch.device("cpu")] * 2)
+    assert not pipeline._use_sharded(800, cfg)
+    need = pipeline.solve_peak_bytes(1024, 2 * cfg.model_count, exact=True)
+    monkeypatch.setattr(pipeline, "_memory_bytes", lambda dev: need)
+    assert not pipeline._use_sharded(800, cfg)
+    monkeypatch.setattr(pipeline, "_memory_bytes", lambda dev: need - 1)
+    assert pipeline._use_sharded(800, cfg)
+    # the windowed solve holds more planes: its own estimate decides
+    need_w = pipeline.solve_peak_bytes(1024, 2 * cfg.model_count, exact=False)
+    assert need_w > need
+    monkeypatch.setattr(pipeline, "_memory_bytes", lambda dev: need_w)
+    assert pipeline._use_sharded(800, cfg, exact=True) is False
+    assert pipeline._use_sharded(800, cfg, exact=False) is False
+    monkeypatch.setattr(pipeline, "_memory_bytes", lambda dev: need_w - 1)
+    assert pipeline._use_sharded(800, cfg, exact=False)
+
+
 def test_sharded_pipelines_pass_the_chunked_terms_gate(tmp_path, monkeypatch):
-    """`run` past the one-device limit of the whole-matrix final terms: one
-    device refuses by name, a shard group solves (the threshold patched down
-    so that L = 800 -> 1024 is past it)."""
-    monkeypatch.setattr(pipeline, "CHUNKED_TERMS_MIN_L", 1024)
+    """`run` past the chunked final terms' gate (patched down so that
+    L = 800 -> 1024 is past it): one device solves with the row-chunked
+    terms, and so does a shard group with its own column-chunked terms."""
+    calls = []
+    real = anneal.energy_terms_chunked
+    monkeypatch.setattr(anneal, "energy_terms_chunked",
+                        lambda *a, **k: calls.append(a[0].shape) or real(*a, **k))
+    monkeypatch.setattr(anneal, "CHUNKED_TERMS_MIN_L", 1024)
     X = confined_walk(800, seed=7)
     npy = str(tmp_path / "chrT_800.npy")
     np.save(npy, if_from_structure(X, 0.5, 0.1, 7).astype(np.float32))
@@ -186,10 +218,12 @@ def test_sharded_pipelines_pass_the_chunked_terms_gate(tmp_path, monkeypatch):
                              AnnealConfig(), hot_steps=2, cool_cycles=1,
                              cool_steps_per_cycle=1, final_steps=1))
     _shards(monkeypatch, 1)
-    with pytest.raises(NotImplementedError, match="A10"):
-        pipeline.run_pipeline(npy, str(tmp_path / "one"), cfg, device="cpu")
+    one = pipeline.run_pipeline(npy, str(tmp_path / "one"), cfg, device="cpu")
+    assert calls == [(1, 1024, 3)]
+    assert one["L"] == 800 and np.isfinite(one["best_spearman_if_inv_d"])
     _shards(monkeypatch, 2)
     summary = pipeline.run_pipeline(npy, str(tmp_path / "two"), cfg, device="cpu")
+    assert calls == [(1, 1024, 3)]
     assert summary["L"] == 800 and np.isfinite(summary["best_spearman_if_inv_d"])
 
 
@@ -212,6 +246,6 @@ def test_sharded_prep_gates_on_strip_bytes_per_device(monkeypatch):
     assert not device_prep.should_stream_strip_prep(64, [cpu, meta])
     m = if_from_structure(confined_walk(60, seed=3), 0.5, 0.1, 3).astype(np.float32)
     rc = RestraintConfig()
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError, match="no streamed form"):
         device_prep.exact_tiles_from_if_device(m, 64, rc, rc.weighting, 1.0,
                                                group=ShardGroup([cpu, cpu]))

@@ -203,19 +203,24 @@ def test_sharded_refusals():
 
 @pytest.mark.parametrize("exact,n", [(True, 4), (False, 2)])
 def test_sharded_solve_has_no_chunked_terms_limit(monkeypatch, exact, n):
-    """The 8192 limit of the one-device solve (its whole-matrix final terms)
-    does not apply to the sharded solve, whose final terms are column-chunked
-    row blocks: with the threshold patched down to 32 the one-device solve
-    refuses L = 64 by name and the sharded solve runs it."""
+    """Past the chunked terms' gate (patched down to 32) both solves run
+    L = 64: the one-device solve with its row-chunked final terms, the
+    sharded solve with its column-chunked row blocks."""
     monkeypatch.setattr(port_anneal, "CHUNKED_TERMS_MIN_L", 32)
+    calls = []
+    real = port_anneal.energy_terms_chunked
+    monkeypatch.setattr(port_anneal, "energy_terms_chunked",
+                        lambda *a, **k: calls.append(a[0].shape) or real(*a, **k))
     _, dense, bead = _case(60, 64, window=not exact)
     r_t, _, _ = from_jax_numpy(dense)
     cfg = dataclasses.replace(_cfg(exact, two_sided=not exact),
                               hot_steps=3, cool_cycles=1, cool_steps_per_cycle=2,
                               final_steps=2)
     bm = torch.from_numpy(bead)
-    with pytest.raises(NotImplementedError, match="A10"):
-        port_anneal.solve_ensemble_impl(r_t, cfg, N_MODELS, bm)
+    one = port_anneal.solve_ensemble_impl(r_t, cfg, N_MODELS, bm)
+    assert calls == [(N_MODELS, 64, 3)]
+    assert torch.isfinite(one.coords).all()
+    assert all(torch.isfinite(v).all() for v in one.energies.values())
     group = ShardGroup(["cpu"] * n)
     got = port_sharded.solve_ensemble_sharded(
         group, port_sharded.restraint_strips(group, r_t), cfg, N_MODELS, bm)
