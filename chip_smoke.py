@@ -54,7 +54,14 @@ Phases (each prints one line or a few, then its wall seconds as a
                8 steps: history, x', mu', nu'; at B = 20 and at the cool
                phase's B = 10 a chromosome); their times beside their
                bounds (B1 per step of a 256-step launch at B = 20 and 10 a
-               chromosome).
+               chromosome);
+               B6 and B4 with the chromosome axis at the 50 kb genome's
+               largest bucket (two chromosomes of 4,550 and 4,820 beads, IF
+               by strips on the card, the batched prep, L = 5120; B = 20 and
+               the cool phase's B = 10 a chromosome): one launch against the
+               twins and each chromosome bit for bit against a launch of its
+               own (B6 e, g; B4 history, x', mu', nu'); their times beside
+               their bounds.
   4. main path — resets the launch counters, runs the port's CLI in process
                (`run -i <matrix> -o <out> -m 10`, the default 2,760-step
                schedule), checks that B1 launched twice (the hot phase, then
@@ -78,6 +85,22 @@ Phases (each prints one line or a few, then its wall seconds as a
                bucket's solve time (timed here, synchronised), its mds_init
                loop (rerun on its own after the run, on the same arguments)
                and the ensemble and chromosome steps/s.
+  4c. genome at 100 kb — GENOME_100KB: each 500 kb input at 5x its beads
+               and chr2 at 10x its 1 Mb count (350-2,410 beads; truths
+               confined_walk(L, seed=k) -> IF with noise 0.1), `genome -m 10
+               --no-violation-reports` in process: buckets 512 and 768 (B1
+               twice and B2 once each) and, past them, 1024 x5, 1536 x6, 2048
+               x5 and 2560 x2, each on the one card through the chrom x beads
+               genome solver (B6 once a step for the whole bucket and once
+               for the pick, B4 once a step): the launch counts exact, every
+               other kernel and twin 0, each bucket's phases, every
+               chromosome's artifacts and checkpoint, the ground-truth gates
+               on every chromosome; each bucket's solve timed (synchronised)
+               with its ensemble and chromosome-steps/s.
+  4d. alpha ensemble — `run -m 10 --alpha-ensemble 0.5,0.7,1.1` on the main
+               path's matrix: three solves (B1 x2 and B2 x1 each), 30 models
+               pooled into the Spearman ranking with their alpha REMARKs, the
+               NOE model files from the base alpha, the gates on rank 01.
   5. at-scale path — writes a ground-truth chromosome shaped like hg19 chr1
                at 50 kb (4,985 beads) as a float32 .npy, resets the counters,
                runs `run -i <.npy> -o <out> -m 10 --no-violation-reports` in
@@ -137,19 +160,24 @@ FP32 and HBM peaks, and library_ms null:
 no single PyTorch call computes a kernel's function; B1 and B2 also at the
 genome bucket's shape, with their launches on the genome path; B3 and B5
 at L_pad = 8192 and B3 and B4 at the streamed length, with the launches of
-phases 13, 14 and 16) and, last,
+phases 13, 14 and 16; B6 and B4 with the chromosome axis at the 50 kb
+genome's bucket of two chromosomes at L = 5120, with their launches on the
+100 kb genome) and, last,
 the result line `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import glob
 import io
 import json
 import logging
+import multiprocessing
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1737,6 +1765,309 @@ def phase_genome(directory, truths, card):
     return launches, b1_steps
 
 
+
+# the reference genome at 100 kb: each 500 kb input of GENOME at 5x its
+# beads, chr2 (no 500 kb input) at 10x its 1 Mb count; 350-2,410 beads, in
+# the 512 and 768 buckets and past them (1024 x5, 1536 x6, 2048 x5, 2560 x2)
+GENOME_100KB = tuple((name.replace("_500kb", "_100kb"), 5 * L) for name, L in GENOME
+                     if name.endswith("_500kb")) + (("chr2_100kb", 10 * 241),)
+BUCKETS_100KB = {512: 2, 768: 3, 1024: 5, 1536: 6, 2048: 5, 2560: 2}
+# the 50 kb genome's largest bucket: two chromosomes of 10x chr1_500kb's
+# and 20x chr2_1mb's beads, padded to 5120 (kernels B6 and B4 there)
+GENOME_50KB_PAIR = (4550, 4820)
+
+
+def phase_kernels_genome_at_scale(dev, card):
+    """Kernels B6 and B4 with the chromosome axis at the 50 kb genome's
+    largest bucket: two chromosomes of 4,550 and 4,820 beads (truths
+    confined_walk(L, seed=k), IF by strips on the card with noise 0.1, tiles
+    from the batched prep) padded to 5120, at B = 20 and at the cool phase's
+    B = 10 a chromosome. One launch for both against the twins (B6: rtol
+    2e-4, atol 2e-4 + 1e-6 x max |g|; B4: the update's tolerances) and each
+    chromosome bit for bit against a launch of its own; then their times
+    beside their bounds."""
+    from chromosome3d_tpu_torch.config import AnnealConfig, RestraintConfig
+    from chromosome3d_tpu_torch.ops.device_prep import exact_tiles_from_if_batched_device
+    from chromosome3d_tpu_torch.ops.energy import auto_weight_exponent
+    from chromosome3d_tpu_torch.ops.fused_update import (
+        fused_update_plain,
+        fused_update_table,
+        step_counter,
+    )
+    from chromosome3d_tpu_torch.ops.strip_tri import (
+        strip_tile,
+        strip_tri_energy_grad,
+        strip_tri_energy_grad_plain,
+    )
+    from chromosome3d_tpu_torch.solver.anneal import _final_weights, schedule_table
+    from chromosome3d_tpu_torch.truth import confined_walk, if_from_structure_strips
+
+    C, L = len(GENOME_50KB_PAIR), L_BIG_PAD
+    truths = [confined_walk(n, seed=k) for k, n in enumerate(GENOME_50KB_PAIR)]
+    mats = [if_from_structure_strips(X, alpha=0.5, noise_sigma=0.1, seed=k, device=dev)
+            for k, X in enumerate(truths)]
+    rc = RestraintConfig(kscaling=11.0, alpha=0.5)
+    ex = exact_tiles_from_if_batched_device(
+        mats, L, rc, rc.weighting, [auto_weight_exponent(n) for n in GENOME_50KB_PAIR],
+        device=dev)
+    near = [ensemble_near(X, L, dev) for X in truths]
+    bms = torch.stack([a[0] for a in near])
+    B = 2 * N_MODELS
+    w = _final_weights(AnnealConfig())
+    table = schedule_table(AnnealConfig(), seed=0)
+    seeds = torch.tensor([(12345 + 7919 * c) % (2**31 - 1) for c in range(C)],
+                         dtype=torch.int32, device=dev)
+    err, measured = {"B6": 0.0, "B4": 0.0}, {}
+    for b in (B, N_MODELS):
+        # each chromosome's first b structures, chromosome-major
+        xT, mu, nu = (torch.cat([a[i][:b] for a in near]).contiguous() for i in (1, 2, 3))
+        e, g = strip_tri_energy_grad(xT, ex.target, ex.w, w, bms, 0)
+        e2, g2 = strip_tri_energy_grad(xT, ex.target, ex.w, w, bms, 0)
+        e_r, g_r = strip_tri_energy_grad_plain(xT, ex.target, ex.w, w, bms, 0, strip_tile(L))
+        torch.cuda.synchronize()
+        check(torch.equal(e, e2) and torch.equal(g, g2), f"B6 genome B={b}: two calls differ")
+        close(f"B6 genome B={b} e", e, e_r, 3e-5)
+        err["B6"] = max(err["B6"], close(f"B6 genome B={b} g", g, g_r, 2e-4,
+                                         2e-4 + 1e-6 * float(g_r.abs().max())))
+        k = 301 if b == N_MODELS else 0
+
+        def update(sl, masks, s):
+            hist = torch.full((len(table.rows), sl.stop - sl.start), float("nan"), device=dev)
+            out = fused_update_table(xT[sl].contiguous(), g[sl].contiguous(),
+                                     mu[sl].contiguous(), nu[sl].contiguous(),
+                                     e[sl].contiguous(), masks, table, step_counter(k, dev),
+                                     hist, seeds=s)
+            return (hist[k], *out)
+
+        got = update(slice(0, C * b), bms, seeds)
+        weights, lr, sigma, bc1, bc2 = table.scalars(k)
+        e_b, *ref = fused_update_plain(xT, g, mu, nu, weights, bms, lr, sigma, bc1, bc2,
+                                       seeds.tolist(), k, table.clip)
+        torch.cuda.synchronize()
+        close(f"B4 genome B={b} hist", got[0], e + e_b, 2e-5)
+        close(f"B4 genome B={b} mu'", got[2], ref[1], 5e-4, 1e-5)
+        close(f"B4 genome B={b} nu'", got[3], ref[2], 5e-4, 1e-8)
+        err["B4"] = max(err["B4"], close(f"B4 genome B={b} x'", got[1], ref[0], 5e-4, 5e-4))
+        for c in range(C):
+            sl = slice(c * b, (c + 1) * b)
+            e_c, g_c = strip_tri_energy_grad(xT[sl].contiguous(), ex.target[c], ex.w[c], w,
+                                             bms[c], 0)
+            check(torch.equal(e_c, e[sl]) and torch.equal(g_c, g[sl]),
+                  f"B6 genome B={b}: chromosome {c} differs from a launch of its own")
+            for what, x, y in zip(("history", "x'", "mu'", "nu'"), update(
+                    sl, bms[c:c + 1], seeds[c:c + 1]), got):
+                check(torch.equal(x, y[sl]), f"B4 genome B={b}: chromosome {c}'s {what} "
+                      "differs from a launch of its own")
+            n = GENOME_50KB_PAIR[c]
+            check(bool((g[sl, :, n:] == 0).all()) and bool((got[1][sl, :, n:] == 0).all()),
+                  f"genome B={b}: chromosome {c}'s padded beads not 0")
+        print(f"[kernels] B6 exact_tri_strip and B4 fused_update with the chromosome axis, "
+              f"{C} chromosomes of {GENOME_50KB_PAIR} beads -> {L} x B={b}, one launch each: "
+              f"== twins (B6 g max abs err {err['B6']:.3g}, B4 x' {err['B4']:.3g}), each "
+              "chromosome bitwise a launch of its own (B6 e, g; B4 history, x', mu', nu'), "
+              "padded beads 0")
+
+        # times at this shape: the kernels as the genome solver calls them
+        # (B4 from the device counter), each twin per call at B = 20
+        counter = step_counter(0, dev)
+        hist = torch.empty((len(table.rows), C * b), device=dev)
+        calls = {
+            "B6": (lambda: strip_tri_energy_grad(xT, ex.target, ex.w, w, bms, 0), 25),
+            "B6 plain": (lambda: strip_tri_energy_grad_plain(xT, ex.target, ex.w, w, bms, 0,
+                                                             strip_tile(L)), 3),
+            "B4": (lambda: fused_update_table(xT, g, mu, nu, e, bms, table, counter, hist,
+                                              seeds=seeds), 25),
+            "B4 plain": (lambda: fused_update_plain(xT, g, mu, nu, weights, bms, lr, sigma,
+                                                    bc1, bc2, seeds.tolist(), k,
+                                                    table.clip), 25),
+        }
+        if b != B:
+            calls = {key: v for key, v in calls.items() if not key.endswith("plain")}
+        wall = {key: median_ms(fn, n, warmup=1) for key, (fn, n) in calls.items()}
+        counter.fill_(0)
+        # B6 and its twin take a millisecond or more: CUDA events (the
+        # profiler was seen to drop part of such kernels' time); B4's the
+        # profiler
+        on_dev = {key: (event_ms if key.startswith("B6") else device_ms)(fn, n)
+                  for key, (fn, n) in calls.items()}
+        bounds = {key: bound(key, b, L, C=C) for key in ("B6", "B4")}
+        print(f"[kernels] genome shape, {C} chromosomes at L={L}, B={b} a chromosome, ms as "
+              "median wall with a sync | device time (B6 and its twin: CUDA events; B4: "
+              "torch.profiler): "
+              + "; ".join(f"{key} {wall[key]:.5f} | {on_dev[key]:.5f}" for key in calls)
+              + f" (bounds B6 {bounds['B6'][0]:.5f}, B4 {bounds['B4'][0]:.5f} ms) on {card}")
+        for key in ("B6", "B4"):
+            if b == B:
+                measured[key] = {**timing(err[key], key, wall, on_dev), "L_pad": L,
+                                 "chromosomes": C}
+            else:
+                measured[key].update({"ms_b10": wall[key], "device_ms_b10": on_dev[key],
+                                      "bound_ms_b10": bounds[key][0]})
+    for key in ("B6", "B4"):
+        measured[key]["max_abs_err"] = err[key]
+    return measured
+
+
+def write_genome_100kb_inputs(directory):
+    """The 100 kb genome: one `chr*_100kb_matrix.txt` a chromosome,
+    confined_walk(L, seed=k) -> IF with noise 0.1 on the host (k its place
+    in GENOME_100KB); returns {name: the truth}."""
+    from chromosome3d_tpu_torch.truth import confined_walk, if_from_structure
+
+    os.makedirs(directory, exist_ok=True)
+    truths = {}
+    for k, (name, L) in enumerate(GENOME_100KB):
+        X = confined_walk(L, seed=k)
+        # write_if_matrix's text (a "%.6g" a value, one row a line) through
+        # np.savetxt, which formats the 43M values about twice as fast
+        np.savetxt(os.path.join(directory, f"{name}_matrix.txt"),
+                   if_from_structure(X, alpha=0.5, noise_sigma=0.1, seed=k), fmt="%.6g")
+        truths[name] = X
+    return truths
+
+
+def phase_genome_100kb(directory, truths, card):
+    """The genome at 100 kb: `genome -i <23 inputs> -o <out> -m 10
+    --no-violation-reports` through the CLI in process (the default
+    2,760-step schedule). Two buckets within the length buckets (B1 twice
+    and B2 once each) and four past them, each on the one card (B6 once a
+    step for the whole bucket and once for the pick, B4 once a step), no
+    other kernel or twin; every chromosome's artifacts, checkpoint and
+    summary.json with each bucket's phases; the ground-truth gates on every
+    chromosome's rank-01 model. Prints each bucket's solve (timed here,
+    synchronised) with its ensemble and chromosome-steps/s."""
+    from chromosome3d_tpu_torch import cli
+    from chromosome3d_tpu_torch.config import AnnealConfig
+    from chromosome3d_tpu_torch.parallel import genome
+
+    steps = AnnealConfig().total_steps
+    n_large = sum(1 for L in BUCKETS_100KB if L > 768)
+    want = {"B1": 2 * (len(BUCKETS_100KB) - n_large), "B2": len(BUCKETS_100KB) - n_large,
+            "B6": n_large * (steps + 1), "B4": n_large * steps}
+    for name in ("chromosome3d_tpu_torch.pipeline", "chromosome3d_tpu_torch.parallel.genome"):
+        logging.getLogger(name).setLevel(logging.WARNING)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "out")
+        reset_counters()
+        buf, t_small, t_large = io.StringIO(), [], []
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf), timed_calls(genome, "solve_bucket", t_small), \
+                timed_calls(genome, "solve_bucket_sharded_from_if", t_large):
+            rc = cli.main(["genome", "-i", directory, "-o", out, "-m", str(N_MODELS),
+                           "--no-violation-reports"])
+        wall = time.perf_counter() - t0
+        launches, plain = read_counters()
+        check(rc == 0, f"cli genome returned {rc}")
+        check_launches("genome 100 kb", launches, plain, want)
+        b1_steps = kernel_counters()[0]["B1"].steps
+        check(b1_steps == want["B1"] // 2 * steps,
+              f"genome 100 kb: B1 ran {b1_steps} steps, want {want['B1'] // 2 * steps}")
+        summary = json.load(open(os.path.join(out, "summary.json")))
+        check(sorted(summary["chromosomes"]) == sorted(truths)
+              and sorted(summary["phases"]) == sorted(f"L{L}" for L in BUCKETS_100KB),
+              f"genome 100 kb summary.json: {sorted(summary['phases'])}")
+        for L, n in BUCKETS_100KB.items():
+            ph = summary["phases"][f"L{L}"]
+            check(sorted(ph) == ["alpha_s", "chromosomes", "emit_s", "load_s",
+                                 "solve_and_views_s"] and len(ph["chromosomes"]) == n,
+                  f"genome 100 kb bucket {L}: {ph}")
+        met = {}
+        for name, L in GENOME_100KB:
+            d = os.path.join(out, name)
+            for f in ("model_info.log", "spearman.txt", f"{name}_model1.pdb"):
+                check(os.path.isfile(os.path.join(d, f)), f"genome 100 kb: {name}/{f} missing")
+            check(not os.path.exists(os.path.join(d, "contact_violation.txt")),
+                  f"genome 100 kb: {name}'s violation report was written")
+            for f in (f"{name}.npz", f"{name}.json"):
+                check(os.path.isfile(os.path.join(out, "checkpoint", f)),
+                      f"genome 100 kb: checkpoint/{f} missing")
+            ranked = sorted(glob.glob(os.path.join(d, f"{name}_rank*_a05.pdb")))
+            check(len(ranked) == N_MODELS, f"genome 100 kb: {name}: {len(ranked)} rank PDBs")
+            s = summary["chromosomes"][name]
+            check(s["L"] == L and s["models"] == N_MODELS, f"genome 100 kb: {name}'s {s}")
+            met[name] = check_gates(ranked[0], truths[name])
+            print(f"[genome 100kb] {name} L={L} -> {s['bucket']}: rank01 rmsd/Rg "
+                  f"{met[name]['rmsd_over_rg']:.4f}, spearman_d {met[name]['spearman_d']:.5f}, "
+                  f"dRMSD_rel {met[name]['drmsd_rel']:.4f}; best Spearman(IF,1/d) "
+                  f"{s['best_spearman_if_inv_d']:.4f}")
+    check(len(t_small) == len(BUCKETS_100KB) - n_large and len(t_large) == n_large,
+          f"genome 100 kb: {len(t_small)} + {len(t_large)} bucket solves")
+    solves = dict(zip(sorted(BUCKETS_100KB), t_small + t_large))
+    print(f"[genome 100kb] genome -i <{len(GENOME_100KB)} inputs> -m {N_MODELS} "
+          f"--no-violation-reports: buckets {BUCKETS_100KB}; "
+          + ", ".join(f"{k} {launches[k]} launches" for k in want)
+          + f" (B1 {b1_steps} steps), every other kernel 0, plain 0; gates met by all "
+          f"{len(GENOME_100KB)}")
+    for L, solve_s in solves.items():
+        n = BUCKETS_100KB[L]
+        print(f"[genome 100kb] bucket L={L}, {n} chromosomes: solve {solve_s} s "
+              "(timed here, synchronised: prep on the card past 768, init, the steps, "
+              f"final terms), {steps / solve_s} ensemble steps/s, {n * steps / solve_s} "
+              f"chromosome-steps/s; phases {json.dumps(summary['phases'][f'L{L}'])}")
+    print(f"[genome 100kb] wall {wall} s (summary.json {summary['wall_seconds']}) on {card}")
+    return launches, {L: t for L, t in solves.items()}
+
+
+def pdb_remark(path, term):
+    """The value of `REMARK <term> = <v>` in a PDB the port wrote."""
+    with open(path) as f:
+        for line in f:
+            body = line[len("REMARK"):].strip() if line.startswith("REMARK") else ""
+            if body.partition("=")[0].strip() == term:
+                return float(body.partition("=")[2])
+    fail(f"{path}: no REMARK {term}")
+
+
+def phase_alpha_ensemble(X, M, card):
+    """`run -i <the main path's matrix> -o <out> -m 10 --alpha-ensemble
+    0.5,0.7,1.1` (base alpha 0.5, so two extra solves): B1 twice and B2 once
+    a solve, no other kernel or twin; 30 models pooled into the Spearman
+    ranking (30 rank PDBs, alpha REMARKs 0.5, 0.7 and 1.1 on 10 each), the
+    NOE model files from the base alpha, and the gates on the rank-01
+    model."""
+    from chromosome3d_tpu_torch import cli
+    from chromosome3d_tpu_torch.io import write_if_matrix
+
+    alphas = (0.5, 0.7, 1.1)
+    logging.getLogger("chromosome3d_tpu_torch.pipeline").setLevel(logging.WARNING)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "chrT_456_matrix.txt")
+        write_if_matrix(path, M)
+        out = os.path.join(tmp, "out")
+        reset_counters()
+        buf, solve_t = io.StringIO(), []
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf), timed_solve(solve_t):
+            rc = cli.main(["run", "-i", path, "-o", out, "-m", str(N_MODELS),
+                           "--alpha-ensemble", ",".join(map(str, alphas))])
+        wall = time.perf_counter() - t0
+        launches, plain = read_counters()
+        check(rc == 0, f"cli run --alpha-ensemble returned {rc}")
+        check_launches("alpha ensemble", launches, plain, {"B1": 2 * len(alphas),
+                                                           "B2": len(alphas)})
+        summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+        ranked = sorted(glob.glob(os.path.join(out, "chrT_456_matrix_rank*_a05.pdb")))
+        n_all = N_MODELS * len(alphas)
+        check(summary["models"] == n_all and len(ranked) == n_all,
+              f"alpha ensemble: {summary['models']} models, {len(ranked)} rank PDBs")
+        got = sorted(pdb_remark(p, "alpha") for p in ranked)
+        check(got == sorted(a for a in alphas for _ in range(N_MODELS)),
+              f"alpha ensemble: alpha REMARKs {got}")
+        models = glob.glob(os.path.join(out, "chrT_456_matrix_model*.pdb"))
+        check(0 < len(models) <= N_MODELS, f"alpha ensemble: {len(models)} NOE model files")
+        met = check_gates(ranked[0], X)
+        best_alpha = pdb_remark(ranked[0], "alpha")
+    print(f"[alpha ensemble] run -m {N_MODELS} --alpha-ensemble {alphas}: B1 "
+          f"{launches['B1']} launches, B2 {launches['B2']}, every other kernel 0, plain 0; "
+          f"{n_all} models pooled; rank01 (alpha {best_alpha}) rmsd/Rg "
+          f"{met['rmsd_over_rg']:.4f}, spearman_d {met['spearman_d']:.5f}, dRMSD_rel "
+          f"{met['drmsd_rel']:.4f}; best Spearman(IF,1/d) "
+          f"{summary['best_spearman_if_inv_d']:.4f}")
+    print(f"[alpha ensemble] solves {solve_t} s (each timed here, synchronised), wall "
+          f"{wall} s, phases {json.dumps(summary['phases'])} on {card}")
+    return launches
+
+
 # past CHUNKED_TERMS_MIN_L: an 8,000-bead truth padded to 8192
 L_8K, L_8K_PAD = 8000, 8192
 # the streamed phase's padding: L_true = L_pad - 112, a ragged bead mask
@@ -2046,12 +2377,13 @@ B1_STEPS_A_LAUNCH = 1380     # the main path: 2,760 steps in 2 launches
 def work(key, B, L, Lb=None, C=1):
     """(FP32 operations, bytes each input read once and each output written
     once) of one call at these shapes, C chromosomes of B structures each
-    (B1 and B2; a tile set and a bead mask a chromosome); for B1 of one step
-    of a launch of B1_STEPS_A_LAUNCH: x read and x' written, the table's row
-    and the energies every step, the three tiles, mu, nu (in and out), the
-    bead masks and the seeds once a launch; for B4 x, g, mu, nu, the bead
-    mask, the pair energies, the table's row and the counter in, x', mu',
-    nu', the history row and the counter out."""
+    (B1, B2, B6 and B4; a tile set or strip, a bead mask and for B1 and B4 a
+    seed a chromosome); for B1 of one step of a launch of
+    B1_STEPS_A_LAUNCH: x read and x' written, the table's row and the
+    energies every step, the three tiles, mu, nu (in and out), the bead
+    masks and the seeds once a launch; for B4 x, g, mu, nu, the bead masks,
+    the seeds, the pair energies, the table's row and the counter in, x',
+    mu', nu', the history row and the counter out."""
     f, st = 4, 3 * C * B * L    # float32 bytes; one (C x B, 3, L) state array
     Lb = L if Lb is None else Lb
     return {
@@ -2060,9 +2392,9 @@ def work(key, B, L, Lb=None, C=1):
                + f * (C * (3 * L * L + L + 1) + 4 * st) // B1_STEPS_A_LAUNCH),
         "B2": (35 * C * B * L * L, f * (C * (2 * L * L + L) + 2 * st + C * B)),
         "B3": (36 * B * L * L // 2, f * (2 * L * L + 2 * st + B + L)),
-        "B4": (100 * B * L, f * (7 * st + 2 * B + L + 8)),
+        "B4": (100 * C * B * L, f * (7 * st + 2 * C * B + C * (L + 1) + 8)),
         "B5": (44 * B * L * L, f * (3 * L * L + 2 * st + B + L)),
-        "B6": (36 * B * Lb * L // 2, f * (2 * Lb * L + 2 * st + B + L)),
+        "B6": (36 * C * B * Lb * L // 2, f * (C * (2 * Lb * L + L) + 2 * st + C * B)),
         "B5'": (44 * B * Lb * L, f * (3 * Lb * L + st + 3 * B * Lb + B + L)),
         "B2'": (35 * B * Lb * L, f * (2 * Lb * L + st + 3 * B * Lb + B + L)),
     }[key]
@@ -2088,11 +2420,18 @@ def main() -> int:
     name, card = phase_device()
     dev = torch.device("cuda", 0)
     timed_phase("build", phase_build)
-    X, M, measured, small = timed_phase("kernels", phase_kernels, dev)
-    Xb, Mb, measured_big, big = timed_phase("kernels at scale", phase_kernels_at_scale, dev)
-    measured.update(measured_big)
-    measured["B4"].update(measured.pop("B4@512"))
-    with tempfile.TemporaryDirectory() as tmp:
+    spawn = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp, \
+            concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn) as writer:
+        # the 100 kb genome's text inputs (43M values) are written by a
+        # process of its own while the phases before 4c run
+        genome_100kb = os.path.join(tmp, "genome_100kb")
+        pending_100kb = writer.submit(write_genome_100kb_inputs, genome_100kb)
+        X, M, measured, small = timed_phase("kernels", phase_kernels, dev)
+        Xb, Mb, measured_big, big = timed_phase("kernels at scale", phase_kernels_at_scale,
+                                                dev)
+        measured.update(measured_big)
+        measured["B4"].update(measured.pop("B4@512"))
         inputs = timed_phase("solve inputs", make_solve_inputs, tmp)
         measured_b5 = timed_phase("kernels general", phase_kernels_general, dev, inputs)
         measured["B5"] = measured_b5["A"]
@@ -2103,9 +2442,17 @@ def main() -> int:
         truths = timed_phase("genome inputs", write_genome_inputs, genome_dir)
         measured_genome = timed_phase("kernels genome", phase_kernels_genome, dev,
                                       genome_dir, card)
+        measured_genome_large = timed_phase("kernels genome at scale",
+                                            phase_kernels_genome_at_scale, dev, card)
         launches, b1_steps = timed_phase("main path", phase_main_path, X, M, card)
         launches_genome, b1_steps_genome = timed_phase("genome", phase_genome, genome_dir,
                                                        truths, card)
+        truths_100kb = timed_phase("genome 100 kb inputs (the writer's wait)",
+                                   pending_100kb.result)
+        launches_100kb, _ = timed_phase("genome 100 kb", phase_genome_100kb, genome_100kb,
+                                        truths_100kb, card)
+        shutil.rmtree(genome_100kb)
+        timed_phase("alpha ensemble", phase_alpha_ensemble, X, M, card)
         launches_big = timed_phase("at-scale path", phase_at_scale_path, Xb, Mb, card)
         launches_solve = timed_phase("solve A", phase_solve_path, "A", inputs, "mds_init",
                                      card)
@@ -2196,6 +2543,19 @@ def main() -> int:
                         "chromosomes": C_GENOME})
         if key == "B1":
             kernels[-1]["steps"] = b1_steps_genome
+    # B6 and B4 with the chromosome axis at the 50 kb genome's largest bucket
+    # (2 chromosomes at L = 5120), their launches those of the 100 kb genome
+    for key, kname, src, replaces in (
+        ("B6", "exact_tri_strip_genome", "chromosome3d_tpu_torch/csrc/exact_tri_strip.cu",
+         "chromosome3d_tpu/ops/pallas_energy.py:1438"),
+        ("B4", "fused_update_genome", "chromosome3d_tpu_torch/csrc/fused_update.cu",
+         "chromosome3d_tpu/ops/pallas_energy.py:486"),
+    ):
+        C = len(GENOME_50KB_PAIR)
+        bound_ms, bound_by = bound(key, B, L_BIG_PAD, C=C)
+        kernels.append({"name": kname, "route": "cuda", "source": src, "replaces": replaces,
+                        "launches": launches_100kb[key], **measured_genome_large[key],
+                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     print(card)   # nvidia-smi --query-gpu=name,power.limit, again beside the numbers
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,30 +3,34 @@
 slices support.
 
   python -m chromosome3d_tpu_torch run -i <IF matrix (.txt or .npy)> -o <outdir> [-k K] [-a ALPHA]
-      [-m MODELS] [--fast | --turbo] [--no-violation-reports]
+      [-m MODELS] [--fast | --turbo] [--no-violation-reports] [--alpha-ensemble A,B,..]
       [--no-shard-large] [--shard-quantum Q] [--device {cuda,cpu}]
   python -m chromosome3d_tpu_torch solve -r <restraints (.rr or .tbl)> -o <outdir> [-L L]
       [-m MODELS] [--fast | --turbo] [--device {cuda,cpu}]
   python -m chromosome3d_tpu_torch genome -i <dir of chr*_matrix.txt> -o <outdir>
-      [--filter SUBSTRING] [--resume] [-m MODELS] [--fast | --turbo] [--device {cuda,cpu}]
+      [--filter SUBSTRING] [--resume] [-m MODELS] [--fast | --turbo]
+      [--alpha-ensemble A,B,..] [--device {cuda,cpu}]
   python -m chromosome3d_tpu_torch spearman <matrix> <pdb-or-dir> [range]
 
 `run`, `solve` and `genome` compute on the first CUDA device (the kernels
 build at first use) and fail when there is none; `--device cpu` runs them
 on the CPU, with the kernels' plain twins, and is the only way onto the
 CPU. `genome` solves every `chr*_<res>_matrix.txt` of a directory (those
-whose name holds `--filter`), one length bucket at a time (parallel.genome);
-`--resume` skips the chromosomes already in `<outdir>/checkpoint`. Past
-the largest length bucket with more than one CUDA device visible they
-row-shard the solve over all of them by themselves where it would not fit
-one (pipeline._use_sharded;
+whose name holds `--filter`), one length bucket at a time (parallel.genome),
+past the largest length bucket too; `--resume` skips the chromosomes
+already in `<outdir>/checkpoint`. `--alpha-ensemble` (on `run` and
+`genome`) solves again for each extra alpha and pools the models into the
+Spearman ranking. Past the largest length bucket with more than one CUDA
+device visible they row-shard the solve over all of them by themselves
+where it would not fit one (pipeline._use_sharded, genome.bucket_devices;
 `--no-shard-large` turns that off, `--shard-quantum` sets the padding unit
 past the buckets). `solve` takes an external restraint set: CONFOLD-style
 `.rr` rows `i j lo hi conf` or a CNS NOE `.tbl`, `or`-group rows included. The
 JAX CLI's other subcommands, and its flags that are not ported yet
-(`--alpha-ensemble`, `--profile`, `--chrom`, `--resolution`, `--bed`,
-`--ice`, `--norm`), are refused with NotImplementedError naming their
-ROADMAP item.
+(`--profile`, `--chrom`, `--resolution`, `--bed`, `--ice`, `--norm`, and
+`--alpha-ensemble` on `solve`, whose pipeline has no alpha loop in the JAX
+package either), are refused with NotImplementedError naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -43,10 +47,10 @@ _UNPORTED = {
     "calibrate": "A11",
 }
 # the JAX CLI's flags that are registered and refused when given, as
-# (flag, argparse keywords): every subcommand's, then `run`'s own. Each
-# defaults to None, so that any value given, the JAX CLI's default too, is
-# told from the flag's absence.
-_UNPORTED_COMMON = (
+# (flag, argparse keywords): `solve`'s, then `run`'s. Each defaults to None,
+# so that any value given, the JAX CLI's default too, is told from the
+# flag's absence.
+_UNPORTED_SOLVE = (
     ("--alpha-ensemble", dict()),
 )
 _UNPORTED_RUN = (
@@ -67,8 +71,10 @@ def _add_unported(p: argparse.ArgumentParser, flags) -> None:
 
 
 def _refuse_unported_flags(args) -> None:
-    """Raise for a registered-but-unported flag that was given."""
-    for flag, _ in _UNPORTED_COMMON + _UNPORTED_RUN:
+    """Raise for a registered-but-unported flag of args.command that was
+    given."""
+    flags = {"run": _UNPORTED_RUN, "solve": _UNPORTED_SOLVE}.get(args.command, ())
+    for flag, _ in flags:
         dest = flag.lstrip("-").replace("-", "_")
         if getattr(args, dest, None) is not None:
             raise NotImplementedError(
@@ -98,7 +104,12 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where to compute (default cuda, which fails without a "
                         "CUDA device; cpu runs the kernels' plain twins)")
-    _add_unported(p, _UNPORTED_COMMON)
+
+
+def _add_alpha_ensemble(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--alpha-ensemble", default="",
+                   help="comma-separated extra alpha values pooled into the "
+                        "Spearman ranking (quality mode)")
 
 
 def _make_config(args):
@@ -115,10 +126,15 @@ def _make_config(args):
         anneal = turbo_anneal(anneal)
     if args.fast:
         anneal = fast_anneal(anneal)
+    alpha_ensemble = tuple(
+        float(a) for a in (getattr(args, "alpha_ensemble", None) or "").split(",")
+        if a.strip()
+    )
     return PipelineConfig(
         model_count=args.model_count,
         restraints=RestraintConfig(kscaling=args.kscaling, alpha=args.alpha),
         anneal=anneal,
+        alpha_ensemble=alpha_ensemble,
         emit_violation_reports=not args.no_violation_reports,
         shard_large=not args.no_shard_large,
         shard_quantum=args.shard_quantum,
@@ -140,6 +156,7 @@ def main(argv=None) -> int:
     run.add_argument("-o", "--output", required=True, help="output directory")
     _add_unported(run, _UNPORTED_RUN)
     _add_common(run)
+    _add_alpha_ensemble(run)
 
     slv = sub.add_parser("solve", help="solve directly from a restraint file "
                                        "(.rr or CNS .tbl), no IF matrix required")
@@ -149,6 +166,7 @@ def main(argv=None) -> int:
     slv.add_argument("-L", "--length", type=int, default=None,
                      help="bead count (default: largest residue index)")
     _add_common(slv)
+    _add_unported(slv, _UNPORTED_SOLVE)
 
     gen = sub.add_parser("genome", help="whole-genome run, a launch a length bucket "
                                         "(replaces test.sh)")
@@ -160,6 +178,7 @@ def main(argv=None) -> int:
     gen.add_argument("--resume", action="store_true",
                      help="skip chromosomes already in <output>/checkpoint")
     _add_common(gen)
+    _add_alpha_ensemble(gen)
 
     sp = sub.add_parser("spearman", help="score models vs an IF matrix")
     sp.add_argument("matrix", help="IF matrix file")

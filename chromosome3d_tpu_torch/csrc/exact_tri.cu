@@ -68,7 +68,7 @@ extern "C" int c3d_exact_tri(const float* xT, const float* t, const float* w,
   if (tile != kTM || T != (L + kTM - 1) / kTM || bslice <= 0 || B <= 0)
     return (int)cudaErrorInvalidValue;
   const int S = T / 2 + 1;
-  const TriParams q{B, L, T, T, S, 0, T * kTM, 0, bslice, noe, vdw, vdw_radius};
+  const TriParams q{B, L, T, T, S, 0, T * kTM, 0, bslice, noe, vdw, vdw_radius, 1, L};
   cudaStream_t st = (cudaStream_t)stream;
   const cudaError_t err = c3d_tri::launch_pairs<kTM>(xT, t, w, bm, part, e_part, q, st);
   if (err != cudaSuccess) return (int)err;

@@ -1,7 +1,9 @@
 // Kernel B6: the exact-restraint pair energy and gradient of one shard's
 // row strip with each unordered (TM, TM) tile pair of the whole matrix
-// computed once across the shards, for a batch of structures sharing one
-// restraint set.
+// computed once across the shards, for C chromosomes of n structures each,
+// a restraint strip and a bead mask a chromosome (one chromosome on the
+// row-sharded `run` path; a genome bucket's chromosomes past the length
+// buckets, the JAX package's vmap of the shard body over them).
 //
 // Replaces: chromosome3d_tpu/ops/pallas_energy.py `_kernel_exact_tri_strip`
 // (entry `pallas_strip_tri_energy_grad_batched`) and the gradient assembly
@@ -9,7 +11,14 @@
 // restraints past the largest bucket over several shards) it runs once per
 // shard every annealing step, before kernel B4, and once per shard for the
 // enantiomer pick: at L = 5120 over 4 shards, Lb = 1280 rows, B = 20 then
-// 10 structures.
+// 10 structures. On the genome path past the buckets it runs once a step
+// for the whole bucket: C chromosomes of L = 1024-2560 (a genome at
+// 100 kb) or 5120 (50 kb), one strip of Lb = L each on one card.
+//
+// The chromosome axis: grid row y is the chromosome, whose blocks read its
+// n structures, strip and mask and write its partials; the assembly runs
+// over all C n structures, each from its own partials. A chromosome's
+// blocks and sums are those of a launch of its own, so its bits are too.
 //
 // Pairing and math: the tile-pair body in tri_pair.cuh, shared with B3. The
 // strip's row tiles are global tiles row0t .. row0t + Tl - 1; the round-robin
@@ -44,10 +53,10 @@ using c3d::kThreads;
 using c3d_tri::TriParams;
 
 __global__ void __launch_bounds__(kThreads)
-strip_assemble_kernel(const float* __restrict__ part,    // (B, 2S, 3, Lb)
-                      const float* __restrict__ e_part,  // (B, nblk)
-                      float* __restrict__ gT,            // (B, 3, L) out
-                      float* __restrict__ e,             // (B,) out
+strip_assemble_kernel(const float* __restrict__ part,    // (C n, 2S, 3, Lb)
+                      const float* __restrict__ e_part,  // (C n, nblk)
+                      float* __restrict__ gT,            // (C n, 3, L) out
+                      float* __restrict__ e,             // (C n,) out
                       int L, int Lb, int tile, int Tl, int Tg, int S, int row0t,
                       int nblk) {
   const int b = blockIdx.y;
@@ -79,20 +88,24 @@ strip_assemble_kernel(const float* __restrict__ part,    // (B, 2S, 3, Lb)
 
 }  // namespace
 
-// t, w: the strip's (Lb, L) rows, global rows row0 .. row0 + Lb - 1; tile
-// divides Lb and row0 and L; part: (B, 2 S, 3, Lb) and e_part: (B, Tl S)
-// scratch allocated by the caller, Tl = Lb / tile, Tg = L / tile,
-// S = Tg / 2 + 1; the structures go through a block bslice at a time.
+// xT: (C n, 3, L), chromosome-major; t, w: each chromosome's strip of
+// (Lb, L) rows, global rows row0 .. row0 + Lb - 1, as (C, Lb, L); bm: (C,
+// L); tile divides Lb and row0 and L; part: (C n, 2 S, 3, Lb) and e_part:
+// (C n, Tl S) scratch allocated by the caller, Tl = Lb / tile, Tg = L /
+// tile, S = Tg / 2 + 1; each chromosome's n structures go through a block
+// bslice at a time. One launch covers every chromosome; chromosome c's
+// outputs are bitwise those of a launch with C = 1 on its own inputs.
 extern "C" int c3d_exact_tri_strip(const float* xT, const float* t, const float* w,
                                    const float* bm, float* part, float* e_part,
-                                   float* gT, float* e, int B, int L, int row0,
+                                   float* gT, float* e, int C, int n, int L, int row0,
                                    int Lb, int tile, int bslice, float noe,
                                    float vdw, float vdw_radius, void* stream) {
   if (tile <= 0 || Lb <= 0 || Lb % tile || L % tile || row0 % tile || row0 < 0 ||
-      row0 + Lb > L || bslice <= 0 || B <= 0)
+      row0 + Lb > L || bslice <= 0 || n <= 0 || C <= 0 || C > 65535)
     return (int)cudaErrorInvalidValue;
   const int Tl = Lb / tile, Tg = L / tile, S = Tg / 2 + 1;
-  const TriParams q{B, L, Tl, Tg, S, row0 / tile, Lb, 1, bslice, noe, vdw, vdw_radius};
+  const TriParams q{n, L, Tl, Tg, S, row0 / tile, Lb, 1, bslice, noe, vdw, vdw_radius,
+                    C, Lb};
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   switch (tile) {
@@ -103,7 +116,7 @@ extern "C" int c3d_exact_tri_strip(const float* xT, const float* t, const float*
     default: return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((3 * L + kThreads - 1) / kThreads, B);
+  const dim3 grid((3 * L + kThreads - 1) / kThreads, C * n);
   strip_assemble_kernel<<<grid, kThreads, 0, st>>>(part, e_part, gT, e, L, Lb, tile,
                                                    Tl, Tg, S, row0 / tile, Tl * S);
   return (int)cudaGetLastError();

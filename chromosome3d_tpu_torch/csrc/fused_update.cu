@@ -7,6 +7,13 @@
 // (entry `pallas_fused_update_batched`). On the port's semi routes it runs
 // every step after the pair kernel (B3, B5, or B6 / B5' / B2' per shard) has
 // formed the pair gradient: B = 20 then 10 structures at L = 5120 or 512.
+// On the genome path past the length buckets it runs once a step for the
+// whole bucket: C chromosomes of n structures, a bead mask and a noise seed
+// a chromosome (read from a (C,) device array), structure b of the launch
+// being structure b mod n of chromosome b / n. The noise hash takes that
+// index within its chromosome, so each chromosome's bits are those of a
+// launch of its own; the step, the table row and the history row
+// (structure b's column) are shared.
 //
 // One launch a step does all of the step's work outside the pair kernel:
 //  * its scalars come from the device: the step k = *step (a counter the
@@ -71,9 +78,8 @@ constexpr int kBatch = 5;               // beads an energy-block thread loads at
 constexpr int kMinBlocks = 4;           // blocks an SM the registers leave room for
 
 struct UpdateConsts {
-  int B, L, first, rows, hist_stride;
+  int B, n, L, first, rows, hist_stride;   // B = C n structures, n a chromosome
   float b1, b2, eps_adam, bond_w, bond_len, clip;
-  uint32_t seed;
 };
 
 __device__ __forceinline__ int load_acquire(const int* p) {
@@ -136,7 +142,8 @@ fused_update_kernel(const float* __restrict__ xT,     // (B, 3, L)
                     const float* __restrict__ gT,     // (B, 3, L) pair gradient
                     const float* __restrict__ muT,    // (B, 3, L)
                     const float* __restrict__ nuT,    // (B, 3, L)
-                    const float* __restrict__ bm,     // (L,) bead mask
+                    const float* __restrict__ bm,     // (C, L) bead masks
+                    const int* __restrict__ seeds,    // (C,) noise seeds
                     const float* __restrict__ e_pair, // (B,) pair energies
                     const float* __restrict__ table,  // (rows, kTableCols)
                     int* __restrict__ step,           // the step k
@@ -150,6 +157,10 @@ fused_update_kernel(const float* __restrict__ xT,     // (B, 3, L)
   __shared__ int s_k;
   const int tid = threadIdx.x, lane = tid & 31;
   const int b = blockIdx.y, L = q.L;
+  // structure b is structure bl of chromosome c: its mask and seed are the
+  // chromosome's, and its noise stream is bl's, as in a launch of its own
+  const int c = b / q.n, bl = b - c * q.n;
+  bm += (size_t)c * L;
   const bool energy = blockIdx.x < kEBlocks;
   const int i = ((int)blockIdx.x - kEBlocks) * kThreads + tid;
   const bool live = !energy && i < L;
@@ -199,7 +210,6 @@ fused_update_kernel(const float* __restrict__ xT,     // (B, 3, L)
   p.bond_w = q.bond_w;
   p.bond_len = q.bond_len;
   p.clip = q.clip;
-  p.seed = q.seed;
   p.step = (uint32_t)k;
   if (energy) {
     // this block's quarter of the structure's bonds, then block 0 adds the
@@ -219,6 +229,7 @@ fused_update_kernel(const float* __restrict__ xT,     // (B, 3, L)
     cluster.sync();   // the others' shared memory stays until block 0 has read it
   } else {
     const float* row = table + (size_t)(k - q.first) * c3d::kTableCols;
+    p.seed = (uint32_t)__ldg(seeds + c);
     p.lr = __ldg(row + 0);
     p.sigma = __ldg(row + 1);
     p.bc1 = __ldg(row + 4);
@@ -245,7 +256,7 @@ fused_update_kernel(const float* __restrict__ xT,     // (B, 3, L)
 #pragma unroll
     for (int c = 0; c < 3; ++c) gr[c] = g0[c] + (fwd_prev[c] - fwd[c]);
     const float scale = c3d::clip_scale(gr, p);
-    const uint32_t base = c3d::noise_base(p, b);
+    const uint32_t base = c3d::noise_base(p, bl);
     if (live) {
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
@@ -269,20 +280,22 @@ fused_update_kernel(const float* __restrict__ xT,     // (B, 3, L)
 
 // ticket: one int that is 0 (each launch leaves it 0 again); table: the
 // schedule's `rows` rows, row k - first for step k = *step; hist: row
-// k - first of a (rows, hist_stride) buffer.
+// k - first of a (rows, hist_stride) buffer; bm: (B / n, L) bead masks and
+// seeds: (B / n,) noise seeds, one a chromosome of n structures.
 extern "C" int c3d_fused_update(const float* xT, const float* gT, const float* muT,
-                                const float* nuT, const float* bm, const float* e_pair,
-                                const float* table, int* step, float* hist, int* ticket,
-                                float* xTo, float* muTo, float* nuTo, int B, int L,
-                                int first, int rows, int hist_stride, float b1, float b2,
-                                float eps_adam, float bond_w, float bond_len, float clip,
-                                int seed, void* stream) {
-  if (B <= 0 || L <= 0 || rows <= 0 || hist_stride < B) return (int)cudaErrorInvalidValue;
-  const UpdateConsts q{B, L, first, rows, hist_stride, b1, b2, eps_adam, bond_w, bond_len,
-                       clip, (uint32_t)seed};
+                                const float* nuT, const float* bm, const int* seeds,
+                                const float* e_pair, const float* table, int* step,
+                                float* hist, int* ticket, float* xTo, float* muTo,
+                                float* nuTo, int B, int n, int L, int first, int rows,
+                                int hist_stride, float b1, float b2, float eps_adam,
+                                float bond_w, float bond_len, float clip, void* stream) {
+  if (B <= 0 || n <= 0 || B % n || L <= 0 || rows <= 0 || hist_stride < B)
+    return (int)cudaErrorInvalidValue;
+  const UpdateConsts q{B, n, L, first, rows, hist_stride, b1, b2, eps_adam, bond_w,
+                       bond_len, clip};
   const int nx = kEBlocks + (L + kThreads - 1) / kThreads;
   const dim3 grid((nx + kEBlocks - 1) / kEBlocks * kEBlocks, B);
   fused_update_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      xT, gT, muT, nuT, bm, e_pair, table, step, hist, ticket, xTo, muTo, nuTo, q);
+      xT, gT, muT, nuT, bm, seeds, e_pair, table, step, hist, ticket, xTo, muTo, nuTo, q);
   return (int)cudaGetLastError();
 }

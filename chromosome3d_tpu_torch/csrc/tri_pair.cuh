@@ -50,6 +50,9 @@
 // to e_part[b, s Tl + i]. No float atomics: the same inputs give the same
 // bits. TM = 8 leaves all but an 8 x 8 corner of the threads idle; it only
 // serves strips whose height 64, 32 and 16 do not divide.
+// B6 takes a chromosome axis (grid row y): chromosome c's blocks read its B
+// structures, its (rows, L) strip and its mask and write its partials, all
+// at c's offsets, so its bits are those of a launch of its own.
 
 #pragma once
 
@@ -64,13 +67,15 @@ using c3d::kWarps;
 constexpr float kEps = 1e-12f;
 
 struct TriParams {
-  int B, L;         // structures, global (padded) length
+  int B, L;         // structures a chromosome, global (padded) length
   int Tl, Tg, S;    // the strip's row tiles, global tiles, shells Tg / 2 + 1
   int row0t;        // the strip's first global row tile (0 for B3)
   int W;            // width of one partial slot
   int compact;      // column partials at the row tile's position (B6)
   int BS;           // structures a slice
   float noe, vdw, r0;
+  int C;            // chromosomes: grid row y, B structures each (1 for B3)
+  int rows;         // rows of t and w a chromosome (the strip's Lb; B6 only)
 };
 
 // floats of shared memory a block needs for slices of BS structures: two
@@ -87,12 +92,12 @@ namespace {
 
 template <int TM>
 __global__ void __launch_bounds__(kThreads, 2)
-tri_pair_kernel(const float* __restrict__ xT,   // (B, 3, L)
-                const float* __restrict__ t,    // (Tl TM, L) target rows of the strip
-                const float* __restrict__ w,    // (Tl TM, L) folded weights
-                const float* __restrict__ bm,   // (L,) bead mask
-                float* __restrict__ part,       // (B, 2S, 3, W) out
-                float* __restrict__ e_part,     // (B, Tl S) out
+tri_pair_kernel(const float* __restrict__ xT,   // (C B, 3, L)
+                const float* __restrict__ t,    // (C, rows, L) target rows of the strip
+                const float* __restrict__ w,    // (C, rows, L) folded weights
+                const float* __restrict__ bm,   // (C, L) bead masks
+                float* __restrict__ part,       // (C B, 2S, 3, W) out
+                float* __restrict__ e_part,     // (C B, Tl S) out
                 TriParams q) {
   constexpr int kPer = TM >= 16 ? TM / 16 : 1;
   constexpr int NC = 3 * kPer;        // a thread's column sums per structure
@@ -107,6 +112,15 @@ tri_pair_kernel(const float* __restrict__ xT,   // (B, 3, L)
   float* s_row = s_col + BS * kWarps * kColSlot;   // [BS][3 TM rows + 2 kWarps energies]
 
   const int Tl = q.Tl, Tg = q.Tg, S = q.S, L = q.L, W = q.W, B = q.B;
+  // chromosome blockIdx.y: its B structures, tiles, mask and partials, so
+  // its blocks compute what a launch of its own computes
+  const size_t chrom = blockIdx.y;
+  xT += chrom * B * 3 * L;
+  t += chrom * q.rows * L;
+  w += chrom * q.rows * L;
+  bm += chrom * L;
+  part += chrom * B * 2 * S * 3 * W;
+  e_part += chrom * B * Tl * S;
   const int blk = blockIdx.x;
   const int ti = blk % Tl, sh = blk / Tl;
   const int ig = q.row0t + ti;
@@ -286,7 +300,8 @@ cudaError_t launch_pairs(const float* xT, const float* t, const float* w,
   cudaError_t err = cudaFuncSetAttribute(
       tri_pair_kernel<TM>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  tri_pair_kernel<TM><<<q.Tl * q.S, kThreads, smem, st>>>(xT, t, w, bm, part, e_part, q);
+  const dim3 grid(q.Tl * q.S, q.C);
+  tri_pair_kernel<TM><<<grid, kThreads, smem, st>>>(xT, t, w, bm, part, e_part, q);
   return cudaGetLastError();
 }
 

@@ -58,17 +58,17 @@ SIGNATURES = {
     "c3d_exact_tri": (
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P,
     ),
-    # xT, t, w, bead_mask, part, e_part, gT, e, B, L, row0, Lb, tile, bslice,
-    # noe, vdw, vdw_radius, stream
+    # xT, t, w, bead_masks, part, e_part, gT, e, C, n_per, L, row0, Lb, tile,
+    # bslice, noe, vdw, vdw_radius, stream
     "c3d_exact_tri_strip": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P,
     ),
-    # xT, gT, muT, nuT, bead_mask, e_pair, table, step, hist, ticket, xTo,
-    # muTo, nuTo, B, L, first, rows, hist_stride, b1, b2, eps, bond_w,
-    # bond_len, clip, seed, stream
+    # xT, gT, muT, nuT, bead_masks, seeds, e_pair, table, step, hist, ticket,
+    # xTo, muTo, nuTo, B, n_per, L, first, rows, hist_stride, b1, b2, eps,
+    # bond_w, bond_len, clip, stream
     "c3d_fused_update": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-        _F, _F, _F, _F, _F, _F, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+        _F, _F, _F, _F, _F, _F, _P,
     ),
     # xA, xB, mu, nu, t, w, nb, bead_mask, seeds, table row k0, part, hist,
     # B, L, k0, k1, n_per, cpl, rpw, resident, nsgc, nsgb, nrgb, nrg, sg, sp,

@@ -22,6 +22,10 @@ the two global reductions (the IF^alpha mean and the relative-weighting
 normaliser) add per-strip float32 partial sums on the host in float64. The
 device then holds the tiles and one strip. The assessment view streams the
 same way, each strip's final values downloaded into a host (n, n) pair.
+
+A genome bucket past the length buckets is prepped the same way, a
+chromosome at a time into (C, L, L) tiles (`exact_tiles_from_if_batched_device`,
+from the bucket's one host pad/stack, `pad_stack`).
 """
 
 from __future__ import annotations
@@ -351,3 +355,58 @@ def _strips_from_if(if_matrix, L_pad: int, rc, weighting: str, p: float, n_true,
                                         for _, mk in unnorm]), 1.0))
         ws = [w / torch.clamp_min(dr, 1e-30) for w, dr in zip(ws, group.broadcast(denom))]
     return [ExactRestraints(target=t, w=w) for t, w in zip(targets, ws)]
+
+
+def pad_stack(matrices, L_pad: int) -> np.ndarray:
+    """The (C, L_pad, L_pad) float32 pad/stack of a genome bucket's IF
+    matrices: one host pass, made once by a caller that preps the same
+    bucket more than once (an alpha ensemble)."""
+    stack = np.zeros((len(matrices), L_pad, L_pad), np.float32)
+    for c, m in enumerate(matrices):
+        n = m.shape[0]
+        stack[c, :n, :n] = np.asarray(m, np.float32)
+    return stack
+
+
+def exact_tiles_from_if_batched_device(matrices, L_pad: int, rc, weighting: str,
+                                       weight_exponents, stack=None, device="cpu",
+                                       group=None):
+    """exact_tiles_from_if_device for a genome bucket (the JAX package's
+    exact_tiles_from_if_batched_device, its vmap of one chromosome's prep):
+    the C IF matrices -> (C, L_pad, L_pad) ExactRestraints on `device`,
+    chromosome c prepped from its own true length with its own weight
+    exponent weight_exponents[c]. stack: the pad_stack of the matrices,
+    when the caller made it already (an alpha ensemble pads the bucket
+    once). One chromosome past the one-shot limit streams its prep
+    (should_stream_prep), as the JAX runner's one-device bucket does.
+
+    group: a parallel.shards.ShardGroup; then each chromosome is prepped in
+    row strips on the group's devices and a list comes back, rank r's
+    ExactRestraints holding every chromosome's strip as (C, Lb, L_pad)."""
+    C = len(matrices)
+    if stack is None:
+        stack = pad_stack(matrices, L_pad)
+    elif stack.shape != (C, L_pad, L_pad) or stack.dtype != np.float32:
+        raise ValueError(f"prebuilt stack {stack.shape} {stack.dtype} does not match "
+                         f"({C}, {L_pad}, {L_pad}) float32")
+    ns = [int(m.shape[0]) for m in matrices]
+    if group is not None:
+        per = [exact_tiles_from_if_device(stack[c], L_pad, rc, weighting,
+                                          weight_exponents[c], n_true=ns[c], group=group)
+               for c in range(C)]
+        return [ExactRestraints(target=torch.stack([p[r].target for p in per]),
+                                w=torch.stack([p[r].w for p in per]))
+                for r in range(group.n)]
+    device = torch.device(device)
+    if C == 1 and should_stream_prep(L_pad, device):
+        tiles = exact_tiles_from_if_streamed(stack[0], L_pad, rc, weighting,
+                                             weight_exponents[0], n_true=ns[0],
+                                             device=device)
+        return ExactRestraints(target=tiles.target[None], w=tiles.w[None])
+    target = torch.empty((C, L_pad, L_pad), dtype=torch.float32, device=device)
+    w = torch.empty_like(target)
+    for c in range(C):
+        one = _tiles_from_if_body(_upload(stack[c], device), ns[c], rc.alpha, rc.kscaling,
+                                  weight_exponents[c], int(rc.separation), weighting)
+        target[c], w[c] = one.target, one.w
+    return ExactRestraints(target=target, w=w)

@@ -232,6 +232,15 @@ class ScheduleTable:
             self._on_device[key] = torch.from_numpy(self.rows).to(device).contiguous()
         return self._on_device[key]
 
+    def device_seed(self, device) -> torch.Tensor:
+        """[seed] as the (1,) int32 seed array of one chromosome on
+        `device`, uploaded once."""
+        key = f"seed {torch.device(device)}"
+        if key not in self._on_device:
+            self._on_device[key] = torch.tensor([_c_int32(self.seed)], dtype=torch.int32,
+                                                device=device)
+        return self._on_device[key]
+
 
 def one_step_table(weights: EnergyWeights, lr, sigma, bc1, bc2, seed: int, step: int,
                    clip: Optional[float], b1: float = 0.9, b2: float = 0.999,

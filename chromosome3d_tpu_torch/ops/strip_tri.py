@@ -1,6 +1,8 @@
 """Kernel B6: the strip-triangular exact pair energy and gradient of one
 shard of the row-sharded solve (csrc/exact_tri_strip.cu), its plain PyTorch
-twin, and the sharded solver's routing rules.
+twin, and the sharded solver's routing rules. It takes a chromosome axis: a
+genome bucket's C chromosomes (strips (C, Lb, L), masks (C, L), C x n
+structures) in one launch, as the JAX genome solver vmaps the shard body.
 
 Replaces chromosome3d_tpu/ops/pallas_energy.py `_kernel_exact_tri_strip`
 (entry `pallas_strip_tri_energy_grad_batched`) together with
@@ -19,6 +21,7 @@ kernel for CUDA tensors, counting each in a plain integer on the function
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -101,15 +104,20 @@ def strip_plan(B: int, L: int, Lb: int, row_start: int) -> dict:
     return plan
 
 
-def strip_tri_energy_grad_plain(
-    xT: torch.Tensor, target: torch.Tensor, w: torch.Tensor,
-    weights: EnergyWeights, bead_mask: torch.Tensor, row_start: int, tile: int,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain twin of B6 with the tile as an argument: the strip's shells of
-    the round-robin pairing of (tile, tile) blocks, in the Pallas kernel's
-    rsqrt-space algebra, one shell at a time. Returns (the strip's energy
-    partial (B,), its share of the gradient (B, 3, L))."""
-    strip_tri_energy_grad_plain.calls += 1
+def _chromosome_axis(xT: torch.Tensor, target: torch.Tensor, bead_mask: torch.Tensor):
+    """(C, n): a strip (Lb, L) with bead_mask (L,) is one chromosome of all
+    B structures; strips (C, Lb, L) with masks (C, L) are C chromosomes of
+    B / C structures each, chromosome-major."""
+    if target.dim() == 2:
+        return 1, xT.shape[0]
+    C = target.shape[0]
+    if C == 0 or xT.shape[0] % C:
+        raise ValueError(f"{C} chromosomes do not divide the {xT.shape[0]} structures")
+    return C, xT.shape[0] // C
+
+
+def _strip_one_plain(xT, target, w, weights, bead_mask, row_start, tile):
+    """B6's twin for one chromosome (see strip_tri_energy_grad_plain)."""
     B, _, L = xT.shape
     Lb = target.shape[0]
     TM = tile
@@ -154,7 +162,35 @@ def strip_tri_energy_grad_plain(
     return e, g.transpose(1, 2).contiguous()
 
 
+def strip_tri_energy_grad_plain(
+    xT: torch.Tensor, target: torch.Tensor, w: torch.Tensor,
+    weights: EnergyWeights, bead_mask: torch.Tensor, row_start: int, tile: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of B6 with the tile as an argument: the strip's shells of
+    the round-robin pairing of (tile, tile) blocks, in the Pallas kernel's
+    rsqrt-space algebra, one shell at a time. Strips (Lb, L) with
+    bead_mask (L,) are one chromosome; strips (C, Lb, L) with masks (C, L)
+    run each chromosome's B / C structures alone and stack the results in
+    chromosome order. Returns (the strip's energy partials (B,), its share
+    of the gradient (B, 3, L))."""
+    strip_tri_energy_grad_plain.calls += 1
+    C, n = _chromosome_axis(xT, target, bead_mask)
+    if target.dim() == 2:
+        return _strip_one_plain(xT, target, w, weights, bead_mask, row_start, tile)
+    outs = [_strip_one_plain(xT[c * n:(c + 1) * n], target[c], w[c], weights,
+                             bead_mask[c], row_start, tile) for c in range(C)]
+    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
+
 strip_tri_energy_grad_plain.calls = 0
+
+
+def strip_scratch_bytes(B: int, L: int, Lb: int, row_start: int = 0) -> int:
+    """Bytes of B6's scratch (its partials and energy partials) for B
+    structures in all on strips of Lb rows of length L, whatever the
+    chromosomes: the buffers grow with the structures, not with C."""
+    plan = strip_plan(B, L, Lb, row_start)
+    return 4 * (math.prod(plan["part_shape"]) + math.prod(plan["e_part_shape"]))
 
 
 def strip_tri_energy_grad(
@@ -163,37 +199,42 @@ def strip_tri_energy_grad(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B6 for one shard: xT (B, 3, L) the whole ensemble, target and folded
     weight w the (Lb, L) strips of rows [row_start, row_start + Lb),
-    bead_mask (L,), all float32 and contiguous on the shard's device; the
-    tile (`strip_tile(Lb)`) must divide row_start and L. Returns (the
-    strip's energy partial (B,), its share of the gradient (B, 3, L)); the
-    shards' sums are the whole pair energy and gradient. CPU tensors run the
-    plain twin; CUDA tensors launch csrc/exact_tri_strip.cu, whose partials
-    land in a (B, 2S, 3, Lb) scratch buffer that its second kernel
-    assembles in a fixed order (no atomics: equal inputs give equal bits)."""
-    if xT.dim() != 3 or target.dim() != 2:
-        raise ValueError(f"xT (B, 3, L) and (Lb, L) strips required, got "
+    bead_mask (L,); or, for C chromosomes of B / C structures each
+    (chromosome-major), strips (C, Lb, L) and masks (C, L), one launch for
+    all of them, chromosome c's outputs bitwise those of a call of its own.
+    All float32 and contiguous on the shard's device; the tile
+    (`strip_tile(Lb)`) must divide row_start and L. Returns (the strip's
+    energy partials (B,), its share of the gradient (B, 3, L)); the shards'
+    sums are the whole pair energy and gradient. CPU tensors run the plain
+    twin; CUDA tensors launch csrc/exact_tri_strip.cu, whose partials land
+    in a (B, 2S, 3, Lb) scratch buffer that its second kernel assembles in a
+    fixed order (no atomics: equal inputs give equal bits)."""
+    if xT.dim() != 3 or target.dim() not in (2, 3):
+        raise ValueError(f"xT (B, 3, L) and (Lb, L) or (C, Lb, L) strips required, got "
                          f"{tuple(xT.shape)} and {tuple(target.shape)}")
     B, L = xT.shape[0], xT.shape[2]
-    Lb = target.shape[0]
+    C, n = _chromosome_axis(xT, target, bead_mask)
+    Lb = target.shape[-2]
+    lead = () if target.dim() == 2 else (C,)
     dev = check_inputs({
-        "xT": (xT, (B, 3, L)), "target": (target, (Lb, L)), "w": (w, (Lb, L)),
-        "bead_mask": (bead_mask, (L,)),
+        "xT": (xT, (B, 3, L)), "target": (target, (*lead, Lb, L)),
+        "w": (w, (*lead, Lb, L)), "bead_mask": (bead_mask, (*lead, L)),
     })
-    plan = strip_plan(B, L, Lb, row_start)
+    plan = strip_plan(n, L, Lb, row_start)
     tile = plan["tile"]
     if dev.type == "cpu":
         return strip_tri_energy_grad_plain(xT, target, w, weights, bead_mask,
                                            row_start, tile)
     lib = _build.load_library()
-    part = torch.empty(plan["part_shape"], dtype=torch.float32, device=dev)
-    e_part = torch.empty(plan["e_part_shape"], dtype=torch.float32, device=dev)
+    part = torch.empty((B, *plan["part_shape"][1:]), dtype=torch.float32, device=dev)
+    e_part = torch.empty((B, *plan["e_part_shape"][1:]), dtype=torch.float32, device=dev)
     gT = torch.empty_like(xT)
     e = torch.empty((B,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.c3d_exact_tri_strip(
             xT.data_ptr(), target.data_ptr(), w.data_ptr(), bead_mask.data_ptr(),
             part.data_ptr(), e_part.data_ptr(), gT.data_ptr(), e.data_ptr(),
-            B, L, row_start, Lb, tile, plan["bslice"], weights.noe, weights.vdw,
+            C, n, L, row_start, Lb, tile, plan["bslice"], weights.noe, weights.vdw,
             weights.vdw_radius, torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, "c3d_exact_tri_strip")

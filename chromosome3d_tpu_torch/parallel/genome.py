@@ -5,25 +5,38 @@ chromosomes x 2 resolutions, test.sh:4-11). Here, as in the JAX package,
 the genome is a handful of launches:
 
   1. chromosomes are bucketed by padded bead count (length_buckets in
-     PipelineConfig) — padding beads are masked out of every energy term;
-  2. each bucket's restraints are stacked on the host as (C, L, L) tensors
-     and (C, L) bead masks, each chromosome's weights normalised over its
-     own restraints before padding (`_stack_bucket`);
-  3. the bucket is solved together on one device (`solve_bucket`,
-     solver.anneal.solve_bucket_impl): the JAX package's
-     vmap(solve_ensemble_impl) over the bucket's chromosomes becomes one
+     PipelineConfig; past the largest, a multiple of shard_quantum) —
+     padding beads are masked out of every energy term;
+  2. a bucket within the length buckets is stacked on the host as (C, L, L)
+     tensors and (C, L) bead masks, each chromosome's weights normalised
+     over its own restraints before padding (`_stack_bucket`), and solved
+     together on one device (`solve_bucket`, solver.anneal.solve_bucket_impl):
+     the JAX package's vmap(solve_ensemble_impl) over the bucket becomes one
      batch of C x 2 x models structures with a tile set per chromosome, so
      kernel B1 runs each phase of the schedule for the whole bucket in one
      launch and kernel B2 the enantiomer pick in one;
+  3. a bucket past the length buckets (exact restraints, the default) skips
+     the host prep: its IF matrices are padded and stacked once on the host
+     (`bucket_stack`), their exact tiles built on the device
+     (`bucket_tiles_from_if`, ops.device_prep), and the bucket solved by the
+     chrom x beads genome solver (`solve_bucket_sharded_from_if`,
+     solver.sharded.solve_genome_sharded): on the one device, every step
+     kernel B6 once and kernel B4 once for the whole bucket. Only where the
+     bucket would not fit the device (`bucket_peak_bytes`) does it spread
+     over the visible cards (`bucket_devices`). The assessment views are
+     downloaded from the live tiles;
   4. each chromosome is assessed and its artifacts written on host threads
      (pipeline.emit_artifacts), and checkpointed (utils.checkpoint), so a
      run can resume.
 
-Not ported, and refused with NotImplementedError: buckets past the largest
-length bucket (the JAX package's chrom x beads sharded genome solver,
-ROADMAP A12) and the alpha ensemble (A11). The JAX package's
-multi-device mesh and its 2-D chrom x model layout have no counterpart: one
-device solves a bucket.
+The alpha ensemble (cfg.alpha_ensemble) solves each bucket again per extra
+alpha and pools the models into the Spearman ranking, as the JAX package
+does. Not ported, and refused with NotImplementedError before any bucket is
+solved: a bucket past the length buckets whose restraints are not exact,
+and one whose layout takes the row-block route (B2' with a chromosome axis;
+ROADMAP A12). The JAX package's 2-D chrom x model layout of the buckets
+within the length buckets has no counterpart: one device solves such a
+bucket.
 """
 
 from __future__ import annotations
@@ -39,17 +52,29 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from chromosome3d_tpu_torch import device as device_mod
+from chromosome3d_tpu_torch import pipeline
 from chromosome3d_tpu_torch.config import PipelineConfig
 from chromosome3d_tpu_torch.device import resolve_device
 from chromosome3d_tpu_torch.io.matrix import load_if_matrix, matrix_length
+from chromosome3d_tpu_torch.ops import device_prep, strip_tri
 from chromosome3d_tpu_torch.ops.energy import (
+    ExactRestraints,
     auto_weight_exponent,
     dense_restraints_from_numpy,
     exact_restraints_from_numpy,
 )
-from chromosome3d_tpu_torch.pipeline import auto_exact, emit_artifacts, quantum_bucket
-from chromosome3d_tpu_torch.restraints import build_restraints
+from chromosome3d_tpu_torch.parallel.shards import chrom_groups
+from chromosome3d_tpu_torch.pipeline import (
+    _exact_provable,
+    auto_exact,
+    auto_exact_matrix,
+    emit_artifacts,
+    quantum_bucket,
+)
+from chromosome3d_tpu_torch.restraints import build_restraints, restraints_from_exact_target
 from chromosome3d_tpu_torch.solver.anneal import AnnealResult, solve_bucket_impl
+from chromosome3d_tpu_torch.solver.sharded import _route, solve_genome_sharded
 from chromosome3d_tpu_torch.utils.checkpoint import GenomeCheckpoint
 from chromosome3d_tpu_torch.utils.logging import get_logger
 
@@ -85,8 +110,8 @@ def bucket_jobs(
     """Assign each job the smallest bucket >= its bead count.
 
     Jobs beyond the largest bucket get a bucket rounded up to shard_quantum
-    (the at-scale group, which run_genome refuses); with shard_quantum=None
-    they raise (PipelineConfig.shard_large=False)."""
+    (the at-scale buckets); with shard_quantum=None they raise
+    (PipelineConfig.shard_large=False)."""
     out: Dict[int, List[GenomeJob]] = {}
     for job in jobs:
         if not job.length:
@@ -156,6 +181,182 @@ def solve_bucket(batched, bead_masks, cfg: PipelineConfig, base_seed: Optional[i
                              base_seed=cfg.seed if base_seed is None else base_seed)
 
 
+def _layout(C: int, L_pad: int, devices: Sequence):
+    """(chrom groups, padded batch, padded length) of an at-scale bucket of
+    C chromosomes over `devices`: large_mesh_layout's nc groups of nb
+    devices, the batch padded to a multiple of nc and L to one of nb."""
+    groups = chrom_groups(devices, C)
+    nc, nb = len(groups), groups[0].n
+    return groups, -(-C // nc) * nc, -(-L_pad // nb) * nb
+
+
+def _pad_batch(a, B_pad: int):
+    """a's entries (a list or a tensor) followed by copies of entry 0 up to
+    B_pad, the JAX runner's batch padding."""
+    if a is None or len(a) == B_pad:
+        return a
+    if isinstance(a, torch.Tensor):
+        return torch.cat([a, a[:1].expand(B_pad - len(a), *a.shape[1:])])
+    return list(a) + [a[0]] * (B_pad - len(a))
+
+
+def bucket_stack(matrices: Sequence[np.ndarray], L_pad: int, devices: Sequence) -> np.ndarray:
+    """The (B_pad, L', L') float32 pad/stack bucket_tiles_from_if builds, in
+    the layout it uses over `devices` (batch padding with copies of entry
+    0, L rounded up to the beads axis): made once by a caller that preps
+    the bucket more than once (an alpha ensemble)."""
+    _, B_pad, L_pad = _layout(len(matrices), L_pad, devices)
+    return device_prep.pad_stack(_pad_batch(list(matrices), B_pad), L_pad)
+
+
+def bucket_tiles_from_if(matrices: Sequence[np.ndarray], L_pad: int, rc, devices: Sequence,
+                         stack: Optional[np.ndarray] = None):
+    """An at-scale bucket's exact tiles built on the devices straight from
+    its IF matrices (ops.device_prep.exact_tiles_from_if_batched_device):
+    -> (tiles, groups, B_pad, L'), tiles[g][r] being group g's rank r strip,
+    ExactRestraints of (B_pad / nc, L' / nb, L') tensors on its device. Each
+    chromosome takes the weight exponent of its own true length. One
+    chromosome on one device past the one-shot limit streams its prep."""
+    groups, B_pad, L_pad = _layout(len(matrices), L_pad, devices)
+    mats = _pad_batch(list(matrices), B_pad)
+    p = rc.weight_exponent
+    ps = [auto_weight_exponent(m.shape[0]) if p is None else p for m in mats]
+    Cg = B_pad // len(groups)
+    tiles = []
+    for g, group in enumerate(groups):
+        sl = slice(g * Cg, (g + 1) * Cg)
+        one = group.n == 1   # one device a chromosome: whole tiles, maybe streamed
+        t = device_prep.exact_tiles_from_if_batched_device(
+            mats[sl], L_pad, rc, rc.weighting, ps[sl],
+            stack=None if stack is None else stack[sl], device=group.lead,
+            group=None if one else group)
+        tiles.append([t] if one else t)
+    return tiles, groups, B_pad, L_pad
+
+
+def solve_bucket_sharded_from_if(
+    matrices: Sequence[np.ndarray],
+    L_pad: int,
+    cfg: PipelineConfig,
+    devices: Optional[Sequence] = None,
+    base_seed: Optional[int] = None,
+    stack: Optional[np.ndarray] = None,
+    xs: Optional[torch.Tensor] = None,
+    noise_seeds=None,
+):
+    """An at-scale genome bucket from its IF matrices: its exact tiles built
+    on the devices (bucket_tiles_from_if) and solved by the chrom x beads
+    genome solver (solver.sharded.solve_genome_sharded) over `devices` (the
+    first CUDA device when None; a list may name one device several
+    times). The batch is padded with copies of entry 0 where the chromosome
+    groups do not divide it, and stripped after. Chromosome c draws from
+    chromosome_generator(base_seed, c), base_seed defaulting to cfg.seed;
+    xs (C, n_eff, L', 3) and noise_seeds (C,) replay given draws instead.
+    Only for exact restraints (matrix-derived ones are: auto_exact_matrix).
+
+    Returns (AnnealResult with a leading C axis, the live tiles, L'): the
+    caller downloads each chromosome's assessment view from the tiles
+    (bucket_views)."""
+    devices = [resolve_device(None)] if devices is None else list(devices)
+    C = len(matrices)
+    tiles, groups, B_pad, L_pad = bucket_tiles_from_if(matrices, L_pad, cfg.restraints,
+                                                       devices, stack=stack)
+    masks = np.zeros((B_pad, L_pad), np.float32)
+    for b, m in enumerate(_pad_batch(list(matrices), B_pad)):
+        masks[b, :m.shape[0]] = 1.0
+    log.info(f"at-scale bucket: {C} chromosomes (L_pad={L_pad}) on {len(groups)} chrom x "
+             f"{groups[0].n} beads devices")
+    result = solve_genome_sharded(
+        groups, tiles, cfg.anneal, cfg.model_count, torch.from_numpy(masks),
+        base_seed=cfg.seed if base_seed is None else base_seed,
+        xs=_pad_batch(xs, B_pad), noise_seeds=_pad_batch(noise_seeds, B_pad))
+    return AnnealResult(
+        coords=result.coords[:C], energies={k: v[:C] for k, v in result.energies.items()},
+        history=result.history[:C], pick=None if result.pick is None else result.pick[:C]
+    ), tiles, L_pad
+
+
+def bucket_views(tiles, lengths: Sequence[int]):
+    """Each chromosome's host assessment view from an at-scale bucket's live
+    tiles: (Restraints, ExactRestraints of (n, n) numpy) per chromosome, n
+    its true length, its rows gathered over its group's ranks (the JAX
+    runner's download of the live tiles, parallel/genome.py:695-725)."""
+    Cg = tiles[0][0].target.shape[0]
+    raw, views = [], []
+    for c, n in enumerate(lengths):
+        g, i = divmod(c, Cg)
+        t, w = (torch.cat([getattr(s, k)[i, :, :n].cpu() for s in tiles[g]])[:n].numpy()
+                for k in ("target", "w"))
+        raw.append(restraints_from_exact_target(t))
+        views.append(ExactRestraints(target=t, w=w))
+    return raw, views
+
+
+def bucket_peak_bytes(C: int, L_pad: int, cfg: PipelineConfig, nb: int = 1) -> int:
+    """Estimated device peak of an at-scale bucket of C chromosomes on one
+    device of a group of nb: C one-device solves' peaks
+    (pipeline.solve_peak_bytes at 2 x models structures), a 1 / nb share of
+    them where the rows are sharded, plus kernel B6's scratch, which grows
+    with the C x 2 x models structures of its launch."""
+    n_eff = pipeline._solve_structures(cfg)
+    return (C * pipeline.solve_peak_bytes(L_pad, n_eff) // nb
+            + strip_tri.strip_scratch_bytes(C * n_eff, L_pad, L_pad // nb))
+
+
+def bucket_devices(C: int, L_pad: int, cfg: PipelineConfig, dev) -> List[torch.device]:
+    """The devices an at-scale bucket runs on: [dev] where it fits dev
+    (bucket_peak_bytes against its memory), else every visible card
+    (device.shard_devices, chrom x beads) where that layout fits each of
+    them; RuntimeError where it fits nowhere (before any device work)."""
+    need = bucket_peak_bytes(C, L_pad, cfg)
+    if need <= pipeline._memory_bytes(dev):
+        return [dev]
+    devices = device_mod.shard_devices()
+    if len(devices) > 1:
+        groups, B_pad, L_all = _layout(C, L_pad, devices)
+        share = bucket_peak_bytes(B_pad // len(groups), L_all, cfg, groups[0].n)
+        load: Dict[torch.device, int] = {}
+        for d in devices:
+            load[d] = load.get(d, 0) + share
+        if all(n <= pipeline._memory_bytes(d) for d, n in load.items()):
+            return devices
+    raise RuntimeError(
+        f"an at-scale bucket of {C} chromosomes at L_pad={L_pad} needs about "
+        f"{need / 1e9:.2f} GB on one device (bucket_peak_bytes), more than the "
+        f"{pipeline._memory_bytes(dev) / 1e9:.2f} GB of {dev}, and does not fit the "
+        f"{len(devices)} visible card(s) either")
+
+
+def _plan_large(buckets, max_bucket: int, cfg: PipelineConfig, dev):
+    """{L_pad: devices} for every bucket past the length buckets, or the
+    refusal of one, before any bucket is solved: restraints that are not
+    exact, a layout on the row-block route (ROADMAP A12), a bucket that
+    fits no device."""
+    plan = {}
+    cfg_b = auto_exact_matrix(cfg)
+    for L_pad in sorted(L for L in buckets if L > max_bucket):
+        names = ", ".join(j.name for j in buckets[L_pad])
+        if not _exact_provable(cfg_b):
+            raise NotImplementedError(
+                f"{names}: bucket L={L_pad} past the largest length bucket {max_bucket} "
+                "with restraints that are not exact (noe_rswitch < 1e8) needs the "
+                "windowed genome solver (solve_bucket_sharded, kernel B5'), not ported "
+                "(ROADMAP A12)")
+        devices = bucket_devices(len(buckets[L_pad]), L_pad, cfg_b, dev)
+        groups, _, L_all = _layout(len(buckets[L_pad]), L_pad, devices)
+        try:
+            route = _route(cfg_b.anneal, L_all, groups[0].n)
+        except NotImplementedError:
+            route = "unfused"
+        if route != "strip":
+            raise NotImplementedError(
+                f"{names}: bucket L={L_all} over {groups[0].n} device(s) a chromosome "
+                f"takes the {route} route (B2' with a chromosome axis), not ported "
+                "(ROADMAP A12)")
+        plan[L_pad] = devices
+    return plan
+
+
 def run_genome(
     input_dir: str,
     output_dir: str,
@@ -169,16 +370,19 @@ def run_genome(
     plain twins): every chr*_matrix.txt in input_dir (or `jobs`) is solved
     bucket by bucket and assessed; per-chromosome artifacts land in
     output_dir/<name>/, each chromosome's result in output_dir/checkpoint/.
+    A bucket past the length buckets runs on `device` too, or over every
+    visible card where it would not fit it (bucket_devices).
 
     resume=True skips chromosomes already in the checkpoint store; the
     returned dict covers every job all the same (finished ones from the
-    store). Writes <output_dir>/summary.json: the per-chromosome summaries,
-    a per-bucket phase breakdown in seconds (load / solve and download /
-    extra alphas / emit) and the wall seconds."""
+    store). cfg.alpha_ensemble solves every bucket again per extra alpha,
+    seeded cfg.seed + hash(alpha) % 10000 as the JAX runner seeds it, and
+    pools the models into the Spearman ranking. Writes
+    <output_dir>/summary.json: the per-chromosome summaries, a per-bucket
+    phase breakdown in seconds (load / solve and download / extra alphas /
+    emit) and the wall seconds."""
     cfg = cfg or PipelineConfig()
     dev = resolve_device(device)
-    if cfg.alpha_ensemble:
-        raise NotImplementedError("the alpha ensemble is not ported (ROADMAP A11)")
     t_genome0 = time.time()
     jobs = jobs if jobs is not None else discover_jobs(input_dir)
     if not jobs:
@@ -206,14 +410,7 @@ def run_genome(
         jobs, cfg.length_buckets, cfg.shard_quantum if cfg.shard_large else None
     )
     max_bucket = max(cfg.length_buckets)
-    large = sorted(L for L in buckets if L > max_bucket)
-    if large:
-        names = [j.name for L in large for j in buckets[L]]
-        raise NotImplementedError(
-            f"{', '.join(names)}: past the largest length bucket {max_bucket} "
-            f"(bucket L={', '.join(map(str, large))}) a genome run needs the chrom x "
-            "beads sharded genome solver, not ported (ROADMAP A12)"
-        )
+    large_devices = _plan_large(buckets, max_bucket, cfg, dev)
     for L_pad, bucket in sorted(buckets.items()):
         ph = phases[f"L{L_pad}"] = {"chromosomes": [j.name for j in bucket]}
         t_ph = [time.time()]
@@ -224,19 +421,61 @@ def run_genome(
             ph[name] = round(ph.get(name, 0.0) + (now - t_ph[0]), 2)
             t_ph[0] = now
 
+        large = L_pad in large_devices
         log.info(f"bucket L={L_pad}: {len(bucket)} chromosomes "
-                 f"({', '.join(j.name for j in bucket)}) on {dev}")
-        batched, bead_masks, matrices, raw = _stack_bucket(bucket, L_pad, cfg)
-        cfg_b = cfg
-        if all(not r.negdev.any() and not r.posdev.any() for r in raw):
-            cfg_b = auto_exact(cfg, raw[0])
-        _phase("load_s")
-        result = solve_bucket(batched, bead_masks, cfg_b, device=dev)
-        coords = result.coords.cpu().numpy()   # synchronises
+                 f"({', '.join(j.name for j in bucket)}) on "
+                 + (f"{len(large_devices[L_pad])} device(s) [at-scale]" if large else str(dev)))
+        dense_views = None
+        if large:
+            # the IF matrices go straight to tiles on the device, exact by
+            # construction; the assessment views come from the live tiles
+            devs = large_devices[L_pad]
+            matrices = [load_if_matrix(job.path) for job in bucket]
+            cfg_b = auto_exact_matrix(cfg)
+            stack = bucket_stack(matrices, L_pad, devs)   # padded once, for every alpha
+            _phase("load_s")
+            result, tiles, _ = solve_bucket_sharded_from_if(matrices, L_pad, cfg_b,
+                                                            devices=devs, stack=stack)
+            coords = result.coords.cpu().numpy()   # synchronises
+            raw, dense_views = bucket_views(tiles, [j.length for j in bucket])
+            del tiles
+        else:
+            batched, bead_masks, matrices, raw = _stack_bucket(bucket, L_pad, cfg)
+            cfg_b = cfg
+            if all(not r.negdev.any() and not r.posdev.any() for r in raw):
+                cfg_b = auto_exact(cfg, raw[0])
+            _phase("load_s")
+            result = solve_bucket(batched, bead_masks, cfg_b, device=dev)
+            coords = result.coords.cpu().numpy()   # synchronises
         energies_all = {k: v.cpu().numpy() for k, v in result.energies.items()}
         _phase("solve_and_views_s")
         alphas = [cfg.restraints.alpha] * coords.shape[1]
-        _phase("alpha_s")   # the alpha ensemble is refused above
+        # the alpha ensemble: each extra alpha's models pool into the
+        # Spearman ranking (the JAX runner's seeds)
+        for extra_alpha in cfg.alpha_ensemble:
+            if extra_alpha == cfg.restraints.alpha:
+                continue
+            cfg_x = cfg.replace(restraints=dataclasses.replace(cfg.restraints,
+                                                               alpha=extra_alpha))
+            seed_x = cfg.seed + hash(extra_alpha) % 10000
+            if large:
+                res_x, tiles_x, _ = solve_bucket_sharded_from_if(
+                    matrices, L_pad, auto_exact_matrix(cfg_x), devices=devs,
+                    base_seed=seed_x, stack=stack)
+                del tiles_x   # solve-only: the views are the first alpha's
+            else:
+                batched_x, masks_x, _, raw_x = _stack_bucket(bucket, L_pad, cfg_x)
+                cfg_bx = cfg_x
+                if all(not r.negdev.any() and not r.posdev.any() for r in raw_x):
+                    cfg_bx = auto_exact(cfg_x, raw_x[0])
+                res_x = solve_bucket(batched_x, masks_x, cfg_bx, base_seed=seed_x,
+                                     device=dev)
+            coords = np.concatenate([coords, res_x.coords.cpu().numpy()], axis=1)
+            energies_all = {k: np.concatenate([v, res_x.energies[k].cpu().numpy()], axis=1)
+                            for k, v in energies_all.items()}
+            alphas += [extra_alpha] * res_x.coords.shape[1]
+        _phase("alpha_s")
+        stack = None   # the last prep of the bucket is done
 
         def emit_one(b, job):
             """Assessment and artifact emission for one chromosome: host
@@ -247,10 +486,9 @@ def run_genome(
             os.makedirs(out, exist_ok=True)
             c = coords[b, :, :L, :]
             energies = {k: v[b] for k, v in energies_all.items()}
-            dense_b = dense_restraints_from_numpy(
-                raw[b], cfg.restraints.weighting, cfg.restraints.weight_exponent,
-                as_numpy=True,
-            )
+            dense_b = dense_views[b] if dense_views is not None else \
+                dense_restraints_from_numpy(raw[b], cfg.restraints.weighting,
+                                            cfg.restraints.weight_exponent, as_numpy=True)
             summary = emit_artifacts(out, job.name, c, energies, matrices[b], raw[b],
                                      dense_b, cfg, alphas=alphas)
             summary["bucket"] = L_pad

@@ -1,5 +1,8 @@
 """A shard group: the port's counterpart of the JAX package's `beads` mesh
-axis for the row-sharded solve (chromosome3d_tpu/solver/sharded.py).
+axis for the row-sharded solve (chromosome3d_tpu/solver/sharded.py), and a
+device list cut two ways, chrom x beads, for a genome bucket past the length
+buckets (`large_mesh_layout`, `chrom_groups`: the JAX package's 2-D mesh of
+chromosome3d_tpu/parallel/genome.py).
 
 One process drives every device of an explicit list, as the JAX program
 drives every device of its mesh. Rank r owns rows [r Lb, (r + 1) Lb) of
@@ -13,7 +16,7 @@ one card.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -81,3 +84,22 @@ class ShardGroup:
     def all_gather(self, parts: Sequence[torch.Tensor], dim: int) -> torch.Tensor:
         """The ranks' parts concatenated along dim, in rank order, on the lead."""
         return torch.cat(self._on_lead(parts), dim)
+
+
+def large_mesh_layout(B: int, n_dev: int) -> Tuple[int, int]:
+    """(chrom, beads) factors of n_dev devices for an at-scale bucket of B
+    chromosomes (the JAX package's large_mesh_layout, parallel/genome.py:274):
+    the chromosome axis takes the largest divisor of n_dev that the B
+    chromosomes can fill; the other devices shard each chromosome's rows."""
+    nc = max(d for d in range(1, n_dev + 1) if n_dev % d == 0 and d <= B)
+    return nc, n_dev // nc
+
+
+def chrom_groups(devices: Sequence, B: int) -> List[ShardGroup]:
+    """The device list cut chrom x beads for B chromosomes: nc shard groups
+    of nb devices each (large_mesh_layout), group g taking devices
+    [g nb, (g + 1) nb), as the JAX mesh reshapes its list to (nc, nb). A
+    list may name one device several times."""
+    devices = list(devices)
+    nc, nb = large_mesh_layout(B, len(devices))
+    return [ShardGroup(devices[g * nb:(g + 1) * nb]) for g in range(nc)]

@@ -39,8 +39,10 @@ scale), `${ID}_model1..k.pdb`, `${ID}_rankNN_aXX.pdb`, `spearman.txt`,
 `summary.json`. The sentinel files `iam.running` / `iam.failed` keep the
 reference's failure protocol (chromosome3D.pl:261-284).
 
+The alpha ensemble (cfg.alpha_ensemble) solves again per extra alpha and
+pools the models into the Spearman ranking, as the JAX package's does.
 Not ported yet, and refused with NotImplementedError: .cool/.mcool/.hic/
-.matrix inputs and --ice and the alpha ensemble (A11), and profiling.
+.matrix inputs and --ice (A11), and profiling.
 """
 
 from __future__ import annotations
@@ -311,11 +313,14 @@ def _synchronize(devices) -> None:
             torch.cuda.synchronize(d)
 
 
-def _solve(group, restraints, cfg: PipelineConfig, bead_mask, dev, og=None):
+def _solve(group, restraints, cfg: PipelineConfig, bead_mask, dev, og=None, gen=None):
     """The ensemble solve: solve_ensemble_sharded over the group's strips,
-    or solve_ensemble_impl on `dev`; draws from a generator seeded cfg.seed."""
+    or solve_ensemble_impl on `dev`; draws from `gen`, a generator seeded
+    cfg.seed when None (an alpha ensemble passes the one generator to each
+    of its solves in turn)."""
     bm = None if bead_mask is None else torch.from_numpy(bead_mask).to(dev)
-    gen = torch.Generator().manual_seed(cfg.seed)
+    if gen is None:
+        gen = torch.Generator().manual_seed(cfg.seed)
     if group is not None:
         return solve_ensemble_sharded(group, restraints, cfg.anneal, cfg.model_count,
                                       bm, or_groups=og, generator=gen)
@@ -376,8 +381,6 @@ def run_pipeline(
             f"{ext} input is not ported (ROADMAP A11); give a dense text "
             "matrix or a .npy"
         )
-    if cfg.alpha_ensemble:
-        raise NotImplementedError("the alpha ensemble is not ported (ROADMAP A11)")
     os.makedirs(dir_out, exist_ok=True)
     if wipe:
         for name in os.listdir(dir_out):
@@ -475,7 +478,8 @@ def run_pipeline(
             )
             if group is not None:
                 solve_r = restraint_strips(group, solve_r)
-        result = _solve(group, solve_r, cfg, bead_mask, dev)
+        gen = torch.Generator().manual_seed(cfg.seed)
+        result = _solve(group, solve_r, cfg, bead_mask, dev, gen=gen)
         del solve_r    # the tiles go before the assessment view is built
         coords = result.coords.cpu().numpy()[:, :L, :]   # synchronises
         energies = {k: v.cpu().numpy() for k, v in result.energies.items()}
@@ -485,6 +489,33 @@ def run_pipeline(
             energy_history=result.history.cpu().numpy(),
         )
         alphas = [rc.alpha] * cfg.model_count
+        # the alpha ensemble: each extra alpha's restraints (the host route,
+        # or the device prep again past the buckets) and its solve, drawing
+        # on from the same generator; its models pool into the Spearman
+        # ranking, its energies (under other restraints) kept for the
+        # REMARKs and left out of the NOE ranking (emit_artifacts)
+        for extra_alpha in cfg.alpha_ensemble:
+            if extra_alpha == rc.alpha:
+                continue
+            rc_x = dataclasses_replace(rc, alpha=extra_alpha)
+            if device_route:
+                solve_x = device_prep.exact_tiles_from_if_device(
+                    if_dev, L_pad, rc_x, rc_x.weighting, _weight_exponent(rc_x, L),
+                    n_true=L, device=dev, group=group,
+                )
+                _synchronize(group.devices if group else [dev])
+                _mark("device_prep_s")
+            else:
+                restr_x = dist_to_restraints(if_to_dist(if_matrix, rc_x), rc_x)
+                solve_x = _padded_dense(restr_x, rc_x, L_pad, _exact_provable(cfg), dev)
+                if group is not None:
+                    solve_x = restraint_strips(group, solve_x)
+            res_x = _solve(group, solve_x, cfg, bead_mask, dev, gen=gen)
+            del solve_x
+            coords = np.concatenate([coords, res_x.coords.cpu().numpy()[:, :L, :]])
+            energies = {k: np.concatenate([v, res_x.energies[k].cpu().numpy()])
+                        for k, v in energies.items()}
+            alphas += [extra_alpha] * cfg.model_count
     except Exception:
         os.replace(running, os.path.join(dir_out, "iam.failed"))
         raise

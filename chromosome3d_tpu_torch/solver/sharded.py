@@ -20,6 +20,13 @@ w > 0), the mirror pairs and jitter, the hot phase, the enantiomer pick
 (pair energy + bond + or-group term), cool and final on the winners, the
 final canonical-weight terms through the plain row-block energy
 (parallel.sharded_energy) and the centroid to the origin.
+
+`solve_genome_sharded` runs the same body for a genome bucket's chromosomes
+past the length buckets (the JAX package's vmap of it over a chrom x beads
+mesh): each shard group of parallel.shards.chrom_groups holds its
+chromosomes' strips as (C, Lb, L) tensors, and every step B6 runs once on
+each rank and B4 once on the lead for all of the group's chromosomes, each
+with its own strips, bead mask and noise seed.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from chromosome3d_tpu_torch.ops.energy import (
     or_group_energy,
     or_group_energy_grad,
 )
+from chromosome3d_tpu_torch.ops.fused_step import _c_int32
 from chromosome3d_tpu_torch.ops.fused_update import fused_update_table, step_counter
 from chromosome3d_tpu_torch.ops.general_pair import general_row_block_energy_grad
 from chromosome3d_tpu_torch.ops.pair_energy import (
@@ -49,6 +57,7 @@ from chromosome3d_tpu_torch.parallel.shards import ShardGroup
 from chromosome3d_tpu_torch.solver.anneal import (
     AnnealResult,
     _refuse_unported,
+    chromosome_generator,
     schedule_table,
 )
 from chromosome3d_tpu_torch.solver.init import (
@@ -76,7 +85,8 @@ def restraint_strips(group: ShardGroup, restraints) -> List:
 @dataclasses.dataclass(frozen=True)
 class _Tiles:
     """One rank's strip tiles: lo (the target for exact restraints), hi and
-    the folded weight w, each (Lb, L) on the rank's device."""
+    the folded weight w, each (Lb, L) on the rank's device, or (C, Lb, L)
+    for C chromosomes."""
 
     lo: torch.Tensor
     hi: torch.Tensor
@@ -164,6 +174,139 @@ def _route(cfg: AnnealConfig, L: int, n: int) -> str:
     )
 
 
+def _start(group: ShardGroup, strips: Sequence, bead_mask: torch.Tensor,
+           cfg: AnnealConfig, n_models: int, generator: torch.Generator) -> torch.Tensor:
+    """One chromosome's drawn start ensemble (n_eff, L, 3) on the lead: the
+    landmark init from its strips, its mirror pairs, then the jitter from
+    `generator` (the noise seed is drawn from it next)."""
+    lead = group.lead
+    L = bead_mask.shape[0]
+    n_eff = n_models * 2 if cfg.enantiomer else n_models
+    x0 = sharded_landmark_init(group, strips, bead_mask, cfg)
+    if cfg.enantiomer:
+        signs = torch.tensor([1.0, -1.0], device=lead).repeat(n_models)
+    else:
+        signs = torch.ones(n_eff, device=lead)
+    flip = torch.stack([signs, torch.ones_like(signs), torch.ones_like(signs)], -1)
+    jitter = torch.randn((n_eff, L, 3), generator=generator).to(lead)
+    return x0[None] * flip[:, None, :] + cfg.init_noise * jitter * bead_mask[None, :, None]
+
+
+def _solve_group(group: ShardGroup, tiles: List[_Tiles], bead_masks: torch.Tensor,
+                 cfg: AnnealConfig, n_models: int, xs: torch.Tensor, noise_seeds,
+                 route: str, or_groups=None) -> AnnealResult:
+    """The shard body for the C chromosomes of one shard group: tiles[r] is
+    rank r's (C, Lb, L) strips, bead_masks (C, L), xs (C, n_eff, L, 3) and
+    noise_seeds C ints, all on the lead. The state is one batch of C x n_eff
+    structures, chromosome-major: every step each rank runs B6 once for all
+    C chromosomes (or, at C = 1, B2' / B5' on the "rows" route), the
+    partials are combined on the lead, and B4 runs once there for all of
+    them, each chromosome with its mask and its noise seed. The pick, the
+    final terms and the centroid are taken chromosome by chromosome.
+    Returns an AnnealResult with a leading C axis."""
+    lead = group.lead
+    C, n_eff, L = xs.shape[0], xs.shape[1], xs.shape[2]
+    if C > 1 and (route != "strip" or or_groups is not None):
+        raise NotImplementedError(
+            f"a stack of chromosomes runs on kernels B6 and B4 only (exact restraints, "
+            f"the strip route), not on the {route!r} route or with or-groups (ROADMAP A12)")
+    exact = cfg.exact_restraints and cfg.noe_rswitch >= 1e8
+    beads = group.broadcast(bead_masks)
+    seeds = torch.tensor([_c_int32(v) for v in noise_seeds], dtype=torch.int32,
+                         device=lead)
+    table = schedule_table(cfg, noise_seeds[0])
+    base = table.base
+    T = len(table.rows)
+    step_weights = [table.weights(k) for k in range(T)]
+
+    def pair_T(xT, weights):
+        """(pair energies (B,), pair gradient (B, 3, L)) on the lead."""
+        xTs = group.broadcast(xT)
+        if route == "strip":
+            parts = [strip_tri.strip_tri_energy_grad(x, t.lo, t.w, weights, b, t.row_start)
+                     for x, t, b in zip(xTs, tiles, beads)]
+            return group.psum([e for e, _ in parts]), group.psum([g for _, g in parts])
+        if exact:
+            parts = [exact_row_block_energy_grad(x, t.lo[0], t.w[0], weights, b[0],
+                                                 t.row_start)
+                     for x, t, b in zip(xTs, tiles, beads)]
+        else:
+            parts = [general_row_block_energy_grad(x, t.lo[0], t.hi[0], t.w[0], weights,
+                                                   b[0], t.row_start)
+                     for x, t, b in zip(xTs, tiles, beads)]
+        return group.psum([e for e, _ in parts]), group.all_gather([g for _, g in parts], 2)
+
+    # kernel B4 reads its step from a device counter on the lead, its
+    # scalars from the table's rows there and each chromosome's noise seed
+    # from `seeds`, and writes the history row itself
+    counter = step_counter(0, lead)
+    og_mask = bead_masks[0]
+
+    def run(k0, k1, xT, muT, nuT, hist):
+        counter.fill_(k0)
+        spare = [None, None]   # B4's outputs of the step before last
+        for n, k in enumerate(range(k0, k1)):
+            e_pair, gT = pair_T(xT, step_weights[k])
+            if or_groups is not None:
+                e_og, g_og = or_group_energy_grad(xT.transpose(1, 2), or_groups,
+                                                  step_weights[k], og_mask)
+                e_pair = e_pair + e_og
+                gT = gT + g_og.transpose(1, 2)
+            xT, muT, nuT = fused_update_table(
+                xT, gT.contiguous(), muT, nuT, e_pair, bead_masks, table, counter, hist,
+                out=spare[n % 2], seeds=seeds)
+            spare[n % 2] = (xT, muT, nuT)
+        return xT, muT, nuT
+
+    xT = xs.reshape(C * n_eff, L, 3).transpose(1, 2).contiguous()
+    muT = torch.zeros_like(xT)
+    nuT = torch.zeros_like(xT)
+    history = torch.empty((T, C * n_eff), dtype=torch.float32, device=lead)
+    pick = None
+    if cfg.enantiomer:
+        hot = cfg.hot_steps
+        xT, muT, nuT = run(0, hot, xT, muT, nuT, history)
+        w_hot = step_weights[hot - 1]
+        coords = xT.transpose(1, 2).contiguous()
+        masks_b = bead_masks.repeat_interleave(n_eff, 0)
+        e_hot = pair_T(xT, w_hot)[0] + bond_energy_grad(coords, base, masks_b)[0]
+        if or_groups is not None:
+            e_hot = e_hot + or_group_energy(coords, or_groups, w_hot, og_mask)
+        choice = torch.argmin(e_hot.reshape(C, n_models, 2), dim=2)
+        pick = torch.arange(n_models, device=lead) * 2 + choice              # (C, n)
+        rows = (pick + n_eff * torch.arange(C, device=lead)[:, None]).reshape(-1)
+        xT, muT, nuT = xT[rows], muT[rows], nuT[rows]
+        history = history[:, rows].contiguous()
+        xT, muT, nuT = run(hot, T, xT, muT, nuT, history)
+    else:
+        xT, muT, nuT = run(0, T, xT, muT, nuT, history)
+    n = xT.shape[0] // C
+    coords_all = xT.transpose(1, 2).reshape(C, n, L, 3)
+
+    # final canonical-weight terms: the plain row-block energy on every
+    # rank, a chromosome at a time; then the centroid to the origin
+    out_coords, terms = [], []
+    for c in range(C):
+        coords = coords_all[c].contiguous()
+        bm = bead_masks[c]
+        parts = [row_block_energy_grad(x, t.lo[c], t.hi[c], t.w[c], b[c], t.row_start, base)
+                 for x, t, b in zip(group.broadcast(coords), tiles, beads)]
+        e_noe = group.psum([p[0] for p in parts])
+        e_vdw = group.psum([p[1] for p in parts])
+        if or_groups is not None:
+            e_noe = e_noe + or_group_energy(coords, or_groups, base, bm)
+        e_bond = bond_energy_grad(coords, base, bm)[0]
+        terms.append({"noe": e_noe, "bon": e_bond, "vdw": e_vdw,
+                      "overall": e_noe + e_vdw + e_bond})
+        nvalid = torch.clamp_min(bm.sum(), 1.0)
+        centroid = (coords * bm[None, :, None]).sum(dim=1, keepdim=True) / nvalid
+        out_coords.append((coords - centroid) * bm[None, :, None])
+    return AnnealResult(
+        coords=torch.stack(out_coords),
+        energies={k: torch.stack([t[k] for t in terms]) for k in terms[0]},
+        history=history.T.reshape(C, n, T), pick=pick)
+
+
 def solve_ensemble_sharded(
     group: ShardGroup,
     strips: Sequence,
@@ -179,7 +322,8 @@ def solve_ensemble_sharded(
     group: strips[r] is rank r's (Lb, L) ExactRestraints or DenseRestraints
     strip on its device (restraint_strips cuts whole tensors), L = n Lb.
     bead_mask (L,), or_groups (ops.energy.OrGroupRestraints) and the result
-    live on the lead device.
+    live on the lead device. The one-chromosome case of
+    solve_genome_sharded's shard body.
 
     generator: the CPU torch.Generator for the jitter and the noise seed (a
     fresh one seeded 0 when None). xs: an explicit (n_eff, L, 3) start
@@ -193,104 +337,101 @@ def solve_ensemble_sharded(
     group.rows(L)
     _refuse_unported(cfg)
     route = _route(cfg, L, group.n)
-    exact = cfg.exact_restraints and cfg.noe_rswitch >= 1e8
-    tiles = _tiles(group, strips, L)
+    tiles = [dataclasses.replace(t, lo=t.lo[None], hi=t.hi[None], w=t.w[None])
+             for t in _tiles(group, strips, L)]
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     if bead_mask is None:
         bead_mask = torch.ones(L, dtype=torch.float32, device=lead)
     bead_mask = bead_mask.to(device=lead, dtype=torch.float32).contiguous()
-    beads = group.broadcast(bead_mask)
     n_eff = n_models * 2 if cfg.enantiomer else n_models
-
     if xs is None:
-        x0 = sharded_landmark_init(group, strips, bead_mask, cfg)
-        if cfg.enantiomer:
-            signs = torch.tensor([1.0, -1.0], device=lead).repeat(n_models)
-        else:
-            signs = torch.ones(n_eff, device=lead)
-        flip = torch.stack([signs, torch.ones_like(signs), torch.ones_like(signs)], -1)
-        jitter = torch.randn((n_eff, L, 3), generator=generator).to(lead)
-        xs = x0[None] * flip[:, None, :] + cfg.init_noise * jitter * bead_mask[None, :, None]
+        xs = _start(group, strips, bead_mask, cfg, n_models, generator)
     xs = xs.to(device=lead, dtype=torch.float32)
     if xs.shape != (n_eff, L, 3):
         raise ValueError(f"xs: shape {tuple(xs.shape)}, expected {(n_eff, L, 3)}")
     if noise_seed is None:
         noise_seed = int(torch.randint(0, 2**31 - 1, (), generator=generator))
+    res = _solve_group(group, tiles, bead_mask[None], cfg, n_models, xs[None],
+                       [int(noise_seed)], route, or_groups)
+    return AnnealResult(coords=res.coords[0],
+                        energies={k: v[0] for k, v in res.energies.items()},
+                        history=res.history[0],
+                        pick=None if res.pick is None else res.pick[0])
 
-    table = schedule_table(cfg, noise_seed)
-    base = table.base
-    T = len(table.rows)
-    step_weights = [table.weights(k) for k in range(T)]
 
-    def pair_T(xT, weights):
-        """(pair energies (B,), pair gradient (B, 3, L)) on the lead."""
-        xTs = group.broadcast(xT)
-        if route == "strip":
-            parts = [strip_tri.strip_tri_energy_grad(x, t.lo, t.w, weights, b, t.row_start)
-                     for x, t, b in zip(xTs, tiles, beads)]
-            return group.psum([e for e, _ in parts]), group.psum([g for _, g in parts])
-        if exact:
-            parts = [exact_row_block_energy_grad(x, t.lo, t.w, weights, b, t.row_start)
-                     for x, t, b in zip(xTs, tiles, beads)]
-        else:
-            parts = [general_row_block_energy_grad(x, t.lo, t.hi, t.w, weights, b,
-                                                   t.row_start)
-                     for x, t, b in zip(xTs, tiles, beads)]
-        return group.psum([e for e, _ in parts]), group.all_gather([g for _, g in parts], 2)
+def solve_genome_sharded(
+    groups: Sequence[ShardGroup],
+    strips: Sequence[Sequence],
+    cfg: AnnealConfig,
+    n_models: int,
+    bead_masks: torch.Tensor,
+    base_seed: int = 0,
+    xs: Optional[torch.Tensor] = None,
+    noise_seeds=None,
+) -> AnnealResult:
+    """Many chromosomes past the length buckets, chrom x beads: the port of
+    the JAX package's solve_genome_sharded (solver/sharded.py:598), which
+    vmaps the shard body over each device's chromosomes of a 2-D mesh.
+    groups are the nc shard groups of nb devices each
+    (parallel.shards.chrom_groups); the B chromosomes split evenly over them
+    in order (B a multiple of nc), group g taking chromosomes [g Cg, (g + 1)
+    Cg). strips[g][r] is group g's rank r strip: ExactRestraints with
+    (Cg, Lb, L) tensors on that rank's device, L = nb Lb. bead_masks (B, L).
 
-    # kernel B4 reads its step from a device counter on the lead, its
-    # scalars from the table's rows there, and writes the history row itself
-    counter = step_counter(0, lead)
-
-    def run(k0, k1, xT, muT, nuT, hist):
-        counter.fill_(k0)
-        spare = [None, None]   # B4's outputs of the step before last
-        for n, k in enumerate(range(k0, k1)):
-            e_pair, gT = pair_T(xT, step_weights[k])
-            if or_groups is not None:
-                e_og, g_og = or_group_energy_grad(xT.transpose(1, 2), or_groups,
-                                                  step_weights[k], bead_mask)
-                e_pair = e_pair + e_og
-                gT = gT + g_og.transpose(1, 2)
-            xT, muT, nuT = fused_update_table(
-                xT, gT.contiguous(), muT, nuT, e_pair, bead_mask, table, counter, hist,
-                out=spare[n % 2])
-            spare[n % 2] = (xT, muT, nuT)
-        return xT, muT, nuT
-
-    xT = xs.transpose(1, 2).contiguous()
-    muT = torch.zeros_like(xT)
-    nuT = torch.zeros_like(xT)
-    history = torch.empty((T, n_eff), dtype=torch.float32, device=lead)
-    pick = None
-    if cfg.enantiomer:
-        hot = cfg.hot_steps
-        xT, muT, nuT = run(0, hot, xT, muT, nuT, history)
-        w_hot = step_weights[hot - 1]
-        coords = xT.transpose(1, 2).contiguous()
-        e_hot = pair_T(xT, w_hot)[0] + bond_energy_grad(coords, base, bead_mask)[0]
-        if or_groups is not None:
-            e_hot = e_hot + or_group_energy(coords, or_groups, w_hot, bead_mask)
-        choice = torch.argmin(e_hot.reshape(n_models, 2), dim=1)
-        pick = torch.arange(n_models, device=lead) * 2 + choice
-        xT, muT, nuT = xT[pick], muT[pick], nuT[pick]
-        history = history[:, pick].contiguous()
-        xT, muT, nuT = run(hot, T, xT, muT, nuT, history)
-    else:
-        xT, muT, nuT = run(0, T, xT, muT, nuT, history)
-    coords = xT.transpose(1, 2).contiguous()
-
-    # final canonical-weight terms: the plain row-block energy on every rank
-    parts = [row_block_energy_grad(c, t.lo, t.hi, t.w, b, t.row_start, base)
-             for c, t, b in zip(group.broadcast(coords), tiles, beads)]
-    e_noe = group.psum([p[0] for p in parts])
-    e_vdw = group.psum([p[1] for p in parts])
-    if or_groups is not None:
-        e_noe = e_noe + or_group_energy(coords, or_groups, base, bead_mask)
-    e_bond = bond_energy_grad(coords, base, bead_mask)[0]
-    terms = {"noe": e_noe, "bon": e_bond, "vdw": e_vdw, "overall": e_noe + e_vdw + e_bond}
-    nvalid = torch.clamp_min(bead_mask.sum(), 1.0)
-    centroid = (coords * bead_mask[None, :, None]).sum(dim=1, keepdim=True) / nvalid
-    coords = (coords - centroid) * bead_mask[None, :, None]
-    return AnnealResult(coords=coords, energies=terms, history=history.T, pick=pick)
+    Each chromosome's start is the landmark init from its strips (a loop),
+    then its mirror pairs and jitter and its noise seed drawn in that order
+    from solver.anneal.chromosome_generator(base_seed, c), as the JAX body
+    draws from its chromosome's key; xs (B, n_eff, L, 3) and noise_seeds
+    (B,) replay given values instead. A group's chromosomes run as one
+    batch: every step B6 once on each rank for all of them and B4 once on
+    the group's lead. Returns an AnnealResult on groups[0]'s lead with a
+    leading B axis: coords (B, n_models, L, 3), energies (B, n_models) each,
+    history (B, n_models, T), pick (B, n_models)."""
+    _refuse_unported(cfg)
+    nc = len(groups)
+    nb = groups[0].n
+    if len(strips) != nc or any(len(s) != g.n for s, g in zip(strips, groups)):
+        raise ValueError("strips must hold one list of rank strips a group")
+    if any(g.n != nb for g in groups):
+        raise ValueError("every group must hold the same number of devices")
+    B, L = bead_masks.shape
+    if B % nc:
+        raise ValueError(f"B={B} must be a multiple of the {nc} chromosome groups")
+    groups[0].rows(L)
+    Cg = B // nc
+    route = _route(cfg, L, nb)
+    if route != "strip":
+        raise NotImplementedError(
+            f"an at-scale genome bucket at L={L} over {nb} devices a chromosome takes "
+            "the row-block route (B2' with a chromosome axis), not ported (ROADMAP A12)")
+    n_eff = n_models * 2 if cfg.enantiomer else n_models
+    if xs is not None and tuple(xs.shape) != (B, n_eff, L, 3):
+        raise ValueError(f"xs: shape {tuple(xs.shape)}, expected {(B, n_eff, L, 3)}")
+    results = []
+    for g, (group, group_strips) in enumerate(zip(groups, strips)):
+        lead = group.lead
+        masks = bead_masks[g * Cg:(g + 1) * Cg].to(device=lead,
+                                                  dtype=torch.float32).contiguous()
+        starts, seeds = [], []
+        for i in range(Cg):
+            c = g * Cg + i
+            gen = chromosome_generator(base_seed, c)
+            if xs is None:
+                own = [ExactRestraints(target=s.target[i], w=s.w[i]) for s in group_strips]
+                starts.append(_start(group, own, masks[i], cfg, n_models, gen))
+            else:
+                starts.append(xs[c].to(device=lead, dtype=torch.float32))
+            seeds.append(int(torch.randint(0, 2**31 - 1, (), generator=gen))
+                         if noise_seeds is None else int(noise_seeds[c]))
+        tiles = _tiles(group, group_strips, L)
+        results.append(_solve_group(group, tiles, masks, cfg, n_models,
+                                    torch.stack(starts), seeds, route))
+    out = groups[0].lead
+    return AnnealResult(
+        coords=torch.cat([r.coords.to(out) for r in results]),
+        energies={k: torch.cat([r.energies[k].to(out) for r in results])
+                  for k in results[0].energies},
+        history=torch.cat([r.history.to(out) for r in results]),
+        pick=None if results[0].pick is None else torch.cat([r.pick.to(out)
+                                                             for r in results]))

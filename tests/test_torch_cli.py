@@ -1,8 +1,9 @@
 """The port's CLI flags: the shard switches it shares with the JAX CLI,
-`--device` (the card by default, the CPU only when asked for), and the JAX
-CLI's flags that are registered but not ported — each refused with a
-NotImplementedError naming its ROADMAP item, never by argparse; and the
-`genome` subcommand with its `--filter` and `--resume`."""
+`--device` (the card by default, the CPU only when asked for),
+`--alpha-ensemble` on `run`, and the JAX CLI's flags that are registered
+but not ported — each refused with a NotImplementedError naming its ROADMAP
+item, never by argparse; and the `genome` subcommand with its `--filter`
+and `--resume`."""
 
 import json
 import os
@@ -79,7 +80,17 @@ def test_cli_device_reaches_the_pipeline(monkeypatch, capsys, base, flags, devic
     (RUN + ["--norm", "NONE"], "--norm"),
     (RUN + ["--alpha-ensemble", ""], "--alpha-ensemble"),
 ])
-def test_cli_refuses_unported_flags_by_name(argv, flag):
+def test_cli_refuses_unported_flags_by_name(argv, flag, monkeypatch, capsys):
+    """Each unported flag is refused by name. `--alpha-ensemble` is ported
+    on `run` (refused on `solve`, whose JAX pipeline has no alpha loop): its
+    `run` cases check that the values reach the config, as the JAX CLI's
+    do, an empty value giving none."""
+    if flag == "--alpha-ensemble" and argv[0] == "run":
+        want = tuple(float(a) for a in argv[-1].split(",") if a.strip())
+        assert _parse(argv, monkeypatch).alpha_ensemble == want
+        assert _parse(argv, monkeypatch, jax_cli).alpha_ensemble == want
+        capsys.readouterr()
+        return
     with pytest.raises(NotImplementedError, match=rf"`{flag}` is not ported \(ROADMAP A11\)"):
         cli.main(argv)
 

@@ -695,3 +695,135 @@ def test_cuda_tri_kernel_at_the_49152_bound(cuda_device):
     assert np.prod(plan["part_shape"]) > 2**31
     _check_pair_kernel(tri_energy_grad, tri_energy_grad_plain,
                        (xT, target, w, WEIGHTS, bm), n_real, 3e-5)
+
+
+def _genome_strips(device, C, L, B):
+    """C random-walk chromosomes padded to L (each 3 + 97 c beads short of
+    it, its own walk): (target, w) as (C, L, L), bead masks (C, L), a
+    (C x B, 3, L) ensemble, random Adam moments and a pair gradient, zero on
+    padded beads."""
+    cases = [_walk_tiles(device, L, L - 3 - 97 * c, B, seed=40 + c) for c in range(C)]
+    target, w, bms = (torch.stack([c[i] for c in cases]) for i in range(3))
+    xT = torch.cat([c[3] for c in cases])
+    g = torch.Generator().manual_seed(7)
+    mask = bms.repeat_interleave(B, 0)[:, None, :]
+    mu, nu, gT = (torch.randn(xT.shape, generator=g).to(device) * s * mask
+                  for s in (0.1, 0.01, 20.0))
+    return target, w, bms, xT, mu, nu.abs(), gT
+
+
+@pytest.mark.parametrize("C,L,B", [(2, 5120, 20), (2, 5120, 10), (5, 2048, 20),
+                                   (5, 2048, 10)])
+def test_cuda_strip_tri_chromosome_axis(cuda_device, C, L, B):
+    """B6 over C chromosomes on one strip of Lb = L each (the genome path
+    past the buckets on one card): one launch equals C launches of one
+    chromosome each, bit for bit, and the twin within check_b6's
+    tolerances; padded beads get no gradient."""
+    target, w, bms, xT, *_ = _genome_strips(cuda_device, C, L, B)
+    launches = strip_tri_energy_grad.launches
+    e, g = strip_tri_energy_grad(xT, target, w, WEIGHTS, bms, 0)
+    assert strip_tri_energy_grad.launches == launches + 1
+    for c in range(C):
+        sl = slice(c * B, (c + 1) * B)
+        e_c, g_c = strip_tri_energy_grad(xT[sl].contiguous(), target[c], w[c], WEIGHTS,
+                                         bms[c], 0)
+        assert torch.equal(e_c, e[sl]) and torch.equal(g_c, g[sl]), f"chromosome {c}"
+        n = int(bms[c].sum())
+        assert not bool(g[sl, :, n:].any())
+    e_r, g_r = strip_tri_energy_grad_plain(xT, target, w, WEIGHTS, bms, 0, strip_tile(L))
+    g_r = g_r.cpu().numpy()
+    np.testing.assert_allclose(e.cpu().numpy(), e_r.cpu().numpy(), rtol=3e-5)
+    np.testing.assert_allclose(g.cpu().numpy(), g_r, rtol=2e-4,
+                               atol=2e-4 + 1e-6 * np.abs(g_r).max())
+
+
+@pytest.mark.parametrize("C,L,B", [(2, 5120, 20), (2, 5120, 10), (5, 2048, 20),
+                                   (5, 2048, 10)])
+def test_cuda_fused_update_chromosome_axis(cuda_device, C, L, B):
+    """B4 over C chromosomes (a mask and a seed each, from the (C,) array)
+    through the table entry: one launch equals C launches of one chromosome
+    each, bit for bit (x', mu', nu', the history row), and the twin within
+    the update's tolerances; with x = g = mu = nu = 0, lr = 0 and sigma = 1
+    the new x is each chromosome's own counter-hash stream."""
+    _, _, bms, xT, mu, nu, gT = _genome_strips(cuda_device, C, L, B)
+    table = schedule_table(AnnealConfig(), seed=0)
+    seeds = torch.tensor([(2**31 - 2 - 7919 * c) for c in range(C)], dtype=torch.int32,
+                         device=cuda_device)
+    e_pair = torch.arange(C * B, dtype=torch.float32, device=cuda_device)
+    k = 301
+    # a table of row k alone (a new table: replace() would share the
+    # uploaded rows of the one it copies)
+    table_k = ScheduleTable(rows=table.rows[k:k + 1].copy(), base=table.base,
+                            clip=table.clip, seed=table.seed, first=k)
+
+    def call(sl, masks, s):
+        hist = torch.zeros((1, sl.stop - sl.start), device=cuda_device)
+        out = fused_update_table(xT[sl].contiguous(), gT[sl].contiguous(),
+                                 mu[sl].contiguous(), nu[sl].contiguous(),
+                                 e_pair[sl].contiguous(), masks, table_k,
+                                 step_counter(k, cuda_device), hist, seeds=s)
+        return (hist[0], *out)
+
+    launches = fused_update_table.launches
+    got = call(slice(0, C * B), bms, seeds)
+    assert fused_update_table.launches == launches + 1
+    for c in range(C):
+        sl = slice(c * B, (c + 1) * B)
+        lone = call(sl, bms[c:c + 1], seeds[c:c + 1])
+        for name, a, b in zip(("hist", "x'", "mu'", "nu'"), lone, got):
+            assert torch.equal(a, b[sl]), f"chromosome {c}: {name}"
+    weights, lr, sigma, bc1, bc2 = table.scalars(k)
+    ref = fused_update_plain(xT, gT, mu, nu, weights, bms, lr, sigma, bc1, bc2,
+                             seeds.tolist(), k, table.clip)
+    got, ref = [a.cpu().numpy() for a in got], [a.cpu().numpy() for a in ref]
+    np.testing.assert_allclose(got[0], ref[0] + e_pair.cpu().numpy(), rtol=2e-5)
+    np.testing.assert_allclose(got[2], ref[2], rtol=5e-4, atol=1e-5)
+    np.testing.assert_allclose(got[3], ref[3], rtol=5e-4, atol=1e-8)
+    np.testing.assert_allclose(got[1], ref[1], rtol=5e-4, atol=5e-4)
+    z = torch.zeros_like(xT)
+    hist = torch.zeros((1, C * B), device=cuda_device)
+    one = ScheduleTable(rows=np.array([[0.0, 1.0, 0.0, 0.0, 1.0, 1.0]], np.float32),
+                        base=table.base, clip=None, seed=0, first=k)
+    x_new, _, _ = fused_update_table(z, z, z, z, torch.zeros(C * B, device=cuda_device), bms,
+                                     one, step_counter(k, cuda_device), hist, seeds=seeds)
+    for c in range(C):
+        own = clt4_noise(int(seeds[c]), k, B, L, cuda_device) * bms[c]
+        assert torch.equal(x_new[c * B:(c + 1) * B], own), f"chromosome {c}'s noise"
+
+
+def test_cuda_run_genome_mixed_scale(cuda_device, tmp_path):
+    """run_genome on the card over a small genome with a bucket of 512 (B1,
+    B2) and at-scale buckets of 1024 (two chromosomes) and 1536: each
+    at-scale bucket runs B6 and B4 once a step for all its chromosomes
+    (and B6 once more for the pick); the artifacts and summary.json."""
+    import json
+
+    from chromosome3d_tpu_torch.config import PipelineConfig, fast_anneal
+    from chromosome3d_tpu_torch.io import write_if_matrix
+    from chromosome3d_tpu_torch.parallel import genome
+    from chromosome3d_tpu_torch.truth import confined_walk, if_from_structure
+
+    chroms = (("chr1_1mb", 300), ("chr2_1mb", 800), ("chr3_1mb", 1000), ("chr4_1mb", 1200))
+    d = tmp_path / "in"
+    d.mkdir()
+    for k, (name, L) in enumerate(chroms):
+        write_if_matrix(d / f"{name}_matrix.txt",
+                        if_from_structure(confined_walk(L, seed=k), alpha=0.5,
+                                          noise_sigma=0.1, seed=k))
+    cfg = PipelineConfig(model_count=2, anneal=fast_anneal(AnnealConfig(), 0.1),
+                         emit_violation_reports=False)
+    before = (strip_tri_energy_grad.launches, fused_update_table.launches,
+              fused_steps_batched.launches)
+    out = str(tmp_path / "out")
+    got = genome.run_genome(str(d), out, cfg, device=cuda_device)
+    steps = cfg.anneal.total_steps
+    assert (strip_tri_energy_grad.launches - before[0], fused_update_table.launches - before[1],
+            fused_steps_batched.launches - before[2]) == (2 * (steps + 1), 2 * steps, 2)
+    assert {n: s["bucket"] for n, s in got.items()} == {
+        "chr1_1mb": 512, "chr2_1mb": 1024, "chr3_1mb": 1024, "chr4_1mb": 1536}
+    for name, L in chroms:
+        assert got[name]["L"] == L and got[name]["models"] == 2
+        assert got[name]["best_spearman_if_inv_d"] > 0.7
+        assert os.path.isfile(os.path.join(out, name, f"{name}_model1.pdb"))
+    summary = json.load(open(os.path.join(out, "summary.json")))
+    assert sorted(summary["phases"]) == ["L1024", "L1536", "L512"]

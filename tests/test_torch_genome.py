@@ -52,6 +52,7 @@ from chromosome3d_tpu_torch.ops.pair_energy import (
     exact_pair_energy_grad,
     exact_pair_energy_grad_plain,
 )
+from chromosome3d_tpu_torch.ops.strip_tri import strip_tri_energy_grad_plain
 from chromosome3d_tpu_torch.parallel import genome as port_genome
 from chromosome3d_tpu_torch.solver import anneal as port_anneal
 from chromosome3d_tpu_torch.truth import confined_walk, if_from_structure
@@ -433,21 +434,25 @@ def test_checkpoints_load_in_either_package(tmp_path, writer):
 
 
 def test_run_genome_refuses_before_solving(genome_dir, tmp_path):
-    """An at-scale bucket is refused (ROADMAP A12) before any bucket is
-    solved or written; the alpha ensemble (A11) too; and without a device
-    the card is asked for, which raises where there is none."""
-    port_cfg, _ = _cfgs()
+    """A bucket past the length buckets whose restraints are not exact is
+    refused (ROADMAP A12) before any bucket is solved or written; so is one
+    whose layout takes the row-block route (L = 128 on one device: B6's
+    strip route needs 3 of the JAX package's strip tiles); and without a
+    device the card is asked for, which raises where there is none."""
+    port_cfg, _ = _cfgs(noe_rswitch=5.0)
     d = _write_genome(tmp_path / "g", CHROMS[1:2] + (("chr7_50kb", 70),))
     out = str(tmp_path / "out")
-    before = fused_step_plain.calls
-    with pytest.raises(NotImplementedError, match=r"chr7_50kb.*ROADMAP A12\)"):
+    before = (fused_step_plain.calls, strip_tri_energy_grad_plain.calls)
+    with pytest.raises(NotImplementedError, match=r"chr7_50kb.*not exact.*ROADMAP A12\)"):
         port_genome.run_genome(d, out, port_cfg, device="cpu")
-    assert fused_step_plain.calls == before
+    assert (fused_step_plain.calls, strip_tri_energy_grad_plain.calls) == before
     assert os.listdir(os.path.join(out, "checkpoint")) == []
     assert not os.path.exists(os.path.join(out, CHROMS[1][0]))
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        port_genome.run_genome(genome_dir, str(tmp_path / "a"),
-                               port_cfg.replace(alpha_ensemble=(0.5, 0.7)), device="cpu")
+    exact_cfg = _cfgs()[0]
+    with pytest.raises(NotImplementedError, match=r"chr7_50kb.*L=128.*rows route.*A12\)"):
+        port_genome.run_genome(d, str(tmp_path / "a"), exact_cfg.replace(shard_quantum=128),
+                               device="cpu")
+    assert (fused_step_plain.calls, strip_tri_energy_grad_plain.calls) == before
     with pytest.raises(ValueError, match="exceeds the largest bucket"):
         port_genome.run_genome(d, out, port_cfg.replace(shard_large=False), device="cpu")
 

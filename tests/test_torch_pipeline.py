@@ -143,7 +143,9 @@ def test_run_pipeline_refuses_unported_inputs(tmp_path, tiny_matrix, monkeypatch
     monkeypatch.setattr(port_pipeline, "_memory_bytes", lambda dev: need - 1)
     with pytest.raises(RuntimeError, match="row-sharded route"):
         port_pipeline.run_pipeline(txt, str(tmp_path / "b"), big, device="cpu")
-    with pytest.raises(NotImplementedError):
+    # the alpha ensemble is not refused: it runs on to the solve's first
+    # (L_pad, L_pad) array (tests/test_torch_alpha_ensemble.py runs it through)
+    with pytest.raises(AssertionError, match="allocated"):
         port_pipeline.run_pipeline(txt, str(tmp_path / "c"),
                                    PipelineConfig(alpha_ensemble=(0.7,)), device="cpu")
 
