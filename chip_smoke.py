@@ -96,7 +96,12 @@ Phases (each prints one line or a few, then its wall seconds as a
                other kernel and twin 0, each bucket's phases, every
                chromosome's artifacts and checkpoint, the ground-truth gates
                on every chromosome; each bucket's solve timed (synchronised)
-               with its ensemble and chromosome-steps/s.
+               with its ensemble and chromosome-steps/s, and its launches
+               counted (B6 2,761, B4 2,760 a bucket past 768). Then B6 and
+               B4 with the chromosome axis at each of those four buckets'
+               shapes, on the tiles the run built and ensembles near its
+               truths, as in phase 3 (twins, lone launches, padded beads,
+               times and bounds at B = 20 and 10).
   4d. alpha ensemble — `run -m 10 --alpha-ensemble 0.5,0.7,1.1` on the main
                path's matrix: three solves (B1 x2 and B2 x1 each), 30 models
                pooled into the Spearman ranking with their alpha REMARKs, the
@@ -160,9 +165,10 @@ FP32 and HBM peaks, and library_ms null:
 no single PyTorch call computes a kernel's function; B1 and B2 also at the
 genome bucket's shape, with their launches on the genome path; B3 and B5
 at L_pad = 8192 and B3 and B4 at the streamed length, with the launches of
-phases 13, 14 and 16; B6 and B4 with the chromosome axis at the 50 kb
-genome's bucket of two chromosomes at L = 5120, with their launches on the
-100 kb genome) and, last,
+phases 13, 14 and 16; B6 and B4 with the chromosome axis at each bucket
+of the 100 kb genome past the length buckets, with that bucket's launches,
+the rows of its largest bucket also holding the numbers at the 50 kb
+genome's bucket of two chromosomes at L = 5120) and, last,
 the result line `{"ok": true, "device": {...}}`.
 """
 
@@ -848,6 +854,34 @@ def recorded_calls(module, name, calls):
     def spy(*args, **kwargs):
         calls.append((args, kwargs))
         return real(*args, **kwargs)
+
+    setattr(module, name, spy)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+@contextlib.contextmanager
+def recorded_bucket_solves(module, name, runs):
+    """Record each call of module.name (a genome bucket's solve from its IF
+    matrices) into `runs`: its wall seconds, synchronised, the kernel
+    launches made inside it, its padded length and bead counts, and the
+    tiles it returns (kept alive for the kernel checks after the run)."""
+    real = getattr(module, name)
+
+    def spy(matrices, L_pad, *args, **kwargs):
+        torch.cuda.synchronize()
+        before = read_counters()[0]
+        t0 = time.perf_counter()
+        out = real(matrices, L_pad, *args, **kwargs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        after = read_counters()[0]
+        runs.append({"seconds": seconds, "L_pad": L_pad, "tiles": out[1],
+                     "lengths": [m.shape[0] for m in matrices],
+                     "launches": {k: after[k] - before[k] for k in after}})
+        return out
 
     setattr(module, name, spy)
     try:
@@ -1777,18 +1811,16 @@ BUCKETS_100KB = {512: 2, 768: 3, 1024: 5, 1536: 6, 2048: 5, 2560: 2}
 GENOME_50KB_PAIR = (4550, 4820)
 
 
-def phase_kernels_genome_at_scale(dev, card):
-    """Kernels B6 and B4 with the chromosome axis at the 50 kb genome's
-    largest bucket: two chromosomes of 4,550 and 4,820 beads (truths
-    confined_walk(L, seed=k), IF by strips on the card with noise 0.1, tiles
-    from the batched prep) padded to 5120, at B = 20 and at the cool phase's
-    B = 10 a chromosome. One launch for both against the twins (B6: rtol
-    2e-4, atol 2e-4 + 1e-6 x max |g|; B4: the update's tolerances) and each
-    chromosome bit for bit against a launch of its own; then their times
-    beside their bounds."""
-    from chromosome3d_tpu_torch.config import AnnealConfig, RestraintConfig
-    from chromosome3d_tpu_torch.ops.device_prep import exact_tiles_from_if_batched_device
-    from chromosome3d_tpu_torch.ops.energy import auto_weight_exponent
+def check_genome_axis(where, target, w, bms, near, lengths, card):
+    """Kernels B6 and B4 with the chromosome axis on one genome bucket:
+    target and w (C, L, L) tiles, bms (C, L) bead masks, near[c] chromosome
+    c's ensemble_near state, lengths its beads. At B = 20 and at the cool
+    phase's B = 10 a chromosome: one launch for the bucket against the twins
+    (B6: rtol 2e-4, atol 2e-4 + 1e-6 x max |g|; B4: the update's
+    tolerances) and each chromosome bit for bit against a launch of its own,
+    padded beads 0; then their times at this shape beside their bounds.
+    Returns {"B6": ..., "B4": ...}, the numbers of the `kernels` line."""
+    from chromosome3d_tpu_torch.config import AnnealConfig
     from chromosome3d_tpu_torch.ops.fused_update import (
         fused_update_plain,
         fused_update_table,
@@ -1800,34 +1832,26 @@ def phase_kernels_genome_at_scale(dev, card):
         strip_tri_energy_grad_plain,
     )
     from chromosome3d_tpu_torch.solver.anneal import _final_weights, schedule_table
-    from chromosome3d_tpu_torch.truth import confined_walk, if_from_structure_strips
 
-    C, L = len(GENOME_50KB_PAIR), L_BIG_PAD
-    truths = [confined_walk(n, seed=k) for k, n in enumerate(GENOME_50KB_PAIR)]
-    mats = [if_from_structure_strips(X, alpha=0.5, noise_sigma=0.1, seed=k, device=dev)
-            for k, X in enumerate(truths)]
-    rc = RestraintConfig(kscaling=11.0, alpha=0.5)
-    ex = exact_tiles_from_if_batched_device(
-        mats, L, rc, rc.weighting, [auto_weight_exponent(n) for n in GENOME_50KB_PAIR],
-        device=dev)
-    near = [ensemble_near(X, L, dev) for X in truths]
-    bms = torch.stack([a[0] for a in near])
+    dev = target.device
+    C, L = bms.shape
     B = 2 * N_MODELS
-    w = _final_weights(AnnealConfig())
+    wts = _final_weights(AnnealConfig())
     table = schedule_table(AnnealConfig(), seed=0)
     seeds = torch.tensor([(12345 + 7919 * c) % (2**31 - 1) for c in range(C)],
                          dtype=torch.int32, device=dev)
     err, measured = {"B6": 0.0, "B4": 0.0}, {}
     for b in (B, N_MODELS):
+        t_check = time.perf_counter()
         # each chromosome's first b structures, chromosome-major
         xT, mu, nu = (torch.cat([a[i][:b] for a in near]).contiguous() for i in (1, 2, 3))
-        e, g = strip_tri_energy_grad(xT, ex.target, ex.w, w, bms, 0)
-        e2, g2 = strip_tri_energy_grad(xT, ex.target, ex.w, w, bms, 0)
-        e_r, g_r = strip_tri_energy_grad_plain(xT, ex.target, ex.w, w, bms, 0, strip_tile(L))
+        e, g = strip_tri_energy_grad(xT, target, w, wts, bms, 0)
+        e2, g2 = strip_tri_energy_grad(xT, target, w, wts, bms, 0)
+        e_r, g_r = strip_tri_energy_grad_plain(xT, target, w, wts, bms, 0, strip_tile(L))
         torch.cuda.synchronize()
-        check(torch.equal(e, e2) and torch.equal(g, g2), f"B6 genome B={b}: two calls differ")
-        close(f"B6 genome B={b} e", e, e_r, 3e-5)
-        err["B6"] = max(err["B6"], close(f"B6 genome B={b} g", g, g_r, 2e-4,
+        check(torch.equal(e, e2) and torch.equal(g, g2), f"B6 {where} B={b}: two calls differ")
+        close(f"B6 {where} B={b} e", e, e_r, 3e-5)
+        err["B6"] = max(err["B6"], close(f"B6 {where} B={b} g", g, g_r, 2e-4,
                                          2e-4 + 1e-6 * float(g_r.abs().max())))
         k = 301 if b == N_MODELS else 0
 
@@ -1844,67 +1868,119 @@ def phase_kernels_genome_at_scale(dev, card):
         e_b, *ref = fused_update_plain(xT, g, mu, nu, weights, bms, lr, sigma, bc1, bc2,
                                        seeds.tolist(), k, table.clip)
         torch.cuda.synchronize()
-        close(f"B4 genome B={b} hist", got[0], e + e_b, 2e-5)
-        close(f"B4 genome B={b} mu'", got[2], ref[1], 5e-4, 1e-5)
-        close(f"B4 genome B={b} nu'", got[3], ref[2], 5e-4, 1e-8)
-        err["B4"] = max(err["B4"], close(f"B4 genome B={b} x'", got[1], ref[0], 5e-4, 5e-4))
+        close(f"B4 {where} B={b} hist", got[0], e + e_b, 2e-5)
+        close(f"B4 {where} B={b} mu'", got[2], ref[1], 5e-4, 1e-5)
+        close(f"B4 {where} B={b} nu'", got[3], ref[2], 5e-4, 1e-8)
+        err["B4"] = max(err["B4"], close(f"B4 {where} B={b} x'", got[1], ref[0], 5e-4, 5e-4))
         for c in range(C):
             sl = slice(c * b, (c + 1) * b)
-            e_c, g_c = strip_tri_energy_grad(xT[sl].contiguous(), ex.target[c], ex.w[c], w,
+            e_c, g_c = strip_tri_energy_grad(xT[sl].contiguous(), target[c], w[c], wts,
                                              bms[c], 0)
             check(torch.equal(e_c, e[sl]) and torch.equal(g_c, g[sl]),
-                  f"B6 genome B={b}: chromosome {c} differs from a launch of its own")
+                  f"B6 {where} B={b}: chromosome {c} differs from a launch of its own")
             for what, x, y in zip(("history", "x'", "mu'", "nu'"), update(
                     sl, bms[c:c + 1], seeds[c:c + 1]), got):
-                check(torch.equal(x, y[sl]), f"B4 genome B={b}: chromosome {c}'s {what} "
+                check(torch.equal(x, y[sl]), f"B4 {where} B={b}: chromosome {c}'s {what} "
                       "differs from a launch of its own")
-            n = GENOME_50KB_PAIR[c]
+            n = lengths[c]
             check(bool((g[sl, :, n:] == 0).all()) and bool((got[1][sl, :, n:] == 0).all()),
-                  f"genome B={b}: chromosome {c}'s padded beads not 0")
+                  f"{where} B={b}: chromosome {c}'s padded beads not 0")
         print(f"[kernels] B6 exact_tri_strip and B4 fused_update with the chromosome axis, "
-              f"{C} chromosomes of {GENOME_50KB_PAIR} beads -> {L} x B={b}, one launch each: "
-              f"== twins (B6 g max abs err {err['B6']:.3g}, B4 x' {err['B4']:.3g}), each "
-              "chromosome bitwise a launch of its own (B6 e, g; B4 history, x', mu', nu'), "
-              "padded beads 0")
+              f"{where}: {C} chromosomes of {tuple(lengths)} beads -> {L} x B={b}, one launch "
+              f"each: == twins (B6 g max abs err {err['B6']:.3g}, B4 x' {err['B4']:.3g}), "
+              "each chromosome bitwise a launch of its own (B6 e, g; B4 history, x', mu', "
+              "nu'), padded beads 0")
 
         # times at this shape: the kernels as the genome solver calls them
         # (B4 from the device counter), each twin per call at B = 20
+        t_time, t_check = time.perf_counter(), time.perf_counter() - t_check
         counter = step_counter(0, dev)
         hist = torch.empty((len(table.rows), C * b), device=dev)
         calls = {
-            "B6": (lambda: strip_tri_energy_grad(xT, ex.target, ex.w, w, bms, 0), 25),
-            "B6 plain": (lambda: strip_tri_energy_grad_plain(xT, ex.target, ex.w, w, bms, 0,
+            "B6": (lambda: strip_tri_energy_grad(xT, target, w, wts, bms, 0), 25),
+            "B6 plain": (lambda: strip_tri_energy_grad_plain(xT, target, w, wts, bms, 0,
                                                              strip_tile(L)), 3),
             "B4": (lambda: fused_update_table(xT, g, mu, nu, e, bms, table, counter, hist,
                                               seeds=seeds), 25),
+            # the twin's trace holds thousands of small ops a call: 5 calls
             "B4 plain": (lambda: fused_update_plain(xT, g, mu, nu, weights, bms, lr, sigma,
                                                     bc1, bc2, seeds.tolist(), k,
-                                                    table.clip), 25),
+                                                    table.clip), 5),
         }
         if b != B:
             calls = {key: v for key, v in calls.items() if not key.endswith("plain")}
         wall = {key: median_ms(fn, n, warmup=1) for key, (fn, n) in calls.items()}
         counter.fill_(0)
-        # B6 and its twin take a millisecond or more: CUDA events (the
+        # B6 and its twin take up to a millisecond or more: CUDA events (the
         # profiler was seen to drop part of such kernels' time); B4's the
         # profiler
         on_dev = {key: (event_ms if key.startswith("B6") else device_ms)(fn, n)
                   for key, (fn, n) in calls.items()}
         bounds = {key: bound(key, b, L, C=C) for key in ("B6", "B4")}
-        print(f"[kernels] genome shape, {C} chromosomes at L={L}, B={b} a chromosome, ms as "
+        print(f"[kernels] {where}, {C} chromosomes at L={L}, B={b} a chromosome, ms as "
               "median wall with a sync | device time (B6 and its twin: CUDA events; B4: "
               "torch.profiler): "
               + "; ".join(f"{key} {wall[key]:.5f} | {on_dev[key]:.5f}" for key in calls)
-              + f" (bounds B6 {bounds['B6'][0]:.5f}, B4 {bounds['B4'][0]:.5f} ms) on {card}")
+              + f" (bounds B6 {bounds['B6'][0]:.5f}, B4 {bounds['B4'][0]:.5f} ms) on {card}; "
+              f"this shape's checks {t_check:.2f} s, its timing "
+              f"{time.perf_counter() - t_time:.2f} s")
         for key in ("B6", "B4"):
             if b == B:
                 measured[key] = {**timing(err[key], key, wall, on_dev), "L_pad": L,
-                                 "chromosomes": C}
+                                 "chromosomes": C, "bound_ms": bounds[key][0],
+                                 "bound_by": bounds[key][1]}
             else:
                 measured[key].update({"ms_b10": wall[key], "device_ms_b10": on_dev[key],
                                       "bound_ms_b10": bounds[key][0]})
     for key in ("B6", "B4"):
         measured[key]["max_abs_err"] = err[key]
+    return measured
+
+
+def phase_kernels_genome_at_scale(dev, card):
+    """Kernels B6 and B4 with the chromosome axis at the 50 kb genome's
+    largest bucket: two chromosomes of 4,550 and 4,820 beads (truths
+    confined_walk(L, seed=k), IF by strips on the card with noise 0.1, tiles
+    from the batched prep) padded to 5120, checked and timed by
+    check_genome_axis."""
+    from chromosome3d_tpu_torch.config import RestraintConfig
+    from chromosome3d_tpu_torch.ops.device_prep import exact_tiles_from_if_batched_device
+    from chromosome3d_tpu_torch.ops.energy import auto_weight_exponent
+    from chromosome3d_tpu_torch.truth import confined_walk, if_from_structure_strips
+
+    L = L_BIG_PAD
+    truths = [confined_walk(n, seed=k) for k, n in enumerate(GENOME_50KB_PAIR)]
+    mats = [if_from_structure_strips(X, alpha=0.5, noise_sigma=0.1, seed=k, device=dev)
+            for k, X in enumerate(truths)]
+    rc = RestraintConfig(kscaling=11.0, alpha=0.5)
+    ex = exact_tiles_from_if_batched_device(
+        mats, L, rc, rc.weighting, [auto_weight_exponent(n) for n in GENOME_50KB_PAIR],
+        device=dev)
+    del mats
+    near = [ensemble_near(X, L, dev) for X in truths]
+    bms = torch.stack([a[0] for a in near])
+    return check_genome_axis("the 50 kb genome's largest bucket", ex.target, ex.w, bms, near,
+                             GENOME_50KB_PAIR, card)
+
+
+def phase_kernels_genome_100kb(buckets, truths, card):
+    """Kernels B6 and B4 with the chromosome axis at each bucket past the
+    length buckets that the 100 kb genome ran (1024 x5, 1536 x6, 2048 x5,
+    2560 x2), on the tiles that run built on the card and ensembles near its
+    truths, checked and timed by check_genome_axis. Returns {L_pad: the
+    numbers}."""
+    measured = {}
+    for L, run in sorted(buckets.items()):
+        dev = run["target"].device
+        check(run["lengths"] == [len(truths[name]) for name in run["names"]]
+              and run["target"].shape == (len(run["names"]), L, L),
+              f"genome 100 kb bucket {L}: tiles {tuple(run['target'].shape)} for "
+              f"{run['names']} of {run['lengths']} beads")
+        near = [ensemble_near(truths[name], L, dev) for name in run["names"]]
+        bms = torch.stack([a[0] for a in near])
+        measured[L] = check_genome_axis(f"the 100 kb genome's bucket {L}", run["target"],
+                                        run["w"], bms, near, run["lengths"], card)
+        del near, bms
     return measured
 
 
@@ -1949,16 +2025,24 @@ def phase_genome_100kb(directory, truths, card):
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "out")
         reset_counters()
-        buf, t_small, t_large = io.StringIO(), [], []
+        buf, t_small, runs = io.StringIO(), [], []
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf), timed_calls(genome, "solve_bucket", t_small), \
-                timed_calls(genome, "solve_bucket_sharded_from_if", t_large):
+                recorded_bucket_solves(genome, "solve_bucket_sharded_from_if", runs):
             rc = cli.main(["genome", "-i", directory, "-o", out, "-m", str(N_MODELS),
                            "--no-violation-reports"])
         wall = time.perf_counter() - t0
         launches, plain = read_counters()
         check(rc == 0, f"cli genome returned {rc}")
         check_launches("genome 100 kb", launches, plain, want)
+        # each bucket past 768 on the one card: one group of one rank, B6
+        # once a step and at the pick and B4 once a step for the bucket
+        for run in runs:
+            check(len(run["tiles"]) == 1 and len(run["tiles"][0]) == 1,
+                  f"genome 100 kb bucket {run['L_pad']}: {len(run['tiles'])} groups of "
+                  f"{len(run['tiles'][0])} ranks, not the one card")
+            check_launches(f"genome 100 kb bucket {run['L_pad']}", run["launches"], 0,
+                           {"B6": steps + 1, "B4": steps})
         b1_steps = kernel_counters()[0]["B1"].steps
         check(b1_steps == want["B1"] // 2 * steps,
               f"genome 100 kb: B1 ran {b1_steps} steps, want {want['B1'] // 2 * steps}")
@@ -1990,9 +2074,9 @@ def phase_genome_100kb(directory, truths, card):
                   f"{met[name]['rmsd_over_rg']:.4f}, spearman_d {met[name]['spearman_d']:.5f}, "
                   f"dRMSD_rel {met[name]['drmsd_rel']:.4f}; best Spearman(IF,1/d) "
                   f"{s['best_spearman_if_inv_d']:.4f}")
-    check(len(t_small) == len(BUCKETS_100KB) - n_large and len(t_large) == n_large,
-          f"genome 100 kb: {len(t_small)} + {len(t_large)} bucket solves")
-    solves = dict(zip(sorted(BUCKETS_100KB), t_small + t_large))
+    check(len(t_small) == len(BUCKETS_100KB) - n_large and len(runs) == n_large,
+          f"genome 100 kb: {len(t_small)} + {len(runs)} bucket solves")
+    solves = dict(zip(sorted(BUCKETS_100KB), t_small + [r["seconds"] for r in runs]))
     print(f"[genome 100kb] genome -i <{len(GENOME_100KB)} inputs> -m {N_MODELS} "
           f"--no-violation-reports: buckets {BUCKETS_100KB}; "
           + ", ".join(f"{k} {launches[k]} launches" for k in want)
@@ -2005,7 +2089,16 @@ def phase_genome_100kb(directory, truths, card):
               f"final terms), {steps / solve_s} ensemble steps/s, {n * steps / solve_s} "
               f"chromosome-steps/s; phases {json.dumps(summary['phases'][f'L{L}'])}")
     print(f"[genome 100kb] wall {wall} s (summary.json {summary['wall_seconds']}) on {card}")
-    return launches, {L: t for L, t in solves.items()}
+    # the at-scale buckets' tiles as the run built them, for the kernel
+    # checks at their shapes
+    buckets = {}
+    for run in runs:
+        strip = run["tiles"][0][0]
+        buckets[run["L_pad"]] = {
+            "target": strip.target, "w": strip.w, "lengths": run["lengths"],
+            "names": summary["phases"][f"L{run['L_pad']}"]["chromosomes"],
+            "launches": run["launches"]}
+    return launches, buckets
 
 
 def pdb_remark(path, term):
@@ -2449,9 +2542,14 @@ def main() -> int:
                                                        truths, card)
         truths_100kb = timed_phase("genome 100 kb inputs (the writer's wait)",
                                    pending_100kb.result)
-        launches_100kb, _ = timed_phase("genome 100 kb", phase_genome_100kb, genome_100kb,
-                                        truths_100kb, card)
+        _, buckets_100kb = timed_phase("genome 100 kb", phase_genome_100kb,
+                                       genome_100kb, truths_100kb, card)
         shutil.rmtree(genome_100kb)
+        measured_100kb = timed_phase("kernels genome 100 kb buckets",
+                                     phase_kernels_genome_100kb, buckets_100kb, truths_100kb,
+                                     card)
+        launches_buckets = {L: run["launches"] for L, run in buckets_100kb.items()}
+        del buckets_100kb
         timed_phase("alpha ensemble", phase_alpha_ensemble, X, M, card)
         launches_big = timed_phase("at-scale path", phase_at_scale_path, Xb, Mb, card)
         launches_solve = timed_phase("solve A", phase_solve_path, "A", inputs, "mds_init",
@@ -2543,19 +2641,23 @@ def main() -> int:
                         "chromosomes": C_GENOME})
         if key == "B1":
             kernels[-1]["steps"] = b1_steps_genome
-    # B6 and B4 with the chromosome axis at the 50 kb genome's largest bucket
-    # (2 chromosomes at L = 5120), their launches those of the 100 kb genome
-    for key, kname, src, replaces in (
-        ("B6", "exact_tri_strip_genome", "chromosome3d_tpu_torch/csrc/exact_tri_strip.cu",
-         "chromosome3d_tpu/ops/pallas_energy.py:1438"),
-        ("B4", "fused_update_genome", "chromosome3d_tpu_torch/csrc/fused_update.cu",
-         "chromosome3d_tpu/ops/pallas_energy.py:486"),
-    ):
-        C = len(GENOME_50KB_PAIR)
-        bound_ms, bound_by = bound(key, B, L_BIG_PAD, C=C)
-        kernels.append({"name": kname, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": launches_100kb[key], **measured_genome_large[key],
-                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    # B6 and B4 with the chromosome axis at each bucket of the 100 kb genome
+    # past the length buckets, with that bucket's launches; the rows of its
+    # largest bucket also carry the numbers at the 50 kb genome's largest
+    # bucket (2 chromosomes at L = 5120, a shape no path here runs)
+    for L in sorted(measured_100kb):
+        for key, kname, src, replaces in (
+            ("B6", "exact_tri_strip_genome", "chromosome3d_tpu_torch/csrc/exact_tri_strip.cu",
+             "chromosome3d_tpu/ops/pallas_energy.py:1438"),
+            ("B4", "fused_update_genome", "chromosome3d_tpu_torch/csrc/fused_update.cu",
+             "chromosome3d_tpu/ops/pallas_energy.py:486"),
+        ):
+            kernels.append({"name": f"{kname}_{L}", "route": "cuda", "source": src,
+                            "replaces": replaces,
+                            "launches": launches_buckets[L][key],
+                            **measured_100kb[L][key], "library_ms": None})
+            if L == max(measured_100kb):
+                kernels[-1]["at_50kb_largest_bucket"] = measured_genome_large[key]
     print(card)   # nvidia-smi --query-gpu=name,power.limit, again beside the numbers
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

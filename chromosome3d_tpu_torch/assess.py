@@ -19,7 +19,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from chromosome3d_tpu_torch.config import PipelineConfig
-from chromosome3d_tpu_torch.metrics import ROW_CHUNK, d2_row_strip, spearman_if_inv_d
+from chromosome3d_tpu_torch.metrics import ROW_CHUNK, d2_row_strip, spearman_if_inv_d_ensemble
 from chromosome3d_tpu_torch.restraints import Restraints
 
 
@@ -111,9 +111,7 @@ def rank_by_spearman(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Descending Spearman(IF, 1/d) ranking — the publication rankNN order
     (spearman_IF_pdb.pl:73-76, sign-flipped). Returns (order, scores)."""
-    scores = np.asarray(
-        [spearman_if_inv_d(if_matrix, c, rng) for c in np.asarray(coords)]
-    )
+    scores = spearman_if_inv_d_ensemble(if_matrix, coords, rng)
     return np.argsort(-scores, kind="stable"), scores
 
 

@@ -18,19 +18,14 @@ import numpy as np
 SPEARMAN_MAX_PAIRS = 4_000_000
 
 
-def spearman_if_model(
-    if_matrix: np.ndarray, coords: np.ndarray, rng: int = 3
-) -> float:
-    """The spearman_IF_pdb.pl statistic: Spearman(IF_ij, d_ij) over all
-    ordered pairs with |i-j| >= rng (spearman_IF_pdb.pl:42-70).
-    Negative values are good (high IF <-> short distance).
-
-    Beyond SPEARMAN_MAX_PAIRS qualifying pairs (L ~ 2000+) the statistic is
-    computed on a deterministic uniform subsample of that many pairs."""
+def _spearman_pairs(if_matrix: np.ndarray, L: int, rng: int):
+    """The pairs the statistic runs over for a model of L beads — a boolean
+    (L, L) mask of the ordered pairs with |i-j| >= rng, or past
+    SPEARMAN_MAX_PAIRS the (i, j) index arrays of the fixed-seed subsample —
+    and the IF values' ranks there, centred. Model-independent: an ensemble
+    ranks its IF values once."""
     from scipy import stats as sps
 
-    coords = np.asarray(coords, dtype=np.float64)
-    L = coords.shape[0]
     if rng >= L:
         raise ValueError("range >= model length (ref prints '-' and exits)")
     # ordered pairs with |i-j| >= rng
@@ -41,34 +36,77 @@ def spearman_if_model(
         i = rs.randint(0, L, size=2 * m)
         j = rs.randint(0, L, size=2 * m)
         keep = np.abs(i - j) >= rng
-        i, j = i[keep][:m], j[keep][:m]
-        dv = np.sqrt(((coords[i] - coords[j]) ** 2).sum(-1))
-        dv = np.round(dv, 3)
+        pairs = (i[keep][:m], j[keep][:m])
         # index before converting: a whole-matrix float64 copy of an
         # at-scale input (possibly a read-only f32 .npy memmap) is tens of
         # GB on exactly the path this sampled branch exists for
-        iv = np.asarray(if_matrix[i, j], dtype=np.float64)
-        ra = sps.rankdata(iv)
-        rb = sps.rankdata(dv)
+        iv = np.asarray(if_matrix[pairs], dtype=np.float64)
     else:
-        ifm = np.asarray(if_matrix, dtype=np.float64)
         idx = np.arange(L)
-        mask = np.abs(idx[:, None] - idx[None, :]) >= rng
-        d = np.linalg.norm(coords[:, None] - coords[None, :], axis=-1)
-        # the reference quantizes model distances to %.3f before ranking (:46)
-        d = np.round(d, 3)
-        ra = sps.rankdata(ifm[:L, :L][mask])
-        rb = sps.rankdata(d[mask])
+        pairs = np.abs(idx[:, None] - idx[None, :]) >= rng
+        iv = np.asarray(if_matrix, dtype=np.float64)[:L, :L][pairs]
+    ra = sps.rankdata(iv)
     ra -= ra.mean()
+    return pairs, ra
+
+
+def _quantized_ranks(dv: np.ndarray) -> np.ndarray:
+    """scipy.stats.rankdata(dv) (average ranks of ties), bit for bit, for
+    distances rounded to 0.001: each is k / 1000 for an integer k that
+    rint(1000 dv) recovers, so the ranks come from a count of each k
+    instead of a sort. Values that are not finite, or k past a few times
+    the count of values, take rankdata itself."""
+    from scipy import stats as sps
+
+    if dv.size == 0 or not np.isfinite(dv).all() or dv.max() * 1000 > 4 * dv.size + 2**20:
+        return sps.rankdata(dv)
+    k = np.rint(dv * 1000).astype(np.int64)
+    counts = np.bincount(k)
+    upto = np.cumsum(counts)      # values <= k
+    return 0.5 * (upto[k] + (upto - counts)[k] + 1)
+
+
+def _spearman_model(pairs, ra: np.ndarray, coords: np.ndarray) -> float:
+    """Spearman(IF, d) of one model over _spearman_pairs' pairs and IF ranks."""
+    coords = np.asarray(coords, dtype=np.float64)
+    if isinstance(pairs, tuple):
+        i, j = pairs
+        dv = np.sqrt(((coords[i] - coords[j]) ** 2).sum(-1))
+    else:
+        dv = np.linalg.norm(coords[:, None] - coords[None, :], axis=-1)[pairs]
+    # the reference quantizes model distances to %.3f before ranking (:46)
+    rb = _quantized_ranks(np.round(dv, 3))
     rb -= rb.mean()
     denom = np.sqrt((ra * ra).sum() * (rb * rb).sum())
     return float((ra * rb).sum() / denom) if denom > 0 else 0.0
+
+
+def spearman_if_model(
+    if_matrix: np.ndarray, coords: np.ndarray, rng: int = 3
+) -> float:
+    """The spearman_IF_pdb.pl statistic: Spearman(IF_ij, d_ij) over all
+    ordered pairs with |i-j| >= rng (spearman_IF_pdb.pl:42-70).
+    Negative values are good (high IF <-> short distance).
+
+    Beyond SPEARMAN_MAX_PAIRS qualifying pairs (L ~ 2000+) the statistic is
+    computed on a deterministic uniform subsample of that many pairs."""
+    return _spearman_model(*_spearman_pairs(if_matrix, np.shape(coords)[0], rng), coords)
 
 
 def spearman_if_inv_d(if_matrix: np.ndarray, coords: np.ndarray, rng: int = 3) -> float:
     """The headline quality metric Spearman(IF, 1/d). Equals
     -spearman_if_model because 1/d reverses the rank order of d."""
     return -spearman_if_model(if_matrix, coords, rng)
+
+
+def spearman_if_inv_d_ensemble(if_matrix: np.ndarray, coords: np.ndarray,
+                               rng: int = 3) -> np.ndarray:
+    """spearman_if_inv_d of every model of an (n, L, 3) ensemble, the IF
+    values ranked once for all of them; each value equals the one-model
+    call's bit for bit."""
+    coords = np.asarray(coords)
+    pairs, ra = _spearman_pairs(if_matrix, coords.shape[1], rng)
+    return np.asarray([-_spearman_model(pairs, ra, c) for c in coords])
 
 
 def kabsch_rmsd(

@@ -192,18 +192,34 @@ def _start(group: ShardGroup, strips: Sequence, bead_mask: torch.Tensor,
     return x0[None] * flip[:, None, :] + cfg.init_noise * jitter * bead_mask[None, :, None]
 
 
-def _solve_group(group: ShardGroup, tiles: List[_Tiles], bead_masks: torch.Tensor,
-                 cfg: AnnealConfig, n_models: int, xs: torch.Tensor, noise_seeds,
-                 route: str, or_groups=None) -> AnnealResult:
-    """The shard body for the C chromosomes of one shard group: tiles[r] is
-    rank r's (C, Lb, L) strips, bead_masks (C, L), xs (C, n_eff, L, 3) and
-    noise_seeds C ints, all on the lead. The state is one batch of C x n_eff
-    structures, chromosome-major: every step each rank runs B6 once for all
-    C chromosomes (or, at C = 1, B2' / B5' on the "rows" route), the
-    partials are combined on the lead, and B4 runs once there for all of
-    them, each chromosome with its mask and its noise seed. The pick, the
-    final terms and the centroid are taken chromosome by chromosome.
-    Returns an AnnealResult with a leading C axis."""
+def _in_lockstep(bodies) -> list:
+    """Run generator bodies (_group_body) step by step in turn, each one's
+    next step before any one's step after it, so that groups on other
+    devices run at once; returns their results in order."""
+    results, live = [None] * len(bodies), list(range(len(bodies)))
+    while live:
+        for i in list(live):
+            try:
+                next(bodies[i])
+            except StopIteration as done:
+                results[i] = done.value
+                live.remove(i)
+    return results
+
+
+def _group_body(group: ShardGroup, tiles: List[_Tiles], bead_masks: torch.Tensor,
+                cfg: AnnealConfig, n_models: int, xs: torch.Tensor, noise_seeds,
+                route: str, or_groups=None):
+    """The shard body for the C chromosomes of one shard group, a generator
+    that yields after queueing each annealing step and returns its
+    AnnealResult: tiles[r] is rank r's (C, Lb, L) strips, bead_masks (C, L),
+    xs (C, n_eff, L, 3) and noise_seeds C ints, all on the lead. The state
+    is one batch of C x n_eff structures, chromosome-major: every step each
+    rank runs B6 once for all C chromosomes (or, at C = 1, B2' / B5' on the
+    "rows" route), the partials are combined on the lead, and B4 runs once
+    there for all of them, each chromosome with its mask and its noise
+    seed. The pick, the final terms and the centroid are taken chromosome
+    by chromosome. The AnnealResult has a leading C axis."""
     lead = group.lead
     C, n_eff, L = xs.shape[0], xs.shape[1], xs.shape[2]
     if C > 1 and (route != "strip" or or_groups is not None):
@@ -256,6 +272,7 @@ def _solve_group(group: ShardGroup, tiles: List[_Tiles], bead_masks: torch.Tenso
                 xT, gT.contiguous(), muT, nuT, e_pair, bead_masks, table, counter, hist,
                 out=spare[n % 2], seeds=seeds)
             spare[n % 2] = (xT, muT, nuT)
+            yield
         return xT, muT, nuT
 
     xT = xs.reshape(C * n_eff, L, 3).transpose(1, 2).contiguous()
@@ -265,7 +282,7 @@ def _solve_group(group: ShardGroup, tiles: List[_Tiles], bead_masks: torch.Tenso
     pick = None
     if cfg.enantiomer:
         hot = cfg.hot_steps
-        xT, muT, nuT = run(0, hot, xT, muT, nuT, history)
+        xT, muT, nuT = yield from run(0, hot, xT, muT, nuT, history)
         w_hot = step_weights[hot - 1]
         coords = xT.transpose(1, 2).contiguous()
         masks_b = bead_masks.repeat_interleave(n_eff, 0)
@@ -277,9 +294,9 @@ def _solve_group(group: ShardGroup, tiles: List[_Tiles], bead_masks: torch.Tenso
         rows = (pick + n_eff * torch.arange(C, device=lead)[:, None]).reshape(-1)
         xT, muT, nuT = xT[rows], muT[rows], nuT[rows]
         history = history[:, rows].contiguous()
-        xT, muT, nuT = run(hot, T, xT, muT, nuT, history)
+        xT, muT, nuT = yield from run(hot, T, xT, muT, nuT, history)
     else:
-        xT, muT, nuT = run(0, T, xT, muT, nuT, history)
+        xT, muT, nuT = yield from run(0, T, xT, muT, nuT, history)
     n = xT.shape[0] // C
     coords_all = xT.transpose(1, 2).reshape(C, n, L, 3)
 
@@ -352,8 +369,8 @@ def solve_ensemble_sharded(
         raise ValueError(f"xs: shape {tuple(xs.shape)}, expected {(n_eff, L, 3)}")
     if noise_seed is None:
         noise_seed = int(torch.randint(0, 2**31 - 1, (), generator=generator))
-    res = _solve_group(group, tiles, bead_mask[None], cfg, n_models, xs[None],
-                       [int(noise_seed)], route, or_groups)
+    res, = _in_lockstep([_group_body(group, tiles, bead_mask[None], cfg, n_models, xs[None],
+                                     [int(noise_seed)], route, or_groups)])
     return AnnealResult(coords=res.coords[0],
                         energies={k: v[0] for k, v in res.energies.items()},
                         history=res.history[0],
@@ -385,7 +402,9 @@ def solve_genome_sharded(
     draws from its chromosome's key; xs (B, n_eff, L, 3) and noise_seeds
     (B,) replay given values instead. A group's chromosomes run as one
     batch: every step B6 once on each rank for all of them and B4 once on
-    the group's lead. Returns an AnnealResult on groups[0]'s lead with a
+    the group's lead. The groups' steps are queued in turn (step k of every
+    group before step k + 1 of any), so groups on other devices run at once
+    as the JAX mesh's do. Returns an AnnealResult on groups[0]'s lead with a
     leading B axis: coords (B, n_models, L, 3), energies (B, n_models) each,
     history (B, n_models, T), pick (B, n_models)."""
     _refuse_unported(cfg)
@@ -408,7 +427,7 @@ def solve_genome_sharded(
     n_eff = n_models * 2 if cfg.enantiomer else n_models
     if xs is not None and tuple(xs.shape) != (B, n_eff, L, 3):
         raise ValueError(f"xs: shape {tuple(xs.shape)}, expected {(B, n_eff, L, 3)}")
-    results = []
+    bodies = []
     for g, (group, group_strips) in enumerate(zip(groups, strips)):
         lead = group.lead
         masks = bead_masks[g * Cg:(g + 1) * Cg].to(device=lead,
@@ -424,9 +443,9 @@ def solve_genome_sharded(
                 starts.append(xs[c].to(device=lead, dtype=torch.float32))
             seeds.append(int(torch.randint(0, 2**31 - 1, (), generator=gen))
                          if noise_seeds is None else int(noise_seeds[c]))
-        tiles = _tiles(group, group_strips, L)
-        results.append(_solve_group(group, tiles, masks, cfg, n_models,
-                                    torch.stack(starts), seeds, route))
+        bodies.append(_group_body(group, _tiles(group, group_strips, L), masks, cfg,
+                                  n_models, torch.stack(starts), seeds, route))
+    results = _in_lockstep(bodies)
     out = groups[0].lead
     return AnnealResult(
         coords=torch.cat([r.coords.to(out) for r in results]),

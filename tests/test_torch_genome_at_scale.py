@@ -454,6 +454,42 @@ def test_solve_bucket_sharded_from_if_draws_per_chromosome():
             assert torch.equal(lone.energies[k][0], got.energies[k][c])
 
 
+def test_solve_genome_sharded_runs_groups_in_lockstep(monkeypatch):
+    """Over two chromosome groups (layout 2x2) the groups' steps are queued
+    in turn, step k of each group before step k + 1 of either, so groups on
+    other devices run at once: B4's launches alternate between the groups'
+    noise seeds, and the results equal those of the groups run one after
+    the other, bit for bit."""
+    from chromosome3d_tpu_torch.solver import sharded
+
+    port_cfg, _ = _cfgs()
+    mats = [_matrix(L, k) for k, (_, L) in enumerate(LARGE[:2])]
+    order = []
+    real_update, real_lockstep = sharded.fused_update_table, sharded._in_lockstep
+
+    def spy(*args, seeds, **kwargs):
+        order.append(tuple(seeds.tolist()))
+        return real_update(*args, seeds=seeds, **kwargs)
+
+    def solve():
+        return port_genome.solve_bucket_sharded_from_if(mats, 96, port_cfg,
+                                                        devices=["cpu"] * 4, base_seed=SEED)[0]
+
+    monkeypatch.setattr(sharded, "fused_update_table", spy)
+    got = solve()
+    steps = port_cfg.anneal.total_steps
+    assert len(order) == 2 * steps and len(set(order)) == 2
+    assert order[0::2] == [order[0]] * steps and order[1::2] == [order[1]] * steps
+    monkeypatch.setattr(sharded, "_in_lockstep",
+                        lambda bodies: [real_lockstep([b])[0] for b in bodies])
+    order.clear()
+    serial = solve()
+    assert order == [order[0]] * steps + [order[-1]] * steps
+    assert torch.equal(got.coords, serial.coords) and torch.equal(got.history, serial.history)
+    for k in got.energies:
+        assert torch.equal(got.energies[k], serial.energies[k])
+
+
 # ---- run_genome ----
 
 

@@ -223,6 +223,35 @@ def test_spearman_matches_jax(L):
     assert port_metrics.spearman_if_inv_d(m, rec, 4) == jax_metrics.spearman_if_inv_d(m, rec, 4)
 
 
+@pytest.mark.parametrize("L", [60, 2100])
+def test_spearman_ensemble_matches_jax(L):
+    """The ensemble form (the IF values ranked once) equals the JAX
+    package's one-model statistic for each model, bit for bit."""
+    X = jax_truth.confined_walk(L, seed=3)
+    m = jax_truth.if_from_structure(X, alpha=0.5, noise_sigma=0.2, seed=3)
+    rs = np.random.RandomState(1)
+    ens = np.stack([X + rs.randn(L, 3) * s for s in (0.3, 1.0, 3.0)])
+    got = port_metrics.spearman_if_inv_d_ensemble(m, ens)
+    np.testing.assert_array_equal(got, [jax_metrics.spearman_if_inv_d(m, c) for c in ens])
+
+
+@pytest.mark.parametrize("case", ["spread", "ties", "tiny", "huge", "nan", "empty"])
+def test_quantized_ranks_equal_rankdata(case):
+    """The counting rank of distances rounded to 0.001 is scipy's rankdata
+    (average ties) bit for bit; values it cannot count take rankdata."""
+    from scipy import stats as sps
+
+    rs = np.random.RandomState(4)
+    dv = {"spread": np.abs(rs.randn(50_000)) * 400.0,
+          "ties": rs.randint(0, 30, 20_000) * 0.5,
+          "tiny": np.abs(rs.randn(1_000)) * 1e-3,
+          "huge": np.r_[rs.rand(100) * 10.0, 1e9],
+          "nan": np.r_[rs.rand(100), np.nan],
+          "empty": np.zeros(0)}[case]
+    dv = np.round(dv, 3)
+    np.testing.assert_array_equal(port_metrics._quantized_ranks(dv), sps.rankdata(dv))
+
+
 @pytest.mark.parametrize("L", [50, 4200])
 def test_clash_count_and_strips(L):
     x = jax_truth.confined_walk(L, seed=1) * 0.6
