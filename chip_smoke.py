@@ -106,6 +106,24 @@ Phases (each prints one line or a few, then its wall seconds as a
                path's matrix: three solves (B1 x2 and B2 x1 each), 30 models
                pooled into the Spearman ranking with their alpha REMARKs, the
                NOE model files from the base alpha, the gates on rank 01.
+  4e. input formats and cross-resolution tools — (a) phase 4's matrix (as
+               its text holds it) written as a HiC-Pro `.matrix` (upper-
+               triangle `i j v` rows, repr values) + `.bed`, `run -i x.matrix
+               --bed x.bed -m 10`: B1 x2, B2 x1, no other kernel or twin, the
+               `{ident}.txt` it writes loads back equal to the matrix, the
+               gates on rank 01; `run` of that `{ident}.txt` with `--profile
+               DIR`: the same launches, coordinates equal bit for bit, and a
+               trace in DIR that names B1's kernel; (b) the frozen .hic
+               fixtures of tests/assets (v8, v9; NONE, KR) through
+               io.hic.load_any, equal to their .npy files; (c) `coinit -m 10`
+               of the truth reduced by 2 (228 beads -> 512; its IF with noise
+               0.1) from (a)'s rank-01 PDB: the start equal to the host's
+               reduce_model + _fit_init_scale, B1 x2, B2 x1, the gates
+               against the reduced truth; (d) `similarity` over the two
+               outputs laid out as chrT_500kb/ and chrT_1mb/ (its report
+               parsed back), and `assess` of (a)'s rank-01 PDB against its
+               contact.tbl: the satisfied count, total and deviation sum of
+               the run's own assessment of that model.
   5. at-scale path — writes a ground-truth chromosome shaped like hg19 chr1
                at 50 kb (4,985 beads) as a float32 .npy, resets the counters,
                runs `run -i <.npy> -o <out> -m 10 --no-violation-reports` in
@@ -2161,6 +2179,178 @@ def phase_alpha_ensemble(X, M, card):
     return launches
 
 
+@contextlib.contextmanager
+def kept_results(module, name, results):
+    """Keep (args, kwargs, result) of each call of module.name in `results`,
+    adding no synchronisation to the run."""
+    real = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        out = real(*args, **kwargs)
+        results.append((args, kwargs, out))
+        return out
+
+    setattr(module, name, spy)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def write_triplet(directory, m, chrom="chrT"):
+    """A dense IF matrix as a HiC-Pro `.matrix` (upper-triangle `i j v` rows,
+    1-based bins, each value the repr of its float) and its `.bed`."""
+    ii, jj = np.nonzero(np.triu(m))
+    mat = os.path.join(directory, f"{chrom}_{m.shape[0]}.matrix")
+    bed = os.path.join(directory, f"{chrom}_{m.shape[0]}.bed")
+    with open(mat, "w") as f:
+        f.writelines(f"{i + 1} {j + 1} {float(m[i, j])!r}\n" for i, j in zip(ii, jj))
+    with open(bed, "w") as f:
+        f.writelines(f"{chrom}\t{b * 500_000}\t{(b + 1) * 500_000}\t{b + 1}\n"
+                     for b in range(m.shape[0]))
+    return mat, bed
+
+
+def cli_run(argv, where):
+    """Run the port's CLI in process; (its exit code checked) its last
+    printed line as JSON."""
+    from chromosome3d_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    check(rc == 0, f"{where}: cli {argv[0]} returned {rc}")
+    return buf.getvalue().strip().splitlines()
+
+
+def phase_formats(X, M, card):
+    """(a)-(d) of phase 4e: returns each path's kernel launches."""
+    from chromosome3d_tpu_torch import assess, pipeline, similarity
+    from chromosome3d_tpu_torch.config import AnnealConfig, PipelineConfig, RestraintConfig
+    from chromosome3d_tpu_torch.io import load_if_matrix, read_ca_pdb, reduce_model
+    from chromosome3d_tpu_torch.io import write_if_matrix
+    from chromosome3d_tpu_torch.io.hic import load_any
+    from chromosome3d_tpu_torch.restraints import build_restraints
+    from chromosome3d_tpu_torch.truth import if_from_structure
+
+    steps = AnnealConfig().total_steps
+    want = {"B1": 2, "B2": 1}
+    logging.getLogger("chromosome3d_tpu_torch.pipeline").setLevel(logging.WARNING)
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the triplet input, then its {ident}.txt under the profiler
+        text = os.path.join(tmp, "chrT_456_matrix.txt")
+        write_if_matrix(text, M)
+        m = load_if_matrix(text)               # the values phase 4 solves
+        mat, bed = write_triplet(tmp, m)
+        ident = os.path.splitext(os.path.basename(mat))[0]
+        out_t, out_x, prof = (os.path.join(tmp, d) for d in ("triplet", "text", "profile"))
+        solves, assessed = [], []
+        with kept_results(pipeline, "_solve", solves), \
+                kept_results(pipeline, "assess_ensemble", assessed):
+            reset_counters()
+            summary = json.loads(cli_run(["run", "-i", mat, "--bed", bed, "-o", out_t,
+                                          "-m", str(N_MODELS)], "run .matrix")[-1])
+            launches["run .matrix"], plain = read_counters()
+            check_launches("run .matrix", launches["run .matrix"], plain, want)
+            b1_steps = kernel_counters()[0]["B1"].steps
+            check(b1_steps == steps, f"run .matrix: B1 ran {b1_steps} steps, want {steps}")
+            materialised = os.path.join(out_t, f"{ident}.txt")
+            check(np.array_equal(load_if_matrix(materialised), m),
+                  f"{ident}.txt does not load back equal to the matrix")
+            rank01 = os.path.join(out_t, f"{ident}_rank01_a05.pdb")
+            met = check_gates(rank01, X)
+            reset_counters()
+            cli_run(["run", "-i", materialised, "-o", out_x, "-m", str(N_MODELS),
+                     "--profile", prof], "run --profile")
+            launches["run --profile"], plain = read_counters()
+            check_launches("run --profile", launches["run --profile"], plain, want)
+        a, b = solves[0][2], solves[1][2]
+        check(torch.equal(a.coords, b.coords) and torch.equal(a.history, b.history),
+              "the text run of {ident}.txt is not bit-equal to the triplet run")
+        trace = os.path.join(prof, "trace.json")
+        check(os.path.isfile(trace), f"--profile wrote no {trace}")
+        with open(trace) as f:
+            b1_events = f.read().count("fused_steps_kernel")
+        check(b1_events > 0, f"{trace} names no launch of B1 (fused_steps_kernel)")
+
+        # (b) the frozen .hic fixtures on the card's host
+        assets = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "assets")
+        for v in (8, 9):
+            for norm in ("NONE", "KR"):
+                got = load_any(os.path.join(assets, f"fixture_v{v}.hic"), chrom="chrF",
+                               resolution=100, norm=norm)
+                ref = np.load(os.path.join(assets, f"fixture_v{v}_{norm.lower()}.npy"))
+                check(np.array_equal(got, ref), f"fixture_v{v}.hic {norm} != its .npy")
+
+        # (c) coinit: the truth reduced by 2, started from (a)'s rank-01 model
+        Xr = reduce_model(X, 2)
+        lo = os.path.join(tmp, "chrT_1mb.txt")
+        write_if_matrix(lo, if_from_structure(Xr, alpha=0.5, noise_sigma=0.1, seed=SEED))
+        out_c, starts = os.path.join(tmp, "coinit"), []
+        with recorded_calls(similarity, "solve_ensemble_impl", starts):
+            reset_counters()
+            co = json.loads(cli_run(["coinit", "-i", lo, "-p", rank01, "-o", out_c,
+                                     "-m", str(N_MODELS)], "coinit")[-1])
+            launches["coinit"], plain = read_counters()
+        check_launches("coinit", launches["coinit"], plain, want)
+        restraints = build_restraints(load_if_matrix(lo), RestraintConfig())
+        x0 = reduce_model(read_ca_pdb(rank01), 2).astype(np.float32)
+        scale = similarity._fit_init_scale(x0, restraints)
+        x0 *= scale
+        got = starts[0][1]["x0"].cpu().numpy()
+        check(got.shape == (L_PAD, 3) and np.array_equal(got[:len(Xr)], x0)
+              and not got[len(Xr):].any(), "coinit: x0 is not the reduced, scaled model")
+        co_rank01 = os.path.join(out_c, "chrT_1mb_rank01_a05.pdb")
+        met_c = check_gates(co_rank01, Xr)
+
+        # (d) similarity over the two outputs, assess against contact.tbl
+        tree = os.path.join(tmp, "tree")
+        for sub, src in (("chrT_500kb", rank01), ("chrT_1mb", co_rank01)):
+            os.makedirs(os.path.join(tree, sub))
+            shutil.copy(src, os.path.join(tree, sub, f"{sub}_rank01_a05.pdb"))
+        lines = cli_run(["similarity", "-o", tree], "similarity")
+        report = similarity.read_similarity_report(os.path.join(tree, "similarity.txt"))
+        rho, rmsd = report.get("chrT_500kb_vs_1mb", (float("nan"),) * 2)
+        check(lines[0] == f"chrT_500kb_vs_1mb: spearman={rho:.4f} rmsd={rmsd:.3f}"
+              and np.isfinite([rho, rmsd]).all(), f"similarity: {lines} against {report}")
+        tbl = os.path.join(out_t, "contact.tbl")
+        row = cli_run(["assess", rank01, tbl], "assess")[1].split()
+        coords, dense = assessed[0][0][0], assessed[0][0][1]
+        stats = assessed[0][2]
+        pdb = read_ca_pdb(rank01)
+        k = int(np.argmin([np.abs(c - pdb).max() for c in coords]))
+        run_own = (f"{stats['satisfied'][k]}/{stats['total'][k]}",
+                   f"{stats['sum_dev'][k]:.2f}")
+        sat, total, dev = assess.assess_pdb_vs_tbl(coords[k], tbl, PipelineConfig())
+        check((f"{sat}/{total}", f"{dev:.2f}") == run_own,
+              f"assess_pdb_vs_tbl {sat}/{total} {dev:.2f} against the run's {run_own}")
+        on_pdb = assess.assess_ensemble(pdb[None], dense, PipelineConfig())
+        check(row[:2] == [f"{on_pdb['satisfied'][0]}/{on_pdb['total'][0]}",
+                          f"{on_pdb['sum_dev'][0]:.2f}"],
+              f"assess printed {row[:2]}, the run's restraints on the PDB give "
+              f"{on_pdb['satisfied'][0]}/{on_pdb['total'][0]} {on_pdb['sum_dev'][0]:.2f}")
+    print(f"[formats] run -i {ident}.matrix --bed -m {N_MODELS} (L={L_TRUE}->{L_PAD}): "
+          f"B1 {launches['run .matrix']['B1']} launches for {b1_steps} steps, B2 "
+          f"{launches['run .matrix']['B2']}, plain 0; its {ident}.txt equal to the matrix; "
+          f"rank01 rmsd/Rg {met['rmsd_over_rg']:.4f}, spearman_d {met['spearman_d']:.5f}, "
+          f"dRMSD_rel {met['drmsd_rel']:.4f}; best Spearman(IF,1/d) "
+          f"{summary['best_spearman_if_inv_d']:.4f}; the run of {ident}.txt --profile "
+          f"bit-equal, its trace naming fused_steps_kernel {b1_events} times")
+    print("[formats] .hic v8/v9 fixtures NONE and KR equal to their .npy files")
+    print(f"[formats] coinit -m {N_MODELS} (L={len(Xr)}->{L_PAD}) from the rank-01 model: "
+          f"x0 the reduced model x {scale}, B1 "
+          f"{launches['coinit']['B1']}, B2 {launches['coinit']['B2']}, plain 0; rank01 "
+          f"rmsd/Rg {met_c['rmsd_over_rg']:.4f}, spearman_d {met_c['spearman_d']:.5f}, "
+          f"dRMSD_rel {met_c['drmsd_rel']:.4f}; best_spearman_if_inv_d "
+          f"{co['best_spearman_if_inv_d']}, cross_res_spearman {co['cross_res_spearman']}, "
+          f"cross_res_rmsd {co['cross_res_rmsd']}")
+    print(f"[formats] similarity.txt chrT_500kb_vs_1mb: Spearman {rho}, RMSD {rmsd}; "
+          f"assess rank01 vs contact.tbl {' '.join(row[:2])} (the run's own numbers for "
+          f"model {k} {' '.join(run_own)}) on {card}")
+    return launches
+
+
 # past CHUNKED_TERMS_MIN_L: an 8,000-bead truth padded to 8192
 L_8K, L_8K_PAD = 8000, 8192
 # the streamed phase's padding: L_true = L_pad - 112, a ragged bead mask
@@ -2551,6 +2741,8 @@ def main() -> int:
         launches_buckets = {L: run["launches"] for L, run in buckets_100kb.items()}
         del buckets_100kb
         timed_phase("alpha ensemble", phase_alpha_ensemble, X, M, card)
+        launches_formats = timed_phase("input formats and cross-resolution tools",
+                                       phase_formats, X, M, card)
         launches_big = timed_phase("at-scale path", phase_at_scale_path, Xb, Mb, card)
         launches_solve = timed_phase("solve A", phase_solve_path, "A", inputs, "mds_init",
                                      card)
@@ -2608,6 +2800,8 @@ def main() -> int:
                         "library_ms": None})
         if key == "B1":   # ms, device_ms and bound_ms are per step of a launch
             kernels[-1]["steps"] = b1_steps
+        if key in ("B1", "B2"):   # the same shapes on the paths of phase 4e
+            kernels[-1]["launches_phase_4e"] = {p: n[key] for p, n in launches_formats.items()}
     # B3, B4 and B5 past L_pad = 8192, their launches those of the path at
     # that length
     for key, kname, src, replaces, path_launches, L_key in (

@@ -1,8 +1,9 @@
 """Model assessment, ranking and report artifacts — the port's twin of the
 subset of chromosome3d_tpu/assess.py that the pipelines' artifact emission
 uses (assess_ensemble, the NOE-energy and Spearman rankings, the
-contact_violation.txt writer, model_info.log, the coverage string, and for
-external `.tbl` files the row parser and the per-row violation report).
+contact_violation.txt writer, model_info.log, the coverage and violation
+coverage strings, and for external `.tbl` files the row parser, the per-row
+violation report and the `assess` subcommand's count against a tbl).
 
 Host-side numpy, copied from the JAX package so that the artifact bytes
 stay equal: the JAX module cannot be imported without jax (it names
@@ -501,3 +502,41 @@ def tbl_row_distances(coords: np.ndarray, rows) -> np.ndarray:
         diff = coords[si - 1] - coords[sj - 1]
         pd_[sidx] = np.sqrt((diff * diff).sum(-1))
     return pd_
+
+
+def assess_pdb_vs_tbl(
+    coords: np.ndarray, tbl_path: str | os.PathLike, cfg: PipelineConfig
+) -> Tuple[int, int, float]:
+    """count_satisfied_tbl_rows + sum_noe_dev semantics against an arbitrary
+    tbl file (incl. or-groups). Returns (satisfied, total, sum_dev)."""
+    coords = np.asarray(coords, dtype=np.float64)
+    rows = parse_tbl_rows(tbl_path)
+    pd_ = tbl_row_distances(coords, rows)
+    dt = np.asarray([r[2] for r in rows], np.float64)
+    lo = dt - np.asarray([r[3] for r in rows], np.float64)
+    hi = dt + np.asarray([r[4] for r in rows], np.float64)
+    satisfied = int((pd_ < hi + cfg.dist_relax).sum()) - int(
+        (pd_ < lo - cfg.dist_relax).sum()
+    )
+    over = pd_ > hi + cfg.sum_dev_margin
+    under = pd_ < lo - cfg.sum_dev_margin
+    sum_dev = float(((pd_ - hi) * over).sum() + ((lo - pd_) * under).sum())
+    return satisfied, len(rows), sum_dev
+
+
+def violation_coverage_string(
+    coords: np.ndarray, r: Restraints, cfg: PipelineConfig
+) -> str:
+    """Per-bead violation map (ref noe_tbl_violation_coverage :556-579):
+    'x' where the bead participates in a violated restraint, '-' otherwise."""
+    coords = np.asarray(coords, dtype=np.float64)
+    ii, jj = np.nonzero(np.triu(r.mask, k=1))
+    diff = coords[ii] - coords[jj]
+    d = np.sqrt((diff * diff).sum(-1))
+    lo = (r.target[ii, jj] - r.negdev[ii, jj]).astype(np.float64)
+    hi = (r.target[ii, jj] + r.posdev[ii, jj]).astype(np.float64)
+    viol = ~((lo - cfg.dist_relax <= d) & (d < hi + cfg.dist_relax))
+    flags = np.zeros(r.length, dtype=bool)
+    flags[ii[viol]] = True
+    flags[jj[viol]] = True
+    return "".join("x" if f else "-" for f in flags)

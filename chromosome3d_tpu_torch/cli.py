@@ -1,36 +1,47 @@
-"""Command-line interface of the port: the `run`, `solve`, `genome` and
-`spearman` subcommands of chromosome3d_tpu.cli with the flags the ported
-slices support.
+"""Command-line interface of the port: the subcommands of
+chromosome3d_tpu.cli, with the flags the ported slices support.
 
-  python -m chromosome3d_tpu_torch run -i <IF matrix (.txt or .npy)> -o <outdir> [-k K] [-a ALPHA]
+  python -m chromosome3d_tpu_torch run -i <IF matrix> -o <outdir> [-k K] [-a ALPHA]
       [-m MODELS] [--fast | --turbo] [--no-violation-reports] [--alpha-ensemble A,B,..]
-      [--no-shard-large] [--shard-quantum Q] [--device {cuda,cpu}]
+      [--no-shard-large] [--shard-quantum Q] [--device {cuda,cpu}] [--profile DIR]
+      [--chrom NAME] [--resolution BP] [--bed BED] [--ice] [--norm NORM]
   python -m chromosome3d_tpu_torch solve -r <restraints (.rr or .tbl)> -o <outdir> [-L L]
       [-m MODELS] [--fast | --turbo] [--device {cuda,cpu}]
   python -m chromosome3d_tpu_torch genome -i <dir of chr*_matrix.txt> -o <outdir>
       [--filter SUBSTRING] [--resume] [-m MODELS] [--fast | --turbo]
       [--alpha-ensemble A,B,..] [--device {cuda,cpu}]
+  python -m chromosome3d_tpu_torch coinit -i <low-res matrix> -p <high-res PDB> -o <outdir>
+      [--factor F] [-m MODELS] [--fast | --turbo] [--device {cuda,cpu}]
   python -m chromosome3d_tpu_torch spearman <matrix> <pdb-or-dir> [range]
+  python -m chromosome3d_tpu_torch assess <pdb-or-dir> <tbl> [--relax R]
+  python -m chromosome3d_tpu_torch render <pdb or run dir> [-o PNG]
+  python -m chromosome3d_tpu_torch similarity -o <genome output dir> [--factor F]
 
-`run`, `solve` and `genome` compute on the first CUDA device (the kernels
-build at first use) and fail when there is none; `--device cpu` runs them
-on the CPU, with the kernels' plain twins, and is the only way onto the
-CPU. `genome` solves every `chr*_<res>_matrix.txt` of a directory (those
-whose name holds `--filter`), one length bucket at a time (parallel.genome),
-past the largest length bucket too; `--resume` skips the chromosomes
-already in `<outdir>/checkpoint`. `--alpha-ensemble` (on `run` and
-`genome`) solves again for each extra alpha and pools the models into the
-Spearman ranking. Past the largest length bucket with more than one CUDA
-device visible they row-shard the solve over all of them by themselves
-where it would not fit one (pipeline._use_sharded, genome.bucket_devices;
-`--no-shard-large` turns that off, `--shard-quantum` sets the padding unit
-past the buckets). `solve` takes an external restraint set: CONFOLD-style
-`.rr` rows `i j lo hi conf` or a CNS NOE `.tbl`, `or`-group rows included. The
-JAX CLI's other subcommands, and its flags that are not ported yet
-(`--profile`, `--chrom`, `--resolution`, `--bed`, `--ice`, `--norm`, and
-`--alpha-ensemble` on `solve`, whose pipeline has no alpha loop in the JAX
-package either), are refused with NotImplementedError naming their ROADMAP
-item.
+`run`, `solve`, `genome` and `coinit` compute on the first CUDA device (the
+kernels build at first use) and fail when there is none; `--device cpu`
+runs them on the CPU, with the kernels' plain twins, and is the only way
+onto the CPU. `run` reads the dense text matrix, a float `.npy`, cooler
+`.cool`/`.mcool` (needs h5py), juicer `.hic` (`--chrom`, `--resolution`,
+`--norm`) and HiC-Pro `.matrix` (`--bed`, `--chrom`); `--ice` balances raw
+counts; `--profile DIR` writes a torch.profiler trace of the solve. `genome`
+solves every `chr*_<res>_matrix.txt` of a directory (those whose name holds
+`--filter`), one length bucket at a time (parallel.genome), past the
+largest length bucket too; `--resume` skips the chromosomes already in
+`<outdir>/checkpoint`. `--alpha-ensemble` (on `run` and `genome`) solves
+again for each extra alpha and pools the models into the Spearman ranking.
+Past the largest length bucket with more than one CUDA device visible they
+row-shard the solve over all of them by themselves where it would not fit
+one (pipeline._use_sharded, genome.bucket_devices; `--no-shard-large` turns
+that off, `--shard-quantum` sets the padding unit past the buckets).
+`solve` takes an external restraint set: CONFOLD-style `.rr` rows `i j lo
+hi conf` or a CNS NOE `.tbl`, `or`-group rows included. `coinit` solves a
+low-resolution matrix started from a reduced high-resolution model
+(similarity.solve_coinit); `similarity` writes the cross-resolution report
+of a genome output tree; `assess` scores PDBs against a CNS `.tbl`;
+`render` draws a model to PNG (needs matplotlib). The JAX CLI's `serve`,
+`submit` and `calibrate` are refused with NotImplementedError naming their
+ROADMAP item, and `--alpha-ensemble` on `solve` and `coinit`, whose
+pipelines have no alpha loop in the JAX package either, with that reason.
 """
 
 from __future__ import annotations
@@ -41,45 +52,9 @@ import os
 import sys
 
 # the JAX CLI's subcommands that are not ported yet, with their ROADMAP item
-_UNPORTED = {
-    "serve": "A11", "submit": "A11",
-    "assess": "A11", "render": "A11", "coinit": "A11", "similarity": "A11",
-    "calibrate": "A11",
-}
-# the JAX CLI's flags that are registered and refused when given, as
-# (flag, argparse keywords): `solve`'s, then `run`'s. Each defaults to None,
-# so that any value given, the JAX CLI's default too, is told from the
-# flag's absence.
-_UNPORTED_SOLVE = (
-    ("--alpha-ensemble", dict()),
-)
-_UNPORTED_RUN = (
-    ("--profile", dict(metavar="DIR")),
-    ("--chrom", dict()),
-    ("--resolution", dict(type=int)),
-    ("--bed", dict()),
-    ("--ice", dict(action="store_true")),
-    ("--norm", dict()),
-)
-_UNPORTED_ITEM = "A11"
-
-
-def _add_unported(p: argparse.ArgumentParser, flags) -> None:
-    for flag, kwargs in flags:
-        p.add_argument(flag, default=None,
-                       help=f"not ported (ROADMAP {_UNPORTED_ITEM})", **kwargs)
-
-
-def _refuse_unported_flags(args) -> None:
-    """Raise for a registered-but-unported flag of args.command that was
-    given."""
-    flags = {"run": _UNPORTED_RUN, "solve": _UNPORTED_SOLVE}.get(args.command, ())
-    for flag, _ in flags:
-        dest = flag.lstrip("-").replace("-", "_")
-        if getattr(args, dest, None) is not None:
-            raise NotImplementedError(
-                f"`{flag}` is not ported (ROADMAP {_UNPORTED_ITEM})"
-            )
+_UNPORTED = {"serve": "A11.3", "submit": "A11.3", "calibrate": "A11.6"}
+# the JAX CLI registers --alpha-ensemble on these too and ignores it there
+_NO_ALPHA_LOOP = ("solve", "coinit")
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -151,10 +126,23 @@ def main(argv=None) -> int:
 
     run = sub.add_parser("run", help="reconstruct one chromosome")
     run.add_argument("-i", "-if", "--input", required=True,
-                     help="IF matrix: dense text, or a float .npy (the "
-                          "at-scale format, loaded as a memmap)")
+                     help="IF matrix: dense text, a float .npy (the at-scale "
+                          "format, loaded as a memmap), .cool/.mcool, .hic, or "
+                          "HiC-Pro .matrix")
     run.add_argument("-o", "--output", required=True, help="output directory")
-    _add_unported(run, _UNPORTED_RUN)
+    run.add_argument("--profile", default=None, metavar="DIR",
+                     help="write a torch.profiler trace of the solve to DIR")
+    run.add_argument("--chrom", default=None,
+                     help="chromosome name (for .cool/.hic/.matrix inputs)")
+    run.add_argument("--resolution", type=int, default=None,
+                     help="bin size in bp (for .hic/.mcool inputs)")
+    run.add_argument("--bed", default=None,
+                     help="HiC-Pro .bed bin table (for .matrix inputs)")
+    run.add_argument("--ice", action="store_true",
+                     help="ICE-balance raw counts before restraint generation")
+    run.add_argument("--norm", default="NONE",
+                     help="apply a stored .hic normalization vector "
+                          "(KR, VC, VC_SQRT, SCALE, ...; default NONE = raw)")
     _add_common(run)
     _add_alpha_ensemble(run)
 
@@ -166,7 +154,6 @@ def main(argv=None) -> int:
     slv.add_argument("-L", "--length", type=int, default=None,
                      help="bead count (default: largest residue index)")
     _add_common(slv)
-    _add_unported(slv, _UNPORTED_SOLVE)
 
     gen = sub.add_parser("genome", help="whole-genome run, a launch a length bucket "
                                         "(replaces test.sh)")
@@ -185,6 +172,46 @@ def main(argv=None) -> int:
     sp.add_argument("pdb", help="PDB file or directory of PDBs")
     sp.add_argument("range", nargs="?", type=int, default=3,
                     help="|i-j| short-range cutoff (default 3)")
+
+    ass = sub.add_parser(
+        "assess",
+        help="assess model PDB(s) against a CNS NOE tbl "
+             "(count_satisfied / sum_dev, incl. or-group restraints)",
+    )
+    ass.add_argument("pdb", help="PDB file or directory of PDBs")
+    ass.add_argument("tbl", help="contact.tbl (CNS NOE restraints)")
+    ass.add_argument("--relax", type=float, default=0.5,
+                     help="satisfaction window (default 0.5 A)")
+
+    ren = sub.add_parser("render", help="render model PDB(s) to PNG (needs matplotlib)")
+    ren.add_argument("target", help="a PDB file or a run output directory")
+    ren.add_argument("-o", "--output", default=None, help="output PNG (file mode)")
+
+    coi = sub.add_parser(
+        "coinit",
+        help="solve a LOW-resolution matrix co-initialized from a reduced "
+             "HIGH-resolution model (cross-resolution consistency workflow)",
+    )
+    coi.add_argument("-i", "--input", required=True, help="low-res IF matrix")
+    coi.add_argument("-p", "--hires-pdb", required=True,
+                     help="high-resolution model PDB to seed from")
+    coi.add_argument("-o", "--output", required=True)
+    coi.add_argument("--factor", type=int, default=2,
+                     help="hi-res -> lo-res bead reduction factor (default 2)")
+    _add_common(coi)
+
+    sim = sub.add_parser(
+        "similarity",
+        help="cross-resolution similarity report + reduced models "
+             "(the output_models/similarity.txt protocol)",
+    )
+    sim.add_argument("-o", "--output-dir", required=True,
+                     help="a run_genome output tree with chr*_{1mb,500kb} subdirs")
+    sim.add_argument("--factor", type=int, default=2)
+
+    for p in (slv, coi):
+        p.add_argument("--alpha-ensemble", default=None,
+                       help="refused: this pipeline has no alpha loop")
     for name, item in _UNPORTED.items():
         sub.add_parser(name, help=f"not ported (ROADMAP {item})")
 
@@ -198,13 +225,20 @@ def main(argv=None) -> int:
     if args.command is None:
         parser.print_help()
         return 2
-    _refuse_unported_flags(args)
+    if args.command in _NO_ALPHA_LOOP and args.alpha_ensemble is not None:
+        raise NotImplementedError(
+            f"`--alpha-ensemble` is not supported by `{args.command}`: the restraint "
+            "pipeline has no alpha loop, in the JAX package either"
+        )
 
     if args.command == "run":
         from chromosome3d_tpu_torch.pipeline import run_pipeline
 
-        summary = run_pipeline(args.input, args.output, _make_config(args),
-                               device=args.device)
+        summary = run_pipeline(
+            args.input, args.output, _make_config(args), device=args.device,
+            profile_dir=args.profile, chrom=args.chrom, resolution=args.resolution,
+            bed_path=args.bed, ice=args.ice, norm=args.norm,
+        )
         print(json.dumps(summary))
         return 0
 
@@ -244,6 +278,82 @@ def main(argv=None) -> int:
         print("SRCC\tPDB")
         for path in sorted(scores, key=lambda p: -scores[p]):
             print(f"{scores[path]:.3f}\t{path}")
+        return 0
+
+    if args.command == "assess":
+        from chromosome3d_tpu_torch.assess import assess_pdb_vs_tbl
+        from chromosome3d_tpu_torch.config import PipelineConfig
+        from chromosome3d_tpu_torch.io import load_pdb_dir, read_ca_pdb
+
+        cfg = PipelineConfig(dist_relax=args.relax)
+        paths = [args.pdb] if os.path.isfile(args.pdb) else load_pdb_dir(args.pdb)
+        print(f"NOE_SATISFIED(+-{args.relax}A)  SUM_OF_DEVIATIONS>=0.2  PDB")
+        for path in paths:
+            sat, total, dev = assess_pdb_vs_tbl(read_ca_pdb(path), args.tbl, cfg)
+            print(f"{sat}/{total}             {dev:.2f}                {path}")
+        return 0
+
+    if args.command == "render":
+        from chromosome3d_tpu_torch.render import render_model, render_run
+
+        if os.path.isdir(args.target):
+            for png in render_run(args.target):
+                print(png)
+        else:
+            from chromosome3d_tpu_torch.io import read_ca_pdb
+
+            out = args.output or args.target.replace(".pdb", ".png")
+            print(render_model(read_ca_pdb(args.target), out))
+        return 0
+
+    if args.command == "coinit":
+        from chromosome3d_tpu_torch.io import load_if_matrix, read_ca_pdb, write_ca_pdb
+        from chromosome3d_tpu_torch.metrics import cross_resolution_similarity
+        from chromosome3d_tpu_torch.similarity import solve_coinit
+
+        cfg = _make_config(args)
+        lo_m = load_if_matrix(args.input)
+        hi = read_ca_pdb(args.hires_pdb)
+        coords, order, scores = solve_coinit(lo_m, hi, cfg, factor=args.factor,
+                                             device=args.device)
+        os.makedirs(args.output, exist_ok=True)
+        ident = os.path.basename(args.input)
+        ident = ident[:-4] if ident.endswith(".txt") else ident
+        atag = f"a{cfg.restraints.alpha}".replace(".", "")
+        for rank, idx in enumerate(order, start=1):
+            write_ca_pdb(
+                os.path.join(args.output, f"{ident}_rank{rank:02d}_{atag}.pdb"),
+                coords[idx],
+                remarks={"spearman_if_inv_d": float(scores[idx])},
+            )
+        best = coords[order[0]]
+        rho, rmsd = cross_resolution_similarity(hi, best, args.factor)
+        print(json.dumps({
+            "best_spearman_if_inv_d": float(scores[order[0]]),
+            "cross_res_spearman": rho,
+            "cross_res_rmsd": rmsd,
+            "models": int(len(coords)),
+        }))
+        return 0
+
+    if args.command == "similarity":
+        from chromosome3d_tpu_torch.similarity import (
+            pair_outputs_by_chromosome,
+            similarity_report,
+            write_reduced_model,
+        )
+
+        pairs = pair_outputs_by_chromosome(args.output_dir)
+        if not pairs:
+            print("no chromosome pairs with both resolutions found", file=sys.stderr)
+            return 1
+        for hi, _ in pairs.values():
+            write_reduced_model(hi, factor=args.factor)
+        out = f"{args.output_dir}/similarity.txt"
+        results = similarity_report(pairs, out, args.factor)
+        for name, (rho, rmsd) in results.items():
+            print(f"{name}: spearman={rho:.4f} rmsd={rmsd:.3f}")
+        print(f"wrote {out}")
         return 0
 
     return 2

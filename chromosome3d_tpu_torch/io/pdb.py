@@ -169,6 +169,47 @@ def read_ca_pdb(path: str | os.PathLike) -> np.ndarray:
     return np.asarray([(x, y, z) for _, x, y, z in entries], dtype=np.float64)
 
 
+def read_pdb_remarks(path: str | os.PathLike) -> Dict[str, float]:
+    """Parse `REMARK <term> = <value>` rows (ref: get_cns_energy :602-618)."""
+    remarks: Dict[str, float] = {}
+    with open(path, "r") as f:
+        for line in f:
+            if not line.startswith("REMARK"):
+                continue
+            body = line[len("REMARK"):].strip()
+            if "=" not in body:
+                continue
+            term, _, value = body.partition("=")
+            try:
+                remarks[term.strip()] = float(value.strip())
+            except ValueError:
+                continue
+    return remarks
+
+
+def write_reduced_pdb(path: str | os.PathLike, coords: np.ndarray) -> None:
+    """Write a reduced model in the published `*_reduced.pdb` layout
+    (output_models/chr12_500kb_rank02_a11_reduced.pdb): CRLF line endings, a
+    leading blank line, then `ATOM  %5d   CA MET B<resid>` rows with the
+    chain-B id glued to the residue number (left-justified in cols 21-29),
+    occupancy 0.20, b-factor 10.00, CONECT chain, END."""
+    coords = np.asarray(coords, dtype=np.float64)
+    if coords.ndim != 2 or coords.shape[1] != 3:
+        raise ValueError(f"coords must be (L, 3), got {coords.shape}")
+    L = coords.shape[0]
+    lines = [""]
+    for i, (x, y, z) in enumerate(coords, start=1):
+        lines.append(
+            f"ATOM  {i:5d}   CA MET {'B' + str(i):<9s}"
+            f"{x:8.3f}{y:8.3f}{z:8.3f}{0.20:6.2f}{10.00:6.2f}"
+        )
+    for i in range(1, L):
+        lines.append(f"CONECT{i:5d}{i + 1:5d}")
+    lines.append("END")
+    with open(path, "w", newline="") as f:
+        f.write("\r\n".join(lines) + "\r\n")
+
+
 def reduce_model(coords: np.ndarray, factor: int = 2) -> np.ndarray:
     """Downsample a model by averaging consecutive bead groups:
     out[i] = mean(coords[i*factor : (i+1)*factor]) — the `*_reduced.pdb`

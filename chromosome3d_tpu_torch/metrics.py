@@ -1,6 +1,9 @@
 """Model-quality metrics — the port's copy of chromosome3d_tpu/metrics.py's
 host functions: Spearman rank correlation of IF against model distances
-(spearman_IF_pdb.pl:15-76), Kabsch RMSD, and the clash count.
+(spearman_IF_pdb.pl:15-76), Kabsch RMSD, the clash count, and the
+cross-resolution similarity behind output_models/similarity.txt (Spearman
+and scale-optimal dRMSD between a reduced high-resolution model and a
+low-resolution one).
 
 All math here is host-side numpy/scipy: scoring is O(L^2 log L) scalar work
 on finished models. The strip helpers (ROW_CHUNK, d2_row_strip) are the
@@ -9,7 +12,33 @@ at-scale building block shared with assess.py.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
+
+def rank_average_ties(v: np.ndarray) -> np.ndarray:
+    """1-based ranks with ties assigned the average rank (the convention of
+    Statistics::RankCorrelation used by spearman_IF_pdb.pl:65-70)."""
+    v = np.asarray(v)
+    s = np.sort(v)
+    left = np.searchsorted(s, v, side="left")
+    right = np.searchsorted(s, v, side="right")
+    return (left + right + 1).astype(np.float64) / 2.0
+
+
+def pearson(a: np.ndarray, b: np.ndarray) -> float:
+    a = np.asarray(a, dtype=np.float64)
+    b = np.asarray(b, dtype=np.float64)
+    a = a - a.mean()
+    b = b - b.mean()
+    denom = np.sqrt((a * a).sum() * (b * b).sum())
+    return float((a * b).sum() / denom) if denom > 0 else 0.0
+
+
+def spearman(a: np.ndarray, b: np.ndarray) -> float:
+    """Spearman rank correlation with average-tie ranks."""
+    return pearson(rank_average_ties(a), rank_average_ties(b))
+
 
 # beyond this many qualifying ORDERED pairs the statistic is estimated on a
 # fixed-seed uniform pair subsample of this size (the reference's 663-bead
@@ -148,6 +177,43 @@ def kabsch_rmsd(
     if not allow_mirror:
         return r1
     return min(r1, one(a * np.array([-1.0, 1.0, 1.0])))
+
+
+def drmsd(a: np.ndarray, b: np.ndarray, fit_scale: bool = True) -> float:
+    """Distance-matrix RMSD: sqrt(mean((s*d_a - d_b)^2)) over unordered
+    pairs, with optional least-squares scale s. Superposition-free and
+    mirror-invariant (chirality cannot be distinguished from distances)."""
+    a, b = np.asarray(a), np.asarray(b)
+    n = min(len(a), len(b))
+    da = np.linalg.norm(a[:n, None] - a[None, :n], axis=-1)
+    db = np.linalg.norm(b[:n, None] - b[None, :n], axis=-1)
+    iu = np.triu_indices(n, k=1)
+    da, db = da[iu], db[iu]
+    s = (da * db).sum() / max((da * da).sum(), 1e-30) if fit_scale else 1.0
+    return float(np.sqrt(((s * da - db) ** 2).mean()))
+
+
+def cross_resolution_similarity(
+    hi_res: np.ndarray, lo_res: np.ndarray, factor: int = 2
+) -> Tuple[float, float]:
+    """The similarity.txt protocol (output_models/similarity.txt): reduce the
+    high-res model by bead-pair averaging (io.pdb.reduce_model), then report
+      * Spearman between the two models' pairwise-distance sets, and
+      * scale-optimal dRMSD.
+    Returns (spearman, rmsd)."""
+    from scipy import stats as sps
+
+    from chromosome3d_tpu_torch.io.pdb import reduce_model
+
+    red = reduce_model(np.asarray(hi_res), factor)
+    lo = np.asarray(lo_res)
+    n = min(len(red), len(lo))
+    red, lo = red[:n], lo[:n]
+    d1 = np.linalg.norm(red[:, None] - red[None, :], axis=-1)
+    d2 = np.linalg.norm(lo[:, None] - lo[None, :], axis=-1)
+    iu = np.triu_indices(n, k=1)
+    rho = float(sps.spearmanr(d1[iu], d2[iu]).statistic)
+    return rho, drmsd(red, lo, fit_scale=True)
 
 
 _CLASH_CHUNK_MIN_L = 4096

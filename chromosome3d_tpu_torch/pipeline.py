@@ -41,8 +41,11 @@ reference's failure protocol (chromosome3D.pl:261-284).
 
 The alpha ensemble (cfg.alpha_ensemble) solves again per extra alpha and
 pools the models into the Spearman ranking, as the JAX package's does.
-Not ported yet, and refused with NotImplementedError: .cool/.mcool/.hic/
-.matrix inputs and --ice (A11), and profiling.
+`run_pipeline` takes the JAX package's input formats: the dense text matrix,
+a float `.npy`, cooler `.cool`/`.mcool`, juicer `.hic` and HiC-Pro
+`.matrix` (+ `.bed`), the last three (or any input with `ice`) loaded by
+io.hic and materialised as `{ident}.txt`; `profile_dir` traces the solve
+with torch.profiler (utils.logging.profile_trace).
 """
 
 from __future__ import annotations
@@ -73,7 +76,13 @@ from chromosome3d_tpu_torch.assess import (
 from chromosome3d_tpu_torch.config import PipelineConfig
 from chromosome3d_tpu_torch import device as device_mod
 from chromosome3d_tpu_torch.device import resolve_device
-from chromosome3d_tpu_torch.io import load_if_matrix, write_ca_pdb, write_dist_matrix
+from chromosome3d_tpu_torch.io import (
+    load_if_matrix,
+    write_ca_pdb,
+    write_dist_matrix,
+    write_if_matrix,
+)
+from chromosome3d_tpu_torch.io.hic import ice_balance, load_any
 from chromosome3d_tpu_torch.metrics import clash_count
 from chromosome3d_tpu_torch.ops import device_prep, general_pair, tri_energy
 from chromosome3d_tpu_torch.ops.device_prep import _memory_bytes
@@ -98,7 +107,7 @@ from chromosome3d_tpu_torch.parallel.shards import ShardGroup
 from chromosome3d_tpu_torch.solver import anneal
 from chromosome3d_tpu_torch.solver.anneal import solve_ensemble_impl
 from chromosome3d_tpu_torch.solver.sharded import restraint_strips, solve_ensemble_sharded
-from chromosome3d_tpu_torch.utils.logging import banner, get_logger
+from chromosome3d_tpu_torch.utils.logging import banner, get_logger, profile_trace
 
 log = get_logger(__name__)
 
@@ -352,6 +361,12 @@ def run_pipeline(
     cfg: Optional[PipelineConfig] = None,
     device=None,
     wipe: bool = True,
+    profile_dir: Optional[str] = None,
+    chrom: Optional[str] = None,
+    resolution: Optional[int] = None,
+    bed_path: Optional[str] = None,
+    ice: bool = False,
+    norm: str = "NONE",
 ) -> Dict:
     """Run one chromosome end to end on `device` (device.resolve_device:
     None is the first CUDA device, and raises without one; "cpu" runs the
@@ -360,7 +375,16 @@ def run_pipeline(
     package's. With wipe (the default) the files already in dir_out are
     removed first (the reference's outdir wipe, chromosome3D.pl:56);
     wipe=False keeps them, as the JAX package's run_pipeline(wipe=False)
-    does for a caller that writes into dir_out beside the run."""
+    does for a caller that writes into dir_out beside the run.
+
+    Besides the reference's dense text format and a float `.npy`, file_if
+    may be a cooler .cool/.mcool, a juicer .hic or a HiC-Pro .matrix
+    (io.hic.load_any); chrom/resolution/bed_path/norm select the block for
+    those formats, and ice balances the loaded counts (io.hic.ice_balance).
+    The loaded matrix is materialised as `{ident}.txt`, so the artifact tree
+    matches a run of that text. A `.npy` takes none of these options
+    (ValueError). profile_dir: the solve runs under a torch.profiler trace
+    written there (utils.logging.profile_trace)."""
     cfg = cfg or PipelineConfig()
     dev = resolve_device(device)
     t_start = time.time()
@@ -374,26 +398,37 @@ def run_pipeline(
 
     if not os.path.isfile(file_if):
         raise FileNotFoundError(f"Input IF file {file_if} does not exist!")
-    base = os.path.basename(file_if)
-    ident, ext = os.path.splitext(base)
-    if ext in _ALT_FORMATS:
-        raise NotImplementedError(
-            f"{ext} input is not ported (ROADMAP A11); give a dense text "
-            "matrix or a .npy"
-        )
     os.makedirs(dir_out, exist_ok=True)
     if wipe:
         for name in os.listdir(dir_out):
             p = os.path.join(dir_out, name)
             if os.path.isfile(p):
                 os.remove(p)
-    if ext not in (".txt", ".npy"):
+    base = os.path.basename(file_if)
+    ident, ext = os.path.splitext(base)
+    if ext not in (".txt", ".npy") + _ALT_FORMATS:
         ident = base  # unknown extension: keep the full name as the id
     local_if = os.path.join(dir_out, f"{ident}.txt")
     if ext == ".npy":
+        if ice or chrom or resolution or bed_path or norm != "NONE":
+            # the selectors belong to the .cool/.hic/.matrix loaders, and
+            # ignoring them would solve the raw matrix
+            raise ValueError(
+                ".npy input does not support --ice/--chrom/--resolution/"
+                "--bed/--norm: pre-process the matrix and save the final "
+                "values (np.save) instead"
+            )
         # the at-scale binary input loads as a read-only memmap: no text
         # copy (a matrix this format exists for is gigabytes)
         local_if = os.fspath(file_if)
+    elif ext in _ALT_FORMATS or ice:
+        loaded = load_any(file_if, chrom=chrom, resolution=resolution,
+                          bed_path=bed_path, norm=norm)
+        if ice:
+            # ICE balancing of raw counts; {ident}.txt holds the values the
+            # run used
+            loaded = ice_balance(loaded)
+        write_if_matrix(local_if, loaded)
     elif os.path.abspath(file_if) != os.path.abspath(local_if):
         shutil.copy(file_if, local_if)
 
@@ -465,23 +500,24 @@ def run_pipeline(
         f.write("solving\n")
     try:
         _solve_banner(cfg, L, L_pad, dev, group)
-        if device_route:
-            solve_r = device_prep.exact_tiles_from_if_device(
-                if_dev, L_pad, rc, rc.weighting, _weight_exponent(rc, L),
-                n_true=L, device=dev, group=group,
-            )
-            _synchronize(group.devices if group else [dev])
-            _mark("device_prep_s")
-        else:
-            solve_r = _padded_dense(
-                restraints, rc, L_pad, _exact_provable(cfg), dev
-            )
-            if group is not None:
-                solve_r = restraint_strips(group, solve_r)
-        gen = torch.Generator().manual_seed(cfg.seed)
-        result = _solve(group, solve_r, cfg, bead_mask, dev, gen=gen)
-        del solve_r    # the tiles go before the assessment view is built
-        coords = result.coords.cpu().numpy()[:, :L, :]   # synchronises
+        with profile_trace(profile_dir):
+            if device_route:
+                solve_r = device_prep.exact_tiles_from_if_device(
+                    if_dev, L_pad, rc, rc.weighting, _weight_exponent(rc, L),
+                    n_true=L, device=dev, group=group,
+                )
+                _synchronize(group.devices if group else [dev])
+                _mark("device_prep_s")
+            else:
+                solve_r = _padded_dense(
+                    restraints, rc, L_pad, _exact_provable(cfg), dev
+                )
+                if group is not None:
+                    solve_r = restraint_strips(group, solve_r)
+            gen = torch.Generator().manual_seed(cfg.seed)
+            result = _solve(group, solve_r, cfg, bead_mask, dev, gen=gen)
+            del solve_r    # the tiles go before the assessment view is built
+            coords = result.coords.cpu().numpy()[:, :L, :]   # synchronises
         energies = {k: v.cpu().numpy() for k, v in result.energies.items()}
         _mark("solve_s")
         np.savez_compressed(

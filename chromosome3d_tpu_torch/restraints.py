@@ -402,3 +402,18 @@ def read_contact_tbl_full(
         og = OrGroups(idx_i=idx_i, idx_j=idx_j, member=member,
                       lo=lo, hi=hi, weight=np.ones((R,), np.float32))
     return Restraints(target=target, negdev=negdev, posdev=posdev, mask=mask), og
+
+
+def read_contact_tbl(path: str | os.PathLike, L: int) -> Restraints:
+    """Parse a CNS NOE tbl back into dense tensors (ref layout at :360;
+    also accepts the standard `assign` token), for assessing an external
+    tbl file. Rejects `or`-group rows: a caller that accepts ambiguous
+    restraints uses read_contact_tbl_full."""
+    r, og = read_contact_tbl_full(path, L)
+    if og is not None:
+        raise ValueError(
+            f"{path} contains {og.count} or-group restraint rows; "
+            "use read_contact_tbl_full (the solver wells their group-min "
+            "distance via ops.energy.OrGroupRestraints)"
+        )
+    return r

@@ -282,6 +282,20 @@ def _fused_route(cfg: AnnealConfig, L: int, or_groups) -> bool:
             and not tri_energy.use_triangular(L))
 
 
+def stack_refusal(cfg: AnnealConfig, C: int, L: int) -> Optional[str]:
+    """Why solve_bucket_impl cannot solve C chromosomes at padded length L
+    together, or None where it can. It stacks them on kernel B1's route
+    (one after another elsewhere), and only kernels B1 and B2 have the
+    chromosome axis there: from L = 1024 the enantiomer pick is kernel
+    B3's, which has none yet."""
+    if C > 1 and _fused_route(cfg, L, None) and tri_energy.use_triangular(
+            L, for_unfused=True):
+        return (f"a stack of {C} chromosomes with exact restraints at L={L} takes its "
+                "enantiomer pick on kernel B3, which has no chromosome axis yet "
+                "(ROADMAP A12)")
+    return None
+
+
 def _solve_stack(rs, stacked, cfg: AnnealConfig, n_models: int, bead_masks: torch.Tensor,
                  xs: torch.Tensor, noise_seeds, or_groups=None) -> AnnealResult:
     """The phases of the solve (hot -> pick -> cool -> final terms ->
@@ -297,10 +311,13 @@ def _solve_stack(rs, stacked, cfg: AnnealConfig, n_models: int, bead_masks: torc
     dev = xs.device
     exact = cfg.exact_restraints and cfg.noe_rswitch >= 1e8
     fused = _fused_route(cfg, L, or_groups)
-    if C > 1 and (not fused or tri_energy.use_triangular(L, for_unfused=True)):
+    if C > 1 and not fused:
         raise NotImplementedError(
-            "a stack of chromosomes runs on kernels B1 and B2 only (exact restraints, "
-            f"fused step, L < 1024), not at L={L}")
+            "a stack of chromosomes runs on kernel B1's route only (exact restraints, "
+            f"no or-groups, the fused step), not at L={L} (ROADMAP A12)")
+    why = stack_refusal(cfg, C, L)
+    if why:
+        raise NotImplementedError(why)
 
     table = schedule_table(cfg, noise_seeds[0])
     base = table.base

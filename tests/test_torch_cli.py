@@ -1,9 +1,11 @@
 """The port's CLI flags: the shard switches it shares with the JAX CLI,
 `--device` (the card by default, the CPU only when asked for),
-`--alpha-ensemble` on `run`, and the JAX CLI's flags that are registered
-but not ported — each refused with a NotImplementedError naming its ROADMAP
-item, never by argparse; and the `genome` subcommand with its `--filter`
-and `--resume`."""
+`--alpha-ensemble` on `run` (refused on `solve` with its reason, never by
+argparse), `run`'s input and profiling flags, which reach run_pipeline as
+the JAX CLI's do; the `genome` subcommand with its `--filter` and
+`--resume`; `assess`, `render`, `coinit` and `similarity` reaching their
+functions; and the JAX CLI's subcommands still unported, each refused with
+a NotImplementedError naming its ROADMAP item."""
 
 import json
 import os
@@ -81,18 +83,118 @@ def test_cli_device_reaches_the_pipeline(monkeypatch, capsys, base, flags, devic
     (RUN + ["--alpha-ensemble", ""], "--alpha-ensemble"),
 ])
 def test_cli_refuses_unported_flags_by_name(argv, flag, monkeypatch, capsys):
-    """Each unported flag is refused by name. `--alpha-ensemble` is ported
-    on `run` (refused on `solve`, whose JAX pipeline has no alpha loop): its
-    `run` cases check that the values reach the config, as the JAX CLI's
-    do, an empty value giving none."""
-    if flag == "--alpha-ensemble" and argv[0] == "run":
+    """`--alpha-ensemble` on `solve` is refused by name, with its reason:
+    the restraint pipeline has no alpha loop, in the JAX package either.
+    Every other case is a flag the port now runs: `--alpha-ensemble` on
+    `run` reaches the config, an empty value giving none; `--profile`,
+    `--chrom`, `--resolution`, `--bed`, `--ice` and `--norm` reach
+    run_pipeline with the value the JAX CLI hands its run_pipeline."""
+    if argv[0] == "solve":
+        with pytest.raises(NotImplementedError,
+                           match=rf"`{flag}` is not supported by `solve`: the restraint "
+                                 "pipeline has no alpha loop, in the JAX package either"):
+            cli.main(argv)
+        return
+    if flag == "--alpha-ensemble":
         want = tuple(float(a) for a in argv[-1].split(",") if a.strip())
         assert _parse(argv, monkeypatch).alpha_ensemble == want
         assert _parse(argv, monkeypatch, jax_cli).alpha_ensemble == want
         capsys.readouterr()
         return
-    with pytest.raises(NotImplementedError, match=rf"`{flag}` is not ported \(ROADMAP A11\)"):
-        cli.main(argv)
+    key = {"--profile": "profile_dir", "--bed": "bed_path"}.get(flag, flag[2:])
+    want = {"--ice": True, "--resolution": 50000}.get(flag, argv[-1])
+    _, kwargs = _call(argv, monkeypatch)
+    _, ref = _call(argv, monkeypatch, jax_cli)
+    assert kwargs[key] == ref[key] == want
+    capsys.readouterr()
+
+
+def test_cli_run_input_flags_default_as_jax(monkeypatch, capsys):
+    """Without the flags, run_pipeline gets the JAX CLI's defaults: no
+    profile, chrom, resolution or bed, no ICE, and norm "NONE"."""
+    _, kwargs = _call(RUN, monkeypatch)
+    _, ref = _call(RUN, monkeypatch, jax_cli)
+    keys = ("profile_dir", "chrom", "resolution", "bed_path", "ice", "norm")
+    assert {k: kwargs[k] for k in keys} == {k: ref[k] for k in keys} == dict(
+        profile_dir=None, chrom=None, resolution=None, bed_path=None, ice=False, norm="NONE")
+    capsys.readouterr()
+
+
+@pytest.mark.parametrize("command,item", [("serve", "A11.3"), ("submit", "A11.3"),
+                                          ("calibrate", "A11.6")])
+def test_cli_refuses_unported_subcommands_by_name(command, item):
+    with pytest.raises(NotImplementedError,
+                       match=rf"`{command}` is not ported \(ROADMAP {item}\)"):
+        cli.main([command, "--socket", "s"])
+
+
+def test_cli_coinit_refuses_alpha_ensemble():
+    with pytest.raises(NotImplementedError, match="not supported by `coinit`: .*no alpha loop"):
+        cli.main(["coinit", "-i", "m.txt", "-p", "h.pdb", "-o", "out",
+                  "--alpha-ensemble", "0.7"])
+
+
+@pytest.mark.parametrize("command", ["assess", "render", "coinit", "similarity"])
+def test_cli_subcommands_reach_their_functions(command, monkeypatch, capsys, tmp_path):
+    """`assess`, `render`, `coinit` and `similarity` hand their arguments to
+    the port's function (replaced here by a spy) and print its result as the
+    JAX CLI does."""
+    import numpy as np
+
+    from chromosome3d_tpu_torch import assess, render, similarity
+    from chromosome3d_tpu_torch.io import write_ca_pdb, write_if_matrix
+
+    pdb = str(tmp_path / "m.pdb")
+    x = np.arange(30, dtype=np.float64).reshape(10, 3)
+    write_ca_pdb(pdb, x)
+    seen = {}
+
+    def spy(name, result):
+        def fn(*args, **kwargs):
+            seen[name] = (args, kwargs)
+            return result
+        return fn
+
+    if command == "assess":
+        monkeypatch.setattr(assess, "assess_pdb_vs_tbl", spy("assess", (3, 4, 1.5)))
+        assert cli.main(["assess", pdb, "c.tbl", "--relax", "0.25"]) == 0
+        args, _ = seen["assess"]
+        np.testing.assert_allclose(args[0], x, atol=6e-4)
+        assert args[1] == "c.tbl" and args[2].dist_relax == 0.25
+        assert capsys.readouterr().out.splitlines()[1].split() == ["3/4", "1.50", pdb]
+    elif command == "render":
+        monkeypatch.setattr(render, "render_model", spy("model", "m.png"))
+        monkeypatch.setattr(render, "render_run", spy("run", ["image.png"]))
+        assert cli.main(["render", pdb, "-o", "out.png"]) == 0
+        assert cli.main(["render", str(tmp_path)]) == 0
+        assert seen["model"][0][1] == "out.png" and seen["run"][0] == (str(tmp_path),)
+        assert capsys.readouterr().out.split() == ["m.png", "image.png"]
+    elif command == "coinit":
+        write_if_matrix(tmp_path / "lo.txt", np.ones((5, 5)))
+        coords = np.stack([x[:5], x[:5] * 2.0])
+        monkeypatch.setattr(similarity, "solve_coinit",
+                            spy("coinit", (coords, np.array([1, 0]), np.array([0.25, 0.5]))))
+        out = str(tmp_path / "out")
+        assert cli.main(["coinit", "-i", str(tmp_path / "lo.txt"), "-p", pdb, "-o", out,
+                         "--factor", "2", "-m", "2", "--device", "cpu"]) == 0
+        args, kwargs = seen["coinit"]
+        assert args[0].shape == (5, 5) and args[2].model_count == 2
+        assert kwargs == {"factor": 2, "device": "cpu"}
+        printed = json.loads(capsys.readouterr().out.splitlines()[-1])
+        assert printed["best_spearman_if_inv_d"] == 0.5 and printed["models"] == 2
+        assert sorted(os.listdir(out)) == ["lo_rank01_a05.pdb", "lo_rank02_a05.pdb"]
+    else:
+        pairs = {"chr1_500kb_vs_1mb": (pdb, pdb)}
+        monkeypatch.setattr(similarity, "pair_outputs_by_chromosome", spy("pairs", pairs))
+        monkeypatch.setattr(similarity, "write_reduced_model", spy("reduced", "r.pdb"))
+        monkeypatch.setattr(similarity, "similarity_report",
+                            spy("report", {"chr1_500kb_vs_1mb": (0.5, 1.25)}))
+        assert cli.main(["similarity", "-o", str(tmp_path), "--factor", "3"]) == 0
+        assert seen["pairs"][0] == (str(tmp_path),)
+        assert seen["reduced"] == ((pdb,), {"factor": 3})
+        assert seen["report"][0] == (pairs, f"{tmp_path}/similarity.txt", 3)
+        assert capsys.readouterr().out.splitlines() == [
+            "chr1_500kb_vs_1mb: spearman=0.5000 rmsd=1.250", f"wrote {tmp_path}/similarity.txt"]
 
 
 @pytest.mark.parametrize("argv", [RUN + ["--no-such-flag"], SOLVE + ["--ice"],

@@ -457,6 +457,39 @@ def test_run_genome_refuses_before_solving(genome_dir, tmp_path):
         port_genome.run_genome(d, out, port_cfg.replace(shard_large=False), device="cpu")
 
 
+def test_run_genome_refuses_an_unstackable_bucket_before_solving(tmp_path):
+    """length_buckets (512, 1024) with two chromosomes in the 1024 bucket
+    and exact restraints: kernel B1 would run their steps, but their
+    enantiomer pick at L = 1024 is kernel B3's, which has no chromosome axis
+    (ROADMAP A12). The run refuses before any bucket is solved: no
+    chromosome directory, no checkpoint, no kernel twin called, the 512
+    bucket included."""
+    port_cfg = _cfgs()[0].replace(length_buckets=(512, 1024))
+    d = _write_genome(tmp_path / "g", CHROMS[1:2] + (("chr8_1mb", 600), ("chr9_1mb", 700)))
+    out = str(tmp_path / "out")
+    before = (fused_step_plain.calls, exact_pair_energy_grad_plain.calls)
+    with pytest.raises(NotImplementedError,
+                       match=r"chr8_1mb, chr9_1mb: bucket L=1024: .*kernel B3.*ROADMAP A12\)"):
+        port_genome.run_genome(d, out, port_cfg, device="cpu")
+    assert (fused_step_plain.calls, exact_pair_energy_grad_plain.calls) == before
+    assert os.listdir(os.path.join(out, "checkpoint")) == []
+    assert sorted(os.listdir(out)) == ["checkpoint"]
+
+
+@pytest.mark.parametrize("C,L,noe_rswitch,refused", [
+    (2, 1024, 1e9, True), (2, 2048, 1e9, True), (1, 1024, 1e9, False),
+    (2, 512, 1e9, False), (2, 1024, 5.0, False), (3, 768, 1e9, False)])
+def test_stack_refusal_names_a12(C, L, noe_rswitch, refused):
+    """anneal.stack_refusal: C > 1 chromosomes on kernel B1's route whose
+    pick is kernel B3's (L >= 1024); restraints that are not exact solve one
+    chromosome after another, and are not refused."""
+    cfg = dataclasses.replace(AnnealConfig(), exact_restraints=True, noe_rswitch=noe_rswitch)
+    why = port_anneal.stack_refusal(cfg, C, L)
+    assert (why is not None) == refused
+    if refused:
+        assert f"{C} chromosomes" in why and "ROADMAP A12" in why
+
+
 def test_run_genome_needs_a_card_unless_asked_for_the_cpu(genome_dir, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     out = str(tmp_path / "out")

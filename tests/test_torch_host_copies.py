@@ -1,17 +1,26 @@
 """The port's own copies of the JAX package's host layer (config, io,
-metrics, restraints, truth, logging) against the originals, on the CPU, and
-the rule that the port imports neither jax nor the JAX package.
+metrics, restraints, truth, logging, and the host functions of assess,
+render and similarity) against the originals, on the CPU, and the rule that
+the port imports neither jax nor the JAX package, nor h5py or matplotlib
+when a module is imported.
 
 Text artifacts (`.dist`, `.rr`, `contact.tbl`, PDBs, the IF matrix text)
 must be byte-equal, arrays equal, and the config classes equal field for
 field and default for default. The JAX package may write some artifacts
 through its optional C++ library; its bytes are the reference either way.
+The functions copied whole (the Hi-C loaders, the renderer, the similarity
+host functions, the cross-resolution metrics, the tbl assessment) must also
+equal the originals statement for statement: their syntax trees, without
+docstrings and import statements, are the JAX package's.
 """
 
 import ast
 import dataclasses
+import importlib
+import inspect
 import logging
 import os
+import textwrap
 
 import numpy as np
 import pytest
@@ -287,6 +296,75 @@ def test_logging_matches_jax(capsys):
         assert out.count("hello") == 2
 
 
+# ---- the functions copied whole ------------------------------------------
+
+COPIED = {
+    "io.hic": ["load_sparse_triplet", "load_cooler", "_Reader", "_add_records",
+               "_parse_block_v8", "_parse_block_v9", "_read_norm_vector", "load_hic",
+               "ice_balance", "load_any"],
+    "render": ["render_model", "render_run"],
+    "similarity": ["write_reduced_model", "similarity_report", "read_similarity_report",
+                   "_fit_init_scale", "pair_outputs_by_chromosome"],
+    "metrics": ["rank_average_ties", "pearson", "spearman", "drmsd",
+                "cross_resolution_similarity"],
+    "io.pdb": ["read_pdb_remarks", "write_reduced_pdb"],
+    "assess": ["assess_pdb_vs_tbl", "violation_coverage_string"],
+    "restraints": ["read_contact_tbl"],
+}
+
+
+def _body_tree(obj) -> str:
+    """The syntax tree of a function or class, its docstrings, import
+    statements and type annotations taken out."""
+    tree = ast.parse(textwrap.dedent(inspect.getsource(obj)))
+
+    class Strip(ast.NodeTransformer):
+        def _body(self, node):
+            self.generic_visit(node)
+            body = [n for n in node.body if not isinstance(n, (ast.Import, ast.ImportFrom))]
+            if (body and isinstance(body[0], ast.Expr)
+                    and isinstance(getattr(body[0], "value", None), ast.Constant)
+                    and isinstance(body[0].value.value, str)):
+                body = body[1:]
+            node.body = body or [ast.Pass()]
+            return node
+
+        visit_ClassDef = _body
+
+        def visit_FunctionDef(self, node):
+            node.returns = None
+            for a in node.args.args + node.args.kwonlyargs:
+                a.annotation = None
+            return self._body(node)
+
+    return ast.dump(Strip().visit(tree))
+
+
+@pytest.mark.parametrize("module,name", [(m, n) for m, names in COPIED.items()
+                                         for n in names])
+def test_copied_functions_equal_the_originals(module, name):
+    port = getattr(importlib.import_module(f"chromosome3d_tpu_torch.{module}"), name)
+    ref = getattr(importlib.import_module(f"chromosome3d_tpu.{module}"), name)
+    assert _body_tree(port) == _body_tree(ref)
+
+
+def test_hic_loaders_and_ice_match_jax_on_the_fixtures():
+    """The loaders and the balance as arrays, bit for bit, on the frozen
+    fixtures of tests/assets."""
+    import chromosome3d_tpu.io.hic as jax_hic
+    from chromosome3d_tpu_torch.io import hic as port_hic
+
+    assets = os.path.join(REPO, "tests", "assets")
+    for v in (8, 9):
+        for norm in ("NONE", "KR"):
+            path = os.path.join(assets, f"fixture_v{v}.hic")
+            got = port_hic.load_any(path, chrom="chrF", resolution=100, norm=norm)
+            ref = jax_hic.load_any(path, chrom="chrF", resolution=100, norm=norm)
+            np.testing.assert_array_equal(got, ref)
+            np.testing.assert_array_equal(port_hic.ice_balance(got + 1.0),
+                                          jax_hic.ice_balance(ref + 1.0))
+
+
 # ---- the import rule ------------------------------------------------------
 
 
@@ -309,7 +387,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     submodules), at any depth of the code."""
     bad = []
     walked = {os.path.relpath(p, REPO) for p in _port_sources()}
-    for module in ("utils/checkpoint.py", "parallel/genome.py", "solver/anneal.py"):
+    assert "chip_smoke.py" in walked
+    for module in ("utils/checkpoint.py", "parallel/genome.py", "solver/anneal.py",
+                   "io/hic.py", "render.py", "similarity.py", "assess.py", "metrics.py",
+                   "utils/logging.py"):
         assert os.path.join("chromosome3d_tpu_torch", module) in walked
     for path in _port_sources():
         tree = ast.parse(open(path).read(), path)
@@ -322,4 +403,29 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             for n in names:
                 if n.split(".")[0] in ("jax", "jaxlib", "chromosome3d_tpu"):
                     bad.append(f"{os.path.relpath(path, REPO)}:{node.lineno} {n}")
+    assert not bad, bad
+
+
+def test_port_imports_no_optional_package_at_import_time():
+    """h5py (.cool input) and matplotlib (render) are imported only inside
+    the functions that need them: the card's machine may lack both, and
+    every module of the port, and chip_smoke.py, must import without them.
+    An AST walk over the statements outside any function."""
+    bad = []
+
+    def walk(node, path):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+                continue
+            names = []
+            if isinstance(child, ast.Import):
+                names = [a.name for a in child.names]
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                names = [child.module or ""]
+            bad.extend(f"{os.path.relpath(path, REPO)}:{child.lineno} {n}" for n in names
+                       if n.split(".")[0] in ("h5py", "matplotlib", "mpl_toolkits"))
+            walk(child, path)
+
+    for path in _port_sources():
+        walk(ast.parse(open(path).read(), path), path)
     assert not bad, bad

@@ -119,11 +119,22 @@ def test_cli_run_without_jax(tmp_path, tiny_matrix):
 
 
 def test_run_pipeline_refuses_unported_inputs(tmp_path, tiny_matrix, monkeypatch):
+    from chromosome3d_tpu.pipeline import run_pipeline as jax_run_pipeline
+
+    # a .cool input is ported (io.hic): one that is not a cooler file dies in
+    # its loader, with the JAX package's exception (h5py's OSError, or the
+    # ImportError where h5py is missing), before any artifact is written
     cool = str(tmp_path / "m.cool")
     with open(cool, "wb") as f:
         f.write(b"not read")
-    with pytest.raises(NotImplementedError):
-        port_pipeline.run_pipeline(cool, str(tmp_path / "a"), device="cpu")
+    raised = []
+    for name, run in (("a", lambda o: port_pipeline.run_pipeline(cool, o, device="cpu")),
+                      ("a_jax", lambda o: jax_run_pipeline(cool, o))):
+        with pytest.raises((OSError, ImportError)) as err:
+            run(str(tmp_path / name))
+        raised.append(type(err.value))
+        assert os.listdir(tmp_path / name) == []
+    assert raised[0] is raised[1]
     txt = str(tmp_path / "m.txt")
     write_if_matrix(txt, tiny_matrix)
 
@@ -151,7 +162,15 @@ def test_run_pipeline_refuses_unported_inputs(tmp_path, tiny_matrix, monkeypatch
 
 
 @pytest.mark.parametrize("command,item", [("coinit", "A11"), ("serve", "A11")])
-def test_cli_refuses_unported_subcommands(command, item):
+def test_cli_refuses_unported_subcommands(command, item, capsys):
+    """`serve` is refused naming its ROADMAP item (A11.3); `coinit` is ported
+    (A11.2): it parses its own arguments, and without its required
+    `-p/--hires-pdb` dies in argparse, not with NotImplementedError."""
+    if command == "coinit":
+        with pytest.raises(SystemExit):
+            port_cli.main([command, "-i", "in", "-o", "out"])
+        assert "--hires-pdb" in capsys.readouterr().err
+        return
     with pytest.raises(NotImplementedError, match=item):
         port_cli.main([command, "-i", "in", "-o", "out"])
 
