@@ -101,7 +101,12 @@ Phases (each prints one line or a few, then its wall seconds as a
                B4 with the chromosome axis at each of those four buckets'
                shapes, on the tiles the run built and ensembles near its
                truths, as in phase 3 (twins, lone launches, padded beads,
-               times and bounds at B = 20 and 10).
+               times and bounds at B = 20 and 10). The native library
+               (chromosome3d_tpu_torch.native, built by g++ at first use)
+               must be available: the run parses each chromosome's text once
+               through native.parse_matrix (a counting spy), its load_s is
+               printed, and the largest chromosome's native parse equals the
+               loader's Python branch bit for bit (both timed).
   4d. alpha ensemble — `run -m 10 --alpha-ensemble 0.5,0.7,1.1` on the main
                path's matrix: three solves (B1 x2 and B2 x1 each), 30 models
                pooled into the Spearman ranking with their alpha REMARKs, the
@@ -124,6 +129,26 @@ Phases (each prints one line or a few, then its wall seconds as a
                parsed back), and `assess` of (a)'s rank-01 PDB against its
                contact.tbl: the satisfied count, total and deviation sum of
                the run's own assessment of that model.
+  4f. serve and submit — run after phase 8, whose shape A output it reads:
+               serve.serve on a thread of this process (the default config,
+               the card), so the counters see its launches: a first ping (no
+               warm bucket, busy 0); phase 4's matrix (456 -> 512, -m 10):
+               B1 x2, B2 x1, no other kernel or twin, every file it writes
+               byte-equal to phase 4's `run` output (written to the same
+               path) and its summary equal; confined_walk(400, seed=8) -> 512
+               on the one warm bucket, the gates; confined_walk(1000,
+               seed=7) -> 1024 past the buckets: the launches of `run` on the
+               same matrix in this phase, the prep on the card (the solve's
+               and the view's), build_restraints never, coordinates equal bit
+               for bit, the gates; solve shape A's `.rr` (-> 512): B5 x2761,
+               B4 x2760, the model PDBs byte-equal to phase 6's, its L_solved
+               in the warm set; refusals (a bound, a missing file, bad JSON,
+               a non-object, a full queue) answered ok: false; a ping during
+               a solve at once with busy >= 1; shutdown ends the thread and
+               removes the socket. Then `python -m chromosome3d_tpu_torch
+               serve` in a subprocess and `submit` from others: --ping, `-i`
+               twice (each output byte-equal to the in-thread server's; the
+               first and the warm wall printed), --shutdown and exit 0.
   5. at-scale path — writes a ground-truth chromosome shaped like hg19 chr1
                at 50 kb (4,985 beads) as a float32 .npy, resets the counters,
                runs `run -i <.npy> -o <out> -m 10 --no-violation-reports` in
@@ -186,7 +211,8 @@ at L_pad = 8192 and B3 and B4 at the streamed length, with the launches of
 phases 13, 14 and 16; B6 and B4 with the chromosome axis at each bucket
 of the 100 kb genome past the length buckets, with that bucket's launches,
 the rows of its largest bucket also holding the numbers at the 50 kb
-genome's bucket of two chromosomes at L = 5120) and, last,
+genome's bucket of two chromosomes at L = 5120; B1-B5 also with their
+launches on phase 4f's served requests) and, last,
 the result line `{"ok": true, "device": {...}}`.
 """
 
@@ -206,6 +232,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -916,35 +943,37 @@ def timed_solve(seconds):
     return timed_calls(pipeline, "_solve", seconds)
 
 
-def phase_main_path(X, M, card):
+def phase_main_path(X, M, card, keep):
+    """`run` on the reference-scale matrix; its matrix and output stay in
+    `keep` (keep/chrT_456_matrix.txt, keep/out) for phase 4f."""
     from chromosome3d_tpu_torch.config import AnnealConfig
     from chromosome3d_tpu_torch import cli
     from chromosome3d_tpu_torch.io import write_if_matrix
 
     steps = AnnealConfig().total_steps
     logging.getLogger("chromosome3d_tpu_torch.pipeline").setLevel(logging.WARNING)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "chrT_456_matrix.txt")
-        write_if_matrix(path, M)
-        out = os.path.join(tmp, "out")
-        reset_counters()
-        buf, solve_t = io.StringIO(), []
-        with contextlib.redirect_stdout(buf), timed_solve(solve_t):
-            rc = cli.main(["run", "-i", path, "-o", out, "-m", str(N_MODELS)])
-        launches, plain = read_counters()
-        check(rc == 0, f"cli run returned {rc}")
-        check_launches("main path", launches, plain, {"B1": 2, "B2": 1})
-        b1_steps = kernel_counters()[0]["B1"].steps
-        check(b1_steps == steps, f"main path: B1 ran {b1_steps} steps, want {steps}")
-        summary = json.loads(buf.getvalue().strip().splitlines()[-1])
-        ident = "chrT_456_matrix"
-        for name in (f"{ident}.dist", f"{ident}.rr", "contact.tbl", "contact_violation.txt",
-                     "model_info.log", "spearman.txt", "summary.json", "trajectory.npz",
-                     f"{ident}_model1.pdb", f"{ident}.fasta"):
-            check(os.path.isfile(os.path.join(out, name)), f"artifact {name} missing")
-        ranked = sorted(glob.glob(os.path.join(out, f"{ident}_rank*_a05.pdb")))
-        check(len(ranked) == N_MODELS, f"{len(ranked)} rank PDBs, want {N_MODELS}")
-        met = check_gates(ranked[0], X)
+    os.makedirs(keep)
+    path = os.path.join(keep, "chrT_456_matrix.txt")
+    write_if_matrix(path, M)
+    out = os.path.join(keep, "out")
+    reset_counters()
+    buf, solve_t = io.StringIO(), []
+    with contextlib.redirect_stdout(buf), timed_solve(solve_t):
+        rc = cli.main(["run", "-i", path, "-o", out, "-m", str(N_MODELS)])
+    launches, plain = read_counters()
+    check(rc == 0, f"cli run returned {rc}")
+    check_launches("main path", launches, plain, {"B1": 2, "B2": 1})
+    b1_steps = kernel_counters()[0]["B1"].steps
+    check(b1_steps == steps, f"main path: B1 ran {b1_steps} steps, want {steps}")
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+    ident = "chrT_456_matrix"
+    for name in (f"{ident}.dist", f"{ident}.rr", "contact.tbl", "contact_violation.txt",
+                 "model_info.log", "spearman.txt", "summary.json", "trajectory.npz",
+                 f"{ident}_model1.pdb", f"{ident}.fasta"):
+        check(os.path.isfile(os.path.join(out, name)), f"artifact {name} missing")
+    ranked = sorted(glob.glob(os.path.join(out, f"{ident}_rank*_a05.pdb")))
+    check(len(ranked) == N_MODELS, f"{len(ranked)} rank PDBs, want {N_MODELS}")
+    met = check_gates(ranked[0], X)
     solve_s = solve_t[0]
     print(f"[main path] run -m {N_MODELS}, L={L_TRUE}->{L_PAD}: B1 {launches['B1']} "
           f"launches for {b1_steps} steps, B2 {launches['B2']}, B3 0, B4 0, plain 0; "
@@ -1229,9 +1258,10 @@ def phase_kernels_general(dev, inputs):
     return measured
 
 
-def phase_solve_path(shape, inputs, init, card, shards=1):
+def phase_solve_path(shape, inputs, init, card, shards=1, keep_out=None):
     """`solve -r <file> -o <out> -m 10` in process, with its checks; with
-    shards > 1 row-sharded over copies of the card (B5' on every shard)."""
+    shards > 1 row-sharded over copies of the card (B5' on every shard).
+    keep_out: a directory the output is copied to (for phase 4f)."""
     from chromosome3d_tpu_torch import cli
     from chromosome3d_tpu_torch.config import AnnealConfig
     from chromosome3d_tpu_torch.solver import anneal, sharded
@@ -1298,6 +1328,8 @@ def phase_solve_path(shape, inputs, init, card, shards=1):
                      f"{ident}_model1.pdb"):
             check(os.path.isfile(os.path.join(out, name)), f"artifact {name} missing")
         met = check_gates(os.path.join(out, f"{ident}_model1.pdb"), X)
+        if keep_out is not None:
+            shutil.copytree(out, keep_out)
     solve_s = summary["phases"]["solve_s"]
     print(f"[{tag}] solve -r {os.path.basename(path)} -m {N_MODELS}, "
           f"L={summary['L']}->{summary['L_solved']}: "
@@ -2030,10 +2062,13 @@ def phase_genome_100kb(directory, truths, card):
     summary.json with each bucket's phases; the ground-truth gates on every
     chromosome's rank-01 model. Prints each bucket's solve (timed here,
     synchronised) with its ensemble and chromosome-steps/s."""
-    from chromosome3d_tpu_torch import cli
+    from chromosome3d_tpu_torch import cli, native
     from chromosome3d_tpu_torch.config import AnnealConfig
+    from chromosome3d_tpu_torch.io import load_if_matrix
     from chromosome3d_tpu_torch.parallel import genome
 
+    check(native.available(), "the native library did not build or load (g++, "
+          f"{native.library_path()})")
     steps = AnnealConfig().total_steps
     n_large = sum(1 for L in BUCKETS_100KB if L > 768)
     want = {"B1": 2 * (len(BUCKETS_100KB) - n_large), "B2": len(BUCKETS_100KB) - n_large,
@@ -2043,10 +2078,11 @@ def phase_genome_100kb(directory, truths, card):
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "out")
         reset_counters()
-        buf, t_small, runs = io.StringIO(), [], []
+        buf, t_small, runs, parses = io.StringIO(), [], [], []
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf), timed_calls(genome, "solve_bucket", t_small), \
-                recorded_bucket_solves(genome, "solve_bucket_sharded_from_if", runs):
+                recorded_bucket_solves(genome, "solve_bucket_sharded_from_if", runs), \
+                recorded_calls(native, "parse_matrix", parses):
             rc = cli.main(["genome", "-i", directory, "-o", out, "-m", str(N_MODELS),
                            "--no-violation-reports"])
         wall = time.perf_counter() - t0
@@ -2107,6 +2143,33 @@ def phase_genome_100kb(directory, truths, card):
               f"final terms), {steps / solve_s} ensemble steps/s, {n * steps / solve_s} "
               f"chromosome-steps/s; phases {json.dumps(summary['phases'][f'L{L}'])}")
     print(f"[genome 100kb] wall {wall} s (summary.json {summary['wall_seconds']}) on {card}")
+    # phase 4f (native): each chromosome's text parsed once, natively
+    parsed = sorted(os.path.basename(a[0]) for a, _ in parses)
+    check(parsed == sorted(f"{name}_matrix.txt" for name, _ in GENOME_100KB),
+          f"genome 100 kb: native.parse_matrix parsed {parsed}")
+    load_s = sum(summary["phases"][f"L{L}"]["load_s"] for L in BUCKETS_100KB)
+    print(f"[native] genome 100 kb: native.parse_matrix once for each of the "
+          f"{len(parsed)} chromosomes; load_s {load_s:.2f} s over the buckets "
+          f"(the text parse of {sum(L * L for _, L in GENOME_100KB)} values, the "
+          f"pads and stacks) on {card}")
+    name, L = max(GENOME_100KB, key=lambda t: t[1])
+    path = os.path.join(directory, f"{name}_matrix.txt")
+    t0 = time.perf_counter()
+    fast = native.parse_matrix(path)
+    t_native = time.perf_counter() - t0
+    real = native.parse_matrix
+    native.parse_matrix = lambda p: None      # the loader's Python branch
+    try:
+        t0 = time.perf_counter()
+        slow = load_if_matrix(path)
+        t_python = time.perf_counter() - t0
+    finally:
+        native.parse_matrix = real
+    check(fast is not None and fast.shape == (L, L)
+          and np.array_equal(fast.view(np.int64), slow.view(np.int64)),
+          f"native parse of {name} ({L} beads) differs from the Python branch")
+    print(f"[native] {name} ({L} x {L}): the native parse equals the Python branch "
+          f"bit for bit; {t_native:.3f} s native, {t_python:.3f} s Python")
     # the at-scale buckets' tiles as the run built them, for the kernel
     # checks at their shapes
     buckets = {}
@@ -2349,6 +2412,308 @@ def phase_formats(X, M, card):
           f"assess rank01 vs contact.tbl {' '.join(row[:2])} (the run's own numbers for "
           f"model {k} {' '.join(run_own)}) on {card}")
     return launches
+
+
+# phase 4f's second matrix of the reference-scale bucket and its past-bucket
+# matrix: confined_walk(400, seed=8) -> 512, confined_walk(1000, seed=7) -> 1024
+SERVE_SECOND, SERVE_PAST = (400, 8), (1000, 7)
+
+
+def raw_request(sock_path, payload: bytes):
+    """Send the server one raw line and return its answer: what a client
+    that does not write JSON sends (serve.request always does)."""
+    import socket
+
+    with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as s:
+        s.settimeout(60)
+        s.connect(sock_path)
+        s.sendall(payload)
+        buf = b""
+        while not buf.endswith(b"\n"):
+            chunk = s.recv(65536)
+            if not chunk:
+                break
+            buf += chunk
+    return json.loads(buf)
+
+
+def same_files(served, ref, where):
+    """Every file in `served` equals the same-named file in `ref`, byte for
+    byte; returns their names."""
+    names = sorted(os.listdir(served))
+    for name in names:
+        other = os.path.join(ref, name)
+        check(os.path.isfile(other), f"{where}: {name} is not in {ref}")
+        with open(os.path.join(served, name), "rb") as a, open(other, "rb") as b:
+            check(a.read() == b.read(), f"{where}: {name} differs from {other}")
+    return names
+
+
+def write_truth_matrix(directory, name, L, seed):
+    """confined_walk(L, seed) -> IF with noise 0.1 as `<name>_matrix.txt`;
+    (its path, the truth)."""
+    from chromosome3d_tpu_torch.io import write_if_matrix
+    from chromosome3d_tpu_torch.truth import confined_walk, if_from_structure
+
+    X = confined_walk(L, seed=seed)
+    path = os.path.join(directory, f"{name}_matrix.txt")
+    write_if_matrix(path, if_from_structure(X, alpha=0.5, noise_sigma=0.1, seed=seed))
+    return path, X
+
+
+def wait_for(path, proc=None, seconds=120.0):
+    """Wait until `path` exists (a server's socket), failing when `proc`
+    exits first or the time runs out."""
+    deadline = time.perf_counter() + seconds
+    while not os.path.exists(path):
+        if proc is not None and proc.poll() is not None:
+            fail(f"the server exited ({proc.returncode}) before it bound {path}")
+        check(time.perf_counter() < deadline, f"{path} not bound in {seconds} s")
+        time.sleep(0.05)
+
+
+def phase_serve(keep, solve_a_out, inputs, card):
+    """Phase 4f (the server parts; the native parse is checked in phase
+    4c): serve.serve on a thread of this process, so that the counters see
+    its launches, then `serve` and `submit` through the CLI in
+    subprocesses. Returns each served request's kernel launches."""
+    from chromosome3d_tpu_torch import cli, native, pipeline, restraints, serve
+    from chromosome3d_tpu_torch.config import AnnealConfig, PipelineConfig
+    from chromosome3d_tpu_torch.ops import device_prep
+
+    check(native.available(), "the native library did not build or load")
+    steps = AnnealConfig().total_steps
+    warm = [L_PAD, N_MODELS, steps]
+    top = min(PipelineConfig().top_k, N_MODELS)
+    L_past = pipeline.quantum_bucket(SERVE_PAST[0], PipelineConfig().shard_quantum)
+    matrix, ident = os.path.join(keep, "chrT_456_matrix.txt"), "chrT_456_matrix"
+    out, run_dir, served_dir = (os.path.join(keep, d) for d in ("out", "run", "served"))
+    os.rename(out, run_dir)   # the served request writes where `run` wrote
+    with open(os.path.join(run_dir, "summary.json")) as f:
+        run_summary = json.load(f)
+    for name in ("chromosome3d_tpu_torch.pipeline", "chromosome3d_tpu_torch.serve"):
+        logging.getLogger(name).setLevel(logging.WARNING)
+    launches, walls = {}, {}
+    sock_dir = tempfile.mkdtemp(prefix="c3d")   # a Unix socket path has 108 bytes
+    sock = os.path.join(sock_dir, "s.sock")
+    thread = threading.Thread(target=serve.serve, args=(sock, PipelineConfig(), "cuda"),
+                              daemon=True)
+    thread.start()
+    try:
+        wait_for(sock)
+        pong = serve.request(sock, {"cmd": "ping"})
+        check(pong["ok"] and pong["warm_buckets"] == [] and pong["busy"] == 0,
+              f"first ping {pong}")
+
+        # (2) the reference-scale matrix: what `run` wrote, byte for byte
+        reset_counters()
+        t0 = time.perf_counter()
+        resp = serve.request(sock, {"matrix": matrix, "out": out, "models": N_MODELS})
+        walls["matrix"] = time.perf_counter() - t0
+        launches["matrix"], plain = read_counters()
+        check(resp["ok"], f"served matrix request: {resp}")
+        check_launches("served matrix", launches["matrix"], plain, {"B1": 2, "B2": 1})
+        names = same_files(out, run_dir, "served matrix")
+        want = {"contact_violation.txt", "model_info.log", "spearman.txt",
+                *(f"{ident}_model{k}.pdb" for k in range(1, top + 1)),
+                *(f"{ident}_rank{k:02d}_a05.pdb" for k in range(1, N_MODELS + 1))}
+        check(set(names) == want, f"served matrix request wrote {names}")
+        diff = {k: (v, run_summary[k]) for k, v in resp["summary"].items()
+                if run_summary[k] != v}
+        check(not diff, f"served summary differs from run's: {diff}")
+        os.rename(out, served_dir)
+
+        # (3) another length of the same bucket: the warm bucket again
+        m2, X2 = write_truth_matrix(keep, "chrS_400", *SERVE_SECOND)
+        reset_counters()
+        t0 = time.perf_counter()
+        resp = serve.request(sock, {"matrix": m2, "out": os.path.join(keep, "s400"),
+                                    "models": N_MODELS})
+        walls["second matrix"] = time.perf_counter() - t0
+        launches["second matrix"], plain = read_counters()
+        check(resp["ok"], f"second matrix request: {resp}")
+        check_launches("served second matrix", launches["second matrix"], plain,
+                       {"B1": 2, "B2": 1})
+        met2 = check_gates(os.path.join(keep, "s400", "chrS_400_matrix_rank01_a05.pdb"), X2)
+        pong = serve.request(sock, {"cmd": "ping"})
+        check(pong["warm_buckets"] == [warm], f"warm buckets {pong['warm_buckets']}")
+
+        # (4) past the buckets: `run` on the same matrix, then the request
+        m3, X3 = write_truth_matrix(keep, "chrP_1000", *SERVE_PAST)
+        solves, preps, builds = [], [], []
+        real_prep = device_prep.exact_tiles_from_if_device
+
+        def prep_spy(*args, **kwargs):
+            tiles = real_prep(*args, **kwargs)
+            preps.append((args[1], tiles.target.device.type))
+            return tiles
+
+        with kept_results(pipeline, "_solve", solves):
+            reset_counters()
+            cli_run(["run", "-i", m3, "-o", os.path.join(keep, "p_run"), "-m", str(N_MODELS),
+                     "--no-violation-reports"], "run past the buckets")
+            launches["run past"], plain = read_counters()
+            check(plain == 0, f"run past the buckets: plain twins ran {plain} times")
+            device_prep.exact_tiles_from_if_device = prep_spy
+            try:
+                with recorded_calls(restraints, "build_restraints", builds):
+                    reset_counters()
+                    t0 = time.perf_counter()
+                    resp = serve.request(sock, {"matrix": m3, "models": N_MODELS,
+                                                "out": os.path.join(keep, "p_served")})
+                    walls["past"] = time.perf_counter() - t0
+                    launches["past"], plain = read_counters()
+            finally:
+                device_prep.exact_tiles_from_if_device = real_prep
+        check(resp["ok"], f"past-bucket request: {resp}")
+        check_launches("served past the buckets", launches["past"], plain, launches["run past"])
+        check(not builds, f"the past-bucket request built restraints on the host {len(builds)} "
+              "times")
+        check(preps == [(L_past, "cuda")] * 2,
+              f"past-bucket prep calls (L_pad, device) {preps}, want the solve's and the "
+              "view's on the card")
+        check(len(solves) == 2 and torch.equal(solves[0][2].coords, solves[1][2].coords),
+              "the past-bucket request's coordinates differ from run's")
+        met3 = check_gates(os.path.join(keep, "p_served", "chrP_1000_matrix_rank01_a05.pdb"),
+                           X3)
+        del solves
+
+        # (5) the restraint file of `solve` shape A: phase 6's model PDBs
+        path_a = inputs["A"][0]
+        stem = os.path.basename(path_a).rsplit(".", 1)[0]
+        reset_counters()
+        t0 = time.perf_counter()
+        resp = serve.request(sock, {"restraints": path_a, "out": os.path.join(keep, "rA"),
+                                    "models": N_MODELS})
+        walls["restraints"] = time.perf_counter() - t0
+        launches["restraints"], plain = read_counters()
+        check(resp["ok"], f"restraints request: {resp}")
+        check_launches("served restraints", launches["restraints"], plain,
+                       {"B5": steps + 1, "B4": steps})
+        models = sorted(glob.glob(os.path.join(keep, "rA", f"{stem}_model*.pdb")))
+        check(len(models) == top, f"restraints request wrote {len(models)} model PDBs")
+        for p in models:
+            with open(p, "rb") as a, open(os.path.join(solve_a_out, os.path.basename(p)),
+                                          "rb") as b:
+                check(a.read() == b.read(), f"{os.path.basename(p)} differs from solve's")
+        entry = [resp["summary"]["L_solved"], N_MODELS, steps]
+        pong = serve.request(sock, {"cmd": "ping"})
+        check(entry in pong["warm_buckets"] and [L_past, N_MODELS, steps] in pong["warm_buckets"],
+              f"warm buckets {pong['warm_buckets']} lack {entry} or the {L_past} bucket")
+
+        # (6) refusals, the server serving on
+        refusals = [
+            (serve.request(sock, {"matrix": matrix, "out": out, "models": 10**6}), "models="),
+            (serve.request(sock, {"matrix": "/nonexistent/m.txt", "out": out}),
+             "does not exist"),
+            (raw_request(sock, b"{not json\n"), "bad json"),
+            (raw_request(sock, b"[1, 2]\n"), "must be an object"),
+        ]
+        cache = serve.SolverCache(PipelineConfig(), device="cuda")
+        cache.busy = serve.MAX_QUEUE
+        refusals.append((serve.handle_request({"restraints": path_a, "out": out}, cache),
+                         "server busy"))
+        check(cache.busy == serve.MAX_QUEUE, f"the queue refusal left busy {cache.busy}")
+        for resp, frag in refusals:
+            check(not resp["ok"] and frag in resp["error"], f"refusal {frag!r}: {resp}")
+        check(not os.path.exists(out), "a refused request wrote output")
+
+        # (7) a ping while a solve is in flight answers at once
+        result = {}
+        bg = threading.Thread(target=lambda: result.update(resp=serve.request(
+            sock, {"matrix": m2, "out": os.path.join(keep, "s400b"), "models": N_MODELS})))
+        bg.start()
+        busy, slowest = 0, 0.0
+        while bg.is_alive() and busy < 1:
+            t0 = time.perf_counter()
+            pong = serve.request(sock, {"cmd": "ping"}, timeout=5)
+            slowest = max(slowest, time.perf_counter() - t0)
+            busy = pong["busy"]
+            time.sleep(0.005)
+        bg.join(timeout=600)
+        check(busy >= 1 and slowest < 1.0 and result["resp"]["ok"],
+              f"ping during a solve: busy {busy}, slowest ping {slowest} s, {result}")
+
+        # (8) shutdown ends the thread and removes the socket
+        check(serve.request(sock, {"cmd": "shutdown"})["bye"], "shutdown not answered")
+        thread.join(timeout=60)
+        check(not thread.is_alive() and not os.path.exists(sock),
+              "the server thread did not end or left its socket")
+    finally:
+        if thread.is_alive():
+            serve.request(sock, {"cmd": "shutdown"}, timeout=10)
+            thread.join(timeout=60)
+
+    # the CLI: `serve` in a subprocess, `submit` from others
+    repo = os.path.dirname(os.path.abspath(__file__))
+    sock = os.path.join(sock_dir, "c.sock")
+    py = [sys.executable, "-m", "chromosome3d_tpu_torch"]
+
+    def submit(*args):
+        p = subprocess.run([*py, "submit", "--socket", sock, *args], cwd=repo,
+                           capture_output=True, text=True, timeout=600)
+        check(p.returncode == 0, f"submit {args}: exit {p.returncode}\n{p.stderr}")
+        return json.loads(p.stdout.strip().splitlines()[-1])
+
+    log_path = os.path.join(keep, "serve.log")
+    t_start = time.perf_counter()
+    with open(log_path, "w") as log_f:
+        server = subprocess.Popen([*py, "serve", "--socket", sock], cwd=repo, stdout=log_f,
+                                  stderr=subprocess.STDOUT)
+    try:
+        wait_for(sock, server)
+        t_bound = time.perf_counter() - t_start
+        check(submit("--ping")["warm_buckets"] == [], "CLI server's first ping")
+        cli_walls = []
+        for k in range(2):
+            t0 = time.perf_counter()
+            resp = submit("-i", matrix, "-o", out, "-m", str(N_MODELS))
+            cli_walls.append(time.perf_counter() - t0)
+            check(resp["ok"], f"submit -i: {resp}")
+            check(same_files(out, served_dir, f"submit -i, request {k + 1}") == names,
+                  f"submit -i, request {k + 1}: another file set")
+            os.rename(out, os.path.join(keep, f"cli{k + 1}"))
+        check(submit("--ping")["warm_buckets"] == [warm], "CLI server's warm buckets")
+        check(submit("--shutdown")["bye"], "CLI shutdown not answered")
+        rc = server.wait(timeout=60)
+    finally:
+        if server.poll() is None:
+            server.kill()
+            server.wait()
+    if rc != 0:
+        with open(log_path) as f:
+            print(f.read()[-4000:])
+    check(rc == 0, f"`serve` exited {rc}")
+    shutil.rmtree(sock_dir, ignore_errors=True)
+
+    def counts(k):
+        return ", ".join(f"{n} {c}" for n, c in launches[k].items() if c)
+
+    print(f"[serve] serve.serve on a thread: ping (no warm bucket, busy 0); the "
+          f"{L_TRUE}-bead matrix -> {L_PAD} ({counts('matrix')}, plain 0) wrote {len(names)} "
+          f"files, each byte-equal to phase 4's run, the summary equal; "
+          f"{SERVE_SECOND[0]} beads -> {L_PAD} ({counts('second matrix')}) on the one warm "
+          f"bucket, rank01 rmsd/Rg {met2['rmsd_over_rg']:.4f}, spearman_d "
+          f"{met2['spearman_d']:.5f}, dRMSD_rel {met2['drmsd_rel']:.4f}")
+    print(f"[serve] past the buckets, {SERVE_PAST[0]} beads -> {L_past}: {counts('past')}, as "
+          f"`run` on the same matrix ({counts('run past')}), plain 0; the prep on the card "
+          f"(solve and view), build_restraints 0 times; coordinates bit-equal to run's; "
+          f"rank01 rmsd/Rg {met3['rmsd_over_rg']:.4f}, spearman_d {met3['spearman_d']:.5f}, "
+          f"dRMSD_rel {met3['drmsd_rel']:.4f}")
+    print(f"[serve] restraints {os.path.basename(path_a)} -> {entry[0]}: "
+          f"{counts('restraints')}, plain 0; its {top} model PDBs byte-equal to phase 6's "
+          f"solve; warm buckets {pong['warm_buckets']}; refusals answered ok: false "
+          f"(bound, missing file, bad JSON, non-object, a queue of {serve.MAX_QUEUE}); a "
+          f"ping during a solve saw busy {busy} in at most {slowest:.4f} s; shutdown ended "
+          f"the thread and removed the socket")
+    print(f"[serve] request walls (in-thread server, synchronised by the answer): "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items()) + f" on {card}")
+    print(f"[serve] CLI: `serve` in a subprocess bound its socket in {t_bound:.3f} s; "
+          f"`submit -i` twice, each output byte-equal to the in-thread server's: first "
+          f"request {cli_walls[0]:.3f} s (CUDA init, the kernels' library loaded from "
+          f"_build/, the first solve of the process), warm {cli_walls[1]:.3f} s (each wall "
+          f"includes the submit process's start); `submit --shutdown`, exit 0, on {card}")
+    return {k: v for k, v in launches.items() if k != "run past"}
 
 
 # past CHUNKED_TERMS_MIN_L: an 8,000-bead truth padded to 8192
@@ -2727,7 +3092,8 @@ def main() -> int:
                                       genome_dir, card)
         measured_genome_large = timed_phase("kernels genome at scale",
                                             phase_kernels_genome_at_scale, dev, card)
-        launches, b1_steps = timed_phase("main path", phase_main_path, X, M, card)
+        keep_main, keep_solve_a = os.path.join(tmp, "main_path"), os.path.join(tmp, "solve_A")
+        launches, b1_steps = timed_phase("main path", phase_main_path, X, M, card, keep_main)
         launches_genome, b1_steps_genome = timed_phase("genome", phase_genome, genome_dir,
                                                        truths, card)
         truths_100kb = timed_phase("genome 100 kb inputs (the writer's wait)",
@@ -2745,9 +3111,11 @@ def main() -> int:
                                        phase_formats, X, M, card)
         launches_big = timed_phase("at-scale path", phase_at_scale_path, Xb, Mb, card)
         launches_solve = timed_phase("solve A", phase_solve_path, "A", inputs, "mds_init",
-                                     card)
+                                     card, keep_out=keep_solve_a)
         timed_phase("solve B", phase_solve_path, "B", inputs, "landmark_init", card)
         timed_phase("solve C", phase_solve_path, "C", inputs, "mds_init", card)
+        launches_serve = timed_phase("serve and submit (phase 4f)", phase_serve, keep_main,
+                                     keep_solve_a, inputs, card)
         launches_sh_run = timed_phase("sharded run x4", phase_at_scale_path, Xb, Mb, card,
                                       shards=4)
         launches_sh_solve = timed_phase("sharded solve B x4", phase_solve_path, "B", inputs,
@@ -2802,6 +3170,9 @@ def main() -> int:
             kernels[-1]["steps"] = b1_steps
         if key in ("B1", "B2"):   # the same shapes on the paths of phase 4e
             kernels[-1]["launches_phase_4e"] = {p: n[key] for p, n in launches_formats.items()}
+        served = {p: n[key] for p, n in launches_serve.items() if n[key]}
+        if served:   # the served requests of phase 4f
+            kernels[-1]["launches_phase_4f"] = served
     # B3, B4 and B5 past L_pad = 8192, their launches those of the path at
     # that length
     for key, kname, src, replaces, path_launches, L_key in (

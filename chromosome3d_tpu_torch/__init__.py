@@ -53,8 +53,16 @@ only for CPU tensors and launches the CUDA kernel (built with nvcc for
 sm_90a at first use, ops._build) for CUDA tensors.
 """
 
-from chromosome3d_tpu_torch.device import resolve_device
-
 __version__ = "0.1.0"
 
 __all__ = ["resolve_device", "__version__"]
+
+
+def __getattr__(name):
+    # resolve_device imports torch, so it loads on first use: a client of the
+    # server (`submit`, serve.request) imports neither torch nor the solver
+    if name == "resolve_device":
+        from chromosome3d_tpu_torch.device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -16,6 +16,9 @@ chromosome3d_tpu.cli, with the flags the ported slices support.
   python -m chromosome3d_tpu_torch assess <pdb-or-dir> <tbl> [--relax R]
   python -m chromosome3d_tpu_torch render <pdb or run dir> [-o PNG]
   python -m chromosome3d_tpu_torch similarity -o <genome output dir> [--factor F]
+  python -m chromosome3d_tpu_torch serve --socket PATH [--turbo] [--device {cuda,cpu}]
+  python -m chromosome3d_tpu_torch submit --socket PATH (-i <IF matrix> | -r <restraints>)
+      -o <outdir> [-a ALPHA] [-m MODELS] [--turbo] | --ping | --shutdown
 
 `run`, `solve`, `genome` and `coinit` compute on the first CUDA device (the
 kernels build at first use) and fail when there is none; `--device cpu`
@@ -38,8 +41,13 @@ hi conf` or a CNS NOE `.tbl`, `or`-group rows included. `coinit` solves a
 low-resolution matrix started from a reduced high-resolution model
 (similarity.solve_coinit); `similarity` writes the cross-resolution report
 of a genome output tree; `assess` scores PDBs against a CNS `.tbl`;
-`render` draws a model to PNG (needs matplotlib). The JAX CLI's `serve`,
-`submit` and `calibrate` are refused with NotImplementedError naming their
+`render` draws a model to PNG (needs matplotlib). `serve` runs the
+warm-model server on a Unix socket (serve.serve; on the first CUDA device
+unless `--device cpu`), and `submit` sends it one request (serve.request:
+a matrix with `-i`, a restraint file with `-r`, or `--ping` /
+`--shutdown`), importing neither torch nor the solver; it exits 1 when the
+server answers ok: false and 2 on bad arguments, as the JAX CLI's does. The
+JAX CLI's `calibrate` is refused with NotImplementedError naming its
 ROADMAP item, and `--alpha-ensemble` on `solve` and `coinit`, whose
 pipelines have no alpha loop in the JAX package either, with that reason.
 """
@@ -52,7 +60,7 @@ import os
 import sys
 
 # the JAX CLI's subcommands that are not ported yet, with their ROADMAP item
-_UNPORTED = {"serve": "A11.3", "submit": "A11.3", "calibrate": "A11.6"}
+_UNPORTED = {"calibrate": "A11.6"}
 # the JAX CLI registers --alpha-ensemble on these too and ignores it there
 _NO_ALPHA_LOOP = ("solve", "coinit")
 
@@ -209,6 +217,29 @@ def main(argv=None) -> int:
                      help="a run_genome output tree with chr*_{1mb,500kb} subdirs")
     sim.add_argument("--factor", type=int, default=2)
 
+    srv = sub.add_parser(
+        "serve",
+        help="warm-model server on a Unix socket: keeps the built kernels and "
+             "the device warm across requests",
+    )
+    srv.add_argument("--socket", required=True, help="unix socket path")
+    srv.add_argument("--turbo", action="store_true")
+    srv.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                     help="where to compute (default cuda, which fails without a "
+                          "CUDA device; cpu runs the kernels' plain twins)")
+
+    cli = sub.add_parser("submit", help="send one solve request to a server")
+    cli.add_argument("--socket", required=True)
+    cli.add_argument("-i", "--input", help="IF matrix file")
+    cli.add_argument("-r", "--restraints",
+                     help="solve from a .rr / CNS .tbl restraint file instead")
+    cli.add_argument("-o", "--output", help="output directory")
+    cli.add_argument("-a", "--alpha", type=float, default=0.5)
+    cli.add_argument("-m", "--model-count", type=int, default=10)
+    cli.add_argument("--turbo", action="store_true")
+    cli.add_argument("--ping", action="store_true")
+    cli.add_argument("--shutdown", action="store_true")
+
     for p in (slv, coi):
         p.add_argument("--alpha-ensemble", default=None,
                        help="refused: this pipeline has no alpha loop")
@@ -355,6 +386,57 @@ def main(argv=None) -> int:
             print(f"{name}: spearman={rho:.4f} rmsd={rmsd:.3f}")
         print(f"wrote {out}")
         return 0
+
+    if args.command == "serve":
+        from chromosome3d_tpu_torch.config import AnnealConfig, PipelineConfig, turbo_anneal
+        from chromosome3d_tpu_torch.serve import serve
+
+        anneal = AnnealConfig()
+        if args.turbo:
+            anneal = turbo_anneal(anneal)
+        serve(args.socket, PipelineConfig(anneal=anneal), device=args.device)
+        return 0
+
+    if args.command == "submit":
+        from chromosome3d_tpu_torch.serve import request
+
+        if args.ping:
+            print(json.dumps(request(args.socket, {"cmd": "ping"})))
+            return 0
+        if args.shutdown:
+            print(json.dumps(request(args.socket, {"cmd": "shutdown"})))
+            return 0
+        if args.restraints and args.input:
+            print("submit takes -i OR -r, not both", file=sys.stderr)
+            return 2
+        if args.restraints and args.output:
+            resp = request(
+                args.socket,
+                {
+                    "restraints": args.restraints,
+                    "out": args.output,
+                    "models": args.model_count,
+                    "turbo": args.turbo,
+                },
+            )
+            print(json.dumps(resp))
+            return 0 if resp.get("ok") else 1
+        if not (args.input and args.output):
+            print("submit needs -i or -r, and -o (or --ping/--shutdown)",
+                  file=sys.stderr)
+            return 2
+        resp = request(
+            args.socket,
+            {
+                "matrix": args.input,
+                "out": args.output,
+                "alpha": args.alpha,
+                "models": args.model_count,
+                "turbo": args.turbo,
+            },
+        )
+        print(json.dumps(resp))
+        return 0 if resp.get("ok") else 1
 
     return 2
 

@@ -4,7 +4,9 @@ float32 matrix products run in full float32: the JAX reference runs them at
 full precision on the CPU, and mds_init's subspace iteration (`b @ v`,
 solver/init.py) loses the embedding's small eigen-gaps in TF32. PyTorch's
 default already keeps `matmul.allow_tf32` off, but `cudnn.allow_tf32` is on
-by default, so both are stated here, once, when the package is imported.
+by default, so both are stated here, once, when a module that computes is
+imported: the packages `ops` and `solver` import this one (the package root
+does not, so that a client of the server never imports torch).
 """
 
 from __future__ import annotations

@@ -1,6 +1,8 @@
 """Hi-C interaction-frequency matrix I/O — the port's copy of
-chromosome3d_tpu/io/matrix.py (its pure-Python branches; the JAX package's
-optional C++ fast path is not ported, ROADMAP A11).
+chromosome3d_tpu/io/matrix.py: the text parse and the `.dist` writer take
+the native C++ path (chromosome3d_tpu_torch.native) where its library
+builds, and the pure-Python branches, with the same values and bytes,
+where it does not.
 
 The reference's loader (`calc_len_IF` + the read loop of `IF2dist_new`,
 chromosome3D.pl:110-179) tolerates CRLF line endings, leading whitespace and
@@ -13,6 +15,8 @@ import os
 from typing import Optional
 
 import numpy as np
+
+from chromosome3d_tpu_torch import native
 
 
 def matrix_length(path: str | os.PathLike) -> int:
@@ -56,6 +60,10 @@ def load_if_matrix(path: str | os.PathLike, dtype=np.float64) -> np.ndarray:
         for r0 in range(0, mat.shape[0], 4096):
             _validate(mat[r0:r0 + 4096], path)
         return mat
+
+    mat = native.parse_matrix(os.fspath(path))
+    if mat is not None:
+        return _validate(np.asarray(mat, dtype=dtype), path)
 
     rows = []
     width: Optional[int] = None
@@ -107,6 +115,10 @@ def write_dist_matrix(path: str | os.PathLike, dist: np.ndarray) -> None:
     """Write the `$ID.dist` artifact: L x L of '%.1f ' cells, one row per line,
     -1 sentinel already applied by the caller (ref: chromosome3D.pl:156-161)."""
     dist = np.asarray(dist)
+    # native single-pass emitter when built (byte-identical; the per-cell
+    # f-string loop costs minutes at L ~ 10^3-10^4)
+    if native.write_dist(path, dist):
+        return
     with open(path, "w") as f:
         for row in dist:
             f.write("".join(f"{v:.1f} " for v in row))

@@ -1,6 +1,7 @@
 """PDB I/O for CA-bead chromosome models — the port's copy of
-chromosome3d_tpu/io/pdb.py (its pure-Python branches; the JAX package's
-optional C++ emitter is not ported, ROADMAP A11).
+chromosome3d_tpu/io/pdb.py; `write_ca_pdb` takes the native C++ emitter
+(chromosome3d_tpu_torch.native) up to 9,999 beads where its library builds,
+and the pure-Python branch, with the same bytes, otherwise.
 
 Reproduces the reference's final-model format (chromosome3D.pl:208-215,
 769-880): CA-only ATOM rows in fixed columns, optional REMARK energy rows
@@ -15,6 +16,8 @@ import os
 from typing import Dict, Optional, Sequence
 
 import numpy as np
+
+from chromosome3d_tpu_torch import native
 
 
 def write_ca_pdb(
@@ -35,6 +38,14 @@ def write_ca_pdb(
     if coords.ndim != 2 or coords.shape[1] != 3:
         raise ValueError(f"coords must be (L, 3), got {coords.shape}")
     L = coords.shape[0]
+    header = "".join(
+        f"REMARK {term} = {value:.4f}\n" for term, value in (remarks or {}).items()
+    )
+    # native single-pass emitter (byte-identical). Beyond 9999 beads the
+    # fixed resSeq column needs hybrid-36, which the native emitter's plain
+    # %4d does not write, so at-scale models take the python path.
+    if L <= 9999 and native.write_ca_pdb(path, coords, header, resname, connect):
+        return
     lines = []
     if remarks:
         for term, value in remarks.items():

@@ -1,8 +1,9 @@
 """IF matrix -> distance restraints, and the restraint files — the port's
 own copy of chromosome3d_tpu/restraints.py (float64 numpy on the host; the
-pure-Python branches where the JAX package may call its C++ fast path), so
-the restraint tensors and the `.rr` / `contact.tbl` text artifacts are
-byte-equal between the two packages.
+`.rr` and `contact.tbl` writers take the native C++ path,
+chromosome3d_tpu_torch.native, where its library builds, as the JAX
+package's do), so the restraint tensors and the `.rr` / `contact.tbl` text
+artifacts are byte-equal between the two packages.
 
 Reference semantics (reproduced bit-for-bit on the text artifacts):
 
@@ -31,6 +32,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from chromosome3d_tpu_torch import native
 from chromosome3d_tpu_torch.config import RestraintConfig
 
 __all__ = ["OrGroups", "Restraints", "build_restraints", "dist_to_restraints",
@@ -211,9 +213,10 @@ def write_rr(path: str | os.PathLike, dist: np.ndarray, cfg: RestraintConfig) ->
     keys = np.char.add(np.char.add(i1.astype("U11"), " "), j1.astype("U11"))
     order = np.argsort(keys, kind="stable")
     i1, j1, vv = i1[order], j1[order], vv[order]
-    with open(path, "w") as f:
-        for i, j, v in zip(i1.tolist(), j1.tolist(), vv.tolist()):
-            f.write(f"{i} {j} {v:.2f} {v:.2f} 1.0\n")
+    if not native.write_rr_rows(path, i1, j1, vv):
+        with open(path, "w") as f:
+            for i, j, v in zip(i1.tolist(), j1.tolist(), vv.tolist()):
+                f.write(f"{i} {j} {v:.2f} {v:.2f} 1.0\n")
     return len(vv)
 
 
@@ -221,6 +224,11 @@ def write_contact_tbl(
     path: str | os.PathLike, rr_path: str | os.PathLike, cfg: RestraintConfig
 ) -> int:
     """carr2tbl: rr rows -> CNS NOE tbl rows (chromosome3D.pl:340-362)."""
+    n_native = native.rr_to_tbl(
+        rr_path, path, cfg.zero_lo_distance, cfg.zero_lo_negdev
+    )
+    if n_native is not None:
+        return n_native
     n = 0
     with open(rr_path, "r") as rf, open(path, "w") as tf:
         for line in rf:

@@ -4,8 +4,9 @@
 argparse), `run`'s input and profiling flags, which reach run_pipeline as
 the JAX CLI's do; the `genome` subcommand with its `--filter` and
 `--resume`; `assess`, `render`, `coinit` and `similarity` reaching their
-functions; and the JAX CLI's subcommands still unported, each refused with
-a NotImplementedError naming its ROADMAP item."""
+functions; `serve` and `submit` (tests/test_torch_serve.py runs them); and
+the JAX CLI's subcommand still unported, refused with a NotImplementedError
+naming its ROADMAP item."""
 
 import json
 import os
@@ -122,10 +123,26 @@ def test_cli_run_input_flags_default_as_jax(monkeypatch, capsys):
 
 @pytest.mark.parametrize("command,item", [("serve", "A11.3"), ("submit", "A11.3"),
                                           ("calibrate", "A11.6")])
-def test_cli_refuses_unported_subcommands_by_name(command, item):
-    with pytest.raises(NotImplementedError,
-                       match=rf"`{command}` is not ported \(ROADMAP {item}\)"):
-        cli.main([command, "--socket", "s"])
+def test_cli_refuses_unported_subcommands_by_name(command, item, monkeypatch, capsys):
+    """`calibrate` is refused naming its ROADMAP item. `serve` and `submit`
+    (A11.3) are ported: `serve` takes the card by default and raises
+    without one before it binds its socket; `submit` with no request exits
+    2 with the JAX CLI's message."""
+    if command == "calibrate":
+        with pytest.raises(NotImplementedError,
+                           match=rf"`{command}` is not ported \(ROADMAP {item}\)"):
+            cli.main([command, "--socket", "s"])
+        assert cli._UNPORTED == {"calibrate": "A11.6"}
+    elif command == "serve":
+        import torch
+
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main([command, "--socket", "s"])
+        assert not os.path.exists("s")
+    else:
+        assert cli.main([command, "--socket", "s"]) == 2
+        assert "submit needs -i or -r, and -o" in capsys.readouterr().err
 
 
 def test_cli_coinit_refuses_alpha_ensemble():

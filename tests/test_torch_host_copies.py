@@ -9,9 +9,11 @@ must be byte-equal, arrays equal, and the config classes equal field for
 field and default for default. The JAX package may write some artifacts
 through its optional C++ library; its bytes are the reference either way.
 The functions copied whole (the Hi-C loaders, the renderer, the similarity
-host functions, the cross-resolution metrics, the tbl assessment) must also
-equal the originals statement for statement: their syntax trees, without
-docstrings and import statements, are the JAX package's.
+host functions, the cross-resolution metrics, the tbl assessment, the native
+library's loader functions, the server's warm set, request
+validation and client) must also equal the originals statement for
+statement: their syntax trees, without docstrings and import statements,
+are the JAX package's.
 """
 
 import ast
@@ -310,6 +312,9 @@ COPIED = {
     "io.pdb": ["read_pdb_remarks", "write_reduced_pdb"],
     "assess": ["assess_pdb_vs_tbl", "violation_coverage_string"],
     "restraints": ["read_contact_tbl"],
+    "native": ["available", "parse_matrix", "write_ca_pdb", "write_dist", "write_rr_rows",
+               "rr_to_tbl"],
+    "serve": ["SolverCache.add_warm", "SolverCache.warm_snapshot", "_validate", "request"],
 }
 
 
@@ -343,8 +348,10 @@ def _body_tree(obj) -> str:
 @pytest.mark.parametrize("module,name", [(m, n) for m, names in COPIED.items()
                                          for n in names])
 def test_copied_functions_equal_the_originals(module, name):
-    port = getattr(importlib.import_module(f"chromosome3d_tpu_torch.{module}"), name)
-    ref = getattr(importlib.import_module(f"chromosome3d_tpu.{module}"), name)
+    port = importlib.import_module(f"chromosome3d_tpu_torch.{module}")
+    ref = importlib.import_module(f"chromosome3d_tpu.{module}")
+    for part in name.split("."):
+        port, ref = getattr(port, part), getattr(ref, part)
     assert _body_tree(port) == _body_tree(ref)
 
 
@@ -390,7 +397,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "chip_smoke.py" in walked
     for module in ("utils/checkpoint.py", "parallel/genome.py", "solver/anneal.py",
                    "io/hic.py", "render.py", "similarity.py", "assess.py", "metrics.py",
-                   "utils/logging.py"):
+                   "utils/logging.py", "serve.py", "native/__init__.py"):
         assert os.path.join("chromosome3d_tpu_torch", module) in walked
     for path in _port_sources():
         tree = ast.parse(open(path).read(), path)

@@ -163,16 +163,12 @@ def test_run_pipeline_refuses_unported_inputs(tmp_path, tiny_matrix, monkeypatch
 
 @pytest.mark.parametrize("command,item", [("coinit", "A11"), ("serve", "A11")])
 def test_cli_refuses_unported_subcommands(command, item, capsys):
-    """`serve` is refused naming its ROADMAP item (A11.3); `coinit` is ported
-    (A11.2): it parses its own arguments, and without its required
-    `-p/--hires-pdb` dies in argparse, not with NotImplementedError."""
-    if command == "coinit":
-        with pytest.raises(SystemExit):
-            port_cli.main([command, "-i", "in", "-o", "out"])
-        assert "--hires-pdb" in capsys.readouterr().err
-        return
-    with pytest.raises(NotImplementedError, match=item):
+    """`coinit` (A11.2) and `serve` (A11.3) are ported: each parses its own
+    arguments, and without a required one (`-p/--hires-pdb`, `--socket`)
+    dies in argparse, not with NotImplementedError."""
+    with pytest.raises(SystemExit):
         port_cli.main([command, "-i", "in", "-o", "out"])
+    assert ("--hires-pdb" if command == "coinit" else "--socket") in capsys.readouterr().err
 
 
 def test_cli_solve_runs(tmp_path, tiny_matrix, capsys):
