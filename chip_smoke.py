@@ -201,6 +201,39 @@ Phases (each prints one line or a few, then its wall seconds as a
                against their twins (B3's over the whole matrix), the streamed
                assessment view, and the gates from reconstruction_metrics'
                sampled pairs (no host assess_ensemble at this size).
+  17. unfused routes — the JAX package's optax/threefry step (solver.unfused)
+               at full width (10 models, B = 20 hot then 10, the default
+               2,760-step schedule), the counters reset before each solve and
+               every other kernel and plain twin checked 0: (a) run_pipeline
+               on phase 4's matrix (456 -> 512) with fuse_update=False: B2
+               x2761 (the steps and the pick), the gates; (b) the same with
+               angle_weight=0.5: B2 x2761, the gates, the final `bon` term
+               equal to the plain _bond_energy (bond + angle) of the final
+               coordinates; (c) confined_walk(1000, seed=7) -> 1024 with
+               fuse_update=False: B3 x2761, the gates; (d) shape A's `.rr`
+               through run_restraints_pipeline with fuse_update=False: B5
+               x2761, the gates; (e) solve_ensemble_sharded over the card
+               listed twice on phase 4's tensors with fuse_update=False (B2'
+               x5522), then at 510 -> 520, two strips of 260 rows, with the
+               default config (B2' x5522), the gates on the best by
+               Spearman(IF, 1/d); (f) solve_single from phase 4's rank-01
+               model at 512 (B2 x2760 at B = 1) and solve_single_sharded
+               over 2 copies (B5' x5520): coordinates and history finite,
+               the history's last value below its first. After a solve,
+               the kernels it ran at shapes phase 3 does not check, held
+               against their twins on its own tensors: B2 at B = 10 (a) and
+               B = 1 (f), B2' on both 260-row strips at B = 20 and 10 (e'),
+               B5' at B = 1 on both strips (f'); the energies at phase 3's
+               rtol, the gradients against the twin in float64, at most
+               twice the float32 twin's error there. Each solve's synchronised
+               seconds beside the card's name and power limit; after (a)
+               warm solve_ensemble_impl calls on phase 4's tensors from a
+               given start: fuse_update=False (B2 x2761) beside the fused
+               route, the busy share of a fast_anneal(0.1) one (a
+               torch.profiler trace's device time over its warm wall), and
+               the device operations a step with fuse_update=False and with
+               angle_weight=0.5 (traced fast_anneal(0.1) and (0.05) solves,
+               their difference over the steps between them).
 Then one JSON line with the kernels' numbers (each with its launches on its
 path, its wall and device ms and its twin's — for B1 per step of a 256-step
 launch, with the steps it ran on the main path — its bound from the H100's
@@ -212,7 +245,9 @@ phases 13, 14 and 16; B6 and B4 with the chromosome axis at each bucket
 of the 100 kb genome past the length buckets, with that bucket's launches,
 the rows of its largest bucket also holding the numbers at the 50 kb
 genome's bucket of two chromosomes at L = 5120; B1-B5 also with their
-launches on phase 4f's served requests) and, last,
+launches on phase 4f's served requests, and B2, B3, B5, B2' and B5' with
+their launches on phase 17's unfused solves and their errors at its
+shapes) and, last,
 the result line `{"ok": true, "device": {...}}`.
 """
 
@@ -302,6 +337,20 @@ def device_ms(fn, n: int = 25) -> float:
     ms = event_ms(fn, n)
     print(f"[timing] the profiler saw no device time; {ms:.5f} ms a call from CUDA events")
     return ms
+
+
+def device_ops(fn) -> int:
+    """The device operations (kernels, copies, fills) one call of fn runs:
+    the summed counts of the device rows of a torch.profiler trace; 0 where
+    CUPTI traces none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
 # ~25 ms of SM clock: longer than the host takes to queue the calls event_ms times
@@ -1522,11 +1571,9 @@ def phase_sharded_library(dev, X, M, card, shards=2):
     import dataclasses
 
     from chromosome3d_tpu_torch import pipeline
-    from chromosome3d_tpu_torch.assess import rank_by_spearman
     from chromosome3d_tpu_torch.config import PipelineConfig
     from chromosome3d_tpu_torch.parallel.shards import ShardGroup
     from chromosome3d_tpu_torch.solver import sharded
-    from chromosome3d_tpu_torch.truth import reconstruction_metrics
 
     _, _, ex, bm, _, _, _, _ = slice_inputs(dev)
     cfg = PipelineConfig(model_count=N_MODELS)
@@ -1562,17 +1609,12 @@ def phase_sharded_library(dev, X, M, card, shards=2):
           "malformed coordinates")
     check(all(bool(torch.isfinite(v).all()) for v in res.energies.values()),
           "non-finite energies")
-    order, scores = rank_by_spearman(M, coords, 3)
-    met = reconstruction_metrics(coords[order[0]], X)
-    check(met["rmsd_over_rg"] < GATES["rmsd_over_rg"]
-          and met["spearman_d"] > GATES["spearman_d"]
-          and met["drmsd_rel"] < GATES["drmsd_rel"],
-          f"ground-truth gates missed: {met}")
+    met, best = best_by_spearman(M, coords, X)
     print(f"[{tag}] solve_ensemble_sharded -m {N_MODELS}, L={L_TRUE}->{L_PAD} in "
           f"{shards} strips: B2' {launches[KEY_B2R]} launches, B4 "
           f"{launches['B4']}, every other kernel 0, plain 0; sharded landmark init; rank01 "
           f"rmsd/Rg {met['rmsd_over_rg']:.4f}, spearman_d {met['spearman_d']:.5f}, "
-          f"dRMSD_rel {met['drmsd_rel']:.4f}; best Spearman(IF,1/d) {scores[order[0]]:.4f}")
+          f"dRMSD_rel {met['drmsd_rel']:.4f}; best Spearman(IF,1/d) {best:.4f}")
     print(f"[{tag}] solve {solve_s} s (synchronised; sharded landmark init included), "
           f"{steps / solve_s} ensemble steps/s on {card}")
     return launches
@@ -3010,6 +3052,307 @@ def phase_streamed(dev, card):
     return launches, measured, L_pad
 
 
+# phase 17's second sharded length: 2 strips of 260 rows (not a multiple of
+# 8: the unfused route with the default config) on a 510-bead truth
+L_ODD_TRUE, L_ODD_PAD = 510, 520
+
+
+def synced_seconds(fn, *args, **kwargs):
+    """(fn's result, its wall seconds, synchronised before and after)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def best_by_spearman(M, coords, X):
+    """The ground-truth metrics of the best of (n, L, 3) coords by
+    Spearman(IF, 1/d), gated."""
+    from chromosome3d_tpu_torch.assess import rank_by_spearman
+    from chromosome3d_tpu_torch.truth import reconstruction_metrics
+
+    check(np.isfinite(coords).all(), "non-finite coordinates")
+    order, scores = rank_by_spearman(M, coords, 3)
+    met = reconstruction_metrics(coords[order[0]], X)
+    check(not gate_misses(met), f"ground-truth gates missed: {met}")
+    return met, scores[order[0]]
+
+
+def phase_unfused(dev, X, M, keep, inputs, card):
+    """Phase 17: the unfused routes at full width (10 models, B = 20 hot then
+    10, the default 2,760-step schedule), the counters reset before each
+    solve: (a) `run_pipeline` on phase 4's matrix with fuse_update=False,
+    (b) the same with angle_weight=0.5, (c) confined_walk(1000, seed=7) ->
+    1024 with fuse_update=False, (d) shape A's `.rr` through
+    run_restraints_pipeline with fuse_update=False, (e) solve_ensemble_sharded
+    over the card listed twice on phase 4's tensors with fuse_update=False,
+    then at 2 x 260 with the default config, (f) solve_single from phase 4's
+    rank-01 model at 512 and solve_single_sharded over 2 copies. After a
+    solve, the kernels it ran at shapes no other phase holds against their
+    twins are held there on its own tensors: B2 at B = 10 and B = 1, B2' on
+    260-row strips at B = 20 and 10, B5' at B = 1. Returns ({solve:
+    launches}, {kernel: {shape: max abs gradient error}})."""
+    import dataclasses
+
+    from chromosome3d_tpu_torch import pipeline
+    from chromosome3d_tpu_torch.config import (
+        AnnealConfig,
+        PipelineConfig,
+        RestraintConfig,
+        fast_anneal,
+    )
+    from chromosome3d_tpu_torch.io import read_ca_pdb
+    from chromosome3d_tpu_torch.ops.energy import (
+        _bond_energy,
+        auto_weight_exponent,
+        exact_restraints_from_numpy,
+    )
+    from chromosome3d_tpu_torch.ops.general_pair import (
+        general_row_block_energy_grad,
+        general_row_block_energy_grad_plain,
+    )
+    from chromosome3d_tpu_torch.ops.pair_energy import (
+        exact_pair_energy_grad,
+        exact_pair_energy_grad_plain,
+        exact_row_block_energy_grad,
+        exact_row_block_energy_grad_plain,
+    )
+    from chromosome3d_tpu_torch.parallel.shards import ShardGroup
+    from chromosome3d_tpu_torch.restraints import build_restraints
+    from chromosome3d_tpu_torch.solver import anneal, sharded
+    from chromosome3d_tpu_torch.truth import confined_walk, if_from_structure
+
+    steps = AnnealConfig().total_steps
+    unfused = dataclasses.replace(AnnealConfig(), fuse_update=False)
+    angle = dataclasses.replace(AnnealConfig(), angle_weight=0.5)
+    logging.getLogger("chromosome3d_tpu_torch.pipeline").setLevel(logging.WARNING)
+    out_launches = {}
+
+    def report(tag, what, launches, seconds, extra):
+        print(f"[unfused {tag}] {what}: "
+              + ", ".join(f"{k} {n}" for k, n in launches.items() if n)
+              + f" launches, every other kernel 0, plain 0; {extra}")
+        print(f"[unfused {tag}] {seconds} s (synchronised), {steps / seconds} "
+              f"ensemble steps/s on {card}")
+
+    def run(tag, path, an, X_true, want, L_pad):
+        cfg = PipelineConfig(model_count=N_MODELS, anneal=an)
+        solves, seconds = [], []
+        with tempfile.TemporaryDirectory() as tmp:
+            reset_counters()
+            with kept_results(pipeline, "_solve", solves), timed_solve(seconds):
+                summary = pipeline.run_pipeline(path, tmp, cfg)
+            launches, plain = read_counters()
+            check_launches(f"unfused {tag}", launches, plain, want)
+            ident = os.path.basename(path).rsplit(".", 1)[0]
+            ranked = sorted(glob.glob(os.path.join(tmp, f"{ident}_rank*_a*.pdb")))
+            check(len(ranked) == N_MODELS, f"{len(ranked)} rank PDBs")
+            met = check_gates(ranked[0], X_true)
+        res = solves[0][2]
+        check(tuple(res.coords.shape) == (N_MODELS, L_pad, 3),
+              f"({tag}) solved at {tuple(res.coords.shape)}, want L_pad {L_pad}")
+        out_launches[tag] = launches
+        return res, met, summary, seconds[0]
+
+    def gated(met):
+        return (f"rank01 rmsd/Rg {met['rmsd_over_rg']:.4f}, spearman_d "
+                f"{met['spearman_d']:.5f}, dRMSD_rel {met['drmsd_rel']:.4f}")
+
+    errs = {}
+
+    def held(key, shape, kernel, plain, args, e_rtol):
+        """kernel(*args) against its plain twin at a shape one of these
+        solves gave it, outside the counted solves: the energies at phase
+        3's rtol. These coordinates are annealed, so a gradient element is
+        the sum of terms far larger than itself, and float32 rounding alone
+        puts the twin's ~1e-3 off the exact sum, past phase 3's atol of 2e-4.
+        So the gradient is held against the twin evaluated in float64: the
+        kernel's max abs error there at most twice the float32 twin's. Its
+        max abs difference from the float32 twin goes to errs[key][shape]."""
+        e, g = kernel(*args)
+        e_r, g_r = plain(*args)
+        _, g64 = plain(*[a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+                         for a in args])
+        torch.cuda.synchronize()
+        close(f"{key} e ({shape})", e, e_r, e_rtol)
+        err_k = float((g.double() - g64).abs().max())
+        err_p = float((g_r.double() - g64).abs().max())
+        check(err_k <= max(2.0 * err_p, 1e-5),
+              f"{key} g ({shape}): max abs err {err_k:.3g} against the float64 twin, "
+              f"the float32 twin's {err_p:.3g}")
+        err = float((g - g_r).abs().max())
+        errs.setdefault(key, {})[shape] = err
+        print(f"[unfused] {key} == plain at {shape}: g max abs err {err:.3g} against the "
+              f"twin; against the twin in float64 {err_k:.3g}, the float32 twin's {err_p:.3g}")
+
+    main_path = os.path.join(keep, "chrT_456_matrix.txt")
+    _, _, ex, bm, xT, _, _, w = slice_inputs(dev)
+    # (a) fuse_update=False: B2 every step and at the pick
+    res, met, summary, sec = run("a", main_path, unfused, X, {"B2": steps + 1}, L_PAD)
+    report("a", f"run_pipeline fuse_update=False, L={L_TRUE}->{L_PAD}", out_launches["a"],
+           sec, gated(met) + f"; best Spearman(IF,1/d) {summary['best_spearman_if_inv_d']:.4f}")
+    # B2 after the pick (B = 10) on (a)'s final coordinates and phase 4's tiles
+    held("B2", f"B={N_MODELS}, L={L_PAD}", exact_pair_energy_grad,
+         exact_pair_energy_grad_plain, (res.coords.contiguous(), ex.target, ex.w, w, bm),
+         2e-5)
+    # (a') warm unfused solves on phase 4's tensors from a given start
+    # (solve_ensemble_impl, no init; the route warm from (a)): the full
+    # schedule's wall beside the fused route's, and the busy share of a
+    # fast_anneal(0.1) one (its device time in a torch.profiler trace,
+    # device_ms, over its warm wall; the whole schedule's trace takes ~40 s)
+    xs = xT.transpose(1, 2).contiguous()
+
+    def warm(an):
+        return anneal.solve_ensemble_impl(ex, an, N_MODELS, bm, xs=xs, noise_seed=SEED)
+
+    an = dataclasses.replace(unfused, exact_restraints=True)   # auto_exact's choice
+    reset_counters()
+    _, sec = synced_seconds(warm, an)
+    launches, plain = read_counters()
+    check_launches("unfused a'", launches, plain, {"B2": steps + 1})
+    fused = dataclasses.replace(an, fuse_update=True)
+    warm(fused)
+    _, sec_fused = synced_seconds(warm, fused)
+    short = fast_anneal(an, 0.1)
+    warm(short)
+    _, sec_short = synced_seconds(warm, short)
+    busy_s = device_ms(lambda: warm(short), n=1) / 1e3
+    print(f"[unfused a'] warm solve_ensemble_impl fuse_update=False, L={L_TRUE}->{L_PAD}, "
+          f"from a given start: {sec} s, B2 {launches['B2']} launches; the fused route's "
+          f"{sec_fused} s ({sec / sec_fused}x); at fast_anneal(0.1) ({short.total_steps} "
+          f"steps) {sec_short} s warm, {busy_s} s of device time in a profiled one, busy "
+          f"{busy_s / sec_short} on {card}")
+    # device operations a step: the traced counts of fast_anneal(0.1) and
+    # fast_anneal(0.05) solves, their difference over the steps between them
+    for tag, cfg_a in (("fuse_update=False", an),
+                       ("angle_weight=0.5", dataclasses.replace(fused, angle_weight=0.5))):
+        runs = [fast_anneal(cfg_a, f) for f in (0.05, 0.1)]
+        n_ops = [device_ops(lambda r=r: warm(r)) for r in runs]
+        per_step = (n_ops[1] - n_ops[0]) / (runs[1].total_steps - runs[0].total_steps)
+        print(f"[unfused a'] {tag}: {n_ops[0]} device operations in a traced "
+              f"{runs[0].total_steps}-step solve, {n_ops[1]} in a {runs[1].total_steps}-step "
+              f"one: {per_step} a step" if n_ops[0] else
+              f"[unfused a'] {tag}: the trace holds no device operations (not measured)")
+    # (b) angle_weight=0.5: the same launches; `bon` holds bond + angle
+    res, met, summary, sec = run("b", main_path, angle, X, {"B2": steps + 1}, L_PAD)
+    base = anneal._final_weights(angle)
+    bon = _bond_energy(res.coords, bm, base)
+    bond_only = _bond_energy(res.coords, bm, dataclasses.replace(base, angle=0.0))
+    err = close("unfused (b) bon vs bond + angle", res.energies["bon"], bon, 1e-5)
+    angle_e = float((bon - bond_only).min())
+    check(angle_e > 0.0, f"the angle energy is {angle_e}, want > 0")
+    report("b", f"run_pipeline angle_weight=0.5, L={L_TRUE}->{L_PAD}", out_launches["b"],
+           sec, gated(met) + f"; final bon = bond + angle (max abs err {err:.3g}, the "
+           f"angle energy {angle_e:.4f} at least)")
+    # (c) past the fused step's reach of the pick: B3 every step and at the pick
+    with tempfile.TemporaryDirectory() as tmp:
+        path, X1k = write_truth_matrix(tmp, "chrU_1000", 1000, 7)
+        _, met, summary, sec = run("c", path, unfused, X1k, {"B3": steps + 1}, 1024)
+    report("c", "run_pipeline fuse_update=False, L=1000->1024", out_launches["c"], sec,
+           gated(met))
+    # (d) windowed restraints: B5 every step and at the pick
+    path_a, XA = inputs["A"]
+    cfg = PipelineConfig(model_count=N_MODELS, anneal=unfused)
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counters()
+        seconds = []
+        with timed_solve(seconds):
+            summary = pipeline.run_restraints_pipeline(path_a, tmp, cfg)
+        launches, plain = read_counters()
+        check_launches("unfused d", launches, plain, {"B5": steps + 1})
+        ident = os.path.basename(path_a).rsplit(".", 1)[0]
+        met = check_gates(os.path.join(tmp, f"{ident}_model1.pdb"), XA)
+    out_launches["d"] = launches
+    report("d", f"run_restraints_pipeline fuse_update=False, shape A .rr, "
+           f"L={summary['L']}->{summary['L_solved']}", launches, seconds[0], gated(met))
+    # (e) the row-sharded unfused route on two copies of the card
+    group = ShardGroup([dev] * 2)
+    an = dataclasses.replace(unfused, exact_restraints=True)   # auto_exact's choice
+    check(sharded._route(an, L_PAD, 2) == "unfused", "(e) not on the unfused route")
+    reset_counters()
+    res, sec = synced_seconds(sharded.solve_ensemble_sharded, group,
+                              pipeline.restraint_strips(group, ex), an, N_MODELS, bm,
+                              generator=torch.Generator().manual_seed(SEED))
+    launches, plain = read_counters()
+    check_launches("unfused e", launches, plain, {"B2'": 2 * (steps + 1)})
+    met, best = best_by_spearman(M, res.coords.cpu().numpy()[:, :L_TRUE], X)
+    out_launches["e"] = launches
+    report("e", f"solve_ensemble_sharded fuse_update=False, L={L_TRUE}->{L_PAD} in 2 "
+           f"strips of {L_PAD // 2}", launches, sec,
+           gated(met) + f"; best Spearman(IF,1/d) {best:.4f}")
+    X2 = confined_walk(L_ODD_TRUE, seed=SEED)
+    M2 = if_from_structure(X2, alpha=0.5, noise_sigma=0.1, seed=SEED)
+    ex2 = exact_restraints_from_numpy(
+        build_restraints(M2, RestraintConfig()).padded(L_ODD_PAD), "relative",
+        auto_weight_exponent(L_ODD_TRUE), device=dev)
+    bm2 = torch.zeros(L_ODD_PAD, device=dev)
+    bm2[:L_ODD_TRUE] = 1.0
+    an = dataclasses.replace(AnnealConfig(), exact_restraints=True)
+    check(sharded._route(an, L_ODD_PAD, 2) == "unfused", "(e') not on the unfused route")
+    reset_counters()
+    res, sec = synced_seconds(sharded.solve_ensemble_sharded, group,
+                              pipeline.restraint_strips(group, ex2), an, N_MODELS, bm2,
+                              generator=torch.Generator().manual_seed(SEED))
+    launches, plain = read_counters()
+    check_launches("unfused e'", launches, plain, {"B2'": 2 * (steps + 1)})
+    # B2' on both 260-row strips (the last 8-row group partial), at B = 20
+    # (the hot phase: (e')'s models and their mirrors) and B = 10
+    x10 = res.coords.transpose(1, 2).contiguous()
+    flip = torch.tensor([-1.0, 1.0, 1.0], device=dev)[:, None]
+    x20 = torch.cat([x10, x10 * flip]).contiguous()
+    Lb = L_ODD_PAD // 2
+    for r in range(2):
+        t, wt = ex2.target[r * Lb:(r + 1) * Lb], ex2.w[r * Lb:(r + 1) * Lb]
+        for xb in (x20, x10):
+            held("B2'", f"B={xb.shape[0]}, L={L_ODD_PAD}, rows {r * Lb}-{(r + 1) * Lb}",
+                 exact_row_block_energy_grad, exact_row_block_energy_grad_plain,
+                 (xb, t, wt, w, bm2, r * Lb), 2e-5)
+    met, best = best_by_spearman(M2, res.coords.cpu().numpy()[:, :L_ODD_TRUE], X2)
+    out_launches["e'"] = launches
+    report("e'", f"solve_ensemble_sharded, the default config, L={L_ODD_TRUE}->"
+           f"{L_ODD_PAD} in 2 strips of {L_ODD_PAD // 2} rows", launches, sec,
+           gated(met) + f"; best Spearman(IF,1/d) {best:.4f}")
+    # (f) one structure from phase 4's rank-01 model
+    # phase 4 wrote keep/out, which phase 4f renames to keep/run
+    rank01 = [p for d in ("out", "run")
+              for p in glob.glob(os.path.join(keep, d, "chrT_456_matrix_rank01_a*.pdb"))]
+    check(len(rank01) == 1, f"phase 4's rank-01 model: {rank01}")
+    x0 = torch.zeros(L_PAD, 3, device=dev)
+    x0[:L_TRUE] = torch.tensor(read_ca_pdb(rank01[0]), dtype=torch.float32, device=dev)
+    an = dataclasses.replace(AnnealConfig(), exact_restraints=True)
+    strips = pipeline.restraint_strips(group, ex)
+    for tag, fn, args, want in (
+            ("f", anneal.solve_single, (ex, an, x0, bm), {"B2": steps}),
+            ("f'", sharded.solve_single_sharded, (group, strips, an, x0, bm),
+             {"B5'": 2 * steps})):
+        reset_counters()
+        (x, hist), sec = synced_seconds(fn, *args,
+                                        generator=torch.Generator().manual_seed(SEED))
+        launches, plain = read_counters()
+        check_launches(f"unfused {tag}", launches, plain, want)
+        check(x.shape == (L_PAD, 3) and bool(torch.isfinite(x).all()),
+              f"({tag}) malformed coordinates")
+        check(hist.shape == (steps,) and bool(torch.isfinite(hist).all()),
+              f"({tag}) malformed history")
+        first, last = float(hist[0]), float(hist[-1])
+        check(last < first, f"({tag}) the history ends at {last}, above its start {first}")
+        out_launches[tag] = launches
+        report(tag, f"{fn.__name__} from phase 4's rank-01 model, L={L_TRUE}->{L_PAD}",
+               launches, sec, f"energy {first:.2f} -> {last:.2f}")
+        # B2 at B = 1 on phase 4's tiles; B5' at B = 1 on both 256-row strips
+        if tag == "f":
+            held("B2", f"B=1, L={L_PAD}", exact_pair_energy_grad, exact_pair_energy_grad_plain,
+                 (x[None].contiguous(), ex.target, ex.w, w, bm), 2e-5)
+        else:
+            x1 = x[None].transpose(1, 2).contiguous()
+            for t in sharded._tiles(group, strips, L_PAD):
+                held("B5'", f"B=1, L={L_PAD}, rows {t.row_start}-{t.row_start + L_PAD // 2}",
+                     general_row_block_energy_grad, general_row_block_energy_grad_plain,
+                     (x1, t.lo, t.hi, t.w, w, bm, t.row_start), 1e-5)
+    return out_launches, errs
+
+
 # FP32 operations per pair evaluation, counted from each kernel's inner loop
 # (an FMA counts 2, rsqrt 1; the row-sharded kernels run the same loops):
 # B1 32 per ordered pair (fused_steps.cu) plus ~100 per bead for the update
@@ -3136,6 +3479,8 @@ def main() -> int:
         launches_st, measured_st, L_st = timed_phase("streamed route", phase_streamed, dev,
                                                      card)
         measured.update(measured_st)
+        launches_17, errs_17 = timed_phase("unfused routes (phase 17)", phase_unfused, dev,
+                                           X, M, keep_main, inputs, card)
     B = 2 * N_MODELS
     kernels = []
     for key, kname, src, replaces, path_launches, shape in (
@@ -3173,6 +3518,11 @@ def main() -> int:
         served = {p: n[key] for p, n in launches_serve.items() if n[key]}
         if served:   # the served requests of phase 4f
             kernels[-1]["launches_phase_4f"] = served
+        unfused = {p: n[key] for p, n in launches_17.items() if n[key]}
+        if unfused:   # the unfused solves of phase 17
+            kernels[-1]["launches_phase_17"] = unfused
+        if key in errs_17:   # held against the twin at phase 17's own shapes
+            kernels[-1]["max_abs_err_phase_17"] = errs_17[key]
     # B3, B4 and B5 past L_pad = 8192, their launches those of the path at
     # that length
     for key, kname, src, replaces, path_launches, L_key in (

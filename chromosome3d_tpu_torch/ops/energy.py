@@ -8,7 +8,8 @@ Terms (identical to the JAX package):
     viol = relu(d - hi) + relu(lo - d), with linear tails beyond noe_rswitch;
     each unordered pair is stored twice, so the sum carries 1/2.
   * chain bonds    — harmonic |x_{i+1} - x_i| ~ bond_length (+ the optional
-    angle term, which the port's kernels refuse; see solver.anneal).
+    angle term, which rides the unfused route around the pair kernels, as
+    in the JAX package; see solver.anneal).
   * vdw repel      — relu(vdw_radius - d)^2 on nonbonded pairs (|i-j| >= 2).
   * or-groups      — the same well on the MINIMUM distance over each
     ambiguous restraint's alternative pairs (external `.tbl` rows with
@@ -245,11 +246,12 @@ def from_jax_numpy(restraints=None, weights=None, state=None, device="cpu"):
 
 def _angle_energy(bond_vec, bond_d, bond_valid, weights) -> torch.Tensor:
     """Worm-like-chain bending term angle * sum(1 - cos phi) over consecutive
-    bond-vector pairs; (..., L-1, 3) bond vectors -> (...,)."""
+    bond-vector pairs; (..., L-1, 3) bond vectors -> (...,), bond_valid
+    (L-1,) for every structure or (..., L-1) for each its own."""
     cosphi = (bond_vec[..., :-1, :] * bond_vec[..., 1:, :]).sum(-1) / (
         bond_d[..., :-1] * bond_d[..., 1:]
     )
-    tri_valid = bond_valid[:-1] * bond_valid[1:]
+    tri_valid = bond_valid[..., :-1] * bond_valid[..., 1:]
     return weights.angle * (tri_valid * (1.0 - cosphi)).sum(-1)
 
 

@@ -7,7 +7,10 @@ Replaces chromosome3d_tpu/ops/pallas_energy.py `_kernel_exact` (entry
 (ops.tri_energy) at L >= 1024 and general ones to B5 (ops.general_pair) as
 the JAX package does. The solver calls it once per solve, for the
 enantiomer pick, and once for a whole genome bucket (C chromosomes' tiles
-stacked, structure b reading chromosome b / (B / C)'s). No autograd is involved: the kernel returns the exact
+stacked, structure b reading chromosome b / (B / C)'s); on the unfused
+route (solver.unfused) it is every step's value and gradient, with the
+bond and angle terms (`bond_energy_grad`, the angle's gradient written out
+in closed form). No autograd is involved: the kernel returns the exact
 gradient and the solver consumes it directly.
 
 Kernel B2' is the same body on one shard's rows of the row-sharded solve
@@ -30,7 +33,12 @@ import torch
 import torch.nn.functional as F
 
 from chromosome3d_tpu_torch.ops import _build
-from chromosome3d_tpu_torch.ops.energy import _EPS, EnergyWeights, ExactRestraints
+from chromosome3d_tpu_torch.ops.energy import (
+    _EPS,
+    EnergyWeights,
+    ExactRestraints,
+    _angle_energy,
+)
 
 
 def exact_pair_tiles(restraints):
@@ -241,22 +249,38 @@ def exact_row_block_energy_grad(
 exact_row_block_energy_grad.launches = 0
 
 
+def _angle_grad(bond_vec, bond_d, bond_valid, angle: float):
+    """dE/d(bond vector) of ops.energy._angle_energy, (B, L-1, 3): for each
+    consecutive pair (p, q) of bonds with lengths dp, dq (the bond_d that
+    carries _EPS) and cos = p.q / (dp dq), d cos/dp = q / (dp dq) - cos p /
+    dp^2 and d cos/dq = p / (dp dq) - cos q / dq^2, times -angle and the
+    pair's validity (0 where a bond reaches a padded bead)."""
+    p, q = bond_vec[..., :-1, :], bond_vec[..., 1:, :]
+    dp, dq = bond_d[..., :-1], bond_d[..., 1:]
+    dpq = dp * dq
+    cos = (p * q).sum(-1) / dpq
+    s = (-angle * (bond_valid[..., :-1] * bond_valid[..., 1:]))[..., None]
+    g_p = s * (q / dpq[..., None] - cos[..., None] * p / (dp * dp)[..., None])
+    g_q = s * (p / dpq[..., None] - cos[..., None] * q / (dq * dq)[..., None])
+    return F.pad(g_p, (0, 0, 0, 1)) + F.pad(g_q, (0, 0, 1, 0))
+
+
 def bond_energy_grad(coords: torch.Tensor, weights: EnergyWeights,
                      bead_mask: torch.Tensor):
     """Chain-bond energies (B,) and their exact gradient (B, L, 3) — the
-    JAX package's `_bond_energy` and its autodiff gradient, written out.
-    bead_mask (L,) serves every structure; (B, L) gives each its own."""
-    if weights.angle != 0.0:
-        raise NotImplementedError(
-            "angle_weight != 0 is not ported (ROADMAP A11: the angle term "
-            "rides the unfused route)"
-        )
+    JAX package's `_bond_energy` (bond + the optional angle term,
+    ops.energy._angle_energy) and its autodiff gradient, written out.
+    bead_mask (L,) serves every structure; (B, L) gives each its own. At
+    angle 0 the angle term is not computed at all."""
     bond_vec = coords[:, 1:] - coords[:, :-1]
     bond_d = torch.sqrt((bond_vec * bond_vec).sum(-1) + _EPS)
     bond_valid = bead_mask[..., 1:] * bead_mask[..., :-1]
     bdev = bond_d - weights.bond_length
     e = weights.bond * (bond_valid * bdev * bdev).sum(-1)
     f = (2.0 * weights.bond * bond_valid * bdev / bond_d)[..., None] * bond_vec
+    if weights.angle != 0.0:
+        e = e + _angle_energy(bond_vec, bond_d, bond_valid, weights)
+        f = f + _angle_grad(bond_vec, bond_d, bond_valid, weights.angle)
     # dE/dx_i = f_{i-1} (x_i is bond i-1's far end) - f_i (bond i's base)
     g = F.pad(f, (0, 0, 1, 0)) - F.pad(f, (0, 0, 0, 1))
     return e, g
@@ -264,10 +288,11 @@ def bond_energy_grad(coords: torch.Tensor, weights: EnergyWeights,
 
 def pair_energy_and_grad_batched(
     coords: torch.Tensor, restraints, weights: EnergyWeights,
-    bead_mask: torch.Tensor, exact: bool = True,
+    bead_mask: torch.Tensor, exact: bool = True, tiles=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Value and gradient for a shared-restraint batch: a pair kernel plus
-    the chain bond. Counterpart of the JAX package's
+    the chain bond (and the angle term where weights.angle is not 0).
+    Counterpart of the JAX package's
     `pallas_energy_and_grad_batched(..., exact=exact)` with its dispatch
     (`_pairwise_energy_grad_batched`): exact restraints take the triangular
     kernel B3 where `tri_energy.use_triangular(L, for_unfused=True)` holds
@@ -275,29 +300,39 @@ def pair_energy_and_grad_batched(
     (there is no triangular variant of the general well); exact=True reads
     lo as the target. Restraints of (C, L, L) tensors with bead_mask (C, L)
     hold C chromosomes of B / C structures each, chromosome-major (a genome
-    bucket's pick); only B2 has that axis. Returns (energies (B,), gradients
-    (B, L, 3))."""
+    bucket's pick); only B2 has that axis. tiles: the kernel's tiles folded
+    once by the caller (pair_tiles), for a loop that calls this every step.
+    Returns (energies (B,), gradients (B, L, 3))."""
     # imported here: both build on this module
     from chromosome3d_tpu_torch.ops import general_pair, tri_energy
 
     L = coords.shape[1]
+    if tiles is None:
+        tiles = pair_tiles(restraints, exact)
     if not exact:
         e_pair, gT = general_pair.general_pair_energy_grad(
-            coords.transpose(1, 2).contiguous(),
-            *general_pair.general_pair_tiles(restraints), weights, bead_mask,
+            coords.transpose(1, 2).contiguous(), *tiles, weights, bead_mask,
         )
         g_pair = gT.transpose(1, 2)
     elif tri_energy.use_triangular(L, for_unfused=True):
-        target, w = (a.contiguous() for a in exact_pair_tiles(restraints))
         e_pair, gT = tri_energy.tri_energy_grad(
-            coords.transpose(1, 2).contiguous(), target, w, weights, bead_mask
+            coords.transpose(1, 2).contiguous(), *tiles, weights, bead_mask
         )
         g_pair = gT.transpose(1, 2)
     else:
-        target, w = (a.contiguous() for a in exact_pair_tiles(restraints))
-        e_pair, g_pair = exact_pair_energy_grad(coords, target, w, weights,
-                                                bead_mask)
+        e_pair, g_pair = exact_pair_energy_grad(coords, *tiles, weights, bead_mask)
     if bead_mask.dim() == 2:   # each structure its chromosome's mask
         bead_mask = bead_mask.repeat_interleave(coords.shape[0] // bead_mask.shape[0], 0)
     e_bond, g_bond = bond_energy_grad(coords, weights, bead_mask)
     return e_pair + e_bond, g_pair + g_bond
+
+
+def pair_tiles(restraints, exact: bool = True):
+    """The tiles pair_energy_and_grad_batched's kernels read, contiguous:
+    (target, folded w) for exact restraints, (lo, hi, folded w) else."""
+    # imported here: general_pair builds on this module
+    from chromosome3d_tpu_torch.ops import general_pair
+
+    if not exact:
+        return general_pair.general_pair_tiles(restraints)
+    return tuple(a.contiguous() for a in exact_pair_tiles(restraints))

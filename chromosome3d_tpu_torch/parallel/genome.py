@@ -33,8 +33,11 @@ The alpha ensemble (cfg.alpha_ensemble) solves each bucket again per extra
 alpha and pools the models into the Spearman ranking, as the JAX package
 does. Not ported, and refused with NotImplementedError before any bucket is
 solved: a bucket past the length buckets whose restraints are not exact,
-and one whose layout takes the row-block route (B2' with a chromosome axis;
-ROADMAP A12). The JAX package's 2-D chrom x model layout of the buckets
+one whose layout takes the row-block route (B2' with a chromosome axis;
+ROADMAP A12), and one with two or more chromosomes a device group on the
+unfused route (`fuse_update=False`, the angle term, or strips the fused
+route does not take: B2' and B5' with a chromosome axis; ROADMAP A12.3). A
+bucket of one chromosome a group runs the unfused route. The JAX package's 2-D chrom x model layout of the buckets
 within the length buckets has no counterpart: one device solves such a
 bucket.
 """
@@ -330,8 +333,9 @@ def bucket_devices(C: int, L_pad: int, cfg: PipelineConfig, dev) -> List[torch.d
 def _plan_large(buckets, max_bucket: int, cfg: PipelineConfig, dev):
     """{L_pad: devices} for every bucket past the length buckets, or the
     refusal of one, before any bucket is solved: restraints that are not
-    exact, a layout on the row-block route (ROADMAP A12), a bucket that
-    fits no device."""
+    exact, a layout on the row-block route (ROADMAP A12), two or more
+    chromosomes a device group on the unfused route (ROADMAP A12.3; a
+    bucket of one chromosome runs there), a bucket that fits no device."""
     plan = {}
     cfg_b = auto_exact_matrix(cfg)
     for L_pad in sorted(L for L in buckets if L > max_bucket):
@@ -343,16 +347,19 @@ def _plan_large(buckets, max_bucket: int, cfg: PipelineConfig, dev):
                 "windowed genome solver (solve_bucket_sharded, kernel B5'), not ported "
                 "(ROADMAP A12)")
         devices = bucket_devices(len(buckets[L_pad]), L_pad, cfg_b, dev)
-        groups, _, L_all = _layout(len(buckets[L_pad]), L_pad, devices)
-        try:
-            route = _route(cfg_b.anneal, L_all, groups[0].n)
-        except NotImplementedError:
-            route = "unfused"
-        if route != "strip":
+        groups, B_pad, L_all = _layout(len(buckets[L_pad]), L_pad, devices)
+        route = _route(cfg_b.anneal, L_all, groups[0].n)
+        if route == "rows":
             raise NotImplementedError(
                 f"{names}: bucket L={L_all} over {groups[0].n} device(s) a chromosome "
                 f"takes the {route} route (B2' with a chromosome axis), not ported "
                 "(ROADMAP A12)")
+        if route == "unfused" and B_pad // len(groups) > 1:
+            raise NotImplementedError(
+                f"{names}: bucket L={L_all} over {groups[0].n} device(s) a chromosome "
+                f"takes the unfused route with {B_pad // len(groups)} chromosomes a "
+                "device group (B2' and B5' with a chromosome axis), not ported "
+                "(ROADMAP A12.3)")
         plan[L_pad] = devices
     return plan
 

@@ -31,6 +31,10 @@ lcm(shard_quantum, shards), the restraints are cut into row strips (the
 at-scale `run` builds them on each shard's device) and
 solver.sharded.solve_ensemble_sharded runs them (kernels B6, B5' or B2',
 and B4).
+`PipelineConfig.anneal` passes through: with fuse_update=False or a
+nonzero angle_weight every solve above takes the unfused route (B2, B3 or
+B5 every step, B2' or B5' sharded, and the update in torch ops; see
+solver.unfused), as the JAX package's does.
 
 Artifacts match the JAX package byte for byte given the same coordinates
 and energies: `$ID.fasta`, `$ID.dist`, `$ID.rr`, `contact.tbl` (reference

@@ -1,8 +1,9 @@
-"""The annealing solver on the fused and semi routes — the port of
-chromosome3d_tpu/solver/anneal.py `solve_ensemble_impl`, and of the JAX
+"""The annealing solver — the port of chromosome3d_tpu/solver/anneal.py
+`solve_ensemble_impl` on its fused, semi and unfused routes, of the JAX
 genome runner's vmap of it over the chromosomes of a length bucket
 (`solve_bucket_impl`; `solve_ensemble_impl` is its one-chromosome case, one
-copy of the phases in `_solve_stack`).
+copy of the phases in `_solve_stack`), and of `solve_single`, one
+structure from a given start.
 
 The precomputed hot -> cool -> final schedule is one table of per-step rows
 (`schedule_table`, the JAX solver's `srows`). On the fused route kernel B1
@@ -19,13 +20,22 @@ step's reach or with or-groups, kernel B5 (ops.general_pair) for general
 term (ops.energy.or_group_energy) to the pair gradient before B4. The
 enantiomer trial runs both mirror images through the hot phase, picks the
 lower-energy member of each pair under the end-of-hot weights
-(ops.pair_energy: B2, B3 at L >= 1024, or B5, plus the or-group term),
+(ops.pair_energy: B2, B3 at L >= 1024, or B5, plus the bonded terms and
+the or-group term),
 and only the winners continue, with their Adam moments and the step count
 carried over (so the bias corrections and the noise stream stay aligned
 with the schedule). The final canonical terms are whole-matrix below
 CHUNKED_TERMS_MIN_L and in row blocks from it (ops.energy
 `energy_terms_chunked`), so one device solves every padded length its
 memory holds.
+
+The unfused route is the JAX package's optax/threefry step, taken for
+`fuse_update=False` and for a nonzero `angle_weight` (B1 and B4 carry no
+angle term): every step the pair term of `pair_energy_and_grad_batched`
+(B2, B3 at L >= 1024, or B5, with the bond and angle terms), the or-group
+term, then the clip, optax's Adam, noise drawn on the device and the move
+in torch ops (solver.unfused). `solve_single` runs the same step on one
+structure.
 
 Routes: the port runs the JAX package's frozen-default dispatch with no
 dispatch table (`tri_energy.use_triangular`, `fused_step_feasible`), so both
@@ -36,7 +46,7 @@ NotImplementedError naming their ROADMAP item; nothing falls back silently.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -59,19 +69,21 @@ from chromosome3d_tpu_torch.ops.fused_step import (
     fused_steps_batched,
 )
 from chromosome3d_tpu_torch.ops.fused_update import fused_update_table, step_counter
-from chromosome3d_tpu_torch.ops.general_pair import (
-    general_pair_energy_grad,
-    general_pair_tiles,
-)
+from chromosome3d_tpu_torch.ops.general_pair import general_pair_energy_grad
 from chromosome3d_tpu_torch.ops.pair_energy import (
-    exact_pair_tiles,
     pair_energy_and_grad_batched,
+    pair_tiles,
 )
 from chromosome3d_tpu_torch.solver.init import (
     landmark_init,
     mds_init,
     random_init,
     spiral_init,
+)
+from chromosome3d_tpu_torch.solver.unfused import (
+    NoiseStream,
+    drain,
+    unfused_steps,
 )
 
 # at and past this (padded) L the final energy terms are evaluated in row
@@ -157,15 +169,6 @@ def _final_weights(cfg: AnnealConfig) -> EnergyWeights:
     )
 
 
-def _clip_per_bead(g: torch.Tensor, clip: Optional[float]) -> torch.Tensor:
-    """Scale each bead's gradient 3-vector (last axis) to at most `clip`
-    norm; identity when clip is None."""
-    if clip is None:
-        return g
-    norm = torch.sqrt(torch.sum(g * g, dim=-1, keepdim=True) + 1e-12)
-    return g * torch.clamp_max(clip / norm, 1.0)
-
-
 def _bias_corrections(T: int):
     """Adam's 1/(1 - b^t) columns for t = 1..T, computed in float32 like the
     JAX package's schedule columns."""
@@ -175,13 +178,16 @@ def _bias_corrections(T: int):
     return bc1.tolist(), bc2.tolist()
 
 
-def schedule_table(cfg: AnnealConfig, seed: int) -> ScheduleTable:
+def schedule_table(cfg: AnnealConfig, seed: int,
+                   schedule: Optional[Schedule] = None) -> ScheduleTable:
     """The whole schedule as one (T, 6) float32 table of TABLE_COLS, one row
     a step, with the solve's constants: what kernels B1 and B4 read on the
-    card, and where the semi routes' loop takes the pair kernels' weights. The values are the JAX package's:
-    `build_schedule`'s columns, the float32 product repel * vdw_radius, and
-    Adam's bias corrections in float32."""
-    sched = build_schedule(cfg)
+    card, and where the semi and unfused routes' loops take the pair
+    kernels' weights (and the unfused one lr and sigma). The values are the
+    JAX package's: `build_schedule`'s columns (or those of `schedule`, which
+    overrides the one built from cfg), the float32 product repel *
+    vdw_radius, and Adam's bias corrections in float32 as B4 reads them."""
+    sched = build_schedule(cfg) if schedule is None else schedule
     bc1, bc2 = _bias_corrections(len(sched.lr))
     cols = {
         "lr": sched.lr, "sigma": sched.sigma, "vdw": sched.vdw_weight,
@@ -195,16 +201,7 @@ def schedule_table(cfg: AnnealConfig, seed: int) -> ScheduleTable:
 
 
 def _refuse_unported(cfg: AnnealConfig) -> None:
-    """The routes and options the port cannot run yet, each named."""
-    if not cfg.fuse_update:
-        raise NotImplementedError(
-            "fuse_update=False selects the unfused route, not ported "
-            "(ROADMAP A11)"
-        )
-    if cfg.angle_weight != 0.0:
-        raise NotImplementedError(
-            "angle_weight != 0 rides the unfused route, not ported (ROADMAP A11)"
-        )
+    """The options the port cannot run yet, each named."""
     if cfg.pair_bf16:
         raise NotImplementedError(
             "pair_bf16 tiles are not ported (ROADMAP: port-side pair_bf16)"
@@ -274,11 +271,18 @@ def _chromosome(restraints, c: int):
                               for f in dataclasses.fields(restraints)))
 
 
+def _unfused(cfg: AnnealConfig) -> bool:
+    """The JAX package's unfused route (anneal.py:322-323, `fusable` false):
+    fuse_update off, or the angle term, which B1 and B4 do not carry."""
+    return not cfg.fuse_update or cfg.angle_weight != 0.0
+
+
 def _fused_route(cfg: AnnealConfig, L: int, or_groups) -> bool:
-    """Kernel B1's route: exact restraints, no or-groups, a length the fused
-    step serves and the triangular kernel does not."""
+    """Kernel B1's route: the fusable options, exact restraints, no
+    or-groups, a length the fused step serves and the triangular kernel
+    does not."""
     exact = cfg.exact_restraints and cfg.noe_rswitch >= 1e8
-    return (exact and or_groups is None and fused_step_feasible(L)
+    return (not _unfused(cfg) and exact and or_groups is None and fused_step_feasible(L)
             and not tri_energy.use_triangular(L))
 
 
@@ -297,7 +301,8 @@ def stack_refusal(cfg: AnnealConfig, C: int, L: int) -> Optional[str]:
 
 
 def _solve_stack(rs, stacked, cfg: AnnealConfig, n_models: int, bead_masks: torch.Tensor,
-                 xs: torch.Tensor, noise_seeds, or_groups=None) -> AnnealResult:
+                 xs: torch.Tensor, noise_seeds, or_groups=None,
+                 schedule: Optional[Schedule] = None, noise=None) -> AnnealResult:
     """The phases of the solve (hot -> pick -> cool -> final terms ->
     centroid) for C chromosomes at once: rs their (L, L) restraints,
     `stacked` the same as (C, L, L) tensors (None when C = 1), bead_masks
@@ -305,8 +310,10 @@ def _solve_stack(rs, stacked, cfg: AnnealConfig, n_models: int, bead_masks: torc
     of C x n_eff structures, chromosome-major. C > 1 runs the fused route
     only (kernels B1 and B2 have the chromosome axis); the final terms and
     the centroid are taken chromosome by chromosome, so each chromosome's
-    numbers are those of a solve of its own. Returns an AnnealResult whose
-    arrays carry a leading C axis."""
+    numbers are those of a solve of its own. schedule overrides the one
+    built from cfg; noise replays the unfused route's standard-normal
+    draws (solve_ensemble_impl). Returns an AnnealResult whose arrays carry
+    a leading C axis."""
     C, n_eff, L = xs.shape[0], xs.shape[1], xs.shape[2]
     dev = xs.device
     exact = cfg.exact_restraints and cfg.noe_rswitch >= 1e8
@@ -319,10 +326,19 @@ def _solve_stack(rs, stacked, cfg: AnnealConfig, n_models: int, bead_masks: torc
     if why:
         raise NotImplementedError(why)
 
-    table = schedule_table(cfg, noise_seeds[0])
+    table = schedule_table(cfg, noise_seeds[0], schedule)
     base = table.base
     T = len(table.rows)
-    xT = xs.reshape(C * n_eff, L, 3).transpose(1, 2).contiguous()
+    unfused = _unfused(cfg)
+    # the fused and semi routes hold the state in the kernels' (B, 3, L)
+    # layout, the unfused route in the (B, L, 3) one of the JAX package's
+    # optax step (and of its noise draws)
+    x = xs.reshape(C * n_eff, L, 3)
+    xT = x.contiguous() if unfused else x.transpose(1, 2).contiguous()
+
+    def coords_of(state):
+        return state if unfused else state.transpose(1, 2)
+
     muT = torch.zeros_like(xT)
     nuT = torch.zeros_like(xT)
     history = torch.empty((T, C * n_eff), dtype=torch.float32, device=dev)
@@ -341,16 +357,23 @@ def _solve_stack(rs, stacked, cfg: AnnealConfig, n_models: int, bead_masks: torc
             hist[k0:k1], xT, muT, nuT = fused_steps_batched(
                 xT, muT, nuT, tiles, table, k0, k1, bead_masks, seeds=seeds)
             return xT, muT, nuT
+    elif unfused:
+        # the unfused route: the pair kernel's value and gradient with the
+        # bonded terms (B2, B3 or B5 by pair_energy_and_grad_batched's
+        # dispatch, the tiles folded once), the or-group term, then the
+        # clip, Adam, noise and move in torch ops
+        steps = unfused_steps(_energy_grad(rs[0], exact, bead_masks[0], or_groups), table,
+                              bead_masks[0], cfg.gradient_clip,
+                              NoiseStream(dev, noise_seeds[0], noise))
+
+        def run(k0: int, k1: int, x, mu, nu, hist):
+            return drain(steps(k0, k1, x, mu, nu, hist))
     else:
         # the semi routes: pair terms in kernel B3 (exact) or B5 (general),
         # the or-group term added, the update in kernel B4; the tiles are
         # folded once, outside the loop
-        if exact:
-            pair_tiles = tuple(a.contiguous() for a in exact_pair_tiles(rs[0]))
-            pair_grad = tri_energy.tri_energy_grad
-        else:
-            pair_tiles = general_pair_tiles(rs[0])
-            pair_grad = general_pair_energy_grad
+        semi_tiles = pair_tiles(rs[0], exact)
+        pair_grad = tri_energy.tri_energy_grad if exact else general_pair_energy_grad
         bead_mask = bead_masks[0]
 
         # the pair kernels take their weights from the host's copy of the
@@ -363,7 +386,7 @@ def _solve_stack(rs, stacked, cfg: AnnealConfig, n_models: int, bead_masks: torc
             counter.fill_(k0)
             spare = [None, None]   # B4's outputs of the step before last
             for n, k in enumerate(range(k0, k1)):
-                e_pair, gT = pair_grad(xT, *pair_tiles, weights_k[k], bead_mask)
+                e_pair, gT = pair_grad(xT, *semi_tiles, weights_k[k], bead_mask)
                 if or_groups is not None:
                     e_og, g_og = or_group_energy_grad(
                         xT.transpose(1, 2), or_groups, weights_k[k], bead_mask
@@ -382,7 +405,7 @@ def _solve_stack(rs, stacked, cfg: AnnealConfig, n_models: int, bead_masks: torc
         xT, muT, nuT = run(0, hot, xT, muT, nuT, history)
         # handedness per mirror pair of each chromosome, by energy under the
         # end-of-hot weights (one B2 launch for the whole stack)
-        coords = xT.transpose(1, 2).contiguous()
+        coords = coords_of(xT).contiguous()
         w_hot = table.weights(hot - 1)
         e_hot, _ = pair_energy_and_grad_batched(coords, pick_r, w_hot, pick_bm, exact)
         if or_groups is not None:
@@ -396,7 +419,7 @@ def _solve_stack(rs, stacked, cfg: AnnealConfig, n_models: int, bead_masks: torc
     else:
         xT, muT, nuT = run(0, T, xT, muT, nuT, history)
     n = xT.shape[0] // C
-    coords = xT.transpose(1, 2).reshape(C, n, L, 3)
+    coords = coords_of(xT).reshape(C, n, L, 3)
 
     out_coords, terms = [], []
     term_fn = energy_terms_chunked if L >= CHUNKED_TERMS_MIN_L else energy_terms
@@ -413,6 +436,83 @@ def _solve_stack(rs, stacked, cfg: AnnealConfig, n_models: int, bead_masks: torc
         history=history.T.reshape(C, n, T), pick=pick)
 
 
+def _energy_grad(restraints, exact: bool, bead_mask: torch.Tensor, or_groups):
+    """Every unfused step's (energies (B,), gradients (B, L, 3)) of (B, L,
+    3) coords: the pair kernel with the bonded terms
+    (pair_energy_and_grad_batched, its tiles folded once here) and the
+    or-group term where given."""
+    tiles = pair_tiles(restraints, exact)
+
+    def energy_grad(x, weights):
+        e, g = pair_energy_and_grad_batched(x, restraints, weights, bead_mask, exact, tiles)
+        if or_groups is not None:
+            e_og, g_og = or_group_energy_grad(x, or_groups, weights, bead_mask)
+            e, g = e + e_og, g + g_og
+        return e, g
+
+    return energy_grad
+
+
+def _solve_one(x0: torch.Tensor, bead_mask: torch.Tensor, cfg: AnnealConfig, energy_grad,
+               schedule: Optional[Schedule], generator: Optional[torch.Generator],
+               jitter: Optional[torch.Tensor], noise):
+    """The loop of solve_single and solve_single_sharded on bead_mask's
+    device: x0 (L, 3) plus its jitter (given, or drawn from generator, a
+    fresh one seeded 0 when None), the noise seed drawn next, then the unfused
+    steps of energy_grad over the schedule. Returns (coords (L, 3), history
+    (T,))."""
+    dev, L = bead_mask.device, x0.shape[0]
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    if jitter is None:
+        jitter = torch.randn((L, 3), generator=generator)
+    x = (x0.to(device=dev, dtype=torch.float32)
+         + cfg.init_noise * jitter.to(device=dev, dtype=torch.float32) * bead_mask[:, None])
+    noise_seed = int(torch.randint(0, 2**31 - 1, (), generator=generator))
+    table = schedule_table(cfg, noise_seed, schedule)
+    draws = None if noise is None else [z[None] for z in noise]
+    steps = unfused_steps(energy_grad, table, bead_mask, cfg.gradient_clip,
+                          NoiseStream(dev, noise_seed, draws))
+    T = len(table.rows)
+    history = torch.empty((T, 1), dtype=torch.float32, device=dev)
+    x, _, _ = drain(steps(0, T, x[None], torch.zeros_like(x[None]),
+                          torch.zeros_like(x[None]), history))
+    return x[0], history[:, 0]
+
+
+def solve_single(
+    restraints,
+    cfg: AnnealConfig,
+    x0: torch.Tensor,
+    bead_mask: Optional[torch.Tensor] = None,
+    schedule: Optional[Schedule] = None,
+    or_groups=None,
+    generator: Optional[torch.Generator] = None,
+    jitter: Optional[torch.Tensor] = None,
+    noise: Optional[Sequence] = None,
+):
+    """Anneal one structure from x0 (L, 3) plus its jitter, on the unfused
+    step (the JAX package's solve_single): every step the pair kernel at B
+    = 1 (B2, B3 at L >= 1024, or B5 for restraints that are not exact)
+    with the bonded terms and any or-group term, then the clip, optax's
+    Adam, noise and the move. No enantiomer pair, no final terms, no
+    centroid. Returns (coords (L, 3), per-step total-energy history (T,)).
+
+    generator: the CPU torch.Generator for the jitter, then the seed of the
+    device generator the noise is drawn from (a fresh one seeded 0 when
+    None). jitter: a given standard-normal (L, 3) draw instead of the
+    generator's; noise: given draws, noise[k] the (L, 3) block of step k.
+    schedule overrides the one built from cfg."""
+    dev = restraints.lo.device
+    _refuse_unported(cfg)
+    if bead_mask is None:
+        bead_mask = torch.ones(x0.shape[0], dtype=torch.float32, device=dev)
+    bead_mask = bead_mask.to(device=dev, dtype=torch.float32).contiguous()
+    exact = cfg.exact_restraints and cfg.noe_rswitch >= 1e8
+    return _solve_one(x0, bead_mask, cfg, _energy_grad(restraints, exact, bead_mask, or_groups),
+                      schedule, generator, jitter, noise)
+
+
 def solve_ensemble_impl(
     restraints,
     cfg: AnnealConfig,
@@ -423,6 +523,8 @@ def solve_ensemble_impl(
     or_groups=None,
     xs: Optional[torch.Tensor] = None,
     noise_seed: Optional[int] = None,
+    schedule: Optional[Schedule] = None,
+    noise: Optional[Sequence] = None,
 ) -> AnnealResult:
     """Build n_models structures on the restraints' device: one batched
     loop over all restarts (+ enantiomer pairs); the one-chromosome case of
@@ -437,8 +539,15 @@ def solve_ensemble_impl(
       when None.
     xs: an explicit (n_eff, L, 3) start ensemble, used as given (no init,
       no mirror signs, no jitter); noise_seed: an explicit int32 seed for
-      the Langevin noise stream. Together they let a caller replay the
-      values another implementation drew.
+      the Langevin noise stream (on the unfused route, the seed of the
+      device generator the noise is drawn from). Together they let a
+      caller replay the values another implementation drew.
+    schedule: a Schedule that overrides the one built from cfg (the table
+      B1 and B4 read is built from it).
+    noise: on the unfused route, the standard-normal draws to replay
+      instead of the device generator's, noise[k] the (B, L, 3) block of
+      step k (B = n_eff through the hot phase, n_models after the pick
+      with enantiomer pairs), as the JAX package draws one block a step.
     """
     dev = restraints.lo.device
     L = restraints.lo.shape[0]
@@ -451,7 +560,7 @@ def solve_ensemble_impl(
     xs, noise_seed = _draws(restraints, cfg, n_models, bead_mask, x0, generator, xs,
                             noise_seed)
     res = _solve_stack([restraints], None, cfg, n_models, bead_mask[None], xs[None],
-                       [noise_seed], or_groups)
+                       [noise_seed], or_groups, schedule, noise)
     return AnnealResult(coords=res.coords[0], energies={k: v[0] for k, v in res.energies.items()},
                         history=res.history[0],
                         pick=None if res.pick is None else res.pick[0])
@@ -478,8 +587,8 @@ def solve_bucket_impl(
     route the C x n_eff structures run as one batch (B1 twice, B2 once for
     the whole bucket); chromosome c's results are those of
     solve_ensemble_impl on its own restraints with the same draws. Off that
-    route (restraints that are not exact) the chromosomes are solved one
-    after another."""
+    route (restraints that are not exact, the unfused route) the
+    chromosomes are solved one after another."""
     target = restraints.lo
     dev = target.device
     C, L = target.shape[0], target.shape[-1]

@@ -1,6 +1,7 @@
-"""The row-sharded (sequence-parallel) ensemble solve — the port of
+"""The row-sharded (sequence-parallel) solves — the port of
 chromosome3d_tpu/solver/sharded.py `solve_ensemble_sharded` (its 1-D
-`_ensemble_shard_fn` body on the fused-update route).
+`_ensemble_shard_fn` body on the fused-update and the unfused routes) and
+`solve_single_sharded`.
 
 The (L, L) restraint tensors are cut into row strips, one per rank of a
 parallel.shards.ShardGroup; coordinates, Adam moments and the noise seed
@@ -13,6 +14,12 @@ gathered (B5', B2'), the or-group term is added on the lead, and kernel B4
 runs once, on the lead, before the new coordinates are copied to the other
 ranks. The JAX package runs the update on every device instead; the
 replicas are bitwise identical there, so one update is the same result.
+On the unfused route (`fuse_update=False`, the angle term, or strips the
+fused route does not take; `_route`) each rank runs B2' or B5' on its
+strip, the gradient rows are gathered on the lead, and the bonded terms,
+the clip, optax's Adam, noise and the move run there once
+(solver.unfused). `solve_single_sharded` runs that step on one structure,
+B5' on every rank.
 
 Around the steps, as in the JAX package: the landmark init from the sharded
 rows (always landmark, whatever cfg.init; edges from the folded weight
@@ -56,7 +63,10 @@ from chromosome3d_tpu_torch.parallel.sharded_energy import row_block_energy_grad
 from chromosome3d_tpu_torch.parallel.shards import ShardGroup
 from chromosome3d_tpu_torch.solver.anneal import (
     AnnealResult,
+    Schedule,
     _refuse_unported,
+    _solve_one,
+    _unfused,
     chromosome_generator,
     schedule_table,
 )
@@ -68,6 +78,7 @@ from chromosome3d_tpu_torch.solver.init import (
     relax_landmarks_block,
     relax_landmarks_lower_block,
 )
+from chromosome3d_tpu_torch.solver.unfused import NoiseStream, unfused_steps
 
 _BIG = 1e6
 
@@ -101,6 +112,12 @@ def _tiles(group: ShardGroup, strips: Sequence, L: int) -> List[_Tiles]:
         out.append(_Tiles(lo.float().contiguous(), s.hi.float().contiguous(),
                           w.float().contiguous(), group.row_start(r, L)))
     return out
+
+
+def _one_chromosome_tiles(group: ShardGroup, strips: Sequence, L: int) -> List[_Tiles]:
+    """_tiles of (Lb, L) strips, with a chromosome axis of 1."""
+    return [dataclasses.replace(t, lo=t.lo[None], hi=t.hi[None], w=t.w[None])
+            for t in _tiles(group, strips, L)]
 
 
 def sharded_landmark_init(group: ShardGroup, strips: Sequence, bead_mask: torch.Tensor,
@@ -157,21 +174,25 @@ def sharded_landmark_init(group: ShardGroup, strips: Sequence, bead_mask: torch.
 
 
 def _route(cfg: AnnealConfig, L: int, n: int) -> str:
-    """The JAX package's fused sharded route (sharded.py:266-296): "strip"
-    (B6) for exact restraints where strip_tri_feasible holds, else "rows"
-    (B2' or B5') where row_block_feasible holds. The unfused sharded route
-    those gates fall back to is refused."""
+    """The JAX package's sharded route (sharded.py:266-296): with the
+    fusable options (fuse_update, no angle term) and strips of a multiple
+    of 8 rows, "strip" (B6 + B4) for exact restraints where
+    strip_tri_feasible holds, else "rows" (B2' or B5', + B4) where
+    row_block_feasible holds; "unfused" everywhere else. On the unfused
+    route the JAX package runs its Pallas row block where Lb % 8 == 0 and
+    row_block_feasible hold and its jnp row block `_row_block_energy_grad`
+    elsewhere: both are TPU tiling rules (sublanes, scoped VMEM). The
+    port's B2' and B5' take any strip (pair_energy.exact_pair_plan,
+    general_pair.general_pair_plan), so they run there too; no plain twin
+    runs on the card."""
     Lb = L // n
     exact = cfg.exact_restraints and cfg.noe_rswitch >= 1e8
-    if Lb % 8 == 0:
+    if not _unfused(cfg) and Lb % 8 == 0:
         if exact and strip_tri.strip_tri_feasible(L, n):
             return "strip"
         if strip_tri.row_block_feasible(L, n, exact):
             return "rows"
-    raise NotImplementedError(
-        f"L={L} over {n} shards (Lb={Lb}) takes the unfused sharded route, "
-        "not ported (ROADMAP A11)"
-    )
+    return "unfused"
 
 
 def _start(group: ShardGroup, strips: Sequence, bead_mask: torch.Tensor,
@@ -207,9 +228,32 @@ def _in_lockstep(bodies) -> list:
     return results
 
 
+def _pair_rows(group: ShardGroup, tiles: List[_Tiles], beads: Sequence, xT: torch.Tensor,
+               weights, exact: bool, route: str):
+    """(pair energies (B,), pair gradient (B, 3, L)) on the lead of (B, 3,
+    L) coords there: on the "strip" route B6 on every rank for all C
+    chromosomes, the partial gradients summed; else (C = 1) B2' (exact) or
+    B5' on every rank's rows, the rows gathered. tiles[r] holds rank r's
+    (C, Lb, L) strips, beads[r] the (C, L) bead masks on its device."""
+    xTs = group.broadcast(xT)
+    if route == "strip":
+        parts = [strip_tri.strip_tri_energy_grad(x, t.lo, t.w, weights, b, t.row_start)
+                 for x, t, b in zip(xTs, tiles, beads)]
+        return group.psum([e for e, _ in parts]), group.psum([g for _, g in parts])
+    if exact:
+        parts = [exact_row_block_energy_grad(x, t.lo[0], t.w[0], weights, b[0], t.row_start)
+                 for x, t, b in zip(xTs, tiles, beads)]
+    else:
+        parts = [general_row_block_energy_grad(x, t.lo[0], t.hi[0], t.w[0], weights, b[0],
+                                               t.row_start)
+                 for x, t, b in zip(xTs, tiles, beads)]
+    return group.psum([e for e, _ in parts]), group.all_gather([g for _, g in parts], 2)
+
+
 def _group_body(group: ShardGroup, tiles: List[_Tiles], bead_masks: torch.Tensor,
                 cfg: AnnealConfig, n_models: int, xs: torch.Tensor, noise_seeds,
-                route: str, or_groups=None):
+                route: str, or_groups=None, schedule: Optional[Schedule] = None,
+                noise=None):
     """The shard body for the C chromosomes of one shard group, a generator
     that yields after queueing each annealing step and returns its
     AnnealResult: tiles[r] is rank r's (C, Lb, L) strips, bead_masks (C, L),
@@ -218,8 +262,11 @@ def _group_body(group: ShardGroup, tiles: List[_Tiles], bead_masks: torch.Tensor
     rank runs B6 once for all C chromosomes (or, at C = 1, B2' / B5' on the
     "rows" route), the partials are combined on the lead, and B4 runs once
     there for all of them, each chromosome with its mask and its noise
-    seed. The pick, the final terms and the centroid are taken chromosome
-    by chromosome. The AnnealResult has a leading C axis."""
+    seed. On the "unfused" route (C = 1) the update after the gathered
+    gradient is solver.unfused's, on the lead, with noise from a generator
+    there seeded by the noise seed (or the given draws `noise`). The pick,
+    the final terms and the centroid are taken chromosome by chromosome.
+    The AnnealResult has a leading C axis."""
     lead = group.lead
     C, n_eff, L = xs.shape[0], xs.shape[1], xs.shape[2]
     if C > 1 and (route != "strip" or or_groups is not None):
@@ -230,27 +277,13 @@ def _group_body(group: ShardGroup, tiles: List[_Tiles], bead_masks: torch.Tensor
     beads = group.broadcast(bead_masks)
     seeds = torch.tensor([_c_int32(v) for v in noise_seeds], dtype=torch.int32,
                          device=lead)
-    table = schedule_table(cfg, noise_seeds[0])
+    table = schedule_table(cfg, noise_seeds[0], schedule)
     base = table.base
     T = len(table.rows)
     step_weights = [table.weights(k) for k in range(T)]
 
     def pair_T(xT, weights):
-        """(pair energies (B,), pair gradient (B, 3, L)) on the lead."""
-        xTs = group.broadcast(xT)
-        if route == "strip":
-            parts = [strip_tri.strip_tri_energy_grad(x, t.lo, t.w, weights, b, t.row_start)
-                     for x, t, b in zip(xTs, tiles, beads)]
-            return group.psum([e for e, _ in parts]), group.psum([g for _, g in parts])
-        if exact:
-            parts = [exact_row_block_energy_grad(x, t.lo[0], t.w[0], weights, b[0],
-                                                 t.row_start)
-                     for x, t, b in zip(xTs, tiles, beads)]
-        else:
-            parts = [general_row_block_energy_grad(x, t.lo[0], t.hi[0], t.w[0], weights,
-                                                   b[0], t.row_start)
-                     for x, t, b in zip(xTs, tiles, beads)]
-        return group.psum([e for e, _ in parts]), group.all_gather([g for _, g in parts], 2)
+        return _pair_rows(group, tiles, beads, xT, weights, exact, route)
 
     # kernel B4 reads its step from a device counter on the lead, its
     # scalars from the table's rows there and each chromosome's noise seed
@@ -258,7 +291,7 @@ def _group_body(group: ShardGroup, tiles: List[_Tiles], bead_masks: torch.Tensor
     counter = step_counter(0, lead)
     og_mask = bead_masks[0]
 
-    def run(k0, k1, xT, muT, nuT, hist):
+    def run_fused_update(k0, k1, xT, muT, nuT, hist):
         counter.fill_(k0)
         spare = [None, None]   # B4's outputs of the step before last
         for n, k in enumerate(range(k0, k1)):
@@ -275,7 +308,30 @@ def _group_body(group: ShardGroup, tiles: List[_Tiles], bead_masks: torch.Tensor
             yield
         return xT, muT, nuT
 
-    xT = xs.reshape(C * n_eff, L, 3).transpose(1, 2).contiguous()
+    unfused = route == "unfused"
+    if unfused:
+        # the pair rows of every rank gathered, then the bonded terms (bond
+        # and angle) and the or-group term on the lead: the state in the JAX
+        # step's (B, L, 3) layout
+        def energy_grad(x, weights):
+            e_pair, gT = pair_T(x.transpose(1, 2).contiguous(), weights)
+            g = gT.transpose(1, 2)
+            if or_groups is not None:
+                e_og, g_og = or_group_energy_grad(x, or_groups, weights, og_mask)
+                e_pair, g = e_pair + e_og, g + g_og
+            e_b, g_b = bond_energy_grad(x, weights, og_mask)
+            return e_pair + e_b, g + g_b
+
+        run = unfused_steps(energy_grad, table, og_mask, cfg.gradient_clip,
+                            NoiseStream(lead, noise_seeds[0], noise))
+    else:
+        run = run_fused_update
+
+    def coords_of(state):
+        return state if unfused else state.transpose(1, 2)
+
+    x = xs.reshape(C * n_eff, L, 3)
+    xT = x.contiguous() if unfused else x.transpose(1, 2).contiguous()
     muT = torch.zeros_like(xT)
     nuT = torch.zeros_like(xT)
     history = torch.empty((T, C * n_eff), dtype=torch.float32, device=lead)
@@ -284,9 +340,10 @@ def _group_body(group: ShardGroup, tiles: List[_Tiles], bead_masks: torch.Tensor
         hot = cfg.hot_steps
         xT, muT, nuT = yield from run(0, hot, xT, muT, nuT, history)
         w_hot = step_weights[hot - 1]
-        coords = xT.transpose(1, 2).contiguous()
+        coords = coords_of(xT).contiguous()
         masks_b = bead_masks.repeat_interleave(n_eff, 0)
-        e_hot = pair_T(xT, w_hot)[0] + bond_energy_grad(coords, base, masks_b)[0]
+        xT_hot = coords.transpose(1, 2).contiguous() if unfused else xT
+        e_hot = pair_T(xT_hot, w_hot)[0] + bond_energy_grad(coords, base, masks_b)[0]
         if or_groups is not None:
             e_hot = e_hot + or_group_energy(coords, or_groups, w_hot, og_mask)
         choice = torch.argmin(e_hot.reshape(C, n_models, 2), dim=2)
@@ -298,7 +355,7 @@ def _group_body(group: ShardGroup, tiles: List[_Tiles], bead_masks: torch.Tensor
     else:
         xT, muT, nuT = yield from run(0, T, xT, muT, nuT, history)
     n = xT.shape[0] // C
-    coords_all = xT.transpose(1, 2).reshape(C, n, L, 3)
+    coords_all = coords_of(xT).reshape(C, n, L, 3)
 
     # final canonical-weight terms: the plain row-block energy on every
     # rank, a chromosome at a time; then the centroid to the origin
@@ -334,19 +391,25 @@ def solve_ensemble_sharded(
     xs: Optional[torch.Tensor] = None,
     noise_seed: Optional[int] = None,
     generator: Optional[torch.Generator] = None,
+    schedule: Optional[Schedule] = None,
+    noise: Optional[Sequence] = None,
 ) -> AnnealResult:
     """Build n_models structures with the (L, L) work row-sharded over the
     group: strips[r] is rank r's (Lb, L) ExactRestraints or DenseRestraints
     strip on its device (restraint_strips cuts whole tensors), L = n Lb.
     bead_mask (L,), or_groups (ops.energy.OrGroupRestraints) and the result
     live on the lead device. The one-chromosome case of
-    solve_genome_sharded's shard body.
+    solve_genome_sharded's shard body; the route is `_route`'s.
 
     generator: the CPU torch.Generator for the jitter and the noise seed (a
     fresh one seeded 0 when None). xs: an explicit (n_eff, L, 3) start
     ensemble, used as given (no init, no mirror signs, no jitter);
-    noise_seed: an explicit int32 noise-stream seed. Together they replay
-    the values another implementation drew."""
+    noise_seed: an explicit int32 noise-stream seed (on the unfused route,
+    the seed of the lead's noise generator); noise: on the unfused route,
+    given standard-normal draws, noise[k] the (B, L, 3) block of step k
+    (solver.anneal.solve_ensemble_impl). Together they replay the values
+    another implementation drew. schedule overrides the one built from
+    cfg."""
     if len(strips) != group.n:
         raise ValueError(f"{len(strips)} strips for {group.n} shards")
     lead = group.lead
@@ -354,8 +417,7 @@ def solve_ensemble_sharded(
     group.rows(L)
     _refuse_unported(cfg)
     route = _route(cfg, L, group.n)
-    tiles = [dataclasses.replace(t, lo=t.lo[None], hi=t.hi[None], w=t.w[None])
-             for t in _tiles(group, strips, L)]
+    tiles = _one_chromosome_tiles(group, strips, L)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     if bead_mask is None:
@@ -370,7 +432,7 @@ def solve_ensemble_sharded(
     if noise_seed is None:
         noise_seed = int(torch.randint(0, 2**31 - 1, (), generator=generator))
     res, = _in_lockstep([_group_body(group, tiles, bead_mask[None], cfg, n_models, xs[None],
-                                     [int(noise_seed)], route, or_groups)])
+                                     [int(noise_seed)], route, or_groups, schedule, noise)])
     return AnnealResult(coords=res.coords[0],
                         energies={k: v[0] for k, v in res.energies.items()},
                         history=res.history[0],
@@ -402,7 +464,9 @@ def solve_genome_sharded(
     draws from its chromosome's key; xs (B, n_eff, L, 3) and noise_seeds
     (B,) replay given values instead. A group's chromosomes run as one
     batch: every step B6 once on each rank for all of them and B4 once on
-    the group's lead. The groups' steps are queued in turn (step k of every
+    the group's lead. On the unfused route (`_route`) a group holds one
+    chromosome (B2' and B5' have no chromosome axis). The groups' steps are
+    queued in turn (step k of every
     group before step k + 1 of any), so groups on other devices run at once
     as the JAX mesh's do. Returns an AnnealResult on groups[0]'s lead with a
     leading B axis: coords (B, n_models, L, 3), energies (B, n_models) each,
@@ -420,10 +484,14 @@ def solve_genome_sharded(
     groups[0].rows(L)
     Cg = B // nc
     route = _route(cfg, L, nb)
-    if route != "strip":
+    if route == "rows":
         raise NotImplementedError(
             f"an at-scale genome bucket at L={L} over {nb} devices a chromosome takes "
             "the row-block route (B2' with a chromosome axis), not ported (ROADMAP A12)")
+    if route == "unfused" and Cg > 1:
+        raise NotImplementedError(
+            f"an at-scale genome bucket of {Cg} chromosomes a group at L={L} takes the "
+            "unfused route (B2' and B5' with a chromosome axis), not ported (ROADMAP A12.3)")
     n_eff = n_models * 2 if cfg.enantiomer else n_models
     if xs is not None and tuple(xs.shape) != (B, n_eff, L, 3):
         raise ValueError(f"xs: shape {tuple(xs.shape)}, expected {(B, n_eff, L, 3)}")
@@ -454,3 +522,49 @@ def solve_genome_sharded(
         history=torch.cat([r.history.to(out) for r in results]),
         pick=None if results[0].pick is None else torch.cat([r.pick.to(out)
                                                              for r in results]))
+
+
+def solve_single_sharded(
+    group: ShardGroup,
+    strips: Sequence,
+    cfg: AnnealConfig,
+    x0: torch.Tensor,
+    bead_mask: Optional[torch.Tensor] = None,
+    schedule: Optional[Schedule] = None,
+    generator: Optional[torch.Generator] = None,
+    jitter: Optional[torch.Tensor] = None,
+    noise: Optional[Sequence] = None,
+):
+    """Anneal one structure from x0 (L, 3) with the pair work row-sharded
+    over the group (the JAX package's solve_single_sharded): every step each
+    rank runs B5' (the general well over lo, hi and the folded w, whatever
+    the restraints) on its strip, the gradient rows are gathered on the
+    lead, and the bond and angle terms, the clip, optax's Adam, noise and
+    the move run there. strips as solve_ensemble_sharded's; x0, bead_mask
+    and the result on the lead. ValueError where L is not a multiple of the
+    shard count. Returns (coords (L, 3), history (T,)), trajectory-equal to
+    solver.anneal.solve_single on the same draws (generator, jitter and
+    noise as there)."""
+    L = x0.shape[0]
+    n = group.n
+    if L % n:
+        raise ValueError(f"L={L} must be a multiple of the {n} shards")
+    if len(strips) != n:
+        raise ValueError(f"{len(strips)} strips for {n} shards")
+    if any(tuple(s.lo.shape) != (L // n, L) for s in strips):
+        raise ValueError(f"strips must be ({L // n}, {L}) each")
+    _refuse_unported(cfg)
+    lead = group.lead
+    tiles = _one_chromosome_tiles(group, strips, L)
+    if bead_mask is None:
+        bead_mask = torch.ones(L, dtype=torch.float32, device=lead)
+    bead_mask = bead_mask.to(device=lead, dtype=torch.float32).contiguous()
+    beads = group.broadcast(bead_mask[None])
+
+    def energy_grad(x, weights):
+        e, gT = _pair_rows(group, tiles, beads, x.transpose(1, 2).contiguous(), weights,
+                           False, "unfused")
+        e_b, g_b = bond_energy_grad(x, weights, bead_mask)
+        return e + e_b, gT.transpose(1, 2) + g_b
+
+    return _solve_one(x0, bead_mask, cfg, energy_grad, schedule, generator, jitter, noise)

@@ -827,3 +827,66 @@ def test_cuda_run_genome_mixed_scale(cuda_device, tmp_path):
         assert os.path.isfile(os.path.join(out, name, f"{name}_model1.pdb"))
     summary = json.load(open(os.path.join(out, "summary.json")))
     assert sorted(summary["phases"]) == ["L1024", "L1536", "L512"]
+
+
+@pytest.mark.parametrize("B", [1, 20])
+@pytest.mark.parametrize("kernel", ["B2", "B3", "B5", "B2'", "B5'"])
+def test_cuda_unfused_step_kernels_match_plain(cuda_device, monkeypatch, kernel, B):
+    """The unfused route (fuse_update=False) on the card against the same
+    solve on the CPU, where every kernel is its plain twin: 8 steps of B = 1
+    structure, or of B = 20 in the hot phase and 10 after the pick, from the
+    same start and the same given noise blocks. B2 / B3 (forced, as the CPU
+    tests force it) / B5 through solve_ensemble_impl, B2' / B5' through
+    solve_ensemble_sharded on the card listed twice; each kernel launched
+    once a step (a strip) and once for the pick. Tolerances are the solve
+    level's: coords rtol 1e-3 / atol 2e-3, energies rtol 1e-4, history rtol
+    1e-3."""
+    from chromosome3d_tpu_torch.ops import tri_energy
+    from chromosome3d_tpu_torch.ops.energy import DenseRestraints
+    from chromosome3d_tpu_torch.parallel.shards import ShardGroup
+    from chromosome3d_tpu_torch.solver import anneal, sharded
+
+    L, n_real = 200, 181
+    ex, bm, x, _, _ = _case(cuda_device, L=L, n_real=n_real, B=B, seed=4)
+    exact = kernel in ("B2", "B3", "B2'")
+    r = ex if exact else DenseRestraints(lo=(ex.target * 0.8).contiguous(),
+                                         hi=(ex.target * 1.2).contiguous(),
+                                         mask=(ex.w > 0).float(), weight=ex.w)
+    if kernel == "B3":
+        monkeypatch.setattr(tri_energy, "use_triangular", lambda *a, **k: True)
+    cfg = dataclasses.replace(AnnealConfig(), exact_restraints=exact, fuse_update=False,
+                              enantiomer=B == 20, hot_steps=4, cool_cycles=1,
+                              cool_steps_per_cycle=2, final_steps=2)
+    n_models = 10 if B == 20 else 1
+    xs = x.transpose(1, 2).contiguous()
+    g = torch.Generator().manual_seed(5)
+    noise = [torch.randn((B if k < cfg.hot_steps else n_models, L, 3), generator=g)
+             for k in range(cfg.total_steps)]
+    wrapper = {"B2": exact_pair_energy_grad, "B3": tri_energy_grad,
+               "B5": general_pair_energy_grad, "B2'": exact_row_block_energy_grad,
+               "B5'": general_row_block_energy_grad}[kernel]
+    rows = kernel.endswith("'")
+
+    def solve(dev):
+        r_d = type(r)(*(getattr(r, f.name).to(dev) for f in dataclasses.fields(r)))
+        args = (cfg, n_models, bm.to(dev))
+        if rows:
+            group = ShardGroup([dev] * 2)
+            return sharded.solve_ensemble_sharded(
+                group, sharded.restraint_strips(group, r_d), *args, xs=xs.to(dev),
+                noise=noise)
+        return anneal.solve_ensemble_impl(r_d, *args, xs=xs.to(dev), noise=noise)
+
+    before = wrapper.launches
+    got = solve(cuda_device)
+    torch.cuda.synchronize()
+    want = (cfg.total_steps + (1 if cfg.enantiomer else 0)) * (2 if rows else 1)
+    assert wrapper.launches - before == want
+    ref = solve(torch.device("cpu"))
+    np.testing.assert_allclose(got.coords.cpu().numpy(), ref.coords.numpy(),
+                               rtol=1e-3, atol=2e-3)
+    for k in ("noe", "bon", "vdw", "overall"):
+        np.testing.assert_allclose(got.energies[k].cpu().numpy(), ref.energies[k].numpy(),
+                                   rtol=1e-4)
+    np.testing.assert_allclose(got.history.cpu().numpy(), ref.history.numpy(), rtol=1e-3)
+    assert bool((got.coords[:, n_real:] == 0).all())

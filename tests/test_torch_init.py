@@ -23,6 +23,7 @@ from chromosome3d_tpu.truth import confined_walk, if_from_structure
 from chromosome3d_tpu_torch.ops.energy import from_jax_numpy
 from chromosome3d_tpu_torch.solver import anneal as port_anneal
 from chromosome3d_tpu_torch.solver import init as port_init
+from chromosome3d_tpu_torch.solver import unfused as port_unfused
 
 
 def _pair_dist(x):
@@ -102,6 +103,6 @@ def test_final_weights_and_clip_match_jax():
     assert port_anneal._final_weights(cfg) == w_t
     g = np.random.RandomState(0).randn(2, 7, 3).astype(np.float32) * 3
     np.testing.assert_allclose(
-        port_anneal._clip_per_bead(torch.from_numpy(g), 0.5).numpy(),
+        port_unfused._clip_per_bead(torch.from_numpy(g), 0.5).numpy(),
         np.asarray(jax_anneal._clip_per_bead(jnp.asarray(g), 0.5)), rtol=1e-6,
     )

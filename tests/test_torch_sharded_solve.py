@@ -184,19 +184,26 @@ def test_sharded_landmark_init(two_sided, n):
 
 
 def test_sharded_refusals():
-    """What the port does not run is refused by name: fuse_update=False and
-    strips of fewer than 8 rows (the JAX package's unfused sharded route),
-    and strips that do not match the group."""
+    """fuse_update=False and strips of fewer than 8 rows (the JAX package's
+    unfused sharded route, once refused as unported) run: B2''s twin on
+    every shard every step and at the pick, no B4 (tests/test_torch_unfused.py
+    holds them against the JAX package); strips that do not match the group
+    are refused."""
     _, dense, bead = _case(40, 48)
     r_t, _, _ = from_jax_numpy(dense)
+    bm = torch.from_numpy(bead)
     g3, g12 = ShardGroup(["cpu"] * 3), ShardGroup(["cpu"] * 12)
     strips = port_sharded.restraint_strips(g3, r_t)                  # Lb = 16
-    with pytest.raises(NotImplementedError, match="A11"):
-        port_sharded.solve_ensemble_sharded(
-            g3, strips, dataclasses.replace(_cfg(True), fuse_update=False), N_MODELS)
-    with pytest.raises(NotImplementedError, match="A11"):             # Lb = 4
-        port_sharded.solve_ensemble_sharded(
-            g12, port_sharded.restraint_strips(g12, r_t), _cfg(True), N_MODELS)
+    steps = _cfg(True).total_steps
+    for group, cut, cfg in (
+            (g3, strips, dataclasses.replace(_cfg(True), fuse_update=False)),
+            (g12, port_sharded.restraint_strips(g12, r_t), _cfg(True))):   # Lb = 4
+        before = _counts()
+        res = port_sharded.solve_ensemble_sharded(group, cut, cfg, N_MODELS, bm)
+        assert tuple(a - b for a, b in zip(_counts(), before)) == (
+            0, 0, group.n * (steps + 1), 0)
+        assert res.coords.shape == (N_MODELS, 48, 3) and torch.isfinite(res.coords).all()
+        assert all(torch.isfinite(v).all() for v in res.energies.values())
     with pytest.raises(ValueError):
         port_sharded.solve_ensemble_sharded(g12, strips, _cfg(True), N_MODELS)
 

@@ -121,10 +121,24 @@ def test_solve_with_noise_matches_jax_fused(case):
 
 
 def test_solve_refuses_unported_routes(case):
+    """pair_bf16 and gram_d2 are refused; fuse_update=False and the angle
+    term (once refused as unported) run the unfused route: B2 every step
+    and for the pick, no B1 or B4 (tests/test_torch_unfused.py holds it
+    against the JAX package)."""
     _, r_t, bead, _, cfg = case
     bm = torch.from_numpy(bead)
-    for bad in (dict(fuse_update=False), dict(angle_weight=0.1),
-                dict(pair_bf16=True), dict(gram_d2=True)):
+    for opt in (dict(fuse_update=False), dict(angle_weight=0.1)):
+        before = (exact_pair_energy_grad_plain.calls, fused_step_plain.calls,
+                  fused_update_plain.calls)
+        res = port_anneal.solve_ensemble_impl(r_t, dataclasses.replace(cfg, **opt),
+                                              N_MODELS, bm)
+        after = (exact_pair_energy_grad_plain.calls, fused_step_plain.calls,
+                 fused_update_plain.calls)
+        assert tuple(a - b for a, b in zip(after, before)) == (cfg.total_steps + 1, 0, 0)
+        assert res.coords.shape == (N_MODELS, L, 3) and torch.isfinite(res.coords).all()
+        assert all(torch.isfinite(v).all() for v in res.energies.values())
+        assert res.history.shape == (N_MODELS, cfg.total_steps)
+    for bad in (dict(pair_bf16=True), dict(gram_d2=True)):
         with pytest.raises(NotImplementedError):
             port_anneal.solve_ensemble_impl(
                 r_t, dataclasses.replace(cfg, **bad), N_MODELS, bm
