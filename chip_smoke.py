@@ -234,6 +234,38 @@ Phases (each prints one line or a few, then its wall seconds as a
                the device operations a step with fuse_update=False and with
                angle_weight=0.5 (traced fast_anneal(0.1) and (0.05) solves,
                their difference over the steps between them).
+  18. calibrate — `calibrate --out <tmp>/dispatch.json --force --steps 240
+               --repeats 5` through the CLI in process, at the JAX package's
+               default cases (512 x10, 512 x20, 1024 x4, 2048 x4, 4096 x4),
+               the 1-minute load printed beside it: each entry's four
+               seconds and spreads, the choices that differ from the frozen
+               rule, the cases the spread gate rejected (the phase fails
+               only when none survives), no plain twin in a timed call; then
+               with CHROM3D_DISPATCH_TABLE naming the file, `calibrate
+               --verify` (the same entries, their drift),
+               describe_dispatch(512, 20) and a fast_anneal run_pipeline of
+               phase 4's matrix whose launches are the described route's;
+               then the variable unset, the file removed and the frozen rule
+               back.
+  19. genome stack — genome buckets stacked on the routes past B1 and B2 at
+               full width (10 models, the default schedule), bucketed,
+               stacked and solved as run_genome does (genome.bucket_jobs,
+               _stack_bucket, genome.solve_bucket; the assessment and its
+               files are phases 4b's and 4c's): (a) the 100 kb genome's
+               chromosomes past 768 beads under length_buckets (512, 768,
+               1024, 1536, 2048, 2560): 1024 x5, 1536 x6 and 2048 x5 on B1's
+               steps (2 launches) with the pick on B3 once for the bucket,
+               2560 x2 on B3 + B4 (2,761 and 2,760 launches); (b) phase 4b's
+               45 inputs with noe_rswitch = 5.0: one 512 bucket on B5 + B4
+               (2,761 and 2,760). Each bucket's launches exact, no twin, the
+               gates on every chromosome's best model by Spearman(IF, 1/d)
+               (the rank-01 model), its first and last chromosome bit
+               for bit a solve_ensemble_impl of its own from the same draws,
+               its solve seconds; then B3 and B5 with the chromosome axis at
+               those buckets' shapes on the tiles the runs built (B = 20
+               near the truths): one launch against the twin, equal bits
+               over two calls, each chromosome bit for bit a launch of its
+               own, wall, device and twin ms beside the bound.
 Then one JSON line with the kernels' numbers (each with its launches on its
 path, its wall and device ms and its twin's — for B1 per step of a 256-step
 launch, with the steps it ran on the main path — its bound from the H100's
@@ -247,7 +279,9 @@ the rows of its largest bucket also holding the numbers at the 50 kb
 genome's bucket of two chromosomes at L = 5120; B1-B5 also with their
 launches on phase 4f's served requests, and B2, B3, B5, B2' and B5' with
 their launches on phase 17's unfused solves and their errors at its
-shapes) and, last,
+shapes; every row with its launches in phases 18 and 19 where it ran
+there; B3 and B5 with the chromosome axis at the buckets of phase 19, with
+that bucket's launches) and, last,
 the result line `{"ok": true, "device": {...}}`.
 """
 
@@ -277,6 +311,8 @@ L_TRUE, L_PAD, N_MODELS, SEED = 456, 512, 10, 7
 # hg19 chr1 at 50 kb; quantum_bucket(4985, 512) pads it to 5120
 L_BIG, L_BIG_PAD = 4985, 5120
 GATES = {"rmsd_over_rg": 0.15, "spearman_d": 0.98, "drmsd_rel": 0.08}
+# threads for the host's scoring of many chromosomes (the card's host has 8 cores)
+HOST_THREADS = min(8, os.cpu_count() or 1)
 # the `solve` paths' restraint files: shape B's short-range band and its
 # long-range pairs, shape C's or-group rows
 B_BAND, B_LONG, C_GROUPS = 32, 400_000, 200
@@ -2151,7 +2187,12 @@ def phase_genome_100kb(directory, truths, card):
             check(sorted(ph) == ["alpha_s", "chromosomes", "emit_s", "load_s",
                                  "solve_and_views_s"] and len(ph["chromosomes"]) == n,
                   f"genome 100 kb bucket {L}: {ph}")
-        met = {}
+        # the rank-01 models scored on host threads (numpy's sorts release
+        # the interpreter lock), in the order of GENOME_100KB
+        with concurrent.futures.ThreadPoolExecutor(HOST_THREADS) as pool:
+            scored = pool.map(lambda nl: check_gates(sorted(glob.glob(os.path.join(
+                out, nl[0], f"{nl[0]}_rank*_a05.pdb")))[0], truths[nl[0]]), GENOME_100KB)
+            met = dict(zip((name for name, _ in GENOME_100KB), scored))
         for name, L in GENOME_100KB:
             d = os.path.join(out, name)
             for f in ("model_info.log", "spearman.txt", f"{name}_model1.pdb"):
@@ -2165,7 +2206,6 @@ def phase_genome_100kb(directory, truths, card):
             check(len(ranked) == N_MODELS, f"genome 100 kb: {name}: {len(ranked)} rank PDBs")
             s = summary["chromosomes"][name]
             check(s["L"] == L and s["models"] == N_MODELS, f"genome 100 kb: {name}'s {s}")
-            met[name] = check_gates(ranked[0], truths[name])
             print(f"[genome 100kb] {name} L={L} -> {s['bucket']}: rank01 rmsd/Rg "
                   f"{met[name]['rmsd_over_rg']:.4f}, spearman_d {met[name]['spearman_d']:.5f}, "
                   f"dRMSD_rel {met[name]['drmsd_rel']:.4f}; best Spearman(IF,1/d) "
@@ -3353,6 +3393,323 @@ def phase_unfused(dev, X, M, keep, inputs, card):
     return out_launches, errs
 
 
+# phase 18: the calibration's protocol (the CLI's default steps stay 960)
+CAL_STEPS, CAL_REPEATS = 240, 5
+
+
+def expected_launches(route, pick_tri, T):
+    """The kernel launches of a solve of T steps at the reference scale on a
+    step route of describe_dispatch (its pick on B3 or B2)."""
+    pick = "B3" if pick_tri else "B2"
+    want = {"fused": {"B1": 2}, "semi": {"B3": T, "B4": T}}[route]
+    want[pick] = want.get(pick, 0) + 1
+    return want
+
+
+def phase_calibrate(X, M, card, tmp):
+    """Phase 18: `calibrate --out <tmp>/dispatch.json --force --steps 240
+    --repeats 5` through the CLI in process at the JAX package's default
+    cases, the 1-minute load printed beside it; each entry's four seconds,
+    its spreads and the choices where they differ from the frozen rule;
+    rejected cases printed (the phase fails only when no case survives).
+    Then, with CHROM3D_DISPATCH_TABLE naming the file: `calibrate --verify`,
+    describe_dispatch(512, 20), and a fast_anneal run_pipeline of phase 4's
+    matrix whose kernel launches are the described route's. Then the
+    variable is unset and the file removed, and the frozen rule is back.
+    Returns {"calibrate", "verify", "run": launches}."""
+    from chromosome3d_tpu_torch import cli, pipeline
+    from chromosome3d_tpu_torch.config import AnnealConfig, PipelineConfig, fast_anneal
+    from chromosome3d_tpu_torch.io import write_if_matrix
+    from chromosome3d_tpu_torch.ops import tri_energy
+    from chromosome3d_tpu_torch.ops.fused_step import fused_step_feasible
+
+    check("CHROM3D_DISPATCH_TABLE" not in os.environ, "CHROM3D_DISPATCH_TABLE is set")
+    logging.getLogger("chromosome3d_tpu_torch.pipeline").setLevel(logging.WARNING)
+    path = os.path.join(tmp, "calibrate", "dispatch.json")
+    kind = torch.cuda.get_device_name(0)
+    load1 = os.getloadavg()[0]
+    out = {}
+
+    def cli_json(argv, where):
+        reset_counters()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        launches, plain = read_counters()
+        check(rc == 0, f"cli {' '.join(argv)} returned {rc}")
+        check(plain == 0, f"{where}: plain twins ran {plain} times")
+        out[where] = launches
+        return json.loads(buf.getvalue())
+
+    t0 = time.perf_counter()
+    table = cli_json(["calibrate", "--out", path, "--force", "--steps", str(CAL_STEPS),
+                      "--repeats", str(CAL_REPEATS)], "calibrate")
+    t_cal = time.perf_counter() - t0
+    check(json.load(open(path)) == table and sorted(table) == [kind],
+          f"calibrate: the file and the printed table differ, or keys {sorted(table)}")
+    entries, rejected = table[kind]["entries"], table[kind].get("rejected", [])
+    print(f"[calibrate] calibrate --steps {CAL_STEPS} --repeats {CAL_REPEATS} --force: "
+          f"{len(entries)} entries, {len(rejected)} rejected by the spread gate, in "
+          f"{t_cal:.3f} s; 1-minute load {load1:.2f} before it; on {card}")
+    check(entries, "calibrate: every case was rejected by the spread gate")
+    for e in entries:
+        L, B = e["L"], e["B"]
+        secs = {v: e[f"{v}_s"] for v in ("fused", "semi", "tri_unfused", "row_unfused")}
+        check(all(v is None or v > 0 for v in secs.values())
+              and (secs["fused"] is None) == (not fused_step_feasible(L)),
+              f"calibrate: entry {e}")
+        step = ("semi" if secs["fused"] is None or secs["semi"] < 0.97 * secs["fused"]
+                else "fused")
+        pick = "tri" if secs["tri_unfused"] < 0.97 * secs["row_unfused"] else "row"
+        frozen_step = "fused" if fused_step_feasible(L) else "semi"
+        frozen_pick = "tri" if L >= 1024 else "row"
+        moved = [f"step {frozen_step} -> {step}"] if step != frozen_step else []
+        moved += [f"pick {frozen_pick} -> {pick}"] if pick != frozen_pick else []
+        print(f"[calibrate] L={L} B={B}: seconds a {CAL_STEPS}-step call "
+              + ", ".join(f"{v} {t}" for v, t in secs.items())
+              + f"; spreads {json.dumps(e['rel_spread'])}; "
+              + (f"differs from the frozen rule: {', '.join(moved)}" if moved
+                 else "the frozen rule's choices"))
+    for r in rejected:
+        print(f"[calibrate] rejected L={r['L']} B={r['B']}: spreads "
+              f"{json.dumps(r['rel_spread'])} past the gate {r['gate']}")
+
+    os.environ["CHROM3D_DISPATCH_TABLE"] = path
+    tri_energy._DISPATCH_CACHE.clear()
+    try:
+        report = cli_json(["calibrate", "--verify", "--force"], "verify")
+        check(report["source"] == "env" and report["device_kind"] == kind
+              and [(r["L"], r["B"]) for r in report["entries"]]
+              == [(e["L"], e["B"]) for e in entries], f"verify: {report}")
+        for r in report["entries"]:
+            print(f"[calibrate] verify L={r['L']} B={r['B']}: drift % "
+                  + ", ".join(f"{v} {r[v]['drift_pct']}"
+                              for v in ("fused", "semi", "tri_unfused", "row_unfused"))
+                  + f"; choice {r['choice']} (stored {r['choice_stored']})")
+        d = tri_energy.describe_dispatch(L_PAD, 2 * N_MODELS)
+        check(d["table_source"] == "env" and d["device_kind"] == kind
+              and d["table_entry"] is not None, f"describe_dispatch: {d}")
+        pick_tri = tri_energy.use_triangular(L_PAD, True, 2 * N_MODELS)
+        print(f"[calibrate] describe_dispatch({L_PAD}, {2 * N_MODELS}): {json.dumps(d)}; "
+              f"the pick on {'B3' if pick_tri else 'B2'}")
+        cfg = PipelineConfig(model_count=N_MODELS, anneal=fast_anneal(AnnealConfig()))
+        T = cfg.anneal.total_steps
+        want = expected_launches(d["route"], pick_tri, T)
+        matrix = os.path.join(tmp, "calibrate", "chrT_456_matrix.txt")
+        write_if_matrix(matrix, M)
+        reset_counters()
+        summary = pipeline.run_pipeline(matrix, os.path.join(tmp, "calibrate", "out"), cfg)
+        launches, plain = read_counters()
+        check_launches("phase 18 run", launches, plain, want)
+        out["run"] = launches
+        print(f"[calibrate] run_pipeline fast_anneal ({T} steps) under the table: "
+              f"{json.dumps({k: n for k, n in launches.items() if n})}, the described "
+              f"route's; best Spearman(IF,1/d) {summary['best_spearman_if_inv_d']:.4f}")
+    finally:
+        del os.environ["CHROM3D_DISPATCH_TABLE"]
+        os.remove(path)
+        tri_energy._DISPATCH_CACHE.clear()
+    d = tri_energy.describe_dispatch(L_PAD, 2 * N_MODELS)
+    check(d["table_source"] == "none" and d["route"] == "fused"
+          and not tri_energy.use_triangular(L_PAD, True, 2 * N_MODELS)
+          and tri_energy.use_triangular(1024, True, 2 * N_MODELS)
+          and not tri_energy.use_triangular(2048) and tri_energy.use_triangular(2176),
+          f"the frozen rule is not back: {d}")
+    print("[calibrate] the variable unset and the file removed: describe_dispatch says "
+          "table_source none, route fused; the frozen rule is back")
+    return out
+
+
+def check_pair_axis(key, where, tiles, bms, near, card, weights):
+    """Kernel B3 (tiles (target, w)) or B5 (tiles (lo, hi, w)) with the
+    chromosome axis on one genome bucket at B = 20 a chromosome, on the
+    tiles its run built and ensembles near its truths: one launch against
+    the twin (e rtol 3e-5 for B3, 1e-5 for B5; g rtol 2e-4, atol 2e-4 +
+    1e-6 x max |g|), equal bits over two calls, each chromosome bit for bit
+    a launch of its own; then its wall, device and twin ms beside its bound.
+    Returns the numbers of the `kernels` line."""
+    from chromosome3d_tpu_torch.ops import general_pair, tri_energy
+
+    fn, twin = ((tri_energy.tri_energy_grad, tri_energy.tri_energy_grad_plain) if key == "B3"
+                else (general_pair.general_pair_energy_grad,
+                      general_pair.general_pair_energy_grad_plain))
+    C, L = bms.shape
+    B = 2 * N_MODELS
+    xT = torch.cat([a[1] for a in near]).contiguous()
+    e, g = fn(xT, *tiles, weights, bms)
+    e2, g2 = fn(xT, *tiles, weights, bms)
+    e_r, g_r = twin(xT, *tiles, weights, bms)
+    torch.cuda.synchronize()
+    check(torch.equal(e, e2) and torch.equal(g, g2), f"{key} {where}: two calls differ")
+    close(f"{key} {where} e", e, e_r, 3e-5 if key == "B3" else 1e-5)
+    err = close(f"{key} {where} g", g, g_r, 2e-4, 2e-4 + 1e-6 * float(g_r.abs().max()))
+    for c in range(C):
+        sl = slice(c * B, (c + 1) * B)
+        e_c, g_c = fn(xT[sl].contiguous(), *(a[c] for a in tiles), weights, bms[c])
+        check(torch.equal(e_c, e[sl]) and torch.equal(g_c, g[sl]),
+              f"{key} {where}: chromosome {c} differs from a launch of its own")
+    calls = {key: (lambda: fn(xT, *tiles, weights, bms), 25),
+             f"{key} plain": (lambda: twin(xT, *tiles, weights, bms), 3)}
+    wall = {k: median_ms(f, n, warmup=1) for k, (f, n) in calls.items()}
+    on_dev = {k: event_ms(f, n) for k, (f, n) in calls.items()}
+    bound_ms, bound_by = bound(key, B, L, C=C)
+    print(f"[kernels] {key} with the chromosome axis, {where}: {C} chromosomes x B={B} at "
+          f"L={L}, one launch: == twin (g max abs err {err:.3g}), each chromosome bitwise a "
+          f"launch of its own; ms as median wall with a sync | device (CUDA events): "
+          f"{wall[key]:.5f} | {on_dev[key]:.5f}, twin {wall[key + ' plain']:.4f} | "
+          f"{on_dev[key + ' plain']:.4f} (bound {bound_ms:.5f}, {bound_by}) on {card}")
+    return {**timing(err, key, wall, on_dev), "L_pad": L, "chromosomes": C,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+@contextlib.contextmanager
+def recorded_draws(draws):
+    """Record each chromosome's draws of a bucket solve (anneal._draws, in
+    chromosome order) into `draws`."""
+    from chromosome3d_tpu_torch.solver import anneal
+
+    real = anneal._draws
+
+    def spy(*args, **kwargs):
+        out = real(*args, **kwargs)
+        draws.append(out)
+        return out
+
+    anneal._draws = spy
+    try:
+        yield
+    finally:
+        anneal._draws = real
+
+
+def check_lone(where, run, c):
+    """Chromosome c of a recorded stacked solve against solve_ensemble_impl
+    on its own restraints from the same draws, bit for bit."""
+    from chromosome3d_tpu_torch.solver.anneal import _chromosome, solve_ensemble_impl
+
+    xs, seed = run["draws"][c]
+    lone, seconds = synced_seconds(
+        solve_ensemble_impl, _chromosome(run["restraints"], c), run["cfg"], N_MODELS,
+        bead_mask=run["masks"][c], xs=xs, noise_seed=seed)
+    got = run["result"]
+    same = (torch.equal(lone.coords, got.coords[c]) and torch.equal(lone.history, got.history[c])
+            and torch.equal(lone.pick, got.pick[c])
+            and all(torch.equal(v, got.energies[k][c]) for k, v in lone.energies.items()))
+    check(same, f"{where}: chromosome {c} differs from a solve of its own from the same draws")
+    return seconds
+
+
+def genome_stack_solves(directory, cfg, truths, where, want_bucket, card, keep=None):
+    """Every bucket of the genome inputs in `directory` that `keep(L_pad)`
+    admits, bucketed, stacked on the host and solved on the card as
+    run_genome does (genome.bucket_jobs, _stack_bucket, auto_exact,
+    genome.solve_bucket; the assessment and its files are phase 4b's and
+    4c's): each bucket's launches exact (want_bucket(L_pad)), no twin, its
+    solve seconds (synchronised), the gates on every chromosome's best model
+    by Spearman(IF, 1/d) (the rank-01 model), its first and last chromosome
+    bit for bit a solve_ensemble_impl of its own from the same draws.
+    Returns (the runs: restraints, masks, config, result, draws, seconds,
+    launches, names; the launches in all)."""
+    from chromosome3d_tpu_torch.parallel import genome
+    from chromosome3d_tpu_torch.pipeline import auto_exact
+
+    buckets = genome.bucket_jobs(genome.discover_jobs(directory), cfg.length_buckets)
+    runs, total = [], {}
+    steps = cfg.anneal.total_steps
+    for L_pad, jobs in sorted(buckets.items()):
+        if keep is not None and not keep(L_pad):
+            continue
+        batched, masks, matrices, raw = genome._stack_bucket(jobs, L_pad, cfg)
+        cfg_b = cfg
+        if all(not r.negdev.any() and not r.posdev.any() for r in raw):
+            cfg_b = auto_exact(cfg, raw[0])
+        draws = []
+        reset_counters()
+        with recorded_draws(draws):
+            result, seconds = synced_seconds(genome.solve_bucket, batched, masks, cfg_b)
+        launches, plain = read_counters()
+        C = len(jobs)
+        check_launches(f"{where} bucket {L_pad}", launches, plain, want_bucket(L_pad))
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        coords = result.coords.cpu().numpy()
+        with concurrent.futures.ThreadPoolExecutor(HOST_THREADS) as pool:
+            gated = list(pool.map(lambda c: best_by_spearman(
+                matrices[c], coords[c, :, :jobs[c].length], truths[jobs[c].name]), range(C)))
+        for job, (met, rho) in zip(jobs, gated):
+            print(f"[{where}] {job.name} L={job.length} -> {L_pad}: rank01 rmsd/Rg "
+                  f"{met['rmsd_over_rg']:.4f}, spearman_d {met['spearman_d']:.5f}, dRMSD_rel "
+                  f"{met['drmsd_rel']:.4f}; Spearman(IF,1/d) {rho:.4f}")
+        # the bucket's tensors on the card, as genome.solve_bucket uploads them
+        dev = result.coords.device
+        run = {"restraints": type(batched)(*(
+                   torch.as_tensor(getattr(batched, f.name), dtype=torch.float32).to(dev)
+                   .contiguous() for f in dataclasses.fields(batched))),
+               "masks": torch.as_tensor(masks, dtype=torch.float32).to(dev), "cfg": cfg_b.anneal,
+               "result": result, "draws": draws, "seconds": seconds, "L_pad": L_pad,
+               "launches": launches, "names": [j.name for j in jobs]}
+        lone_s = [check_lone(f"{where} bucket {L_pad}", run, c) for c in (0, C - 1)]
+        print(f"[{where}] bucket L={L_pad}, {C} chromosomes stacked: solve {seconds} s "
+              f"(genome.solve_bucket, synchronised: upload, init, the steps, final terms), "
+              f"{steps / seconds} ensemble steps/s, {C * steps / seconds} chromosome-steps/s; "
+              f"launches {json.dumps({k: n for k, n in launches.items() if n})}, plain 0; "
+              f"gates met by all {C}; chromosomes 0 and {C - 1} bit for bit a solve of their "
+              f"own ({lone_s[0]:.3f} and {lone_s[1]:.3f} s) on {card}")
+        runs.append(run)
+    return runs, total
+
+
+def phase_genome_stack(dir_100kb, truths_100kb, dir_45, truths_45, card):
+    """Phase 19: genome buckets stacked on the routes past kernels B1 and
+    B2, at full width (10 models, the default 2,760-step schedule), as
+    run_genome buckets and solves them (genome_stack_solves): (a) the 100 kb
+    genome's buckets past 768 beads under length_buckets (512, 768, 1024,
+    1536, 2048, 2560): 1024 x5, 1536 x6 and 2048 x5 on B1's steps with the
+    pick on B3 once for the bucket, 2560 x2 on B3 + B4 (2,761 and 2,760
+    launches); (b) phase 4b's 45 inputs with noe_rswitch = 5.0: one 512
+    bucket on B5 + B4 (2,761 and 2,760). Then B3 and B5 with the chromosome
+    axis at each of those buckets' shapes (check_pair_axis). Returns
+    ({"a": launches, "b": launches}, {name: kernel numbers}, {name:
+    launches})."""
+    from chromosome3d_tpu_torch.config import AnnealConfig, PipelineConfig
+    from chromosome3d_tpu_torch.solver.anneal import _final_weights
+
+    steps = AnnealConfig().total_steps
+    cfg_a = PipelineConfig(model_count=N_MODELS,
+                           length_buckets=(512, 768, 1024, 1536, 2048, 2560))
+    runs_a, launches_a = genome_stack_solves(
+        dir_100kb, cfg_a, truths_100kb, "genome stack 100kb",
+        lambda L: ({"B3": steps + 1, "B4": steps} if L == 2560 else {"B1": 2, "B3": 1}),
+        card, keep=lambda L: L > 768)
+    check([(r["L_pad"], len(r["names"])) for r in runs_a]
+          == sorted((L, n) for L, n in BUCKETS_100KB.items() if L > 768),
+          f"genome stack 100 kb: buckets {[(r['L_pad'], len(r['names'])) for r in runs_a]}")
+    cfg_b = PipelineConfig(model_count=N_MODELS, anneal=AnnealConfig(noe_rswitch=5.0))
+    runs_b, launches_b = genome_stack_solves(
+        dir_45, cfg_b, truths_45, "genome stack general",
+        lambda L: {"B5": steps + 1, "B4": steps}, card)
+    check([(r["L_pad"], len(r["names"])) for r in runs_b] == [(L_PAD, C_GENOME)],
+          f"genome stack general: buckets {[(r['L_pad'], len(r['names'])) for r in runs_b]}")
+
+    measured, path_launches = {}, {}
+    for key, runs, truths in (("B3", runs_a, truths_100kb), ("B5", runs_b, truths_45)):
+        for run in runs:
+            L, r = run["L_pad"], run["restraints"]
+            dev = run["masks"].device
+            near = [ensemble_near(truths[n], L, dev) for n in run["names"]]
+            bms = torch.stack([a[0] for a in near])
+            tiles = ((r.target, r.w) if key == "B3" else
+                     (r.lo.contiguous(), r.hi.contiguous(), (r.mask * r.weight).contiguous()))
+            where = (f"the 100 kb bucket {L}" if key == "B3"
+                     else f"the 45 inputs' bucket {L} (noe_rswitch 5)")
+            measured[f"{key}@{L}"] = check_pair_axis(
+                key, where, tiles, bms, near, card, _final_weights(
+                    AnnealConfig() if key == "B3" else cfg_b.anneal))
+            path_launches[f"{key}@{L}"] = run["launches"]
+            del near, bms, tiles
+    return {"a": launches_a, "b": launches_b}, measured, path_launches
+
+
 # FP32 operations per pair evaluation, counted from each kernel's inner loop
 # (an FMA counts 2, rsqrt 1; the row-sharded kernels run the same loops):
 # B1 32 per ordered pair (fused_steps.cu) plus ~100 per bead for the update
@@ -3368,8 +3725,8 @@ B1_STEPS_A_LAUNCH = 1380     # the main path: 2,760 steps in 2 launches
 def work(key, B, L, Lb=None, C=1):
     """(FP32 operations, bytes each input read once and each output written
     once) of one call at these shapes, C chromosomes of B structures each
-    (B1, B2, B6 and B4; a tile set or strip, a bead mask and for B1 and B4 a
-    seed a chromosome); for B1 of one step of a launch of
+    (B1 to B6; a tile set or strip, a bead mask and for B1 and B4 a seed a
+    chromosome); for B1 of one step of a launch of
     B1_STEPS_A_LAUNCH: x read and x' written, the table's row and the
     energies every step, the three tiles, mu, nu (in and out), the bead
     masks and the seeds once a launch; for B4 x, g, mu, nu, the bead masks,
@@ -3382,9 +3739,9 @@ def work(key, B, L, Lb=None, C=1):
                f * (2 * st + 6 + C * B)
                + f * (C * (3 * L * L + L + 1) + 4 * st) // B1_STEPS_A_LAUNCH),
         "B2": (35 * C * B * L * L, f * (C * (2 * L * L + L) + 2 * st + C * B)),
-        "B3": (36 * B * L * L // 2, f * (2 * L * L + 2 * st + B + L)),
+        "B3": (36 * C * B * L * L // 2, f * (C * (2 * L * L + L) + 2 * st + C * B)),
         "B4": (100 * C * B * L, f * (7 * st + 2 * C * B + C * (L + 1) + 8)),
-        "B5": (44 * B * L * L, f * (3 * L * L + 2 * st + B + L)),
+        "B5": (44 * C * B * L * L, f * (C * (3 * L * L + L) + 2 * st + C * B)),
         "B6": (36 * C * B * Lb * L // 2, f * (C * (2 * Lb * L + L) + 2 * st + C * B)),
         "B5'": (44 * B * Lb * L, f * (3 * Lb * L + st + 3 * B * Lb + B + L)),
         "B2'": (35 * B * Lb * L, f * (2 * Lb * L + st + 3 * B * Lb + B + L)),
@@ -3443,7 +3800,6 @@ def main() -> int:
                                    pending_100kb.result)
         _, buckets_100kb = timed_phase("genome 100 kb", phase_genome_100kb,
                                        genome_100kb, truths_100kb, card)
-        shutil.rmtree(genome_100kb)
         measured_100kb = timed_phase("kernels genome 100 kb buckets",
                                      phase_kernels_genome_100kb, buckets_100kb, truths_100kb,
                                      card)
@@ -3481,6 +3837,11 @@ def main() -> int:
         measured.update(measured_st)
         launches_17, errs_17 = timed_phase("unfused routes (phase 17)", phase_unfused, dev,
                                            X, M, keep_main, inputs, card)
+        launches_18 = timed_phase("calibrate (phase 18)", phase_calibrate, X, M, card, tmp)
+        launches_19, measured_19, launches_19_rows = timed_phase(
+            "genome stack (phase 19)", phase_genome_stack, genome_100kb, truths_100kb,
+            genome_dir, truths, card)
+        shutil.rmtree(genome_100kb)
     B = 2 * N_MODELS
     kernels = []
     for key, kname, src, replaces, path_launches, shape in (
@@ -3523,6 +3884,10 @@ def main() -> int:
             kernels[-1]["launches_phase_17"] = unfused
         if key in errs_17:   # held against the twin at phase 17's own shapes
             kernels[-1]["max_abs_err_phase_17"] = errs_17[key]
+        for tag, runs in (("18", launches_18), ("19", launches_19)):
+            counted = {p: n[key] for p, n in runs.items() if n[key]}
+            if counted:   # phase 18's calibration and run, phase 19's genome runs
+                kernels[-1][f"launches_phase_{tag}"] = counted
     # B3, B4 and B5 past L_pad = 8192, their launches those of the path at
     # that length
     for key, kname, src, replaces, path_launches, L_key in (
@@ -3573,6 +3938,18 @@ def main() -> int:
                             **measured_100kb[L][key], "library_ms": None})
             if L == max(measured_100kb):
                 kernels[-1]["at_50kb_largest_bucket"] = measured_genome_large[key]
+    # B3 and B5 with the chromosome axis at the buckets of phase 19, with
+    # that bucket's launches
+    for mkey in sorted(measured_19, key=lambda k: (k[:2], int(k.split("@")[1]))):
+        key, L = mkey.split("@")
+        kname, src, replaces = {
+            "B3": ("exact_tri_genome", "chromosome3d_tpu_torch/csrc/exact_tri.cu",
+                   "chromosome3d_tpu/ops/pallas_energy.py:899"),
+            "B5": ("general_pair_genome", "chromosome3d_tpu_torch/csrc/general_pair.cu",
+                   "chromosome3d_tpu/ops/pallas_energy.py:117")}[key]
+        kernels.append({"name": f"{kname}_{L}", "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": launches_19_rows[mkey][key],
+                        **measured_19[mkey], "library_ms": None})
     print(card)   # nvidia-smi --query-gpu=name,power.limit, again beside the numbers
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,7 @@ beyond the length buckets, on one GPU or row-sharded over several; the
   L4  pipeline / cli       run_pipeline (bucket, beyond-bucket and sharded
                            branches), run_restraints_pipeline, the
                            one-device memory estimate solve_peak_bytes;
-                           `run`/`solve`/`genome`/`spearman`
+                           `run`/`solve`/`genome`/`spearman`/`calibrate`/...
   L3  ops.device_prep      beyond-bucket restraint prep on the device (one
                            shot, streamed in row strips past a quarter of
                            the device, or one row strip per shard), and
@@ -37,7 +37,10 @@ beyond the length buckets, on one GPU or row-sharded over several; the
       ops.pair_energy      kernel B2: exact pair energy + gradient
                            (csrc/exact_pair.cu); B2' on a row block
       ops.tri_energy       kernel B3: B2 on each unordered tile pair once
-                           (csrc/exact_tri.cu), and the route rule
+                           (csrc/exact_tri.cu), and the route rule with the
+                           measured dispatch table it reads
+      ops.calibrate        `calibrate`: times the step routes on the device
+                           and writes that table
       ops.fused_update     kernel B4: B1's update half (csrc/fused_update.cu)
       ops.general_pair     kernel B5: the general (windowed) pair energy +
                            gradient (csrc/general_pair.cu); B5' on a row block

@@ -19,6 +19,8 @@ chromosome3d_tpu.cli, with the flags the ported slices support.
   python -m chromosome3d_tpu_torch serve --socket PATH [--turbo] [--device {cuda,cpu}]
   python -m chromosome3d_tpu_torch submit --socket PATH (-i <IF matrix> | -r <restraints>)
       -o <outdir> [-a ALPHA] [-m MODELS] [--turbo] | --ping | --shutdown
+  python -m chromosome3d_tpu_torch calibrate [-L LxB,...] [--batch B] [--repeats N]
+      [--steps S] [--out PATH] [--spread-gate G] [--force] [--verify] [--device {cuda,cpu}]
 
 `run`, `solve`, `genome` and `coinit` compute on the first CUDA device (the
 kernels build at first use) and fail when there is none; `--device cpu`
@@ -46,10 +48,14 @@ warm-model server on a Unix socket (serve.serve; on the first CUDA device
 unless `--device cpu`), and `submit` sends it one request (serve.request:
 a matrix with `-i`, a restraint file with `-r`, or `--ping` /
 `--shutdown`), importing neither torch nor the solver; it exits 1 when the
-server answers ok: false and 2 on bad arguments, as the JAX CLI's does. The
-JAX CLI's `calibrate` is refused with NotImplementedError naming its
-ROADMAP item, and `--alpha-ensemble` on `solve` and `coinit`, whose
-pipelines have no alpha loop in the JAX package either, with that reason.
+server answers ok: false and 2 on bad arguments, as the JAX CLI's does.
+`calibrate` times the four step routes on the device (ops.calibrate; the
+card unless `--device cpu`) and writes the dispatch table the solver's
+route choice reads (`--out`, else CHROM3D_DISPATCH_TABLE, else
+~/.cache/chromosome3d_torch/dispatch.json); `--verify` times the active
+table's entries again and reports the drift, writing nothing; each prints
+its JSON. `--alpha-ensemble` on `solve` and `coinit`, whose pipelines have
+no alpha loop in the JAX package either, is refused with that reason.
 """
 
 from __future__ import annotations
@@ -59,8 +65,6 @@ import json
 import os
 import sys
 
-# the JAX CLI's subcommands that are not ported yet, with their ROADMAP item
-_UNPORTED = {"calibrate": "A11.6"}
 # the JAX CLI registers --alpha-ensemble on these too and ignores it there
 _NO_ALPHA_LOOP = ("solve", "coinit")
 
@@ -243,14 +247,37 @@ def main(argv=None) -> int:
     for p in (slv, coi):
         p.add_argument("--alpha-ensemble", default=None,
                        help="refused: this pipeline has no alpha loop")
-    for name, item in _UNPORTED.items():
-        sub.add_parser(name, help=f"not ported (ROADMAP {item})")
+    cal = sub.add_parser(
+        "calibrate",
+        help="measure the kernel-dispatch crossovers on this device and write the "
+             "dispatch table the route choice reads (>= 5 repeats; replaces the "
+             "frozen defaults)",
+    )
+    cal.add_argument("-L", "--lengths", default=None,
+                     help="comma-separated cases: LxB pairs (e.g. 512x10,2048x4) or "
+                          "bare bead counts (measured at --batch). Default: the "
+                          "production shapes (512x10, 512x20, 1024x4, 2048x4, 4096x4)")
+    cal.add_argument("--batch", type=int, default=4,
+                     help="structure count for bare -L lengths (default 4)")
+    cal.add_argument("--repeats", type=int, default=5)
+    cal.add_argument("--steps", type=int, default=None,
+                     help="steps a timed call (default 960)")
+    cal.add_argument("--out", default=None,
+                     help="table path (default CHROM3D_DISPATCH_TABLE or "
+                          "~/.cache/chromosome3d_torch/dispatch.json)")
+    cal.add_argument("--spread-gate", type=float, default=None,
+                     help="reject cases whose repeat spread exceeds this (default "
+                          "0.5); the previous entry stays in force")
+    cal.add_argument("--force", action="store_true",
+                     help="measure even on a loaded host (normally refused)")
+    cal.add_argument("--verify", action="store_true",
+                     help="time the active table's entries again and report the "
+                          "drift; writes nothing")
+    cal.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                     help="where to measure (default cuda, which fails without a "
+                          "CUDA device; cpu times the kernels' plain twins)")
 
     args, extra = parser.parse_known_args(argv)
-    if args.command in _UNPORTED:
-        raise NotImplementedError(
-            f"`{args.command}` is not ported (ROADMAP {_UNPORTED[args.command]})"
-        )
     if extra:
         parser.error(f"unrecognized arguments: {' '.join(extra)}")
     if args.command is None:
@@ -395,6 +422,41 @@ def main(argv=None) -> int:
         if args.turbo:
             anneal = turbo_anneal(anneal)
         serve(args.socket, PipelineConfig(anneal=anneal), device=args.device)
+        return 0
+
+    if args.command == "calibrate":
+        from chromosome3d_tpu_torch.ops.calibrate import (
+            DEFAULT_SPREAD_GATE,
+            DEFAULT_STEPS,
+            calibrate_dispatch,
+            verify_dispatch,
+        )
+
+        if args.verify:
+            report = verify_dispatch(repeats=min(args.repeats, 3), force=args.force,
+                                     device=args.device)
+            print(json.dumps(report, indent=1))
+            return 0
+        cases = None
+        if args.lengths:
+            cases = []
+            for tok in args.lengths.split(","):
+                tok = tok.strip()
+                if not tok:
+                    continue
+                if "x" in tok:
+                    L, B = tok.split("x", 1)
+                    cases.append((int(L), int(B)))
+                else:
+                    cases.append((int(tok), args.batch))
+        table = calibrate_dispatch(
+            cases=cases, repeats=args.repeats, out_path=args.out,
+            steps=DEFAULT_STEPS if args.steps is None else args.steps,
+            spread_gate=(DEFAULT_SPREAD_GATE if args.spread_gate is None
+                         else args.spread_gate),
+            force=args.force, device=args.device,
+        )
+        print(json.dumps(table, indent=1))
         return 0
 
     if args.command == "submit":

@@ -22,6 +22,13 @@
 // at slot S + s at their column tile — that a second kernel sums per bead in
 // slot order. No float atomics: the same inputs give the same bits, so a
 // solve with a fixed seed is reproducible.
+//
+// The chromosome axis: a genome bucket's C chromosomes of B structures each
+// (the JAX runner's vmap of the solve over its bucket) in one launch, grid
+// row y the chromosome. Chromosome c's blocks read its structures, tiles and
+// mask and write its partials at c's offsets (tri_pair.cuh), and the reduce
+// kernel sums each (chromosome, structure) over the same slots in the same
+// order as a launch of its own, so chromosome c's bits are that launch's.
 
 #include <cuda_runtime.h>
 
@@ -35,12 +42,13 @@ using c3d_tri::TriParams;
 constexpr int kTM = 64;         // tile edge
 
 // gT[b, c, l] = sum over the 2S slots in order; e[b] = sum of the blocks'
-// energies (block 0 of each structure), in a fixed order.
+// energies (block 0 of each structure), in a fixed order. b runs over all C
+// B structures, chromosome-major.
 __global__ void __launch_bounds__(kThreads)
-tri_reduce_kernel(const float* __restrict__ part,    // (B, 2S, 3, Lp)
-                  const float* __restrict__ e_part,  // (B, nblk)
-                  float* __restrict__ gT,            // (B, 3, L) out
-                  float* __restrict__ e,             // (B,) out
+tri_reduce_kernel(const float* __restrict__ part,    // (C B, 2S, 3, Lp)
+                  const float* __restrict__ e_part,  // (C B, nblk)
+                  float* __restrict__ gT,            // (C B, 3, L) out
+                  float* __restrict__ e,             // (C B,) out
                   int L, int Lp, int S2, int nblk) {
   const int b = blockIdx.y;
   const int idx = blockIdx.x * kThreads + threadIdx.x;
@@ -57,22 +65,25 @@ tri_reduce_kernel(const float* __restrict__ part,    // (B, 2S, 3, Lp)
 
 }  // namespace
 
-// part: (B, 2 S, 3, T tile) scratch and e_part: (B, T S) scratch, both
-// allocated by the caller; T = ceil(L / tile), S = T / 2 + 1; the structures
-// go through a block bslice at a time.
+// xT: (C B, 3, L), chromosome-major; t, w: (C, L, L); bm: (C, L). part:
+// (C B, 2 S, 3, T tile) scratch and e_part: (C B, T S) scratch, both
+// allocated by the caller; T = ceil(L / tile), S = T / 2 + 1; each
+// chromosome's structures go through a block bslice at a time. Chromosome
+// c's outputs are bitwise those of a launch with C = 1 on its own inputs.
 extern "C" int c3d_exact_tri(const float* xT, const float* t, const float* w,
                              const float* bm, float* part, float* e_part,
-                             float* gT, float* e, int B, int L, int T,
+                             float* gT, float* e, int C, int B, int L, int T,
                              int tile, int bslice, float noe, float vdw,
                              float vdw_radius, void* stream) {
-  if (tile != kTM || T != (L + kTM - 1) / kTM || bslice <= 0 || B <= 0)
+  if (tile != kTM || T != (L + kTM - 1) / kTM || bslice <= 0 || B <= 0 || C <= 0 ||
+      C > 65535 || (long long)C * B > 65535)
     return (int)cudaErrorInvalidValue;
   const int S = T / 2 + 1;
-  const TriParams q{B, L, T, T, S, 0, T * kTM, 0, bslice, noe, vdw, vdw_radius, 1, L};
+  const TriParams q{B, L, T, T, S, 0, T * kTM, 0, bslice, noe, vdw, vdw_radius, C, L};
   cudaStream_t st = (cudaStream_t)stream;
   const cudaError_t err = c3d_tri::launch_pairs<kTM>(xT, t, w, bm, part, e_part, q, st);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((3 * L + kThreads - 1) / kThreads, B);
+  const dim3 grid((3 * L + kThreads - 1) / kThreads, C * B);
   tri_reduce_kernel<<<grid, kThreads, 0, st>>>(part, e_part, gT, e, L, T * kTM,
                                                2 * S, T * S);
   return (int)cudaGetLastError();

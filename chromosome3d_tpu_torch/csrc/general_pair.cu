@@ -59,6 +59,14 @@
 // structures of a launch (the wrapper's batch slice, general_pair.py), not
 // with L. The (B, 3, L) layout in and (B, 3, Lb) out feeds kernel B4 with no
 // transposes.
+//
+// The chromosome axis (B5 only; B5' keeps C = 1): a genome bucket's C
+// chromosomes of B structures each (the JAX runner's vmap of the solve over
+// its bucket) in one launch per batch slice, grid z the chromosome over the
+// same (row groups, splits) grid. Chromosome c's blocks read its slice of
+// structures, its tiles and its mask and write its partials at c's offsets;
+// the plan (splits, slices) is a function of L and B, so each chromosome's
+// blocks and sums are those of a launch of its own, and so are its bits.
 
 #include <cuda_runtime.h>
 
@@ -79,6 +87,7 @@ constexpr float kEps = 1e-12f;
 struct GeneralParams {
   int B, L, row0, Lb;     // structures of this launch, length, the strip
   int cps, nsplit;        // chunks a split, splits
+  int Bc;                 // structures a chromosome (grid z), all slices
   float two_noe, two_vdw, r0, rs;
 };
 
@@ -88,16 +97,25 @@ __host__ __device__ constexpr int smem_floats(int B) {
 }
 
 __global__ void __launch_bounds__(kThreads, 2)
-general_pair_kernel(const float* __restrict__ xT,   // (B, 3, L)
-                    const float* __restrict__ lo,   // (Lb, L) rows row0..
-                    const float* __restrict__ hi,   // (Lb, L)
-                    const float* __restrict__ w,    // (Lb, L) mask * weight
-                    const float* __restrict__ bm,   // (L,) bead mask
-                    float* __restrict__ part,       // (B, nsplit, 3, Lb) out
-                    float* __restrict__ e_part,     // (B, row groups * nsplit) out
+general_pair_kernel(const float* __restrict__ xT,   // (C Bc, 3, L) from the slice
+                    const float* __restrict__ lo,   // (C, Lb, L) rows row0..
+                    const float* __restrict__ hi,   // (C, Lb, L)
+                    const float* __restrict__ w,    // (C, Lb, L) mask * weight
+                    const float* __restrict__ bm,   // (C, L) bead masks
+                    float* __restrict__ part,       // (C Bc, nsplit, 3, Lb) out
+                    float* __restrict__ e_part,     // (C Bc, row groups * nsplit) out
                     GeneralParams q) {
   extern __shared__ float smem[];
   const int B = q.B, L = q.L, Lb = q.Lb;
+  // chromosome blockIdx.z: its structures, tiles, mask and partials
+  const size_t chrom = blockIdx.z;
+  xT += chrom * q.Bc * 3 * L;
+  lo += chrom * Lb * L;
+  hi += chrom * Lb * L;
+  w += chrom * Lb * L;
+  bm += chrom * L;
+  part += chrom * q.Bc * q.nsplit * 3 * Lb;
+  e_part += chrom * q.Bc * gridDim.x * gridDim.y;
   float* s_cols = smem;                          // [2][B][3][kChunk]
   float* s_rows = s_cols + 2 * B * 3 * kChunk;   // [B][3][kRowsBlock]
   float* s_slot = s_rows + B * 3 * kRowsBlock;   // [kWarps][B][kVals]
@@ -232,11 +250,12 @@ general_pair_kernel(const float* __restrict__ xT,   // (B, 3, L)
 
 // gT[b, c, il] = the splits' partials in split order; e[b] = 1/4 of the
 // blocks' energies (the patches carry 2 noe and 2 vdw), in a fixed order.
+// b runs over all C Bc structures, chromosome-major.
 __global__ void __launch_bounds__(kThreads)
-general_reduce_kernel(const float* __restrict__ part,    // (B, nsplit, 3, Lb)
-                      const float* __restrict__ e_part,  // (B, nblk)
-                      float* __restrict__ gT,            // (B, 3, Lb) out
-                      float* __restrict__ e,             // (B,) out
+general_reduce_kernel(const float* __restrict__ part,    // (C Bc, nsplit, 3, Lb)
+                      const float* __restrict__ e_part,  // (C Bc, nblk)
+                      float* __restrict__ gT,            // (C Bc, 3, Lb) out
+                      float* __restrict__ e,             // (C Bc,) out
                       int Lb, int nsplit, int nblk) {
   const int b = blockIdx.y;
   const int idx = blockIdx.x * kThreads + threadIdx.x;
@@ -252,17 +271,21 @@ general_reduce_kernel(const float* __restrict__ part,    // (B, nsplit, 3, Lb)
 
 }  // namespace
 
-// B5 is row0 = 0, Lb = L; B5' a shard's rows [row0, row0 + Lb). part:
-// (B, nsplit, 3, Lb) and e_part: (B, ceil(Lb / 32) nsplit) scratch allocated
-// by the caller, nsplit = ceil(ceil(L / 128) / cps); the structures go
-// through the pair kernel bslice at a time.
+// B5 is row0 = 0, Lb = L; B5' a shard's rows [row0, row0 + Lb) with C = 1.
+// xT: (C B, 3, L), chromosome-major; lo, hi, w: (C, Lb, L); bm: (C, L).
+// part: (C B, nsplit, 3, Lb) and e_part: (C B, ceil(Lb / 32) nsplit)
+// scratch allocated by the caller, nsplit = ceil(ceil(L / 128) / cps); each
+// chromosome's structures go through the pair kernel bslice at a time, one
+// launch a slice for every chromosome. Chromosome c's outputs are bitwise
+// those of a launch with C = 1 on its own inputs.
 extern "C" int c3d_general_pair(const float* xT, const float* lo, const float* hi,
                                 const float* w, const float* bm, float* part,
-                                float* e_part, float* e, float* gT, int B, int L,
+                                float* e_part, float* e, float* gT, int C, int B, int L,
                                 int row0, int Lb, int cps, int bslice, float noe,
                                 float vdw, float vdw_radius, float rswitch,
                                 void* stream) {
-  if (row0 < 0 || Lb <= 0 || row0 + Lb > L || cps <= 0 || bslice <= 0 || B <= 0)
+  if (row0 < 0 || Lb <= 0 || row0 + Lb > L || cps <= 0 || bslice <= 0 || B <= 0 ||
+      C <= 0 || C > 65535 || (long long)C * B > 65535)
     return (int)cudaErrorInvalidValue;
   const int nchunks = (L + kChunk - 1) / kChunk;
   const int nsplit = (nchunks + cps - 1) / cps;
@@ -277,16 +300,16 @@ extern "C" int c3d_general_pair(const float* xT, const float* lo, const float* h
   if (err != cudaSuccess) return (int)err;
   for (int b0 = 0; b0 < B; b0 += bslice) {
     const int Bl = min(bslice, B - b0);
-    const GeneralParams q{Bl, L, row0, Lb, cps, nsplit,
+    const GeneralParams q{Bl, L, row0, Lb, cps, nsplit, B,
                           2.f * noe, 2.f * vdw, vdw_radius, rswitch};
-    general_pair_kernel<<<dim3(groups, nsplit), kThreads,
+    general_pair_kernel<<<dim3(groups, nsplit, C), kThreads,
                           (size_t)smem_floats(Bl) * sizeof(float), st>>>(
         xT + (size_t)b0 * 3 * L, lo, hi, w, bm,
         part + (size_t)b0 * nsplit * 3 * Lb, e_part + (size_t)b0 * nblk, q);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 grid((3 * Lb + kThreads - 1) / kThreads, B);
+  const dim3 grid((3 * Lb + kThreads - 1) / kThreads, C * B);
   general_reduce_kernel<<<grid, kThreads, 0, st>>>(part, e_part, gT, e, Lb, nsplit, nblk);
   return (int)cudaGetLastError();
 }

@@ -50,9 +50,10 @@
 // to e_part[b, s Tl + i]. No float atomics: the same inputs give the same
 // bits. TM = 8 leaves all but an 8 x 8 corner of the threads idle; it only
 // serves strips whose height 64, 32 and 16 do not divide.
-// B6 takes a chromosome axis (grid row y): chromosome c's blocks read its B
-// structures, its (rows, L) strip and its mask and write its partials, all
-// at c's offsets, so its bits are those of a launch of its own.
+// B3 and B6 take a chromosome axis (grid row y): chromosome c's blocks read
+// its B structures, its (rows, L) strip and its mask and write its
+// partials, all at c's offsets, so its bits are those of a launch of its
+// own.
 
 #pragma once
 
@@ -74,8 +75,8 @@ struct TriParams {
   int compact;      // column partials at the row tile's position (B6)
   int BS;           // structures a slice
   float noe, vdw, r0;
-  int C;            // chromosomes: grid row y, B structures each (1 for B3)
-  int rows;         // rows of t and w a chromosome (the strip's Lb; B6 only)
+  int C;            // chromosomes: grid row y, B structures each
+  int rows;         // rows of t and w a chromosome (L for B3, the strip's Lb for B6)
 };
 
 // floats of shared memory a block needs for slices of BS structures: two

@@ -47,16 +47,16 @@ SIGNATURES = {
     "c3d_exact_pair": (
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P,
     ),
-    # xT, lo, hi, w, bead_mask, part, e_part, e, gT, B, L, row0, Lb, cps,
-    # bslice, noe, vdw, vdw_radius, rswitch, stream
+    # xT, lo, hi, w, bead_masks, part, e_part, e, gT, C, n_per, L, row0, Lb,
+    # cps, bslice, noe, vdw, vdw_radius, rswitch, stream
     "c3d_general_pair": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
         _F, _F, _F, _F, _P,
     ),
-    # xT, t, w, bead_mask, part, e_part, gT, e, B, L, T, tile, bslice, noe,
-    # vdw, vdw_radius, stream
+    # xT, t, w, bead_masks, part, e_part, gT, e, C, n_per, L, T, tile, bslice,
+    # noe, vdw, vdw_radius, stream
     "c3d_exact_tri": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P,
     ),
     # xT, t, w, bead_masks, part, e_part, gT, e, C, n_per, L, row0, Lb, tile,
     # bslice, noe, vdw, vdw_radius, stream

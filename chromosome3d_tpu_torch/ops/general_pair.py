@@ -9,6 +9,11 @@ vdw repel, the 1/2 ordered-pair energy convention. It reads and writes the
 transposes; the tiles (lo, hi, w = mask * weight) are folded once per solve
 (`general_pair_tiles`).
 
+Kernel B5 takes a chromosome axis: a genome bucket's C chromosomes of B
+structures each, tiles and a bead mask each, in one launch a batch slice,
+each chromosome's bits those of a launch of its own (the JAX runner's vmap
+of the solve over its bucket).
+
 Kernel B5' is the same body on one shard's rows of the row-sharded solve
 (`general_row_block_energy_grad`): it replaces `_kernel` reached through
 `pallas_row_block_energy_grad_batched(..., exact=False)`, reads (Lb, L)
@@ -149,30 +154,39 @@ def general_pair_energy_grad_plain(
     weights: EnergyWeights, bead_mask: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain twin of B5: the `_kernel` math over the whole pair matrix, in
-    row chunks. Returns (pair energies (B,), gradients (B, 3, L))."""
+    row chunks. Returns (pair energies (B,), gradients (B, 3, L)). With
+    (C, L, L) tiles and (C, L) bead masks each chromosome's B / C structures
+    are evaluated alone, in chromosome order."""
     general_pair_energy_grad_plain.calls += 1
-    return _rows_chunked(xT, lo, hi, w, weights, bead_mask, 0)
+    if lo.dim() == 2:
+        return _rows_chunked(xT, lo, hi, w, weights, bead_mask, 0)
+    n = xT.shape[0] // lo.shape[0]
+    outs = [_rows_chunked(xT[c * n:(c + 1) * n], lo[c], hi[c], w[c], weights, bead_mask[c], 0)
+            for c in range(lo.shape[0])]
+    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
 
 
 general_pair_energy_grad_plain.calls = 0
 
 
 def _launch(xT, lo, hi, w, weights, bead_mask, row_start, dev):
-    """csrc/general_pair.cu on the rows the (Lb, L) tiles hold: (energies
-    (B,), gradient rows (B, 3, Lb))."""
+    """csrc/general_pair.cu on the rows the (Lb, L) tiles hold, or on C
+    chromosomes' (C, L, L) tiles and (C, L) bead masks: (energies (B,),
+    gradient rows (B, 3, Lb))."""
     B, L = xT.shape[0], xT.shape[2]
-    Lb = lo.shape[0]
-    plan = general_pair_plan(B, L, Lb)
+    Lb = lo.shape[-2]
+    C = 1 if lo.dim() == 2 else lo.shape[0]
+    plan = general_pair_plan(B // C, L, Lb)
     lib = _build.load_library()
-    part = torch.empty(plan["part_shape"], dtype=torch.float32, device=dev)
-    e_part = torch.empty(plan["e_part_shape"], dtype=torch.float32, device=dev)
+    part = torch.empty((B, *plan["part_shape"][1:]), dtype=torch.float32, device=dev)
+    e_part = torch.empty((B, plan["e_part_shape"][1]), dtype=torch.float32, device=dev)
     e = torch.empty((B,), dtype=torch.float32, device=dev)
     gT = torch.empty((B, 3, Lb), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.c3d_general_pair(
             xT.data_ptr(), lo.data_ptr(), hi.data_ptr(), w.data_ptr(),
             bead_mask.data_ptr(), part.data_ptr(), e_part.data_ptr(), e.data_ptr(),
-            gT.data_ptr(), B, L, row_start, Lb, plan["cps"], plan["bslice"],
+            gT.data_ptr(), C, B // C, L, row_start, Lb, plan["cps"], plan["bslice"],
             weights.noe, weights.vdw, weights.vdw_radius, weights.noe_rswitch,
             torch.cuda.current_stream(dev).cuda_stream,
         )
@@ -186,16 +200,23 @@ def general_pair_energy_grad(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B5 for a batch sharing one restraint set: xT (B, 3, L), the tiles lo,
     hi and folded weight w (L, L), bead_mask (L,), all float32 and
-    contiguous. Returns (pair energies (B,), pair gradients (B, 3, L)). CPU
-    tensors run the plain twin; CUDA tensors launch csrc/general_pair.cu,
-    which writes per-row energies that one torch sum adds (no atomics:
-    equal inputs give equal bits)."""
+    contiguous; or for C chromosomes of B / C structures each,
+    chromosome-major, with (C, L, L) tiles and (C, L) bead masks — a genome
+    bucket in one launch a batch slice, each chromosome's outputs bitwise
+    those of a launch of its own. Returns (pair energies (B,), pair
+    gradients (B, 3, L)). CPU tensors run the plain twin; CUDA tensors
+    launch csrc/general_pair.cu, whose block partials a second kernel sums
+    in a fixed order (no atomics: equal inputs give equal bits)."""
     if xT.dim() != 3:
         raise ValueError(f"xT must be (B, 3, L), got {tuple(xT.shape)}")
     B, L = xT.shape[0], xT.shape[2]
+    lead = () if lo.dim() == 2 else (lo.shape[0],)
+    C = lead[0] if lead else 1
+    if C == 0 or B % C:
+        raise ValueError(f"{B} structures do not divide over {C} chromosomes")
     dev = check_inputs({
-        "xT": (xT, (B, 3, L)), "lo": (lo, (L, L)), "hi": (hi, (L, L)),
-        "w": (w, (L, L)), "bead_mask": (bead_mask, (L,)),
+        "xT": (xT, (B, 3, L)), "lo": (lo, (*lead, L, L)), "hi": (hi, (*lead, L, L)),
+        "w": (w, (*lead, L, L)), "bead_mask": (bead_mask, (*lead, L)),
     })
     if B == 0 or L == 0:
         raise ValueError(f"empty batch: B={B}, L={L}")

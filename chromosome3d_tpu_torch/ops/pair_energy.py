@@ -4,10 +4,11 @@ its plain PyTorch twin, and the batched value-and-grad built on it.
 Replaces chromosome3d_tpu/ops/pallas_energy.py `_kernel_exact` (entry
 `_pairwise_energy_grad_batched(..., exact=True)`) and
 `pallas_energy_and_grad_batched`, which routes exact restraints to B3
-(ops.tri_energy) at L >= 1024 and general ones to B5 (ops.general_pair) as
-the JAX package does. The solver calls it once per solve, for the
-enantiomer pick, and once for a whole genome bucket (C chromosomes' tiles
-stacked, structure b reading chromosome b / (B / C)'s); on the unfused
+(ops.tri_energy) where `use_triangular` says so (from L = 1024 with no
+dispatch table) and general ones to B5 (ops.general_pair) as the JAX
+package does. The solver calls it once per solve, for the enantiomer pick,
+and once for a whole genome bucket (C chromosomes' tiles stacked, structure
+b reading chromosome b / (B / C)'s: B2, B3 and B5 take that axis); on the unfused
 route (solver.unfused) it is every step's value and gradient, with the
 bond and angle terms (`bond_energy_grad`, the angle's gradient written out
 in closed form). No autograd is involved: the kernel returns the exact
@@ -288,25 +289,33 @@ def bond_energy_grad(coords: torch.Tensor, weights: EnergyWeights,
 
 def pair_energy_and_grad_batched(
     coords: torch.Tensor, restraints, weights: EnergyWeights,
-    bead_mask: torch.Tensor, exact: bool = True, tiles=None,
+    bead_mask: torch.Tensor, exact: bool = True, tiles=None, tri=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Value and gradient for a shared-restraint batch: a pair kernel plus
     the chain bond (and the angle term where weights.angle is not 0).
     Counterpart of the JAX package's
     `pallas_energy_and_grad_batched(..., exact=exact)` with its dispatch
     (`_pairwise_energy_grad_batched`): exact restraints take the triangular
-    kernel B3 where `tri_energy.use_triangular(L, for_unfused=True)` holds
-    and the whole-matrix kernel B2 otherwise; general restraints take B5
-    (there is no triangular variant of the general well); exact=True reads
-    lo as the target. Restraints of (C, L, L) tensors with bead_mask (C, L)
-    hold C chromosomes of B / C structures each, chromosome-major (a genome
-    bucket's pick); only B2 has that axis. tiles: the kernel's tiles folded
+    kernel B3 where `tri_energy.use_triangular(L, for_unfused=True,
+    batch=B / C)` holds on the coordinates' device and the whole-matrix
+    kernel B2 otherwise; general restraints take B5 (there is no triangular
+    variant of the general well); exact=True reads lo as the target.
+    Restraints of (C, L, L) tensors with bead_mask (C, L) hold C chromosomes
+    of B / C structures each, chromosome-major (a genome bucket's pick),
+    and the table is asked with a chromosome's B / C, as the JAX package's
+    call under the genome vmap asks with its own. tiles: the kernel's tiles folded
     once by the caller (pair_tiles), for a loop that calls this every step.
-    Returns (energies (B,), gradients (B, L, 3))."""
+    tri: None lets use_triangular decide; True or False pins B3 or B2 (a
+    solve decides once, as the JAX package's trace does; False is its
+    static no_tri=True). Returns (energies (B,), gradients (B, L, 3))."""
     # imported here: both build on this module
     from chromosome3d_tpu_torch.ops import general_pair, tri_energy
 
     L = coords.shape[1]
+    if exact and tri is None:
+        n_per = coords.shape[0] // (bead_mask.shape[0] if bead_mask.dim() == 2 else 1)
+        tri = tri_energy.use_triangular(L, for_unfused=True, batch=n_per,
+                                        device=coords.device)
     if tiles is None:
         tiles = pair_tiles(restraints, exact)
     if not exact:
@@ -314,7 +323,7 @@ def pair_energy_and_grad_batched(
             coords.transpose(1, 2).contiguous(), *tiles, weights, bead_mask,
         )
         g_pair = gT.transpose(1, 2)
-    elif tri_energy.use_triangular(L, for_unfused=True):
+    elif tri:
         e_pair, gT = tri_energy.tri_energy_grad(
             coords.transpose(1, 2).contiguous(), *tiles, weights, bead_mask
         )

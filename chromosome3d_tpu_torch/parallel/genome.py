@@ -13,8 +13,10 @@ the genome is a handful of launches:
      together on one device (`solve_bucket`, solver.anneal.solve_bucket_impl):
      the JAX package's vmap(solve_ensemble_impl) over the bucket becomes one
      batch of C x 2 x models structures with a tile set per chromosome, so
-     kernel B1 runs each phase of the schedule for the whole bucket in one
-     launch and kernel B2 the enantiomer pick in one;
+     on every route the dispatch can choose, kernel B1 runs each phase of
+     the schedule for the whole bucket in one launch (or B3 or B5, then B4,
+     one launch each a step) and kernel B2 or B3 the enantiomer pick in
+     one; the unfused route solves the chromosomes one after another;
   3. a bucket past the length buckets (exact restraints, the default) skips
      the host prep: its IF matrices are padded and stacked once on the host
      (`bucket_stack`), their exact tiles built on the device
@@ -76,7 +78,7 @@ from chromosome3d_tpu_torch.pipeline import (
     quantum_bucket,
 )
 from chromosome3d_tpu_torch.restraints import build_restraints, restraints_from_exact_target
-from chromosome3d_tpu_torch.solver.anneal import AnnealResult, solve_bucket_impl, stack_refusal
+from chromosome3d_tpu_torch.solver.anneal import AnnealResult, solve_bucket_impl
 from chromosome3d_tpu_torch.solver.sharded import _route, solve_genome_sharded
 from chromosome3d_tpu_torch.utils.checkpoint import GenomeCheckpoint
 from chromosome3d_tpu_torch.utils.logging import get_logger
@@ -364,20 +366,6 @@ def _plan_large(buckets, max_bucket: int, cfg: PipelineConfig, dev):
     return plan
 
 
-def _refuse_unstackable(buckets, max_bucket: int, cfg: PipelineConfig) -> None:
-    """Refuse, before any bucket is solved, a bucket within the length
-    buckets whose chromosomes solve_bucket_impl would stack on a route that
-    has no chromosome axis yet (anneal.stack_refusal; ROADMAP A12). The
-    restraints come from IF matrices, so they are exact wherever the well
-    is pure-quadratic (auto_exact_matrix), as the run finds them."""
-    an = auto_exact_matrix(cfg).anneal
-    for L_pad in sorted(L for L in buckets if L <= max_bucket):
-        why = stack_refusal(an, len(buckets[L_pad]), L_pad)
-        if why:
-            names = ", ".join(j.name for j in buckets[L_pad])
-            raise NotImplementedError(f"{names}: bucket L={L_pad}: {why}")
-
-
 def run_genome(
     input_dir: str,
     output_dir: str,
@@ -432,7 +420,6 @@ def run_genome(
     )
     max_bucket = max(cfg.length_buckets)
     large_devices = _plan_large(buckets, max_bucket, cfg, dev)
-    _refuse_unstackable(buckets, max_bucket, cfg)
     for L_pad, bucket in sorted(buckets.items()):
         ph = phases[f"L{L_pad}"] = {"chromosomes": [j.name for j in bucket]}
         t_ph = [time.time()]

@@ -215,7 +215,7 @@ _LANDMARK_STRIPS = 14
 _MDS_PLANES = 10
 
 
-def solve_peak_bytes(L_pad: int, B: int, exact: bool = True) -> int:
+def solve_peak_bytes(L_pad: int, B: int, exact: bool = True, device=None) -> int:
     """Estimated device peak of a one-device solve of B structures (the hot
     phase's, 2 x models with enantiomer pairs) at L_pad: the restraint tiles
     (exact: target and w; windowed: lo, hi, mask, weight and the kernel's
@@ -224,13 +224,15 @@ def solve_peak_bytes(L_pad: int, B: int, exact: bool = True) -> int:
     strips past L = 2048, classical MDS's (L, L) planes below), the loop
     (the pair kernel's scratch — B3's (B, 2S, 3, T * 64) partials, B5's
     (B, splits, 3, L), B1's tiles — and the Adam state) and the final terms
-    (row-chunked from anneal.CHUNKED_TERMS_MIN_L, whole-matrix below)."""
+    (row-chunked from anneal.CHUNKED_TERMS_MIN_L, whole-matrix below). The
+    pick's kernel is the one use_triangular picks for B structures on
+    `device` (whose dispatch table entries decide)."""
     f, plane = 4, 4 * L_pad * L_pad
     tiles = (2 if exact else 6) * plane
     if not exact:
         plan = general_pair.general_pair_plan(B, L_pad, L_pad)
         scratch = f * (math.prod(plan["part_shape"]) + math.prod(plan["e_part_shape"]))
-    elif tri_energy.use_triangular(L_pad, for_unfused=True):
+    elif tri_energy.use_triangular(L_pad, for_unfused=True, batch=B, device=device):
         plan = tri_energy.tri_plan(B, L_pad, L_pad, tri_energy.TILE)
         scratch = f * (math.prod(plan["part_shape"]) + math.prod(plan["e_part_shape"]))
     else:
@@ -254,7 +256,7 @@ def _solve_structures(cfg: PipelineConfig) -> int:
 def _one_device_shortfall(L_pad: int, cfg: PipelineConfig, exact: bool, dev):
     """(bytes the one-device solve lacks on `dev` (<= 0 when it fits), the
     estimate, the device's memory)."""
-    need = solve_peak_bytes(L_pad, _solve_structures(cfg), exact)
+    need = solve_peak_bytes(L_pad, _solve_structures(cfg), exact, dev)
     have = _memory_bytes(torch.device(dev))
     return need - have, need, have
 

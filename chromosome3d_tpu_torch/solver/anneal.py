@@ -14,13 +14,15 @@ The semi routes are a Python loop over the same rows: the pair terms come
 from one kernel, with the weights of the table's row, and the update from
 kernel B4 (ops.fused_update: bond, clip, Adam, noise and move), which reads
 its step from a device counter set once a phase, its scalars from the
-table's rows on the device, and writes the step's history row itself: kernel B3 (ops.tri_energy) for exact restraints past the fused
-step's reach or with or-groups, kernel B5 (ops.general_pair) for general
+table's rows on the device, and writes the step's history row itself:
+kernel B3 (ops.tri_energy) for exact restraints where B1 does not run
+(past the fused step's reach, with or-groups, or where the dispatch table
+says so), kernel B5 (ops.general_pair) for general
 (windowed / soft-square) restraints. Or-group rows add their group-min
 term (ops.energy.or_group_energy) to the pair gradient before B4. The
 enantiomer trial runs both mirror images through the hot phase, picks the
 lower-energy member of each pair under the end-of-hot weights
-(ops.pair_energy: B2, B3 at L >= 1024, or B5, plus the bonded terms and
+(ops.pair_energy: B2 or B3 as use_triangular says, or B5, plus the bonded terms and
 the or-group term),
 and only the winners continue, with their Adam moments and the step count
 carried over (so the bias corrections and the noise stream stay aligned
@@ -37,15 +39,18 @@ term, then the clip, optax's Adam, noise drawn on the device and the move
 in torch ops (solver.unfused). `solve_single` runs the same step on one
 structure.
 
-Routes: the port runs the JAX package's frozen-default dispatch with no
-dispatch table (`tri_energy.use_triangular`, `fused_step_feasible`), so both
-packages route every L the same way. The options still unported raise
-NotImplementedError naming their ROADMAP item; nothing falls back silently.
+Routes (`step_route`): the JAX package's dispatch, `fused_step_feasible`
+and `tri_energy.use_triangular` with its measured table where one exists
+(ops.calibrate) and its frozen defaults elsewhere, asked with the
+structures of one chromosome; CHROM3D_NO_TRI sends the exact semi route to
+the unfused step. The options still unported raise NotImplementedError
+naming their ROADMAP item; nothing falls back silently.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -277,27 +282,25 @@ def _unfused(cfg: AnnealConfig) -> bool:
     return not cfg.fuse_update or cfg.angle_weight != 0.0
 
 
-def _fused_route(cfg: AnnealConfig, L: int, or_groups) -> bool:
-    """Kernel B1's route: the fusable options, exact restraints, no
-    or-groups, a length the fused step serves and the triangular kernel
-    does not."""
-    exact = cfg.exact_restraints and cfg.noe_rswitch >= 1e8
-    return (not _unfused(cfg) and exact and or_groups is None and fused_step_feasible(L)
-            and not tri_energy.use_triangular(L))
-
-
-def stack_refusal(cfg: AnnealConfig, C: int, L: int) -> Optional[str]:
-    """Why solve_bucket_impl cannot solve C chromosomes at padded length L
-    together, or None where it can. It stacks them on kernel B1's route
-    (one after another elsewhere), and only kernels B1 and B2 have the
-    chromosome axis there: from L = 1024 the enantiomer pick is kernel
-    B3's, which has none yet."""
-    if C > 1 and _fused_route(cfg, L, None) and tri_energy.use_triangular(
-            L, for_unfused=True):
-        return (f"a stack of {C} chromosomes with exact restraints at L={L} takes its "
-                "enantiomer pick on kernel B3, which has no chromosome axis yet "
-                "(ROADMAP A12)")
-    return None
+def step_route(cfg: AnnealConfig, L: int, or_groups=None, batch: Optional[int] = None,
+               device=None) -> str:
+    """The step route of a solve at L: "fused" (kernel B1), "semi" (B3 or
+    B5, then B4) or "unfused" (solver.unfused) — the JAX package's choice
+    (anneal.py:322-358). B1 for the fusable options, exact restraints, no
+    or-groups, a length the fused step serves and the triangular kernel does
+    not (`use_triangular(L, batch=batch)`, batch the structures of one
+    chromosome: the JAX call sits under the genome vmap); exact restraints
+    off B1 take B3 + B4 unless CHROM3D_NO_TRI is set, which sends them to
+    the unfused step; general restraints B5 + B4. device: whose dispatch
+    table entries decide."""
+    if _unfused(cfg):
+        return "unfused"
+    if not (cfg.exact_restraints and cfg.noe_rswitch >= 1e8):
+        return "semi"
+    if (or_groups is None and fused_step_feasible(L)
+            and not tri_energy.use_triangular(L, batch=batch, device=device)):
+        return "fused"
+    return "unfused" if os.environ.get("CHROM3D_NO_TRI") else "semi"
 
 
 def _solve_stack(rs, stacked, cfg: AnnealConfig, n_models: int, bead_masks: torch.Tensor,
@@ -307,29 +310,28 @@ def _solve_stack(rs, stacked, cfg: AnnealConfig, n_models: int, bead_masks: torc
     centroid) for C chromosomes at once: rs their (L, L) restraints,
     `stacked` the same as (C, L, L) tensors (None when C = 1), bead_masks
     (C, L), xs (C, n_eff, L, 3), noise_seeds C ints. The state is one batch
-    of C x n_eff structures, chromosome-major. C > 1 runs the fused route
-    only (kernels B1 and B2 have the chromosome axis); the final terms and
-    the centroid are taken chromosome by chromosome, so each chromosome's
-    numbers are those of a solve of its own. schedule overrides the one
+    of C x n_eff structures, chromosome-major. C > 1 runs the fused and the
+    semi routes (kernels B1 to B5 have the chromosome axis: one launch a
+    phase or a step for the whole stack, and one for the pick); the final
+    terms and the centroid are taken chromosome by chromosome, so each
+    chromosome's numbers are those of a solve of its own. schedule overrides the one
     built from cfg; noise replays the unfused route's standard-normal
     draws (solve_ensemble_impl). Returns an AnnealResult whose arrays carry
     a leading C axis."""
     C, n_eff, L = xs.shape[0], xs.shape[1], xs.shape[2]
     dev = xs.device
     exact = cfg.exact_restraints and cfg.noe_rswitch >= 1e8
-    fused = _fused_route(cfg, L, or_groups)
-    if C > 1 and not fused:
+    route = step_route(cfg, L, or_groups, n_eff, dev)
+    fused, unfused = route == "fused", route == "unfused"
+    if C > 1 and (unfused or or_groups is not None):
         raise NotImplementedError(
-            "a stack of chromosomes runs on kernel B1's route only (exact restraints, "
-            f"no or-groups, the fused step), not at L={L} (ROADMAP A12)")
-    why = stack_refusal(cfg, C, L)
-    if why:
-        raise NotImplementedError(why)
+            "a stack of chromosomes runs on the fused and semi routes, with no or-groups; "
+            "the unfused route solves them one after another (ROADMAP A12.3)")
 
     table = schedule_table(cfg, noise_seeds[0], schedule)
     base = table.base
     T = len(table.rows)
-    unfused = _unfused(cfg)
+    seeds = torch.tensor([_c_int32(v) for v in noise_seeds], dtype=torch.int32, device=dev)
     # the fused and semi routes hold the state in the kernels' (B, 3, L)
     # layout, the unfused route in the (B, L, 3) one of the JAX package's
     # optax step (and of its noise draws)
@@ -342,7 +344,8 @@ def _solve_stack(rs, stacked, cfg: AnnealConfig, n_models: int, bead_masks: torc
     muT = torch.zeros_like(xT)
     nuT = torch.zeros_like(xT)
     history = torch.empty((T, C * n_eff), dtype=torch.float32, device=dev)
-    # the pick's restraints and masks: one chromosome's, or the stack's
+    # the restraints and masks of the pair kernels and B4: one chromosome's,
+    # or the stack's (the kernels' chromosome axis, a seed a chromosome)
     pick_r, pick_bm = (rs[0], bead_masks[0]) if C == 1 else (stacked, bead_masks)
 
     if fused:
@@ -350,8 +353,6 @@ def _solve_stack(rs, stacked, cfg: AnnealConfig, n_models: int, bead_masks: torc
         # which walks the table's rows itself, every chromosome in one launch
         tiles = [fused_step_tiles(r, bm, base.noe) for r, bm in zip(rs, bead_masks)]
         tiles = tuple(a[0][None] if C == 1 else torch.stack(a) for a in zip(*tiles))
-        seeds = torch.tensor([_c_int32(v) for v in noise_seeds], dtype=torch.int32,
-                             device=dev)
 
         def run(k0: int, k1: int, xT, muT, nuT, hist):
             hist[k0:k1], xT, muT, nuT = fused_steps_batched(
@@ -370,11 +371,11 @@ def _solve_stack(rs, stacked, cfg: AnnealConfig, n_models: int, bead_masks: torc
             return drain(steps(k0, k1, x, mu, nu, hist))
     else:
         # the semi routes: pair terms in kernel B3 (exact) or B5 (general),
-        # the or-group term added, the update in kernel B4; the tiles are
-        # folded once, outside the loop
-        semi_tiles = pair_tiles(rs[0], exact)
+        # the or-group term added, the update in kernel B4, each one launch a
+        # step for the whole stack; the tiles are folded once, outside the loop
+        semi_tiles = pair_tiles(pick_r, exact)
         pair_grad = tri_energy.tri_energy_grad if exact else general_pair_energy_grad
-        bead_mask = bead_masks[0]
+        bead_mask = pick_bm
 
         # the pair kernels take their weights from the host's copy of the
         # table; kernel B4 reads its step from a device counter, its scalars
@@ -395,7 +396,7 @@ def _solve_stack(rs, stacked, cfg: AnnealConfig, n_models: int, bead_masks: torc
                     gT = gT + g_og.transpose(1, 2)
                 xT, muT, nuT = fused_update_table(
                     xT, gT.contiguous(), muT, nuT, e_pair, bead_mask, table, counter,
-                    hist, out=spare[n % 2])
+                    hist, out=spare[n % 2], seeds=seeds)
                 spare[n % 2] = (xT, muT, nuT)
             return xT, muT, nuT
 
@@ -404,7 +405,8 @@ def _solve_stack(rs, stacked, cfg: AnnealConfig, n_models: int, bead_masks: torc
         hot = cfg.hot_steps
         xT, muT, nuT = run(0, hot, xT, muT, nuT, history)
         # handedness per mirror pair of each chromosome, by energy under the
-        # end-of-hot weights (one B2 launch for the whole stack)
+        # end-of-hot weights (one B2 or B3 launch for the whole stack, the
+        # table asked with a chromosome's structures)
         coords = coords_of(xT).contiguous()
         w_hot = table.weights(hot - 1)
         e_hot, _ = pair_energy_and_grad_batched(coords, pick_r, w_hot, pick_bm, exact)
@@ -440,11 +442,18 @@ def _energy_grad(restraints, exact: bool, bead_mask: torch.Tensor, or_groups):
     """Every unfused step's (energies (B,), gradients (B, L, 3)) of (B, L,
     3) coords: the pair kernel with the bonded terms
     (pair_energy_and_grad_batched, its tiles folded once here) and the
-    or-group term where given."""
+    or-group term where given. B3 or B2 is decided once for each batch size
+    (before and after the pick), as the JAX package's trace of each phase
+    decides it."""
     tiles = pair_tiles(restraints, exact)
+    tri: Dict[int, bool] = {}
 
     def energy_grad(x, weights):
-        e, g = pair_energy_and_grad_batched(x, restraints, weights, bead_mask, exact, tiles)
+        B, L = x.shape[0], x.shape[1]
+        if exact and B not in tri:
+            tri[B] = tri_energy.use_triangular(L, for_unfused=True, batch=B, device=x.device)
+        e, g = pair_energy_and_grad_batched(x, restraints, weights, bead_mask, exact, tiles,
+                                            tri=tri.get(B))
         if or_groups is not None:
             e_og, g_og = or_group_energy_grad(x, or_groups, weights, bead_mask)
             e, g = e + e_og, g + g_og
@@ -583,12 +592,12 @@ def solve_bucket_impl(
     over the chromosomes: a batched eigendecomposition may flip an
     eigenvector's sign), then the draws of chromosome_generator(base_seed,
     c); xs (C, n_eff, L, 3) and noise_seeds (C,) replay given values
-    instead, as solve_ensemble_impl's xs= and noise_seed= do. On kernel B1's
-    route the C x n_eff structures run as one batch (B1 twice, B2 once for
-    the whole bucket); chromosome c's results are those of
-    solve_ensemble_impl on its own restraints with the same draws. Off that
-    route (restraints that are not exact, the unfused route) the
-    chromosomes are solved one after another."""
+    instead, as solve_ensemble_impl's xs= and noise_seed= do. On the fused
+    and semi routes (step_route) the C x n_eff structures run as one batch:
+    B1 twice, or B3 or B5 then B4 once a step, for the whole bucket, and B2
+    or B3 once for the pick; chromosome c's results are those of
+    solve_ensemble_impl on its own restraints with the same draws. On the
+    unfused route the chromosomes are solved one after another."""
     target = restraints.lo
     dev = target.device
     C, L = target.shape[0], target.shape[-1]
@@ -602,7 +611,8 @@ def solve_bucket_impl(
                     None if xs is None else xs[c],
                     None if noise_seeds is None else int(noise_seeds[c]))
              for c in range(C)]
-    if not _fused_route(cfg, L, None):
+    n_eff = n_models * 2 if cfg.enantiomer else n_models
+    if step_route(cfg, L, None, n_eff, dev) == "unfused":
         res = [_solve_stack([rs[c]], None, cfg, n_models, bead_masks[c][None],
                             draws[c][0][None], [draws[c][1]]) for c in range(C)]
         return AnnealResult(

@@ -124,22 +124,21 @@ def test_cli_run_input_flags_default_as_jax(monkeypatch, capsys):
 @pytest.mark.parametrize("command,item", [("serve", "A11.3"), ("submit", "A11.3"),
                                           ("calibrate", "A11.6")])
 def test_cli_refuses_unported_subcommands_by_name(command, item, monkeypatch, capsys):
-    """`calibrate` is refused naming its ROADMAP item. `serve` and `submit`
-    (A11.3) are ported: `serve` takes the card by default and raises
-    without one before it binds its socket; `submit` with no request exits
-    2 with the JAX CLI's message."""
-    if command == "calibrate":
-        with pytest.raises(NotImplementedError,
-                           match=rf"`{command}` is not ported \(ROADMAP {item}\)"):
-            cli.main([command, "--socket", "s"])
-        assert cli._UNPORTED == {"calibrate": "A11.6"}
-    elif command == "serve":
+    """Every JAX CLI subcommand is ported (`serve` and `submit` in A11.3,
+    `calibrate` in A11.6), and none is refused as unported. `serve` and
+    `calibrate` take the card by default and raise without one before they
+    bind a socket or write a table; `submit` with no request exits 2 with
+    the JAX CLI's message."""
+    assert not hasattr(cli, "_UNPORTED")
+    if command in ("serve", "calibrate"):
         import torch
 
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        argv = [command, "--socket", "s"] if command == "serve" else [
+            command, "--out", "t.json", "--force"]
         with pytest.raises(RuntimeError, match="CUDA"):
-            cli.main([command, "--socket", "s"])
-        assert not os.path.exists("s")
+            cli.main(argv)
+        assert not os.path.exists("s") and not os.path.exists("t.json")
     else:
         assert cli.main([command, "--socket", "s"]) == 2
         assert "submit needs -i or -r, and -o" in capsys.readouterr().err

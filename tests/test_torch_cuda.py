@@ -712,6 +712,58 @@ def _genome_strips(device, C, L, B):
     return target, w, bms, xT, mu, nu.abs(), gT
 
 
+@pytest.mark.parametrize("C,L,B", [(1, 1024, 20), (3, 1024, 20), (5, 1024, 20),
+                                   (3, 333, 7), (5, 2048, 20)])
+def test_cuda_tri_kernel_chromosome_axis(cuda_device, C, L, B):
+    """B3 over C chromosomes (their own tiles and masks) in one launch
+    equals C launches of one chromosome each, bit for bit, and its twin
+    within the tolerances of test_cuda_tri_kernel_matches_plain; padded
+    beads get no gradient. (333, B = 7): a ragged length, two slices."""
+    target, w, bms, xT, *_ = _genome_strips(cuda_device, C, L, B)
+    launches = tri_energy_grad.launches
+    e, g = tri_energy_grad(xT, target, w, WEIGHTS, bms)
+    assert tri_energy_grad.launches == launches + 1
+    for c in range(C):
+        sl = slice(c * B, (c + 1) * B)
+        e_c, g_c = tri_energy_grad(xT[sl].contiguous(), target[c], w[c], WEIGHTS, bms[c])
+        assert torch.equal(e_c, e[sl]) and torch.equal(g_c, g[sl]), f"chromosome {c}"
+        n = int(bms[c].sum())
+        assert not bool(g[sl, :, n:].any())
+    e_r, g_r = tri_energy_grad_plain(xT, target, w, WEIGHTS, bms)
+    g_r = g_r.cpu().numpy()
+    np.testing.assert_allclose(e.cpu().numpy(), e_r.cpu().numpy(), rtol=3e-5)
+    np.testing.assert_allclose(g.cpu().numpy(), g_r, rtol=2e-4,
+                               atol=2e-4 + 1e-6 * np.abs(g_r).max())
+
+
+@pytest.mark.parametrize("C,L,B", [(1, 512, 20), (3, 512, 20), (5, 512, 20),
+                                   (3, 700, 25), (2, 257, 2)])
+def test_cuda_general_pair_chromosome_axis(cuda_device, C, L, B):
+    """B5 over C chromosomes in one launch a batch slice equals C launches
+    of one chromosome each, bit for bit, and its twin within the tolerances
+    of test_cuda_general_pair_matches_plain (linear tails, rswitch 1);
+    padded beads get no gradient. (700, B = 25): two slices; (257, 2): a
+    column past two chunks."""
+    target, w, bms, xT, *_ = _genome_strips(cuda_device, C, L, B)
+    lo, hi = (target * 0.9).contiguous(), (target * 1.1).contiguous()
+    wts = dataclasses.replace(WEIGHTS, noe_rswitch=1.0)
+    launches = general_pair_energy_grad.launches
+    e, g = general_pair_energy_grad(xT, lo, hi, w, wts, bms)
+    assert general_pair_energy_grad.launches == launches + 1
+    for c in range(C):
+        sl = slice(c * B, (c + 1) * B)
+        e_c, g_c = general_pair_energy_grad(xT[sl].contiguous(), lo[c], hi[c], w[c], wts,
+                                            bms[c])
+        assert torch.equal(e_c, e[sl]) and torch.equal(g_c, g[sl]), f"chromosome {c}"
+        n = int(bms[c].sum())
+        assert not bool(g[sl, :, n:].any())
+    e_r, g_r = general_pair_energy_grad_plain(xT, lo, hi, w, wts, bms)
+    g_r = g_r.cpu().numpy()
+    np.testing.assert_allclose(e.cpu().numpy(), e_r.cpu().numpy(), rtol=1e-5)
+    np.testing.assert_allclose(g.cpu().numpy(), g_r, rtol=2e-4,
+                               atol=2e-4 + 1e-6 * np.abs(g_r).max())
+
+
 @pytest.mark.parametrize("C,L,B", [(2, 5120, 20), (2, 5120, 10), (5, 2048, 20),
                                    (5, 2048, 10)])
 def test_cuda_strip_tri_chromosome_axis(cuda_device, C, L, B):

@@ -38,7 +38,7 @@ from chromosome3d_tpu.solver.init import mds_init as jax_mds_init
 from chromosome3d_tpu.utils import checkpoint as jax_checkpoint
 from chromosome3d_tpu_torch.config import AnnealConfig, PipelineConfig, RestraintConfig, fast_anneal
 from chromosome3d_tpu_torch.io import write_if_matrix
-from chromosome3d_tpu_torch.ops.energy import from_jax_numpy
+from chromosome3d_tpu_torch.ops.energy import DenseRestraints, ExactRestraints, from_jax_numpy
 from chromosome3d_tpu_torch.ops.fused_step import (
     clt4_noise,
     fused_step_plain,
@@ -324,8 +324,8 @@ def test_solve_bucket_equals_lone_solves_bitwise(genome_dir, exact):
     chromosome_generator(base_seed, c); its results are, bit for bit,
     solve_ensemble_impl on its own restraints with that generator. On the
     CPU the fused bucket takes B1's twin once a chromosome a step and B2's
-    twin once for the pick; restraints that are not exact (the semi-general
-    route, B5 + B4) solve the chromosomes one after another."""
+    twin once for the pick; restraints that are not exact take the
+    semi-general route (B5 + B4, stacked since B5 has a chromosome axis)."""
     anneal = dict(exact_restraints=True) if exact else dict(noe_rswitch=5.0)
     port_cfg, _ = _cfgs(**anneal)
     restraints, masks = _port_bucket(genome_dir, port_cfg)
@@ -457,37 +457,70 @@ def test_run_genome_refuses_before_solving(genome_dir, tmp_path):
         port_genome.run_genome(d, out, port_cfg.replace(shard_large=False), device="cpu")
 
 
-def test_run_genome_refuses_an_unstackable_bucket_before_solving(tmp_path):
-    """length_buckets (512, 1024) with two chromosomes in the 1024 bucket
-    and exact restraints: kernel B1 would run their steps, but their
-    enantiomer pick at L = 1024 is kernel B3's, which has no chromosome axis
-    (ROADMAP A12). The run refuses before any bucket is solved: no
-    chromosome directory, no checkpoint, no kernel twin called, the 512
-    bucket included."""
-    port_cfg = _cfgs()[0].replace(length_buckets=(512, 1024))
-    d = _write_genome(tmp_path / "g", CHROMS[1:2] + (("chr8_1mb", 600), ("chr9_1mb", 700)))
+def test_run_genome_refuses_an_unstackable_bucket_before_solving(tmp_path, monkeypatch):
+    """length_buckets (64, 160) with two chromosomes in the 160 bucket and
+    exact restraints, under a dispatch table (CHROM3D_DISPATCH_TABLE) whose
+    CPU entry at (160, 4) measured tri_unfused faster than row_unfused:
+    kernel B1 runs their steps and their enantiomer pick is kernel B3's.
+    Before B3 had a chromosome axis the run refused such a bucket before
+    solving; now it runs stacked: B3's twin once for the whole bucket's
+    pick, B2's once for the 64 bucket's, B1's a chromosome a step, and
+    every chromosome's artifacts and checkpoint are written."""
+    from chromosome3d_tpu_torch.ops import tri_energy
+
+    table = tmp_path / "dispatch.json"
+    table.write_text(json.dumps({"cpu": {"entries": [
+        {"L": 160, "B": 4, "steps": 3, "fused_s": 0.1, "semi_s": 0.5,
+         "tri_unfused_s": 0.1, "row_unfused_s": 0.5, "rel_spread": {}}]}}))
+    monkeypatch.setenv("CHROM3D_DISPATCH_TABLE", str(table))
+    port_cfg = _cfgs()[0].replace(length_buckets=(64, 160))
+    chroms = CHROMS[1:2] + (("chr8_1mb", 100), ("chr9_1mb", 120))
+    d = _write_genome(tmp_path / "g", chroms)
     out = str(tmp_path / "out")
-    before = (fused_step_plain.calls, exact_pair_energy_grad_plain.calls)
-    with pytest.raises(NotImplementedError,
-                       match=r"chr8_1mb, chr9_1mb: bucket L=1024: .*kernel B3.*ROADMAP A12\)"):
+    before = (fused_step_plain.calls, exact_pair_energy_grad_plain.calls,
+              tri_energy.tri_energy_grad_plain.calls)
+    # one torch thread: more spin on the run's small ops and slow the tests
+    # running beside it
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
         port_genome.run_genome(d, out, port_cfg, device="cpu")
-    assert (fused_step_plain.calls, exact_pair_energy_grad_plain.calls) == before
-    assert os.listdir(os.path.join(out, "checkpoint")) == []
-    assert sorted(os.listdir(out)) == ["checkpoint"]
+    finally:
+        torch.set_num_threads(n)
+    assert (fused_step_plain.calls - before[0], exact_pair_energy_grad_plain.calls - before[1],
+            tri_energy.tri_energy_grad_plain.calls - before[2]) == (
+        3 * port_cfg.anneal.total_steps, 1, 1)
+    for name, _ in chroms:
+        assert os.path.isfile(os.path.join(out, "checkpoint", f"{name}.npz"))
+        assert os.path.isfile(os.path.join(out, name, f"{name}_model1.pdb"))
 
 
 @pytest.mark.parametrize("C,L,noe_rswitch,refused", [
     (2, 1024, 1e9, True), (2, 2048, 1e9, True), (1, 1024, 1e9, False),
     (2, 512, 1e9, False), (2, 1024, 5.0, False), (3, 768, 1e9, False)])
-def test_stack_refusal_names_a12(C, L, noe_rswitch, refused):
-    """anneal.stack_refusal: C > 1 chromosomes on kernel B1's route whose
-    pick is kernel B3's (L >= 1024); restraints that are not exact solve one
-    chromosome after another, and are not refused."""
+def test_stack_refusal_names_a12(C, L, noe_rswitch, refused, monkeypatch):
+    """The cases anneal.stack_refusal once refused (refused: C > 1
+    chromosomes on kernel B1's route whose pick is kernel B3's, L >= 1024)
+    and those it let through: solve_bucket_impl now hands all C chromosomes
+    to one stacked solve on each (B1, or B5 + B4 for restraints that are not
+    exact), with the frozen routes: B1 at these lengths for exact
+    restraints, the pick on B3 exactly where it was refused. The solve
+    itself is replaced by a recorder (its numbers are tested in
+    tests/test_torch_genome_stack.py)."""
     cfg = dataclasses.replace(AnnealConfig(), exact_restraints=True, noe_rswitch=noe_rswitch)
-    why = port_anneal.stack_refusal(cfg, C, L)
-    assert (why is not None) == refused
-    if refused:
-        assert f"{C} chromosomes" in why and "ROADMAP A12" in why
+    n_eff = 2 * N_MODELS
+    exact = noe_rswitch >= 1e8
+    assert port_anneal.step_route(cfg, L, None, n_eff) == ("fused" if exact else "semi")
+    tri_pick = exact and port_anneal.tri_energy.use_triangular(L, True, n_eff)
+    assert tri_pick == (exact and L >= 1024) and refused == (C > 1 and tri_pick)
+    stacks = []
+    monkeypatch.setattr(port_anneal, "_solve_stack",
+                        lambda rs, stacked, *a, **k: stacks.append((len(rs), stacked)) or "r")
+    z = torch.zeros(C, L, L)
+    r = (ExactRestraints(z, z) if exact else DenseRestraints(z, z, z, z))
+    got = port_anneal.solve_bucket_impl(r, cfg, N_MODELS, torch.ones(C, L),
+                                        xs=torch.zeros(C, n_eff, L, 3), noise_seeds=[1] * C)
+    assert got == "r" and len(stacks) == 1 and stacks[0][0] == C and stacks[0][1] is r
 
 
 def test_run_genome_needs_a_card_unless_asked_for_the_cpu(genome_dir, tmp_path, monkeypatch):

@@ -84,7 +84,7 @@ def test_at_scale_npy_run_without_jax(tmp_path, npy):
         "RestraintConfig, fast_anneal\n"
         "from chromosome3d_tpu_torch.ops import tri_energy\n"
         "from chromosome3d_tpu_torch.pipeline import run_pipeline\n"
-        "tri_energy.use_triangular = lambda L, for_unfused=False: True\n"
+        "tri_energy.use_triangular = lambda L, for_unfused=False, batch=None, device=None: True\n"
         "cfg = PipelineConfig(model_count=2, restraints=RestraintConfig(alpha=0.5), "
         "anneal=fast_anneal(AnnealConfig(), 0.05), length_buckets=(32,), shard_quantum=32)\n"
         f"s = run_pipeline({npy!r}, {out!r}, cfg, device='cpu')\n"

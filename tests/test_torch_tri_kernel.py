@@ -102,7 +102,7 @@ def test_pair_value_and_grad_routes_through_b3(monkeypatch):
     before = (tri_energy.tri_energy_grad_plain.calls, exact_pair_energy_grad_plain.calls)
     e_row, g_row = pair_energy_and_grad_batched(coords, r_t, w_t, bm)
     monkeypatch.setattr(tri_energy, "use_triangular",
-                        lambda L, for_unfused=False: True)
+                        lambda L, for_unfused=False, batch=None, device=None: True)
     e_tri, g_tri = pair_energy_and_grad_batched(coords, r_t, w_t, bm)
     assert tri_energy.tri_energy_grad_plain.calls == before[0] + 1
     assert exact_pair_energy_grad_plain.calls == before[1] + 1
