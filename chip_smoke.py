@@ -266,6 +266,32 @@ Phases (each prints one line or a few, then its wall seconds as a
                near the truths): one launch against the twin, equal bits
                over two calls, each chromosome bit for bit a launch of its
                own, wall, device and twin ms beside the bound.
+  20. genome rows — the genome solver's row-block and unfused routes with a
+               chromosome axis at full width: (a) C11, the 100 kb
+               chromosomes of the 1024 x5 and 2560 x2 buckets with
+               noe_rswitch = 5, planned by genome._plan_large onto the card
+               and solved by genome.solve_bucket (B5 2,761 + B4 2,760 a
+               bucket); (b) genome.solve_bucket_sharded on the host-stacked
+               windowed tensors: three of the 2048 bucket over the card
+               listed 4 times (2 chrom x 2 beads, a padding copy, B5' at
+               rows 0 and 1024: 11,044, B4 5,520), the 1024 bucket's five
+               over it listed twice (2 x 1, 3 a group); (c) the 45 inputs
+               under length_buckets (128,), shard_quantum 128: the 256 x19,
+               384 x9 and 512 x2 buckets through
+               solve_bucket_sharded_from_if on the rows route (B2' 2,761 +
+               B4 2,760, B2' at the pick); (d) the 512 bucket with
+               fuse_update=False (B2' 2,761, the unfused update). After each
+               solve: launches exact, no twin, the gates on every
+               chromosome's best model by Spearman(IF, 1/d), the first and
+               last chromosome of a group bit for bit a group of their own
+               from the same draws, its seconds, and its device peak
+               (torch.cuda.max_memory_allocated past the start) under
+               genome.bucket_peak_bytes, as at phase 4c's buckets past 768.
+               Then B5' and B2' with the chromosome axis on the tiles the
+               runs built (B = 20 near the truths; B2' also at rows [256,
+               512)): one launch against the twin, equal bits over two
+               calls, each chromosome bit for bit a launch of its own, wall,
+               device and twin ms beside the bound.
 Then one JSON line with the kernels' numbers (each with its launches on its
 path, its wall and device ms and its twin's — for B1 per step of a 256-step
 launch, with the steps it ran on the main path — its bound from the H100's
@@ -281,7 +307,8 @@ launches on phase 4f's served requests, and B2, B3, B5, B2' and B5' with
 their launches on phase 17's unfused solves and their errors at its
 shapes; every row with its launches in phases 18 and 19 where it ran
 there; B3 and B5 with the chromosome axis at the buckets of phase 19, with
-that bucket's launches) and, last,
+that bucket's launches; B5' and B2' with it at the groups of phase 20, with
+that solve's launches) and, last,
 the result line `{"ok": true, "device": {...}}`.
 """
 
@@ -996,20 +1023,22 @@ def recorded_calls(module, name, calls):
 def recorded_bucket_solves(module, name, runs):
     """Record each call of module.name (a genome bucket's solve from its IF
     matrices) into `runs`: its wall seconds, synchronised, the kernel
-    launches made inside it, its padded length and bead counts, and the
-    tiles it returns (kept alive for the kernel checks after the run)."""
+    launches made inside it, its padded length and bead counts, its device
+    peak (bytes past what was allocated before it), and the tiles it
+    returns (kept alive for the kernel checks after the run)."""
     real = getattr(module, name)
 
     def spy(matrices, L_pad, *args, **kwargs):
         torch.cuda.synchronize()
         before = read_counters()[0]
+        peak = []
         t0 = time.perf_counter()
-        out = real(matrices, L_pad, *args, **kwargs)
-        torch.cuda.synchronize()
+        with device_peak(peak):
+            out = real(matrices, L_pad, *args, **kwargs)
         seconds = time.perf_counter() - t0
         after = read_counters()[0]
         runs.append({"seconds": seconds, "L_pad": L_pad, "tiles": out[1],
-                     "lengths": [m.shape[0] for m in matrices],
+                     "lengths": [m.shape[0] for m in matrices], "peak": peak[0],
                      "launches": {k: after[k] - before[k] for k in after}})
         return out
 
@@ -1018,6 +1047,26 @@ def recorded_bucket_solves(module, name, runs):
         yield
     finally:
         setattr(module, name, real)
+
+
+@contextlib.contextmanager
+def device_peak(out):
+    """Append to `out` the device's peak allocation inside the block, in
+    bytes past what was allocated when it began (synchronised)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    yield
+    torch.cuda.synchronize()
+    out.append(torch.cuda.max_memory_allocated() - base)
+
+
+def check_peak(where, peak, est, card):
+    """genome.bucket_peak_bytes (est) must stay above the measured peak."""
+    check(peak <= est, f"{where}: device peak {peak} bytes above bucket_peak_bytes {est}")
+    print(f"[peak] {where}: torch.cuda.max_memory_allocated past the start {peak} bytes "
+          f"({peak / 1e9:.3f} GB), bucket_peak_bytes {est} ({est / 1e9:.3f} GB, "
+          f"{est / max(peak, 1):.2f}x) on {card}")
 
 
 def timed_solve(seconds):
@@ -2141,7 +2190,7 @@ def phase_genome_100kb(directory, truths, card):
     chromosome's rank-01 model. Prints each bucket's solve (timed here,
     synchronised) with its ensemble and chromosome-steps/s."""
     from chromosome3d_tpu_torch import cli, native
-    from chromosome3d_tpu_torch.config import AnnealConfig
+    from chromosome3d_tpu_torch.config import AnnealConfig, PipelineConfig
     from chromosome3d_tpu_torch.io import load_if_matrix
     from chromosome3d_tpu_torch.parallel import genome
 
@@ -2169,12 +2218,16 @@ def phase_genome_100kb(directory, truths, card):
         check_launches("genome 100 kb", launches, plain, want)
         # each bucket past 768 on the one card: one group of one rank, B6
         # once a step and at the pick and B4 once a step for the bucket
+        cfg_4c = PipelineConfig(model_count=N_MODELS)
         for run in runs:
             check(len(run["tiles"]) == 1 and len(run["tiles"][0]) == 1,
                   f"genome 100 kb bucket {run['L_pad']}: {len(run['tiles'])} groups of "
                   f"{len(run['tiles'][0])} ranks, not the one card")
             check_launches(f"genome 100 kb bucket {run['L_pad']}", run["launches"], 0,
                            {"B6": steps + 1, "B4": steps})
+            check_peak(f"genome 100 kb bucket {run['L_pad']} x{len(run['lengths'])} (exact, "
+                       "prep on the card)", run["peak"], genome.bucket_peak_bytes(
+                           len(run["lengths"]), run["L_pad"], cfg_4c), card)
         b1_steps = kernel_counters()[0]["B1"].steps
         check(b1_steps == want["B1"] // 2 * steps,
               f"genome 100 kb: B1 ran {b1_steps} steps, want {want['B1'] // 2 * steps}")
@@ -3599,7 +3652,8 @@ def check_lone(where, run, c):
     return seconds
 
 
-def genome_stack_solves(directory, cfg, truths, where, want_bucket, card, keep=None):
+def genome_stack_solves(directory, cfg, truths, where, want_bucket, card, keep=None,
+                        at_scale=False):
     """Every bucket of the genome inputs in `directory` that `keep(L_pad)`
     admits, bucketed, stacked on the host and solved on the card as
     run_genome does (genome.bucket_jobs, _stack_bucket, auto_exact,
@@ -3608,12 +3662,24 @@ def genome_stack_solves(directory, cfg, truths, where, want_bucket, card, keep=N
     solve seconds (synchronised), the gates on every chromosome's best model
     by Spearman(IF, 1/d) (the rank-01 model), its first and last chromosome
     bit for bit a solve_ensemble_impl of its own from the same draws.
-    Returns (the runs: restraints, masks, config, result, draws, seconds,
-    launches, names; the launches in all)."""
+    at_scale: the buckets past the length buckets (shard_quantum), planned
+    by run_genome's genome._plan_large onto the one card, each solve's
+    device peak held under genome.bucket_peak_bytes. Returns (the runs:
+    restraints, masks, config, result, draws, seconds, launches, names; the
+    launches in all)."""
+    from chromosome3d_tpu_torch.device import resolve_device
     from chromosome3d_tpu_torch.parallel import genome
-    from chromosome3d_tpu_torch.pipeline import auto_exact
+    from chromosome3d_tpu_torch.pipeline import _exact_provable, auto_exact, auto_exact_matrix
 
-    buckets = genome.bucket_jobs(genome.discover_jobs(directory), cfg.length_buckets)
+    buckets = genome.bucket_jobs(genome.discover_jobs(directory), cfg.length_buckets,
+                                 cfg.shard_quantum if at_scale else None)
+    if at_scale:
+        dev = resolve_device(None)
+        kept = {L: b for L, b in buckets.items() if keep is None or keep(L)}
+        plan = genome._plan_large(kept, max(cfg.length_buckets), cfg, dev)
+        check(sorted(plan) == sorted(kept) and all(d == [dev] for d in plan.values()),
+              f"{where}: run_genome's plan {plan}, not the one card for each of {sorted(kept)}")
+        exact = _exact_provable(auto_exact_matrix(cfg))
     runs, total = [], {}
     steps = cfg.anneal.total_steps
     for L_pad, jobs in sorted(buckets.items()):
@@ -3623,13 +3689,16 @@ def genome_stack_solves(directory, cfg, truths, where, want_bucket, card, keep=N
         cfg_b = cfg
         if all(not r.negdev.any() and not r.posdev.any() for r in raw):
             cfg_b = auto_exact(cfg, raw[0])
-        draws = []
+        draws, peak = [], []
         reset_counters()
-        with recorded_draws(draws):
+        with recorded_draws(draws), device_peak(peak):
             result, seconds = synced_seconds(genome.solve_bucket, batched, masks, cfg_b)
         launches, plain = read_counters()
         C = len(jobs)
         check_launches(f"{where} bucket {L_pad}", launches, plain, want_bucket(L_pad))
+        if at_scale:
+            check_peak(f"{where} bucket {L_pad} x{C}", peak[0],
+                       genome.bucket_peak_bytes(C, L_pad, cfg_b, exact=exact), card)
         for k, n in launches.items():
             total[k] = total.get(k, 0) + n
         coords = result.coords.cpu().numpy()
@@ -3710,6 +3779,294 @@ def phase_genome_stack(dir_100kb, truths_100kb, dir_45, truths_45, card):
     return {"a": launches_a, "b": launches_b}, measured, path_launches
 
 
+@contextlib.contextmanager
+def recorded_starts(starts):
+    """Record each chromosome's draws of a genome solve past the length
+    buckets (solver.sharded._start's start ensemble, and the noise seed its
+    generator draws next), in chromosome order, into `starts`."""
+    from chromosome3d_tpu_torch.solver import sharded
+
+    real = sharded._start
+
+    def spy(group, strips, bead_mask, cfg, n_models, generator):
+        xs = real(group, strips, bead_mask, cfg, n_models, generator)
+        peek = torch.Generator().set_state(generator.get_state())
+        starts.append((xs, int(torch.randint(0, 2**31 - 1, (), generator=peek))))
+        return xs
+
+    sharded._start = spy
+    try:
+        yield
+    finally:
+        sharded._start = real
+
+
+def same_result(lone, got, c):
+    """Chromosome c of a group's result equals a lone solve's, bit for bit."""
+    return (torch.equal(lone.coords[0], got.coords[c])
+            and torch.equal(lone.history[0], got.history[c])
+            and torch.equal(lone.pick[0], got.pick[c])
+            and all(torch.equal(v[0], got.energies[k][c]) for k, v in lone.energies.items()))
+
+
+def rows_solve(where, solve, want, names, matrices, truths, est, lone, lone_idx, card):
+    """One genome solve of phase 20: the counters reset, `solve()` run
+    synchronised inside device_peak with each chromosome's draws recorded
+    (recorded_starts), its launches exactly `want` and no twin, the gates on
+    every real chromosome's best model by Spearman(IF, 1/d), the peak under
+    `est` (genome.bucket_peak_bytes), and each chromosome c of lone_idx bit
+    for bit lone(c, its draws). Returns (result, launches, seconds)."""
+    starts, peak = [], []
+    reset_counters()
+    with recorded_starts(starts), device_peak(peak):
+        result, seconds = synced_seconds(solve)
+    if isinstance(result, tuple):
+        result = result[0]
+    launches, plain = read_counters()
+    check_launches(where, launches, plain, want)
+    coords = result.coords.cpu().numpy()
+    with concurrent.futures.ThreadPoolExecutor(HOST_THREADS) as pool:
+        gated = list(pool.map(lambda c: best_by_spearman(
+            matrices[c], coords[c, :, :len(truths[names[c]])], truths[names[c]]),
+            range(len(names))))
+    worst = max(met["rmsd_over_rg"] for met, _ in gated)
+    check_peak(where, peak[0], est, card)
+    lone_s = []
+    for c in lone_idx:
+        one, s = synced_seconds(lone, c, starts[c])
+        check(same_result(one, result, c),
+              f"{where}: chromosome {c} differs from a group of its own from the same draws")
+        lone_s.append(s)
+    steps = len(result.history[0, 0])
+    print(f"[genome rows] {where}: solve {seconds} s (synchronised), {steps / seconds} "
+          f"ensemble steps/s, {len(names) * steps / seconds} chromosome-steps/s; launches "
+          f"{json.dumps({k: n for k, n in launches.items() if n})}, plain 0; gates met by all "
+          f"{len(names)} (worst rank-01 rmsd/Rg {worst:.4f}); chromosomes {list(lone_idx)} bit "
+          f"for bit a group of their own from the same draws "
+          f"({', '.join(f'{x:.3f}' for x in lone_s)} s) on {card}")
+    return result, launches, seconds
+
+
+def check_rows_axis(key, where, tiles, bms, near, row0, card, weights):
+    """Kernel B2' (tiles (target, w)) or B5' (tiles (lo, hi, w)) with the
+    chromosome axis on one genome group's (C, Lb, L) strips at row0, B = 20
+    a chromosome near its truth: one launch against the twin (phase 3's
+    tolerances: e rtol 3e-5 for B2', 1e-5 for B5'; g rtol 2e-4, atol 2e-4 +
+    1e-6 x max |g|), equal bits over two calls, each chromosome bit for bit
+    a launch of its own at the same row0; then its wall, device and twin ms
+    beside its bound. Returns the numbers of the `kernels` line."""
+    from chromosome3d_tpu_torch.ops import general_pair, pair_energy
+
+    fn, twin = ((pair_energy.exact_row_block_energy_grad,
+                 pair_energy.exact_row_block_energy_grad_plain) if key == "B2'"
+                else (general_pair.general_row_block_energy_grad,
+                      general_pair.general_row_block_energy_grad_plain))
+    C, Lb, L = tiles[0].shape
+    B = 2 * N_MODELS
+    xT = torch.cat([a[1] for a in near]).contiguous()
+    e, g = fn(xT, *tiles, weights, bms, row0)
+    e2, g2 = fn(xT, *tiles, weights, bms, row0)
+    e_r, g_r = twin(xT, *tiles, weights, bms, row0)
+    torch.cuda.synchronize()
+    check(torch.equal(e, e2) and torch.equal(g, g2), f"{key} {where}: two calls differ")
+    close(f"{key} {where} e", e, e_r, 3e-5 if key == "B2'" else 1e-5)
+    err = close(f"{key} {where} g", g, g_r, 2e-4, 2e-4 + 1e-6 * float(g_r.abs().max()))
+    for c in range(C):
+        sl = slice(c * B, (c + 1) * B)
+        e_c, g_c = fn(xT[sl].contiguous(), *(a[c] for a in tiles), weights, bms[c], row0)
+        check(torch.equal(e_c, e[sl]) and torch.equal(g_c, g[sl]),
+              f"{key} {where}: chromosome {c} differs from a launch of its own")
+    calls = {key: (lambda: fn(xT, *tiles, weights, bms, row0), 25),
+             f"{key} plain": (lambda: twin(xT, *tiles, weights, bms, row0), 3)}
+    wall = {k: median_ms(f, n, warmup=1) for k, (f, n) in calls.items()}
+    on_dev = {k: event_ms(f, n) for k, (f, n) in calls.items()}
+    bound_ms, bound_by = bound(key, B, L, Lb, C=C)
+    print(f"[kernels] {key} with the chromosome axis, {where}: {C} chromosomes x B={B}, rows "
+          f"[{row0}, {row0 + Lb}) of L={L}, one launch: == twin (g max abs err {err:.3g}), "
+          f"each chromosome bitwise a launch of its own; ms as median wall with a sync | "
+          f"device (CUDA events): {wall[key]:.5f} | {on_dev[key]:.5f}, twin "
+          f"{wall[key + ' plain']:.4f} | {on_dev[key + ' plain']:.4f} (bound {bound_ms:.5f}, "
+          f"{bound_by}) on {card}")
+    return {**timing(err, key, wall, on_dev), "L_pad": L, "rows": Lb, "row0": row0,
+            "chromosomes": C, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_genome_rows(dir_100kb, truths_100kb, dir_45, truths_45, card):
+    """Phase 20: the genome solver's row-block and unfused routes with a
+    chromosome axis, at full width (10 models, the default schedule). (a)
+    C11: the 100 kb chromosomes of the 1024 x5 and 2560 x2 buckets with
+    noe_rswitch 5, planned by run_genome's genome._plan_large onto the one
+    card and solved by genome.solve_bucket, as run_genome does (B5 2,761 +
+    B4 2,760 a bucket; genome_stack_solves). (b) genome.solve_bucket_sharded
+    on the host-stacked windowed tensors: three chromosomes of the 2048
+    bucket over the card listed 4 times (2 chrom x 2 beads, 2 a group with
+    one padding copy, B5' at rows 0 and 1024), then the 1024 bucket's five
+    over the card listed twice (2 x 1, 3 a group). (c) the 45 inputs under
+    length_buckets (128,), shard_quantum 128, planned by _plan_large: the
+    buckets 256, 384 and 512 past it through solve_bucket_sharded_from_if on
+    the rows route (B2' + B4, B2' at the pick). (d) (c)'s 512 bucket with
+    fuse_update=False: B2' on the unfused route, 2 chromosomes a group.
+    After each solve (rows_solve): launches exact, no twin, gates on every
+    chromosome, the first and last chromosome of a group bit for bit a
+    group of their own from the same draws, its seconds, its device peak
+    under genome.bucket_peak_bytes. Then B2' and B5' with the chromosome
+    axis on the tiles the runs built (check_rows_axis). Returns (launches a
+    solve, {name: kernel numbers}, {name: launches of its path})."""
+    from chromosome3d_tpu_torch.config import AnnealConfig, PipelineConfig
+    from chromosome3d_tpu_torch.device import resolve_device
+    from chromosome3d_tpu_torch.io import load_if_matrix
+    from chromosome3d_tpu_torch.ops.energy import ExactRestraints
+    from chromosome3d_tpu_torch.parallel import genome
+    from chromosome3d_tpu_torch.parallel.shards import ShardGroup
+    from chromosome3d_tpu_torch.pipeline import auto_exact_matrix
+    from chromosome3d_tpu_torch.solver import sharded
+    from chromosome3d_tpu_torch.solver.anneal import _final_weights
+
+    dev = resolve_device(None)
+    steps = AnnealConfig().total_steps
+    path, measured, path_launches = {}, {}, {}
+
+    # (a) C11: the windowed buckets past the length buckets on the one card
+    cfg_w = PipelineConfig(model_count=N_MODELS, anneal=AnnealConfig(noe_rswitch=5.0))
+    runs_a, _ = genome_stack_solves(
+        dir_100kb, cfg_w, truths_100kb, "genome rows (a) C11",
+        lambda L: {"B5": steps + 1, "B4": steps}, card, keep=lambda L: L in (1024, 2560),
+        at_scale=True)
+    check([(r["L_pad"], len(r["names"])) for r in runs_a] == [(1024, 5), (2560, 2)],
+          f"genome rows (a): buckets {[(r['L_pad'], len(r['names'])) for r in runs_a]}")
+    for r in runs_a:
+        path[f"a{r['L_pad']}"] = r["launches"]
+    del runs_a
+
+    # (b) solve_bucket_sharded on the host-stacked windowed tensors
+    buckets = genome.bucket_jobs(genome.discover_jobs(dir_100kb), cfg_w.length_buckets,
+                                 cfg_w.shard_quantum)
+    near_b = {}
+    for L, jobs, n_dev, layout in ((2048, buckets[2048][:3], 4, (2, 2)),
+                                   (1024, buckets[1024], 2, (2, 1))):
+        batched, masks, matrices, _ = genome._stack_bucket(jobs, L, cfg_w)
+        C = len(jobs)
+        devices = [dev] * n_dev
+        groups, B_pad, L_all = genome._layout(C, L, devices)
+        nc, nb = len(groups), groups[0].n
+        Cg = B_pad // nc
+        check((nc, nb) == layout and L_all == L,
+              f"genome rows (b) {L}: layout {nc} x {nb} at {L_all}")
+        check(sharded._route(cfg_w.anneal, L, nb) == "rows", f"genome rows (b) {L}: route")
+        share = genome.bucket_peak_bytes(Cg, L, cfg_w, nb, exact=False)
+
+        def lone(c, draws, batched=batched, masks=masks, nb=nb):
+            one = type(batched)(*(getattr(batched, f.name)[c:c + 1]
+                                  for f in dataclasses.fields(batched)))
+            return genome.solve_bucket_sharded(one, masks[c:c + 1], cfg_w, devices=[dev] * nb,
+                                               xs=draws[0][None], noise_seeds=[draws[1]])
+
+        names = [j.name for j in jobs]
+        _, launches, _ = rows_solve(
+            f"(b) solve_bucket_sharded, bucket {L} x{C} over the card x{n_dev} ({nc} chrom x "
+            f"{nb} beads, {Cg} a group, B_pad {B_pad})",
+            lambda: genome.solve_bucket_sharded(batched, masks, cfg_w, devices=devices),
+            {"B5'": nc * nb * (steps + 1), "B4": nc * steps}, names, matrices, truths_100kb,
+            n_dev * share, lone, (0, Cg - 1), card)
+        path[f"b{L}"] = launches
+        # group 0's strips at its last rank, as the solve built them
+        r = nb - 1
+        rows = slice(r * (L // nb), (r + 1) * (L // nb))
+        strips = [genome._host_strip(a, rows, list(range(Cg)), L, dev) for a in
+                  (batched.lo, batched.hi, batched.mask * batched.weight)]
+        near = [ensemble_near(truths_100kb[n], L, dev) for n in names[:Cg]]
+        near_b[L] = (strips, torch.stack([a[0] for a in near]), near, rows.start, launches)
+        del batched, matrices
+    for L, (strips, bms, near, row0, launches) in near_b.items():
+        name = f"B5'@{L}"
+        measured[name] = check_rows_axis(
+            "B5'", f"the 100 kb bucket {L}'s group 0 (noe_rswitch 5)", strips, bms, near, row0,
+            card, _final_weights(cfg_w.anneal))
+        path_launches[name] = launches
+    del near_b
+
+    # (c) the exact rows route: the 45 inputs under buckets (128,), quantum 128
+    cfg_c = auto_exact_matrix(PipelineConfig(model_count=N_MODELS, length_buckets=(128,),
+                                             shard_quantum=128))
+    buckets = genome.bucket_jobs(genome.discover_jobs(dir_45), (128,), 128)
+    kept = {L: b for L, b in buckets.items() if L > 128}
+    plan = genome._plan_large(kept, 128, cfg_c, dev)
+    check(sorted(plan) == [256, 384, 512] and all(d == [dev] for d in plan.values()),
+          f"genome rows (c): plan {plan}")
+    tiles_c = {}
+    for L, jobs in sorted(kept.items()):
+        check(sharded._route(cfg_c.anneal, L, 1) == "rows", f"genome rows (c) {L}: route")
+        matrices = [load_if_matrix(j.path) for j in jobs]
+        names = [j.name for j in jobs]
+        out = {}
+
+        def solve(matrices=matrices, L=L, out=out):
+            result, tiles, _ = genome.solve_bucket_sharded_from_if(matrices, L, cfg_c,
+                                                                   devices=plan[L])
+            out["tiles"] = tiles
+            return result
+
+        def lone(c, draws, L=L, out=out, matrices=matrices, cfg=cfg_c.anneal):
+            t = out["tiles"][0][0]
+            bm = torch.zeros((1, L), device=dev)
+            bm[0, :matrices[c].shape[0]] = 1.0
+            return sharded.solve_genome_sharded(
+                [ShardGroup([dev])], [[ExactRestraints(target=t.target[c:c + 1],
+                                                       w=t.w[c:c + 1])]],
+                cfg, N_MODELS, bm, xs=draws[0][None], noise_seeds=[draws[1]])
+
+        C = len(jobs)
+        _, launches, _ = rows_solve(
+            f"(c) the rows route, bucket {L} x{C} (exact, prep on the card)", solve,
+            {"B2'": steps + 1, "B4": steps}, names, matrices, truths_45,
+            genome.bucket_peak_bytes(C, L, cfg_c), lone, (0, C - 1), card)
+        path[f"c{L}"] = launches
+        tiles_c[L] = (out["tiles"][0][0], names, matrices, launches)
+
+        if L == 512:
+            # (d) the unfused route, the same bucket, fuse_update=False
+            cfg_d = cfg_c.replace(anneal=dataclasses.replace(cfg_c.anneal, fuse_update=False))
+            check(sharded._route(cfg_d.anneal, L, 1) == "unfused", "genome rows (d): route")
+            out_d = {}
+
+            def solve_d(matrices=matrices, out=out_d):
+                result, tiles, _ = genome.solve_bucket_sharded_from_if(matrices, 512, cfg_d,
+                                                                       devices=plan[512])
+                out["tiles"] = tiles
+                return result
+
+            def lone_d(c, draws, out=out_d, matrices=matrices):
+                t = out["tiles"][0][0]
+                bm = torch.zeros((1, 512), device=dev)
+                bm[0, :matrices[c].shape[0]] = 1.0
+                return sharded.solve_genome_sharded(
+                    [ShardGroup([dev])], [[ExactRestraints(target=t.target[c:c + 1],
+                                                           w=t.w[c:c + 1])]],
+                    cfg_d.anneal, N_MODELS, bm, xs=draws[0][None], noise_seeds=[draws[1]])
+
+            _, launches_d, _ = rows_solve(
+                f"(d) the unfused route, bucket 512 x{C} (fuse_update=False)", solve_d,
+                {"B2'": steps + 1}, names, matrices, truths_45,
+                genome.bucket_peak_bytes(C, L, cfg_d), lone_d, (0, C - 1), card)
+            path["d512"] = launches_d
+            del out_d
+    for L, (t, names, matrices, launches) in sorted(tiles_c.items()):
+        near = [ensemble_near(truths_45[n], L, dev) for n in names]
+        bms = torch.stack([a[0] for a in near])
+        name = f"B2'@{L}"
+        measured[name] = check_rows_axis(
+            "B2'", f"the 45 inputs' bucket {L} (buckets (128,), quantum 128)",
+            (t.target, t.w), bms, near, 0, card, _final_weights(cfg_c.anneal))
+        path_launches[name] = launches
+        if L == 512:
+            # rows past 0: the bucket's second half as one strip of its rows
+            half = (t.target[:, 256:].contiguous(), t.w[:, 256:].contiguous())
+            check_rows_axis("B2'", "the 512 bucket's rows [256, 512)", half, bms, near, 256,
+                            card, _final_weights(cfg_c.anneal))
+        del near, bms
+    return path, measured, path_launches
+
+
 # FP32 operations per pair evaluation, counted from each kernel's inner loop
 # (an FMA counts 2, rsqrt 1; the row-sharded kernels run the same loops):
 # B1 32 per ordered pair (fused_steps.cu) plus ~100 per bead for the update
@@ -3743,8 +4100,10 @@ def work(key, B, L, Lb=None, C=1):
         "B4": (100 * C * B * L, f * (7 * st + 2 * C * B + C * (L + 1) + 8)),
         "B5": (44 * C * B * L * L, f * (C * (3 * L * L + L) + 2 * st + C * B)),
         "B6": (36 * C * B * Lb * L // 2, f * (C * (2 * Lb * L + L) + 2 * st + C * B)),
-        "B5'": (44 * B * Lb * L, f * (3 * Lb * L + st + 3 * B * Lb + B + L)),
-        "B2'": (35 * B * Lb * L, f * (2 * Lb * L + st + 3 * B * Lb + B + L)),
+        "B5'": (44 * C * B * Lb * L,
+                f * (C * (3 * Lb * L + L) + st + 3 * C * B * Lb + C * B)),
+        "B2'": (35 * C * B * Lb * L,
+                f * (C * (2 * Lb * L + L) + st + 3 * C * B * Lb + C * B)),
     }[key]
 
 
@@ -3841,6 +4200,9 @@ def main() -> int:
         launches_19, measured_19, launches_19_rows = timed_phase(
             "genome stack (phase 19)", phase_genome_stack, genome_100kb, truths_100kb,
             genome_dir, truths, card)
+        launches_20, measured_20, launches_20_rows = timed_phase(
+            "genome rows (phase 20)", phase_genome_rows, genome_100kb, truths_100kb,
+            genome_dir, truths, card)
         shutil.rmtree(genome_100kb)
     B = 2 * N_MODELS
     kernels = []
@@ -3884,9 +4246,9 @@ def main() -> int:
             kernels[-1]["launches_phase_17"] = unfused
         if key in errs_17:   # held against the twin at phase 17's own shapes
             kernels[-1]["max_abs_err_phase_17"] = errs_17[key]
-        for tag, runs in (("18", launches_18), ("19", launches_19)):
+        for tag, runs in (("18", launches_18), ("19", launches_19), ("20", launches_20)):
             counted = {p: n[key] for p, n in runs.items() if n[key]}
-            if counted:   # phase 18's calibration and run, phase 19's genome runs
+            if counted:   # phase 18's calibration and run, phase 19's and 20's genome runs
                 kernels[-1][f"launches_phase_{tag}"] = counted
     # B3, B4 and B5 past L_pad = 8192, their launches those of the path at
     # that length
@@ -3950,6 +4312,20 @@ def main() -> int:
         kernels.append({"name": f"{kname}_{L}", "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches_19_rows[mkey][key],
                         **measured_19[mkey], "library_ms": None})
+    # B5' and B2' with the chromosome axis at the groups of phase 20, with
+    # that solve's launches (B2' at 512 also on phase 20 (d)'s unfused solve)
+    for mkey in sorted(measured_20, key=lambda k: (k[:3], int(k.split("@")[1]))):
+        key, L = mkey.split("@")
+        kname, src = {
+            "B5'": ("general_row_block_genome", "chromosome3d_tpu_torch/csrc/general_pair.cu"),
+            "B2'": ("exact_row_block_genome", "chromosome3d_tpu_torch/csrc/exact_pair.cu")}[key]
+        kernels.append({"name": f"{kname}_{L}", "route": "cuda", "source": src,
+                        "replaces": "chromosome3d_tpu/ops/pallas_energy.py:"
+                        + ("117" if key == "B5'" else "195"),
+                        "launches": launches_20_rows[mkey][key], **measured_20[mkey],
+                        "library_ms": None})
+        if mkey == "B2'@512":
+            kernels[-1]["launches_phase_20d"] = launches_20["d512"][key]
     print(card)   # nvidia-smi --query-gpu=name,power.limit, again beside the numbers
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,9 @@
 // through `_pairwise_energy_grad_batched(..., exact=True)` (B2: all L rows)
 // and through `pallas_row_block_energy_grad_batched(..., exact=True)` (B2':
 // the Lb rows [row0, row0 + Lb) of one shard of the row-sharded solve, from
-// (Lb, L) strips of the tiles; one body, so B2' rows are bitwise B2's). On
+// (Lb, L) strips of the tiles, or (C, Lb, L) strips of a genome group's C
+// chromosomes, their (C, L) bead masks read at the global row; one body, so
+// B2' rows are bitwise B2's). On
 // the port's `run` path B2 runs once per solve, for the enantiomer pick
 // (B = 20, L = 512); B2' runs on every shard every step of a sharded exact
 // solve where the strip-triangular kernel B6 does not pay (Lb = 256 of

@@ -60,10 +60,12 @@
 // with L. The (B, 3, L) layout in and (B, 3, Lb) out feeds kernel B4 with no
 // transposes.
 //
-// The chromosome axis (B5 only; B5' keeps C = 1): a genome bucket's C
-// chromosomes of B structures each (the JAX runner's vmap of the solve over
-// its bucket) in one launch per batch slice, grid z the chromosome over the
-// same (row groups, splits) grid. Chromosome c's blocks read its slice of
+// The chromosome axis (B5, and B5' on a genome group's strips): a genome
+// bucket's C chromosomes of B structures each (the JAX runner's vmap of the
+// solve over its bucket, or of the row block under its chrom x beads solve)
+// in one launch per batch slice, grid z the chromosome over the same (row
+// groups, splits) grid. The (C, L) bead masks are read at the global row
+// row0 + il, the (C, Lb, L) strips at the strip row il. Chromosome c's blocks read its slice of
 // structures, its tiles and its mask and write its partials at c's offsets;
 // the plan (splits, slices) is a function of L and B, so each chromosome's
 // blocks and sums are those of a launch of its own, and so are its bits.
@@ -271,7 +273,7 @@ general_reduce_kernel(const float* __restrict__ part,    // (C Bc, nsplit, 3, Lb
 
 }  // namespace
 
-// B5 is row0 = 0, Lb = L; B5' a shard's rows [row0, row0 + Lb) with C = 1.
+// B5 is row0 = 0, Lb = L; B5' a shard's rows [row0, row0 + Lb), for C >= 1.
 // xT: (C B, 3, L), chromosome-major; lo, hi, w: (C, Lb, L); bm: (C, L).
 // part: (C B, nsplit, 3, Lb) and e_part: (C B, ceil(Lb / 32) nsplit)
 // scratch allocated by the caller, nsplit = ceil(ceil(L / 128) / cps); each

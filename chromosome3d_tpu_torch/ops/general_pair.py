@@ -17,7 +17,10 @@ of the solve over its bucket).
 Kernel B5' is the same body on one shard's rows of the row-sharded solve
 (`general_row_block_energy_grad`): it replaces `_kernel` reached through
 `pallas_row_block_energy_grad_batched(..., exact=False)`, reads (Lb, L)
-strips of the tiles and writes the strip's gradient rows.
+strips of the tiles and writes the strip's gradient rows. It takes the
+chromosome axis too: (C, Lb, L) strips of a genome group's C chromosomes
+(the JAX package's vmap of the row block under its chrom x beads solve),
+each chromosome's rows bitwise a launch of its own at the same row_start.
 
 Each wrapper runs its plain twin for CPU tensors and the CUDA kernel for
 CUDA tensors, counting each in a plain integer on the function
@@ -236,9 +239,16 @@ def general_row_block_energy_grad_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain twin of B5': the `_kernel` math for the rows [row_start,
     row_start + Lb) that the (Lb, L) strips lo, hi and w hold, in row chunks.
-    Returns (the strip's pair energies (B,), its gradient rows (B, 3, Lb))."""
+    Returns (the strip's pair energies (B,), its gradient rows (B, 3, Lb)).
+    With (C, Lb, L) strips and (C, L) bead masks each chromosome's B / C
+    structures are evaluated alone, in chromosome order."""
     general_row_block_energy_grad_plain.calls += 1
-    return _rows_chunked(xT, lo, hi, w, weights, bead_mask, row_start)
+    if lo.dim() == 2:
+        return _rows_chunked(xT, lo, hi, w, weights, bead_mask, row_start)
+    n = xT.shape[0] // lo.shape[0]
+    outs = [_rows_chunked(xT[c * n:(c + 1) * n], lo[c], hi[c], w[c], weights, bead_mask[c],
+                          row_start) for c in range(lo.shape[0])]
+    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
 
 
 general_row_block_energy_grad_plain.calls = 0
@@ -250,18 +260,25 @@ def general_row_block_energy_grad(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B5' for one shard: xT (B, 3, L) the whole ensemble, lo, hi and the
     folded weight w the (Lb, L) strips of rows [row_start, row_start + Lb),
-    bead_mask (L,), all float32 and contiguous on the shard's device.
-    Returns (the strip's pair energies (B,), its gradient rows (B, 3, Lb)).
-    CPU tensors run the plain twin; CUDA tensors launch
-    csrc/general_pair.cu with the row offset."""
-    if xT.dim() != 3 or lo.dim() != 2:
-        raise ValueError(f"xT (B, 3, L) and (Lb, L) strips required, got "
+    bead_mask (L,), all float32 and contiguous on the shard's device; or
+    for C chromosomes of B / C structures each, chromosome-major, with (C,
+    Lb, L) strips and (C, L) bead masks — a genome group's rows in one
+    launch a batch slice, each chromosome's outputs bitwise those of a
+    launch of its own at the same row_start (the plan is a function of a
+    chromosome's B / C structures and L). Returns (the strip's pair energies
+    (B,), its gradient rows (B, 3, Lb)). CPU tensors run the plain twin;
+    CUDA tensors launch csrc/general_pair.cu with the row offset."""
+    if xT.dim() != 3 or lo.dim() not in (2, 3):
+        raise ValueError(f"xT (B, 3, L) and (Lb, L) or (C, Lb, L) strips required, got "
                          f"{tuple(xT.shape)} and {tuple(lo.shape)}")
     B, L = xT.shape[0], xT.shape[2]
-    Lb = lo.shape[0]
+    Lb = lo.shape[-2]
+    lead = tuple(lo.shape[:-2])
+    if lead and (lead[0] == 0 or B % lead[0]):
+        raise ValueError(f"{B} structures do not divide over {lead[0]} chromosomes")
     dev = check_inputs({
-        "xT": (xT, (B, 3, L)), "lo": (lo, (Lb, L)), "hi": (hi, (Lb, L)),
-        "w": (w, (Lb, L)), "bead_mask": (bead_mask, (L,)),
+        "xT": (xT, (B, 3, L)), "lo": (lo, (*lead, Lb, L)), "hi": (hi, (*lead, Lb, L)),
+        "w": (w, (*lead, Lb, L)), "bead_mask": (bead_mask, (*lead, L)),
     })
     if B == 0 or Lb == 0 or not 0 <= row_start <= L - Lb:
         raise ValueError(f"bad strip: B={B}, rows [{row_start}, {row_start + Lb}) of {L}")

@@ -16,7 +16,8 @@ gradient and the solver consumes it directly.
 
 Kernel B2' is the same body on one shard's rows of the row-sharded solve
 (`exact_row_block_energy_grad`): it replaces `_kernel_exact` reached through
-`pallas_row_block_energy_grad_batched(..., exact=True)`.
+`pallas_row_block_energy_grad_batched(..., exact=True)`, with or without
+the chromosome axis ((C, Lb, L) strips of a genome group).
 
 Each wrapper runs its plain twin for CPU tensors and the CUDA kernel for
 CUDA tensors; each path counts its calls in a plain integer on the function
@@ -206,12 +207,23 @@ def exact_row_block_energy_grad_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain twin of B2': the `_kernel_exact` math for the rows
     [row_start, row_start + Lb) that the (Lb, L) strips hold. Returns (the
-    strip's pair energies (B,), its gradient rows (B, 3, Lb))."""
+    strip's pair energies (B,), its gradient rows (B, 3, Lb)). With (C, Lb,
+    L) strips and (C, L) bead masks each chromosome's B / C structures are
+    evaluated alone, in chromosome order."""
     exact_row_block_energy_grad_plain.calls += 1
-    Lb = target.shape[0]
-    e, g = exact_rows_plain(xT.transpose(1, 2), target, w, weights, bead_mask,
-                            row_start, row_start + Lb, row_start)
-    return e, g.transpose(1, 2).contiguous()
+    Lb = target.shape[-2]
+
+    def rows(xT_c, t_c, w_c, bm_c):
+        e, g = exact_rows_plain(xT_c.transpose(1, 2), t_c, w_c, weights, bm_c,
+                                row_start, row_start + Lb, row_start)
+        return e, g.transpose(1, 2).contiguous()
+
+    if target.dim() == 2:
+        return rows(xT, target, w, bead_mask)
+    n = xT.shape[0] // target.shape[0]
+    outs = [rows(xT[c * n:(c + 1) * n], target[c], w[c], bead_mask[c])
+            for c in range(target.shape[0])]
+    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
 
 
 exact_row_block_energy_grad_plain.calls = 0
@@ -223,19 +235,25 @@ def exact_row_block_energy_grad(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B2' for one shard: xT (B, 3, L) the whole ensemble, target and folded
     weight w the (Lb, L) strips of rows [row_start, row_start + Lb),
-    bead_mask (L,), all float32 and contiguous on the shard's device.
-    Returns (the strip's pair energies (B,), its gradient rows (B, 3, Lb)),
-    the layout kernel B4 reads. CUDA tensors make one launch of
-    csrc/exact_pair.cu, which reads xT and writes both outputs itself; CPU
-    tensors run the plain twin."""
-    if xT.dim() != 3 or target.dim() != 2:
-        raise ValueError(f"xT (B, 3, L) and (Lb, L) strips required, got "
+    bead_mask (L,), all float32 and contiguous on the shard's device; or
+    for C chromosomes of B / C structures each, chromosome-major, with (C,
+    Lb, L) strips and (C, L) bead masks — a genome group's rows in one
+    launch, each chromosome's outputs bitwise those of a launch of its own
+    at the same row_start. Returns (the strip's pair energies (B,), its
+    gradient rows (B, 3, Lb)), the layout kernel B4 reads. CUDA tensors make
+    one launch of csrc/exact_pair.cu, which reads xT and writes both outputs
+    itself; CPU tensors run the plain twin."""
+    if xT.dim() != 3 or target.dim() not in (2, 3):
+        raise ValueError(f"xT (B, 3, L) and (Lb, L) or (C, Lb, L) strips required, got "
                          f"{tuple(xT.shape)} and {tuple(target.shape)}")
     B, L = xT.shape[0], xT.shape[2]
-    Lb = target.shape[0]
+    Lb = target.shape[-2]
+    lead = tuple(target.shape[:-2])
+    if lead and (lead[0] == 0 or B % lead[0]):
+        raise ValueError(f"{B} structures do not divide over {lead[0]} chromosomes")
     dev = check_inputs({
-        "xT": (xT, (B, 3, L)), "target": (target, (Lb, L)), "w": (w, (Lb, L)),
-        "bead_mask": (bead_mask, (L,)),
+        "xT": (xT, (B, 3, L)), "target": (target, (*lead, Lb, L)),
+        "w": (w, (*lead, Lb, L)), "bead_mask": (bead_mask, (*lead, L)),
     })
     if B == 0 or Lb == 0 or not 0 <= row_start <= L - Lb:
         raise ValueError(f"bad strip: B={B}, rows [{row_start}, {row_start + Lb}) of {L}")
@@ -287,6 +305,24 @@ def bond_energy_grad(coords: torch.Tensor, weights: EnergyWeights,
     return e, g
 
 
+def bond_energy_grad_stacked(coords: torch.Tensor, weights: EnergyWeights,
+                             bead_masks: torch.Tensor):
+    """bond_energy_grad for C chromosomes of B / C structures each,
+    chromosome-major, with (C, L) bead masks: one call a chromosome on its
+    own (B / C, L, 3) slice, so each chromosome's energies are those of a
+    solve of its own (the card's sum over the bonds is ordered by the
+    batch's size). An (L,) mask is one call for the batch."""
+    if bead_masks.dim() == 1:
+        return bond_energy_grad(coords, weights, bead_masks)
+    C = bead_masks.shape[0]
+    n = coords.shape[0] // C
+    parts = [bond_energy_grad(coords[c * n:(c + 1) * n], weights, bead_masks[c])
+             for c in range(C)]
+    if C == 1:
+        return parts[0]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
 def pair_energy_and_grad_batched(
     coords: torch.Tensor, restraints, weights: EnergyWeights,
     bead_mask: torch.Tensor, exact: bool = True, tiles=None, tri=None,
@@ -330,9 +366,7 @@ def pair_energy_and_grad_batched(
         g_pair = gT.transpose(1, 2)
     else:
         e_pair, g_pair = exact_pair_energy_grad(coords, *tiles, weights, bead_mask)
-    if bead_mask.dim() == 2:   # each structure its chromosome's mask
-        bead_mask = bead_mask.repeat_interleave(coords.shape[0] // bead_mask.shape[0], 0)
-    e_bond, g_bond = bond_energy_grad(coords, weights, bead_mask)
+    e_bond, g_bond = bond_energy_grad_stacked(coords, weights, bead_mask)
     return e_pair + e_bond, g_pair + g_bond
 
 

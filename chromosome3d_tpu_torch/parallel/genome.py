@@ -15,39 +15,43 @@ the genome is a handful of launches:
      batch of C x 2 x models structures with a tile set per chromosome, so
      on every route the dispatch can choose, kernel B1 runs each phase of
      the schedule for the whole bucket in one launch (or B3 or B5, then B4,
-     one launch each a step) and kernel B2 or B3 the enantiomer pick in
-     one; the unfused route solves the chromosomes one after another;
-  3. a bucket past the length buckets (exact restraints, the default) skips
-     the host prep: its IF matrices are padded and stacked once on the host
-     (`bucket_stack`), their exact tiles built on the device
+     one launch each a step; on the unfused route B2, B3 or B5 once a
+     step, a noise stream a chromosome) and kernel B2, B3 or B5 the
+     enantiomer pick in one;
+  3. a bucket past the length buckets with exact restraints (the default)
+     skips the host prep: its IF matrices are padded and stacked once on the
+     host (`bucket_stack`), their exact tiles built on the device
      (`bucket_tiles_from_if`, ops.device_prep), and the bucket solved by the
      chrom x beads genome solver (`solve_bucket_sharded_from_if`,
      solver.sharded.solve_genome_sharded): on the one device, every step
-     kernel B6 once and kernel B4 once for the whole bucket. Only where the
-     bucket would not fit the device (`bucket_peak_bytes`) does it spread
-     over the visible cards (`bucket_devices`). The assessment views are
-     downloaded from the live tiles;
+     the route's pair kernel (B6, or B2' where B6's strip tiles do not pay)
+     once and kernel B4 once for the whole bucket. The assessment views are
+     downloaded from the live tiles. Past the length buckets with windowed
+     restraints (noe_rswitch < 1e8) the bucket is stacked on the host as
+     within them and solved by `solve_bucket` on the one device, the JAX
+     package's one-device route (B5 and B4 once a step for the bucket), or
+     by `solve_bucket_sharded` (B5' on each rank's strips). Either kind
+     spreads over the visible cards (`bucket_devices`) only where it would
+     not fit the one device (`bucket_peak_bytes`);
   4. each chromosome is assessed and its artifacts written on host threads
      (pipeline.emit_artifacts), and checkpointed (utils.checkpoint), so a
      run can resume.
 
 The alpha ensemble (cfg.alpha_ensemble) solves each bucket again per extra
 alpha and pools the models into the Spearman ranking, as the JAX package
-does. Not ported, and refused with NotImplementedError before any bucket is
-solved: a bucket past the length buckets whose restraints are not exact,
-one whose layout takes the row-block route (B2' with a chromosome axis;
-ROADMAP A12), and one with two or more chromosomes a device group on the
-unfused route (`fuse_update=False`, the angle term, or strips the fused
-route does not take: B2' and B5' with a chromosome axis; ROADMAP A12.3). A
-bucket of one chromosome a group runs the unfused route. The JAX package's 2-D chrom x model layout of the buckets
-within the length buckets has no counterpart: one device solves such a
-bucket.
+does. Every route a bucket past the length buckets can take runs with a
+chromosome axis: the strip route (B6 + B4), the row-block route (B2' or B5'
++ B4) and the unfused route (B2' or B5', then solver.unfused's update with
+a noise stream a chromosome). The JAX package's 2-D chrom x model layout of
+the buckets within the length buckets (ROADMAP A12.5) has no counterpart:
+one device solves such a bucket.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import re
 import time
@@ -62,7 +66,7 @@ from chromosome3d_tpu_torch import pipeline
 from chromosome3d_tpu_torch.config import PipelineConfig
 from chromosome3d_tpu_torch.device import resolve_device
 from chromosome3d_tpu_torch.io.matrix import load_if_matrix, matrix_length
-from chromosome3d_tpu_torch.ops import device_prep, strip_tri
+from chromosome3d_tpu_torch.ops import device_prep, general_pair, strip_tri
 from chromosome3d_tpu_torch.ops.energy import (
     ExactRestraints,
     auto_weight_exponent,
@@ -79,7 +83,7 @@ from chromosome3d_tpu_torch.pipeline import (
 )
 from chromosome3d_tpu_torch.restraints import build_restraints, restraints_from_exact_target
 from chromosome3d_tpu_torch.solver.anneal import AnnealResult, solve_bucket_impl
-from chromosome3d_tpu_torch.solver.sharded import _route, solve_genome_sharded
+from chromosome3d_tpu_torch.solver.sharded import solve_genome_sharded
 from chromosome3d_tpu_torch.utils.checkpoint import GenomeCheckpoint
 from chromosome3d_tpu_torch.utils.logging import get_logger
 
@@ -281,6 +285,73 @@ def solve_bucket_sharded_from_if(
     ), tiles, L_pad
 
 
+def _host_strip(a, rows: slice, chroms: Sequence[int], L_all: int, dev) -> torch.Tensor:
+    """Rows `rows` of chromosomes `chroms` of a (C, L, L) host array or
+    tensor, zero-padded to L_all columns (and rows), as one (len(chroms),
+    Lb, L_all) float32 tensor on dev: a rank's strip, built without the
+    whole tensor on any device."""
+    L = a.shape[-1]
+    r0, r1 = rows.start, rows.stop
+    out = torch.zeros((len(chroms), r1 - r0, L_all), dtype=torch.float32)
+    have = max(0, min(r1, L) - r0)
+    for i, c in enumerate(chroms):
+        if have:
+            out[i, :have, :L] = torch.as_tensor(a[c][r0:r0 + have]).to("cpu", torch.float32)
+    return out.to(dev)
+
+
+def solve_bucket_sharded(
+    batched,
+    bead_masks,
+    cfg: PipelineConfig,
+    devices: Optional[Sequence] = None,
+    base_seed: Optional[int] = None,
+    xs: Optional[torch.Tensor] = None,
+    noise_seeds=None,
+    noise: Optional[Sequence] = None,
+) -> AnnealResult:
+    """Solve a bucket past the length buckets from its stacked restraints
+    with the chrom x beads genome solver (solver.sharded.solve_genome_sharded)
+    over `devices` (the first CUDA device when None; a list may name one
+    device several times): the JAX package's solve_bucket_sharded. batched
+    holds (C, L, L) host arrays (from _stack_bucket) or tensors, exact or
+    windowed; bead_masks (C, L). The layout is parallel.shards.chrom_groups'
+    (large_mesh_layout): the batch is padded with copies of entry 0 to a
+    multiple of the chromosome groups and L to one of a group's devices
+    (masked); both paddings are stripped on return. Each rank's strip is
+    built straight from the host array (or the tensor), so the whole (C, L,
+    L) tensor is never on one device. Chromosome c draws from
+    chromosome_generator(base_seed, c), base_seed defaulting to cfg.seed;
+    xs (C, n_eff, L', 3), L' the padded length, and noise_seeds (C,) replay
+    given draws instead, and on the unfused route noise[c] chromosome c's
+    noise draws. Returns an AnnealResult with a leading C axis."""
+    devices = [resolve_device(None)] if devices is None else list(devices)
+    names = [f.name for f in dataclasses.fields(batched)]
+    C, L = getattr(batched, names[0]).shape[0], getattr(batched, names[0]).shape[-1]
+    groups, B_pad, L_all = _layout(C, L, devices)
+    Cg, nb = B_pad // len(groups), groups[0].n
+    Lb = L_all // nb
+    order = _pad_batch(list(range(C)), B_pad)
+    strips = []
+    for g, group in enumerate(groups):
+        chroms = order[g * Cg:(g + 1) * Cg]
+        strips.append([type(batched)(*(
+            _host_strip(getattr(batched, k), slice(r * Lb, (r + 1) * Lb), chroms, L_all, d)
+            for k in names)) for r, d in enumerate(group.devices)])
+    masks = torch.zeros((B_pad, L_all), dtype=torch.float32)
+    masks[:, :L] = torch.as_tensor(bead_masks, dtype=torch.float32).cpu()[order]
+    log.info(f"at-scale bucket: {C} chromosomes (L_pad={L_all}) on {len(groups)} chrom x "
+             f"{nb} beads devices, restraints stacked on the host")
+    result = solve_genome_sharded(
+        groups, strips, cfg.anneal, cfg.model_count, masks,
+        base_seed=cfg.seed if base_seed is None else base_seed,
+        xs=_pad_batch(xs, B_pad), noise_seeds=_pad_batch(noise_seeds, B_pad),
+        noise=_pad_batch(noise, B_pad))
+    return AnnealResult(
+        coords=result.coords[:C, :, :L], energies={k: v[:C] for k, v in result.energies.items()},
+        history=result.history[:C], pick=None if result.pick is None else result.pick[:C])
+
+
 def bucket_views(tiles, lengths: Sequence[int]):
     """Each chromosome's host assessment view from an at-scale bucket's live
     tiles: (Restraints, ExactRestraints of (n, n) numpy) per chromosome, n
@@ -297,29 +368,38 @@ def bucket_views(tiles, lengths: Sequence[int]):
     return raw, views
 
 
-def bucket_peak_bytes(C: int, L_pad: int, cfg: PipelineConfig, nb: int = 1) -> int:
+def bucket_peak_bytes(C: int, L_pad: int, cfg: PipelineConfig, nb: int = 1,
+                      exact: bool = True) -> int:
     """Estimated device peak of an at-scale bucket of C chromosomes on one
     device of a group of nb: C one-device solves' peaks
-    (pipeline.solve_peak_bytes at 2 x models structures), a 1 / nb share of
-    them where the rows are sharded, plus kernel B6's scratch, which grows
-    with the C x 2 x models structures of its launch."""
+    (pipeline.solve_peak_bytes at 2 x models structures, exact or windowed),
+    a 1 / nb share of them where the rows are sharded, plus the scratch of
+    the pair kernel that runs once for the group's C x 2 x models
+    structures: kernel B6's (exact), B5's or B5''s part / e_part
+    (windowed)."""
     n_eff = pipeline._solve_structures(cfg)
-    return (C * pipeline.solve_peak_bytes(L_pad, n_eff) // nb
-            + strip_tri.strip_scratch_bytes(C * n_eff, L_pad, L_pad // nb))
+    Lb = L_pad // nb
+    if exact:
+        scratch = strip_tri.strip_scratch_bytes(C * n_eff, L_pad, Lb)
+    else:
+        plan = general_pair.general_pair_plan(n_eff, L_pad, Lb)
+        scratch = 4 * C * (math.prod(plan["part_shape"]) + math.prod(plan["e_part_shape"]))
+    return C * pipeline.solve_peak_bytes(L_pad, n_eff, exact) // nb + scratch
 
 
-def bucket_devices(C: int, L_pad: int, cfg: PipelineConfig, dev) -> List[torch.device]:
+def bucket_devices(C: int, L_pad: int, cfg: PipelineConfig, dev,
+                   exact: bool = True) -> List[torch.device]:
     """The devices an at-scale bucket runs on: [dev] where it fits dev
     (bucket_peak_bytes against its memory), else every visible card
     (device.shard_devices, chrom x beads) where that layout fits each of
     them; RuntimeError where it fits nowhere (before any device work)."""
-    need = bucket_peak_bytes(C, L_pad, cfg)
+    need = bucket_peak_bytes(C, L_pad, cfg, exact=exact)
     if need <= pipeline._memory_bytes(dev):
         return [dev]
     devices = device_mod.shard_devices()
     if len(devices) > 1:
         groups, B_pad, L_all = _layout(C, L_pad, devices)
-        share = bucket_peak_bytes(B_pad // len(groups), L_all, cfg, groups[0].n)
+        share = bucket_peak_bytes(B_pad // len(groups), L_all, cfg, groups[0].n, exact)
         load: Dict[torch.device, int] = {}
         for d in devices:
             load[d] = load.get(d, 0) + share
@@ -333,37 +413,15 @@ def bucket_devices(C: int, L_pad: int, cfg: PipelineConfig, dev) -> List[torch.d
 
 
 def _plan_large(buckets, max_bucket: int, cfg: PipelineConfig, dev):
-    """{L_pad: devices} for every bucket past the length buckets, or the
-    refusal of one, before any bucket is solved: restraints that are not
-    exact, a layout on the row-block route (ROADMAP A12), two or more
-    chromosomes a device group on the unfused route (ROADMAP A12.3; a
-    bucket of one chromosome runs there), a bucket that fits no device."""
-    plan = {}
+    """{L_pad: devices} for every bucket past the length buckets, decided
+    before any bucket is solved (bucket_devices: the one device where the
+    bucket fits it, else the visible cards), with exact restraints
+    (auto_exact_matrix) or windowed ones; RuntimeError for a bucket that
+    fits no device."""
     cfg_b = auto_exact_matrix(cfg)
-    for L_pad in sorted(L for L in buckets if L > max_bucket):
-        names = ", ".join(j.name for j in buckets[L_pad])
-        if not _exact_provable(cfg_b):
-            raise NotImplementedError(
-                f"{names}: bucket L={L_pad} past the largest length bucket {max_bucket} "
-                "with restraints that are not exact (noe_rswitch < 1e8) needs the "
-                "windowed genome solver (solve_bucket_sharded, kernel B5'), not ported "
-                "(ROADMAP A12)")
-        devices = bucket_devices(len(buckets[L_pad]), L_pad, cfg_b, dev)
-        groups, B_pad, L_all = _layout(len(buckets[L_pad]), L_pad, devices)
-        route = _route(cfg_b.anneal, L_all, groups[0].n)
-        if route == "rows":
-            raise NotImplementedError(
-                f"{names}: bucket L={L_all} over {groups[0].n} device(s) a chromosome "
-                f"takes the {route} route (B2' with a chromosome axis), not ported "
-                "(ROADMAP A12)")
-        if route == "unfused" and B_pad // len(groups) > 1:
-            raise NotImplementedError(
-                f"{names}: bucket L={L_all} over {groups[0].n} device(s) a chromosome "
-                f"takes the unfused route with {B_pad // len(groups)} chromosomes a "
-                "device group (B2' and B5' with a chromosome axis), not ported "
-                "(ROADMAP A12.3)")
-        plan[L_pad] = devices
-    return plan
+    exact = _exact_provable(cfg_b)
+    return {L_pad: bucket_devices(len(buckets[L_pad]), L_pad, cfg_b, dev, exact)
+            for L_pad in sorted(L for L in buckets if L > max_bucket)}
 
 
 def run_genome(
@@ -380,7 +438,9 @@ def run_genome(
     bucket by bucket and assessed; per-chromosome artifacts land in
     output_dir/<name>/, each chromosome's result in output_dir/checkpoint/.
     A bucket past the length buckets runs on `device` too, or over every
-    visible card where it would not fit it (bucket_devices).
+    visible card where it would not fit it (bucket_devices): exact restraints
+    through solve_bucket_sharded_from_if, windowed ones through
+    solve_bucket (one device) or solve_bucket_sharded.
 
     resume=True skips chromosomes already in the checkpoint store; the
     returned dict covers every job all the same (finished ones from the
@@ -420,6 +480,7 @@ def run_genome(
     )
     max_bucket = max(cfg.length_buckets)
     large_devices = _plan_large(buckets, max_bucket, cfg, dev)
+    exact_large = _exact_provable(auto_exact_matrix(cfg))
     for L_pad, bucket in sorted(buckets.items()):
         ph = phases[f"L{L_pad}"] = {"chromosomes": [j.name for j in bucket]}
         t_ph = [time.time()]
@@ -431,14 +492,24 @@ def run_genome(
             t_ph[0] = now
 
         large = L_pad in large_devices
+        devs = large_devices.get(L_pad, [dev])
+        from_if = large and exact_large
         log.info(f"bucket L={L_pad}: {len(bucket)} chromosomes "
                  f"({', '.join(j.name for j in bucket)}) on "
-                 + (f"{len(large_devices[L_pad])} device(s) [at-scale]" if large else str(dev)))
+                 + (f"{len(devs)} device(s) [at-scale]" if large else str(dev)))
+
+        def bucket_solve(batched, masks, cfg_x, seed=None):
+            # a bucket stacked on the host: one device, or the chrom x beads
+            # solver over the cards it spreads to
+            if len(devs) > 1:
+                return solve_bucket_sharded(batched, masks, cfg_x, devices=devs,
+                                            base_seed=seed)
+            return solve_bucket(batched, masks, cfg_x, base_seed=seed, device=dev)
+
         dense_views = None
-        if large:
+        if from_if:
             # the IF matrices go straight to tiles on the device, exact by
             # construction; the assessment views come from the live tiles
-            devs = large_devices[L_pad]
             matrices = [load_if_matrix(job.path) for job in bucket]
             cfg_b = auto_exact_matrix(cfg)
             stack = bucket_stack(matrices, L_pad, devs)   # padded once, for every alpha
@@ -454,7 +525,7 @@ def run_genome(
             if all(not r.negdev.any() and not r.posdev.any() for r in raw):
                 cfg_b = auto_exact(cfg, raw[0])
             _phase("load_s")
-            result = solve_bucket(batched, bead_masks, cfg_b, device=dev)
+            result = bucket_solve(batched, bead_masks, cfg_b)
             coords = result.coords.cpu().numpy()   # synchronises
         energies_all = {k: v.cpu().numpy() for k, v in result.energies.items()}
         _phase("solve_and_views_s")
@@ -467,7 +538,7 @@ def run_genome(
             cfg_x = cfg.replace(restraints=dataclasses.replace(cfg.restraints,
                                                                alpha=extra_alpha))
             seed_x = cfg.seed + hash(extra_alpha) % 10000
-            if large:
+            if from_if:
                 res_x, tiles_x, _ = solve_bucket_sharded_from_if(
                     matrices, L_pad, auto_exact_matrix(cfg_x), devices=devs,
                     base_seed=seed_x, stack=stack)
@@ -477,8 +548,7 @@ def run_genome(
                 cfg_bx = cfg_x
                 if all(not r.negdev.any() and not r.posdev.any() for r in raw_x):
                     cfg_bx = auto_exact(cfg_x, raw_x[0])
-                res_x = solve_bucket(batched_x, masks_x, cfg_bx, base_seed=seed_x,
-                                     device=dev)
+                res_x = bucket_solve(batched_x, masks_x, cfg_bx, seed_x)
             coords = np.concatenate([coords, res_x.coords.cpu().numpy()], axis=1)
             energies_all = {k: np.concatenate([v, res_x.energies[k].cpu().numpy()], axis=1)
                             for k, v in energies_all.items()}

@@ -87,6 +87,7 @@ from chromosome3d_tpu_torch.solver.init import (
 )
 from chromosome3d_tpu_torch.solver.unfused import (
     NoiseStream,
+    StackedNoise,
     drain,
     unfused_steps,
 )
@@ -310,23 +311,25 @@ def _solve_stack(rs, stacked, cfg: AnnealConfig, n_models: int, bead_masks: torc
     centroid) for C chromosomes at once: rs their (L, L) restraints,
     `stacked` the same as (C, L, L) tensors (None when C = 1), bead_masks
     (C, L), xs (C, n_eff, L, 3), noise_seeds C ints. The state is one batch
-    of C x n_eff structures, chromosome-major. C > 1 runs the fused and the
-    semi routes (kernels B1 to B5 have the chromosome axis: one launch a
-    phase or a step for the whole stack, and one for the pick); the final
-    terms and the centroid are taken chromosome by chromosome, so each
-    chromosome's numbers are those of a solve of its own. schedule overrides the one
-    built from cfg; noise replays the unfused route's standard-normal
-    draws (solve_ensemble_impl). Returns an AnnealResult whose arrays carry
+    of C x n_eff structures, chromosome-major, on every route (kernels B1
+    to B5 have the chromosome axis: one launch a phase or a step for the
+    whole stack, and one for the pick); on the unfused route each
+    chromosome's bonded terms, bead mask and noise stream are its own. The
+    final terms and the centroid are taken chromosome by chromosome, so each
+    chromosome's numbers are those of a solve of its own. schedule
+    overrides the one built from cfg; noise replays the unfused route's
+    standard-normal draws, noise[c] chromosome c's (solve_ensemble_impl's
+    `noise`, or None to draw). Or-groups belong to one chromosome: a stack
+    with them raises ValueError. Returns an AnnealResult whose arrays carry
     a leading C axis."""
     C, n_eff, L = xs.shape[0], xs.shape[1], xs.shape[2]
     dev = xs.device
     exact = cfg.exact_restraints and cfg.noe_rswitch >= 1e8
     route = step_route(cfg, L, or_groups, n_eff, dev)
     fused, unfused = route == "fused", route == "unfused"
-    if C > 1 and (unfused or or_groups is not None):
-        raise NotImplementedError(
-            "a stack of chromosomes runs on the fused and semi routes, with no or-groups; "
-            "the unfused route solves them one after another (ROADMAP A12.3)")
+    if C > 1 and or_groups is not None:
+        raise ValueError("or-groups belong to one chromosome, not to a stack of "
+                         f"{C}: no genome path carries them")
 
     table = schedule_table(cfg, noise_seeds[0], schedule)
     base = table.base
@@ -361,11 +364,14 @@ def _solve_stack(rs, stacked, cfg: AnnealConfig, n_models: int, bead_masks: torc
     elif unfused:
         # the unfused route: the pair kernel's value and gradient with the
         # bonded terms (B2, B3 or B5 by pair_energy_and_grad_batched's
-        # dispatch, the tiles folded once), the or-group term, then the
-        # clip, Adam, noise and move in torch ops
-        steps = unfused_steps(_energy_grad(rs[0], exact, bead_masks[0], or_groups), table,
-                              bead_masks[0], cfg.gradient_clip,
-                              NoiseStream(dev, noise_seeds[0], noise))
+        # dispatch, the tiles folded once; one launch for the stack), the
+        # or-group term, then the clip, Adam, noise and move in torch ops,
+        # each chromosome with its mask and its own noise stream
+        noise = [None] * C if noise is None else noise
+        steps = unfused_steps(_energy_grad(pick_r, exact, pick_bm, or_groups), table,
+                              pick_bm, cfg.gradient_clip,
+                              StackedNoise([NoiseStream(dev, s, d)
+                                            for s, d in zip(noise_seeds, noise)]))
 
         def run(k0: int, k1: int, x, mu, nu, hist):
             return drain(steps(k0, k1, x, mu, nu, hist))
@@ -442,16 +448,20 @@ def _energy_grad(restraints, exact: bool, bead_mask: torch.Tensor, or_groups):
     """Every unfused step's (energies (B,), gradients (B, L, 3)) of (B, L,
     3) coords: the pair kernel with the bonded terms
     (pair_energy_and_grad_batched, its tiles folded once here) and the
-    or-group term where given. B3 or B2 is decided once for each batch size
-    (before and after the pick), as the JAX package's trace of each phase
-    decides it."""
+    or-group term where given. Restraints of (C, L, L) tensors with (C, L)
+    bead masks hold C chromosomes of B / C structures each. B3 or B2 is
+    decided once for each batch size (before and after the pick), asked
+    with a chromosome's structures, as the JAX package's trace of each
+    phase under the genome vmap decides it."""
     tiles = pair_tiles(restraints, exact)
     tri: Dict[int, bool] = {}
+    C = bead_mask.shape[0] if bead_mask.dim() == 2 else 1
 
     def energy_grad(x, weights):
         B, L = x.shape[0], x.shape[1]
         if exact and B not in tri:
-            tri[B] = tri_energy.use_triangular(L, for_unfused=True, batch=B, device=x.device)
+            tri[B] = tri_energy.use_triangular(L, for_unfused=True, batch=B // C,
+                                               device=x.device)
         e, g = pair_energy_and_grad_batched(x, restraints, weights, bead_mask, exact, tiles,
                                             tri=tri.get(B))
         if or_groups is not None:
@@ -569,7 +579,7 @@ def solve_ensemble_impl(
     xs, noise_seed = _draws(restraints, cfg, n_models, bead_mask, x0, generator, xs,
                             noise_seed)
     res = _solve_stack([restraints], None, cfg, n_models, bead_mask[None], xs[None],
-                       [noise_seed], or_groups, schedule, noise)
+                       [noise_seed], or_groups, schedule, [noise])
     return AnnealResult(coords=res.coords[0], energies={k: v[0] for k, v in res.energies.items()},
                         history=res.history[0],
                         pick=None if res.pick is None else res.pick[0])
@@ -583,6 +593,7 @@ def solve_bucket_impl(
     base_seed: int = 0,
     xs: Optional[torch.Tensor] = None,
     noise_seeds=None,
+    noise: Optional[Sequence] = None,
 ) -> AnnealResult:
     """Solve the C chromosomes of a genome bucket together: restraints with
     (C, L, L) tensors (each chromosome's padded to the bucket's L),
@@ -592,12 +603,14 @@ def solve_bucket_impl(
     over the chromosomes: a batched eigendecomposition may flip an
     eigenvector's sign), then the draws of chromosome_generator(base_seed,
     c); xs (C, n_eff, L, 3) and noise_seeds (C,) replay given values
-    instead, as solve_ensemble_impl's xs= and noise_seed= do. On the fused
-    and semi routes (step_route) the C x n_eff structures run as one batch:
-    B1 twice, or B3 or B5 then B4 once a step, for the whole bucket, and B2
-    or B3 once for the pick; chromosome c's results are those of
-    solve_ensemble_impl on its own restraints with the same draws. On the
-    unfused route the chromosomes are solved one after another."""
+    instead, as solve_ensemble_impl's xs= and noise_seed= do; on the
+    unfused route noise[c] replays chromosome c's noise draws (its
+    solve_ensemble_impl `noise`). The C x n_eff structures run as one
+    batch on every route (step_route): B1 twice, or B3 or B5 then B4 once a
+    step, or on the unfused route B2, B3 or B5 once a step, for the whole
+    bucket, and B2, B3 or B5 once for the pick; chromosome c's results are
+    those of solve_ensemble_impl on its own restraints with the same
+    draws."""
     target = restraints.lo
     dev = target.device
     C, L = target.shape[0], target.shape[-1]
@@ -611,14 +624,6 @@ def solve_bucket_impl(
                     None if xs is None else xs[c],
                     None if noise_seeds is None else int(noise_seeds[c]))
              for c in range(C)]
-    n_eff = n_models * 2 if cfg.enantiomer else n_models
-    if step_route(cfg, L, None, n_eff, dev) == "unfused":
-        res = [_solve_stack([rs[c]], None, cfg, n_models, bead_masks[c][None],
-                            draws[c][0][None], [draws[c][1]]) for c in range(C)]
-        return AnnealResult(
-            coords=torch.cat([r.coords for r in res]),
-            energies={k: torch.cat([r.energies[k] for r in res]) for k in res[0].energies},
-            history=torch.cat([r.history for r in res]),
-            pick=None if res[0].pick is None else torch.cat([r.pick for r in res]))
     return _solve_stack(rs, restraints, cfg, n_models, bead_masks,
-                        torch.stack([d[0] for d in draws]), [d[1] for d in draws])
+                        torch.stack([d[0] for d in draws]), [d[1] for d in draws],
+                        noise=noise)

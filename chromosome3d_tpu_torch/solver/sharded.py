@@ -31,9 +31,11 @@ final canonical-weight terms through the plain row-block energy
 `solve_genome_sharded` runs the same body for a genome bucket's chromosomes
 past the length buckets (the JAX package's vmap of it over a chrom x beads
 mesh): each shard group of parallel.shards.chrom_groups holds its
-chromosomes' strips as (C, Lb, L) tensors, and every step B6 runs once on
-each rank and B4 once on the lead for all of the group's chromosomes, each
-with its own strips, bead mask and noise seed.
+chromosomes' strips as (C, Lb, L) tensors, exact or windowed, and every step
+the route's pair kernel (B6, B2' or B5') runs once on each rank and B4 once
+on the lead for all of the group's chromosomes, each with its own strips,
+bead mask and noise seed; on the unfused route each with its own bonded
+terms, bead mask and noise stream.
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ from chromosome3d_tpu_torch.ops.fused_update import fused_update_table, step_cou
 from chromosome3d_tpu_torch.ops.general_pair import general_row_block_energy_grad
 from chromosome3d_tpu_torch.ops.pair_energy import (
     bond_energy_grad,
+    bond_energy_grad_stacked,
     exact_pair_tiles,
     exact_row_block_energy_grad,
 )
@@ -78,7 +81,7 @@ from chromosome3d_tpu_torch.solver.init import (
     relax_landmarks_block,
     relax_landmarks_lower_block,
 )
-from chromosome3d_tpu_torch.solver.unfused import NoiseStream, unfused_steps
+from chromosome3d_tpu_torch.solver.unfused import NoiseStream, StackedNoise, unfused_steps
 
 _BIG = 1e6
 
@@ -231,21 +234,21 @@ def _in_lockstep(bodies) -> list:
 def _pair_rows(group: ShardGroup, tiles: List[_Tiles], beads: Sequence, xT: torch.Tensor,
                weights, exact: bool, route: str):
     """(pair energies (B,), pair gradient (B, 3, L)) on the lead of (B, 3,
-    L) coords there: on the "strip" route B6 on every rank for all C
-    chromosomes, the partial gradients summed; else (C = 1) B2' (exact) or
-    B5' on every rank's rows, the rows gathered. tiles[r] holds rank r's
-    (C, Lb, L) strips, beads[r] the (C, L) bead masks on its device."""
+    L) coords there, B = C x n structures chromosome-major: on the "strip"
+    route B6 on every rank for all C chromosomes, the partial gradients
+    summed; else B2' (exact) or B5' on every rank's rows for all C
+    chromosomes, the rows gathered. tiles[r] holds rank r's (C, Lb, L)
+    strips, beads[r] the (C, L) bead masks on its device."""
     xTs = group.broadcast(xT)
     if route == "strip":
         parts = [strip_tri.strip_tri_energy_grad(x, t.lo, t.w, weights, b, t.row_start)
                  for x, t, b in zip(xTs, tiles, beads)]
         return group.psum([e for e, _ in parts]), group.psum([g for _, g in parts])
     if exact:
-        parts = [exact_row_block_energy_grad(x, t.lo[0], t.w[0], weights, b[0], t.row_start)
+        parts = [exact_row_block_energy_grad(x, t.lo, t.w, weights, b, t.row_start)
                  for x, t, b in zip(xTs, tiles, beads)]
     else:
-        parts = [general_row_block_energy_grad(x, t.lo[0], t.hi[0], t.w[0], weights, b[0],
-                                               t.row_start)
+        parts = [general_row_block_energy_grad(x, t.lo, t.hi, t.w, weights, b, t.row_start)
                  for x, t, b in zip(xTs, tiles, beads)]
     return group.psum([e for e, _ in parts]), group.all_gather([g for _, g in parts], 2)
 
@@ -259,20 +262,24 @@ def _group_body(group: ShardGroup, tiles: List[_Tiles], bead_masks: torch.Tensor
     AnnealResult: tiles[r] is rank r's (C, Lb, L) strips, bead_masks (C, L),
     xs (C, n_eff, L, 3) and noise_seeds C ints, all on the lead. The state
     is one batch of C x n_eff structures, chromosome-major: every step each
-    rank runs B6 once for all C chromosomes (or, at C = 1, B2' / B5' on the
-    "rows" route), the partials are combined on the lead, and B4 runs once
-    there for all of them, each chromosome with its mask and its noise
-    seed. On the "unfused" route (C = 1) the update after the gathered
-    gradient is solver.unfused's, on the lead, with noise from a generator
-    there seeded by the noise seed (or the given draws `noise`). The pick,
-    the final terms and the centroid are taken chromosome by chromosome.
-    The AnnealResult has a leading C axis."""
+    rank runs its pair kernel once for all C chromosomes (B6 on the "strip"
+    route, B2' or B5' on the "rows" and "unfused" ones), the partials are
+    combined on the lead, and on the fused routes B4 runs once there for
+    all of them, each chromosome with its mask and its noise seed. On the
+    "unfused" route the update after the gathered gradient is
+    solver.unfused's, on the lead, each chromosome with its bonded terms,
+    its bead mask and its own noise stream, from a generator there seeded
+    by its noise seed or replaying noise[c] (None: draw). The pick, the
+    final terms and the centroid are taken chromosome by chromosome, so
+    chromosome c's numbers are those of a group holding it alone. Or-groups
+    belong to one chromosome (no genome path has them, in the JAX package
+    either): with C > 1 they raise ValueError. The AnnealResult has a
+    leading C axis."""
     lead = group.lead
     C, n_eff, L = xs.shape[0], xs.shape[1], xs.shape[2]
-    if C > 1 and (route != "strip" or or_groups is not None):
-        raise NotImplementedError(
-            f"a stack of chromosomes runs on kernels B6 and B4 only (exact restraints, "
-            f"the strip route), not on the {route!r} route or with or-groups (ROADMAP A12)")
+    if C > 1 and or_groups is not None:
+        raise ValueError(f"or-groups belong to one chromosome, not to a group of {C}: "
+                         "no genome path carries them")
     exact = cfg.exact_restraints and cfg.noe_rswitch >= 1e8
     beads = group.broadcast(bead_masks)
     seeds = torch.tensor([_c_int32(v) for v in noise_seeds], dtype=torch.int32,
@@ -319,11 +326,14 @@ def _group_body(group: ShardGroup, tiles: List[_Tiles], bead_masks: torch.Tensor
             if or_groups is not None:
                 e_og, g_og = or_group_energy_grad(x, or_groups, weights, og_mask)
                 e_pair, g = e_pair + e_og, g + g_og
-            e_b, g_b = bond_energy_grad(x, weights, og_mask)
+            e_b, g_b = bond_energy_grad_stacked(x, weights, bead_masks)
             return e_pair + e_b, g + g_b
 
-        run = unfused_steps(energy_grad, table, og_mask, cfg.gradient_clip,
-                            NoiseStream(lead, noise_seeds[0], noise))
+        draws = [None] * C if noise is None else noise
+        run = unfused_steps(energy_grad, table, og_mask if C == 1 else bead_masks,
+                            cfg.gradient_clip,
+                            StackedNoise([NoiseStream(lead, s, d)
+                                          for s, d in zip(noise_seeds, draws)]))
     else:
         run = run_fused_update
 
@@ -341,9 +351,8 @@ def _group_body(group: ShardGroup, tiles: List[_Tiles], bead_masks: torch.Tensor
         xT, muT, nuT = yield from run(0, hot, xT, muT, nuT, history)
         w_hot = step_weights[hot - 1]
         coords = coords_of(xT).contiguous()
-        masks_b = bead_masks.repeat_interleave(n_eff, 0)
         xT_hot = coords.transpose(1, 2).contiguous() if unfused else xT
-        e_hot = pair_T(xT_hot, w_hot)[0] + bond_energy_grad(coords, base, masks_b)[0]
+        e_hot = pair_T(xT_hot, w_hot)[0] + bond_energy_grad_stacked(coords, base, bead_masks)[0]
         if or_groups is not None:
             e_hot = e_hot + or_group_energy(coords, or_groups, w_hot, og_mask)
         choice = torch.argmin(e_hot.reshape(C, n_models, 2), dim=2)
@@ -432,7 +441,7 @@ def solve_ensemble_sharded(
     if noise_seed is None:
         noise_seed = int(torch.randint(0, 2**31 - 1, (), generator=generator))
     res, = _in_lockstep([_group_body(group, tiles, bead_mask[None], cfg, n_models, xs[None],
-                                     [int(noise_seed)], route, or_groups, schedule, noise)])
+                                     [int(noise_seed)], route, or_groups, schedule, [noise])])
     return AnnealResult(coords=res.coords[0],
                         energies={k: v[0] for k, v in res.energies.items()},
                         history=res.history[0],
@@ -448,6 +457,7 @@ def solve_genome_sharded(
     base_seed: int = 0,
     xs: Optional[torch.Tensor] = None,
     noise_seeds=None,
+    noise: Optional[Sequence] = None,
 ) -> AnnealResult:
     """Many chromosomes past the length buckets, chrom x beads: the port of
     the JAX package's solve_genome_sharded (solver/sharded.py:598), which
@@ -455,22 +465,25 @@ def solve_genome_sharded(
     groups are the nc shard groups of nb devices each
     (parallel.shards.chrom_groups); the B chromosomes split evenly over them
     in order (B a multiple of nc), group g taking chromosomes [g Cg, (g + 1)
-    Cg). strips[g][r] is group g's rank r strip: ExactRestraints with
-    (Cg, Lb, L) tensors on that rank's device, L = nb Lb. bead_masks (B, L).
+    Cg). strips[g][r] is group g's rank r strip: ExactRestraints or
+    DenseRestraints with (Cg, Lb, L) tensors on that rank's device, L = nb
+    Lb. bead_masks (B, L).
 
     Each chromosome's start is the landmark init from its strips (a loop),
     then its mirror pairs and jitter and its noise seed drawn in that order
     from solver.anneal.chromosome_generator(base_seed, c), as the JAX body
     draws from its chromosome's key; xs (B, n_eff, L, 3) and noise_seeds
-    (B,) replay given values instead. A group's chromosomes run as one
-    batch: every step B6 once on each rank for all of them and B4 once on
-    the group's lead. On the unfused route (`_route`) a group holds one
-    chromosome (B2' and B5' have no chromosome axis). The groups' steps are
-    queued in turn (step k of every
-    group before step k + 1 of any), so groups on other devices run at once
-    as the JAX mesh's do. Returns an AnnealResult on groups[0]'s lead with a
-    leading B axis: coords (B, n_models, L, 3), energies (B, n_models) each,
-    history (B, n_models, T), pick (B, n_models)."""
+    (B,) replay given values instead, and on the unfused route noise[c]
+    chromosome c's noise draws (solve_ensemble_sharded's `noise`). The
+    route is `_route`'s, once for the bucket. A group's chromosomes run as
+    one batch: every step its pair kernel once on each rank for all of them
+    (B6 on the strip route, B2' or B5' on the rows and unfused routes) and
+    B4 once on the group's lead (the unfused route's update there instead).
+    The groups' steps are queued in turn (step k of every group before step
+    k + 1 of any), so groups on other devices run at once as the JAX mesh's
+    do. Returns an AnnealResult on groups[0]'s lead with a leading B axis:
+    coords (B, n_models, L, 3), energies (B, n_models) each, history (B,
+    n_models, T), pick (B, n_models)."""
     _refuse_unported(cfg)
     nc = len(groups)
     nb = groups[0].n
@@ -484,14 +497,6 @@ def solve_genome_sharded(
     groups[0].rows(L)
     Cg = B // nc
     route = _route(cfg, L, nb)
-    if route == "rows":
-        raise NotImplementedError(
-            f"an at-scale genome bucket at L={L} over {nb} devices a chromosome takes "
-            "the row-block route (B2' with a chromosome axis), not ported (ROADMAP A12)")
-    if route == "unfused" and Cg > 1:
-        raise NotImplementedError(
-            f"an at-scale genome bucket of {Cg} chromosomes a group at L={L} takes the "
-            "unfused route (B2' and B5' with a chromosome axis), not ported (ROADMAP A12.3)")
     n_eff = n_models * 2 if cfg.enantiomer else n_models
     if xs is not None and tuple(xs.shape) != (B, n_eff, L, 3):
         raise ValueError(f"xs: shape {tuple(xs.shape)}, expected {(B, n_eff, L, 3)}")
@@ -505,14 +510,17 @@ def solve_genome_sharded(
             c = g * Cg + i
             gen = chromosome_generator(base_seed, c)
             if xs is None:
-                own = [ExactRestraints(target=s.target[i], w=s.w[i]) for s in group_strips]
+                own = [type(s)(*(getattr(s, f.name)[i] for f in dataclasses.fields(s)))
+                       for s in group_strips]
                 starts.append(_start(group, own, masks[i], cfg, n_models, gen))
             else:
                 starts.append(xs[c].to(device=lead, dtype=torch.float32))
             seeds.append(int(torch.randint(0, 2**31 - 1, (), generator=gen))
                          if noise_seeds is None else int(noise_seeds[c]))
         bodies.append(_group_body(group, _tiles(group, group_strips, L), masks, cfg,
-                                  n_models, torch.stack(starts), seeds, route))
+                                  n_models, torch.stack(starts), seeds, route,
+                                  noise=None if noise is None else
+                                  list(noise[g * Cg:(g + 1) * Cg])))
     results = _in_lockstep(bodies)
     out = groups[0].lead
     return AnnealResult(

@@ -88,6 +88,22 @@ class NoiseStream:
         return z
 
 
+class StackedNoise:
+    """The draws of C chromosomes' NoiseStreams as one stream of a (C n, L,
+    3) state, chromosome-major: step k's block is each stream's (n, L, 3)
+    block in turn, so chromosome c's numbers are those of a solve holding c
+    alone, from the same seed or the same replayed draws."""
+
+    def __init__(self, streams: Sequence[NoiseStream]):
+        self.streams = list(streams)
+
+    def __call__(self, k: int, like: torch.Tensor) -> torch.Tensor:
+        if len(self.streams) == 1:
+            return self.streams[0](k, like)
+        n = like.shape[0] // len(self.streams)
+        return torch.cat([s(k, like[c * n:(c + 1) * n]) for c, s in enumerate(self.streams)])
+
+
 def unfused_move(x: torch.Tensor, g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
                  bc1: float, bc2: float, lr: float, sigma: float, z: torch.Tensor,
                  mask: torch.Tensor, clip: Optional[float]):
@@ -107,10 +123,18 @@ def unfused_steps(energy_grad, table, bead_mask: torch.Tensor, clip: Optional[fl
     mu, nu). Step k calls energy_grad(x, weights) -> (energies (B,),
     gradients (B, L, 3)) (the pair kernel, the bonded terms and any
     or-group term), writes the energies to hist[k] and moves x with count
-    k + 1. bead_mask (L,) masks the move."""
+    k + 1. bead_mask (L,) masks the move; (C, L) holds C chromosomes' masks,
+    each masking its B / C structures (chromosome-major). noise: a
+    NoiseStream, or a StackedNoise of a stream a chromosome."""
     scalars = [table.scalars(k) for k in range(len(table.rows))]
     bc1, bc2 = bias_corrections(len(table.rows))
-    mask = bead_mask[:, None]
+    masks = {}
+
+    def mask_of(B: int) -> torch.Tensor:
+        if B not in masks:
+            masks[B] = (bead_mask[:, None] if bead_mask.dim() == 1 else
+                        bead_mask.repeat_interleave(B // bead_mask.shape[0], 0)[:, :, None])
+        return masks[B]
 
     def run(k0: int, k1: int, x, mu, nu, hist):
         for k in range(k0, k1):
@@ -118,7 +142,7 @@ def unfused_steps(energy_grad, table, bead_mask: torch.Tensor, clip: Optional[fl
             e, g = energy_grad(x, weights)
             hist[k] = e
             x, mu, nu = unfused_move(x, g, mu, nu, bc1[k], bc2[k], lr, sigma, noise(k, x),
-                                     mask, clip)
+                                     mask_of(x.shape[0]), clip)
             yield
         return x, mu, nu
 

@@ -764,6 +764,46 @@ def test_cuda_general_pair_chromosome_axis(cuda_device, C, L, B):
                                atol=2e-4 + 1e-6 * np.abs(g_r).max())
 
 
+@pytest.mark.parametrize("C,L,n,rank", [(1, 512, 2, 1), (2, 512, 1, 0), (3, 512, 2, 0),
+                                        (3, 512, 2, 1), (2, 2048, 2, 1), (3, 1024, 4, 3)])
+@pytest.mark.parametrize("kernel", ["B2'", "B5'"])
+def test_cuda_row_block_chromosome_axis(cuda_device, kernel, C, L, n, rank):
+    """B2' and B5' over C chromosomes' (C, Lb, L) strips at row_start 0 or
+    past it (rank r of n shards), B = 20 a chromosome, in one launch: each
+    chromosome bit for bit a launch of its own at the same row_start, and
+    the twin within test_cuda_row_blocks_are_whole_matrix_rows' tolerances
+    (B5' with linear tails, rswitch 1); padded beads get no gradient."""
+    B = 20
+    target, w, bms, xT, *_ = _genome_strips(cuda_device, C, L, B)
+    Lb = L // n
+    r0 = rank * Lb
+    rows = slice(r0, r0 + Lb)
+    if kernel == "B2'":
+        fn, twin = exact_row_block_energy_grad, exact_row_block_energy_grad_plain
+        tiles = (target[:, rows].contiguous(), w[:, rows].contiguous())
+        wts = WEIGHTS
+    else:
+        fn, twin = general_row_block_energy_grad, general_row_block_energy_grad_plain
+        tiles = ((target[:, rows] * 0.9).contiguous(), (target[:, rows] * 1.1).contiguous(),
+                 w[:, rows].contiguous())
+        wts = dataclasses.replace(WEIGHTS, noe_rswitch=1.0)
+    launches = fn.launches
+    e, g = fn(xT, *tiles, wts, bms, r0)
+    assert fn.launches == launches + 1 and g.shape == (C * B, 3, Lb)
+    for c in range(C):
+        sl = slice(c * B, (c + 1) * B)
+        e_c, g_c = fn(xT[sl].contiguous(), *(t[c] for t in tiles), wts, bms[c], r0)
+        assert torch.equal(e_c, e[sl]) and torch.equal(g_c, g[sl]), f"chromosome {c}"
+        n_real = int(bms[c].sum())
+        assert not bool(g[sl, :, max(0, n_real - r0):].any())
+    e_r, g_r = twin(xT, *tiles, wts, bms, r0)
+    g_r = g_r.cpu().numpy()
+    np.testing.assert_allclose(e.cpu().numpy(), e_r.cpu().numpy(),
+                               rtol=2e-5 if kernel == "B2'" else 1e-5)
+    np.testing.assert_allclose(g.cpu().numpy(), g_r, rtol=2e-4,
+                               atol=2e-4 + 1e-6 * np.abs(g_r).max())
+
+
 @pytest.mark.parametrize("C,L,B", [(2, 5120, 20), (2, 5120, 10), (5, 2048, 20),
                                    (5, 2048, 10)])
 def test_cuda_strip_tri_chromosome_axis(cuda_device, C, L, B):

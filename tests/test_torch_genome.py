@@ -48,9 +48,12 @@ from chromosome3d_tpu_torch.ops.fused_step import (
     fused_steps_plan,
     one_step_table,
 )
+from chromosome3d_tpu_torch.ops.fused_update import fused_update_plain
+from chromosome3d_tpu_torch.ops.general_pair import general_pair_energy_grad_plain
 from chromosome3d_tpu_torch.ops.pair_energy import (
     exact_pair_energy_grad,
     exact_pair_energy_grad_plain,
+    exact_row_block_energy_grad_plain,
 )
 from chromosome3d_tpu_torch.ops.strip_tri import strip_tri_energy_grad_plain
 from chromosome3d_tpu_torch.parallel import genome as port_genome
@@ -434,27 +437,49 @@ def test_checkpoints_load_in_either_package(tmp_path, writer):
 
 
 def test_run_genome_refuses_before_solving(genome_dir, tmp_path):
-    """A bucket past the length buckets whose restraints are not exact is
-    refused (ROADMAP A12) before any bucket is solved or written; so is one
-    whose layout takes the row-block route (L = 128 on one device: B6's
-    strip route needs 3 of the JAX package's strip tiles); and without a
-    device the card is asked for, which raises where there is none."""
+    """A bucket past the length buckets whose restraints are not exact runs
+    (ROADMAP C11): stacked on the host and solved on the one device by
+    solve_bucket (B5's and B4's twins once a step for the bucket), as the
+    JAX package's run_genome on one device solves it; so does one whose
+    layout takes the row-block route (L = 128 on one device: B6's strip
+    route needs 3 of the JAX package's strip tiles; B2''s and B4's twins).
+    With shard_large off such a bucket is still refused, before any bucket
+    is solved or written."""
     port_cfg, _ = _cfgs(noe_rswitch=5.0)
     d = _write_genome(tmp_path / "g", CHROMS[1:2] + (("chr7_50kb", 70),))
+    steps = port_cfg.anneal.total_steps
+
+    def counts():
+        return (general_pair_energy_grad_plain.calls, fused_update_plain.calls,
+                exact_row_block_energy_grad_plain.calls, strip_tri_energy_grad_plain.calls)
+
+    # one torch thread: more spin on the runs' small ops and slow the tests
+    # running beside them
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        before = counts()
+        got = port_genome.run_genome(d, str(tmp_path / "w"),
+                                     port_cfg.replace(shard_quantum=32), device="cpu")
+        assert tuple(a - b for a, b in zip(counts(), before)) == (
+            2 * (steps + 1), 2 * steps, 0, 0)
+        assert got["chr7_50kb"]["bucket"] == 96 and got[CHROMS[1][0]]["bucket"] == 64
+        assert -1.0 <= got["chr7_50kb"]["best_spearman_if_inv_d"] <= 1.0
+        exact_cfg = _cfgs()[0]
+        before = counts()
+        got = port_genome.run_genome(d, str(tmp_path / "a"),
+                                     exact_cfg.replace(shard_quantum=128), device="cpu")
+    finally:
+        torch.set_num_threads(n)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (0, steps, steps + 1, 0)
+    assert got["chr7_50kb"]["bucket"] == 128
     out = str(tmp_path / "out")
-    before = (fused_step_plain.calls, strip_tri_energy_grad_plain.calls)
-    with pytest.raises(NotImplementedError, match=r"chr7_50kb.*not exact.*ROADMAP A12\)"):
-        port_genome.run_genome(d, out, port_cfg, device="cpu")
-    assert (fused_step_plain.calls, strip_tri_energy_grad_plain.calls) == before
-    assert os.listdir(os.path.join(out, "checkpoint")) == []
-    assert not os.path.exists(os.path.join(out, CHROMS[1][0]))
-    exact_cfg = _cfgs()[0]
-    with pytest.raises(NotImplementedError, match=r"chr7_50kb.*L=128.*rows route.*A12\)"):
-        port_genome.run_genome(d, str(tmp_path / "a"), exact_cfg.replace(shard_quantum=128),
-                               device="cpu")
-    assert (fused_step_plain.calls, strip_tri_energy_grad_plain.calls) == before
+    before = (fused_step_plain.calls, strip_tri_energy_grad_plain.calls, *counts())
     with pytest.raises(ValueError, match="exceeds the largest bucket"):
         port_genome.run_genome(d, out, port_cfg.replace(shard_large=False), device="cpu")
+    assert (fused_step_plain.calls, strip_tri_energy_grad_plain.calls, *counts()) == before
+    assert os.listdir(os.path.join(out, "checkpoint")) == []
+    assert not os.path.exists(os.path.join(out, CHROMS[1][0]))
 
 
 def test_run_genome_refuses_an_unstackable_bucket_before_solving(tmp_path, monkeypatch):
