@@ -292,6 +292,31 @@ Phases (each prints one line or a few, then its wall seconds as a
                512)): one launch against the twin, equal bits over two
                calls, each chromosome bit for bit a launch of its own, wall,
                device and twin ms beside the bound.
+  21. pair_bf16 — AnnealConfig.pair_bf16 at full width: (a) B1 at the main
+               path's 512 x 20 and x 10 (resident) and at the 45-input genome
+               bucket (streamed), B2 at 512 x 20, B2' on the 2 row blocks of
+               512 and at phase 20's 256 x19 group, B3 at 5120 x 20, B6 on 4
+               strips of 5120: on the tiles rounded to bf16 each launch's
+               bits equal the float32 launch's on the same tiles widened back
+               (and a second bf16 launch's), each against its twin on the
+               bf16 tiles at the float32 tolerances, and each timed as wall |
+               device ms beside the float32 launch in the same run and the
+               bound with the tiles at 2 bytes an element; (b) the paths under
+               the flag through the library (no CLI flag, as in the JAX CLI):
+               (1) phase 4's run (456 -> 512: B1 x2, B2 x1), (2) the at-scale
+               run 4985 -> 5120 (the prep stores the tiles bf16: B3 x2761, B4
+               x2760; the float32 view prepped after they are freed, checked
+               by weak references), (3) the 45 inputs' bucket through
+               genome.solve_bucket (B1 x2 streamed, B2 x1), (4) the at-scale
+               run over the card x4 (B6 x11044 on bf16 strips), (5) the
+               streamed route at phase 16's length (bf16 accumulators; its
+               peak beside phase 16's float32 one), (6) the 45 inputs' 256
+               bucket under buckets (128,), quantum 128, through
+               solve_bucket_sharded_from_if (B2' x2761 on bf16-stored tiles, B4
+               x2760): launches exact and every one of B1, B2, B2', B3 and B6
+               on bf16 tiles (`launches_bf16`), no twin, the gates, the
+               solve's seconds, the device peak under the dtype-aware
+               solve_peak_bytes / bucket_peak_bytes.
 Then one JSON line with the kernels' numbers (each with its launches on its
 path, its wall and device ms and its twin's — for B1 per step of a 256-step
 launch, with the steps it ran on the main path — its bound from the H100's
@@ -308,7 +333,8 @@ their launches on phase 17's unfused solves and their errors at its
 shapes; every row with its launches in phases 18 and 19 where it ran
 there; B3 and B5 with the chromosome axis at the buckets of phase 19, with
 that bucket's launches; B5' and B2' with it at the groups of phase 20, with
-that solve's launches) and, last,
+that solve's launches; the bf16 entry points of B1, B2, B2', B3 and B6 at
+phase 21's shapes, with their launches on its paths) and, last,
 the result line `{"ok": true, "device": {...}}`.
 """
 
@@ -3002,7 +3028,8 @@ def phase_streamed(dev, card):
     B4, row-chunked final terms), then B3 and B4 against their twins on the
     solve's tiles, then the streamed assessment view. The gates from
     reconstruction_metrics on the lowest-NOE-energy model (sampled pairs);
-    the host assess_ensemble is not run at this size."""
+    the host assess_ensemble is not run at this size. Returns (launches,
+    kernel numbers, L_pad, {the truth X, its IF M, the device peak})."""
     from chromosome3d_tpu_torch import pipeline
     from chromosome3d_tpu_torch.config import AnnealConfig, PipelineConfig, RestraintConfig
     from chromosome3d_tpu_torch.ops import device_prep
@@ -3142,7 +3169,8 @@ def phase_streamed(dev, card):
           f"streamed view holds {n_view} restraints, the solve's tiles {n_restraints}")
     print(f"[{tag}] streamed assessment view {view_s:.3f} s ({L}x{L} float32 target and "
           f"weights on the host, {n_view} restraints, as the solve's tiles)")
-    return launches, measured, L_pad
+    # phase 21 solves the same input again under pair_bf16 beside this peak
+    return launches, measured, L_pad, {"X": X, "M": M, "peak": peak}
 
 
 # phase 17's second sharded length: 2 strips of 260 rows (not a multiple of
@@ -4067,6 +4095,498 @@ def phase_genome_rows(dir_100kb, truths_100kb, dir_45, truths_45, card):
     return path, measured, path_launches
 
 
+def bf16_counters():
+    """Launches of the bf16 entry points of B1, B2, B2', B3 and B6 (each
+    wrapper's `launches_bf16`, a part of its `launches`)."""
+    kernels, _ = kernel_counters()
+    return {k: kernels[k].launches_bf16 for k in ("B1", "B2", "B2'", "B3", "B6")}
+
+
+def reset_bf16_counters():
+    kernels, _ = kernel_counters()
+    for k in ("B1", "B2", "B2'", "B3", "B6"):
+        kernels[k].launches_bf16 = 0
+
+
+def check_bf16_launches(where, launches):
+    """Every launch of B1, B2, B2', B3 and B6 in the run read bf16 tiles."""
+    on_bf16 = bf16_counters()
+    for k, n in on_bf16.items():
+        check(n == launches[k], f"{where}: {k} launched {launches[k]} times, {n} of them "
+              "on bf16 tiles, want all")
+
+
+def bf16_kernel(key, where, run, tiles, twin_check, timed, n, card, shape, scale=1.0,
+                n_twin=3):
+    """One kernel on bf16 tiles (phase 21 (a)): run(tiles) launches it on
+    the tiles given; on the tiles rounded to bf16 its outputs equal, bit for
+    bit, its float32 launch on the same tiles widened back and a second bf16
+    launch; twin_check(bf16 tiles, outputs) holds them against the plain
+    twin on the bf16 tiles and returns the max abs error. Then timed(tiles)
+    (the kernel, on bf16 and on the float32 tiles, and its twin, `timed` with
+    twin=True) as median wall with a sync | device ms (CUDA events: a
+    torch.profiler trace once held no bf16 B2 kernel), the kernel's times
+    scale (B1: a step of a 256-step launch; its twin's call is one step),
+    beside the bound with the tiles at 2 bytes an element (shape: bound()'s
+    arguments)."""
+    b16 = tuple(t.to(torch.bfloat16).contiguous() for t in tiles)
+    widened = tuple(t.float() for t in b16)
+    got, ref32, again = run(b16), run(widened), run(b16)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, ref32)),
+          f"{key} {where}: the bf16 launch differs from the float32 launch on the widened "
+          "tiles")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)), f"{key} {where}: two bf16 "
+          "launches differ")
+    err = twin_check(b16, got)
+    calls = {key: (lambda: timed(b16), n), f"{key} f32": (lambda: timed(tiles), n),
+             f"{key} plain": (lambda: timed(b16, twin=True), n_twin)}
+    # scale: the kernel's call is a launch of many steps, its twin's one step
+    unit = {k: 1.0 if k.endswith("plain") else scale for k in calls}
+    wall = {k: unit[k] * median_ms(f, m, warmup=1) for k, (f, m) in calls.items()}
+    on_dev = {k: unit[k] * event_ms(f, m) for k, (f, m) in calls.items()}
+    b_ms, b_by = bound(key, *shape, tb=2)
+    b32 = bound(key, *shape)[0]
+    print(f"[pair_bf16] {key} {where} on bf16 tiles: bits of the float32 launch on the "
+          f"widened tiles, == twin (max abs err {err:.3g}); ms"
+          + (" a step of a 256-step launch" if scale != 1.0 else " a call")
+          + f" as median wall with a sync | device (CUDA events"
+          f"): bf16 {wall[key]:.5f} | {on_dev[key]:.5f}, float32 {wall[key + ' f32']:.5f} | "
+          f"{on_dev[key + ' f32']:.5f}, twin {wall[key + ' plain']:.4f} | "
+          f"{on_dev[key + ' plain']:.4f}; bound {b_ms:.5f} ({b_by}; float32 tiles "
+          f"{b32:.5f}) on {card}")
+    return {"max_abs_err": err, "ms": wall[key], "device_ms": on_dev[key],
+            "plain_ms": wall[f"{key} plain"], "plain_device_ms": on_dev[f"{key} plain"],
+            "ms_f32": wall[f"{key} f32"], "device_ms_f32": on_dev[f"{key} f32"],
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def pair_check(key, twin, pre, post, e_rtol):
+    """twin_check for the pair kernels: (e, g) against twin(*pre, *tiles,
+    *post) with e rtol e_rtol, g rtol 2e-4 and atol 2e-4 + 1e-6 x max |g|."""
+    def run_check(tiles, got):
+        e_r, g_r = twin(*pre, *tiles, *post)
+        close(f"{key} e bf16", got[0], e_r, e_rtol)
+        return close(f"{key} g bf16", got[1], g_r, 2e-4, 2e-4 + 1e-6 * float(g_r.abs().max()))
+    return run_check
+
+
+def b1_check(tiles_fn, state, table, bms, seeds):
+    """twin_check for B1 over STEPS_CHECK: fused_steps_plain on the bf16
+    tiles, check_b1_steps's tolerances."""
+    from chromosome3d_tpu_torch.ops.fused_step import fused_steps_plain
+
+    def run_check(tiles, got):
+        ref = fused_steps_plain(*state, tiles_fn(tiles), table, *STEPS_CHECK, bms,
+                                seeds.tolist())
+        scale = [float(r.abs().max()) for r in ref]
+        close("B1 e bf16", got[0], ref[0], 2e-5)
+        close("B1 mu' bf16", got[2], ref[2], 5e-4, 1e-5 + STEPS_ATOL * scale[2])
+        close("B1 nu' bf16", got[3], ref[3], 5e-4, 1e-8 + STEPS_ATOL * scale[3])
+        return close("B1 x' bf16", got[1], ref[1], 5e-4, 5e-4)
+    return run_check
+
+
+def phase21_kernels(dev, genome_dir, truths, card):
+    """Phase 21 (a): B1, B2, B2', B3 and B6 on bf16 tiles at the shapes of
+    phases 3, 4b and 20 (bf16_kernel). Returns {row name: numbers}."""
+    from chromosome3d_tpu_torch.config import AnnealConfig, PipelineConfig
+    from chromosome3d_tpu_torch.io import load_if_matrix
+    from chromosome3d_tpu_torch.ops.fused_step import (
+        fused_step_tiles,
+        fused_steps_batched,
+        fused_steps_plain,
+        fused_steps_plan,
+    )
+    from chromosome3d_tpu_torch.ops.pair_energy import (
+        exact_pair_energy_grad,
+        exact_pair_energy_grad_plain,
+        exact_row_block_energy_grad,
+        exact_row_block_energy_grad_plain,
+    )
+    from chromosome3d_tpu_torch.ops.strip_tri import (
+        strip_tile,
+        strip_tri_energy_grad,
+        strip_tri_energy_grad_plain,
+    )
+    from chromosome3d_tpu_torch.ops.tri_energy import tri_energy_grad, tri_energy_grad_plain
+    from chromosome3d_tpu_torch.parallel import genome
+    from chromosome3d_tpu_torch.pipeline import auto_exact_matrix
+    from chromosome3d_tpu_torch.solver.anneal import schedule_table
+
+    out = {}
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    table = schedule_table(AnnealConfig(), seed=12345)
+    n_timed = STEPS_TIMED[1] - STEPS_TIMED[0]
+
+    def b1(where, tiles, state, bms, seeds, C, n_time):
+        B, L = state[0].shape[0] // C, state[0].shape[2]
+        plan = fused_steps_plan(L, B, n_sm, C=C)
+
+        def run(t):
+            return fused_steps_batched(*state, t, table, *STEPS_CHECK, bms, seeds=seeds)
+
+        def timed(t, twin=False):
+            if twin:   # one step of the twin
+                k = STEPS_TIMED[0]
+                return fused_steps_plain(*state, t, table, k, k + 1, bms, seeds.tolist())
+            return fused_steps_batched(*state, t, table, *STEPS_TIMED, bms, seeds=seeds)
+
+        num = bf16_kernel("B1", f"{where} ({plan['mode']})", run, tiles,
+                          b1_check(lambda t: t, state, table, bms, seeds), timed, n_time,
+                          card, (B, L, None, C), scale=1.0 / n_timed, n_twin=2)
+        return {**num, "plan": plan["mode"]}
+
+    # B1 and B2 at the reference-scale path's shapes (phase 3)
+    X, M, ex, bm, xT, mu, nu, w = slice_inputs(dev)
+    tiles = fused_step_tiles(ex, bm, w.noe)
+    seed1 = torch.tensor([12345], dtype=torch.int32, device=dev)
+    for B in (2 * N_MODELS, N_MODELS):
+        st = (xT[:B].contiguous(), mu[:B].contiguous(), nu[:B].contiguous())
+        out[f"B1@{B}"] = b1(f"B={B}, L={L_PAD}", tiles, st, bm, seed1, 1, 7)
+    coords = xT.transpose(1, 2).contiguous()
+    out["B2"] = bf16_kernel(
+        "B2", f"B=20, L={L_PAD}",
+        lambda t: exact_pair_energy_grad(coords, *t, w, bm), (ex.target, ex.w),
+        pair_check("B2", exact_pair_energy_grad_plain, (coords,), (w, bm), 2e-5),
+        lambda t, twin=False: (exact_pair_energy_grad_plain if twin else
+                               exact_pair_energy_grad)(coords, *t, w, bm),
+        25, card, (2 * N_MODELS, L_PAD))
+    # B2' on the 2 row blocks of the same tiles (phase 3's sharded check)
+    Lb = L_PAD // 2
+    errs = []
+    for r in range(2):
+        strip = (ex.target[r * Lb:(r + 1) * Lb], ex.w[r * Lb:(r + 1) * Lb])
+        num = bf16_kernel(
+            "B2'", f"rows [{r * Lb}, {(r + 1) * Lb}) of L={L_PAD}, B=20",
+            lambda t, r=r: exact_row_block_energy_grad(xT, *t, w, bm, r * Lb), strip,
+            pair_check("B2'", exact_row_block_energy_grad_plain, (xT,), (w, bm, r * Lb), 2e-5),
+            lambda t, twin=False, r=r: (exact_row_block_energy_grad_plain if twin else
+                                        exact_row_block_energy_grad)(xT, *t, w, bm, r * Lb),
+            25, card, (2 * N_MODELS, L_PAD, Lb))
+        errs.append(num)
+    out["B2'@512"] = errs[1]
+    del X, M, ex, tiles, coords
+
+    # B1 with the chromosome axis at the genome bucket's shape (phase 4b)
+    ex45, bms45, tiles45, state45, seeds45, w45 = genome_bucket_inputs(dev, genome_dir)
+    B = 2 * N_MODELS
+    for b in (B, N_MODELS):
+        st = tuple(torch.cat([a[c * B:c * B + b] for c in range(C_GENOME)]) for a in state45)
+        out[f"B1 genome@{b}"] = b1(f"{C_GENOME} chromosomes x B={b}, L={L_PAD}", tiles45,
+                                   st, bms45, seeds45, C_GENOME, 3)
+    del ex45, tiles45, state45
+
+    # B2' with the chromosome axis at the 256 x19 genome group (phase 20 (c))
+    cfg_c = auto_exact_matrix(PipelineConfig(model_count=N_MODELS, length_buckets=(128,),
+                                             shard_quantum=128))
+    jobs = genome.bucket_jobs(genome.discover_jobs(genome_dir), (128,), 128)[256]
+    matrices = [load_if_matrix(j.path) for j in jobs]
+    t256 = genome.bucket_tiles_from_if(matrices, 256, cfg_c.restraints, [dev])[0][0][0]
+    near = [ensemble_near(truths[j.name], 256, dev) for j in jobs]
+    bms = torch.stack([a[0] for a in near])
+    xg = torch.cat([a[1] for a in near]).contiguous()
+    out["B2' genome@256"] = bf16_kernel(
+        "B2'", f"{len(jobs)} chromosomes x B=20, L=256 (one group, all rows)",
+        lambda t: exact_row_block_energy_grad(xg, *t, w45, bms, 0), (t256.target, t256.w),
+        pair_check("B2'", exact_row_block_energy_grad_plain, (xg,), (w45, bms, 0), 2e-5),
+        lambda t, twin=False: (exact_row_block_energy_grad_plain if twin else
+                               exact_row_block_energy_grad)(xg, *t, w45, bms, 0),
+        25, card, (2 * N_MODELS, 256, 256, len(jobs)))
+    del t256, near, xg
+
+    # B3 and B6 at the at-scale path's shape (phases 3 and 9)
+    _, _, exb, bmb, xTb, _, _ = at_scale_inputs(dev)
+    out["B3"] = bf16_kernel(
+        "B3", f"B=20, L={L_BIG}->{L_BIG_PAD}",
+        lambda t: tri_energy_grad(xTb, *t, w, bmb), (exb.target, exb.w),
+        pair_check("B3", tri_energy_grad_plain, (xTb,), (w, bmb), 3e-5),
+        lambda t, twin=False: (tri_energy_grad_plain if twin else tri_energy_grad)(
+            xTb, *t, w, bmb),
+        10, card, (2 * N_MODELS, L_BIG_PAD))
+    Lb = L_BIG_PAD // 4
+    strips = []
+    for r in range(4):
+        strip = (exb.target[r * Lb:(r + 1) * Lb], exb.w[r * Lb:(r + 1) * Lb])
+        tile = strip_tile(Lb)
+        strips.append(bf16_kernel(
+            "B6", f"strip {r} of 4, B=20, L={L_BIG_PAD}",
+            lambda t, r=r: strip_tri_energy_grad(xTb, *t, w, bmb, r * Lb), strip,
+            pair_check("B6", strip_tri_energy_grad_plain, (xTb,), (w, bmb, r * Lb, tile),
+                       3e-5),
+            lambda t, twin=False, r=r, tile=tile: (
+                strip_tri_energy_grad_plain(xTb, *t, w, bmb, r * Lb, tile) if twin
+                else strip_tri_energy_grad(xTb, *t, w, bmb, r * Lb)),
+            10, card, (2 * N_MODELS, L_BIG_PAD, Lb), n_twin=2))
+    out["B6"] = max(strips, key=lambda d: d["device_ms"])   # the slowest strip
+    del exb, xTb, strips
+    return out
+
+
+@contextlib.contextmanager
+def prep_dtypes(seen):
+    """Record each call of device_prep.exact_tiles_from_if_device as
+    (out_dtype, the dtypes of the tiles it built) into `seen`, keep weak
+    references to the bf16 tiles, and check at each float32 prep that none
+    of them is alive: the solve's bf16 tiles are freed before the
+    assessment view is built."""
+    import weakref
+
+    from chromosome3d_tpu_torch.ops import device_prep
+
+    real = device_prep.exact_tiles_from_if_device
+    refs = []
+
+    def spy(*args, **kwargs):
+        out_dtype = kwargs.get("out_dtype", "float32")
+        if out_dtype == "float32":
+            check(all(r() is None for r in refs),
+                  "the solve's bf16 tiles are alive when the float32 view is prepped")
+        tiles = real(*args, **kwargs)
+        parts = tiles if isinstance(tiles, list) else [tiles]
+        seen.append((out_dtype, sorted({str(t.target.dtype) for t in parts})))
+        if out_dtype == "bfloat16":
+            refs.extend(weakref.ref(getattr(t, k)) for t in parts for k in ("target", "w"))
+        return tiles
+
+    device_prep.exact_tiles_from_if_device = spy
+    try:
+        yield
+    finally:
+        device_prep.exact_tiles_from_if_device = real
+
+
+def phase21_run(where, path, cfg, X, want, card, shards=1, stored="float32"):
+    """pipeline.run_pipeline on `path` under cfg (pair_bf16; there is no
+    CLI flag for it, as in the JAX CLI): the kernels' launches exact and
+    all of B1, B2, B2', B3 and B6 on bf16 tiles, no twin, the gates on the
+    rank-01 model, the solve's seconds (synchronised), and the device peak
+    over the run under solve_peak_bytes with the tiles at their stored
+    width. Past the buckets the prep emits the solve's tiles as bf16 and
+    the float32 view after they are freed (prep_dtypes). Returns (launches,
+    solve seconds, peak, estimate)."""
+    from chromosome3d_tpu_torch import pipeline
+
+    L = len(X)
+    from_if = stored == "bfloat16"
+    L_pad = (pipeline.quantum_bucket(L, cfg.shard_quantum, shards) if from_if
+             else min(b for b in cfg.length_buckets if b >= L))
+    est = pipeline.solve_peak_bytes(L_pad, 2 * N_MODELS, True, None, stored, True)
+    seen, solve_t, peak = [], [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "out")
+        reset_counters()
+        reset_bf16_counters()
+        with shard_devices_on_card(shards), timed_solve(solve_t), prep_dtypes(seen), \
+                device_peak(peak):
+            summary = pipeline.run_pipeline(path, out, cfg)
+        launches, plain = read_counters()
+        check_launches(where, launches, plain, want)
+        check_bf16_launches(where, launches)
+        ident = os.path.splitext(os.path.basename(path))[0]
+        ranked = sorted(glob.glob(os.path.join(out, f"{ident}_rank*_a05.pdb")))
+        check(len(ranked) == N_MODELS, f"{where}: {len(ranked)} rank PDBs")
+        met = check_gates(ranked[0], X)
+    if from_if:
+        check(seen == [("bfloat16", ["torch.bfloat16"]), ("float32", ["torch.float32"])],
+              f"{where}: preps {seen}, want the solve's bf16 tiles, then the float32 view")
+    else:
+        check(seen == [], f"{where}: preps {seen}, want the host route")
+    check(peak[0] <= est, f"{where}: device peak {peak[0]} above solve_peak_bytes {est}")
+    print(f"[pair_bf16] {where}: L={L}->{L_pad}, "
+          + ", ".join(f"{k} {launches[k]}" for k in want) + " launches, all on bf16 tiles "
+          f"(launches_bf16), every other kernel 0, plain 0; preps {seen}; rank01 rmsd/Rg "
+          f"{met['rmsd_over_rg']:.4f}, spearman_d {met['spearman_d']:.5f}, dRMSD_rel "
+          f"{met['drmsd_rel']:.4f}; best Spearman(IF,1/d) "
+          f"{summary['best_spearman_if_inv_d']:.4f}; solve {solve_t[0]} s (synchronised), "
+          f"wall {summary['wall_seconds']} s; device peak over the run {peak[0]} bytes "
+          f"against solve_peak_bytes ({stored} tiles, pair_bf16) {est} "
+          f"({peak[0] / est:.3f} of it) on {card}")
+    return launches, solve_t[0], peak[0], est
+
+
+def phase21_paths(X, M, genome_dir, truths, streamed_f32, card):
+    """Phase 21 (b): the paths under AnnealConfig(pair_bf16=True), full
+    width (10 models, the default schedule): (1) phase 4's `run` (456 ->
+    512: B1 x2 on the folded tiles cast to bf16, B2's pick on bf16); (2) the
+    at-scale `run` 4985 -> 5120 (the prep stores the tiles bf16: B3 x2761 +
+    B4 x2760; the float32 view after they are freed); (3) the 45 inputs'
+    512 bucket through genome.solve_bucket (B1 streamed on bf16, B2 once;
+    no emission); (4) the at-scale `run` over the card listed 4 times (B6 on
+    bf16 strips); (5) the streamed route at phase 16's length (bf16
+    accumulators; its device peak beside phase 16's); (6) the 45 inputs'
+    256 bucket under buckets (128,), quantum 128, through
+    solve_bucket_sharded_from_if (B2' on bf16-stored tiles + B4). Each:
+    launches exact and on bf16, no twin, the gates, the solve's seconds and
+    its device peak against the dtype-aware estimate. Returns {path:
+    launches}."""
+    from chromosome3d_tpu_torch import pipeline
+    from chromosome3d_tpu_torch.config import AnnealConfig, PipelineConfig, RestraintConfig
+    from chromosome3d_tpu_torch.device import resolve_device
+    from chromosome3d_tpu_torch.io import load_if_matrix, write_if_matrix
+    from chromosome3d_tpu_torch.ops import device_prep
+    from chromosome3d_tpu_torch.ops.energy import auto_weight_exponent
+    from chromosome3d_tpu_torch.ops.fused_step import fused_steps_plan
+    from chromosome3d_tpu_torch.parallel import genome
+    from chromosome3d_tpu_torch.pipeline import auto_exact, auto_exact_matrix
+    from chromosome3d_tpu_torch.solver import anneal
+    from chromosome3d_tpu_torch.truth import (
+        confined_walk,
+        if_from_structure,
+        reconstruction_metrics,
+    )
+
+    dev = resolve_device(None)
+    an = AnnealConfig(pair_bf16=True)
+    steps = an.total_steps
+    cfg = PipelineConfig(model_count=N_MODELS, anneal=an)
+    paths = {}
+    logging.getLogger("chromosome3d_tpu_torch.pipeline").setLevel(logging.WARNING)
+    with tempfile.TemporaryDirectory() as tmp:
+        # (1) the reference-scale run
+        path = os.path.join(tmp, "chrT_456_matrix.txt")
+        write_if_matrix(path, M)
+        paths["run 512"] = phase21_run("(1) run, reference scale", path, cfg, X,
+                                       {"B1": 2, "B2": 1}, card)[0]
+        # (2) and (4): the at-scale run, one device and over 4 copies of the card
+        Xb = confined_walk(L_BIG, seed=SEED)
+        npy = os.path.join(tmp, f"chrT_{L_BIG}.npy")
+        np.save(npy, if_from_structure(Xb, alpha=0.5, noise_sigma=0.1,
+                                       seed=SEED).astype(np.float32))
+        cfg_big = cfg.replace(emit_violation_reports=False)
+        paths["run 5120"] = phase21_run(
+            "(2) run past the buckets", npy, cfg_big, Xb, {"B3": steps + 1, "B4": steps},
+            card, stored="bfloat16")[0]
+        paths["run 5120 x4"] = phase21_run(
+            "(4) run over the card x4", npy, cfg_big, Xb,
+            {"B6": 4 * (steps + 1), "B4": steps}, card, shards=4, stored="bfloat16")[0]
+
+    # (3) the 45 inputs' bucket, stacked and solved as run_genome does
+    jobs = genome.discover_jobs(genome_dir)
+    buckets = genome.bucket_jobs(jobs, cfg.length_buckets)
+    check(sorted(buckets) == [L_PAD], f"(3): buckets {sorted(buckets)}")
+    batched, masks, matrices, raw = genome._stack_bucket(buckets[L_PAD], L_PAD, cfg)
+    cfg_b = auto_exact(cfg, raw[0])
+    C = len(matrices)
+    est = C * pipeline.solve_peak_bytes(L_PAD, 2 * N_MODELS, True, None, "float32", True)
+    reset_counters()
+    reset_bf16_counters()
+    peak = []
+    with device_peak(peak):
+        result, seconds = synced_seconds(genome.solve_bucket, batched, masks, cfg_b)
+    launches, plain = read_counters()
+    check_launches("(3) genome bucket", launches, plain, {"B1": 2, "B2": 1})
+    check_bf16_launches("(3) genome bucket", launches)
+    check(peak[0] <= est, f"(3): device peak {peak[0]} above {C} x solve_peak_bytes {est}")
+    coords = result.coords.cpu().numpy()
+    names = [j.name for j in buckets[L_PAD]]
+    with concurrent.futures.ThreadPoolExecutor(HOST_THREADS) as pool:
+        gated = list(pool.map(lambda c: best_by_spearman(
+            matrices[c], coords[c, :, :matrices[c].shape[0]], truths[names[c]]), range(C)))
+    worst = max(m["rmsd_over_rg"] for m, _ in gated)
+    mode = fused_steps_plan(L_PAD, 2 * N_MODELS, torch.cuda.get_device_properties(
+        dev).multi_processor_count, C=C)["mode"]
+    print(f"[pair_bf16] (3) genome bucket L={L_PAD} x{C} (genome.solve_bucket): B1 "
+          f"{launches['B1']} ({mode}), B2 {launches['B2']} launches, all on bf16 tiles, "
+          f"every other kernel 0, plain 0; gates met by all {C} (worst rank01 rmsd/Rg "
+          f"{worst:.4f}); solve {seconds} s (synchronised); device peak {peak[0]} bytes "
+          f"against {C} x solve_peak_bytes (float32 tiles, pair_bf16) {est} "
+          f"({peak[0] / est:.3f} of it) on {card}")
+    paths["genome 512"] = launches
+    del batched, result
+
+    # (6) the rows route on bf16-stored tiles: the 256 bucket of the 45 inputs
+    cfg_c = auto_exact_matrix(PipelineConfig(model_count=N_MODELS, length_buckets=(128,),
+                                             shard_quantum=128, anneal=an))
+    jobs_c = genome.bucket_jobs(jobs, (128,), 128)[256]
+    mats_c = [load_if_matrix(j.path) for j in jobs_c]
+    C = len(jobs_c)
+    check(genome._plan_large({256: jobs_c}, 128, cfg_c, dev) == {256: [dev]},
+          "(6): the 256 bucket is not planned onto the one card")
+    est = genome.bucket_peak_bytes(C, 256, cfg_c)
+    reset_counters()
+    reset_bf16_counters()
+    peak = []
+    with device_peak(peak):
+        (result, tiles, _), seconds = synced_seconds(genome.solve_bucket_sharded_from_if,
+                                                     mats_c, 256, cfg_c, devices=[dev])
+    launches, plain = read_counters()
+    check(tiles[0][0].target.dtype == torch.bfloat16, "(6): the solve's tiles are not bf16")
+    check_launches("(6) genome rows", launches, plain, {"B2'": steps + 1, "B4": steps})
+    check_bf16_launches("(6) genome rows", launches)
+    check(peak[0] <= est, f"(6): device peak {peak[0]} above bucket_peak_bytes {est}")
+    del tiles
+    coords = result.coords.cpu().numpy()
+    with concurrent.futures.ThreadPoolExecutor(HOST_THREADS) as pool:
+        gated = list(pool.map(lambda c: best_by_spearman(
+            mats_c[c], coords[c, :, :mats_c[c].shape[0]], truths[jobs_c[c].name]), range(C)))
+    worst = max(m["rmsd_over_rg"] for m, _ in gated)
+    n_rows = launches["B2'"]
+    print(f"[pair_bf16] (6) genome rows bucket 256 x{C} (solve_bucket_sharded_from_if, "
+          f"buckets (128,), quantum 128): B2' {n_rows} launches "
+          f"on bf16-stored tiles, B4 {launches['B4']}, every other kernel 0, plain 0; gates "
+          f"met by all {C} (worst rank01 rmsd/Rg {worst:.4f}); solve {seconds} s "
+          f"(synchronised, the prep included); device peak {peak[0]} bytes against "
+          f"bucket_peak_bytes (bf16 tiles) {est} ({peak[0] / est:.3f} of it) on {card}")
+    paths["genome rows 256"] = launches
+    del result
+
+    # (5) the streamed route at phase 16's length, the same input
+    Xs, Ms = streamed_f32["X"], streamed_f32["M"]
+    L = len(Xs)
+    L_pad = L + STREAM_PAD_BEADS
+    rc = RestraintConfig(kscaling=11.0, alpha=0.5)
+    p = auto_weight_exponent(L)
+    streamed = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with recorded_calls(device_prep, "exact_tiles_from_if_streamed", streamed):
+        tiles, prep_s = synced_seconds(
+            device_prep.exact_tiles_from_if_device, device_prep.pad_f32(Ms, L_pad), L_pad,
+            rc, rc.weighting, p, n_true=L, device=dev, out_dtype="bfloat16")
+    check(len(streamed) == 1 and streamed[0][1].get("out_dtype") == "bfloat16",
+          f"(5): the bf16 prep at L_pad={L_pad} did not stream by itself")
+    check(tiles.target.dtype == tiles.w.dtype == torch.bfloat16, "(5): tiles not bf16")
+    bm = torch.zeros(L_pad, device=dev)
+    bm[:L] = 1.0
+    reset_counters()
+    reset_bf16_counters()
+    # the run's own configuration: exact restraints on the matrix route
+    res, solve_s = synced_seconds(anneal.solve_ensemble_impl, tiles,
+                                  auto_exact_matrix(cfg).anneal, N_MODELS, bm,
+                                  generator=torch.Generator().manual_seed(cfg.seed))
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches, plain = read_counters()
+    check_launches("(5) streamed route", launches, plain, {"B3": steps + 1, "B4": steps})
+    check_bf16_launches("(5) streamed route", launches)
+    est = pipeline.solve_peak_bytes(L_pad, 2 * N_MODELS, True, None, "bfloat16", True)
+    check(peak <= est, f"(5): device peak {peak} above solve_peak_bytes {est}")
+    coords = res.coords.cpu().numpy()[:, :L]
+    energies = res.energies["noe"].cpu().numpy()
+    del tiles, res
+    check(np.isfinite(coords).all() and np.isfinite(energies).all(), "(5): non-finite")
+    met = reconstruction_metrics(coords[int(np.argmin(energies))], Xs)
+    check(not gate_misses(met), f"(5): ground-truth gates missed: {met}")
+    print(f"[pair_bf16] (5) streamed route L={L}->{L_pad}: the prep streamed by itself into "
+          f"bf16 accumulators {prep_s:.3f} s; solve_ensemble_impl: B3 {launches['B3']}, B4 "
+          f"{launches['B4']} launches, B3 all on bf16 tiles, plain 0; lowest-NOE model "
+          f"rmsd/Rg {met['rmsd_over_rg']:.4f}, spearman_d {met['spearman_d']:.5f}, "
+          f"dRMSD_rel {met['drmsd_rel']:.4f}; solve {solve_s} s (synchronised); device peak "
+          f"(prep and solve) {peak} bytes against solve_peak_bytes (bf16 tiles) {est} "
+          f"({peak / est:.3f} of it), phase 16's float32 peak {streamed_f32['peak']} "
+          f"({peak / streamed_f32['peak']:.3f} of it) on {card}")
+    paths["streamed"] = launches
+    return paths
+
+
+def phase_pair_bf16(dev, X, M, genome_dir, truths, streamed_f32, card):
+    """Phase 21: AnnealConfig.pair_bf16 on the card — (a) B1, B2, B2', B3
+    and B6 on bf16 tiles (phase21_kernels), (b) the paths under it
+    (phase21_paths). Returns ({row: kernel numbers}, {path: launches})."""
+    measured = phase21_kernels(dev, genome_dir, truths, card)
+    return measured, phase21_paths(X, M, genome_dir, truths, streamed_f32, card)
+
+
 # FP32 operations per pair evaluation, counted from each kernel's inner loop
 # (an FMA counts 2, rsqrt 1; the row-sharded kernels run the same loops):
 # B1 32 per ordered pair (fused_steps.cu) plus ~100 per bead for the update
@@ -4079,7 +4599,7 @@ PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12   # H100 SXM data sheet, at 700 W
 B1_STEPS_A_LAUNCH = 1380     # the main path: 2,760 steps in 2 launches
 
 
-def work(key, B, L, Lb=None, C=1):
+def work(key, B, L, Lb=None, C=1, tb=4):
     """(FP32 operations, bytes each input read once and each output written
     once) of one call at these shapes, C chromosomes of B structures each
     (B1 to B6; a tile set or strip, a bead mask and for B1 and B4 a seed a
@@ -4088,28 +4608,30 @@ def work(key, B, L, Lb=None, C=1):
     energies every step, the three tiles, mu, nu (in and out), the bead
     masks and the seeds once a launch; for B4 x, g, mu, nu, the bead masks,
     the seeds, the pair energies, the table's row and the counter in, x',
-    mu', nu', the history row and the counter out."""
+    mu', nu', the history row and the counter out. tb: bytes a restraint
+    tile element (2 for the bf16 tiles of B1, B2, B2', B3 and B6)."""
     f, st = 4, 3 * C * B * L    # float32 bytes; one (C x B, 3, L) state array
     Lb = L if Lb is None else Lb
     return {
         "B1": (32 * C * B * L * L + 100 * C * B * L,
                f * (2 * st + 6 + C * B)
-               + f * (C * (3 * L * L + L + 1) + 4 * st) // B1_STEPS_A_LAUNCH),
-        "B2": (35 * C * B * L * L, f * (C * (2 * L * L + L) + 2 * st + C * B)),
-        "B3": (36 * C * B * L * L // 2, f * (C * (2 * L * L + L) + 2 * st + C * B)),
+               + (C * (tb * 3 * L * L + f * (L + 1)) + f * 4 * st) // B1_STEPS_A_LAUNCH),
+        "B2": (35 * C * B * L * L, C * (tb * 2 * L * L + f * L) + f * (2 * st + C * B)),
+        "B3": (36 * C * B * L * L // 2, C * (tb * 2 * L * L + f * L) + f * (2 * st + C * B)),
         "B4": (100 * C * B * L, f * (7 * st + 2 * C * B + C * (L + 1) + 8)),
         "B5": (44 * C * B * L * L, f * (C * (3 * L * L + L) + 2 * st + C * B)),
-        "B6": (36 * C * B * Lb * L // 2, f * (C * (2 * Lb * L + L) + 2 * st + C * B)),
+        "B6": (36 * C * B * Lb * L // 2,
+               C * (tb * 2 * Lb * L + f * L) + f * (2 * st + C * B)),
         "B5'": (44 * C * B * Lb * L,
                 f * (C * (3 * Lb * L + L) + st + 3 * C * B * Lb + C * B)),
         "B2'": (35 * C * B * Lb * L,
-                f * (C * (2 * Lb * L + L) + st + 3 * C * B * Lb + C * B)),
+                C * (tb * 2 * Lb * L + f * L) + f * (st + 3 * C * B * Lb + C * B)),
     }[key]
 
 
-def bound(key, B, L, Lb=None, C=1):
+def bound(key, B, L, Lb=None, C=1, tb=4):
     """(least ms the card could take, "operations" or "bytes")."""
-    ops, nbytes = work(key, B, L, Lb, C)
+    ops, nbytes = work(key, B, L, Lb, C, tb)
     t_ops, t_bytes = 1e3 * ops / PEAK_FP32, 1e3 * nbytes / PEAK_BYTES
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -4191,8 +4713,8 @@ def main() -> int:
         launches_b8 = timed_phase(f"solve B L={L_8K_PAD}", phase_solve_path, "B8", inputs,
                                   "landmark_init", card)
         timed_phase("streamed prep vs one-shot", phase_streamed_vs_one_shot, dev)
-        launches_st, measured_st, L_st = timed_phase("streamed route", phase_streamed, dev,
-                                                     card)
+        launches_st, measured_st, L_st, streamed_f32 = timed_phase(
+            "streamed route", phase_streamed, dev, card)
         measured.update(measured_st)
         launches_17, errs_17 = timed_phase("unfused routes (phase 17)", phase_unfused, dev,
                                            X, M, keep_main, inputs, card)
@@ -4204,6 +4726,10 @@ def main() -> int:
             "genome rows (phase 20)", phase_genome_rows, genome_100kb, truths_100kb,
             genome_dir, truths, card)
         shutil.rmtree(genome_100kb)
+        measured_21, launches_21 = timed_phase(
+            "pair_bf16 (phase 21)", phase_pair_bf16, dev, X, M, genome_dir, truths,
+            streamed_f32, card)
+        del streamed_f32
     B = 2 * N_MODELS
     kernels = []
     for key, kname, src, replaces, path_launches, shape in (
@@ -4326,6 +4852,32 @@ def main() -> int:
                         "library_ms": None})
         if mkey == "B2'@512":
             kernels[-1]["launches_phase_20d"] = launches_20["d512"][key]
+    # the bf16 entry points of phase 21, their launches those of its paths
+    # (all on bf16 tiles); ms_f32 / device_ms_f32 the float32 launch's in
+    # the same run, bound_ms with the tiles at 2 bytes an element
+    for key, mkey, kname, src, line, path in (
+        ("B1", "B1@20", "fused_steps_bf16", "fused_steps.cu", "330", "run 512"),
+        ("B1", "B1 genome@20", "fused_steps_genome_bf16", "fused_steps.cu", "330",
+         "genome 512"),
+        ("B2", "B2", "exact_pair_bf16", "exact_pair.cu", "195", "run 512"),
+        ("B2'", "B2' genome@256", "exact_row_block_bf16", "exact_pair.cu", "195",
+         "genome rows 256"),
+        ("B3", "B3", "exact_tri_bf16", "exact_tri.cu", "899", "run 5120"),
+        ("B6", "B6", "exact_tri_strip_bf16", "exact_tri_strip.cu", "1438", "run 5120 x4"),
+    ):
+        kernels.append({"name": kname, "route": "cuda",
+                        "source": f"chromosome3d_tpu_torch/csrc/{src}",
+                        "replaces": f"chromosome3d_tpu/ops/pallas_energy.py:{line}",
+                        "launches": launches_21[path][key], **measured_21[mkey],
+                        "library_ms": None, "tiles": "bfloat16",
+                        "launches_phase_21": {p: n[key] for p, n in launches_21.items()
+                                              if n[key]}})
+        if key == "B1":   # per step of a 256-step launch; the cool phase's B = 10 too
+            b10 = measured_21[mkey.replace("@20", "@10")]
+            kernels[-1].update({f"{k}_b10": b10[k] for k in ("ms", "device_ms", "ms_f32",
+                                                             "device_ms_f32", "bound_ms")})
+        if key == "B2'":  # the 2 row blocks of the L = 512 tiles (phase 3's shape)
+            kernels[-1]["rows_256_512_of_512"] = measured_21["B2'@512"]
     print(card)   # nvidia-smi --query-gpu=name,power.limit, again beside the numbers
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,9 +8,10 @@ The reference scatters its knobs across Getopt flags (chromosome3D.pl:28-34),
 hard-coded Perl globals (chromosome3D.pl:64-74), and ~150 `{===>}` constants baked
 into the generated CNS scripts (chromosome3D.pl:882-2528). Here every knob lives
 in one of three frozen dataclasses. Options that select JAX-only routes
-(use_pallas, scan_unroll, gram_d2, pair_bf16) are kept so the two packages
-share one description; the port ignores use_pallas and scan_unroll and
-refuses the others (solver.anneal).
+(use_pallas, scan_unroll, gram_d2) are kept so the two packages share one
+description; the port ignores use_pallas and scan_unroll and refuses
+gram_d2 (solver.anneal). pair_bf16 runs: the exact kernels read bf16
+tiles (solver.anneal, ops.device_prep).
 """
 
 from __future__ import annotations
@@ -164,7 +165,8 @@ class AnnealConfig:
     # stream (the (L, L) tiles are re-fetched every step) and the live
     # restraint memory; the pair math still runs f32 (tiles convert on
     # read). Costs ~0.4% relative error on the restraint targets — gated by
-    # the 45/45 VALIDATION quality bar on the real chip (DESIGN.md).
+    # the 45/45 VALIDATION quality bar on the real chip (DESIGN.md). In the
+    # port: kernels B1, B2/B2', B3 and B6 read bf16 tiles, widened on load.
     pair_bf16: bool = False
     # lax.scan unroll factor for the annealing loop: >1 amortizes the
     # per-iteration loop/dispatch overhead at the cost of a proportionally

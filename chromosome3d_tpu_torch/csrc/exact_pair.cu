@@ -51,9 +51,17 @@
 // the pick is one launch of 0.623 ms against a bound of 0.123 (45 lone
 // launches: 45 x 0.018; NVIDIA H100 80GB HBM3, 700.00 W, chip_smoke.py).
 // No float atomics: equal inputs give equal bits.
+//
+// The tiles t and w are float32 or bfloat16 (AnnealConfig.pair_bf16: the
+// JAX package casts them to bf16 before `_kernel_exact`, which converts on
+// read, pallas_energy.py:238-241, 860-866); the body is a template on their
+// type and widens each element on load (tile_load.cuh), so the bf16 entry
+// point halves the tile bytes and gives the bits of the float32 one on the
+// widened tiles. Everything else stays float32.
 
 #include <cuda_runtime.h>
 
+#include "tile_load.cuh"
 #include "warp_fold.cuh"
 
 namespace {
@@ -91,10 +99,11 @@ __device__ __forceinline__ void last_block_row_sums(const float* __restrict__ p,
   }
 }
 
+template <typename TT>
 __global__ void __launch_bounds__(kThreads)
 exact_pair_kernel(const float* __restrict__ xT,   // (B, 3, L)
-                  const float* __restrict__ t,    // (C, Lb, L) targets, rows row0..
-                  const float* __restrict__ w,    // (C, Lb, L) folded weights
+                  const TT* __restrict__ t,       // (C, Lb, L) targets, rows row0..
+                  const TT* __restrict__ w,       // (C, Lb, L) folded weights
                   const float* __restrict__ bm,   // (C, L) bead masks
                   float* __restrict__ gT,         // (B, 3, Lb) out
                   float* __restrict__ e,          // (B,) out
@@ -119,13 +128,13 @@ exact_pair_kernel(const float* __restrict__ xT,   // (B, 3, L)
   if (row_in) {
     const float ax = __ldg(xb + i), ay = __ldg(xb + L + i), az = __ldg(xb + 2 * L + i);
     const float bmi = __ldg(bm + i);
-    const float* trow = t + (size_t)il * L;
-    const float* wrow = w + (size_t)il * L;
+    const TT* trow = t + (size_t)il * L;
+    const TT* wrow = w + (size_t)il * L;
     for (int j = lane; j < L; j += 32) {
       // every product and sum is spelled out (fmaf or a never-fused
       // intrinsic), so a row's bits do not depend on the rows beside it
       const float pv = __fmul_rn(bmi, __ldg(bm + j));
-      const float pw = __fmul_rn(two_noe, __fmul_rn(__ldg(wrow + j), pv));  // 2 noe w pv
+      const float pw = __fmul_rn(two_noe, __fmul_rn(c3d::tile_ldg(wrow + j), pv));  // 2 noe w pv
       const float pvn = (abs(i - j) >= 2) ? __fmul_rn(two_vdw, pv) : 0.f;   // 2 vdw nb
       const float dx = __fsub_rn(ax, __ldg(xb + j));
       const float dy = __fsub_rn(ay, __ldg(xb + L + j));
@@ -133,7 +142,7 @@ exact_pair_kernel(const float* __restrict__ xT,   // (B, 3, L)
       const float s = fmaf(dz, dz, fmaf(dy, dy, fmaf(dx, dx, kEps)));
       const float rinv = c3d::rsqrt_fast(s);
       const float d = __fmul_rn(s, rinv);
-      const float dev = __fsub_rn(d, __ldg(trow + j));
+      const float dev = __fsub_rn(d, c3d::tile_ldg(trow + j));
       const float ov = fmaxf(__fsub_rn(r0, d), 0.f);
       const float qn = __fmul_rn(pw, dev);    // 2 noe w pv dev
       const float qv = __fmul_rn(pvn, ov);    // 2 vdw nb ov
@@ -170,24 +179,43 @@ exact_pair_kernel(const float* __restrict__ xT,   // (B, 3, L)
   if (tid == 0) *ticket = 0;
 }
 
+template <typename TT>
+int launch_exact_pair(const float* xT, const TT* t, const TT* w, const float* bm,
+                      float* gT, float* e, float* e_part, int* ticket, int B, int L,
+                      int row0, int Lb, int n_per, float noe, float vdw, float vdw_radius,
+                      void* stream) {
+  if (row0 < 0 || Lb <= 0 || row0 + Lb > L || B <= 0 || n_per < 1 || B % n_per != 0)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((Lb + kWarps - 1) / kWarps, B);
+  exact_pair_kernel<TT><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      xT, t, w, bm, gT, e, e_part, ticket, B, L, row0, Lb, n_per, 2.f * noe,
+      2.f * vdw, vdw_radius);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // B2 is row0 = 0, Lb = L; B2' a shard's rows [row0, row0 + Lb). B = C x
 // n_per structures, chromosome-major, over C tile sets (C, Lb, L) and bead
 // masks (C, L); C = 1 (n_per = B) is a batch sharing one restraint set. The
 // grid is (ceil(Lb / 8), B); e_part: (B, ceil(Lb / 8)) scratch; ticket: one
-// int that is 0 (each launch leaves it 0 again).
+// int that is 0 (each launch leaves it 0 again). The _bf16 entry takes
+// bfloat16 t and w, everything else as the float32 one.
 extern "C" int c3d_exact_pair(const float* xT, const float* t, const float* w,
                               const float* bm, float* gT, float* e, float* e_part,
                               int* ticket, int B, int L, int row0, int Lb, int n_per,
                               float noe, float vdw, float vdw_radius, void* stream) {
-  if (row0 < 0 || Lb <= 0 || row0 + Lb > L || B <= 0 || n_per < 1 || B % n_per != 0)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((Lb + kWarps - 1) / kWarps, B);
-  exact_pair_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      xT, t, w, bm, gT, e, e_part, ticket, B, L, row0, Lb, n_per, 2.f * noe,
-      2.f * vdw, vdw_radius);
-  return (int)cudaGetLastError();
+  return launch_exact_pair(xT, t, w, bm, gT, e, e_part, ticket, B, L, row0, Lb, n_per,
+                           noe, vdw, vdw_radius, stream);
+}
+
+extern "C" int c3d_exact_pair_bf16(const float* xT, const __nv_bfloat16* t,
+                                   const __nv_bfloat16* w, const float* bm, float* gT,
+                                   float* e, float* e_part, int* ticket, int B, int L,
+                                   int row0, int Lb, int n_per, float noe, float vdw,
+                                   float vdw_radius, void* stream) {
+  return launch_exact_pair(xT, t, w, bm, gT, e, e_part, ticket, B, L, row0, Lb, n_per,
+                           noe, vdw, vdw_radius, stream);
 }
 
 extern "C" const char* c3d_error_string(int err) {

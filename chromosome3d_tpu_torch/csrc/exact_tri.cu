@@ -29,6 +29,10 @@
 // mask and write its partials at c's offsets (tri_pair.cuh), and the reduce
 // kernel sums each (chromosome, structure) over the same slots in the same
 // order as a launch of its own, so chromosome c's bits are that launch's.
+//
+// The _bf16 entry point takes bfloat16 t and w (AnnealConfig.pair_bf16),
+// widened as the register patch is filled (tri_pair.cuh): half the tile
+// bytes, the float32 entry's bits on the widened tiles.
 
 #include <cuda_runtime.h>
 
@@ -63,28 +67,47 @@ tri_reduce_kernel(const float* __restrict__ part,    // (C B, 2S, 3, Lp)
   c3d::block_sum(e_part + (size_t)b * nblk, nblk, 1.0f, e + b);
 }
 
-}  // namespace
-
-// xT: (C B, 3, L), chromosome-major; t, w: (C, L, L); bm: (C, L). part:
-// (C B, 2 S, 3, T tile) scratch and e_part: (C B, T S) scratch, both
-// allocated by the caller; T = ceil(L / tile), S = T / 2 + 1; each
-// chromosome's structures go through a block bslice at a time. Chromosome
-// c's outputs are bitwise those of a launch with C = 1 on its own inputs.
-extern "C" int c3d_exact_tri(const float* xT, const float* t, const float* w,
-                             const float* bm, float* part, float* e_part,
-                             float* gT, float* e, int C, int B, int L, int T,
-                             int tile, int bslice, float noe, float vdw,
-                             float vdw_radius, void* stream) {
+template <typename TT>
+int launch_exact_tri(const float* xT, const TT* t, const TT* w, const float* bm,
+                     float* part, float* e_part, float* gT, float* e, int C, int B, int L,
+                     int T, int tile, int bslice, float noe, float vdw, float vdw_radius,
+                     void* stream) {
   if (tile != kTM || T != (L + kTM - 1) / kTM || bslice <= 0 || B <= 0 || C <= 0 ||
       C > 65535 || (long long)C * B > 65535)
     return (int)cudaErrorInvalidValue;
   const int S = T / 2 + 1;
   const TriParams q{B, L, T, T, S, 0, T * kTM, 0, bslice, noe, vdw, vdw_radius, C, L};
   cudaStream_t st = (cudaStream_t)stream;
-  const cudaError_t err = c3d_tri::launch_pairs<kTM>(xT, t, w, bm, part, e_part, q, st);
+  const cudaError_t err = c3d_tri::launch_pairs<kTM, TT>(xT, t, w, bm, part, e_part, q, st);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((3 * L + kThreads - 1) / kThreads, C * B);
   tri_reduce_kernel<<<grid, kThreads, 0, st>>>(part, e_part, gT, e, L, T * kTM,
                                                2 * S, T * S);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// xT: (C B, 3, L), chromosome-major; t, w: (C, L, L), float32 (or bfloat16
+// for the _bf16 entry); bm: (C, L). part: (C B, 2 S, 3, T tile) scratch and
+// e_part: (C B, T S) scratch, both allocated by the caller; T = ceil(L /
+// tile), S = T / 2 + 1; each chromosome's structures go through a block
+// bslice at a time. Chromosome c's outputs are bitwise those of a launch
+// with C = 1 on its own inputs.
+extern "C" int c3d_exact_tri(const float* xT, const float* t, const float* w,
+                             const float* bm, float* part, float* e_part,
+                             float* gT, float* e, int C, int B, int L, int T,
+                             int tile, int bslice, float noe, float vdw,
+                             float vdw_radius, void* stream) {
+  return launch_exact_tri(xT, t, w, bm, part, e_part, gT, e, C, B, L, T, tile, bslice,
+                          noe, vdw, vdw_radius, stream);
+}
+
+extern "C" int c3d_exact_tri_bf16(const float* xT, const __nv_bfloat16* t,
+                                  const __nv_bfloat16* w, const float* bm, float* part,
+                                  float* e_part, float* gT, float* e, int C, int B, int L,
+                                  int T, int tile, int bslice, float noe, float vdw,
+                                  float vdw_radius, void* stream) {
+  return launch_exact_tri(xT, t, w, bm, part, e_part, gT, e, C, B, L, T, tile, bslice,
+                          noe, vdw, vdw_radius, stream);
 }

@@ -86,20 +86,11 @@ strip_assemble_kernel(const float* __restrict__ part,    // (C n, 2S, 3, Lb)
   c3d::block_sum(e_part + (size_t)b * nblk, nblk, 1.0f, e + b);
 }
 
-}  // namespace
-
-// xT: (C n, 3, L), chromosome-major; t, w: each chromosome's strip of
-// (Lb, L) rows, global rows row0 .. row0 + Lb - 1, as (C, Lb, L); bm: (C,
-// L); tile divides Lb and row0 and L; part: (C n, 2 S, 3, Lb) and e_part:
-// (C n, Tl S) scratch allocated by the caller, Tl = Lb / tile, Tg = L /
-// tile, S = Tg / 2 + 1; each chromosome's n structures go through a block
-// bslice at a time. One launch covers every chromosome; chromosome c's
-// outputs are bitwise those of a launch with C = 1 on its own inputs.
-extern "C" int c3d_exact_tri_strip(const float* xT, const float* t, const float* w,
-                                   const float* bm, float* part, float* e_part,
-                                   float* gT, float* e, int C, int n, int L, int row0,
-                                   int Lb, int tile, int bslice, float noe,
-                                   float vdw, float vdw_radius, void* stream) {
+template <typename TT>
+int launch_exact_tri_strip(const float* xT, const TT* t, const TT* w, const float* bm,
+                           float* part, float* e_part, float* gT, float* e, int C, int n,
+                           int L, int row0, int Lb, int tile, int bslice, float noe,
+                           float vdw, float vdw_radius, void* stream) {
   if (tile <= 0 || Lb <= 0 || Lb % tile || L % tile || row0 % tile || row0 < 0 ||
       row0 + Lb > L || bslice <= 0 || n <= 0 || C <= 0 || C > 65535)
     return (int)cudaErrorInvalidValue;
@@ -109,10 +100,10 @@ extern "C" int c3d_exact_tri_strip(const float* xT, const float* t, const float*
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   switch (tile) {
-    case 64: err = c3d_tri::launch_pairs<64>(xT, t, w, bm, part, e_part, q, st); break;
-    case 32: err = c3d_tri::launch_pairs<32>(xT, t, w, bm, part, e_part, q, st); break;
-    case 16: err = c3d_tri::launch_pairs<16>(xT, t, w, bm, part, e_part, q, st); break;
-    case 8: err = c3d_tri::launch_pairs<8>(xT, t, w, bm, part, e_part, q, st); break;
+    case 64: err = c3d_tri::launch_pairs<64, TT>(xT, t, w, bm, part, e_part, q, st); break;
+    case 32: err = c3d_tri::launch_pairs<32, TT>(xT, t, w, bm, part, e_part, q, st); break;
+    case 16: err = c3d_tri::launch_pairs<16, TT>(xT, t, w, bm, part, e_part, q, st); break;
+    case 8: err = c3d_tri::launch_pairs<8, TT>(xT, t, w, bm, part, e_part, q, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;
@@ -120,4 +111,35 @@ extern "C" int c3d_exact_tri_strip(const float* xT, const float* t, const float*
   strip_assemble_kernel<<<grid, kThreads, 0, st>>>(part, e_part, gT, e, L, Lb, tile,
                                                    Tl, Tg, S, row0 / tile, Tl * S);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// xT: (C n, 3, L), chromosome-major; t, w: each chromosome's strip of
+// (Lb, L) rows, global rows row0 .. row0 + Lb - 1, as (C, Lb, L); bm: (C,
+// L); tile divides Lb and row0 and L; part: (C n, 2 S, 3, Lb) and e_part:
+// (C n, Tl S) scratch allocated by the caller, Tl = Lb / tile, Tg = L /
+// tile, S = Tg / 2 + 1; each chromosome's n structures go through a block
+// bslice at a time. One launch covers every chromosome; chromosome c's
+// outputs are bitwise those of a launch with C = 1 on its own inputs. The
+// _bf16 entry takes bfloat16 strips t and w (AnnealConfig.pair_bf16),
+// widened on load (tri_pair.cuh): the float32 entry's bits on the widened
+// strips.
+extern "C" int c3d_exact_tri_strip(const float* xT, const float* t, const float* w,
+                                   const float* bm, float* part, float* e_part,
+                                   float* gT, float* e, int C, int n, int L, int row0,
+                                   int Lb, int tile, int bslice, float noe,
+                                   float vdw, float vdw_radius, void* stream) {
+  return launch_exact_tri_strip(xT, t, w, bm, part, e_part, gT, e, C, n, L, row0, Lb,
+                                tile, bslice, noe, vdw, vdw_radius, stream);
+}
+
+extern "C" int c3d_exact_tri_strip_bf16(const float* xT, const __nv_bfloat16* t,
+                                        const __nv_bfloat16* w, const float* bm,
+                                        float* part, float* e_part, float* gT, float* e,
+                                        int C, int n, int L, int row0, int Lb, int tile,
+                                        int bslice, float noe, float vdw,
+                                        float vdw_radius, void* stream) {
+  return launch_exact_tri_strip(xT, t, w, bm, part, e_part, gT, e, C, n, L, row0, Lb,
+                                tile, bslice, noe, vdw, vdw_radius, stream);
 }

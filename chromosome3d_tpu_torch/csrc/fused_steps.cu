@@ -95,10 +95,20 @@
 //
 // The per-bead half (bond, clip, Adam, noise, move) and the noise's bit
 // contract live in step_common.cuh, shared with kernel B4.
+//
+// The three tiles are float32 or bfloat16 (AnnealConfig.pair_bf16: the JAX
+// solver casts fused_step_tiles to bf16 after the fold, and
+// `_kernel_fused_step` converts on read, pallas_energy.py:436-440). The
+// kernel is a template on their type and widens each element as it loads
+// the tile registers (tile_load.cuh): once a launch in the resident mode,
+// every chunk in the streamed mode, where bf16 halves the tiles re-read a
+// step (the genome bucket's 45 x 3 MiB). The plan does not look at the type,
+// so a bf16 launch gives the float32 launch's bits on the widened tiles.
 
 #include <cooperative_groups.h>
 
 #include "step_common.cuh"
+#include "tile_load.cuh"
 #include "warp_fold.cuh"
 
 namespace cg = cooperative_groups;
@@ -115,9 +125,9 @@ struct StepsArgs {
   float* xB;
   float* mu;            // (B, 3, L) in and out
   float* nu;
-  const float* t;       // (C, L, L) targets, one tile set a chromosome
-  const float* w;       // (C, L, L) 2 noe w pv
-  const float* nb;      // (C, L, L) vdw predicate
+  const void* t;        // (C, L, L) targets, one tile set a chromosome
+  const void* w;        // (C, L, L) 2 noe w pv
+  const void* nb;       // (C, L, L) vdw predicate; all three of the tile type
   const float* bm;      // (C, L) bead masks
   const int* seeds;     // (C,) noise seeds, one a chromosome
   const float* table;   // row of step k0; kTableCols floats a row
@@ -207,13 +217,16 @@ __device__ __forceinline__ float pick3(int c, float x, float y, float z) {
   return c == 0 ? x : (c == 1 ? y : z);
 }
 
-// chromosome c's rows i0 .. i0 + RPW - 1 at columns c0 + lane + 32 m; 0
-// past the edge
-template <int CPL, int RPW>
+// chromosome c's rows i0 .. i0 + RPW - 1 at columns c0 + lane + 32 m,
+// widened from the tile type TT; 0 past the edge
+template <int CPL, int RPW, typename TT>
 __device__ __forceinline__ void load_tiles(const StepsArgs& a, int c, int i0, int c0,
                                            int lane, float (&t)[RPW][CPL],
                                            float (&w)[RPW][CPL], float (&nb)[RPW][CPL]) {
   const size_t base = (size_t)c * a.L * a.L;
+  const TT* at = static_cast<const TT*>(a.t);
+  const TT* aw = static_cast<const TT*>(a.w);
+  const TT* anb = static_cast<const TT*>(a.nb);
 #pragma unroll
   for (int rr = 0; rr < RPW; ++rr) {
 #pragma unroll
@@ -221,14 +234,14 @@ __device__ __forceinline__ void load_tiles(const StepsArgs& a, int c, int i0, in
       const int i = i0 + rr, j = c0 + lane + 32 * m;
       const bool ok = i < a.L && j < a.L;
       const size_t idx = base + (ok ? (size_t)i * a.L + j : 0);
-      t[rr][m] = ok ? __ldg(a.t + idx) : 0.f;
-      w[rr][m] = ok ? __ldg(a.w + idx) : 0.f;
-      nb[rr][m] = ok ? __ldg(a.nb + idx) : 0.f;
+      t[rr][m] = ok ? c3d::tile_ldg(at + idx) : 0.f;
+      w[rr][m] = ok ? c3d::tile_ldg(aw + idx) : 0.f;
+      nb[rr][m] = ok ? c3d::tile_ldg(anb + idx) : 0.f;
     }
   }
 }
 
-template <int CPL, int RPW, bool RESIDENT>
+template <int CPL, int RPW, bool RESIDENT, typename TT>
 __global__ void __launch_bounds__(kThreads, 1) fused_steps_kernel(const StepsArgs a) {
   extern __shared__ float4 smem[];
   constexpr int R = kWarps * RPW, CHUNK = 32 * CPL, NV = 4 * RPW;
@@ -256,7 +269,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_steps_kernel(const StepsArg
 
   float t[RPW][CPL], w[RPW][CPL], nb[RPW][CPL];
   if (RESIDENT) {
-    load_tiles<CPL, RPW>(a, g0.c, rgb * R + warp * RPW, 0, lane, t, w, nb);
+    load_tiles<CPL, RPW, TT>(a, g0.c, rgb * R + warp * RPW, 0, lane, t, w, nb);
     for (int q = tid; q < R * nsb * 3; q += kThreads) {
       const int c = q % 3, s = (q / 3) % nsb, i = rgb * R + q / (3 * nsb);
       const size_t g = ((size_t)(g0.b0 + s) * 3 + c) * L + i;
@@ -314,7 +327,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_steps_kernel(const StepsArg
 
           // ---- pair sweep: lanes stride the columns, tiles in registers ----
           for (int c0 = 0; c0 < L; c0 += CHUNK) {
-            if (!RESIDENT) load_tiles<CPL, RPW>(a, grp.c, i0, c0, lane, t, w, nb);
+            if (!RESIDENT) load_tiles<CPL, RPW, TT>(a, grp.c, i0, c0, lane, t, w, nb);
             // structure s's row sums, this lane's columns
             auto pairs = [&](int s, float (&v)[NV]) {
               const float4* xb = xs + (size_t)s * a.lx;
@@ -477,9 +490,9 @@ __global__ void __launch_bounds__(kThreads, 1) fused_steps_kernel(const StepsArg
   }
 }
 
-template <int CPL, int RPW, bool RESIDENT>
+template <int CPL, int RPW, bool RESIDENT, typename TT>
 int occupancy(size_t smem, int* slots) {
-  auto kern = fused_steps_kernel<CPL, RPW, RESIDENT>;
+  auto kern = fused_steps_kernel<CPL, RPW, RESIDENT, TT>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -493,7 +506,7 @@ int occupancy(size_t smem, int* slots) {
   return 0;
 }
 
-template <int CPL, int RPW, bool RESIDENT>
+template <int CPL, int RPW, bool RESIDENT, typename TT>
 int launch(const StepsArgs& a, size_t smem, cudaStream_t stream) {
   const int blocks = a.nsgb * a.nrgb;
   if (a.lx % (32 * CPL) != 0 || a.lx < a.L || a.n_per < 1 || a.B % a.n_per != 0 ||
@@ -502,13 +515,13 @@ int launch(const StepsArgs& a, size_t smem, cudaStream_t stream) {
       (RESIDENT && (a.nrgb != a.nrg || a.nsgb != a.nsg || a.L > 32 * CPL)))
     return (int)cudaErrorInvalidValue;
   int slots = 0;
-  const int rc = occupancy<CPL, RPW, RESIDENT>(smem, &slots);
+  const int rc = occupancy<CPL, RPW, RESIDENT, TT>(smem, &slots);
   if (rc != 0) return rc;
   // every block must be resident at once: the steps meet at a grid barrier
   if (blocks > slots) return (int)cudaErrorCooperativeLaunchTooLarge;
   StepsArgs args = a;
   void* params[] = {&args};
-  auto kern = fused_steps_kernel<CPL, RPW, RESIDENT>;
+  auto kern = fused_steps_kernel<CPL, RPW, RESIDENT, TT>;
   return (int)cudaLaunchCooperativeKernel((void*)kern, dim3(blocks), dim3(kThreads),
                                           params, smem, stream);
 }
@@ -517,11 +530,32 @@ int launch(const StepsArgs& a, size_t smem, cudaStream_t stream) {
 #define C3D_STEPS_VARIANTS(X) \
   X(16, 1, true) X(16, 2, true) X(24, 1, true) X(24, 2, true) X(8, 2, false)
 
+// one launch of the variant the plan names, on tiles of type TT
+template <typename TT>
+int steps_entry(float* xA, float* xB, float* mu, float* nu, const TT* t, const TT* w,
+                const TT* nb, const float* bm, const int* seeds, const float* table,
+                float* part, float* hist, int B, int L, int k0, int k1, int n_per, int cpl,
+                int rpw, int resident, int nsgc, int nsgb, int nrgb, int nrg, int sg,
+                int sp, int lx, int smem_bytes, float b1, float b2, float eps_adam,
+                float bond_w, float bond_len, float clip, void* stream) {
+  if (n_per < 1 || B % n_per != 0) return (int)cudaErrorInvalidValue;
+  const StepsArgs a{xA, xB, mu, nu, t, w, nb, bm, seeds, table, part, hist,
+                    B, L, k0, k1, n_per, nsgc, (B / n_per) * nsgc, nsgb, nrgb, nrg,
+                    sg, sp, lx, b1, b2, eps_adam, bond_w, bond_len, clip};
+#define X(CPL, RPW, RES)                                     \
+  if (cpl == CPL && rpw == RPW && (resident != 0) == RES)    \
+    return launch<CPL, RPW, RES, TT>(a, (size_t)smem_bytes, (cudaStream_t)stream);
+  C3D_STEPS_VARIANTS(X)
+#undef X
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // B = C x n_per structures, chromosome-major; t, w, nb (C, L, L), bm (C, L),
 // seeds (C,); C = 1 is a batch sharing one restraint set. part: (k1 - k0, B, nrg x rpw) scratch;
-// hist: (k1 - k0, B) out.
+// hist: (k1 - k0, B) out. The _bf16 entry takes bfloat16 t, w and nb,
+// everything else as the float32 one.
 extern "C" int c3d_fused_steps(float* xA, float* xB, float* mu, float* nu, const float* t,
                                const float* w, const float* nb, const float* bm,
                                const int* seeds, const float* table, float* part,
@@ -530,16 +564,24 @@ extern "C" int c3d_fused_steps(float* xA, float* xB, float* mu, float* nu, const
                                int nrgb, int nrg, int sg, int sp, int lx,
                                int smem_bytes, float b1, float b2, float eps_adam,
                                float bond_w, float bond_len, float clip, void* stream) {
-  if (n_per < 1 || B % n_per != 0) return (int)cudaErrorInvalidValue;
-  const StepsArgs a{xA, xB, mu, nu, t, w, nb, bm, seeds, table, part, hist,
-                    B, L, k0, k1, n_per, nsgc, (B / n_per) * nsgc, nsgb, nrgb, nrg,
-                    sg, sp, lx, b1, b2, eps_adam, bond_w, bond_len, clip};
-#define X(CPL, RPW, RES)                                     \
-  if (cpl == CPL && rpw == RPW && (resident != 0) == RES)    \
-    return launch<CPL, RPW, RES>(a, (size_t)smem_bytes, (cudaStream_t)stream);
-  C3D_STEPS_VARIANTS(X)
-#undef X
-  return (int)cudaErrorInvalidValue;
+  return steps_entry(xA, xB, mu, nu, t, w, nb, bm, seeds, table, part, hist, B, L, k0, k1,
+                     n_per, cpl, rpw, resident, nsgc, nsgb, nrgb, nrg, sg, sp, lx,
+                     smem_bytes, b1, b2, eps_adam, bond_w, bond_len, clip, stream);
+}
+
+extern "C" int c3d_fused_steps_bf16(float* xA, float* xB, float* mu, float* nu,
+                                    const __nv_bfloat16* t, const __nv_bfloat16* w,
+                                    const __nv_bfloat16* nb, const float* bm,
+                                    const int* seeds, const float* table, float* part,
+                                    float* hist, int B, int L, int k0, int k1, int n_per,
+                                    int cpl, int rpw, int resident, int nsgc, int nsgb,
+                                    int nrgb, int nrg, int sg, int sp, int lx,
+                                    int smem_bytes, float b1, float b2, float eps_adam,
+                                    float bond_w, float bond_len, float clip,
+                                    void* stream) {
+  return steps_entry(xA, xB, mu, nu, t, w, nb, bm, seeds, table, part, hist, B, L, k0, k1,
+                     n_per, cpl, rpw, resident, nsgc, nsgb, nrgb, nrg, sg, sp, lx,
+                     smem_bytes, b1, b2, eps_adam, bond_w, bond_len, clip, stream);
 }
 
 #ifdef C3D_STEPS_TIMING
@@ -555,7 +597,7 @@ extern "C" int c3d_fused_steps_slots(int cpl, int rpw, int resident, int smem_by
   int slots = 0, rc = (int)cudaErrorInvalidValue;
 #define X(CPL, RPW, RES)                                  \
   if (cpl == CPL && rpw == RPW && (resident != 0) == RES) \
-    rc = occupancy<CPL, RPW, RES>((size_t)smem_bytes, &slots);
+    rc = occupancy<CPL, RPW, RES, float>((size_t)smem_bytes, &slots);
   C3D_STEPS_VARIANTS(X)
 #undef X
   return rc != 0 ? -rc : slots;

@@ -53,12 +53,18 @@
 // B3 and B6 take a chromosome axis (grid row y): chromosome c's blocks read
 // its B structures, its (rows, L) strip and its mask and write its
 // partials, all at c's offsets, so its bits are those of a launch of its
-// own.
+// own. t and w are float32 or bfloat16 (AnnealConfig.pair_bf16; the
+// Pallas bodies convert on read, pallas_energy.py:972-975, 1510-1513): the
+// kernel is a template on their type and widens each element as it fills
+// the register patch (tile_load.cuh), once a launch, so the loop over
+// structures is the same code for both and a bf16 launch gives the float32
+// launch's bits on the widened tiles.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include "tile_load.cuh"
 #include "warp_fold.cuh"
 
 namespace c3d_tri {
@@ -91,11 +97,11 @@ __host__ __device__ constexpr int smem_floats(int TM, int BS) {
 // same kernel twice
 namespace {
 
-template <int TM>
+template <int TM, typename TT>
 __global__ void __launch_bounds__(kThreads, 2)
 tri_pair_kernel(const float* __restrict__ xT,   // (C B, 3, L)
-                const float* __restrict__ t,    // (C, rows, L) target rows of the strip
-                const float* __restrict__ w,    // (C, rows, L) folded weights
+                const TT* __restrict__ t,       // (C, rows, L) target rows of the strip
+                const TT* __restrict__ w,       // (C, rows, L) folded weights
                 const float* __restrict__ bm,   // (C, L) bead masks
                 float* __restrict__ part,       // (C B, 2S, 3, W) out
                 float* __restrict__ e_part,     // (C B, Tl S) out
@@ -172,8 +178,8 @@ tri_pair_kernel(const float* __restrict__ xT,   // (C B, 3, L)
       const bool in = active && r < L && c < L;
       const float pv = in ? bmr * bm[c] : 0.f;
       const size_t idx = (size_t)rl * L + c;
-      tt[a][k] = in ? t[idx] : 0.f;
-      ww[a][k] = in ? two_noe * (w[idx] * pv) : 0.f;
+      tt[a][k] = in ? c3d::tile_f32(t[idx]) : 0.f;
+      ww[a][k] = in ? two_noe * (c3d::tile_f32(w[idx]) * pv) : 0.f;
       nn[a][k] = (abs(r - c) >= 2) ? two_vdw * pv : 0.f;
     }
   }
@@ -291,18 +297,19 @@ tri_pair_kernel(const float* __restrict__ xT,   // (C B, 3, L)
   }
 }
 
-// the pair kernel for one tile edge, with the shared memory it asks for
-template <int TM>
-cudaError_t launch_pairs(const float* xT, const float* t, const float* w,
+// the pair kernel for one tile edge and tile type, with the shared memory
+// it asks for (the same for both tile types)
+template <int TM, typename TT>
+cudaError_t launch_pairs(const float* xT, const TT* t, const TT* w,
                          const float* bm, float* part, float* e_part,
                          const TriParams& q, cudaStream_t st) {
   const int smem = smem_floats(TM, q.BS) * (int)sizeof(float);
   // past the 227 KB a block can opt into, the attribute call fails
   cudaError_t err = cudaFuncSetAttribute(
-      tri_pair_kernel<TM>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      tri_pair_kernel<TM, TT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(q.Tl * q.S, q.C);
-  tri_pair_kernel<TM><<<grid, kThreads, smem, st>>>(xT, t, w, bm, part, e_part, q);
+  tri_pair_kernel<TM, TT><<<grid, kThreads, smem, st>>>(xT, t, w, bm, part, e_part, q);
   return cudaGetLastError();
 }
 

@@ -12,7 +12,9 @@ unchanged tree loads the cached file.
 
 Each C entry point launches on the stream it is given and returns
 cudaGetLastError(); `check` raises when that is not 0 (a refused launch
-never runs and a later synchronize would not report it).
+never runs and a later synchronize would not report it). The exact pair
+bodies (B1, B2/B2', B3, B6) have a second entry point, `<name>_bf16`, for
+bfloat16 restraint tiles (`entry`).
 """
 
 from __future__ import annotations
@@ -81,6 +83,10 @@ SIGNATURES = {
     # cpl, rpw, resident, smem_bytes -> co-resident blocks (< 0: -CUDA error)
     "c3d_fused_steps_slots": (_I, _I, _I, _I),
 }
+# the exact pair bodies' entry points on bfloat16 tiles (AnnealConfig.pair_bf16):
+# the same arguments, t and w (and B1's nb) pointing at bfloat16 elements
+for _name in ("c3d_exact_pair", "c3d_exact_tri", "c3d_exact_tri_strip", "c3d_fused_steps"):
+    SIGNATURES[_name + "_bf16"] = SIGNATURES[_name]
 
 
 def _nvcc() -> str:
@@ -168,6 +174,15 @@ def workspace(device, name: str, n: int, dtype=None):
     if buf is None or buf.numel() < n or buf.dtype != dtype:
         buf = _WORKSPACE[key] = torch.zeros(max(n, 64), dtype=dtype, device=device)
     return buf
+
+
+def entry(lib, name: str, tile_dtype):
+    """The C entry point `name` for tiles of tile_dtype: `name` for
+    float32, `name`_bf16 for bfloat16 (the wrappers' check_inputs admits
+    no other type)."""
+    import torch
+
+    return getattr(lib, name + "_bf16" if tile_dtype == torch.bfloat16 else name)
 
 
 def check(err: int, name: str) -> None:

@@ -26,6 +26,17 @@ same way, each strip's final values downloaded into a host (n, n) pair.
 A genome bucket past the length buckets is prepped the same way, a
 chromosome at a time into (C, L, L) tiles (`exact_tiles_from_if_batched_device`,
 from the bucket's one host pad/stack, `pad_stack`).
+
+`out_dtype="bfloat16"` emits bf16-stored tiles for a solve under
+AnnealConfig.pair_bf16 (the JAX package's out_dtype): all prep math stays
+float32 and only the emitted tensors convert (round to nearest even), so
+they equal the float32 outputs rounded, bit for bit; on the streamed route
+the accumulators are bf16 and the relative weights' scale rounds a second
+time, as the JAX `_scale_prog` does. The mask recovered from the tiles
+(t > 0) survives the conversion: quantised targets are >= 0.1, zeros stay
+zero. The assessment never reads such tiles; its view is prepped at
+float32 after the solve's tiles are freed. Every entry point builds on the
+card unless the caller asks for the CPU (device.resolve_device).
 """
 
 from __future__ import annotations
@@ -35,6 +46,7 @@ import os
 import numpy as np
 import torch
 
+from chromosome3d_tpu_torch.device import resolve_device
 from chromosome3d_tpu_torch.ops.energy import ExactRestraints, f32
 
 # share of the device's memory the one-shot prep may take: the solve's
@@ -44,6 +56,14 @@ _PREP_MEMORY_SHARE = 0.25
 # (the upload, IF^alpha, d, round(10 d), the quotient and the masks), an
 # estimate from the code
 _PREP_LIVE_PLANES = 8
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def out_torch_dtype(out_dtype: str) -> torch.dtype:
+    """The torch dtype of an out_dtype name ("float32" or "bfloat16")."""
+    if out_dtype not in _DTYPES:
+        raise ValueError(f"out_dtype must be one of {sorted(_DTYPES)}, got {out_dtype!r}")
+    return _DTYPES[out_dtype]
 
 
 def pad_f32(a, L_pad: int) -> np.ndarray:
@@ -124,20 +144,27 @@ def _strip_target(strip: torch.Tensor, r0: int, n_true: int, alpha: float,
 
 def _tiles_from_if_body(if_padded: torch.Tensor, n_true: int, alpha: float,
                         kscaling: float, p: float, separation: int,
-                        weighting: str) -> ExactRestraints:
+                        weighting: str, out_dtype: str = "float32") -> ExactRestraints:
     """One chromosome's restraint prep on if_padded's device. The mean of
     IF^alpha runs over all n_true^2 cells of the true matrix; padding cells
     are 0 and 0^alpha == 0, so the padded sum is the true sum. n_true^2 is
-    formed in float32, as the JAX program forms it."""
+    formed in float32, as the JAX program forms it. The float32 results are
+    emitted as out_dtype (the module's docstring)."""
+    dt = out_torch_dtype(out_dtype)
     n = torch.tensor(float(n_true), dtype=torch.float32, device=if_padded.device)
     mean = torch.sum(torch.pow(if_padded, f32(alpha)), dtype=torch.float32) / (n * n)
     t = _strip_target(if_padded, 0, n_true, alpha, kscaling, mean, separation)
-    return ExactRestraints(target=t, w=_weights_from_target(t, p, weighting))
+    w = _weights_from_target(t, p, weighting)
+    return ExactRestraints(target=t.to(dt), w=w.to(dt))
 
 
-def prep_peak_bytes(L_pad: int) -> int:
-    """Estimated device peak of the one-shot prep at this padded size."""
-    return _PREP_LIVE_PLANES * 4 * L_pad * L_pad
+def prep_peak_bytes(L_pad: int, out_dtype: str = "float32") -> int:
+    """Estimated device peak of the one-shot prep at this padded size: the
+    larger of the target phase's live planes and the emission's (the
+    upload, the float32 target and weights, and their out_dtype copies).
+    The target phase bounds it for both dtypes; out_dtype sets what stays."""
+    emit = 3 * 4 + 2 * out_torch_dtype(out_dtype).itemsize
+    return max(_PREP_LIVE_PLANES * 4, emit) * L_pad * L_pad
 
 
 def _memory_bytes(device: torch.device) -> int:
@@ -146,17 +173,19 @@ def _memory_bytes(device: torch.device) -> int:
     return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
 
 
-def should_stream_prep(L_pad: int, device) -> bool:
+def should_stream_prep(L_pad: int, device, out_dtype: str = "float32") -> bool:
     """Whether the one-shot prep would take more than a quarter of the
     device's memory (the card's, read from torch; the host's for the CPU)."""
-    return prep_peak_bytes(L_pad) > _PREP_MEMORY_SHARE * _memory_bytes(torch.device(device))
+    return (prep_peak_bytes(L_pad, out_dtype)
+            > _PREP_MEMORY_SHARE * _memory_bytes(torch.device(device)))
 
 
-def strip_prep_peak_bytes(L_pad: int, devices) -> dict:
+def strip_prep_peak_bytes(L_pad: int, devices, out_dtype: str = "float32") -> dict:
     """Estimated device peak of the row-sharded prep, per distinct device of
     the shard list: each rank builds one (L_pad / n, L_pad) strip with the
-    one-shot prep's live planes, and a device listed k times holds k."""
-    per_strip = _PREP_LIVE_PLANES * 4 * (L_pad // len(devices)) * L_pad
+    one-shot prep's live planes (prep_peak_bytes), and a device listed k
+    times holds k."""
+    per_strip = prep_peak_bytes(L_pad, out_dtype) // L_pad * (L_pad // len(devices))
     peak = {}
     for d in devices:
         d = torch.device(d)
@@ -164,22 +193,24 @@ def strip_prep_peak_bytes(L_pad: int, devices) -> dict:
     return peak
 
 
-def should_stream_strip_prep(L_pad: int, devices) -> bool:
+def should_stream_strip_prep(L_pad: int, devices, out_dtype: str = "float32") -> bool:
     """Whether some device's strips would take more than a quarter of its
     memory in the row-sharded prep."""
     return any(nbytes > _PREP_MEMORY_SHARE * _memory_bytes(d)
-               for d, nbytes in strip_prep_peak_bytes(L_pad, devices).items())
+               for d, nbytes in strip_prep_peak_bytes(L_pad, devices, out_dtype).items())
 
 
 def exact_tiles_from_if_device(if_matrix, L_pad: int, rc, weighting: str,
                                weight_exponent: float, n_true=None,
-                               device="cpu", group=None):
-    """The whole restraint prep on `device`: an (L, L) IF matrix (or one
-    already padded by pad_f32, with its true length n_true) -> the
-    ExactRestraints form at (L_pad, L_pad), padding rows and columns zero.
-    Mirrors if_to_dist + quantize_dist + dist_to_restraints + the relative
-    or absolute weighting for the pipeline's own (always exact) restraints.
-    One host pass (the pad) and one upload.
+                               device=None, group=None, out_dtype: str = "float32"):
+    """The whole restraint prep on `device` (device.resolve_device: None is
+    the first CUDA device, and raises without one): an (L, L) IF matrix (or
+    one already padded by pad_f32, with its true length n_true) -> the
+    ExactRestraints form at (L_pad, L_pad), padding rows and columns zero,
+    stored as out_dtype. Mirrors if_to_dist + quantize_dist +
+    dist_to_restraints + the relative or absolute weighting for the
+    pipeline's own (always exact) restraints. One host pass (the pad) and
+    one upload.
 
     group: a parallel.shards.ShardGroup; then each rank's (Lb, L_pad) row
     strip is uploaded to and built on its own device, and a list of
@@ -189,16 +220,16 @@ def exact_tiles_from_if_device(if_matrix, L_pad: int, rc, weighting: str,
     lead in rank order."""
     if group is not None:
         return _strips_from_if(if_matrix, L_pad, rc, weighting, weight_exponent,
-                               n_true, group)
-    device = torch.device(device)
-    if should_stream_prep(L_pad, device):
+                               n_true, group, out_dtype)
+    device = resolve_device(device)
+    if should_stream_prep(L_pad, device, out_dtype):
         return exact_tiles_from_if_streamed(if_matrix, L_pad, rc, weighting,
                                             weight_exponent, n_true=n_true,
-                                            device=device)
+                                            device=device, out_dtype=out_dtype)
     n = int(if_matrix.shape[0] if n_true is None else n_true)
     return _tiles_from_if_body(_upload(pad_f32(if_matrix, L_pad), device), n,
                                rc.alpha, rc.kscaling, weight_exponent,
-                               int(rc.separation), weighting)
+                               int(rc.separation), weighting, out_dtype)
 
 
 def _upload(a: np.ndarray, device) -> torch.Tensor:
@@ -228,7 +259,7 @@ class _StripSweeps:
         self.S = int(strip_rows or _pick_strip_rows(L_pad))
         if L_pad % self.S:
             raise ValueError(f"strip_rows {self.S} must divide L_pad {L_pad}")
-        self.rc, self.device = rc, torch.device(device)
+        self.rc, self.device = rc, resolve_device(device)
         self.mean = _streamed_mean(self.m, self.n, self.S, rc.alpha, self.device)
 
     def targets(self, p: float, weighting: str):
@@ -270,39 +301,48 @@ def _partials(w: torch.Tensor, mask: torch.Tensor) -> list:
 
 def exact_tiles_from_if_streamed(if_matrix, L_pad: int, rc, weighting: str,
                                  weight_exponent: float, n_true=None,
-                                 strip_rows=None, device="cpu") -> ExactRestraints:
+                                 strip_rows=None, device=None,
+                                 out_dtype: str = "float32") -> ExactRestraints:
     """exact_tiles_from_if_device with the IF matrix streamed in row strips
     of strip_rows (a divisor of L_pad; _pick_strip_rows when None): the
-    device holds the (L_pad, L_pad) tiles and one (S, L_pad) strip's
-    temporaries. Three sweeps: the IF^alpha mean, each strip's targets and
-    unnormalised weights written in place into the tiles with their
-    [sum w, sum mask] partials, and (relative weighting) the tiles' weights
-    scaled by the global normaliser. The targets and, for absolute
-    weighting, the weights equal the one-shot route's bit for bit given the
-    same mean; relative weights differ by the normaliser's summation order
-    and a multiply by its float32 reciprocal in place of the division."""
+    device holds the (L_pad, L_pad) out_dtype tiles and one (S, L_pad)
+    strip's float32 temporaries. Three sweeps: the IF^alpha mean, each
+    strip's targets and unnormalised weights written in place into the tiles
+    with their [sum w, sum mask] partials, and (relative weighting) the
+    tiles' weights scaled by the global normaliser, in float32 a strip at a
+    time and stored back as out_dtype (bf16 weights round twice, as the JAX
+    `_scale_prog` rounds them). The targets and, for absolute weighting, the
+    weights equal the one-shot route's bit for bit given the same mean;
+    relative weights differ by the normaliser's summation order and a
+    multiply by its float32 reciprocal in place of the division."""
     sweeps = _StripSweeps(if_matrix, L_pad, rc, n_true, strip_rows, device)
-    t_acc = torch.zeros((L_pad, L_pad), dtype=torch.float32, device=sweeps.device)
+    S = sweeps.S
+    t_acc = torch.zeros((L_pad, L_pad), dtype=out_torch_dtype(out_dtype),
+                        device=sweeps.device)
     w_acc = torch.zeros_like(t_acc)
     sums = np.zeros(2, np.float64)
     for r0, t, w, mask in sweeps.targets(weight_exponent, weighting):
         sums += _partials(w, mask)
-        t_acc[r0:r0 + sweeps.S] = t
-        w_acc[r0:r0 + sweeps.S] = w
+        t_acc[r0:r0 + S] = t
+        w_acc[r0:r0 + S] = w
     if weighting == "relative":
-        w_acc.mul_(float(np.float32(1.0) / np.float32(max(_normaliser(sums), 1e-30))))
+        scale = float(np.float32(1.0) / np.float32(max(_normaliser(sums), 1e-30)))
+        for r0 in range(0, L_pad, S):
+            w_acc[r0:r0 + S] = w_acc[r0:r0 + S].float() * scale
     return ExactRestraints(target=t_acc, w=w_acc)
 
 
 def assessment_view_from_if_streamed(if_matrix, L_pad: int, rc, weighting: str,
                                      weight_exponent: float, n_true=None,
-                                     strip_rows=None, device="cpu"):
+                                     strip_rows=None, device=None):
     """The host float32 assessment view (target, weights) at the true
     length (n, n), streamed: past the one-shot limit the view's tiles would
     not fit beside what the device holds, so each strip's final values are
     computed and downloaded at once. Three sweeps: the IF^alpha mean, the
     normaliser's partials (relative weighting), the final strips — with the
-    weight division on the device, the one-shot route's last op."""
+    weight division on the device, the one-shot route's last op. Always
+    float32 (the assessment never reads bf16 targets); on `device`
+    (resolve_device's: None is the first CUDA device)."""
     sweeps = _StripSweeps(if_matrix, L_pad, rc, n_true, strip_rows, device)
     n = sweeps.n
     denom = 1.0      # x / 1 == x exactly
@@ -325,9 +365,11 @@ def assessment_view_from_if_streamed(if_matrix, L_pad: int, rc, weighting: str,
 
 
 def _strips_from_if(if_matrix, L_pad: int, rc, weighting: str, p: float, n_true,
-                    group):
-    """exact_tiles_from_if_device's row-sharded form (see there)."""
-    if should_stream_strip_prep(L_pad, group.devices):
+                    group, out_dtype: str = "float32"):
+    """exact_tiles_from_if_device's row-sharded form (see there): every
+    rank's strip in float32, emitted as out_dtype."""
+    dt = out_torch_dtype(out_dtype)
+    if should_stream_strip_prep(L_pad, group.devices, out_dtype):
         # as in the JAX package, which streams only the one-device prep
         raise NotImplementedError(
             f"the restraint prep at L_pad={L_pad} over {group.n} strips would take "
@@ -354,7 +396,7 @@ def _strips_from_if(if_matrix, L_pad: int, rc, weighting: str, p: float, n_true,
             torch.clamp_min(group.psum([torch.sum(mk, dtype=torch.float32)
                                         for _, mk in unnorm]), 1.0))
         ws = [w / torch.clamp_min(dr, 1e-30) for w, dr in zip(ws, group.broadcast(denom))]
-    return [ExactRestraints(target=t, w=w) for t, w in zip(targets, ws)]
+    return [ExactRestraints(target=t.to(dt), w=w.to(dt)) for t, w in zip(targets, ws)]
 
 
 def pad_stack(matrices, L_pad: int) -> np.ndarray:
@@ -369,11 +411,12 @@ def pad_stack(matrices, L_pad: int) -> np.ndarray:
 
 
 def exact_tiles_from_if_batched_device(matrices, L_pad: int, rc, weighting: str,
-                                       weight_exponents, stack=None, device="cpu",
-                                       group=None):
+                                       weight_exponents, stack=None, device=None,
+                                       group=None, out_dtype: str = "float32"):
     """exact_tiles_from_if_device for a genome bucket (the JAX package's
     exact_tiles_from_if_batched_device, its vmap of one chromosome's prep):
-    the C IF matrices -> (C, L_pad, L_pad) ExactRestraints on `device`,
+    the C IF matrices -> (C, L_pad, L_pad) out_dtype ExactRestraints on
+    `device` (resolve_device's: None is the first CUDA device),
     chromosome c prepped from its own true length with its own weight
     exponent weight_exponents[c]. stack: the pad_stack of the matrices,
     when the caller made it already (an alpha ensemble pads the bucket
@@ -392,21 +435,23 @@ def exact_tiles_from_if_batched_device(matrices, L_pad: int, rc, weighting: str,
     ns = [int(m.shape[0]) for m in matrices]
     if group is not None:
         per = [exact_tiles_from_if_device(stack[c], L_pad, rc, weighting,
-                                          weight_exponents[c], n_true=ns[c], group=group)
+                                          weight_exponents[c], n_true=ns[c], group=group,
+                                          out_dtype=out_dtype)
                for c in range(C)]
         return [ExactRestraints(target=torch.stack([p[r].target for p in per]),
                                 w=torch.stack([p[r].w for p in per]))
                 for r in range(group.n)]
-    device = torch.device(device)
-    if C == 1 and should_stream_prep(L_pad, device):
+    device = resolve_device(device)
+    if C == 1 and should_stream_prep(L_pad, device, out_dtype):
         tiles = exact_tiles_from_if_streamed(stack[0], L_pad, rc, weighting,
                                              weight_exponents[0], n_true=ns[0],
-                                             device=device)
+                                             device=device, out_dtype=out_dtype)
         return ExactRestraints(target=tiles.target[None], w=tiles.w[None])
-    target = torch.empty((C, L_pad, L_pad), dtype=torch.float32, device=device)
+    target = torch.empty((C, L_pad, L_pad), dtype=out_torch_dtype(out_dtype), device=device)
     w = torch.empty_like(target)
     for c in range(C):
         one = _tiles_from_if_body(_upload(stack[c], device), ns[c], rc.alpha, rc.kscaling,
-                                  weight_exponents[c], int(rc.separation), weighting)
+                                  weight_exponents[c], int(rc.separation), weighting,
+                                  out_dtype)
         target[c], w[c] = one.target, one.w
     return ExactRestraints(target=target, w=w)

@@ -29,6 +29,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from chromosome3d_tpu_torch.device import resolve_device
+
 _EPS = 1e-12
 
 
@@ -77,6 +79,16 @@ class ExactRestraints:
         return self.w
 
 
+def widened(restraints):
+    """restraints with every bfloat16 tensor (tiles a pair_bf16 prep stored
+    as bf16) widened to float32, which is exact; float32 restraints come
+    back as they are. The init and the final terms read restraints so."""
+    fields = [f.name for f in dataclasses.fields(restraints)]
+    if all(getattr(restraints, k).dtype != torch.bfloat16 for k in fields):
+        return restraints
+    return type(restraints)(*(getattr(restraints, k).float() for k in fields))
+
+
 @dataclasses.dataclass(frozen=True)
 class EnergyWeights:
     """Per-step energy weights (the anneal schedule changes vdw and
@@ -105,8 +117,12 @@ class OrGroupRestraints:
     weight: torch.Tensor  # (R,) float32 per-row weight (0 = padding row)
 
 
-def dense_or_groups_from_numpy(og, device="cpu") -> OrGroupRestraints:
-    """restraints.OrGroups (host numpy) -> OrGroupRestraints on `device`."""
+def dense_or_groups_from_numpy(og, device=None) -> OrGroupRestraints:
+    """restraints.OrGroups (host numpy) -> OrGroupRestraints on `device`
+    (device.resolve_device: None is the first CUDA device, and raises
+    without one; "cpu" when asked for)."""
+    device = resolve_device(device)
+
     def t(a, dtype):
         return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
@@ -176,17 +192,19 @@ def _restraint_weights(target, mask_np, weighting: str, weight_exponent):
 
 
 def _to_device(arrays, device):
-    """Copies of host arrays as tensors on `device`."""
+    """Copies of host arrays as tensors on `device` (resolve_device's)."""
+    device = resolve_device(device)
     return tuple(torch.tensor(np.asarray(a), device=device) for a in arrays)
 
 
 def exact_restraints_from_numpy(
     r, weighting: str = "relative", weight_exponent: Optional[float] = None,
-    as_numpy: bool = False, device="cpu",
+    as_numpy: bool = False, device=None,
 ) -> ExactRestraints:
     """chromosome3d_tpu.restraints.Restraints -> the two-tensor exact form on
-    `device` (or holding host numpy arrays with as_numpy=True). The caller
-    must have proven exactness (pipeline.auto_exact)."""
+    `device` (device.resolve_device: None is the first CUDA device, and
+    raises without one), or holding host numpy arrays with as_numpy=True.
+    The caller must have proven exactness (pipeline.auto_exact)."""
     target = np.asarray(r.target, dtype=np.float64)
     mask_np = np.asarray(r.mask)
     weight = _restraint_weights(target, mask_np, weighting, weight_exponent)
@@ -196,11 +214,12 @@ def exact_restraints_from_numpy(
 
 def dense_restraints_from_numpy(
     r, weighting: str = "relative", weight_exponent: Optional[float] = None,
-    as_numpy: bool = False, device="cpu",
+    as_numpy: bool = False, device=None,
 ) -> DenseRestraints:
     """chromosome3d_tpu.restraints.Restraints -> the four-tensor form on
-    `device` (or holding host numpy arrays with as_numpy=True, the form the
-    host-side assessment reads)."""
+    `device` (device.resolve_device: None is the first CUDA device, and
+    raises without one), or holding host numpy arrays with as_numpy=True,
+    the form the host-side assessment reads."""
     target = np.asarray(r.target, dtype=np.float64)
     mask_np = np.asarray(r.mask)
     weight = _restraint_weights(target, mask_np, weighting, weight_exponent)
@@ -275,7 +294,9 @@ def energy_terms(
 ) -> Dict[str, torch.Tensor]:
     """All energy terms: coords (L, 3) -> scalars, or (B, L, 3) -> (B,)
     each. bead_mask (L,) is 1.0 for real beads, 0.0 for padding;
-    or_groups' well joins the noe term."""
+    or_groups' well joins the noe term. Restraints stored bf16 are read
+    widened (`widened`)."""
+    restraints = widened(restraints)
     x = coords[None] if coords.dim() == 2 else coords
     L = x.shape[1]
     if bead_mask is None:
@@ -336,8 +357,9 @@ def energy_terms_chunked(
     past L = 8192, where the whole-matrix form takes gigabytes a structure.
     Both restraint forms: the exact one reads its pre-folded w (its .mask
     view would build an (L, L) transient), the windowed one lo/hi and
-    mask * weight per block. Values agree with energy_terms to float
-    reassociation (the JAX package's `energy_terms_chunked`)."""
+    mask * weight per block; bf16-stored tiles are widened a block at a
+    time. Values agree with energy_terms to float reassociation (the JAX
+    package's `energy_terms_chunked`)."""
     x = coords[None] if coords.dim() == 2 else coords
     B, L = x.shape[0], x.shape[1]
     if bead_mask is None:
@@ -351,11 +373,11 @@ def energy_terms_chunked(
     for r0 in range(0, L, Lb):
         r1 = r0 + Lb
         if exact_form:
-            lo_b = hi_b = restraints.target[r0:r1]
-            wm_b = restraints.w[r0:r1]
+            lo_b = hi_b = restraints.target[r0:r1].float()
+            wm_b = restraints.w[r0:r1].float()
         else:
-            lo_b, hi_b = restraints.lo[r0:r1], restraints.hi[r0:r1]
-            wm_b = restraints.mask[r0:r1] * restraints.weight[r0:r1]
+            lo_b, hi_b = restraints.lo[r0:r1].float(), restraints.hi[r0:r1].float()
+            wm_b = restraints.mask[r0:r1].float() * restraints.weight[r0:r1].float()
         d2 = torch.full((B, Lb, L), _EPS, dtype=x.dtype, device=x.device)
         for c in range(3):
             dc = x[:, r0:r1, c, None] - x[:, None, :, c]

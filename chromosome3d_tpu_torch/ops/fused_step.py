@@ -14,6 +14,10 @@ Unlike the Pallas entry, nothing is padded to a 128-multiple: the kernel
 masks the ragged edge itself. Padded beads (bead_mask 0) with zero state
 stay exactly zero in x, mu and nu.
 
+The tiles may be float32 or bfloat16 (AnnealConfig.pair_bf16: the JAX
+solver casts fused_step_tiles after the fold): the kernel's bf16 entry
+point widens them on load, the twin on read; the state stays float32.
+
 `fused_steps_batched` runs steps k0 <= k < k1 of a `ScheduleTable`: the plain
 twin `fused_steps_plain` (a loop over `fused_step_plain`) for CPU tensors,
 one launch of the persistent kernel for CUDA tensors, laid out by
@@ -22,8 +26,8 @@ runs the C chromosomes of a genome bucket in that one launch (the JAX
 genome runner's vmap over its bucket, whose kernel takes tiles, mask and
 seed per lane). `fused_step_batched` is its single-step face with the
 step's scalars passed in. Each counts in plain integers on the function
-(`fused_steps_batched.launches` and `.steps`, at the launch, and
-`fused_step_plain.calls`).
+(`fused_steps_batched.launches`, of them `.launches_bf16` on bf16 tiles,
+and `.steps`, at the launch, and `fused_step_plain.calls`).
 """
 
 from __future__ import annotations
@@ -37,7 +41,12 @@ import torch.nn.functional as F
 
 from chromosome3d_tpu_torch.ops import _build
 from chromosome3d_tpu_torch.ops.energy import _EPS, EnergyWeights, f32
-from chromosome3d_tpu_torch.ops.pair_energy import check_inputs, exact_pair_tiles
+from chromosome3d_tpu_torch.ops.pair_energy import (
+    TILE_DTYPES,
+    check_inputs,
+    exact_pair_tiles,
+    tile_dtype,
+)
 
 _M32 = 0xFFFFFFFF
 _SQRT3 = f32(np.sqrt(3.0))
@@ -65,10 +74,12 @@ def fused_step_feasible(L: int) -> bool:
 
 
 def fused_step_tiles(restraints, bead_mask: torch.Tensor, noe_weight: float):
-    """The step's static (L, L) tiles, built once per solve: restraint
-    target, weights pre-scaled by 2 * noe and pre-masked by bead validity,
-    and the pre-masked vdw predicate (|i - j| >= 2 and both beads real)."""
-    tgt, w_folded = exact_pair_tiles(restraints)
+    """The step's static (L, L) float32 tiles, built once per solve:
+    restraint target, weights pre-scaled by 2 * noe and pre-masked by bead
+    validity, and the pre-masked vdw predicate (|i - j| >= 2 and both beads
+    real). Restraints stored bf16 are widened first, as the JAX fold
+    promotes them; a pair_bf16 solve casts the three tiles after the fold."""
+    tgt, w_folded = (a.float() for a in exact_pair_tiles(restraints))
     L = tgt.shape[0]
     bm = bead_mask.to(torch.float32)
     pair_valid = bm[:, None] * bm[None, :]
@@ -132,9 +143,10 @@ def fused_step_plain(
     b1: float = 0.9, b2: float = 0.999, eps_adam: float = 1e-8,
 ):
     """Plain twin of B1 (the `_kernel_fused_step` math, whole-matrix; the
-    pair gradient summed as sum_j c_ij (x_i - x_j), like the kernel)."""
+    pair gradient summed as sum_j c_ij (x_i - x_j), like the kernel);
+    bfloat16 tiles are widened as they are read."""
     fused_step_plain.calls += 1
-    t, w, nb = tiles
+    t, w, nb = (a.float() for a in tiles)
     B, _, L = xT.shape
     diffs = [xT[:, c, :, None] - xT[:, c, None, :] for c in range(3)]
     s = torch.full((B, L, L), _EPS, dtype=xT.dtype, device=xT.device)
@@ -405,7 +417,8 @@ def fused_steps_batched(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Steps k0 <= k < k1 of the schedule -> (history (k1 - k0, B), xT',
     muT', nuT'), state (B, 3, L) float32; the noise of step k is structure
-    b's stream at the global step k. tiles = fused_step_tiles(...): (L, L)
+    b's stream at the global step k. tiles = fused_step_tiles(...), all
+    float32 or all bfloat16 (pair_bf16): (L, L)
     each with bead_mask (L,) for a batch sharing one restraint set, or (C,
     L, L) each with bead_mask (C, L) for C chromosomes of B / C structures,
     chromosome-major, with seeds (C,) int32 on the state's device (None:
@@ -422,10 +435,11 @@ def fused_steps_batched(
     lead = () if t.dim() == 2 else (C,)
     specs = {
         "xT": (xT, (B, 3, L)), "muT": (muT, (B, 3, L)), "nuT": (nuT, (B, 3, L)),
-        "t": (t, (*lead, L, L)), "w": (w, (*lead, L, L)), "nb": (nb, (*lead, L, L)),
-        "bead_mask": (bead_mask, (*lead, L)),
+        "t": (t, (*lead, L, L), TILE_DTYPES), "w": (w, (*lead, L, L), TILE_DTYPES),
+        "nb": (nb, (*lead, L, L), TILE_DTYPES), "bead_mask": (bead_mask, (*lead, L)),
     }
     dev = check_inputs(specs)
+    kind = tile_dtype(t, w, nb)
     if B == 0 or L == 0:
         raise ValueError(f"empty batch: B={B}, L={L}")
     if seeds is None:
@@ -450,7 +464,7 @@ def fused_steps_batched(
     part = torch.empty((nk, B, plan["nrg"] * plan["rpw"]), dtype=torch.float32, device=dev)
     hist = torch.empty((nk, B), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = lib.c3d_fused_steps(
+        err = _build.entry(lib, "c3d_fused_steps", kind)(
             x_a.data_ptr(), x_b.data_ptr(), mu.data_ptr(), nu.data_ptr(),
             t.data_ptr(), w.data_ptr(), nb.data_ptr(), bead_mask.data_ptr(),
             seeds.data_ptr(), rows.data_ptr(),
@@ -464,12 +478,14 @@ def fused_steps_batched(
         )
     _build.check(err, "c3d_fused_steps")
     fused_steps_batched.launches += 1
+    fused_steps_batched.launches_bf16 += kind == torch.bfloat16
     fused_steps_batched.steps += nk
     # step k0 reads x_a and writes x_b, the next one back
     return hist, (x_b if nk % 2 else x_a), mu, nu
 
 
 fused_steps_batched.launches = 0
+fused_steps_batched.launches_bf16 = 0   # of them, on bf16 tiles
 fused_steps_batched.steps = 0
 
 

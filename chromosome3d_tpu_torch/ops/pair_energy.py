@@ -19,12 +19,16 @@ Kernel B2' is the same body on one shard's rows of the row-sharded solve
 `pallas_row_block_energy_grad_batched(..., exact=True)`, with or without
 the chromosome axis ((C, Lb, L) strips of a genome group).
 
-Each wrapper runs its plain twin for CPU tensors and the CUDA kernel for
+The restraint tiles (target and w) may be float32 or bfloat16
+(AnnealConfig.pair_bf16, as the JAX package's `bf16=` casts them): a CUDA
+launch on bf16 tiles takes the kernel's bf16 entry point, which widens each
+element on load, and the twins widen them on read; everything else is
+float32. Each wrapper runs its plain twin for CPU tensors and the CUDA kernel for
 CUDA tensors; each path counts its calls in a plain integer on the function
 (`exact_pair_energy_grad.launches`, `exact_pair_energy_grad_plain.calls`,
 `exact_row_block_energy_grad.launches`,
 `exact_row_block_energy_grad_plain.calls`), so a run can show which one it
-took.
+took; `.launches_bf16` counts the launches of the bf16 entry point.
 """
 
 from __future__ import annotations
@@ -43,6 +47,11 @@ from chromosome3d_tpu_torch.ops.energy import (
 )
 
 
+# what the exact kernels' restraint tiles may be: float32, or bfloat16
+# (AnnealConfig.pair_bf16), widened on load; every other input is float32
+TILE_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def exact_pair_tiles(restraints):
     """(target, folded weight) for the exact kernels: aliases of the stored
     tensors for ExactRestraints, one fold (lo, mask * weight) otherwise."""
@@ -52,12 +61,15 @@ def exact_pair_tiles(restraints):
 
 
 def check_inputs(specs) -> torch.device:
-    """The wrappers' contract for {name: (tensor, expected shape)}: float32,
+    """The wrappers' contract for {name: (tensor, expected shape[,
+    dtypes])}: a dtype of `dtypes` (float32 where none are given),
     contiguous, one device, exact shapes. Returns the common device."""
     dev = next(iter(specs.values()))[0].device
-    for name, (x, shape) in specs.items():
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name}: float32 required, got {x.dtype}")
+    for name, (x, shape, *allowed) in specs.items():
+        dtypes = allowed[0] if allowed else (torch.float32,)
+        if x.dtype not in dtypes:
+            want = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+            raise TypeError(f"{name}: {want} required, got {x.dtype}")
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, expected {dev}")
         if not x.is_contiguous():
@@ -69,6 +81,25 @@ def check_inputs(specs) -> torch.device:
     return dev
 
 
+def tile_dtype(*tiles: torch.Tensor) -> torch.dtype:
+    """The one dtype of a kernel's restraint tiles (check_inputs has
+    admitted each): a launch reads all of them as float32 or all as
+    bfloat16, so a mix raises TypeError."""
+    kinds = {t.dtype for t in tiles}
+    if len(kinds) != 1:
+        raise TypeError(f"restraint tiles of one dtype required, got {sorted(map(str, kinds))}")
+    return kinds.pop()
+
+
+def as_tile_dtype(tiles, bf16: bool):
+    """Tiles as the kernels read them: cast to contiguous bfloat16 when bf16
+    (AnnealConfig.pair_bf16 on an exact route; a no-op for tiles stored
+    bf16), as they are otherwise."""
+    if not bf16:
+        return tuple(tiles)
+    return tuple(t.to(torch.bfloat16).contiguous() for t in tiles)
+
+
 def exact_rows_plain(
     coords: torch.Tensor, target: torch.Tensor, w: torch.Tensor,
     weights: EnergyWeights, bead_mask: torch.Tensor, r0: int, r1: int,
@@ -78,10 +109,12 @@ def exact_rows_plain(
     (B, L, 3) coords: returns (the rows' pair energies summed (B,), their
     gradients (B, r1 - r0, 3)). target and w hold the matrix's rows from
     row_start on (the whole matrix, or one shard's strip). The gradient is
-    summed as sum_j c_ij (x_i - x_j), like the kernels (see exact_pair.cu)."""
+    summed as sum_j c_ij (x_i - x_j), like the kernels (see exact_pair.cu).
+    bfloat16 tiles are widened as the rows are read."""
     x = coords
     L = x.shape[1]
-    target, w = target[r0 - row_start:r1 - row_start], w[r0 - row_start:r1 - row_start]
+    target = target[r0 - row_start:r1 - row_start].float()
+    w = w[r0 - row_start:r1 - row_start].float()
     diffs = [x[:, r0:r1, c, None] - x[:, None, :, c] for c in range(3)]
     d2 = torch.zeros(x.shape[0], r1 - r0, L, dtype=x.dtype, device=x.device)
     for diff in diffs:
@@ -144,7 +177,8 @@ def exact_pair_plan(B: int, L: int, Lb: int) -> dict:
 def _launch_exact(xT, target, w, weights, bead_mask, row_start, dev):
     """csrc/exact_pair.cu on the rows the (Lb, L) tiles hold, or on C
     chromosomes' (C, Lb, L) tiles and (C, L) bead masks: (energies (B,),
-    gradient rows (B, 3, Lb)), one launch."""
+    gradient rows (B, 3, Lb)), one launch of the entry point for the tiles'
+    dtype (float32 or bfloat16; the plan is the same)."""
     B, L = xT.shape[0], xT.shape[2]
     Lb = target.shape[-2]
     n_per = B // (target.shape[0] if target.dim() == 3 else 1)
@@ -155,7 +189,7 @@ def _launch_exact(xT, target, w, weights, bead_mask, row_start, dev):
     e_part = _build.workspace(dev, "exact_pair e_part", n_part, torch.float32)
     ticket = _build.workspace(dev, "exact_pair ticket", 1)
     with torch.cuda.device(dev):
-        err = lib.c3d_exact_pair(
+        err = _build.entry(lib, "c3d_exact_pair", tile_dtype(target, w))(
             xT.data_ptr(), target.data_ptr(), w.data_ptr(), bead_mask.data_ptr(),
             gT.data_ptr(), e.data_ptr(), e_part.data_ptr(), ticket.data_ptr(), B, L,
             row_start, Lb, n_per, weights.noe, weights.vdw, weights.vdw_radius,
@@ -170,7 +204,8 @@ def exact_pair_energy_grad(
     weights: EnergyWeights, bead_mask: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B2 for a batch sharing one restraint set: coords (B, L, 3), target and
-    folded weight w (L, L), bead_mask (L,), all float32 and contiguous; or
+    folded weight w (L, L), bead_mask (L,), all float32 and contiguous
+    (target and w may both be bfloat16: pair_bf16); or
     for C chromosomes of B / C structures each, chromosome-major, with
     target and w (C, L, L) and bead_mask (C, L) — a genome bucket's pick in
     one launch, each chromosome's rows bitwise those of a launch of its own.
@@ -185,9 +220,10 @@ def exact_pair_energy_grad(
     if lead and B % lead[0]:
         raise ValueError(f"{B} structures do not divide over {lead[0]} chromosomes")
     dev = check_inputs({
-        "coords": (coords, (B, L, 3)), "target": (target, (*lead, L, L)),
-        "w": (w, (*lead, L, L)), "bead_mask": (bead_mask, (*lead, L)),
+        "coords": (coords, (B, L, 3)), "target": (target, (*lead, L, L), TILE_DTYPES),
+        "w": (w, (*lead, L, L), TILE_DTYPES), "bead_mask": (bead_mask, (*lead, L)),
     })
+    tile_dtype(target, w)
     if B == 0 or L == 0:
         raise ValueError(f"empty batch: B={B}, L={L}")
     if dev.type == "cpu":
@@ -195,10 +231,12 @@ def exact_pair_energy_grad(
     e, gT = _launch_exact(coords.transpose(1, 2).contiguous(), target, w, weights,
                           bead_mask, 0, dev)
     exact_pair_energy_grad.launches += 1
+    exact_pair_energy_grad.launches_bf16 += target.dtype == torch.bfloat16
     return e, gT.transpose(1, 2)
 
 
 exact_pair_energy_grad.launches = 0
+exact_pair_energy_grad.launches_bf16 = 0   # of them, on bf16 tiles
 
 
 def exact_row_block_energy_grad_plain(
@@ -235,7 +273,8 @@ def exact_row_block_energy_grad(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B2' for one shard: xT (B, 3, L) the whole ensemble, target and folded
     weight w the (Lb, L) strips of rows [row_start, row_start + Lb),
-    bead_mask (L,), all float32 and contiguous on the shard's device; or
+    bead_mask (L,), all float32 and contiguous on the shard's device (the
+    strips may both be bfloat16: pair_bf16); or
     for C chromosomes of B / C structures each, chromosome-major, with (C,
     Lb, L) strips and (C, L) bead masks — a genome group's rows in one
     launch, each chromosome's outputs bitwise those of a launch of its own
@@ -252,9 +291,10 @@ def exact_row_block_energy_grad(
     if lead and (lead[0] == 0 or B % lead[0]):
         raise ValueError(f"{B} structures do not divide over {lead[0]} chromosomes")
     dev = check_inputs({
-        "xT": (xT, (B, 3, L)), "target": (target, (*lead, Lb, L)),
-        "w": (w, (*lead, Lb, L)), "bead_mask": (bead_mask, (*lead, L)),
+        "xT": (xT, (B, 3, L)), "target": (target, (*lead, Lb, L), TILE_DTYPES),
+        "w": (w, (*lead, Lb, L), TILE_DTYPES), "bead_mask": (bead_mask, (*lead, L)),
     })
+    tile_dtype(target, w)
     if B == 0 or Lb == 0 or not 0 <= row_start <= L - Lb:
         raise ValueError(f"bad strip: B={B}, rows [{row_start}, {row_start + Lb}) of {L}")
     if dev.type == "cpu":
@@ -262,10 +302,12 @@ def exact_row_block_energy_grad(
                                                  row_start)
     e, gT = _launch_exact(xT, target, w, weights, bead_mask, row_start, dev)
     exact_row_block_energy_grad.launches += 1
+    exact_row_block_energy_grad.launches_bf16 += target.dtype == torch.bfloat16
     return e, gT
 
 
 exact_row_block_energy_grad.launches = 0
+exact_row_block_energy_grad.launches_bf16 = 0   # of them, on bf16 tiles
 
 
 def _angle_grad(bond_vec, bond_d, bond_valid, angle: float):
@@ -326,6 +368,7 @@ def bond_energy_grad_stacked(coords: torch.Tensor, weights: EnergyWeights,
 def pair_energy_and_grad_batched(
     coords: torch.Tensor, restraints, weights: EnergyWeights,
     bead_mask: torch.Tensor, exact: bool = True, tiles=None, tri=None,
+    bf16: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Value and gradient for a shared-restraint batch: a pair kernel plus
     the chain bond (and the angle term where weights.angle is not 0).
@@ -343,7 +386,10 @@ def pair_energy_and_grad_batched(
     once by the caller (pair_tiles), for a loop that calls this every step.
     tri: None lets use_triangular decide; True or False pins B3 or B2 (a
     solve decides once, as the JAX package's trace does; False is its
-    static no_tri=True). Returns (energies (B,), gradients (B, L, 3))."""
+    static no_tri=True). bf16: the exact kernels read bfloat16 tiles (the
+    JAX package's bf16=, AnnealConfig.pair_bf16 on an exact route; ignored
+    for general restraints, as there). Returns (energies (B,), gradients
+    (B, L, 3))."""
     # imported here: both build on this module
     from chromosome3d_tpu_torch.ops import general_pair, tri_energy
 
@@ -353,7 +399,7 @@ def pair_energy_and_grad_batched(
         tri = tri_energy.use_triangular(L, for_unfused=True, batch=n_per,
                                         device=coords.device)
     if tiles is None:
-        tiles = pair_tiles(restraints, exact)
+        tiles = pair_tiles(restraints, exact, bf16)
     if not exact:
         e_pair, gT = general_pair.general_pair_energy_grad(
             coords.transpose(1, 2).contiguous(), *tiles, weights, bead_mask,
@@ -370,12 +416,15 @@ def pair_energy_and_grad_batched(
     return e_pair + e_bond, g_pair + g_bond
 
 
-def pair_tiles(restraints, exact: bool = True):
+def pair_tiles(restraints, exact: bool = True, bf16: bool = False):
     """The tiles pair_energy_and_grad_batched's kernels read, contiguous:
-    (target, folded w) for exact restraints, (lo, hi, folded w) else."""
+    (target, folded w) for exact restraints, as bfloat16 under bf16 (the
+    JAX package's `bf16=`: a cast of the float32 tiles, none for tiles
+    stored bf16), (lo, hi, folded w) else (no bf16 form: the general well
+    ignores the flag, as the JAX package's does)."""
     # imported here: general_pair builds on this module
     from chromosome3d_tpu_torch.ops import general_pair
 
     if not exact:
         return general_pair.general_pair_tiles(restraints)
-    return tuple(a.contiguous() for a in exact_pair_tiles(restraints))
+    return as_tile_dtype((a.contiguous() for a in exact_pair_tiles(restraints)), bf16)

@@ -15,8 +15,11 @@ JAX package's VMEM-sized tile (`pick_tile_tri_strip`) is kept as part of
 the routing rule, so both packages route every (L, shards) alike.
 
 `strip_tri_energy_grad` runs the plain twin for CPU tensors and the CUDA
-kernel for CUDA tensors, counting each in a plain integer on the function
-(`strip_tri_energy_grad.launches`, `strip_tri_energy_grad_plain.calls`).
+kernel for CUDA tensors (float32 strips, or bfloat16 ones under
+AnnealConfig.pair_bf16: the bf16 entry point widens them on load, the
+twin on read), counting each in a plain integer on the function
+(`strip_tri_energy_grad.launches`, of them `.launches_bf16` on bf16
+strips, `strip_tri_energy_grad_plain.calls`).
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import torch
 
 from chromosome3d_tpu_torch.ops import _build
 from chromosome3d_tpu_torch.ops.energy import _EPS, EnergyWeights
-from chromosome3d_tpu_torch.ops.pair_energy import check_inputs
+from chromosome3d_tpu_torch.ops.pair_energy import TILE_DTYPES, check_inputs, tile_dtype
 from chromosome3d_tpu_torch.ops.tri_energy import tri_plan
 
 _STRIP_TILES = (64, 32, 16, 8)   # the instantiations in exact_tri_strip.cu
@@ -138,8 +141,8 @@ def _strip_one_plain(xT, target, w, weights, bead_mask, row_start, tile):
         if Tg % 2 == 0 and s == S - 1:
             live = (ig < Tg // 2).to(xT.dtype)   # the double-covered shell's twin
         cols = ((ig + s) % Tg)[:, None] * TM + ar[None, :]          # (Tl, TM)
-        tb = target[rows_l[:, :, None], cols[:, None, :]]           # (Tl, TM, TM)
-        wb = w[rows_l[:, :, None], cols[:, None, :]]
+        tb = target[rows_l[:, :, None], cols[:, None, :]].float()   # (Tl, TM, TM)
+        wb = w[rows_l[:, :, None], cols[:, None, :]].float()
         diff = x[:, rows_g][:, :, :, None, :] - x[:, cols][:, :, None, :, :]
         s2 = _EPS + diff[..., 0] * diff[..., 0]
         s2 = s2 + diff[..., 1] * diff[..., 1]
@@ -202,7 +205,8 @@ def strip_tri_energy_grad(
     bead_mask (L,); or, for C chromosomes of B / C structures each
     (chromosome-major), strips (C, Lb, L) and masks (C, L), one launch for
     all of them, chromosome c's outputs bitwise those of a call of its own.
-    All float32 and contiguous on the shard's device; the tile
+    All float32 (the strips may both be bfloat16: pair_bf16) and
+    contiguous on the shard's device; the tile
     (`strip_tile(Lb)`) must divide row_start and L. Returns (the strip's
     energy partials (B,), its share of the gradient (B, 3, L)); the shards'
     sums are the whole pair energy and gradient. CPU tensors run the plain
@@ -217,9 +221,10 @@ def strip_tri_energy_grad(
     Lb = target.shape[-2]
     lead = () if target.dim() == 2 else (C,)
     dev = check_inputs({
-        "xT": (xT, (B, 3, L)), "target": (target, (*lead, Lb, L)),
-        "w": (w, (*lead, Lb, L)), "bead_mask": (bead_mask, (*lead, L)),
+        "xT": (xT, (B, 3, L)), "target": (target, (*lead, Lb, L), TILE_DTYPES),
+        "w": (w, (*lead, Lb, L), TILE_DTYPES), "bead_mask": (bead_mask, (*lead, L)),
     })
+    kind = tile_dtype(target, w)
     plan = strip_plan(n, L, Lb, row_start)
     tile = plan["tile"]
     if dev.type == "cpu":
@@ -231,7 +236,7 @@ def strip_tri_energy_grad(
     gT = torch.empty_like(xT)
     e = torch.empty((B,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = lib.c3d_exact_tri_strip(
+        err = _build.entry(lib, "c3d_exact_tri_strip", kind)(
             xT.data_ptr(), target.data_ptr(), w.data_ptr(), bead_mask.data_ptr(),
             part.data_ptr(), e_part.data_ptr(), gT.data_ptr(), e.data_ptr(),
             C, n, L, row_start, Lb, tile, plan["bslice"], weights.noe, weights.vdw,
@@ -239,7 +244,9 @@ def strip_tri_energy_grad(
         )
     _build.check(err, "c3d_exact_tri_strip")
     strip_tri_energy_grad.launches += 1
+    strip_tri_energy_grad.launches_bf16 += kind == torch.bfloat16
     return e, gT
 
 
 strip_tri_energy_grad.launches = 0
+strip_tri_energy_grad.launches_bf16 = 0   # of them, on bf16 strips

@@ -24,8 +24,11 @@ file). No table is shipped. With no table the frozen defaults decide, and
 `CHROM3D_NO_TRI` set turns the triangular kernel off.
 
 `tri_energy_grad` runs the plain twin for CPU tensors and the CUDA kernel
-for CUDA tensors, counting each in a plain integer on the function
-(`tri_energy_grad.launches`, `tri_energy_grad_plain.calls`).
+for CUDA tensors (on float32 or, under AnnealConfig.pair_bf16, bfloat16
+target and w tiles: the bf16 entry point widens them on load, the twin on
+read), counting each in a plain integer on the function
+(`tri_energy_grad.launches`, of them `.launches_bf16` on bf16 tiles,
+`tri_energy_grad_plain.calls`).
 """
 
 from __future__ import annotations
@@ -41,7 +44,12 @@ import torch
 from chromosome3d_tpu_torch.ops import _build
 from chromosome3d_tpu_torch.ops.energy import EnergyWeights
 from chromosome3d_tpu_torch.ops.fused_step import fused_step_feasible, fused_steps_plan
-from chromosome3d_tpu_torch.ops.pair_energy import check_inputs, exact_rows_plain
+from chromosome3d_tpu_torch.ops.pair_energy import (
+    TILE_DTYPES,
+    check_inputs,
+    exact_rows_plain,
+    tile_dtype,
+)
 
 TILE = 64                       # the kernel's tile edge (kTM in exact_tri.cu)
 _PLAIN_CHUNK_ELEMS = 1 << 24    # the twin's (B, rows, L) temporaries per chunk
@@ -291,7 +299,8 @@ def tri_energy_grad(
     """B3 for a batch sharing one restraint set: xT (B, 3, L), target and
     folded weight w (L, L), symmetric (as every restraint set of both
     packages is: the kernel takes each unordered pair's target and weight
-    from its row tile), bead_mask (L,), all float32 and contiguous; or for C
+    from its row tile), bead_mask (L,), all float32 and contiguous (target
+    and w may both be bfloat16: pair_bf16); or for C
     chromosomes of B / C structures each, chromosome-major, with target and
     w (C, L, L) and bead_mask (C, L) — a genome bucket in one launch, each
     chromosome's outputs bitwise those of a launch of its own. Returns (pair
@@ -308,9 +317,10 @@ def tri_energy_grad(
     if C == 0 or B % C:
         raise ValueError(f"{B} structures do not divide over {C} chromosomes")
     dev = check_inputs({
-        "xT": (xT, (B, 3, L)), "target": (target, (*lead, L, L)),
-        "w": (w, (*lead, L, L)), "bead_mask": (bead_mask, (*lead, L)),
+        "xT": (xT, (B, 3, L)), "target": (target, (*lead, L, L), TILE_DTYPES),
+        "w": (w, (*lead, L, L), TILE_DTYPES), "bead_mask": (bead_mask, (*lead, L)),
     })
+    kind = tile_dtype(target, w)
     if B == 0 or L == 0:
         raise ValueError(f"empty batch: B={B}, L={L}")
     if dev.type == "cpu":
@@ -323,7 +333,7 @@ def tri_energy_grad(
     gT = torch.empty_like(xT)
     e = torch.empty((B,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = lib.c3d_exact_tri(
+        err = _build.entry(lib, "c3d_exact_tri", kind)(
             xT.data_ptr(), target.data_ptr(), w.data_ptr(), bead_mask.data_ptr(),
             part.data_ptr(), e_part.data_ptr(), gT.data_ptr(), e.data_ptr(),
             C, n, L, plan["Tg"], TILE, plan["bslice"], weights.noe, weights.vdw,
@@ -332,7 +342,9 @@ def tri_energy_grad(
         )
     _build.check(err, "c3d_exact_tri")
     tri_energy_grad.launches += 1
+    tri_energy_grad.launches_bf16 += kind == torch.bfloat16
     return e, gT
 
 
 tri_energy_grad.launches = 0
+tri_energy_grad.launches_bf16 = 0   # of them, on bf16 tiles

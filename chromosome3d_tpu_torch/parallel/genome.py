@@ -26,11 +26,14 @@ the genome is a handful of launches:
      solver.sharded.solve_genome_sharded): on the one device, every step
      the route's pair kernel (B6, or B2' where B6's strip tiles do not pay)
      once and kernel B4 once for the whole bucket. The assessment views are
-     downloaded from the live tiles. Past the length buckets with windowed
-     restraints (noe_rswitch < 1e8) the bucket is stacked on the host as
-     within them and solved by `solve_bucket` on the one device, the JAX
-     package's one-device route (B5 and B4 once a step for the bucket), or
-     by `solve_bucket_sharded` (B5' on each rank's strips). Either kind
+     downloaded from the live tiles; under pair_bf16 the solve's tiles are
+     stored bf16, so they are freed first and the bucket is prepped again
+     at float32 from the same pad/stack for the views. Past the length
+     buckets with windowed restraints (noe_rswitch < 1e8) the bucket is
+     stacked on the host as within them and solved by `solve_bucket` on the
+     one device, the JAX package's one-device route (B5 and B4 once a step
+     for the bucket), or by `solve_bucket_sharded` (B5' on each rank's
+     strips). Either kind
      spreads over the visible cards (`bucket_devices`) only where it would
      not fit the one device (`bucket_peak_bytes`);
   4. each chromosome is assessed and its artifacts written on host threads
@@ -219,13 +222,15 @@ def bucket_stack(matrices: Sequence[np.ndarray], L_pad: int, devices: Sequence) 
 
 
 def bucket_tiles_from_if(matrices: Sequence[np.ndarray], L_pad: int, rc, devices: Sequence,
-                         stack: Optional[np.ndarray] = None):
+                         stack: Optional[np.ndarray] = None, out_dtype: str = "float32"):
     """An at-scale bucket's exact tiles built on the devices straight from
     its IF matrices (ops.device_prep.exact_tiles_from_if_batched_device):
     -> (tiles, groups, B_pad, L'), tiles[g][r] being group g's rank r strip,
-    ExactRestraints of (B_pad / nc, L' / nb, L') tensors on its device. Each
-    chromosome takes the weight exponent of its own true length. One
-    chromosome on one device past the one-shot limit streams its prep."""
+    ExactRestraints of (B_pad / nc, L' / nb, L') out_dtype tensors on its
+    device (the solve's: bfloat16 under pair_bf16; the assessment views':
+    float32). Each chromosome takes the weight exponent of its own true
+    length. One chromosome on one device past the one-shot limit streams its
+    prep."""
     groups, B_pad, L_pad = _layout(len(matrices), L_pad, devices)
     mats = _pad_batch(list(matrices), B_pad)
     p = rc.weight_exponent
@@ -238,7 +243,7 @@ def bucket_tiles_from_if(matrices: Sequence[np.ndarray], L_pad: int, rc, devices
         t = device_prep.exact_tiles_from_if_batched_device(
             mats[sl], L_pad, rc, rc.weighting, ps[sl],
             stack=None if stack is None else stack[sl], device=group.lead,
-            group=None if one else group)
+            group=None if one else group, out_dtype=out_dtype)
         tiles.append([t] if one else t)
     return tiles, groups, B_pad, L_pad
 
@@ -262,14 +267,18 @@ def solve_bucket_sharded_from_if(
     chromosome_generator(base_seed, c), base_seed defaulting to cfg.seed;
     xs (C, n_eff, L', 3) and noise_seeds (C,) replay given draws instead.
     Only for exact restraints (matrix-derived ones are: auto_exact_matrix).
+    Under cfg.anneal.pair_bf16 the tiles are stored bfloat16 (the JAX
+    package's solve_dtype).
 
     Returns (AnnealResult with a leading C axis, the live tiles, L'): the
-    caller downloads each chromosome's assessment view from the tiles
-    (bucket_views)."""
+    caller downloads each chromosome's assessment view from float32 tiles
+    (bucket_views); bf16 ones it frees and preps again at float32
+    (run_genome)."""
     devices = [resolve_device(None)] if devices is None else list(devices)
     C = len(matrices)
-    tiles, groups, B_pad, L_pad = bucket_tiles_from_if(matrices, L_pad, cfg.restraints,
-                                                       devices, stack=stack)
+    tiles, groups, B_pad, L_pad = bucket_tiles_from_if(
+        matrices, L_pad, cfg.restraints, devices, stack=stack,
+        out_dtype=pipeline.solve_tile_dtype(cfg, True))
     masks = np.zeros((B_pad, L_pad), np.float32)
     for b, m in enumerate(_pad_batch(list(matrices), B_pad)):
         masks[b, :m.shape[0]] = 1.0
@@ -354,9 +363,12 @@ def solve_bucket_sharded(
 
 def bucket_views(tiles, lengths: Sequence[int]):
     """Each chromosome's host assessment view from an at-scale bucket's live
-    tiles: (Restraints, ExactRestraints of (n, n) numpy) per chromosome, n
-    its true length, its rows gathered over its group's ranks (the JAX
-    runner's download of the live tiles, parallel/genome.py:695-725)."""
+    float32 tiles: (Restraints, ExactRestraints of (n, n) numpy) per
+    chromosome, n its true length, its rows gathered over its group's ranks
+    (the JAX runner's download of the live tiles, parallel/genome.py:695-725).
+    The assessment never reads bf16 targets: bfloat16 tiles raise."""
+    if tiles[0][0].target.dtype != torch.float32:
+        raise TypeError(f"assessment views need float32 tiles, got {tiles[0][0].target.dtype}")
     Cg = tiles[0][0].target.shape[0]
     raw, views = [], []
     for c, n in enumerate(lengths):
@@ -368,13 +380,33 @@ def bucket_views(tiles, lengths: Sequence[int]):
     return raw, views
 
 
+def _f32_views(matrices, L_pad: int, cfg: PipelineConfig, devices, stack, lengths):
+    """The assessment views of an at-scale bucket solved on bf16-stored
+    tiles, prepped again at float32 from its pad/stack (the JAX run_genome's
+    re-prep, parallel/genome.py:635-684): one chromosome on one device past
+    the one-shot limit streams each strip's final values to the host
+    (device_prep.assessment_view_from_if_streamed), every other bucket has
+    its float32 tiles built on the devices and downloaded (bucket_views)."""
+    rc = cfg.restraints
+    if (len(devices) == 1 and len(matrices) == 1
+            and device_prep.should_stream_prep(L_pad, devices[0], "float32")):
+        n = lengths[0]
+        p = auto_weight_exponent(n) if rc.weight_exponent is None else rc.weight_exponent
+        t, w = device_prep.assessment_view_from_if_streamed(
+            matrices[0], L_pad, rc, rc.weighting, p, n_true=n, device=devices[0])
+        return [restraints_from_exact_target(t)], [ExactRestraints(target=t, w=w)]
+    tiles = bucket_tiles_from_if(matrices, L_pad, rc, devices, stack=stack)[0]
+    return bucket_views(tiles, lengths)
+
+
 def bucket_peak_bytes(C: int, L_pad: int, cfg: PipelineConfig, nb: int = 1,
                       exact: bool = True) -> int:
     """Estimated device peak of an at-scale bucket of C chromosomes on one
     device of a group of nb: C one-device solves' peaks
-    (pipeline.solve_peak_bytes at 2 x models structures, exact or windowed),
-    a 1 / nb share of them where the rows are sharded, plus the scratch of
-    the pair kernel that runs once for the group's C x 2 x models
+    (pipeline.solve_peak_bytes at 2 x models structures, exact or windowed;
+    exact tiles at the width the device prep stores them, bfloat16 under
+    pair_bf16), a 1 / nb share of them where the rows are sharded, plus the
+    scratch of the pair kernel that runs once for the group's C x 2 x models
     structures: kernel B6's (exact), B5's or B5''s part / e_part
     (windowed)."""
     n_eff = pipeline._solve_structures(cfg)
@@ -384,7 +416,10 @@ def bucket_peak_bytes(C: int, L_pad: int, cfg: PipelineConfig, nb: int = 1,
     else:
         plan = general_pair.general_pair_plan(n_eff, L_pad, Lb)
         scratch = 4 * C * (math.prod(plan["part_shape"]) + math.prod(plan["e_part_shape"]))
-    return C * pipeline.solve_peak_bytes(L_pad, n_eff, exact) // nb + scratch
+    one = pipeline.solve_peak_bytes(L_pad, n_eff, exact,
+                                    stored=pipeline.solve_tile_dtype(cfg, exact),
+                                    pair_bf16=cfg.anneal.pair_bf16)
+    return C * one // nb + scratch
 
 
 def bucket_devices(C: int, L_pad: int, cfg: PipelineConfig, dev,
@@ -509,16 +544,26 @@ def run_genome(
         dense_views = None
         if from_if:
             # the IF matrices go straight to tiles on the device, exact by
-            # construction; the assessment views come from the live tiles
+            # construction; the assessment views come from float32 tiles
             matrices = [load_if_matrix(job.path) for job in bucket]
             cfg_b = auto_exact_matrix(cfg)
-            stack = bucket_stack(matrices, L_pad, devs)   # padded once, for every alpha
+            # padded once where a later prep reuses it: the float32 views
+            # after a pair_bf16 solve, the extra alphas' solves
+            stack = (bucket_stack(matrices, L_pad, devs)
+                     if cfg_b.anneal.pair_bf16 or cfg.alpha_ensemble else None)
             _phase("load_s")
             result, tiles, _ = solve_bucket_sharded_from_if(matrices, L_pad, cfg_b,
                                                             devices=devs, stack=stack)
             coords = result.coords.cpu().numpy()   # synchronises
-            raw, dense_views = bucket_views(tiles, [j.length for j in bucket])
-            del tiles
+            if cfg_b.anneal.pair_bf16:
+                # the solve read bf16-stored tiles: free them, then prep the
+                # views at float32, so the two tile sets never coexist
+                del tiles
+                raw, dense_views = _f32_views(matrices, L_pad, cfg_b, devs, stack,
+                                              [j.length for j in bucket])
+            else:
+                raw, dense_views = bucket_views(tiles, [j.length for j in bucket])
+                del tiles
         else:
             batched, bead_masks, matrices, raw = _stack_bucket(bucket, L_pad, cfg)
             cfg_b = cfg

@@ -42,7 +42,8 @@ def row_block_energy_grad(
     (B, Lb, 3)) of one row strip: the pair terms of rows [row_start,
     row_start + Lb) against every column, d = sqrt(s2), c / d, the
     soft-square well on [lo, hi] and the vdw repel with the global
-    |i - j| >= 2 predicate. Bond terms are the caller's."""
+    |i - j| >= 2 predicate; strips stored bf16 are widened a slab at a
+    time. Bond terms are the caller's."""
     B, L, _ = x.shape
     Lb = lo.shape[0]
     a = x[:, row_start:row_start + Lb]
@@ -58,7 +59,7 @@ def row_block_energy_grad(
     for c0 in range(0, L, Lc):
         xk = x[:, c0:c0 + Lc]
         bmk = bead_mask[c0:c0 + Lc]
-        lok, hik, wk = lo[:, c0:c0 + Lc], hi[:, c0:c0 + Lc], w[:, c0:c0 + Lc]
+        lok, hik, wk = (a[:, c0:c0 + Lc].float() for a in (lo, hi, w))
         s2 = torch.full((B, Lb, xk.shape[1]), _EPS, dtype=dt, device=dev)
         for ax in range(3):
             dc = a[:, :, ax, None] - xk[:, None, :, ax]

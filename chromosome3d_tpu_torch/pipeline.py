@@ -34,7 +34,12 @@ and B4).
 `PipelineConfig.anneal` passes through: with fuse_update=False or a
 nonzero angle_weight every solve above takes the unfused route (B2, B3 or
 B5 every step, B2' or B5' sharded, and the update in torch ops; see
-solver.unfused), as the JAX package's does.
+solver.unfused), as the JAX package's does. With pair_bf16 the exact
+kernels read bfloat16 tiles: cast in the solve at reference scale and from
+a restraint file, stored bf16 by the device prep past the buckets (one
+device or row strips), where the assessment view is prepped again at
+float32 after the solve's tiles are freed; solve_peak_bytes counts the
+tiles at their stored width.
 
 Artifacts match the JAX package byte for byte given the same coordinates
 and energies: `$ID.fasta`, `$ID.dist`, `$ID.rr`, `contact.tbl` (reference
@@ -215,20 +220,37 @@ _LANDMARK_STRIPS = 14
 _MDS_PLANES = 10
 
 
-def solve_peak_bytes(L_pad: int, B: int, exact: bool = True, device=None) -> int:
+def solve_tile_dtype(cfg: PipelineConfig, from_if: bool) -> str:
+    """The dtype a solve's restraint tiles are stored in: "bfloat16" where
+    the device prep builds them from the IF matrix under pair_bf16 (the JAX
+    package's out_dtype), "float32" everywhere else."""
+    return "bfloat16" if from_if and cfg.anneal.pair_bf16 else "float32"
+
+
+def solve_peak_bytes(L_pad: int, B: int, exact: bool = True, device=None,
+                     stored: str = "float32", pair_bf16: bool = False) -> int:
     """Estimated device peak of a one-device solve of B structures (the hot
     phase's, 2 x models with enantiomer pairs) at L_pad: the restraint tiles
-    (exact: target and w; windowed: lo, hi, mask, weight and the kernel's
-    folded w, twice at the pick) plus the largest of the phases they live
-    through: the start (landmark MDS's (8, 4096, L) sweep and its edge
-    strips past L = 2048, classical MDS's (L, L) planes below), the loop
-    (the pair kernel's scratch — B3's (B, 2S, 3, T * 64) partials, B5's
-    (B, splits, 3, L), B1's tiles — and the Adam state) and the final terms
-    (row-chunked from anneal.CHUNKED_TERMS_MIN_L, whole-matrix below). The
-    pick's kernel is the one use_triangular picks for B structures on
-    `device` (whose dispatch table entries decide)."""
+    (exact: target and w, at the width they are `stored`; windowed: lo, hi,
+    mask, weight and the kernel's folded w, twice at the pick; under
+    pair_bf16 float32 exact tiles gain the solve's bfloat16 copy, which
+    keeps the originals alive as the JAX in-program cast does) plus the
+    largest of the phases they live through: the start (landmark MDS's (8,
+    4096, L) sweep and its edge strips past L = 2048, classical MDS's (L, L)
+    planes below, and its float32 copy of bf16-stored tiles), the loop (the
+    pair kernel's scratch — B3's (B, 2S, 3, T * 64) partials, B5's (B,
+    splits, 3, L), B1's tiles folded in float32, and their bf16 cast under
+    pair_bf16 — and the Adam state) and the final terms (row-chunked from
+    anneal.CHUNKED_TERMS_MIN_L, whole-matrix below, where bf16-stored tiles
+    are read through a float32 copy). The pick's kernel is the one
+    use_triangular picks for B structures on `device` (whose dispatch table
+    entries decide)."""
     f, plane = 4, 4 * L_pad * L_pad
-    tiles = (2 if exact else 6) * plane
+    narrow = exact and device_prep.out_torch_dtype(stored) == torch.bfloat16
+    tiles = (2 if exact else 6) * plane // (2 if narrow else 1)
+    cast = exact and pair_bf16 and not narrow
+    if cast:
+        tiles += plane            # the bf16 (target, w) a semi or unfused solve reads
     if not exact:
         plan = general_pair.general_pair_plan(B, L_pad, L_pad)
         scratch = f * (math.prod(plan["part_shape"]) + math.prod(plan["e_part_shape"]))
@@ -236,16 +258,17 @@ def solve_peak_bytes(L_pad: int, B: int, exact: bool = True, device=None) -> int
         plan = tri_energy.tri_plan(B, L_pad, L_pad, tri_energy.TILE)
         scratch = f * (math.prod(plan["part_shape"]) + math.prod(plan["e_part_shape"]))
     else:
-        scratch = 3 * plane          # B1's tiles
+        # B1's tiles, folded in float32; their bf16 copies join them at the cast
+        scratch = 3 * plane + (3 * plane // 2 if pair_bf16 else 0)
     loop = scratch + f * _STATE_ARRAYS * 3 * B * L_pad
     if L_pad >= 2048:
         init = f * _LANDMARK_STRIPS * min(4096, L_pad) * L_pad
     else:
-        init = _MDS_PLANES * plane
+        init = _MDS_PLANES * plane + (2 * plane if narrow else 0)
     if L_pad >= anneal.CHUNKED_TERMS_MIN_L:
         terms = f * _CHUNKED_TERMS_LIVE * B * _pick_row_chunk(L_pad) * L_pad
     else:
-        terms = _DENSE_TERMS_LIVE * B * plane
+        terms = _DENSE_TERMS_LIVE * B * plane + (2 * plane if narrow else 0)
     return tiles + max(init, loop, terms)
 
 
@@ -253,18 +276,22 @@ def _solve_structures(cfg: PipelineConfig) -> int:
     return cfg.model_count * (2 if cfg.anneal.enantiomer else 1)
 
 
-def _one_device_shortfall(L_pad: int, cfg: PipelineConfig, exact: bool, dev):
+def _one_device_shortfall(L_pad: int, cfg: PipelineConfig, exact: bool, dev,
+                          from_if: bool = False):
     """(bytes the one-device solve lacks on `dev` (<= 0 when it fits), the
-    estimate, the device's memory)."""
-    need = solve_peak_bytes(L_pad, _solve_structures(cfg), exact, dev)
+    estimate, the device's memory); from_if: its tiles come from the device
+    prep (stored bf16 under pair_bf16)."""
+    need = solve_peak_bytes(L_pad, _solve_structures(cfg), exact, dev,
+                            solve_tile_dtype(cfg, from_if), cfg.anneal.pair_bf16)
     have = _memory_bytes(torch.device(dev))
     return need - have, need, have
 
 
-def _refuse_past_memory(L_pad: int, cfg: PipelineConfig, exact: bool, dev) -> None:
+def _refuse_past_memory(L_pad: int, cfg: PipelineConfig, exact: bool, dev,
+                        from_if: bool = False) -> None:
     """Raise RuntimeError before any device work where the one-device solve
     would not fit `dev`."""
-    short, need, have = _one_device_shortfall(L_pad, cfg, exact, dev)
+    short, need, have = _one_device_shortfall(L_pad, cfg, exact, dev, from_if)
     if short > 0:
         raise RuntimeError(
             f"a one-device solve of {_solve_structures(cfg)} structures at L_pad="
@@ -274,20 +301,23 @@ def _refuse_past_memory(L_pad: int, cfg: PipelineConfig, exact: bool, dev) -> No
             "(device.shard_devices)")
 
 
-def _use_sharded(L: int, cfg: PipelineConfig, dev=None, exact: bool = True) -> bool:
+def _use_sharded(L: int, cfg: PipelineConfig, dev=None, exact: bool = True,
+                 from_if: bool = False) -> bool:
     """Row-shard the solve when L exceeds every length bucket, there is
     more than one shard device, and the one-device solve at the bucket
     padding would not fit `dev` (the first shard device when None):
-    solve_peak_bytes against its memory. The JAX package shards whenever
-    it has more than one device; on the card, a solve that fits one device
-    is faster there."""
+    solve_peak_bytes against its memory (from_if: the tiles stored as the
+    device prep stores them). The JAX package shards whenever it has more
+    than one device; on the card, a solve that fits one device is faster
+    there."""
     if not (cfg.shard_large and L > max(cfg.length_buckets)):
         return False
     devices = device_mod.shard_devices()
     if len(devices) < 2:
         return False
     L_pad, _ = _bucket_pad(L, cfg)
-    return _one_device_shortfall(L_pad, cfg, exact, devices[0] if dev is None else dev)[0] > 0
+    return _one_device_shortfall(L_pad, cfg, exact, devices[0] if dev is None else dev,
+                                 from_if)[0] > 0
 
 
 def _shard_pad(L: int, cfg: PipelineConfig, group: ShardGroup):
@@ -299,17 +329,18 @@ def _shard_pad(L: int, cfg: PipelineConfig, group: ShardGroup):
     return L_pad, bead_mask
 
 
-def _solve_layout(L: int, cfg: PipelineConfig, dev: torch.device, exact: bool):
+def _solve_layout(L: int, cfg: PipelineConfig, dev: torch.device, exact: bool,
+                  from_if: bool = False):
     """(shard group or None, the solve's lead device, L_pad, bead mask or
     None): the row-sharded layout over device.shard_devices() where
     _use_sharded holds (its lead device replaces `dev`), else the bucket
     padding on `dev`, refused (RuntimeError) where that solve would not
-    fit."""
-    if _use_sharded(L, cfg, dev, exact):
+    fit (from_if: tiles from the device prep)."""
+    if _use_sharded(L, cfg, dev, exact, from_if):
         group = ShardGroup(device_mod.shard_devices())
         return (group, group.lead, *_shard_pad(L, cfg, group))
     L_pad, bead_mask = _bucket_pad(L, cfg)
-    _refuse_past_memory(L_pad, cfg, exact, dev)
+    _refuse_past_memory(L_pad, cfg, exact, dev, from_if)
     return None, dev, L_pad, bead_mask
 
 
@@ -348,7 +379,9 @@ def _assessment_view_from_if(if_padded, rc, L_pad: int, n_true: int, device):
     again and its (L, L) corner downloaded — (Restraints view, exact-form
     numpy view) — instead of the float64 host prep passes; streamed strip
     by strip where the one-shot prep would take more than a quarter of the
-    device (the JAX package streams past its budget the same way)."""
+    device (the JAX package streams past its budget the same way). Always
+    float32: after a pair_bf16 solve the caller has freed the bf16 tiles
+    first, so the two tile sets never coexist."""
     p = _weight_exponent(rc, n_true)
     if device_prep.should_stream_prep(L_pad, device):
         target, w = device_prep.assessment_view_from_if_streamed(
@@ -453,15 +486,18 @@ def run_pipeline(
     _mark("load_s")
     L = if_matrix.shape[0]
     banner(log, f"L          : {L}")
-    # matrix-derived restraints are exact wherever the well is pure-quadratic
-    group, dev, L_pad, bead_mask = _solve_layout(L, cfg, dev,
-                                                 _exact_provable(auto_exact_matrix(cfg)))
     # beyond every bucket matrix-derived exact restraints take the device
     # route end to end: no O(L^2) float64 host pass and no O(L^2) text
     # artifact (a .dist file there is gigabytes of text)
     device_route = L > max(cfg.length_buckets) and _exact_provable(
         auto_exact_matrix(cfg)
     )
+    # matrix-derived restraints are exact wherever the well is pure-quadratic
+    group, dev, L_pad, bead_mask = _solve_layout(L, cfg, dev,
+                                                 _exact_provable(auto_exact_matrix(cfg)),
+                                                 device_route)
+    # pair_bf16 past the buckets: the prep stores the solve's tiles as bf16
+    tile_dtype = solve_tile_dtype(cfg, device_route)
     with open(os.path.join(dir_out, f"{ident}.fasta"), "w") as f:
         f.write(f">{ident}\n{'M' * L}\n")
     restraints = dense = n_tbl = if_dev = None
@@ -510,7 +546,7 @@ def run_pipeline(
             if device_route:
                 solve_r = device_prep.exact_tiles_from_if_device(
                     if_dev, L_pad, rc, rc.weighting, _weight_exponent(rc, L),
-                    n_true=L, device=dev, group=group,
+                    n_true=L, device=dev, group=group, out_dtype=tile_dtype,
                 )
                 _synchronize(group.devices if group else [dev])
                 _mark("device_prep_s")
@@ -543,7 +579,7 @@ def run_pipeline(
             if device_route:
                 solve_x = device_prep.exact_tiles_from_if_device(
                     if_dev, L_pad, rc_x, rc_x.weighting, _weight_exponent(rc_x, L),
-                    n_true=L, device=dev, group=group,
+                    n_true=L, device=dev, group=group, out_dtype=tile_dtype,
                 )
                 _synchronize(group.devices if group else [dev])
                 _mark("device_prep_s")

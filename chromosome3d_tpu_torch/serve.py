@@ -121,7 +121,9 @@ class SolverCache:
         device_prep.should_stream_prep says so), no host restraint pass, and
         after the solve the host views rebuilt on the device and
         downloaded. Row-sharded where pipeline._use_sharded says so (the
-        padded length recorded is the one solved). The draws come from a
+        padded length recorded is the one solved). Under pair_bf16 the
+        prep stores the solve's tiles as bfloat16, and the views are
+        prepped at float32 after those are freed. The draws come from a
         generator seeded cfg.seed, as run_pipeline's, so a served request
         writes what `run` writes on the same matrix and config."""
         import numpy as np
@@ -146,22 +148,25 @@ class SolverCache:
             cfg = pl.auto_exact(cfg, r)  # matrix-derived restraints: exact routes
         exact = pl._exact_provable(cfg)
         dev, group = self.device, None
-        if pl._use_sharded(L, cfg, dev, exact):
+        if pl._use_sharded(L, cfg, dev, exact, device_route):
             group = ShardGroup(device_mod.shard_devices())
             dev = group.lead
             L_pad, bead_mask = pl._shard_pad(L, cfg, group)
         else:
             L_pad = self.bucket_for(L)
-            pl._refuse_past_memory(L_pad, cfg, exact, dev)
+            pl._refuse_past_memory(L_pad, cfg, exact, dev, device_route)
             bead_mask = None
             if L_pad != L:
                 bead_mask = (np.arange(L_pad) < L).astype(np.float32)
         if device_route:
             # padded once: the solve's prep and the assessment view read it
             if_dev = device_prep.pad_f32(matrix, L_pad)
+            # pair_bf16: the solve's tiles stored bf16; the assessment view
+            # below is a float32 prep of its own
             solve_r = device_prep.exact_tiles_from_if_device(
                 if_dev, L_pad, rc, rc.weighting, pl._weight_exponent(rc, L),
                 n_true=L, device=dev, group=group,
+                out_dtype=pl.solve_tile_dtype(cfg, True),
             )
         else:
             solve_r = pl._padded_dense(r, rc, L_pad, exact, dev)

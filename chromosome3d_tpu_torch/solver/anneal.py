@@ -39,6 +39,14 @@ term, then the clip, optax's Adam, noise drawn on the device and the move
 in torch ops (solver.unfused). `solve_single` runs the same step on one
 structure.
 
+AnnealConfig.pair_bf16 (exact restraints only; the windowed routes ignore
+it, as the JAX package's do): the pair kernels read bfloat16 restraint
+tiles, cast once a solve where the JAX solver casts them (`_solve_stack`:
+B1's folded tiles, the semi route's, the unfused route's and the pick's),
+or as the prep stored them (at scale). The init and the final terms read
+the restraints in float32 (widened where they are stored bf16).
+`solve_single` casts nothing, as the JAX one does not.
+
 Routes (`step_route`): the JAX package's dispatch, `fused_step_feasible`
 and `tri_energy.use_triangular` with its measured table where one exists
 (ops.calibrate) and its frozen defaults elsewhere, asked with the
@@ -64,6 +72,7 @@ from chromosome3d_tpu_torch.ops.energy import (
     energy_terms_chunked,
     f32,
     or_group_energy_grad,
+    widened,
 )
 from chromosome3d_tpu_torch.ops.fused_step import (
     TABLE_COLS,
@@ -76,6 +85,7 @@ from chromosome3d_tpu_torch.ops.fused_step import (
 from chromosome3d_tpu_torch.ops.fused_update import fused_update_table, step_counter
 from chromosome3d_tpu_torch.ops.general_pair import general_pair_energy_grad
 from chromosome3d_tpu_torch.ops.pair_energy import (
+    as_tile_dtype,
     pair_energy_and_grad_batched,
     pair_tiles,
 )
@@ -208,10 +218,6 @@ def schedule_table(cfg: AnnealConfig, seed: int,
 
 def _refuse_unported(cfg: AnnealConfig) -> None:
     """The options the port cannot run yet, each named."""
-    if cfg.pair_bf16:
-        raise NotImplementedError(
-            "pair_bf16 tiles are not ported (ROADMAP: port-side pair_bf16)"
-        )
     if cfg.gram_d2:
         raise NotImplementedError("gram_d2 is not ported (ROADMAP: do not port)")
 
@@ -240,7 +246,9 @@ def _draws(restraints, cfg: AnnealConfig, n_models: int, bead_mask: torch.Tensor
             if init == "auto":
                 init = "mds" if L < 2048 else "landmark"
             if init == "mds":
-                x0 = mds_init(restraints, bond_length=cfg.bond_length,
+                # bf16-stored tiles: the embed's math runs on a float32 copy
+                # (the small-L route); landmark_init widens its row strips
+                x0 = mds_init(widened(restraints), bond_length=cfg.bond_length,
                               unknown_fill=cfg.mds_unknown_fill,
                               bead_mask=bead_mask,
                               two_sided=cfg.embed_two_sided)
@@ -325,6 +333,9 @@ def _solve_stack(rs, stacked, cfg: AnnealConfig, n_models: int, bead_masks: torc
     C, n_eff, L = xs.shape[0], xs.shape[1], xs.shape[2]
     dev = xs.device
     exact = cfg.exact_restraints and cfg.noe_rswitch >= 1e8
+    # pair_bf16 on an exact route: the pair kernels read bf16 tiles (the JAX
+    # solver's `bf16=cfg.pair_bf16 and exact`)
+    bf16 = cfg.pair_bf16 and exact
     route = step_route(cfg, L, or_groups, n_eff, dev)
     fused, unfused = route == "fused", route == "unfused"
     if C > 1 and or_groups is not None:
@@ -350,11 +361,14 @@ def _solve_stack(rs, stacked, cfg: AnnealConfig, n_models: int, bead_masks: torc
     # the restraints and masks of the pair kernels and B4: one chromosome's,
     # or the stack's (the kernels' chromosome axis, a seed a chromosome)
     pick_r, pick_bm = (rs[0], bead_masks[0]) if C == 1 else (stacked, bead_masks)
+    pick_tiles = None   # the pick folds its own tiles, unless the semi route's serve
 
     if fused:
         # the fused route: a phase of the schedule is one call of kernel B1,
         # which walks the table's rows itself, every chromosome in one launch
-        tiles = [fused_step_tiles(r, bm, base.noe) for r, bm in zip(rs, bead_masks)]
+        # (pair_bf16: each chromosome's tiles cast after the fold)
+        tiles = [as_tile_dtype(fused_step_tiles(r, bm, base.noe), bf16)
+                 for r, bm in zip(rs, bead_masks)]
         tiles = tuple(a[0][None] if C == 1 else torch.stack(a) for a in zip(*tiles))
 
         def run(k0: int, k1: int, xT, muT, nuT, hist):
@@ -368,7 +382,7 @@ def _solve_stack(rs, stacked, cfg: AnnealConfig, n_models: int, bead_masks: torc
         # or-group term, then the clip, Adam, noise and move in torch ops,
         # each chromosome with its mask and its own noise stream
         noise = [None] * C if noise is None else noise
-        steps = unfused_steps(_energy_grad(pick_r, exact, pick_bm, or_groups), table,
+        steps = unfused_steps(_energy_grad(pick_r, exact, pick_bm, or_groups, bf16), table,
                               pick_bm, cfg.gradient_clip,
                               StackedNoise([NoiseStream(dev, s, d)
                                             for s, d in zip(noise_seeds, noise)]))
@@ -378,8 +392,9 @@ def _solve_stack(rs, stacked, cfg: AnnealConfig, n_models: int, bead_masks: torc
     else:
         # the semi routes: pair terms in kernel B3 (exact) or B5 (general),
         # the or-group term added, the update in kernel B4, each one launch a
-        # step for the whole stack; the tiles are folded once, outside the loop
-        semi_tiles = pair_tiles(pick_r, exact)
+        # step for the whole stack; the tiles are folded (and under pair_bf16
+        # cast) once, outside the loop, and serve the pick too
+        semi_tiles = pick_tiles = pair_tiles(pick_r, exact, bf16)
         pair_grad = tri_energy.tri_energy_grad if exact else general_pair_energy_grad
         bead_mask = pick_bm
 
@@ -415,7 +430,8 @@ def _solve_stack(rs, stacked, cfg: AnnealConfig, n_models: int, bead_masks: torc
         # table asked with a chromosome's structures)
         coords = coords_of(xT).contiguous()
         w_hot = table.weights(hot - 1)
-        e_hot, _ = pair_energy_and_grad_batched(coords, pick_r, w_hot, pick_bm, exact)
+        e_hot, _ = pair_energy_and_grad_batched(coords, pick_r, w_hot, pick_bm, exact,
+                                                pick_tiles, bf16=bf16)
         if or_groups is not None:
             e_hot = e_hot + or_group_energy_grad(coords, or_groups, w_hot, pick_bm)[0]
         choice = torch.argmin(e_hot.reshape(C, n_models, 2), dim=2)
@@ -444,16 +460,18 @@ def _solve_stack(rs, stacked, cfg: AnnealConfig, n_models: int, bead_masks: torc
         history=history.T.reshape(C, n, T), pick=pick)
 
 
-def _energy_grad(restraints, exact: bool, bead_mask: torch.Tensor, or_groups):
+def _energy_grad(restraints, exact: bool, bead_mask: torch.Tensor, or_groups,
+                 bf16: bool = False):
     """Every unfused step's (energies (B,), gradients (B, L, 3)) of (B, L,
     3) coords: the pair kernel with the bonded terms
-    (pair_energy_and_grad_batched, its tiles folded once here) and the
+    (pair_energy_and_grad_batched, its tiles folded once here, bfloat16
+    under bf16) and the
     or-group term where given. Restraints of (C, L, L) tensors with (C, L)
     bead masks hold C chromosomes of B / C structures each. B3 or B2 is
     decided once for each batch size (before and after the pick), asked
     with a chromosome's structures, as the JAX package's trace of each
     phase under the genome vmap decides it."""
-    tiles = pair_tiles(restraints, exact)
+    tiles = pair_tiles(restraints, exact, bf16)
     tri: Dict[int, bool] = {}
     C = bead_mask.shape[0] if bead_mask.dim() == 2 else 1
 

@@ -36,6 +36,12 @@ the route's pair kernel (B6, B2' or B5') runs once on each rank and B4 once
 on the lead for all of the group's chromosomes, each with its own strips,
 bead mask and noise seed; on the unfused route each with its own bonded
 terms, bead mask and noise stream.
+
+AnnealConfig.pair_bf16, as the JAX shard body has it: the strip route casts
+its strips to bfloat16 for B6 (a no-op for strips the prep stored bf16);
+B2' reads the strips as they are stored, bf16 only where the prep stored
+them so; B5' and the windowed routes ignore the flag. The landmark start
+and the final terms read the strips widened to float32.
 """
 
 from __future__ import annotations
@@ -100,7 +106,8 @@ def restraint_strips(group: ShardGroup, restraints) -> List:
 class _Tiles:
     """One rank's strip tiles: lo (the target for exact restraints), hi and
     the folded weight w, each (Lb, L) on the rank's device, or (C, Lb, L)
-    for C chromosomes."""
+    for C chromosomes; float32, or bfloat16 where the prep stored them so
+    or the strip route casts them (pair_bf16)."""
 
     lo: torch.Tensor
     hi: torch.Tensor
@@ -108,19 +115,34 @@ class _Tiles:
     row_start: int
 
 
-def _tiles(group: ShardGroup, strips: Sequence, L: int) -> List[_Tiles]:
+def _tiles(group: ShardGroup, strips: Sequence, L: int, dtype=None) -> List[_Tiles]:
+    """Each rank's _Tiles, in the strips' stored dtype, or in `dtype`."""
     out = []
     for r, s in enumerate(strips):
         lo, w = exact_pair_tiles(s)
-        out.append(_Tiles(lo.float().contiguous(), s.hi.float().contiguous(),
-                          w.float().contiguous(), group.row_start(r, L)))
+        hi = s.hi
+        if dtype is not None:
+            lo, hi, w = (a.to(dtype) for a in (lo, hi, w))
+        out.append(_Tiles(lo.contiguous(), hi.contiguous(), w.contiguous(),
+                          group.row_start(r, L)))
     return out
 
 
-def _one_chromosome_tiles(group: ShardGroup, strips: Sequence, L: int) -> List[_Tiles]:
+def _one_chromosome_tiles(group: ShardGroup, strips: Sequence, L: int,
+                          dtype=None) -> List[_Tiles]:
     """_tiles of (Lb, L) strips, with a chromosome axis of 1."""
     return [dataclasses.replace(t, lo=t.lo[None], hi=t.hi[None], w=t.w[None])
-            for t in _tiles(group, strips, L)]
+            for t in _tiles(group, strips, L, dtype)]
+
+
+def _kernel_tiles(tiles: List[_Tiles], cfg: AnnealConfig, route: str) -> List[_Tiles]:
+    """The tiles the pair kernels read: on the strip route under pair_bf16,
+    lo and w cast to bfloat16 for B6 (JAX sharded.py:458-462; no copy for
+    strips stored bf16); the stored tiles everywhere else."""
+    if route != "strip" or not cfg.pair_bf16:
+        return tiles
+    return [dataclasses.replace(t, lo=t.lo.to(torch.bfloat16).contiguous(),
+                                w=t.w.to(torch.bfloat16).contiguous()) for t in tiles]
 
 
 def sharded_landmark_init(group: ShardGroup, strips: Sequence, bead_mask: torch.Tensor,
@@ -130,8 +152,9 @@ def sharded_landmark_init(group: ShardGroup, strips: Sequence, bead_mask: torch.
     ranks; two-sided (cfg.embed_two_sided), the upper sweeps run through hi
     and the landmark rows' lower bounds rise by one inverse-triangle sweep,
     max-reduced, before the restrained targets are clipped into their
-    windows. Edges come from the folded weight (w > 0). Returns (L, 3) on
-    the lead device, padding rows zero."""
+    windows. Edges come from the folded weight (w > 0); targets are read
+    widened to float32 (strips stored bf16). Returns (L, 3) on the lead
+    device, padding rows zero."""
     lead = group.lead
     L = strips[0].lo.shape[1]
     tiles = _tiles(group, strips, L)
@@ -147,7 +170,7 @@ def sharded_landmark_init(group: ShardGroup, strips: Sequence, bead_mask: torch.
         rows = t.row_start + torch.arange(Lb, device=dev)[:, None]
         cols = torch.arange(L, device=dev)[None, :]
         real = (bead[t.row_start:t.row_start + Lb, None] * bead[None, :]) > 0
-        target = t.hi if cfg.embed_two_sided else 0.5 * (t.lo + t.hi)
+        target = t.hi.float() if cfg.embed_two_sided else 0.5 * (t.lo.float() + t.hi.float())
         e = torch.where(t.w > 0, target, torch.full_like(target, _BIG))
         e = torch.where(((rows - cols).abs() == 1) & real,
                         torch.clamp_max(e, cfg.bond_length), e)
@@ -163,7 +186,8 @@ def sharded_landmark_init(group: ShardGroup, strips: Sequence, bead_mask: torch.
         for d, li, t, real in zip(group.broadcast(delta), group.broadcast(lidx), tiles,
                                   pair_real):
             mask_rows = (t.w > 0).to(d.dtype) * real.to(d.dtype)
-            lo_rows = torch.where(mask_rows > 0, t.lo.to(d.dtype), torch.zeros_like(t.lo))
+            lo32 = t.lo.to(d.dtype)
+            lo_rows = torch.where(mask_rows > 0, lo32, torch.zeros_like(lo32))
             lrel = li - t.row_start
             own = ((lrel >= 0) & (lrel < Lb))[:, None]
             lsafe = torch.clamp(lrel, 0, Lb - 1)
@@ -289,8 +313,12 @@ def _group_body(group: ShardGroup, tiles: List[_Tiles], bead_masks: torch.Tensor
     T = len(table.rows)
     step_weights = [table.weights(k) for k in range(T)]
 
+    # the pair kernels' tiles (bf16 on the strip route under pair_bf16); the
+    # final terms read the stored ones
+    ktiles = _kernel_tiles(tiles, cfg, route)
+
     def pair_T(xT, weights):
-        return _pair_rows(group, tiles, beads, xT, weights, exact, route)
+        return _pair_rows(group, ktiles, beads, xT, weights, exact, route)
 
     # kernel B4 reads its step from a device counter on the lead, its
     # scalars from the table's rows there and each chromosome's noise seed
@@ -563,7 +591,8 @@ def solve_single_sharded(
         raise ValueError(f"strips must be ({L // n}, {L}) each")
     _refuse_unported(cfg)
     lead = group.lead
-    tiles = _one_chromosome_tiles(group, strips, L)
+    # B5' reads float32 strips (strips stored bf16 are widened once)
+    tiles = _one_chromosome_tiles(group, strips, L, torch.float32)
     if bead_mask is None:
         bead_mask = torch.ones(L, dtype=torch.float32, device=lead)
     bead_mask = bead_mask.to(device=lead, dtype=torch.float32).contiguous()

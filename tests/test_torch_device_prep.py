@@ -45,7 +45,7 @@ def test_prep_matches_host_and_jax(weighting):
     p = auto_weight_exponent(L)
     host = exact_restraints_from_numpy(build_restraints(m, rc).padded(L_pad), weighting, p)
     jx = jax_prep.exact_tiles_from_if_device(m, L_pad, rc, weighting, p)
-    got = device_prep.exact_tiles_from_if_device(m, L_pad, rc, weighting, p)
+    got = device_prep.exact_tiles_from_if_device(m, L_pad, rc, weighting, p, device="cpu")
     assert got.target.dtype == got.w.dtype == torch.float32
     t, w = got.target.numpy(), got.w.numpy()
     dist64 = np.zeros((L_pad, L_pad))
@@ -75,7 +75,7 @@ def test_prep_separation_zero_excludes_diagonal():
     m = _matrix(64)
     p = auto_weight_exponent(64)
     host = exact_restraints_from_numpy(build_restraints(m, rc), rc.weighting, p)
-    got = device_prep.exact_tiles_from_if_device(m, 64, rc, rc.weighting, p)
+    got = device_prep.exact_tiles_from_if_device(m, 64, rc, rc.weighting, p, device="cpu")
     t = got.target.numpy()
     assert not np.diagonal(t).any()
     dist64 = if_to_dist(m, rc)
@@ -96,9 +96,9 @@ def test_pad_f32_and_true_length():
     rc = RestraintConfig()
     m = _matrix(60)
     p = auto_weight_exponent(60)
-    a = device_prep.exact_tiles_from_if_device(m, 64, rc, rc.weighting, p)
+    a = device_prep.exact_tiles_from_if_device(m, 64, rc, rc.weighting, p, device="cpu")
     b = device_prep.exact_tiles_from_if_device(device_prep.pad_f32(m, 64), 64, rc,
-                                               rc.weighting, p, n_true=60)
+                                               rc.weighting, p, n_true=60, device="cpu")
     assert torch.equal(a.target, b.target) and torch.equal(a.w, b.w)
 
 
@@ -108,11 +108,11 @@ def test_streamed_prep_is_refused(monkeypatch):
     relative weights to the normaliser's summation order."""
     assert not device_prep.should_stream_prep(5120, "cpu")
     one = device_prep.exact_tiles_from_if_device(_matrix(60), 64, RestraintConfig(),
-                                                 "relative", 1.0)
+                                                 "relative", 1.0, device="cpu")
     monkeypatch.setattr(device_prep, "_memory_bytes",
                         lambda dev: 4 * device_prep.prep_peak_bytes(64) - 1)
     assert device_prep.should_stream_prep(64, "cpu")
     st = device_prep.exact_tiles_from_if_device(_matrix(60), 64, RestraintConfig(),
-                                                "relative", 1.0)
+                                                "relative", 1.0, device="cpu")
     assert torch.equal(st.target, one.target)
     np.testing.assert_allclose(st.w.numpy(), one.w.numpy(), rtol=3e-6, atol=1e-8)

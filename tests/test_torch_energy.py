@@ -86,8 +86,8 @@ def test_energy_terms_match_jax(L, n_real, alpha, rswitch, angle):
 
 def test_exact_form_views_match_dense():
     r, rng = _restraints(30, 30, 0.5)
-    ex = port_energy.exact_restraints_from_numpy(r)
-    de = port_energy.dense_restraints_from_numpy(r)
+    ex = port_energy.exact_restraints_from_numpy(r, device="cpu")
+    de = port_energy.dense_restraints_from_numpy(r, device="cpu")
     assert torch.equal(ex.lo, de.lo) and torch.equal(ex.hi, de.hi)
     assert torch.equal(ex.mask, de.mask)
     assert torch.equal(ex.mask * ex.weight, de.mask * de.weight)

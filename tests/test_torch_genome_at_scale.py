@@ -139,14 +139,15 @@ def test_bucket_prep_matches_jax(weighting):
     mats = [_matrix(L, k) for k, (_, L) in enumerate(LARGE)]
     ps = [auto_weight_exponent(m.shape[0]) for m in mats]
     ref = jax_prep.exact_tiles_from_if_batched_device(mats, 96, rc, weighting, ps)
-    got = device_prep.exact_tiles_from_if_batched_device(mats, 96, rc, weighting, ps)
+    got = device_prep.exact_tiles_from_if_batched_device(mats, 96, rc, weighting, ps,
+                                                         device="cpu")
     again = device_prep.exact_tiles_from_if_batched_device(
-        mats, 96, rc, weighting, ps, stack=device_prep.pad_stack(mats, 96))
+        mats, 96, rc, weighting, ps, stack=device_prep.pad_stack(mats, 96), device="cpu")
     assert got.target.shape == (3, 96, 96)
     assert torch.equal(got.target, again.target) and torch.equal(got.w, again.w)
     for c, m in enumerate(mats):
         n = m.shape[0]
-        one = device_prep.exact_tiles_from_if_device(m, 96, rc, weighting, ps[c])
+        one = device_prep.exact_tiles_from_if_device(m, 96, rc, weighting, ps[c], device="cpu")
         assert torch.equal(one.target, got.target[c]) and torch.equal(one.w, got.w[c])
         dist64 = np.zeros((96, 96))
         dist64[:n, :n] = if_to_dist(m, rc)
@@ -158,7 +159,7 @@ def test_bucket_prep_matches_jax(weighting):
         assert not t[n:].any() and not t[:, n:].any()
     with pytest.raises(ValueError, match="prebuilt stack"):
         device_prep.exact_tiles_from_if_batched_device(
-            mats, 96, rc, weighting, ps, stack=np.zeros((3, 64, 64), np.float32))
+            mats, 96, rc, weighting, ps, stack=np.zeros((3, 64, 64), np.float32), device="cpu")
 
 
 def test_bucket_prep_streams_one_chromosome(monkeypatch):
@@ -168,19 +169,23 @@ def test_bucket_prep_streams_one_chromosome(monkeypatch):
     rc = RestraintConfig(alpha=0.5)
     m = _matrix(90, 0)
     p = auto_weight_exponent(90)
-    one = device_prep.exact_tiles_from_if_batched_device([m], 96, rc, "relative", [p])
+    one = device_prep.exact_tiles_from_if_batched_device([m], 96, rc, "relative", [p],
+                                                         device="cpu")
     calls = []
     real = device_prep.exact_tiles_from_if_streamed
-    monkeypatch.setattr(device_prep, "should_stream_prep", lambda L, dev: True)
+    monkeypatch.setattr(device_prep, "should_stream_prep",
+                        lambda L, dev, out_dtype="float32": True)
     monkeypatch.setattr(device_prep, "exact_tiles_from_if_streamed",
                         lambda *a, **k: calls.append(a[1]) or real(*a, **k))
-    st = device_prep.exact_tiles_from_if_batched_device([m], 96, rc, "relative", [p])
+    st = device_prep.exact_tiles_from_if_batched_device([m], 96, rc, "relative", [p],
+                                                        device="cpu")
     assert calls == [96] and st.target.shape == (1, 96, 96)
     assert torch.equal(st.target, one.target)
     np.testing.assert_allclose(st.w.numpy(), one.w.numpy(), rtol=3e-6, atol=1e-8)
     # two chromosomes never stream
     calls.clear()
-    device_prep.exact_tiles_from_if_batched_device([m, m], 96, rc, "relative", [p, p])
+    device_prep.exact_tiles_from_if_batched_device([m, m], 96, rc, "relative", [p, p],
+                                                   device="cpu")
     assert calls == []
 
 
@@ -195,7 +200,8 @@ def _strip_case(C, L, n, seed):
     lengths = [L - 3 * c - 2 for c in range(C)]
     mats = [_matrix(Lc, seed + c) for c, Lc in enumerate(lengths)]
     ps = [auto_weight_exponent(Lc) for Lc in lengths]
-    tiles = device_prep.exact_tiles_from_if_batched_device(mats, L, rc, "relative", ps)
+    tiles = device_prep.exact_tiles_from_if_batched_device(mats, L, rc, "relative", ps,
+                                                           device="cpu")
     masks = np.zeros((C, L), np.float32)
     for c, Lc in enumerate(lengths):
         masks[c, :Lc] = 1.0
@@ -566,7 +572,8 @@ def test_run_genome_streams_one_chromosome(tmp_path, monkeypatch):
     port_cfg, _ = _cfgs()
     calls = []
     real = device_prep.exact_tiles_from_if_streamed
-    monkeypatch.setattr(device_prep, "should_stream_prep", lambda L, dev: True)
+    monkeypatch.setattr(device_prep, "should_stream_prep",
+                        lambda L, dev, out_dtype="float32": True)
     monkeypatch.setattr(device_prep, "exact_tiles_from_if_streamed",
                         lambda *a, **k: calls.append(a[1]) or real(*a, **k))
     got = port_genome.run_genome(genome_dir, str(tmp_path / "out"), port_cfg, device="cpu")

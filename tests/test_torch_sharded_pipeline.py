@@ -82,7 +82,7 @@ def test_sharded_device_prep_matches_one_shot():
     m = if_from_structure(X, 0.5, 0.1, 3)
     rc = RestraintConfig()
     for weighting in ("relative", "absolute"):
-        one = device_prep.exact_tiles_from_if_device(m, 128, rc, weighting, 1.0)
+        one = device_prep.exact_tiles_from_if_device(m, 128, rc, weighting, 1.0, device="cpu")
         strips = device_prep.exact_tiles_from_if_device(m, 128, rc, weighting, 1.0,
                                                         group=ShardGroup(["cpu"] * 4))
         assert len(strips) == 4 and all(s.target.shape == (32, 128) for s in strips)

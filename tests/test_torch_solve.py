@@ -121,10 +121,12 @@ def test_solve_with_noise_matches_jax_fused(case):
 
 
 def test_solve_refuses_unported_routes(case):
-    """pair_bf16 and gram_d2 are refused; fuse_update=False and the angle
-    term (once refused as unported) run the unfused route: B2 every step
-    and for the pick, no B1 or B4 (tests/test_torch_unfused.py holds it
-    against the JAX package)."""
+    """gram_d2 is refused; fuse_update=False and the angle term (once
+    refused as unported) run the unfused route: B2 every step and for the
+    pick, no B1 or B4 (tests/test_torch_unfused.py holds it against the JAX
+    package); pair_bf16 (once refused as unported) runs the fused route on
+    bf16 tiles (tests/test_torch_bf16_solve.py holds it against the JAX
+    package)."""
     _, r_t, bead, _, cfg = case
     bm = torch.from_numpy(bead)
     for opt in (dict(fuse_update=False), dict(angle_weight=0.1)):
@@ -138,11 +140,16 @@ def test_solve_refuses_unported_routes(case):
         assert res.coords.shape == (N_MODELS, L, 3) and torch.isfinite(res.coords).all()
         assert all(torch.isfinite(v).all() for v in res.energies.values())
         assert res.history.shape == (N_MODELS, cfg.total_steps)
-    for bad in (dict(pair_bf16=True), dict(gram_d2=True)):
-        with pytest.raises(NotImplementedError):
-            port_anneal.solve_ensemble_impl(
-                r_t, dataclasses.replace(cfg, **bad), N_MODELS, bm
-            )
+    with pytest.raises(NotImplementedError):
+        port_anneal.solve_ensemble_impl(
+            r_t, dataclasses.replace(cfg, gram_d2=True), N_MODELS, bm
+        )
+    before = fused_step_plain.calls
+    res = port_anneal.solve_ensemble_impl(r_t, dataclasses.replace(cfg, pair_bf16=True),
+                                          N_MODELS, bm)
+    assert fused_step_plain.calls - before == cfg.total_steps
+    assert torch.isfinite(res.coords).all()
+    assert all(torch.isfinite(v).all() for v in res.energies.values())
 
 
 @pytest.mark.parametrize("init", ["mds", "landmark"])

@@ -62,9 +62,9 @@ def test_streamed_tiles_bit_equal_absolute(L, L_pad, S):
     rc = RestraintConfig(alpha=1.0)
     m = _integer_matrix(L)
     p = auto_weight_exponent(L)
-    one = device_prep.exact_tiles_from_if_device(m, L_pad, rc, "absolute", p)
+    one = device_prep.exact_tiles_from_if_device(m, L_pad, rc, "absolute", p, device="cpu")
     st = device_prep.exact_tiles_from_if_streamed(m, L_pad, rc, "absolute", p,
-                                                  strip_rows=S)
+                                                  strip_rows=S, device="cpu")
     ref = jax_prep.exact_tiles_from_if_streamed(m, L_pad, rc, "absolute", p, strip_rows=S)
     for a in ("target", "w"):
         assert torch.equal(getattr(st, a), getattr(one, a)), a
@@ -80,9 +80,9 @@ def test_streamed_tiles_match_relative(L_pad, S):
     L = 96
     m = _integer_matrix(L, seed=13)
     p = auto_weight_exponent(L)
-    one = device_prep.exact_tiles_from_if_device(m, L_pad, rc, "relative", p)
+    one = device_prep.exact_tiles_from_if_device(m, L_pad, rc, "relative", p, device="cpu")
     st = device_prep.exact_tiles_from_if_streamed(m, L_pad, rc, "relative", p,
-                                                  strip_rows=S)
+                                                  strip_rows=S, device="cpu")
     ref = jax_prep.exact_tiles_from_if_streamed(m, L_pad, rc, "relative", p, strip_rows=S)
     assert torch.equal(st.target, one.target)
     np.testing.assert_array_equal(_np(st.target), _np(ref.target))
@@ -100,10 +100,10 @@ def test_streamed_view_matches_download(weighting):
     L, L_pad = 100, 128
     m = _integer_matrix(L, seed=23)
     p = auto_weight_exponent(L)
-    one = device_prep.exact_tiles_from_if_device(m, L_pad, rc, weighting, p)
+    one = device_prep.exact_tiles_from_if_device(m, L_pad, rc, weighting, p, device="cpu")
     t_one, w_one = _np(one.target)[:L, :L], _np(one.w)[:L, :L]
     t_st, w_st = device_prep.assessment_view_from_if_streamed(m, L_pad, rc, weighting, p,
-                                                              strip_rows=32)
+                                                              strip_rows=32, device="cpu")
     t_ref, w_ref = jax_prep.assessment_view_from_if_streamed(m, L_pad, rc, weighting, p,
                                                              strip_rows=32)
     assert t_st.shape == w_st.shape == (L, L) and t_st.dtype == w_st.dtype == np.float32
@@ -127,7 +127,7 @@ def test_streamed_view_of_a_real_matrix_matches_jax():
     m = if_from_structure(confined_walk(90, seed=3), 0.5, 0.1, 3)
     p = auto_weight_exponent(90)
     t_st, w_st = device_prep.assessment_view_from_if_streamed(m, 96, rc, rc.weighting, p,
-                                                              strip_rows=32)
+                                                              strip_rows=32, device="cpu")
     t_ref, w_ref = jax_prep.assessment_view_from_if_streamed(m, 96, rc, rc.weighting, p,
                                                              strip_rows=32)
     diff = t_st != t_ref
@@ -152,14 +152,14 @@ def test_stream_gate_routes_transparently(monkeypatch):
     rc = RestraintConfig(alpha=1.0)
     m = _integer_matrix(96, seed=29)
     p = auto_weight_exponent(96)
-    one = device_prep.exact_tiles_from_if_device(m, 96, rc, "absolute", p)
+    one = device_prep.exact_tiles_from_if_device(m, 96, rc, "absolute", p, device="cpu")
     monkeypatch.setattr(device_prep, "_memory_bytes",
                         lambda dev: 4 * device_prep.prep_peak_bytes(96) - 1)
     calls = []
     real = device_prep.exact_tiles_from_if_streamed
     monkeypatch.setattr(device_prep, "exact_tiles_from_if_streamed",
                         lambda *a, **k: calls.append(k["device"]) or real(*a, **k))
-    st = device_prep.exact_tiles_from_if_device(m, 96, rc, "absolute", p)
+    st = device_prep.exact_tiles_from_if_device(m, 96, rc, "absolute", p, device="cpu")
     assert calls == [torch.device("cpu")]
     assert torch.equal(st.target, one.target) and torch.equal(st.w, one.w)
 
