@@ -317,6 +317,22 @@ Phases (each prints one line or a few, then its wall seconds as a
                on bf16 tiles (`launches_bf16`), no twin, the gates, the
                solve's seconds, the device peak under the dtype-aware
                solve_peak_bytes / bucket_peak_bytes.
+  22. chrom x model layout — genome.solve_bucket(devices=...) at full
+               width (10 models, the default schedule) over the card listed
+               n times: (a) phase 4's matrix (456 -> 512) over x8 (m = 5
+               replicas of 2 models: B1 x2 and B2 x1 a device block, 5
+               blocks) and two of phase 4b's inputs (LAYOUT_PAIR) over x4 (m
+               = 2 replicas of 5 models, 4 blocks): launches exact, no twin,
+               every replica bit for bit a solve_bucket_impl of its
+               chromosome alone from the same draws (its models and pick at
+               their folded place), the gates on each chromosome's best
+               model by Spearman(IF, 1/d), the solve's seconds beside a
+               one-device solve of the same bucket, both again warm in turns
+               (the layout's bits equal over the two solves), and beside
+               phase 4's and 4b's; (b) genome.run_genome(devices=[card] x4) on those two
+               inputs: launches as (a), artifacts, 10 models and checkpoint
+               each (its coordinates (a)'s bit for bit), the gates on each
+               rank-01 PDB, the wall.
 Then one JSON line with the kernels' numbers (each with its launches on its
 path, its wall and device ms and its twin's — for B1 per step of a 256-step
 launch, with the steps it ran on the main path — its bound from the H100's
@@ -334,7 +350,8 @@ shapes; every row with its launches in phases 18 and 19 where it ran
 there; B3 and B5 with the chromosome axis at the buckets of phase 19, with
 that bucket's launches; B5' and B2' with it at the groups of phase 20, with
 that solve's launches; the bf16 entry points of B1, B2, B2', B3 and B6 at
-phase 21's shapes, with their launches on its paths) and, last,
+phase 21's shapes, with their launches on its paths; B1 and B2 with
+their launches in phase 22) and, last,
 the result line `{"ok": true, "device": {...}}`.
 """
 
@@ -1145,7 +1162,7 @@ def phase_main_path(X, M, card, keep):
           f"the first solve of the process, MDS init included; summary.json solve_s "
           f"{summary['phases']['solve_s']}), {steps / solve_s} ensemble steps/s, "
           f"wall {summary['wall_seconds']} s on {card}")
-    return launches, b1_steps
+    return launches, b1_steps, solve_s
 
 
 @contextlib.contextmanager
@@ -1999,7 +2016,7 @@ def phase_genome(directory, truths, card):
           f"after on the same arguments: {init_s} s), {steps / solve_s} "
           f"ensemble steps/s, {C_GENOME * steps / solve_s} chromosome-steps/s; wall {wall} s "
           f"(summary.json {summary['wall_seconds']}), phases {json.dumps(ph)} on {card}")
-    return launches, b1_steps
+    return launches, b1_steps, solve_s
 
 
 
@@ -4587,6 +4604,179 @@ def phase_pair_bf16(dev, X, M, genome_dir, truths, streamed_f32, card):
     return measured, phase21_paths(X, M, genome_dir, truths, streamed_f32, card)
 
 
+# phase 22: two of phase 4b's inputs, solved over the card listed 4 times
+LAYOUT_PAIR = ("chr1_500kb", "chr3_500kb")
+
+
+def layout_solve(where, jobs, n_dev, want_m, truths, card):
+    """One bucket (jobs, stacked as run_genome stacks them) solved by
+    genome.solve_bucket over the card listed n_dev times, at full width:
+    the layout m == want_m, one solve_bucket_impl a device block (one
+    replica each here), B1 x2 and B2 x1 a block, no twin; every replica bit
+    for bit a solve_bucket_impl of its chromosome alone from its recorded
+    draws; the gates on each chromosome's best model by Spearman(IF, 1/d).
+    Then the same bucket on the one card (devices None), timed beside it:
+    each side's first call, then both warm in turns. Returns (launches, the
+    result, (first, warm mean) seconds, the one card's (first, warm mean))."""
+    from chromosome3d_tpu_torch.parallel import genome
+    from chromosome3d_tpu_torch.pipeline import auto_exact
+    from chromosome3d_tpu_torch.config import PipelineConfig
+
+    dev = torch.device("cuda", 0)
+    cfg = PipelineConfig(model_count=N_MODELS)
+    steps = cfg.anneal.total_steps
+    batched, masks, matrices, raw = genome._stack_bucket(jobs, L_PAD, cfg)
+    cfg_b = auto_exact(cfg, raw[0])
+    C = len(jobs)
+    m = genome.model_axis_shards(C, n_dev, N_MODELS)
+    check(m == want_m, f"{where}: model_axis_shards {m}, want {want_m}")
+    per = N_MODELS // m
+    calls = []
+    reset_counters()
+    with recorded_calls(genome, "solve_bucket_impl", calls):
+        result, seconds = synced_seconds(genome.solve_bucket, batched, masks, cfg_b,
+                                         devices=[dev] * n_dev)
+    launches, plain = read_counters()
+    blocks = len(calls)
+    check(blocks == C * m and all(a[0].target.shape[0] == 1 and a[2] == per for a, _ in calls),
+          f"{where}: {blocks} solve_bucket_impl calls, want {C * m} of one replica, {per} models")
+    check_launches(where, launches, plain, {"B1": 2 * blocks, "B2": blocks})
+    b1_steps = kernel_counters()[0]["B1"].steps
+    check(b1_steps == blocks * steps, f"{where}: B1 ran {b1_steps} steps, want {blocks * steps}")
+    check(tuple(result.coords.shape) == (C, N_MODELS, L_PAD, 3)
+          and tuple(result.pick.shape) == (C, N_MODELS),
+          f"{where}: coords {tuple(result.coords.shape)}, pick {tuple(result.pick.shape)}")
+    # each replica r = c m + j against its chromosome alone from the same draws
+    lone_s = 0.0
+    for r, (args, kwargs) in enumerate(calls):
+        c, j = divmod(r, m)
+        one = genome._upload(batched, [c], dev)
+        lone, s = synced_seconds(genome.solve_bucket_impl, one, args[1], per,
+                                 torch.as_tensor(masks[c:c + 1]).to(dev), xs=kwargs["xs"],
+                                 noise_seeds=kwargs["noise_seeds"])
+        lone_s += s
+        sl = slice(j * per, (j + 1) * per)
+        same = (torch.equal(lone.coords[0], result.coords[c, sl])
+                and torch.equal(lone.history[0], result.history[c, sl])
+                and torch.equal(lone.pick[0] + 2 * per * j, result.pick[c, sl])
+                and all(torch.equal(v[0], result.energies[k][c, sl])
+                        for k, v in lone.energies.items()))
+        check(same, f"{where}: replica {r} (chromosome {c}, shard {j}) differs from a solve "
+              "of its chromosome alone from the same draws")
+    coords = result.coords.cpu().numpy()
+    for c, job in enumerate(jobs):
+        met, rho = best_by_spearman(matrices[c], coords[c, :, :job.length], truths[job.name])
+        print(f"[layout] {where}: {job.name} L={job.length} -> {L_PAD}: rank01 rmsd/Rg "
+              f"{met['rmsd_over_rg']:.4f}, spearman_d {met['spearman_d']:.5f}, dRMSD_rel "
+              f"{met['drmsd_rel']:.4f}; Spearman(IF,1/d) {rho:.4f}")
+    # the same bucket on the one card (devices None): its first call, which
+    # warms its shapes as the counted solve warmed the layout's; then both
+    # warm in turns, one card | layout | layout | one card, so neither side
+    # gains by its place; the layout's warm solves give the counted one's bits
+    one_first = None
+    times = {False: [], True: []}
+    for layout in (False, False, True, True, False):
+        kw = {"devices": [dev] * n_dev} if layout else {"device": dev}
+        again, t = synced_seconds(genome.solve_bucket, batched, masks, cfg_b, **kw)
+        if one_first is None:
+            one_first = t
+        else:
+            times[layout].append(t)
+        check(tuple(again.coords.shape) == tuple(result.coords.shape)
+              and (not layout or torch.equal(again.coords, result.coords)),
+              f"{where}: {'the layout' if layout else 'the one-device'} solve again: coords "
+              f"{tuple(again.coords.shape)}" + (", bits differ" if layout else ""))
+    warm, one_warm = float(np.mean(times[True])), float(np.mean(times[False]))
+    print(f"[layout] {where}: {C} chromosome(s) x m = {m} replicas of {per} models over the "
+          f"card x{n_dev}: {blocks} blocks, B1 {launches['B1']} launches ({b1_steps} steps), "
+          f"B2 {launches['B2']}, every other kernel 0, plain 0; every replica bit for bit its "
+          f"chromosome alone ({lone_s:.3f} s for the {blocks} lone solves); gates met by all "
+          f"{C}; first solve at these shapes {seconds} s (solve_bucket, synchronised: uploads, "
+          f"inits, the blocks one after another), the one card's first {one_first} s; warm, "
+          f"in turns one | layout | layout | one: the layout {times[True]} s (mean {warm}, its "
+          f"bits again), the one card {times[False]} s (mean {one_warm}), layout / one card "
+          f"{warm / one_warm:.3f}, on {card}")
+    return launches, result, (seconds, warm), (one_first, one_warm)
+
+
+def phase_model_axis(M, X, genome_dir, truths, earlier_s, card):
+    """Phase 22: the chrom x model layout of a bucket within the length
+    buckets over the card listed n times, at full width: (a) layout_solve on
+    phase 4's matrix over x8 (m = 5) and on LAYOUT_PAIR over x4 (m = 2);
+    (b) genome.run_genome(devices=[card] x4) on LAYOUT_PAIR: B1 x8 and B2 x4,
+    no twin, each chromosome's artifacts, 10 rank PDBs, summary and
+    checkpoint, its checkpointed coordinates (a)'s bit for bit, the gates on
+    its rank-01 PDB. earlier_s: the one-device solves of phases 4 and 4b,
+    printed beside these. Returns {solve: launches}."""
+    from chromosome3d_tpu_torch.io import write_if_matrix
+    from chromosome3d_tpu_torch.parallel import genome
+    from chromosome3d_tpu_torch.config import PipelineConfig
+
+    dev = torch.device("cuda", 0)
+    for name in ("chromosome3d_tpu_torch.pipeline", "chromosome3d_tpu_torch.parallel.genome"):
+        logging.getLogger(name).setLevel(logging.WARNING)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        main_path = os.path.join(tmp, "chrT_456_matrix.txt")
+        write_if_matrix(main_path, M)
+        out["(a) 456 over x8"], _, s_main, one_main = layout_solve(
+            "(a) 456 over x8", [genome.GenomeJob("chrT_456", main_path, L_TRUE)], 8, 5,
+            {"chrT_456": X}, card)
+        pair_dir = os.path.join(tmp, "pair")
+        os.makedirs(pair_dir)
+        for name in LAYOUT_PAIR:
+            shutil.copy(os.path.join(genome_dir, f"{name}_matrix.txt"), pair_dir)
+        jobs = genome.discover_jobs(pair_dir)
+        check([j.name for j in jobs] == sorted(LAYOUT_PAIR), f"pair inputs: {jobs}")
+        for j in jobs:
+            j.length = dict(GENOME)[j.name]
+        out["(a) 2 inputs over x4"], pair, s_pair, one_pair = layout_solve(
+            "(a) 2 inputs over x4", jobs, 4, 2, truths, card)
+
+        run_out = os.path.join(tmp, "out")
+        reset_counters()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            summaries = genome.run_genome(pair_dir, run_out, PipelineConfig(model_count=N_MODELS),
+                                          devices=[dev] * 4)
+        wall = time.perf_counter() - t0
+        launches, plain = read_counters()
+        check_launches("(b) run_genome over x4", launches, plain, {"B1": 8, "B2": 4})
+        out["(b) run_genome over x4"] = launches
+        from chromosome3d_tpu_torch.utils.checkpoint import GenomeCheckpoint
+
+        store = GenomeCheckpoint(run_out)
+        top_k = PipelineConfig().top_k
+        for c, job in enumerate(jobs):
+            d = os.path.join(run_out, job.name)
+            for f in ("model_info.log", "spearman.txt", "contact_violation.txt",
+                      f"{job.name}_model1.pdb", f"{job.name}_model{top_k}.pdb"):
+                check(os.path.isfile(os.path.join(d, f)), f"(b): {job.name}/{f} missing")
+            ranked = sorted(glob.glob(os.path.join(d, f"{job.name}_rank*_a05.pdb")))
+            check(len(ranked) == N_MODELS, f"(b): {job.name}: {len(ranked)} rank PDBs")
+            s = summaries[job.name]
+            check(s["bucket"] == L_PAD and s["L"] == job.length and s["models"] == N_MODELS,
+                  f"(b): {job.name}'s summary {s}")
+            coords, _, _ = store.load(job.name)
+            check(np.array_equal(coords, pair.coords[c, :, :job.length].cpu().numpy()),
+                  f"(b): {job.name}'s checkpointed models differ from (a)'s layout solve")
+            met = check_gates(ranked[0], truths[job.name])
+            print(f"[layout] (b) {job.name} L={job.length}: rank01 rmsd/Rg "
+                  f"{met['rmsd_over_rg']:.4f}, spearman_d {met['spearman_d']:.5f}, dRMSD_rel "
+                  f"{met['drmsd_rel']:.4f}; best Spearman(IF,1/d) "
+                  f"{s['best_spearman_if_inv_d']:.4f}")
+        summary = json.load(open(os.path.join(run_out, "summary.json")))
+    print(f"[layout] (b) run_genome(devices=[card] x4) on {list(LAYOUT_PAIR)}: B1 "
+          f"{launches['B1']}, B2 {launches['B2']}, every other kernel 0, plain 0; 10 models "
+          f"each, checkpoints (a)'s bit for bit, gates met by both; wall {wall} s, phases "
+          f"{json.dumps(summary['phases'])} on {card}")
+    print(f"[layout] solve seconds, first | warm mean: 456 over x8 {s_main[0]} | {s_main[1]} (one "
+          f"card {one_main[0]} | {one_main[1]}); 2 inputs over x4 {s_pair[0]} | {s_pair[1]} "
+          f"(one card {one_pair[0]} | {one_pair[1]}); phase 4's one-device solve "
+          f"{earlier_s['phase 4']}, phase 4b's 45-input bucket {earlier_s['phase 4b']} on {card}")
+    return out
+
+
 # FP32 operations per pair evaluation, counted from each kernel's inner loop
 # (an FMA counts 2, rsqrt 1; the row-sharded kernels run the same loops):
 # B1 32 per ordered pair (fused_steps.cu) plus ~100 per bead for the update
@@ -4674,8 +4864,10 @@ def main() -> int:
         measured_genome_large = timed_phase("kernels genome at scale",
                                             phase_kernels_genome_at_scale, dev, card)
         keep_main, keep_solve_a = os.path.join(tmp, "main_path"), os.path.join(tmp, "solve_A")
-        launches, b1_steps = timed_phase("main path", phase_main_path, X, M, card, keep_main)
-        launches_genome, b1_steps_genome = timed_phase("genome", phase_genome, genome_dir,
+        launches, b1_steps, main_s = timed_phase("main path", phase_main_path, X, M, card,
+                                                 keep_main)
+        launches_genome, b1_steps_genome, genome_s = timed_phase("genome", phase_genome,
+                                                                 genome_dir,
                                                        truths, card)
         truths_100kb = timed_phase("genome 100 kb inputs (the writer's wait)",
                                    pending_100kb.result)
@@ -4730,6 +4922,9 @@ def main() -> int:
             "pair_bf16 (phase 21)", phase_pair_bf16, dev, X, M, genome_dir, truths,
             streamed_f32, card)
         del streamed_f32
+        launches_22 = timed_phase("chrom x model layout (phase 22)", phase_model_axis, M,
+                                  X, genome_dir, truths, {"phase 4": main_s,
+                                                          "phase 4b": genome_s}, card)
     B = 2 * N_MODELS
     kernels = []
     for key, kname, src, replaces, path_launches, shape in (
@@ -4772,9 +4967,10 @@ def main() -> int:
             kernels[-1]["launches_phase_17"] = unfused
         if key in errs_17:   # held against the twin at phase 17's own shapes
             kernels[-1]["max_abs_err_phase_17"] = errs_17[key]
-        for tag, runs in (("18", launches_18), ("19", launches_19), ("20", launches_20)):
+        for tag, runs in (("18", launches_18), ("19", launches_19), ("20", launches_20),
+                          ("22", launches_22)):
             counted = {p: n[key] for p, n in runs.items() if n[key]}
-            if counted:   # phase 18's calibration and run, phase 19's and 20's genome runs
+            if counted:   # phase 18's calibration and run, phase 19's, 20's and 22's genome runs
                 kernels[-1][f"launches_phase_{tag}"] = counted
     # B3, B4 and B5 past L_pad = 8192, their launches those of the path at
     # that length

@@ -410,3 +410,42 @@ def energy_terms_chunked(
 
 def energy(coords, restraints, weights: EnergyWeights, bead_mask=None) -> torch.Tensor:
     return energy_terms(coords, restraints, weights, bead_mask)["overall"]
+
+
+def violation_stats(coords, restraints, dist_relax: float = 0.5, sum_dev_margin: float = 0.2,
+                    bead_mask=None):
+    """The assessment's statistics of one structure (L, 3), the JAX
+    package's violation_stats in torch ops: each unordered restraint once
+    (the strict upper triangle of the mask, padding beads masked out).
+
+    satisfied — count_satisfied_tbl_rows (chromosome3D.pl:447-485): a
+      restraint counts +1 if d < hi + relax, and -1 again if d < lo - relax
+      (too-short restraints cancel their own credit).
+    total     — the number of restraints.
+    sum_dev   — sum_noe_dev (:581-600): the sum of |deviation| outside
+      [lo - margin, hi + margin].
+
+    Takes DenseRestraints or ExactRestraints (tensors, or the host numpy
+    assessment views), bf16-stored tiles read widened. Returns three 0-d
+    float32 tensors on the coords' device."""
+    x = torch.as_tensor(coords, dtype=torch.float32)
+    dev, L = x.device, x.shape[0]
+    r = widened(restraints)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    lo, hi = t(r.lo), t(r.hi)
+    bm = torch.ones(L, dtype=torch.float32, device=dev) if bead_mask is None else t(bead_mask)
+    m = torch.triu(t(r.mask) * (bm[:, None] * bm[None, :]), diagonal=1)
+
+    diff = x[:, None, :] - x[None, :, :]
+    d = torch.sqrt((diff * diff).sum(-1) + _EPS)
+    under_hi = (d < hi + dist_relax).to(torch.float32)
+    under_lo = (d < lo - dist_relax).to(torch.float32)
+    satisfied = (m * (under_hi - under_lo)).sum()
+    total = m.sum()
+
+    over = torch.clamp_min(d - (hi + sum_dev_margin), 0.0)
+    over_dev = torch.where(over > 0, d - hi, 0.0)
+    under = torch.clamp_min((lo - sum_dev_margin) - d, 0.0)
+    under_dev = torch.where(under > 0, lo - d, 0.0)
+    sum_dev = (m * (over_dev + under_dev)).sum()
+    return satisfied, total, sum_dev

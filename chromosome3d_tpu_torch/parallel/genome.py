@@ -45,9 +45,16 @@ alpha and pools the models into the Spearman ranking, as the JAX package
 does. Every route a bucket past the length buckets can take runs with a
 chromosome axis: the strip route (B6 + B4), the row-block route (B2' or B5'
 + B4) and the unfused route (B2' or B5', then solver.unfused's update with
-a noise stream a chromosome). The JAX package's 2-D chrom x model layout of
-the buckets within the length buckets (ROADMAP A12.5) has no counterpart:
-one device solves such a bucket.
+a noise stream a chromosome).
+
+Given a device list (`run_genome(devices=...)`, the JAX runner's mesh=;
+`make_mesh`), a bucket within the length buckets takes the JAX package's
+2-D chrom x model layout (`solve_bucket(devices=...)`, `model_axis_shards`):
+where devices outnumber chromosomes each chromosome's models split over
+replicas with generators of their own, and each device solves its block of
+replicas as one stack, the blocks one after another from the host; a bucket
+past them takes the chrom x beads solvers over the list. Without a list the
+one-device rule above holds, so the models do not depend on the card count.
 """
 
 from __future__ import annotations
@@ -85,6 +92,7 @@ from chromosome3d_tpu_torch.pipeline import (
     quantum_bucket,
 )
 from chromosome3d_tpu_torch.restraints import build_restraints, restraints_from_exact_target
+from chromosome3d_tpu_torch.solver import anneal
 from chromosome3d_tpu_torch.solver.anneal import AnnealResult, solve_bucket_impl
 from chromosome3d_tpu_torch.solver.sharded import solve_genome_sharded
 from chromosome3d_tpu_torch.utils.checkpoint import GenomeCheckpoint
@@ -175,22 +183,128 @@ def _stack_bucket(jobs: Sequence[GenomeJob], L_pad: int, cfg: PipelineConfig):
     return batched, np.stack(masks), matrices, raw
 
 
-def solve_bucket(batched, bead_masks, cfg: PipelineConfig, base_seed: Optional[int] = None,
-                 device=None) -> AnnealResult:
-    """Solve one bucket on `device` (device.resolve_device: None is the
-    first CUDA device, and raises without one): batched holds (C, L, L)
-    host arrays (from _stack_bucket) or tensors, bead_masks (C, L).
-    Chromosome c draws from solver.anneal.chromosome_generator(base_seed,
-    c), base_seed defaulting to cfg.seed. Returns an AnnealResult with a
-    leading chromosome axis (coords (C, models, L, 3), energies (C, models),
-    history (C, models, T))."""
-    dev = resolve_device(device)
-    restraints = type(batched)(*(
-        torch.as_tensor(getattr(batched, f.name), dtype=torch.float32).to(dev).contiguous()
+def make_mesh(devices: Optional[Sequence] = None) -> List[torch.device]:
+    """The devices a bucket is laid out over, the JAX package's 1-D `chrom`
+    mesh as a list: `devices` (a list may name one device several times), or
+    every visible CUDA device (device.shard_devices) when None. An empty
+    list raises RuntimeError: nothing falls back to the CPU."""
+    devs = device_mod.shard_devices() if devices is None else [torch.device(d) for d in devices]
+    if not devs:
+        raise RuntimeError("make_mesh: no devices to lay a bucket out over (no CUDA device "
+                           "is visible and no list was given)")
+    return devs
+
+
+def model_axis_shards(B: int, n_dev: int, model_count: int) -> int:
+    """The 2-D `chrom x model` layout decision: when devices outnumber the
+    bucket's chromosomes, split each chromosome's restart budget over m
+    replicas (batch entries with generators of their own) so every device
+    works. Returns the largest divisor m of model_count with B * m <= n_dev
+    (1 = the plain 1-D chrom layout)."""
+    best = 1
+    for m in range(2, model_count + 1):
+        if model_count % m == 0 and B * m <= n_dev:
+            best = m
+    return best
+
+
+def _upload(batched, rows, dev):
+    """Entries `rows` of (C, L, L) host arrays or tensors as float32
+    tensors on dev."""
+    return type(batched)(*(
+        torch.as_tensor(getattr(batched, f.name)[rows], dtype=torch.float32).to(dev).contiguous()
         for f in dataclasses.fields(batched)))
-    masks = torch.as_tensor(bead_masks, dtype=torch.float32).to(dev)
-    return solve_bucket_impl(restraints, cfg.anneal, cfg.model_count, masks,
-                             base_seed=cfg.seed if base_seed is None else base_seed)
+
+
+def solve_bucket(batched, bead_masks, cfg: PipelineConfig, base_seed: Optional[int] = None,
+                 device=None, devices: Optional[Sequence] = None,
+                 model_shards: Optional[int] = None, xs: Optional[torch.Tensor] = None,
+                 noise_seeds=None) -> AnnealResult:
+    """Solve one bucket: batched holds (C, L, L) host arrays (from
+    _stack_bucket) or tensors, bead_masks (C, L). Returns an AnnealResult
+    with a leading chromosome axis (coords (C, models, L, 3), energies (C,
+    models), history (C, models, T), pick (C, models)).
+
+    The bucket is laid out over `devices` (make_mesh; one device may stand
+    several times), or over [device] when devices is None
+    (device.resolve_device: None is the first CUDA device, and raises
+    without one): the JAX package's chrom x model layout over its `chrom`
+    mesh. Each chromosome is split into m = model_shards (default
+    model_axis_shards(C, len(devices), cfg.model_count), 1 on one device)
+    replicas of model_count / m models; replica r = c m + j draws from
+    solver.anneal.chromosome_generator(base_seed, r), base_seed defaulting
+    to cfg.seed, as the JAX replica draws from split(PRNGKey(base_seed),
+    B_pad)[r]; xs (C m, 2 x models / m, L, 3) and noise_seeds (C m,) replay
+    given draws instead. The C m replicas, padded to B_pad, a multiple of
+    the device count, are cut in order into one block a device; each device
+    solves its block as one solve_bucket_impl with its replicas' tiles
+    copied there, the blocks one after another from the host. The JAX
+    runner's padding entries (copies of entry 0, discarded) are not solved.
+    The replicas of a chromosome on one device share its init unless
+    cfg.init is "random" (the one init that draws). At m = 1 on one device
+    this is one solve_bucket_impl of the whole bucket, chromosome c drawing
+    from chromosome_generator(base_seed, c).
+    The results are gathered on devices[0] and folded back replica-major:
+    replica j's models are models [j n, (j + 1) n), n = model_count / m,
+    its pick offset by 2 j n."""
+    seed = cfg.seed if base_seed is None else base_seed
+    devices = [resolve_device(device)] if devices is None else make_mesh(devices)
+    n_dev = len(devices)
+    C = len(bead_masks)
+    m = model_axis_shards(C, n_dev, cfg.model_count) if model_shards is None else model_shards
+    if cfg.model_count % m:
+        raise ValueError(f"model_shards={m} must divide model_count={cfg.model_count}")
+    per = cfg.model_count // m
+    if m > 1:
+        log.info(f"2-D layout: {C} chromosomes x {m} model shards ({per} models each) "
+                 f"over {n_dev} devices")
+    B_eff = C * m
+    for name, a in (("xs", xs), ("noise_seeds", noise_seeds)):
+        if a is not None and len(a) != B_eff:
+            raise ValueError(f"{name}: {len(a)} replicas, expected {B_eff} "
+                             f"({C} chromosomes x {m})")
+    blk = -(-B_eff // n_dev)            # B_pad / n_dev
+    an = cfg.anneal
+    inits, parts = {}, []
+    for k, dev in enumerate(devices):
+        reps = list(range(k * blk, min((k + 1) * blk, B_eff)))
+        if not reps:                    # only padding entries left
+            break
+        chroms = [r // m for r in reps]
+        # m = 1: a slice, so an at-scale bucket's host arrays are not copied
+        rows = slice(chroms[0], chroms[-1] + 1) if m == 1 else chroms
+        restraints = _upload(batched, rows, dev)
+        masks = torch.as_tensor(bead_masks, dtype=torch.float32)[rows].to(dev)
+        starts, seeds = [], []
+        for i, (r, c) in enumerate(zip(reps, chroms)):
+            rs = anneal._chromosome(restraints, i)
+            x0 = None
+            if xs is None and an.init != "random":   # the init draws nothing
+                if (c, dev) not in inits:
+                    inits[c, dev] = anneal.initial_structure(rs, an, masks[i])
+                x0 = inits[c, dev]
+            x, s = anneal._draws(rs, an, per, masks[i], x0, anneal.chromosome_generator(seed, r),
+                                 None if xs is None else xs[r],
+                                 None if noise_seeds is None else int(noise_seeds[r]))
+            starts.append(x)
+            seeds.append(s)
+        parts.append(solve_bucket_impl(restraints, an, per, masks, xs=torch.stack(starts),
+                                       noise_seeds=seeds))
+    out = devices[0]
+
+    def fold(a):
+        a = torch.cat([p.to(out) for p in a])
+        return a.reshape(C, m * per, *a.shape[2:])
+
+    pick = None
+    if parts[0].pick is not None:
+        j = torch.arange(B_eff, device=out) % m
+        pick = fold([p.pick for p in parts]) + (2 * per * j).reshape(C, m).repeat_interleave(
+            per, dim=1)
+    return AnnealResult(coords=fold([p.coords for p in parts]),
+                        energies={k: fold([p.energies[k] for p in parts])
+                                  for k in parts[0].energies},
+                        history=fold([p.history for p in parts]), pick=pick)
 
 
 def _layout(C: int, L_pad: int, devices: Sequence):
@@ -422,6 +536,18 @@ def bucket_peak_bytes(C: int, L_pad: int, cfg: PipelineConfig, nb: int = 1,
     return C * one // nb + scratch
 
 
+def _fits(C: int, L_pad: int, cfg: PipelineConfig, devices: Sequence, exact: bool) -> bool:
+    """Whether an at-scale bucket's chrom x beads layout over `devices`
+    fits each of them (bucket_peak_bytes of a group's share, summed over
+    the places a device is listed)."""
+    groups, B_pad, L_all = _layout(C, L_pad, devices)
+    share = bucket_peak_bytes(B_pad // len(groups), L_all, cfg, groups[0].n, exact)
+    load: Dict[torch.device, int] = {}
+    for d in devices:
+        load[d] = load.get(d, 0) + share
+    return all(n <= pipeline._memory_bytes(d) for d, n in load.items())
+
+
 def bucket_devices(C: int, L_pad: int, cfg: PipelineConfig, dev,
                    exact: bool = True) -> List[torch.device]:
     """The devices an at-scale bucket runs on: [dev] where it fits dev
@@ -432,14 +558,8 @@ def bucket_devices(C: int, L_pad: int, cfg: PipelineConfig, dev,
     if need <= pipeline._memory_bytes(dev):
         return [dev]
     devices = device_mod.shard_devices()
-    if len(devices) > 1:
-        groups, B_pad, L_all = _layout(C, L_pad, devices)
-        share = bucket_peak_bytes(B_pad // len(groups), L_all, cfg, groups[0].n, exact)
-        load: Dict[torch.device, int] = {}
-        for d in devices:
-            load[d] = load.get(d, 0) + share
-        if all(n <= pipeline._memory_bytes(d) for d, n in load.items()):
-            return devices
+    if len(devices) > 1 and _fits(C, L_pad, cfg, devices, exact):
+        return devices
     raise RuntimeError(
         f"an at-scale bucket of {C} chromosomes at L_pad={L_pad} needs about "
         f"{need / 1e9:.2f} GB on one device (bucket_peak_bytes), more than the "
@@ -447,16 +567,24 @@ def bucket_devices(C: int, L_pad: int, cfg: PipelineConfig, dev,
         f"{len(devices)} visible card(s) either")
 
 
-def _plan_large(buckets, max_bucket: int, cfg: PipelineConfig, dev):
+def _plan_large(buckets, max_bucket: int, cfg: PipelineConfig, dev, mesh=None):
     """{L_pad: devices} for every bucket past the length buckets, decided
-    before any bucket is solved (bucket_devices: the one device where the
-    bucket fits it, else the visible cards), with exact restraints
-    (auto_exact_matrix) or windowed ones; RuntimeError for a bucket that
-    fits no device."""
+    before any bucket is solved, with exact restraints (auto_exact_matrix)
+    or windowed ones: with no mesh, bucket_devices' (the one device where
+    the bucket fits it, else the visible cards); with a mesh (a device
+    list), the mesh, where its chrom x beads layout fits each device.
+    RuntimeError for a bucket that fits nowhere."""
     cfg_b = auto_exact_matrix(cfg)
     exact = _exact_provable(cfg_b)
-    return {L_pad: bucket_devices(len(buckets[L_pad]), L_pad, cfg_b, dev, exact)
-            for L_pad in sorted(L for L in buckets if L > max_bucket)}
+    large = sorted(L for L in buckets if L > max_bucket)
+    if mesh is None:
+        return {L: bucket_devices(len(buckets[L]), L, cfg_b, dev, exact) for L in large}
+    for L in large:
+        if not _fits(len(buckets[L]), L, cfg_b, mesh, exact):
+            raise RuntimeError(
+                f"an at-scale bucket of {len(buckets[L])} chromosomes at L_pad={L} does not "
+                f"fit the {len(mesh)} listed device(s) (bucket_peak_bytes a device)")
+    return {L: mesh for L in large}
 
 
 def run_genome(
@@ -466,16 +594,29 @@ def run_genome(
     jobs: Optional[List[GenomeJob]] = None,
     resume: bool = False,
     device=None,
+    devices: Optional[Sequence] = None,
 ) -> Dict[str, Dict]:
-    """The test.sh equivalent on one device (device.resolve_device: None is
-    the first CUDA device, and raises without one; "cpu" runs the kernels'
-    plain twins): every chr*_matrix.txt in input_dir (or `jobs`) is solved
-    bucket by bucket and assessed; per-chromosome artifacts land in
-    output_dir/<name>/, each chromosome's result in output_dir/checkpoint/.
-    A bucket past the length buckets runs on `device` too, or over every
-    visible card where it would not fit it (bucket_devices): exact restraints
-    through solve_bucket_sharded_from_if, windowed ones through
-    solve_bucket (one device) or solve_bucket_sharded.
+    """The test.sh equivalent: every chr*_matrix.txt in input_dir (or
+    `jobs`) is solved bucket by bucket and assessed; per-chromosome
+    artifacts land in output_dir/<name>/, each chromosome's result in
+    output_dir/checkpoint/.
+
+    devices None: every bucket within the length buckets is solved on
+    `device` (device.resolve_device: None is the first CUDA device, and
+    raises without one; "cpu" runs the kernels' plain twins). A bucket past
+    them runs on `device` too, or over every visible card where it would not
+    fit it (bucket_devices): exact restraints through
+    solve_bucket_sharded_from_if, windowed ones through solve_bucket (one
+    device) or solve_bucket_sharded. So a genome's models do not depend on
+    how many cards are visible.
+
+    devices a list (the JAX runner's mesh=; make_mesh, one device may stand
+    several times; `device` is then not read): every bucket runs over it.
+    Buckets within the length buckets take solve_bucket's chrom x model
+    layout (the alpha ensemble's extra solves too), buckets past them the
+    chrom x beads solvers over the list (one device: as with devices None),
+    where bucket_peak_bytes says the layout fits each device, checked before
+    any bucket is solved.
 
     resume=True skips chromosomes already in the checkpoint store; the
     returned dict covers every job all the same (finished ones from the
@@ -486,7 +627,8 @@ def run_genome(
     phase breakdown in seconds (load / solve and download / extra alphas /
     emit) and the wall seconds."""
     cfg = cfg or PipelineConfig()
-    dev = resolve_device(device)
+    mesh = None if devices is None else make_mesh(devices)
+    dev = resolve_device(device) if mesh is None else mesh[0]
     t_genome0 = time.time()
     jobs = jobs if jobs is not None else discover_jobs(input_dir)
     if not jobs:
@@ -514,7 +656,7 @@ def run_genome(
         jobs, cfg.length_buckets, cfg.shard_quantum if cfg.shard_large else None
     )
     max_bucket = max(cfg.length_buckets)
-    large_devices = _plan_large(buckets, max_bucket, cfg, dev)
+    large_devices = _plan_large(buckets, max_bucket, cfg, dev, mesh)
     exact_large = _exact_provable(auto_exact_matrix(cfg))
     for L_pad, bucket in sorted(buckets.items()):
         ph = phases[f"L{L_pad}"] = {"chromosomes": [j.name for j in bucket]}
@@ -531,15 +673,18 @@ def run_genome(
         from_if = large and exact_large
         log.info(f"bucket L={L_pad}: {len(bucket)} chromosomes "
                  f"({', '.join(j.name for j in bucket)}) on "
-                 + (f"{len(devs)} device(s) [at-scale]" if large else str(dev)))
+                 + (f"{len(devs)} device(s) [at-scale]" if large
+                    else str(dev) if mesh is None else f"{len(mesh)} device(s)"))
 
         def bucket_solve(batched, masks, cfg_x, seed=None):
-            # a bucket stacked on the host: one device, or the chrom x beads
-            # solver over the cards it spreads to
-            if len(devs) > 1:
+            # a bucket stacked on the host: past the length buckets one
+            # device, or the chrom x beads solver over the cards it spreads
+            # to; within them one device, or chrom x model over the mesh
+            if large and len(devs) > 1:
                 return solve_bucket_sharded(batched, masks, cfg_x, devices=devs,
                                             base_seed=seed)
-            return solve_bucket(batched, masks, cfg_x, base_seed=seed, device=dev)
+            return solve_bucket(batched, masks, cfg_x, base_seed=seed, device=dev,
+                                devices=None if large else mesh)
 
         dense_views = None
         if from_if:

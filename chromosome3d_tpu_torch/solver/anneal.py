@@ -233,6 +233,30 @@ def chromosome_generator(base_seed: int, c: int) -> torch.Generator:
     return torch.Generator().manual_seed(word & (2**63 - 1))
 
 
+def initial_structure(restraints, cfg: AnnealConfig, bead_mask: torch.Tensor,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """One chromosome's init (L, 3) on bead_mask's device, by cfg.init
+    ("auto": mds below L = 2048, landmark from it); "random" draws from
+    `generator`."""
+    dev, L = bead_mask.device, bead_mask.shape[0]
+    init = cfg.init
+    if init == "auto":
+        init = "mds" if L < 2048 else "landmark"
+    if init == "mds":
+        # bf16-stored tiles: the embed's math runs on a float32 copy
+        # (the small-L route); landmark_init widens its row strips
+        return mds_init(widened(restraints), bond_length=cfg.bond_length,
+                        unknown_fill=cfg.mds_unknown_fill, bead_mask=bead_mask,
+                        two_sided=cfg.embed_two_sided)
+    if init == "landmark":
+        return landmark_init(restraints, bond_length=cfg.bond_length,
+                             k=cfg.landmark_count, n_iters=cfg.landmark_iters,
+                             bead_mask=bead_mask, two_sided=cfg.embed_two_sided)
+    if init == "spiral":
+        return spiral_init(L, bond_length=cfg.bond_length, device=dev)
+    return random_init(generator, L, device=dev)
+
+
 def _draws(restraints, cfg: AnnealConfig, n_models: int, bead_mask: torch.Tensor,
            x0, generator: torch.Generator, xs, noise_seed):
     """One chromosome's start ensemble (n_eff, L, 3) and noise seed: the
@@ -242,26 +266,7 @@ def _draws(restraints, cfg: AnnealConfig, n_models: int, bead_mask: torch.Tensor
     n_eff = n_models * 2 if cfg.enantiomer else n_models
     if xs is None:
         if x0 is None:
-            init = cfg.init
-            if init == "auto":
-                init = "mds" if L < 2048 else "landmark"
-            if init == "mds":
-                # bf16-stored tiles: the embed's math runs on a float32 copy
-                # (the small-L route); landmark_init widens its row strips
-                x0 = mds_init(widened(restraints), bond_length=cfg.bond_length,
-                              unknown_fill=cfg.mds_unknown_fill,
-                              bead_mask=bead_mask,
-                              two_sided=cfg.embed_two_sided)
-            elif init == "landmark":
-                x0 = landmark_init(restraints, bond_length=cfg.bond_length,
-                                   k=cfg.landmark_count,
-                                   n_iters=cfg.landmark_iters,
-                                   bead_mask=bead_mask,
-                                   two_sided=cfg.embed_two_sided)
-            elif init == "spiral":
-                x0 = spiral_init(L, bond_length=cfg.bond_length, device=dev)
-            else:
-                x0 = random_init(generator, L, device=dev)
+            x0 = initial_structure(restraints, cfg, bead_mask, generator)
         x0 = x0.to(device=dev, dtype=torch.float32) * bead_mask[:, None]
         if cfg.enantiomer:
             # pairs (direct, mirrored): flip the x axis of the shared embedding
