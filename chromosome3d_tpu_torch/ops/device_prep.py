@@ -48,6 +48,7 @@ import torch
 
 from chromosome3d_tpu_torch.device import resolve_device
 from chromosome3d_tpu_torch.ops.energy import ExactRestraints, f32
+from chromosome3d_tpu_torch.utils import trace
 
 # share of the device's memory the one-shot prep may take: the solve's
 # tiles and working set need the rest
@@ -75,8 +76,9 @@ def pad_f32(a, L_pad: int) -> np.ndarray:
     L = a.shape[0]
     if L == L_pad and a.dtype == np.float32:
         return np.ascontiguousarray(a)
-    out = np.zeros((L_pad, L_pad), np.float32)
-    out[:L, :L] = a
+    with trace.span("prep.pad"):
+        out = np.zeros((L_pad, L_pad), np.float32)
+        out[:L, :L] = a
     return out
 
 
@@ -200,6 +202,7 @@ def should_stream_strip_prep(L_pad: int, devices, out_dtype: str = "float32") ->
                for d, nbytes in strip_prep_peak_bytes(L_pad, devices, out_dtype).items())
 
 
+@trace.spanned("prep.tiles")
 def exact_tiles_from_if_device(if_matrix, L_pad: int, rc, weighting: str,
                                weight_exponent: float, n_true=None,
                                device=None, group=None, out_dtype: str = "float32"):
@@ -235,7 +238,7 @@ def exact_tiles_from_if_device(if_matrix, L_pad: int, rc, weighting: str,
 def _upload(a: np.ndarray, device) -> torch.Tensor:
     """A host array on `device`. torch needs a writable array: only a
     read-only one (a .npy memmap, or a strip of one) is copied on the host."""
-    return torch.from_numpy(np.require(a, requirements=["C", "W"])).to(device)
+    return trace.to_device(np.require(a, requirements=["C", "W"]), device)
 
 
 def _pick_strip_rows(L_pad: int, cap: int = 4096) -> int:
@@ -359,8 +362,8 @@ def assessment_view_from_if_streamed(if_matrix, L_pad: int, rc, weighting: str,
     w_np = np.empty((n, n), np.float32)
     for r0, t, w, _ in sweeps.targets(weight_exponent, weighting):
         rows = min(sweeps.S, n - r0)
-        t_np[r0:r0 + rows] = t[:rows, :n].cpu().numpy()
-        w_np[r0:r0 + rows] = (w / denom)[:rows, :n].cpu().numpy()
+        t_np[r0:r0 + rows] = trace.to_host(t[:rows, :n]).numpy()
+        w_np[r0:r0 + rows] = trace.to_host((w / denom)[:rows, :n]).numpy()
     return t_np, w_np
 
 

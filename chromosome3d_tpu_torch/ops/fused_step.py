@@ -47,6 +47,7 @@ from chromosome3d_tpu_torch.ops.pair_energy import (
     exact_pair_tiles,
     tile_dtype,
 )
+from chromosome3d_tpu_torch.utils import trace
 
 _M32 = 0xFFFFFFFF
 _SQRT3 = f32(np.sqrt(3.0))
@@ -484,7 +485,7 @@ def fused_steps_batched(
     return hist, (x_b if nk % 2 else x_a), mu, nu
 
 
-fused_steps_batched.launches = 0
+trace.count_launches(fused_steps_batched)
 fused_steps_batched.launches_bf16 = 0   # of them, on bf16 tiles
 fused_steps_batched.steps = 0
 

@@ -38,6 +38,7 @@ from chromosome3d_tpu_torch.ops.fused_step import (
     update_plain,
 )
 from chromosome3d_tpu_torch.ops.pair_energy import check_inputs
+from chromosome3d_tpu_torch.utils import trace
 
 def fused_update_plain(
     xT, gT, muT, nuT, weights: EnergyWeights, bead_mask,
@@ -175,7 +176,7 @@ def fused_update_table(
     return x_new, mu_new, nu_new
 
 
-fused_update_table.launches = 0
+trace.count_launches(fused_update_table)
 
 
 def fused_update_batched(

@@ -38,6 +38,7 @@ import torch
 from chromosome3d_tpu_torch.ops import _build
 from chromosome3d_tpu_torch.ops.energy import _EPS, EnergyWeights
 from chromosome3d_tpu_torch.ops.pair_energy import check_inputs
+from chromosome3d_tpu_torch.utils import trace
 
 _PLAIN_CHUNK_ELEMS = 1 << 24    # the twin's (B, rows, L) temporaries per chunk
 # general_pair.cu's block: 8 warps of 4 rows each, 128-column chunks, 13 sums
@@ -230,7 +231,7 @@ def general_pair_energy_grad(
     return e, gT
 
 
-general_pair_energy_grad.launches = 0
+trace.count_launches(general_pair_energy_grad)
 
 
 def general_row_block_energy_grad_plain(
@@ -290,4 +291,4 @@ def general_row_block_energy_grad(
     return e, gT
 
 
-general_row_block_energy_grad.launches = 0
+trace.count_launches(general_row_block_energy_grad)

@@ -45,6 +45,7 @@ from chromosome3d_tpu_torch.ops.energy import (
     ExactRestraints,
     _angle_energy,
 )
+from chromosome3d_tpu_torch.utils import trace
 
 
 # what the exact kernels' restraint tiles may be: float32, or bfloat16
@@ -235,7 +236,7 @@ def exact_pair_energy_grad(
     return e, gT.transpose(1, 2)
 
 
-exact_pair_energy_grad.launches = 0
+trace.count_launches(exact_pair_energy_grad)
 exact_pair_energy_grad.launches_bf16 = 0   # of them, on bf16 tiles
 
 
@@ -306,7 +307,7 @@ def exact_row_block_energy_grad(
     return e, gT
 
 
-exact_row_block_energy_grad.launches = 0
+trace.count_launches(exact_row_block_energy_grad)
 exact_row_block_energy_grad.launches_bf16 = 0   # of them, on bf16 tiles
 
 

@@ -33,6 +33,7 @@ from chromosome3d_tpu_torch.ops import _build
 from chromosome3d_tpu_torch.ops.energy import _EPS, EnergyWeights
 from chromosome3d_tpu_torch.ops.pair_energy import TILE_DTYPES, check_inputs, tile_dtype
 from chromosome3d_tpu_torch.ops.tri_energy import tri_plan
+from chromosome3d_tpu_torch.utils import trace
 
 _STRIP_TILES = (64, 32, 16, 8)   # the instantiations in exact_tri_strip.cu
 
@@ -248,5 +249,5 @@ def strip_tri_energy_grad(
     return e, gT
 
 
-strip_tri_energy_grad.launches = 0
+trace.count_launches(strip_tri_energy_grad)
 strip_tri_energy_grad.launches_bf16 = 0   # of them, on bf16 strips

@@ -50,6 +50,7 @@ from chromosome3d_tpu_torch.ops.pair_energy import (
     exact_rows_plain,
     tile_dtype,
 )
+from chromosome3d_tpu_torch.utils import trace
 
 TILE = 64                       # the kernel's tile edge (kTM in exact_tri.cu)
 _PLAIN_CHUNK_ELEMS = 1 << 24    # the twin's (B, rows, L) temporaries per chunk
@@ -346,5 +347,5 @@ def tri_energy_grad(
     return e, gT
 
 
-tri_energy_grad.launches = 0
+trace.count_launches(tri_energy_grad)
 tri_energy_grad.launches_bf16 = 0   # of them, on bf16 tiles

@@ -95,6 +95,7 @@ from chromosome3d_tpu_torch.restraints import build_restraints, restraints_from_
 from chromosome3d_tpu_torch.solver import anneal
 from chromosome3d_tpu_torch.solver.anneal import AnnealResult, solve_bucket_impl
 from chromosome3d_tpu_torch.solver.sharded import solve_genome_sharded
+from chromosome3d_tpu_torch.utils import trace
 from chromosome3d_tpu_torch.utils.checkpoint import GenomeCheckpoint
 from chromosome3d_tpu_torch.utils.logging import get_logger
 
@@ -212,10 +213,12 @@ def _upload(batched, rows, dev):
     """Entries `rows` of (C, L, L) host arrays or tensors as float32
     tensors on dev."""
     return type(batched)(*(
-        torch.as_tensor(getattr(batched, f.name)[rows], dtype=torch.float32).to(dev).contiguous()
+        trace.to_device(torch.as_tensor(getattr(batched, f.name)[rows], dtype=torch.float32),
+                        dev).contiguous()
         for f in dataclasses.fields(batched)))
 
 
+@trace.spanned("request")
 def solve_bucket(batched, bead_masks, cfg: PipelineConfig, base_seed: Optional[int] = None,
                  device=None, devices: Optional[Sequence] = None,
                  model_shards: Optional[int] = None, xs: Optional[torch.Tensor] = None,
@@ -274,7 +277,7 @@ def solve_bucket(batched, bead_masks, cfg: PipelineConfig, base_seed: Optional[i
         # m = 1: a slice, so an at-scale bucket's host arrays are not copied
         rows = slice(chroms[0], chroms[-1] + 1) if m == 1 else chroms
         restraints = _upload(batched, rows, dev)
-        masks = torch.as_tensor(bead_masks, dtype=torch.float32)[rows].to(dev)
+        masks = trace.to_device(torch.as_tensor(bead_masks, dtype=torch.float32)[rows], dev)
         starts, seeds = [], []
         for i, (r, c) in enumerate(zip(reps, chroms)):
             rs = anneal._chromosome(restraints, i)
@@ -335,6 +338,7 @@ def bucket_stack(matrices: Sequence[np.ndarray], L_pad: int, devices: Sequence) 
     return device_prep.pad_stack(_pad_batch(list(matrices), B_pad), L_pad)
 
 
+@trace.spanned("prep.tiles")
 def bucket_tiles_from_if(matrices: Sequence[np.ndarray], L_pad: int, rc, devices: Sequence,
                          stack: Optional[np.ndarray] = None, out_dtype: str = "float32"):
     """An at-scale bucket's exact tiles built on the devices straight from
@@ -362,6 +366,7 @@ def bucket_tiles_from_if(matrices: Sequence[np.ndarray], L_pad: int, rc, devices
     return tiles, groups, B_pad, L_pad
 
 
+@trace.spanned("request")
 def solve_bucket_sharded_from_if(
     matrices: Sequence[np.ndarray],
     L_pad: int,
@@ -420,9 +425,10 @@ def _host_strip(a, rows: slice, chroms: Sequence[int], L_all: int, dev) -> torch
     for i, c in enumerate(chroms):
         if have:
             out[i, :have, :L] = torch.as_tensor(a[c][r0:r0 + have]).to("cpu", torch.float32)
-    return out.to(dev)
+    return trace.to_device(out, dev)
 
 
+@trace.spanned("request")
 def solve_bucket_sharded(
     batched,
     bead_masks,
@@ -475,6 +481,7 @@ def solve_bucket_sharded(
         history=result.history[:C], pick=None if result.pick is None else result.pick[:C])
 
 
+@trace.spanned("prep.view")
 def bucket_views(tiles, lengths: Sequence[int]):
     """Each chromosome's host assessment view from an at-scale bucket's live
     float32 tiles: (Restraints, ExactRestraints of (n, n) numpy) per
@@ -487,7 +494,8 @@ def bucket_views(tiles, lengths: Sequence[int]):
     raw, views = [], []
     for c, n in enumerate(lengths):
         g, i = divmod(c, Cg)
-        t, w = (torch.cat([getattr(s, k)[i, :, :n].cpu() for s in tiles[g]])[:n].numpy()
+        t, w = (torch.cat([trace.to_host(getattr(s, k)[i, :, :n])
+                           for s in tiles[g]])[:n].numpy()
                 for k in ("target", "w"))
         raw.append(restraints_from_exact_target(t))
         views.append(ExactRestraints(target=t, w=w))
@@ -699,7 +707,7 @@ def run_genome(
             _phase("load_s")
             result, tiles, _ = solve_bucket_sharded_from_if(matrices, L_pad, cfg_b,
                                                             devices=devs, stack=stack)
-            coords = result.coords.cpu().numpy()   # synchronises
+            coords = trace.to_host(result.coords).numpy()   # synchronises
             if cfg_b.anneal.pair_bf16:
                 # the solve read bf16-stored tiles: free them, then prep the
                 # views at float32, so the two tile sets never coexist
@@ -716,8 +724,8 @@ def run_genome(
                 cfg_b = auto_exact(cfg, raw[0])
             _phase("load_s")
             result = bucket_solve(batched, bead_masks, cfg_b)
-            coords = result.coords.cpu().numpy()   # synchronises
-        energies_all = {k: v.cpu().numpy() for k, v in result.energies.items()}
+            coords = trace.to_host(result.coords).numpy()   # synchronises
+        energies_all = {k: trace.to_host(v).numpy() for k, v in result.energies.items()}
         _phase("solve_and_views_s")
         alphas = [cfg.restraints.alpha] * coords.shape[1]
         # the alpha ensemble: each extra alpha's models pool into the
@@ -739,8 +747,9 @@ def run_genome(
                 if all(not r.negdev.any() and not r.posdev.any() for r in raw_x):
                     cfg_bx = auto_exact(cfg_x, raw_x[0])
                 res_x = bucket_solve(batched_x, masks_x, cfg_bx, seed_x)
-            coords = np.concatenate([coords, res_x.coords.cpu().numpy()], axis=1)
-            energies_all = {k: np.concatenate([v, res_x.energies[k].cpu().numpy()], axis=1)
+            coords = np.concatenate([coords, trace.to_host(res_x.coords).numpy()], axis=1)
+            energies_all = {k: np.concatenate([v, trace.to_host(res_x.energies[k]).numpy()],
+                                              axis=1)
                             for k, v in energies_all.items()}
             alphas += [extra_alpha] * res_x.coords.shape[1]
         _phase("alpha_s")

@@ -54,7 +54,7 @@ pools the models into the Spearman ranking, as the JAX package's does.
 a float `.npy`, cooler `.cool`/`.mcool`, juicer `.hic` and HiC-Pro
 `.matrix` (+ `.bed`), the last three (or any input with `ice`) loaded by
 io.hic and materialised as `{ident}.txt`; `profile_dir` traces the solve
-with torch.profiler (utils.logging.profile_trace).
+with torch.profiler (utils.trace.profile_trace).
 """
 
 from __future__ import annotations
@@ -116,7 +116,8 @@ from chromosome3d_tpu_torch.parallel.shards import ShardGroup
 from chromosome3d_tpu_torch.solver import anneal
 from chromosome3d_tpu_torch.solver.anneal import solve_ensemble_impl
 from chromosome3d_tpu_torch.solver.sharded import restraint_strips, solve_ensemble_sharded
-from chromosome3d_tpu_torch.utils.logging import banner, get_logger, profile_trace
+from chromosome3d_tpu_torch.utils import trace
+from chromosome3d_tpu_torch.utils.logging import banner, get_logger
 
 log = get_logger(__name__)
 
@@ -184,6 +185,7 @@ def _weight_exponent(rc, L: int) -> float:
     return auto_weight_exponent(L) if rc.weight_exponent is None else rc.weight_exponent
 
 
+@trace.spanned("prep.tiles")
 def _padded_dense(restraints, rc, L_pad: int, exact: bool, device):
     """Solver restraint tensors padded to L_pad on `device`. The weight
     exponent and the mean-1 normalisation come from the true length
@@ -364,7 +366,7 @@ def _solve(group, restraints, cfg: PipelineConfig, bead_mask, dev, og=None, gen=
     or solve_ensemble_impl on `dev`; draws from `gen`, a generator seeded
     cfg.seed when None (an alpha ensemble passes the one generator to each
     of its solves in turn)."""
-    bm = None if bead_mask is None else torch.from_numpy(bead_mask).to(dev)
+    bm = None if bead_mask is None else trace.to_device(bead_mask, dev)
     if gen is None:
         gen = torch.Generator().manual_seed(cfg.seed)
     if group is not None:
@@ -374,6 +376,7 @@ def _solve(group, restraints, cfg: PipelineConfig, bead_mask, dev, og=None, gen=
                                or_groups=og, generator=gen)
 
 
+@trace.spanned("prep.view")
 def _assessment_view_from_if(if_padded, rc, L_pad: int, n_true: int, device):
     """The host assessment view of the at-scale route: the device prep run
     again and its (L, L) corner downloaded — (Restraints view, exact-form
@@ -389,8 +392,8 @@ def _assessment_view_from_if(if_padded, rc, L_pad: int, n_true: int, device):
     else:
         tiles = device_prep.exact_tiles_from_if_device(
             if_padded, L_pad, rc, rc.weighting, p, n_true=n_true, device=device)
-        target = tiles.target[:n_true, :n_true].cpu().numpy()
-        w = tiles.w[:n_true, :n_true].cpu().numpy()
+        target = trace.to_host(tiles.target[:n_true, :n_true]).numpy()
+        w = trace.to_host(tiles.w[:n_true, :n_true]).numpy()
     return restraints_from_exact_target(target), ExactRestraints(target=target, w=w)
 
 
@@ -423,7 +426,7 @@ def run_pipeline(
     The loaded matrix is materialised as `{ident}.txt`, so the artifact tree
     matches a run of that text. A `.npy` takes none of these options
     (ValueError). profile_dir: the solve runs under a torch.profiler trace
-    written there (utils.logging.profile_trace)."""
+    written there (utils.trace.profile_trace)."""
     cfg = cfg or PipelineConfig()
     dev = resolve_device(device)
     t_start = time.time()
@@ -542,7 +545,7 @@ def run_pipeline(
         f.write("solving\n")
     try:
         _solve_banner(cfg, L, L_pad, dev, group)
-        with profile_trace(profile_dir):
+        with trace.profile_trace(profile_dir), trace.request():
             if device_route:
                 solve_r = device_prep.exact_tiles_from_if_device(
                     if_dev, L_pad, rc, rc.weighting, _weight_exponent(rc, L),
@@ -559,8 +562,8 @@ def run_pipeline(
             gen = torch.Generator().manual_seed(cfg.seed)
             result = _solve(group, solve_r, cfg, bead_mask, dev, gen=gen)
             del solve_r    # the tiles go before the assessment view is built
-            coords = result.coords.cpu().numpy()[:, :L, :]   # synchronises
-        energies = {k: v.cpu().numpy() for k, v in result.energies.items()}
+            coords = trace.to_host(result.coords).numpy()[:, :L, :]   # synchronises
+            energies = {k: trace.to_host(v).numpy() for k, v in result.energies.items()}
         _mark("solve_s")
         np.savez_compressed(
             os.path.join(dir_out, "trajectory.npz"),

@@ -126,6 +126,12 @@ class SolverCache:
         prepped at float32 after those are freed. The draws come from a
         generator seeded cfg.seed, as run_pipeline's, so a served request
         writes what `run` writes on the same matrix and config."""
+        from chromosome3d_tpu_torch.utils import trace
+
+        with trace.request():
+            return self._solve(matrix, cfg)
+
+    def _solve(self, matrix, cfg: PipelineConfig):
         import numpy as np
 
         from chromosome3d_tpu_torch import device as device_mod
@@ -134,6 +140,7 @@ class SolverCache:
         from chromosome3d_tpu_torch.parallel.shards import ShardGroup
         from chromosome3d_tpu_torch.restraints import build_restraints
         from chromosome3d_tpu_torch.solver.sharded import restraint_strips
+        from chromosome3d_tpu_torch.utils import trace
 
         L = matrix.shape[0]
         rc = cfg.restraints
@@ -174,8 +181,8 @@ class SolverCache:
                 solve_r = restraint_strips(group, solve_r)
         result = pl._solve(group, solve_r, cfg, bead_mask, dev)
         self.add_warm(L_pad, cfg)
-        coords = result.coords.cpu().numpy()[:, :L, :]   # synchronises
-        energies = {k: v.cpu().numpy() for k, v in result.energies.items()}
+        coords = trace.to_host(result.coords).numpy()[:, :L, :]   # synchronises
+        energies = {k: trace.to_host(v).numpy() for k, v in result.energies.items()}
         # the downloads above fenced the solve: free its tiles BEFORE the
         # assessment re-prep below allocates its own, so the two tile sets
         # never coexist at the device's peak (run_pipeline's order)

@@ -101,6 +101,7 @@ from chromosome3d_tpu_torch.solver.unfused import (
     drain,
     unfused_steps,
 )
+from chromosome3d_tpu_torch.utils import trace
 
 # at and past this (padded) L the final energy terms are evaluated in row
 # blocks (energy_terms_chunked), as the JAX package's are (anneal.py:585);
@@ -233,6 +234,7 @@ def chromosome_generator(base_seed: int, c: int) -> torch.Generator:
     return torch.Generator().manual_seed(word & (2**63 - 1))
 
 
+@trace.spanned("init.start")
 def initial_structure(restraints, cfg: AnnealConfig, bead_mask: torch.Tensor,
                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """One chromosome's init (L, 3) on bead_mask's device, by cfg.init
@@ -257,6 +259,7 @@ def initial_structure(restraints, cfg: AnnealConfig, bead_mask: torch.Tensor,
     return random_init(generator, L, device=dev)
 
 
+@trace.spanned("init.draws")
 def _draws(restraints, cfg: AnnealConfig, n_models: int, bead_mask: torch.Tensor,
            x0, generator: torch.Generator, xs, noise_seed):
     """One chromosome's start ensemble (n_eff, L, 3) and noise seed: the
@@ -274,7 +277,7 @@ def _draws(restraints, cfg: AnnealConfig, n_models: int, bead_mask: torch.Tensor
         else:
             signs = torch.ones(n_eff, device=dev)
         flip = torch.stack([signs, torch.ones_like(signs), torch.ones_like(signs)], -1)
-        jitter = torch.randn((n_eff, L, 3), generator=generator).to(dev)
+        jitter = trace.to_device(torch.randn((n_eff, L, 3), generator=generator), dev)
         xs = x0[None] * flip[:, None, :] + cfg.init_noise * jitter * bead_mask[None, :, None]
     xs = xs.to(device=dev, dtype=torch.float32)
     if xs.shape != (n_eff, L, 3):
@@ -347,118 +350,124 @@ def _solve_stack(rs, stacked, cfg: AnnealConfig, n_models: int, bead_masks: torc
         raise ValueError("or-groups belong to one chromosome, not to a stack of "
                          f"{C}: no genome path carries them")
 
-    table = schedule_table(cfg, noise_seeds[0], schedule)
-    base = table.base
-    T = len(table.rows)
-    seeds = torch.tensor([_c_int32(v) for v in noise_seeds], dtype=torch.int32, device=dev)
-    # the fused and semi routes hold the state in the kernels' (B, 3, L)
-    # layout, the unfused route in the (B, L, 3) one of the JAX package's
-    # optax step (and of its noise draws)
-    x = xs.reshape(C * n_eff, L, 3)
-    xT = x.contiguous() if unfused else x.transpose(1, 2).contiguous()
+    with trace.span("solve.setup"):
+        table = schedule_table(cfg, noise_seeds[0], schedule)
+        base = table.base
+        T = len(table.rows)
+        seeds = torch.tensor([_c_int32(v) for v in noise_seeds], dtype=torch.int32, device=dev)
+        # the fused and semi routes hold the state in the kernels' (B, 3, L)
+        # layout, the unfused route in the (B, L, 3) one of the JAX package's
+        # optax step (and of its noise draws)
+        x = xs.reshape(C * n_eff, L, 3)
+        xT = x.contiguous() if unfused else x.transpose(1, 2).contiguous()
 
-    def coords_of(state):
-        return state if unfused else state.transpose(1, 2)
+        def coords_of(state):
+            return state if unfused else state.transpose(1, 2)
 
-    muT = torch.zeros_like(xT)
-    nuT = torch.zeros_like(xT)
-    history = torch.empty((T, C * n_eff), dtype=torch.float32, device=dev)
-    # the restraints and masks of the pair kernels and B4: one chromosome's,
-    # or the stack's (the kernels' chromosome axis, a seed a chromosome)
-    pick_r, pick_bm = (rs[0], bead_masks[0]) if C == 1 else (stacked, bead_masks)
-    pick_tiles = None   # the pick folds its own tiles, unless the semi route's serve
+        muT = torch.zeros_like(xT)
+        nuT = torch.zeros_like(xT)
+        history = torch.empty((T, C * n_eff), dtype=torch.float32, device=dev)
+        # the restraints and masks of the pair kernels and B4: one chromosome's,
+        # or the stack's (the kernels' chromosome axis, a seed a chromosome)
+        pick_r, pick_bm = (rs[0], bead_masks[0]) if C == 1 else (stacked, bead_masks)
+        pick_tiles = None   # the pick folds its own tiles, unless the semi route's serve
 
-    if fused:
-        # the fused route: a phase of the schedule is one call of kernel B1,
-        # which walks the table's rows itself, every chromosome in one launch
-        # (pair_bf16: each chromosome's tiles cast after the fold)
-        tiles = [as_tile_dtype(fused_step_tiles(r, bm, base.noe), bf16)
-                 for r, bm in zip(rs, bead_masks)]
-        tiles = tuple(a[0][None] if C == 1 else torch.stack(a) for a in zip(*tiles))
+        if fused:
+            # the fused route: a phase of the schedule is one call of kernel B1,
+            # which walks the table's rows itself, every chromosome in one launch
+            # (pair_bf16: each chromosome's tiles cast after the fold)
+            tiles = [as_tile_dtype(fused_step_tiles(r, bm, base.noe), bf16)
+                     for r, bm in zip(rs, bead_masks)]
+            tiles = tuple(a[0][None] if C == 1 else torch.stack(a) for a in zip(*tiles))
 
-        def run(k0: int, k1: int, xT, muT, nuT, hist):
-            hist[k0:k1], xT, muT, nuT = fused_steps_batched(
-                xT, muT, nuT, tiles, table, k0, k1, bead_masks, seeds=seeds)
-            return xT, muT, nuT
-    elif unfused:
-        # the unfused route: the pair kernel's value and gradient with the
-        # bonded terms (B2, B3 or B5 by pair_energy_and_grad_batched's
-        # dispatch, the tiles folded once; one launch for the stack), the
-        # or-group term, then the clip, Adam, noise and move in torch ops,
-        # each chromosome with its mask and its own noise stream
-        noise = [None] * C if noise is None else noise
-        steps = unfused_steps(_energy_grad(pick_r, exact, pick_bm, or_groups, bf16), table,
-                              pick_bm, cfg.gradient_clip,
-                              StackedNoise([NoiseStream(dev, s, d)
-                                            for s, d in zip(noise_seeds, noise)]))
+            def run(k0: int, k1: int, xT, muT, nuT, hist):
+                hist[k0:k1], xT, muT, nuT = fused_steps_batched(
+                    xT, muT, nuT, tiles, table, k0, k1, bead_masks, seeds=seeds)
+                return xT, muT, nuT
+        elif unfused:
+            # the unfused route: the pair kernel's value and gradient with the
+            # bonded terms (B2, B3 or B5 by pair_energy_and_grad_batched's
+            # dispatch, the tiles folded once; one launch for the stack), the
+            # or-group term, then the clip, Adam, noise and move in torch ops,
+            # each chromosome with its mask and its own noise stream
+            noise = [None] * C if noise is None else noise
+            steps = unfused_steps(_energy_grad(pick_r, exact, pick_bm, or_groups, bf16), table,
+                                  pick_bm, cfg.gradient_clip,
+                                  StackedNoise([NoiseStream(dev, s, d)
+                                                for s, d in zip(noise_seeds, noise)]))
 
-        def run(k0: int, k1: int, x, mu, nu, hist):
-            return drain(steps(k0, k1, x, mu, nu, hist))
-    else:
-        # the semi routes: pair terms in kernel B3 (exact) or B5 (general),
-        # the or-group term added, the update in kernel B4, each one launch a
-        # step for the whole stack; the tiles are folded (and under pair_bf16
-        # cast) once, outside the loop, and serve the pick too
-        semi_tiles = pick_tiles = pair_tiles(pick_r, exact, bf16)
-        pair_grad = tri_energy.tri_energy_grad if exact else general_pair_energy_grad
-        bead_mask = pick_bm
+            def run(k0: int, k1: int, x, mu, nu, hist):
+                return drain(steps(k0, k1, x, mu, nu, hist))
+        else:
+            # the semi routes: pair terms in kernel B3 (exact) or B5 (general),
+            # the or-group term added, the update in kernel B4, each one launch a
+            # step for the whole stack; the tiles are folded (and under pair_bf16
+            # cast) once, outside the loop, and serve the pick too
+            semi_tiles = pick_tiles = pair_tiles(pick_r, exact, bf16)
+            pair_grad = tri_energy.tri_energy_grad if exact else general_pair_energy_grad
+            bead_mask = pick_bm
 
-        # the pair kernels take their weights from the host's copy of the
-        # table; kernel B4 reads its step from a device counter, its scalars
-        # from the table's device rows, and writes the history row itself
-        weights_k = [table.weights(k) for k in range(T)]
-        counter = step_counter(0, dev)
+            # the pair kernels take their weights from the host's copy of the
+            # table; kernel B4 reads its step from a device counter, its scalars
+            # from the table's device rows, and writes the history row itself
+            weights_k = [table.weights(k) for k in range(T)]
+            counter = step_counter(0, dev)
 
-        def run(k0: int, k1: int, xT, muT, nuT, hist):
-            counter.fill_(k0)
-            spare = [None, None]   # B4's outputs of the step before last
-            for n, k in enumerate(range(k0, k1)):
-                e_pair, gT = pair_grad(xT, *semi_tiles, weights_k[k], bead_mask)
-                if or_groups is not None:
-                    e_og, g_og = or_group_energy_grad(
-                        xT.transpose(1, 2), or_groups, weights_k[k], bead_mask
-                    )
-                    e_pair = e_pair + e_og
-                    gT = gT + g_og.transpose(1, 2)
-                xT, muT, nuT = fused_update_table(
-                    xT, gT.contiguous(), muT, nuT, e_pair, bead_mask, table, counter,
-                    hist, out=spare[n % 2], seeds=seeds)
-                spare[n % 2] = (xT, muT, nuT)
-            return xT, muT, nuT
+            def run(k0: int, k1: int, xT, muT, nuT, hist):
+                counter.fill_(k0)
+                spare = [None, None]   # B4's outputs of the step before last
+                for n, k in enumerate(range(k0, k1)):
+                    e_pair, gT = pair_grad(xT, *semi_tiles, weights_k[k], bead_mask)
+                    if or_groups is not None:
+                        e_og, g_og = or_group_energy_grad(
+                            xT.transpose(1, 2), or_groups, weights_k[k], bead_mask
+                        )
+                        e_pair = e_pair + e_og
+                        gT = gT + g_og.transpose(1, 2)
+                    xT, muT, nuT = fused_update_table(
+                        xT, gT.contiguous(), muT, nuT, e_pair, bead_mask, table, counter,
+                        hist, out=spare[n % 2], seeds=seeds)
+                    spare[n % 2] = (xT, muT, nuT)
+                return xT, muT, nuT
 
     pick = None
     if cfg.enantiomer:
         hot = cfg.hot_steps
-        xT, muT, nuT = run(0, hot, xT, muT, nuT, history)
+        with trace.span("solve.hot"):
+            xT, muT, nuT = run(0, hot, xT, muT, nuT, history)
         # handedness per mirror pair of each chromosome, by energy under the
         # end-of-hot weights (one B2 or B3 launch for the whole stack, the
         # table asked with a chromosome's structures)
-        coords = coords_of(xT).contiguous()
-        w_hot = table.weights(hot - 1)
-        e_hot, _ = pair_energy_and_grad_batched(coords, pick_r, w_hot, pick_bm, exact,
-                                                pick_tiles, bf16=bf16)
-        if or_groups is not None:
-            e_hot = e_hot + or_group_energy_grad(coords, or_groups, w_hot, pick_bm)[0]
-        choice = torch.argmin(e_hot.reshape(C, n_models, 2), dim=2)
-        pick = torch.arange(n_models, device=dev) * 2 + choice          # (C, n)
-        rows = (pick + n_eff * torch.arange(C, device=dev)[:, None]).reshape(-1)
-        xT, muT, nuT = xT[rows], muT[rows], nuT[rows]
-        history = history[:, rows].contiguous()
-        xT, muT, nuT = run(hot, T, xT, muT, nuT, history)
+        with trace.span("solve.pick"):
+            coords = coords_of(xT).contiguous()
+            w_hot = table.weights(hot - 1)
+            e_hot, _ = pair_energy_and_grad_batched(coords, pick_r, w_hot, pick_bm, exact,
+                                                    pick_tiles, bf16=bf16)
+            if or_groups is not None:
+                e_hot = e_hot + or_group_energy_grad(coords, or_groups, w_hot, pick_bm)[0]
+            choice = torch.argmin(e_hot.reshape(C, n_models, 2), dim=2)
+            pick = torch.arange(n_models, device=dev) * 2 + choice          # (C, n)
+            rows = (pick + n_eff * torch.arange(C, device=dev)[:, None]).reshape(-1)
+            xT, muT, nuT = xT[rows], muT[rows], nuT[rows]
+            history = history[:, rows].contiguous()
+        with trace.span("solve.cool"):
+            xT, muT, nuT = run(hot, T, xT, muT, nuT, history)
     else:
-        xT, muT, nuT = run(0, T, xT, muT, nuT, history)
+        with trace.span("solve.hot"):
+            xT, muT, nuT = run(0, T, xT, muT, nuT, history)
     n = xT.shape[0] // C
     coords = coords_of(xT).reshape(C, n, L, 3)
 
     out_coords, terms = [], []
     term_fn = energy_terms_chunked if L >= CHUNKED_TERMS_MIN_L else energy_terms
-    for c in range(C):
-        x = coords[c].contiguous()
-        bm = bead_masks[c]
-        terms.append(term_fn(x, rs[c], base, bm, or_groups))
-        # centroid to origin, padding excluded
-        centroid = (x * bm[None, :, None]).sum(dim=1, keepdim=True) / bm.sum()
-        out_coords.append((x - centroid) * bm[None, :, None])
+    with trace.span("solve.final"):
+        for c in range(C):
+            x = coords[c].contiguous()
+            bm = bead_masks[c]
+            terms.append(term_fn(x, rs[c], base, bm, or_groups))
+            # centroid to origin, padding excluded
+            centroid = (x * bm[None, :, None]).sum(dim=1, keepdim=True) / bm.sum()
+            out_coords.append((x - centroid) * bm[None, :, None])
     return AnnealResult(
         coords=torch.stack(out_coords),
         energies={k: torch.stack([t[k] for t in terms]) for k in terms[0]},

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from chromosome3d_tpu_torch.ops.energy import ExactRestraints
+from chromosome3d_tpu_torch.utils import trace
 
 _BIG = 1e6
 
@@ -155,9 +156,9 @@ def _top3_eig(b: torch.Tensor, iters: int = 60):
         v = _orthonormalize(b @ v)
     small = v.T @ (b @ v)                            # (3, 3) symmetric
     # a 3 x 3 eigh: on the host, where it costs nothing
-    w, s = torch.linalg.eigh(small.cpu())
-    v = v @ s.to(b.device)
-    return w.flip(0).to(b.device), v.flip(1)
+    w, s = torch.linalg.eigh(trace.to_host(small))
+    v = v @ trace.to_device(s, b.device)
+    return trace.to_device(w.flip(0), b.device), v.flip(1)
 
 
 def mds_init(

@@ -88,6 +88,7 @@ from chromosome3d_tpu_torch.solver.init import (
     relax_landmarks_lower_block,
 )
 from chromosome3d_tpu_torch.solver.unfused import NoiseStream, StackedNoise, unfused_steps
+from chromosome3d_tpu_torch.utils import trace
 
 _BIG = 1e6
 
@@ -145,6 +146,7 @@ def _kernel_tiles(tiles: List[_Tiles], cfg: AnnealConfig, route: str) -> List[_T
                                 w=t.w.to(torch.bfloat16).contiguous()) for t in tiles]
 
 
+@trace.spanned("init.landmark_sharded")
 def sharded_landmark_init(group: ShardGroup, strips: Sequence, bead_mask: torch.Tensor,
                           cfg: AnnealConfig) -> torch.Tensor:
     """The landmark-MDS start from the row strips (JAX sharded.py:306-361):
@@ -222,6 +224,7 @@ def _route(cfg: AnnealConfig, L: int, n: int) -> str:
     return "unfused"
 
 
+@trace.spanned("init.draws")
 def _start(group: ShardGroup, strips: Sequence, bead_mask: torch.Tensor,
            cfg: AnnealConfig, n_models: int, generator: torch.Generator) -> torch.Tensor:
     """One chromosome's drawn start ensemble (n_eff, L, 3) on the lead: the
@@ -236,7 +239,7 @@ def _start(group: ShardGroup, strips: Sequence, bead_mask: torch.Tensor,
     else:
         signs = torch.ones(n_eff, device=lead)
     flip = torch.stack([signs, torch.ones_like(signs), torch.ones_like(signs)], -1)
-    jitter = torch.randn((n_eff, L, 3), generator=generator).to(lead)
+    jitter = trace.to_device(torch.randn((n_eff, L, 3), generator=generator), lead)
     return x0[None] * flip[:, None, :] + cfg.init_noise * jitter * bead_mask[None, :, None]
 
 
@@ -305,113 +308,122 @@ def _group_body(group: ShardGroup, tiles: List[_Tiles], bead_masks: torch.Tensor
         raise ValueError(f"or-groups belong to one chromosome, not to a group of {C}: "
                          "no genome path carries them")
     exact = cfg.exact_restraints and cfg.noe_rswitch >= 1e8
-    beads = group.broadcast(bead_masks)
-    seeds = torch.tensor([_c_int32(v) for v in noise_seeds], dtype=torch.int32,
-                         device=lead)
-    table = schedule_table(cfg, noise_seeds[0], schedule)
-    base = table.base
-    T = len(table.rows)
-    step_weights = [table.weights(k) for k in range(T)]
+    with trace.span("solve.setup"):
+        beads = group.broadcast(bead_masks)
+        seeds = torch.tensor([_c_int32(v) for v in noise_seeds], dtype=torch.int32,
+                             device=lead)
+        table = schedule_table(cfg, noise_seeds[0], schedule)
+        base = table.base
+        T = len(table.rows)
+        step_weights = [table.weights(k) for k in range(T)]
 
-    # the pair kernels' tiles (bf16 on the strip route under pair_bf16); the
-    # final terms read the stored ones
-    ktiles = _kernel_tiles(tiles, cfg, route)
+        # the pair kernels' tiles (bf16 on the strip route under pair_bf16); the
+        # final terms read the stored ones
+        ktiles = _kernel_tiles(tiles, cfg, route)
 
-    def pair_T(xT, weights):
-        return _pair_rows(group, ktiles, beads, xT, weights, exact, route)
+        def pair_T(xT, weights):
+            return _pair_rows(group, ktiles, beads, xT, weights, exact, route)
 
-    # kernel B4 reads its step from a device counter on the lead, its
-    # scalars from the table's rows there and each chromosome's noise seed
-    # from `seeds`, and writes the history row itself
-    counter = step_counter(0, lead)
-    og_mask = bead_masks[0]
+        # kernel B4 reads its step from a device counter on the lead, its
+        # scalars from the table's rows there and each chromosome's noise seed
+        # from `seeds`, and writes the history row itself
+        counter = step_counter(0, lead)
+        og_mask = bead_masks[0]
 
-    def run_fused_update(k0, k1, xT, muT, nuT, hist):
-        counter.fill_(k0)
-        spare = [None, None]   # B4's outputs of the step before last
-        for n, k in enumerate(range(k0, k1)):
-            e_pair, gT = pair_T(xT, step_weights[k])
-            if or_groups is not None:
-                e_og, g_og = or_group_energy_grad(xT.transpose(1, 2), or_groups,
-                                                  step_weights[k], og_mask)
-                e_pair = e_pair + e_og
-                gT = gT + g_og.transpose(1, 2)
-            xT, muT, nuT = fused_update_table(
-                xT, gT.contiguous(), muT, nuT, e_pair, bead_masks, table, counter, hist,
-                out=spare[n % 2], seeds=seeds)
-            spare[n % 2] = (xT, muT, nuT)
-            yield
-        return xT, muT, nuT
+        def run_fused_update(k0, k1, xT, muT, nuT, hist):
+            counter.fill_(k0)
+            spare = [None, None]   # B4's outputs of the step before last
+            for n, k in enumerate(range(k0, k1)):
+                e_pair, gT = pair_T(xT, step_weights[k])
+                if or_groups is not None:
+                    e_og, g_og = or_group_energy_grad(xT.transpose(1, 2), or_groups,
+                                                      step_weights[k], og_mask)
+                    e_pair = e_pair + e_og
+                    gT = gT + g_og.transpose(1, 2)
+                xT, muT, nuT = fused_update_table(
+                    xT, gT.contiguous(), muT, nuT, e_pair, bead_masks, table, counter, hist,
+                    out=spare[n % 2], seeds=seeds)
+                spare[n % 2] = (xT, muT, nuT)
+                yield
+            return xT, muT, nuT
 
-    unfused = route == "unfused"
-    if unfused:
-        # the pair rows of every rank gathered, then the bonded terms (bond
-        # and angle) and the or-group term on the lead: the state in the JAX
-        # step's (B, L, 3) layout
-        def energy_grad(x, weights):
-            e_pair, gT = pair_T(x.transpose(1, 2).contiguous(), weights)
-            g = gT.transpose(1, 2)
-            if or_groups is not None:
-                e_og, g_og = or_group_energy_grad(x, or_groups, weights, og_mask)
-                e_pair, g = e_pair + e_og, g + g_og
-            e_b, g_b = bond_energy_grad_stacked(x, weights, bead_masks)
-            return e_pair + e_b, g + g_b
+        unfused = route == "unfused"
+        if unfused:
+            # the pair rows of every rank gathered, then the bonded terms (bond
+            # and angle) and the or-group term on the lead: the state in the JAX
+            # step's (B, L, 3) layout
+            def energy_grad(x, weights):
+                e_pair, gT = pair_T(x.transpose(1, 2).contiguous(), weights)
+                g = gT.transpose(1, 2)
+                if or_groups is not None:
+                    e_og, g_og = or_group_energy_grad(x, or_groups, weights, og_mask)
+                    e_pair, g = e_pair + e_og, g + g_og
+                e_b, g_b = bond_energy_grad_stacked(x, weights, bead_masks)
+                return e_pair + e_b, g + g_b
 
-        draws = [None] * C if noise is None else noise
-        run = unfused_steps(energy_grad, table, og_mask if C == 1 else bead_masks,
-                            cfg.gradient_clip,
-                            StackedNoise([NoiseStream(lead, s, d)
-                                          for s, d in zip(noise_seeds, draws)]))
-    else:
-        run = run_fused_update
+            draws = [None] * C if noise is None else noise
+            run = unfused_steps(energy_grad, table, og_mask if C == 1 else bead_masks,
+                                cfg.gradient_clip,
+                                StackedNoise([NoiseStream(lead, s, d)
+                                              for s, d in zip(noise_seeds, draws)]))
+        else:
+            run = run_fused_update
 
-    def coords_of(state):
-        return state if unfused else state.transpose(1, 2)
+        def coords_of(state):
+            return state if unfused else state.transpose(1, 2)
 
-    x = xs.reshape(C * n_eff, L, 3)
-    xT = x.contiguous() if unfused else x.transpose(1, 2).contiguous()
-    muT = torch.zeros_like(xT)
-    nuT = torch.zeros_like(xT)
-    history = torch.empty((T, C * n_eff), dtype=torch.float32, device=lead)
+        x = xs.reshape(C * n_eff, L, 3)
+        xT = x.contiguous() if unfused else x.transpose(1, 2).contiguous()
+        muT = torch.zeros_like(xT)
+        nuT = torch.zeros_like(xT)
+        history = torch.empty((T, C * n_eff), dtype=torch.float32, device=lead)
+    # the step loops stay open across the yields, while other groups' bodies
+    # run: they are no span's parent (nest=False)
     pick = None
     if cfg.enantiomer:
         hot = cfg.hot_steps
-        xT, muT, nuT = yield from run(0, hot, xT, muT, nuT, history)
-        w_hot = step_weights[hot - 1]
-        coords = coords_of(xT).contiguous()
-        xT_hot = coords.transpose(1, 2).contiguous() if unfused else xT
-        e_hot = pair_T(xT_hot, w_hot)[0] + bond_energy_grad_stacked(coords, base, bead_masks)[0]
-        if or_groups is not None:
-            e_hot = e_hot + or_group_energy(coords, or_groups, w_hot, og_mask)
-        choice = torch.argmin(e_hot.reshape(C, n_models, 2), dim=2)
-        pick = torch.arange(n_models, device=lead) * 2 + choice              # (C, n)
-        rows = (pick + n_eff * torch.arange(C, device=lead)[:, None]).reshape(-1)
-        xT, muT, nuT = xT[rows], muT[rows], nuT[rows]
-        history = history[:, rows].contiguous()
-        xT, muT, nuT = yield from run(hot, T, xT, muT, nuT, history)
+        with trace.span("solve.hot", nest=False):
+            xT, muT, nuT = yield from run(0, hot, xT, muT, nuT, history)
+        with trace.span("solve.pick"):
+            w_hot = step_weights[hot - 1]
+            coords = coords_of(xT).contiguous()
+            xT_hot = coords.transpose(1, 2).contiguous() if unfused else xT
+            e_hot = (pair_T(xT_hot, w_hot)[0]
+                     + bond_energy_grad_stacked(coords, base, bead_masks)[0])
+            if or_groups is not None:
+                e_hot = e_hot + or_group_energy(coords, or_groups, w_hot, og_mask)
+            choice = torch.argmin(e_hot.reshape(C, n_models, 2), dim=2)
+            pick = torch.arange(n_models, device=lead) * 2 + choice              # (C, n)
+            rows = (pick + n_eff * torch.arange(C, device=lead)[:, None]).reshape(-1)
+            xT, muT, nuT = xT[rows], muT[rows], nuT[rows]
+            history = history[:, rows].contiguous()
+        with trace.span("solve.cool", nest=False):
+            xT, muT, nuT = yield from run(hot, T, xT, muT, nuT, history)
     else:
-        xT, muT, nuT = yield from run(0, T, xT, muT, nuT, history)
+        with trace.span("solve.hot", nest=False):
+            xT, muT, nuT = yield from run(0, T, xT, muT, nuT, history)
     n = xT.shape[0] // C
     coords_all = coords_of(xT).reshape(C, n, L, 3)
 
     # final canonical-weight terms: the plain row-block energy on every
     # rank, a chromosome at a time; then the centroid to the origin
     out_coords, terms = [], []
-    for c in range(C):
-        coords = coords_all[c].contiguous()
-        bm = bead_masks[c]
-        parts = [row_block_energy_grad(x, t.lo[c], t.hi[c], t.w[c], b[c], t.row_start, base)
-                 for x, t, b in zip(group.broadcast(coords), tiles, beads)]
-        e_noe = group.psum([p[0] for p in parts])
-        e_vdw = group.psum([p[1] for p in parts])
-        if or_groups is not None:
-            e_noe = e_noe + or_group_energy(coords, or_groups, base, bm)
-        e_bond = bond_energy_grad(coords, base, bm)[0]
-        terms.append({"noe": e_noe, "bon": e_bond, "vdw": e_vdw,
-                      "overall": e_noe + e_vdw + e_bond})
-        nvalid = torch.clamp_min(bm.sum(), 1.0)
-        centroid = (coords * bm[None, :, None]).sum(dim=1, keepdim=True) / nvalid
-        out_coords.append((coords - centroid) * bm[None, :, None])
+    with trace.span("solve.final"):
+        for c in range(C):
+            coords = coords_all[c].contiguous()
+            bm = bead_masks[c]
+            parts = [row_block_energy_grad(x, t.lo[c], t.hi[c], t.w[c], b[c], t.row_start, base)
+                     for x, t, b in zip(group.broadcast(coords), tiles, beads)]
+            e_noe = group.psum([p[0] for p in parts])
+            e_vdw = group.psum([p[1] for p in parts])
+            if or_groups is not None:
+                e_noe = e_noe + or_group_energy(coords, or_groups, base, bm)
+            e_bond = bond_energy_grad(coords, base, bm)[0]
+            terms.append({"noe": e_noe, "bon": e_bond, "vdw": e_vdw,
+                          "overall": e_noe + e_vdw + e_bond})
+            nvalid = torch.clamp_min(bm.sum(), 1.0)
+            centroid = (coords * bm[None, :, None]).sum(dim=1, keepdim=True) / nvalid
+            out_coords.append((coords - centroid) * bm[None, :, None])
     return AnnealResult(
         coords=torch.stack(out_coords),
         energies={k: torch.stack([t[k] for t in terms]) for k in terms[0]},
@@ -531,8 +543,8 @@ def solve_genome_sharded(
     bodies = []
     for g, (group, group_strips) in enumerate(zip(groups, strips)):
         lead = group.lead
-        masks = bead_masks[g * Cg:(g + 1) * Cg].to(device=lead,
-                                                  dtype=torch.float32).contiguous()
+        masks = trace.to_device(bead_masks[g * Cg:(g + 1) * Cg].to(torch.float32),
+                                lead).contiguous()
         starts, seeds = [], []
         for i in range(Cg):
             c = g * Cg + i

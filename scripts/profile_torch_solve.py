@@ -18,10 +18,13 @@ card's busy share, the device time of the top kernels, and the card's
 shape (L = 4985 -> 5120, 10 models, the default 2,760-step schedule). With
 --shards N the same tensors are cut into N row strips on N copies of the
 card and go through `solve_ensemble_sharded` (its own landmark start), so
-the one card's busy share on the sharded route can be read. With --phases
-(one device) one more warm solve is split, with a CUDA synchronise at every
-boundary, into the init, the hot loop, the pick, the cool and final loop,
-the final energy terms and the rest. With --genome the solve is the genome
+the one card's busy share on the sharded route can be read. The profiled
+solve is also split by the program's own spans (utils/trace.py, recorded
+while the profiler runs; no synchronise added): the host seconds of the
+init, the set-up, the hot loop, the pick, the cool loop and the final
+terms, and of the waits and copies. A span closes when its last launch
+returns, so a phase whose kernels the host does not wait for reads short;
+the next wait holds the rest. With --genome the solve is the genome
 runner's bucket solve (`parallel.genome.solve_bucket`) on chip_smoke.py's
 45 inputs (the reference genome's lengths 35..455, one 512 bucket): the
 mds_init loop over the chromosomes is timed on its own, then two warm
@@ -57,6 +60,7 @@ from chromosome3d_tpu_torch.solver import sharded  # noqa: E402
 from chromosome3d_tpu_torch.solver.anneal import solve_ensemble_impl  # noqa: E402
 from chromosome3d_tpu_torch.solver.init import landmark_init, mds_init  # noqa: E402
 from chromosome3d_tpu_torch.truth import confined_walk, if_from_structure  # noqa: E402
+from chromosome3d_tpu_torch.utils import trace  # noqa: E402
 
 
 def timed(fn):
@@ -87,43 +91,13 @@ def file_inputs(path, dev):
     return r.length, L_pad, dense, an, og
 
 
-def solve_phases(solve):
-    """Seconds of one solve by phase: the solver's init, pick and final-terms
-    calls are wrapped with a synchronise on both sides; the hot loop is what
-    lies between the init and the pick, the cool (and final) loop between
-    the pick and the terms."""
-    from chromosome3d_tpu_torch.solver import anneal
-
-    marks = []
-    names = ("mds_init", "landmark_init", "pair_energy_and_grad_batched", "energy_terms")
-    real = {n: getattr(anneal, n) for n in names}
-
-    def wrap(name):
-        def fn(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = real[name](*args, **kwargs)
-            torch.cuda.synchronize()
-            marks.append((name, t0, time.perf_counter()))
-            return out
-        return fn
-
-    for n in names:
-        setattr(anneal, n, wrap(n))
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        solve(3)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-    finally:
-        for n, fn in real.items():
-            setattr(anneal, n, fn)
-    if [m[0] for m in marks][1:] != ["pair_energy_and_grad_batched", "energy_terms"]:
-        raise SystemExit(f"--phases: unexpected calls {[m[0] for m in marks]}")
-    (_, i0, i1), (_, p0, p1), (_, e0, e1) = marks
-    return {"before_init": i0 - t0, "init": i1 - i0, "hot_loop": p0 - i1, "pick": p1 - p0,
-            "cool_loop": e0 - p1, "final_terms": e1 - e0, "rest": t1 - e1, "total": t1 - t0}
+def span_phases() -> str:
+    """Host seconds by span name over the records since trace.clear(),
+    in the order the spans first opened."""
+    total = {}
+    for r in sorted(trace.records(), key=lambda r: r.t0):
+        total[r.name] = total.get(r.name, 0.0) + (r.t1 - r.t0)
+    return ", ".join(f"{k} {v:.5f}" for k, v in total.items())
 
 
 def report(prof, wall):
@@ -135,6 +109,7 @@ def report(prof, wall):
     total = sum(r[1] for r in rows)
     print(f"profiled solve: wall {wall:.4f} s, device {total / 1e6:.4f} s, "
           f"busy share {total / 1e6 / wall:.4f}")
+    print(f"by the program's spans (host s): {span_phases()}")
     for key, us, n in rows[:15]:
         print(f"  {us / 1e3:10.3f} ms {100 * us / total:6.2f}% x{n:6d}  {key[:90]}")
     # kernel B1 is one launch a phase: its rows above are fused_steps_kernel<columns a
@@ -180,6 +155,7 @@ def profile_genome(models: int, dev) -> int:
           f"{an.total_steps} steps: host stacking {load_s:.4f} s; the mds_init loop "
           f"{init_s[0]:.4f} s cold, {init_s[1]:.4f} s warm; warm bucket solves (upload "
           f"included) {solve_s[0]:.4f} s, {solve_s[1]:.4f} s")
+    trace.clear()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall = timed(lambda: solve(9))
     report(prof, wall)
@@ -194,8 +170,6 @@ def main() -> int:
                     help="profile `solve` on this .rr or .tbl file instead")
     ap.add_argument("--shards", type=int, default=1,
                     help="row-shard the solve over this many copies of the card")
-    ap.add_argument("--phases", action="store_true",
-                    help="split one more warm solve into its phases (one device)")
     ap.add_argument("--genome", action="store_true",
                     help="profile the genome bucket solve on chip_smoke.py's 45 inputs")
     args = ap.parse_args()
@@ -241,11 +215,7 @@ def main() -> int:
           f"{0 if og is None else og.lo.shape[0]}, {args.shards} shard(s): prep "
           f"{prep_s:.4f} s (first call); {init.__name__} {init_s[0]:.4f} s cold, "
           f"{init_s[1]:.4f} s warm; warm solves {solve_s[0]:.4f} s, {solve_s[1]:.4f} s")
-    if args.phases and args.shards == 1:
-        for _ in range(2):
-            ph = solve_phases(solve)
-            print("solve by phase (s, synchronised at every boundary): "
-                  + ", ".join(f"{k} {v:.5f}" for k, v in ph.items()))
+    trace.clear()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall = timed(lambda: solve(9))
     report(prof, wall)

@@ -292,3 +292,30 @@ def test_cli_genome_runs_on_the_cpu(monkeypatch, capsys, tmp_path):
     assert summary["chromosomes"] == resumed
     assert summary["phases"]["L64"]["chromosomes"] == ["chr2_500kb"]
     assert os.path.isfile(os.path.join(out, "chr2_500kb", "chr2_500kb_model1.pdb"))
+
+
+def test_cli_run_profile_writes_the_spans_into_its_trace(monkeypatch, capsys, tmp_path):
+    """`run --profile DIR --device cpu --fast -m 2` on a small matrix (the
+    length bucket cut to 64 beads, as above) writes DIR/trace.json, a
+    torch.profiler Chrome trace whose ranges name the solve's phases
+    (utils/trace.py), and no copy, since nothing leaves the host
+    (tests/test_torch_trace.py runs it on the card, copies named)."""
+    from chromosome3d_tpu_torch.io import write_if_matrix
+    from chromosome3d_tpu_torch.truth import confined_walk, if_from_structure
+
+    path = tmp_path / "chr7_1mb_matrix.txt"
+    write_if_matrix(path, if_from_structure(confined_walk(40, seed=3), alpha=0.5,
+                                            noise_sigma=0.1, seed=3))
+    make = cli._make_config
+    monkeypatch.setattr(cli, "_make_config",
+                        lambda args: make(args).replace(length_buckets=(64,)))
+    prof = tmp_path / "prof"
+    argv = ["run", "-i", str(path), "-o", str(tmp_path / "out"), "--device", "cpu", "--fast",
+            "-m", "2", "--profile", str(prof)]
+    assert cli.main(argv) == 0
+    capsys.readouterr()
+    events = json.loads((prof / "trace.json").read_text())["traceEvents"]
+    names = {e.get("name") for e in events}
+    for name in ("request", "solve.hot", "solve.pick", "solve.cool", "solve.final"):
+        assert name in names, name
+    assert not [n for n in names if str(n).startswith("xfer.")]
