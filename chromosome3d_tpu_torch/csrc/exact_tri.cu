@@ -11,17 +11,20 @@
 // Pairing and math: the tile-pair body in tri_pair.cuh, shared with the
 // strip kernel B6 (exact_tri_strip.cu), here over all T row tiles.
 //
-// What bounds it on an H100: instruction issue on the FP32 pipes — ~22
+// What bounds it on an H100: instruction issue on the FP32 pipes — 22
 // arithmetic instructions and one MUFU rsqrt per unordered pair, B x L^2 / 2
-// pairs a call (262M at B = 20, L = 5120); the two (L, L) tiles (210 MB,
-// read once a call) move in a fifth of that time. Design: one 256-thread
-// block per tile pair (i, s) with a 4 x 4 register patch of the tiles reused
-// for all B structures, coordinates staged in shared memory and no barrier
-// or global load in the loop over structures (tri_pair.cuh); partials in a
-// (B, 2S, 3, Lp) buffer — row partials of shell s at slot s, column partials
-// at slot S + s at their column tile — that a second kernel sums per bead in
-// slot order. No float atomics: the same inputs give the same bits, so a
-// solve with a fixed seed is reproducible.
+// pairs a call (262M at B = 20, L = 5120), and the folds, loads and stores
+// around them (28.0 SASS a pair in all); the two (L, L) tiles (210 MB, read
+// once a call) move in a fifth of that time. Design: one 256-thread block
+// per tile pair (i, s) with a 4 x 4 register patch of the tiles reused for
+// all B structures, coordinates staged in shared memory and no barrier or
+// global load in the loop over structures, and the first stage of each fold
+// free of selects (tri_pair.cuh's swapped-patch body; the tile staged in
+// shared memory for larger patches measured slower, PERF.md §6);
+// partials in a (B, 2S, 3, Lp) buffer — row partials of shell s at slot s,
+// column partials at slot S + s at their column tile — that a second kernel
+// sums per bead in slot order. No float atomics: the same inputs give the
+// same bits, so a solve with a fixed seed is reproducible.
 //
 // The chromosome axis: a genome bucket's C chromosomes of B structures each
 // (the JAX runner's vmap of the solve over its bucket) in one launch, grid

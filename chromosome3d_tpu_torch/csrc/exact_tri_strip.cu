@@ -35,10 +35,12 @@
 // strip with Lb = L gives B3's bits. Energies: B3's fixed-order block sum.
 // No float atomics.
 //
-// What bounds it on an H100: as B3, instruction issue at ~22 arithmetic
-// instructions and one MUFU rsqrt per unordered pair, now B x Lb x L / 2
-// pairs per shard (65.5M at B = 20, L = 5120, Lb = 1280), not the (Lb, L)
-// tiles (52 MB, read once); the body's design is tri_pair.cuh's.
+// What bounds it on an H100: as B3, instruction issue at 22 arithmetic
+// instructions and one MUFU rsqrt per unordered pair and the folds around
+// them, now B x Lb x L / 2 pairs per shard (65.5M at B = 20, L = 5120, Lb =
+// 1280), not the (Lb, L) tiles (52 MB, read once); the body's design is
+// tri_pair.cuh's: B3's swapped-patch body at tile 64 (the wrapper counts
+// those launches in `.launches_tile64`), the patch body at 32, 16 and 8.
 // The tile is the port's own: 64, or the largest of 32, 16 and 8 that
 // divides Lb (the JAX package's strip tile is sized for VMEM and may be
 // larger; the routing rule is kept, the tile is not).

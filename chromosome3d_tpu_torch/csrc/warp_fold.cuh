@@ -40,6 +40,20 @@ __device__ __forceinline__ void fold(float (&v)[N], bool up) {
   }
 }
 
+// the same stage without the selects, for values laid out so that a lane
+// whose bit OFF is set holds the halves swapped: every lane keeps its first
+// half and adds its partner's second, which holds the same values
+template <int M, int OFF, int N>
+__device__ __forceinline__ void fold_swapped(float (&v)[N]) {
+  constexpr int H = M / 2;
+#pragma unroll
+  for (int i = 0; i < H; ++i) v[i] = v[i] + __shfl_xor_sync(0xffffffffu, v[i + H], OFF);
+  if (M & 1) {
+    const float x = v[M - 1];
+    v[H] = x + __shfl_xor_sync(0xffffffffu, x, OFF);
+  }
+}
+
 template <int M, int OFF, int N>
 __device__ __forceinline__ void fold_id(int (&id)[N], bool (&own)[N], bool up) {
   constexpr int H = M / 2;

@@ -19,7 +19,8 @@ kernel for CUDA tensors (float32 strips, or bfloat16 ones under
 AnnealConfig.pair_bf16: the bf16 entry point widens them on load, the
 twin on read), counting each in a plain integer on the function
 (`strip_tri_energy_grad.launches`, of them `.launches_bf16` on bf16
-strips, `strip_tri_energy_grad_plain.calls`).
+strips and `.launches_tile64` at tile 64, which take tri_pair.cuh's
+swapped-patch body; `strip_tri_energy_grad_plain.calls`).
 """
 
 from __future__ import annotations
@@ -246,8 +247,10 @@ def strip_tri_energy_grad(
     _build.check(err, "c3d_exact_tri_strip")
     strip_tri_energy_grad.launches += 1
     strip_tri_energy_grad.launches_bf16 += kind == torch.bfloat16
+    strip_tri_energy_grad.launches_tile64 += tile == 64
     return e, gT
 
 
 trace.count_launches(strip_tri_energy_grad)
-strip_tri_energy_grad.launches_bf16 = 0   # of them, on bf16 strips
+strip_tri_energy_grad.launches_bf16 = 0     # of them, on bf16 strips
+strip_tri_energy_grad.launches_tile64 = 0   # of them, at tile 64: the swapped-patch body

@@ -217,6 +217,11 @@ def test_cuda_pair_kernel_matches_plain(cuda_device):
     (333, 300, 1),    # T = 6, ragged, masked
     (300, 290, 25),   # three slices of structures, the last one short
     (192, 180, 11),   # T = 3 (the fewest B3 takes), two slices
+    (5120, 4985, 10),  # chr1 at 50 kb: the cool phase, one slice
+    (5120, 4985, 20),  # the hot phase, two slices
+    (1000, 990, 10),  # a ragged last tile of 40 rows
+    (700, 650, 11),   # slices of 6 and 5
+    (1000, 990, 13),  # slices of 7 and 6
 ])
 def test_cuda_tri_kernel_matches_plain(cuda_device, L, n_real, B):
     ex, bm, x, _, _ = _case(cuda_device, L=L, n_real=n_real, B=B)
@@ -302,6 +307,7 @@ def test_cuda_row_blocks_are_whole_matrix_rows(cuda_device, L, n):
     (96, 90, 3, 4),      # tile 8 (Lb = 24)
     (320, 300, 23, 5),   # three slices of structures, the last one short
     (96, 90, 11, 3),     # tile 32, two slices
+    (640, 600, 13, 2),   # tile 64, slices of 7 and 6
 ])
 def test_cuda_strip_tri_matches_plain_and_b3(cuda_device, L, n_real, B, n):
     """B6 on n strips: each strip against its twin at the kernel's tile and
@@ -330,6 +336,36 @@ def test_cuda_strip_tri_matches_plain_and_b3(cuda_device, L, n_real, B, n):
         e1, g1 = strip_tri_energy_grad(x, ex.target, ex.w, WEIGHTS, bm, 0)
         e3, g3 = tri_energy_grad(x, ex.target, ex.w, WEIGHTS, bm)
         assert torch.equal(e1, e3) and torch.equal(g1, g3)
+
+
+@pytest.mark.parametrize("L,n,tile", [(320, 5, 64), (96, 3, 32)])
+def test_cuda_strip_tri_counts_its_tile64_launches(cuda_device, L, n, tile):
+    """B6 counts a launch at tile 64 (the swapped-patch body) in
+    `.launches_tile64`, and one at a smaller tile (the patch body) not."""
+    ex, bm, x, _, _ = _case(cuda_device, L=L, n_real=L - 10, B=3)
+    Lb = L // n
+    assert strip_tile(Lb) == tile
+    before = (strip_tri_energy_grad.launches, strip_tri_energy_grad.launches_tile64)
+    strip_tri_energy_grad(x, ex.target[:Lb], ex.w[:Lb], WEIGHTS, bm, 0)
+    assert strip_tri_energy_grad.launches == before[0] + 1
+    assert strip_tri_energy_grad.launches_tile64 == before[1] + (tile == 64)
+
+
+@pytest.mark.parametrize("kernel", ["B3", "B6"])
+def test_cuda_tri_structure_bits_do_not_depend_on_the_batch(cuda_device, kernel):
+    """A structure's outputs are the same bits whatever else shares its
+    launch: the first 10 of 20, 13, 11 or 23 structures (two or three slices
+    of other sizes) against a launch of those 10 alone (one slice)."""
+    ex, bm, x, _, _ = _case(cuda_device, L=640, n_real=630, B=23, seed=5)
+    if kernel == "B3":
+        call = lambda xs: tri_energy_grad(xs, ex.target, ex.w, WEIGHTS, bm)
+    else:
+        call = lambda xs: strip_tri_energy_grad(xs, ex.target[128:448], ex.w[128:448],
+                                                WEIGHTS, bm, 128)
+    e10, g10 = call(x[:10].contiguous())
+    for B in (20, 13, 11, 23):
+        e, g = call(x[:B].contiguous())
+        assert torch.equal(e[:10], e10) and torch.equal(g[:10], g10), B
 
 
 @pytest.mark.parametrize("body", ["general", "general rows", "tri", "strip"])
@@ -713,7 +749,8 @@ def _genome_strips(device, C, L, B):
 
 
 @pytest.mark.parametrize("C,L,B", [(1, 1024, 20), (3, 1024, 20), (5, 1024, 20),
-                                   (3, 333, 7), (5, 2048, 20)])
+                                   (3, 333, 7), (5, 2048, 20), (2, 5120, 10),
+                                   (3, 1000, 13)])
 def test_cuda_tri_kernel_chromosome_axis(cuda_device, C, L, B):
     """B3 over C chromosomes (their own tiles and masks) in one launch
     equals C launches of one chromosome each, bit for bit, and its twin

@@ -104,14 +104,18 @@ def test_tri_plan_shared_memory_fits_and_ignores_length(B, L, tile):
     assert plan["e_part_shape"] == (B, plan["blocks"])
 
 
+@pytest.mark.parametrize("tile", (64, 32))
 @pytest.mark.parametrize("B", (1, 2, 10, 11, 20, 23, 25, 100))
-def test_tri_plan_slices_cover_the_batch(B):
-    plan = tri_plan(B, 512, 512, TILE)
+def test_tri_plan_slices_cover_the_batch(B, tile):
+    """Both bodies (tile 64: the swapped-patch body; smaller tiles: the patch
+    body) take up to 10 structures a slice, as few slices as cover B."""
+    plan = tri_plan(B, 512, 512, tile)
     n = -(-B // plan["bslice"])
     assert 1 <= plan["bslice"] <= 10
     assert n * plan["bslice"] >= B > (n - 1) * plan["bslice"]
+    assert n == -(-B // 10)
     # the shared memory is that of a slice, whatever B
-    assert plan["smem_bytes"] <= tri_plan(10, 512, 512, TILE)["smem_bytes"]
+    assert plan["smem_bytes"] <= tri_plan(10, 512, 512, tile)["smem_bytes"]
 
 
 @pytest.mark.parametrize("Tg,strips", [

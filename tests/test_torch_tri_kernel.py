@@ -124,3 +124,140 @@ def test_tri_wrapper_contract():
         tri_energy.tri_energy_grad(xT.double(), target, w, w_t, bm)
     with pytest.raises(ValueError):
         tri_energy.tri_energy_grad(xT.transpose(1, 2), target, w, w_t, bm)
+
+
+# -- the swapped-patch body's layout (csrc/tri_pair.cuh, tile 64), on the CPU --
+#
+# The CUDA body runs only on a card (tests/test_torch_cuda.py holds it to the
+# twin there). Its index maps are plain integer arithmetic, emulated here
+# lane by lane with numpy for one tile pair and one structure: which pair
+# each thread's slot (a, k) holds (row 4 ty + (a ^ rs), column 4 tx + (k ^
+# cs)), the select-free first stages of both folds, the plain stages after
+# them, and where the fold ids send each row sum, column sum and energy. The
+# emulation's float32 sums must match a float64 sum of the same pairs, and
+# every row and column must come out exactly once.
+
+_TM, _PER = 64, 4
+
+
+def _fold(v, m, off):
+    """warp_fold.cuh `fold<m, off>` over a warp: v (32 lanes, >= m values);
+    a lane with bit `off` keeps the upper half; an odd last value is summed
+    on both lanes."""
+    lanes = np.arange(32)
+    h = m // 2
+    up = (lanes & off != 0)[:, None]
+    keep = np.where(up, v[:, h:2 * h], v[:, :h])
+    send = np.where(up, v[:, :h], v[:, h:2 * h])
+    out = [keep + send[lanes ^ off]]
+    if m % 2:
+        x = v[:, m - 1:m]
+        out.append(x + x[lanes ^ off])
+    return np.concatenate(out, axis=1).astype(np.float32)
+
+
+def _fold_swapped(v, m, off):
+    """warp_fold.cuh `fold_swapped<m, off>`: every lane keeps its first half
+    and adds its partner's second."""
+    lanes = np.arange(32)
+    h = m // 2
+    out = [v[:, :h] + v[lanes ^ off, h:2 * h]]
+    if m % 2:
+        x = v[:, m - 1:m]
+        out.append(x + x[lanes ^ off])
+    return np.concatenate(out, axis=1).astype(np.float32)
+
+
+def _fold_id(ids, own, m, off):
+    """warp_fold.cuh `fold_id<m, off>` on every lane's (id, owner) slots."""
+    lanes = np.arange(32)
+    h = m // 2
+    up = (lanes & off != 0)[:, None]
+    nid = np.where(up, ids[:, h:2 * h], ids[:, :h])
+    nown = np.where(up, own[:, h:2 * h], own[:, :h])
+    if m % 2:
+        nid = np.concatenate([nid, ids[:, m - 1:m]], axis=1)
+        nown = np.concatenate([nown, own[:, m - 1:m] & ~up], axis=1)
+    return nid, nown
+
+
+def _swapped_pair_sums(xr, xc, t, ww, nn, r0):
+    """One structure through one tile pair, warp by warp: row sums (64, 3),
+    column sums (64, 3), the energy sum s (ww u^2 + nn v^2)."""
+    f32 = np.float32
+    lanes = np.arange(32)
+    rs = np.where(lanes & 8, 2, 0)
+    cs = np.where(lanes & 16, 2, 0)
+    rows = np.full((_TM, 3), np.nan, f32)
+    col_slots = np.full((8, 3, _TM), np.nan, f32)    # [warp][component][column]
+    energies = np.full(16, np.nan, f32)              # [warp * 2 + half]
+    for warp in range(8):
+        tid = warp * 32 + lanes
+        tx, ty = tid & 15, tid >> 4
+        gr = np.zeros((32, 13), f32)
+        gc = np.zeros((32, 12), f32)
+        for a in range(_PER):
+            ra = 4 * ty + (a ^ rs)                    # the slot's row, per lane
+            for k in range(_PER):
+                ck = 4 * tx + (k ^ cs)
+                d = (xr[:, ra] - xc[:, ck]).astype(f32)                   # (3, 32)
+                s = d[2] * d[2] + (d[1] * d[1] + (d[0] * d[0] + f32(1e-12)))
+                rinv = (f32(1) / np.sqrt(s)).astype(f32)
+                u = f32(1) - t[ra, ck] * rinv
+                wu = ww[ra, ck] * u
+                v = np.maximum(f32(r0) * rinv - f32(1), f32(0))
+                nv = nn[ra, ck] * v
+                gr[:, 12] += s * (nv * v + wu * u)
+                cf = wu - nv
+                for c in range(3):
+                    gr[:, 3 * a + c] += cf * d[c]
+                    gc[:, 3 * k + c] -= cf * d[c]
+        # rows and energy over the half-warp, as the body folds them
+        v = _fold(_fold(_fold(_fold_swapped(gr, 13, 8), 7, 4), 4, 2), 2, 1)
+        ids = np.tile(np.array([0, 1, 2, 3, 4, 5, 12]), (32, 1))
+        own = np.ones((32, 7), bool)
+        own[:, 6] = (lanes & 8) == 0
+        ids, own = _fold_id(*_fold_id(*_fold_id(ids, own, 7, 4), 4, 2), 2, 1)
+        for lane in np.nonzero(own[:, 0])[0]:
+            which = ids[lane, 0]
+            if which == 12:
+                assert np.isnan(energies[warp * 2 + lane // 16])
+                energies[warp * 2 + lane // 16] = v[lane, 0]
+            else:
+                row = 4 * ty[lane] + which // 3 + rs[lane]
+                assert np.isnan(rows[row, which % 3])
+                rows[row, which % 3] = v[lane, 0]
+        # columns over the two half-warps: slot 3 j + c of a lane holds
+        # column 4 tx + cs + j, component c
+        g = _fold_swapped(gc, 12, 16)
+        for lane in range(32):
+            for j in range(2):
+                col = 4 * tx[lane] + cs[lane] + j
+                assert np.isnan(col_slots[warp, :, col]).all()
+                col_slots[warp, :, col] = g[lane, 3 * j:3 * j + 3]
+    assert not np.isnan(col_slots).any()
+    cols = np.zeros((_TM, 3), f32)
+    for warp in range(8):
+        cols += col_slots[warp].T
+    assert not np.isnan(rows).any() and not np.isnan(energies).any()
+    return rows, cols, energies.sum(dtype=f32)
+
+
+def test_swapped_body_layout_covers_the_tile_pair_once():
+    rng = np.random.RandomState(0)
+    xr = rng.normal(0, 6, (3, _TM)).astype(np.float32)
+    xc = (rng.normal(0, 6, (3, _TM)) + 4).astype(np.float32)
+    t = rng.uniform(2, 12, (_TM, _TM)).astype(np.float32)
+    ww = rng.uniform(0, 3, (_TM, _TM)).astype(np.float32)
+    nn = np.where(rng.uniform(size=(_TM, _TM)) < 0.9, 8.0, 0.0).astype(np.float32)
+    r0 = 3.06
+    rows, cols, energy = _swapped_pair_sums(xr, xc, t, ww, nn, r0)
+    d = xr.astype(np.float64)[:, :, None] - xc.astype(np.float64)[:, None, :]   # (3, 64, 64)
+    s = (d * d).sum(0) + 1e-12
+    rinv = 1 / np.sqrt(s)
+    u = 1 - t * rinv
+    v = np.maximum(r0 * rinv - 1, 0)
+    cf = ww * u - nn * v
+    np.testing.assert_allclose(rows, (cf * d).sum(2).T, rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(cols, -(cf * d).sum(1).T, rtol=1e-4, atol=1e-3)
+    assert float(energy) == pytest.approx((s * (ww * u * u + nn * v * v)).sum(), rel=1e-5)
