@@ -202,7 +202,18 @@ def should_stream_strip_prep(L_pad: int, devices, out_dtype: str = "float32") ->
                for d, nbytes in strip_prep_peak_bytes(L_pad, devices, out_dtype).items())
 
 
-@trace.spanned("prep.tiles")
+def prep_route(L_pad: int, n_true: int, device, out_dtype: str = "float32") -> dict:
+    """The one-device prep's route at this size, as the `prep.tiles` and
+    `prep.view` spans record it: `route` "one_shot" or "streamed"
+    (should_stream_prep), `est_bytes` the one-shot estimate
+    (prep_peak_bytes) that decides it, and `strips` the row strips the
+    streamed route walks in each sweep (0 one-shot)."""
+    streamed = should_stream_prep(L_pad, device, out_dtype)
+    return {"route": "streamed" if streamed else "one_shot",
+            "est_bytes": prep_peak_bytes(L_pad, out_dtype),
+            "strips": -(-int(n_true) // _pick_strip_rows(L_pad)) if streamed else 0}
+
+
 def exact_tiles_from_if_device(if_matrix, L_pad: int, rc, weighting: str,
                                weight_exponent: float, n_true=None,
                                device=None, group=None, out_dtype: str = "float32"):
@@ -222,17 +233,20 @@ def exact_tiles_from_if_device(if_matrix, L_pad: int, rc, weighting: str,
     normalisation stay global: each rank's partial sums are combined on the
     lead in rank order."""
     if group is not None:
-        return _strips_from_if(if_matrix, L_pad, rc, weighting, weight_exponent,
-                               n_true, group, out_dtype)
+        with trace.span("prep.tiles"):
+            return _strips_from_if(if_matrix, L_pad, rc, weighting, weight_exponent,
+                                   n_true, group, out_dtype)
     device = resolve_device(device)
-    if should_stream_prep(L_pad, device, out_dtype):
-        return exact_tiles_from_if_streamed(if_matrix, L_pad, rc, weighting,
-                                            weight_exponent, n_true=n_true,
-                                            device=device, out_dtype=out_dtype)
     n = int(if_matrix.shape[0] if n_true is None else n_true)
-    return _tiles_from_if_body(_upload(pad_f32(if_matrix, L_pad), device), n,
-                               rc.alpha, rc.kscaling, weight_exponent,
-                               int(rc.separation), weighting, out_dtype)
+    route = prep_route(L_pad, n, device, out_dtype)
+    with trace.span("prep.tiles", **route):
+        if route["route"] == "streamed":
+            return exact_tiles_from_if_streamed(if_matrix, L_pad, rc, weighting,
+                                                weight_exponent, n_true=n_true,
+                                                device=device, out_dtype=out_dtype)
+        return _tiles_from_if_body(_upload(pad_f32(if_matrix, L_pad), device), n,
+                                   rc.alpha, rc.kscaling, weight_exponent,
+                                   int(rc.separation), weighting, out_dtype)
 
 
 def _upload(a: np.ndarray, device) -> torch.Tensor:

@@ -342,6 +342,11 @@ def _pick_row_chunk(L: int, cap: int = 512) -> int:
     return L
 
 
+def chunked_row_blocks(L: int, row_chunk: int = 512) -> int:
+    """The row blocks energy_terms_chunked walks at (padded) length L."""
+    return L // _pick_row_chunk(L, row_chunk)
+
+
 def energy_terms_chunked(
     coords: torch.Tensor,
     restraints,

@@ -376,7 +376,6 @@ def _solve(group, restraints, cfg: PipelineConfig, bead_mask, dev, og=None, gen=
                                or_groups=og, generator=gen)
 
 
-@trace.spanned("prep.view")
 def _assessment_view_from_if(if_padded, rc, L_pad: int, n_true: int, device):
     """The host assessment view of the at-scale route: the device prep run
     again and its (L, L) corner downloaded — (Restraints view, exact-form
@@ -386,15 +385,17 @@ def _assessment_view_from_if(if_padded, rc, L_pad: int, n_true: int, device):
     float32: after a pair_bf16 solve the caller has freed the bf16 tiles
     first, so the two tile sets never coexist."""
     p = _weight_exponent(rc, n_true)
-    if device_prep.should_stream_prep(L_pad, device):
-        target, w = device_prep.assessment_view_from_if_streamed(
-            if_padded, L_pad, rc, rc.weighting, p, n_true=n_true, device=device)
-    else:
-        tiles = device_prep.exact_tiles_from_if_device(
-            if_padded, L_pad, rc, rc.weighting, p, n_true=n_true, device=device)
-        target = trace.to_host(tiles.target[:n_true, :n_true]).numpy()
-        w = trace.to_host(tiles.w[:n_true, :n_true]).numpy()
-    return restraints_from_exact_target(target), ExactRestraints(target=target, w=w)
+    route = device_prep.prep_route(L_pad, n_true, device)
+    with trace.span("prep.view", **route):
+        if route["route"] == "streamed":
+            target, w = device_prep.assessment_view_from_if_streamed(
+                if_padded, L_pad, rc, rc.weighting, p, n_true=n_true, device=device)
+        else:
+            tiles = device_prep.exact_tiles_from_if_device(
+                if_padded, L_pad, rc, rc.weighting, p, n_true=n_true, device=device)
+            target = trace.to_host(tiles.target[:n_true, :n_true]).numpy()
+            w = trace.to_host(tiles.w[:n_true, :n_true]).numpy()
+        return restraints_from_exact_target(target), ExactRestraints(target=target, w=w)
 
 
 def run_pipeline(

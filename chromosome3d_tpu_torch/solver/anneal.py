@@ -68,6 +68,7 @@ from chromosome3d_tpu_torch.config import AnnealConfig
 from chromosome3d_tpu_torch.ops import tri_energy
 from chromosome3d_tpu_torch.ops.energy import (
     EnergyWeights,
+    chunked_row_blocks,
     energy_terms,
     energy_terms_chunked,
     f32,
@@ -459,12 +460,19 @@ def _solve_stack(rs, stacked, cfg: AnnealConfig, n_models: int, bead_masks: torc
     coords = coords_of(xT).reshape(C, n, L, 3)
 
     out_coords, terms = [], []
-    term_fn = energy_terms_chunked if L >= CHUNKED_TERMS_MIN_L else energy_terms
+    chunked = L >= CHUNKED_TERMS_MIN_L
+    term_fn = energy_terms_chunked if chunked else energy_terms
+    blocks = chunked_row_blocks(L) if chunked else 0
     with trace.span("solve.final"):
         for c in range(C):
             x = coords[c].contiguous()
             bm = bead_masks[c]
-            terms.append(term_fn(x, rs[c], base, bm, or_groups))
+            # fenced before and at the end while traced: the span holds the
+            # terms' device work, not the step kernels still queued
+            trace.fence(dev)
+            with trace.span("solve.terms", chunked=chunked, blocks=blocks):
+                terms.append(term_fn(x, rs[c], base, bm, or_groups))
+                trace.fence(dev)
             # centroid to origin, padding excluded
             centroid = (x * bm[None, :, None]).sum(dim=1, keepdim=True) / bm.sum()
             out_coords.append((x - centroid) * bm[None, :, None])

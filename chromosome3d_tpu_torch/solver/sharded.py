@@ -412,15 +412,19 @@ def _group_body(group: ShardGroup, tiles: List[_Tiles], bead_masks: torch.Tensor
         for c in range(C):
             coords = coords_all[c].contiguous()
             bm = bead_masks[c]
-            parts = [row_block_energy_grad(x, t.lo[c], t.hi[c], t.w[c], b[c], t.row_start, base)
-                     for x, t, b in zip(group.broadcast(coords), tiles, beads)]
-            e_noe = group.psum([p[0] for p in parts])
-            e_vdw = group.psum([p[1] for p in parts])
-            if or_groups is not None:
-                e_noe = e_noe + or_group_energy(coords, or_groups, base, bm)
-            e_bond = bond_energy_grad(coords, base, bm)[0]
-            terms.append({"noe": e_noe, "bon": e_bond, "vdw": e_vdw,
-                          "overall": e_noe + e_vdw + e_bond})
+            trace.fence(lead)
+            with trace.span("solve.terms", chunked=True, blocks=len(tiles)):
+                parts = [row_block_energy_grad(x, t.lo[c], t.hi[c], t.w[c], b[c], t.row_start,
+                                               base)
+                         for x, t, b in zip(group.broadcast(coords), tiles, beads)]
+                e_noe = group.psum([p[0] for p in parts])
+                e_vdw = group.psum([p[1] for p in parts])
+                if or_groups is not None:
+                    e_noe = e_noe + or_group_energy(coords, or_groups, base, bm)
+                e_bond = bond_energy_grad(coords, base, bm)[0]
+                terms.append({"noe": e_noe, "bon": e_bond, "vdw": e_vdw,
+                              "overall": e_noe + e_vdw + e_bond})
+                trace.fence(lead)
             nvalid = torch.clamp_min(bm.sum(), 1.0)
             centroid = (coords * bm[None, :, None]).sum(dim=1, keepdim=True) / nvalid
             out_coords.append((coords - centroid) * bm[None, :, None])

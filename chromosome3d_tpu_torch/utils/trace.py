@@ -28,12 +28,23 @@ use:
   prep.pad, prep.tiles    device_prep.pad_f32; device_prep.exact_tiles_from_if_device,
                           genome.bucket_tiles_from_if, pipeline._padded_dense
   prep.view               pipeline._assessment_view_from_if, genome.bucket_views
+                          (one-device: those of exact_tiles_from_if_device
+                          and _assessment_view_from_if carry
+                          device_prep.prep_route's `route`, "one_shot" or
+                          "streamed", `est_bytes`, the one-shot prep's
+                          estimated device peak, and `strips`, the streamed
+                          route's row strips a sweep, 0 one-shot)
   init.start              anneal.initial_structure (one a chromosome)
   init.landmark_sharded   sharded.sharded_landmark_init
   init.draws              anneal._draws, sharded._start (mirror pairs, jitter)
   solve.setup, solve.hot, solve.pick, solve.cool, solve.final
                           the phases of anneal._solve_stack and of the
                           sharded solver's group body
+  solve.terms             inside solve.final, one a chromosome: its final
+                          energy terms, a fence before and at its end;
+                          `chunked` (the row blocks of energy_terms_chunked,
+                          or the sharded solver's rank strips) and `blocks`
+                          (how many; 0 for the whole-matrix energy_terms)
   xfer.h2d                to_device: a host tensor's upload to a device
   xfer.wait, xfer.d2h     to_host: the wait for the device, then the
                           download (to_device waits in xfer.wait too)
@@ -166,6 +177,14 @@ def spanned(name: str):
                 return fn(*args, **kwargs)
         return inner
     return wrap
+
+
+def fence(device) -> None:
+    """While recording, wait for a CUDA device, so that the span the call
+    ends holds the device work launched inside it; otherwise nothing."""
+    device = torch.device(device)
+    if _recording() and device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def to_host(t: torch.Tensor) -> torch.Tensor:

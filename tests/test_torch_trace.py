@@ -51,6 +51,7 @@ PARENTS = {
     "init.start": {"request", "init.draws"},
     "init.landmark_sharded": {"init.draws"},
     **{name: {"request"} for name in SOLVE},
+    "solve.terms": {"solve.final"},
     **{name: {"request", "prep.tiles", "prep.view", "init.draws", "init.start",
               "init.landmark_sharded"} for name in ("xfer.h2d", "xfer.wait", "xfer.d2h")},
 }
