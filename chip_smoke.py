@@ -1248,9 +1248,10 @@ def phase_at_scale_path(X, M, card, shards=1):
         check(len(chunked) == want_chunked,
               f"{tag}: the row-chunked final terms ran {len(chunked)} times, "
               f"want {want_chunked}")
-        check(preps == [(shards, {"cuda"}), (1, {"cuda"})],
+        # one device: the solve's float32 one-shot tiles are the view
+        check(preps == [(shards, {"cuda"})] + [(1, {"cuda"})] * (shards > 1),
               f"restraint prep ran as {preps}, want {shards} strip(s) on the card for "
-              "the solve, then the whole assessment view on the card")
+              "the solve, then (row strips only) the whole assessment view on the card")
         summary = json.loads(buf.getvalue().strip().splitlines()[-1])
         for name in (f"{ident}.dist", f"{ident}.rr", "contact.tbl", f"{ident}.txt",
                      "contact_violation.txt"):
@@ -1266,7 +1267,9 @@ def phase_at_scale_path(X, M, card, shards=1):
           + ", ".join(f"{k} {launches[k]} launches" for k in want)
           + f", every other kernel 0, plain 0; row-chunked final terms {len(chunked)} "
           f"call(s); restraint prep on the card "
-          f"({shards} strip(s), then the assessment view); no .dist/.rr/contact.tbl; "
+          f"({shards} strip(s), "
+          f"{'then the assessment view' if shards > 1 else 'its tiles the view'}); "
+          "no .dist/.rr/contact.tbl; "
           f"{summary['restraints']} restraints; rank01 rmsd/Rg {met['rmsd_over_rg']:.4f}, "
           f"spearman_d {met['spearman_d']:.5f}, dRMSD_rel {met['drmsd_rel']:.4f}; best "
           f"Spearman(IF,1/d) {summary['best_spearman_if_inv_d']:.4f}")
@@ -2747,9 +2750,9 @@ def phase_serve(keep, solve_a_out, inputs, card):
         check_launches("served past the buckets", launches["past"], plain, launches["run past"])
         check(not builds, f"the past-bucket request built restraints on the host {len(builds)} "
               "times")
-        check(preps == [(L_past, "cuda")] * 2,
-              f"past-bucket prep calls (L_pad, device) {preps}, want the solve's and the "
-              "view's on the card")
+        check(preps == [(L_past, "cuda")],
+              f"past-bucket prep calls (L_pad, device) {preps}, want the solve's on the "
+              "card, its float32 tiles the view")
         check(len(solves) == 2 and torch.equal(solves[0][2].coords, solves[1][2].coords),
               "the past-bucket request's coordinates differ from run's")
         met3 = check_gates(os.path.join(keep, "p_served", "chrP_1000_matrix_rank01_a05.pdb"),

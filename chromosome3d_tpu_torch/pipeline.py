@@ -11,9 +11,11 @@ Beyond the largest bucket (exact restraints, the default):
   the one-shot prep would take more than a quarter of the device), the
   O(L^2) text artifacts suppressed
   -> solve_ensemble_impl (semi route: kernels B3 + B4, landmark init; the
-  final terms row-chunked from L_pad = 8192)
-  -> the assessment view rebuilt on the device and downloaded (streamed
-  strip by strip past the same limit) -> host assess.
+  final terms row-chunked from L_pad = 8192), while the assessment view,
+  the solve's own float32 tiles, is copied to the host on a side stream
+  (_solve_tiles_view; prepped again after the solve and downloaded where
+  the tiles cannot carry it: bf16, streamed strip by strip past the same
+  limit, or row strips) -> host assess.
 One device solves every padded length its memory holds: `solve_peak_bytes`
 estimates the solve's device peak, and a run whose estimate exceeds the
 device is refused before any device work.
@@ -59,10 +61,12 @@ with torch.profiler (utils.trace.profile_trace).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
 import shutil
+import threading
 import time
 from dataclasses import replace as dataclasses_replace
 from typing import Dict, Optional
@@ -377,16 +381,17 @@ def _solve(group, restraints, cfg: PipelineConfig, bead_mask, dev, og=None, gen=
 
 
 def _assessment_view_from_if(if_padded, rc, L_pad: int, n_true: int, device):
-    """The host assessment view of the at-scale route: the device prep run
-    again and its (L, L) corner downloaded — (Restraints view, exact-form
-    numpy view) — instead of the float64 host prep passes; streamed strip
-    by strip where the one-shot prep would take more than a quarter of the
+    """The host assessment view of the at-scale route where the solve's
+    tiles cannot carry it (_solve_tiles_view): the device prep run again
+    and its (L, L) corner downloaded — (Restraints view, exact-form numpy
+    view) — instead of the float64 host prep passes; streamed strip by
+    strip where the one-shot prep would take more than a quarter of the
     device (the JAX package streams past its budget the same way). Always
     float32: after a pair_bf16 solve the caller has freed the bf16 tiles
     first, so the two tile sets never coexist."""
     p = _weight_exponent(rc, n_true)
     route = device_prep.prep_route(L_pad, n_true, device)
-    with trace.span("prep.view", **route):
+    with trace.span("prep.view", source="re_prep", **route):
         if route["route"] == "streamed":
             target, w = device_prep.assessment_view_from_if_streamed(
                 if_padded, L_pad, rc, rc.weighting, p, n_true=n_true, device=device)
@@ -396,6 +401,119 @@ def _assessment_view_from_if(if_padded, rc, L_pad: int, n_true: int, device):
             target = trace.to_host(tiles.target[:n_true, :n_true]).numpy()
             w = trace.to_host(tiles.w[:n_true, :n_true]).numpy()
         return restraints_from_exact_target(target), ExactRestraints(target=target, w=w)
+
+
+# the view's copy from the solve's tiles goes in row blocks of at most this
+# many bytes: on a CUDA device each block lands in one of two pinned staging
+# buffers of this size (torch's pinned-memory cache keeps them from request
+# to request), so the DMA of one block overlaps the host copy of the other
+VIEW_BLOCK_BYTES = 256 << 20
+
+
+class _TileViewCopy:
+    """The assessment view copied to the host from the solve's own tiles
+    while the solve runs: a helper thread copies target[:n, :n] and
+    w[:n, :n] in row blocks into fresh pageable host arrays, then builds
+    the Restraints view. From a CUDA device each block's whole rows go by
+    DMA into a pinned staging buffer on a side stream that waits for the
+    prep, and from there into the host arrays; a pageable download would
+    hold the card's kernels back for its whole length. join() waits for it
+    and gives (Restraints view, exact-form numpy view); the tiles stay
+    referenced until the copy is joined or closed."""
+
+    def __init__(self, tiles: ExactRestraints, n_true: int, device: torch.device,
+                 route: dict):
+        self.tiles, self.n = tiles, n_true
+        self.attrs = {**route, "source": "solve_tiles"}
+        self.copies, self.view, self.error = [], None, None
+        with trace.span("prep.view", **self.attrs):
+            stream = None
+            if device.type == "cuda":
+                stream = torch.cuda.Stream(device)
+                stream.wait_stream(torch.cuda.current_stream(device))
+            self.thread = threading.Thread(target=self._copy, args=(stream,),
+                                           name="c3d-view-copy", daemon=True)
+            self.thread.start()
+
+    def _copy(self, stream) -> None:
+        n, L_pad = self.n, self.tiles.target.shape[1]
+        rows = max(1, min(n, VIEW_BLOCK_BYTES // (4 * L_pad)))
+        blocks = [(k, r0, min(n, r0 + rows)) for r0 in range(0, n, rows) for k in ("target", "w")]
+        try:
+            host = {k: np.empty((n, n), np.float32) for k in ("target", "w")}
+            if stream is None:   # host tiles: copied, so the view owns its memory
+                for k, r0, r1 in blocks:
+                    t0 = time.perf_counter()
+                    np.copyto(host[k][r0:r1], getattr(self.tiles, k)[r0:r1, :n].numpy())
+                    self.copies.append((t0, time.perf_counter(), (r1 - r0) * n * 4))
+            else:
+                with torch.cuda.stream(stream):
+                    self._staged(blocks, host, stream)
+            self.view = (restraints_from_exact_target(host["target"]),
+                         ExactRestraints(target=host["target"], w=host["w"]))
+        except Exception as e:   # raised again by join, in the caller's thread
+            self.error = e
+
+    def _staged(self, blocks, host, stream) -> None:
+        """Each block's rows into a pinned buffer by DMA, the next block's
+        DMA started before this one's host copy; a block's record runs from
+        the wait for its DMA to the end of its host copy."""
+        n, L_pad = self.n, self.tiles.target.shape[1]
+        bufs = [torch.empty((blocks[0][2], L_pad), dtype=torch.float32, pin_memory=True)
+                for _ in range(min(2, len(blocks)))]
+        landed = [torch.cuda.Event() for _ in bufs]
+
+        def fetch(i):
+            k, r0, r1 = blocks[i]
+            bufs[i % 2][:r1 - r0].copy_(getattr(self.tiles, k)[r0:r1], non_blocking=True)
+            landed[i % 2].record(stream)
+
+        fetch(0)
+        for i, (k, r0, r1) in enumerate(blocks):
+            if i + 1 < len(blocks):
+                fetch(i + 1)
+            t0 = time.perf_counter()
+            landed[i % 2].synchronize()
+            np.copyto(host[k][r0:r1], bufs[i % 2][:r1 - r0, :n].numpy())
+            self.copies.append((t0, time.perf_counter(), (r1 - r0) * n * 4))
+
+    def join(self):
+        """Wait for the copy (inside `prep.view`, with its blocks recorded
+        as `xfer.d2h`) and return the view."""
+        with trace.span("prep.view", **self.attrs):
+            self.close()
+            for t0, t1, nbytes in self.copies:
+                trace.add_copy(t0, t1, nbytes)
+        if self.error is not None:
+            raise self.error
+        return self.view
+
+    def close(self) -> None:
+        """Wait for the copy and let the tiles go."""
+        self.thread.join()
+        self.tiles = None
+
+
+@contextlib.contextmanager
+def _solve_tiles_view(tiles, L_pad: int, n_true: int, device):
+    """Around the solve of the at-scale route's tiles (None elsewhere):
+    yields a _TileViewCopy started on them where they hold the assessment
+    view bit for bit — one device's float32 tiles from the one-shot prep,
+    the view's own prep with the same arguments — and None where the caller
+    preps the view again after the solve (bf16 tiles, the streamed route,
+    a shard group's strips). Leaving the block waits for the copy on every
+    exit path, so the tiles outlive it."""
+    route = None
+    if isinstance(tiles, ExactRestraints) and tiles.target.dtype == torch.float32:
+        route = device_prep.prep_route(L_pad, n_true, device)
+    if route is None or route["route"] != "one_shot":
+        yield None
+        return
+    view = _TileViewCopy(tiles, n_true, torch.device(device), route)
+    try:
+        yield view
+    finally:
+        view.close()
 
 
 def run_pipeline(
@@ -561,10 +679,13 @@ def run_pipeline(
                 if group is not None:
                     solve_r = restraint_strips(group, solve_r)
             gen = torch.Generator().manual_seed(cfg.seed)
-            result = _solve(group, solve_r, cfg, bead_mask, dev, gen=gen)
-            del solve_r    # the tiles go before the assessment view is built
-            coords = trace.to_host(result.coords).numpy()[:, :L, :]   # synchronises
-            energies = {k: trace.to_host(v).numpy() for k, v in result.energies.items()}
+            with _solve_tiles_view(solve_r if device_route else None, L_pad, L, dev) as view:
+                result = _solve(group, solve_r, cfg, bead_mask, dev, gen=gen)
+                coords = trace.to_host(result.coords).numpy()[:, :L, :]   # synchronises
+                energies = {k: trace.to_host(v).numpy() for k, v in result.energies.items()}
+                if view is not None:
+                    restraints, dense = view.join()
+            del solve_r    # the tiles go before another prep runs
         _mark("solve_s")
         np.savez_compressed(
             os.path.join(dir_out, "trajectory.npz"),
@@ -607,7 +728,8 @@ def run_pipeline(
     _mark("alpha_ensemble_s")
     banner(log, "(C) Assess models..")
     if device_route:
-        restraints, dense = _assessment_view_from_if(if_dev, rc, L_pad, L, dev)
+        if dense is None:   # the solve's tiles did not carry the view
+            restraints, dense = _assessment_view_from_if(if_dev, rc, L_pad, L, dev)
         n_tbl = restraints.count
         _mark("assess_view_s")
     summary = emit_artifacts(

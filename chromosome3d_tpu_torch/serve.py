@@ -34,11 +34,13 @@ the cache keeps no solve object, only the warm set `ping` reports,
 (L_pad, models, total_steps) for each bucket solved.
 
 Every launch of a served solve runs under SolverCache.device_lock: the
-solve, the on-device restraint prep, the assessment view's re-prep and the
-first request's library build. The kernels' workspaces (one a device and
-kernel) assume that launches never overlap, and no handler thread makes a
-stream of its own. The artifacts are written outside the lock, from host
-arrays only.
+solve, the on-device restraint prep, the assessment view's copy or re-prep
+and the first request's library build. The kernels' workspaces (one a
+device and kernel) assume that launches never overlap, and no handler
+thread makes a stream of its own; the view's copy from the solve's tiles
+runs on a side stream of its own, joined before the lock is let go, and
+only copies (DMA into pinned buffers). The artifacts are written outside
+the lock, from host arrays only.
 
 The server computes on one device, the first CUDA device unless the CPU is
 asked for (device.resolve_device); a server asked for CUDA on a machine
@@ -118,12 +120,14 @@ class SolverCache:
         padded tensors on the device and solve_ensemble_impl (kernels B1 and
         B2 on the fused route). Past them, with exact restraints provable:
         the prep on the device from the padded IF matrix (streamed where
-        device_prep.should_stream_prep says so), no host restraint pass, and
-        after the solve the host views rebuilt on the device and
-        downloaded. Row-sharded where pipeline._use_sharded says so (the
-        padded length recorded is the one solved). Under pair_bf16 the
-        prep stores the solve's tiles as bfloat16, and the views are
-        prepped at float32 after those are freed. The draws come from a
+        device_prep.should_stream_prep says so), no host restraint pass,
+        and the host views copied from the solve's float32 one-shot tiles
+        while the solve runs (pipeline._solve_tiles_view), or else rebuilt
+        on the device after the solve and downloaded. Row-sharded where
+        pipeline._use_sharded says so (the padded length recorded is the
+        one solved). Under pair_bf16 the prep stores the solve's tiles as
+        bfloat16, and the views are prepped at float32 after those are
+        freed. The draws come from a
         generator seeded cfg.seed, as run_pipeline's, so a served request
         writes what `run` writes on the same matrix and config."""
         from chromosome3d_tpu_torch.utils import trace
@@ -179,16 +183,21 @@ class SolverCache:
             solve_r = pl._padded_dense(r, rc, L_pad, exact, dev)
             if group is not None:
                 solve_r = restraint_strips(group, solve_r)
-        result = pl._solve(group, solve_r, cfg, bead_mask, dev)
-        self.add_warm(L_pad, cfg)
-        coords = trace.to_host(result.coords).numpy()[:, :L, :]   # synchronises
-        energies = {k: trace.to_host(v).numpy() for k, v in result.energies.items()}
+        dense_view = None
+        # float32 one-shot tiles are the view: copied to the host while the
+        # solve runs, and joined after the coordinates' download
+        with pl._solve_tiles_view(solve_r if device_route else None, L_pad, L, dev) as view:
+            result = pl._solve(group, solve_r, cfg, bead_mask, dev)
+            self.add_warm(L_pad, cfg)
+            coords = trace.to_host(result.coords).numpy()[:, :L, :]   # synchronises
+            energies = {k: trace.to_host(v).numpy() for k, v in result.energies.items()}
+            if view is not None:
+                r, dense_view = view.join()
         # the downloads above fenced the solve: free its tiles BEFORE the
         # assessment re-prep below allocates its own, so the two tile sets
         # never coexist at the device's peak (run_pipeline's order)
         solve_r = result = None
-        dense_view = None
-        if device_route:
+        if device_route and view is None:
             r, dense_view = pl._assessment_view_from_if(if_dev, rc, L_pad, L, dev)
         return coords, energies, r, dense_view
 

@@ -27,13 +27,18 @@ use:
                           pipeline.run_pipeline's solve
   prep.pad, prep.tiles    device_prep.pad_f32; device_prep.exact_tiles_from_if_device,
                           genome.bucket_tiles_from_if, pipeline._padded_dense
-  prep.view               pipeline._assessment_view_from_if, genome.bucket_views
+  prep.view               pipeline._assessment_view_from_if, pipeline's
+                          view of the solve's tiles (two: the copy's launch
+                          and its join, what the request waits for),
+                          genome.bucket_views
                           (one-device: those of exact_tiles_from_if_device
-                          and _assessment_view_from_if carry
+                          and the two pipeline views carry
                           device_prep.prep_route's `route`, "one_shot" or
                           "streamed", `est_bytes`, the one-shot prep's
                           estimated device peak, and `strips`, the streamed
-                          route's row strips a sweep, 0 one-shot)
+                          route's row strips a sweep, 0 one-shot; the
+                          pipeline views also `source`, "solve_tiles" or
+                          "re_prep")
   init.start              anneal.initial_structure (one a chromosome)
   init.landmark_sharded   sharded.sharded_landmark_init
   init.draws              anneal._draws, sharded._start (mirror pairs, jitter)
@@ -47,7 +52,12 @@ use:
                           (how many; 0 for the whole-matrix energy_terms)
   xfer.h2d                to_device: a host tensor's upload to a device
   xfer.wait, xfer.d2h     to_host: the wait for the device, then the
-                          download (to_device waits in xfer.wait too)
+                          download (to_device waits in xfer.wait too);
+                          add_copy: a download made off this thread (the
+                          view of the solve's tiles), under the root
+
+A traced wait is for the current stream of the device only: a copy on a
+side stream runs on under it.
 """
 
 from __future__ import annotations
@@ -179,24 +189,43 @@ def spanned(name: str):
     return wrap
 
 
+def _wait(device) -> None:
+    """Wait for the work queued on the current stream of a CUDA device."""
+    torch.cuda.current_stream(device).synchronize()
+
+
 def fence(device) -> None:
-    """While recording, wait for a CUDA device, so that the span the call
-    ends holds the device work launched inside it; otherwise nothing."""
+    """While recording, wait for a CUDA device's current stream, so that
+    the span the call ends holds the device work launched inside it;
+    otherwise nothing."""
     device = torch.device(device)
     if _recording() and device.type == "cuda":
-        torch.cuda.synchronize(device)
+        _wait(device)
+
+
+def add_copy(t0: float, t1: float, nbytes: int) -> None:
+    """While recording, an `xfer.d2h` record of `nbytes` downloaded from t0
+    to t1 (time.perf_counter()) by another thread, which records nothing
+    itself: the profiler records in the thread that started it. Its parent
+    is the current request's root."""
+    if not _recording():
+        return
+    cur = _CURRENT.get()
+    request, root = (None, None) if cur is None else (cur[0], cur[2])
+    _RECORDS.append(Record("xfer.d2h", t0, t1, next(_SPAN_IDS),
+                           None if root is None else root.id, request, {"bytes": nbytes}))
 
 
 def to_host(t: torch.Tensor) -> torch.Tensor:
     """t.cpu(). While recording, for a tensor on a device: first the wait
-    for the device inside `xfer.wait`, then the copy inside `xfer.d2h` (the
+    for its current stream inside `xfer.wait`, then the copy inside `xfer.d2h` (the
     same synchronisation the copy makes anyway, so the values are the
     same). A host tensor is returned as it is, with no record."""
     if not _recording() or t.device.type == "cpu":
         return t.cpu()
     with span("xfer.wait"):
         if t.device.type == "cuda":
-            torch.cuda.synchronize(t.device)
+            _wait(t.device)
     with span("xfer.d2h", bytes=t.numel() * t.element_size()):
         return t.cpu()
 
@@ -205,7 +234,7 @@ def to_device(a, device) -> torch.Tensor:
     """A host array or tensor on `device` (a numpy array through
     torch.from_numpy, so it must be writable): a.to(device). While
     recording, a host tensor's upload is span `xfer.h2d`, after the wait
-    for a CUDA device inside `xfer.wait`: a pageable upload's staging then
+    for a CUDA device's current stream inside `xfer.wait`: a pageable upload's staging then
     no longer overlaps the kernels queued before it, though the blocking
     copy waits for its stream afterwards all the same, so the values are
     the same. A tensor already on a device, or bound for the host, is
@@ -218,7 +247,7 @@ def to_device(a, device) -> torch.Tensor:
         return t.to(device)
     if device.type == "cuda":
         with span("xfer.wait"):
-            torch.cuda.synchronize(device)
+            _wait(device)
     with span("xfer.h2d", bytes=t.numel() * t.element_size()):
         return t.to(device)
 

@@ -101,8 +101,9 @@ def test_run_alpha_ensemble_pools_models(tmp_path, monkeypatch, L):
     assert set(got["phases"]) - {"device_prep_s"} == set(ref["phases"]) - {"aot"}
     assert ("device_prep_s" in got["phases"]) == (L > 64)
     assert len(solves) == 2 and solves[0] is solves[1]
-    # past the buckets: the solve's prep, the extra alpha's, the view's
-    assert preps == ([0.5, 0.7, 0.5] if L > 64 else [])
+    # past the buckets: the solve's prep, whose float32 tiles are the view,
+    # and the extra alpha's
+    assert preps == ([0.5, 0.7] if L > 64 else [])
     assert np.load(os.path.join(out_p, "trajectory.npz"))["energy_history"].shape[0] == N_MODELS
 
 

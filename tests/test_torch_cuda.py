@@ -1019,3 +1019,55 @@ def test_cuda_unfused_step_kernels_match_plain(cuda_device, monkeypatch, kernel,
                                    rtol=1e-4)
     np.testing.assert_allclose(got.history.cpu().numpy(), ref.history.numpy(), rtol=1e-3)
     assert bool((got.coords[:, n_real:] == 0).all())
+
+
+@pytest.mark.parametrize("traced", [False, True])
+def test_cuda_served_view_from_the_solve_tiles_equals_the_re_prep(cuda_device, monkeypatch,
+                                                                  traced):
+    """A served request past the buckets (1000 beads -> 1024, the one-shot
+    prep, B3 + B4): the view copied from the solve's float32 tiles while the
+    solve runs (by DMA on a side stream into two pinned buffers, in row
+    blocks of 300 here), the
+    coordinates and the energies are bit for bit those of the same request
+    whose view is prepped again after the solve and downloaded; untraced,
+    and under a CUDA profiler (the traced waits are for the current stream
+    only), where `prep.view` carries each path's source."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from chromosome3d_tpu_torch import pipeline, serve
+    from chromosome3d_tpu_torch.config import PipelineConfig, fast_anneal
+    from chromosome3d_tpu_torch.truth import confined_walk, if_from_structure
+    from chromosome3d_tpu_torch.utils import trace
+
+    L = 1000
+    m = if_from_structure(confined_walk(L, seed=3), alpha=0.5, noise_sigma=0.1, seed=3)
+    cfg = PipelineConfig(model_count=2, anneal=fast_anneal(AnnealConfig(), 0.1))
+    # blocks of 300 rows of the padded 1024 columns: 300, 300, 300, 100 a tile
+    monkeypatch.setattr(pipeline, "VIEW_BLOCK_BYTES", 300 * 1024 * 4)
+
+    def solve():
+        trace.clear()
+        with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if traced
+              else contextlib.nullcontext()):
+            out = serve.SolverCache(cfg, device=cuda_device).solve(m, cfg)
+        torch.cuda.synchronize()
+        return out, trace.records()
+
+    (coords, energies, r, view), recs = solve()
+    real = pipeline._solve_tiles_view
+    monkeypatch.setattr(pipeline, "_solve_tiles_view", lambda tiles, *a: real(None, *a))
+    (coords2, energies2, r2, view2), recs2 = solve()
+    sources = [[x.attrs["source"] for x in rs if x.name == "prep.view"] for rs in (recs, recs2)]
+    assert sources == ([["solve_tiles"] * 2, ["re_prep"]] if traced else [[], []])
+    if traced:
+        copies = [x.attrs["bytes"] for x in recs if x.name == "xfer.d2h"]
+        assert sum(copies) >= 2 * L * L * 4 and copies.count(300 * L * 4) == 6
+    assert view.target.shape == (L, L) and view.target.flags.c_contiguous
+    np.testing.assert_array_equal(view.target, view2.target)
+    np.testing.assert_array_equal(view.w, view2.w)
+    np.testing.assert_array_equal(r.mask, r2.mask)
+    np.testing.assert_array_equal(coords, coords2)
+    for k in energies2:
+        np.testing.assert_array_equal(energies[k], energies2[k])

@@ -10,6 +10,7 @@ Small sizes: L 10-48, 2 models, the fast schedule, on device="cpu" (the
 kernels' plain twins)."""
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -245,8 +246,8 @@ def test_restraint_file_oversized_L_rejected(server, tmp_path):
 def test_beyond_bucket_single_device_uses_device_prep(monkeypatch, inputs):
     """Past the buckets (exact restraints) the prep runs on the device from
     the padded IF matrix (pad_f32, then exact_tiles_from_if_device), the
-    host never builds restraints, and the host views come back after the
-    solve, equal to the host route's."""
+    host never builds restraints, and the host views, copied from the
+    solve's own float32 tiles, equal the host route's."""
     from chromosome3d_tpu_torch import restraints as rst
     from chromosome3d_tpu_torch.io import load_if_matrix
     from chromosome3d_tpu_torch.ops import device_prep as dp
@@ -270,11 +271,11 @@ def test_beyond_bucket_single_device_uses_device_prep(monkeypatch, inputs):
         AssertionError("the at-scale matrix route must not build restraints on the host")))
     m = load_if_matrix(inputs[40])
     coords, energies, r, dense_view = cache.solve(m, cfg)
-    # one prep for the solve, one for the assessment view, both at the
-    # quantum bucket on the cache's device, from the one padded copy (the
-    # preps' own pad_f32 passes it through)
+    # one prep, the solve's, at the quantum bucket on the cache's device,
+    # from the one padded copy (the prep's own pad_f32 passes it through):
+    # its float32 tiles are the assessment view
     assert [p for p in pads if p[0] != (48, 48)] == [((40, 40), 48)]
-    assert len(calls) == 2 and all(a[1] == 48 for a, _ in calls)
+    assert len(calls) == 1 and all(a[1] == 48 for a, _ in calls)
     assert all(k["device"] == torch.device("cpu") and k["n_true"] == 40 for _, k in calls)
     assert coords.shape == (2, 40, 3) and np.isfinite(coords).all()
     assert cache.warm_snapshot() == [(48, 2, cfg.anneal.total_steps)]
@@ -283,6 +284,140 @@ def test_beyond_bucket_single_device_uses_device_prep(monkeypatch, inputs):
     np.testing.assert_array_equal(r.target, host.target)
     np.testing.assert_array_equal(r.mask, host.mask)
     np.testing.assert_array_equal(dense_view.target, host.target)
+
+
+def _view_case(monkeypatch, case):
+    """The PAST config and patches of one route past the buckets: the
+    float32 one-shot tiles, pair_bf16's bf16 tiles, the streamed prep, or
+    row strips over two CPU shards."""
+    from chromosome3d_tpu_torch import device as device_mod
+    from chromosome3d_tpu_torch.ops import device_prep as dp
+
+    an = dataclasses.replace(fast_anneal(AnnealConfig()), pair_bf16=case == "pair_bf16")
+    if case == "streamed":
+        monkeypatch.setattr(dp, "should_stream_prep", lambda *a, **k: True)
+        monkeypatch.setattr(dp, "_pick_strip_rows", lambda L_pad, cap=4096: 16)
+    if case == "sharded":
+        monkeypatch.setattr(device_mod, "shard_devices", lambda: [torch.device("cpu")] * 2)
+        monkeypatch.setattr(port_pipeline, "_memory_bytes", lambda dev: 0)
+    return PipelineConfig(anneal=an, **PAST)
+
+
+@pytest.mark.parametrize("case,preps,source", [
+    ("float32", 1, "solve_tiles"),
+    ("pair_bf16", 2, "re_prep"),
+    ("streamed", 1, "re_prep"),
+    ("sharded", 2, "re_prep"),
+])
+def test_beyond_bucket_view_is_the_re_prepped_view(monkeypatch, inputs, case, preps, source):
+    """Past the buckets the served view is bit for bit the view prepped
+    again after the solve (_assessment_view_from_if): copied from the
+    solve's tiles where they are one device's float32 one-shot tiles, and
+    re-prepped after the solve where they are bf16, streamed or row strips
+    (the solve's prep and the view's: two calls of the one-shot prep, one
+    on the streamed route). Each `prep.view` span carries its source."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from chromosome3d_tpu_torch.io import load_if_matrix
+    from chromosome3d_tpu_torch.ops import device_prep as dp
+    from chromosome3d_tpu_torch.utils import trace
+
+    cfg = _view_case(monkeypatch, case)
+    calls = []
+    real = dp.exact_tiles_from_if_device
+    monkeypatch.setattr(dp, "exact_tiles_from_if_device",
+                        lambda *a, **k: calls.append(k.get("out_dtype")) or real(*a, **k))
+    m = load_if_matrix(inputs[40])
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        coords, _, r, view = SolverCache(cfg, device="cpu").solve(m, cfg)
+    assert len(calls) == preps, calls
+    views = [rec for rec in trace.records() if rec.name == "prep.view"]
+    assert views and {rec.attrs["source"] for rec in views} == {source}
+    assert len(views) == (2 if source == "solve_tiles" else 1)
+    r_want, want = port_pipeline._assessment_view_from_if(
+        dp.pad_f32(m, 48), cfg.restraints, 48, 40, "cpu")
+    for got, ref in ((view.target, want.target), (view.w, want.w), (r.target, r_want.target),
+                     (r.mask, r_want.mask)):
+        assert got.dtype == ref.dtype
+        np.testing.assert_array_equal(got, ref)
+    if source == "solve_tiles":
+        assert view.target.flags.c_contiguous and view.w.flags.c_contiguous
+    assert coords.shape == (2, 40, 3) and np.isfinite(coords).all()
+
+
+def test_the_view_of_the_solve_tiles_owns_its_memory(monkeypatch, inputs):
+    """The view copied from the solve's float32 tiles shares no memory with
+    them (on the CPU the tiles are host memory too), and the tiles are let
+    go once the request returns."""
+    import weakref
+
+    from chromosome3d_tpu_torch.io import load_if_matrix
+    from chromosome3d_tpu_torch.ops import device_prep as dp
+
+    cfg = _port_cfg(**PAST)
+    tiles = []
+    real = dp.exact_tiles_from_if_device
+
+    def spy(*a, **k):
+        out = real(*a, **k)
+        tiles.append((out.target.numpy(), out.w.numpy(), weakref.ref(out.target)))
+        return out
+
+    monkeypatch.setattr(dp, "exact_tiles_from_if_device", spy)
+    _, _, r, view = SolverCache(cfg, device="cpu").solve(load_if_matrix(inputs[40]), cfg)
+    ((target, w, ref),) = tiles
+    for a in (view.target, view.w, r.target):
+        assert not np.shares_memory(a, target) and not np.shares_memory(a, w)
+    np.testing.assert_array_equal(view.target, target[:40, :40])
+    np.testing.assert_array_equal(view.w, w[:40, :40])
+    del target, w
+    assert ref() is None
+
+
+def test_a_solve_that_raises_leaves_no_view_copy_running(monkeypatch, inputs):
+    """A `_solve` that raises while the view is copied from its tiles: the
+    request raises the solve's error after the copy has finished, and no
+    helper thread is left running."""
+    from chromosome3d_tpu_torch.io import load_if_matrix
+
+    made = []
+
+    class SlowCopy(port_pipeline._TileViewCopy):
+        def __init__(self, *a, **k):
+            made.append(self)
+            super().__init__(*a, **k)
+
+        def _copy(self, stream):
+            time.sleep(0.2)
+            super()._copy(stream)
+
+    def boom(*a, **k):
+        raise RuntimeError("solve failed")
+
+    monkeypatch.setattr(port_pipeline, "_TileViewCopy", SlowCopy)
+    monkeypatch.setattr(port_pipeline, "_solve", boom)
+    cfg = _port_cfg(**PAST)
+    with pytest.raises(RuntimeError, match="solve failed"):
+        SolverCache(cfg, device="cpu").solve(load_if_matrix(inputs[40]), cfg)
+    (copy,) = made
+    assert not copy.thread.is_alive() and copy.view is not None and copy.tiles is None
+    assert not [t for t in threading.enumerate() if t.name == "c3d-view-copy"]
+
+
+def test_a_failed_view_copy_raises_in_the_request(monkeypatch, inputs):
+    """An error inside the view's copy is raised by the request, in its
+    own thread, once the solve is done."""
+    from chromosome3d_tpu_torch.io import load_if_matrix
+
+    def broken(target):
+        raise MemoryError("no room for the view")
+
+    monkeypatch.setattr(port_pipeline, "restraints_from_exact_target", broken)
+    cfg = _port_cfg(**PAST)
+    with pytest.raises(MemoryError, match="no room for the view"):
+        SolverCache(cfg, device="cpu").solve(load_if_matrix(inputs[40]), cfg)
+    assert not [t for t in threading.enumerate() if t.name == "c3d-view-copy"]
 
 
 def test_queue_depth_cap(tmp_path):
@@ -360,6 +495,46 @@ def test_served_matrix_request_equals_run(inputs, tmp_path, where):
         assert summary_run[k] == v, k
     assert cache.warm_snapshot() == [(64 if where == "bucket" else 48, 2,
                                       cfg.anneal.total_steps)]
+
+
+def test_a_traced_served_request_views_the_solve_tiles(inputs, tmp_path, monkeypatch):
+    """A served request past the buckets under a profiler: its files are
+    byte for byte run_pipeline's (untraced), its root holds the two
+    `prep.view` spans of the copy from the solve's tiles (its launch and
+    its join, source "solve_tiles") and the copy's `xfer.d2h` records, one
+    a tile and row block (blocks of 16 rows here: 16, 16, 8), with the
+    view's bytes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from chromosome3d_tpu_torch.utils import trace
+
+    cfg = _port_cfg(**PAST)
+    out = str(tmp_path / "out")
+    port_pipeline.run_pipeline(inputs[40], out, cfg, device="cpu")
+    os.rename(out, str(tmp_path / "run"))
+    # rows of the padded 48 columns: blocks of 16 rows
+    monkeypatch.setattr(port_pipeline, "VIEW_BLOCK_BYTES", 16 * 48 * 4)
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        resp = handle_request({"matrix": inputs[40], "out": out, "models": 2},
+                              SolverCache(cfg, device="cpu"))
+    assert resp["ok"], resp
+    for name in sorted(os.listdir(out)):
+        with open(os.path.join(out, name), "rb") as a, \
+                open(tmp_path / "run" / name, "rb") as b:
+            assert a.read() == b.read(), name
+    recs = trace.records()
+    (root,) = [r for r in recs if r.name == "request"]
+    views = [r for r in recs if r.name == "prep.view"]
+    copies = [r for r in recs if r.name == "xfer.d2h"]
+    assert len(views) == 2 and all(v.attrs["source"] == "solve_tiles" for v in views)
+    assert all(v.parent == root.id for v in views)
+    assert views[0].t1 <= views[1].t0
+    assert [c.attrs["bytes"] for c in copies] == [16 * 40 * 4] * 4 + [8 * 40 * 4] * 2
+    for c in copies + views:
+        assert c.request == root.request and c.parent == root.id
+        assert root.t0 <= c.t0 <= c.t1 <= root.t1
+    assert all(views[0].t0 <= c.t0 and c.t1 <= views[1].t1 for c in copies)
 
 
 def _sequence(inputs, out):

@@ -9,8 +9,9 @@ plain reference (benchmark/reference: the restraints worked out again in
 float64, the energy at the returned coordinates) with the check's own
 comparison and the limits of the `chr1_10kb_run` cell. Under a profiler the
 `prep.tiles` and `prep.view` spans carry the prep's route (one-shot, or
-streamed where should_stream_prep is patched true) and the `solve.terms`
-span its row blocks; without one nothing is recorded. The routes at the
+streamed where should_stream_prep is patched true), `prep.view` its source
+(the solve's one-shot tiles copied, or the streamed view prepped again),
+and the `solve.terms` span its row blocks; without one nothing is recorded. The routes at the
 cell's full size are computed from the port's functions for an H100 80GB.
 """
 
@@ -114,11 +115,14 @@ def test_a_one_shot_request_matches_the_reference_and_records_its_route(matrix, 
     assert nums["restraint_mismatch"] <= LIMITS["restraint_mismatch"], nums
     assert nums["energy_gap"] <= LIMITS["energy_gap"], nums
     names = _by_name(recs)
-    # the solve's prep, and the view's with its own prep inside it
-    assert len(names["prep.tiles"]) == 2 and len(names["prep.view"]) == 1
-    for r in names["prep.tiles"] + names["prep.view"]:
-        assert r.attrs == {"route": "one_shot", "est_bytes": device_prep.prep_peak_bytes(L_PAD),
-                           "strips": 0}, r
+    # the solve's prep, whose float32 tiles are the view: its copy's launch
+    # and join, and the copy's downloads, one a tile (600 rows, one block)
+    assert len(names["prep.tiles"]) == 1 and len(names["prep.view"]) == 2
+    route = {"route": "one_shot", "est_bytes": device_prep.prep_peak_bytes(L_PAD), "strips": 0}
+    assert names["prep.tiles"][0].attrs == route
+    for r in names["prep.view"]:
+        assert r.attrs == {**route, "source": "solve_tiles"}, r
+    assert [r.attrs["bytes"] for r in names["xfer.d2h"]] == [L * L * 4] * 2
     (terms,) = names["solve.terms"]
     assert terms.attrs == {"chunked": True, "blocks": L_PAD // ROW_CHUNK}
     (final,) = names["solve.final"]
@@ -133,10 +137,11 @@ def test_a_streamed_request_matches_the_reference_and_records_its_strips(matrix,
     assert nums["energy_gap"] <= LIMITS["energy_gap"], nums
     names = _by_name(recs)
     assert len(names["prep.tiles"]) == 1 and len(names["prep.view"]) == 1
-    for r in names["prep.tiles"] + names["prep.view"]:
-        # 600 real rows in strips of 152: four strips a sweep
-        assert r.attrs == {"route": "streamed", "est_bytes": device_prep.prep_peak_bytes(L_PAD),
-                           "strips": 4}, r
+    # 600 real rows in strips of 152: four strips a sweep
+    route = {"route": "streamed", "est_bytes": device_prep.prep_peak_bytes(L_PAD), "strips": 4}
+    assert names["prep.tiles"][0].attrs == route
+    # the streamed tiles are not the view's: it is prepped again
+    assert names["prep.view"][0].attrs == {**route, "source": "re_prep"}
     assert [r.attrs for r in names["solve.terms"]] == [{"chunked": True, "blocks": 2}]
 
 

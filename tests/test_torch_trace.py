@@ -220,10 +220,12 @@ def _genome_run(tmp_path, profiled, device):
 
 def _count_twin_calls(monkeypatch):
     """Each kernel wrapper's plain twin, where the CPU runs it, counts one
-    launch on the wrapper, as the card's launch would."""
+    launch on the wrapper, as the card's launch would; the counters are
+    set back after the test, so later tests in the process read their own."""
     twins = {"fused_steps_batched": "fused_steps_plain",
              "fused_update_table": "fused_update_plain"}
     for wrapper in trace._COUNTED:
+        monkeypatch.setattr(wrapper, "launches", wrapper.launches)
         mod = sys.modules[wrapper.__module__]
         name = twins.get(wrapper.__name__, wrapper.__name__ + "_plain")
         real = getattr(mod, name)
