@@ -3830,23 +3830,22 @@ def phase_genome_stack(dir_100kb, truths_100kb, dir_45, truths_45, card):
 @contextlib.contextmanager
 def recorded_starts(starts):
     """Record each chromosome's draws of a genome solve past the length
-    buckets (solver.sharded._start's start ensemble, and the noise seed its
-    generator draws next), in chromosome order, into `starts`."""
+    buckets (its start ensemble and noise seed, from solver.anneal._draws as
+    solver.sharded calls it), in chromosome order, into `starts`."""
     from chromosome3d_tpu_torch.solver import sharded
 
-    real = sharded._start
+    real = sharded._draws
 
-    def spy(group, strips, bead_mask, cfg, n_models, generator):
-        xs = real(group, strips, bead_mask, cfg, n_models, generator)
-        peek = torch.Generator().set_state(generator.get_state())
-        starts.append((xs, int(torch.randint(0, 2**31 - 1, (), generator=peek))))
-        return xs
+    def spy(*args, **kwargs):
+        out = real(*args, **kwargs)
+        starts.append(out)
+        return out
 
-    sharded._start = spy
+    sharded._draws = spy
     try:
         yield
     finally:
-        sharded._start = real
+        sharded._draws = real
 
 
 def same_result(lone, got, c):

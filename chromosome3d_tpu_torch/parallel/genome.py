@@ -286,9 +286,11 @@ def solve_bucket(batched, bead_masks, cfg: PipelineConfig, base_seed: Optional[i
                 if (c, dev) not in inits:
                     inits[c, dev] = anneal.initial_structure(rs, an, masks[i])
                 x0 = inits[c, dev]
-            x, s = anneal._draws(rs, an, per, masks[i], x0, anneal.chromosome_generator(seed, r),
-                                 None if xs is None else xs[r],
-                                 None if noise_seeds is None else int(noise_seeds[r]))
+            gen = anneal.chromosome_generator(seed, r)
+            x, s = anneal._draws(an, per, masks[i], gen, lambda: (
+                anneal.initial_structure(rs, an, masks[i], gen) if x0 is None else x0),
+                None if xs is None else xs[r],
+                None if noise_seeds is None else noise_seeds[r])
             starts.append(x)
             seeds.append(s)
         parts.append(solve_bucket_impl(restraints, an, per, masks, xs=torch.stack(starts),

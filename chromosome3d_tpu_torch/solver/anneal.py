@@ -1,35 +1,33 @@
 """The annealing solver — the port of chromosome3d_tpu/solver/anneal.py
 `solve_ensemble_impl` on its fused, semi and unfused routes, of the JAX
 genome runner's vmap of it over the chromosomes of a length bucket
-(`solve_bucket_impl`; `solve_ensemble_impl` is its one-chromosome case, one
-copy of the phases in `_solve_stack`), and of `solve_single`, one
-structure from a given start.
+(`solve_bucket_impl`; `solve_ensemble_impl` is its one-chromosome case),
+and of `solve_single`, one structure from a given start.
+
+The phases of a solve are written once, in `_phases`: the setup, the hot
+phase, the enantiomer pick, the cool and final phases, the final canonical
+terms and the centroid. Its two backends supply the step loop, the pick's
+energies and the final terms: `_solve_stack` here (one device) and
+solver.sharded's `_group_body` (row-sharded). The start draws (`_draws`),
+the semi step loop (`_semi_steps`) and the unfused one (`_unfused_run`)
+are shared the same way.
 
 The precomputed hot -> cool -> final schedule is one table of per-step rows
 (`schedule_table`, the JAX solver's `srows`). On the fused route kernel B1
 (ops.fused_step) walks the table's rows itself: one call of
-`fused_steps_batched` runs a whole phase (the hot steps, then the rest), as
-one launch on a CUDA device and through the plain twin's loop on the CPU.
-The semi routes are a Python loop over the same rows: the pair terms come
-from one kernel, with the weights of the table's row, and the update from
-kernel B4 (ops.fused_update: bond, clip, Adam, noise and move), which reads
-its step from a device counter set once a phase, its scalars from the
-table's rows on the device, and writes the step's history row itself:
-kernel B3 (ops.tri_energy) for exact restraints where B1 does not run
-(past the fused step's reach, with or-groups, or where the dispatch table
-says so), kernel B5 (ops.general_pair) for general
-(windowed / soft-square) restraints. Or-group rows add their group-min
-term (ops.energy.or_group_energy) to the pair gradient before B4. The
-enantiomer trial runs both mirror images through the hot phase, picks the
-lower-energy member of each pair under the end-of-hot weights
-(ops.pair_energy: B2 or B3 as use_triangular says, or B5, plus the bonded terms and
-the or-group term),
-and only the winners continue, with their Adam moments and the step count
-carried over (so the bias corrections and the noise stream stay aligned
-with the schedule). The final canonical terms are whole-matrix below
-CHUNKED_TERMS_MIN_L and in row blocks from it (ops.energy
-`energy_terms_chunked`), so one device solves every padded length its
-memory holds.
+`fused_steps_batched` runs a whole phase. The semi routes are a Python loop
+over the same rows: the pair terms from one kernel, the or-group term
+(ops.energy.or_group_energy), then kernel B4 (ops.fused_update: bond, clip,
+Adam, noise and move), which reads its step from a device counter and its
+scalars from the table's rows on the device. On one device the pair kernel
+is B3 (ops.tri_energy) for exact restraints where B1 does not run (past the
+fused step's reach, with or-groups, or where the dispatch table says so)
+and B5 (ops.general_pair) for general (windowed / soft-square) restraints.
+The enantiomer trial runs both mirror images through the hot phase, picks
+the lower-energy member of each pair under the end-of-hot weights, and only
+the winners continue, with their Adam moments and the step count carried
+over. The final canonical terms are whole-matrix below CHUNKED_TERMS_MIN_L
+and in row blocks from it (ops.energy `energy_terms_chunked`).
 
 The unfused route is the JAX package's optax/threefry step, taken for
 `fuse_update=False` and for a nonzero `angle_weight` (B1 and B4 carry no
@@ -41,11 +39,10 @@ structure.
 
 AnnealConfig.pair_bf16 (exact restraints only; the windowed routes ignore
 it, as the JAX package's do): the pair kernels read bfloat16 restraint
-tiles, cast once a solve where the JAX solver casts them (`_solve_stack`:
-B1's folded tiles, the semi route's, the unfused route's and the pick's),
-or as the prep stored them (at scale). The init and the final terms read
-the restraints in float32 (widened where they are stored bf16).
-`solve_single` casts nothing, as the JAX one does not.
+tiles, cast once a solve where the JAX solver casts them (B1's folded
+tiles, the semi route's, the unfused route's and the pick's), or as the
+prep stored them (at scale). The init and the final terms read the
+restraints in float32. `solve_single` casts nothing, as the JAX one does not.
 
 Routes (`step_route`): the JAX package's dispatch, `fused_step_feasible`
 and `tri_energy.use_triangular` with its measured table where one exists
@@ -72,6 +69,7 @@ from chromosome3d_tpu_torch.ops.energy import (
     energy_terms,
     energy_terms_chunked,
     f32,
+    or_group_energy,
     or_group_energy_grad,
     widened,
 )
@@ -261,17 +259,16 @@ def initial_structure(restraints, cfg: AnnealConfig, bead_mask: torch.Tensor,
 
 
 @trace.spanned("init.draws")
-def _draws(restraints, cfg: AnnealConfig, n_models: int, bead_mask: torch.Tensor,
-           x0, generator: torch.Generator, xs, noise_seed):
+def _draws(cfg: AnnealConfig, n_models: int, bead_mask: torch.Tensor,
+           generator: torch.Generator, start, xs=None, noise_seed=None):
     """One chromosome's start ensemble (n_eff, L, 3) and noise seed: the
-    values given, or drawn — the init (x0 when given), its mirror pairs and
-    the jitter, then the seed, in that order from `generator`."""
+    values given, or drawn — the init start() (called only where xs is not
+    given: initial_structure, or the row-sharded landmark start), its mirror
+    pairs and the jitter, then the seed, in that order from `generator`."""
     dev, L = bead_mask.device, bead_mask.shape[0]
     n_eff = n_models * 2 if cfg.enantiomer else n_models
     if xs is None:
-        if x0 is None:
-            x0 = initial_structure(restraints, cfg, bead_mask, generator)
-        x0 = x0.to(device=dev, dtype=torch.float32) * bead_mask[:, None]
+        x0 = start().to(device=dev, dtype=torch.float32) * bead_mask[:, None]
         if cfg.enantiomer:
             # pairs (direct, mirrored): flip the x axis of the shared embedding
             signs = torch.tensor([1.0, -1.0], device=dev).repeat(n_models)
@@ -286,6 +283,12 @@ def _draws(restraints, cfg: AnnealConfig, n_models: int, bead_mask: torch.Tensor
     if noise_seed is None:
         noise_seed = int(torch.randint(0, 2**31 - 1, (), generator=generator))
     return xs, int(noise_seed)
+
+
+def _first(res: AnnealResult) -> AnnealResult:
+    """The one chromosome of an AnnealResult with a leading C axis of 1."""
+    return AnnealResult(coords=res.coords[0], energies={k: v[0] for k, v in res.energies.items()},
+                        history=res.history[0], pick=None if res.pick is None else res.pick[0])
 
 
 def _chromosome(restraints, c: int):
@@ -321,148 +324,115 @@ def step_route(cfg: AnnealConfig, L: int, or_groups=None, batch: Optional[int] =
     return "unfused" if os.environ.get("CHROM3D_NO_TRI") else "semi"
 
 
-def _solve_stack(rs, stacked, cfg: AnnealConfig, n_models: int, bead_masks: torch.Tensor,
-                 xs: torch.Tensor, noise_seeds, or_groups=None,
-                 schedule: Optional[Schedule] = None, noise=None) -> AnnealResult:
-    """The phases of the solve (hot -> pick -> cool -> final terms ->
-    centroid) for C chromosomes at once: rs their (L, L) restraints,
-    `stacked` the same as (C, L, L) tensors (None when C = 1), bead_masks
-    (C, L), xs (C, n_eff, L, 3), noise_seeds C ints. The state is one batch
-    of C x n_eff structures, chromosome-major, on every route (kernels B1
-    to B5 have the chromosome axis: one launch a phase or a step for the
-    whole stack, and one for the pick); on the unfused route each
-    chromosome's bonded terms, bead mask and noise stream are its own. The
-    final terms and the centroid are taken chromosome by chromosome, so each
-    chromosome's numbers are those of a solve of its own. schedule
-    overrides the one built from cfg; noise replays the unfused route's
-    standard-normal draws, noise[c] chromosome c's (solve_ensemble_impl's
-    `noise`, or None to draw). Or-groups belong to one chromosome: a stack
-    with them raises ValueError. Returns an AnnealResult whose arrays carry
-    a leading C axis."""
+def _semi_steps(pair, or_groups, bead_mask: torch.Tensor, table: ScheduleTable,
+                seeds: torch.Tensor):
+    """The semi routes' step loop: run(k0, k1, xT, muT, nuT, hist), a
+    generator over steps k0..k1-1 of (B, 3, L) state that yields after
+    queueing each step and returns (xT, muT, nuT). A step is pair(xT,
+    weights) -> (energies (B,), gradient (B, 3, L)), the or-group term, then
+    kernel B4 with each chromosome's noise seed from `seeds`. bead_mask:
+    B4's, (L,) or (C, L)."""
+    weights = [table.weights(k) for k in range(len(table.rows))]
+    counter = step_counter(0, seeds.device)
+    og_mask = bead_mask if bead_mask.dim() == 1 else bead_mask[0]
+
+    def run(k0: int, k1: int, xT, muT, nuT, hist):
+        counter.fill_(k0)
+        spare = [None, None]   # B4's outputs of the step before last
+        for n, k in enumerate(range(k0, k1)):
+            e_pair, gT = pair(xT, weights[k])
+            if or_groups is not None:
+                e_og, g_og = or_group_energy_grad(xT.transpose(1, 2), or_groups, weights[k],
+                                                  og_mask)
+                e_pair, gT = e_pair + e_og, gT + g_og.transpose(1, 2)
+            xT, muT, nuT = fused_update_table(
+                xT, gT.contiguous(), muT, nuT, e_pair, bead_mask, table, counter, hist,
+                out=spare[n % 2], seeds=seeds)
+            spare[n % 2] = (xT, muT, nuT)
+            yield
+        return xT, muT, nuT
+
+    return run
+
+
+def _unfused_run(energy_grad, table: ScheduleTable, bead_masks: torch.Tensor,
+                 clip: Optional[float], noise_seeds, noise):
+    """The unfused route's step loop (solver.unfused) for C chromosomes,
+    each with its bead mask and its own noise stream on the masks' device,
+    seeded by its noise seed or replaying noise[c] (None: draw)."""
+    C = bead_masks.shape[0]
+    draws = [None] * C if noise is None else noise
+    return unfused_steps(energy_grad, table, bead_masks[0] if C == 1 else bead_masks, clip,
+                         StackedNoise([NoiseStream(bead_masks.device, s, d)
+                                       for s, d in zip(noise_seeds, draws)]))
+
+
+def _phases(cfg: AnnealConfig, n_models: int, xs: torch.Tensor, noise_seeds,
+            bead_masks: torch.Tensor, schedule: Optional[Schedule], or_groups,
+            unfused: bool, terms_attrs: dict, setup):
+    """The phases of a solve of C chromosomes at once (setup -> hot -> pick
+    -> cool -> final terms -> centroid): a generator that yields wherever
+    the step loop does and returns an AnnealResult with a leading C axis.
+    xs (C, n_eff, L, 3), bead_masks (C, L) and noise_seeds (C ints) on the
+    solve's device. The state is one batch of C x n_eff structures,
+    chromosome-major, in the kernels' (B, 3, L) layout, or in the (B, L, 3)
+    one of the optax step and its noise draws where `unfused`. The backend
+    is setup(table, seeds), called inside `solve.setup`, which returns (run,
+    hot_energy, final_terms): run(k0, k1, state, mu, nu, hist) the step
+    loop, a generator returning (state, mu, nu); hot_energy(state, coords,
+    weights) the pick's (B,) energies but the or-group term;
+    final_terms(c, coords) chromosome c's final terms (span `solve.terms`,
+    terms_attrs). The pick, the final terms and the centroid are taken
+    chromosome by chromosome, so each chromosome's numbers are those of a
+    solve of its own. Or-groups belong to one chromosome (no genome path has
+    them, in the JAX package either): with C > 1 they raise ValueError."""
     C, n_eff, L = xs.shape[0], xs.shape[1], xs.shape[2]
     dev = xs.device
-    exact = cfg.exact_restraints and cfg.noe_rswitch >= 1e8
-    # pair_bf16 on an exact route: the pair kernels read bf16 tiles (the JAX
-    # solver's `bf16=cfg.pair_bf16 and exact`)
-    bf16 = cfg.pair_bf16 and exact
-    route = step_route(cfg, L, or_groups, n_eff, dev)
-    fused, unfused = route == "fused", route == "unfused"
     if C > 1 and or_groups is not None:
-        raise ValueError("or-groups belong to one chromosome, not to a stack of "
-                         f"{C}: no genome path carries them")
-
+        raise ValueError(f"or-groups belong to one chromosome, not to a stack of {C}: "
+                         "no genome path carries them")
     with trace.span("solve.setup"):
         table = schedule_table(cfg, noise_seeds[0], schedule)
-        base = table.base
         T = len(table.rows)
         seeds = torch.tensor([_c_int32(v) for v in noise_seeds], dtype=torch.int32, device=dev)
-        # the fused and semi routes hold the state in the kernels' (B, 3, L)
-        # layout, the unfused route in the (B, L, 3) one of the JAX package's
-        # optax step (and of its noise draws)
+        run, hot_energy, final_terms = setup(table, seeds)
         x = xs.reshape(C * n_eff, L, 3)
         xT = x.contiguous() if unfused else x.transpose(1, 2).contiguous()
-
-        def coords_of(state):
-            return state if unfused else state.transpose(1, 2)
-
-        muT = torch.zeros_like(xT)
-        nuT = torch.zeros_like(xT)
+        muT, nuT = torch.zeros_like(xT), torch.zeros_like(xT)
         history = torch.empty((T, C * n_eff), dtype=torch.float32, device=dev)
-        # the restraints and masks of the pair kernels and B4: one chromosome's,
-        # or the stack's (the kernels' chromosome axis, a seed a chromosome)
-        pick_r, pick_bm = (rs[0], bead_masks[0]) if C == 1 else (stacked, bead_masks)
-        pick_tiles = None   # the pick folds its own tiles, unless the semi route's serve
 
-        if fused:
-            # the fused route: a phase of the schedule is one call of kernel B1,
-            # which walks the table's rows itself, every chromosome in one launch
-            # (pair_bf16: each chromosome's tiles cast after the fold)
-            tiles = [as_tile_dtype(fused_step_tiles(r, bm, base.noe), bf16)
-                     for r, bm in zip(rs, bead_masks)]
-            tiles = tuple(a[0][None] if C == 1 else torch.stack(a) for a in zip(*tiles))
+    def coords_of(state):
+        return state if unfused else state.transpose(1, 2)
 
-            def run(k0: int, k1: int, xT, muT, nuT, hist):
-                hist[k0:k1], xT, muT, nuT = fused_steps_batched(
-                    xT, muT, nuT, tiles, table, k0, k1, bead_masks, seeds=seeds)
-                return xT, muT, nuT
-        elif unfused:
-            # the unfused route: the pair kernel's value and gradient with the
-            # bonded terms (B2, B3 or B5 by pair_energy_and_grad_batched's
-            # dispatch, the tiles folded once; one launch for the stack), the
-            # or-group term, then the clip, Adam, noise and move in torch ops,
-            # each chromosome with its mask and its own noise stream
-            noise = [None] * C if noise is None else noise
-            steps = unfused_steps(_energy_grad(pick_r, exact, pick_bm, or_groups, bf16), table,
-                                  pick_bm, cfg.gradient_clip,
-                                  StackedNoise([NoiseStream(dev, s, d)
-                                                for s, d in zip(noise_seeds, noise)]))
-
-            def run(k0: int, k1: int, x, mu, nu, hist):
-                return drain(steps(k0, k1, x, mu, nu, hist))
-        else:
-            # the semi routes: pair terms in kernel B3 (exact) or B5 (general),
-            # the or-group term added, the update in kernel B4, each one launch a
-            # step for the whole stack; the tiles are folded (and under pair_bf16
-            # cast) once, outside the loop, and serve the pick too
-            semi_tiles = pick_tiles = pair_tiles(pick_r, exact, bf16)
-            pair_grad = tri_energy.tri_energy_grad if exact else general_pair_energy_grad
-            bead_mask = pick_bm
-
-            # the pair kernels take their weights from the host's copy of the
-            # table; kernel B4 reads its step from a device counter, its scalars
-            # from the table's device rows, and writes the history row itself
-            weights_k = [table.weights(k) for k in range(T)]
-            counter = step_counter(0, dev)
-
-            def run(k0: int, k1: int, xT, muT, nuT, hist):
-                counter.fill_(k0)
-                spare = [None, None]   # B4's outputs of the step before last
-                for n, k in enumerate(range(k0, k1)):
-                    e_pair, gT = pair_grad(xT, *semi_tiles, weights_k[k], bead_mask)
-                    if or_groups is not None:
-                        e_og, g_og = or_group_energy_grad(
-                            xT.transpose(1, 2), or_groups, weights_k[k], bead_mask
-                        )
-                        e_pair = e_pair + e_og
-                        gT = gT + g_og.transpose(1, 2)
-                    xT, muT, nuT = fused_update_table(
-                        xT, gT.contiguous(), muT, nuT, e_pair, bead_mask, table, counter,
-                        hist, out=spare[n % 2], seeds=seeds)
-                    spare[n % 2] = (xT, muT, nuT)
-                return xT, muT, nuT
-
+    # the step loops stay open across the yields, while other groups' bodies
+    # run: they are no span's parent (nest=False)
     pick = None
     if cfg.enantiomer:
         hot = cfg.hot_steps
-        with trace.span("solve.hot"):
-            xT, muT, nuT = run(0, hot, xT, muT, nuT, history)
+        with trace.span("solve.hot", nest=False):
+            xT, muT, nuT = yield from run(0, hot, xT, muT, nuT, history)
         # handedness per mirror pair of each chromosome, by energy under the
-        # end-of-hot weights (one B2 or B3 launch for the whole stack, the
-        # table asked with a chromosome's structures)
+        # end-of-hot weights
         with trace.span("solve.pick"):
-            coords = coords_of(xT).contiguous()
             w_hot = table.weights(hot - 1)
-            e_hot, _ = pair_energy_and_grad_batched(coords, pick_r, w_hot, pick_bm, exact,
-                                                    pick_tiles, bf16=bf16)
+            coords = coords_of(xT).contiguous()
+            e_hot = hot_energy(xT, coords, w_hot)
             if or_groups is not None:
-                e_hot = e_hot + or_group_energy_grad(coords, or_groups, w_hot, pick_bm)[0]
+                e_hot = e_hot + or_group_energy(coords, or_groups, w_hot, bead_masks[0])
             choice = torch.argmin(e_hot.reshape(C, n_models, 2), dim=2)
             pick = torch.arange(n_models, device=dev) * 2 + choice          # (C, n)
             rows = (pick + n_eff * torch.arange(C, device=dev)[:, None]).reshape(-1)
             xT, muT, nuT = xT[rows], muT[rows], nuT[rows]
             history = history[:, rows].contiguous()
-        with trace.span("solve.cool"):
-            xT, muT, nuT = run(hot, T, xT, muT, nuT, history)
+        with trace.span("solve.cool", nest=False):
+            xT, muT, nuT = yield from run(hot, T, xT, muT, nuT, history)
     else:
-        with trace.span("solve.hot"):
-            xT, muT, nuT = run(0, T, xT, muT, nuT, history)
+        with trace.span("solve.hot", nest=False):
+            xT, muT, nuT = yield from run(0, T, xT, muT, nuT, history)
     n = xT.shape[0] // C
     coords = coords_of(xT).reshape(C, n, L, 3)
 
     out_coords, terms = [], []
-    chunked = L >= CHUNKED_TERMS_MIN_L
-    term_fn = energy_terms_chunked if chunked else energy_terms
-    blocks = chunked_row_blocks(L) if chunked else 0
     with trace.span("solve.final"):
         for c in range(C):
             x = coords[c].contiguous()
@@ -470,11 +440,12 @@ def _solve_stack(rs, stacked, cfg: AnnealConfig, n_models: int, bead_masks: torc
             # fenced before and at the end while traced: the span holds the
             # terms' device work, not the step kernels still queued
             trace.fence(dev)
-            with trace.span("solve.terms", chunked=chunked, blocks=blocks):
-                terms.append(term_fn(x, rs[c], base, bm, or_groups))
+            with trace.span("solve.terms", **terms_attrs):
+                terms.append(final_terms(c, x))
                 trace.fence(dev)
             # centroid to origin, padding excluded
-            centroid = (x * bm[None, :, None]).sum(dim=1, keepdim=True) / bm.sum()
+            centroid = ((x * bm[None, :, None]).sum(dim=1, keepdim=True)
+                        / torch.clamp_min(bm.sum(), 1.0))
             out_coords.append((x - centroid) * bm[None, :, None])
     return AnnealResult(
         coords=torch.stack(out_coords),
@@ -482,17 +453,81 @@ def _solve_stack(rs, stacked, cfg: AnnealConfig, n_models: int, bead_masks: torc
         history=history.T.reshape(C, n, T), pick=pick)
 
 
+def _solve_stack(rs, stacked, cfg: AnnealConfig, n_models: int, bead_masks: torch.Tensor,
+                 xs: torch.Tensor, noise_seeds, or_groups=None,
+                 schedule: Optional[Schedule] = None, noise=None) -> AnnealResult:
+    """The one-device backend of `_phases` for C chromosomes: rs their (L,
+    L) restraints, `stacked` the same as (C, L, L) tensors (None when C =
+    1), the rest as there. Kernels B1 to B5 have the chromosome axis: one
+    launch a phase or a step for the whole stack, and one for the pick.
+    schedule overrides the one built from cfg; noise[c] replays chromosome
+    c's unfused draws (solve_ensemble_impl's `noise`; None: draw)."""
+    n_eff, L = xs.shape[1], xs.shape[2]
+    exact = cfg.exact_restraints and cfg.noe_rswitch >= 1e8
+    # pair_bf16 on an exact route: the pair kernels read bf16 tiles (the JAX
+    # solver's `bf16=cfg.pair_bf16 and exact`)
+    bf16 = cfg.pair_bf16 and exact
+    route = step_route(cfg, L, or_groups, n_eff, xs.device)
+    # the restraints and masks of the pair kernels and B4: one chromosome's,
+    # or the stack's (the kernels' chromosome axis, a seed a chromosome)
+    pick_r, pick_bm = (rs[0], bead_masks[0]) if len(rs) == 1 else (stacked, bead_masks)
+    chunked = L >= CHUNKED_TERMS_MIN_L
+    term_fn = energy_terms_chunked if chunked else energy_terms
+
+    def setup(table, seeds):
+        pick_tiles = None   # the pick folds its own tiles, unless the semi route's serve
+        if route == "fused":
+            # kernel B1 runs a whole phase, every chromosome in one launch
+            # (pair_bf16: each chromosome's tiles cast after the fold)
+            tiles = [as_tile_dtype(fused_step_tiles(r, bm, table.base.noe), bf16)
+                     for r, bm in zip(rs, bead_masks)]
+            tiles = tuple(a[0][None] if len(rs) == 1 else torch.stack(a) for a in zip(*tiles))
+
+            def run(k0: int, k1: int, xT, muT, nuT, hist):
+                hist[k0:k1], xT, muT, nuT = fused_steps_batched(
+                    xT, muT, nuT, tiles, table, k0, k1, bead_masks, seeds=seeds)
+                yield
+                return xT, muT, nuT
+        elif route == "unfused":
+            # B2, B3 or B5 with the bonded terms (pair_energy_and_grad_batched,
+            # the tiles folded once; one launch for the stack), the or-group term
+            run = _unfused_run(_energy_grad(pick_r, exact, pick_bm, or_groups, bf16), table,
+                               bead_masks, cfg.gradient_clip, noise_seeds, noise)
+        else:
+            # pair terms in kernel B3 (exact) or B5 (general); the tiles are
+            # folded (and under pair_bf16 cast) once and serve the pick too
+            pick_tiles = pair_tiles(pick_r, exact, bf16)
+            pair_grad = tri_energy.tri_energy_grad if exact else general_pair_energy_grad
+            run = _semi_steps(lambda xT, w: pair_grad(xT, *pick_tiles, w, pick_bm),
+                              or_groups, pick_bm, table, seeds)
+
+        def hot_energy(state, coords, w_hot):
+            # one B2 or B3 launch for the whole stack, the table asked with a
+            # chromosome's structures
+            return pair_energy_and_grad_batched(coords, pick_r, w_hot, pick_bm, exact,
+                                                pick_tiles, bf16=bf16)[0]
+
+        def final_terms(c, x):
+            return term_fn(x, rs[c], table.base, bead_masks[c], or_groups)
+
+        return run, hot_energy, final_terms
+
+    return drain(_phases(cfg, n_models, xs, noise_seeds, bead_masks, schedule, or_groups,
+                         route == "unfused",
+                         {"chunked": chunked, "blocks": chunked_row_blocks(L) if chunked else 0},
+                         setup))
+
+
 def _energy_grad(restraints, exact: bool, bead_mask: torch.Tensor, or_groups,
                  bf16: bool = False):
     """Every unfused step's (energies (B,), gradients (B, L, 3)) of (B, L,
     3) coords: the pair kernel with the bonded terms
     (pair_energy_and_grad_batched, its tiles folded once here, bfloat16
-    under bf16) and the
-    or-group term where given. Restraints of (C, L, L) tensors with (C, L)
-    bead masks hold C chromosomes of B / C structures each. B3 or B2 is
-    decided once for each batch size (before and after the pick), asked
-    with a chromosome's structures, as the JAX package's trace of each
-    phase under the genome vmap decides it."""
+    under bf16) and the or-group term where given. Restraints of (C, L, L)
+    tensors with (C, L) bead masks hold C chromosomes of B / C structures
+    each. B3 or B2 is decided once for each batch size (before and after
+    the pick), asked with a chromosome's structures, as the JAX package's
+    trace of each phase under the genome vmap decides it."""
     tiles = pair_tiles(restraints, exact, bf16)
     tri: Dict[int, bool] = {}
     C = bead_mask.shape[0] if bead_mask.dim() == 2 else 1
@@ -616,13 +651,11 @@ def solve_ensemble_impl(
     if bead_mask is None:
         bead_mask = torch.ones(L, dtype=torch.float32, device=dev)
     bead_mask = bead_mask.to(device=dev, dtype=torch.float32).contiguous()
-    xs, noise_seed = _draws(restraints, cfg, n_models, bead_mask, x0, generator, xs,
-                            noise_seed)
-    res = _solve_stack([restraints], None, cfg, n_models, bead_mask[None], xs[None],
-                       [noise_seed], or_groups, schedule, [noise])
-    return AnnealResult(coords=res.coords[0], energies={k: v[0] for k, v in res.energies.items()},
-                        history=res.history[0],
-                        pick=None if res.pick is None else res.pick[0])
+    xs, noise_seed = _draws(cfg, n_models, bead_mask, generator, lambda: (
+        initial_structure(restraints, cfg, bead_mask, generator) if x0 is None else x0),
+        xs, noise_seed)
+    return _first(_solve_stack([restraints], None, cfg, n_models, bead_mask[None], xs[None],
+                               [noise_seed], or_groups, schedule, [noise]))
 
 
 def solve_bucket_impl(
@@ -639,18 +672,14 @@ def solve_bucket_impl(
     (C, L, L) tensors (each chromosome's padded to the bucket's L),
     bead_masks (C, L) -> an AnnealResult with a leading C axis: coords (C,
     n_models, L, 3), energies (C, n_models) each, history (C, n_models, T),
-    pick (C, n_models). Each chromosome's start is its own mds_init (a loop
+    pick (C, n_models). Each chromosome's start is its own init (a loop
     over the chromosomes: a batched eigendecomposition may flip an
     eigenvector's sign), then the draws of chromosome_generator(base_seed,
     c); xs (C, n_eff, L, 3) and noise_seeds (C,) replay given values
-    instead, as solve_ensemble_impl's xs= and noise_seed= do; on the
-    unfused route noise[c] replays chromosome c's noise draws (its
-    solve_ensemble_impl `noise`). The C x n_eff structures run as one
-    batch on every route (step_route): B1 twice, or B3 or B5 then B4 once a
-    step, or on the unfused route B2, B3 or B5 once a step, for the whole
-    bucket, and B2, B3 or B5 once for the pick; chromosome c's results are
-    those of solve_ensemble_impl on its own restraints with the same
-    draws."""
+    instead, and on the unfused route noise[c] chromosome c's noise draws.
+    The C x n_eff structures run as one batch on every route (`_solve_stack`);
+    chromosome c's results are those of solve_ensemble_impl on its own
+    restraints with the same draws."""
     target = restraints.lo
     dev = target.device
     C, L = target.shape[0], target.shape[-1]
@@ -659,11 +688,13 @@ def solve_bucket_impl(
     if tuple(bead_masks.shape) != (C, L):
         raise ValueError(f"bead_masks: shape {tuple(bead_masks.shape)}, expected {(C, L)}")
     rs = [_chromosome(restraints, c) for c in range(C)]
-    draws = [_draws(rs[c], cfg, n_models, bead_masks[c], None,
-                    chromosome_generator(base_seed, c),
-                    None if xs is None else xs[c],
-                    None if noise_seeds is None else int(noise_seeds[c]))
-             for c in range(C)]
+    draws = []
+    for c in range(C):
+        gen = chromosome_generator(base_seed, c)
+        draws.append(_draws(cfg, n_models, bead_masks[c], gen,
+                            lambda: initial_structure(rs[c], cfg, bead_masks[c], gen),
+                            None if xs is None else xs[c],
+                            None if noise_seeds is None else noise_seeds[c]))
     return _solve_stack(rs, restraints, cfg, n_models, bead_masks,
                         torch.stack([d[0] for d in draws]), [d[1] for d in draws],
                         noise=noise)

@@ -4,16 +4,15 @@ chromosome3d_tpu/solver/sharded.py `solve_ensemble_sharded` (its 1-D
 `solve_single_sharded`.
 
 The (L, L) restraint tensors are cut into row strips, one per rank of a
-parallel.shards.ShardGroup; coordinates, Adam moments and the noise seed
-are replicated. Per annealing step every rank runs its pair kernel on its
-strip: B6 (ops.strip_tri) for exact restraints where the strip-triangular
-pairing pays, else B2' (exact) or B5' (windowed) on its row block
-(ops.pair_energy / ops.general_pair). The energy partials are summed on the
-lead device in rank order, the gradient is summed (B6) or its row blocks
-gathered (B5', B2'), the or-group term is added on the lead, and kernel B4
-runs once, on the lead, before the new coordinates are copied to the other
-ranks. The JAX package runs the update on every device instead; the
-replicas are bitwise identical there, so one update is the same result.
+parallel.shards.ShardGroup. Per annealing step every rank runs its pair
+kernel on its strip: B6 (ops.strip_tri) for exact restraints where the
+strip-triangular pairing pays, else B2' (exact) or B5' (windowed) on its
+row block (ops.pair_energy / ops.general_pair). The energy partials are
+summed on the lead device in rank order, the gradient is summed (B6) or its
+row blocks gathered (B5', B2'), the or-group term is added on the lead, and
+kernel B4 runs once, on the lead, before the new coordinates are copied to
+the other ranks (the JAX package runs the update on every device, whose
+replicas are bitwise identical).
 On the unfused route (`fuse_update=False`, the angle term, or strips the
 fused route does not take; `_route`) each rank runs B2' or B5' on its
 strip, the gradient rows are gathered on the lead, and the bonded terms,
@@ -21,21 +20,14 @@ the clip, optax's Adam, noise and the move run there once
 (solver.unfused). `solve_single_sharded` runs that step on one structure,
 B5' on every rank.
 
-Around the steps, as in the JAX package: the landmark init from the sharded
-rows (always landmark, whatever cfg.init; edges from the folded weight
-w > 0), the mirror pairs and jitter, the hot phase, the enantiomer pick
-(pair energy + bond + or-group term), cool and final on the winners, the
-final canonical-weight terms through the plain row-block energy
-(parallel.sharded_energy) and the centroid to the origin.
-
-`solve_genome_sharded` runs the same body for a genome bucket's chromosomes
-past the length buckets (the JAX package's vmap of it over a chrom x beads
-mesh): each shard group of parallel.shards.chrom_groups holds its
-chromosomes' strips as (C, Lb, L) tensors, exact or windowed, and every step
-the route's pair kernel (B6, B2' or B5') runs once on each rank and B4 once
-on the lead for all of the group's chromosomes, each with its own strips,
-bead mask and noise seed; on the unfused route each with its own bonded
-terms, bead mask and noise stream.
+The phases around the steps are solver.anneal's `_phases`, shared with the
+one-device solver; `_group_body` is their row-sharded backend, for the C
+chromosomes of a shard group at once (`solve_genome_sharded`, the JAX
+package's vmap of the body over a chrom x beads mesh; C = 1 for
+`solve_ensemble_sharded`). The start is the landmark init from the sharded
+rows (always landmark, whatever cfg.init; edges from the folded weight w >
+0), then solver.anneal's `_draws`; the final canonical-weight terms are the
+plain row-block energy (parallel.sharded_energy).
 
 AnnealConfig.pair_bf16, as the JAX shard body has it: the strip route casts
 its strips to bfloat16 for B6 (a no-op for strips the prep stored bf16);
@@ -59,8 +51,6 @@ from chromosome3d_tpu_torch.ops.energy import (
     or_group_energy,
     or_group_energy_grad,
 )
-from chromosome3d_tpu_torch.ops.fused_step import _c_int32
-from chromosome3d_tpu_torch.ops.fused_update import fused_update_table, step_counter
 from chromosome3d_tpu_torch.ops.general_pair import general_row_block_energy_grad
 from chromosome3d_tpu_torch.ops.pair_energy import (
     bond_energy_grad,
@@ -73,11 +63,16 @@ from chromosome3d_tpu_torch.parallel.shards import ShardGroup
 from chromosome3d_tpu_torch.solver.anneal import (
     AnnealResult,
     Schedule,
+    _chromosome,
+    _draws,
+    _first,
+    _phases,
     _refuse_unported,
+    _semi_steps,
     _solve_one,
     _unfused,
+    _unfused_run,
     chromosome_generator,
-    schedule_table,
 )
 from chromosome3d_tpu_torch.solver.init import (
     chain_metric_rows,
@@ -87,7 +82,6 @@ from chromosome3d_tpu_torch.solver.init import (
     relax_landmarks_block,
     relax_landmarks_lower_block,
 )
-from chromosome3d_tpu_torch.solver.unfused import NoiseStream, StackedNoise, unfused_steps
 from chromosome3d_tpu_torch.utils import trace
 
 _BIG = 1e6
@@ -224,25 +218,6 @@ def _route(cfg: AnnealConfig, L: int, n: int) -> str:
     return "unfused"
 
 
-@trace.spanned("init.draws")
-def _start(group: ShardGroup, strips: Sequence, bead_mask: torch.Tensor,
-           cfg: AnnealConfig, n_models: int, generator: torch.Generator) -> torch.Tensor:
-    """One chromosome's drawn start ensemble (n_eff, L, 3) on the lead: the
-    landmark init from its strips, its mirror pairs, then the jitter from
-    `generator` (the noise seed is drawn from it next)."""
-    lead = group.lead
-    L = bead_mask.shape[0]
-    n_eff = n_models * 2 if cfg.enantiomer else n_models
-    x0 = sharded_landmark_init(group, strips, bead_mask, cfg)
-    if cfg.enantiomer:
-        signs = torch.tensor([1.0, -1.0], device=lead).repeat(n_models)
-    else:
-        signs = torch.ones(n_eff, device=lead)
-    flip = torch.stack([signs, torch.ones_like(signs), torch.ones_like(signs)], -1)
-    jitter = trace.to_device(torch.randn((n_eff, L, 3), generator=generator), lead)
-    return x0[None] * flip[:, None, :] + cfg.init_noise * jitter * bead_mask[None, :, None]
-
-
 def _in_lockstep(bodies) -> list:
     """Run generator bodies (_group_body) step by step in turn, each one's
     next step before any one's step after it, so that groups on other
@@ -284,39 +259,18 @@ def _group_body(group: ShardGroup, tiles: List[_Tiles], bead_masks: torch.Tensor
                 cfg: AnnealConfig, n_models: int, xs: torch.Tensor, noise_seeds,
                 route: str, or_groups=None, schedule: Optional[Schedule] = None,
                 noise=None):
-    """The shard body for the C chromosomes of one shard group, a generator
-    that yields after queueing each annealing step and returns its
-    AnnealResult: tiles[r] is rank r's (C, Lb, L) strips, bead_masks (C, L),
-    xs (C, n_eff, L, 3) and noise_seeds C ints, all on the lead. The state
-    is one batch of C x n_eff structures, chromosome-major: every step each
-    rank runs its pair kernel once for all C chromosomes (B6 on the "strip"
-    route, B2' or B5' on the "rows" and "unfused" ones), the partials are
-    combined on the lead, and on the fused routes B4 runs once there for
-    all of them, each chromosome with its mask and its noise seed. On the
-    "unfused" route the update after the gathered gradient is
-    solver.unfused's, on the lead, each chromosome with its bonded terms,
-    its bead mask and its own noise stream, from a generator there seeded
-    by its noise seed or replaying noise[c] (None: draw). The pick, the
-    final terms and the centroid are taken chromosome by chromosome, so
-    chromosome c's numbers are those of a group holding it alone. Or-groups
-    belong to one chromosome (no genome path has them, in the JAX package
-    either): with C > 1 they raise ValueError. The AnnealResult has a
-    leading C axis."""
-    lead = group.lead
-    C, n_eff, L = xs.shape[0], xs.shape[1], xs.shape[2]
-    if C > 1 and or_groups is not None:
-        raise ValueError(f"or-groups belong to one chromosome, not to a group of {C}: "
-                         "no genome path carries them")
+    """The row-sharded backend of solver.anneal's `_phases` for the C
+    chromosomes of one shard group; returns the phases' generator (a yield
+    a step). tiles[r] is rank r's (C, Lb, L) strips, the rest on the lead as
+    `_phases` takes it. Every step each rank runs its pair kernel once for
+    all C chromosomes (`_pair_rows`), then B4 once on the lead, or on the
+    "unfused" route solver.unfused's update there (noise[c]: chromosome c's
+    replayed draws; None: draw)."""
     exact = cfg.exact_restraints and cfg.noe_rswitch >= 1e8
-    with trace.span("solve.setup"):
-        beads = group.broadcast(bead_masks)
-        seeds = torch.tensor([_c_int32(v) for v in noise_seeds], dtype=torch.int32,
-                             device=lead)
-        table = schedule_table(cfg, noise_seeds[0], schedule)
-        base = table.base
-        T = len(table.rows)
-        step_weights = [table.weights(k) for k in range(T)]
+    unfused = route == "unfused"
 
+    def setup(table, seeds):
+        beads = group.broadcast(bead_masks)
         # the pair kernels' tiles (bf16 on the strip route under pair_bf16); the
         # final terms read the stored ones
         ktiles = _kernel_tiles(tiles, cfg, route)
@@ -324,114 +278,42 @@ def _group_body(group: ShardGroup, tiles: List[_Tiles], bead_masks: torch.Tensor
         def pair_T(xT, weights):
             return _pair_rows(group, ktiles, beads, xT, weights, exact, route)
 
-        # kernel B4 reads its step from a device counter on the lead, its
-        # scalars from the table's rows there and each chromosome's noise seed
-        # from `seeds`, and writes the history row itself
-        counter = step_counter(0, lead)
-        og_mask = bead_masks[0]
-
-        def run_fused_update(k0, k1, xT, muT, nuT, hist):
-            counter.fill_(k0)
-            spare = [None, None]   # B4's outputs of the step before last
-            for n, k in enumerate(range(k0, k1)):
-                e_pair, gT = pair_T(xT, step_weights[k])
-                if or_groups is not None:
-                    e_og, g_og = or_group_energy_grad(xT.transpose(1, 2), or_groups,
-                                                      step_weights[k], og_mask)
-                    e_pair = e_pair + e_og
-                    gT = gT + g_og.transpose(1, 2)
-                xT, muT, nuT = fused_update_table(
-                    xT, gT.contiguous(), muT, nuT, e_pair, bead_masks, table, counter, hist,
-                    out=spare[n % 2], seeds=seeds)
-                spare[n % 2] = (xT, muT, nuT)
-                yield
-            return xT, muT, nuT
-
-        unfused = route == "unfused"
         if unfused:
-            # the pair rows of every rank gathered, then the bonded terms (bond
-            # and angle) and the or-group term on the lead: the state in the JAX
-            # step's (B, L, 3) layout
+            # the pair rows of every rank gathered, then the or-group term and
+            # the bonded terms (bond and angle) on the lead
             def energy_grad(x, weights):
                 e_pair, gT = pair_T(x.transpose(1, 2).contiguous(), weights)
                 g = gT.transpose(1, 2)
                 if or_groups is not None:
-                    e_og, g_og = or_group_energy_grad(x, or_groups, weights, og_mask)
+                    e_og, g_og = or_group_energy_grad(x, or_groups, weights, bead_masks[0])
                     e_pair, g = e_pair + e_og, g + g_og
                 e_b, g_b = bond_energy_grad_stacked(x, weights, bead_masks)
                 return e_pair + e_b, g + g_b
 
-            draws = [None] * C if noise is None else noise
-            run = unfused_steps(energy_grad, table, og_mask if C == 1 else bead_masks,
-                                cfg.gradient_clip,
-                                StackedNoise([NoiseStream(lead, s, d)
-                                              for s, d in zip(noise_seeds, draws)]))
+            run = _unfused_run(energy_grad, table, bead_masks, cfg.gradient_clip, noise_seeds,
+                               noise)
         else:
-            run = run_fused_update
+            run = _semi_steps(pair_T, or_groups, bead_masks, table, seeds)
 
-        def coords_of(state):
-            return state if unfused else state.transpose(1, 2)
+        def hot_energy(state, coords, w_hot):
+            xT = coords.transpose(1, 2).contiguous() if unfused else state
+            return (pair_T(xT, w_hot)[0]
+                    + bond_energy_grad_stacked(coords, table.base, bead_masks)[0])
 
-        x = xs.reshape(C * n_eff, L, 3)
-        xT = x.contiguous() if unfused else x.transpose(1, 2).contiguous()
-        muT = torch.zeros_like(xT)
-        nuT = torch.zeros_like(xT)
-        history = torch.empty((T, C * n_eff), dtype=torch.float32, device=lead)
-    # the step loops stay open across the yields, while other groups' bodies
-    # run: they are no span's parent (nest=False)
-    pick = None
-    if cfg.enantiomer:
-        hot = cfg.hot_steps
-        with trace.span("solve.hot", nest=False):
-            xT, muT, nuT = yield from run(0, hot, xT, muT, nuT, history)
-        with trace.span("solve.pick"):
-            w_hot = step_weights[hot - 1]
-            coords = coords_of(xT).contiguous()
-            xT_hot = coords.transpose(1, 2).contiguous() if unfused else xT
-            e_hot = (pair_T(xT_hot, w_hot)[0]
-                     + bond_energy_grad_stacked(coords, base, bead_masks)[0])
+        def final_terms(c, coords):
+            base, bm = table.base, bead_masks[c]
+            parts = [row_block_energy_grad(x, t.lo[c], t.hi[c], t.w[c], b[c], t.row_start, base)
+                     for x, t, b in zip(group.broadcast(coords), tiles, beads)]
+            e_noe, e_vdw = (group.psum([p[i] for p in parts]) for i in (0, 1))
             if or_groups is not None:
-                e_hot = e_hot + or_group_energy(coords, or_groups, w_hot, og_mask)
-            choice = torch.argmin(e_hot.reshape(C, n_models, 2), dim=2)
-            pick = torch.arange(n_models, device=lead) * 2 + choice              # (C, n)
-            rows = (pick + n_eff * torch.arange(C, device=lead)[:, None]).reshape(-1)
-            xT, muT, nuT = xT[rows], muT[rows], nuT[rows]
-            history = history[:, rows].contiguous()
-        with trace.span("solve.cool", nest=False):
-            xT, muT, nuT = yield from run(hot, T, xT, muT, nuT, history)
-    else:
-        with trace.span("solve.hot", nest=False):
-            xT, muT, nuT = yield from run(0, T, xT, muT, nuT, history)
-    n = xT.shape[0] // C
-    coords_all = coords_of(xT).reshape(C, n, L, 3)
+                e_noe = e_noe + or_group_energy(coords, or_groups, base, bm)
+            e_bond = bond_energy_grad(coords, base, bm)[0]
+            return {"noe": e_noe, "bon": e_bond, "vdw": e_vdw, "overall": e_noe + e_vdw + e_bond}
 
-    # final canonical-weight terms: the plain row-block energy on every
-    # rank, a chromosome at a time; then the centroid to the origin
-    out_coords, terms = [], []
-    with trace.span("solve.final"):
-        for c in range(C):
-            coords = coords_all[c].contiguous()
-            bm = bead_masks[c]
-            trace.fence(lead)
-            with trace.span("solve.terms", chunked=True, blocks=len(tiles)):
-                parts = [row_block_energy_grad(x, t.lo[c], t.hi[c], t.w[c], b[c], t.row_start,
-                                               base)
-                         for x, t, b in zip(group.broadcast(coords), tiles, beads)]
-                e_noe = group.psum([p[0] for p in parts])
-                e_vdw = group.psum([p[1] for p in parts])
-                if or_groups is not None:
-                    e_noe = e_noe + or_group_energy(coords, or_groups, base, bm)
-                e_bond = bond_energy_grad(coords, base, bm)[0]
-                terms.append({"noe": e_noe, "bon": e_bond, "vdw": e_vdw,
-                              "overall": e_noe + e_vdw + e_bond})
-                trace.fence(lead)
-            nvalid = torch.clamp_min(bm.sum(), 1.0)
-            centroid = (coords * bm[None, :, None]).sum(dim=1, keepdim=True) / nvalid
-            out_coords.append((coords - centroid) * bm[None, :, None])
-    return AnnealResult(
-        coords=torch.stack(out_coords),
-        energies={k: torch.stack([t[k] for t in terms]) for k in terms[0]},
-        history=history.T.reshape(C, n, T), pick=pick)
+        return run, hot_energy, final_terms
+
+    return _phases(cfg, n_models, xs, noise_seeds, bead_masks, schedule, or_groups, unfused,
+                   {"chunked": True, "blocks": len(tiles)}, setup)
 
 
 def solve_ensemble_sharded(
@@ -452,17 +334,10 @@ def solve_ensemble_sharded(
     strip on its device (restraint_strips cuts whole tensors), L = n Lb.
     bead_mask (L,), or_groups (ops.energy.OrGroupRestraints) and the result
     live on the lead device. The one-chromosome case of
-    solve_genome_sharded's shard body; the route is `_route`'s.
-
-    generator: the CPU torch.Generator for the jitter and the noise seed (a
-    fresh one seeded 0 when None). xs: an explicit (n_eff, L, 3) start
-    ensemble, used as given (no init, no mirror signs, no jitter);
-    noise_seed: an explicit int32 noise-stream seed (on the unfused route,
-    the seed of the lead's noise generator); noise: on the unfused route,
-    given standard-normal draws, noise[k] the (B, L, 3) block of step k
-    (solver.anneal.solve_ensemble_impl). Together they replay the values
-    another implementation drew. schedule overrides the one built from
-    cfg."""
+    solve_genome_sharded's shard body; the route is `_route`'s. generator
+    (for the jitter and the noise seed), xs, noise_seed, noise and schedule
+    as solver.anneal.solve_ensemble_impl's; the start is the landmark init
+    from the strips, and the unfused route draws its noise on the lead."""
     if len(strips) != group.n:
         raise ValueError(f"{len(strips)} strips for {group.n} shards")
     lead = group.lead
@@ -476,20 +351,12 @@ def solve_ensemble_sharded(
     if bead_mask is None:
         bead_mask = torch.ones(L, dtype=torch.float32, device=lead)
     bead_mask = bead_mask.to(device=lead, dtype=torch.float32).contiguous()
-    n_eff = n_models * 2 if cfg.enantiomer else n_models
-    if xs is None:
-        xs = _start(group, strips, bead_mask, cfg, n_models, generator)
-    xs = xs.to(device=lead, dtype=torch.float32)
-    if xs.shape != (n_eff, L, 3):
-        raise ValueError(f"xs: shape {tuple(xs.shape)}, expected {(n_eff, L, 3)}")
-    if noise_seed is None:
-        noise_seed = int(torch.randint(0, 2**31 - 1, (), generator=generator))
+    xs, noise_seed = _draws(cfg, n_models, bead_mask, generator,
+                            lambda: sharded_landmark_init(group, strips, bead_mask, cfg),
+                            xs, noise_seed)
     res, = _in_lockstep([_group_body(group, tiles, bead_mask[None], cfg, n_models, xs[None],
-                                     [int(noise_seed)], route, or_groups, schedule, [noise])])
-    return AnnealResult(coords=res.coords[0],
-                        energies={k: v[0] for k, v in res.energies.items()},
-                        history=res.history[0],
-                        pick=None if res.pick is None else res.pick[0])
+                                     [noise_seed], route, or_groups, schedule, [noise])])
+    return _first(res)
 
 
 def solve_genome_sharded(
@@ -513,21 +380,15 @@ def solve_genome_sharded(
     DenseRestraints with (Cg, Lb, L) tensors on that rank's device, L = nb
     Lb. bead_masks (B, L).
 
-    Each chromosome's start is the landmark init from its strips (a loop),
-    then its mirror pairs and jitter and its noise seed drawn in that order
-    from solver.anneal.chromosome_generator(base_seed, c), as the JAX body
-    draws from its chromosome's key; xs (B, n_eff, L, 3) and noise_seeds
-    (B,) replay given values instead, and on the unfused route noise[c]
-    chromosome c's noise draws (solve_ensemble_sharded's `noise`). The
-    route is `_route`'s, once for the bucket. A group's chromosomes run as
-    one batch: every step its pair kernel once on each rank for all of them
-    (B6 on the strip route, B2' or B5' on the rows and unfused routes) and
-    B4 once on the group's lead (the unfused route's update there instead).
-    The groups' steps are queued in turn (step k of every group before step
-    k + 1 of any), so groups on other devices run at once as the JAX mesh's
-    do. Returns an AnnealResult on groups[0]'s lead with a leading B axis:
-    coords (B, n_models, L, 3), energies (B, n_models) each, history (B,
-    n_models, T), pick (B, n_models)."""
+    Chromosome c draws from solver.anneal.chromosome_generator(base_seed,
+    c), as the JAX body draws from its chromosome's key; xs (B, n_eff, L, 3)
+    and noise_seeds (B,) replay given values instead, and on the unfused
+    route noise[c] chromosome c's noise draws. The route is `_route`'s, once
+    for the bucket; each group runs its chromosomes as one batch
+    (`_group_body`), and the groups' steps are queued in turn (step k of
+    every group before step k + 1 of any), so groups on other devices run
+    at once as the JAX mesh's do. Returns an AnnealResult on groups[0]'s
+    lead with a leading B axis."""
     _refuse_unported(cfg)
     nc = len(groups)
     nb = groups[0].n
@@ -549,20 +410,16 @@ def solve_genome_sharded(
         lead = group.lead
         masks = trace.to_device(bead_masks[g * Cg:(g + 1) * Cg].to(torch.float32),
                                 lead).contiguous()
-        starts, seeds = [], []
-        for i in range(Cg):
-            c = g * Cg + i
-            gen = chromosome_generator(base_seed, c)
-            if xs is None:
-                own = [type(s)(*(getattr(s, f.name)[i] for f in dataclasses.fields(s)))
-                       for s in group_strips]
-                starts.append(_start(group, own, masks[i], cfg, n_models, gen))
-            else:
-                starts.append(xs[c].to(device=lead, dtype=torch.float32))
-            seeds.append(int(torch.randint(0, 2**31 - 1, (), generator=gen))
-                         if noise_seeds is None else int(noise_seeds[c]))
-        bodies.append(_group_body(group, _tiles(group, group_strips, L), masks, cfg,
-                                  n_models, torch.stack(starts), seeds, route,
+        draws = []
+        for i, c in enumerate(range(g * Cg, (g + 1) * Cg)):
+            draws.append(_draws(cfg, n_models, masks[i], chromosome_generator(base_seed, c),
+                                lambda: sharded_landmark_init(
+                                    group, [_chromosome(s, i) for s in group_strips], masks[i],
+                                    cfg),
+                                None if xs is None else xs[c],
+                                None if noise_seeds is None else noise_seeds[c]))
+        bodies.append(_group_body(group, _tiles(group, group_strips, L), masks, cfg, n_models,
+                                  torch.stack([x for x, _ in draws]), [s for _, s in draws], route,
                                   noise=None if noise is None else
                                   list(noise[g * Cg:(g + 1) * Cg])))
     results = _in_lockstep(bodies)

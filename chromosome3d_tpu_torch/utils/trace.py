@@ -41,10 +41,11 @@ use:
                           "re_prep")
   init.start              anneal.initial_structure (one a chromosome)
   init.landmark_sharded   sharded.sharded_landmark_init
-  init.draws              anneal._draws, sharded._start (mirror pairs, jitter)
+  init.draws              anneal._draws (mirror pairs, jitter, noise seed;
+                          the row-sharded landmark start inside it)
   solve.setup, solve.hot, solve.pick, solve.cool, solve.final
-                          the phases of anneal._solve_stack and of the
-                          sharded solver's group body
+                          anneal._phases, the phases both backends share
+                          (anneal._solve_stack, sharded._group_body)
   solve.terms             inside solve.final, one a chromosome: its final
                           energy terms, a fence before and at its end;
                           `chunked` (the row blocks of energy_terms_chunked,

@@ -437,8 +437,8 @@ def test_solve_bucket_sharded_from_if_draws_per_chromosome():
     chromosome_generator(base_seed, c): its results equal, bit for bit, a
     bucket of that one chromosome solved with its draws replayed from the
     same generator (the landmark start, the jitter, then the seed)."""
-    from chromosome3d_tpu_torch.solver.anneal import chromosome_generator
-    from chromosome3d_tpu_torch.solver.sharded import _start
+    from chromosome3d_tpu_torch.solver.anneal import _draws, chromosome_generator
+    from chromosome3d_tpu_torch.solver.sharded import sharded_landmark_init
 
     port_cfg, _ = _cfgs()
     mats = [_matrix(L, k) for k, (_, L) in enumerate(LARGE[:2])]
@@ -450,8 +450,8 @@ def test_solve_bucket_sharded_from_if_draws_per_chromosome():
         bm = torch.zeros(96)
         bm[:m.shape[0]] = 1.0
         own = [type(tiles[0][0])(target=tiles[0][0].target[c], w=tiles[0][0].w[c])]
-        xs = _start(group, own, bm, port_cfg.anneal, N_MODELS, gen)
-        seed = int(torch.randint(0, 2**31 - 1, (), generator=gen))
+        xs, seed = _draws(port_cfg.anneal, N_MODELS, bm, gen,
+                          lambda: sharded_landmark_init(group, own, bm, port_cfg.anneal))
         lone, _, _ = port_genome.solve_bucket_sharded_from_if(
             [m], 96, port_cfg, devices=["cpu"], xs=xs[None], noise_seeds=[seed])
         assert torch.equal(lone.coords[0], got.coords[c])
@@ -466,12 +466,13 @@ def test_solve_genome_sharded_runs_groups_in_lockstep(monkeypatch):
     other devices run at once: B4's launches alternate between the groups'
     noise seeds, and the results equal those of the groups run one after
     the other, bit for bit."""
-    from chromosome3d_tpu_torch.solver import sharded
+    from chromosome3d_tpu_torch.solver import anneal, sharded
 
     port_cfg, _ = _cfgs()
     mats = [_matrix(L, k) for k, (_, L) in enumerate(LARGE[:2])]
     order = []
-    real_update, real_lockstep = sharded.fused_update_table, sharded._in_lockstep
+    # B4 is called from the semi step loop, solver.anneal's _semi_steps
+    real_update, real_lockstep = anneal.fused_update_table, sharded._in_lockstep
 
     def spy(*args, seeds, **kwargs):
         order.append(tuple(seeds.tolist()))
@@ -481,7 +482,7 @@ def test_solve_genome_sharded_runs_groups_in_lockstep(monkeypatch):
         return port_genome.solve_bucket_sharded_from_if(mats, 96, port_cfg,
                                                         devices=["cpu"] * 4, base_seed=SEED)[0]
 
-    monkeypatch.setattr(sharded, "fused_update_table", spy)
+    monkeypatch.setattr(anneal, "fused_update_table", spy)
     got = solve()
     steps = port_cfg.anneal.total_steps
     assert len(order) == 2 * steps and len(set(order)) == 2

@@ -339,9 +339,9 @@ def test_solve_bucket_sharded_pads_L_and_draws_per_chromosome():
                              for f in dataclasses.fields(bucket)))
         strips = port_sharded.restraint_strips(group, type(bucket)(*(
             torch.from_numpy(getattr(bucket, f.name)[c]) for f in dataclasses.fields(bucket))))
-        xs = port_sharded._start(group, strips, torch.from_numpy(masks[c]), port_cfg.anneal,
-                                 N_MODELS, gen)
-        seed = int(torch.randint(0, 2**31 - 1, (), generator=gen))
+        bm = torch.from_numpy(masks[c])
+        xs, seed = port_anneal._draws(port_cfg.anneal, N_MODELS, bm, gen, lambda: (
+            port_sharded.sharded_landmark_init(group, strips, bm, port_cfg.anneal)))
         lone = port_genome.solve_bucket_sharded(one, masks[c:c + 1], port_cfg,
                                                 devices=["cpu"] * 2, xs=xs[None],
                                                 noise_seeds=[seed])
@@ -456,19 +456,28 @@ def test_genome_group_equals_lone_solves(genome_refs, genome_runs, name):
         _assert_bitwise(lone, got, c)
 
 
-def test_genome_group_refuses_or_groups():
+@pytest.mark.parametrize("backend", ["group", "stack"])
+def test_genome_group_refuses_or_groups(backend):
     """Or-groups belong to one chromosome: a shard group of two with
-    or-groups is refused before any step, naming why."""
+    or-groups, or a one-device stack of two, is refused before any step,
+    naming why (the check of the phases both backends share)."""
     port_cfg, _ = _cfgs(True)
     bucket, _, masks = _bucket(2, True)
-    group = shards.ShardGroup(["cpu"])
-    tiles = port_sharded._tiles(group, [ExactRestraints(
-        target=torch.from_numpy(bucket.target), w=torch.from_numpy(bucket.w))], 96)
-    body = port_sharded._group_body(group, tiles, torch.from_numpy(masks), port_cfg.anneal,
-                                    N_MODELS, torch.zeros((2, 2 * N_MODELS, 96, 3)), [1, 2],
-                                    "rows", or_groups=object())
-    with pytest.raises(ValueError, match="or-groups belong to one chromosome"):
-        next(body)
+    restraints = ExactRestraints(target=torch.from_numpy(bucket.target),
+                                 w=torch.from_numpy(bucket.w))
+    xs = torch.zeros((2, 2 * N_MODELS, 96, 3))
+    if backend == "group":
+        group = shards.ShardGroup(["cpu"])
+        tiles = port_sharded._tiles(group, [restraints], 96)
+        body = port_sharded._group_body(group, tiles, torch.from_numpy(masks), port_cfg.anneal,
+                                        N_MODELS, xs, [1, 2], "rows", or_groups=object())
+        with pytest.raises(ValueError, match="or-groups belong to one chromosome"):
+            next(body)
+    else:
+        rs = [port_anneal._chromosome(restraints, c) for c in range(2)]
+        with pytest.raises(ValueError, match="or-groups belong to one chromosome"):
+            port_anneal._solve_stack(rs, restraints, port_cfg.anneal, N_MODELS,
+                                     torch.from_numpy(masks), xs, [1, 2], or_groups=object())
 
 
 # ---- the one-device unfused stack ----

@@ -224,10 +224,12 @@ def test_table_steers_the_stacked_routes(entry, route, want, tmp_path, monkeypat
                                         base_seed=SEED)
     counts = tuple(a - b for a, b in zip(_counts(), before))
     assert counts == want(port_cfg.anneal.total_steps)
-    draws = [port_anneal._draws(port_anneal._chromosome(restraints, c), port_cfg.anneal,
-                                N_MODELS, masks[c], None,
-                                port_anneal.chromosome_generator(SEED, c), None, None)
-             for c in range(2)]
+    draws = []
+    for c in range(2):
+        gen = port_anneal.chromosome_generator(SEED, c)
+        draws.append(port_anneal._draws(port_cfg.anneal, N_MODELS, masks[c], gen, lambda: (
+            port_anneal.initial_structure(port_anneal._chromosome(restraints, c),
+                                          port_cfg.anneal, masks[c], gen))))
     _assert_lone_bitwise(restraints, masks, port_cfg.anneal,
                          torch.stack([x for x, _ in draws]), [s for _, s in draws], got)
     tri_energy._DISPATCH_CACHE.clear()
